@@ -1,0 +1,20 @@
+"""orbital_tpu_torch: the PyTorch / CUDA port of ``orbital_tpu`` for one
+NVIDIA H100.
+
+It mirrors ``orbital_tpu``'s layout (``engine/ ops/ utils/ models/``) with
+the same module and function names; each Pallas kernel module
+``pallas_X.py`` becomes ``cuda_X.py`` over a hand-written CUDA source in
+``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use. This package
+imports ``torch`` and never ``jax``.
+
+Ported so far: the exact-force leapfrog (KDK) path with f32/ds32/f64 state,
+the CUDA force sweep, the fused whole-rollout kernel, recorded rollouts and
+``simulate()`` for scene arrays. See ROADMAP.md queue A for the rest.
+"""
+from .engine.rollout import Trajectory, init_forces, rollout
+from .engine.state import NBodyState, Rescale, make_state
+from .simulate import SimResult, simulate
+from .utils.config import SimConfig
+
+__all__ = ["SimConfig", "NBodyState", "Rescale", "make_state", "init_forces",
+           "rollout", "Trajectory", "simulate", "SimResult"]

@@ -1,0 +1,188 @@
+"""Multi-step rollouts with trajectory recording on the device.
+
+The JAX package compiles a rollout into one ``lax.scan``. Here the loop is
+Python driving eager steps: no step reads a value back to the host (no
+``.item()``, no ``float()``), so the host only queues work, and the strided
+snapshots are written into record tensors preallocated on the state's
+device. The host gets the records when it asks for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..ops.forces import pairwise_acc_chunked, pairwise_acc_dense
+from ..utils.config import SimConfig
+from .integrators import ForceFn, make_step_fn
+from .state import NBodyState
+
+__all__ = ["Trajectory", "resolve_force_fn", "init_forces", "rollout"]
+
+# Above this body count the dense [N, N] path gives way to the CUDA kernel
+# (CUDA tensors) or the row-blocked path (CPU tensors) under "auto".
+_DENSE_MAX_N = 4096
+
+# ROADMAP.md queue A items that port the force paths this slice leaves out
+_NOT_PORTED = {
+    "pallas_sym": "A.16", "mxu": "A.16", "pallas_mxu": "A.16",
+    "pm": "A.12", "p3m": "A.12", "tree": "A.13", "ring": "A.15",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Trajectory:
+    """Strided rollout recording, time-major: [n_records, ...]."""
+
+    pos: torch.Tensor      # [R, N, 3]
+    vel: torch.Tensor      # [R, N, 3]
+    time: torch.Tensor     # [R]
+    energy: torch.Tensor   # [R] kinetic + cached softened potential
+    ang_mom: torch.Tensor  # [R, 3]
+    alive: torch.Tensor    # [R, N] bool per-record alive mask
+
+    @property
+    def n_records(self) -> int:
+        return self.pos.shape[0]
+
+
+def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
+                     dtype: torch.dtype = torch.float32) -> ForceFn:
+    """Pick the force implementation for a config, body count and device.
+
+    ``"auto"``: dense at N <= 4096; above it the CUDA kernel for CUDA
+    tensors and the row-blocked plain path for CPU tensors. ``"pallas"``
+    names the exact-force kernel and maps to the CUDA kernel. The kernels
+    are f32, so f64 state on CUDA raises (f64 is the CPU golden path).
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and dtype == torch.float64:
+        raise NotImplementedError(
+            "precision='f64' on CUDA: the CUDA kernels compute in float32; "
+            "use ds32 on the card and f64 on the CPU")
+    impl = cfg.force_impl
+    if impl in _NOT_PORTED:
+        raise NotImplementedError(
+            f"force_impl={impl!r} is not ported to orbital_tpu_torch yet "
+            f"(ROADMAP.md queue A item {_NOT_PORTED[impl]})")
+    if impl == "auto":
+        if n <= _DENSE_MAX_N:
+            impl = "dense"
+        elif device.type == "cuda":
+            impl = "pallas"
+        else:
+            impl = "chunked"
+
+    if impl == "dense":
+        return lambda pos, mass, alive: pairwise_acc_dense(
+            pos, mass, alive, G=cfg.G, eps2=cfg.eps2)
+    if impl == "chunked":
+        return lambda pos, mass, alive: pairwise_acc_chunked(
+            pos, mass, alive, G=cfg.G, eps2=cfg.eps2, chunk=min(cfg.chunk, n))
+    if impl == "pallas":
+        from ..ops.cuda_forces import pairwise_acc_cuda
+
+        return lambda pos, mass, alive: pairwise_acc_cuda(
+            pos, mass, alive, G=cfg.G, eps2=cfg.eps2,
+            with_potential=cfg.track_potential)
+    raise ValueError(f"unknown force_impl {impl!r}")
+
+
+def _force_fn_for(state: NBodyState, cfg: SimConfig) -> ForceFn:
+    return resolve_force_fn(cfg, state.n_bodies, state.device, state.dtype)
+
+
+def init_forces(state: NBodyState, cfg: SimConfig,
+                force_fn: Optional[ForceFn] = None) -> NBodyState:
+    """Seed the acceleration cache (the reference does this in the engine
+    constructor)."""
+    if cfg.integrator == "hermite":
+        raise NotImplementedError(
+            "integrator='hermite' (acc + jerk seeding) is not ported to "
+            "orbital_tpu_torch yet (ROADMAP.md queue A item A.8)")
+    fn = force_fn or _force_fn_for(state, cfg)
+    acc, potential = fn(state.pos, state.mass, state.alive)
+    return state.replace(acc=acc, potential=potential)
+
+
+def _snapshot(state: NBodyState) -> dict:
+    from ..ops import diagnostics as diag
+
+    vel = state.vel_full()
+    pos = state.pos_full()
+    return dict(
+        pos=pos,
+        vel=vel,
+        time=state.time,
+        energy=diag.total_energy(vel, state.mass, state.potential),
+        ang_mom=diag.angular_momentum(pos, vel, state.mass),
+        alive=state.alive,
+    )
+
+
+def _fused_eligible(state: NBodyState, cfg: SimConfig) -> bool:
+    """Route to the whole-rollout CUDA kernel? (kdk, no collisions,
+    softened, unbatched f32/ds32 state within FUSED_MAX_N, exact-force
+    policy, CUDA tensors)."""
+    from ..ops.fused_rollout import FUSED_MAX_N
+
+    return (
+        cfg.integrator == "kdk"
+        and cfg.collisions == "none"
+        and cfg.eps2 > 0.0
+        and cfg.force_impl in ("auto", "pallas")
+        and state.pos.ndim == 2
+        and state.dtype == torch.float32
+        and state.n_bodies <= FUSED_MAX_N
+        and state.device.type == "cuda"
+    )
+
+
+def rollout(
+    state: NBodyState,
+    cfg: SimConfig,
+    steps: int,
+    record_every: int = 0,
+    force_fn: Optional[ForceFn] = None,
+    fused: str = "auto",
+) -> tuple[NBodyState, Optional[Trajectory]]:
+    """Advance ``steps`` steps; optionally record every ``record_every``-th.
+
+    With recording, ``steps`` must divide into records; the snapshot after
+    each block of ``record_every`` steps is stored (the initial state is
+    not included).
+
+    Unrecorded eligible rollouts route to ``ops.fused_rollout`` (all steps
+    inside one kernel launch), then refresh the acceleration/potential
+    caches so the final state matches the stepper's. Pass
+    ``fused="never"`` to force the step loop.
+    """
+    fn = force_fn or _force_fn_for(state, cfg)
+    if (record_every <= 0 and steps > 0 and fused == "auto"
+            and _fused_eligible(state, cfg)):
+        from ..ops.fused_rollout import fused_rollout
+
+        final = fused_rollout(state, cfg, steps)
+        acc, potential = fn(final.pos, final.mass, final.alive)
+        return final.replace(acc=acc, potential=potential), None
+    step_fn = make_step_fn(cfg, fn)
+
+    if record_every <= 0:
+        for _ in range(steps):
+            state = step_fn(state)
+        return state, None
+
+    if steps % record_every != 0:
+        raise ValueError(f"steps={steps} not divisible by record_every={record_every}")
+    n_records = steps // record_every
+    first = _snapshot(state)
+    records = {k: torch.empty((n_records,) + tuple(v.shape), dtype=v.dtype,
+                              device=v.device)
+               for k, v in first.items()}
+    for r in range(n_records):
+        for _ in range(record_every):
+            state = step_fn(state)
+        for k, v in _snapshot(state).items():
+            records[k][r] = v
+    return state, Trajectory(**records)

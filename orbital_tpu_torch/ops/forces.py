@@ -1,0 +1,115 @@
+"""Softened O(N^2) pairwise gravity as plain tensor ops.
+
+For every pair,
+
+    a_i += G m_j (r_j - r_i) / (|r_j - r_i|^2 + eps^2)^(3/2)
+    U   += -G m_i m_j / sqrt(|r_j - r_i|^2 + eps^2)   (each pair once)
+
+Dead/padding bodies participate with mass 0, so they exert no force and
+contribute no potential; their own acceleration rows are zeroed by the
+alive mask.
+
+Two flavors, both on whatever device the tensors live on:
+  * :func:`pairwise_acc_dense`   -- materializes [N, N] per-coordinate
+    difference matrices (the path at N <= 4096).
+  * :func:`pairwise_acc_chunked` -- a loop over row blocks, O(chunk * N)
+    live memory; the CPU path at larger N and the plain version the CUDA
+    force kernel (``ops.cuda_forces``) is checked against. The last block
+    may be short, so N need not divide by ``chunk``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["pairwise_acc_dense", "pairwise_acc_chunked"]
+
+
+def _masked_inverse_r(r2, mask, eps2):
+    """1/sqrt(r2 + eps2) with masked entries (self-pairs, dead bodies)
+    forced to exactly zero, avoiding inf/NaN when eps = 0."""
+    r2s = r2 + eps2
+    safe = r2s > 0.0
+    inv_r = torch.where(safe, torch.rsqrt(torch.where(safe, r2s, torch.ones_like(r2s))),
+                        torch.zeros_like(r2s))
+    return torch.where(mask, inv_r, torch.zeros_like(inv_r))
+
+
+def _block_acc_potential(pos_i, pos_j, mass_j, mask, eps2, G):
+    """Accelerations on a row block of bodies from a column block.
+
+    pos_i: [I, 3], pos_j: [J, 3], mass_j: [J], mask: [I, J] valid-pair mask.
+    Returns (acc [I, 3], pe_row [I]) where pe_row_i = sum_j m_j * inv_r_ij
+    (caller multiplies by -G m_i and halves for double counting).
+    """
+    dx = pos_j[None, :, 0] - pos_i[:, None, 0]
+    dy = pos_j[None, :, 1] - pos_i[:, None, 1]
+    dz = pos_j[None, :, 2] - pos_i[:, None, 2]
+    r2 = dx * dx + dy * dy + dz * dz
+    inv_r = _masked_inverse_r(r2, mask, eps2)
+    inv_r3 = inv_r * inv_r * inv_r
+    w = mass_j[None, :] * inv_r3  # [I, J]
+    ax = torch.sum(w * dx, dim=1)
+    ay = torch.sum(w * dy, dim=1)
+    az = torch.sum(w * dz, dim=1)
+    pe_row = torch.sum(mass_j[None, :] * inv_r, dim=1)
+    return G * torch.stack([ax, ay, az], dim=-1), pe_row
+
+
+def _effective_mass(mass, alive):
+    return mass if alive is None else mass * alive.to(mass.dtype)
+
+
+def pairwise_acc_dense(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    alive: Optional[torch.Tensor] = None,
+    *,
+    G: float,
+    eps2: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense softened pairwise accelerations and total potential.
+
+    Args:
+        pos: [N, 3] positions. mass: [N]. alive: optional [N] bool mask.
+
+    Returns:
+        acc [N, 3] and the scalar softened potential U (pairs counted once).
+    """
+    n = pos.shape[0]
+    mass_eff = _effective_mass(mass, alive)
+    mask = ~torch.eye(n, dtype=torch.bool, device=pos.device)
+    acc, pe_row = _block_acc_potential(pos, pos, mass_eff, mask, eps2, G)
+    if alive is not None:
+        acc = acc * alive[:, None].to(acc.dtype)
+    U = -0.5 * G * torch.sum(mass_eff * pe_row)
+    return acc, U
+
+
+def pairwise_acc_chunked(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    alive: Optional[torch.Tensor] = None,
+    *,
+    G: float,
+    eps2: float,
+    chunk: int = 1024,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-blocked pairwise accelerations: O(chunk * N) live memory."""
+    n = pos.shape[0]
+    mass_eff = _effective_mass(mass, alive)
+    col_ids = torch.arange(n, device=pos.device)
+    acc_blocks, pe_blocks = [], []
+    for start in range(0, n, chunk):
+        stop = min(start + chunk, n)
+        mask = col_ids[start:stop, None] != col_ids[None, :]
+        a, pe = _block_acc_potential(pos[start:stop], pos, mass_eff, mask, eps2, G)
+        acc_blocks.append(a)
+        pe_blocks.append(pe)
+    acc = torch.cat(acc_blocks) if acc_blocks else torch.zeros_like(pos)
+    pe_row = torch.cat(pe_blocks) if pe_blocks else torch.zeros_like(mass_eff)
+    if alive is not None:
+        acc = acc * alive[:, None].to(acc.dtype)
+    U = -0.5 * G * torch.sum(mass_eff * pe_row)
+    return acc, U
