@@ -6,7 +6,8 @@
 Phases, one line of output each; any failure exits nonzero:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from ``orbital_tpu_torch/csrc`` with nvcc;
+  2. build the CUDA kernels from ``orbital_tpu_torch/csrc``, one nvcc per
+     source, all at once;
   3. the force kernel (B1) against its plain PyTorch version at N = 65536
      and a ragged N = 5000, PE on/off, eps2 > 0 and = 0, and the ds32 step
      at N = 8192 against the same step on plain forces;
@@ -17,16 +18,29 @@ Phases, one line of output each; any failure exits nonzero:
      with the energy drift measured in f64 (kinetic on the host, potential
      from the C++ oracle in ``native/``) against |dE/E| <= 1e-6;
   6. an unrecorded N = 4096 rollout, which routes to the fused kernel;
-  7. kernel and plain times (CUDA events, median and spread of 3 repeats).
+  7. the detecting force kernel (B2) against its plain version (chunked
+     forces plus the chunked contact count) at N = 65536 and 5000 with dead
+     bodies parked far, and against B1 bit for bit;
+  8. the bounce kernel (B6) against its plain version at N = 65536 on the
+     contact-rich cluster, and its skip on a zero count;
+  9. the collision main path, bench row: the same cluster with radius 1e-4
+     and ``collisions="bounce"`` through ``init_forces`` -> a recorded and an
+     unrecorded ``rollout``: no contacts, the drift budget, and a final state
+     bit-equal to the collision-free run;
+ 10. the collision main path, contact-rich: radius 3e-3, restitution 0.8,
+     200 steps, and the first 10 steps against the plain forces, counts and
+     bounce sweep;
+ 11. kernel and plain times (CUDA events, median and spread of 3 repeats).
 
-The launch counters of both kernels are reset before phase 5 and read after
-phase 6: each kernel must have run on the main path. The line before the
-last is a JSON summary of the kernels; the last line is
+The launch counters are set to 0 just before each main path (phases 5+6, 9
+and 10) and read just after it: each kernel must have run on its path. The
+line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -49,13 +63,53 @@ ENERGY_RTOL = 1e-5
 # positions / velocities after 10 KDK steps whose forces differ only in f32
 # summation order (the tolerance of the JAX package's own fused-rollout test)
 STATE_ATOL = 1e-6
+# bounce deltas of B6 against the chunked plain sweep, max |d dv| / max |dv|
+# and max |d dp| / max |dp|: the same formula in f32 with rsqrtf and fused
+# multiply-adds against torch's rounding
+BOUNCE_RTOL = 1e-5
+# the two radii of the collision runs: the bench row of bench.py:182-184
+# (~2e-3 touching pairs expected at t = 0) and a contact-rich one (~44)
+R_BENCH = 1e-4
+R_RICH = 3e-3
+# the headline body count, and the ragged count (and its radius) of the
+# kernel checks
+N_MAIN = 65536
+N_RAGGED = 5000
+R_RAGGED = 0.015
+
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
+# the tensor cores, device memory, and rsqrt on the special-function units
+# (16 a clock per SM, 132 SMs, 1.98 GHz boost).
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+PEAK_RSQRT = 16 * 132 * 1.98e9
+# f32 operations per pair, counted from the sources: B1 no-PE 3 differences,
+# r2 (5), + eps2, inv_r^3 (2), m_j * (1), three multiply-adds (6); B2 adds
+# (R_i + R_j) * 1.00001 and its square (3); B6 rejects a pair after the 3
+# differences, r2 (5), R_i + R_j and its square (10), and a touching pair
+# adds ~30 more (s, 1/m_j, base, the impulse and the de-overlap terms)
+OPS_B1, OPS_B2, OPS_B6, OPS_B6_TOUCH = 18, 21, 10, 30
 
 B1 = dict(name="nbody_forces", route="cuda",
           source="orbital_tpu_torch/csrc/nbody_forces.cu",
           replaces="orbital_tpu/ops/pallas_forces.py:55")
+B2 = dict(name="nbody_forces_detect", route="cuda",
+          source="orbital_tpu_torch/csrc/nbody_forces.cu",
+          replaces="orbital_tpu/ops/pallas_forces.py:302")
 B4 = dict(name="fused_kdk", route="cuda",
           source="orbital_tpu_torch/csrc/fused_rollout.cu",
           replaces="orbital_tpu/ops/fused_rollout.py:54")
+B6 = dict(name="bounce_deltas", route="cuda",
+          source="orbital_tpu_torch/csrc/collisions.cu",
+          replaces="orbital_tpu/ops/pallas_collisions.py:37")
+
+
+def bound(flops: float, nbytes: float, rsqrt: float = 0.0) -> tuple[float, str]:
+    """Least milliseconds the card could take: the larger of the operations
+    over their peak rate and the bytes over the memory rate."""
+    t_ops = max(flops / PEAK_F32, rsqrt / PEAK_RSQRT)
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def make_cluster(n: int, seed: int):
@@ -108,6 +162,70 @@ def time_ms(fn, iters: int, repeats: int = 3):
     return out
 
 
+def alternate_ms(fns: dict, iters: int, repeats: int = 3) -> dict:
+    """``time_ms`` of several functions in turns (a, b, b, a, ...), so that
+    drift of the card's clock hits them alike."""
+    out = {k: [] for k in fns}
+    names = list(fns)
+    for r in range(repeats):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            out[k] += time_ms(fns[k], iters, repeats=1)
+    return out
+
+
+def reset_launches() -> None:
+    from orbital_tpu_torch.ops import cuda_collisions, cuda_forces, fused_rollout
+
+    for fn in (cuda_forces.pairwise_acc_cuda, cuda_forces.pairwise_acc_detect_cuda,
+               fused_rollout.fused_rollout, cuda_collisions.bounce_deltas_cuda):
+        fn.launches = 0
+
+
+@contextlib.contextmanager
+def plain_bounce():
+    """Route the stepper's bounce sweep on CUDA tensors to the plain version
+    instead of the kernel, for a run that is held against the kernel's."""
+    from orbital_tpu_torch.ops import cuda_collisions
+
+    kernel = cuda_collisions.bounce_deltas_cuda
+    cuda_collisions.bounce_deltas_cuda = cuda_collisions.bounce_deltas_plain
+    try:
+        yield
+    finally:
+        cuda_collisions.bounce_deltas_cuda = kernel
+
+
+class StepLog:
+    """Wraps the closing force function of a run (with or without contact
+    detection) and logs what it sees on the device: the positions of every
+    step if asked, and for a detecting function the sum of its contact
+    counts, the number of steps with a count > 0 and, if asked, each step's
+    count. Nothing is read back until the run is over."""
+
+    def __init__(self, fn, keep_pos: bool = False, keep_counts: bool = False):
+        self.fn = fn
+        self.total = self.steps = None
+        self.positions = [] if keep_pos else None
+        self.counts = [] if keep_counts else None
+
+    def __call__(self, pos, *rest):
+        import torch
+
+        out = self.fn(pos, *rest)
+        if self.positions is not None:
+            self.positions.append(pos)
+        if len(out) == 3:
+            c = out[2]
+            if self.total is None:
+                self.total = torch.zeros((), dtype=torch.int64, device=c.device)
+                self.steps = torch.zeros_like(self.total)
+            self.total += c
+            self.steps += (c > 0).to(self.steps.dtype)
+            if self.counts is not None:
+                self.counts.append(c)
+        return out
+
+
 def summary(times):
     return {"median": statistics.median(times), "spread": max(times) - min(times),
             "runs": times}
@@ -131,7 +249,22 @@ class Smoke:
         self.dev = torch.device("cuda", 0)
         self.seed = seed
         self.drift_steps = drift_steps
-        self.kernels = {"B1": dict(B1), "B4": dict(B4)}
+        self.kernels = {"B1": dict(B1), "B2": dict(B2), "B4": dict(B4), "B6": dict(B6)}
+        self._cluster = None
+        self.main_ms_per_step = None
+
+    def cluster(self):
+        """The 65,536-body virialised cluster and its f64 energy after
+        ``init_forces`` (made once; every N = 65,536 path starts from it)."""
+        if self._cluster is None:
+            import orbital_tpu_torch as ot
+
+            pos, vel, mass = make_cluster(N_MAIN, self.seed)
+            cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2)
+            st = ot.init_forces(ot.make_state(pos, vel, mass, precision="ds32",
+                                              device=self.dev), cfg)
+            self._cluster = (pos, vel, mass, energy_f64(st))
+        return self._cluster
 
     # phase 1
     def device_info(self) -> str:
@@ -144,20 +277,22 @@ class Smoke:
 
     # phase 2
     def build(self) -> str:
-        from orbital_tpu_torch.ops import cuda_forces, fused_rollout
+        from orbital_tpu_torch.ops import cuda_collisions, cuda_forces, fused_rollout
         from orbital_tpu_torch.utils import kernels
 
+        names = ("nbody_forces", "fused_rollout", "collisions")
         t0 = time.perf_counter()
+        kernels.build(names)
         cuda_forces._load()
         fused_rollout._load()
+        cuda_collisions._load()
         total = time.perf_counter() - t0
-        for name in ("nbody_forces", "fused_rollout"):
+        for name in names:
             for line in kernels.build_log(name).splitlines():
-                if "registers" in line or "spill" in line:
+                if "entry function" in line or "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}", file=sys.stderr)
-        return (f"built nbody_forces in {kernels.build_seconds('nbody_forces'):.2f} s, "
-                f"fused_rollout in {kernels.build_seconds('fused_rollout'):.2f} s "
-                f"(load total {total:.2f} s) for sm_90a")
+        each = ", ".join(f"{n} {kernels.build_seconds(n):.2f} s" for n in names)
+        return f"built {each} in parallel (load total {total:.2f} s) for sm_90a"
 
     # phase 3
     def check_forces(self) -> str:
@@ -166,7 +301,7 @@ class Smoke:
 
         rng = np.random.default_rng(self.seed + 1)
         worst = {}
-        for n in (65536, 5000):
+        for n in (N_MAIN, N_RAGGED):
             pos = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=self.dev)
             mass = torch.tensor(rng.uniform(0.5, 1.5, n) / n, dtype=torch.float32,
                                 device=self.dev)
@@ -191,7 +326,7 @@ class Smoke:
                                              f"{rel:.3e}, |dU/U| = {u_rel:.3e}")
                     if not pe and float(U) != 0.0:
                         raise AssertionError("B1 with_potential=False must give U = 0")
-                    if n == 65536 and eps2 > 0 and not pe:
+                    if n == N_MAIN and eps2 > 0 and not pe:
                         self.kernels["B1"]["max_abs_err"] = abs_err
                         # both f32 sums against the same sum in f64
                         a64, _ = pairwise_acc_plain(pos.double(), mass.double(), alive,
@@ -263,18 +398,16 @@ class Smoke:
         from orbital_tpu_torch.utils import native
 
         torch = self.torch
-        n = 65536
-        pos, vel, mass = make_cluster(n, self.seed)
+        n = N_MAIN
+        pos, vel, mass, E0 = self.cluster()
         cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2)
         state = ot.make_state(pos, vel, mass, precision="ds32", device=self.dev)
         small = make_cluster(4096, self.seed)
         state_small = ot.make_state(*small, precision="ds32", device=self.dev)
 
-        pairwise_acc_cuda.launches = 0
-        fused_rollout.launches = 0
+        reset_launches()
 
         state = ot.init_forces(state, cfg)
-        E0 = energy_f64(state)
         rec, traj = ot.rollout(state, cfg, 20, record_every=10)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -311,6 +444,7 @@ class Smoke:
             raise AssertionError(f"energy drift {drift:.3e} (N=65536) / "
                                  f"{drift_small:.3e} (N=4096) over budget {DRIFT_BUDGET:g}")
         ms_per_step = 1e3 * wall / self.drift_steps
+        self.main_ms_per_step = ms_per_step
         line5 = (f"N=65536 ds32: init_forces + 20 recorded + {self.drift_steps} unrecorded "
                  f"steps, |dE/E| = {drift:.3e} <= {DRIFT_BUDGET:g} (f64, {native.backend()}); "
                  f"{ms_per_step:.3f} ms/step wall; B1 launches {b1_main}")
@@ -318,15 +452,294 @@ class Smoke:
                  f"B4 launches {fused_rollout.launches}")
         return line5, line6
 
+    def scene(self, n: int, radius: float, dead: int, seed_offset: int):
+        """Cluster positions and velocities with radii in [R/2, 3R/2] and
+        ``dead`` bodies at the end, parked far as make_state parks padding:
+        f32 tensors (pos, vel, mass, radius, alive) on the card."""
+        from orbital_tpu_torch.engine.state import far_positions
+
+        torch = self.torch
+        rng = np.random.default_rng(self.seed + seed_offset)
+        if n == N_MAIN:
+            pos, vel, mass, _ = self.cluster()
+            pos, vel = pos.copy(), vel.copy()
+        else:
+            pos, vel, mass = rng.normal(size=(n, 3)), rng.normal(size=(n, 3)) * 0.3, \
+                np.full(n, 1.0 / n)
+        rad = radius * rng.uniform(0.5, 1.5, n)
+        alive = np.ones(n, bool)
+        if dead:
+            alive[-dead:] = False
+            pos[-dead:] = far_positions(dead, float(np.abs(pos).max()), np.float32,
+                                        start=n - dead)
+
+        def t(a, dtype=torch.float32):
+            return torch.tensor(a, dtype=dtype, device=self.dev)
+
+        return t(pos), t(vel), t(mass), t(rad), t(alive, torch.bool)
+
     # phase 7
+    def check_detect(self) -> str:
+        torch = self.torch
+        from orbital_tpu_torch.ops.cuda_forces import (pairwise_acc_cuda,
+                                                       pairwise_acc_detect_cuda,
+                                                       pairwise_acc_detect_plain)
+
+        lines = []
+        for n, radius, dead in ((N_MAIN, R_RICH, 7), (N_RAGGED, R_RAGGED, 7), (N_MAIN, R_BENCH, 0)):
+            pos, _, mass, rad, alive = self.scene(n, radius, dead, seed_offset=5)
+            for eps2 in (EPS2, 0.0):
+                a0, U0, c0 = pairwise_acc_detect_plain(pos, mass, rad, alive, G=1.0,
+                                                       eps2=eps2, with_potential=True)
+                for pe in (True, False):
+                    a, U, c = pairwise_acc_detect_cuda(pos, mass, rad, alive, G=1.0,
+                                                       eps2=eps2, with_potential=pe)
+                    a1, U1 = pairwise_acc_cuda(pos, mass, alive, G=1.0, eps2=eps2,
+                                               with_potential=pe)
+                    torch.cuda.synchronize()
+                    key = f"N={n},R={radius:g},eps2={eps2:g},pe={int(pe)}"
+                    if c.dtype != torch.int32 or c.device != pos.device or c.ndim != 0:
+                        raise AssertionError(f"B2 count is not an int32 on the card: {c}")
+                    count, count0 = int(c), int(c0)
+                    if count != count0:
+                        raise AssertionError(f"B2 {key}: {count} contacts, plain {count0}")
+                    if (radius == R_BENCH) != (count == 0):
+                        raise AssertionError(f"B2 {key}: {count} contacts")
+                    if not (torch.equal(a, a1) and torch.equal(U, U1)):
+                        raise AssertionError(f"B2 {key}: acc or U differs from B1's")
+                    abs_err = float((a - a0).abs().max())
+                    rel = abs_err / float(a0.abs().max())
+                    u_rel = abs(float(U) - float(U0)) / abs(float(U0))
+                    if rel > FORCE_RTOL or (pe and u_rel > ENERGY_RTOL):
+                        raise AssertionError(f"B2 vs plain {key}: max|da|/max|a| = "
+                                             f"{rel:.3e}, |dU/U| = {u_rel:.3e}")
+                    if not pe and float(U) != 0.0:
+                        raise AssertionError("B2 with_potential=False must give U = 0")
+                    if n == N_MAIN and radius == R_RICH and eps2 > 0 and not pe:
+                        self.kernels["B2"]["max_abs_err"] = abs_err
+                        self.rich_contacts = count
+                    if not pe:
+                        lines.append(f"{key}: {count} contacts, {rel:.2e}")
+        return (f"B2 == plain: contacts exactly, max|da|/max|a| <= {FORCE_RTOL:g}, "
+                f"|dU/U| <= {ENERGY_RTOL:g}; acc and U bit-equal to B1's "
+                f"[{'; '.join(lines)}]; contact-rich N={N_MAIN} at t=0: "
+                f"{self.rich_contacts} directed = {self.rich_contacts // 2} pairs")
+
+    # phase 8
+    def check_bounce(self) -> str:
+        torch = self.torch
+        from orbital_tpu_torch.ops.collisions import bounce_deltas_chunked
+        from orbital_tpu_torch.ops.cuda_collisions import bounce_deltas_cuda
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_detect_cuda
+
+        pos, vel, mass, rad, alive = self.scene(N_MAIN, R_RICH, 7, seed_offset=5)
+        _, _, count = pairwise_acc_detect_cuda(pos, mass, rad, alive, G=1.0, eps2=EPS2,
+                                               with_potential=False)
+        dp, dv = bounce_deltas_cuda(pos, vel, mass, rad, alive, restitution=0.8)
+        dp_c, dv_c = bounce_deltas_cuda(pos, vel, mass, rad, alive, restitution=0.8,
+                                        contacts=count)
+        zero = torch.zeros((), dtype=torch.int32, device=self.dev)
+        dp_z, dv_z = bounce_deltas_cuda(pos, vel, mass, rad, alive, restitution=0.8,
+                                        contacts=zero)
+        dp0, dv0 = bounce_deltas_chunked(pos, vel, mass, rad, alive, restitution=0.8)
+        torch.cuda.synchronize()
+        touched = int((dv0.abs().amax(1) > 0).sum())
+        if int(count) <= 0 or touched == 0:
+            raise AssertionError(f"no contacts in the contact-rich scene ({int(count)})")
+        err_v = float((dv - dv0).abs().max())
+        err_p = float((dp - dp0).abs().max())
+        rel_v, rel_p = err_v / float(dv0.abs().max()), err_p / float(dp0.abs().max())
+        if rel_v > BOUNCE_RTOL or rel_p > BOUNCE_RTOL:
+            raise AssertionError(f"B6 vs plain: max|d dv|/max|dv| = {rel_v:.3e}, "
+                                 f"max|d dp|/max|dp| = {rel_p:.3e}")
+        dead = ~alive
+        if bool(dv[dead].any()) or bool(dp[dead].any()):
+            raise AssertionError("B6 dead rows not exactly 0")
+        m = mass.double()[:, None]
+        p_sum = float((m * dv.double()).sum(0).abs().max())
+        p_abs = float((m * dv.double().abs()).sum())
+        if p_sum > 1e-5 * p_abs:
+            raise AssertionError(f"B6 momentum: |sum m dv| = {p_sum:.3e} against "
+                                 f"sum m |dv| = {p_abs:.3e}")
+        if not (torch.equal(dv_c, dv) and torch.equal(dp_c, dp)):
+            raise AssertionError("B6 gated on a count > 0 differs from the ungated sweep")
+        if bool(dv_z.any()) or bool(dp_z.any()):
+            raise AssertionError("B6 with a zero count is not exactly 0")
+        self.kernels["B6"]["max_abs_err"] = err_v
+        return (f"B6 == plain at N={N_MAIN} R={R_RICH:g} e=0.8 ({int(count)} contacts, "
+                f"{touched} bodies bounced): max|d dv|/max|dv| = {rel_v:.2e}, "
+                f"max|d dp|/max|dp| = {rel_p:.2e} <= {BOUNCE_RTOL:g}; dead rows 0; "
+                f"|sum m dv| / sum m|dv| = {p_sum / p_abs:.2e}; zero count -> exact zeros")
+
+    # phase 9
+    def bounce_bench_row(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.rollout import resolve_force_detect_fn, resolve_force_fn
+        from orbital_tpu_torch.ops.cuda_collisions import bounce_deltas_cuda
+        from orbital_tpu_torch.ops.cuda_forces import (pairwise_acc_cuda,
+                                                       pairwise_acc_detect_cuda)
+
+        torch = self.torch
+        n = N_MAIN
+        pos, vel, mass, E0 = self.cluster()
+        radius = np.full(n, R_BENCH)
+        runs = {}
+        for mode in ("bounce", "none"):
+            cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, collisions=mode, restitution=1.0)
+            state = ot.make_state(pos, vel, mass, radius, precision="ds32", device=self.dev)
+            resolve = resolve_force_detect_fn if mode == "bounce" else resolve_force_fn
+            log = StepLog(resolve(cfg, n, self.dev), keep_pos=True, keep_counts=True)
+            hook = dict(force_detect_fn=log) if mode == "bounce" else dict(force_fn=log)
+            if mode == "bounce":
+                _, _, c0 = pairwise_acc_detect_cuda(state.pos, state.mass, state.radius,
+                                                    state.alive, G=1.0, eps2=EPS2)
+                contacts0 = int(c0)
+                reset_launches()
+            state = ot.init_forces(state, cfg)
+            rec, _ = ot.rollout(state, cfg, 20, record_every=10, fused="never", **hook)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cfg = cfg.replace(track_potential=False)
+            log.fn = resolve(cfg, n, self.dev)
+            fin, _ = ot.rollout(rec, cfg, self.drift_steps, fused="never", **hook)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if mode == "bounce":
+                launches = (pairwise_acc_cuda.launches, pairwise_acc_detect_cuda.launches,
+                            bounce_deltas_cuda.launches)
+            runs[mode] = (fin, 1e3 * wall / self.drift_steps, log)
+        (fin, ms_bounce, log), (other, ms_none, log_none) = runs["bounce"], runs["none"]
+        drift = abs((energy_f64(fin) - E0) / E0)
+        b1, b2, b6 = launches
+        self.kernels["B2"]["launches"] = b2
+        self.kernels["B6"]["launches"] = b6
+        steps = 20 + self.drift_steps
+        counts = torch.stack(log.counts).cpu().numpy()
+        hit = [int(k) + 1 for k in np.flatnonzero(counts)]  # steps with contacts, from 1
+        if contacts0 != 0:
+            raise AssertionError(f"bench row: {contacts0} contacts at t=0")
+        if b2 != steps or b6 != steps or b1 != 1:
+            raise AssertionError(f"bench row launches: B1 {b1}, B2 {b2}, B6 {b6}")
+        if drift > DRIFT_BUDGET or not bool(torch.isfinite(fin.pos).all()):
+            raise AssertionError(f"bench row drift {drift:.3e} over budget {DRIFT_BUDGET:g}")
+        # every step before the first contact is bit-equal to the
+        # collision-free run (a bounce at the end of step k first shows in
+        # the positions of step k + 1); without contacts, the whole run is
+        differ = next((k + 1 for k, (a, b) in enumerate(zip(log.positions,
+                                                             log_none.positions))
+                       if not torch.equal(a, b)), None)
+        if hit:
+            if differ is not None and differ <= hit[0]:
+                raise AssertionError(f"bench row: positions differ from the collision-free "
+                                     f"run at step {differ}, before the first contact "
+                                     f"(step {hit[0]})")
+            same = f"bit-equal to collisions='none' through step {hit[0]}"
+        else:
+            if differ is not None:
+                raise AssertionError(f"bench row: positions differ at step {differ}")
+            for f in ("pos", "pos_lo", "vel", "vel_lo", "acc", "potential", "step"):
+                if not torch.equal(getattr(fin, f), getattr(other, f)):
+                    raise AssertionError(f"bench row: final {f} differs from the "
+                                         "collision-free run")
+            same = "final state bit-equal to collisions='none'"
+        self.bench_row = dict(contacts=int(counts.sum()), steps_hit=hit, first_diff=differ)
+        return (f"N={n} ds32 bounce R={R_BENCH:g} e=1: init_forces + 20 recorded + "
+                f"{self.drift_steps} unrecorded steps; contacts 0 at t=0, "
+                f"{int(counts.sum())} over the run on steps {hit}; {same} (positions first "
+                f"differ at step {differ}); |dE/E| = {drift:.3e} <= {DRIFT_BUDGET:g}; "
+                f"{ms_bounce:.3f} ms/step wall armed vs {ms_none:.3f} without; launches "
+                f"B1 {b1}, B2 {b2}, B6 {b6}")
+
+    # phase 10
+    def bounce_contact_rich(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.rollout import resolve_force_detect_fn
+        from orbital_tpu_torch.ops.cuda_collisions import bounce_deltas_cuda
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_detect_cuda
+
+        torch = self.torch
+        n = N_MAIN
+        pos, vel, mass, _ = self.cluster()
+        radius = np.full(n, R_RICH)
+        cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, collisions="bounce", restitution=0.8,
+                           track_potential=False)
+        state = ot.make_state(pos, vel, mass, radius, precision="ds32", device=self.dev)
+        _, _, c0 = pairwise_acc_detect_cuda(state.pos, state.mass, state.radius,
+                                            state.alive, G=1.0, eps2=EPS2,
+                                            with_potential=False)
+        contacts0 = int(c0)
+        if contacts0 < 20:
+            raise AssertionError(f"contact-rich: only {contacts0} directed contacts at t=0")
+
+        reset_launches()
+        tally = StepLog(resolve_force_detect_fn(cfg, n, self.dev))
+        start = ot.init_forces(state, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin, _ = ot.rollout(start, cfg, 200, force_detect_fn=tally)
+        torch.cuda.synchronize()
+        ms_step = 1e3 * (time.perf_counter() - t0) / 200
+        b2, b6 = pairwise_acc_detect_cuda.launches, bounce_deltas_cuda.launches
+        steps_hit, total = int(tally.steps), int(tally.total)
+        if b2 != 200 or b6 != 200 or steps_hit == 0:
+            raise AssertionError(f"contact-rich: B2 {b2}, B6 {b6} launches, contacts on "
+                                 f"{steps_hit} steps")
+        if not (bool(torch.isfinite(fin.pos).all()) and bool(torch.isfinite(fin.vel).all())):
+            raise AssertionError("contact-rich: non-finite state")
+        moved = float((fin.vel_full() - ot.rollout(
+            ot.init_forces(state, cfg.replace(collisions="none")),
+            cfg.replace(collisions="none"), 200, fused="never")[0].vel_full()).abs().max())
+        if moved == 0.0:
+            raise AssertionError("contact-rich: the bounces changed nothing")
+
+        # the first 10 steps, one at a time, on the kernels and on the plain
+        # forces, counts and bounce sweep
+        runs = {}
+        for impl in ("auto", "chunked"):
+            c = cfg.replace(force_impl=impl)
+            tally = StepLog(resolve_force_detect_fn(c, n, self.dev), keep_counts=True)
+            with plain_bounce() if impl == "chunked" else contextlib.nullcontext():
+                s = ot.init_forces(state, c)
+                states = []
+                for _ in range(10):
+                    s, _ = ot.rollout(s, c, 1, force_detect_fn=tally)
+                    states.append(s)
+                torch.cuda.synchronize()
+            runs[impl] = (states, [int(x) for x in tally.counts])
+        (k_states, k_counts), (p_states, p_counts) = runs["auto"], runs["chunked"]
+        gates = [(a > 0) == (b > 0) for a, b in zip(k_counts, p_counts)]
+        upto = gates.index(False) if False in gates else 10
+        note = "gate decisions agree on all 10 steps"
+        if upto < 10:
+            note = (f"a grazing pair flips the gate at step {upto + 1} (counts "
+                    f"{k_counts[upto]} vs {p_counts[upto]}): compared at step {upto}")
+        if upto == 0:
+            raise AssertionError(f"contact-rich: gates differ at step 1 ({note})")
+        err = max_state_err(k_states[upto - 1], p_states[upto - 1])
+        if err > STATE_ATOL:
+            raise AssertionError(f"contact-rich: kernels vs plain after {upto} steps: "
+                                 f"{err:.3e} > {STATE_ATOL:g}")
+        return (f"N={N_MAIN} ds32 bounce R={R_RICH:g} e=0.8: {contacts0} directed contacts "
+                f"at t=0 ({contacts0 // 2} pairs); 200 steps at {ms_step:.3f} ms/step wall, "
+                f"contacts > 0 on {steps_hit} of them ({total} summed), launches B2 {b2}, "
+                f"B6 {b6}, finite, bounces moved "
+                f"max|dv| {moved:.2e} against the collision-free run; kernels vs plain "
+                f"over {upto} steps max diff {err:.2e} <= {STATE_ATOL:g} ({note}; counts "
+                f"kernel {k_counts} plain {p_counts})")
+
+    # phase 11
     def timings(self) -> str:
         import orbital_tpu_torch as ot
-        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_cuda, pairwise_acc_plain
+        from orbital_tpu_torch.ops.cuda_collisions import bounce_deltas_cuda, bounce_deltas_plain
+        from orbital_tpu_torch.ops.cuda_forces import (pairwise_acc_cuda,
+                                                       pairwise_acc_detect_cuda,
+                                                       pairwise_acc_detect_plain,
+                                                       pairwise_acc_plain)
         from orbital_tpu_torch.ops.fused_rollout import fused_rollout, fused_rollout_plain
 
         torch = self.torch
         rng = np.random.default_rng(self.seed + 4)
-        n = 65536
+        n = N_MAIN
         pos = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=self.dev)
         mass = torch.full((n,), 1.0 / n, dtype=torch.float32, device=self.dev)
         alive = torch.ones(n, dtype=torch.bool, device=self.dev)
@@ -361,12 +774,63 @@ class Smoke:
                 lambda: fused_rollout_plain(st_f, cfg_f, p_steps), 1)])
             fused[n_f] = (kern, plain)
 
-        self.kernels["B1"].update(ms=b1["median"], plain_ms=b1p["median"])
-        self.kernels["B4"].update(ms=fused[4096][0]["median"],
-                                  plain_ms=fused[4096][1]["median"])
+        # B2 on B1's inputs with the bench row's radius (no contacts)
+        rad = torch.full((n,), R_BENCH, dtype=torch.float32, device=self.dev)
+        b2 = summary(time_ms(lambda: pairwise_acc_detect_cuda(
+            pos, mass, rad, alive, G=1.0, eps2=EPS2, with_potential=False), 20))
+        b2p = summary(time_ms(lambda: pairwise_acc_detect_plain(
+            pos, mass, rad, alive, G=1.0, eps2=EPS2, with_potential=False), 1))
+
+        # B6 on the contact-rich cluster, with the count B2 gives it and with 0
+        pos6, vel6, mass6, rad6, alive6 = self.scene(n, R_RICH, 0, seed_offset=5)
+        _, _, count6 = pairwise_acc_detect_cuda(pos6, mass6, rad6, alive6, G=1.0,
+                                                eps2=EPS2, with_potential=False)
+        touching = int(count6)
+        zero = torch.zeros((), dtype=torch.int32, device=self.dev)
+
+        def b6_call(contacts, fn=bounce_deltas_cuda):
+            return lambda: fn(pos6, vel6, mass6, rad6, alive6, restitution=0.8,
+                              contacts=contacts)
+
+        b6 = summary(time_ms(b6_call(count6), 20))
+        b6z = summary(time_ms(b6_call(zero), 200))
+        b6p = summary(time_ms(b6_call(count6, bounce_deltas_plain), 1))
+
+        # the ds32 step at N = 65,536 with bounce armed (the bench row: no
+        # contacts) against the same step without collisions, in turns
+        pos_c, vel_c, mass_c, _ = self.cluster()
+        armed = {}
+        for mode in ("none", "bounce"):
+            cfg_c = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, collisions=mode,
+                                 track_potential=False)
+            st_c = ot.init_forces(ot.make_state(pos_c, vel_c, mass_c, np.full(n, R_BENCH),
+                                                precision="ds32", device=self.dev), cfg_c)
+            armed[mode] = (lambda s_, c_: lambda: ot.rollout(s_, c_, 10, fused="never"))(
+                st_c, cfg_c)
+        armed = {k: summary([t / 10 for t in v])
+                 for k, v in alternate_ms(armed, 1, repeats=3).items()}
+
+        n_f = 4096
+        state_bytes = (12 + 2) * 4 * n_f + 12 * 4 * n_f  # read once, written once a launch
+        bounds = {
+            "B1": bound(OPS_B1 * n * n, 32 * n, rsqrt=n * n),
+            "B2": bound(OPS_B2 * n * n, 36 * n + 4, rsqrt=n * n),
+            "B4": bound(OPS_B1 * n_f * n_f, state_bytes / 200, rsqrt=n_f * n_f),
+            "B6": bound(OPS_B6 * n * n + OPS_B6_TOUCH * touching, 57 * n + 4),
+        }
+        bound_b6_zero = bound(0.0, 24 * n + 4)
+        timed = {"B1": (b1, b1p), "B2": (b2, b2p), "B4": fused[4096], "B6": (b6, b6p)}
+        for k, (kern, plain) in timed.items():
+            self.kernels[k].update(ms=kern["median"], plain_ms=plain["median"],
+                                   bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                                   library_ms=None)
         self.perf = {"B1_nope_N65536": (b1, b1p), "B1_pe_N65536": b1pe,
                      "ds32_step_N65536": (step_k, step_p), "B4_N4096": fused[4096],
-                     "B4_N32768": fused[32768]}
+                     "B4_N32768": fused[32768], "B2_nope_N65536": (b2, b2p),
+                     "B6_N65536_contacts": (b6, b6p), "B6_N65536_count0": b6z,
+                     "B6_bound_count0_ms": bound_b6_zero[0], "B6_touching": touching,
+                     "ds32_step_N65536_none_vs_bounce": (armed["none"], armed["bounce"]),
+                     "bounds_ms": bounds}
         print("perf " + json.dumps(self.perf), file=sys.stderr)
 
         def ms(s):
@@ -376,7 +840,11 @@ class Smoke:
                 f"ds32 step N=65536 {step_k['median']:.3f} vs plain "
                 f"{step_p['median']:.3f} ms/step; B4 N=4096 {ms(fused[4096][0])}/step vs "
                 f"plain {ms(fused[4096][1])}/step; B4 N=32768 {ms(fused[32768][0])}/step "
-                f"vs plain {ms(fused[32768][1])}/step")
+                f"vs plain {ms(fused[32768][1])}/step; B2 N=65536 no-PE {ms(b2)} vs plain "
+                f"{ms(b2p)}; B6 N=65536 {touching} contacts {ms(b6)}, count 0 {ms(b6z)}, "
+                f"plain {ms(b6p)}; ds32 step N=65536 without collisions "
+                f"{ms(armed['none'])}, bounce armed {ms(armed['bounce'])}; bounds "
+                + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()))
 
 
 def main(argv=None) -> int:
@@ -406,7 +874,11 @@ def main(argv=None) -> int:
         ("3 forces", smoke.check_forces),
         ("4 fused", smoke.check_fused),
         ("5+6 main path", smoke.main_path),
-        ("7 timings", smoke.timings),
+        ("7 detect", smoke.check_detect),
+        ("8 bounce", smoke.check_bounce),
+        ("9 bounce bench row", smoke.bounce_bench_row),
+        ("10 bounce contact-rich", smoke.bounce_contact_rich),
+        ("11 timings", smoke.timings),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()

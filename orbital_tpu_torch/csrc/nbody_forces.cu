@@ -1,10 +1,12 @@
 // Softened O(N^2) pairwise gravity for Hopper (sm_90a).
 //
 // Replaces: orbital_tpu/ops/pallas_forces.py::_nbody_kernel (the TPU force
-// sweep behind pairwise_acc_pallas), in its PE and no-PE variants.
+// sweep behind pairwise_acc_pallas), in its PE and no-PE variants (B1), and
+// its detect=True variant behind pairwise_acc_detect_pallas (B2).
 //
 //   acc_i = G sum_j m_j (r_j - r_i) / (|r_j - r_i|^2 + eps^2)^(3/2)
 //   pe_i  =   sum_j m_j / sqrt(|r_j - r_i|^2 + eps^2)          (optional)
+//   count += #{(i, j) : |r_j - r_i|^2 <= ((R_i + R_j) * 1.00001)^2}  (B2)
 //
 // What bounds it on this card: arithmetic. Each pair costs ~20 flops and one
 // rsqrtf (the SFU issues 16 a clock per SM against 128 FMA lanes), for 16
@@ -26,6 +28,18 @@
 // and coincident bodies. Never mask i == j here as well: the caller's
 // self-PE subtraction would then remove the self term twice.
 //
+// Contact detection (kDetect, B2): the same kernel with the radii (times
+// alive) streamed beside the float4 tiles. The force arithmetic is B1's, op
+// for op: the count reads the same unsoftened r2 and adds integer work only,
+// so a contact-free step on B2 is bit-equal to one on B1. Each thread counts
+// in an int, each block reduces its threads' counts and adds them to one
+// int32 with one atomicAdd. Self pairs (r2 = 0) are counted, as in the TPU
+// kernel: the caller starts the counter at -N instead of 0 (and does not
+// subtract N afterwards). Dead bodies carry radius 0 and sit at spread-out
+// far positions, so they add only their own self pair. The 1e-5 inflation
+// keeps the gate conservative: a grazing pair can cost a redundant bounce
+// sweep but never skip one.
+//
 // Plain C interface for ctypes: pointers and the stream are void*, and the
 // entry point returns cudaGetLastError() of its launch.
 #include <cuda_runtime.h>
@@ -37,11 +51,11 @@ constexpr int kBlock = 128;
 // Sums one tile into fresh partials, which the caller adds to its running
 // totals: a two-level sum whose f32 rounding error grows with the tile and
 // tile counts, not with N.
-template <bool kPE, bool kSoft>
-__device__ __forceinline__ void accumulate_tile(const float4* tile, int count,
-                                                float4 pi, float eps2,
-                                                float& ax, float& ay, float& az,
-                                                float& pe) {
+template <bool kPE, bool kSoft, bool kDetect>
+__device__ __forceinline__ void accumulate_tile(const float4* tile, const float* rtile,
+                                                int count, float4 pi, float ri,
+                                                float eps2, float& ax, float& ay,
+                                                float& az, float& pe, int& touch) {
   ax = ay = az = pe = 0.0f;
 #pragma unroll 8
   for (int k = 0; k < count; ++k) {
@@ -50,6 +64,10 @@ __device__ __forceinline__ void accumulate_tile(const float4* tile, int count,
     const float dy = pj.y - pi.y;
     const float dz = pj.z - pi.z;
     const float r2 = dx * dx + dy * dy + dz * dz;
+    if (kDetect) {
+      const float rsum = (ri + rtile[k]) * 1.00001f;
+      touch += r2 <= rsum * rsum;
+    }
     float inv_r;
     if (kSoft) {
       inv_r = rsqrtf(r2 + eps2);
@@ -64,23 +82,32 @@ __device__ __forceinline__ void accumulate_tile(const float4* tile, int count,
   }
 }
 
-template <bool kPE, bool kSoft>
+template <bool kPE, bool kSoft, bool kDetect>
 __global__ void __launch_bounds__(kBlock)
-nbody_forces_kernel(const float4* __restrict__ pts, int n, float G, float eps2,
-                    float4* __restrict__ out) {
+nbody_forces_kernel(const float4* __restrict__ pts, const float* __restrict__ radius,
+                    int n, float G, float eps2, float4* __restrict__ out,
+                    int* __restrict__ contacts) {
   __shared__ float4 tile[kBlock];
+  __shared__ float rtile[kDetect ? kBlock : 1];
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const float4 pi = i < n ? pts[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float ri = (kDetect && i < n) ? radius[i] : 0.0f;
   float ax = 0.0f, ay = 0.0f, az = 0.0f, pe = 0.0f;
+  int touch = 0;
   for (int j0 = 0; j0 < n; j0 += kBlock) {
     const int j = j0 + threadIdx.x;
-    if (j < n) tile[threadIdx.x] = pts[j];
+    if (j < n) {
+      tile[threadIdx.x] = pts[j];
+      if (kDetect) rtile[threadIdx.x] = radius[j];
+    }
     __syncthreads();
     float tx, ty, tz, tp;
     if (n - j0 >= kBlock) {
-      accumulate_tile<kPE, kSoft>(tile, kBlock, pi, eps2, tx, ty, tz, tp);
+      accumulate_tile<kPE, kSoft, kDetect>(tile, rtile, kBlock, pi, ri, eps2,
+                                           tx, ty, tz, tp, touch);
     } else {
-      accumulate_tile<kPE, kSoft>(tile, n - j0, pi, eps2, tx, ty, tz, tp);
+      accumulate_tile<kPE, kSoft, kDetect>(tile, rtile, n - j0, pi, ri, eps2,
+                                           tx, ty, tz, tp, touch);
     }
     ax += tx;
     ay += ty;
@@ -89,13 +116,41 @@ nbody_forces_kernel(const float4* __restrict__ pts, int n, float G, float eps2,
     __syncthreads();
   }
   if (i < n) out[i] = make_float4(G * ax, G * ay, G * az, pe);
+  if (kDetect) {
+    // rows past n counted against the zero-padded pi: drop them, then one
+    // warp reduction, one shared slot per warp, one atomic per block
+    touch = i < n ? touch : 0;
+    touch = __reduce_add_sync(0xffffffffu, touch);
+    __shared__ int warp_sums[kBlock / 32];
+    if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = touch;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int block_sum = 0;
+#pragma unroll
+      for (int w = 0; w < kBlock / 32; ++w) block_sum += warp_sums[w];
+      atomicAdd(contacts, block_sum);
+    }
+  }
 }
 
-template <bool kPE, bool kSoft>
-void launch(const float4* pts, int n, float G, float eps2, float4* out,
-            cudaStream_t stream) {
+template <bool kPE, bool kSoft, bool kDetect>
+void launch(const float4* pts, const float* radius, int n, float G, float eps2,
+            float4* out, int* contacts, cudaStream_t stream) {
   const int grid = (n + kBlock - 1) / kBlock;
-  nbody_forces_kernel<kPE, kSoft><<<grid, kBlock, 0, stream>>>(pts, n, G, eps2, out);
+  nbody_forces_kernel<kPE, kSoft, kDetect><<<grid, kBlock, 0, stream>>>(
+      pts, radius, n, G, eps2, out, contacts);
+}
+
+template <bool kDetect>
+void dispatch(const float4* p, const float* radius, int n, float G, float eps2,
+              int with_pe, float4* o, int* contacts, cudaStream_t s) {
+  if (eps2 > 0.0f) {
+    if (with_pe) launch<true, true, kDetect>(p, radius, n, G, eps2, o, contacts, s);
+    else launch<false, true, kDetect>(p, radius, n, G, eps2, o, contacts, s);
+  } else {
+    if (with_pe) launch<true, false, kDetect>(p, radius, n, G, eps2, o, contacts, s);
+    else launch<false, false, kDetect>(p, radius, n, G, eps2, o, contacts, s);
+  }
 }
 
 }  // namespace
@@ -108,16 +163,23 @@ int nbody_forces(const void* pts, int n, float G, float eps2, int with_pe,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;
-  const float4* p = static_cast<const float4*>(pts);
-  float4* o = static_cast<float4*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (eps2 > 0.0f) {
-    if (with_pe) launch<true, true>(p, n, G, eps2, o, s);
-    else launch<false, true>(p, n, G, eps2, o, s);
-  } else {
-    if (with_pe) launch<true, false>(p, n, G, eps2, o, s);
-    else launch<false, false>(p, n, G, eps2, o, s);
-  }
+  dispatch<false>(static_cast<const float4*>(pts), nullptr, n, G, eps2, with_pe,
+                  static_cast<float4*>(out), nullptr, static_cast<cudaStream_t>(stream));
+  return cudaGetLastError();
+}
+
+// B2: nbody_forces plus radius: [n] float (R_i * alive_i) and contacts: one
+// int32 on the device, which the caller sets to -n; the kernel adds the
+// directed touching-pair count including the n self pairs.
+int nbody_forces_detect(const void* pts, const void* radius, int n, float G,
+                        float eps2, int with_pe, void* out, void* contacts,
+                        void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n <= 0) return cudaSuccess;
+  dispatch<true>(static_cast<const float4*>(pts), static_cast<const float*>(radius),
+                 n, G, eps2, with_pe, static_cast<float4*>(out),
+                 static_cast<int*>(contacts), static_cast<cudaStream_t>(stream));
   return cudaGetLastError();
 }
 

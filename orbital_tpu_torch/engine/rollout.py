@@ -13,12 +13,14 @@ from typing import Optional
 
 import torch
 
+from ..ops.collisions import count_contacts_chunked, count_contacts_dense
 from ..ops.forces import pairwise_acc_chunked, pairwise_acc_dense
 from ..utils.config import SimConfig
-from .integrators import ForceFn, make_step_fn
+from .integrators import ForceDetectFn, ForceFn, make_step_fn
 from .state import NBodyState
 
-__all__ = ["Trajectory", "resolve_force_fn", "init_forces", "rollout"]
+__all__ = ["Trajectory", "resolve_force_fn", "resolve_force_detect_fn", "init_forces",
+           "rollout"]
 
 # Above this body count the dense [N, N] path gives way to the CUDA kernel
 # (CUDA tensors) or the row-blocked path (CPU tensors) under "auto".
@@ -47,16 +49,10 @@ class Trajectory:
         return self.pos.shape[0]
 
 
-def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
-                     dtype: torch.dtype = torch.float32) -> ForceFn:
-    """Pick the force implementation for a config, body count and device.
-
-    ``"auto"``: dense at N <= 4096; above it the CUDA kernel for CUDA
-    tensors and the row-blocked plain path for CPU tensors. ``"pallas"``
-    names the exact-force kernel and maps to the CUDA kernel. The kernels
-    are f32, so f64 state on CUDA raises (f64 is the CPU golden path).
-    """
-    device = torch.device(device)
+def _resolve_impl(cfg: SimConfig, n: int, device: torch.device,
+                  dtype: torch.dtype) -> str:
+    """``"auto"``: dense at N <= 4096; above it the CUDA kernel ("pallas")
+    for CUDA tensors and the row-blocked plain path for CPU tensors."""
     if device.type == "cuda" and dtype == torch.float64:
         raise NotImplementedError(
             "precision='f64' on CUDA: the CUDA kernels compute in float32; "
@@ -68,12 +64,21 @@ def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
             f"(ROADMAP.md queue A item {_NOT_PORTED[impl]})")
     if impl == "auto":
         if n <= _DENSE_MAX_N:
-            impl = "dense"
-        elif device.type == "cuda":
-            impl = "pallas"
-        else:
-            impl = "chunked"
+            return "dense"
+        return "pallas" if device.type == "cuda" else "chunked"
+    return impl
 
+
+def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
+                     dtype: torch.dtype = torch.float32) -> ForceFn:
+    """Pick the force implementation for a config, body count and device.
+
+    ``"auto"``: dense at N <= 4096; above it the CUDA kernel for CUDA
+    tensors and the row-blocked plain path for CPU tensors. ``"pallas"``
+    names the exact-force kernel and maps to the CUDA kernel. The kernels
+    are f32, so f64 state on CUDA raises (f64 is the CPU golden path).
+    """
+    impl = _resolve_impl(cfg, n, torch.device(device), dtype)
     if impl == "dense":
         return lambda pos, mass, alive: pairwise_acc_dense(
             pos, mass, alive, G=cfg.G, eps2=cfg.eps2)
@@ -87,6 +92,43 @@ def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
             pos, mass, alive, G=cfg.G, eps2=cfg.eps2,
             with_potential=cfg.track_potential)
     raise ValueError(f"unknown force_impl {impl!r}")
+
+
+def resolve_force_detect_fn(cfg: SimConfig, n: int, device: torch.device | str,
+                            dtype: torch.dtype = torch.float32
+                            ) -> Optional[ForceDetectFn]:
+    """Force evaluation with fused contact detection:
+    ``fn(pos, mass, radius, alive) -> (acc, U, contacts)``, ``contacts`` an
+    int32 0-dim tensor on the state's device counting directed touching
+    pairs (0 exactly when no live bodies overlap). The stepper gates the
+    bounce sweep on it without a host read.
+
+    Routed as :func:`resolve_force_fn`: dense forces plus the dense count at
+    N <= 4096; above it the detecting CUDA kernel for CUDA tensors and the
+    chunked forces plus the chunked count for CPU tensors. Returns None for
+    a force path without a detecting variant.
+    """
+    impl = _resolve_impl(cfg, n, torch.device(device), dtype)
+    if impl == "pallas":
+        from ..ops.cuda_forces import pairwise_acc_detect_cuda
+
+        return lambda pos, mass, radius, alive: pairwise_acc_detect_cuda(
+            pos, mass, radius, alive, G=cfg.G, eps2=cfg.eps2,
+            with_potential=cfg.track_potential)
+    if impl == "dense":
+        def dense(pos, mass, radius, alive):
+            acc, U = pairwise_acc_dense(pos, mass, alive, G=cfg.G, eps2=cfg.eps2)
+            return acc, U, count_contacts_dense(pos, radius, alive)
+        return dense
+    if impl == "chunked":
+        chunk = min(cfg.chunk, n)
+
+        def chunked(pos, mass, radius, alive):
+            acc, U = pairwise_acc_chunked(pos, mass, alive, G=cfg.G, eps2=cfg.eps2,
+                                          chunk=chunk)
+            return acc, U, count_contacts_chunked(pos, radius, alive, chunk=chunk)
+        return chunked
+    return None
 
 
 def _force_fn_for(state: NBodyState, cfg: SimConfig) -> ForceFn:
@@ -146,6 +188,7 @@ def rollout(
     record_every: int = 0,
     force_fn: Optional[ForceFn] = None,
     fused: str = "auto",
+    force_detect_fn: Optional[ForceDetectFn] = None,
 ) -> tuple[NBodyState, Optional[Trajectory]]:
     """Advance ``steps`` steps; optionally record every ``record_every``-th.
 
@@ -157,6 +200,11 @@ def rollout(
     inside one kernel launch), then refresh the acceleration/potential
     caches so the final state matches the stepper's. Pass
     ``fused="never"`` to force the step loop.
+
+    With collisions on, the closing force evaluation of kdk, euler, rk4 and
+    yoshida4 also counts contacts (``force_detect_fn``, by default
+    :func:`resolve_force_detect_fn`'s choice) and the bounce sweep is gated
+    on that count on the device.
     """
     fn = force_fn or _force_fn_for(state, cfg)
     if (record_every <= 0 and steps > 0 and fused == "auto"
@@ -166,7 +214,11 @@ def rollout(
         final = fused_rollout(state, cfg, steps)
         acc, potential = fn(final.pos, final.mass, final.alive)
         return final.replace(acc=acc, potential=potential), None
-    step_fn = make_step_fn(cfg, fn)
+    fd = None
+    if cfg.collisions != "none":
+        fd = force_detect_fn or resolve_force_detect_fn(cfg, state.n_bodies, state.device,
+                                                        state.dtype)
+    step_fn = make_step_fn(cfg, fn, force_detect_fn=fd)
 
     if record_every <= 0:
         for _ in range(steps):

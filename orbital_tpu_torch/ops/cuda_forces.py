@@ -3,7 +3,10 @@
 Replaces ``orbital_tpu/ops/pallas_forces.py::_nbody_kernel`` behind
 ``pairwise_acc_pallas``, with the same contract: f32 in, (acc [N, 3],
 scalar U) out, dead bodies inert, and with ``with_potential=False`` the PE
-sum is skipped in the kernel and U is 0.
+sum is skipped in the kernel and U is 0. :func:`pairwise_acc_detect_cuda`
+is its ``detect=True`` variant (``pairwise_acc_detect_pallas``): the same
+sweep also counts directed touching pairs into an int32 that stays on the
+device, the gate of the bounce sweep.
 
 The kernel is arithmetic-bound (~20 flops and one rsqrtf per pair; see the
 note at the top of the source): one thread per i body, j streamed through
@@ -12,10 +15,11 @@ in the kernel. The bookkeeping stays here, as in the JAX wrapper: the alive
 mask, the analytic self-PE subtraction m_i/eps (the kernel masks nothing
 when eps2 > 0) and U = -1/2 G sum m pe.
 
-For CPU tensors the wrapper computes the plain version,
-``ops.forces.pairwise_acc_chunked``. For CUDA tensors it launches the
-kernel or raises; it never falls back. ``pairwise_acc_cuda.launches``
-counts kernel launches.
+For CPU tensors the wrappers compute the plain versions,
+``ops.forces.pairwise_acc_chunked`` (plus ``ops.collisions.
+count_contacts_chunked`` for the count). For CUDA tensors they launch the
+kernel or raise; they never fall back. ``pairwise_acc_cuda.launches`` and
+``pairwise_acc_detect_cuda.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -24,9 +28,11 @@ from typing import Optional
 
 import torch
 
+from .collisions import count_contacts_chunked
 from .forces import pairwise_acc_chunked
 
-__all__ = ["pairwise_acc_cuda", "pairwise_acc_plain"]
+__all__ = ["pairwise_acc_cuda", "pairwise_acc_plain", "pairwise_acc_detect_cuda",
+           "pairwise_acc_detect_plain"]
 
 _lib = None
 
@@ -41,6 +47,11 @@ def _load():
         lib.nbody_forces.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        lib.nbody_forces_detect.restype = ctypes.c_int
+        lib.nbody_forces_detect.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int]
         _lib = lib
     return _lib
 
@@ -53,6 +64,29 @@ def pairwise_acc_plain(pos, mass, alive=None, *, G: float, eps2: float,
     if not with_potential:
         U = torch.zeros((), dtype=pos.dtype, device=pos.device)
     return acc, U
+
+
+def _check_inputs(fn: str, pos, mass, *others) -> None:
+    if pos.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {pos.device}")
+    if pos.dtype != torch.float32:
+        raise TypeError(f"{fn} computes in float32, got {pos.dtype}")
+    if pos.ndim != 2 or pos.shape[1] != 3 or mass.shape != pos.shape[:1]:
+        raise ValueError(f"{fn}: need pos [N, 3] and mass [N], got "
+                         f"{tuple(pos.shape)} and {tuple(mass.shape)}")
+    if any(t is not None and t.device != pos.device for t in (mass, *others)):
+        raise ValueError(f"{fn}: all tensors must be on one device")
+
+
+def _potential(out, mass32, G: float, eps2: float, with_potential: bool):
+    """U = -1/2 G sum m pe from the kernel's pe rows, with the analytic
+    self-term m_i/eps of the mask-free kernel removed."""
+    if not with_potential:
+        return torch.zeros((), dtype=torch.float32, device=out.device)
+    pe_row = out[:, 3]
+    if eps2 > 0.0:
+        pe_row = pe_row - mass32 * (1.0 / float(eps2) ** 0.5)
+    return -0.5 * G * torch.sum(mass32 * pe_row)
 
 
 def pairwise_acc_cuda(
@@ -68,15 +102,7 @@ def pairwise_acc_cuda(
     if pos.device.type == "cpu":
         return pairwise_acc_plain(pos, mass, alive, G=G, eps2=eps2,
                                   with_potential=with_potential)
-    if pos.device.type != "cuda":
-        raise ValueError(f"pairwise_acc_cuda: unsupported device {pos.device}")
-    if pos.dtype != torch.float32:
-        raise TypeError(f"pairwise_acc_cuda computes in float32, got {pos.dtype}")
-    if pos.ndim != 2 or pos.shape[1] != 3 or mass.shape != pos.shape[:1]:
-        raise ValueError(f"pairwise_acc_cuda: need pos [N, 3] and mass [N], got "
-                         f"{tuple(pos.shape)} and {tuple(mass.shape)}")
-    if mass.device != pos.device or (alive is not None and alive.device != pos.device):
-        raise ValueError("pairwise_acc_cuda: all tensors must be on one device")
+    _check_inputs("pairwise_acc_cuda", pos, mass, alive)
     n = pos.shape[0]
     mass_eff = mass if alive is None else mass * alive.to(mass.dtype)
     mass32 = mass_eff.to(torch.float32)
@@ -96,15 +122,65 @@ def pairwise_acc_cuda(
     acc = out[:, 0:3]
     if alive is not None:
         acc = acc * alive[:, None].to(acc.dtype)
-    if with_potential:
-        pe_row = out[:, 3]
-        if eps2 > 0.0:
-            # remove the analytic self-term m_i/eps of the mask-free kernel
-            pe_row = pe_row - mass32 * (1.0 / float(eps2) ** 0.5)
-        U = -0.5 * G * torch.sum(mass32 * pe_row)
-    else:
-        U = torch.zeros((), dtype=torch.float32, device=pos.device)
-    return acc, U
+    return acc, _potential(out, mass32, G, eps2, with_potential)
 
 
 pairwise_acc_cuda.launches = 0
+
+
+def pairwise_acc_detect_plain(pos, mass, radius, alive, *, G: float, eps2: float,
+                              with_potential: bool = True, chunk: int = 1024):
+    """The plain PyTorch version of the detect kernel, on any device: the
+    chunked force sweep and the chunked contact count, as
+    ``resolve_force_detect_fn`` composes them for ``force_impl="chunked"``."""
+    acc, U = pairwise_acc_plain(pos, mass, alive, G=G, eps2=eps2,
+                                with_potential=with_potential, chunk=chunk)
+    contacts = count_contacts_chunked(pos, radius, alive,
+                                      chunk=min(chunk, max(pos.shape[0], 1)))
+    return acc, U, contacts
+
+
+def pairwise_acc_detect_cuda(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    radius: torch.Tensor,
+    alive: torch.Tensor,
+    *,
+    G: float,
+    eps2: float,
+    with_potential: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The force sweep with contact detection: (acc [N, 3], U, contacts),
+    ``contacts`` an int32 0-dim tensor on the device counting directed
+    touching pairs between live bodies (|r_ij| <= (R_i + R_j) * 1.00001,
+    unsoftened). Dead bodies must sit at spread-out far positions, as
+    ``make_state`` parks them. The acc is bit-equal to
+    :func:`pairwise_acc_cuda`'s on the same inputs."""
+    if pos.device.type == "cpu":
+        return pairwise_acc_detect_plain(pos, mass, radius, alive, G=G, eps2=eps2,
+                                         with_potential=with_potential)
+    _check_inputs("pairwise_acc_detect_cuda", pos, mass, radius, alive)
+    n = pos.shape[0]
+    alive32 = alive.to(torch.float32)
+    mass32 = (mass * alive.to(mass.dtype)).to(torch.float32)
+    radius32 = (radius.to(torch.float32) * alive32).contiguous()
+    pts = torch.cat([pos, mass32[:, None]], dim=1).contiguous()  # [N, 4]
+    out = torch.empty((n, 4), dtype=torch.float32, device=pos.device)
+    # the kernel counts the n self pairs too: start the counter at -n
+    contacts = torch.full((), -n, dtype=torch.int32, device=pos.device)
+
+    lib = _load()
+    from ..utils.kernels import check
+
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    err = lib.nbody_forces_detect(pts.data_ptr(), radius32.data_ptr(), n, float(G),
+                                  float(eps2), int(with_potential), out.data_ptr(),
+                                  contacts.data_ptr(), stream, pos.device.index or 0)
+    check(lib, err, "nbody_forces_detect launch")
+    pairwise_acc_detect_cuda.launches += 1
+
+    acc = out[:, 0:3] * alive[:, None].to(torch.float32)
+    return acc, _potential(out, mass32, G, eps2, with_potential), contacts
+
+
+pairwise_acc_detect_cuda.launches = 0

@@ -2,8 +2,9 @@
 
 Wraps natural-unit rescaling, the precision policy, force-path selection,
 the rollout and the unit conversion back to physical units behind a single
-function. This slice ports the exact-force KDK path without collisions;
-other integrators, collision modes and force solvers raise
+function. Ported so far: the exact-force kdk, euler, rk4 and yoshida4
+steppers with or without bounce collisions; Hermite, RESPA, the merge and
+resolve collision modes and the approximate force solvers raise
 ``NotImplementedError`` (ROADMAP.md queue A).
 """
 from __future__ import annotations
@@ -55,6 +56,7 @@ def simulate(
     precision: Optional[str] = None,
     integrator: str = "kdk",
     collisions: str = "none",
+    restitution: float = 1.0,
     force_impl: str = "auto",
     unit_profile: UnitProfile = STANDARD,
     rescale: Optional[Rescale] = None,
@@ -65,6 +67,8 @@ def simulate(
     ``precision`` defaults to ``"f64"`` on the CPU (the golden path) and
     ``"ds32"`` on CUDA. ``record_every`` defaults to ~100 evenly spaced
     records. ``softening`` and ``dt`` are in scene units.
+    ``collisions="bounce"`` bounces touching spheres (``scene.radius``)
+    with coefficient of restitution ``restitution``.
     """
     if not isinstance(scene, SceneArrays):
         raise NotImplementedError(
@@ -89,6 +93,7 @@ def simulate(
         eps2=(softening / rescale.length) ** 2,
         integrator=integrator,
         collisions=collisions,
+        restitution=restitution,
         force_impl=force_impl,
     )
     state = make_state(scene.pos, scene.vel, scene.mass, scene.radius,

@@ -10,6 +10,7 @@ headers), so ``nvcc`` compiles it in seconds. It is built at first use into
 and loaded with ``ctypes``. ``<hash>`` covers the source and the flags, so an
 edited source is rebuilt and a stale library is never loaded. ``nvcc`` is
 taken from ``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda/bin``.
+:func:`build` starts one ``nvcc`` per missing library, all at once.
 
 Calling convention of every C entry point: device pointers and the CUDA
 stream are ``ctypes.c_void_p``; the function returns the ``cudaError_t`` of
@@ -26,8 +27,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load", "check", "build_log",
-           "build_seconds"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check",
+           "build_log", "build_seconds"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -54,28 +55,43 @@ def _library_path(name: str) -> tuple[Path, Path]:
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing or stale, load it
-    once per process and return it. Raises if ``nvcc`` is missing or the
-    build fails (with the compiler's output)."""
-    lib = _loaded.get(name)
-    if lib is not None:
-        return lib
-    src, out = _library_path(name)
-    if not out.exists():
+def build(names) -> None:
+    """Compile every library of ``names`` that is missing or stale, one
+    ``nvcc`` process per source, all running at once. Raises if ``nvcc`` is
+    missing or any build fails (with the compiler's output)."""
+    started = []
+    for name in names:
+        src, out = _library_path(name)
+        if name in _loaded or out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        started.append((name, src, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, src, out, tmp, proc, t0 in started:
+        _logs[name] = proc.communicate()[0]
         _seconds[name] = time.perf_counter() - t0
-        _logs[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed to build {src.name} "
-                               f"(rc={proc.returncode}):\n{_logs[name]}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+            failed.append(f"nvcc failed to build {src.name} (rc={proc.returncode}):\n"
+                          f"{_logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing or stale, load it
+    once per process and return it."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    lib = ctypes.CDLL(str(_library_path(name)[1]))
     lib.ot_error_string.restype = ctypes.c_char_p
     lib.ot_error_string.argtypes = [ctypes.c_int]
     _loaded[name] = lib

@@ -82,6 +82,18 @@ def test_ds32_rollout_matches_jax(rng, track_potential):
     assert tf.pos_lo is not None and tf.pos_lo.dtype == torch.float32
 
 
+@pytest.mark.parametrize("integrator", ["euler", "rk4", "yoshida4"])
+@pytest.mark.parametrize("precision", ["f64", "ds32"])
+def test_integrators_match_jax(rng, integrator, precision):
+    """The other steppers without collisions, to the tolerances above."""
+    (js, jf, jt), (ts, tf, tt) = _run_both(rng, precision, "auto", integrator=integrator)
+    tol = dict(rtol=1e-12, atol=1e-13) if precision == "f64" else dict(rtol=0, atol=1e-7)
+    for f in ("pos", "vel"):
+        np.testing.assert_allclose(getattr(tt, f).numpy(), np.asarray(getattr(jt, f)),
+                                   err_msg=f, **tol)
+    assert int(tf.step) == int(jf.step) == 20
+
+
 def test_unrecorded_rollout_equals_recorded_final(rng):
     pos, vel, mass = _cluster(rng, 64)
     cfg = tot.SimConfig(dt=1e-3, eps2=1e-4)
@@ -143,8 +155,8 @@ def test_simulate_defaults_and_unported_inputs(rng):
     assert out.pos.shape == (10, 6, 3)  # ~100 records, capped by the steps
     with pytest.raises(NotImplementedError, match="SceneArrays"):
         tot.simulate([1, 2, 3], steps=1, dt=1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tot.simulate(ts, steps=1, dt=1.0, device="cpu", collisions="bounce")
+    with pytest.raises(NotImplementedError, match="A.7b"):
+        tot.simulate(ts, steps=1, dt=1.0, device="cpu", collisions="merge")
 
 
 def test_cpu_tensors_take_the_plain_paths(rng, monkeypatch):
@@ -192,11 +204,9 @@ def test_f64_on_cuda_raises():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(integrator="euler"), "A.4"), (dict(integrator="rk4"), "A.4"),
-    (dict(integrator="yoshida4"), "A.4"), (dict(integrator="hermite"), "A.8"),
+    (dict(integrator="hermite"), "A.8"),
     (dict(integrator="respa", respa_rc=0.1, respa_cell=0.2), "A.14"),
-    (dict(collisions="bounce"), "A.7"), (dict(collisions="merge"), "A.7"),
-    (dict(collisions="resolve"), "A.7")])
+    (dict(collisions="merge"), "A.7b"), (dict(collisions="resolve"), "A.7b")])
 def test_unported_steppers_raise(rng, change, item):
     pos, vel, mass = _cluster(rng, 16)
     cfg = tot.SimConfig(dt=1e-3, eps2=1e-4, **change)
