@@ -30,12 +30,29 @@ Phases, one line of output each; any failure exits nonzero:
  10. the collision main path, contact-rich: radius 3e-3, restitution 0.8,
      200 steps, and the first 10 steps against the plain forces, counts and
      bounce sweep;
- 11. kernel and plain times (CUDA events, median and spread of 3 repeats).
+ 11. kernel and plain times (CUDA events, median and spread of 3 repeats);
+ 12. the acc + jerk kernel (B5), its detecting variant and its row-subset
+     variant against their plain versions at N = 65536 and 5000, eps2 > 0
+     and = 0, dead bodies parked far, F = 64 and 37 target rows; the
+     detecting variant's count exact and its acc, jerk and U bit-equal to
+     B5's; kernel and plain version each against the f64 sum;
+ 13. the Hermite main path: the same cluster with ``integrator="hermite"``
+     through ``init_forces`` -> a recorded and an unrecorded ``rollout``,
+     |dE/E| <= 1e-6 in f64;
+ 14. adaptive Hermite (``adaptive_eta``, dt_min = dt/4096), 300 steps;
+ 15. block timesteps: the cluster with a hard binary planted, eps2 = 1e-10,
+     ``hermite_fast_cap`` = 64, ``hermite_max_substeps`` = 64, rungs 1 and
+     3, macro step by macro step against the same stepper on the plain
+     versions;
+ 16. Hermite with bounce collisions: the bench row's radius against the
+     collision-free Hermite run up to the first contact, and the
+     contact-rich radius on the kernels and on the plain versions;
+ 17. Hermite kernel, step and macro-step times.
 
-The launch counters are set to 0 just before each main path (phases 5+6, 9
-and 10) and read just after it: each kernel must have run on its path. The
-line before the last is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+The launch counters are set to 0 just before each main path (phases 5+6, 9,
+10, 13, 14, 15 and 16) and read just after it: each kernel must have run on
+its path. The line before the last is a JSON summary of the kernels; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -59,6 +76,10 @@ DRIFT_BUDGET = 1e-6
 # ~1e-6 from the f64 sum and the plain version's ~2e-7 (the script prints
 # both); 1e-5 leaves a tenfold margin.
 FORCE_RTOL = 1e-5
+# the acc + jerk sweep (B5) against its plain version, max |d jerk| over
+# max |jerk|: the jerk sums cancel more than the acc sums (set from the
+# f64 comparison that phase 12 prints, as FORCE_RTOL is)
+JERK_RTOL = 1e-5
 ENERGY_RTOL = 1e-5
 # positions / velocities after 10 KDK steps whose forces differ only in f32
 # summation order (the tolerance of the JAX package's own fused-rollout test)
@@ -76,6 +97,26 @@ R_RICH = 3e-3
 N_MAIN = 65536
 N_RAGGED = 5000
 R_RAGGED = 0.015
+# Hermite runs (phases 13-17): the adaptive run's eta and length; the block
+# runs' softening, planted binary, eta and macro steps; the contact-rich
+# Hermite run's length and its steps checked against the plain versions.
+# The block criterion dt_i = eta sqrt(|a|/|j|) cannot single the binary out
+# at eps2 = 1e-4: softening caps a pair's omega at sqrt(G M_pair / eps^3),
+# and the cluster's own close pairs reach sqrt(|a|/|j|) ~ 0.07. At
+# eps2 = 1e-10 a binary of 2 x 1e-3 at separation 1.26e-3 (omega ~ 1000,
+# sqrt(|a|/|j|) = 0.032) needs m = 6 substeps at eta = 0.0075, and turns
+# ~0.2 rad a substep, so the kernels and the plain versions stay within
+# STATE_ATOL of each other; ~500 cluster bodies (0.8%) are under dt too,
+# so the fast cap of 64 is full.
+ETA_ADAPTIVE = 0.005
+ADAPTIVE_STEPS = 300
+EPS2_BLOCK = 1e-10
+BINARY_MASS = 1e-3
+BINARY_SEP = 1.26e-3
+ETA_BLOCK = 0.0075
+BLOCK_MACRO_STEPS = 3
+RICH_STEPS = 100
+RICH_CHECK_STEPS = 3
 
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
 # the tensor cores, device memory, and rsqrt on the special-function units
@@ -89,6 +130,12 @@ PEAK_RSQRT = 16 * 132 * 1.98e9
 # differences, r2 (5), R_i + R_j and its square (10), and a touching pair
 # adds ~30 more (s, 1/m_j, base, the impulse and the de-overlap terms)
 OPS_B1, OPS_B2, OPS_B6, OPS_B6_TOUCH = 18, 21, 10, 30
+# B5 (csrc/nbody_jerk.cu, sweep_tile): 3 position and 3 velocity
+# differences, r2 (5), + eps2, inv^2 and inv^3 (2), w (1), r.v (5),
+# c = 3 rv inv^2 (2), three acc multiply-adds (6), three jerk terms
+# (dv - c dx) and their multiply-adds (12), pe (2): 42; detect adds
+# (R_i + R_j) * 1.00001 and its square (3); the subset variant has no pe
+OPS_B5, OPS_B5_DETECT, OPS_B5_SUBSET = 42, 45, 40
 
 B1 = dict(name="nbody_forces", route="cuda",
           source="orbital_tpu_torch/csrc/nbody_forces.cu",
@@ -102,6 +149,15 @@ B4 = dict(name="fused_kdk", route="cuda",
 B6 = dict(name="bounce_deltas", route="cuda",
           source="orbital_tpu_torch/csrc/collisions.cu",
           replaces="orbital_tpu/ops/pallas_collisions.py:37")
+B5 = dict(name="nbody_jerk", route="cuda",
+          source="orbital_tpu_torch/csrc/nbody_jerk.cu",
+          replaces="orbital_tpu/ops/pallas_jerk.py:52")
+B5D = dict(name="nbody_jerk_detect", route="cuda",
+           source="orbital_tpu_torch/csrc/nbody_jerk.cu",
+           replaces="orbital_tpu/ops/pallas_jerk.py:175")
+B5S = dict(name="nbody_jerk_subset", route="cuda",
+           source="orbital_tpu_torch/csrc/nbody_jerk.cu",
+           replaces="orbital_tpu/ops/pallas_jerk.py:52")
 
 
 def bound(flops: float, nbytes: float, rsqrt: float = 0.0) -> tuple[float, str]:
@@ -174,10 +230,12 @@ def alternate_ms(fns: dict, iters: int, repeats: int = 3) -> dict:
 
 
 def reset_launches() -> None:
-    from orbital_tpu_torch.ops import cuda_collisions, cuda_forces, fused_rollout
+    from orbital_tpu_torch.ops import cuda_collisions, cuda_forces, cuda_jerk, fused_rollout
 
     for fn in (cuda_forces.pairwise_acc_cuda, cuda_forces.pairwise_acc_detect_cuda,
-               fused_rollout.fused_rollout, cuda_collisions.bounce_deltas_cuda):
+               fused_rollout.fused_rollout, cuda_collisions.bounce_deltas_cuda,
+               cuda_jerk.accel_jerk_cuda, cuda_jerk.accel_jerk_detect_cuda,
+               cuda_jerk.accel_jerk_subset_cuda):
         fn.launches = 0
 
 
@@ -197,10 +255,11 @@ def plain_bounce():
 
 class StepLog:
     """Wraps the closing force function of a run (with or without contact
-    detection) and logs what it sees on the device: the positions of every
-    step if asked, and for a detecting function the sum of its contact
-    counts, the number of steps with a count > 0 and, if asked, each step's
-    count. Nothing is read back until the run is over."""
+    detection; kdk's or Hermite's) and logs what it sees on the device: the
+    positions of every step if asked, and for a detecting function (whose
+    last output is an int32 count) the sum of its contact counts, the number
+    of steps with a count > 0 and, if asked, each step's count. Nothing is
+    read back until the run is over."""
 
     def __init__(self, fn, keep_pos: bool = False, keep_counts: bool = False):
         self.fn = fn
@@ -214,8 +273,8 @@ class StepLog:
         out = self.fn(pos, *rest)
         if self.positions is not None:
             self.positions.append(pos)
-        if len(out) == 3:
-            c = out[2]
+        if out[-1].dtype == torch.int32:
+            c = out[-1]
             if self.total is None:
                 self.total = torch.zeros((), dtype=torch.int64, device=c.device)
                 self.steps = torch.zeros_like(self.total)
@@ -249,9 +308,11 @@ class Smoke:
         self.dev = torch.device("cuda", 0)
         self.seed = seed
         self.drift_steps = drift_steps
-        self.kernels = {"B1": dict(B1), "B2": dict(B2), "B4": dict(B4), "B6": dict(B6)}
+        self.kernels = {"B1": dict(B1), "B2": dict(B2), "B4": dict(B4), "B6": dict(B6),
+                        "B5": dict(B5), "B5D": dict(B5D), "B5S": dict(B5S)}
         self._cluster = None
         self.main_ms_per_step = None
+        self.hermite_log = None
 
     def cluster(self):
         """The 65,536-body virialised cluster and its f64 energy after
@@ -277,15 +338,16 @@ class Smoke:
 
     # phase 2
     def build(self) -> str:
-        from orbital_tpu_torch.ops import cuda_collisions, cuda_forces, fused_rollout
+        from orbital_tpu_torch.ops import cuda_collisions, cuda_forces, cuda_jerk, fused_rollout
         from orbital_tpu_torch.utils import kernels
 
-        names = ("nbody_forces", "fused_rollout", "collisions")
+        names = ("nbody_forces", "fused_rollout", "collisions", "nbody_jerk")
         t0 = time.perf_counter()
         kernels.build(names)
         cuda_forces._load()
         fused_rollout._load()
         cuda_collisions._load()
+        cuda_jerk._load()
         total = time.perf_counter() - t0
         for name in names:
             for line in kernels.build_log(name).splitlines():
@@ -846,6 +908,433 @@ class Smoke:
                 f"{ms(armed['none'])}, bounce armed {ms(armed['bounce'])}; bounds "
                 + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()))
 
+    # phase 12
+    def check_jerk(self) -> str:
+        torch = self.torch
+        from orbital_tpu_torch.ops.collisions import count_contacts_chunked
+        from orbital_tpu_torch.ops.cuda_jerk import (accel_jerk_cuda, accel_jerk_detect_cuda,
+                                                     accel_jerk_plain, accel_jerk_subset_cuda,
+                                                     accel_jerk_subset_plain)
+
+        def rel(x, ref):
+            return float((x.double() - ref.double()).abs().max()) / float(ref.abs().max())
+
+        lines = []
+        for n, radius in ((N_MAIN, R_RICH), (N_RAGGED, R_RAGGED)):
+            pos, vel, mass, rad, alive = self.scene(n, radius, 7, seed_offset=6)
+            for eps2 in (EPS2, 0.0):
+                kw = dict(G=1.0, eps2=eps2)
+                a, j, U = accel_jerk_cuda(pos, vel, mass, alive, **kw)
+                ad, jd, Ud, c = accel_jerk_detect_cuda(pos, vel, mass, rad, alive, **kw)
+                a0, j0, U0 = accel_jerk_plain(pos, vel, mass, alive, **kw)
+                c0 = count_contacts_chunked(pos, rad, alive)
+                torch.cuda.synchronize()
+                key = f"N={n},eps2={eps2:g}"
+                if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(j).all())):
+                    raise AssertionError(f"B5 non-finite acc or jerk at {key}")
+                ra, rj = rel(a, a0), rel(j, j0)
+                ru = abs(float(U) - float(U0)) / abs(float(U0))
+                if ra > FORCE_RTOL or rj > JERK_RTOL or ru > ENERGY_RTOL:
+                    raise AssertionError(f"B5 vs plain {key}: acc {ra:.3e}, jerk {rj:.3e}, "
+                                         f"U {ru:.3e}")
+                if c.dtype != torch.int32 or c.ndim != 0 or c.device != pos.device:
+                    raise AssertionError(f"B5 detect count is not an int32 on the card: {c}")
+                if int(c) != int(c0):
+                    raise AssertionError(f"B5 detect {key}: {int(c)} contacts, plain {int(c0)}")
+                if not (torch.equal(a, ad) and torch.equal(j, jd) and torch.equal(U, Ud)):
+                    raise AssertionError(f"B5 detect {key}: acc, jerk or U differ from B5's")
+                lines.append(f"{key}: acc {ra:.2e}, jerk {rj:.2e}, U {ru:.2e}, "
+                             f"{int(c)} contacts")
+                if n == N_MAIN and eps2 > 0:
+                    err = max(float((a - a0).abs().max()), float((j - j0).abs().max()))
+                    self.kernels["B5"]["max_abs_err"] = err
+                    self.kernels["B5D"]["max_abs_err"] = err
+                    # both f32 sums against the same sum in f64
+                    a64, j64, _ = accel_jerk_plain(pos.double(), vel.double(), mass.double(),
+                                                   alive, chunk=512, **kw)
+                    vs64 = {"acc": (rel(a, a64), rel(a0, a64)),
+                            "jerk": (rel(j, j64), rel(j0, j64))}
+                    if vs64["acc"][0] > FORCE_RTOL or vs64["jerk"][0] > JERK_RTOL:
+                        raise AssertionError(f"B5 vs f64: {vs64}")
+                    del a64, j64
+        # the row-subset variant against the plain subset, one dead row among
+        # the targets
+        pos, vel, mass, _, alive = self.scene(N_MAIN, R_RICH, 7, seed_offset=6)
+        rng = np.random.default_rng(self.seed + 7)
+        sub = []
+        for f in (64, 37):
+            idx = torch.tensor(rng.choice(N_MAIN - 7, f, replace=False), device=self.dev)
+            idx[-1] = N_MAIN - 1
+            for eps2 in (EPS2, 0.0):
+                a, j = accel_jerk_subset_cuda(idx, pos, vel, mass, alive, G=1.0, eps2=eps2)
+                a0, j0 = accel_jerk_subset_plain(idx, pos, vel, mass, alive, G=1.0, eps2=eps2)
+                torch.cuda.synchronize()
+                ra, rj = rel(a, a0), rel(j, j0)
+                if tuple(a.shape) != (f, 3) or ra > FORCE_RTOL or rj > JERK_RTOL:
+                    raise AssertionError(f"B5 subset F={f} eps2={eps2:g}: acc {ra:.3e}, "
+                                         f"jerk {rj:.3e}")
+                if f == 64 and eps2 > 0:
+                    self.kernels["B5S"]["max_abs_err"] = max(
+                        float((a - a0).abs().max()), float((j - j0).abs().max()))
+                sub.append(f"F={f},eps2={eps2:g}: {ra:.2e}/{rj:.2e}")
+        f64 = ", ".join(f"{k} kernel {v[0]:.2e} plain {v[1]:.2e}" for k, v in vs64.items())
+        return (f"B5 == plain within max|da|/max|a| <= {FORCE_RTOL:g}, max|dj|/max|j| <= "
+                f"{JERK_RTOL:g}, |dU/U| <= {ENERGY_RTOL:g} [{'; '.join(lines)}]; B5 detect: "
+                f"counts exact, acc/jerk/U bit-equal to B5's; N=65536 vs f64 sums: {f64}; "
+                f"B5 subset == plain [{'; '.join(sub)}]")
+
+    # phase 13
+    def hermite_main_path(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.rollout import resolve_accel_jerk_fn
+        from orbital_tpu_torch.ops.cuda_jerk import accel_jerk_cuda
+        from orbital_tpu_torch.utils import native
+
+        torch = self.torch
+        n = N_MAIN
+        pos, vel, mass, E0 = self.cluster()
+        cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, integrator="hermite")
+        state = ot.make_state(pos, vel, mass, precision="ds32", device=self.dev)
+        # the evaluated positions of every step, for phase 16's comparison
+        log = StepLog(resolve_accel_jerk_fn(cfg, n, self.dev), keep_pos=True)
+
+        reset_launches()
+        state = ot.init_forces(state, cfg)
+        rec, traj = ot.rollout(state, cfg, 20, record_every=10, accel_jerk_fn=log)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin, _ = ot.rollout(rec, cfg, self.drift_steps, accel_jerk_fn=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b5 = accel_jerk_cuda.launches
+
+        drift = abs((energy_f64(fin) - E0) / E0)
+        e_rec = traj.energy.double().cpu().numpy()
+        if tuple(traj.pos.shape) != (2, n, 3) or fin.jerk is None:
+            raise AssertionError("Hermite: wrong records or no jerk cache")
+        if not (np.isfinite(e_rec).all() and bool(torch.isfinite(fin.pos).all())):
+            raise AssertionError("Hermite: non-finite state or energy records")
+        if np.max(np.abs(e_rec / E0 - 1.0)) > ENERGY_RTOL:
+            raise AssertionError(f"Hermite recorded f32 energies {e_rec} stray from E0 = {E0}")
+        steps = 20 + self.drift_steps
+        # the f32 clock rounds each addition by at most half an ulp of its value
+        clock_tol = steps * float(np.spacing(np.float32(steps * DT)))
+        if int(fin.step) != steps or abs(float(fin.time) - steps * DT) > clock_tol:
+            raise AssertionError(f"Hermite step counter {int(fin.step)} or clock "
+                                 f"{float(fin.time)} wrong after {steps} steps")
+        if b5 != 1 + steps:
+            raise AssertionError(f"B5 launched {b5} times in {steps} Hermite steps + init")
+        if drift > DRIFT_BUDGET:
+            raise AssertionError(f"Hermite energy drift {drift:.3e} over {DRIFT_BUDGET:g}")
+        self.kernels["B5"]["launches"] = b5
+        self.hermite_log = log
+        return (f"N=65536 ds32 Hermite dt={DT:g}: init_forces + 20 recorded + "
+                f"{self.drift_steps} unrecorded steps, |dE/E| = {drift:.3e} <= "
+                f"{DRIFT_BUDGET:g} (f64, {native.backend()}); "
+                f"{1e3 * wall / self.drift_steps:.3f} ms/step wall; B5 launches {b5}")
+
+    # phase 14
+    def hermite_adaptive(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops.cuda_jerk import accel_jerk_cuda
+
+        torch = self.torch
+        pos, vel, mass, E0 = self.cluster()
+        cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, integrator="hermite",
+                           adaptive_eta=ETA_ADAPTIVE, dt_min=DT / 4096)
+        state = ot.make_state(pos, vel, mass, precision="ds32", device=self.dev)
+        reset_launches()
+        state = ot.init_forces(state, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin, traj = ot.rollout(state, cfg, ADAPTIVE_STEPS, record_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b5 = accel_jerk_cuda.launches
+        # the steps taken, from the recorded f32 clock (its rounding is
+        # ~3e-8 here, against steps of ~1e-4)
+        clock = traj.time.double().cpu().numpy()
+        steps_dt = np.diff(np.concatenate([[0.0], clock]))
+        drift = abs((energy_f64(fin) - E0) / E0)
+        lo, med, hi = steps_dt.min(), float(np.median(steps_dt)), steps_dt.max()
+        if b5 != 1 + ADAPTIVE_STEPS:
+            raise AssertionError(f"adaptive Hermite: B5 launched {b5} times")
+        if not (bool(torch.isfinite(fin.pos).all()) and fin.time.ndim == 0):
+            raise AssertionError("adaptive Hermite: non-finite state")
+        if not (DT / 4096 * (1 - 1e-3) <= lo and hi <= DT * (1 + 1e-3) and lo < DT):
+            raise AssertionError(f"adaptive Hermite: steps [{lo:.3e}, {hi:.3e}] outside "
+                                 f"[dt_min, dt] or never below dt")
+        if drift > DRIFT_BUDGET:
+            raise AssertionError(f"adaptive Hermite drift {drift:.3e} over {DRIFT_BUDGET:g}")
+        return (f"N=65536 ds32 Hermite adaptive_eta={ETA_ADAPTIVE:g}, dt_min=dt/4096: "
+                f"{ADAPTIVE_STEPS} steps to t = {clock[-1]:.6f}, dt min {lo:.4e} median "
+                f"{med:.4e} max {hi:.4e}; |dE/E| = {drift:.3e}; "
+                f"{1e3 * wall / ADAPTIVE_STEPS:.3f} ms/step wall (records every step); "
+                f"B5 launches {b5}")
+
+    def block_scene(self):
+        """The cluster with its last two bodies replaced by a hard circular
+        binary (each BINARY_MASS, separation BINARY_SEP) moving with the
+        first one's velocity."""
+        pos, vel, mass, _ = self.cluster()
+        pos, vel, mass = pos.copy(), vel.copy(), mass.copy()
+        center, drift = pos[-2].copy(), vel[-2].copy()
+        v = 0.5 * np.sqrt(2.0 * BINARY_MASS / BINARY_SEP)
+        pos[-2:] = center + np.array([[-0.5, 0, 0], [0.5, 0, 0]]) * BINARY_SEP
+        vel[-2:] = drift + np.array([[0, -v, 0], [0, v, 0]])
+        mass[-2:] = BINARY_MASS
+        return pos, vel, mass
+
+    def block_config(self, rungs: int):
+        import orbital_tpu_torch as ot
+
+        return ot.SimConfig(dt=DT, G=1.0, eps2=EPS2_BLOCK, integrator="hermite",
+                            adaptive_eta=ETA_BLOCK, dt_min=DT / 4096, hermite_fast_cap=64,
+                            hermite_max_substeps=64, hermite_rungs=rungs)
+
+    # phase 15
+    def block_timesteps(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.integrators import block_plan
+        from orbital_tpu_torch.ops.cuda_jerk import accel_jerk_cuda, accel_jerk_subset_cuda
+
+        torch = self.torch
+        pos, vel, mass = self.block_scene()
+        lines, subset_total = [], 0
+        for rungs in (1, 3):
+            cfg = self.block_config(rungs)
+            runs = {}
+            for impl in ("auto", "chunked"):  # the kernels, then the plain versions
+                c = cfg.replace(force_impl=impl)
+                st = ot.make_state(pos, vel, mass, precision="ds32", device=self.dev)
+                if impl == "auto":
+                    reset_launches()
+                st = ot.init_forces(st, c)
+                plans, states, walls = [], [], []
+                for _ in range(BLOCK_MACRO_STEPS):
+                    idx, fast, m = block_plan(st, c)
+                    q = torch.sqrt(torch.linalg.vector_norm(st.acc, dim=-1)
+                                   / torch.linalg.vector_norm(st.jerk, dim=-1))
+                    under = int((ETA_BLOCK * q < DT).sum())  # all bodies under dt
+                    plans.append((int(fast.sum()), m, idx.cpu(), under))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    st, _ = ot.rollout(st, c, 1)
+                    torch.cuda.synchronize()
+                    walls.append(1e3 * (time.perf_counter() - t0))
+                    states.append(st)
+                if impl == "auto":
+                    launches = (accel_jerk_cuda.launches, accel_jerk_subset_cuda.launches)
+                runs[impl] = (plans, states, walls)
+            (plans, states, walls), (p_plans, p_states, _) = runs["auto"], runs["chunked"]
+            b5, b5s = launches
+            substeps = sum(p[1] for p in plans)
+            subset_total += b5s
+            if b5 != 1 + BLOCK_MACRO_STEPS or b5s != substeps:
+                raise AssertionError(f"block rungs={rungs}: B5 {b5}, B5 subset {b5s} "
+                                     f"launches for {substeps} substeps")
+            if not any(1 < p[0] <= 64 and p[1] >= 4 for p in plans):
+                raise AssertionError(f"block rungs={rungs}: no macro step with 1 < fast <= 64 "
+                                     f"and m >= 4: {[p[:2] for p in plans]}")
+            if not all(bool(torch.isfinite(s.pos).all()) for s in states):
+                raise AssertionError(f"block rungs={rungs}: non-finite state")
+            same = [a[:2] == b[:2] and torch.equal(a[2], b[2])
+                    for a, b in zip(plans, p_plans)]
+            upto = same.index(False) if False in same else len(same)
+            if upto == 0:
+                raise AssertionError(f"block rungs={rungs}: the kernels and the plain versions "
+                                     f"chose different fast rows or m at macro step 1")
+            err = max_state_err(states[upto - 1], p_states[upto - 1])
+            if err > STATE_ATOL:
+                raise AssertionError(f"block rungs={rungs}: kernels vs plain after {upto} "
+                                     f"macro steps: {err:.3e} > {STATE_ATOL:g}")
+            steps = "; ".join(f"step {k + 1}: fast {p[0]} ({p[3]} under dt), m {p[1]}, "
+                              f"{w:.1f} ms" for k, (p, w) in enumerate(zip(plans, walls)))
+            lines.append(f"rungs={rungs}: [{steps}]; launches B5 {b5}, B5 subset {b5s} "
+                         f"= substeps; kernels vs plain after {upto} macro steps (same m and "
+                         f"fast rows) max diff {err:.2e} <= {STATE_ATOL:g}")
+        self.kernels["B5S"]["launches"] = subset_total
+        return (f"N=65536 ds32 block Hermite, binary {BINARY_MASS:g} x 2 at separation "
+                f"{BINARY_SEP:g}, eps2={EPS2_BLOCK:g}, eta={ETA_BLOCK:g}, fast_cap=64, "
+                f"max_substeps=64: " + " | ".join(lines))
+
+    # phase 16
+    def hermite_bounce(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.rollout import resolve_accel_jerk_detect_fn
+        from orbital_tpu_torch.ops.cuda_collisions import bounce_deltas_cuda
+        from orbital_tpu_torch.ops.cuda_jerk import accel_jerk_cuda, accel_jerk_detect_cuda
+
+        torch = self.torch
+        n = N_MAIN
+        pos, vel, mass, E0 = self.cluster()
+        if self.hermite_log is None:
+            raise AssertionError("phase 16 needs the Hermite main path's log (phase 13)")
+
+        # the bench row's radius: contact-free at t = 0, bit-equal to the
+        # collision-free Hermite run up to the first contact
+        cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, integrator="hermite", collisions="bounce",
+                           restitution=1.0)
+        state = ot.make_state(pos, vel, mass, np.full(n, R_BENCH), precision="ds32",
+                              device=self.dev)
+        _, _, _, c0 = accel_jerk_detect_cuda(state.pos, state.vel, state.mass, state.radius,
+                                             state.alive, G=1.0, eps2=EPS2)
+        contacts0 = int(c0)
+        log = StepLog(resolve_accel_jerk_detect_fn(cfg, n, self.dev), keep_pos=True,
+                      keep_counts=True)
+        reset_launches()
+        state = ot.init_forces(state, cfg)
+        rec, _ = ot.rollout(state, cfg, 20, record_every=10, accel_jerk_detect_fn=log)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin, _ = ot.rollout(rec, cfg, self.drift_steps, accel_jerk_detect_fn=log)
+        torch.cuda.synchronize()
+        ms_bench = 1e3 * (time.perf_counter() - t0) / self.drift_steps
+        b5, b5d, b6 = (accel_jerk_cuda.launches, accel_jerk_detect_cuda.launches,
+                       bounce_deltas_cuda.launches)
+        steps = 20 + self.drift_steps
+        drift = abs((energy_f64(fin) - E0) / E0)
+        counts = torch.stack(log.counts).cpu().numpy()
+        hit = [int(k) + 1 for k in np.flatnonzero(counts)]
+        differ = next((k + 1 for k, (a, b) in enumerate(zip(log.positions,
+                                                             self.hermite_log.positions))
+                       if not torch.equal(a, b)), None)
+        if contacts0 != 0:
+            raise AssertionError(f"Hermite bench row: {contacts0} contacts at t=0")
+        if b5 != 1 or b5d != steps or b6 != steps:
+            raise AssertionError(f"Hermite bench row launches: B5 {b5}, B5 detect {b5d}, "
+                                 f"B6 {b6}")
+        if drift > DRIFT_BUDGET or not bool(torch.isfinite(fin.pos).all()):
+            raise AssertionError(f"Hermite bench row drift {drift:.3e} over {DRIFT_BUDGET:g}")
+        if len(log.positions) != len(self.hermite_log.positions):
+            raise AssertionError("Hermite bench row: step counts differ from phase 13")
+        if differ is not None and (not hit or differ <= hit[0]):
+            raise AssertionError(f"Hermite bench row: positions differ from the collision-free "
+                                 f"run at step {differ}, first contact {hit[:1]}")
+        same = (f"bit-equal to collisions='none' through step {hit[0]}" if hit
+                else "bit-equal to collisions='none' on every step")
+        self.hermite_log = None
+
+        # the contact-rich radius: bounces on most steps
+        cfg = cfg.replace(restitution=0.8)
+        state = ot.make_state(pos, vel, mass, np.full(n, R_RICH), precision="ds32",
+                              device=self.dev)
+        reset_launches()
+        tally = StepLog(resolve_accel_jerk_detect_fn(cfg, n, self.dev))
+        start = ot.init_forces(state, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin, _ = ot.rollout(start, cfg, RICH_STEPS, accel_jerk_detect_fn=tally)
+        torch.cuda.synchronize()
+        ms_rich = 1e3 * (time.perf_counter() - t0) / RICH_STEPS
+        b5d_rich, b6_rich = accel_jerk_detect_cuda.launches, bounce_deltas_cuda.launches
+        steps_hit, total = int(tally.steps), int(tally.total)
+        if b5d_rich != RICH_STEPS or b6_rich != RICH_STEPS or steps_hit == 0:
+            raise AssertionError(f"Hermite contact-rich: B5 detect {b5d_rich}, B6 {b6_rich} "
+                                 f"launches, contacts on {steps_hit} steps")
+        if not (bool(torch.isfinite(fin.pos).all()) and bool(torch.isfinite(fin.vel).all())):
+            raise AssertionError("Hermite contact-rich: non-finite state")
+        free = cfg.replace(collisions="none")
+        moved = float((fin.vel_full() - ot.rollout(ot.init_forces(state, free), free,
+                                                   RICH_STEPS)[0].vel_full()).abs().max())
+        if moved == 0.0:
+            raise AssertionError("Hermite contact-rich: the bounces changed nothing")
+        self.kernels["B5D"]["launches"] = b5d + b5d_rich
+
+        # the first steps one at a time, on the kernels and on the plain
+        # sweeps, counts and bounce sweep
+        runs = {}
+        for impl in ("auto", "chunked"):
+            c = cfg.replace(force_impl=impl)
+            t = StepLog(resolve_accel_jerk_detect_fn(c, n, self.dev), keep_counts=True)
+            with plain_bounce() if impl == "chunked" else contextlib.nullcontext():
+                s = ot.init_forces(state, c)
+                states = []
+                for _ in range(RICH_CHECK_STEPS):
+                    s, _ = ot.rollout(s, c, 1, accel_jerk_detect_fn=t)
+                    states.append(s)
+                torch.cuda.synchronize()
+            runs[impl] = (states, [int(x) for x in t.counts])
+        (k_states, k_counts), (p_states, p_counts) = runs["auto"], runs["chunked"]
+        gates = [(a > 0) == (b > 0) for a, b in zip(k_counts, p_counts)]
+        upto = gates.index(False) if False in gates else RICH_CHECK_STEPS
+        if upto == 0:
+            raise AssertionError("Hermite contact-rich: gates differ at step 1")
+        err = max_state_err(k_states[upto - 1], p_states[upto - 1])
+        if err > STATE_ATOL:
+            raise AssertionError(f"Hermite contact-rich: kernels vs plain after {upto} steps: "
+                                 f"{err:.3e} > {STATE_ATOL:g}")
+        return (f"N=65536 ds32 Hermite bounce, bench row R={R_BENCH:g} e=1: 20 recorded + "
+                f"{self.drift_steps} unrecorded steps, contacts 0 at t=0, "
+                f"{int(counts.sum())} on steps {hit}, {same} (positions first differ at step "
+                f"{differ}); |dE/E| = {drift:.3e}; {ms_bench:.3f} ms/step wall; launches B5 "
+                f"{b5}, B5 detect {b5d}, B6 {b6} | contact-rich R={R_RICH:g} e=0.8: "
+                f"{RICH_STEPS} steps at {ms_rich:.3f} ms/step, contacts on {steps_hit} "
+                f"({total} summed), launches B5 detect {b5d_rich}, B6 {b6_rich}, bounces moved "
+                f"max|dv| {moved:.2e}; kernels vs plain over {upto} steps max diff {err:.2e} "
+                f"<= {STATE_ATOL:g} (counts kernel {k_counts} plain {p_counts})")
+
+    # phase 17
+    def hermite_timings(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops.cuda_jerk import (accel_jerk_cuda, accel_jerk_detect_cuda,
+                                                     accel_jerk_detect_plain, accel_jerk_plain,
+                                                     accel_jerk_subset_cuda,
+                                                     accel_jerk_subset_plain)
+
+        torch = self.torch
+        n, f = N_MAIN, 64
+        pos, vel, mass, rad, alive = self.scene(n, R_BENCH, 0, seed_offset=8)
+        kw = dict(G=1.0, eps2=EPS2)
+        idx = torch.arange(0, n, n // f, device=self.dev)
+        b5 = summary(time_ms(lambda: accel_jerk_cuda(pos, vel, mass, alive, **kw), 20))
+        b5p = summary(time_ms(lambda: accel_jerk_plain(pos, vel, mass, alive, **kw), 1))
+        b5d = summary(time_ms(lambda: accel_jerk_detect_cuda(pos, vel, mass, rad, alive,
+                                                             **kw), 20))
+        b5dp = summary(time_ms(lambda: accel_jerk_detect_plain(pos, vel, mass, rad, alive,
+                                                               **kw), 1))
+        b5s = summary(time_ms(lambda: accel_jerk_subset_cuda(idx, pos, vel, mass, alive,
+                                                             **kw), 200))
+        b5sp = summary(time_ms(lambda: accel_jerk_subset_plain(idx, pos, vel, mass, alive,
+                                                               **kw), 5))
+
+        pos_c, vel_c, mass_c, _ = self.cluster()
+        cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, integrator="hermite")
+        st = ot.init_forces(ot.make_state(pos_c, vel_c, mass_c, precision="ds32",
+                                          device=self.dev), cfg)
+        step = summary([t / 10 for t in time_ms(lambda: ot.rollout(st, cfg, 10), 1)])
+        cfg_b = self.block_config(1)
+        st_b = ot.init_forces(ot.make_state(*self.block_scene(), precision="ds32",
+                                            device=self.dev), cfg_b)
+        from orbital_tpu_torch.engine.integrators import block_plan
+
+        m_b = block_plan(st_b, cfg_b)[2]
+        macro = summary(time_ms(lambda: ot.rollout(st_b, cfg_b, 1), 1))
+
+        bounds = {
+            "B5": bound(OPS_B5 * n * n, 64 * n, rsqrt=n * n),
+            "B5D": bound(OPS_B5_DETECT * n * n, 64 * n + 4, rsqrt=n * n),
+            "B5S": bound(OPS_B5_SUBSET * f * n, 32 * n + 32 * f, rsqrt=f * n),
+        }
+        for k, (kern, plain) in {"B5": (b5, b5p), "B5D": (b5d, b5dp),
+                                 "B5S": (b5s, b5sp)}.items():
+            self.kernels[k].update(ms=kern["median"], plain_ms=plain["median"],
+                                   bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                                   library_ms=None)
+        perf = {"B5_N65536": (b5, b5p), "B5D_N65536": (b5d, b5dp), "B5S_F64_N65536": (b5s, b5sp),
+                "hermite_step_N65536": step, "block_macro_step_N65536": macro,
+                "block_macro_m": m_b, "bounds_ms": bounds}
+        print("perf_hermite " + json.dumps(perf), file=sys.stderr)
+
+        def ms(s):
+            return f"{s['median']:.3f} ms (spread {s['spread']:.3f})"
+
+        return (f"B5 N=65536 {ms(b5)} vs plain {ms(b5p)}; B5 detect {ms(b5d)} vs plain "
+                f"{ms(b5dp)}; B5 subset F=64 {b5s['median'] * 1e3:.1f} us (spread "
+                f"{b5s['spread'] * 1e3:.1f}) vs plain {ms(b5sp)}; Hermite ds32 step N=65536 "
+                f"{ms(step)}; block macro step (rungs=1, m={m_b}) {ms(macro)}; bounds "
+                + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()))
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -879,6 +1368,12 @@ def main(argv=None) -> int:
         ("9 bounce bench row", smoke.bounce_bench_row),
         ("10 bounce contact-rich", smoke.bounce_contact_rich),
         ("11 timings", smoke.timings),
+        ("12 jerk", smoke.check_jerk),
+        ("13 hermite main path", smoke.hermite_main_path),
+        ("14 hermite adaptive", smoke.hermite_adaptive),
+        ("15 hermite block", smoke.block_timesteps),
+        ("16 hermite bounce", smoke.hermite_bounce),
+        ("17 hermite timings", smoke.hermite_timings),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -7,11 +7,14 @@ the same module and function names; each Pallas kernel module
 ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use. This package
 imports ``torch`` and never ``jax``.
 
-Ported so far: the exact-force kdk, euler, rk4 and yoshida4 steppers with
-f32/ds32/f64 state, bounce collisions gated on a contact count that stays on
-the device, the CUDA force sweep (with and without contact detection), the
-CUDA bounce sweep, the fused whole-rollout kernel, recorded rollouts and
-``simulate()`` for scene arrays. See ROADMAP.md queue A for the rest.
+Ported so far: the exact-force kdk, euler, rk4, yoshida4 and Hermite
+steppers (Hermite with fixed or adaptive dt and one- or multi-rung block
+timesteps) with f32/ds32/f64 state, bounce collisions gated on a contact
+count that stays on the device, the CUDA force sweep (with and without
+contact detection), the CUDA acc + jerk sweep (full, detecting and
+row-subset), the CUDA bounce sweep, the fused whole-rollout kernel,
+recorded rollouts and ``simulate()`` for scene arrays. See ROADMAP.md queue
+A for the rest.
 """
 from .engine.rollout import Trajectory, init_forces, rollout
 from .engine.state import NBodyState, Rescale, make_state

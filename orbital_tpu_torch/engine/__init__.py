@@ -1,1 +1,1 @@
-"""SoA state, double-single arithmetic, the KDK stepper and rollouts."""
+"""SoA state, double-single arithmetic, the steppers and rollouts."""

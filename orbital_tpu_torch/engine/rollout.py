@@ -14,13 +14,16 @@ from typing import Optional
 import torch
 
 from ..ops.collisions import count_contacts_chunked, count_contacts_dense
-from ..ops.forces import pairwise_acc_chunked, pairwise_acc_dense
+from ..ops.forces import (accel_jerk_chunked, accel_jerk_dense, accel_jerk_subset,
+                          pairwise_acc_chunked, pairwise_acc_dense)
 from ..utils.config import SimConfig
-from .integrators import ForceDetectFn, ForceFn, make_step_fn
+from .integrators import (AccelJerkDetectFn, AccelJerkFn, AccelJerkSubsetFn, ForceDetectFn,
+                          ForceFn, make_step_fn)
 from .state import NBodyState
 
-__all__ = ["Trajectory", "resolve_force_fn", "resolve_force_detect_fn", "init_forces",
-           "rollout"]
+__all__ = ["Trajectory", "resolve_force_fn", "resolve_force_detect_fn",
+           "resolve_accel_jerk_fn", "resolve_accel_jerk_detect_fn",
+           "resolve_accel_jerk_subset_fn", "init_forces", "rollout"]
 
 # Above this body count the dense [N, N] path gives way to the CUDA kernel
 # (CUDA tensors) or the row-blocked path (CPU tensors) under "auto".
@@ -31,6 +34,12 @@ _NOT_PORTED = {
     "pallas_sym": "A.16", "mxu": "A.16", "pallas_mxu": "A.16",
     "pm": "A.12", "p3m": "A.12", "tree": "A.13", "ring": "A.15",
 }
+
+
+# exact-force policies whose Hermite evaluation is the acc + jerk sweep
+# (orbital_tpu/engine/rollout.py:213-219): the kdk paths of A.15/A.16 are
+# not needed for it
+_EXACT_IMPLS = ("auto", "pallas", "pallas_sym", "mxu", "pallas_mxu", "ring")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +140,91 @@ def resolve_force_detect_fn(cfg: SimConfig, n: int, device: torch.device | str,
     return None
 
 
+def _resolve_jerk_impl(cfg: SimConfig, n: int, device: torch.device,
+                       dtype: torch.dtype) -> str:
+    """The Hermite evaluation's path: "dense", "chunked" or "kernel".
+    Every exact-force policy maps to dense at N <= 4096 and above it to the
+    CUDA kernel for CUDA tensors, the row-blocked plain path for CPU ones;
+    the mesh and tree solvers have no per-pair jerk."""
+    if device.type == "cuda" and dtype == torch.float64:
+        raise NotImplementedError(
+            "precision='f64' on CUDA: the CUDA kernels compute in float32; "
+            "use ds32 on the card and f64 on the CPU")
+    impl = cfg.force_impl
+    if impl in ("pm", "p3m", "tree"):
+        raise ValueError(
+            "integrator='hermite' needs exact per-pair jerks, which the "
+            f"mesh/tree solvers cannot provide; use kdk/euler/rk4 with "
+            f"force_impl={impl!r}, or an exact force path for hermite")
+    if impl in _EXACT_IMPLS:
+        if n <= _DENSE_MAX_N:
+            return "dense"
+        return "kernel" if device.type == "cuda" else "chunked"
+    return impl
+
+
+def resolve_accel_jerk_fn(cfg: SimConfig, n: int, device: torch.device | str,
+                          dtype: torch.dtype = torch.float32) -> AccelJerkFn:
+    """The Hermite force evaluation ``fn(pos, vel, mass, alive) -> (acc,
+    jerk, U)`` for a body count and device: dense at N <= 4096; above it the
+    CUDA acc + jerk kernel for CUDA tensors and the row-blocked plain path
+    for CPU tensors (``force_impl="dense"``/``"chunked"`` pick those)."""
+    impl = _resolve_jerk_impl(cfg, n, torch.device(device), dtype)
+    if impl == "dense":
+        return lambda pos, vel, mass, alive: accel_jerk_dense(
+            pos, vel, mass, alive, G=cfg.G, eps2=cfg.eps2)
+    if impl == "chunked":
+        return lambda pos, vel, mass, alive: accel_jerk_chunked(
+            pos, vel, mass, alive, G=cfg.G, eps2=cfg.eps2, chunk=min(cfg.chunk, n))
+    from ..ops.cuda_jerk import accel_jerk_cuda
+
+    return lambda pos, vel, mass, alive: accel_jerk_cuda(
+        pos, vel, mass, alive, G=cfg.G, eps2=cfg.eps2)
+
+
+def resolve_accel_jerk_detect_fn(cfg: SimConfig, n: int, device: torch.device | str,
+                                 dtype: torch.dtype = torch.float32) -> AccelJerkDetectFn:
+    """Hermite acc + jerk with fused contact detection:
+    ``fn(pos, vel, mass, radius, alive) -> (acc, jerk, U, contacts)``,
+    ``contacts`` an int32 0-dim tensor on the state's device. Routed as
+    :func:`resolve_accel_jerk_fn`: the detecting kernel for CUDA tensors
+    above 4,096 bodies, else the plain sweep plus the plain count at the
+    same (predicted) positions."""
+    impl = _resolve_jerk_impl(cfg, n, torch.device(device), dtype)
+    if impl == "kernel":
+        from ..ops.cuda_jerk import accel_jerk_detect_cuda
+
+        return lambda pos, vel, mass, radius, alive: accel_jerk_detect_cuda(
+            pos, vel, mass, radius, alive, G=cfg.G, eps2=cfg.eps2)
+    aj = resolve_accel_jerk_fn(cfg, n, device, dtype)
+    chunk = min(cfg.chunk, n)
+
+    def plain(pos, vel, mass, radius, alive):
+        acc, jerk, U = aj(pos, vel, mass, alive)
+        if impl == "dense":
+            return acc, jerk, U, count_contacts_dense(pos, radius, alive)
+        return acc, jerk, U, count_contacts_chunked(pos, radius, alive, chunk=chunk)
+    return plain
+
+
+def resolve_accel_jerk_subset_fn(cfg: SimConfig, n: int, device: torch.device | str,
+                                 dtype: torch.dtype = torch.float32) -> AccelJerkSubsetFn:
+    """The block steppers' inner evaluation ``fn(idx, pos, vel, mass, alive)
+    -> (acc [F, 3], jerk [F, 3])``, which the JAX package calls as plain XLA:
+    the CUDA subset kernel where :func:`resolve_accel_jerk_fn` takes the
+    kernel, else ``ops.forces.accel_jerk_subset`` (streamed in column blocks
+    above 4,096 bodies, as the JAX stepper does)."""
+    impl = _resolve_jerk_impl(cfg, n, torch.device(device), dtype)
+    if impl == "kernel":
+        from ..ops.cuda_jerk import accel_jerk_subset_cuda
+
+        return lambda idx, pos, vel, mass, alive: accel_jerk_subset_cuda(
+            idx, pos, vel, mass, alive, G=cfg.G, eps2=cfg.eps2)
+    chunk = cfg.chunk if n > _DENSE_MAX_N else 0
+    return lambda idx, pos, vel, mass, alive: accel_jerk_subset(
+        idx, pos, vel, mass, alive, G=cfg.G, eps2=cfg.eps2, chunk=chunk)
+
+
 def _force_fn_for(state: NBodyState, cfg: SimConfig) -> ForceFn:
     return resolve_force_fn(cfg, state.n_bodies, state.device, state.dtype)
 
@@ -138,11 +232,11 @@ def _force_fn_for(state: NBodyState, cfg: SimConfig) -> ForceFn:
 def init_forces(state: NBodyState, cfg: SimConfig,
                 force_fn: Optional[ForceFn] = None) -> NBodyState:
     """Seed the acceleration cache (the reference does this in the engine
-    constructor)."""
+    constructor). Hermite also seeds the jerk cache."""
     if cfg.integrator == "hermite":
-        raise NotImplementedError(
-            "integrator='hermite' (acc + jerk seeding) is not ported to "
-            "orbital_tpu_torch yet (ROADMAP.md queue A item A.8)")
+        aj = resolve_accel_jerk_fn(cfg, state.n_bodies, state.device, state.dtype)
+        acc, jerk, potential = aj(state.pos, state.vel, state.mass, state.alive)
+        return state.replace(acc=acc, jerk=jerk, potential=potential)
     fn = force_fn or _force_fn_for(state, cfg)
     acc, potential = fn(state.pos, state.mass, state.alive)
     return state.replace(acc=acc, potential=potential)
@@ -189,6 +283,8 @@ def rollout(
     force_fn: Optional[ForceFn] = None,
     fused: str = "auto",
     force_detect_fn: Optional[ForceDetectFn] = None,
+    accel_jerk_fn: Optional[AccelJerkFn] = None,
+    accel_jerk_detect_fn: Optional[AccelJerkDetectFn] = None,
 ) -> tuple[NBodyState, Optional[Trajectory]]:
     """Advance ``steps`` steps; optionally record every ``record_every``-th.
 
@@ -205,20 +301,35 @@ def rollout(
     yoshida4 also counts contacts (``force_detect_fn``, by default
     :func:`resolve_force_detect_fn`'s choice) and the bounce sweep is gated
     on that count on the device.
-    """
-    fn = force_fn or _force_fn_for(state, cfg)
-    if (record_every <= 0 and steps > 0 and fused == "auto"
-            and _fused_eligible(state, cfg)):
-        from ..ops.fused_rollout import fused_rollout
 
-        final = fused_rollout(state, cfg, steps)
-        acc, potential = fn(final.pos, final.mass, final.alive)
-        return final.replace(acc=acc, potential=potential), None
-    fd = None
-    if cfg.collisions != "none":
-        fd = force_detect_fn or resolve_force_detect_fn(cfg, state.n_bodies, state.device,
-                                                        state.dtype)
-    step_fn = make_step_fn(cfg, fn, force_detect_fn=fd)
+    Hermite takes its evaluations from ``accel_jerk_fn`` and, with
+    collisions on, ``accel_jerk_detect_fn``, by default the
+    ``resolve_accel_jerk*_fn`` choices, and the block steppers' subset
+    evaluation from :func:`resolve_accel_jerk_subset_fn`; the kdk force
+    path is not resolved for it.
+    """
+    n, dev, dtype = state.n_bodies, state.device, state.dtype
+    if cfg.integrator == "hermite":
+        collide = cfg.collisions != "none"
+        step_fn = make_step_fn(
+            cfg, force_fn,
+            accel_jerk_fn=accel_jerk_fn or resolve_accel_jerk_fn(cfg, n, dev, dtype),
+            accel_jerk_detect_fn=(accel_jerk_detect_fn or resolve_accel_jerk_detect_fn(
+                cfg, n, dev, dtype)) if collide else None,
+            accel_jerk_subset_fn=resolve_accel_jerk_subset_fn(cfg, n, dev, dtype))
+    else:
+        fn = force_fn or _force_fn_for(state, cfg)
+        if (record_every <= 0 and steps > 0 and fused == "auto"
+                and _fused_eligible(state, cfg)):
+            from ..ops.fused_rollout import fused_rollout
+
+            final = fused_rollout(state, cfg, steps)
+            acc, potential = fn(final.pos, final.mass, final.alive)
+            return final.replace(acc=acc, potential=potential), None
+        fd = None
+        if cfg.collisions != "none":
+            fd = force_detect_fn or resolve_force_detect_fn(cfg, n, dev, dtype)
+        step_fn = make_step_fn(cfg, fn, force_detect_fn=fd)
 
     if record_every <= 0:
         for _ in range(steps):

@@ -1,2 +1,2 @@
-"""Pairwise gravity (plain PyTorch and the CUDA kernels), the fused
-rollout kernel, and conservation diagnostics."""
+"""Pairwise gravity and acc + jerk (plain PyTorch and the CUDA kernels),
+collisions, the fused rollout kernel, and conservation diagnostics."""

@@ -16,6 +16,17 @@ Two flavors, both on whatever device the tensors live on:
     live memory; the CPU path at larger N and the plain version the CUDA
     force kernel (``ops.cuda_forces``) is checked against. The last block
     may be short, so N need not divide by ``chunk``.
+
+The Hermite integrator also needs the jerk (da/dt) from the same sweep,
+
+    j_i = G sum_j m_j [v_ij / s^3 - 3 (r_ij . v_ij) r_ij / s^5],
+    s^2 = |r_ij|^2 + eps^2, r_ij = r_j - r_i, v_ij = v_j - v_i,
+
+in the same three shapes: :func:`accel_jerk_dense`,
+:func:`accel_jerk_chunked` (ragged row blocks) and :func:`accel_jerk_subset`
+(a list of target rows against all N sources, the block-timestep inner
+evaluation; ragged column blocks). They are the CPU paths and the plain
+versions the CUDA acc + jerk kernel (``ops.cuda_jerk``) is checked against.
 """
 from __future__ import annotations
 
@@ -23,7 +34,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["pairwise_acc_dense", "pairwise_acc_chunked"]
+__all__ = ["pairwise_acc_dense", "pairwise_acc_chunked", "accel_jerk_dense",
+           "accel_jerk_chunked", "accel_jerk_subset"]
 
 
 def _masked_inverse_r(r2, mask, eps2):
@@ -113,3 +125,124 @@ def pairwise_acc_chunked(
         acc = acc * alive[:, None].to(acc.dtype)
     U = -0.5 * G * torch.sum(mass_eff * pe_row)
     return acc, U
+
+
+def _block_accel_jerk(pos_i, vel_i, pos_j, vel_j, mass_j, mask, eps2, G):
+    """Acc + jerk of a column block on a row block (shared by the dense,
+    chunked and subset paths). Returns (acc [I, 3], jerk [I, 3], pe_row [I])."""
+    dx = pos_j[None, :, 0] - pos_i[:, None, 0]
+    dy = pos_j[None, :, 1] - pos_i[:, None, 1]
+    dz = pos_j[None, :, 2] - pos_i[:, None, 2]
+    dvx = vel_j[None, :, 0] - vel_i[:, None, 0]
+    dvy = vel_j[None, :, 1] - vel_i[:, None, 1]
+    dvz = vel_j[None, :, 2] - vel_i[:, None, 2]
+
+    r2 = dx * dx + dy * dy + dz * dz
+    inv_r = _masked_inverse_r(r2, mask, eps2)
+    inv_r2 = inv_r * inv_r
+    inv_r3 = inv_r2 * inv_r
+    w = mass_j[None, :] * inv_r3                         # m_j / s^3
+    rv = dx * dvx + dy * dvy + dz * dvz                  # r_ij . v_ij
+    c = 3.0 * rv * inv_r2                                # 3 (r.v) / s^2
+
+    acc = G * torch.stack(
+        [torch.sum(w * dx, 1), torch.sum(w * dy, 1), torch.sum(w * dz, 1)], dim=-1)
+    jerk = G * torch.stack(
+        [torch.sum(w * (dvx - c * dx), 1),
+         torch.sum(w * (dvy - c * dy), 1),
+         torch.sum(w * (dvz - c * dz), 1)], dim=-1)
+    pe_row = torch.sum(mass_j[None, :] * inv_r, dim=1)
+    return acc, jerk, pe_row
+
+
+def _keep_alive(acc, jerk, alive):
+    if alive is None:
+        return acc, jerk
+    keep = alive[:, None].to(acc.dtype)
+    return acc * keep, jerk * keep
+
+
+def accel_jerk_dense(
+    pos: torch.Tensor,
+    vel: torch.Tensor,
+    mass: torch.Tensor,
+    alive: Optional[torch.Tensor] = None,
+    *,
+    G: float,
+    eps2: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Softened accelerations AND jerks for Hermite integration: (acc
+    [N, 3], jerk [N, 3], U), U the softened potential (pairs once)."""
+    n = pos.shape[0]
+    mass_eff = _effective_mass(mass, alive)
+    mask = ~torch.eye(n, dtype=torch.bool, device=pos.device)
+    acc, jerk, pe_row = _block_accel_jerk(pos, vel, pos, vel, mass_eff, mask, eps2, G)
+    U = -0.5 * G * torch.sum(mass_eff * pe_row)
+    return (*_keep_alive(acc, jerk, alive), U)
+
+
+def accel_jerk_chunked(
+    pos: torch.Tensor,
+    vel: torch.Tensor,
+    mass: torch.Tensor,
+    alive: Optional[torch.Tensor] = None,
+    *,
+    G: float,
+    eps2: float,
+    chunk: int = 1024,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Row-blocked acc + jerk: O(chunk * N) live memory, any N (the last
+    block may be short)."""
+    n = pos.shape[0]
+    mass_eff = _effective_mass(mass, alive)
+    col_ids = torch.arange(n, device=pos.device)
+    acc_b, jerk_b, pe_b = [], [], []
+    for start in range(0, n, chunk):
+        stop = min(start + chunk, n)
+        mask = col_ids[start:stop, None] != col_ids[None, :]
+        a, j, pe = _block_accel_jerk(pos[start:stop], vel[start:stop], pos, vel, mass_eff,
+                                     mask, eps2, G)
+        acc_b.append(a)
+        jerk_b.append(j)
+        pe_b.append(pe)
+    if not acc_b:
+        return torch.zeros_like(pos), torch.zeros_like(pos), pos.new_zeros(())
+    pe_row = torch.cat(pe_b)
+    U = -0.5 * G * torch.sum(mass_eff * pe_row)
+    return (*_keep_alive(torch.cat(acc_b), torch.cat(jerk_b), alive), U)
+
+
+def accel_jerk_subset(
+    idx_i: torch.Tensor,
+    pos: torch.Tensor,
+    vel: torch.Tensor,
+    mass: torch.Tensor,
+    alive: Optional[torch.Tensor] = None,
+    *,
+    G: float,
+    eps2: float,
+    chunk: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Acc + jerk ON the ``idx_i`` rows from ALL bodies (the block-timestep
+    Hermite inner evaluation: F fast targets x N sources). Self pairs are
+    excluded by global index. ``chunk > 0`` streams the sources in column
+    blocks (live memory O(F * chunk)), the last one possibly short.
+    Returns (acc [F, 3], jerk [F, 3]); target rows are not alive-masked."""
+    n = pos.shape[0]
+    mass_eff = _effective_mass(mass, alive)
+    pos_i = pos[idx_i]
+    vel_i = vel[idx_i]
+    col_ids = torch.arange(n, device=pos.device)
+    if chunk <= 0:
+        mask = idx_i[:, None] != col_ids[None, :]
+        acc, jerk, _ = _block_accel_jerk(pos_i, vel_i, pos, vel, mass_eff, mask, eps2, G)
+        return acc, jerk
+    accs, jerks = [], []
+    for start in range(0, n, chunk):
+        stop = min(start + chunk, n)
+        mask = idx_i[:, None] != col_ids[None, start:stop]
+        a, j, _ = _block_accel_jerk(pos_i, vel_i, pos[start:stop], vel[start:stop],
+                                    mass_eff[start:stop], mask, eps2, G)
+        accs.append(a)
+        jerks.append(j)
+    return torch.stack(accs).sum(0), torch.stack(jerks).sum(0)

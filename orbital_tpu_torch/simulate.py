@@ -2,10 +2,11 @@
 
 Wraps natural-unit rescaling, the precision policy, force-path selection,
 the rollout and the unit conversion back to physical units behind a single
-function. Ported so far: the exact-force kdk, euler, rk4 and yoshida4
-steppers with or without bounce collisions; Hermite, RESPA, the merge and
-resolve collision modes and the approximate force solvers raise
-``NotImplementedError`` (ROADMAP.md queue A).
+function. Ported so far: the exact-force kdk, euler, rk4, yoshida4 and
+Hermite steppers (Hermite with fixed or adaptive dt and block timesteps),
+with or without bounce collisions; RESPA, the merge and resolve collision
+modes and the approximate force solvers raise ``NotImplementedError``
+(ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -58,6 +59,11 @@ def simulate(
     collisions: str = "none",
     restitution: float = 1.0,
     force_impl: str = "auto",
+    adaptive_eta: Optional[float] = None,
+    dt_min: float = 0.0,
+    hermite_fast_cap: int = 0,
+    hermite_max_substeps: int = 64,
+    hermite_rungs: int = 1,
     unit_profile: UnitProfile = STANDARD,
     rescale: Optional[Rescale] = None,
 ) -> SimResult:
@@ -69,6 +75,10 @@ def simulate(
     records. ``softening`` and ``dt`` are in scene units.
     ``collisions="bounce"`` bounces touching spheres (``scene.radius``)
     with coefficient of restitution ``restitution``.
+    ``integrator="hermite"`` takes ``adaptive_eta`` (Aarseth steps clipped
+    to [dt_min, dt]; ``dt_min`` in scene units) and the block-timestep knobs
+    ``hermite_fast_cap``, ``hermite_max_substeps`` and ``hermite_rungs``
+    (see :class:`SimConfig`).
     """
     if not isinstance(scene, SceneArrays):
         raise NotImplementedError(
@@ -95,6 +105,11 @@ def simulate(
         collisions=collisions,
         restitution=restitution,
         force_impl=force_impl,
+        adaptive_eta=adaptive_eta,
+        dt_min=dt_min / rescale.time if dt_min else 0.0,
+        hermite_fast_cap=hermite_fast_cap,
+        hermite_max_substeps=hermite_max_substeps,
+        hermite_rungs=hermite_rungs,
     )
     state = make_state(scene.pos, scene.vel, scene.mass, scene.radius,
                        precision=precision, rescale=rescale, device=device)
