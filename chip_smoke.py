@@ -47,11 +47,25 @@ Phases, one line of output each; any failure exits nonzero:
  16. Hermite with bounce collisions: the bench row's radius against the
      collision-free Hermite run up to the first contact, and the
      contact-rich radius on the kernels and on the plain versions;
- 17. Hermite kernel, step and macro-step times.
+ 17. Hermite kernel, step and macro-step times;
+ 18. the near-field kernel of the multirate stepper (B8-B11 as one kernel)
+     against its plain version, over the padded block table and over the
+     worklist, at the 65,536-body headline geometry and at a ragged N = 5000
+     with dead bodies and starved budgets (every overflow counter > 0); each
+     against the f64 sum too;
+ 19. the multirate (RESPA) main path: the same cluster with the bench's
+     configuration (rc = 5 eps, cell = 2 rc, K = 4, refresh every 4 macro
+     windows) through ``init_forces`` -> a recorded and an unrecorded
+     ``respa_rollout``: zero overflow and skin counters, |dE/E| <= 1e-6 in
+     f64, three macro steps on the kernel against the plain sweep, and
+     with bounce collisions (refresh 1) bit-equal to a collision-free run
+     up to the first contact;
+ 20. near kernel, geometry, pack/unpack, macro-step and per-substep times at
+     K = 4 and K = 5 against the KDK step.
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
-10, 13, 14, 15 and 16) and read just after it: each kernel must have run on
-its path. The line before the last is a JSON summary of the kernels; the
+10, 13, 14, 15, 16 and 19) and read just after it: each kernel must have
+run on its path. The line before the last is a JSON summary of the kernels; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -136,6 +150,27 @@ OPS_B1, OPS_B2, OPS_B6, OPS_B6_TOUCH = 18, 21, 10, 30
 # (dv - c dx) and their multiply-adds (12), pe (2): 42; detect adds
 # (R_i + R_j) * 1.00001 and its square (3); the subset variant has no pe
 OPS_B5, OPS_B5_DETECT, OPS_B5_SUBSET = 42, 45, 40
+# the near sweep (csrc/neighbor.cu, per pair): 3 differences, r2 (5),
+# rc^2 - r2 and * inv_d (2), the clip (2), s^2 (1), S (6), spd (4), + eps2,
+# inv_r^3 (2), the weight (5), three multiply-adds (6), pe (3): 40, the
+# count of the JAX kernel's own cost estimate (neighbor_pallas.py:156-159)
+OPS_NEAR = 40
+# the multirate runs (phases 18-20), the bench's configuration
+# (bench.py:265-316, 966-972): switch radius 5 softening lengths, cell 2 rc,
+# chunks of 32 bodies, j-blocks of 4 chunks, budget headroom 2.2 (1.5 on the
+# blocks of a chunk); K = 4 substeps a macro window with the geometry
+# refreshed every 4 windows (K = 5 every 3, timed only)
+RC_RESPA = 5.0 * EPS2 ** 0.5
+CELL_RESPA = 2.0 * RC_RESPA
+RESPA_K, RESPA_REFRESH = 4, 4
+RESPA_K5, RESPA_REFRESH5 = 5, 3
+# the near kernel against its plain version: max |d acc| / max |acc| and
+# max |d pe| / max |pe|, f32 sums in two orders (as FORCE_RTOL)
+NEAR_RTOL = 1e-5
+# the ragged near-kernel case: N, its concentration (a unit Gaussian scaled
+# so that a body has a few neighbours within rc) and its starved budgets
+N_NEAR_RAGGED = 5000
+NEAR_RAGGED_SCALE = 0.3
 
 B1 = dict(name="nbody_forces", route="cuda",
           source="orbital_tpu_torch/csrc/nbody_forces.cu",
@@ -158,6 +193,10 @@ B5D = dict(name="nbody_jerk_detect", route="cuda",
 B5S = dict(name="nbody_jerk_subset", route="cuda",
            source="orbital_tpu_torch/csrc/nbody_jerk.cu",
            replaces="orbital_tpu/ops/pallas_jerk.py:52")
+# one kernel for the four TPU schedules B8 (:165), B9 (:286), B10 (:394) and
+# B11 (:80); the record names B8's
+NEAR = dict(name="near_sweep", route="cuda", source="orbital_tpu_torch/csrc/neighbor.cu",
+            replaces="orbital_tpu/ops/neighbor_pallas.py:165")
 
 
 def bound(flops: float, nbytes: float, rsqrt: float = 0.0) -> tuple[float, str]:
@@ -229,13 +268,35 @@ def alternate_ms(fns: dict, iters: int, repeats: int = 3) -> dict:
     return out
 
 
+def device_times(fn) -> dict:
+    """{kernel name: (launches, device ms)} over one call of ``fn`` (after a
+    warm-up call), from torch.profiler's CUDA activity; empty when the
+    profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and t > 0:
+            out[e.key] = (e.count, t / 1e3)
+    return out
+
+
 def reset_launches() -> None:
-    from orbital_tpu_torch.ops import cuda_collisions, cuda_forces, cuda_jerk, fused_rollout
+    from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_jerk, cuda_neighbor,
+                                       fused_rollout)
 
     for fn in (cuda_forces.pairwise_acc_cuda, cuda_forces.pairwise_acc_detect_cuda,
                fused_rollout.fused_rollout, cuda_collisions.bounce_deltas_cuda,
                cuda_jerk.accel_jerk_cuda, cuda_jerk.accel_jerk_detect_cuda,
-               cuda_jerk.accel_jerk_subset_cuda):
+               cuda_jerk.accel_jerk_subset_cuda, cuda_neighbor.near_acc_slots_cuda):
         fn.launches = 0
 
 
@@ -309,8 +370,10 @@ class Smoke:
         self.seed = seed
         self.drift_steps = drift_steps
         self.kernels = {"B1": dict(B1), "B2": dict(B2), "B4": dict(B4), "B6": dict(B6),
-                        "B5": dict(B5), "B5D": dict(B5D), "B5S": dict(B5S)}
+                        "B5": dict(B5), "B5D": dict(B5D), "B5S": dict(B5S),
+                        "NEAR": dict(NEAR)}
         self._cluster = None
+        self._respa_budgets = None
         self.main_ms_per_step = None
         self.hermite_log = None
 
@@ -338,16 +401,15 @@ class Smoke:
 
     # phase 2
     def build(self) -> str:
-        from orbital_tpu_torch.ops import cuda_collisions, cuda_forces, cuda_jerk, fused_rollout
+        from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_jerk,
+                                           cuda_neighbor, fused_rollout)
         from orbital_tpu_torch.utils import kernels
 
-        names = ("nbody_forces", "fused_rollout", "collisions", "nbody_jerk")
+        names = kernels.SOURCES
         t0 = time.perf_counter()
         kernels.build(names)
-        cuda_forces._load()
-        fused_rollout._load()
-        cuda_collisions._load()
-        cuda_jerk._load()
+        for mod in (cuda_forces, fused_rollout, cuda_collisions, cuda_jerk, cuda_neighbor):
+            mod._load()
         total = time.perf_counter() - t0
         for name in names:
             for line in kernels.build_log(name).splitlines():
@@ -1335,6 +1397,323 @@ class Smoke:
                 f"{ms(step)}; block macro step (rungs=1, m={m_b}) {ms(macro)}; bounds "
                 + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()))
 
+    # phases 18-20: the multirate stepper
+    def respa_budgets(self):
+        """(m_grid, max_chunks, w_blk, wl_entries) of the cluster, probed once
+        as the bench probes them (bench.py:282-285)."""
+        if self._respa_budgets is None:
+            from orbital_tpu_torch.ops.neighbor import neighbor_budgets
+
+            pos, _, _, _ = self.cluster()
+            self._respa_budgets = neighbor_budgets(pos, cell=CELL_RESPA, chunk=32, rj=4,
+                                                   with_wl=True, headroom=2.2,
+                                                   w_headroom=1.5)
+        return self._respa_budgets
+
+    def respa_config(self, k: int = RESPA_K, refresh: int = RESPA_REFRESH, **kw):
+        """The bench's multirate configuration on the cluster: the superblock
+        schedule, so no worklist budget."""
+        import orbital_tpu_torch as ot
+
+        m, k_ch, w_blk, _ = self.respa_budgets()
+        return ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, integrator="respa", respa_k=k,
+                            respa_rc=RC_RESPA, respa_cell=CELL_RESPA, respa_m=m,
+                            respa_max_chunks=k_ch, respa_w_blk=w_blk, respa_wl_entries=0,
+                            respa_impl="pallas_sb", respa_refresh=refresh, **kw)
+
+    def near_case(self, pos, mass, alive, budgets):
+        """Geometry with a worklist and packed slot channels on the card."""
+        from orbital_tpu_torch.ops import neighbor as nb
+
+        torch = self.torch
+        m, k_ch, w_blk, q = budgets
+        pos_t = torch.tensor(pos, dtype=torch.float32, device=self.dev)
+        alive_t = torch.tensor(alive, device=self.dev)
+        geom = nb.neighbor_geometry(pos_t, alive_t, cell=CELL_RESPA, m_grid=m, chunk=32,
+                                    max_chunks=k_ch, w_blk=w_blk, rj=4, wl_entries=q)
+        n_slots = (k_ch + 4) * 32
+        mass_t = torch.tensor(np.where(alive, mass, 0.0), dtype=torch.float32,
+                              device=self.dev)
+        ch = [nb.pack_slots(geom["slot"], pos_t[:, k].contiguous(), n_slots, nb.SENTINEL_POS)
+              for k in range(3)] + [nb.pack_slots(geom["slot"], mass_t, n_slots, 0.0)]
+        return geom, ch
+
+    # phase 18
+    def check_near(self) -> str:
+        from orbital_tpu_torch.engine.state import far_positions
+        from orbital_tpu_torch.ops import cuda_neighbor as cn
+        from orbital_tpu_torch.ops import neighbor as nb
+        from orbital_tpu_torch.utils import kernels
+
+        torch = self.torch
+        kw = dict(r1=0.5 * RC_RESPA, rc=RC_RESPA, G=1.0, eps2=EPS2, chunk=32, rj=4)
+
+        def rel(x, ref):
+            return float((x.double() - ref.double()).abs().max()) / float(ref.abs().max())
+
+        pos, _, mass, _ = self.cluster()
+        budgets = self.respa_budgets()
+        rng = np.random.default_rng(self.seed + 9)
+        pos_r = rng.normal(size=(N_NEAR_RAGGED, 3)) * NEAR_RAGGED_SCALE
+        alive_r = np.ones(N_NEAR_RAGGED, bool)
+        alive_r[-7:] = False
+        pos_r[-7:] = far_positions(7, float(np.abs(pos_r).max()), np.float32,
+                                   start=N_NEAR_RAGGED - 7)
+        mass_r = np.full(N_NEAR_RAGGED, 1.0 / N_NEAR_RAGGED)
+        m_r, k_r, w_r, q_r = nb.neighbor_budgets(pos_r, alive_r, cell=CELL_RESPA, chunk=32,
+                                                 rj=4, with_wl=True)
+        starved = (m_r, max(4, (k_r // 2) // 4 * 4), max(1, w_r // 3), max(8, q_r // 3))
+        lines, vs64 = [], {}
+        for name, (p_, m_, a_, b_) in (
+                (f"N={N_MAIN}", (pos, mass, np.ones(N_MAIN, bool), budgets)),
+                (f"N={N_NEAR_RAGGED} starved", (pos_r, mass_r, alive_r, starved))):
+            geom, ch = self.near_case(p_, m_, a_, b_)
+            ovf = {k: int(geom[k]) for k in ("cap_overflow", "w_overflow", "q_overflow")}
+            if name.endswith("starved") != all(v > 0 for v in ovf.values()):
+                raise AssertionError(f"near {name}: overflow counters {ovf}")
+            a_k, pe_k = cn.near_acc_slots_cuda(*ch, geom["jbl"], **kw)
+            a_w, pe_w = cn.near_acc_slots_cuda_wl(*ch, geom["wl_i"], geom["wl_jb"], **kw)
+            a_p, pe_p = nb.near_acc_slots(*ch, geom["jbl"], **kw)
+            a_pw, pe_pw = cn.near_acc_slots_wl_plain(*ch, geom["wl_i"], geom["wl_jb"], **kw)
+            a64, pe64 = nb.near_acc_slots(*(c.double() for c in ch), geom["jbl"], **kw)
+            torch.cuda.synchronize()
+            errs = {"jbl": (rel(a_k, a_p), rel(pe_k, pe_p)),
+                    "worklist": (rel(a_w, a_pw), rel(pe_w, pe_pw))}
+            for mode, (ea, ep) in errs.items():
+                if ea > NEAR_RTOL or ep > NEAR_RTOL or not bool(torch.isfinite(a_k).all()):
+                    raise AssertionError(f"near {name} {mode}: max|da|/max|a| = {ea:.3e}, "
+                                         f"max|dpe|/max|pe| = {ep:.3e}")
+            same = torch.equal(a_k, a_w) and torch.equal(pe_k, pe_w)
+            if ovf["q_overflow"] == 0 and not same:
+                raise AssertionError(f"near {name}: worklist and table sweeps differ")
+            vs64[name] = (rel(a_k, a64), rel(a_p, a64), rel(pe_k, pe64), rel(pe_p, pe64))
+            if vs64[name][0] > NEAR_RTOL:
+                raise AssertionError(f"near {name} vs f64: {vs64[name]}")
+            if name == f"N={N_MAIN}":
+                self.kernels["NEAR"]["max_abs_err"] = float((a_k - a_p).abs().max())
+                entries = int((geom["jbl"] != geom["jbl"].shape[0] // 4).sum())
+            lines.append(
+                f"{name} ({ovf}): table {errs['jbl'][0]:.2e}/{errs['jbl'][1]:.2e}, worklist "
+                f"{errs['worklist'][0]:.2e}/{errs['worklist'][1]:.2e}"
+                f"{', bit-equal to the table' if same else ''}; vs f64 acc kernel "
+                f"{vs64[name][0]:.2e} plain {vs64[name][1]:.2e}, pe kernel "
+                f"{vs64[name][2]:.2e} plain {vs64[name][3]:.2e}")
+            del a64, pe64
+        ptxas = "; ".join(line.strip() for line in kernels.build_log("neighbor").splitlines()
+                          if "registers" in line or "spill" in line) or "cached build"
+        m, k_ch, w_blk, q = budgets
+        return (f"near kernel == plain within max|da|/max|a|, max|dpe|/max|pe| <= "
+                f"{NEAR_RTOL:g} [{'; '.join(lines)}]; headline budgets m={m} k_ch={k_ch} "
+                f"w_blk={w_blk} wl={q}, {entries} live j-blocks; ptxas: {ptxas}")
+
+    # phase 19
+    def respa_main_path(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.multirate import respa_rollout
+        from orbital_tpu_torch.engine.rollout import resolve_force_detect_fn, resolve_force_fn
+        from orbital_tpu_torch.ops.cuda_collisions import bounce_deltas_cuda
+        from orbital_tpu_torch.ops.cuda_forces import (pairwise_acc_cuda,
+                                                       pairwise_acc_detect_cuda)
+        from orbital_tpu_torch.ops.cuda_neighbor import near_acc_slots_cuda
+        from orbital_tpu_torch.utils import native
+
+        torch = self.torch
+        n = N_MAIN
+        pos, vel, mass, E0 = self.cluster()
+        cfg = self.respa_config()
+        state = ot.make_state(pos, vel, mass, precision="ds32", device=self.dev)
+        rec_steps = 2 * RESPA_K * 2  # two records of two macro windows
+        if self.drift_steps % RESPA_K:
+            raise AssertionError(f"--drift-steps must divide by K = {RESPA_K}")
+
+        reset_launches()
+        state = ot.init_forces(state, cfg)
+        rec, traj, d_rec = respa_rollout(state, cfg, rec_steps, record_every=rec_steps // 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin, none, d_run = respa_rollout(rec, cfg.replace(track_potential=False),
+                                         self.drift_steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b1, near = pairwise_acc_cuda.launches, near_acc_slots_cuda.launches
+
+        steps = rec_steps + self.drift_steps
+        macros = steps // RESPA_K
+        drift = abs((energy_f64(fin) - E0) / E0)
+        counters = {k: max(int(d_rec[k]), int(d_run[k])) for k in d_run}
+        e_rec = traj.energy.double().cpu().numpy()
+        if tuple(traj.pos.shape) != (2, n, 3) or none is not None:
+            raise AssertionError("RESPA: the recorded rollout returned the wrong records")
+        if not (np.isfinite(e_rec).all() and bool(torch.isfinite(fin.pos).all())):
+            raise AssertionError("RESPA: non-finite state or energy records")
+        if np.max(np.abs(e_rec / E0 - 1.0)) > ENERGY_RTOL:
+            raise AssertionError(f"RESPA recorded f32 energies {e_rec} stray from E0 = {E0}")
+        if any(counters.values()):
+            raise AssertionError(f"RESPA overflow or skin counters nonzero: {counters}")
+        if int(fin.step) != steps:
+            raise AssertionError(f"RESPA step counter {int(fin.step)} after {steps} substeps")
+        if b1 != 1 + macros or near != (RESPA_K + 1) * macros:
+            raise AssertionError(f"RESPA launches: B1 {b1}, near {near} in {macros} macro "
+                                 f"windows + init")
+        if drift > DRIFT_BUDGET:
+            raise AssertionError(f"RESPA energy drift {drift:.3e} over {DRIFT_BUDGET:g}")
+        self.kernels["NEAR"]["launches"] = near
+        self.respa_ms_per_substep = 1e3 * wall / self.drift_steps
+
+        # three macro windows on the kernel against the plain sweep
+        start = ot.init_forces(ot.make_state(pos, vel, mass, precision="ds32",
+                                             device=self.dev), cfg)
+        k3, _, _ = respa_rollout(start, cfg, 3 * RESPA_K)
+        p3, _, _ = respa_rollout(start, cfg.replace(respa_impl="xla"), 3 * RESPA_K)
+        torch.cuda.synchronize()
+        err = max_state_err(k3, p3)
+        if err > STATE_ATOL:
+            raise AssertionError(f"RESPA 3 macro steps, kernel vs plain sweep: {err:.3e}")
+
+        # bounce at the bench row's radius against the collision-free run, both
+        # with the geometry rebuilt every window (refresh > 1 needs collisions off)
+        radius = np.full(n, R_BENCH)
+        runs = {}
+        for mode in ("none", "bounce"):
+            c = self.respa_config(refresh=1, collisions=mode, restitution=1.0,
+                                  track_potential=False)
+            resolve = resolve_force_detect_fn if mode == "bounce" else resolve_force_fn
+            log = StepLog(resolve(c, n, self.dev), keep_pos=True, keep_counts=True)
+            hook = dict(force_detect_fn=log) if mode == "bounce" else dict(force_fn=log)
+            s = ot.init_forces(ot.make_state(pos, vel, mass, radius, precision="ds32",
+                                             device=self.dev), c)
+            if mode == "bounce":
+                reset_launches()
+            fin_b, _, d_b = respa_rollout(s, c, self.drift_steps, **hook)
+            torch.cuda.synchronize()
+            runs[mode] = (fin_b, log, {k: int(v) for k, v in d_b.items()})
+        b2, b6 = pairwise_acc_detect_cuda.launches, bounce_deltas_cuda.launches
+        (_, log_none, _), (fin_b, log_b, d_b) = runs["none"], runs["bounce"]
+        counts = torch.stack(log_b.counts).cpu().numpy()
+        hit = [int(k) + 1 for k in np.flatnonzero(counts)]  # macro windows with contacts
+        differ = next((k + 1 for k, (a, b) in enumerate(zip(log_b.positions,
+                                                             log_none.positions))
+                       if not torch.equal(a, b)), None)
+        n_b = self.drift_steps // RESPA_K
+        if any(d_b.values()) or b2 != n_b or b6 != n_b:
+            raise AssertionError(f"RESPA bounce: counters {d_b}, launches B2 {b2}, B6 {b6}")
+        if differ is not None and (not hit or differ <= hit[0]):
+            raise AssertionError(f"RESPA bounce: positions differ from the collision-free run "
+                                 f"at window {differ}, first contact {hit[:1]}")
+        if not bool(torch.isfinite(fin_b.pos).all()):
+            raise AssertionError("RESPA bounce: non-finite state")
+        same = (f"bit-equal to collisions='none' through window {hit[0]}" if hit
+                else "bit-equal to collisions='none' on every window")
+        return (f"N={n} ds32 RESPA K={RESPA_K} refresh={RESPA_REFRESH} rc={RC_RESPA:g} "
+                f"cell={CELL_RESPA:g}: init_forces + {rec_steps} recorded + "
+                f"{self.drift_steps} unrecorded substeps, |dE/E| = {drift:.3e} <= "
+                f"{DRIFT_BUDGET:g} (f64, {native.backend()}); counters {counters}; "
+                f"{self.respa_ms_per_substep:.3f} ms/substep wall; launches B1 {b1}, near "
+                f"{near} in {macros} windows; 3 windows kernel vs plain sweep max diff "
+                f"{err:.2e} <= {STATE_ATOL:g} | bounce R={R_BENCH:g} e=1, refresh 1, "
+                f"{self.drift_steps} substeps: contacts on windows {hit}, {same} (positions "
+                f"first differ at window {differ}); launches B2 {b2}, B6 {b6}")
+
+    # phase 20
+    def respa_timings(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.multirate import make_respa_macro, respa_rollout
+        from orbital_tpu_torch.engine.rollout import resolve_force_fn
+        from orbital_tpu_torch.ops import cuda_neighbor as cn
+        from orbital_tpu_torch.ops import neighbor as nb
+
+        torch = self.torch
+        n = N_MAIN
+        pos, vel, mass, _ = self.cluster()
+        cfg = self.respa_config(track_potential=False)
+        st = ot.init_forces(ot.make_state(pos, vel, mass, precision="ds32", device=self.dev),
+                            cfg)
+        macro = make_respa_macro(cfg, resolve_force_fn(cfg, n, self.dev))
+        geom = macro.build_geom(st)
+        geom_wl, ch = self.near_case(pos, mass, np.ones(n, bool), self.respa_budgets())
+        kw = dict(r1=0.5 * RC_RESPA, rc=RC_RESPA, G=1.0, eps2=EPS2, chunk=32, rj=4)
+
+        near = summary(time_ms(lambda: cn.near_acc_slots_cuda(*ch, geom_wl["jbl"], **kw), 50))
+        near_wl = summary(time_ms(lambda: cn.near_acc_slots_cuda_wl(
+            *ch, geom_wl["wl_i"], geom_wl["wl_jb"], **kw), 50))
+        near_p = summary(time_ms(lambda: nb.near_acc_slots(*ch, geom_wl["jbl"], **kw), 1))
+        build = summary(time_ms(lambda: macro.build_geom(st), 10))
+
+        n_slots = (cfg.respa_max_chunks + 4) * 32
+        slot = geom["slot"]
+        rows = torch.cat([st.pos, st.mass[:, None]], dim=1)
+
+        def pack_unpack():
+            tabs = [nb.pack_rows(slot, rows, n_slots, 0.0) for _ in range(5)]
+            return [nb.unpack_rows(slot, t, rows, cfg.respa_max_chunks * 32) for t in tabs]
+
+        packs = summary(time_ms(pack_unpack, 20))
+        one_macro = summary(time_ms(lambda: macro(st, geom), 5))
+
+        # ms per substep over 12 macro windows (geometry builds included), at
+        # K = 4 and K = 5, against the KDK step of phase 11, in turns
+        cfg5 = self.respa_config(RESPA_K5, RESPA_REFRESH5, track_potential=False)
+        st5 = ot.init_forces(ot.make_state(pos, vel, mass, precision="ds32", device=self.dev),
+                             cfg5)
+        kcfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, track_potential=False)
+        stk = ot.init_forces(ot.make_state(pos, vel, mass, precision="ds32", device=self.dev),
+                             kcfg)
+        turns = alternate_ms({
+            "K4": lambda: respa_rollout(st, cfg, 12 * RESPA_K),
+            "K5": lambda: respa_rollout(st5, cfg5, 12 * RESPA_K5),
+            "kdk": lambda: ot.rollout(stk, kcfg, 10)}, 1, repeats=3)
+        per = {"K4": 12 * RESPA_K, "K5": 12 * RESPA_K5, "kdk": 10}
+        sub = {k: summary([t / per[k] for t in v]) for k, v in turns.items()}
+
+        # device time by kernel: the near kernel alone (its wrapper's host work
+        # is not in it), and one geometry period at K = 4 (4 windows) for the
+        # busy share of a substep and where the device time goes
+        prof = device_times(lambda: [cn.near_acc_slots_cuda(*ch, geom_wl["jbl"], **kw)
+                                     for _ in range(20)])
+        near_dev = sum(t for k, (_, t) in prof.items() if "near_sweep" in k) / 20 or None
+        prof = device_times(lambda: respa_rollout(st, cfg, RESPA_REFRESH * RESPA_K))
+        busy = sum(t for _, t in prof.values()) / (RESPA_REFRESH * RESPA_K) or None
+        launched = sum(c for c, _ in prof.values()) / (RESPA_REFRESH * RESPA_K)
+        top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:6]
+        prof = device_times(lambda: macro.build_geom(st))
+        build_dev = (sum(c for c, _ in prof.values()), sum(t for _, t in prof.values()))
+
+        live = int((geom_wl["jbl"] != cfg.respa_max_chunks // 4).sum())
+        pairs = live * 128 * 32
+        k_ch, w_blk = geom_wl["jbl"].shape
+        nbytes = 16 * n_slots + 4 * k_ch * w_blk + 4 * k_ch + 16 * k_ch * 32
+        bnd = bound(OPS_NEAR * pairs, nbytes, rsqrt=pairs)
+        self.kernels["NEAR"].update(ms=near["median"], plain_ms=near_p["median"],
+                                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        ratio = {k: sub["kdk"]["median"] / sub[k]["median"] for k in ("K4", "K5")}
+        perf = {"near_N65536": (near, near_p), "near_wl_N65536": near_wl,
+                "near_pairs": pairs, "near_bound_ms": bnd, "geometry_build": build,
+                "pack_unpack_5_tables": packs, "macro_step_K4": one_macro,
+                "substep_K4_refresh4": sub["K4"], "substep_K5_refresh3": sub["K5"],
+                "kdk_step": sub["kdk"], "kdk_over_substep": ratio,
+                "near_device_ms": near_dev, "substep_K4_device_busy_ms": busy,
+                "substep_K4_kernels": launched, "period_K4_top_kernels": top,
+                "geometry_build_kernels_device_ms": build_dev}
+        print("perf_respa " + json.dumps(perf), file=sys.stderr)
+
+        def ms(s):
+            return f"{s['median']:.3f} ms (spread {s['spread']:.3f})"
+
+        profiled = ("device time not measured (the profiler recorded none)" if busy is None
+                    else f"near kernel device time {near_dev:.3f} ms a call; a K=4 substep "
+                    f"keeps the device busy {busy:.3f} ms of {sub['K4']['median']:.3f} "
+                    f"(idle {100 * (1 - busy / sub['K4']['median']):.0f}%) with "
+                    f"{launched:.1f} kernels; a geometry build {build_dev[0]} kernels, "
+                    f"{build_dev[1]:.3f} ms of device time; top: "
+                    + ", ".join(f"{k[:40]} {c}x {t:.2f} ms" for k, (c, t) in top[:4]))
+        return (f"near kernel N={n} {ms(near)} (worklist {ms(near_wl)}) vs plain "
+                f"{ms(near_p)}, {pairs} pairs, bound {bnd[0]:.4f} ms ({bnd[1]}, "
+                f"{100 * bnd[0] / near['median']:.0f}%); geometry build {ms(build)}; "
+                f"pack+unpack of 5 tables {ms(packs)}; one macro step K=4 {ms(one_macro)}; "
+                f"per substep K=4 refresh 4 {ms(sub['K4'])}, K=5 refresh 3 {ms(sub['K5'])}; "
+                f"KDK step {ms(sub['kdk'])}: KDK/substep {ratio['K4']:.2f}x (K=4), "
+                f"{ratio['K5']:.2f}x (K=5); {profiled}")
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1374,6 +1753,9 @@ def main(argv=None) -> int:
         ("15 hermite block", smoke.block_timesteps),
         ("16 hermite bounce", smoke.hermite_bounce),
         ("17 hermite timings", smoke.hermite_timings),
+        ("18 near", smoke.check_near),
+        ("19 respa main path", smoke.respa_main_path),
+        ("20 respa timings", smoke.respa_timings),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()

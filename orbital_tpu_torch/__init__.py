@@ -12,9 +12,10 @@ steppers (Hermite with fixed or adaptive dt and one- or multi-rung block
 timesteps) with f32/ds32/f64 state, bounce collisions gated on a contact
 count that stays on the device, the CUDA force sweep (with and without
 contact detection), the CUDA acc + jerk sweep (full, detecting and
-row-subset), the CUDA bounce sweep, the fused whole-rollout kernel,
-recorded rollouts and ``simulate()`` for scene arrays. See ROADMAP.md queue
-A for the rest.
+row-subset), the CUDA bounce sweep, the fused whole-rollout kernel, the
+multirate (RESPA) stepper with its CUDA near-field sweep
+(``engine.multirate``), recorded rollouts and ``simulate()`` for scene
+arrays. See ROADMAP.md queue A for the rest.
 """
 from .engine.rollout import Trajectory, init_forces, rollout
 from .engine.state import NBodyState, Rescale, make_state

@@ -23,8 +23,9 @@ it was, as the JAX stepper's ``lax.cond`` does, and the host never reads the
 count. On CUDA the bounce kernel reads the same count and skips its sweep.
 Hermite's force evaluation is at the *predicted* positions, so its gate
 tests predicted separations; the bounce sweep itself runs on the corrected
-state. RESPA and the merge/resolve collision modes raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+state. The merge/resolve collision modes raise ``NotImplementedError``
+naming the ROADMAP item that ports them. RESPA has no single-step function
+(nor has the JAX package): ``engine.multirate.respa_rollout`` runs it.
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ AccelJerkDetectFn = Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor
 AccelJerkSubsetFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
 
 # ROADMAP.md queue A items that port what is left out
-_NOT_PORTED = {"respa": "A.14", "merge": "A.7b", "resolve": "A.7b"}
+_NOT_PORTED = {"merge": "A.7b", "resolve": "A.7b"}
 
 # above this body count the dense [N, N] bounce sweep on CPU tensors gives
 # way to the row-blocked one (CUDA tensors take the kernel at every N)
@@ -191,6 +192,9 @@ def make_step_fn(cfg: SimConfig, force_fn: Optional[ForceFn] = None,
             raise NotImplementedError(
                 f"{value!r} is not ported to orbital_tpu_torch yet "
                 f"(ROADMAP.md queue A item {_NOT_PORTED[value]})")
+    if cfg.integrator == "respa":
+        raise ValueError("integrator='respa' advances by macro windows of respa_k "
+                         "substeps: use engine.multirate.respa_rollout")
     dt = cfg.dt
     fuse_detect = force_detect_fn is not None and cfg.collisions != "none"
 

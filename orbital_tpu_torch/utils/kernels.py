@@ -27,13 +27,15 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check",
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "load", "check",
            "build_log", "build_seconds"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# every source in csrc/, by library name
+SOURCES = ("nbody_forces", "fused_rollout", "collisions", "nbody_jerk", "neighbor")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
@@ -56,9 +58,10 @@ def _library_path(name: str) -> tuple[Path, Path]:
 
 
 def build(names) -> None:
-    """Compile every library of ``names`` that is missing or stale, one
-    ``nvcc`` process per source, all running at once. Raises if ``nvcc`` is
-    missing or any build fails (with the compiler's output)."""
+    """Compile every library of ``names`` (``SOURCES`` for all) that is
+    missing or stale, one ``nvcc`` process per source, all running at once.
+    Raises if ``nvcc`` is missing or any build fails (with the compiler's
+    output)."""
     started = []
     for name in names:
         src, out = _library_path(name)

@@ -205,7 +205,7 @@ def test_f64_on_cuda_raises():
 
 @pytest.mark.parametrize("change,item", [
     (dict(integrator="hermite", collisions="merge"), "A.7b"),
-    (dict(integrator="respa", respa_rc=0.1, respa_cell=0.2), "A.14"),
+    (dict(integrator="respa", respa_rc=0.1, respa_cell=0.2, collisions="merge"), "A.7b"),
     (dict(collisions="merge"), "A.7b"), (dict(collisions="resolve"), "A.7b")])
 def test_unported_steppers_raise(rng, change, item):
     pos, vel, mass = _cluster(rng, 16)
