@@ -61,10 +61,28 @@ Phases, one line of output each; any failure exits nonzero:
      with bounce collisions (refresh 1) bit-equal to a collision-free run
      up to the first contact;
  20. near kernel, geometry, pack/unpack, macro-step and per-substep times at
-     K = 4 and K = 5 against the KDK step.
+     K = 4 and K = 5 against the KDK step;
+ 21. the tree's near-field kernel (B7) against its plain version at the
+     65,536-body Plummer geometry (levels 7, ws 1) and a ragged N = 5000 with
+     a third of its bodies dead, at ws 1 and 2 and with starved budgets
+     (overflow counts equal to the CPU's and > 0); each against the f64 sum;
+ 22. the tree force: ``tree_acc_potential`` on B7 against the same on the
+     plain sweep, its far field against float64 (on the CPU at order 1, on
+     the card at order 2: no TF32), and its RMS error against the exact
+     forces (B1) at orders 1 and 2;
+ 23. the tree main path: ``bench_tree``'s configuration (Plummer 65,536,
+     levels 7, dt 1e-4, eps2 1e-6, f32, budgets probed at 1.5x) through
+     ``init_forces`` -> 20 recorded -> 1,000 unrecorded ``rollout`` steps with
+     B7 once an evaluation and overflow 0; the tree drift run of the headline
+     cluster (pm_box (0, 0, 0, 8), dt 1e-3) with |dE/E| <= 1e-3 in f64; and
+     ``simulate(force_impl="tree")`` on the card;
+ 24. tree timings: B7, its plain version, the far field, the evaluation and
+     the KDK step at 65,536, with the device's busy share; one evaluation at
+     N = 1,048,576 (levels 8) with its error against the exact f64 sum on
+     1,024 sampled bodies, beside one B1 evaluation.
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
-10, 13, 14, 15, 16 and 19) and read just after it: each kernel must have
+10, 13, 14, 15, 16, 19 and 23) and read just after it: each kernel must have
 run on its path. The line before the last is a JSON summary of the kernels; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -172,6 +190,32 @@ NEAR_RTOL = 1e-5
 N_NEAR_RAGGED = 5000
 NEAR_RAGGED_SCALE = 0.3
 
+# the tree runs (phases 21-24): bench_tree's configuration (bench.py:441-464,
+# Plummer positions of bench.py:343-353, levels 7, dt 1e-4, eps2 1e-6,
+# chunks of 32 bodies, j-blocks of 8 chunks, budgets at headroom 1.5) and
+# the tree drift rung's (bench.py:947-955: the headline cluster, pm_box
+# (0, 0, 0, 8), dt 1e-3); the ragged near-kernel case's size and levels; the
+# large evaluation's size and levels and its sampled targets
+TREE_LEVELS, TREE_DT, TREE_EPS2 = 7, 1e-4, 1e-6
+TREE_CHUNK, TREE_RJ = 32, 8
+TREE_DRIFT_BOX = (0.0, 0.0, 0.0, 8.0)
+N_TREE_RAGGED, TREE_RAGGED_LEVELS = 5000, 5
+N_TREE_BIG, TREE_BIG_LEVELS, TREE_SAMPLE = 1048576, 8, 1024
+# the tree's bounds: the RMS force error against the exact sum (the JAX
+# package's deep-level bound, tests/test_tree.py:105-120), the energy drift
+# of an approximate force (the 1e-6 budget is the exact kernels'), and the
+# far field against float64 (max |d a| / max |a|: f32 conv and Taylor sums
+# keep ~1e-6; TF32 would show at ~1e-3)
+TREE_RMS_BOUND = 6e-2
+TREE_DRIFT_BOUND = 1e-3
+FAR_RTOL = 1e-5
+# B7 per pair the function needs (a body and another in its cell band): 3
+# differences, r2 (5), + eps2, inv^3 (2), m inv^3 (1), three multiply-adds
+# (6), pe (2): 20 and one rsqrt. The JAX kernel's cost estimate
+# (tree_near_wl.py:236) counts 26 per walked pair, the band (6) and idx test
+# included: a sweep that visited only needed pairs would not test them.
+OPS_TREE = 20
+
 B1 = dict(name="nbody_forces", route="cuda",
           source="orbital_tpu_torch/csrc/nbody_forces.cu",
           replaces="orbital_tpu/ops/pallas_forces.py:55")
@@ -197,6 +241,8 @@ B5S = dict(name="nbody_jerk_subset", route="cuda",
 # B11 (:80); the record names B8's
 NEAR = dict(name="near_sweep", route="cuda", source="orbital_tpu_torch/csrc/neighbor.cu",
             replaces="orbital_tpu/ops/neighbor_pallas.py:165")
+B7 = dict(name="tree_near", route="cuda", source="orbital_tpu_torch/csrc/tree_near.cu",
+          replaces="orbital_tpu/ops/tree_near_wl.py:171")
 
 
 def bound(flops: float, nbytes: float, rsqrt: float = 0.0) -> tuple[float, str]:
@@ -220,6 +266,79 @@ def make_cluster(n: int, seed: int):
     K = 0.5 * float(np.sum(mass * np.sum(vel * vel, -1)))
     vel *= np.sqrt(0.5 * abs(U) / K)
     return pos, vel, mass
+
+
+def make_plummer(n: int, seed: int = 0):
+    """Concentrated Plummer sphere (the tree's regime), as bench.py:343-353
+    makes it: positions, velocities 0.05 N(0, 1), masses 1/n."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(0.01, 0.99, n)
+    r = 1.0 / np.sqrt(u ** (-2.0 / 3.0) - 1.0)
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    pos = r[:, None] * v
+    vel = 0.05 * rng.normal(size=(n, 3))
+    mass = np.full(n, 1.0 / n)
+    return pos, vel, mass
+
+
+def rms_rel(a, ref) -> float:
+    """RMS of |a - ref| over RMS of |ref| (tests/test_tree.py:_rms)."""
+    a, ref = a.double(), ref.double()
+    return float(((a - ref) ** 2).sum(-1).mean().sqrt() / (ref ** 2).sum(-1).mean().sqrt())
+
+
+def exact_acc_f64(pos, mass, idx, eps2: float, chunk: int = 16384):
+    """The softened acceleration of the bodies ``idx`` in float64 on the
+    card, summed over every body in chunks (G = 1; the self pair adds 0)."""
+    import torch
+
+    p64, m64 = pos.double(), mass.double()
+    tgt = p64[idx]
+    acc = torch.zeros_like(tgt)
+    for j0 in range(0, p64.shape[0], chunk):
+        d = p64[None, j0:j0 + chunk] - tgt[:, None]
+        r2 = (d * d).sum(-1) + eps2
+        acc += (m64[None, j0:j0 + chunk, None] * d * r2.rsqrt()[..., None] ** 3).sum(1)
+    return acc
+
+
+def tree_near_work(tab: dict, n: int, levels: int, ws: int, chunk: int, rj: int) -> dict:
+    """B7's work on a table of ``ops.tree_near_wl._wl_table``: the pairs it
+    walks (every row of every walked (i-chunk, j-block) entry, sentinel
+    rows included), the pairs of live rows among them, and the pairs the
+    function needs: each live body of a kept chunk against every other live
+    body in its cell band (|c_i - c_j|_inf <= ws). Also the bytes the
+    function must move: each live row read once (32 B), each kept body's
+    (ax, ay, az, pe) written once (16 B) and the runs (8 B each)."""
+    import torch
+
+    pb, start, count = tab["pbods"], tab["start_blk"].long(), tab["n_blk"].long()
+    k_ch, n_nb = count.shape
+    blkw, M = rj * chunk, 2 ** levels
+    live = pb[:, 4] < n
+    walked = int(count.sum()) * chunk * blkw
+    # live rows per i-chunk and, by prefix sums, per run of j-blocks
+    live_i = live.reshape(-1, chunk).sum(1)[:k_ch].long()
+    cum_j = torch.cat([live.new_zeros(1, dtype=torch.long),
+                       torch.cumsum(live.reshape(-1, blkw).sum(1).long(), 0)])
+    run_j = torch.where(count > 0, cum_j[start + count] - cum_j[start], 0)
+    live_pairs = int((live_i * run_j.sum(1)).sum())
+    # occupancy of the finest cells, box-summed over the band
+    cell = pb[live, 5:8].long()
+    occ = torch.zeros(M ** 3, dtype=torch.long, device=pb.device)
+    occ.index_add_(0, (cell[:, 0] * M + cell[:, 1]) * M + cell[:, 2],
+                   torch.ones_like(cell[:, 0]))
+    box = torch.nn.functional.pad(occ.reshape(M, M, M), (ws,) * 6)
+    for d in range(3):
+        box = sum(box.narrow(d, k, box.shape[d] - 2 * ws) for k in range(2 * ws + 1))
+    kept = torch.zeros(pb.shape[0], dtype=torch.bool, device=pb.device)
+    kept[:k_ch * chunk] = (count.sum(1) > 0).repeat_interleave(chunk)
+    tgt = live & kept
+    c_t = pb[tgt, 5:8].long()
+    needed = int((box[c_t[:, 0], c_t[:, 1], c_t[:, 2]] - 1).sum())
+    nbytes = 32 * int(live.sum()) + 16 * int(tgt.sum()) + 8 * k_ch * n_nb
+    return dict(walked=walked, live=live_pairs, needed=needed, nbytes=nbytes)
 
 
 def energy_f64(state) -> float:
@@ -291,13 +410,53 @@ def device_times(fn) -> dict:
 
 def reset_launches() -> None:
     from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_jerk, cuda_neighbor,
-                                       fused_rollout)
+                                       cuda_tree, fused_rollout)
 
     for fn in (cuda_forces.pairwise_acc_cuda, cuda_forces.pairwise_acc_detect_cuda,
                fused_rollout.fused_rollout, cuda_collisions.bounce_deltas_cuda,
                cuda_jerk.accel_jerk_cuda, cuda_jerk.accel_jerk_detect_cuda,
-               cuda_jerk.accel_jerk_subset_cuda, cuda_neighbor.near_acc_slots_cuda):
+               cuda_jerk.accel_jerk_subset_cuda, cuda_neighbor.near_acc_slots_cuda,
+               cuda_tree.tree_near_cuda):
         fn.launches = 0
+
+
+@contextlib.contextmanager
+def plain_tree_near():
+    """Route the tree's near sweep on CUDA tensors to the plain version
+    instead of B7, for a run that is held against the kernel's."""
+    from orbital_tpu_torch.ops import cuda_tree
+
+    kernel = cuda_tree.tree_near_cuda
+    cuda_tree.tree_near_cuda = cuda_tree.tree_near_plain
+    try:
+        yield
+    finally:
+        cuda_tree.tree_near_cuda = kernel
+
+
+@contextlib.contextmanager
+def overflow_log():
+    """Wrap ``ops.tree.tree_acc_potential`` so that every evaluation adds
+    its overflow to a device counter (no host read until the caller reads
+    it); yields the one-element list that holds the counter."""
+    from orbital_tpu_torch.ops import tree
+
+    inner = tree.tree_acc_potential
+    total = []
+
+    def logged(*args, **kw):
+        acc, U, ovf = inner(*args, **kw)
+        if total:
+            total[0] = total[0] + ovf
+        else:
+            total.append(ovf.long())
+        return acc, U, ovf
+
+    tree.tree_acc_potential = logged
+    try:
+        yield total
+    finally:
+        tree.tree_acc_potential = inner
 
 
 @contextlib.contextmanager
@@ -371,9 +530,10 @@ class Smoke:
         self.drift_steps = drift_steps
         self.kernels = {"B1": dict(B1), "B2": dict(B2), "B4": dict(B4), "B6": dict(B6),
                         "B5": dict(B5), "B5D": dict(B5D), "B5S": dict(B5S),
-                        "NEAR": dict(NEAR)}
+                        "NEAR": dict(NEAR), "B7": dict(B7)}
         self._cluster = None
         self._respa_budgets = None
+        self._plummer = None
         self.main_ms_per_step = None
         self.hermite_log = None
 
@@ -402,13 +562,14 @@ class Smoke:
     # phase 2
     def build(self) -> str:
         from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_jerk,
-                                           cuda_neighbor, fused_rollout)
+                                           cuda_neighbor, cuda_tree, fused_rollout)
         from orbital_tpu_torch.utils import kernels
 
         names = kernels.SOURCES
         t0 = time.perf_counter()
         kernels.build(names)
-        for mod in (cuda_forces, fused_rollout, cuda_collisions, cuda_jerk, cuda_neighbor):
+        for mod in (cuda_forces, fused_rollout, cuda_collisions, cuda_jerk, cuda_neighbor,
+                    cuda_tree):
             mod._load()
         total = time.perf_counter() - t0
         for name in names:
@@ -1714,6 +1875,377 @@ class Smoke:
                 f"KDK step {ms(sub['kdk'])}: KDK/substep {ratio['K4']:.2f}x (K=4), "
                 f"{ratio['K5']:.2f}x (K=5); {profiled}")
 
+    # phases 21-24: the tree force solver
+    def plummer(self):
+        """The 65,536-body Plummer sphere of the tree phases and its probed
+        budgets at levels 7 (made once)."""
+        if self._plummer is None:
+            from orbital_tpu_torch.ops.tree_near_wl import tree_wl_budgets
+
+            pos, vel, mass = make_plummer(N_MAIN, self.seed)
+            budgets = tree_wl_budgets(pos, levels=TREE_LEVELS, ws=1, chunk=TREE_CHUNK,
+                                      rj=TREE_RJ)
+            self._plummer = (pos, vel, mass, budgets)
+        return self._plummer
+
+    def tree_config(self, budgets, **kw):
+        import orbital_tpu_torch as ot
+
+        return ot.SimConfig(dt=TREE_DT, G=1.0, eps2=TREE_EPS2, force_impl="tree",
+                            tree_levels=TREE_LEVELS, tree_near="kernel", tree_chunk=TREE_CHUNK,
+                            tree_wl_rj=TREE_RJ, tree_max_chunks=budgets[0],
+                            tree_wl_entries=budgets[1], **kw)
+
+    def tree_table(self, pos, mass, alive, levels: int, ws: int, budgets):
+        """The B7 inputs on the card (``ops.tree_near_wl._wl_table``), as
+        ``tree_acc_potential`` builds them."""
+        from orbital_tpu_torch.ops import tree as T
+        from orbital_tpu_torch.ops import tree_near_wl as W
+
+        torch = self.torch
+        M = 2 ** levels
+        pos_t = torch.tensor(pos, dtype=torch.float32, device=self.dev)
+        mass_t = torch.tensor(mass, dtype=torch.float32, device=self.dev)
+        alive_t = torch.tensor(alive, device=self.dev)
+        pos32, alive_b, _, m_eff, _, _, _, cc = T._bin(pos_t, mass_t, alive_t, M, None,
+                                                       torch.float32)
+        sc, sort_idx = T._sort_cells(cc, alive_b, M)
+        return W._wl_table(sc, pos32[sort_idx], m_eff[sort_idx], sort_idx, pos.shape[0], M,
+                           ws, budgets[0], TREE_CHUNK, budgets[1], TREE_RJ)
+
+    def ragged_tree_scene(self):
+        """N = 5000 Plummer bodies with a third dead and parked far."""
+        from orbital_tpu_torch.engine.state import far_positions
+
+        pos, _, mass = make_plummer(N_TREE_RAGGED, self.seed + 11)
+        alive = np.ones(N_TREE_RAGGED, bool)
+        dead = np.arange(0, N_TREE_RAGGED, 3)
+        alive[dead] = False
+        pos[dead] = far_positions(len(dead), float(np.abs(pos).max()), np.float32)
+        return pos, mass, alive
+
+    # phase 21
+    def check_tree_near(self) -> str:
+        from orbital_tpu_torch.ops import cuda_tree
+        from orbital_tpu_torch.ops.tree import tree_acc_potential
+        from orbital_tpu_torch.ops.tree_near_wl import tree_wl_budgets, tree_wl_probe
+        from orbital_tpu_torch.utils import kernels
+
+        torch = self.torch
+
+        def rel(x, ref):
+            return float((x.double() - ref.double()).abs().max()) / float(ref.abs().max())
+
+        pos, _, mass, budgets = self.plummer()
+        pos_r, mass_r, alive_r = self.ragged_tree_scene()
+        cases = [(f"N={N_MAIN} l{TREE_LEVELS} ws1", pos, mass, np.ones(N_MAIN, bool),
+                  TREE_LEVELS, 1, budgets)]
+        for ws in (1, 2):
+            b = tree_wl_budgets(pos_r, alive_r, levels=TREE_RAGGED_LEVELS, ws=ws,
+                                chunk=TREE_CHUNK, rj=TREE_RJ)
+            cases.append((f"N={N_TREE_RAGGED} dead l{TREE_RAGGED_LEVELS} ws{ws}", pos_r, mass_r,
+                          alive_r, TREE_RAGGED_LEVELS, ws, b))
+        total, entries = tree_wl_probe(pos_r, alive_r, levels=TREE_RAGGED_LEVELS, ws=1,
+                                       chunk=TREE_CHUNK, rj=TREE_RJ)
+        starved = (max(1, total - total // 4), max(1, entries // 4))
+        cases.append((f"N={N_TREE_RAGGED} dead ws1 starved", pos_r, mass_r, alive_r,
+                       TREE_RAGGED_LEVELS, 1, starved))
+        lines = []
+        for name, p_, m_, a_, levels, ws, b_ in cases:
+            t = self.tree_table(p_, m_, a_, levels, ws, b_)
+            kw = dict(wl_entries=b_[1], chunk=TREE_CHUNK, rj=TREE_RJ, ws=ws, eps2=TREE_EPS2)
+            out_k = cuda_tree.tree_near_cuda(t["pbods"], t["start_blk"], t["n_blk"], **kw)
+            out_p = cuda_tree.tree_near_plain(t["pbods"], t["start_blk"], t["n_blk"], **kw)
+            out_64 = cuda_tree.tree_near_plain(t["pbods"].double(), t["start_blk"],
+                                               t["n_blk"], **kw)
+            torch.cuda.synchronize()
+            # per kept body: each owns one slot
+            slots = t["slot"][t["keep"]]
+            k, p, r64 = out_k[slots], out_p[slots], out_64[slots]
+            if not bool(torch.isfinite(out_k).all()):
+                raise AssertionError(f"B7 {name}: non-finite rows")
+            ea, ep = rel(k[:, :3], p[:, :3]), rel(k[:, 3], p[:, 3])
+            va = (rel(k[:, :3], r64[:, :3]), rel(p[:, :3], r64[:, :3]))
+            vp = (rel(k[:, 3], r64[:, 3]), rel(p[:, 3], r64[:, 3]))
+            if max(ea, ep, va[0], vp[0]) > NEAR_RTOL:
+                raise AssertionError(f"B7 {name}: vs plain acc {ea:.3e} pe {ep:.3e}; vs f64 "
+                                     f"acc {va[0]:.3e} pe {vp[0]:.3e}")
+            ovf = (int(t["cap_overflow"]), int(t["cell_overflow"]))
+            if name.endswith("starved"):
+                # the whole near phase on the card (B7) and on the CPU (plain)
+                kw_t = dict(G_grav=1.0, eps2=TREE_EPS2, levels=levels, ws=ws, near="kernel",
+                            max_chunks=b_[0], wl_entries=b_[1], chunk=TREE_CHUNK,
+                            wl_rj=TREE_RJ, _phase="near")
+                args = [torch.tensor(x) for x in (p_.astype(np.float32),
+                                                  m_.astype(np.float32), a_)]
+                a_c, U_c, o_c = tree_acc_potential(*(x.to(self.dev) for x in args), **kw_t)
+                a_h, U_h, o_h = tree_acc_potential(*args, **kw_t)
+                if int(o_c) != int(o_h) or int(o_c) != sum(ovf) or min(ovf) <= 0:
+                    raise AssertionError(f"B7 {name}: overflow card {int(o_c)}, CPU "
+                                         f"{int(o_h)}, table {ovf}")
+                e_cpu = rel(a_c.cpu(), a_h)
+                if e_cpu > NEAR_RTOL:
+                    raise AssertionError(f"B7 {name}: near phase card vs CPU {e_cpu:.3e}")
+                ovf = f"overflow {ovf} == CPU's, near phase card vs CPU {e_cpu:.2e}"
+            elif sum(ovf):
+                raise AssertionError(f"B7 {name}: overflow {ovf} with probed budgets")
+            else:
+                ovf = "overflow 0"
+            if name.startswith(f"N={N_MAIN}"):
+                self.kernels["B7"]["max_abs_err"] = float((k[:, :3] - p[:, :3]).abs().max())
+            lines.append(f"{name} budgets {b_}: vs plain acc {ea:.2e} pe {ep:.2e}; vs f64 acc "
+                         f"kernel {va[0]:.2e} plain {va[1]:.2e}, pe kernel {vp[0]:.2e} plain "
+                         f"{vp[1]:.2e}; {ovf}")
+        ptxas = "; ".join(line.strip() for line in kernels.build_log("tree_near").splitlines()
+                          if "registers" in line or "spill" in line) or "cached build"
+        return (f"B7 == plain within max|da|/max|a|, max|dpe|/max|pe| <= {NEAR_RTOL:g} "
+                f"[{' | '.join(lines)}]; ptxas: {ptxas}")
+
+    # phase 22
+    def check_tree_force(self) -> str:
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_cuda
+        from orbital_tpu_torch.ops.tree import tree_acc_potential
+
+        torch = self.torch
+        pos, _, mass, budgets = self.plummer()
+        pos_t = torch.tensor(pos, dtype=torch.float32, device=self.dev)
+        mass_t = torch.tensor(mass, dtype=torch.float32, device=self.dev)
+        alive_t = torch.ones(N_MAIN, dtype=torch.bool, device=self.dev)
+        kw = dict(G_grav=1.0, eps2=TREE_EPS2, levels=TREE_LEVELS, ws=1, near="kernel",
+                  max_chunks=budgets[0], wl_entries=budgets[1], chunk=TREE_CHUNK,
+                  wl_rj=TREE_RJ)
+
+        def rel(x, ref):
+            return float((x.double() - ref.double()).abs().max()) / float(ref.abs().max())
+
+        a_k, U_k, o_k = tree_acc_potential(pos_t, mass_t, alive_t, **kw)
+        with plain_tree_near():
+            a_p, U_p, o_p = tree_acc_potential(pos_t, mass_t, alive_t, **kw)
+        torch.cuda.synchronize()
+        e_kp, u_kp = rel(a_k, a_p), abs(float(U_k) / float(U_p) - 1.0)
+        if int(o_k) or int(o_p) or e_kp > NEAR_RTOL or u_kp > ENERGY_RTOL:
+            raise AssertionError(f"tree on B7 vs plain sweep: {e_kp:.3e}, dU/U {u_kp:.3e}, "
+                                 f"overflow {int(o_k)}/{int(o_p)}")
+        # the far field on the card (cuDNN conv, TF32 off) against float64: on
+        # the CPU at order 1, on the card at order 2 (its f64 conv on the CPU
+        # takes minutes)
+        far = {}
+        for order, ref_dev in ((1, "cpu"), (2, self.dev)):
+            a_f, U_f, _ = tree_acc_potential(pos_t, mass_t, alive_t, order=order,
+                                             _phase="far", **kw)
+            a_64, U_64, _ = tree_acc_potential(pos_t.to(ref_dev), mass_t.to(ref_dev),
+                                               alive_t.to(ref_dev), order=order, _phase="far",
+                                               _dtype=torch.float64, **kw)
+            far[order] = (rel(a_f.to(ref_dev), a_64), abs(float(U_f) / float(U_64) - 1.0))
+            if far[order][0] > FAR_RTOL or far[order][1] > FAR_RTOL:
+                raise AssertionError(f"tree far field order {order} vs f64: {far[order]}")
+        # against the exact forces (B1)
+        a_x, _ = pairwise_acc_cuda(pos_t, mass_t, alive_t, G=1.0, eps2=TREE_EPS2,
+                                   with_potential=False)
+        errs = {}
+        for order in (1, 2):
+            a_o, _, ov = tree_acc_potential(pos_t, mass_t, alive_t, order=order, **kw)
+            errs[order] = rms_rel(a_o, a_x)
+            if int(ov):
+                raise AssertionError(f"tree order {order}: overflow {int(ov)}")
+        if errs[1] > TREE_RMS_BOUND or not errs[2] < errs[1]:
+            raise AssertionError(f"tree RMS error vs B1: order 1 {errs[1]:.3e}, order 2 "
+                                 f"{errs[2]:.3e} (bound {TREE_RMS_BOUND:g}, order 2 lower)")
+        ma = mass_t.double()[:, None] * a_k.double()
+        mom = float(ma.sum(0).norm()) / float((ma.norm(dim=1) ** 2).mean().sqrt())
+        return (f"N={N_MAIN} Plummer l{TREE_LEVELS} ws1 budgets {budgets}: tree on B7 vs the "
+                f"plain sweep max|da|/max|a| {e_kp:.2e} <= {NEAR_RTOL:g}, |dU/U| {u_kp:.2e}; "
+                f"far field vs f64 order 1 (CPU) {far[1][0]:.2e} (U {far[1][1]:.2e}), order 2 "
+                f"(card) {far[2][0]:.2e} (U {far[2][1]:.2e}) <= {FAR_RTOL:g}; RMS error vs B1 "
+                f"order 1 {errs[1]:.3e} <= {TREE_RMS_BOUND:g}, order 2 {errs[2]:.3e}; "
+                f"|sum m a| / RMS(m|a|) {mom:.2e}")
+
+    # phase 23
+    def tree_main_path(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.models.scene import SceneArrays
+        from orbital_tpu_torch.ops.cuda_tree import tree_near_cuda
+        from orbital_tpu_torch.ops.tree_near_wl import tree_wl_budgets, tree_wl_probe
+        from orbital_tpu_torch.utils import native
+
+        torch = self.torch
+        pos, vel, mass, budgets = self.plummer()
+        cfg = self.tree_config(budgets, track_potential=False)
+        state = ot.make_state(pos, vel, mass, precision="f32", device=self.dev)
+        rec_steps = 20
+        with overflow_log() as ovf:
+            reset_launches()
+            state = ot.init_forces(state, cfg)
+            rec, traj = ot.rollout(state, cfg, rec_steps, record_every=rec_steps // 2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fin, none = ot.rollout(rec, cfg, self.drift_steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            b7 = tree_near_cuda.launches
+            overflow = int(ovf[0])
+        evals = 1 + rec_steps + self.drift_steps
+        if b7 != evals:
+            raise AssertionError(f"tree main path: B7 launched {b7} times in {evals} evals")
+        if overflow:
+            raise AssertionError(f"tree main path: near-field overflow {overflow}")
+        if tuple(traj.pos.shape) != (2, N_MAIN, 3) or none is not None:
+            raise AssertionError("tree main path: the recorded rollout returned wrong records")
+        if not bool(torch.isfinite(fin.pos).all()) or int(fin.step) != rec_steps + \
+                self.drift_steps:
+            raise AssertionError("tree main path: non-finite state or wrong step count")
+        total, entries = tree_wl_probe(fin.pos, fin.alive, levels=TREE_LEVELS, ws=1,
+                                       chunk=TREE_CHUNK, rj=TREE_RJ)
+        if total > budgets[0] or entries > budgets[1]:
+            raise AssertionError(f"tree main path: final probe ({total}, {entries}) outgrew "
+                                 f"the budgets {budgets}")
+        self.kernels["B7"]["launches"] = b7
+        self.tree_ms_per_step = 1e3 * wall / self.drift_steps
+
+        # the tree drift rung: the headline cluster in a pinned box
+        cpos, cvel, cmass, _ = self.cluster()
+        box = np.asarray(TREE_DRIFT_BOX[:3], np.float32), np.float32(TREE_DRIFT_BOX[3])
+        b_d = tree_wl_budgets(cpos, levels=TREE_LEVELS, ws=1, chunk=TREE_CHUNK, rj=TREE_RJ,
+                              box=box)
+        cfg_d = self.tree_config(b_d, pm_box=TREE_DRIFT_BOX,
+                                 track_potential=False).replace(dt=DT, eps2=EPS2)
+        st = ot.init_forces(ot.make_state(cpos, cvel, cmass, precision="f32",
+                                          device=self.dev), cfg_d)
+        E0 = energy_f64(st)
+        with overflow_log() as ovf_d:
+            fin_d, _ = ot.rollout(st, cfg_d, self.drift_steps)
+            torch.cuda.synchronize()
+            overflow_d = int(ovf_d[0])
+        drift = abs((energy_f64(fin_d) - E0) / E0)
+        if overflow_d or not drift <= TREE_DRIFT_BOUND:
+            raise AssertionError(f"tree drift {drift:.3e} (bound {TREE_DRIFT_BOUND:g}), "
+                                 f"overflow {overflow_d}")
+
+        # simulate(force_impl="tree") on the card, from scene arrays
+        scene = SceneArrays(pos=pos, vel=vel, mass=mass, radius=np.full(N_MAIN, 1e-3),
+                            names=[f"b{i}" for i in range(N_MAIN)])
+        reset_launches()
+        res = ot.simulate(scene, steps=10, dt=TREE_DT, softening=TREE_EPS2 ** 0.5,
+                          device=self.dev, force_impl="tree", tree_levels=TREE_LEVELS,
+                          record_every=5)
+        c = res.config
+        sim_b7 = tree_near_cuda.launches
+        if c.tree_near != "kernel" or sim_b7 < 11 or not np.isfinite(res.pos).all():
+            raise AssertionError(f"simulate(force_impl='tree'): tree_near={c.tree_near!r}, "
+                                 f"B7 {sim_b7}")
+        return (f"bench_tree config (N={N_MAIN} Plummer, l{TREE_LEVELS}, dt {TREE_DT:g}, eps2 "
+                f"{TREE_EPS2:g}, f32, budgets {budgets}): init_forces + {rec_steps} recorded + "
+                f"{self.drift_steps} unrecorded steps, B7 launched {b7} times in {evals} evals, "
+                f"overflow 0, final probe ({total}, {entries}) within the budgets; "
+                f"{self.tree_ms_per_step:.3f} ms/step wall | drift run (headline cluster, "
+                f"pm_box {TREE_DRIFT_BOX}, dt {DT:g}, eps2 {EPS2:g}, budgets {b_d}): |dE/E| = "
+                f"{drift:.3e} over {self.drift_steps} steps (f64, {native.backend()}) <= "
+                f"{TREE_DRIFT_BOUND:g}, overflow 0 | simulate: tree_near={c.tree_near!r}, "
+                f"levels {c.tree_levels}, max_chunks {c.tree_max_chunks}, wl_entries "
+                f"{c.tree_wl_entries}, ds32 state {res.final_state.pos_lo is not None}, B7 "
+                f"{sim_b7} launches")
+
+    # phase 24
+    def tree_timings(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops import cuda_tree
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_cuda
+        from orbital_tpu_torch.ops.tree import tree_acc_potential
+        from orbital_tpu_torch.ops.tree_near_wl import tree_wl_budgets
+
+        torch = self.torch
+        pos, vel, mass, budgets = self.plummer()
+        t = self.tree_table(pos, mass, np.ones(N_MAIN, bool), TREE_LEVELS, 1, budgets)
+        kw_b7 = dict(wl_entries=budgets[1], chunk=TREE_CHUNK, rj=TREE_RJ, ws=1, eps2=TREE_EPS2)
+
+        def b7_bound(tab, n, levels):
+            w = tree_near_work(tab, n, levels, 1, TREE_CHUNK, TREE_RJ)
+            return w, bound(OPS_TREE * w["needed"], w["nbytes"], rsqrt=w["needed"])
+
+        def b7_call(tab, q):
+            return lambda: cuda_tree.tree_near_cuda(tab["pbods"], tab["start_blk"],
+                                                    tab["n_blk"], **dict(kw_b7, wl_entries=q))
+
+        b7 = summary(time_ms(b7_call(t, budgets[1]), 20))
+        b7_p = summary(time_ms(lambda: cuda_tree.tree_near_plain(
+            t["pbods"], t["start_blk"], t["n_blk"], **kw_b7), 1))
+        work, bnd = b7_bound(t, N_MAIN, TREE_LEVELS)
+
+        pos_t = torch.tensor(pos, dtype=torch.float32, device=self.dev)
+        mass_t = torch.tensor(mass, dtype=torch.float32, device=self.dev)
+        alive_t = torch.ones(N_MAIN, dtype=torch.bool, device=self.dev)
+        kw = dict(G_grav=1.0, eps2=TREE_EPS2, levels=TREE_LEVELS, ws=1, near="kernel",
+                  max_chunks=budgets[0], wl_entries=budgets[1], chunk=TREE_CHUNK,
+                  wl_rj=TREE_RJ, with_potential=False)
+        far = summary(time_ms(lambda: tree_acc_potential(pos_t, mass_t, alive_t,
+                                                         _phase="far", **kw), 5))
+        ev = summary(time_ms(lambda: tree_acc_potential(pos_t, mass_t, alive_t, **kw), 5))
+        cfg = self.tree_config(budgets, track_potential=False)
+        st = ot.init_forces(ot.make_state(pos, vel, mass, precision="f32", device=self.dev),
+                            cfg)
+        step = summary([x / 10 for x in time_ms(lambda: ot.rollout(st, cfg, 10), 1)])
+        prof = device_times(lambda: ot.rollout(st, cfg, 5))
+        busy = sum(tm for _, tm in prof.values()) / 5 or None
+        launched = sum(cn for cn, _ in prof.values()) / 5
+        top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:6]
+        b7_dev = sum(tm for k, (_, tm) in prof.items() if "tree_near" in k) / 5 or None
+        self.kernels["B7"].update(ms=b7["median"], plain_ms=b7_p["median"], bound_ms=bnd[0],
+                                  bound_by=bnd[1], library_ms=None)
+
+        # N = 1,048,576 Plummer, levels 8
+        pos_b, _, mass_b = make_plummer(N_TREE_BIG, self.seed)
+        t0 = time.perf_counter()
+        b_big = tree_wl_budgets(pos_b, levels=TREE_BIG_LEVELS, ws=1, chunk=TREE_CHUNK,
+                                rj=TREE_RJ)
+        probe_s = time.perf_counter() - t0
+        pb = torch.tensor(pos_b, dtype=torch.float32, device=self.dev)
+        mb = torch.tensor(mass_b, dtype=torch.float32, device=self.dev)
+        ab = torch.ones(N_TREE_BIG, dtype=torch.bool, device=self.dev)
+        kw_big = dict(kw, levels=TREE_BIG_LEVELS, max_chunks=b_big[0], wl_entries=b_big[1])
+        a_big, _, ov_big = tree_acc_potential(pb, mb, ab, **kw_big)
+        if int(ov_big):
+            raise AssertionError(f"tree N={N_TREE_BIG}: overflow {int(ov_big)}")
+        sample = torch.tensor(np.random.default_rng(self.seed + 12).choice(
+            N_TREE_BIG, TREE_SAMPLE, replace=False), device=self.dev)
+        err_big = rms_rel(a_big[sample], exact_acc_f64(pb, mb, sample, TREE_EPS2))
+        if err_big > TREE_RMS_BOUND:
+            raise AssertionError(f"tree N={N_TREE_BIG}: RMS error {err_big:.3e}")
+        ev_big = summary(time_ms(lambda: tree_acc_potential(pb, mb, ab, **kw_big), 1))
+        t_big = self.tree_table(pos_b, mass_b, np.ones(N_TREE_BIG, bool), TREE_BIG_LEVELS, 1,
+                                b_big)
+        b7_big = summary(time_ms(b7_call(t_big, b_big[1]), 5))
+        work_big, bnd_big = b7_bound(t_big, N_TREE_BIG, TREE_BIG_LEVELS)
+        b1_big = summary(time_ms(lambda: pairwise_acc_cuda(pb, mb, ab, G=1.0, eps2=TREE_EPS2,
+                                                           with_potential=False), 1))
+        perf = {"b7_N65536": b7, "b7_plain": b7_p, "b7_pairs": work, "b7_bound": bnd,
+                "far_N65536": far, "eval_N65536": ev, "kdk_step_N65536": step,
+                "step_device_busy_ms": busy, "step_kernels": launched, "b7_device_ms": b7_dev,
+                "step_top_kernels": top, "budgets_N1048576": b_big, "probe_s": probe_s,
+                "eval_N1048576": ev_big, "b7_N1048576": b7_big, "b7_pairs_N1048576": work_big,
+                "b7_bound_N1048576": bnd_big, "b1_N1048576": b1_big, "rms_N1048576": err_big}
+        print("perf_tree " + json.dumps(perf), file=sys.stderr)
+
+        def ms(x):
+            return f"{x['median']:.3f} ms (spread {x['spread']:.3f})"
+
+        profiled = ("device time not measured (the profiler recorded none)" if busy is None
+                    else f"a step keeps the device busy {busy:.3f} ms of {step['median']:.3f} "
+                    f"(idle {100 * (1 - busy / step['median']):.0f}%) with {launched:.0f} "
+                    f"kernels, B7 {b7_dev or 0:.3f} ms of device time; top: "
+                    + ", ".join(f"{k[:40]} {c}x {tm:.2f} ms" for k, (c, tm) in top[:4]))
+        def pairs(w):
+            return (f"pairs walked {w['walked']}, live {w['live']}, needed {w['needed']} "
+                    f"({100 * w['needed'] / w['walked']:.1f}% of walked)")
+
+        return (f"N={N_MAIN} l{TREE_LEVELS}: B7 {ms(b7)} vs plain {ms(b7_p)}, {pairs(work)}, "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]}, {100 * bnd[0] / b7['median']:.1f}%); far "
+                f"field {ms(far)}; evaluation {ms(ev)}; KDK step {ms(step)}; {profiled} | "
+                f"N={N_TREE_BIG} l{TREE_BIG_LEVELS} budgets {b_big} (probe {probe_s:.1f} s): "
+                f"evaluation {ms(ev_big)}, overflow 0, RMS error vs f64 on {TREE_SAMPLE} "
+                f"bodies {err_big:.3e} <= {TREE_RMS_BOUND:g}; B7 {ms(b7_big)}, {pairs(work_big)}, "
+                f"bound {bnd_big[0]:.4f} ms ({bnd_big[1]}, "
+                f"{100 * bnd_big[0] / b7_big['median']:.1f}%); B1 {ms(b1_big)}")
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1756,6 +2288,10 @@ def main(argv=None) -> int:
         ("18 near", smoke.check_near),
         ("19 respa main path", smoke.respa_main_path),
         ("20 respa timings", smoke.respa_timings),
+        ("21 tree near", smoke.check_tree_near),
+        ("22 tree force", smoke.check_tree_force),
+        ("23 tree main path", smoke.tree_main_path),
+        ("24 tree timings", smoke.tree_timings),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()

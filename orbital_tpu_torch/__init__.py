@@ -14,13 +14,16 @@ count that stays on the device, the CUDA force sweep (with and without
 contact detection), the CUDA acc + jerk sweep (full, detecting and
 row-subset), the CUDA bounce sweep, the fused whole-rollout kernel, the
 multirate (RESPA) stepper with its CUDA near-field sweep
-(``engine.multirate``), recorded rollouts and ``simulate()`` for scene
-arrays. See ROADMAP.md queue A for the rest.
+(``engine.multirate``), the tree force solver (``force_impl="tree"``) with
+its CUDA near-field sweep and the staged large-N loop, recorded rollouts and
+``simulate()`` for scene arrays. See ROADMAP.md queue A for the rest.
 """
-from .engine.rollout import Trajectory, init_forces, rollout
+from .engine.rollout import (Trajectory, init_forces, init_forces_staged, rollout,
+                             rollout_staged)
 from .engine.state import NBodyState, Rescale, make_state
 from .simulate import SimResult, simulate
 from .utils.config import SimConfig
 
 __all__ = ["SimConfig", "NBodyState", "Rescale", "make_state", "init_forces",
-           "rollout", "Trajectory", "simulate", "SimResult"]
+           "rollout", "init_forces_staged", "rollout_staged", "Trajectory", "simulate",
+           "SimResult"]

@@ -23,7 +23,8 @@ from .state import NBodyState
 
 __all__ = ["Trajectory", "resolve_force_fn", "resolve_force_detect_fn",
            "resolve_accel_jerk_fn", "resolve_accel_jerk_detect_fn",
-           "resolve_accel_jerk_subset_fn", "init_forces", "rollout"]
+           "resolve_accel_jerk_subset_fn", "init_forces", "rollout", "init_forces_staged",
+           "rollout_staged"]
 
 # Above this body count the dense [N, N] path gives way to the CUDA kernel
 # (CUDA tensors) or the row-blocked path (CPU tensors) under "auto".
@@ -32,7 +33,7 @@ _DENSE_MAX_N = 4096
 # ROADMAP.md queue A items that port the force paths this slice leaves out
 _NOT_PORTED = {
     "pallas_sym": "A.16", "mxu": "A.16", "pallas_mxu": "A.16",
-    "pm": "A.12", "p3m": "A.12", "tree": "A.13", "ring": "A.15",
+    "pm": "A.12", "p3m": "A.12", "ring": "A.15",
 }
 
 
@@ -86,8 +87,20 @@ def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
     tensors and the row-blocked plain path for CPU tensors. ``"pallas"``
     names the exact-force kernel and maps to the CUDA kernel. The kernels
     are f32, so f64 state on CUDA raises (f64 is the CPU golden path).
+    ``"tree"`` is ``ops.tree.tree_acc_potential`` with ``tree_near="kernel"``
+    (its near sweep the B7 kernel on CUDA tensors); its overflow counter is
+    dropped here, so size the budgets first (``simulate()`` probes them).
     """
     impl = _resolve_impl(cfg, n, torch.device(device), dtype)
+    if impl == "tree":
+        from ..ops.tree import tree_acc_potential
+
+        kw = _tree_kwargs(cfg, torch.device(device))
+
+        def tree(pos, mass, alive):
+            acc, U, _ = tree_acc_potential(pos, mass, alive, **kw)
+            return acc, U
+        return tree
     if impl == "dense":
         return lambda pos, mass, alive: pairwise_acc_dense(
             pos, mass, alive, G=cfg.G, eps2=cfg.eps2)
@@ -101,6 +114,22 @@ def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
             pos, mass, alive, G=cfg.G, eps2=cfg.eps2,
             with_potential=cfg.track_potential)
     raise ValueError(f"unknown force_impl {impl!r}")
+
+
+def _tree_kwargs(cfg: SimConfig, device: torch.device) -> dict:
+    """``tree_acc_potential``'s keyword arguments for a config, the pinned
+    box as tensors on ``device``. Near modes other than "kernel" raise
+    naming ROADMAP.md A.13."""
+    from ..ops.tree import _check_near
+
+    _check_near(cfg.tree_near)
+    box = cfg.pm_box_arrays()
+    if box is not None:
+        box = tuple(torch.as_tensor(b, dtype=torch.float32, device=device) for b in box)
+    return dict(G_grav=cfg.G, eps2=cfg.eps2, levels=cfg.tree_levels, ws=cfg.tree_ws,
+                order=cfg.tree_order, near=cfg.tree_near, max_chunks=cfg.tree_max_chunks,
+                chunk=cfg.tree_chunk, wl_entries=cfg.tree_wl_entries, wl_rj=cfg.tree_wl_rj,
+                with_potential=cfg.track_potential, box=box)
 
 
 def resolve_force_detect_fn(cfg: SimConfig, n: int, device: torch.device | str,
@@ -349,3 +378,44 @@ def rollout(
         for k, v in _snapshot(state).items():
             records[k][r] = v
     return state, Trajectory(**records)
+
+
+def init_forces_staged(state: NBodyState, cfg: SimConfig) -> NBodyState:
+    """:func:`init_forces` through ``ops.tree.tree_acc_potential_staged``,
+    the companion of :func:`rollout_staged`."""
+    from ..ops.tree import tree_acc_potential_staged
+
+    acc, potential, _ = tree_acc_potential_staged(state.pos, state.mass, state.alive,
+                                                  **_tree_kwargs(cfg, state.device))
+    return state.replace(acc=acc, potential=potential)
+
+
+def rollout_staged(state: NBodyState, cfg: SimConfig, steps: int, record_every: int = 0
+                   ) -> tuple[NBodyState, Optional[Trajectory], int]:
+    """:func:`rollout` on the tree force that keeps the near-field overflow
+    of every step, as the JAX package's staged loop does. The running
+    maximum stays on the device and is read once, after the last step.
+    Returns ``(final, trajectory or None, max overflow)``: 0 means every
+    near pair was summed exactly for the whole run.
+
+    Requires ``integrator='kdk'``, ``collisions='none'`` and
+    ``force_impl='tree'``; ``simulate()`` routes here at ``tree_levels >= 8``
+    and N >= 524,288, the JAX package's thresholds."""
+    from ..ops.tree import tree_acc_potential_staged
+
+    if cfg.integrator != "kdk" or cfg.collisions != "none":
+        raise ValueError("rollout_staged supports integrator='kdk' with collisions='none'")
+    if cfg.force_impl != "tree":
+        raise ValueError("rollout_staged is the force_impl='tree' large-N path; use "
+                         "rollout() otherwise")
+    kw = _tree_kwargs(cfg, state.device)
+    worst = torch.zeros((), dtype=torch.int64, device=state.device)
+
+    def keeping(pos, mass, alive):
+        nonlocal worst
+        acc, U, overflow = tree_acc_potential_staged(pos, mass, alive, **kw)
+        worst = torch.maximum(worst, overflow.to(torch.int64))
+        return acc, U
+
+    final, traj = rollout(state, cfg, steps, record_every, force_fn=keeping)
+    return final, traj, int(worst)

@@ -1,0 +1,92 @@
+"""The hand-written CUDA near-field sweep of the tree solver
+(``csrc/tree_near.cu``, B7).
+
+Replaces ``orbital_tpu/ops/tree_near_wl.py``'s Pallas worklist kernel
+(``_wl_kernel`` with ``_entry_math``). The kernel takes each i-chunk's block
+runs ``(start_blk, n_blk)`` of ``_wl_runs`` and walks them itself, one block
+per chunk; the chunks that the worklist budget drops come with count 0
+(``ops.tree_near_wl._wl_table`` zeroes them), so it sums exactly the
+entries of the TPU kernel's worklist.
+It writes one (ax, ay, az, pe) row per slot, acc without G.
+
+For CPU tensors :func:`tree_near_cuda` computes the plain version,
+``ops.tree_near_wl.tree_near_plain``; for CUDA tensors it launches the kernel
+or raises, and never falls back. ``tree_near_cuda.launches`` counts the
+kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .tree_near_wl import tree_near_plain
+
+__all__ = ["tree_near_cuda"]
+
+# the kernel's block size and staged rows (csrc/tree_near.cu)
+_THREADS = 256
+_STAGE_ROWS = 512
+
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        from ..utils import kernels
+
+        lib = kernels.load("tree_near")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.tree_near.restype = ctypes.c_int
+        lib.tree_near.argtypes = [p, p, p, i, i, i, i, f, f, p, p, i]
+        _lib = lib
+    return _lib
+
+
+def tree_near_cuda(pbods: torch.Tensor, start_blk: torch.Tensor, n_blk: torch.Tensor, *,
+                   wl_entries: int, chunk: int, rj: int, ws: int,
+                   eps2: float) -> torch.Tensor:
+    """The tree's near sweep over the slot-major body table ``pbods [kpad *
+    chunk, 8]`` (x y z m idx cx cy cz) and the block runs ``start_blk,
+    n_blk [k_ch, (2ws+1)^2]``, the counts of the chunks that the worklist
+    budget ``wl_entries`` drops already 0 (``ops.tree_near_wl._wl_table``).
+    Returns ``[k_ch * chunk, 4]`` (ax, ay, az, pe) per slot, acc without G;
+    the slots of dropped and empty chunks are 0."""
+    kw = dict(wl_entries=wl_entries, chunk=chunk, rj=rj, ws=ws, eps2=eps2)
+    if pbods.device.type == "cpu":
+        return tree_near_plain(pbods, start_blk, n_blk, **kw)
+    fn = "tree_near_cuda"
+    if pbods.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {pbods.device}")
+    if pbods.dtype != torch.float32:
+        raise TypeError(f"{fn} computes in float32, got {pbods.dtype}")
+    if start_blk.device != pbods.device or n_blk.device != pbods.device:
+        raise ValueError(f"{fn}: all tensors must be on one device")
+    c, blkw = int(chunk), int(rj) * int(chunk)
+    k_ch, n_nb = n_blk.shape
+    groups = max(1, _THREADS // c)
+    smem = 16 * (2 * max(1, _STAGE_ROWS // blkw) * blkw + c * groups)
+    if (pbods.dim() != 2 or pbods.shape[1] != 8 or pbods.shape[0] % blkw
+            or pbods.shape[0] < (k_ch + 1) * c or c > _THREADS or smem > 48 * 1024):
+        raise ValueError(f"{fn}: table {tuple(pbods.shape)} with chunk={c}, rj={rj} is "
+                         f"outside the kernel's shapes (chunk <= {_THREADS}, staged rows "
+                         "<= 48 KB)")
+    count = n_blk.to(torch.int32).contiguous()
+    start = start_blk.to(torch.int32).contiguous()
+    rows = pbods.contiguous()
+    out = torch.empty((k_ch * c, 4), dtype=torch.float32, device=pbods.device)
+
+    lib = _load()
+    from ..utils.kernels import check
+
+    stream = torch.cuda.current_stream(pbods.device).cuda_stream
+    err = lib.tree_near(rows.data_ptr(), start.data_ptr(), count.data_ptr(), int(k_ch),
+                        int(n_nb), c, blkw, float(ws), float(eps2), out.data_ptr(), stream,
+                        pbods.device.index or 0)
+    check(lib, err, "tree_near launch")
+    tree_near_cuda.launches += 1
+    return out
+
+
+tree_near_cuda.launches = 0

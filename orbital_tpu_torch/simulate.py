@@ -5,27 +5,36 @@ the rollout and the unit conversion back to physical units behind a single
 function. Ported so far: the exact-force kdk, euler, rk4, yoshida4 and
 Hermite steppers (Hermite with fixed or adaptive dt and block timesteps)
 and the multirate (RESPA) stepper on one device, with or without bounce
-collisions; the merge and resolve collision modes and the approximate force
-solvers raise ``NotImplementedError`` (ROADMAP.md queue A).
+collisions, and the tree force solver (``force_impl="tree"``) with its
+``"kernel"`` near field; the merge and resolve collision modes, the mesh
+solvers and the tree's other near modes raise ``NotImplementedError``
+(ROADMAP.md queue A).
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from .engine.multirate import respa_rollout
-from .engine.rollout import init_forces, rollout
+from .engine.rollout import init_forces, init_forces_staged, rollout, rollout_staged
 from .engine.state import NBodyState, Rescale, make_state
 from .models.constants import STANDARD, UnitProfile
 from .models.scene import SceneArrays
 from .ops.neighbor import neighbor_budgets
+from .ops.tree import _check_near, tree_occupancy_probe
+from .ops.tree_near_wl import tree_wl_budgets, tree_wl_probe
 from .utils.config import SimConfig
 
 __all__ = ["simulate", "SimResult"]
+
+# tree rollouts at and past this shape take the staged loop, which reads the
+# near-field overflow after every step (the JAX package's thresholds)
+_STAGED_MIN_LEVELS = 8
+_STAGED_MIN_N = 524288
 
 
 def _respa_fields(scene: SceneArrays, steps: int, dt: float, softening: float,
@@ -58,6 +67,41 @@ def _respa_fields(scene: SceneArrays, steps: int, dt: float, softening: float,
                 respa_cell=cell_i, respa_m=m_grid, respa_max_chunks=k_ch,
                 respa_w_blk=w_blk, respa_chunk=32, respa_rj=4, respa_impl=respa_impl,
                 respa_wl_entries=wl_q, respa_refresh=respa_refresh)
+
+
+def _tree_budget_cfg(cfg: SimConfig, state: NBodyState, *, tree_near: str,
+                     tree_levels) -> SimConfig:
+    """Probe-size the tree's static budgets from the initial distribution
+    (1.5x headroom): ``tree_levels="auto"`` takes the smallest of 5-8 levels
+    whose densest finest cell holds at most 64 bodies, and ``"kernel"``'s
+    ``max_chunks`` and ``wl_entries`` come from ``tree_wl_budgets``.
+    ``tree_near="auto"`` resolves to ``"kernel"``, the port's only near mode
+    so far (the JAX package picks "pairs" or "columns" there, the XLA-gather
+    sweeps its TPU ran faster; "kernel" computes the same chunk-pair near
+    field); the other modes raise naming ROADMAP.md A.13."""
+    box = cfg.pm_box_arrays()
+    if tree_levels == "auto":
+        for tree_levels in (5, 6, 7, 8):
+            occ, _ = tree_occupancy_probe(state.pos, state.alive, levels=tree_levels, box=box)
+            if occ <= 64 or tree_levels == 8:
+                break
+    if tree_near == "auto":
+        tree_near = "kernel"
+    _check_near(tree_near)
+    cfg = cfg.replace(tree_levels=int(tree_levels), tree_near=tree_near)
+    k_ch, wl_q = tree_wl_budgets(state.pos, state.alive, levels=cfg.tree_levels,
+                                 ws=cfg.tree_ws, chunk=cfg.tree_chunk, rj=cfg.tree_wl_rj,
+                                 box=box)
+    return cfg.replace(tree_max_chunks=k_ch, tree_wl_entries=wl_q)
+
+
+def _tree_outgrown(cfg: SimConfig, final: NBodyState) -> bool:
+    """The end-of-run probe: did the final distribution outgrow the
+    near-field budgets sized from the initial one?"""
+    total, entries = tree_wl_probe(final.pos, final.alive, levels=cfg.tree_levels,
+                                   ws=cfg.tree_ws, chunk=cfg.tree_chunk, rj=cfg.tree_wl_rj,
+                                   box=cfg.pm_box_arrays())
+    return total > cfg.tree_max_chunks or entries > cfg.tree_wl_entries
 
 
 @dataclasses.dataclass
@@ -105,6 +149,14 @@ def simulate(
     respa_cell: float = 0.0,
     respa_impl: str = "auto",
     respa_refresh: int = 1,
+    pm_box: Optional[tuple] = None,
+    tree_levels: Union[int, str] = 6,
+    tree_ws: int = 1,
+    tree_order: int = 1,
+    tree_accuracy: Optional[float] = None,
+    tree_near: str = "auto",
+    tree_chunk: int = 32,
+    tree_wl_rj: int = 8,
     unit_profile: UnitProfile = STANDARD,
     rescale: Optional[Rescale] = None,
 ) -> SimResult:
@@ -131,6 +183,19 @@ def simulate(
     the initial distribution (``ops.neighbor.neighbor_budgets``). A nonzero
     overflow or skin counter, read once after the run, raises a
     ``RuntimeWarning``: near pairs may have been missed.
+
+    ``force_impl="tree"`` runs the tree solver (``ops.tree``) with
+    ``tree_levels`` (an int or ``"auto"``), ``tree_ws``, ``tree_order``,
+    ``tree_chunk``, ``tree_wl_rj`` and ``pm_box`` (cx, cy, cz, half in scene
+    units; it pins the tree's grid). ``tree_near="auto"`` resolves to
+    ``"kernel"``, the port's only near mode so far, where the JAX package
+    picks ``"pairs"`` or ``"columns"``; ``tree_accuracy=`` is not ported
+    (ROADMAP.md A.13). The budgets are sized from the initial distribution;
+    the hot loop drops the overflow counter, so the final state is re-probed
+    and a ``RuntimeWarning`` says if the budgets were outgrown. At
+    ``tree_levels >= 8`` and N >= 524,288 the run takes the staged loop
+    (``engine.rollout.rollout_staged``), which checks the overflow after
+    every step and warns if it was ever nonzero.
     """
     if not isinstance(scene, SceneArrays):
         raise NotImplementedError(
@@ -155,6 +220,15 @@ def simulate(
                 record_every -= respa_k
             record_every = record_every or respa_k
 
+    if isinstance(tree_levels, str) and tree_levels != "auto":
+        raise ValueError(f"tree_levels must be an int or 'auto', got {tree_levels!r}")
+    if force_impl == "tree" and tree_accuracy is not None:
+        raise NotImplementedError("tree_accuracy= is not ported to orbital_tpu_torch yet "
+                                  "(ROADMAP.md queue A item A.13)")
+    if pm_box is not None:
+        # pm_box arrives in scene units like softening and dt
+        pm_box = tuple(float(v) / rescale.length for v in pm_box)
+
     respa_fields = {}
     if integrator == "respa":
         respa_fields = _respa_fields(scene, steps, dt, softening, rescale, respa_k=respa_k,
@@ -175,12 +249,30 @@ def simulate(
         hermite_fast_cap=hermite_fast_cap,
         hermite_max_substeps=hermite_max_substeps,
         hermite_rungs=hermite_rungs,
+        pm_box=pm_box,
+        tree_levels=6 if tree_levels == "auto" else int(tree_levels),
+        tree_ws=tree_ws,
+        tree_order=tree_order,
+        tree_near=tree_near,
+        tree_chunk=tree_chunk,
+        tree_wl_rj=tree_wl_rj,
     )
     state = make_state(scene.pos, scene.vel, scene.mass, scene.radius,
                        precision=precision, rescale=rescale, device=device)
-    state = init_forces(state, cfg)
-    if integrator == "respa":
-        final, traj, rdiag = respa_rollout(state, cfg, steps, record_every)
+    if force_impl == "tree":
+        cfg = _tree_budget_cfg(cfg, state, tree_near=tree_near, tree_levels=tree_levels)
+    staged = (force_impl == "tree" and integrator == "kdk" and collisions == "none"
+              and cfg.tree_levels >= _STAGED_MIN_LEVELS and state.n_bodies >= _STAGED_MIN_N)
+    if staged:
+        final, traj, overflow = rollout_staged(init_forces_staged(state, cfg), cfg, steps,
+                                               record_every)
+        if overflow:
+            warnings.warn(
+                f"tree near-field overflow {overflow} during the staged rollout: budgets "
+                "sized from the initial distribution were outgrown mid-run; re-run in "
+                "shorter segments.", RuntimeWarning, stacklevel=2)
+    elif integrator == "respa":
+        final, traj, rdiag = respa_rollout(init_forces(state, cfg), cfg, steps, record_every)
         overflow, skin = int(rdiag["overflow"]), int(rdiag["skin_violation"])
         if overflow or skin:
             warnings.warn(
@@ -189,7 +281,13 @@ def simulate(
                 "respa_cell (skin) or re-run in segments so budgets re-size.",
                 RuntimeWarning, stacklevel=2)
     else:
-        final, traj = rollout(state, cfg, steps, record_every)
+        final, traj = rollout(init_forces(state, cfg), cfg, steps, record_every)
+    if force_impl == "tree" and _tree_outgrown(cfg, final):
+        warnings.warn(
+            "tree budgets outgrown during the run: the final distribution exceeds the "
+            "near-field budgets sized from the initial one; near-field pairs were dropped "
+            "near the end of the rollout. Re-run in shorter segments so the budgets "
+            "re-size, or pass explicit budgets or levels.", RuntimeWarning, stacklevel=2)
 
     def host(x: torch.Tensor) -> np.ndarray:
         return x.detach().cpu().numpy().astype(np.float64)

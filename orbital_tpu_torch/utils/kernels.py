@@ -35,7 +35,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every source in csrc/, by library name
-SOURCES = ("nbody_forces", "fused_rollout", "collisions", "nbody_jerk", "neighbor")
+SOURCES = ("nbody_forces", "fused_rollout", "collisions", "nbody_jerk", "neighbor",
+           "tree_near")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
