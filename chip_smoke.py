@@ -2,6 +2,12 @@
 """Drive the PyTorch port (``orbital_tpu_torch``) once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--drift-steps 1000] [--seed 0]
+    python3 chip_smoke.py --parent DIR
+
+With ``--parent DIR`` (a checkout of another commit, e.g. unpacked by
+``git archive``) it runs phases 1-2 and then only holds B1 and B2 of this
+tree bit for bit against those built from DIR's ``csrc/nbody_forces.cu``
+(8 cases at N = 65,536) and times both trees' B1 in turns.
 
 Phases, one line of output each; any failure exits nonzero:
 
@@ -79,11 +85,40 @@ Phases, one line of output each; any failure exits nonzero:
  24. tree timings: B7, its plain version, the far field, the evaluation and
      the KDK step at 65,536, with the device's busy share; one evaluation at
      N = 1,048,576 (levels 8) with its error against the exact f64 sum on
-     1,024 sampled bodies, beside one B1 evaluation.
+     1,024 sampled bodies, beside one B1 evaluation;
+ 25. the half-pair kernel (B12) against its plain version (the chunked full
+     sweep) and the f64 sum at N = 65,536 and a ragged 4,992 (39 tiles of
+     128, a third of the bodies dead and parked far): U = 0, dead rows 0;
+     eps2 = 0 and N = 5,000 raise ValueError;
+ 26. the Gram kernel (B13) against its plain version at the same sizes with
+     PE on and off, on its own outputs (the sums S and pe; both form r2 in
+     one rounding order), its PE-off sums and acc bit-equal to the PE-on
+     ones; its accelerations against the plain version's in RMS, and they
+     and the "mxu" route's against the exact f64 sum in RMS and in max (the
+     Gram identity's error sits on close pairs), "mxu" also against its
+     formula in f64;
+ 27. the block kernel (B3, B1's sweep over separate i and j tables) against
+     its plain version at 16,384 x 65,536 and 65,536 x 16,384; on coinciding
+     tables at 65,536 its acc bit-equal to B1's and its pe row B1's plus
+     the self term m/eps;
+ 28. the exact-force variants' main paths: the headline cluster through
+     ``init_forces`` -> 20 recorded -> ``--drift-steps`` unrecorded steps with
+     ``force_impl="pallas_sym"`` (B12 every evaluation, B1 never) and
+     ``"pallas_mxu"`` (B13 every evaluation), and 200 unrecorded steps of
+     ``"mxu"``, each with |dE/E| <= 1e-6 in f64; ``"pallas_sym"`` with bounce
+     at the bench row's radius for 100 steps (B6 ungated every step) against
+     the collision-free run; ``simulate(force_impl="pallas_sym",
+     integrator="hermite")`` (B5, not B12);
+ 29. variant timings: B12, B13 with PE on and off, B3 at 65,536 x 65,536 and
+     one "mxu" evaluation beside B1 without and with PE; the KDK step of each
+     path beside B1's.
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
-10, 13, 14, 15, 16, 19 and 23) and read just after it: each kernel must have
-run on its path. The line before the last is a JSON summary of the kernels; the
+10, 13, 14, 15, 16, 19, 23 and 28) and read just after it: each kernel must
+have run on its path. B3 has no single-card path (the multi-device ring
+launches it): phase 27 checks it, and its record's launches are its count
+over phase 28's three main paths, which must be 0. The
+line before the last is a JSON summary of the kernels; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -215,6 +250,36 @@ FAR_RTOL = 1e-5
 # (tree_near_wl.py:236) counts 26 per walked pair, the band (6) and idx test
 # included: a sweep that visited only needed pairs would not test them.
 OPS_TREE = 20
+# the exact-force variants (phases 25-29). B12 per unordered pair
+# (csrc/nbody_forces_sym.cu): 3 differences, r2 (5), + eps2, inv^3 (2), the
+# two weights (2), three i-side and three j-side multiply-adds (12): 25 and
+# one rsqrt. B13 per ordered pair (csrc/nbody_forces_mxu.cu): the dot's five
+# nonzero terms (7), the clamp, + eps2, inv^3 (2), w (1), three multiply-adds
+# and the row sum (7): 20 and one rsqrt; PE adds m inv and its sum (2).
+OPS_B12, OPS_B13, OPS_B13_PE, OPS_B1_PE = 25, 20, 22, 20
+# The Gram forms' accelerations, RMS |d acc| / RMS |acc|: B13's against its
+# plain version and the exact f64 sum, the "mxu" route's against its formula
+# in f64. The Gram identity cancels |r_i|^2 + |r_j|^2 - 2 r_i.r_j in f32, so
+# its error sits on close pairs, ~|r|^2 2^-24 / eps2 of their weight, and
+# acc = S[:, 0:3] - pos * S[:, 3] cancels the f32 rounding of two 65,536-term
+# sums: on the 65,536-body cluster a few bodies are 1.6-2.7e-3 of max |acc|
+# from the exact sum whatever computes the formula, and two summation orders
+# of S part by ~1e-3 in max, while the RMS is 5.5e-5 (B13) and 6.7e-5
+# ("mxu"; phase 26 prints both, on an H100 80GB HBM3 at 700 W). 5e-4 is
+# ~10x that RMS, as FORCE_RTOL is ~10x B1's distance from f64, and the JAX
+# package's bound for the formula (tests/test_pallas_forces.py:413). The
+# kernel's own outputs, S and pe, are held to FORCE_RTOL in max (the two
+# form r2 in one rounding order).
+GRAM_RTOL = 5e-4
+# and in max against the exact f64 sum, both Gram forms: the few close-pair
+# bodies above read 1.64e-3 (B13) and 2.72e-3 ("mxu") of max |acc| at
+# N = 65,536 (phase 26, H100 80GB HBM3 at 700 W); 5e-3 is ~2x the larger.
+GRAM_MAX_RTOL = 5e-3
+# the ragged size of phases 25-26: 39 tiles of 128, a third dead; the block
+# sizes of phase 27; the "mxu" route's timed steps
+N_VAR_RAGGED = 4992
+N_BLOCK = 16384
+MXU_STEPS = 200
 
 B1 = dict(name="nbody_forces", route="cuda",
           source="orbital_tpu_torch/csrc/nbody_forces.cu",
@@ -233,7 +298,7 @@ B5 = dict(name="nbody_jerk", route="cuda",
           replaces="orbital_tpu/ops/pallas_jerk.py:52")
 B5D = dict(name="nbody_jerk_detect", route="cuda",
            source="orbital_tpu_torch/csrc/nbody_jerk.cu",
-           replaces="orbital_tpu/ops/pallas_jerk.py:175")
+           replaces="orbital_tpu/ops/pallas_jerk.py:177")
 B5S = dict(name="nbody_jerk_subset", route="cuda",
            source="orbital_tpu_torch/csrc/nbody_jerk.cu",
            replaces="orbital_tpu/ops/pallas_jerk.py:52")
@@ -243,6 +308,17 @@ NEAR = dict(name="near_sweep", route="cuda", source="orbital_tpu_torch/csrc/neig
             replaces="orbital_tpu/ops/neighbor_pallas.py:165")
 B7 = dict(name="tree_near", route="cuda", source="orbital_tpu_torch/csrc/tree_near.cu",
           replaces="orbital_tpu/ops/tree_near_wl.py:171")
+B12 = dict(name="nbody_forces_sym", route="cuda",
+           source="orbital_tpu_torch/csrc/nbody_forces_sym.cu",
+           replaces="orbital_tpu/ops/pallas_forces_sym.py:40")
+B13 = dict(name="nbody_forces_mxu", route="cuda",
+           source="orbital_tpu_torch/csrc/nbody_forces_mxu.cu",
+           replaces="orbital_tpu/ops/pallas_forces_mxu.py:50")
+# no single-card path (the ring of ROADMAP A.15): phase 28 reads its count
+# over the variants' main paths and requires 0
+B3 = dict(name="nbody_block_forces", route="cuda",
+          source="orbital_tpu_torch/csrc/nbody_forces.cu",
+          replaces="orbital_tpu/ops/pallas_forces.py:221")
 
 
 def bound(flops: float, nbytes: float, rsqrt: float = 0.0) -> tuple[float, str]:
@@ -409,14 +485,16 @@ def device_times(fn) -> dict:
 
 
 def reset_launches() -> None:
-    from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_jerk, cuda_neighbor,
-                                       cuda_tree, fused_rollout)
+    from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
+                                       cuda_forces_sym, cuda_jerk, cuda_neighbor, cuda_tree,
+                                       fused_rollout)
 
     for fn in (cuda_forces.pairwise_acc_cuda, cuda_forces.pairwise_acc_detect_cuda,
                fused_rollout.fused_rollout, cuda_collisions.bounce_deltas_cuda,
                cuda_jerk.accel_jerk_cuda, cuda_jerk.accel_jerk_detect_cuda,
                cuda_jerk.accel_jerk_subset_cuda, cuda_neighbor.near_acc_slots_cuda,
-               cuda_tree.tree_near_cuda):
+               cuda_tree.tree_near_cuda, cuda_forces_sym.pairwise_acc_sym_cuda,
+               cuda_forces_mxu.gram_sums_cuda, cuda_forces.block_acc_cuda):
         fn.launches = 0
 
 
@@ -530,7 +608,8 @@ class Smoke:
         self.drift_steps = drift_steps
         self.kernels = {"B1": dict(B1), "B2": dict(B2), "B4": dict(B4), "B6": dict(B6),
                         "B5": dict(B5), "B5D": dict(B5D), "B5S": dict(B5S),
-                        "NEAR": dict(NEAR), "B7": dict(B7)}
+                        "NEAR": dict(NEAR), "B7": dict(B7), "B12": dict(B12),
+                        "B13": dict(B13), "B3": dict(B3)}
         self._cluster = None
         self._respa_budgets = None
         self._plummer = None
@@ -561,15 +640,16 @@ class Smoke:
 
     # phase 2
     def build(self) -> str:
-        from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_jerk,
-                                           cuda_neighbor, cuda_tree, fused_rollout)
+        from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
+                                           cuda_forces_sym, cuda_jerk, cuda_neighbor,
+                                           cuda_tree, fused_rollout)
         from orbital_tpu_torch.utils import kernels
 
         names = kernels.SOURCES
         t0 = time.perf_counter()
         kernels.build(names)
         for mod in (cuda_forces, fused_rollout, cuda_collisions, cuda_jerk, cuda_neighbor,
-                    cuda_tree):
+                    cuda_tree, cuda_forces_sym, cuda_forces_mxu):
             mod._load()
         total = time.perf_counter() - t0
         for name in names:
@@ -2247,11 +2327,407 @@ class Smoke:
                 f"{100 * bnd_big[0] / b7_big['median']:.1f}%); B1 {ms(b1_big)}")
 
 
+    # phases 25-29: the exact-force variants
+    def variant_scene(self, n: int, dead: int, seed_offset: int):
+        """Gaussian positions, masses in [0.5, 1.5] / n and ``dead`` bodies at
+        the end parked far, as make_state parks padding: (pos, mass, alive)
+        f32 tensors on the card."""
+        from orbital_tpu_torch.engine.state import far_positions
+
+        rng = np.random.default_rng(self.seed + seed_offset)
+        pos = rng.normal(size=(n, 3))
+        mass = rng.uniform(0.5, 1.5, n) / n
+        alive = np.ones(n, bool)
+        if dead:
+            alive[-dead:] = False
+            pos[-dead:] = far_positions(dead, float(np.abs(pos).max()), np.float32,
+                                        start=n - dead)
+        t = self.torch
+        return (t.tensor(pos, dtype=t.float32, device=self.dev),
+                t.tensor(mass, dtype=t.float32, device=self.dev),
+                t.tensor(alive, dtype=t.bool, device=self.dev))
+
+    def exact_f64(self, pos, mass, alive):
+        """The softened acc and U in f64 on the card (the chunked sweep)."""
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_plain
+
+        return pairwise_acc_plain(pos.double(), mass.double(), alive, G=1.0, eps2=EPS2)
+
+    @staticmethod
+    def rel(x, ref) -> float:
+        return float((x.double() - ref.double()).abs().max()) / float(ref.abs().max())
+
+    # phase 25
+    def check_sym(self) -> str:
+        from orbital_tpu_torch.ops.cuda_forces_sym import (pairwise_acc_sym_cuda,
+                                                           pairwise_acc_sym_plain)
+
+        torch, rel = self.torch, self.rel
+        lines = []
+        for n, dead in ((N_MAIN, 7), (N_VAR_RAGGED, N_VAR_RAGGED // 3)):
+            pos, mass, alive = self.variant_scene(n, dead, seed_offset=13)
+            a, U = pairwise_acc_sym_cuda(pos, mass, alive, G=1.0, eps2=EPS2)
+            a0, U0 = pairwise_acc_sym_plain(pos, mass, alive, G=1.0, eps2=EPS2)
+            a64, _ = self.exact_f64(pos, mass, alive)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(a).all()) or float(U) != 0.0 or float(U0) != 0.0:
+                raise AssertionError(f"B12 N={n}: non-finite acc or U != 0 ({float(U)})")
+            if bool(a[~alive].any()):
+                raise AssertionError(f"B12 N={n}: dead rows not exactly 0")
+            r, r64, r64p = rel(a, a0), rel(a, a64), rel(a0, a64)
+            if r > FORCE_RTOL or r64 > FORCE_RTOL:
+                raise AssertionError(f"B12 N={n}: vs plain {r:.3e}, vs f64 {r64:.3e}")
+            if n == N_MAIN:
+                self.kernels["B12"]["max_abs_err"] = float((a - a0).abs().max())
+            lines.append(f"N={n} ({dead} dead): vs plain {r:.2e}, vs f64 kernel {r64:.2e} "
+                         f"plain {r64p:.2e}")
+        refused = []
+        for n, eps2 in ((512, 0.0), (5000, EPS2)):
+            pos, mass, alive = self.variant_scene(n, 0, seed_offset=13)
+            try:
+                pairwise_acc_sym_cuda(pos, mass, alive, G=1.0, eps2=eps2)
+            except ValueError as exc:
+                refused.append(f"N={n} eps2={eps2:g}: {exc}")
+            else:
+                raise AssertionError(f"B12 accepted N={n}, eps2={eps2:g}")
+        return (f"B12 == plain and the f64 sum within max|da|/max|a| <= {FORCE_RTOL:g}, U = 0, "
+                f"dead rows 0 [{'; '.join(lines)}]; ValueError for {'; '.join(refused)}")
+
+    # phase 26
+    def check_gram(self) -> str:
+        from orbital_tpu_torch.ops.cuda_forces_mxu import (gram_sums_cuda, gram_sums_plain,
+                                                           pack_gram, pairwise_acc_mxu_cuda,
+                                                           pairwise_acc_mxu_plain)
+        from orbital_tpu_torch.ops.mxu_forces import pairwise_acc_mxu
+
+        torch, rel = self.torch, self.rel
+        lines = []
+        for n, dead in ((N_MAIN, 7), (N_VAR_RAGGED, N_VAR_RAGGED // 3)):
+            pos, mass, alive = self.variant_scene(n, dead, seed_offset=14)
+            a64, U64 = self.exact_f64(pos, mass, alive)
+            # the kernel's function, the sums S and pe, against its plain version
+            iA, jB = pack_gram(pos, mass * alive)
+            sums = {}
+            for pe in (True, False):
+                S, P = gram_sums_cuda(iA, jB, eps2=EPS2, with_potential=pe)
+                S0, P0 = gram_sums_plain(iA, jB, eps2=EPS2, with_potential=pe)
+                torch.cuda.synchronize()
+                rs = rel(S, S0)
+                rp = rel(P, P0) if pe else 0.0
+                if not bool(torch.isfinite(S).all()) or rs > FORCE_RTOL or rp > FORCE_RTOL:
+                    raise AssertionError(f"B13 sums N={n} pe={pe}: S {rs:.3e}, pe {rp:.3e}")
+                sums[pe] = (S, rs, rp)
+            if not torch.equal(sums[True][0], sums[False][0]):
+                raise AssertionError(f"B13 N={n}: the PE-off sums differ from the PE-on sums")
+            # the accelerations and U through the wrapper
+            out = {}
+            for pe in (True, False):
+                a, U = pairwise_acc_mxu_cuda(pos, mass, alive, G=1.0, eps2=EPS2,
+                                             with_potential=pe)
+                out[pe] = (a, U)
+            a0, U0 = pairwise_acc_mxu_plain(pos, mass, alive, G=1.0, eps2=EPS2)
+            torch.cuda.synchronize()
+            (a, U), (a_off, U_off) = out[True], out[False]
+            if not torch.equal(a, a_off) or float(U_off) != 0.0 or bool(a[~alive].any()):
+                raise AssertionError(f"B13 N={n}: PE-off acc not bit-equal, U != 0 or dead rows")
+            ra, ra_max, u = rms_rel(a, a0), rel(a, a0), abs(float(U) / float(U0) - 1.0)
+            r64, u64 = rms_rel(a, a64), abs(float(U) / float(U64) - 1.0)
+            r64_max = rel(a, a64)
+            if ra > GRAM_RTOL or r64 > GRAM_RTOL or r64_max > GRAM_MAX_RTOL or u > ENERGY_RTOL:
+                raise AssertionError(f"B13 N={n}: acc vs plain RMS {ra:.3e}, vs the f64 sum "
+                                     f"RMS {r64:.3e} max {r64_max:.3e}, U {u:.3e}")
+            if n == N_MAIN:
+                self.kernels["B13"]["max_abs_err"] = float((sums[False][0] - gram_sums_plain(
+                    iA, jB, eps2=EPS2, with_potential=False)[0]).abs().max())
+            # the "mxu" route (plain torch) against its own formula in f64
+            chunk = 1024 if n % 1024 == 0 else 128
+            m, Um = pairwise_acc_mxu(pos, mass, alive, G=1.0, eps2=EPS2, chunk=chunk)
+            m64, Um64 = pairwise_acc_mxu(pos.double(), mass.double(), alive, G=1.0, eps2=EPS2,
+                                         chunk=chunk, _dtype=torch.float64)
+            torch.cuda.synchronize()
+            rm, rm_max = rms_rel(m, m64), rel(m, m64)
+            rm64, rm64_max = rms_rel(m, a64), rel(m, a64)
+            um64 = abs(float(Um) / float(U64) - 1.0)
+            if rm > GRAM_RTOL or abs(float(Um) / float(Um64) - 1.0) > ENERGY_RTOL:
+                raise AssertionError(f"mxu N={n} vs its f64 form: RMS {rm:.3e}")
+            if rm64 > GRAM_RTOL or rm64_max > GRAM_MAX_RTOL or um64 > ENERGY_RTOL:
+                raise AssertionError(f"mxu N={n} vs the f64 sum: RMS {rm64:.3e}, max "
+                                     f"{rm64_max:.3e}, U {um64:.3e}")
+            lines.append(f"N={n} ({dead} dead): B13 sums vs plain S {sums[True][1]:.2e} pe "
+                         f"{sums[True][2]:.2e} (PE off S {sums[False][1]:.2e}); acc vs plain RMS "
+                         f"{ra:.2e} (max {ra_max:.2e}), U {u:.1e}; vs the f64 sum RMS {r64:.2e} "
+                         f"(max {r64_max:.2e}, plain max {rel(a0, a64):.2e}), U {u64:.1e}; "
+                         f"mxu vs its f64 form RMS {rm:.2e} (max {rm_max:.2e}), vs the f64 sum "
+                         f"RMS {rm64:.2e} (max {rm64_max:.2e}), U {um64:.1e}")
+        return (f"B13 sums (S, pe) == plain within max|d|/max|.| <= {FORCE_RTOL:g}, PE-off sums "
+                f"and acc bit-equal to PE-on; B13 acc vs plain, and B13 and mxu vs the f64 sum "
+                f"and mxu vs its f64 form, within RMS|da|/RMS|a| <= {GRAM_RTOL:g} (GRAM_RTOL); "
+                f"B13 and mxu vs the f64 sum within max|da|/max|a| <= {GRAM_MAX_RTOL:g} "
+                f"(GRAM_MAX_RTOL); |dU/U| <= {ENERGY_RTOL:g} [{'; '.join(lines)}]")
+
+    # phase 27
+    def check_block(self) -> str:
+        from orbital_tpu_torch.ops.cuda_forces import (_potential, block_acc_cuda,
+                                                       block_acc_plain, pairwise_acc_cuda)
+
+        torch, rel = self.torch, self.rel
+        pos, mass, _ = self.variant_scene(N_MAIN, 0, seed_offset=15)
+        lines = []
+        for n_i, n_j in ((N_BLOCK, N_MAIN), (N_MAIN, N_BLOCK)):
+            p_i, p_j, m_j = pos[:n_i], pos[N_MAIN - n_j:], mass[N_MAIN - n_j:]
+            a, pe = block_acc_cuda(p_i, p_j, m_j, G=1.0, eps2=EPS2)
+            a0, pe0 = block_acc_plain(p_i, p_j, m_j, G=1.0, eps2=EPS2)
+            torch.cuda.synchronize()
+            ra, rp = rel(a, a0), rel(pe, pe0)
+            if ra > FORCE_RTOL or rp > FORCE_RTOL or tuple(a.shape) != (n_i, 3):
+                raise AssertionError(f"B3 {n_i}x{n_j}: acc {ra:.3e}, pe {rp:.3e}")
+            if n_i == N_BLOCK:
+                self.kernels["B3"]["max_abs_err"] = float((a - a0).abs().max())
+            lines.append(f"{n_i}x{n_j}: acc {ra:.2e}, pe {rp:.2e}")
+        # coinciding tables: B1's sweep, its self PE term kept
+        a, pe = block_acc_cuda(pos, pos, mass, G=1.0, eps2=EPS2)
+        a1, U1 = pairwise_acc_cuda(pos, mass, None, G=1.0, eps2=EPS2, with_potential=True)
+        U3 = _potential(torch.cat([a, pe[:, None]], 1), mass, 1.0, EPS2, True)
+        torch.cuda.synchronize()
+        if not torch.equal(a, a1):
+            raise AssertionError("B3 on coinciding tables: acc differs from B1's")
+        if not torch.equal(U3, U1):
+            raise AssertionError(f"B3 on coinciding tables: U from its pe row minus m/eps "
+                                 f"{float(U3)} != B1's {float(U1)}")
+        self_term = float((pe - mass / EPS2 ** 0.5).min()) > 0.0
+        return (f"B3 == plain within {FORCE_RTOL:g} [{'; '.join(lines)}]; coinciding "
+                f"{N_MAIN}x{N_MAIN}: acc bit-equal to B1's, pe row = B1's + m/eps (U bit-equal "
+                f"through B1's self-term subtraction; rows above m/eps: {self_term}); its "
+                f"path (the multi-device ring) is ROADMAP A.15")
+
+    # phase 28
+    def variants_main_path(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.models.scene import SceneArrays
+        from orbital_tpu_torch.ops.cuda_collisions import bounce_deltas_cuda
+        from orbital_tpu_torch.ops.cuda_forces import block_acc_cuda, pairwise_acc_cuda
+        from orbital_tpu_torch.ops.cuda_forces_mxu import gram_sums_cuda
+        from orbital_tpu_torch.ops.cuda_forces_sym import pairwise_acc_sym_cuda
+        from orbital_tpu_torch.ops.cuda_jerk import accel_jerk_cuda
+
+        torch = self.torch
+        n = N_MAIN
+        pos, vel, mass, E0 = self.cluster()
+        lines, self.variant_ms, b3 = [], {}, 0
+        for impl, kernel, steps in (("pallas_sym", pairwise_acc_sym_cuda, self.drift_steps),
+                                    ("pallas_mxu", gram_sums_cuda, self.drift_steps),
+                                    ("mxu", None, MXU_STEPS)):
+            cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, force_impl=impl)
+            state = ot.make_state(pos, vel, mass, precision="ds32", device=self.dev)
+            reset_launches()
+            rec_steps = 20 if kernel is not None else 0
+            state = ot.init_forces(state, cfg)
+            traj = None
+            if rec_steps:
+                state, traj = ot.rollout(state, cfg, rec_steps, record_every=rec_steps // 2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fin, none = ot.rollout(state, cfg.replace(track_potential=False), steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = kernel.launches if kernel is not None else 0
+            b1 = pairwise_acc_cuda.launches
+            b3 += block_acc_cuda.launches
+            evals = 1 + rec_steps + steps
+            if kernel is not None and launched != evals:
+                raise AssertionError(f"{impl}: its kernel launched {launched} times in "
+                                     f"{evals} evaluations")
+            if b1 or b3 or none is not None or int(fin.step) != rec_steps + steps:
+                raise AssertionError(f"{impl}: B1 launched {b1} times, B3 {b3}, or wrong "
+                                     f"records/steps")
+            if not bool(torch.isfinite(fin.pos).all()):
+                raise AssertionError(f"{impl}: non-finite state")
+            if traj is not None:
+                e_rec = traj.energy.double().cpu().numpy()
+                if impl == "pallas_sym":  # U = 0: the records hold the kinetic energy
+                    ok = bool((traj.energy > 0).all())
+                else:
+                    ok = bool(np.max(np.abs(e_rec / E0 - 1.0)) <= ENERGY_RTOL)
+                if tuple(traj.pos.shape) != (2, n, 3) or not ok:
+                    raise AssertionError(f"{impl}: wrong records or energies {e_rec}")
+            drift = abs((energy_f64(fin) - E0) / E0)
+            if drift > DRIFT_BUDGET:
+                raise AssertionError(f"{impl}: |dE/E| = {drift:.3e} over {DRIFT_BUDGET:g}")
+            if impl == "pallas_sym":
+                self.kernels["B12"]["launches"] = launched
+            elif impl == "pallas_mxu":
+                self.kernels["B13"]["launches"] = launched
+            self.variant_ms[impl] = 1e3 * wall / steps
+            lines.append(f"{impl}: init_forces + {rec_steps} recorded + {steps} unrecorded "
+                         f"steps, |dE/E| = {drift:.3e}, {self.variant_ms[impl]:.3f} ms/step wall, "
+                         f"its kernel {launched} launches, B1 {b1}")
+        # B3 has no single-card path: measured 0 over the three main paths
+        self.kernels["B3"]["launches"] = b3
+
+        # "pallas_sym" with bounce at the bench row's radius: B6 ungated
+        radius = np.full(n, R_BENCH)
+        fins = {}
+        for mode in ("bounce", "none"):
+            cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, force_impl="pallas_sym",
+                               collisions=mode, restitution=1.0, track_potential=False)
+            st = ot.make_state(pos, vel, mass, radius, precision="ds32", device=self.dev)
+            reset_launches()
+            fins[mode], _ = ot.rollout(ot.init_forces(st, cfg), cfg, 100)
+            torch.cuda.synchronize()
+            if mode == "bounce":
+                b6, b12 = bounce_deltas_cuda.launches, pairwise_acc_sym_cuda.launches
+        diff = max_state_err(fins["bounce"], fins["none"])
+        if b6 != 100 or b12 != 101 or diff > STATE_ATOL:
+            raise AssertionError(f"pallas_sym + bounce: B6 {b6}, B12 {b12} launches, max "
+                                 f"state diff {diff:.3e}")
+
+        # simulate(): Hermite with this policy runs the acc + jerk kernel
+        scene = SceneArrays(pos=pos, vel=vel, mass=mass, radius=np.full(n, R_BENCH),
+                            names=[f"b{i}" for i in range(n)])
+        reset_launches()
+        res = ot.simulate(scene, steps=10, dt=DT, softening=EPS2 ** 0.5, device=self.dev,
+                          force_impl="pallas_sym", integrator="hermite", record_every=5,
+                          precision="ds32")
+        b5, b12_sim = accel_jerk_cuda.launches, pairwise_acc_sym_cuda.launches
+        if b5 != 11 or b12_sim or not np.isfinite(res.pos).all():
+            raise AssertionError(f"simulate(pallas_sym, hermite): B5 {b5}, B12 {b12_sim}")
+        return ("; ".join(lines) + f"; B3 {b3} launches over the three | pallas_sym + "
+                f"bounce R={R_BENCH:g}, 100 steps: B6 {b6} "
+                f"launches (ungated), B12 {b12}, max state diff from the collision-free run "
+                f"{diff:.2e} <= {STATE_ATOL:g} | simulate(pallas_sym, hermite) 10 steps: B5 "
+                f"{b5} launches, B12 {b12_sim}")
+
+    # --parent
+    def check_parent(self, parent: str) -> str:
+        import ctypes
+        from pathlib import Path
+
+        from orbital_tpu_torch.ops import cuda_forces as cf
+        from orbital_tpu_torch.utils import kernels
+
+        torch = self.torch
+        src = Path(parent) / "orbital_tpu_torch" / "csrc" / "nbody_forces.cu"
+        out = kernels.BUILD_DIR / "parent" / "libnbody_forces.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out), str(src)],
+                       check=True, capture_output=True)
+        new, old = cf._load(), ctypes.CDLL(str(out))
+        for fn in ("nbody_forces", "nbody_forces_detect", "ot_error_string"):
+            getattr(old, fn).restype = getattr(new, fn).restype
+            getattr(old, fn).argtypes = getattr(new, fn).argtypes
+
+        def on(lib, fn):
+            cf._lib = lib
+            try:
+                return fn()
+            finally:
+                cf._lib = new
+
+        pos, mass, alive = self.variant_scene(N_MAIN, 7, seed_offset=17)
+        radius = torch.full((N_MAIN,), R_RICH, dtype=torch.float32, device=self.dev)
+        equal, contacts = [], set()
+        for eps2 in (EPS2, 0.0):
+            for pe in (True, False):
+                kw = dict(G=1.0, eps2=eps2, with_potential=pe)
+                for fn in (lambda: cf.pairwise_acc_cuda(pos, mass, alive, **kw),
+                           lambda: cf.pairwise_acc_detect_cuda(pos, mass, radius, alive,
+                                                               **kw)):
+                    a, b = on(old, fn), on(new, fn)
+                    equal.append(all(torch.equal(x, y) for x, y in zip(a, b)))
+                    if len(a) == 3:
+                        contacts.add(int(a[2]))
+        if not all(equal):
+            raise AssertionError(f"B1/B2 differ from the parent's build: {equal}")
+        kw = dict(G=1.0, eps2=EPS2)
+        times = {k: summary(v) for k, v in alternate_ms({
+            "parent": lambda: on(old, lambda: cf.pairwise_acc_cuda(
+                pos, mass, alive, with_potential=False, **kw)),
+            "this": lambda: cf.pairwise_acc_cuda(pos, mass, alive, with_potential=False, **kw),
+            "this_pe": lambda: cf.pairwise_acc_cuda(pos, mass, alive, **kw),
+            "parent_pe": lambda: on(old, lambda: cf.pairwise_acc_cuda(pos, mass, alive, **kw)),
+        }, 10, repeats=4).items()}
+        print("perf_parent " + json.dumps(times), file=sys.stderr)
+        return (f"B1 and B2 bit-equal to the build of {src} in {len(equal)} cases (N={N_MAIN}, "
+                f"7 dead, eps2 {EPS2:g} and 0, PE on and off; B2 counts {sorted(contacts)}); "
+                f"B1 in turns: " + ", ".join(f"{k} {v['median']:.3f} ms (spread "
+                                             f"{v['spread']:.3f})" for k, v in times.items()))
+
+    # phase 29
+    def variant_timings(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops.cuda_forces import (block_acc_cuda, block_acc_plain,
+                                                       pairwise_acc_cuda)
+        from orbital_tpu_torch.ops.cuda_forces_mxu import (pairwise_acc_mxu_cuda,
+                                                           pairwise_acc_mxu_plain)
+        from orbital_tpu_torch.ops.cuda_forces_sym import (pairwise_acc_sym_cuda,
+                                                           pairwise_acc_sym_plain)
+        from orbital_tpu_torch.ops.mxu_forces import pairwise_acc_mxu
+
+        n = N_MAIN
+        pos, mass, alive = self.variant_scene(n, 0, seed_offset=16)
+        kw = dict(G=1.0, eps2=EPS2)
+        kern = {k: summary(v) for k, v in alternate_ms({
+            "B1": lambda: pairwise_acc_cuda(pos, mass, alive, with_potential=False, **kw),
+            "B1_pe": lambda: pairwise_acc_cuda(pos, mass, alive, **kw),
+            "B12": lambda: pairwise_acc_sym_cuda(pos, mass, alive, **kw),
+            "B13": lambda: pairwise_acc_mxu_cuda(pos, mass, alive, with_potential=False, **kw),
+            "B13_pe": lambda: pairwise_acc_mxu_cuda(pos, mass, alive, **kw),
+            "B3_pe": lambda: block_acc_cuda(pos, pos, mass, **kw),
+        }, 10).items()}
+        mxu = summary(time_ms(lambda: pairwise_acc_mxu(pos, mass, alive, chunk=1024, **kw), 1))
+        plain = {
+            "B12": summary(time_ms(lambda: pairwise_acc_sym_plain(pos, mass, alive, **kw), 1)),
+            "B13": summary(time_ms(lambda: pairwise_acc_mxu_plain(
+                pos, mass, alive, with_potential=False, **kw), 1)),
+            "B3": summary(time_ms(lambda: block_acc_plain(pos, pos, mass, **kw), 1)),
+        }
+
+        pos_c, vel_c, mass_c, _ = self.cluster()
+        steps = {}
+        for impl, k in (("auto", 10), ("pallas_sym", 10), ("pallas_mxu", 10), ("mxu", 2)):
+            cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, force_impl=impl, track_potential=False)
+            st = ot.init_forces(ot.make_state(pos_c, vel_c, mass_c, precision="ds32",
+                                              device=self.dev), cfg)
+            steps[impl] = summary([t / k for t in time_ms(
+                lambda: ot.rollout(st, cfg, k, fused="never"), 1)])
+
+        pairs = n * (n - 1) / 2
+        bounds = {
+            "B12": bound(OPS_B12 * pairs, 28 * n, rsqrt=pairs),
+            "B13": bound(OPS_B13 * n * n, 80 * n, rsqrt=n * n),
+            "B13_pe": bound(OPS_B13_PE * n * n, 84 * n, rsqrt=n * n),
+            "B3": bound(OPS_B1_PE * n * n, 48 * n, rsqrt=n * n),
+        }
+        for k, t in (("B12", kern["B12"]), ("B13", kern["B13"]), ("B3", kern["B3_pe"])):
+            self.kernels[k].update(ms=t["median"], plain_ms=plain[k]["median"],
+                                   bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                                   library_ms=None)
+        perf = {"kernels_N65536": kern, "mxu_eval_N65536": mxu, "plain_N65536": plain,
+                "kdk_step_N65536": steps, "bounds_ms": bounds,
+                "main_path_ms_per_step_wall": getattr(self, "variant_ms", None)}
+        print("perf_variants " + json.dumps(perf), file=sys.stderr)
+
+        def ms(s):
+            return f"{s['median']:.3f} ms (spread {s['spread']:.3f})"
+
+        timed = {"B12": kern["B12"], "B13": kern["B13"], "B13_pe": kern["B13_pe"],
+                 "B3": kern["B3_pe"]}
+        return ("N=65536: " + ", ".join(f"{k} {ms(v)}" for k, v in kern.items())
+                + f"; mxu evaluation {ms(mxu)}; plain " + ", ".join(
+                    f"{k} {ms(v)}" for k, v in plain.items())
+                + "; ds32 KDK step " + ", ".join(f"{k} {ms(v)}" for k, v in steps.items())
+                + "; bounds " + ", ".join(
+                    f"{k} {v[0]:.4f} ms ({v[1]}, {100 * v[0] / timed[k]['median']:.0f}%)"
+                    for k, v in bounds.items()))
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--drift-steps", type=int, default=1000,
                         help="unrecorded steps of the 65,536-body drift run")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--parent", metavar="DIR",
+                        help="only hold B1 and B2 against DIR's nbody_forces.cu (phases 1, 2 "
+                             "and this check)")
     args = parser.parse_args(argv)
 
     import torch
@@ -2292,7 +2768,14 @@ def main(argv=None) -> int:
         ("22 tree force", smoke.check_tree_force),
         ("23 tree main path", smoke.tree_main_path),
         ("24 tree timings", smoke.tree_timings),
+        ("25 sym", smoke.check_sym),
+        ("26 gram", smoke.check_gram),
+        ("27 block", smoke.check_block),
+        ("28 variants main path", smoke.variants_main_path),
+        ("29 variant timings", smoke.variant_timings),
     ]
+    if args.parent:
+        phases = phases[:2] + [("parent", lambda: smoke.check_parent(args.parent))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -2306,7 +2789,8 @@ def main(argv=None) -> int:
             label = name if len(results) == 1 else name.split()[0].split("+")[i]
             print(f"phase {label}: {line} [{time.perf_counter() - t0:.1f} s]", flush=True)
 
-    print(json.dumps({"kernels": list(smoke.kernels.values())}))
+    if not args.parent:
+        print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

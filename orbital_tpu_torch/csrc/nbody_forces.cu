@@ -1,8 +1,10 @@
 // Softened O(N^2) pairwise gravity for Hopper (sm_90a).
 //
 // Replaces: orbital_tpu/ops/pallas_forces.py::_nbody_kernel (the TPU force
-// sweep behind pairwise_acc_pallas), in its PE and no-PE variants (B1), and
-// its detect=True variant behind pairwise_acc_detect_pallas (B2).
+// sweep behind pairwise_acc_pallas), in its PE and no-PE variants (B1), its
+// detect=True variant behind pairwise_acc_detect_pallas (B2), and its
+// rectangular [n_i x n_j] form behind _build_block_call / block_acc_pallas
+// (B3, the per-round block of the multi-device ring).
 //
 //   acc_i = G sum_j m_j (r_j - r_i) / (|r_j - r_i|^2 + eps^2)^(3/2)
 //   pe_i  =   sum_j m_j / sqrt(|r_j - r_i|^2 + eps^2)          (optional)
@@ -39,6 +41,13 @@
 // far positions, so they add only their own self pair. The 1e-5 inflation
 // keeps the gate conservative: a grazing pair can cost a redundant bounce
 // sweep but never skip one.
+//
+// Separate i and j tables (B3): the i side reads (x, y, z) of pts_i, the j
+// side (x, y, z, m) of pts_j. B1 and B2 pass one table twice, so their
+// arithmetic is unchanged op for op; B3 keeps the PE sum on and subtracts
+// nothing (its pe row includes the i == j term where the tables coincide;
+// the ring strips it once). kDetect reads one radius table for both sides
+// and is launched on coinciding tables only.
 //
 // Plain C interface for ctypes: pointers and the stream are void*, and the
 // entry point returns cudaGetLastError() of its launch.
@@ -84,29 +93,30 @@ __device__ __forceinline__ void accumulate_tile(const float4* tile, const float*
 
 template <bool kPE, bool kSoft, bool kDetect>
 __global__ void __launch_bounds__(kBlock)
-nbody_forces_kernel(const float4* __restrict__ pts, const float* __restrict__ radius,
-                    int n, float G, float eps2, float4* __restrict__ out,
-                    int* __restrict__ contacts) {
+nbody_forces_kernel(const float4* __restrict__ pts_i, int n_i,
+                    const float4* __restrict__ pts_j, int n_j,
+                    const float* __restrict__ radius, float G, float eps2,
+                    float4* __restrict__ out, int* __restrict__ contacts) {
   __shared__ float4 tile[kBlock];
   __shared__ float rtile[kDetect ? kBlock : 1];
   const int i = blockIdx.x * kBlock + threadIdx.x;
-  const float4 pi = i < n ? pts[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const float ri = (kDetect && i < n) ? radius[i] : 0.0f;
+  const float4 pi = i < n_i ? pts_i[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float ri = (kDetect && i < n_i) ? radius[i] : 0.0f;
   float ax = 0.0f, ay = 0.0f, az = 0.0f, pe = 0.0f;
   int touch = 0;
-  for (int j0 = 0; j0 < n; j0 += kBlock) {
+  for (int j0 = 0; j0 < n_j; j0 += kBlock) {
     const int j = j0 + threadIdx.x;
-    if (j < n) {
-      tile[threadIdx.x] = pts[j];
+    if (j < n_j) {
+      tile[threadIdx.x] = pts_j[j];
       if (kDetect) rtile[threadIdx.x] = radius[j];
     }
     __syncthreads();
     float tx, ty, tz, tp;
-    if (n - j0 >= kBlock) {
+    if (n_j - j0 >= kBlock) {
       accumulate_tile<kPE, kSoft, kDetect>(tile, rtile, kBlock, pi, ri, eps2,
                                            tx, ty, tz, tp, touch);
     } else {
-      accumulate_tile<kPE, kSoft, kDetect>(tile, rtile, n - j0, pi, ri, eps2,
+      accumulate_tile<kPE, kSoft, kDetect>(tile, rtile, n_j - j0, pi, ri, eps2,
                                            tx, ty, tz, tp, touch);
     }
     ax += tx;
@@ -115,11 +125,11 @@ nbody_forces_kernel(const float4* __restrict__ pts, const float* __restrict__ ra
     if (kPE) pe += tp;
     __syncthreads();
   }
-  if (i < n) out[i] = make_float4(G * ax, G * ay, G * az, pe);
+  if (i < n_i) out[i] = make_float4(G * ax, G * ay, G * az, pe);
   if (kDetect) {
     // rows past n counted against the zero-padded pi: drop them, then one
     // warp reduction, one shared slot per warp, one atomic per block
-    touch = i < n ? touch : 0;
+    touch = i < n_i ? touch : 0;
     touch = __reduce_add_sync(0xffffffffu, touch);
     __shared__ int warp_sums[kBlock / 32];
     if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = touch;
@@ -134,22 +144,23 @@ nbody_forces_kernel(const float4* __restrict__ pts, const float* __restrict__ ra
 }
 
 template <bool kPE, bool kSoft, bool kDetect>
-void launch(const float4* pts, const float* radius, int n, float G, float eps2,
-            float4* out, int* contacts, cudaStream_t stream) {
-  const int grid = (n + kBlock - 1) / kBlock;
+void launch(const float4* pts_i, int n_i, const float4* pts_j, int n_j,
+            const float* radius, float G, float eps2, float4* out, int* contacts,
+            cudaStream_t stream) {
+  const int grid = (n_i + kBlock - 1) / kBlock;
   nbody_forces_kernel<kPE, kSoft, kDetect><<<grid, kBlock, 0, stream>>>(
-      pts, radius, n, G, eps2, out, contacts);
+      pts_i, n_i, pts_j, n_j, radius, G, eps2, out, contacts);
 }
 
 template <bool kDetect>
 void dispatch(const float4* p, const float* radius, int n, float G, float eps2,
               int with_pe, float4* o, int* contacts, cudaStream_t s) {
   if (eps2 > 0.0f) {
-    if (with_pe) launch<true, true, kDetect>(p, radius, n, G, eps2, o, contacts, s);
-    else launch<false, true, kDetect>(p, radius, n, G, eps2, o, contacts, s);
+    if (with_pe) launch<true, true, kDetect>(p, n, p, n, radius, G, eps2, o, contacts, s);
+    else launch<false, true, kDetect>(p, n, p, n, radius, G, eps2, o, contacts, s);
   } else {
-    if (with_pe) launch<true, false, kDetect>(p, radius, n, G, eps2, o, contacts, s);
-    else launch<false, false, kDetect>(p, radius, n, G, eps2, o, contacts, s);
+    if (with_pe) launch<true, false, kDetect>(p, n, p, n, radius, G, eps2, o, contacts, s);
+    else launch<false, false, kDetect>(p, n, p, n, radius, G, eps2, o, contacts, s);
   }
 }
 
@@ -180,6 +191,22 @@ int nbody_forces_detect(const void* pts, const void* radius, int n, float G,
   dispatch<true>(static_cast<const float4*>(pts), static_cast<const float*>(radius),
                  n, G, eps2, with_pe, static_cast<float4*>(out),
                  static_cast<int*>(contacts), static_cast<cudaStream_t>(stream));
+  return cudaGetLastError();
+}
+
+// B3: pts_i: [n_i] float4 (x, y, z, unused); pts_j: [n_j] float4 (x, y, z,
+// m_j); out: [n_i] float4 (G*ax, G*ay, G*az, pe) with the pe row's i == j
+// term kept. Needs eps2 > 0 (the mask-free sweep), as the ring does.
+int nbody_block_forces(const void* pts_i, int n_i, const void* pts_j, int n_j, float G,
+                       float eps2, void* out, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (!(eps2 > 0.0f)) return cudaErrorInvalidValue;
+  if (n_i <= 0 || n_j <= 0) return cudaSuccess;
+  launch<true, true, false>(static_cast<const float4*>(pts_i), n_i,
+                            static_cast<const float4*>(pts_j), n_j, nullptr, G, eps2,
+                            static_cast<float4*>(out), nullptr,
+                            static_cast<cudaStream_t>(stream));
   return cudaGetLastError();
 }
 

@@ -31,15 +31,11 @@ __all__ = ["Trajectory", "resolve_force_fn", "resolve_force_detect_fn",
 _DENSE_MAX_N = 4096
 
 # ROADMAP.md queue A items that port the force paths this slice leaves out
-_NOT_PORTED = {
-    "pallas_sym": "A.16", "mxu": "A.16", "pallas_mxu": "A.16",
-    "pm": "A.12", "p3m": "A.12", "ring": "A.15",
-}
+_NOT_PORTED = {"pm": "A.12", "p3m": "A.12", "ring": "A.15"}
 
 
 # exact-force policies whose Hermite evaluation is the acc + jerk sweep
-# (orbital_tpu/engine/rollout.py:213-219): the kdk paths of A.15/A.16 are
-# not needed for it
+# (orbital_tpu/engine/rollout.py:213-219), whatever their kdk force path
 _EXACT_IMPLS = ("auto", "pallas", "pallas_sym", "mxu", "pallas_mxu", "ring")
 
 
@@ -85,8 +81,12 @@ def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
 
     ``"auto"``: dense at N <= 4096; above it the CUDA kernel for CUDA
     tensors and the row-blocked plain path for CPU tensors. ``"pallas"``
-    names the exact-force kernel and maps to the CUDA kernel. The kernels
-    are f32, so f64 state on CUDA raises (f64 is the CPU golden path).
+    names the exact-force kernel and maps to the CUDA kernel at any N;
+    ``"pallas_sym"`` (half-pair, U = 0) and ``"pallas_mxu"`` (Gram) map to
+    their CUDA kernels the same way, and ``"mxu"`` to the plain-torch Gram
+    form on every device. Each takes its plain version on CPU tensors. The
+    kernels are f32, so f64 state on CUDA raises (f64 is the CPU golden
+    path).
     ``"tree"`` is ``ops.tree.tree_acc_potential`` with ``tree_near="kernel"``
     (its near sweep the B7 kernel on CUDA tensors); its overflow counter is
     dropped here, so size the budgets first (``simulate()`` probes them).
@@ -111,6 +111,23 @@ def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
         from ..ops.cuda_forces import pairwise_acc_cuda
 
         return lambda pos, mass, alive: pairwise_acc_cuda(
+            pos, mass, alive, G=cfg.G, eps2=cfg.eps2,
+            with_potential=cfg.track_potential)
+    if impl == "pallas_sym":
+        from ..ops.cuda_forces_sym import pairwise_acc_sym_cuda
+
+        return lambda pos, mass, alive: pairwise_acc_sym_cuda(
+            pos, mass, alive, G=cfg.G, eps2=cfg.eps2)
+    if impl == "mxu":
+        from ..ops.mxu_forces import pairwise_acc_mxu
+
+        return lambda pos, mass, alive: pairwise_acc_mxu(
+            pos, mass, alive, G=cfg.G, eps2=cfg.eps2, chunk=min(cfg.chunk, n),
+            with_potential=cfg.track_potential)
+    if impl == "pallas_mxu":
+        from ..ops.cuda_forces_mxu import pairwise_acc_mxu_cuda
+
+        return lambda pos, mass, alive: pairwise_acc_mxu_cuda(
             pos, mass, alive, G=cfg.G, eps2=cfg.eps2,
             with_potential=cfg.track_potential)
     raise ValueError(f"unknown force_impl {impl!r}")
@@ -144,7 +161,9 @@ def resolve_force_detect_fn(cfg: SimConfig, n: int, device: torch.device | str,
     Routed as :func:`resolve_force_fn`: dense forces plus the dense count at
     N <= 4096; above it the detecting CUDA kernel for CUDA tensors and the
     chunked forces plus the chunked count for CPU tensors. Returns None for
-    a force path without a detecting variant.
+    a force path without a detecting variant ("pallas_sym", "mxu",
+    "pallas_mxu", "tree"): the stepper then runs the bounce sweep ungated,
+    as the JAX package does.
     """
     impl = _resolve_impl(cfg, n, torch.device(device), dtype)
     if impl == "pallas":

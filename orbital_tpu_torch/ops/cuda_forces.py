@@ -6,7 +6,10 @@ scalar U) out, dead bodies inert, and with ``with_potential=False`` the PE
 sum is skipped in the kernel and U is 0. :func:`pairwise_acc_detect_cuda`
 is its ``detect=True`` variant (``pairwise_acc_detect_pallas``): the same
 sweep also counts directed touching pairs into an int32 that stays on the
-device, the gate of the bounce sweep.
+device, the gate of the bounce sweep. :func:`block_acc_cuda` is the same
+kernel over separate i and j tables (``block_acc_pallas``, the per-round
+block of the multi-device ring): acc and the pe row of block j on block i,
+the i == j term kept.
 
 The kernel is arithmetic-bound (~20 flops and one rsqrtf per pair; see the
 note at the top of the source): one thread per i body, j streamed through
@@ -17,9 +20,10 @@ when eps2 > 0) and U = -1/2 G sum m pe.
 
 For CPU tensors the wrappers compute the plain versions,
 ``ops.forces.pairwise_acc_chunked`` (plus ``ops.collisions.
-count_contacts_chunked`` for the count). For CUDA tensors they launch the
-kernel or raise; they never fall back. ``pairwise_acc_cuda.launches`` and
-``pairwise_acc_detect_cuda.launches`` count kernel launches.
+count_contacts_chunked`` for the count) and :func:`block_acc_plain`. For
+CUDA tensors they launch the kernel or raise; they never fall back.
+``pairwise_acc_cuda.launches``, ``pairwise_acc_detect_cuda.launches`` and
+``block_acc_cuda.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -29,10 +33,10 @@ from typing import Optional
 import torch
 
 from .collisions import count_contacts_chunked
-from .forces import pairwise_acc_chunked
+from .forces import _block_acc_potential, pairwise_acc_chunked
 
 __all__ = ["pairwise_acc_cuda", "pairwise_acc_plain", "pairwise_acc_detect_cuda",
-           "pairwise_acc_detect_plain"]
+           "pairwise_acc_detect_plain", "block_acc_cuda", "block_acc_plain"]
 
 _lib = None
 
@@ -52,6 +56,10 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int]
+        lib.nbody_block_forces.restype = ctypes.c_int
+        lib.nbody_block_forces.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         _lib = lib
     return _lib
 
@@ -184,3 +192,63 @@ def pairwise_acc_detect_cuda(
 
 
 pairwise_acc_detect_cuda.launches = 0
+
+
+_BLOCK_ROWS = 1024  # i rows a block of the plain version
+
+
+def _check_block(n_i: int, n_j: int, eps2: float) -> None:
+    """B3's contract: the mask-free sweep needs eps2 > 0, as the ring does
+    (``sharded.py:250-257``), and both blocks tile by 128
+    (``pallas_forces.py:281-282``)."""
+    if eps2 <= 0.0:
+        raise ValueError("the block sweep requires eps2 > 0 (self pairs cancel through "
+                         "d = 0 only when softened)")
+    if n_i % 128 != 0 or n_j % 128 != 0:
+        raise ValueError(f"block sizes n_i={n_i} and n_j={n_j} must be multiples of 128")
+
+
+def block_acc_plain(pos_i, pos_j, mass_j, *, G: float, eps2: float):
+    """The plain PyTorch version of the block kernel, on any device: row
+    blocks of pos_i against all of pos_j in float32, nothing masked."""
+    _check_block(pos_i.shape[0], pos_j.shape[0], eps2)
+    p_i, p_j = pos_i.to(torch.float32), pos_j.to(torch.float32)
+    m_j = mass_j.to(torch.float32)
+    keep = torch.ones((), dtype=torch.bool, device=pos_i.device)
+    blocks = [_block_acc_potential(p_i[s:s + _BLOCK_ROWS], p_j, m_j, keep, eps2, G)
+              for s in range(0, p_i.shape[0], _BLOCK_ROWS)]
+    acc = torch.cat([a for a, _ in blocks])
+    pe_row = torch.cat([pe for _, pe in blocks])
+    return acc.to(pos_i.dtype), pe_row.to(pos_i.dtype)
+
+
+def block_acc_cuda(pos_i: torch.Tensor, pos_j: torch.Tensor, mass_j: torch.Tensor, *,
+                   G: float, eps2: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Partial forces of body block j on body block i: (acc [Bi, 3], pe_row
+    [Bi]) with pe_row_i = sum_j m_j / sqrt(r^2 + eps^2), the i == j term
+    included where the blocks coincide. Dead bodies carry mass 0."""
+    if pos_i.device.type == "cpu":
+        return block_acc_plain(pos_i, pos_j, mass_j, G=G, eps2=eps2)
+    _check_inputs("block_acc_cuda", pos_j, mass_j, pos_i)
+    if pos_i.dtype != torch.float32 or pos_i.ndim != 2 or pos_i.shape[1] != 3:
+        raise ValueError(f"block_acc_cuda: need float32 pos_i [Bi, 3], got "
+                         f"{pos_i.dtype} {tuple(pos_i.shape)}")
+    n_i, n_j = pos_i.shape[0], pos_j.shape[0]
+    _check_block(n_i, n_j, eps2)
+    pts_i = torch.nn.functional.pad(pos_i, (0, 1)).contiguous()  # [Bi, 4]
+    pts_j = torch.cat([pos_j, mass_j.to(torch.float32)[:, None]], dim=1).contiguous()
+    out = torch.empty((n_i, 4), dtype=torch.float32, device=pos_i.device)
+
+    lib = _load()
+    from ..utils.kernels import check
+
+    stream = torch.cuda.current_stream(pos_i.device).cuda_stream
+    err = lib.nbody_block_forces(pts_i.data_ptr(), n_i, pts_j.data_ptr(), n_j, float(G),
+                                 float(eps2), out.data_ptr(), stream,
+                                 pos_i.device.index or 0)
+    check(lib, err, "nbody_block_forces launch")
+    block_acc_cuda.launches += 1
+    return out[:, 0:3], out[:, 3]
+
+
+block_acc_cuda.launches = 0

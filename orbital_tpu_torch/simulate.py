@@ -5,10 +5,11 @@ the rollout and the unit conversion back to physical units behind a single
 function. Ported so far: the exact-force kdk, euler, rk4, yoshida4 and
 Hermite steppers (Hermite with fixed or adaptive dt and block timesteps)
 and the multirate (RESPA) stepper on one device, with or without bounce
-collisions, and the tree force solver (``force_impl="tree"``) with its
-``"kernel"`` near field; the merge and resolve collision modes, the mesh
-solvers and the tree's other near modes raise ``NotImplementedError``
-(ROADMAP.md queue A).
+collisions, the exact-force variants (``force_impl="pallas_sym"``,
+``"mxu"``, ``"pallas_mxu"``) and the tree force solver
+(``force_impl="tree"``) with its ``"kernel"`` near field; the merge and
+resolve collision modes, the mesh solvers and the tree's other near modes
+raise ``NotImplementedError`` (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -183,6 +184,12 @@ def simulate(
     the initial distribution (``ops.neighbor.neighbor_budgets``). A nonzero
     overflow or skin counter, read once after the run, raises a
     ``RuntimeWarning``: near pairs may have been missed.
+
+    ``force_impl`` takes the exact-force variants as the JAX package does:
+    ``"pallas_sym"`` (the half-pair kernel; U is 0, so the recorded
+    energies are kinetic only), ``"mxu"`` and ``"pallas_mxu"`` (the Gram
+    forms); none has a contact-detecting variant, so with bounce the sweep
+    runs every step ungated. N must meet each kernel's tile rule.
 
     ``force_impl="tree"`` runs the tree solver (``ops.tree``) with
     ``tree_levels`` (an int or ``"auto"``), ``tree_ws``, ``tree_order``,

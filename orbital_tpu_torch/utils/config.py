@@ -38,11 +38,14 @@ class SimConfig:
             "yoshida4" (4th-order symplectic; 3 weighted KDK sub-steps,
             3 force evals/step — KDK's long-horizon stability at two
             orders higher per-step accuracy).
-        force_impl: "auto" | "dense" | "chunked" | "pallas" |
-            "pallas_sym" (half-pair symmetric kernel, no PE) |
-            "mxu" (XLA Gram-matmul study) | "pallas_mxu" (MXU-tiled
-            Pallas kernel: matmul distances + matmul accumulation;
-            fastest at large N, Gram-identity accuracy caveats) |
+        force_impl: "auto" | "dense" | "chunked" | "pallas" (the CUDA
+            force sweep, ``csrc/nbody_forces.cu``) |
+            "pallas_sym" (the CUDA half-pair sweep over upper-triangle
+            tile pairs, ``csrc/nbody_forces_sym.cu``; no PE: U is 0) |
+            "mxu" (the Gram-identity form in plain torch, full-f32
+            matrix products) | "pallas_mxu" (the CUDA Gram-identity
+            sweep, ``csrc/nbody_forces_mxu.cu``; the identity cancels on
+            close pairs: up to ~2e-3 of max |a| there, ~6e-5 RMS) |
             "pm" (particle-mesh FFT Poisson solver, O(N + G^3 log G) for
             N >> 1e5; collisionless accuracy contract, see ops/pm.py) |
             "p3m" (PM far field + exact short-range cell-list correction,
