@@ -2,18 +2,28 @@
 """Drive the PyTorch port (``orbital_tpu_torch``) once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--drift-steps 1000] [--seed 0]
-    python3 chip_smoke.py --parent DIR
+    python3 chip_smoke.py [--sweep] [--parent DIR]
 
 With ``--parent DIR`` (a checkout of another commit, e.g. unpacked by
-``git archive``) it runs phases 1-2 and then only holds B1 and B2 of this
-tree bit for bit against those built from DIR's ``csrc/nbody_forces.cu``
-(8 cases at N = 65,536) and times both trees' B1 in turns.
+``git archive``) it runs phases 1-2 and then only holds B1, B2, B3 (on
+coinciding tables), B5 and B5 detect of this tree against those built from
+DIR's ``csrc/nbody_forces.cu`` and ``csrc/nbody_jerk.cu`` (N = 65,536, 7
+dead, eps2 1e-4 and 0, PE on and off) within FORCE_RTOL, JERK_RTOL and
+ENERGY_RTOL with equal contact counts, says whether each is bit-equal, and
+times both trees' five kernels in turns. With ``--sweep`` it runs phases
+1-2 and then builds the launch shapes of ``SWEEP`` (``-D`` overrides of the
+two templates' shape macros), holds each against the plain versions and
+times them in turns, with the registers, spills and SASS instructions a
+pair of each.
 
 Phases, one line of output each; any failure exits nonzero:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``orbital_tpu_torch/csrc``, one nvcc per
-     source, all at once;
+     source, all at once; the launch shape, registers, spills and SASS
+     instructions a pair (``cuobjdump -sass``) of B1, B2, B3, B5 and B5
+     detect, and the issue floor they imply at 528 warp instructions a
+     clock and 1.98 GHz;
   3. the force kernel (B1) against its plain PyTorch version at N = 65536
      and a ragged N = 5000, PE on/off, eps2 > 0 and = 0, and the ds32 step
      at N = 8192 against the same step on plain forces;
@@ -126,6 +136,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -280,6 +292,33 @@ GRAM_MAX_RTOL = 5e-3
 N_VAR_RAGGED = 4992
 N_BLOCK = 16384
 MXU_STEPS = 200
+
+# warp instructions the card issues a second: 4 schedulers on each of 132
+# SMs at the 1.98 GHz boost clock (NVIDIA's data sheet, H100 SXM)
+INSTR_RATE = 528 * 1.98e9
+# the instantiations of the two redesigned templates that each record
+# reads (mangled-name stems: nbody_forces_kernel<kPE, kSoft, kDetect>,
+# jerk_kernel<kSoft, kDetect>), the C function that reports the launch
+# shape and the functions a library of each source exports
+SHAPED = {
+    "nbody_forces": ("nbody_forces_shape", {
+        "B1": "nbody_forces_kernelILb0ELb1ELb0E", "B2": "nbody_forces_kernelILb0ELb1ELb1E",
+        "B3": "nbody_forces_kernelILb1ELb1ELb0E"}),
+    "nbody_jerk": ("nbody_jerk_shape", {
+        "B5": "jerk_kernelILb1ELb0E", "B5D": "jerk_kernelILb1ELb1E"}),
+}
+LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_block_forces",
+                              "ot_error_string"),
+             "nbody_jerk": ("nbody_jerk", "nbody_jerk_detect", "nbody_jerk_subset",
+                            "ot_error_string")}
+# --sweep: the launch shapes built with -D (i bodies a thread, warps a
+# block); the first of each is the first version's summation order with the
+# one-MUFU rsqrt
+SWEEP = {
+    "nbody_forces": ((1, 1), (2, 8), (4, 4), (4, 8), (4, 16), (8, 4), (8, 8)),
+    "nbody_jerk": ((1, 1), (2, 4), (2, 8), (3, 8), (4, 4), (4, 8)),
+}
+SWEEP_MACRO = {"nbody_forces": "OT_FORCES", "nbody_jerk": "OT_JERK"}
 
 B1 = dict(name="nbody_forces", route="cuda",
           source="orbital_tpu_torch/csrc/nbody_forces.cu",
@@ -588,6 +627,255 @@ def summary(times):
             "runs": times}
 
 
+def bind_like(path, like, names):
+    """Load another build of a source and give its entry points the
+    argument types of ``like``, the library this tree built."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(path))
+    for fn in names:
+        getattr(lib, fn).restype = getattr(like, fn).restype
+        getattr(lib, fn).argtypes = getattr(like, fn).argtypes
+    return lib
+
+
+def on(mod, lib, fn):
+    """``fn()`` with wrapper module ``mod`` launching from library ``lib``."""
+    saved = mod._lib
+    mod._lib = lib
+    try:
+        return fn()
+    finally:
+        mod._lib = saved
+
+
+def compile_libraries(jobs) -> dict:
+    """Run one ``nvcc`` per ``(source, library, extra flags)`` job with the
+    build's flags, all at once, each into a temporary file renamed into
+    place when it succeeds. Returns ``{library: (nvcc's output, wall
+    seconds)}``; raises with the compiler's output if any build fails."""
+    from pathlib import Path
+
+    from orbital_tpu_torch.utils import kernels
+
+    started = []
+    for src, out, extra in jobs:
+        out = Path(out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *extra, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        started.append((Path(src), out, tmp, proc, time.perf_counter()))
+    done, failed = {}, []
+    for src, out, tmp, proc, t0 in started:
+        log = proc.communicate()[0]
+        done[out] = (log, time.perf_counter() - t0)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {src.name} (rc={proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
+
+
+def ptxas_usage(log: str) -> dict:
+    """``{entry function: (registers, spill store bytes, spill load bytes)}``
+    from nvcc's ``-Xptxas -v`` output."""
+    out, fn, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out[fn] = (int(m.group(1)), *spill)
+    return out
+
+
+def sass(library) -> str:
+    """``cuobjdump -sass`` of a built library; empty if the toolkit has no
+    ``cuobjdump``."""
+    from pathlib import Path
+
+    from orbital_tpu_torch.utils import kernels
+
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return ""
+    return subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def inner_loop(text: str) -> dict:
+    """``{function: (instructions, MUFU.RSQ count)}`` of the innermost loop
+    of each function in SASS ``text`` that holds the most MUFU.RSQ (and of
+    those, the fewest instructions a MUFU.RSQ): with one MUFU.RSQ a pair,
+    instructions / count is the warp instructions a pair. A loop is
+    the span from a backward branch's target to the branch; branch targets
+    are addresses (``cuobjdump``) or ``.L_x_`` labels (``nvdisasm``)."""
+    out = {}
+    for chunk in re.split(r"\n\s*Function\s*:\s*", text)[1:]:
+        name = chunk.split(None, 1)[0]
+        insts, labels, pending = [], {}, []
+        for line in chunk.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                pending.append(m.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                addr = int(m.group(1), 16)
+                for label in pending:
+                    labels[label] = addr
+                pending = []
+                insts.append((addr, m.group(2)))
+        loops = []
+        for addr, op in insts:
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)", op)
+            if not m:
+                continue
+            target = m.group(1)
+            start = labels.get(target) if target.startswith(".") else int(target, 16)
+            if start is not None and start <= addr:
+                loops.append((start, addr))
+        inner = [lp for lp in loops
+                 if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        best = None
+        for start, end in inner:
+            body = [op for a, op in insts if start <= a <= end]
+            count = sum("MUFU.RSQ" in op for op in body)
+            if count and (best is None or (-count, len(body) / count)
+                          < (-best[1], best[0] / best[1])):
+                best = (len(body), count)
+        if best is not None:
+            out[name] = best
+    return out
+
+
+def sass_slots(name: str, sass_text: str) -> dict:
+    """{record key: warp instructions a pair} of the instantiations of
+    ``name`` that SHAPED lists: the innermost loop with the most MUFU.RSQ
+    over their count (one a pair on the softened path)."""
+    loops = inner_loop(sass_text)
+    out = {}
+    for key, stem in SHAPED[name][1].items():
+        loop = next((v for f, v in loops.items() if stem in f), None)
+        if loop:
+            out[key] = loop[0] / loop[1]
+    return out
+
+
+def clock_during(fn, seconds: float = 2.0) -> dict:
+    """Median SM clock (MHz) and power draw (W) that nvidia-smi samples
+    every 50 ms while ``fn`` runs back to back for ``seconds`` (the first
+    third of the samples, taken while the load ramps up, dropped)."""
+    import torch
+
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "50"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        text = proc.communicate(timeout=30)[0]
+    rows = []
+    for line in text.splitlines():
+        try:
+            rows.append(tuple(float(x) for x in line.split(",")))
+        except ValueError:
+            continue
+    rows = rows[len(rows) // 3:]
+    if not rows:
+        return {"sm_mhz": "not measured", "watts": "not measured"}
+    return {"sm_mhz": statistics.median(r[0] for r in rows),
+            "watts": statistics.median(r[1] for r in rows), "samples": len(rows)}
+
+
+def launch_record(lib, name: str, log: str, sass_text: str, n: int = N_MAIN) -> dict:
+    """{record key: launch shape at n bodies, registers and spill bytes (from
+    nvcc's -Xptxas -v output ``log``) and warp instructions a pair (the
+    innermost loop of ``sass_text`` over its MUFU.RSQ count)}. Raises if an
+    instantiation SHAPED lists is missing from ``log``, or from
+    ``sass_text`` unless that is empty (no ``cuobjdump``)."""
+    import ctypes
+
+    shape_fn, stems = SHAPED[name]
+    fn = getattr(lib, shape_fn)
+    fn.restype, fn.argtypes = None, [ctypes.c_int, ctypes.c_void_p]
+    arr = (ctypes.c_int * 5)()
+    fn(n, arr)
+    shape = dict(zip(("k", "q", "tile", "threads", "blocks"), list(arr)))
+    usage, per_pair = ptxas_usage(log), sass_slots(name, sass_text)
+    out = {}
+    for key, stem in stems.items():
+        regs = next((v for f, v in usage.items() if stem in f), None)
+        if regs is None:
+            raise AssertionError(f"{key}: no entry function *{stem}* in the ptxas output")
+        if sass_text and key not in per_pair:
+            raise AssertionError(f"{key}: no loop with MUFU.RSQ in *{stem}* in the SASS")
+        out[key] = {"shape": shape, "registers": regs[0], "spill_bytes": regs[1] + regs[2],
+                    "sass_slots_per_pair": per_pair.get(key, "not measured")}
+    return out
+
+
+def spill_free(name: str, log: str) -> int:
+    """The number of entry functions in nvcc's -Xptxas -v output ``log``;
+    raises if it names none or any of them spills."""
+    usage = ptxas_usage(log)
+    spilled = {f: u[1] + u[2] for f, u in usage.items() if u[1] + u[2]}
+    if not usage or spilled:
+        raise AssertionError(f"{name}: spill bytes {spilled or 'not in the ptxas output'}")
+    return len(usage)
+
+
+def fmt(x, digits: int = 2, unit: str = "") -> str:
+    return "not measured" if x is None or isinstance(x, str) else f"{x:.{digits}f}{unit}"
+
+
+def describe_launch(key: str, rec: dict, n: int = N_MAIN) -> str:
+    """One launch record as text, with the issue floor its SASS count
+    implies at n bodies, 528 schedulers and the 1.98 GHz boost clock."""
+    sh, slots = rec["shape"], rec["sass_slots_per_pair"]
+    floor = None if isinstance(slots, str) else 1e3 * slots * n * n / 32 / INSTR_RATE
+    return (f"{key} k={sh['k']} q={sh['q']} tile={sh['tile']} ({sh['threads']} threads x "
+            f"{sh['blocks']} blocks), {rec['registers']} registers, {rec['spill_bytes']} "
+            f"spill bytes, {fmt(slots)} SASS instructions a pair (issue floor "
+            f"{fmt(floor, 3, ' ms')})")
+
+
+def held(out, ref, tols) -> tuple[float, bool]:
+    """The outputs of one wrapper call against a reference call's: the
+    worst relative difference (max |d| / max |ref| of an array, |d| / |ref|
+    of a scalar), raising where one exceeds its tolerance (0: equal), and
+    whether every output is bit-equal."""
+    worst, equal = 0.0, True
+    for i, (x, y, tol) in enumerate(zip(out, ref, tols)):
+        equal = equal and bool((x == y).all())
+        if not x.is_floating_point():
+            if not bool((x == y).all()):
+                raise AssertionError(f"output {i}: {x.tolist()} != {y.tolist()}")
+            continue
+        scale = float(y.abs().max())
+        err = float((x.double() - y.double()).abs().max())
+        rel = err / scale if scale > 0 else err
+        if rel > tol:
+            raise AssertionError(f"output {i}: relative difference {rel:.3e} > {tol:g}")
+        worst = max(worst, rel)
+    return worst, equal
+
+
 def max_state_err(a, b) -> float:
     """Largest |difference| of full-precision positions and velocities."""
     err = 0.0
@@ -657,7 +945,27 @@ class Smoke:
                 if "entry function" in line or "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}", file=sys.stderr)
         each = ", ".join(f"{n} {kernels.build_seconds(n):.2f} s" for n in names)
-        return f"built {each} in parallel (load total {total:.2f} s) for sm_90a"
+        # the launch shapes of the two register-tiled templates, their
+        # registers and spills (a cached library is compiled again for its
+        # -Xptxas -v output) and SASS instructions a pair
+        tiled = {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk}
+        logs = {name: kernels.build_log(name) for name in tiled}
+        again = {kernels.BUILD_DIR / "usage" / kernels._library_path(name)[1].name: name
+                 for name, log in logs.items() if not log}
+        for out, (log, _) in compile_libraries(
+                [(kernels._library_path(name)[0], out, ()) for out, name in again.items()]
+        ).items():
+            logs[again[out]] = log
+        shapes, spills = [], []
+        for name, mod in tiled.items():
+            spills.append(f"{name} 0 in {spill_free(name, logs[name])} entry functions")
+            recs = launch_record(mod._load(), name, logs[name],
+                                 sass(kernels._library_path(name)[1]))
+            for key, rec in recs.items():
+                self.kernels[key].update(rec)
+                shapes.append(describe_launch(key, rec))
+        return (f"built {each} in parallel (load total {total:.2f} s) for sm_90a; at "
+                f"N={N_MAIN}: " + "; ".join(shapes) + "; spill bytes: " + ", ".join(spills))
 
     # phase 3
     def check_forces(self) -> str:
@@ -817,15 +1125,17 @@ class Smoke:
                  f"B4 launches {fused_rollout.launches}")
         return line5, line6
 
-    def scene(self, n: int, radius: float, dead: int, seed_offset: int):
-        """Cluster positions and velocities with radii in [R/2, 3R/2] and
-        ``dead`` bodies at the end, parked far as make_state parks padding:
-        f32 tensors (pos, vel, mass, radius, alive) on the card."""
+    def scene(self, n: int, radius: float, dead: int, seed_offset: int,
+              cluster: bool = True):
+        """Cluster positions and velocities (Gaussian ones below N_MAIN or
+        without ``cluster``) with radii in [R/2, 3R/2] and ``dead`` bodies at
+        the end, parked far as make_state parks padding: f32 tensors (pos,
+        vel, mass, radius, alive) on the card."""
         from orbital_tpu_torch.engine.state import far_positions
 
         torch = self.torch
         rng = np.random.default_rng(self.seed + seed_offset)
-        if n == N_MAIN:
+        if n == N_MAIN and cluster:
             pos, vel, mass, _ = self.cluster()
             pos, vel = pos.copy(), vel.copy()
         else:
@@ -2597,60 +2907,165 @@ class Smoke:
                 f"{diff:.2e} <= {STATE_ATOL:g} | simulate(pallas_sym, hermite) 10 steps: B5 "
                 f"{b5} launches, B12 {b12_sim}")
 
-    # --parent
-    def check_parent(self, parent: str) -> str:
-        import ctypes
-        from pathlib import Path
+    # the five kernels of the two redesigned templates, for --sweep and --parent
+    TOLS = {"B1": (FORCE_RTOL, ENERGY_RTOL), "B2": (FORCE_RTOL, ENERGY_RTOL, 0),
+            "B3": (FORCE_RTOL, FORCE_RTOL), "B5": (FORCE_RTOL, JERK_RTOL, ENERGY_RTOL),
+            "B5D": (FORCE_RTOL, JERK_RTOL, ENERGY_RTOL, 0)}
 
+    def exact_calls(self, scene, eps2: float, pe: bool, plain: bool = False) -> dict:
+        """{key: (wrapper module, call)} of B1 and B2 (PE as ``pe``), B3 (on
+        coinciding tables; with PE, eps2 > 0 and N % 128 == 0 only), B5 and
+        B5 detect on ``scene``; with ``plain``, their plain versions."""
         from orbital_tpu_torch.ops import cuda_forces as cf
+        from orbital_tpu_torch.ops import cuda_jerk as cj
+
+        pos, vel, mass, rad, alive = scene
+        kw = dict(G=1.0, eps2=eps2)
+        sfx = "_plain" if plain else "_cuda"
+
+        def fn(mod, name):
+            return getattr(mod, name + sfx)
+
+        calls = {
+            "B1": (cf, lambda: fn(cf, "pairwise_acc")(pos, mass, alive, with_potential=pe,
+                                                       **kw)),
+            "B2": (cf, lambda: fn(cf, "pairwise_acc_detect")(pos, mass, rad, alive,
+                                                              with_potential=pe, **kw)),
+            "B5": (cj, lambda: fn(cj, "accel_jerk")(pos, vel, mass, alive, **kw)),
+            "B5D": (cj, lambda: fn(cj, "accel_jerk_detect")(pos, vel, mass, rad, alive, **kw)),
+        }
+        if pe and eps2 > 0 and pos.shape[0] % 128 == 0:
+            m_eff = mass * alive
+            calls["B3"] = (cf, lambda: fn(cf, "block_acc")(pos, pos, m_eff, **kw))
+        return calls
+
+    # --sweep
+    def sweep(self) -> str:
+        from orbital_tpu_torch.ops import cuda_forces, cuda_jerk
         from orbital_tpu_torch.utils import kernels
 
         torch = self.torch
-        src = Path(parent) / "orbital_tpu_torch" / "csrc" / "nbody_forces.cu"
-        out = kernels.BUILD_DIR / "parent" / "libnbody_forces.so"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out), str(src)],
-                       check=True, capture_output=True)
-        new, old = cf._load(), ctypes.CDLL(str(out))
-        for fn in ("nbody_forces", "nbody_forces_detect", "ot_error_string"):
-            getattr(old, fn).restype = getattr(new, fn).restype
-            getattr(old, fn).argtypes = getattr(new, fn).argtypes
+        mods = {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk}
+        pairs = {"nbody_forces": ("B1", "B2"), "nbody_jerk": ("B5", "B5D")}
+        jobs, variants = [], []
+        for name, shapes in SWEEP.items():
+            m = SWEEP_MACRO[name]
+            for k, q in shapes:
+                tag = f"k{k}q{q}"
+                out = kernels.BUILD_DIR / "sweep" / f"lib{name}-{tag}.so"
+                jobs.append((kernels.CSRC_DIR / f"{name}.cu", out,
+                             (f"-D{m}_K={k}", f"-D{m}_Q={q}")))
+                variants.append((name, tag, out))
+        t0 = time.perf_counter()
+        built = compile_libraries(jobs)
+        build_s = time.perf_counter() - t0
+        scenes = {n: self.scene(n, R_RICH, 7, seed_offset=17, cluster=False)
+                  for n in (N_MAIN, N_RAGGED)}
+        refs = {n: {k: c() for k, (_, c) in self.exact_calls(sc, EPS2, True, plain=True).items()}
+                for n, sc in scenes.items()}
+        torch.cuda.synchronize()
+        rows, timed = {}, {}
+        for name, tag, out in variants:
+            mod = mods[name]
+            lib = bind_like(out, mod._load(), LIB_FUNCS[name])
+            rec = launch_record(lib, name, built[out][0], sass(out))
+            worst = 0.0
+            base, det = pairs[name]
+            for n, sc in scenes.items():
+                calls = self.exact_calls(sc, EPS2, True)
+                outs = {k: on(mod, lib, c) for k, (m_, c) in calls.items() if m_ is mod}
+                for k, o in outs.items():
+                    worst = max(worst, held(o, refs[n][k], self.TOLS[k])[0])
+                if not all(torch.equal(x, y) for x, y in zip(outs[base], outs[det])):
+                    raise AssertionError(f"{name} {tag} at N={n}: {det} differs from {base}")
+            calls = self.exact_calls(scenes[N_MAIN], EPS2, pe=False)
+            for k in pairs[name]:
+                timed[f"{tag} {k}"] = (lambda m_, l_, c_: lambda: on(m_, l_, c_))(
+                    mod, lib, calls[k][1])
+            rows[f"{name} {tag}"] = {"launch": rec, "worst_vs_plain": worst}
+        times = {k: summary(v) for k, v in alternate_ms(timed, 10, repeats=4).items()}
+        for key, row in rows.items():
+            tag = key.split()[1]
+            row["ms"] = {k: times[f"{tag} {k}"] for k in pairs[key.split()[0]]}
+        print("perf_sweep " + json.dumps(rows), file=sys.stderr)
+        lines = []
+        for key, row in rows.items():
+            rec = next(iter(row["launch"].values()))
+            lines.append(f"{key}: " + ", ".join(
+                f"{k} {v['median']:.3f} ms (spread {v['spread']:.3f})"
+                for k, v in row["ms"].items())
+                + f", {rec['registers']} registers, {rec['spill_bytes']} spill bytes, "
+                f"{fmt(rec['sass_slots_per_pair'])} instructions a pair, vs plain "
+                f"{row['worst_vs_plain']:.2e}")
+        return (f"{len(variants)} launch shapes built in {build_s:.1f} s, each within the "
+                f"tolerances of the plain versions at N={N_MAIN} and {N_RAGGED} (7 dead, "
+                f"eps2 {EPS2:g}, PE on) with detect bit-equal and counts exact; N={N_MAIN} "
+                f"no PE, in turns: " + "; ".join(lines))
 
-        def on(lib, fn):
-            cf._lib = lib
-            try:
-                return fn()
-            finally:
-                cf._lib = new
+    # --parent
+    def check_parent(self, parent: str) -> str:
+        from pathlib import Path
 
-        pos, mass, alive = self.variant_scene(N_MAIN, 7, seed_offset=17)
-        radius = torch.full((N_MAIN,), R_RICH, dtype=torch.float32, device=self.dev)
-        equal, contacts = [], set()
+        from orbital_tpu_torch.ops import cuda_forces, cuda_jerk
+        from orbital_tpu_torch.utils import kernels
+
+        mods = {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk}
+        jobs = {name: (Path(parent) / "orbital_tpu_torch" / "csrc" / f"{name}.cu",
+                       kernels.BUILD_DIR / "parent" / f"lib{name}.so") for name in mods}
+        compile_libraries([(src, out, ()) for src, out in jobs.values()])
+        old = {mod: bind_like(jobs[name][1], mod._load(), LIB_FUNCS[name])
+               for name, mod in mods.items()}
+        scene = self.scene(N_MAIN, R_RICH, 7, seed_offset=17, cluster=False)
+        worst, equal, counts, cases = {}, {}, set(), 0
         for eps2 in (EPS2, 0.0):
             for pe in (True, False):
-                kw = dict(G=1.0, eps2=eps2, with_potential=pe)
-                for fn in (lambda: cf.pairwise_acc_cuda(pos, mass, alive, **kw),
-                           lambda: cf.pairwise_acc_detect_cuda(pos, mass, radius, alive,
-                                                               **kw)):
-                    a, b = on(old, fn), on(new, fn)
-                    equal.append(all(torch.equal(x, y) for x, y in zip(a, b)))
-                    if len(a) == 3:
-                        contacts.add(int(a[2]))
-        if not all(equal):
-            raise AssertionError(f"B1/B2 differ from the parent's build: {equal}")
-        kw = dict(G=1.0, eps2=EPS2)
-        times = {k: summary(v) for k, v in alternate_ms({
-            "parent": lambda: on(old, lambda: cf.pairwise_acc_cuda(
-                pos, mass, alive, with_potential=False, **kw)),
-            "this": lambda: cf.pairwise_acc_cuda(pos, mass, alive, with_potential=False, **kw),
-            "this_pe": lambda: cf.pairwise_acc_cuda(pos, mass, alive, **kw),
-            "parent_pe": lambda: on(old, lambda: cf.pairwise_acc_cuda(pos, mass, alive, **kw)),
-        }, 10, repeats=4).items()}
-        print("perf_parent " + json.dumps(times), file=sys.stderr)
-        return (f"B1 and B2 bit-equal to the build of {src} in {len(equal)} cases (N={N_MAIN}, "
-                f"7 dead, eps2 {EPS2:g} and 0, PE on and off; B2 counts {sorted(contacts)}); "
-                f"B1 in turns: " + ", ".join(f"{k} {v['median']:.3f} ms (spread "
-                                             f"{v['spread']:.3f})" for k, v in times.items()))
+                for k, (mod, call) in self.exact_calls(scene, eps2, pe).items():
+                    if k in ("B5", "B5D") and not pe:
+                        continue  # no PE switch: once for each eps2
+                    ref, out = on(mod, old[mod], call), call()
+                    rel, eq = held(out, ref, self.TOLS[k])
+                    worst[k] = max(worst.get(k, 0.0), rel)
+                    equal[k] = equal.get(k, True) and eq
+                    cases += 1
+                    if k in ("B2", "B5D"):
+                        counts.add(int(out[-1]))
+        calls = self.exact_calls(scene, EPS2, pe=False)
+        calls["B3"] = self.exact_calls(scene, EPS2, pe=True)["B3"]
+        fns = {}
+        for k, (mod, call) in calls.items():
+            fns[f"{k} parent"] = (lambda m_, l_, c_: lambda: on(m_, l_, c_))(mod, old[mod], call)
+            fns[k] = call
+        times = {k: summary(v) for k, v in alternate_ms(fns, 10, repeats=6).items()}
+        # instructions a pair of both builds, and the SM clock under each of
+        # this tree's kernels: the issue floor at the clock the card ran
+        slots = {"parent": {}, "this": {}}
+        for name in mods:
+            slots["parent"].update(sass_slots(name, sass(jobs[name][1])))
+            slots["this"].update(sass_slots(name, sass(kernels._library_path(name)[1])))
+        clocks = {k: clock_during(call) for k, (_, call) in calls.items()}
+        print("perf_parent " + json.dumps({"times": times, "slots": slots, "clocks": clocks}),
+              file=sys.stderr)
+        lines = []
+        for k in calls:
+            this, par = times[k], times[f"{k} parent"]
+            faster = max(this["runs"]) < min(par["runs"])
+            line = (f"{k} {'bit-equal' if equal[k] else 'not bit-equal'} (max rel diff "
+                    f"{worst[k]:.2e}), {this['median']:.3f} ms (spread {this['spread']:.3f}) "
+                    f"vs parent {par['median']:.3f} ({par['spread']:.3f}), "
+                    f"{par['median'] / this['median']:.2f}x, faster outside both spreads: "
+                    f"{'yes' if faster else 'no'}; instructions a pair "
+                    f"{fmt(slots['this'].get(k))} (parent {fmt(slots['parent'].get(k))})")
+            mhz, per_pair = clocks[k]["sm_mhz"], slots["this"].get(k)
+            if per_pair and not isinstance(mhz, str):
+                floor = 1e3 * per_pair * N_MAIN * N_MAIN / 32 / (528 * mhz * 1e6)
+                line += (f", SM clock {mhz:.0f} MHz at {clocks[k]['watts']:.0f} W: issue "
+                         f"floor {floor:.3f} ms ({100 * floor / this['median']:.0f}%)")
+            lines.append(line)
+        return (f"B1, B2, B3, B5 and B5 detect held against the build of {parent}'s sources "
+                f"in {cases} calls (N={N_MAIN}, 7 dead, eps2 {EPS2:g} and 0, PE on and "
+                f"off; within {FORCE_RTOL:g} / {JERK_RTOL:g} / {ENERGY_RTOL:g}, contact "
+                f"counts equal: {sorted(counts)}); in turns, 6 runs each (B1, B2 no PE; B3 "
+                f"PE): " + "; ".join(lines))
 
     # phase 29
     def variant_timings(self) -> str:
@@ -2726,8 +3141,11 @@ def main(argv=None) -> int:
                         help="unrecorded steps of the 65,536-body drift run")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", metavar="DIR",
-                        help="only hold B1 and B2 against DIR's nbody_forces.cu (phases 1, 2 "
-                             "and this check)")
+                        help="only hold B1, B2, B3, B5 and B5 detect against DIR's "
+                             "nbody_forces.cu and nbody_jerk.cu (phases 1, 2 and this check)")
+    parser.add_argument("--sweep", action="store_true",
+                        help="only build and time the launch shapes of SWEEP (phases 1, 2 "
+                             "and the sweep; with --parent, the parent check after it)")
     args = parser.parse_args(argv)
 
     import torch
@@ -2774,8 +3192,9 @@ def main(argv=None) -> int:
         ("28 variants main path", smoke.variants_main_path),
         ("29 variant timings", smoke.variant_timings),
     ]
-    if args.parent:
-        phases = phases[:2] + [("parent", lambda: smoke.check_parent(args.parent))]
+    if args.sweep or args.parent:
+        phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (
+            [("parent", lambda: smoke.check_parent(args.parent))] if args.parent else [])
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -2789,7 +3208,7 @@ def main(argv=None) -> int:
             label = name if len(results) == 1 else name.split()[0].split("+")[i]
             print(f"phase {label}: {line} [{time.perf_counter() - t0:.1f} s]", flush=True)
 
-    if not args.parent:
+    if not (args.sweep or args.parent):
         print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

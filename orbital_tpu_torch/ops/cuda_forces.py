@@ -11,12 +11,14 @@ kernel over separate i and j tables (``block_acc_pallas``, the per-round
 block of the multi-device ring): acc and the pe row of block j on block i,
 the i == j term kept.
 
-The kernel is arithmetic-bound (~20 flops and one rsqrtf per pair; see the
-note at the top of the source): one thread per i body, j streamed through
-shared memory in float4 tiles, sums in registers, the ragged last tile cut
-in the kernel. The bookkeeping stays here, as in the JAX wrapper: the alive
-mask, the analytic self-PE subtraction m_i/eps (the kernel masks nothing
-when eps2 > 0) and U = -1/2 G sum m pe.
+The kernel is bound by instruction issue (~14.5 warp instructions and one
+MUFU.RSQ a pair; see the note at the top of the source): four i bodies a
+thread, the j range split across the 16 warps of a block, each warp
+streaming its slice through its own shared float4 tiles, the slices' sums
+added in a fixed order, the ragged last tile cut in the kernel. The
+bookkeeping stays here, as in the JAX wrapper: the alive mask, the
+analytic self-PE subtraction m_i/eps (the kernel masks nothing when
+eps2 > 0) and U = -1/2 G sum m pe.
 
 For CPU tensors the wrappers compute the plain versions,
 ``ops.forces.pairwise_acc_chunked`` (plus ``ops.collisions.

@@ -11,8 +11,10 @@ is the row-subset sweep of the block-timestep steppers (``ops.forces.
 accel_jerk_subset``'s contract: acc and jerk on F target rows from all N
 sources).
 
-The kernel is arithmetic-bound (42 flops and one rsqrtf per pair; see the
-note at the top of the source). The bookkeeping stays here, as in the JAX
+The kernel is bound by instruction issue (~30.6 warp instructions and one
+MUFU.RSQ a pair; see the note at the top of the source): two i bodies a
+thread, the j range split across the 8 warps of a block, the slices' sums
+added in a fixed order. The bookkeeping stays here, as in the JAX
 wrappers: the alive mask, the analytic self-PE subtraction m_i/eps (the
 kernel masks nothing when eps2 > 0) and U = -1/2 G sum m pe; the subset
 kernel's per-split partials are summed with one ``torch.sum``.

@@ -143,6 +143,140 @@ def test_kernel_library_name_tracks_source_and_flags(monkeypatch):
     assert kernels._library_path("nbody_forces")[1] != lib
 
 
+def test_compile_libraries_passes_extra_flags(tmp_path, monkeypatch):
+    """Each job gets its own nvcc with the build flags and its extra flags,
+    and its library lands under the name asked for."""
+    import chip_smoke
+    from orbital_tpu_torch.utils import kernels
+
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text('#!/bin/sh\necho "$@"\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    src = kernels.CSRC_DIR / "nbody_forces.cu"
+    outs = [tmp_path / "v" / f"lib{k}.so" for k in (1, 4)]
+    done = chip_smoke.compile_libraries([(src, out, (f"-DOT_FORCES_K={k}",))
+                                         for out, k in zip(outs, (1, 4))])
+    for out, k in zip(outs, (1, 4)):
+        log, seconds = done[out]
+        assert out.is_file() and seconds >= 0.0
+        assert "arch=compute_90a,code=sm_90a" in log and f"-DOT_FORCES_K={k}" in log
+    assert chip_smoke.sass(outs[0]) == ""  # no cuobjdump beside this nvcc
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    import chip_smoke
+
+    log = """ptxas info    : Compiling entry function '_Z3fooILb1EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooILb1EEvv
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 93 registers, used 1 barriers, 16384 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 400 bytes cmem[0]
+"""
+    assert chip_smoke.ptxas_usage(log) == {"_Z3fooILb1EEvv": (93, 8, 4), "_Z3barv": (40, 0, 0)}
+
+
+def test_inner_loop_counts_warp_instructions_a_pair():
+    """The innermost loop with the most MUFU.RSQ, its instructions over
+    them, in cuobjdump's form (address targets) and nvdisasm's (labels)."""
+    import chip_smoke
+
+    sass = """
+\tcode for sm_90a
+\t\tFunction : _Z6sweepv
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;      /* 0x00000a00ff017b82 */
+                                                               /* 0x000fe40000000800 */
+        /*0010*/                   FADD R2, R3, -R4 ;
+        /*0020*/                   MUFU.RSQ R5, R2 ;
+        /*0030*/                   FFMA R6, R5, R5, R6 ;
+        /*0040*/                   MUFU.RSQ R7, R2 ;
+        /*0050*/              @P0 BRA 0x10 ;
+        /*0060*/                   MUFU.RSQ R7, R2 ;
+        /*0070*/              @P1 BRA 0x60 ;
+        /*0080*/                   BRA 0x0 ;
+        /*0090*/                   EXIT ;
+\t\tFunction : _Z4tailv
+.L_x_1:
+        /*0000*/                   LDS.128 R8, [R2] ;
+        /*0010*/                   MUFU.RSQ R5, R2 ;
+        /*0020*/                   FADD R2, R3, R4 ;
+        /*0030*/              @!P1 BRA `(.L_x_1) ;
+        /*0040*/                   EXIT ;
+\t\tFunction : _Z4nonev
+        /*0000*/                   EXIT ;
+"""
+    assert chip_smoke.inner_loop(sass) == {"_Z6sweepv": (5, 2), "_Z4tailv": (4, 1)}
+
+
+def _ptxas_log(stems, spill=0):
+    return "".join(
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{stem}EEvv' for "
+        f"'sm_90a'\n    0 bytes stack frame, {spill} bytes spill stores, 0 bytes spill "
+        f"loads\nptxas info    : Used 93 registers, used 1 barriers\n" for stem in stems)
+
+
+def test_launch_record_requires_each_instantiation():
+    """Phase 2's record of a template: the shape its C function reports,
+    registers and spills of each instantiation; an instantiation missing
+    from the ptxas output, or from SASS that was read, raises."""
+    import types
+
+    import chip_smoke
+
+    def shape(n, arr):
+        for i, v in enumerate((4, 16, 128, 512, (n + 127) // 128)):
+            arr[i] = v
+
+    lib = types.SimpleNamespace(nbody_forces_shape=shape)
+    stems = chip_smoke.SHAPED["nbody_forces"][1]
+    log = _ptxas_log(stems.values())
+    recs = chip_smoke.launch_record(lib, "nbody_forces", log, "", n=5000)
+    assert sorted(recs) == ["B1", "B2", "B3"]
+    assert recs["B2"] == {"shape": {"k": 4, "q": 16, "tile": 128, "threads": 512, "blocks": 40},
+                          "registers": 93, "spill_bytes": 0,
+                          "sass_slots_per_pair": "not measured"}
+    with pytest.raises(AssertionError, match="B2: no entry function"):
+        chip_smoke.launch_record(lib, "nbody_forces",
+                                 _ptxas_log(v for k, v in stems.items() if k != "B2"), "")
+    with pytest.raises(AssertionError, match="B1: no loop with MUFU.RSQ"):
+        chip_smoke.launch_record(lib, "nbody_forces", log, "\t\tFunction : _Z3foov\n")
+
+
+def test_spill_free_raises_on_spills_or_no_output():
+    import chip_smoke
+
+    assert chip_smoke.spill_free("nbody_jerk", _ptxas_log(["a", "b"])) == 2
+    with pytest.raises(AssertionError, match="spill bytes"):
+        chip_smoke.spill_free("nbody_jerk", _ptxas_log(["a"]) + _ptxas_log(["b"], spill=8))
+    with pytest.raises(AssertionError, match="not in the ptxas output"):
+        chip_smoke.spill_free("nbody_jerk", "")
+
+
+def test_held_gates_each_output():
+    """chip_smoke's comparison of two calls' outputs: relative to the
+    reference's max, scalars relative to themselves, integers exact."""
+    import chip_smoke
+
+    acc = torch.tensor([[1.0, -2.0, 0.5]])
+    U, count = torch.tensor(-3.0), torch.tensor(7, dtype=torch.int32)
+    assert chip_smoke.held((acc, U, count), (acc, U, count), (1e-5, 1e-5, 0)) == (0.0, True)
+    near = acc + torch.tensor([[0.0, 1e-6, 0.0]])
+    worst, equal = chip_smoke.held((near, U), (acc, U), (1e-5, 1e-5))
+    assert worst == pytest.approx(5e-7, rel=0.1) and not equal
+    with pytest.raises(AssertionError, match="output 0"):
+        chip_smoke.held((acc * 1.001, U), (acc, U), (1e-5, 1e-5))
+    with pytest.raises(AssertionError, match="output 1"):
+        chip_smoke.held((acc, U * 1.001), (acc, U), (1e-5, 1e-5))
+    with pytest.raises(AssertionError, match="output 2"):
+        chip_smoke.held((acc, U, count + 1), (acc, U, count), (1e-5, 1e-5, 0))
+
+
 def test_diagnostics_match_jax(rng):
     pos, mass, _ = _cluster(rng, 64, np.float64)
     vel = rng.normal(size=(64, 3))
