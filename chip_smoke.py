@@ -6,24 +6,27 @@
 
 With ``--parent DIR`` (a checkout of another commit, e.g. unpacked by
 ``git archive``) it runs phases 1-2 and then only holds B1, B2, B3 (on
-coinciding tables), B5 and B5 detect of this tree against those built from
-DIR's ``csrc/nbody_forces.cu`` and ``csrc/nbody_jerk.cu`` (N = 65,536, 7
-dead, eps2 1e-4 and 0, PE on and off) within FORCE_RTOL, JERK_RTOL and
-ENERGY_RTOL with equal contact counts, says whether each is bit-equal, and
-times both trees' five kernels in turns. With ``--sweep`` it runs phases
-1-2 and then builds the launch shapes of ``SWEEP`` (``-D`` overrides of the
-two templates' shape macros), holds each against the plain versions and
-times them in turns, with the registers, spills and SASS instructions a
-pair of each.
+coinciding tables), B5, B5 detect, B13 and B6 of this tree against those
+built from DIR's ``csrc/nbody_forces.cu``, ``nbody_jerk.cu``,
+``nbody_forces_mxu.cu`` and ``collisions.cu`` (N = 65,536, 7 dead, eps2
+1e-4 and 0, PE on and off) within FORCE_RTOL, JERK_RTOL and ENERGY_RTOL
+with equal contact counts, B13 by the Gram gates and B6 within BOUNCE_RTOL
+with the gated B6 bit-equal to the ungated, says whether each is
+bit-equal, and times both trees' kernels in turns. With ``--sweep`` it runs
+phases 1-2 and then builds the launch shapes of ``SWEEP`` (``-D`` overrides
+of the four sources' shape macros), holds each
+against the plain versions and times them in turns, with the registers,
+spills and SASS instructions a pair of each.
 
 Phases, one line of output each; any failure exits nonzero:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``orbital_tpu_torch/csrc``, one nvcc per
      source, all at once; the launch shape, registers, spills and SASS
-     instructions a pair (``cuobjdump -sass``) of B1, B2, B3, B5 and B5
-     detect, and the issue floor they imply at 528 warp instructions a
-     clock and 1.98 GHz;
+     instructions a pair (``cuobjdump -sass``) of B1, B2, B3, B5, B5
+     detect, B13 (with the TF32 HMMA of its inner loop, which must be
+     there) and B6, and the issue floor they imply at 528 warp
+     instructions a clock and 1.98 GHz;
   3. the force kernel (B1) against its plain PyTorch version at N = 65536
      and a ragged N = 5000, PE on/off, eps2 > 0 and = 0, and the ds32 step
      at N = 8192 against the same step on plain forces;
@@ -38,7 +41,8 @@ Phases, one line of output each; any failure exits nonzero:
      forces plus the chunked contact count) at N = 65536 and 5000 with dead
      bodies parked far, and against B1 bit for bit;
   8. the bounce kernel (B6) against its plain version at N = 65536 on the
-     contact-rich cluster, and its skip on a zero count;
+     contact-rich cluster and at a ragged N = 5000 (a third dead), and its
+     skip on a zero count;
   9. the collision main path, bench row: the same cluster with radius 1e-4
      and ``collisions="bounce"`` through ``init_forces`` -> a recorded and an
      unrecorded ``rollout``: no contacts, the drift budget, and a final state
@@ -101,8 +105,10 @@ Phases, one line of output each; any failure exits nonzero:
      128, a third of the bodies dead and parked far): U = 0, dead rows 0;
      eps2 = 0 and N = 5,000 raise ValueError;
  26. the Gram kernel (B13) against its plain version at the same sizes with
-     PE on and off, on its own outputs (the sums S and pe; both form r2 in
-     one rounding order), its PE-off sums and acc bit-equal to the PE-on
+     PE on and off, on its own outputs (pe by the Gram gates, S against
+     the exact S within GRAM_S_RTOL and GRAM_MAX_RTOL: the kernel forms r2
+     on the tensor cores), its PE-off sums and
+     acc bit-equal to the PE-on
      ones; its accelerations against the plain version's in RMS, and they
      and the "mxu" route's against the exact f64 sum in RMS and in max (the
      Gram identity's error sits on close pairs), "mxu" also against its
@@ -203,6 +209,8 @@ RICH_CHECK_STEPS = 3
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_RSQRT = 16 * 132 * 1.98e9
+# dense TF32 on the tensor cores (NVIDIA's data sheet, H100 SXM)
+PEAK_TF32 = 495e12
 # f32 operations per pair, counted from the sources: B1 no-PE 3 differences,
 # r2 (5), + eps2, inv_r^3 (2), m_j * (1), three multiply-adds (6); B2 adds
 # (R_i + R_j) * 1.00001 and its square (3); B6 rejects a pair after the 3
@@ -265,10 +273,17 @@ OPS_TREE = 20
 # the exact-force variants (phases 25-29). B12 per unordered pair
 # (csrc/nbody_forces_sym.cu): 3 differences, r2 (5), + eps2, inv^3 (2), the
 # two weights (2), three i-side and three j-side multiply-adds (12): 25 and
-# one rsqrt. B13 per ordered pair (csrc/nbody_forces_mxu.cu): the dot's five
-# nonzero terms (7), the clamp, + eps2, inv^3 (2), w (1), three multiply-adds
-# and the row sum (7): 20 and one rsqrt; PE adds m inv and its sum (2).
-OPS_B12, OPS_B13, OPS_B13_PE, OPS_B1_PE = 25, 20, 22, 20
+# one rsqrt. B13 per ordered pair (csrc/nbody_forces_mxu.cu): its dot
+# (8 deep) and its sums (4 columns) are the function's matrix products, 24
+# flops on the tensor cores at the TF32 rate (as the TPU kernel puts them on
+# its matrix unit); what must stay on the CUDA cores is the weight: the
+# clamp, + eps2, inv^2, m inv and w (5) and one rsqrt, which sets the bound
+# (1.027 ms at 65,536); PE adds the sum of m inv (1). Counted as B1 is,
+# every flop on the CUDA cores (the dot's five nonzero terms (7), the
+# weight (5), three multiply-adds and the row sum (7)), it was 20 and 22,
+# a 1.282 ms bound; phase 29 prints both.
+OPS_B12, OPS_B13, OPS_B13_PE, OPS_B1_PE = 25, 5, 6, 20
+TENSOR_B13, OPS_B13_ALL_CUDA = 24, 20
 # The Gram forms' accelerations, RMS |d acc| / RMS |acc|: B13's against its
 # plain version and the exact f64 sum, the "mxu" route's against its formula
 # in f64. The Gram identity cancels |r_i|^2 + |r_j|^2 - 2 r_i.r_j in f32, so
@@ -279,14 +294,33 @@ OPS_B12, OPS_B13, OPS_B13_PE, OPS_B1_PE = 25, 20, 22, 20
 # of S part by ~1e-3 in max, while the RMS is 5.5e-5 (B13) and 6.7e-5
 # ("mxu"; phase 26 prints both, on an H100 80GB HBM3 at 700 W). 5e-4 is
 # ~10x that RMS, as FORCE_RTOL is ~10x B1's distance from f64, and the JAX
-# package's bound for the formula (tests/test_pallas_forces.py:413). The
-# kernel's own outputs, S and pe, are held to FORCE_RTOL in max (the two
-# form r2 in one rounding order).
+# package's bound for the formula (tests/test_pallas_forces.py:413).
+# The kernel's own outputs, S and pe (gram_held): they were held to the
+# plain version within FORCE_RTOL in max while both formed r2 in one fixed
+# rounding order. The kernel now forms r2 on the tensor cores from a
+# 3-piece TF32 split, an order of its own as the TPU kernel's is, and on
+# close pairs one ulp of r2 moves a weight by ~|r|^2 2^-24 / eps2. So pe is
+# held to the plain version within GRAM_RTOL in RMS and GRAM_MAX_RTOL in
+# max. S is dominated by those close-pair rows (a weight of ~m / eps^3
+# against ~m a far pair): on the 65,536-body scene the plain version's own
+# S is 8.2e-4 from the exact S in RMS and 4.5e-3 in max (the kernel's
+# 2.5e-4 and 9.4e-4), and the two part by 8.3e-4 in RMS (H100 80GB HBM3 at
+# 700 W), so no other rounding of r2 can meet the Gram gates against it.
+# S is held to the exact S of the same packed rows (f64) instead, within
+# GRAM_S_RTOL in RMS and GRAM_MAX_RTOL in max (gram_held). Phase 26 prints
+# the kernel S against the plain S, and whether S and pe still sit within
+# FORCE_RTOL.
 GRAM_RTOL = 5e-4
 # and in max against the exact f64 sum, both Gram forms: the few close-pair
 # bodies above read 1.64e-3 (B13) and 2.72e-3 ("mxu") of max |acc| at
 # N = 65,536 (phase 26, H100 80GB HBM3 at 700 W); 5e-3 is ~2x the larger.
 GRAM_MAX_RTOL = 5e-3
+# B13's S against the exact S of its packed rows, in RMS (and GRAM_MAX_RTOL
+# in max). On the 65,536-body scene (phase 26, H100 80GB HBM3 at 700 W) the
+# kernel's 3-piece TF32 r2 reads 2.51e-4 RMS and 9.39e-4 max; a 2-piece
+# r2 (hh, hm, mh), which keeps fewer bits, read 1.87e-3 and 2.16e-2. 1e-3
+# is 4x the first and below the second.
+GRAM_S_RTOL = 1e-3
 # the ragged size of phases 25-26: 39 tiles of 128, a third dead; the block
 # sizes of phase 27; the "mxu" route's timed steps
 N_VAR_RAGGED = 4992
@@ -296,29 +330,43 @@ MXU_STEPS = 200
 # warp instructions the card issues a second: 4 schedulers on each of 132
 # SMs at the 1.98 GHz boost clock (NVIDIA's data sheet, H100 SXM)
 INSTR_RATE = 528 * 1.98e9
-# the instantiations of the two redesigned templates that each record
+# the instantiations of the four register-tiled kernels that each record
 # reads (mangled-name stems: nbody_forces_kernel<kPE, kSoft, kDetect>,
-# jerk_kernel<kSoft, kDetect>), the C function that reports the launch
-# shape and the functions a library of each source exports
+# jerk_kernel<kSoft, kDetect>, gram_kernel<kPE>, bounce_kernel), the C
+# function that reports the launch shape, the SASS instruction that marks
+# one pair in the inner loop (MUFU.RSQ on the softened sweeps; B6 rejects a
+# pair with one FMNMX, its parent's build with one FSETP) and the functions
+# a library of each source exports
 SHAPED = {
     "nbody_forces": ("nbody_forces_shape", {
         "B1": "nbody_forces_kernelILb0ELb1ELb0E", "B2": "nbody_forces_kernelILb0ELb1ELb1E",
-        "B3": "nbody_forces_kernelILb1ELb1ELb0E"}),
+        "B3": "nbody_forces_kernelILb1ELb1ELb0E"}, r"MUFU\.RSQ"),
     "nbody_jerk": ("nbody_jerk_shape", {
-        "B5": "jerk_kernelILb1ELb0E", "B5D": "jerk_kernelILb1ELb1E"}),
+        "B5": "jerk_kernelILb1ELb0E", "B5D": "jerk_kernelILb1ELb1E"}, r"MUFU\.RSQ"),
+    "nbody_forces_mxu": ("nbody_forces_mxu_shape", {"B13": "gram_kernelILb0E"},
+                         r"MUFU\.RSQ"),
+    "collisions": ("bounce_deltas_shape", {"B6": "bounce_kernel"}, r"\bFMNMX\b|\bFSETP\b"),
 }
 LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_block_forces",
                               "ot_error_string"),
              "nbody_jerk": ("nbody_jerk", "nbody_jerk_detect", "nbody_jerk_subset",
-                            "ot_error_string")}
-# --sweep: the launch shapes built with -D (i bodies a thread, warps a
-# block); the first of each is the first version's summation order with the
-# one-MUFU rsqrt
+                            "ot_error_string"),
+             "nbody_forces_mxu": ("nbody_forces_mxu", "ot_error_string"),
+             "collisions": ("bounce_deltas", "ot_error_string")}
+# the sources whose inner loop must hold tensor-core products (TF32 HMMA)
+TENSOR_CORE = {"nbody_forces_mxu": r"\bHMMA\.\S*TF32"}
+# --sweep: the launch shapes built with -D (i bodies or m16 tiles a thread
+# or warp, warps a block); the first of B1's and B5's is the first
+# version's summation order with the one-MUFU rsqrt, the first of B6's the
+# first version's shape
 SWEEP = {
     "nbody_forces": ((1, 1), (2, 8), (4, 4), (4, 8), (4, 16), (8, 4), (8, 8)),
     "nbody_jerk": ((1, 1), (2, 4), (2, 8), (3, 8), (4, 4), (4, 8)),
+    "nbody_forces_mxu": ((1, 4), (2, 4), (2, 8), (4, 2), (4, 4), (4, 8)),
+    "collisions": ((1, 4), (2, 4), (2, 8), (4, 4), (4, 8)),
 }
-SWEEP_MACRO = {"nbody_forces": "OT_FORCES", "nbody_jerk": "OT_JERK"}
+SWEEP_MACRO = {"nbody_forces": "OT_FORCES", "nbody_jerk": "OT_JERK",
+               "nbody_forces_mxu": "OT_MXU", "collisions": "OT_BOUNCE"}
 
 B1 = dict(name="nbody_forces", route="cuda",
           source="orbital_tpu_torch/csrc/nbody_forces.cu",
@@ -360,10 +408,12 @@ B3 = dict(name="nbody_block_forces", route="cuda",
           replaces="orbital_tpu/ops/pallas_forces.py:221")
 
 
-def bound(flops: float, nbytes: float, rsqrt: float = 0.0) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, rsqrt: float = 0.0,
+          tensor: float = 0.0) -> tuple[float, str]:
     """Least milliseconds the card could take: the larger of the operations
-    over their peak rate and the bytes over the memory rate."""
-    t_ops = max(flops / PEAK_F32, rsqrt / PEAK_RSQRT)
+    over their peak rate (f32 on the CUDA cores, rsqrt, TF32 flops on the
+    tensor cores) and the bytes over the memory rate."""
+    t_ops = max(flops / PEAK_F32, rsqrt / PEAK_RSQRT, tensor / PEAK_TF32)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -713,11 +763,10 @@ def sass(library) -> str:
                           check=True).stdout
 
 
-def inner_loop(text: str) -> dict:
-    """``{function: (instructions, MUFU.RSQ count)}`` of the innermost loop
-    of each function in SASS ``text`` that holds the most MUFU.RSQ (and of
-    those, the fewest instructions a MUFU.RSQ): with one MUFU.RSQ a pair,
-    instructions / count is the warp instructions a pair. A loop is
+def loop_bodies(text: str, marker: str = r"MUFU\.RSQ") -> dict:
+    """``{function: [instruction, ...]}``: the innermost loop of each
+    function in SASS ``text`` that holds the most instructions matching
+    ``marker`` (and of those, the fewest instructions a marker). A loop is
     the span from a backward branch's target to the branch; branch targets
     are addresses (``cuobjdump``) or ``.L_x_`` labels (``nvdisasm``)."""
     out = {}
@@ -750,25 +799,47 @@ def inner_loop(text: str) -> dict:
         best = None
         for start, end in inner:
             body = [op for a, op in insts if start <= a <= end]
-            count = sum("MUFU.RSQ" in op for op in body)
+            count = sum(bool(re.search(marker, op)) for op in body)
             if count and (best is None or (-count, len(body) / count)
-                          < (-best[1], best[0] / best[1])):
-                best = (len(body), count)
+                          < (-best[1], len(best[0]) / best[1])):
+                best = (body, count)
         if best is not None:
-            out[name] = best
+            out[name] = best[0]
     return out
+
+
+def inner_loop(text: str, marker: str = r"MUFU\.RSQ") -> dict:
+    """``{function: (instructions, marker count)}`` of :func:`loop_bodies`:
+    with one marker a pair (MUFU.RSQ on the softened sweeps), instructions
+    / count is the warp instructions a pair."""
+    return {f: (len(body), sum(bool(re.search(marker, op)) for op in body))
+            for f, body in loop_bodies(text, marker).items()}
 
 
 def sass_slots(name: str, sass_text: str) -> dict:
     """{record key: warp instructions a pair} of the instantiations of
-    ``name`` that SHAPED lists: the innermost loop with the most MUFU.RSQ
-    over their count (one a pair on the softened path)."""
-    loops = inner_loop(sass_text)
+    ``name`` that SHAPED lists: the inner loop's instructions over its count
+    of the pair marker SHAPED gives (one a pair)."""
+    _, stems, marker = SHAPED[name]
+    loops = inner_loop(sass_text, marker)
     out = {}
-    for key, stem in SHAPED[name][1].items():
+    for key, stem in stems.items():
         loop = next((v for f, v in loops.items() if stem in f), None)
         if loop:
             out[key] = loop[0] / loop[1]
+    return out
+
+
+def tensor_ops(name: str, sass_text: str) -> dict:
+    """{record key: TF32 HMMA instructions in the inner loop} of the
+    instantiations of ``name`` (a TENSOR_CORE source) that SHAPED lists."""
+    _, stems, marker = SHAPED[name]
+    bodies = loop_bodies(sass_text, marker)
+    out = {}
+    for key, stem in stems.items():
+        body = next((v for f, v in bodies.items() if stem in f), None)
+        if body is not None:
+            out[key] = sum(bool(re.search(TENSOR_CORE[name], op)) for op in body)
     return out
 
 
@@ -806,27 +877,36 @@ def clock_during(fn, seconds: float = 2.0) -> dict:
 def launch_record(lib, name: str, log: str, sass_text: str, n: int = N_MAIN) -> dict:
     """{record key: launch shape at n bodies, registers and spill bytes (from
     nvcc's -Xptxas -v output ``log``) and warp instructions a pair (the
-    innermost loop of ``sass_text`` over its MUFU.RSQ count)}. Raises if an
+    innermost loop of ``sass_text`` over its pair markers; for a TENSOR_CORE
+    source also the TF32 HMMA instructions of that loop)}. Raises if an
     instantiation SHAPED lists is missing from ``log``, or from
-    ``sass_text`` unless that is empty (no ``cuobjdump``)."""
+    ``sass_text`` unless that is empty (no ``cuobjdump``), or if a
+    TENSOR_CORE source's inner loop holds no TF32 HMMA."""
     import ctypes
 
-    shape_fn, stems = SHAPED[name]
+    shape_fn, stems, _ = SHAPED[name]
     fn = getattr(lib, shape_fn)
     fn.restype, fn.argtypes = None, [ctypes.c_int, ctypes.c_void_p]
     arr = (ctypes.c_int * 5)()
     fn(n, arr)
     shape = dict(zip(("k", "q", "tile", "threads", "blocks"), list(arr)))
     usage, per_pair = ptxas_usage(log), sass_slots(name, sass_text)
+    hmma = tensor_ops(name, sass_text) if name in TENSOR_CORE else {}
     out = {}
     for key, stem in stems.items():
         regs = next((v for f, v in usage.items() if stem in f), None)
         if regs is None:
             raise AssertionError(f"{key}: no entry function *{stem}* in the ptxas output")
         if sass_text and key not in per_pair:
-            raise AssertionError(f"{key}: no loop with MUFU.RSQ in *{stem}* in the SASS")
+            marker = SHAPED[name][2].replace("\\b", "").replace("\\", "")
+            raise AssertionError(f"{key}: no loop with {marker} in *{stem}* in the SASS")
         out[key] = {"shape": shape, "registers": regs[0], "spill_bytes": regs[1] + regs[2],
                     "sass_slots_per_pair": per_pair.get(key, "not measured")}
+        if name in TENSOR_CORE:
+            if sass_text and not hmma.get(key):
+                raise AssertionError(f"{key}: no TF32 HMMA in the inner loop of *{stem}*: "
+                                     f"the tensor cores are not in use")
+            out[key]["tf32_hmma_in_loop"] = hmma.get(key, "not measured")
     return out
 
 
@@ -849,10 +929,12 @@ def describe_launch(key: str, rec: dict, n: int = N_MAIN) -> str:
     implies at n bodies, 528 schedulers and the 1.98 GHz boost clock."""
     sh, slots = rec["shape"], rec["sass_slots_per_pair"]
     floor = None if isinstance(slots, str) else 1e3 * slots * n * n / 32 / INSTR_RATE
+    hmma = (f", {rec['tf32_hmma_in_loop']} TF32 HMMA in the inner loop"
+            if "tf32_hmma_in_loop" in rec else "")
     return (f"{key} k={sh['k']} q={sh['q']} tile={sh['tile']} ({sh['threads']} threads x "
             f"{sh['blocks']} blocks), {rec['registers']} registers, {rec['spill_bytes']} "
             f"spill bytes, {fmt(slots)} SASS instructions a pair (issue floor "
-            f"{fmt(floor, 3, ' ms')})")
+            f"{fmt(floor, 3, ' ms')}){hmma}")
 
 
 def held(out, ref, tols) -> tuple[float, bool]:
@@ -874,6 +956,35 @@ def held(out, ref, tols) -> tuple[float, bool]:
             raise AssertionError(f"output {i}: relative difference {rel:.3e} > {tol:g}")
         worst = max(worst, rel)
     return worst, equal
+
+
+def gram_held(out, ref, s64) -> float:
+    """B13's outputs (S, and pe with PE) against a reference build's or its
+    plain version's ``ref``: S within GRAM_S_RTOL in RMS and GRAM_MAX_RTOL
+    in max of ``s64``, the exact S of the same packed rows (f64); pe within
+    GRAM_RTOL in RMS and GRAM_MAX_RTOL in max of ``ref``'s. Raises where
+    one fails; returns the worst max difference from ``ref``."""
+    import torch
+
+    worst = 0.0
+    for i, (x, y) in enumerate(zip(out, ref)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"B13 output {i} is not finite")
+        worst = max(worst, float((x.double() - y.double()).abs().max()) / float(y.abs().max()))
+    S = out[0]
+    r_rms = rms_rel(S, s64)
+    r_max = float((S.double() - s64).abs().max()) / float(s64.abs().max())
+    if r_rms > GRAM_S_RTOL or r_max > GRAM_MAX_RTOL:
+        raise AssertionError(f"B13 S vs the exact S: RMS {r_rms:.3e}, max {r_max:.3e} > "
+                             f"{GRAM_S_RTOL:g}, {GRAM_MAX_RTOL:g}")
+    if len(out) > 1:
+        pe, pe0 = out[1], ref[1]
+        p_rms = rms_rel(pe, pe0)
+        p_max = float((pe.double() - pe0.double()).abs().max()) / float(pe0.abs().max())
+        if p_rms > GRAM_RTOL or p_max > GRAM_MAX_RTOL:
+            raise AssertionError(f"B13 pe: RMS difference {p_rms:.3e}, max {p_max:.3e} > "
+                                 f"{GRAM_RTOL:g}, {GRAM_MAX_RTOL:g}")
+    return worst
 
 
 def max_state_err(a, b) -> float:
@@ -945,10 +1056,11 @@ class Smoke:
                 if "entry function" in line or "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}", file=sys.stderr)
         each = ", ".join(f"{n} {kernels.build_seconds(n):.2f} s" for n in names)
-        # the launch shapes of the two register-tiled templates, their
+        # the launch shapes of the four register-tiled kernels, their
         # registers and spills (a cached library is compiled again for its
-        # -Xptxas -v output) and SASS instructions a pair
-        tiled = {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk}
+        # -Xptxas -v output), SASS instructions a pair and B13's TF32 HMMA
+        tiled = {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk,
+                 "nbody_forces_mxu": cuda_forces_mxu, "collisions": cuda_collisions}
         logs = {name: kernels.build_log(name) for name in tiled}
         again = {kernels.BUILD_DIR / "usage" / kernels._library_path(name)[1].name: name
                  for name, log in logs.items() if not log}
@@ -1207,44 +1319,53 @@ class Smoke:
         from orbital_tpu_torch.ops.cuda_collisions import bounce_deltas_cuda
         from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_detect_cuda
 
-        pos, vel, mass, rad, alive = self.scene(N_MAIN, R_RICH, 7, seed_offset=5)
-        _, _, count = pairwise_acc_detect_cuda(pos, mass, rad, alive, G=1.0, eps2=EPS2,
-                                               with_potential=False)
-        dp, dv = bounce_deltas_cuda(pos, vel, mass, rad, alive, restitution=0.8)
-        dp_c, dv_c = bounce_deltas_cuda(pos, vel, mass, rad, alive, restitution=0.8,
-                                        contacts=count)
-        zero = torch.zeros((), dtype=torch.int32, device=self.dev)
-        dp_z, dv_z = bounce_deltas_cuda(pos, vel, mass, rad, alive, restitution=0.8,
-                                        contacts=zero)
-        dp0, dv0 = bounce_deltas_chunked(pos, vel, mass, rad, alive, restitution=0.8)
-        torch.cuda.synchronize()
-        touched = int((dv0.abs().amax(1) > 0).sum())
-        if int(count) <= 0 or touched == 0:
-            raise AssertionError(f"no contacts in the contact-rich scene ({int(count)})")
-        err_v = float((dv - dv0).abs().max())
-        err_p = float((dp - dp0).abs().max())
-        rel_v, rel_p = err_v / float(dv0.abs().max()), err_p / float(dp0.abs().max())
-        if rel_v > BOUNCE_RTOL or rel_p > BOUNCE_RTOL:
-            raise AssertionError(f"B6 vs plain: max|d dv|/max|dv| = {rel_v:.3e}, "
-                                 f"max|d dp|/max|dp| = {rel_p:.3e}")
-        dead = ~alive
-        if bool(dv[dead].any()) or bool(dp[dead].any()):
-            raise AssertionError("B6 dead rows not exactly 0")
-        m = mass.double()[:, None]
-        p_sum = float((m * dv.double()).sum(0).abs().max())
-        p_abs = float((m * dv.double().abs()).sum())
-        if p_sum > 1e-5 * p_abs:
-            raise AssertionError(f"B6 momentum: |sum m dv| = {p_sum:.3e} against "
-                                 f"sum m |dv| = {p_abs:.3e}")
-        if not (torch.equal(dv_c, dv) and torch.equal(dp_c, dp)):
-            raise AssertionError("B6 gated on a count > 0 differs from the ungated sweep")
-        if bool(dv_z.any()) or bool(dp_z.any()):
-            raise AssertionError("B6 with a zero count is not exactly 0")
-        self.kernels["B6"]["max_abs_err"] = err_v
-        return (f"B6 == plain at N={N_MAIN} R={R_RICH:g} e=0.8 ({int(count)} contacts, "
-                f"{touched} bodies bounced): max|d dv|/max|dv| = {rel_v:.2e}, "
-                f"max|d dp|/max|dp| = {rel_p:.2e} <= {BOUNCE_RTOL:g}; dead rows 0; "
-                f"|sum m dv| / sum m|dv| = {p_sum / p_abs:.2e}; zero count -> exact zeros")
+        # the contact-rich cluster, and a ragged N = 5000 (40 tiles of 128,
+        # the last partial, a third dead, radii in [R/2, 3R/2]): the
+        # prefilter's tile maximum and the tail tile
+        lines = []
+        for n, radius, dead in ((N_MAIN, R_RICH, 7), (N_RAGGED, R_RAGGED, N_RAGGED // 3)):
+            pos, vel, mass, rad, alive = self.scene(n, radius, dead, seed_offset=5)
+            _, _, count = pairwise_acc_detect_cuda(pos, mass, rad, alive, G=1.0, eps2=EPS2,
+                                                   with_potential=False)
+            dp, dv = bounce_deltas_cuda(pos, vel, mass, rad, alive, restitution=0.8)
+            dp_c, dv_c = bounce_deltas_cuda(pos, vel, mass, rad, alive, restitution=0.8,
+                                            contacts=count)
+            zero = torch.zeros((), dtype=torch.int32, device=self.dev)
+            dp_z, dv_z = bounce_deltas_cuda(pos, vel, mass, rad, alive, restitution=0.8,
+                                            contacts=zero)
+            dp0, dv0 = bounce_deltas_chunked(pos, vel, mass, rad, alive, restitution=0.8)
+            torch.cuda.synchronize()
+            key = f"N={n} R={radius:g} ({dead} dead)"
+            touched = int((dv0.abs().amax(1) > 0).sum())
+            if int(count) <= 0 or touched == 0:
+                raise AssertionError(f"B6 {key}: no contacts in the scene ({int(count)})")
+            err_v = float((dv - dv0).abs().max())
+            err_p = float((dp - dp0).abs().max())
+            rel_v, rel_p = err_v / float(dv0.abs().max()), err_p / float(dp0.abs().max())
+            if rel_v > BOUNCE_RTOL or rel_p > BOUNCE_RTOL:
+                raise AssertionError(f"B6 vs plain {key}: max|d dv|/max|dv| = {rel_v:.3e}, "
+                                     f"max|d dp|/max|dp| = {rel_p:.3e}")
+            dead_rows = ~alive
+            if bool(dv[dead_rows].any()) or bool(dp[dead_rows].any()):
+                raise AssertionError(f"B6 {key}: dead rows not exactly 0")
+            m = mass.double()[:, None]
+            p_sum = float((m * dv.double()).sum(0).abs().max())
+            p_abs = float((m * dv.double().abs()).sum())
+            if p_sum > 1e-5 * p_abs:
+                raise AssertionError(f"B6 {key} momentum: |sum m dv| = {p_sum:.3e} against "
+                                     f"sum m |dv| = {p_abs:.3e}")
+            if not (torch.equal(dv_c, dv) and torch.equal(dp_c, dp)):
+                raise AssertionError(f"B6 {key}: gated on a count > 0 differs from the "
+                                     f"ungated sweep")
+            if bool(dv_z.any()) or bool(dp_z.any()):
+                raise AssertionError(f"B6 {key}: with a zero count it is not exactly 0")
+            if n == N_MAIN:
+                self.kernels["B6"]["max_abs_err"] = err_v
+            lines.append(f"{key}, e=0.8: {int(count)} contacts, {touched} bodies bounced, "
+                         f"max|d dv|/max|dv| = {rel_v:.2e}, max|d dp|/max|dp| = {rel_p:.2e}, "
+                         f"|sum m dv| / sum m|dv| = {p_sum / p_abs:.2e}")
+        return (f"B6 == plain within {BOUNCE_RTOL:g}, dead rows 0, momentum kept, gated on "
+                f"the count == ungated, zero count -> exact zeros [{'; '.join(lines)}]")
 
     # phase 9
     def bounce_bench_row(self) -> str:
@@ -2717,16 +2838,17 @@ class Smoke:
             a64, U64 = self.exact_f64(pos, mass, alive)
             # the kernel's function, the sums S and pe, against its plain version
             iA, jB = pack_gram(pos, mass * alive)
+            s64 = self.gram_exact(pos, iA, jB, EPS2)
             sums = {}
             for pe in (True, False):
                 S, P = gram_sums_cuda(iA, jB, eps2=EPS2, with_potential=pe)
                 S0, P0 = gram_sums_plain(iA, jB, eps2=EPS2, with_potential=pe)
                 torch.cuda.synchronize()
-                rs = rel(S, S0)
-                rp = rel(P, P0) if pe else 0.0
-                if not bool(torch.isfinite(S).all()) or rs > FORCE_RTOL or rp > FORCE_RTOL:
-                    raise AssertionError(f"B13 sums N={n} pe={pe}: S {rs:.3e}, pe {rp:.3e}")
-                sums[pe] = (S, rs, rp)
+                out, ref = ((S, P), (S0, P0)) if pe else ((S,), (S0,))
+                gram_held(out, ref, s64)
+                rs, rs_rms = rel(S, S0), rms_rel(S, S0)
+                rp, rp_rms = (rel(P, P0), rms_rel(P, P0)) if pe else (0.0, 0.0)
+                sums[pe] = (S, rs, rp, rs_rms, rp_rms, S0)
             if not torch.equal(sums[True][0], sums[False][0]):
                 raise AssertionError(f"B13 N={n}: the PE-off sums differ from the PE-on sums")
             # the accelerations and U through the wrapper
@@ -2763,13 +2885,23 @@ class Smoke:
             if rm64 > GRAM_RTOL or rm64_max > GRAM_MAX_RTOL or um64 > ENERGY_RTOL:
                 raise AssertionError(f"mxu N={n} vs the f64 sum: RMS {rm64:.3e}, max "
                                      f"{rm64_max:.3e}, U {um64:.3e}")
-            lines.append(f"N={n} ({dead} dead): B13 sums vs plain S {sums[True][1]:.2e} pe "
-                         f"{sums[True][2]:.2e} (PE off S {sums[False][1]:.2e}); acc vs plain RMS "
+            within = max(sums[True][1], sums[True][2], sums[False][1]) <= FORCE_RTOL
+            lines.append(f"N={n} ({dead} dead): B13 sums vs plain max S {sums[True][1]:.2e} pe "
+                         f"{sums[True][2]:.2e} (PE off S {sums[False][1]:.2e}), RMS S "
+                         f"{sums[True][3]:.2e} pe {sums[True][4]:.2e}, within FORCE_RTOL: "
+                         f"{'yes' if within else 'no'}; S vs the exact S RMS "
+                         f"{rms_rel(sums[True][0], s64):.2e} max {rel(sums[True][0], s64):.2e}, "
+                         f"the plain S's {rms_rel(sums[True][5], s64):.2e} and "
+                         f"{rel(sums[True][5], s64):.2e}; acc vs plain RMS "
                          f"{ra:.2e} (max {ra_max:.2e}), U {u:.1e}; vs the f64 sum RMS {r64:.2e} "
-                         f"(max {r64_max:.2e}, plain max {rel(a0, a64):.2e}), U {u64:.1e}; "
+                         f"(max {r64_max:.2e}, plain max {rel(a0, a64):.2e}; the CUDA-core form's "
+                         f"5.5e-5 and 1.64e-3 at N={N_MAIN}), U {u64:.1e}; "
                          f"mxu vs its f64 form RMS {rm:.2e} (max {rm_max:.2e}), vs the f64 sum "
                          f"RMS {rm64:.2e} (max {rm64_max:.2e}), U {um64:.1e}")
-        return (f"B13 sums (S, pe) == plain within max|d|/max|.| <= {FORCE_RTOL:g}, PE-off sums "
+        return (f"B13 pe == plain within RMS <= {GRAM_RTOL:g} and max|d|/max|.| <= "
+                f"{GRAM_MAX_RTOL:g}, S vs the exact S within RMS <= {GRAM_S_RTOL:g} "
+                f"(GRAM_S_RTOL) and max <= {GRAM_MAX_RTOL:g} (its r2 is the tensor cores' "
+                f"3-piece TF32 product), PE-off sums "
                 f"and acc bit-equal to PE-on; B13 acc vs plain, and B13 and mxu vs the f64 sum "
                 f"and mxu vs its f64 form, within RMS|da|/RMS|a| <= {GRAM_RTOL:g} (GRAM_RTOL); "
                 f"B13 and mxu vs the f64 sum within max|da|/max|a| <= {GRAM_MAX_RTOL:g} "
@@ -2907,24 +3039,70 @@ class Smoke:
                 f"{diff:.2e} <= {STATE_ATOL:g} | simulate(pallas_sym, hermite) 10 steps: B5 "
                 f"{b5} launches, B12 {b12_sim}")
 
-    # the five kernels of the two redesigned templates, for --sweep and --parent
+    # the seven kernels of the four redesigned sources, for --sweep and
+    # --parent: max |d| / max |ref| of each output (0: equal); B13 by
+    # gram_held; B6G is B6 gated on the scene's contact count, B6Z on a zero
+    # count (the gate's cost)
     TOLS = {"B1": (FORCE_RTOL, ENERGY_RTOL), "B2": (FORCE_RTOL, ENERGY_RTOL, 0),
             "B3": (FORCE_RTOL, FORCE_RTOL), "B5": (FORCE_RTOL, JERK_RTOL, ENERGY_RTOL),
-            "B5D": (FORCE_RTOL, JERK_RTOL, ENERGY_RTOL, 0)}
+            "B5D": (FORCE_RTOL, JERK_RTOL, ENERGY_RTOL, 0),
+            "B13": (GRAM_MAX_RTOL, GRAM_MAX_RTOL), "B6": (BOUNCE_RTOL, BOUNCE_RTOL),
+            "B6G": (BOUNCE_RTOL, BOUNCE_RTOL), "B6Z": (0, 0)}
+    # the source of each, the calls timed in turns and the pairs that must
+    # be bit-equal
+    SOURCE = {"B1": "nbody_forces", "B2": "nbody_forces", "B3": "nbody_forces",
+              "B5": "nbody_jerk", "B5D": "nbody_jerk", "B13": "nbody_forces_mxu",
+              "B6": "collisions", "B6G": "collisions", "B6Z": "collisions"}
+    TIMED = {"nbody_forces": ("B1", "B2"), "nbody_jerk": ("B5", "B5D"),
+             "nbody_forces_mxu": ("B13",), "collisions": ("B6", "B6Z")}
+    SAME = {"nbody_forces": ("B1", "B2"), "nbody_jerk": ("B5", "B5D"),
+            "collisions": ("B6", "B6G")}
+
+    def hold(self, key: str, out, ref, call=None) -> tuple[float, bool]:
+        """``held`` with ``key``'s tolerances, or for B13 ``gram_held``
+        against the exact sums that ``exact_calls`` attached to its
+        ``call``; and whether every output is bit-equal."""
+        if key != "B13":
+            return held(out, ref, self.TOLS[key])
+        equal = all(bool((x == y).all()) for x, y in zip(out, ref))
+        return gram_held(out, ref, call.exact()), equal
+
+    def gram_exact(self, pos, iA, jB, eps2: float):
+        """S of the packed rows in f64, once for each scene and eps2."""
+        from orbital_tpu_torch.ops.cuda_forces_mxu import gram_sums_plain
+
+        cache = self.__dict__.setdefault("_gram_exact", {})
+        key = (id(pos), eps2)
+        if key not in cache:
+            s64, _ = gram_sums_plain(iA.double(), jB.double(), eps2=eps2,
+                                     with_potential=False)
+            cache[key] = (pos, s64)
+        return cache[key][1]
 
     def exact_calls(self, scene, eps2: float, pe: bool, plain: bool = False) -> dict:
         """{key: (wrapper module, call)} of B1 and B2 (PE as ``pe``), B3 (on
         coinciding tables; with PE, eps2 > 0 and N % 128 == 0 only), B5 and
-        B5 detect on ``scene``; with ``plain``, their plain versions."""
+        B5 detect on ``scene``, B13 (its sums S and pe; eps2 > 0 and
+        N % 128 == 0 only), and B6 ungated and gated on B2's count
+        (restitution 0.8) and on a zero count; with ``plain``, their plain
+        versions."""
+        from orbital_tpu_torch.ops import cuda_collisions as cc
         from orbital_tpu_torch.ops import cuda_forces as cf
+        from orbital_tpu_torch.ops import cuda_forces_mxu as cm
         from orbital_tpu_torch.ops import cuda_jerk as cj
 
         pos, vel, mass, rad, alive = scene
         kw = dict(G=1.0, eps2=eps2)
         sfx = "_plain" if plain else "_cuda"
+        count = cf.pairwise_acc_detect_cuda(pos, mass, rad, alive, with_potential=False,
+                                            **kw)[2]
 
         def fn(mod, name):
             return getattr(mod, name + sfx)
+
+        def b6(contacts):
+            return lambda: fn(cc, "bounce_deltas")(pos, vel, mass, rad, alive,
+                                                   restitution=0.8, contacts=contacts)
 
         calls = {
             "B1": (cf, lambda: fn(cf, "pairwise_acc")(pos, mass, alive, with_potential=pe,
@@ -2933,28 +3111,42 @@ class Smoke:
                                                               with_potential=pe, **kw)),
             "B5": (cj, lambda: fn(cj, "accel_jerk")(pos, vel, mass, alive, **kw)),
             "B5D": (cj, lambda: fn(cj, "accel_jerk_detect")(pos, vel, mass, rad, alive, **kw)),
+            "B6": (cc, b6(None)),
+            "B6G": (cc, b6(count)),
+            "B6Z": (cc, b6(self.torch.zeros_like(count))),
         }
-        if pe and eps2 > 0 and pos.shape[0] % 128 == 0:
+        if eps2 > 0 and pos.shape[0] % 128 == 0:
             m_eff = mass * alive
-            calls["B3"] = (cf, lambda: fn(cf, "block_acc")(pos, pos, m_eff, **kw))
+            if pe:
+                calls["B3"] = (cf, lambda: fn(cf, "block_acc")(pos, pos, m_eff, **kw))
+            iA, jB = cm.pack_gram(pos, m_eff)
+
+            def b13():
+                return tuple(x for x in fn(cm, "gram_sums")(iA, jB, eps2=eps2,
+                                                            with_potential=pe)
+                             if x is not None)
+
+            b13.exact = lambda: self.gram_exact(pos, iA, jB, eps2)
+            calls["B13"] = (cm, b13)
         return calls
 
     # --sweep
     def sweep(self) -> str:
-        from orbital_tpu_torch.ops import cuda_forces, cuda_jerk
+        from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
+                                           cuda_jerk)
         from orbital_tpu_torch.utils import kernels
 
         torch = self.torch
-        mods = {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk}
-        pairs = {"nbody_forces": ("B1", "B2"), "nbody_jerk": ("B5", "B5D")}
+        mods = {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk,
+                "nbody_forces_mxu": cuda_forces_mxu, "collisions": cuda_collisions}
         jobs, variants = [], []
         for name, shapes in SWEEP.items():
             m = SWEEP_MACRO[name]
-            for k, q in shapes:
-                tag = f"k{k}q{q}"
+            for shape in shapes:
+                tag = "k{}q{}".format(*shape)
+                flags = (f"-D{m}_K={shape[0]}", f"-D{m}_Q={shape[1]}")
                 out = kernels.BUILD_DIR / "sweep" / f"lib{name}-{tag}.so"
-                jobs.append((kernels.CSRC_DIR / f"{name}.cu", out,
-                             (f"-D{m}_K={k}", f"-D{m}_Q={q}")))
+                jobs.append((kernels.CSRC_DIR / f"{name}.cu", out, flags))
                 variants.append((name, tag, out))
         t0 = time.perf_counter()
         built = compile_libraries(jobs)
@@ -2970,46 +3162,52 @@ class Smoke:
             lib = bind_like(out, mod._load(), LIB_FUNCS[name])
             rec = launch_record(lib, name, built[out][0], sass(out))
             worst = 0.0
-            base, det = pairs[name]
             for n, sc in scenes.items():
                 calls = self.exact_calls(sc, EPS2, True)
                 outs = {k: on(mod, lib, c) for k, (m_, c) in calls.items() if m_ is mod}
                 for k, o in outs.items():
-                    worst = max(worst, held(o, refs[n][k], self.TOLS[k])[0])
-                if not all(torch.equal(x, y) for x, y in zip(outs[base], outs[det])):
-                    raise AssertionError(f"{name} {tag} at N={n}: {det} differs from {base}")
+                    worst = max(worst, self.hold(k, o, refs[n][k], calls[k][1])[0])
+                if name in self.SAME:
+                    base, det = self.SAME[name]
+                    if not all(torch.equal(x, y) for x, y in zip(outs[base], outs[det])):
+                        raise AssertionError(f"{name} {tag} at N={n}: {det} differs from {base}")
             calls = self.exact_calls(scenes[N_MAIN], EPS2, pe=False)
-            for k in pairs[name]:
+            for k in self.TIMED[name]:
                 timed[f"{tag} {k}"] = (lambda m_, l_, c_: lambda: on(m_, l_, c_))(
                     mod, lib, calls[k][1])
             rows[f"{name} {tag}"] = {"launch": rec, "worst_vs_plain": worst}
         times = {k: summary(v) for k, v in alternate_ms(timed, 10, repeats=4).items()}
         for key, row in rows.items():
-            tag = key.split()[1]
-            row["ms"] = {k: times[f"{tag} {k}"] for k in pairs[key.split()[0]]}
+            name, tag = key.split()
+            row["ms"] = {k: times[f"{tag} {k}"] for k in self.TIMED[name]}
         print("perf_sweep " + json.dumps(rows), file=sys.stderr)
         lines = []
         for key, row in rows.items():
             rec = next(iter(row["launch"].values()))
+            hmma = (f", {rec['tf32_hmma_in_loop']} TF32 HMMA in the loop"
+                    if "tf32_hmma_in_loop" in rec else "")
             lines.append(f"{key}: " + ", ".join(
                 f"{k} {v['median']:.3f} ms (spread {v['spread']:.3f})"
                 for k, v in row["ms"].items())
                 + f", {rec['registers']} registers, {rec['spill_bytes']} spill bytes, "
-                f"{fmt(rec['sass_slots_per_pair'])} instructions a pair, vs plain "
+                f"{fmt(rec['sass_slots_per_pair'])} instructions a pair{hmma}, vs plain "
                 f"{row['worst_vs_plain']:.2e}")
         return (f"{len(variants)} launch shapes built in {build_s:.1f} s, each within the "
                 f"tolerances of the plain versions at N={N_MAIN} and {N_RAGGED} (7 dead, "
-                f"eps2 {EPS2:g}, PE on) with detect bit-equal and counts exact; N={N_MAIN} "
-                f"no PE, in turns: " + "; ".join(lines))
+                f"eps2 {EPS2:g}, PE on, R {R_RICH:g}) with detect bit-equal, counts exact and "
+                f"gated B6 bit-equal to ungated; N={N_MAIN} no PE, in turns: "
+                + "; ".join(lines))
 
     # --parent
     def check_parent(self, parent: str) -> str:
         from pathlib import Path
 
-        from orbital_tpu_torch.ops import cuda_forces, cuda_jerk
+        from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
+                                           cuda_jerk)
         from orbital_tpu_torch.utils import kernels
 
-        mods = {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk}
+        mods = {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk,
+                "nbody_forces_mxu": cuda_forces_mxu, "collisions": cuda_collisions}
         jobs = {name: (Path(parent) / "orbital_tpu_torch" / "csrc" / f"{name}.cu",
                        kernels.BUILD_DIR / "parent" / f"lib{name}.so") for name in mods}
         compile_libraries([(src, out, ()) for src, out in jobs.values()])
@@ -3019,17 +3217,29 @@ class Smoke:
         worst, equal, counts, cases = {}, {}, set(), 0
         for eps2 in (EPS2, 0.0):
             for pe in (True, False):
-                for k, (mod, call) in self.exact_calls(scene, eps2, pe).items():
+                calls = self.exact_calls(scene, eps2, pe)
+                outs = {}
+                for k, (mod, call) in calls.items():
                     if k in ("B5", "B5D") and not pe:
                         continue  # no PE switch: once for each eps2
-                    ref, out = on(mod, old[mod], call), call()
-                    rel, eq = held(out, ref, self.TOLS[k])
+                    if k in ("B6", "B6G", "B6Z") and not (pe and eps2 > 0):
+                        continue  # neither: once
+                    ref, outs[k] = on(mod, old[mod], call), call()
+                    rel, eq = self.hold(k, outs[k], ref, call)
+                    if k == "B6":  # bounced rows whose deltas equal the parent's
+                        moved = ref[1].abs().amax(1) > 0
+                        same = (outs[k][0] == ref[0]).all(1) & (outs[k][1] == ref[1]).all(1)
+                        b6_rows = (int((same & moved).sum()), int(moved.sum()))
                     worst[k] = max(worst.get(k, 0.0), rel)
                     equal[k] = equal.get(k, True) and eq
                     cases += 1
                     if k in ("B2", "B5D"):
-                        counts.add(int(out[-1]))
-        calls = self.exact_calls(scene, EPS2, pe=False)
+                        counts.add(int(outs[k][-1]))
+                if "B6G" in outs and not all(
+                        self.torch.equal(x, y) for x, y in zip(outs["B6"], outs["B6G"])):
+                    raise AssertionError("B6 gated on the count differs from B6 ungated")
+        calls = {k: v for k, v in self.exact_calls(scene, EPS2, pe=False).items()
+                 if k != "B6G"}
         calls["B3"] = self.exact_calls(scene, EPS2, pe=True)["B3"]
         fns = {}
         for k, (mod, call) in calls.items():
@@ -3055,17 +3265,23 @@ class Smoke:
                     f"{par['median'] / this['median']:.2f}x, faster outside both spreads: "
                     f"{'yes' if faster else 'no'}; instructions a pair "
                     f"{fmt(slots['this'].get(k))} (parent {fmt(slots['parent'].get(k))})")
+            if k == "B6":
+                line += f"; bounced rows bit-equal to the parent's: {b6_rows[0]} of {b6_rows[1]}"
             mhz, per_pair = clocks[k]["sm_mhz"], slots["this"].get(k)
             if per_pair and not isinstance(mhz, str):
                 floor = 1e3 * per_pair * N_MAIN * N_MAIN / 32 / (528 * mhz * 1e6)
                 line += (f", SM clock {mhz:.0f} MHz at {clocks[k]['watts']:.0f} W: issue "
                          f"floor {floor:.3f} ms ({100 * floor / this['median']:.0f}%)")
             lines.append(line)
-        return (f"B1, B2, B3, B5 and B5 detect held against the build of {parent}'s sources "
-                f"in {cases} calls (N={N_MAIN}, 7 dead, eps2 {EPS2:g} and 0, PE on and "
-                f"off; within {FORCE_RTOL:g} / {JERK_RTOL:g} / {ENERGY_RTOL:g}, contact "
-                f"counts equal: {sorted(counts)}); in turns, 6 runs each (B1, B2 no PE; B3 "
-                f"PE): " + "; ".join(lines))
+        return (f"B1, B2, B3, B5, B5 detect, B13 and B6 held against the build of {parent}'s "
+                f"sources in {cases} calls (N={N_MAIN}, 7 dead, R {R_RICH:g}, eps2 {EPS2:g} "
+                f"and 0, PE on and off; within {FORCE_RTOL:g} / {JERK_RTOL:g} / "
+                f"{ENERGY_RTOL:g}, B13's pe within {GRAM_RTOL:g} RMS and {GRAM_MAX_RTOL:g} max "
+                f"and its S within {GRAM_S_RTOL:g} RMS and {GRAM_MAX_RTOL:g} max of the exact S, "
+                f"B6 "
+                f"within {BOUNCE_RTOL:g} and gated == ungated, contact counts equal: "
+                f"{sorted(counts)}); in turns, 6 runs each (B1, B2, B13 no PE; B3 PE; B6 "
+                f"ungated, B6Z at a zero count): " + "; ".join(lines))
 
     # phase 29
     def variant_timings(self) -> str:
@@ -3109,16 +3325,20 @@ class Smoke:
         pairs = n * (n - 1) / 2
         bounds = {
             "B12": bound(OPS_B12 * pairs, 28 * n, rsqrt=pairs),
-            "B13": bound(OPS_B13 * n * n, 80 * n, rsqrt=n * n),
-            "B13_pe": bound(OPS_B13_PE * n * n, 84 * n, rsqrt=n * n),
+            "B13": bound(OPS_B13 * n * n, 80 * n, rsqrt=n * n, tensor=TENSOR_B13 * n * n),
+            "B13_pe": bound(OPS_B13_PE * n * n, 84 * n, rsqrt=n * n,
+                            tensor=TENSOR_B13 * n * n),
             "B3": bound(OPS_B1_PE * n * n, 48 * n, rsqrt=n * n),
         }
+        # the count of PRs 1-7, every flop of B13 on the CUDA cores
+        bound_b13_cuda = bound(OPS_B13_ALL_CUDA * n * n, 80 * n, rsqrt=n * n)
         for k, t in (("B12", kern["B12"]), ("B13", kern["B13"]), ("B3", kern["B3_pe"])):
             self.kernels[k].update(ms=t["median"], plain_ms=plain[k]["median"],
                                    bound_ms=bounds[k][0], bound_by=bounds[k][1],
                                    library_ms=None)
         perf = {"kernels_N65536": kern, "mxu_eval_N65536": mxu, "plain_N65536": plain,
                 "kdk_step_N65536": steps, "bounds_ms": bounds,
+                "B13_bound_all_cuda_cores_ms": bound_b13_cuda,
                 "main_path_ms_per_step_wall": getattr(self, "variant_ms", None)}
         print("perf_variants " + json.dumps(perf), file=sys.stderr)
 
@@ -3133,7 +3353,9 @@ class Smoke:
                 + "; ds32 KDK step " + ", ".join(f"{k} {ms(v)}" for k, v in steps.items())
                 + "; bounds " + ", ".join(
                     f"{k} {v[0]:.4f} ms ({v[1]}, {100 * v[0] / timed[k]['median']:.0f}%)"
-                    for k, v in bounds.items()))
+                    for k, v in bounds.items())
+                + f"; B13 counted all on the CUDA cores {bound_b13_cuda[0]:.4f} ms "
+                f"({100 * bound_b13_cuda[0] / timed['B13']['median']:.0f}%)")
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3141,8 +3363,8 @@ def main(argv=None) -> int:
                         help="unrecorded steps of the 65,536-body drift run")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", metavar="DIR",
-                        help="only hold B1, B2, B3, B5 and B5 detect against DIR's "
-                             "nbody_forces.cu and nbody_jerk.cu (phases 1, 2 and this check)")
+                        help="only hold B1, B2, B3, B5, B5 detect, B13 and B6 against "
+                             "DIR's kernel sources (phases 1, 2 and this check)")
     parser.add_argument("--sweep", action="store_true",
                         help="only build and time the launch shapes of SWEEP (phases 1, 2 "
                              "and the sweep; with --parent, the parent check after it)")

@@ -14,14 +14,17 @@ when N breaks the tile rule of :func:`check_tiles` (a copy of what
 
 The kernel's function is :func:`gram_sums_cuda`: (S, pe) from the packed
 rows. Its plain version :func:`gram_sums_plain` forms r2 as the same
-packed 8-deep product A . B, its five nonzero terms summed in the kernel's
-order with each product and sum rounded on its own, and S as a full-float32
-product, row-blocked. The one order matters: the identity is too
-ill-conditioned on close pairs for two orders of the dot to agree within
-~2e-3 of max |acc|. Even with it, acc = S[:, 0:3] - pos * S[:, 3] cancels
-the f32 rounding of two sums of 65,536 terms in other orders (~1e-3 of
-max |acc| apart at that N), so the kernel is held to its plain version on S
-and pe, and the accelerations only in RMS.
+packed 8-deep product A . B, its five nonzero terms summed in one fixed
+order with each product and sum rounded on its own, and S as a
+full-float32 product, row-blocked. The kernel forms r2 on the tensor cores
+from an exact three-piece TF32 split of the packed entries
+(``csrc/nbody_forces_mxu.cu``), an order of its own as the TPU kernel's
+is. The identity is ill-conditioned on close pairs: one ulp of r2 moves a
+close pair's weight by ~|r|^2 2^-24 / eps2, so the two part there by ~1e-3
+of max |acc|, and acc = S[:, 0:3] - pos * S[:, 3] cancels the f32 rounding
+of two sums of 65,536 terms. So chip_smoke.py holds the kernel's pe to the
+plain version's and its S to the exact S of the packed rows (f64), and
+its accelerations to the plain version's only in RMS.
 
 For CPU tensors the wrappers compute the plain versions
 (:func:`pairwise_acc_mxu_plain` is the packing, :func:`gram_sums_plain` and

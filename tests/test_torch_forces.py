@@ -248,6 +248,109 @@ def test_launch_record_requires_each_instantiation():
         chip_smoke.launch_record(lib, "nbody_forces", log, "\t\tFunction : _Z3foov\n")
 
 
+_HMMA_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_111gram_kernelILb0EEEvPK6float4S3_ifPS1_Pf
+        /*0000*/                   LDS.128 R8, [R2] ;
+        /*0010*/                   HMMA.1688.F32.TF32 R12, R4, R8, RZ ;
+        /*0020*/                   MUFU.RSQ R5, R2 ;
+        /*0030*/                   FMUL R6, R5, R5 ;
+        /*0040*/                   HMMA.1688.F32.TF32 R16, R4, R8, R16 ;
+        /*0050*/                   MUFU.RSQ R7, R3 ;
+        /*0060*/              @P0 BRA 0x0 ;
+        /*0070*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_113bounce_kernelEPKfS1_S1_S1_PKbifPKiPfS6_
+        /*0000*/                   LDS.128 R8, [R2] ;
+        /*0010*/                   FADD R2, R8, -R4 ;
+        /*0020*/                   FMNMX R6, R2, R6, PT ;
+        /*0030*/                   FMNMX R7, R2, R7, PT ;
+        /*0040*/              @P0 BRA 0x0 ;
+        /*0050*/                   MUFU.RSQ R5, R2 ;
+        /*0060*/                   FSETP.GT.AND P1, PT, R2, R3, PT ;
+        /*0070*/              @P1 BRA 0x50 ;
+        /*0080*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("name,key", [("nbody_forces_mxu", "B13"), ("collisions", "B6")])
+def test_launch_record_of_the_gram_and_bounce_kernels(name, key):
+    """Phase 2's records of B13 and B6: the shape their C functions report,
+    instructions a pair over the pair marker of each (MUFU.RSQ; B6's FMNMX,
+    not the exact pass's FSETP), B13's TF32 HMMA count in that loop; B13
+    without HMMA in its inner loop (the tensor cores unused) raises, and so
+    does an instantiation missing from the ptxas output."""
+    import types
+
+    import chip_smoke
+
+    shape_fn, stems, _ = chip_smoke.SHAPED[name]
+
+    def shape(n, arr):
+        for i, v in enumerate((2, 4, 32, 128, n // 32)):
+            arr[i] = v
+
+    lib = types.SimpleNamespace(**{shape_fn: shape})
+    log = _ptxas_log(stems.values())
+    recs = chip_smoke.launch_record(lib, name, log, _HMMA_SASS, n=4992)
+    assert sorted(recs) == [key]
+    rec = recs[key]
+    assert rec["shape"] == {"k": 2, "q": 4, "tile": 32, "threads": 128, "blocks": 156}
+    assert rec["registers"] == 93 and rec["spill_bytes"] == 0
+    assert rec["sass_slots_per_pair"] == (3.5 if key == "B13" else 2.5)
+    assert rec.get("tf32_hmma_in_loop") == (2 if key == "B13" else None)
+    if key == "B13":
+        assert chip_smoke.describe_launch(key, rec).endswith("2 TF32 HMMA in the inner loop")
+        with pytest.raises(AssertionError, match="tensor cores are not in use"):
+            chip_smoke.launch_record(lib, name, log, _HMMA_SASS.replace("HMMA.1688.F32.TF32",
+                                                                          "FFMA"))
+    with pytest.raises(AssertionError, match=f"{key}: no entry function"):
+        chip_smoke.launch_record(lib, name, _ptxas_log(["other"]), "")
+
+
+def test_parent_and_sweep_cover_the_redesigned_kernels(monkeypatch):
+    """--parent and --sweep reach all four redesigned sources: each has its
+    exported functions, sweep shapes (k, q) and shape macro; each call of
+    exact_calls is held by its tolerances (on the CPU the wrappers take
+    their plain versions, so each holds with 0), B13 only where eps2 > 0,
+    its S against the exact S within GRAM_S_RTOL in RMS and GRAM_MAX_RTOL
+    in max and its pe by the Gram gates against the reference, B6 gated
+    and ungated."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    smoke = chip_smoke.Smoke(0, 10)
+    smoke.dev = torch.device("cpu")
+    for name in chip_smoke.SHAPED:
+        assert name in chip_smoke.LIB_FUNCS and name in chip_smoke.SWEEP_MACRO
+        assert chip_smoke.SWEEP[name] and name in smoke.TIMED
+        for key in chip_smoke.SHAPED[name][1]:
+            assert smoke.SOURCE[key] == name and key in smoke.TOLS
+    assert all(len(s) == 2 for shapes in chip_smoke.SWEEP.values() for s in shapes)
+    scene = smoke.scene(640, 0.05, 7, seed_offset=17, cluster=False)
+    calls = smoke.exact_calls(scene, 1e-4, True)
+    refs = smoke.exact_calls(scene, 1e-4, True, plain=True)
+    assert set(calls) == set(smoke.SOURCE)
+    for key, (mod, call) in calls.items():
+        assert mod.__name__.rsplit(".", 1)[1] == {
+            "nbody_forces": "cuda_forces", "nbody_jerk": "cuda_jerk",
+            "nbody_forces_mxu": "cuda_forces_mxu", "collisions": "cuda_collisions"}[
+                smoke.SOURCE[key]]
+        assert smoke.hold(key, call(), refs[key][1](), call) == (0.0, True)
+    assert "B13" not in smoke.exact_calls(scene, 0.0, True)
+    dv = calls["B6"][1]()[1]
+    assert bool(dv.any())  # the scene has contacts
+    b13 = calls["B13"][1]
+    s, pe = b13()
+    assert smoke.hold("B13", (s * 1.0005, pe), (s, pe), b13)[1] is False
+    with pytest.raises(AssertionError, match="B13 S vs the exact S"):
+        smoke.hold("B13", (s * 1.002, pe), (s, pe), b13)
+    with pytest.raises(AssertionError, match="B13 pe: RMS difference"):
+        smoke.hold("B13", (s, pe * 1.001), (s, pe), b13)
+    bumped = pe.clone()
+    bumped[0] *= 1.01
+    with pytest.raises(AssertionError, match="B13 pe: RMS difference"):
+        smoke.hold("B13", (s, bumped), (s, pe), b13)
+
+
 def test_spill_free_raises_on_spills_or_no_output():
     import chip_smoke
 

@@ -30,6 +30,8 @@ Inputs come from a numpy seed. Tolerances:
     f32 rounding in ds32 (in either force path) and the runs part by 2%.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -38,6 +40,7 @@ import torch
 import orbital_tpu as jot
 import orbital_tpu_torch as tot
 from orbital_tpu.models.scene import SceneArrays as JScene
+from orbital_tpu.ops.forces import pairwise_acc_dense as j_dense
 from orbital_tpu.ops.mxu_forces import pairwise_acc_mxu as j_mxu
 from orbital_tpu.ops.pallas_forces import block_acc_pallas
 from orbital_tpu.ops.pallas_forces_mxu import pairwise_acc_pallas_mxu
@@ -49,6 +52,7 @@ from orbital_tpu_torch.ops import mxu_forces
 
 F32_RTOL = 1e-5
 GRAM_RTOL = 5e-4
+GRAM_MAX_RTOL = 5e-3
 EPS2 = 1e-4
 IMPLS = ("pallas_sym", "mxu", "pallas_mxu")
 
@@ -141,6 +145,145 @@ def test_gram_plain_matches_jax_kernel(n512, with_potential):
                                                         eps2=EPS2)
         np.testing.assert_array_equal(a.numpy(), a_pe.numpy())
         assert float(U) == 0.0 and float(U_j) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the Gram kernel's TF32 split: a torch mirror of csrc/nbody_forces_mxu.cu,
+# its K slots and its fragment permutation read from the kernel's source
+# ---------------------------------------------------------------------------
+
+MXU_SOURCE = (Path(__file__).resolve().parents[1] / "orbital_tpu_torch" / "csrc"
+              / "nbody_forces_mxu.cu")
+
+
+def _mxu_source_fn(name):
+    """The body of the kernel source's function ``name``."""
+    src = MXU_SOURCE.read_text()
+    body = src[src.index(f"void {name}("):]
+    return body[:body.index("\n}\n")]
+
+
+def _tf32_round(x):
+    """float32 ``x`` rounded to TF32 (11 significant bits), to nearest with
+    ties away from zero, as the kernel's tf32() and ``cvt.rna.tf32.f32``:
+    0x1000 added to the magnitude bits, the low 13 cleared."""
+    u = x.contiguous().view(torch.int32)
+    mag = ((u & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
+    return (mag | (u & -0x80000000)).view(torch.float32)
+
+
+def _tf32_split(x):
+    """The kernel's split(): hi = rna(x), mid = rna(x - hi), lo = x - hi -
+    mid, exact (the pieces add back to x bit for bit)."""
+    hi = _tf32_round(x)
+    rest = x - hi
+    mid = _tf32_round(rest)
+    return [hi, mid, rest - mid]
+
+
+def _gram_slots(rows, side):
+    """The K slots of the kernel's r2 products for packed rows, [N, 24], in
+    the order of the kernel's a_rows() (side "A": the pieces of -2x, -2y,
+    -2z and |r_i|^2) or b_rows() (side "B": of x, y, z and |r_j|^2)."""
+    cols = (0, 1, 2, 3) if side == "A" else (0, 1, 2, 4)
+    values = {"1.0f": torch.ones(rows.shape[0]), "0.0f": torch.zeros(rows.shape[0])}
+    for v, c in zip("xyzn", cols):
+        for piece, part in zip("hml", _tf32_split(rows[:, c].contiguous())):
+            values[f"{v}.{piece}"] = part
+    body = _mxu_source_fn("a_rows" if side == "A" else "b_rows")
+    table = re.findall(r"const float r\d\[8\] = \{([^}]*)\};", body)
+    assert len(table) == 3
+    return torch.stack([values[x.strip()] for row in table for x in row.split(",")], dim=1)
+
+
+def test_tf32_split_is_exact():
+    """The kernel's three-piece TF32 split of f32 values, from 1e-30 to the
+    1e17 of parked bodies and of both signs: the pieces add back bit for
+    bit, and each has its low 13 mantissa bits clear (what the tensor
+    cores read of it is all of it). Round to nearest is ties away."""
+    rng = np.random.default_rng(21)
+    x = (rng.normal(size=4096) * 10.0 ** rng.uniform(-30, 17, 4096)).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([x, [0.0, -2.0, 1e17, 1.0 + 2 ** -23]]).astype(
+        np.float32))
+    hi, mid, lo = _tf32_split(x)
+    assert torch.equal(hi + (mid + lo), x) and torch.equal(mid + lo, x - hi)
+    for piece in (hi, mid, lo):
+        assert not bool((piece.view(torch.int32) & 0x1FFF).any())
+    assert _tf32_round(torch.tensor([1.0 + 2 ** -11, -(1.0 + 2 ** -11),
+                                     1.0 + 2 ** -12])).tolist() == \
+        [1.0 + 2 ** -10, -(1.0 + 2 ** -10), 1.0]
+
+
+def test_split_r2_keeps_the_gram_gates():
+    """r2 as the kernel forms it, its 24 K slots summed in f32 in its order
+    (a model of the tensor-core accumulator, not of its rounding, which only
+    the card shows), on a 1,024-body Gaussian cluster at eps2 = 1e-4: the
+    accelerations within GRAM_RTOL in RMS and GRAM_MAX_RTOL in max of the
+    JAX package's dense sum in f64, as chip_smoke.py holds the kernel, and
+    no farther from it in RMS than the plain version (one fixed order of
+    the exact f32 dot). Measured: RMS 6.5e-5, max 2.2e-4; the plain version
+    1.1e-4, 5.4e-4."""
+    n = 1024
+    rng = np.random.default_rng(3)
+    pos, mass = rng.normal(size=(n, 3)), rng.uniform(0.5, 1.5, n) / n
+    p32, m32 = _t(pos.astype(np.float32), mass.astype(np.float32))
+    a64, _ = j_dense(pos, mass, G=1.0, eps2=EPS2)
+    a64 = torch.from_numpy(np.array(a64, np.float64))
+    iA, jB = cuda_forces_mxu.pack_gram(p32, m32)
+    a, b = _gram_slots(iA, "A"), _gram_slots(jB, "B")
+    r2 = torch.zeros((n, n), dtype=torch.float32)
+    for k in range(a.shape[1]):
+        r2 = r2 + a[:, k, None] * b[None, :, k]
+    with mxu_forces.full_f32_matmul():
+        s, _ = mxu_forces.gram_rows(r2, 0, jB[:, 0:4], m32, EPS2, False)
+    acc = (s[:, 0:3] - p32 * s[:, 3:4]).double()
+    rms = float((acc - a64).norm() / a64.norm())
+    worst = float((acc - a64).abs().max() / a64.abs().max())
+    print(f"3-piece r2 vs the f64 sum at N={n}: RMS {rms:.2e}, max {worst:.2e}")
+    assert rms < GRAM_RTOL and worst < GRAM_MAX_RTOL
+    a0, _ = cuda_forces_mxu.pairwise_acc_mxu_plain(p32, m32, G=1.0, eps2=EPS2)
+    assert rms <= float((a0.double() - a64).norm() / a64.norm())
+
+
+def test_r2_columns_match_the_ptx_fragment_layouts():
+    """The permutation pi of the r2 product's columns, read from the kernel's
+    stage() (the lane of chunk slot s writes B column n(s), so pi(n(s)) = s),
+    and the element order in which sweep_tile() passes the weights on,
+    against the PTX ISA's m16n8k8 layouts (g = lane / 4, t = lane % 4): C
+    element e of a thread is (row g + 8 (e // 2), column 2t + e % 2), A
+    element e is (row g + 8 (e % 2), column t + 4 (e // 2)). The weight of
+    C's (g, 2t + e) belongs to j body pi(2t + e) = t + 4e, which must be A's
+    column in the S product."""
+    cond, low, high = re.search(r"const int n = s < (\d+) \? ([^:]+) : ([^;]+);",
+                                _mxu_source_fn("stage")).groups()
+    pi = [0] * 8
+    for s_ in range(8):
+        pi[eval(low if s_ < int(cond) else high, {"s": s_})] = s_
+    order = [int(x) for x in re.search(r"const int order\[4\] = \{([^}]*)\};",
+                                       _mxu_source_fn("sweep_tile")).group(1).split(",")]
+    assert sorted(pi) == list(range(8)) and sorted(order) == list(range(4))
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for e in range(4):
+            c_row, c_col = g + 8 * (order[e] // 2), 2 * t + order[e] % 2
+            a_row, a_col = g + 8 * (e % 2), t + 4 * (e // 2)
+            assert c_row == a_row and pi[c_col] == a_col
+
+
+def test_split_slots_pair_the_dot_terms():
+    """The kernel's 24 K slots pair each kept piece product once: summed in
+    f64 they give |r_i|^2 + |r_j|^2 - 2 r_i.r_j up to the dropped piece
+    products, each < 2^-22 of the largest."""
+    pos, mass, _ = _bodies(64, 9)
+    iA, jB = cuda_forces_mxu.pack_gram(*_t(pos, mass))
+    a, b = _gram_slots(iA, "A").double(), _gram_slots(jB, "B").double()
+    assert a.shape == (64, 24) and b.shape == (64, 24)
+    r2 = a @ b.T
+    p = torch.from_numpy(pos.astype(np.float64))
+    exact = ((p[:, None, :] - p[None, :, :]) ** 2).sum(-1)
+    sq = torch.from_numpy(pos.astype(np.float32)).double().pow(2).sum(-1)
+    scale = float((sq[:, None] + sq[None, :]).max())
+    assert float((r2 - exact).abs().max()) < 2 ** -20 * scale
 
 
 @pytest.mark.parametrize("n_i,n_j,same", [(256, 512, False), (512, 256, False),
