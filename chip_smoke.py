@@ -6,17 +6,19 @@
 
 With ``--parent DIR`` (a checkout of another commit, e.g. unpacked by
 ``git archive``) it runs phases 1-2 and then only holds B1, B2, B3 (on
-coinciding tables), B5, B5 detect, B13 and B6 of this tree against those
-built from DIR's ``csrc/nbody_forces.cu``, ``nbody_jerk.cu``,
-``nbody_forces_mxu.cu`` and ``collisions.cu`` (N = 65,536, 7 dead, eps2
-1e-4 and 0, PE on and off) within FORCE_RTOL, JERK_RTOL and ENERGY_RTOL
-with equal contact counts, B13 by the Gram gates and B6 within BOUNCE_RTOL
-with the gated B6 bit-equal to the ungated, says whether each is
-bit-equal, and times both trees' kernels in turns. With ``--sweep`` it runs
-phases 1-2 and then builds the launch shapes of ``SWEEP`` (``-D`` overrides
-of the four sources' shape macros), holds each
-against the plain versions and times them in turns, with the registers,
-spills and SASS instructions a pair of each.
+coinciding tables), B5, B5 detect, B13, B6, B12 and B7 of this tree against
+those built from DIR's ``csrc/nbody_forces.cu``, ``nbody_jerk.cu``,
+``nbody_forces_mxu.cu``, ``collisions.cu``, ``nbody_forces_sym.cu`` and
+``tree_near.cu`` (N = 65,536, 7 dead, eps2 1e-4 and 0, PE on and off; B7 on
+the tree tables of ``Smoke.tree_calls``) within FORCE_RTOL, JERK_RTOL and
+ENERGY_RTOL with equal contact counts, B13 by the Gram gates, B6 within
+BOUNCE_RTOL with the gated B6 bit-equal to the ungated, B7 within NEAR_RTOL
+with equal overflow, says whether each is bit-equal, and times both trees'
+kernels in turns (B7 at 65,536 and 1,048,576 bodies). With ``--sweep`` it
+runs phases 1-2 and then builds the launch shapes of ``SWEEP`` (``-D``
+overrides of the six sources' shape macros), holds each against the plain
+versions and times them in turns, with the registers, spills and SASS
+instructions a pair of each.
 
 Phases, one line of output each; any failure exits nonzero:
 
@@ -25,8 +27,9 @@ Phases, one line of output each; any failure exits nonzero:
      source, all at once; the launch shape, registers, spills and SASS
      instructions a pair (``cuobjdump -sass``) of B1, B2, B3, B5, B5
      detect, B13 (with the TF32 HMMA of its inner loop, which must be
-     there) and B6, and the issue floor they imply at 528 warp
-     instructions a clock and 1.98 GHz;
+     there), B6, B12 and B7, and the issue floor they imply at 528 warp
+     instructions a clock and 1.98 GHz (B7's from its visited pairs, in
+     phase 24);
   3. the force kernel (B1) against its plain PyTorch version at N = 65536
      and a ragged N = 5000, PE on/off, eps2 > 0 and = 0, and the ds32 step
      at N = 8192 against the same step on plain forces;
@@ -99,7 +102,9 @@ Phases, one line of output each; any failure exits nonzero:
  24. tree timings: B7, its plain version, the far field, the evaluation and
      the KDK step at 65,536, with the device's busy share; one evaluation at
      N = 1,048,576 (levels 8) with its error against the exact f64 sum on
-     1,024 sampled bodies, beside one B1 evaluation;
+     1,024 sampled bodies, beside one B1 evaluation; B7's pairs (walked by
+     every row of every entry, live, visited by its box rule, issued as
+     lane slots, needed) and its issue floor at both sizes;
  25. the half-pair kernel (B12) against its plain version (the chunked full
      sweep) and the f64 sum at N = 65,536 and a ragged 4,992 (39 tiles of
      128, a third of the bodies dead and parked far): U = 0, dead rows 0;
@@ -330,13 +335,14 @@ MXU_STEPS = 200
 # warp instructions the card issues a second: 4 schedulers on each of 132
 # SMs at the 1.98 GHz boost clock (NVIDIA's data sheet, H100 SXM)
 INSTR_RATE = 528 * 1.98e9
-# the instantiations of the four register-tiled kernels that each record
+# the instantiations of the six register-tiled kernels that each record
 # reads (mangled-name stems: nbody_forces_kernel<kPE, kSoft, kDetect>,
-# jerk_kernel<kSoft, kDetect>, gram_kernel<kPE>, bounce_kernel), the C
-# function that reports the launch shape, the SASS instruction that marks
-# one pair in the inner loop (MUFU.RSQ on the softened sweeps; B6 rejects a
-# pair with one FMNMX, its parent's build with one FSETP) and the functions
-# a library of each source exports
+# jerk_kernel<kSoft, kDetect>, gram_kernel<kPE>, bounce_kernel,
+# sym_tile_kernel<512>, tree_near_kernel), the C function that reports the
+# launch shape, the SASS instruction that marks one pair in the inner loop
+# (MUFU.RSQ on the softened sweeps, an unordered pair in B12's, a visited
+# pair in B7's; B6 rejects a pair with one FMNMX, its parent's build with
+# one FSETP) and the functions a library of each source exports
 SHAPED = {
     "nbody_forces": ("nbody_forces_shape", {
         "B1": "nbody_forces_kernelILb0ELb1ELb0E", "B2": "nbody_forces_kernelILb0ELb1ELb1E",
@@ -346,27 +352,35 @@ SHAPED = {
     "nbody_forces_mxu": ("nbody_forces_mxu_shape", {"B13": "gram_kernelILb0E"},
                          r"MUFU\.RSQ"),
     "collisions": ("bounce_deltas_shape", {"B6": "bounce_kernel"}, r"\bFMNMX\b|\bFSETP\b"),
+    "nbody_forces_sym": ("nbody_forces_sym_shape", {"B12": "sym_tile_kernelILi512E"},
+                         r"MUFU\.RSQ"),
+    "tree_near": ("tree_near_shape", {"B7": "tree_near_kernel"}, r"MUFU\.RSQ"),
 }
 LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_block_forces",
                               "ot_error_string"),
              "nbody_jerk": ("nbody_jerk", "nbody_jerk_detect", "nbody_jerk_subset",
                             "ot_error_string"),
              "nbody_forces_mxu": ("nbody_forces_mxu", "ot_error_string"),
-             "collisions": ("bounce_deltas", "ot_error_string")}
+             "collisions": ("bounce_deltas", "ot_error_string"),
+             "nbody_forces_sym": ("nbody_forces_sym", "ot_error_string"),
+             "tree_near": ("tree_near", "ot_error_string")}
 # the sources whose inner loop must hold tensor-core products (TF32 HMMA)
 TENSOR_CORE = {"nbody_forces_mxu": r"\bHMMA\.\S*TF32"}
 # --sweep: the launch shapes built with -D (i bodies or m16 tiles a thread
-# or warp, warps a block); the first of B1's and B5's is the first
-# version's summation order with the one-MUFU rsqrt, the first of B6's the
-# first version's shape
+# or warp, or for B7 j rows a lane stages a round; warps a block); the first
+# of B1's and B5's is the first version's summation order with the one-MUFU
+# rsqrt, the first of B6's the first version's shape
 SWEEP = {
     "nbody_forces": ((1, 1), (2, 8), (4, 4), (4, 8), (4, 16), (8, 4), (8, 8)),
     "nbody_jerk": ((1, 1), (2, 4), (2, 8), (3, 8), (4, 4), (4, 8)),
     "nbody_forces_mxu": ((1, 4), (2, 4), (2, 8), (4, 2), (4, 4), (4, 8)),
     "collisions": ((1, 4), (2, 4), (2, 8), (4, 4), (4, 8)),
+    "nbody_forces_sym": ((2, 4), (4, 4), (8, 4), (8, 8), (16, 2), (16, 4)),
+    "tree_near": ((2, 4), (4, 4), (8, 2), (8, 4), (16, 2)),
 }
 SWEEP_MACRO = {"nbody_forces": "OT_FORCES", "nbody_jerk": "OT_JERK",
-               "nbody_forces_mxu": "OT_MXU", "collisions": "OT_BOUNCE"}
+               "nbody_forces_mxu": "OT_MXU", "collisions": "OT_BOUNCE",
+               "nbody_forces_sym": "OT_SYM", "tree_near": "OT_TREE"}
 
 B1 = dict(name="nbody_forces", route="cuda",
           source="orbital_tpu_torch/csrc/nbody_forces.cu",
@@ -469,41 +483,73 @@ def exact_acc_f64(pos, mass, idx, eps2: float, chunk: int = 16384):
 
 
 def tree_near_work(tab: dict, n: int, levels: int, ws: int, chunk: int, rj: int) -> dict:
-    """B7's work on a table of ``ops.tree_near_wl._wl_table``: the pairs it
-    walks (every row of every walked (i-chunk, j-block) entry, sentinel
-    rows included), the pairs of live rows among them, and the pairs the
+    """B7's work on a table of ``ops.tree_near_wl._wl_table``: the pairs a
+    sweep of every row of every (i-chunk, j-block) entry walks (sentinel
+    rows included: the first version's), the pairs of live rows among them,
+    the pairs the kernel visits (each chunk's live rows against the rows of
+    its entries inside the chunk's box, [min c - ws, max c + ws] on each
+    axis over its live rows), the lane slots its sweeps issue for them (32
+    lanes times ceil(J / G) warp iterations for a chunk's J visited j rows,
+    G = 32 / S groups, S the power of two >= its live rows; each of a
+    block's warps may add one part-filled iteration), and the pairs the
     function needs: each live body of a kept chunk against every other live
     body in its cell band (|c_i - c_j|_inf <= ws). Also the bytes the
     function must move: each live row read once (32 B), each kept body's
-    (ax, ay, az, pe) written once (16 B) and the runs (8 B each)."""
+    (ax, ay, az, pe) written once (16 B) and the runs (8 B each). Takes
+    chunks of at most 32 rows (one block slice each)."""
     import torch
 
+    if chunk > 32:
+        raise ValueError(f"tree_near_work counts chunks of <= 32 rows, got {chunk}")
     pb, start, count = tab["pbods"], tab["start_blk"].long(), tab["n_blk"].long()
     k_ch, n_nb = count.shape
-    blkw, M = rj * chunk, 2 ** levels
-    live = pb[:, 4] < n
+    blkw, M, dev = rj * chunk, 2 ** levels, pb.device
+    live = pb[:, 5] < 1e9
     walked = int(count.sum()) * chunk * blkw
     # live rows per i-chunk and, by prefix sums, per run of j-blocks
-    live_i = live.reshape(-1, chunk).sum(1)[:k_ch].long()
+    live_i = live[:k_ch * chunk].reshape(-1, chunk).sum(1).long()
     cum_j = torch.cat([live.new_zeros(1, dtype=torch.long),
                        torch.cumsum(live.reshape(-1, blkw).sum(1).long(), 0)])
     run_j = torch.where(count > 0, cum_j[start + count] - cum_j[start], 0)
     live_pairs = int((live_i * run_j.sum(1)).sum())
+    # each chunk's box, and the rows of each of its entries inside it
+    cells_i = pb[:k_ch * chunk, 5:8].reshape(k_ch, chunk, 3)
+    live_c = live[:k_ch * chunk].reshape(k_ch, chunk, 1)
+    big = torch.tensor(1e9, dtype=pb.dtype, device=dev)
+    lo = torch.where(live_c, cells_i, big).amin(1) - ws
+    hi = torch.where(live_c, cells_i, -big).amax(1) + ws
+    cnt_f, start_f = count.reshape(-1), start.reshape(-1)
+    run = torch.repeat_interleave(torch.arange(cnt_f.numel(), device=dev), cnt_f)
+    first = torch.cumsum(cnt_f, 0) - cnt_f
+    block = start_f[run] + torch.arange(run.numel(), device=dev) - first[run]
+    ent_c = run // n_nb
+    in_box = torch.zeros(k_ch, dtype=torch.long, device=dev)
+    ar = torch.arange(blkw, device=dev)
+    for e0 in range(0, run.numel(), 8192):
+        c_e = ent_c[e0:e0 + 8192]
+        cj = pb[(block[e0:e0 + 8192, None] * blkw + ar), 5:8]        # [E, blkw, 3]
+        inside = ((cj >= lo[c_e, None]) & (cj <= hi[c_e, None])).all(-1).sum(1)
+        in_box.index_add_(0, c_e, inside.long())
+    visited = int((live_i * in_box).sum())
+    width = 2 ** torch.ceil(torch.log2(live_i.clamp(min=1).double())).long()
+    groups = 32 // width
+    issued = int(torch.where(live_i > 0, 32 * -(-in_box // groups), 0).sum())
     # occupancy of the finest cells, box-summed over the band
     cell = pb[live, 5:8].long()
-    occ = torch.zeros(M ** 3, dtype=torch.long, device=pb.device)
+    occ = torch.zeros(M ** 3, dtype=torch.long, device=dev)
     occ.index_add_(0, (cell[:, 0] * M + cell[:, 1]) * M + cell[:, 2],
                    torch.ones_like(cell[:, 0]))
     box = torch.nn.functional.pad(occ.reshape(M, M, M), (ws,) * 6)
     for d in range(3):
         box = sum(box.narrow(d, k, box.shape[d] - 2 * ws) for k in range(2 * ws + 1))
-    kept = torch.zeros(pb.shape[0], dtype=torch.bool, device=pb.device)
+    kept = torch.zeros(pb.shape[0], dtype=torch.bool, device=dev)
     kept[:k_ch * chunk] = (count.sum(1) > 0).repeat_interleave(chunk)
     tgt = live & kept
     c_t = pb[tgt, 5:8].long()
     needed = int((box[c_t[:, 0], c_t[:, 1], c_t[:, 2]] - 1).sum())
     nbytes = 32 * int(live.sum()) + 16 * int(tgt.sum()) + 8 * k_ch * n_nb
-    return dict(walked=walked, live=live_pairs, needed=needed, nbytes=nbytes)
+    return dict(walked=walked, live=live_pairs, visited=visited, issued=issued,
+                needed=needed, nbytes=nbytes)
 
 
 def energy_f64(state) -> float:
@@ -924,17 +970,40 @@ def fmt(x, digits: int = 2, unit: str = "") -> str:
     return "not measured" if x is None or isinstance(x, str) else f"{x:.{digits}f}{unit}"
 
 
+def loop_pairs(key: str, rec: dict, n: int = N_MAIN):
+    """The pairs the inner loop of ``key``'s kernel walks at n bodies, one
+    pair marker each: the n^2 ordered pairs; for B12 the unordered pairs of
+    its tile pairs (a diagonal tile's twice); for B7 None, since they follow
+    the data (``tree_near_work`` counts them)."""
+    if key == "B7":
+        return None
+    if key == "B12":
+        return rec["shape"]["blocks"] * rec["shape"]["tile"] ** 2
+    return n * n
+
+
+def issue_floor_ms(per_pair, pairs, mhz: float = 1980.0):
+    """Milliseconds to issue ``per_pair`` warp instructions for each of
+    ``pairs`` pairs (32 to a warp) on 528 schedulers at ``mhz``; None when
+    either is unknown."""
+    if per_pair is None or isinstance(per_pair, str) or pairs is None:
+        return None
+    return 1e3 * per_pair * pairs / 32 / (528 * mhz * 1e6)
+
+
 def describe_launch(key: str, rec: dict, n: int = N_MAIN) -> str:
     """One launch record as text, with the issue floor its SASS count
     implies at n bodies, 528 schedulers and the 1.98 GHz boost clock."""
     sh, slots = rec["shape"], rec["sass_slots_per_pair"]
-    floor = None if isinstance(slots, str) else 1e3 * slots * n * n / 32 / INSTR_RATE
+    floor = issue_floor_ms(slots, loop_pairs(key, rec, n))
+    floor = (fmt(floor, 3, " ms") if key != "B7"
+             else "from the visited pairs, phase 24")
     hmma = (f", {rec['tf32_hmma_in_loop']} TF32 HMMA in the inner loop"
             if "tf32_hmma_in_loop" in rec else "")
     return (f"{key} k={sh['k']} q={sh['q']} tile={sh['tile']} ({sh['threads']} threads x "
             f"{sh['blocks']} blocks), {rec['registers']} registers, {rec['spill_bytes']} "
             f"spill bytes, {fmt(slots)} SASS instructions a pair (issue floor "
-            f"{fmt(floor, 3, ' ms')}){hmma}")
+            f"{floor}){hmma}")
 
 
 def held(out, ref, tols) -> tuple[float, bool]:
@@ -1056,11 +1125,12 @@ class Smoke:
                 if "entry function" in line or "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}", file=sys.stderr)
         each = ", ".join(f"{n} {kernels.build_seconds(n):.2f} s" for n in names)
-        # the launch shapes of the four register-tiled kernels, their
+        # the launch shapes of the six register-tiled kernels, their
         # registers and spills (a cached library is compiled again for its
-        # -Xptxas -v output), SASS instructions a pair and B13's TF32 HMMA
-        tiled = {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk,
-                 "nbody_forces_mxu": cuda_forces_mxu, "collisions": cuda_collisions}
+        # -Xptxas -v output), SASS instructions a pair and B13's TF32 HMMA;
+        # B7's blocks at the main path's chunk budget
+        tiled = self.redesigned()
+        at = {"tree_near": self.plummer()[3][0]}
         logs = {name: kernels.build_log(name) for name in tiled}
         again = {kernels.BUILD_DIR / "usage" / kernels._library_path(name)[1].name: name
                  for name, log in logs.items() if not log}
@@ -1072,7 +1142,7 @@ class Smoke:
         for name, mod in tiled.items():
             spills.append(f"{name} 0 in {spill_free(name, logs[name])} entry functions")
             recs = launch_record(mod._load(), name, logs[name],
-                                 sass(kernels._library_path(name)[1]))
+                                 sass(kernels._library_path(name)[1]), n=at.get(name, N_MAIN))
             for key, rec in recs.items():
                 self.kernels[key].update(rec)
                 shapes.append(describe_launch(key, rec))
@@ -2424,13 +2494,13 @@ class Smoke:
         return W._wl_table(sc, pos32[sort_idx], m_eff[sort_idx], sort_idx, pos.shape[0], M,
                            ws, budgets[0], TREE_CHUNK, budgets[1], TREE_RJ)
 
-    def ragged_tree_scene(self):
-        """N = 5000 Plummer bodies with a third dead and parked far."""
+    def ragged_tree_scene(self, n: int = N_TREE_RAGGED):
+        """n Plummer bodies with a third dead and parked far."""
         from orbital_tpu_torch.engine.state import far_positions
 
-        pos, _, mass = make_plummer(N_TREE_RAGGED, self.seed + 11)
-        alive = np.ones(N_TREE_RAGGED, bool)
-        dead = np.arange(0, N_TREE_RAGGED, 3)
+        pos, _, mass = make_plummer(n, self.seed + 11)
+        alive = np.ones(n, bool)
+        dead = np.arange(0, n, 3)
         alive[dead] = False
         pos[dead] = far_positions(len(dead), float(np.abs(pos).max()), np.float32)
         return pos, mass, alive
@@ -2678,6 +2748,15 @@ class Smoke:
                                                     tab["n_blk"], **dict(kw_b7, wl_entries=q))
 
         b7 = summary(time_ms(b7_call(t, budgets[1]), 20))
+        # the wrapper's host time a call (enqueue only): CUDA events count it
+        # too where it is longer than the kernel
+        call = b7_call(t, budgets[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        b7_host = 1e3 * (time.perf_counter() - t0) / 20
+        torch.cuda.synchronize()
         b7_p = summary(time_ms(lambda: cuda_tree.tree_near_plain(
             t["pbods"], t["start_blk"], t["n_blk"], **kw_b7), 1))
         work, bnd = b7_bound(t, N_MAIN, TREE_LEVELS)
@@ -2728,7 +2807,8 @@ class Smoke:
         work_big, bnd_big = b7_bound(t_big, N_TREE_BIG, TREE_BIG_LEVELS)
         b1_big = summary(time_ms(lambda: pairwise_acc_cuda(pb, mb, ab, G=1.0, eps2=TREE_EPS2,
                                                            with_potential=False), 1))
-        perf = {"b7_N65536": b7, "b7_plain": b7_p, "b7_pairs": work, "b7_bound": bnd,
+        perf = {"b7_N65536": b7, "b7_host_ms": b7_host, "b7_plain": b7_p, "b7_pairs": work,
+                "b7_bound": bnd,
                 "far_N65536": far, "eval_N65536": ev, "kdk_step_N65536": step,
                 "step_device_busy_ms": busy, "step_kernels": launched, "b7_device_ms": b7_dev,
                 "step_top_kernels": top, "budgets_N1048576": b_big, "probe_s": probe_s,
@@ -2745,10 +2825,15 @@ class Smoke:
                     f"kernels, B7 {b7_dev or 0:.3f} ms of device time; top: "
                     + ", ".join(f"{k[:40]} {c}x {tm:.2f} ms" for k, (c, tm) in top[:4]))
         def pairs(w):
-            return (f"pairs walked {w['walked']}, live {w['live']}, needed {w['needed']} "
-                    f"({100 * w['needed'] / w['walked']:.1f}% of walked)")
+            floor = issue_floor_ms(self.kernels["B7"].get("sass_slots_per_pair"), w["issued"])
+            return (f"pairs walked {w['walked']}, live {w['live']}, visited {w['visited']} "
+                    f"(issued as {w['issued']} lane slots), needed {w['needed']} "
+                    f"({100 * w['needed'] / w['walked']:.1f}% of walked, "
+                    f"{100 * w['needed'] / w['visited']:.1f}% of visited), issue floor "
+                    f"{fmt(floor, 4, ' ms')} at 1.98 GHz")
 
-        return (f"N={N_MAIN} l{TREE_LEVELS}: B7 {ms(b7)} vs plain {ms(b7_p)}, {pairs(work)}, "
+        return (f"N={N_MAIN} l{TREE_LEVELS}: B7 {ms(b7)} (the wrapper's host time {b7_host:.3f} "
+                f"ms a call) vs plain {ms(b7_p)}, {pairs(work)}, "
                 f"bound {bnd[0]:.4f} ms ({bnd[1]}, {100 * bnd[0] / b7['median']:.1f}%); far "
                 f"field {ms(far)}; evaluation {ms(ev)}; KDK step {ms(step)}; {profiled} | "
                 f"N={N_TREE_BIG} l{TREE_BIG_LEVELS} budgets {b_big} (probe {probe_s:.1f} s): "
@@ -3039,22 +3124,28 @@ class Smoke:
                 f"{diff:.2e} <= {STATE_ATOL:g} | simulate(pallas_sym, hermite) 10 steps: B5 "
                 f"{b5} launches, B12 {b12_sim}")
 
-    # the seven kernels of the four redesigned sources, for --sweep and
+    # the nine kernels of the six redesigned sources, for --sweep and
     # --parent: max |d| / max |ref| of each output (0: equal); B13 by
     # gram_held; B6G is B6 gated on the scene's contact count, B6Z on a zero
-    # count (the gate's cost)
+    # count (the gate's cost); B7, B7R, B7L and B7S are tree_calls' tables
     TOLS = {"B1": (FORCE_RTOL, ENERGY_RTOL), "B2": (FORCE_RTOL, ENERGY_RTOL, 0),
             "B3": (FORCE_RTOL, FORCE_RTOL), "B5": (FORCE_RTOL, JERK_RTOL, ENERGY_RTOL),
             "B5D": (FORCE_RTOL, JERK_RTOL, ENERGY_RTOL, 0),
             "B13": (GRAM_MAX_RTOL, GRAM_MAX_RTOL), "B6": (BOUNCE_RTOL, BOUNCE_RTOL),
-            "B6G": (BOUNCE_RTOL, BOUNCE_RTOL), "B6Z": (0, 0)}
+            "B6G": (BOUNCE_RTOL, BOUNCE_RTOL), "B6Z": (0, 0),
+            "B12": (FORCE_RTOL, FORCE_RTOL), "B7": (NEAR_RTOL, NEAR_RTOL),
+            "B7R": (NEAR_RTOL, NEAR_RTOL), "B7L": (NEAR_RTOL, NEAR_RTOL),
+            "B7S": (NEAR_RTOL, NEAR_RTOL, 0)}
     # the source of each, the calls timed in turns and the pairs that must
     # be bit-equal
     SOURCE = {"B1": "nbody_forces", "B2": "nbody_forces", "B3": "nbody_forces",
               "B5": "nbody_jerk", "B5D": "nbody_jerk", "B13": "nbody_forces_mxu",
-              "B6": "collisions", "B6G": "collisions", "B6Z": "collisions"}
+              "B6": "collisions", "B6G": "collisions", "B6Z": "collisions",
+              "B12": "nbody_forces_sym", "B7": "tree_near", "B7R": "tree_near",
+              "B7L": "tree_near", "B7S": "tree_near"}
     TIMED = {"nbody_forces": ("B1", "B2"), "nbody_jerk": ("B5", "B5D"),
-             "nbody_forces_mxu": ("B13",), "collisions": ("B6", "B6Z")}
+             "nbody_forces_mxu": ("B13",), "collisions": ("B6", "B6Z"),
+             "nbody_forces_sym": ("B12",), "tree_near": ("B7", "B7L")}
     SAME = {"nbody_forces": ("B1", "B2"), "nbody_jerk": ("B5", "B5D"),
             "collisions": ("B6", "B6G")}
 
@@ -3082,13 +3173,14 @@ class Smoke:
     def exact_calls(self, scene, eps2: float, pe: bool, plain: bool = False) -> dict:
         """{key: (wrapper module, call)} of B1 and B2 (PE as ``pe``), B3 (on
         coinciding tables; with PE, eps2 > 0 and N % 128 == 0 only), B5 and
-        B5 detect on ``scene``, B13 (its sums S and pe; eps2 > 0 and
-        N % 128 == 0 only), and B6 ungated and gated on B2's count
+        B5 detect on ``scene``, B13 (its sums S and pe) and B12 (eps2 > 0
+        and N % 128 == 0 only), and B6 ungated and gated on B2's count
         (restitution 0.8) and on a zero count; with ``plain``, their plain
         versions."""
         from orbital_tpu_torch.ops import cuda_collisions as cc
         from orbital_tpu_torch.ops import cuda_forces as cf
         from orbital_tpu_torch.ops import cuda_forces_mxu as cm
+        from orbital_tpu_torch.ops import cuda_forces_sym as cs
         from orbital_tpu_torch.ops import cuda_jerk as cj
 
         pos, vel, mass, rad, alive = scene
@@ -3128,17 +3220,90 @@ class Smoke:
 
             b13.exact = lambda: self.gram_exact(pos, iA, jB, eps2)
             calls["B13"] = (cm, b13)
+            calls["B12"] = (cs, lambda: fn(cs, "pairwise_acc_sym")(pos, mass, alive, **kw))
         return calls
+
+    def tree_calls(self, plain: bool = False, sizes=None) -> dict:
+        """{key: (wrapper module, call)} of B7 on tree tables made once on
+        the card: B7 on the main path's (``plummer()``: levels 7, ws 1), B7R
+        on the ragged bodies with a third dead at ws 2 and B7L on 1,048,576
+        bodies at levels 8, each returning (acc, pe) of the kept slots with
+        ``pairs``, the lane slots of ``tree_near_work``; B7S the ragged
+        bodies' whole near phase (``tree_acc_potential``) at starved
+        budgets, returning (acc, U, overflow), whose overflow is > 0.
+        ``sizes`` overrides ((N_MAIN, TREE_LEVELS), (N_TREE_RAGGED,
+        TREE_RAGGED_LEVELS), (N_TREE_BIG, TREE_BIG_LEVELS)); a last entry of
+        None drops B7L. With ``plain``, their plain versions."""
+        from orbital_tpu_torch.ops import cuda_tree
+        from orbital_tpu_torch.ops.tree import tree_acc_potential
+        from orbital_tpu_torch.ops.tree_near_wl import tree_wl_budgets, tree_wl_probe
+
+        torch = self.torch
+        sizes = sizes or ((N_MAIN, TREE_LEVELS), (N_TREE_RAGGED, TREE_RAGGED_LEVELS),
+                          (N_TREE_BIG, TREE_BIG_LEVELS))
+        cache = self.__dict__.setdefault("_tree_calls", {})
+        if sizes not in cache:
+            (n0, l0), (n1, l1), big = sizes
+            tabs = {}
+            for key, (n, levels) in (("B7", (n0, l0)), ("B7L", big)):
+                if key == "B7L" and big is None:
+                    continue
+                pos, _, mass = make_plummer(n, self.seed)
+                b = tree_wl_budgets(pos, levels=levels, ws=1, chunk=TREE_CHUNK, rj=TREE_RJ)
+                tabs[key] = (self.tree_table(pos, mass, np.ones(n, bool), levels, 1, b), b,
+                             1, n, levels)
+            pos, mass, alive = self.ragged_tree_scene(n1)
+            b = tree_wl_budgets(pos, alive, levels=l1, ws=2, chunk=TREE_CHUNK, rj=TREE_RJ)
+            tabs["B7R"] = (self.tree_table(pos, mass, alive, l1, 2, b), b, 2, n1, l1)
+            total, entries = tree_wl_probe(pos, alive, levels=l1, ws=1, chunk=TREE_CHUNK,
+                                           rj=TREE_RJ)
+            starved = (max(1, total - total // 4), max(1, entries // 4))
+            near = [torch.tensor(x, device=self.dev) for x in
+                    (pos.astype(np.float32), mass.astype(np.float32), alive)]
+            near_kw = dict(G_grav=1.0, eps2=TREE_EPS2, levels=l1, ws=1, near="kernel",
+                           max_chunks=starved[0], wl_entries=starved[1], chunk=TREE_CHUNK,
+                           wl_rj=TREE_RJ, _phase="near")
+            work = {k: tree_near_work(t, n, lv, ws, TREE_CHUNK, TREE_RJ)["issued"]
+                    for k, (t, _, ws, n, lv) in tabs.items() if k != "B7R"}
+            cache[sizes] = (tabs, near, near_kw, work)
+        tabs, near, near_kw, work = cache[sizes]
+
+        def table_call(key):
+            t, b, ws, _, _ = tabs[key]
+            slots = t["slot"][t["keep"]]
+
+            def call():
+                sweep = cuda_tree.tree_near_plain if plain else cuda_tree.tree_near_cuda
+                out = sweep(t["pbods"], t["start_blk"], t["n_blk"], wl_entries=b[1],
+                            chunk=TREE_CHUNK, rj=TREE_RJ, ws=ws, eps2=TREE_EPS2)
+                return out[slots, :3], out[slots, 3]
+
+            call.pairs = work.get(key)
+            return cuda_tree, call
+
+        def near_phase():
+            with plain_tree_near() if plain else contextlib.nullcontext():
+                return tree_acc_potential(*near, **near_kw)
+
+        calls = {k: table_call(k) for k in tabs}
+        calls["B7S"] = (cuda_tree, near_phase)
+        return calls
+
+    def redesigned(self):
+        """The wrapper module of each source in SHAPED."""
+        from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
+                                           cuda_forces_sym, cuda_jerk, cuda_tree)
+
+        return {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk,
+                "nbody_forces_mxu": cuda_forces_mxu, "collisions": cuda_collisions,
+                "nbody_forces_sym": cuda_forces_sym, "tree_near": cuda_tree}
 
     # --sweep
     def sweep(self) -> str:
-        from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
-                                           cuda_jerk)
         from orbital_tpu_torch.utils import kernels
 
         torch = self.torch
-        mods = {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk,
-                "nbody_forces_mxu": cuda_forces_mxu, "collisions": cuda_collisions}
+        mods = self.redesigned()
         jobs, variants = [], []
         for name, shapes in SWEEP.items():
             m = SWEEP_MACRO[name]
@@ -3151,30 +3316,37 @@ class Smoke:
         t0 = time.perf_counter()
         built = compile_libraries(jobs)
         build_s = time.perf_counter() - t0
+        # {group: calls(plain=False)}: exact_calls on the rich scene at N_MAIN
+        # and N_RAGGED (eps2 1e-4, PE on) and tree_calls
         scenes = {n: self.scene(n, R_RICH, 7, seed_offset=17, cluster=False)
                   for n in (N_MAIN, N_RAGGED)}
-        refs = {n: {k: c() for k, (_, c) in self.exact_calls(sc, EPS2, True, plain=True).items()}
-                for n, sc in scenes.items()}
+        groups = {n: (lambda sc: lambda plain=False: self.exact_calls(sc, EPS2, True,
+                                                                      plain=plain))(sc)
+                  for n, sc in scenes.items()}
+        groups["tree"] = self.tree_calls
+        refs = {g: {k: c() for k, (_, c) in mk(plain=True).items()} for g, mk in groups.items()}
         torch.cuda.synchronize()
         rows, timed = {}, {}
+        timed_calls = {**self.exact_calls(scenes[N_MAIN], EPS2, pe=False),
+                       **self.tree_calls()}
         for name, tag, out in variants:
             mod = mods[name]
             lib = bind_like(out, mod._load(), LIB_FUNCS[name])
             rec = launch_record(lib, name, built[out][0], sass(out))
             worst = 0.0
-            for n, sc in scenes.items():
-                calls = self.exact_calls(sc, EPS2, True)
+            for group, mk in groups.items():
+                calls = mk()
                 outs = {k: on(mod, lib, c) for k, (m_, c) in calls.items() if m_ is mod}
                 for k, o in outs.items():
-                    worst = max(worst, self.hold(k, o, refs[n][k], calls[k][1])[0])
-                if name in self.SAME:
+                    worst = max(worst, self.hold(k, o, refs[group][k], calls[k][1])[0])
+                if name in self.SAME and outs:
                     base, det = self.SAME[name]
                     if not all(torch.equal(x, y) for x, y in zip(outs[base], outs[det])):
-                        raise AssertionError(f"{name} {tag} at N={n}: {det} differs from {base}")
-            calls = self.exact_calls(scenes[N_MAIN], EPS2, pe=False)
+                        raise AssertionError(f"{name} {tag} at N={group}: {det} differs from "
+                                             f"{base}")
             for k in self.TIMED[name]:
                 timed[f"{tag} {k}"] = (lambda m_, l_, c_: lambda: on(m_, l_, c_))(
-                    mod, lib, calls[k][1])
+                    mod, lib, timed_calls[k][1])
             rows[f"{name} {tag}"] = {"launch": rec, "worst_vs_plain": worst}
         times = {k: summary(v) for k, v in alternate_ms(timed, 10, repeats=4).items()}
         for key, row in rows.items():
@@ -3195,19 +3367,17 @@ class Smoke:
         return (f"{len(variants)} launch shapes built in {build_s:.1f} s, each within the "
                 f"tolerances of the plain versions at N={N_MAIN} and {N_RAGGED} (7 dead, "
                 f"eps2 {EPS2:g}, PE on, R {R_RICH:g}) with detect bit-equal, counts exact and "
-                f"gated B6 bit-equal to ungated; N={N_MAIN} no PE, in turns: "
-                + "; ".join(lines))
+                f"gated B6 bit-equal to ungated, and on the tree tables (B7 at N={N_MAIN} and "
+                f"{N_TREE_BIG}, ragged ws 2, starved near phase with its overflow equal); "
+                f"N={N_MAIN} no PE, in turns: " + "; ".join(lines))
 
     # --parent
     def check_parent(self, parent: str) -> str:
         from pathlib import Path
 
-        from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
-                                           cuda_jerk)
         from orbital_tpu_torch.utils import kernels
 
-        mods = {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk,
-                "nbody_forces_mxu": cuda_forces_mxu, "collisions": cuda_collisions}
+        mods = self.redesigned()
         jobs = {name: (Path(parent) / "orbital_tpu_torch" / "csrc" / f"{name}.cu",
                        kernels.BUILD_DIR / "parent" / f"lib{name}.so") for name in mods}
         compile_libraries([(src, out, ()) for src, out in jobs.values()])
@@ -3215,6 +3385,16 @@ class Smoke:
                for name, mod in mods.items()}
         scene = self.scene(N_MAIN, R_RICH, 7, seed_offset=17, cluster=False)
         worst, equal, counts, cases = {}, {}, set(), 0
+
+        def hold(k, mod, call):
+            nonlocal cases
+            ref, out = on(mod, old[mod], call), call()
+            rel, eq = self.hold(k, out, ref, call)
+            worst[k] = max(worst.get(k, 0.0), rel)
+            equal[k] = equal.get(k, True) and eq
+            cases += 1
+            return ref, out
+
         for eps2 in (EPS2, 0.0):
             for pe in (True, False):
                 calls = self.exact_calls(scene, eps2, pe)
@@ -3222,25 +3402,26 @@ class Smoke:
                 for k, (mod, call) in calls.items():
                     if k in ("B5", "B5D") and not pe:
                         continue  # no PE switch: once for each eps2
-                    if k in ("B6", "B6G", "B6Z") and not (pe and eps2 > 0):
+                    if k in ("B6", "B6G", "B6Z", "B12") and not (pe and eps2 > 0):
                         continue  # neither: once
-                    ref, outs[k] = on(mod, old[mod], call), call()
-                    rel, eq = self.hold(k, outs[k], ref, call)
+                    ref, outs[k] = hold(k, mod, call)
                     if k == "B6":  # bounced rows whose deltas equal the parent's
                         moved = ref[1].abs().amax(1) > 0
                         same = (outs[k][0] == ref[0]).all(1) & (outs[k][1] == ref[1]).all(1)
                         b6_rows = (int((same & moved).sum()), int(moved.sum()))
-                    worst[k] = max(worst.get(k, 0.0), rel)
-                    equal[k] = equal.get(k, True) and eq
-                    cases += 1
                     if k in ("B2", "B5D"):
                         counts.add(int(outs[k][-1]))
                 if "B6G" in outs and not all(
                         self.torch.equal(x, y) for x, y in zip(outs["B6"], outs["B6G"])):
                     raise AssertionError("B6 gated on the count differs from B6 ungated")
+        tree = self.tree_calls()
+        overflow = int(hold("B7S", *tree["B7S"])[1][2])
+        for k in ("B7", "B7R", "B7L"):
+            hold(k, *tree[k])
         calls = {k: v for k, v in self.exact_calls(scene, EPS2, pe=False).items()
                  if k != "B6G"}
         calls["B3"] = self.exact_calls(scene, EPS2, pe=True)["B3"]
+        calls.update(B7=tree["B7"], B7L=tree["B7L"])
         fns = {}
         for k, (mod, call) in calls.items():
             fns[f"{k} parent"] = (lambda m_, l_, c_: lambda: on(m_, l_, c_))(mod, old[mod], call)
@@ -3256,32 +3437,37 @@ class Smoke:
         print("perf_parent " + json.dumps({"times": times, "slots": slots, "clocks": clocks}),
               file=sys.stderr)
         lines = []
-        for k in calls:
+        for k, (_, call) in calls.items():
             this, par = times[k], times[f"{k} parent"]
             faster = max(this["runs"]) < min(par["runs"])
+            base = "B7" if k == "B7L" else k
             line = (f"{k} {'bit-equal' if equal[k] else 'not bit-equal'} (max rel diff "
                     f"{worst[k]:.2e}), {this['median']:.3f} ms (spread {this['spread']:.3f}) "
                     f"vs parent {par['median']:.3f} ({par['spread']:.3f}), "
                     f"{par['median'] / this['median']:.2f}x, faster outside both spreads: "
                     f"{'yes' if faster else 'no'}; instructions a pair "
-                    f"{fmt(slots['this'].get(k))} (parent {fmt(slots['parent'].get(k))})")
+                    f"{fmt(slots['this'].get(base))} (parent {fmt(slots['parent'].get(base))})")
             if k == "B6":
                 line += f"; bounced rows bit-equal to the parent's: {b6_rows[0]} of {b6_rows[1]}"
-            mhz, per_pair = clocks[k]["sm_mhz"], slots["this"].get(k)
-            if per_pair and not isinstance(mhz, str):
-                floor = 1e3 * per_pair * N_MAIN * N_MAIN / 32 / (528 * mhz * 1e6)
+            mhz = clocks[k]["sm_mhz"]
+            pairs = getattr(call, "pairs", None) or loop_pairs(k, self.kernels.get(k, {}))
+            floor = (None if isinstance(mhz, str)
+                     else issue_floor_ms(slots["this"].get(base), pairs, mhz))
+            if floor is not None:
                 line += (f", SM clock {mhz:.0f} MHz at {clocks[k]['watts']:.0f} W: issue "
                          f"floor {floor:.3f} ms ({100 * floor / this['median']:.0f}%)")
             lines.append(line)
-        return (f"B1, B2, B3, B5, B5 detect, B13 and B6 held against the build of {parent}'s "
-                f"sources in {cases} calls (N={N_MAIN}, 7 dead, R {R_RICH:g}, eps2 {EPS2:g} "
-                f"and 0, PE on and off; within {FORCE_RTOL:g} / {JERK_RTOL:g} / "
+        return (f"B1, B2, B3, B5, B5 detect, B13, B6, B12 and B7 held against the build of "
+                f"{parent}'s sources in {cases} calls (N={N_MAIN}, 7 dead, R {R_RICH:g}, eps2 "
+                f"{EPS2:g} and 0, PE on and off; within {FORCE_RTOL:g} / {JERK_RTOL:g} / "
                 f"{ENERGY_RTOL:g}, B13's pe within {GRAM_RTOL:g} RMS and {GRAM_MAX_RTOL:g} max "
                 f"and its S within {GRAM_S_RTOL:g} RMS and {GRAM_MAX_RTOL:g} max of the exact S, "
-                f"B6 "
-                f"within {BOUNCE_RTOL:g} and gated == ungated, contact counts equal: "
-                f"{sorted(counts)}); in turns, 6 runs each (B1, B2, B13 no PE; B3 PE; B6 "
-                f"ungated, B6Z at a zero count): " + "; ".join(lines))
+                f"B6 within {BOUNCE_RTOL:g} and gated == ungated, contact counts equal: "
+                f"{sorted(counts)}; B7 within {NEAR_RTOL:g} on the tree tables at N={N_MAIN}, "
+                f"{N_TREE_BIG} and the ragged ws 2, and its starved near phase with overflow "
+                f"{overflow} equal); in turns, 6 runs each (B1, B2, B13 no PE; B3 PE; B6 "
+                f"ungated, B6Z at a zero count; B12; B7 at N={N_MAIN} and B7L at {N_TREE_BIG}): "
+                + "; ".join(lines))
 
     # phase 29
     def variant_timings(self) -> str:
@@ -3363,8 +3549,8 @@ def main(argv=None) -> int:
                         help="unrecorded steps of the 65,536-body drift run")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", metavar="DIR",
-                        help="only hold B1, B2, B3, B5, B5 detect, B13 and B6 against "
-                             "DIR's kernel sources (phases 1, 2 and this check)")
+                        help="only hold B1, B2, B3, B5, B5 detect, B13, B6, B12 and B7 "
+                             "against DIR's kernel sources (phases 1, 2 and this check)")
     parser.add_argument("--sweep", action="store_true",
                         help="only build and time the launch shapes of SWEEP (phases 1, 2 "
                              "and the sweep; with --parent, the parent check after it)")

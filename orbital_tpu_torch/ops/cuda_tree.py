@@ -4,9 +4,11 @@
 Replaces ``orbital_tpu/ops/tree_near_wl.py``'s Pallas worklist kernel
 (``_wl_kernel`` with ``_entry_math``). The kernel takes each i-chunk's block
 runs ``(start_blk, n_blk)`` of ``_wl_runs`` and walks them itself, one block
-per chunk; the chunks that the worklist budget drops come with count 0
-(``ops.tree_near_wl._wl_table`` zeroes them), so it sums exactly the
-entries of the TPU kernel's worklist.
+per 32-row slice of a chunk; the chunks that the worklist budget drops come
+with count 0 (``ops.tree_near_wl._wl_table`` zeroes them), so it sums exactly
+the entries of the TPU kernel's worklist. It visits only the chunk's live
+rows against the staged rows inside the chunk's cell box (a pair outside it
+fails the band and adds exactly 0; see the note at the top of the source).
 It writes one (ax, ay, az, pe) row per slot, acc without G.
 
 For CPU tensors :func:`tree_near_cuda` computes the plain version,
@@ -23,10 +25,6 @@ import torch
 from .tree_near_wl import tree_near_plain
 
 __all__ = ["tree_near_cuda"]
-
-# the kernel's block size and staged rows (csrc/tree_near.cu)
-_THREADS = 256
-_STAGE_ROWS = 512
 
 _lib = None
 
@@ -65,13 +63,11 @@ def tree_near_cuda(pbods: torch.Tensor, start_blk: torch.Tensor, n_blk: torch.Te
         raise ValueError(f"{fn}: all tensors must be on one device")
     c, blkw = int(chunk), int(rj) * int(chunk)
     k_ch, n_nb = n_blk.shape
-    groups = max(1, _THREADS // c)
-    smem = 16 * (2 * max(1, _STAGE_ROWS // blkw) * blkw + c * groups)
-    if (pbods.dim() != 2 or pbods.shape[1] != 8 or pbods.shape[0] % blkw
-            or pbods.shape[0] < (k_ch + 1) * c or c > _THREADS or smem > 48 * 1024):
+    if (pbods.dim() != 2 or pbods.shape[1] != 8 or c <= 0 or pbods.shape[0] % blkw
+            or pbods.shape[0] < (k_ch + 1) * c):
         raise ValueError(f"{fn}: table {tuple(pbods.shape)} with chunk={c}, rj={rj} is "
-                         f"outside the kernel's shapes (chunk <= {_THREADS}, staged rows "
-                         "<= 48 KB)")
+                         f"outside the kernel's shapes ([kpad * chunk, 8] rows, kpad a "
+                         f"multiple of rj above k_ch={k_ch})")
     count = n_blk.to(torch.int32).contiguous()
     start = start_blk.to(torch.int32).contiguous()
     rows = pbods.contiguous()

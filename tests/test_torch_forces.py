@@ -268,16 +268,41 @@ _HMMA_SASS = """
         /*0060*/                   FSETP.GT.AND P1, PT, R2, R3, PT ;
         /*0070*/              @P1 BRA 0x50 ;
         /*0080*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_115sym_tile_kernelILi128EEEvPK6float4ifPf
+        /*0000*/                   MUFU.RSQ R5, R2 ;
+        /*0010*/              @P0 BRA 0x0 ;
+        /*0020*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_115sym_tile_kernelILi512EEEvPK6float4ifPf
+        /*0000*/                   LDS.128 R8, [R2] ;
+        /*0010*/                   FADD R2, R8, -R4 ;
+        /*0020*/                   MUFU.RSQ R5, R2 ;
+        /*0030*/                   FFMA R6, R5, R5, R6 ;
+        /*0040*/                   MUFU.RSQ R7, R3 ;
+        /*0050*/                   STS.128 [R2], R8 ;
+        /*0060*/              @P0 BRA 0x0 ;
+        /*0070*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_116tree_near_kernelEPK6float4PKiS4_iiiiffPS0_
+        /*0000*/                   LDG.E.128 R8, [R2] ;
+        /*0010*/              @P0 BRA 0x0 ;
+        /*0020*/                   LDS.128 R8, [R2] ;
+        /*0030*/                   FSETP.GTU.AND P1, PT, |R2|, R3, PT ;
+        /*0040*/                   MUFU.RSQ R5, R2 ;
+        /*0050*/              @P1 BRA 0x20 ;
+        /*0060*/                   EXIT ;
 """
 
 
-@pytest.mark.parametrize("name,key", [("nbody_forces_mxu", "B13"), ("collisions", "B6")])
+@pytest.mark.parametrize("name,key", [("nbody_forces_mxu", "B13"), ("collisions", "B6"),
+                                      ("nbody_forces_sym", "B12"), ("tree_near", "B7")])
 def test_launch_record_of_the_gram_and_bounce_kernels(name, key):
-    """Phase 2's records of B13 and B6: the shape their C functions report,
-    instructions a pair over the pair marker of each (MUFU.RSQ; B6's FMNMX,
-    not the exact pass's FSETP), B13's TF32 HMMA count in that loop; B13
-    without HMMA in its inner loop (the tensor cores unused) raises, and so
-    does an instantiation missing from the ptxas output."""
+    """Phase 2's records of B13, B6, B12 and B7: the shape their C functions
+    report, instructions a pair over the pair marker of each (MUFU.RSQ; B6's
+    FMNMX, not the exact pass's FSETP; B12's 512-row instantiation, not the
+    128-row one; B7's sweep loop, not its staging loop), B13's TF32 HMMA
+    count in that loop, and the issue floor each implies (B12 over its tile
+    pairs' unordered pairs, B7's left to phase 24, which counts its visited
+    pairs); B13 without HMMA in its inner loop (the tensor cores unused)
+    raises, and so does an instantiation missing from the ptxas output."""
     import types
 
     import chip_smoke
@@ -295,8 +320,13 @@ def test_launch_record_of_the_gram_and_bounce_kernels(name, key):
     rec = recs[key]
     assert rec["shape"] == {"k": 2, "q": 4, "tile": 32, "threads": 128, "blocks": 156}
     assert rec["registers"] == 93 and rec["spill_bytes"] == 0
-    assert rec["sass_slots_per_pair"] == (3.5 if key == "B13" else 2.5)
+    assert rec["sass_slots_per_pair"] == {"B13": 3.5, "B6": 2.5, "B12": 3.5, "B7": 4.0}[key]
     assert rec.get("tf32_hmma_in_loop") == (2 if key == "B13" else None)
+    pairs = {"B12": 156 * 32 * 32, "B7": None}.get(key, 4992 * 4992)
+    assert chip_smoke.loop_pairs(key, rec, 4992) == pairs
+    floor = ("from the visited pairs, phase 24" if key == "B7" else
+             f"{chip_smoke.issue_floor_ms(rec['sass_slots_per_pair'], pairs):.3f} ms")
+    assert f"(issue floor {floor})" in chip_smoke.describe_launch(key, rec, 4992)
     if key == "B13":
         assert chip_smoke.describe_launch(key, rec).endswith("2 TF32 HMMA in the inner loop")
         with pytest.raises(AssertionError, match="tensor cores are not in use"):
@@ -307,13 +337,14 @@ def test_launch_record_of_the_gram_and_bounce_kernels(name, key):
 
 
 def test_parent_and_sweep_cover_the_redesigned_kernels(monkeypatch):
-    """--parent and --sweep reach all four redesigned sources: each has its
+    """--parent and --sweep reach all six redesigned sources: each has its
     exported functions, sweep shapes (k, q) and shape macro; each call of
-    exact_calls is held by its tolerances (on the CPU the wrappers take
-    their plain versions, so each holds with 0), B13 only where eps2 > 0,
-    its S against the exact S within GRAM_S_RTOL in RMS and GRAM_MAX_RTOL
-    in max and its pe by the Gram gates against the reference, B6 gated
-    and ungated."""
+    exact_calls and tree_calls (at small sizes) is held by its tolerances
+    (on the CPU the wrappers take their plain versions, so each holds with
+    0), B13 and B12 only where eps2 > 0, B13's S against the exact S within
+    GRAM_S_RTOL in RMS and GRAM_MAX_RTOL in max and its pe by the Gram gates
+    against the reference, B6 gated and ungated, B7's starved near phase
+    with its overflow > 0."""
     import chip_smoke
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -326,16 +357,22 @@ def test_parent_and_sweep_cover_the_redesigned_kernels(monkeypatch):
             assert smoke.SOURCE[key] == name and key in smoke.TOLS
     assert all(len(s) == 2 for shapes in chip_smoke.SWEEP.values() for s in shapes)
     scene = smoke.scene(640, 0.05, 7, seed_offset=17, cluster=False)
-    calls = smoke.exact_calls(scene, 1e-4, True)
-    refs = smoke.exact_calls(scene, 1e-4, True, plain=True)
+    sizes = ((2048, 5), (1000, 4), (4096, 5))
+    calls = {**smoke.exact_calls(scene, 1e-4, True), **smoke.tree_calls(sizes=sizes)}
+    refs = {**smoke.exact_calls(scene, 1e-4, True, plain=True),
+            **smoke.tree_calls(plain=True, sizes=sizes)}
     assert set(calls) == set(smoke.SOURCE)
     for key, (mod, call) in calls.items():
         assert mod.__name__.rsplit(".", 1)[1] == {
             "nbody_forces": "cuda_forces", "nbody_jerk": "cuda_jerk",
-            "nbody_forces_mxu": "cuda_forces_mxu", "collisions": "cuda_collisions"}[
+            "nbody_forces_mxu": "cuda_forces_mxu", "collisions": "cuda_collisions",
+            "nbody_forces_sym": "cuda_forces_sym", "tree_near": "cuda_tree"}[
                 smoke.SOURCE[key]]
+        assert mod is smoke.redesigned()[smoke.SOURCE[key]]
         assert smoke.hold(key, call(), refs[key][1](), call) == (0.0, True)
-    assert "B13" not in smoke.exact_calls(scene, 0.0, True)
+    assert not {"B12", "B13"} & set(smoke.exact_calls(scene, 0.0, True))
+    assert int(calls["B7S"][1]()[2]) > 0
+    assert calls["B7"][1].pairs > 0 and calls["B7L"][1].pairs > calls["B7"][1].pairs
     dv = calls["B6"][1]()[1]
     assert bool(dv.any())  # the scene has contacts
     b13 = calls["B13"][1]

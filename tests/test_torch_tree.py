@@ -483,3 +483,54 @@ def test_b7_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_tree.tree_near_cuda(t, runs, runs, wl_entries=8, chunk=CHUNK, rj=RJ, ws=1,
                                  eps2=EPS2)
+
+
+@pytest.mark.parametrize("ws", [1, 2])
+def test_b7_box_rule_keeps_every_taken_pair(ws):
+    """B7 visits only each chunk's live rows (cells below 1e9) against the
+    rows of its entries inside the chunk's cell box, [min c - ws, max c + ws]
+    on each axis over those live rows (csrc/tree_near.cu). On a Plummer blob
+    of 1,200 bodies, a third dead and parked far, at levels 5: every pair
+    that JAX's ``_entry_math`` takes over JAX's worklist (``_wl_expand``)
+    lies inside that rule, and chip_smoke.tree_near_work counts the rule's
+    pairs and, as its needed pairs, exactly the taken ones."""
+    import chip_smoke
+
+    smoke = chip_smoke.Smoke(0, 10)
+    pos, mass, alive = smoke.ragged_tree_scene(1200)
+    levels, M = 5, 32
+    k_ch, q = tw.tree_wl_budgets(pos, alive, levels=levels, ws=ws, chunk=CHUNK, rj=RJ)
+    p32, alive_b, _, m_eff, _, _, _, cc = tt._bin(*_t(pos.astype(np.float32),
+                                                      mass.astype(np.float32), alive),
+                                                  M, None, F32)
+    sc, idx = tt._sort_cells(cc, alive_b, M)
+    tab = tw._wl_table(sc, p32[idx], m_eff[idx], idx, len(pos), M, ws, k_ch, CHUNK, q, RJ)
+    assert int(tab["cap_overflow"]) == int(tab["cell_overflow"]) == 0
+    rows = tab["pbods"].numpy()
+    ref_i, ref_jb, _ = jax.jit(jw._wl_expand, static_argnums=(2, 3, 4))(
+        jnp.asarray(tab["start_blk"].numpy(), jnp.int32),
+        jnp.asarray(tab["n_blk"].numpy(), jnp.int32), k_ch, q, q)
+    ent = np.asarray(ref_i) < k_ch
+    wl_i, wl_jb = np.asarray(ref_i)[ent], np.asarray(ref_jb)[ent]
+    W = RJ * CHUNK
+    ib = rows[wl_i[:, None] * CHUNK + np.arange(CHUNK)]             # [E, C, 8]
+    jb = rows[wl_jb[:, None] * W + np.arange(W)]                    # [E, W, 8]
+    # JAX's take, pair by pair: _entry_math's pe of each j row alone, with
+    # every mass 1 (> 0 exactly where it takes the pair)
+    jb1 = jb.copy()
+    jb1[..., 3] = 1.0
+    one = jax.vmap(lambda i, j: jw._entry_math(i, j, ws, EPS2), in_axes=(None, 0))
+    pe = np.asarray(jax.jit(jax.vmap(one))(jnp.asarray(ib), jnp.asarray(jb1[..., None])))[
+        ..., 3]                                                     # [E, W, C]
+    taken = pe.transpose(0, 2, 1) > 0                               # [E, C, W]
+    # the kernel's rule
+    live_i = ib[..., 5] < 1e9                                       # [E, C]
+    cells = np.where(live_i[..., None], ib[..., 5:8], np.nan)
+    lo, hi = np.nanmin(cells, 1) - ws, np.nanmax(cells, 1) + ws    # [E, 3]
+    in_box = np.all((jb[..., 5:8] >= lo[:, None]) & (jb[..., 5:8] <= hi[:, None]), -1)
+    visits = live_i[:, :, None] & in_box[:, None, :]
+    assert taken.sum() > 0 and not (taken & ~visits).any()
+    work = chip_smoke.tree_near_work(tab, len(pos), levels, ws, CHUNK, RJ)
+    assert work["visited"] == int(visits.sum()) and work["needed"] == int(taken.sum())
+    assert work["needed"] <= work["visited"] <= work["issued"] and \
+        work["visited"] < work["live"] < work["walked"]
