@@ -6,35 +6,41 @@
 
 With ``--parent DIR`` (a checkout of another commit, e.g. unpacked by
 ``git archive``) it runs phases 1-2 and then only holds B1, B2, B3 (on
-coinciding tables), B5, B5 detect, B13, B6, B12 and B7 of this tree against
-those built from DIR's ``csrc/nbody_forces.cu``, ``nbody_jerk.cu``,
-``nbody_forces_mxu.cu``, ``collisions.cu``, ``nbody_forces_sym.cu`` and
-``tree_near.cu`` (N = 65,536, 7 dead, eps2 1e-4 and 0, PE on and off; B7 on
-the tree tables of ``Smoke.tree_calls``) within FORCE_RTOL, JERK_RTOL and
-ENERGY_RTOL with equal contact counts, B13 by the Gram gates, B6 within
-BOUNCE_RTOL with the gated B6 bit-equal to the ungated, B7 within NEAR_RTOL
-with equal overflow, says whether each is bit-equal, and times both trees'
-kernels in turns (B7 at 65,536 and 1,048,576 bodies). With ``--sweep`` it
-runs phases 1-2 and then builds the launch shapes of ``SWEEP`` (``-D``
-overrides of the six sources' shape macros), holds each against the plain
-versions and times them in turns, with the registers, spills and SASS
-instructions a pair of each.
+coinciding tables), B5, B5 detect, B13, B6, B12, B7, the near sweep and B4
+of this tree against those built from DIR's ``csrc/nbody_forces.cu``,
+``nbody_jerk.cu``, ``nbody_forces_mxu.cu``, ``collisions.cu``,
+``nbody_forces_sym.cu``, ``tree_near.cu``, ``neighbor.cu`` and
+``fused_rollout.cu`` (N = 65,536, 7 dead, eps2 1e-4 and 0, PE on and off; B7
+on the tree tables of ``Smoke.tree_calls``, the near sweep on the RESPA
+geometries of ``Smoke.near_calls``, B4 on FUSED_CASES) within FORCE_RTOL,
+JERK_RTOL and ENERGY_RTOL with equal contact counts, B13 by the Gram gates,
+B6 within BOUNCE_RTOL with the gated B6 bit-equal to the ungated, B7 and
+the near sweep within NEAR_RTOL (B7 with equal overflow), B4 within
+STATE_ATOL, says whether each is bit-equal, and times both trees' kernels
+in turns (B7 at 65,536 and 1,048,576 bodies, B4 at 4,096 and 32,768 in
+ds32 and f32). A source whose C signature predates its redesign (the near
+sweep's and B4's first versions) runs through ``FIRST_SIGNATURES``. With
+``--sweep`` it runs phases 1-2 and then builds the launch shapes of
+``SWEEP`` (``-D`` overrides of the eight sources' shape macros), holds each
+against the plain versions and times them in turns, with the registers,
+spills and SASS instructions a pair of each.
 
 Phases, one line of output each; any failure exits nonzero:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``orbital_tpu_torch/csrc``, one nvcc per
      source, all at once; the launch shape, registers, spills and SASS
-     instructions a pair (``cuobjdump -sass``) of B1, B2, B3, B5, B5
+     instructions a pair (``cuobjdump -sass``) of B1, B2, B3, B4, B5, B5
      detect, B13 (with the TF32 HMMA of its inner loop, which must be
-     there), B6, B12 and B7, and the issue floor they imply at 528 warp
-     instructions a clock and 1.98 GHz (B7's from its visited pairs, in
-     phase 24);
+     there), B6, B12, B7 and the near sweep, and the issue floor they imply
+     at 528 warp instructions a clock and 1.98 GHz (B7's and the near
+     sweep's from their visited pairs, in phases 24 and 20);
   3. the force kernel (B1) against its plain PyTorch version at N = 65536
      and a ragged N = 5000, PE on/off, eps2 > 0 and = 0, and the ds32 step
      at N = 8192 against the same step on plain forces;
   4. the fused-rollout kernel (B4) against the plain KDK loop at N = 4096
-     (ds32 and f32, with dead padding bodies) and N = 32768;
+     (ds32 and f32, with dead padding bodies), at a ragged unpadded
+     N = 5000 and at N = 32768 (ds32 and f32), with its launch plan;
   5. the main path: the 65,536-body virialised ds32 cluster through
      ``init_forces`` -> a recorded ``rollout`` -> an unrecorded ``rollout``,
      with the energy drift measured in f64 (kinetic on the host, potential
@@ -53,7 +59,9 @@ Phases, one line of output each; any failure exits nonzero:
  10. the collision main path, contact-rich: radius 3e-3, restitution 0.8,
      200 steps, and the first 10 steps against the plain forces, counts and
      bounce sweep;
- 11. kernel and plain times (CUDA events, median and spread of 3 repeats);
+ 11. kernel and plain times (CUDA events, median and spread of 3 repeats),
+     B4 in turns with the step loop it stands in for
+     (``rollout(fused="never")``) at N = 4096, 8192, 16384 and 32768;
  12. the acc + jerk kernel (B5), its detecting variant and its row-subset
      variant against their plain versions at N = 65536 and 5000, eps2 > 0
      and = 0, dead bodies parked far, F = 64 and 37 target rows; the
@@ -75,7 +83,8 @@ Phases, one line of output each; any failure exits nonzero:
      against its plain version, over the padded block table and over the
      worklist, at the 65,536-body headline geometry and at a ragged N = 5000
      with dead bodies and starved budgets (every overflow counter > 0); each
-     against the f64 sum too;
+     against the f64 sum too, and the columns of a row table bit-equal to
+     four channels;
  19. the multirate (RESPA) main path: the same cluster with the bench's
      configuration (rc = 5 eps, cell = 2 rc, K = 4, refresh every 4 macro
      windows) through ``init_forces`` -> a recorded and an unrecorded
@@ -84,7 +93,10 @@ Phases, one line of output each; any failure exits nonzero:
      with bounce collisions (refresh 1) bit-equal to a collision-free run
      up to the first contact;
  20. near kernel, geometry, pack/unpack, macro-step and per-substep times at
-     K = 4 and K = 5 against the KDK step;
+     K = 4 and K = 5 against the KDK step; the near sweep's pairs (walked by
+     every row of every live entry, live, visited by its box rule, issued as
+     lane slots, needed: ``near_work``), visited < 10% of walked, and its
+     bound over the needed pairs and the bytes it must move;
  21. the tree's near-field kernel (B7) against its plain version at the
      65,536-body Plummer geometry (levels 7, ws 1) and a ragged N = 5000 with
      a third of its bodies dead, at ws 1 and 2 and with starved budgets
@@ -187,6 +199,16 @@ R_RICH = 3e-3
 N_MAIN = 65536
 N_RAGGED = 5000
 R_RAGGED = 0.015
+# the fused rollout (B4): its main path's N (the unrecorded drift rung), the
+# largest N it serves, and the N at which phase 11 times it in turns with
+# the step loop it stands in for
+N_FUSED, N_FUSED_BIG = 4096, 32768
+FUSED_TURNS = (4096, 8192, 16384, 32768)
+# B4's checked scenes by key: (N, live bodies, precision); the dead padding
+# of the 4,096 ones, and the ragged 5,000 (40 tiles of 128, the last cut)
+FUSED_CASES = {"B4": (N_FUSED, 4000, "ds32"), "B4F": (N_FUSED, 4000, "f32"),
+               "B4R": (N_RAGGED, N_RAGGED, "ds32"), "B4L": (N_FUSED_BIG, N_FUSED_BIG, "ds32"),
+               "B4LF": (N_FUSED_BIG, N_FUSED_BIG, "f32")}
 # Hermite runs (phases 13-17): the adaptive run's eta and length; the block
 # runs' softening, planted binary, eta and macro steps; the contact-rich
 # Hermite run's length and its steps checked against the plain versions.
@@ -335,14 +357,15 @@ MXU_STEPS = 200
 # warp instructions the card issues a second: 4 schedulers on each of 132
 # SMs at the 1.98 GHz boost clock (NVIDIA's data sheet, H100 SXM)
 INSTR_RATE = 528 * 1.98e9
-# the instantiations of the six register-tiled kernels that each record
+# the instantiations of the eight redesigned kernels that each record
 # reads (mangled-name stems: nbody_forces_kernel<kPE, kSoft, kDetect>,
 # jerk_kernel<kSoft, kDetect>, gram_kernel<kPE>, bounce_kernel,
-# sym_tile_kernel<512>, tree_near_kernel), the C function that reports the
-# launch shape, the SASS instruction that marks one pair in the inner loop
-# (MUFU.RSQ on the softened sweeps, an unordered pair in B12's, a visited
-# pair in B7's; B6 rejects a pair with one FMNMX, its parent's build with
-# one FSETP) and the functions a library of each source exports
+# sym_tile_kernel<512>, tree_near_kernel, near_sweep_kernel,
+# fused_kdk_kernel), the C function that reports the launch shape, the SASS
+# instruction that marks one pair in the inner loop (MUFU.RSQ on the
+# softened sweeps, an unordered pair in B12's, a visited pair in B7's and
+# the near sweep's; B6 rejects a pair with one FMNMX, its parent's build
+# with one FSETP) and the functions a library of each source exports
 SHAPED = {
     "nbody_forces": ("nbody_forces_shape", {
         "B1": "nbody_forces_kernelILb0ELb1ELb0E", "B2": "nbody_forces_kernelILb0ELb1ELb1E",
@@ -355,6 +378,8 @@ SHAPED = {
     "nbody_forces_sym": ("nbody_forces_sym_shape", {"B12": "sym_tile_kernelILi512E"},
                          r"MUFU\.RSQ"),
     "tree_near": ("tree_near_shape", {"B7": "tree_near_kernel"}, r"MUFU\.RSQ"),
+    "neighbor": ("near_sweep_shape", {"NEAR": "near_sweep_kernel"}, r"MUFU\.RSQ"),
+    "fused_rollout": ("fused_kdk_shape", {"B4": "fused_kdk_kernel"}, r"MUFU\.RSQ"),
 }
 LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_block_forces",
                               "ot_error_string"),
@@ -363,13 +388,15 @@ LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_bloc
              "nbody_forces_mxu": ("nbody_forces_mxu", "ot_error_string"),
              "collisions": ("bounce_deltas", "ot_error_string"),
              "nbody_forces_sym": ("nbody_forces_sym", "ot_error_string"),
-             "tree_near": ("tree_near", "ot_error_string")}
+             "tree_near": ("tree_near", "ot_error_string"),
+             "neighbor": ("near_sweep", "ot_error_string"),
+             "fused_rollout": ("fused_kdk", "fused_kdk_shape", "ot_error_string")}
 # the sources whose inner loop must hold tensor-core products (TF32 HMMA)
 TENSOR_CORE = {"nbody_forces_mxu": r"\bHMMA\.\S*TF32"}
 # --sweep: the launch shapes built with -D (i bodies or m16 tiles a thread
-# or warp, or for B7 j rows a lane stages a round; warps a block); the first
-# of B1's and B5's is the first version's summation order with the one-MUFU
-# rsqrt, the first of B6's the first version's shape
+# or warp, or for B7 and the near sweep j rows a lane stages a round; warps
+# a block); the first of B1's and B5's is the first version's summation
+# order with the one-MUFU rsqrt, the first of B6's the first version's shape
 SWEEP = {
     "nbody_forces": ((1, 1), (2, 8), (4, 4), (4, 8), (4, 16), (8, 4), (8, 8)),
     "nbody_jerk": ((1, 1), (2, 4), (2, 8), (3, 8), (4, 4), (4, 8)),
@@ -377,10 +404,13 @@ SWEEP = {
     "collisions": ((1, 4), (2, 4), (2, 8), (4, 4), (4, 8)),
     "nbody_forces_sym": ((2, 4), (4, 4), (8, 4), (8, 8), (16, 2), (16, 4)),
     "tree_near": ((2, 4), (4, 4), (8, 2), (8, 4), (16, 2)),
+    "neighbor": ((2, 4), (4, 2), (4, 4), (4, 8), (8, 4)),
+    "fused_rollout": ((2, 8), (4, 4), (4, 8), (4, 16), (8, 8)),
 }
 SWEEP_MACRO = {"nbody_forces": "OT_FORCES", "nbody_jerk": "OT_JERK",
                "nbody_forces_mxu": "OT_MXU", "collisions": "OT_BOUNCE",
-               "nbody_forces_sym": "OT_SYM", "tree_near": "OT_TREE"}
+               "nbody_forces_sym": "OT_SYM", "tree_near": "OT_TREE",
+               "neighbor": "OT_NEAR", "fused_rollout": "OT_FUSED"}
 
 B1 = dict(name="nbody_forces", route="cuda",
           source="orbital_tpu_torch/csrc/nbody_forces.cu",
@@ -548,6 +578,83 @@ def tree_near_work(tab: dict, n: int, levels: int, ws: int, chunk: int, rj: int)
     c_t = pb[tgt, 5:8].long()
     needed = int((box[c_t[:, 0], c_t[:, 1], c_t[:, 2]] - 1).sum())
     nbytes = 32 * int(live.sum()) + 16 * int(tgt.sum()) + 8 * k_ch * n_nb
+    return dict(walked=walked, live=live_pairs, visited=visited, issued=issued,
+                needed=needed, nbytes=nbytes)
+
+
+def _directed_f32(v, up: bool):
+    """float64 values rounded to float32 toward +inf (``up``) or -inf, as
+    the kernel's __fadd_ru / __fsub_rd round (returned as float64)."""
+    import torch
+
+    r = v.float()
+    away = r.double() < v if up else r.double() > v
+    inf = torch.full_like(r, float("inf") if up else float("-inf"))
+    return torch.where(away, torch.nextafter(r, inf), r).double()
+
+
+def near_work(geom: dict, channels, rc: float, chunk: int, rj: int, eps2: float = EPS2,
+              r1: float = None) -> dict:
+    """The near sweep's work on a geometry of ``ops.neighbor.neighbor_geometry``
+    and its slot channels (xs, ys, zs, ms): the pairs a sweep of every row of
+    every live jbl entry walks (sentinel rows included: the first version's),
+    the pairs of live rows among them, the pairs the kernel visits (each
+    chunk's live rows against the rows of its entries inside the chunk's
+    box, [min - h, max + h] on each axis over its live rows, lo rounded down
+    and hi up in f32, h of ``cuda_neighbor.near_params``), the lane slots its
+    sweeps issue for them (32 lanes times ceil(J / G) warp iterations for a
+    chunk's J visited j rows, G = 32 / S groups, S the power of two >= its
+    live rows; each of a block's warps may add one part-filled iteration),
+    and the pairs the function needs: live rows closer than rc (r^2 of the
+    f32 positions in f64), self pairs excluded. A row is live unless x, y
+    and z are all >= half of SENTINEL_POS, as the kernel tells them. Also
+    the bytes the function must move: the slot channels read once (16 B a
+    slot), the table and the counts (4 B an entry, 4 B a chunk) and one
+    (ax, ay, az, pe) row a chunk slot written once (16 B). Takes chunks of
+    at most 32 rows (one block slice each)."""
+    import torch
+
+    from orbital_tpu_torch.ops.cuda_neighbor import near_params
+
+    if chunk > 32:
+        raise ValueError(f"near_work counts chunks of <= 32 rows, got {chunk}")
+    jbl = geom["jbl"].long()
+    k_ch, w_blk = jbl.shape
+    pos = torch.stack([c.float() for c in channels[:3]], dim=1)      # [n_slots, 3]
+    n_slots, blkw, dev = pos.shape[0], rj * chunk, pos.device
+    used = jbl != n_slots // blkw - 1
+    count = used.sum(1)
+    walked = int(count.sum()) * chunk * blkw
+    live = ~(pos >= 5e14).all(1)
+    live_i = live[:k_ch * chunk].reshape(k_ch, chunk)
+    n_i = live_i.sum(1)
+    live_b = live.reshape(-1, blkw).sum(1)
+    live_pairs = int((n_i * torch.where(used, live_b[jbl], 0).sum(1)).sum())
+    # each chunk's box, rounded outward as the kernel rounds it
+    h = near_params(0.5 * rc if r1 is None else r1, rc, 1.0, eps2)["h"]
+    p_i = pos[:k_ch * chunk].reshape(k_ch, chunk, 3).double()
+    big = torch.tensor(1e30, dtype=torch.float64, device=dev)
+    lo = _directed_f32(torch.where(live_i[..., None], p_i, big).amin(1) - h, up=False)
+    hi = _directed_f32(torch.where(live_i[..., None], p_i, -big).amax(1) + h, up=True)
+    ent_c, ent_q = torch.nonzero(used & (n_i > 0)[:, None], as_tuple=True)
+    ent_b = jbl[ent_c, ent_q]
+    in_box = torch.zeros(k_ch, dtype=torch.long, device=dev)
+    needed = 0
+    ar, ai = torch.arange(blkw, device=dev), torch.arange(chunk, device=dev)
+    for e0 in range(0, ent_c.numel(), 2048):
+        c_e, b_e = ent_c[e0:e0 + 2048], ent_b[e0:e0 + 2048]
+        rows = b_e[:, None] * blkw + ar                                # [E, blkw]
+        pj = pos[rows].double()                                       # [E, blkw, 3]
+        inside = ((pj >= lo[c_e, None]) & (pj <= hi[c_e, None])).all(-1)
+        in_box.index_add_(0, c_e, inside.sum(1))
+        slots = c_e[:, None] * chunk + ai                              # [E, chunk]
+        d2 = ((pj[:, None] - pos[slots].double()[:, :, None]) ** 2).sum(-1)
+        near = (d2 < rc * rc) & live[slots][:, :, None] & live[rows][:, None, :]
+        needed += int((near & (slots[:, :, None] != rows[:, None, :])).sum())
+    visited = int((n_i * in_box).sum())
+    width = 2 ** torch.ceil(torch.log2(n_i.clamp(min=1).double())).long()
+    issued = int(torch.where(n_i > 0, 32 * -(-in_box // (32 // width)), 0).sum())
+    nbytes = 16 * n_slots + 4 * k_ch * w_blk + 4 * k_ch + 16 * k_ch * chunk
     return dict(walked=walked, live=live_pairs, visited=visited, issued=issued,
                 needed=needed, nbytes=nbytes)
 
@@ -735,14 +842,106 @@ def bind_like(path, like, names):
     return lib
 
 
+class OldBuild:
+    """Another build of a source whose C entry point predates this tree's
+    wrapper: ``on`` runs the wrapper with its launch function (``patches``,
+    by name) swapped for one written against the old signature."""
+
+    def __init__(self, lib, patches: dict):
+        self.lib, self.patches = lib, patches
+
+
+def _near_sweep_first(lib):
+    """``cuda_neighbor._sweep`` against the near sweep's first C signature
+    (one float4 table; the wrapper counted each row's live prefix and took
+    the self pair off pe)."""
+    import ctypes
+
+    import torch
+
+    from orbital_tpu_torch.utils.kernels import check
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.near_sweep.restype = ctypes.c_int
+    lib.near_sweep.argtypes = [p, p, p, i, p, i, i, i, f, f, f, f, f, p, p, i]
+
+    def sweep(xs, ys, zs, ms, blocks, off, stride, count, k_ch, *, r1, rc, G, eps2, chunk,
+              rj):
+        c, blkw = int(chunk), int(rj) * int(chunk)
+        pts = torch.stack([xs, ys, zs, ms], dim=1).contiguous()
+        if count is None:
+            count = torch.sum(blocks != xs.shape[0] // blkw - 1, dim=1, dtype=torch.int32)
+        out = torch.empty((k_ch * c, 4), dtype=torch.float32, device=xs.device)
+        inv_d = 1.0 / (rc * rc - r1 * r1)
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
+        err = lib.near_sweep(pts.data_ptr(), blocks.data_ptr(),
+                             None if off is None else off.data_ptr(), int(stride),
+                             count.data_ptr(), int(k_ch), c, blkw, float(rc * rc),
+                             float(inv_d), float(30.0 * inv_d), float(eps2), float(G),
+                             out.data_ptr(), stream, xs.device.index or 0)
+        check(lib, err, "near_sweep launch (first signature)")
+        return out[:, :3], out[:, 3] - ms[:k_ch * c] * (float(eps2) ** -0.5)
+
+    return {"_sweep": sweep}
+
+
+def _fused_launch_first(lib):
+    """``fused_rollout._launch`` against B4's first C signature (no launch
+    plan: the kernel sized its own grid)."""
+    import ctypes
+
+    import torch
+
+    from orbital_tpu_torch.utils.kernels import check
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fused_kdk.restype = ctypes.c_int
+    lib.fused_kdk.argtypes = [p] * 7 + [i, i, f, f, f, f, i, p, i]
+
+    def launch(pos_hi, pos_lo, vel_hi, vel_lo, mass, keep, cfg, steps, ds):
+        acc = torch.empty_like(pos_hi)
+        dev = pos_hi.device
+        err = lib.fused_kdk(pos_hi.data_ptr(), pos_lo.data_ptr(), vel_hi.data_ptr(),
+                            vel_lo.data_ptr(), acc.data_ptr(), mass.data_ptr(),
+                            keep.data_ptr(), pos_hi.shape[1], int(steps), float(cfg.dt),
+                            float(0.5 * cfg.dt), float(cfg.G), float(cfg.eps2), int(ds),
+                            torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+        check(lib, err, "fused_kdk launch (first signature)")
+
+    return {"_launch": launch}
+
+
+# the sources whose C signature changed with their redesign, told by the
+# launch-shape function that their first versions lack
+FIRST_SIGNATURES = {"neighbor": _near_sweep_first, "fused_rollout": _fused_launch_first}
+
+
+def other_build(name: str, path, like):
+    """Another commit's build of source ``name`` at ``path``, bound as this
+    tree's library ``like`` is, or as an OldBuild where its entry point is
+    the first version's."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(path))
+    if name in FIRST_SIGNATURES and not hasattr(lib, SHAPED[name][0]):
+        return OldBuild(lib, FIRST_SIGNATURES[name](lib))
+    return bind_like(path, like, LIB_FUNCS[name])
+
+
 def on(mod, lib, fn):
-    """``fn()`` with wrapper module ``mod`` launching from library ``lib``."""
-    saved = mod._lib
-    mod._lib = lib
+    """``fn()`` with wrapper module ``mod`` launching from library ``lib``
+    (an OldBuild swaps the module's launch function too)."""
+    patches = getattr(lib, "patches", {})
+    saved = (mod._lib, {k: getattr(mod, k) for k in patches})
+    mod._lib = getattr(lib, "lib", lib)
+    for k, v in patches.items():
+        setattr(mod, k, v)
     try:
         return fn()
     finally:
-        mod._lib = saved
+        mod._lib = saved[0]
+        for k, v in saved[1].items():
+            setattr(mod, k, v)
 
 
 def compile_libraries(jobs) -> dict:
@@ -972,11 +1171,14 @@ def fmt(x, digits: int = 2, unit: str = "") -> str:
 
 def loop_pairs(key: str, rec: dict, n: int = N_MAIN):
     """The pairs the inner loop of ``key``'s kernel walks at n bodies, one
-    pair marker each: the n^2 ordered pairs; for B12 the unordered pairs of
-    its tile pairs (a diagonal tile's twice); for B7 None, since they follow
-    the data (``tree_near_work`` counts them)."""
-    if key == "B7":
+    pair marker each: the n^2 ordered pairs (B4's a step at its main path's
+    N_FUSED); for B12 the unordered pairs of its tile pairs (a diagonal
+    tile's twice); for B7 and the near sweep None, since they follow the
+    data (``tree_near_work`` and ``near_work`` count them)."""
+    if key in ("B7", "NEAR"):
         return None
+    if key == "B4":
+        return N_FUSED * N_FUSED
     if key == "B12":
         return rec["shape"]["blocks"] * rec["shape"]["tile"] ** 2
     return n * n
@@ -996,8 +1198,10 @@ def describe_launch(key: str, rec: dict, n: int = N_MAIN) -> str:
     implies at n bodies, 528 schedulers and the 1.98 GHz boost clock."""
     sh, slots = rec["shape"], rec["sass_slots_per_pair"]
     floor = issue_floor_ms(slots, loop_pairs(key, rec, n))
-    floor = (fmt(floor, 3, " ms") if key != "B7"
-             else "from the visited pairs, phase 24")
+    floor = {"B7": "from the visited pairs, phase 24",
+             "NEAR": "from the visited pairs, phase 20"}.get(key, fmt(floor, 3, " ms"))
+    if key == "B4":
+        floor += f" a step at N={N_FUSED}; {sh['blocks']} co-resident blocks"
     hmma = (f", {rec['tf32_hmma_in_loop']} TF32 HMMA in the inner loop"
             if "tf32_hmma_in_loop" in rec else "")
     return (f"{key} k={sh['k']} q={sh['q']} tile={sh['tile']} ({sh['threads']} threads x "
@@ -1125,12 +1329,12 @@ class Smoke:
                 if "entry function" in line or "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}", file=sys.stderr)
         each = ", ".join(f"{n} {kernels.build_seconds(n):.2f} s" for n in names)
-        # the launch shapes of the six register-tiled kernels, their
+        # the launch shapes of the eight redesigned kernels, their
         # registers and spills (a cached library is compiled again for its
         # -Xptxas -v output), SASS instructions a pair and B13's TF32 HMMA;
-        # B7's blocks at the main path's chunk budget
+        # B7's and the near sweep's blocks at their main paths' chunk budgets
         tiled = self.redesigned()
-        at = {"tree_near": self.plummer()[3][0]}
+        at = {"tree_near": self.plummer()[3][0], "neighbor": self.respa_budgets()[1]}
         logs = {name: kernels.build_log(name) for name in tiled}
         again = {kernels.BUILD_DIR / "usage" / kernels._library_path(name)[1].name: name
                  for name, log in logs.items() if not log}
@@ -1218,19 +1422,12 @@ class Smoke:
 
     # phase 4
     def check_fused(self) -> str:
-        import orbital_tpu_torch as ot
-        from orbital_tpu_torch.ops.fused_rollout import fused_rollout, fused_rollout_plain
+        from orbital_tpu_torch.ops.fused_rollout import (_shape, fused_rollout,
+                                                         fused_rollout_plain, launch_plan)
 
         lines = []
-        for n, live, precision in ((4096, 4000, "ds32"), (4096, 4000, "f32"),
-                                   (32768, 32768, "ds32")):
-            rng = np.random.default_rng(self.seed + 3)
-            pos = rng.normal(size=(live, 3))
-            vel = rng.normal(size=(live, 3)) * 0.3
-            mass = rng.uniform(0.5, 1.5, live) / live
-            cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2)
-            st = ot.make_state(pos, vel, mass, precision=precision, pad_to=n,
-                               device=self.dev)
+        for n, live, precision in FUSED_CASES.values():
+            st, cfg = self.fused_state(n, live, precision)
             out = fused_rollout(st, cfg, 10)
             ref = fused_rollout_plain(st, cfg, 10)
             self.torch.cuda.synchronize()
@@ -1239,11 +1436,25 @@ class Smoke:
                 raise AssertionError(f"B4 vs plain N={n} {precision}: max diff {err:.3e}")
             if int(out.step) != 10 or abs(float(out.time) - 10 * DT) > 1e-9:
                 raise AssertionError("B4 clock not advanced by 10 steps")
-            if precision == "ds32" and n == 32768:
+            if precision == "ds32" and n == N_FUSED_BIG:
                 self.kernels["B4"]["max_abs_err"] = err
-            lines.append(f"N={n} ({live} live) {precision}: {err:.2e}")
+            plan = launch_plan(n, *_shape(self.dev))
+            lines.append(f"N={n} ({live} live) {precision}: {err:.2e} (plan {plan})")
         return (f"B4 == plain KDK loop over 10 steps within {STATE_ATOL:g} "
                 f"[{'; '.join(lines)}]")
+
+    def fused_state(self, n: int, live: int, precision: str):
+        """B4's scenes: ``live`` Gaussian bodies padded with dead ones to a
+        multiple of n (unpadded when live == n), and the KDK config."""
+        import orbital_tpu_torch as ot
+
+        rng = np.random.default_rng(self.seed + 3)
+        pos = rng.normal(size=(live, 3))
+        vel = rng.normal(size=(live, 3)) * 0.3
+        mass = rng.uniform(0.5, 1.5, live) / live
+        cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2)
+        return ot.make_state(pos, vel, mass, precision=precision, pad_to=n,
+                             device=self.dev), cfg
 
     # phases 5 and 6
     def main_path(self) -> tuple[str, str]:
@@ -1630,15 +1841,26 @@ class Smoke:
         st_p, cfg_p = stepper("chunked", n)
         step_p = summary([t / 2 for t in time_ms(lambda: ot.rollout(st_p, cfg_p, 2), 1)])
 
-        # per step, each run including its one seeding force sweep
-        fused = {}
-        for n_f, k_steps, p_steps in ((4096, 200, 50), (32768, 20, 10)):
+        # per step, each run including its one seeding force sweep; B4 in
+        # turns with the step loop it stands in for (rollout(fused="never"):
+        # the dense plain step at N <= 4096, B1's above)
+        fused, loop = {}, {}
+        for n_f in FUSED_TURNS:
+            k_steps = 200 if n_f <= 8192 else 20
             st_f, cfg_f = stepper("auto", n_f)
-            kern = summary([t / k_steps for t in time_ms(
-                lambda: fused_rollout(st_f, cfg_f, k_steps), 1)])
-            plain = summary([t / p_steps for t in time_ms(
-                lambda: fused_rollout_plain(st_f, cfg_f, p_steps), 1)])
-            fused[n_f] = (kern, plain)
+            turns = alternate_ms({
+                "B4": lambda: fused_rollout(st_f, cfg_f, k_steps),
+                "loop": lambda: ot.rollout(st_f, cfg_f, k_steps, fused="never")}, 1,
+                repeats=4)
+            kern = summary([t / k_steps for t in turns["B4"]])
+            loop[n_f] = summary([t / k_steps for t in turns["loop"]])
+            if n_f in (N_FUSED, N_FUSED_BIG):
+                p_steps = 50 if n_f == N_FUSED else 10
+                plain = summary([t / p_steps for t in time_ms(
+                    lambda: fused_rollout_plain(st_f, cfg_f, p_steps), 1)])
+                fused[n_f] = (kern, plain)
+            else:
+                fused[n_f] = (kern, None)
 
         # B2 on B1's inputs with the bench row's radius (no contacts)
         rad = torch.full((n,), R_BENCH, dtype=torch.float32, device=self.dev)
@@ -1676,23 +1898,28 @@ class Smoke:
         armed = {k: summary([t / 10 for t in v])
                  for k, v in alternate_ms(armed, 1, repeats=3).items()}
 
-        n_f = 4096
-        state_bytes = (12 + 2) * 4 * n_f + 12 * 4 * n_f  # read once, written once a launch
+        def b4_bound(n_f, steps):  # a step: the state read once, written once a launch
+            state_bytes = (12 + 2) * 4 * n_f + 12 * 4 * n_f
+            return bound(OPS_B1 * n_f * n_f, state_bytes / steps, rsqrt=n_f * n_f)
+
         bounds = {
             "B1": bound(OPS_B1 * n * n, 32 * n, rsqrt=n * n),
             "B2": bound(OPS_B2 * n * n, 36 * n + 4, rsqrt=n * n),
-            "B4": bound(OPS_B1 * n_f * n_f, state_bytes / 200, rsqrt=n_f * n_f),
+            "B4": b4_bound(N_FUSED, 200),
             "B6": bound(OPS_B6 * n * n + OPS_B6_TOUCH * touching, 57 * n + 4),
         }
+        bound_b4_big = b4_bound(N_FUSED_BIG, 20)
         bound_b6_zero = bound(0.0, 24 * n + 4)
-        timed = {"B1": (b1, b1p), "B2": (b2, b2p), "B4": fused[4096], "B6": (b6, b6p)}
+        timed = {"B1": (b1, b1p), "B2": (b2, b2p), "B4": fused[N_FUSED], "B6": (b6, b6p)}
         for k, (kern, plain) in timed.items():
             self.kernels[k].update(ms=kern["median"], plain_ms=plain["median"],
                                    bound_ms=bounds[k][0], bound_by=bounds[k][1],
                                    library_ms=None)
         self.perf = {"B1_nope_N65536": (b1, b1p), "B1_pe_N65536": b1pe,
-                     "ds32_step_N65536": (step_k, step_p), "B4_N4096": fused[4096],
-                     "B4_N32768": fused[32768], "B2_nope_N65536": (b2, b2p),
+                     "ds32_step_N65536": (step_k, step_p),
+                     **{f"B4_N{k}": v for k, v in fused.items()},
+                     **{f"step_loop_N{k}": v for k, v in loop.items()},
+                     "B4_bound_N32768_ms": bound_b4_big, "B2_nope_N65536": (b2, b2p),
                      "B6_N65536_contacts": (b6, b6p), "B6_N65536_count0": b6z,
                      "B6_bound_count0_ms": bound_b6_zero[0], "B6_touching": touching,
                      "ds32_step_N65536_none_vs_bounce": (armed["none"], armed["bounce"]),
@@ -1702,12 +1929,15 @@ class Smoke:
         def ms(s):
             return f"{s['median']:.3f} ms (spread {s['spread']:.3f})"
 
+        b4 = "; ".join(
+            f"B4 N={k} {ms(v[0])}/step vs the step loop {ms(loop[k])}/step "
+            f"({loop[k]['median'] / v[0]['median']:.2f}x)"
+            + ("" if v[1] is None else f", plain {ms(v[1])}/step") for k, v in fused.items())
         return (f"B1 N=65536 no-PE {ms(b1)} vs plain {ms(b1p)}; PE {ms(b1pe)}; "
                 f"ds32 step N=65536 {step_k['median']:.3f} vs plain "
-                f"{step_p['median']:.3f} ms/step; B4 N=4096 {ms(fused[4096][0])}/step vs "
-                f"plain {ms(fused[4096][1])}/step; B4 N=32768 {ms(fused[32768][0])}/step "
-                f"vs plain {ms(fused[32768][1])}/step; B2 N=65536 no-PE {ms(b2)} vs plain "
-                f"{ms(b2p)}; B6 N=65536 {touching} contacts {ms(b6)}, count 0 {ms(b6z)}, "
+                f"{step_p['median']:.3f} ms/step; {b4} (in turns, 4 runs each); B4 bound "
+                f"N={N_FUSED_BIG} {bound_b4_big[0]:.4f} ms/step; B2 N=65536 no-PE {ms(b2)} vs "
+                f"plain {ms(b2p)}; B6 N=65536 {touching} contacts {ms(b6)}, count 0 {ms(b6z)}, "
                 f"plain {ms(b6p)}; ds32 step N=65536 without collisions "
                 f"{ms(armed['none'])}, bounce armed {ms(armed['bounce'])}; bounds "
                 + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()))
@@ -2142,11 +2372,12 @@ class Smoke:
     # phases 18-20: the multirate stepper
     def respa_budgets(self):
         """(m_grid, max_chunks, w_blk, wl_entries) of the cluster, probed once
-        as the bench probes them (bench.py:282-285)."""
+        as the bench probes them (bench.py:282-285), from its positions (the
+        first draw of make_cluster's generator)."""
         if self._respa_budgets is None:
             from orbital_tpu_torch.ops.neighbor import neighbor_budgets
 
-            pos, _, _, _ = self.cluster()
+            pos = np.random.default_rng(self.seed).normal(size=(N_MAIN, 3))
             self._respa_budgets = neighbor_budgets(pos, cell=CELL_RESPA, chunk=32, rj=4,
                                                    with_wl=True, headroom=2.2,
                                                    w_headroom=1.5)
@@ -2162,6 +2393,24 @@ class Smoke:
                             respa_rc=RC_RESPA, respa_cell=CELL_RESPA, respa_m=m,
                             respa_max_chunks=k_ch, respa_w_blk=w_blk, respa_wl_entries=0,
                             respa_impl="pallas_sb", respa_refresh=refresh, **kw)
+
+    def ragged_near_scene(self, n: int = N_NEAR_RAGGED):
+        """The ragged near-kernel case: n Gaussian bodies scaled by
+        NEAR_RAGGED_SCALE, 7 dead and parked far, and starved budgets (pos,
+        mass, alive, budgets), every overflow counter > 0."""
+        from orbital_tpu_torch.engine.state import far_positions
+        from orbital_tpu_torch.ops import neighbor as nb
+
+        rng = np.random.default_rng(self.seed + 9)
+        pos_r = rng.normal(size=(n, 3)) * NEAR_RAGGED_SCALE
+        alive_r = np.ones(n, bool)
+        alive_r[-7:] = False
+        pos_r[-7:] = far_positions(7, float(np.abs(pos_r).max()), np.float32, start=n - 7)
+        mass_r = np.full(n, 1.0 / n)
+        m_r, k_r, w_r, q_r = nb.neighbor_budgets(pos_r, alive_r, cell=CELL_RESPA, chunk=32,
+                                                 rj=4, with_wl=True)
+        starved = (m_r, max(4, (k_r // 2) // 4 * 4), max(1, w_r // 3), max(8, q_r // 3))
+        return pos_r, mass_r, alive_r, starved
 
     def near_case(self, pos, mass, alive, budgets):
         """Geometry with a worklist and packed slot channels on the card."""
@@ -2182,7 +2431,6 @@ class Smoke:
 
     # phase 18
     def check_near(self) -> str:
-        from orbital_tpu_torch.engine.state import far_positions
         from orbital_tpu_torch.ops import cuda_neighbor as cn
         from orbital_tpu_torch.ops import neighbor as nb
         from orbital_tpu_torch.utils import kernels
@@ -2195,20 +2443,10 @@ class Smoke:
 
         pos, _, mass, _ = self.cluster()
         budgets = self.respa_budgets()
-        rng = np.random.default_rng(self.seed + 9)
-        pos_r = rng.normal(size=(N_NEAR_RAGGED, 3)) * NEAR_RAGGED_SCALE
-        alive_r = np.ones(N_NEAR_RAGGED, bool)
-        alive_r[-7:] = False
-        pos_r[-7:] = far_positions(7, float(np.abs(pos_r).max()), np.float32,
-                                   start=N_NEAR_RAGGED - 7)
-        mass_r = np.full(N_NEAR_RAGGED, 1.0 / N_NEAR_RAGGED)
-        m_r, k_r, w_r, q_r = nb.neighbor_budgets(pos_r, alive_r, cell=CELL_RESPA, chunk=32,
-                                                 rj=4, with_wl=True)
-        starved = (m_r, max(4, (k_r // 2) // 4 * 4), max(1, w_r // 3), max(8, q_r // 3))
         lines, vs64 = [], {}
         for name, (p_, m_, a_, b_) in (
                 (f"N={N_MAIN}", (pos, mass, np.ones(N_MAIN, bool), budgets)),
-                (f"N={N_NEAR_RAGGED} starved", (pos_r, mass_r, alive_r, starved))):
+                (f"N={N_NEAR_RAGGED} starved", self.ragged_near_scene())):
             geom, ch = self.near_case(p_, m_, a_, b_)
             ovf = {k: int(geom[k]) for k in ("cap_overflow", "w_overflow", "q_overflow")}
             if name.endswith("starved") != all(v > 0 for v in ovf.values()):
@@ -2228,6 +2466,14 @@ class Smoke:
             same = torch.equal(a_k, a_w) and torch.equal(pe_k, pe_w)
             if ovf["q_overflow"] == 0 and not same:
                 raise AssertionError(f"near {name}: worklist and table sweeps differ")
+            # the columns of a row table, read in place as the RESPA stepper
+            # passes them, give the same bits as four channels
+            P = torch.stack(ch, dim=1)
+            a_t, pe_t = cn.near_acc_slots_cuda(P[:, 0], P[:, 1], P[:, 2], P[:, 3],
+                                               geom["jbl"], **kw)
+            if not (torch.equal(a_t, a_k) and torch.equal(pe_t, pe_k)):
+                raise AssertionError(f"near {name}: the row table's columns and the four "
+                                     f"channels differ")
             vs64[name] = (rel(a_k, a64), rel(a_p, a64), rel(pe_k, pe64), rel(pe_p, pe64))
             if vs64[name][0] > NEAR_RTOL:
                 raise AssertionError(f"near {name} vs f64: {vs64[name]}")
@@ -2376,6 +2622,14 @@ class Smoke:
         kw = dict(r1=0.5 * RC_RESPA, rc=RC_RESPA, G=1.0, eps2=EPS2, chunk=32, rj=4)
 
         near = summary(time_ms(lambda: cn.near_acc_slots_cuda(*ch, geom_wl["jbl"], **kw), 50))
+        # the wrapper's host time a call (enqueue only): CUDA events count it
+        # too where it is longer than the kernel
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            cn.near_acc_slots_cuda(*ch, geom_wl["jbl"], **kw)
+        near_host = 1e3 * (time.perf_counter() - t0) / 50
+        torch.cuda.synchronize()
         near_wl = summary(time_ms(lambda: cn.near_acc_slots_cuda_wl(
             *ch, geom_wl["wl_i"], geom_wl["wl_jb"], **kw), 50))
         near_p = summary(time_ms(lambda: nb.near_acc_slots(*ch, geom_wl["jbl"], **kw), 1))
@@ -2420,16 +2674,24 @@ class Smoke:
         prof = device_times(lambda: macro.build_geom(st))
         build_dev = (sum(c for c, _ in prof.values()), sum(t for _, t in prof.values()))
 
-        live = int((geom_wl["jbl"] != cfg.respa_max_chunks // 4).sum())
-        pairs = live * 128 * 32
-        k_ch, w_blk = geom_wl["jbl"].shape
-        nbytes = 16 * n_slots + 4 * k_ch * w_blk + 4 * k_ch + 16 * k_ch * 32
-        bnd = bound(OPS_NEAR * pairs, nbytes, rsqrt=pairs)
+        # the pairs walked, live, visited and needed, and the bound over the
+        # needed pairs' operations and the bytes the function must move,
+        # beside the bound over every walked pair (the first version's)
+        work = near_work(geom_wl, ch, RC_RESPA, 32, 4)
+        if not work["visited"] < 0.1 * work["walked"]:
+            raise AssertionError(f"near sweep: {work['visited']} visited pairs of "
+                                 f"{work['walked']} walked, not < 10%")
+        bnd = bound(OPS_NEAR * work["needed"], work["nbytes"], rsqrt=work["needed"])
+        bnd_walked = bound(OPS_NEAR * work["walked"], work["nbytes"], rsqrt=work["walked"])
+        floor = issue_floor_ms(self.kernels["NEAR"].get("sass_slots_per_pair"),
+                               work["issued"])
         self.kernels["NEAR"].update(ms=near["median"], plain_ms=near_p["median"],
                                     bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
         ratio = {k: sub["kdk"]["median"] / sub[k]["median"] for k in ("K4", "K5")}
         perf = {"near_N65536": (near, near_p), "near_wl_N65536": near_wl,
-                "near_pairs": pairs, "near_bound_ms": bnd, "geometry_build": build,
+                "near_host_ms": near_host, "near_pairs": work, "near_bound_ms": bnd,
+                "near_bound_walked_ms": bnd_walked, "near_issue_floor_ms": floor,
+                "geometry_build": build,
                 "pack_unpack_5_tables": packs, "macro_step_K4": one_macro,
                 "substep_K4_refresh4": sub["K4"], "substep_K5_refresh3": sub["K5"],
                 "kdk_step": sub["kdk"], "kdk_over_substep": ratio,
@@ -2448,9 +2710,17 @@ class Smoke:
                     f"{launched:.1f} kernels; a geometry build {build_dev[0]} kernels, "
                     f"{build_dev[1]:.3f} ms of device time; top: "
                     + ", ".join(f"{k[:40]} {c}x {t:.2f} ms" for k, (c, t) in top[:4]))
-        return (f"near kernel N={n} {ms(near)} (worklist {ms(near_wl)}) vs plain "
-                f"{ms(near_p)}, {pairs} pairs, bound {bnd[0]:.4f} ms ({bnd[1]}, "
-                f"{100 * bnd[0] / near['median']:.0f}%); geometry build {ms(build)}; "
+        dev_share = ("" if near_dev is None else
+                     f", {100 * bnd[0] / near_dev:.1f}% of its device time")
+        return (f"near kernel N={n} {ms(near)} (the wrapper's host time {near_host:.3f} ms "
+                f"a call; worklist {ms(near_wl)}) vs plain {ms(near_p)}; pairs walked "
+                f"{work['walked']}, live {work['live']}, visited {work['visited']} (issued as "
+                f"{work['issued']} lane slots, {100 * work['visited'] / work['walked']:.1f}% of "
+                f"walked), needed {work['needed']}; bound {bnd[0]:.4f} ms ({bnd[1]}: "
+                f"{work['nbytes']} bytes, {OPS_NEAR} flops a needed pair; "
+                f"{100 * bnd[0] / near['median']:.1f}% of the events time{dev_share}), "
+                f"{bnd_walked[0]:.4f} ms over every walked pair; issue floor "
+                f"{fmt(floor, 4, ' ms')} at 1.98 GHz; geometry build {ms(build)}; "
                 f"pack+unpack of 5 tables {ms(packs)}; one macro step K=4 {ms(one_macro)}; "
                 f"per substep K=4 refresh 4 {ms(sub['K4'])}, K=5 refresh 3 {ms(sub['K5'])}; "
                 f"KDK step {ms(sub['kdk'])}: KDK/substep {ratio['K4']:.2f}x (K=4), "
@@ -3124,10 +3394,12 @@ class Smoke:
                 f"{diff:.2e} <= {STATE_ATOL:g} | simulate(pallas_sym, hermite) 10 steps: B5 "
                 f"{b5} launches, B12 {b12_sim}")
 
-    # the nine kernels of the six redesigned sources, for --sweep and
+    # the eleven kernels of the eight redesigned sources, for --sweep and
     # --parent: max |d| / max |ref| of each output (0: equal); B13 by
-    # gram_held; B6G is B6 gated on the scene's contact count, B6Z on a zero
-    # count (the gate's cost); B7, B7R, B7L and B7S are tree_calls' tables
+    # gram_held; B4 (FUSED_CASES' keys) by max |d| on the full positions and
+    # velocities (absolute: STATE_ATOL); B6G is B6 gated on the scene's contact
+    # count, B6Z on a zero count (the gate's cost); B7, B7R, B7L and B7S are
+    # tree_calls' tables, NEAR, NEARW and NEARR near_calls' geometries
     TOLS = {"B1": (FORCE_RTOL, ENERGY_RTOL), "B2": (FORCE_RTOL, ENERGY_RTOL, 0),
             "B3": (FORCE_RTOL, FORCE_RTOL), "B5": (FORCE_RTOL, JERK_RTOL, ENERGY_RTOL),
             "B5D": (FORCE_RTOL, JERK_RTOL, ENERGY_RTOL, 0),
@@ -3135,24 +3407,38 @@ class Smoke:
             "B6G": (BOUNCE_RTOL, BOUNCE_RTOL), "B6Z": (0, 0),
             "B12": (FORCE_RTOL, FORCE_RTOL), "B7": (NEAR_RTOL, NEAR_RTOL),
             "B7R": (NEAR_RTOL, NEAR_RTOL), "B7L": (NEAR_RTOL, NEAR_RTOL),
-            "B7S": (NEAR_RTOL, NEAR_RTOL, 0)}
+            "B7S": (NEAR_RTOL, NEAR_RTOL, 0), "NEAR": (NEAR_RTOL, NEAR_RTOL),
+            "NEARW": (NEAR_RTOL, NEAR_RTOL), "NEARR": (NEAR_RTOL, NEAR_RTOL),
+            **{k: (STATE_ATOL, STATE_ATOL) for k in FUSED_CASES}}
     # the source of each, the calls timed in turns and the pairs that must
     # be bit-equal
     SOURCE = {"B1": "nbody_forces", "B2": "nbody_forces", "B3": "nbody_forces",
               "B5": "nbody_jerk", "B5D": "nbody_jerk", "B13": "nbody_forces_mxu",
               "B6": "collisions", "B6G": "collisions", "B6Z": "collisions",
               "B12": "nbody_forces_sym", "B7": "tree_near", "B7R": "tree_near",
-              "B7L": "tree_near", "B7S": "tree_near"}
+              "B7L": "tree_near", "B7S": "tree_near", "NEAR": "neighbor",
+              "NEARW": "neighbor", "NEARR": "neighbor",
+              **{k: "fused_rollout" for k in FUSED_CASES}}
     TIMED = {"nbody_forces": ("B1", "B2"), "nbody_jerk": ("B5", "B5D"),
              "nbody_forces_mxu": ("B13",), "collisions": ("B6", "B6Z"),
-             "nbody_forces_sym": ("B12",), "tree_near": ("B7", "B7L")}
+             "nbody_forces_sym": ("B12",), "tree_near": ("B7", "B7L"),
+             "neighbor": ("NEAR",), "fused_rollout": ("B4", "B4L")}
     SAME = {"nbody_forces": ("B1", "B2"), "nbody_jerk": ("B5", "B5D"),
             "collisions": ("B6", "B6G")}
 
     def hold(self, key: str, out, ref, call=None) -> tuple[float, bool]:
-        """``held`` with ``key``'s tolerances, or for B13 ``gram_held``
+        """``held`` with ``key``'s tolerances, for B13 ``gram_held``
         against the exact sums that ``exact_calls`` attached to its
-        ``call``; and whether every output is bit-equal."""
+        ``call``, for B4 the largest |difference| of the full positions and
+        velocities within STATE_ATOL; and whether every output is
+        bit-equal."""
+        if key in FUSED_CASES:
+            errs = [float((x - y).abs().max()) for x, y in zip(out, ref)]
+            for i, (err, tol) in enumerate(zip(errs, self.TOLS[key])):
+                if not err <= tol:
+                    raise AssertionError(f"{key} output {i}: max difference {err:.3e} > "
+                                         f"{tol:g}")
+            return max(errs), all(bool((x == y).all()) for x, y in zip(out, ref))
         if key != "B13":
             return held(out, ref, self.TOLS[key])
         equal = all(bool((x == y).all()) for x, y in zip(out, ref))
@@ -3289,14 +3575,78 @@ class Smoke:
         calls["B7S"] = (cuda_tree, near_phase)
         return calls
 
+    def near_calls(self, plain: bool = False, sizes=None) -> dict:
+        """{key: (wrapper module, call)} of the near sweep, each returning
+        (acc, pe): NEAR on the main path's geometry (the 65,536-body
+        cluster) with the channels as the columns of a row table, as the
+        RESPA stepper passes them, and ``pairs``, the lane slots of
+        ``near_work``; NEARW the same through the worklist; NEARR the ragged
+        starved scene's table. ``sizes`` overrides (N_MAIN, N_NEAR_RAGGED).
+        With ``plain``, their plain versions."""
+        from orbital_tpu_torch.ops import cuda_neighbor as cn
+        from orbital_tpu_torch.ops import neighbor as nb
+
+        sizes = sizes or (N_MAIN, N_NEAR_RAGGED)
+        cache = self.__dict__.setdefault("_near_calls", {}).setdefault(sizes, {})
+        if not cache:
+            n = sizes[0]
+            pos = np.random.default_rng(self.seed).normal(size=(n, 3))
+            budgets = (self.respa_budgets() if n == N_MAIN else nb.neighbor_budgets(
+                pos, cell=CELL_RESPA, chunk=32, rj=4, with_wl=True, headroom=2.2,
+                w_headroom=1.5))
+            for key, case in (("main", (pos, np.full(n, 1.0 / n), np.ones(n, bool), budgets)),
+                              ("ragged", self.ragged_near_scene(sizes[1]))):
+                geom, ch = self.near_case(*case)
+                P = self.torch.stack(ch, dim=1)
+                cache[key] = (geom, (P[:, 0], P[:, 1], P[:, 2], P[:, 3]))
+            cache["pairs"] = near_work(*cache["main"], RC_RESPA, 32, 4)["issued"]
+        kw = dict(r1=0.5 * RC_RESPA, rc=RC_RESPA, G=1.0, eps2=EPS2, chunk=32, rj=4)
+        table = nb.near_acc_slots if plain else cn.near_acc_slots_cuda
+        wl = cn.near_acc_slots_wl_plain if plain else cn.near_acc_slots_cuda_wl
+
+        def call(case, worklist=False):
+            geom, ch = cache[case]
+            if worklist:
+                return lambda: wl(*ch, geom["wl_i"], geom["wl_jb"], **kw)
+            return lambda: table(*ch, geom["jbl"], **kw)
+
+        calls = {"NEAR": call("main"), "NEARW": call("main", True), "NEARR": call("ragged")}
+        calls["NEAR"].pairs = cache["pairs"]
+        return {k: (cn, c) for k, c in calls.items()}
+
+    def fused_calls(self, plain: bool = False, timing: bool = False, cases=None) -> dict:
+        """{key: (wrapper module, call)} of B4 on the scenes of ``cases``
+        (default FUSED_CASES), each returning the full positions and
+        velocities (f64) after 10 steps, or with ``timing`` 200 steps (20 at
+        N_FUSED_BIG), and ``pairs``, the pairs its sweeps walk (the seeding
+        one included). With ``plain``, the plain KDK loop."""
+        from orbital_tpu_torch.ops import fused_rollout as fr
+
+        fn = fr.fused_rollout_plain if plain else fr.fused_rollout
+
+        def call(n, live, precision):
+            st, cfg = self.fused_state(n, live, precision)
+            steps = (20 if n == N_FUSED_BIG else 200) if timing else 10
+
+            def run():
+                out = fn(st, cfg, steps)
+                return out.pos_full().double(), out.vel_full().double()
+
+            run.pairs = n * n * (steps + 1)
+            return fr, run
+
+        return {k: call(*case) for k, case in (cases or FUSED_CASES).items()}
+
     def redesigned(self):
         """The wrapper module of each source in SHAPED."""
         from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
-                                           cuda_forces_sym, cuda_jerk, cuda_tree)
+                                           cuda_forces_sym, cuda_jerk, cuda_neighbor,
+                                           cuda_tree, fused_rollout)
 
         return {"nbody_forces": cuda_forces, "nbody_jerk": cuda_jerk,
                 "nbody_forces_mxu": cuda_forces_mxu, "collisions": cuda_collisions,
-                "nbody_forces_sym": cuda_forces_sym, "tree_near": cuda_tree}
+                "nbody_forces_sym": cuda_forces_sym, "tree_near": cuda_tree,
+                "neighbor": cuda_neighbor, "fused_rollout": fused_rollout}
 
     # --sweep
     def sweep(self) -> str:
@@ -3323,16 +3673,18 @@ class Smoke:
         groups = {n: (lambda sc: lambda plain=False: self.exact_calls(sc, EPS2, True,
                                                                       plain=plain))(sc)
                   for n, sc in scenes.items()}
-        groups["tree"] = self.tree_calls
+        groups.update(tree=self.tree_calls, near=self.near_calls, fused=self.fused_calls)
         refs = {g: {k: c() for k, (_, c) in mk(plain=True).items()} for g, mk in groups.items()}
         torch.cuda.synchronize()
         rows, timed = {}, {}
         timed_calls = {**self.exact_calls(scenes[N_MAIN], EPS2, pe=False),
-                       **self.tree_calls()}
+                       **self.tree_calls(), **self.near_calls(),
+                       **self.fused_calls(timing=True)}
+        at = {"tree_near": self.plummer()[3][0], "neighbor": self.respa_budgets()[1]}
         for name, tag, out in variants:
             mod = mods[name]
             lib = bind_like(out, mod._load(), LIB_FUNCS[name])
-            rec = launch_record(lib, name, built[out][0], sass(out))
+            rec = launch_record(lib, name, built[out][0], sass(out), n=at.get(name, N_MAIN))
             worst = 0.0
             for group, mk in groups.items():
                 calls = mk()
@@ -3367,9 +3719,12 @@ class Smoke:
         return (f"{len(variants)} launch shapes built in {build_s:.1f} s, each within the "
                 f"tolerances of the plain versions at N={N_MAIN} and {N_RAGGED} (7 dead, "
                 f"eps2 {EPS2:g}, PE on, R {R_RICH:g}) with detect bit-equal, counts exact and "
-                f"gated B6 bit-equal to ungated, and on the tree tables (B7 at N={N_MAIN} and "
-                f"{N_TREE_BIG}, ragged ws 2, starved near phase with its overflow equal); "
-                f"N={N_MAIN} no PE, in turns: " + "; ".join(lines))
+                f"gated B6 bit-equal to ungated, on the tree tables (B7 at N={N_MAIN} and "
+                f"{N_TREE_BIG}, ragged ws 2, starved near phase with its overflow equal), on "
+                f"the RESPA geometries (the near sweep at N={N_MAIN}, table and worklist, and "
+                f"the ragged starved {N_NEAR_RAGGED}) and B4's scenes (10 steps: {FUSED_CASES} "
+                f"within {STATE_ATOL:g}); N={N_MAIN} no PE (B4: 200 steps at {N_FUSED} ds32, "
+                f"20 at {N_FUSED_BIG}), in turns: " + "; ".join(lines))
 
     # --parent
     def check_parent(self, parent: str) -> str:
@@ -3381,7 +3736,7 @@ class Smoke:
         jobs = {name: (Path(parent) / "orbital_tpu_torch" / "csrc" / f"{name}.cu",
                        kernels.BUILD_DIR / "parent" / f"lib{name}.so") for name in mods}
         compile_libraries([(src, out, ()) for src, out in jobs.values()])
-        old = {mod: bind_like(jobs[name][1], mod._load(), LIB_FUNCS[name])
+        old = {mod: other_build(name, jobs[name][1], mod._load())
                for name, mod in mods.items()}
         scene = self.scene(N_MAIN, R_RICH, 7, seed_offset=17, cluster=False)
         worst, equal, counts, cases = {}, {}, set(), 0
@@ -3418,10 +3773,15 @@ class Smoke:
         overflow = int(hold("B7S", *tree["B7S"])[1][2])
         for k in ("B7", "B7R", "B7L"):
             hold(k, *tree[k])
+        near, fused = self.near_calls(), self.fused_calls()
+        for k, v in {**near, **fused}.items():
+            hold(k, *v)
+        fused_t = self.fused_calls(timing=True)
         calls = {k: v for k, v in self.exact_calls(scene, EPS2, pe=False).items()
                  if k != "B6G"}
         calls["B3"] = self.exact_calls(scene, EPS2, pe=True)["B3"]
-        calls.update(B7=tree["B7"], B7L=tree["B7L"])
+        calls.update(B7=tree["B7"], B7L=tree["B7L"], NEAR=near["NEAR"])
+        calls.update({k: fused_t[k] for k in ("B4", "B4F", "B4L", "B4LF")})
         fns = {}
         for k, (mod, call) in calls.items():
             fns[f"{k} parent"] = (lambda m_, l_, c_: lambda: on(m_, l_, c_))(mod, old[mod], call)
@@ -3440,7 +3800,7 @@ class Smoke:
         for k, (_, call) in calls.items():
             this, par = times[k], times[f"{k} parent"]
             faster = max(this["runs"]) < min(par["runs"])
-            base = "B7" if k == "B7L" else k
+            base = {"B7L": "B7", "B4F": "B4", "B4L": "B4", "B4LF": "B4"}.get(k, k)
             line = (f"{k} {'bit-equal' if equal[k] else 'not bit-equal'} (max rel diff "
                     f"{worst[k]:.2e}), {this['median']:.3f} ms (spread {this['spread']:.3f}) "
                     f"vs parent {par['median']:.3f} ({par['spread']:.3f}), "
@@ -3457,7 +3817,8 @@ class Smoke:
                 line += (f", SM clock {mhz:.0f} MHz at {clocks[k]['watts']:.0f} W: issue "
                          f"floor {floor:.3f} ms ({100 * floor / this['median']:.0f}%)")
             lines.append(line)
-        return (f"B1, B2, B3, B5, B5 detect, B13, B6, B12 and B7 held against the build of "
+        return (f"B1, B2, B3, B5, B5 detect, B13, B6, B12, B7, the near sweep and B4 held "
+                f"against the build of "
                 f"{parent}'s sources in {cases} calls (N={N_MAIN}, 7 dead, R {R_RICH:g}, eps2 "
                 f"{EPS2:g} and 0, PE on and off; within {FORCE_RTOL:g} / {JERK_RTOL:g} / "
                 f"{ENERGY_RTOL:g}, B13's pe within {GRAM_RTOL:g} RMS and {GRAM_MAX_RTOL:g} max "
@@ -3465,8 +3826,12 @@ class Smoke:
                 f"B6 within {BOUNCE_RTOL:g} and gated == ungated, contact counts equal: "
                 f"{sorted(counts)}; B7 within {NEAR_RTOL:g} on the tree tables at N={N_MAIN}, "
                 f"{N_TREE_BIG} and the ragged ws 2, and its starved near phase with overflow "
-                f"{overflow} equal); in turns, 6 runs each (B1, B2, B13 no PE; B3 PE; B6 "
-                f"ungated, B6Z at a zero count; B12; B7 at N={N_MAIN} and B7L at {N_TREE_BIG}): "
+                f"{overflow} equal; the near sweep within {NEAR_RTOL:g} at N={N_MAIN} (table, "
+                f"worklist) and the ragged starved {N_NEAR_RAGGED}; B4 after 10 steps within "
+                f"{STATE_ATOL:g} on {FUSED_CASES}); in turns, 6 runs each (B1, B2, B13 no PE; "
+                f"B3 PE; B6 ungated, B6Z at a zero count; B12; B7 at N={N_MAIN} and B7L at "
+                f"{N_TREE_BIG}; NEAR the table sweep at N={N_MAIN}; B4 200 steps at {N_FUSED}, "
+                f"ds32 and B4F f32, B4L and B4LF 20 steps at {N_FUSED_BIG}): "
                 + "; ".join(lines))
 
     # phase 29
@@ -3549,8 +3914,9 @@ def main(argv=None) -> int:
                         help="unrecorded steps of the 65,536-body drift run")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", metavar="DIR",
-                        help="only hold B1, B2, B3, B5, B5 detect, B13, B6, B12 and B7 "
-                             "against DIR's kernel sources (phases 1, 2 and this check)")
+                        help="only hold B1, B2, B3, B5, B5 detect, B13, B6, B12, B7, the "
+                             "near sweep and B4 against DIR's kernel sources (phases 1, 2 "
+                             "and this check)")
     parser.add_argument("--sweep", action="store_true",
                         help="only build and time the launch shapes of SWEEP (phases 1, 2 "
                              "and the sweep; with --parent, the parent check after it)")

@@ -8,125 +8,328 @@
 // trip count). This one kernel serves all four.
 //
 // For each i-chunk c of C slot rows, over the j-blocks blocks[off_c + q],
-// q < count[c], each block being blkw = RJ*C consecutive rows of the packed
-// slot table pts [n_slots] float4 (x, y, z, m), with _pair_terms'
-// arithmetic (neighbor_pallas.py:47-69):
+// q < count_c, each block being blkw = RJ*C consecutive rows of the slot
+// channels (x, y, z, m), with _pair_terms' arithmetic
+// (neighbor_pallas.py:47-69):
 //
 //   s = clip((rc^2 - r^2) inv_d, 0, 1),   S = s^3 (10 - 15 s + 6 s^2)
 //   spd = 30 inv_d s^2 (1 - s)^2,          inv_r = rsqrt(r^2 + eps^2)
 //   w = m_j (S inv_r^3 + 2 spd inv_r)
-//   out[c*C + i] = (G sum w dx, G sum w dy, G sum w dz, sum m_j inv_r S)
+//   out[c*C + i] = (G sum w dx, G sum w dy, G sum w dz,
+//                   sum m_j inv_r S - m_i / eps)
 //
-// A chunk with count 0 writes zeros. off_c is off[c], or c * stride when off
-// is null (the padded table jbl [k_ch, w_blk]).
+// The last term takes the self pair off pe here, once: the kernel does not
+// mask i == j (dx = dy = dz = 0 adds no force, and m_i inv_eps S(0) = m_i /
+// eps to pe), and the wrappers subtract nothing more. A chunk with count 0
+// sums nothing, so its live rows get (0, 0, 0, -m_i / eps), as the plain
+// sweep gives them. off_c is off[c] with count from count[c] (the worklist,
+// B9), or c * stride with count_c the number of entries of row c of the
+// padded table jbl [k_ch, stride] that are not the sentinel block (B8, B10,
+// B11: its live entries are its prefix).
 //
-// Why one kernel serves the four schedules: the live entries of a jbl row are
-// its prefix, and the sentinel blocks past it add exactly 0 by value (mass 0
-// at SENTINEL_POS = 1e15, where r^2 ~ 3e30 stays finite in f32 and s = 0), so
-// walking count[c] = the row's non-sentinel entries gives B8's, B10's and
-// B11's sums; the worklist is the row-major compaction of those entries, so
-// chunk c's worklist entries are the first count[c] of its row (B9, with
-// count from the worklist, also when its budget truncated it). No padded
-// sentinel tile is ever walked.
+// Which pairs it visits. A pair whose s is 0 adds exactly 0 (S = spd = 0
+// and inv_r is finite), so the kernel may skip it, and skips only such
+// pairs:
+//  * i side: only the chunk's live slots. A sentinel slot (x, y and z at
+//    SENTINEL_POS = 1e15, mass 0) is told by its position, >= half of
+//    SENTINEL_POS on every axis, and never by its mass: a live body may be
+//    massless. It gets (0, 0, 0, 0) written directly, the plain sweep's
+//    value for it.
+//  * j side: only the staged rows inside the chunk's box, [min - h, max + h]
+//    on each axis over the live i rows, with lo rounded down and hi up. The
+//    rounding rule: the sweep forms r2e = r^2 + eps^2 (rounded) and s =
+//    sat(r2e * neg_inv_d + sc) in one FFMA, sc = (rc^2 + eps^2) inv_d, so
+//    s > 0 needs r2e < rc2e = sc / inv_d (of the f32 constants). A row
+//    outside the box lies further than h from every live i row on one
+//    axis, exactly; the host passes h >= sqrt(rc2e) (1 + 2^-16) (1 -
+//    2^-24), so that row's r2e, which is at least (1 - 2^-24)^5 times its
+//    exact r^2, is > rc2e: its s is 0 for every i row of the chunk.
+//    Sentinel rows, the dead tail of a block and live rows beyond rc all
+//    fall outside. The box belongs to the chunk (to its 32-row slice when
+//    C > 32), not to the row: the per-pair arithmetic stays whole.
+// On the 65,536-body headline geometry (rc = 0.05, chunk 32, rj 4) the
+// first version walked 90.9 M pairs (every row of every live entry,
+// sentinel rows on either side included); this one visits 6.3 M, for
+// 0.05 M that the function needs (chip_smoke.near_work).
 //
-// What bounds it on this card: arithmetic, ~40 f32 operations and one rsqrtf
-// per pair against 16 bytes per j row that each block reads once into shared
-// memory and every thread of the block reuses. At the 65,536-body headline
-// geometry that is ~92 M pairs a sweep, ~0.055 ms of f32 work.
+// What bounds it on this card: the bytes it must move (the slot channels
+// once, the table and the output: ~10.6 MB, 0.003 ms) and, above them, the
+// latency of each chunk's staging rounds from L2. 28.5 SASS instructions a
+// visited pair (3 differences, r2e with eps2 folded (3), s as one
+// saturating FFMA, S (5), spd (3), one MUFU.RSQ, the weight (4), four
+// multiply-adds, the shared load and the loop) over 6.9 M lane slots put
+// its issue floor at 0.006 ms; it takes 0.029 ms of device time (the first
+// version 0.136; NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 20 and
+// --parent; PERF.md). CUDA events around a call also count the wrapper's
+// host time, 0.05-0.06 ms a call, which phase 20 prints.
 //
-// Design: one block per i-chunk with T = C * groups threads (groups =
-// 256 / C): thread (i, g) holds row i of the chunk and sums the j rows
-// g, g + groups, ... of every block, so that the card fills with a few
-// thousand small blocks and every thread does the same work. The chunk's
-// j-blocks are staged in shared memory up to 1,024 rows at a time; with
-// C = 32 the 32 lanes of a warp read one j row (a broadcast). Each j-block is
-// summed into fresh partials before the running sum (the two-level sum that
-// keeps B1's f32 error near the tile-wise reductions of the TPU kernels).
-// The groups' sums are reduced in shared memory in a fixed order: no float
-// atomics, the same bits on every run.
-//
-// Masking: none. The self pair has dx = dy = dz = 0 and adds no force; it
-// adds m_i/eps to pe_i, which the caller subtracts, so i == j must not be
-// masked here as well.
+// Design (no float atomics; every sum in a fixed order), on the template of
+// tree_near.cu (B7):
+//  * One block of kQ warps per 32-row slice of an i-chunk. Every warp finds
+//    the slice's live rows (a ballot on the positions) and their box (warp
+//    min/max), and puts its lanes on the live rows only: with L live rows,
+//    lane (i, g) holds the i-th live row (in table order) and g is one of
+//    G = 32 / S groups over the j rows, S the power of two >= L. A chunk of
+//    one body uses all 32 lanes, as one of 32.
+//  * The warps split the chunk's j walk: each j-block is cut into rounds of
+//    32 kK rows, and warp w stages rounds w, w + kQ, ... of the chunk's
+//    blocks in order. Each lane loads its kK rows of the round (x, y, z, m
+//    through the four channel pointers and one element stride, so a row
+//    table [n, 4] is read in place), tests them against the box, and the
+//    in-box rows are compacted into the warp's shared buffer in table order
+//    by a ballot and a prefix count. Whenever the buffer holds >= G rows,
+//    the warp sweeps the largest multiple of G of them (each group a fixed
+//    share, summed into fresh partials before the running sums) and carries
+//    the rest (< G) to the front.
+//  * At the end the groups of each row are added by xor shuffles in a fixed
+//    order, then the kQ warps' sums in warp order in shared memory; warp 0
+//    writes every slot of the slice.
+//  * One MUFU.RSQ a pair (rsqrt.approx.ftz) with eps2 folded into the r^2
+//    chain: only live rows reach the sweep, so r2e is finite and >= eps2 >
+//    0 (the wrappers require eps2 > 0), never denormal.
+// kK and kQ are the OT_NEAR_K and OT_NEAR_Q macros below, which
+// chip_smoke.py --sweep sets with -D; its shapes (k 2-8, q 2-8) timed alike
+// within their spreads, all under the wrapper's host time.
 //
 // Plain C interface for ctypes: pointers and the stream are void*, and the
 // entry point returns cudaGetLastError() of its launch.
 #include <cuda_runtime.h>
 
+#ifndef OT_NEAR_K
+#define OT_NEAR_K 4
+#endif
+#ifndef OT_NEAR_Q
+#define OT_NEAR_Q 4
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;    // threads of a block: chunk * groups
-constexpr int kStageRows = 1024; // j rows staged per pass (16 KB)
+constexpr int kK = OT_NEAR_K;          // j rows a lane stages a round
+constexpr int kQ = OT_NEAR_Q;          // warps a block, one share of the j walk each
+constexpr int kThreads = 32 * kQ;
+constexpr int kRound = 32 * kK;        // j rows a warp stages at once
+constexpr int kBuf = kRound + 31;      // a round's in-box rows and < 32 carried
+constexpr float kHalfSentinel = 5e14f; // half of SENTINEL_POS (ops/neighbor.py)
+static_assert(kK >= 1 && kQ >= 1, "bad launch shape");
+static_assert(kQ * kBuf * sizeof(float4) + kQ * 32 * (sizeof(float4) + sizeof(int)) <=
+                  48 * 1024,
+              "static shared memory");
 
 struct Switch {
-  float rc2, inv_d, c30, eps2, G;
+  float sc;      // rc2e * inv_d, rc2e = rc^2 + eps^2
+  float neg_inv_d;
+  float c60;     // 2 * 30 * inv_d
+  float eps2;
+  float G;
+  float inv_eps; // eps2^-1/2, the self pair's pe
+  float h;       // the box's half-width (see the rounding rule above)
 };
 
-__global__ void __launch_bounds__(kThreads)
-near_sweep_kernel(const float4* __restrict__ pts, const int* __restrict__ blocks,
-                  const int* __restrict__ off, int stride, const int* __restrict__ count,
-                  int chunk, int blkw, int groups, int stage_blocks, Switch p,
-                  float4* __restrict__ out) {
-  extern __shared__ float4 smem[];  // [stage_blocks * blkw] j rows, then [T] sums
-  float4* red = smem + stage_blocks * blkw;
-  const int T = chunk * groups;
-  const int t = threadIdx.x;
-  const int i = t % chunk;
-  const int g = t / chunk;
-  const int c = blockIdx.x;
-  const int n_q = count[c];
-  const int base = off ? off[c] : c * stride;
-  const float4 pi = pts[(size_t)c * chunk + i];
+// 1/sqrt(x) as one MUFU.RSQ, denormals flushed (x >= eps2 > 0 here)
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return 1.0f / sqrtf(x);  // the host pass never calls it
+#endif
+}
 
-  float ax = 0.0f, ay = 0.0f, az = 0.0f, pe = 0.0f;
-  for (int q0 = 0; q0 < n_q; q0 += stage_blocks) {
-    const int nb = min(stage_blocks, n_q - q0);
-    for (int k = t; k < nb * blkw; k += T) {
-      const int b = blocks[base + q0 + k / blkw];
-      smem[k] = pts[(size_t)b * blkw + k % blkw];
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Adds buffered rows 0 .. nb - 1 (x, y, z, m) to the sums of row pi: group
+// g of G = 1 << gshift takes rows g, g + G, ..., summed into fresh partials
+// first.
+__device__ __forceinline__ void sweep_rows(const float4* buf, int nb, int g, int gshift,
+                                           float4 pi, const Switch& p, float4& acc) {
+  float tx = 0.0f, ty = 0.0f, tz = 0.0f, tp = 0.0f;
+  const int n_it = nb > g ? (nb - g + (1 << gshift) - 1) >> gshift : 0;
+  const float4* row = buf + g;
+  const int step = 1 << gshift;
+#pragma unroll 2
+  for (int t = 0; t < n_it; ++t, row += step) {
+    const float4 pj = *row;
+    const float dx = pj.x - pi.x;
+    const float dy = pj.y - pi.y;
+    const float dz = pj.z - pi.z;
+    const float r2e = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, p.eps2)));
+    const float s = __saturatef(fmaf(r2e, p.neg_inv_d, p.sc));
+    const float s2 = s * s;
+    const float S = s * s2 * fmaf(s, fmaf(s, 6.0f, -15.0f), 10.0f);
+    const float sq = s - s2;  // s (1 - s)
+    const float spd2 = p.c60 * sq * sq;
+    const float inv = rsqrt_ftz(r2e);
+    const float mi = pj.w * inv;  // m_j / r
+    const float w = mi * fmaf(S, inv * inv, spd2);
+    tx = fmaf(w, dx, tx);
+    ty = fmaf(w, dy, ty);
+    tz = fmaf(w, dz, tz);
+    tp = fmaf(mi, S, tp);
+  }
+  acc.x += tx;
+  acc.y += ty;
+  acc.z += tz;
+  acc.w += tp;
+}
+
+// The second bound (one block an SM) lets ptxas use the registers the
+// staging needs, as B7's does.
+__global__ void __launch_bounds__(kThreads, 1)
+near_sweep_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
+                  const float* __restrict__ zs, const float* __restrict__ ms, long long cs,
+                  const int* __restrict__ blocks, const int* __restrict__ off, int stride,
+                  const int* __restrict__ count, int sentinel, int chunk, int slices,
+                  int blkw, Switch p, float4* __restrict__ out) {
+  __shared__ float4 bufs[kQ][kBuf];  // in-box j rows (x, y, z, m)
+  __shared__ float4 red[kQ][32];     // each warp's sums of the live i rows
+  __shared__ int order[kQ][32];      // the slice's live rows, in table order
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int c = blockIdx.x / slices;
+  const int row0 = blockIdx.x % slices * 32;
+  const int nrows = min(32, chunk - row0);
+  const size_t slot = static_cast<size_t>(c) * chunk + row0 + lane;
+
+  // the chunk's entries: count[c] from off[c] (worklist), or the
+  // non-sentinel entries of row c of the padded table
+  int base, n_q;
+  if (off) {
+    base = off[c];
+    n_q = count[c];
+  } else {
+    base = c * stride;
+    n_q = 0;
+    for (int k = lane; k - lane < stride; k += 32) {
+      const bool used = k < stride && blocks[base + k] != sentinel;
+      n_q += __popc(__ballot_sync(0xffffffffu, used));
     }
-    __syncthreads();
-    for (int bb = 0; bb < nb; ++bb) {
-      const float4* tile = smem + bb * blkw;
-      float tx = 0.0f, ty = 0.0f, tz = 0.0f, tp = 0.0f;
-#pragma unroll 4
-      for (int j = g; j < blkw; j += groups) {
-        const float4 pj = tile[j];
-        const float dx = pj.x - pi.x;
-        const float dy = pj.y - pi.y;
-        const float dz = pj.z - pi.z;
-        const float r2 = dx * dx + dy * dy + dz * dz;
-        const float s = fminf(fmaxf((p.rc2 - r2) * p.inv_d, 0.0f), 1.0f);
-        const float s2 = s * s;
-        const float S = s * s2 * (10.0f + s * (-15.0f + 6.0f * s));
-        const float spd = p.c30 * s2 * (1.0f - s) * (1.0f - s);
-        const float inv_r = rsqrtf(r2 + p.eps2);
-        const float w = pj.w * (S * (inv_r * inv_r * inv_r) + (2.0f * spd) * inv_r);
-        tx += w * dx;
-        ty += w * dy;
-        tz += w * dz;
-        tp += pj.w * inv_r * S;
-      }
-      ax += tx;
-      ay += ty;
-      az += tz;
-      pe += tp;
-    }
-    __syncthreads();
   }
 
-  red[t] = make_float4(ax, ay, az, pe);
-  __syncthreads();
-  if (t < chunk) {
-    float4 s = red[t];
-    for (int k = 1; k < groups; ++k) {
-      const float4 v = red[k * chunk + t];
-      s.x += v.x;
-      s.y += v.y;
-      s.z += v.z;
-      s.w += v.w;
+  // the slice's rows, its live rows and their box
+  float4 mine = make_float4(2.0f * kHalfSentinel, 2.0f * kHalfSentinel,
+                            2.0f * kHalfSentinel, 0.0f);
+  if (lane < nrows) {
+    const size_t e = slot * cs;
+    mine = make_float4(xs[e], ys[e], zs[e], ms[e]);
+  }
+  const bool live = lane < nrows && !(mine.x >= kHalfSentinel && mine.y >= kHalfSentinel &&
+                                      mine.z >= kHalfSentinel);
+  const unsigned lmask = __ballot_sync(0xffffffffu, live);
+  const int L = __popc(lmask);
+  if (L == 0 || n_q == 0) {
+    // nothing to sum: a live row keeps only the self term off its pe
+    if (warp == 0 && lane < nrows) {
+      out[slot] = make_float4(0.0f, 0.0f, 0.0f,
+                              live ? __fsub_rn(0.0f, __fmul_rn(mine.w, p.inv_eps)) : 0.0f);
     }
-    out[(size_t)c * chunk + t] = make_float4(p.G * s.x, p.G * s.y, p.G * s.z, s.w);
+    return;
+  }
+  const float big = 2.0f * kHalfSentinel;
+  const float lo_x = __fsub_rd(warp_min(live ? mine.x : big), p.h);
+  const float lo_y = __fsub_rd(warp_min(live ? mine.y : big), p.h);
+  const float lo_z = __fsub_rd(warp_min(live ? mine.z : big), p.h);
+  const float hi_x = __fadd_ru(warp_max(live ? mine.x : -big), p.h);
+  const float hi_y = __fadd_ru(warp_max(live ? mine.y : -big), p.h);
+  const float hi_z = __fadd_ru(warp_max(live ? mine.z : -big), p.h);
+  if (live) order[warp][__popc(lmask & below)] = lane;
+  __syncwarp();
+
+  // lane (i, g): the i-th live row, group g of G = 32 / S over the j rows
+  int sshift = 0;
+  while ((1 << sshift) < L) ++sshift;
+  const int gshift = 5 - sshift;
+  const int G = 1 << gshift;
+  const int i = lane & ((1 << sshift) - 1);
+  const int g = lane >> sshift;
+  const int src_i = order[warp][i < L ? i : 0];
+  const float4 pi = make_float4(__shfl_sync(0xffffffffu, mine.x, src_i),
+                                __shfl_sync(0xffffffffu, mine.y, src_i),
+                                __shfl_sync(0xffffffffu, mine.z, src_i), 0.0f);
+  float4* const buf = bufs[warp];
+
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // the row's running sums
+  int fill = 0;                                    // rows in the warp's buffer
+  const int rpe = (blkw + kRound - 1) / kRound;    // rounds a j-block
+  const int rounds = n_q * rpe;
+  for (int t = warp; t < rounds; t += kQ) {
+    const int q = rpe == 1 ? t : t / rpe;
+    const int sub = rpe == 1 ? 0 : t - q * rpe;
+    const int b = blocks[base + q];
+    const int a = b * blkw + sub * kRound;              // the round's first row
+    const int e = min(kRound, blkw - sub * kRound);     // its rows
+    float4 pj[kK];
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const int r = 32 * k + lane;
+      if (r < e) {
+        const size_t at = static_cast<size_t>(a + r) * cs;
+        pj[k] = make_float4(xs[at], ys[at], zs[at], ms[at]);
+      } else {
+        pj[k] = make_float4(big, big, big, 0.0f);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const bool in = pj[k].x >= lo_x && pj[k].x <= hi_x && pj[k].y >= lo_y &&
+                      pj[k].y <= hi_y && pj[k].z >= lo_z && pj[k].z <= hi_z;
+      const unsigned m = __ballot_sync(0xffffffffu, in);
+      if (in) buf[fill + __popc(m & below)] = pj[k];
+      fill += __popc(m);
+    }
+    if (fill >= G) {
+      __syncwarp();
+      const int nb = fill & ~(G - 1);
+      sweep_rows(buf, nb, g, gshift, pi, p, s);
+      // carry the rows past nb (fewer than G <= 32) to the front
+      const int rest = fill - nb;
+      float4 cp;
+      if (lane < rest) cp = buf[nb + lane];
+      __syncwarp();
+      if (lane < rest) buf[lane] = cp;
+      __syncwarp();
+      fill = rest;
+    }
+  }
+  __syncwarp();
+  if (fill > 0) sweep_rows(buf, fill, g, gshift, pi, p, s);
+
+  // the G groups of each row, then the kQ warps, each in a fixed order
+  for (int o = 1 << sshift; o < 32; o <<= 1) {
+    s.x += __shfl_xor_sync(0xffffffffu, s.x, o);
+    s.y += __shfl_xor_sync(0xffffffffu, s.y, o);
+    s.z += __shfl_xor_sync(0xffffffffu, s.z, o);
+    s.w += __shfl_xor_sync(0xffffffffu, s.w, o);
+  }
+  if (g == 0 && i < L) red[warp][i] = s;
+  __syncthreads();
+  if (warp == 0 && lane < nrows) {
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (live) {
+      const int rank = __popc(lmask & below);
+      float4 t = red[0][rank];
+      for (int w = 1; w < kQ; ++w) {
+        const float4 u = red[w][rank];
+        t.x += u.x;
+        t.y += u.y;
+        t.z += u.z;
+        t.w += u.w;
+      }
+      v = make_float4(p.G * t.x, p.G * t.y, p.G * t.z,
+                      __fsub_rn(t.w, __fmul_rn(mine.w, p.inv_eps)));
+    }
+    out[slot] = v;
   }
 }
 
@@ -134,24 +337,43 @@ near_sweep_kernel(const float4* __restrict__ pts, const int* __restrict__ blocks
 
 extern "C" {
 
-// pts: [n_slots] float4 (x, y, z, m); blocks: int32 j-block indices; off:
-// [k_ch] int32 first entry of each chunk's list, or null for c * stride;
-// count: [k_ch] int32 entries to walk; out: [k_ch * chunk] float4.
-// rc2 = rc^2, inv_d = 1 / (rc^2 - r1^2), c30 = 30 inv_d.
-int near_sweep(const void* pts, const void* blocks, const void* off, int stride,
-               const void* count, int k_ch, int chunk, int blkw, float rc2, float inv_d,
-               float c30, float eps2, float G, void* out, void* stream, int device) {
+// xs, ys, zs, ms: the slot channels [n_slots], element i at ptr[i * cs];
+// blocks: int32 j-block indices; off: [k_ch] int32 first entry of each
+// chunk's list with count: [k_ch] int32 entries to walk (the worklist), or
+// both null for the padded table blocks [k_ch, stride], whose entries other
+// than `sentinel` are walked; out: [k_ch * chunk] float4 (G ax, G ay, G az,
+// pe without the self pair). sc = (rc^2 + eps2) inv_d, neg_inv_d = -inv_d,
+// c60 = 60 inv_d with inv_d = 1 / (rc^2 - r1^2); inv_eps = eps2^-1/2; h the
+// box's half-width (see the note at the top).
+int near_sweep(const void* xs, const void* ys, const void* zs, const void* ms, long long cs,
+               const void* blocks, const void* off, int stride, const void* count,
+               int sentinel, int k_ch, int chunk, int blkw, float sc, float neg_inv_d,
+               float c60, float eps2, float G, float inv_eps, float h, void* out,
+               void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (k_ch <= 0) return cudaSuccess;
-  const int groups = kThreads / chunk > 0 ? kThreads / chunk : 1;
-  const int stage_blocks = kStageRows / blkw > 0 ? kStageRows / blkw : 1;
-  const size_t smem = sizeof(float4) * (size_t)(stage_blocks * blkw + chunk * groups);
-  near_sweep_kernel<<<k_ch, chunk * groups, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pts), static_cast<const int*>(blocks),
-      static_cast<const int*>(off), stride, static_cast<const int*>(count), chunk, blkw,
-      groups, stage_blocks, Switch{rc2, inv_d, c30, eps2, G}, static_cast<float4*>(out));
+  if (chunk <= 0 || blkw <= 0 || !(eps2 > 0.0f) || (off == nullptr) != (count == nullptr))
+    return cudaErrorInvalidValue;
+  const int slices = (chunk + 31) / 32;
+  near_sweep_kernel<<<k_ch * slices, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xs), static_cast<const float*>(ys),
+      static_cast<const float*>(zs), static_cast<const float*>(ms), cs,
+      static_cast<const int*>(blocks), static_cast<const int*>(off), stride,
+      static_cast<const int*>(count), sentinel, chunk, slices, blkw,
+      Switch{sc, neg_inv_d, c60, eps2, G, inv_eps, h}, static_cast<float4*>(out));
   return cudaGetLastError();
+}
+
+// The launch shape for n 32-row chunk slices (k_ch of them at chunk <= 32):
+// shape[0..4] = j rows a lane stages a round, warps a block, j rows a warp
+// stages a round, threads a block, blocks.
+void near_sweep_shape(int n, int* shape) {
+  shape[0] = kK;
+  shape[1] = kQ;
+  shape[2] = kRound;
+  shape[3] = kThreads;
+  shape[4] = n;
 }
 
 const char* ot_error_string(int err) {

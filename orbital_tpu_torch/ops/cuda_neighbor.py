@@ -5,13 +5,13 @@ Replaces the four TPU schedules of ``orbital_tpu/ops/neighbor_pallas.py``
 with one kernel, behind wrappers named after their counterparts and with
 their contracts (slot-space channels in, ``(acc [k_ch * chunk, 3], pe
 [k_ch * chunk])`` out in slot order, the self-PE term m_i/eps subtracted
-here):
+by the kernel):
 
   * :func:`near_acc_slots_cuda`: ``near_acc_slots_pallas`` over the padded
     j-block table ``jbl``, both its streaming (B8) and resident (B11)
-    kernels. The kernel walks each row's live prefix, counted here as the
-    row's non-sentinel entries, so the two schedules are one and there is
-    no ``resident`` knob.
+    kernels. The kernel walks each row's live prefix, which it counts
+    itself as the row's non-sentinel entries, so the two schedules are one
+    and there is no ``resident`` knob.
   * :func:`near_acc_slots_cuda_sb`: ``near_acc_slots_pallas_sb`` (B10). The
     kernel stages each chunk's j-blocks itself, so no per-substep gather of
     superblocks is needed: a thin adapter over the same launch.
@@ -23,6 +23,14 @@ here):
     gets count 0 and so rows of zeros, which ``wl_row_live`` masks in on the
     TPU; the run-start flags ``wl_first`` are not needed.
 
+The kernel reads the four channels through their pointers and one element
+stride, so the columns of a row table ``P [n_slots, 4]`` (as the multirate
+stepper passes them) are read in place, and it visits only each chunk's
+live rows against the rows inside the chunk's box (a pair outside it adds
+exactly 0; see the note at the top of the source): :func:`near_params`
+gives the box's half-width, which ``chip_smoke.near_work`` counts with. A
+call on the table runs one allocation and the kernel.
+
 For CPU tensors the wrappers compute the plain versions: ``ops.neighbor.
 near_acc_slots`` over ``jbl``, and for the worklist
 :func:`near_acc_slots_wl_plain`, which rebuilds each chunk's list as a table
@@ -33,17 +41,17 @@ kernel's launches through every adapter.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+import types
 
+import numpy as np
 import torch
 
 from .neighbor import near_acc_slots
 
 __all__ = ["near_acc_slots_cuda", "near_acc_slots_cuda_sb", "near_acc_slots_cuda_wl",
-           "near_acc_slots_wl_plain"]
-
-# the kernel's block size and staged rows (csrc/neighbor.cu)
-_THREADS = 256
-_STAGE_ROWS = 1024
+           "near_acc_slots_wl_plain", "near_params"]
 
 _lib = None
 
@@ -56,49 +64,75 @@ def _load():
         lib = kernels.load("neighbor")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.near_sweep.restype = ctypes.c_int
-        lib.near_sweep.argtypes = [p, p, p, i, p, i, i, i, f, f, f, f, f, p, p, i]
+        lib.near_sweep.argtypes = [p, p, p, p, ctypes.c_longlong, p, p, i, p, i, i, i, i,
+                                   f, f, f, f, f, f, f, p, p, i]
         _lib = lib
     return _lib
 
 
-def _check(fn: str, xs, chunk: int, rj: int, *others) -> None:
+@functools.lru_cache(maxsize=16)
+def near_params(r1: float, rc: float, G: float, eps2: float) -> types.MappingProxyType:
+    """The kernel's float32 constants: ``sc = (rc^2 + eps2) inv_d``,
+    ``neg_inv_d``, ``c60 = 60 inv_d`` (inv_d = 1 / (rc^2 - r1^2)), ``eps2``,
+    ``G``, ``inv_eps = eps2^-1/2`` and the box's half-width ``h``. The
+    sweep's s is ``sat(r2e neg_inv_d + sc)`` with r2e = r^2 + eps2, so s > 0
+    needs r2e < sc / inv_d; ``h`` is sqrt of that bound widened by 2^-16,
+    which covers the roundings of r2e (``csrc/neighbor.cu``). Cached, as a
+    read-only mapping: the multirate stepper asks it on every sweep."""
+    f32 = np.float32
+    inv_d = 1.0 / (rc * rc - r1 * r1)
+    sc, neg_inv_d = f32(float(f32(rc * rc + eps2)) * inv_d), f32(-inv_d)
+    h = f32(math.sqrt(float(sc) / -float(neg_inv_d)) * (1.0 + 2.0 ** -16))
+    return types.MappingProxyType(dict(
+        sc=float(sc), neg_inv_d=float(neg_inv_d), c60=float(f32(60.0 * inv_d)),
+        eps2=float(f32(eps2)), G=float(f32(G)), inv_eps=float(f32(eps2 ** -0.5)),
+        h=float(h)))
+
+
+def _check(fn: str, xs, ys, zs, ms, chunk: int, rj: int, eps2: float, *others) -> None:
     if xs.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {xs.device}")
-    if xs.dtype != torch.float32:
+    if any(t.dtype != torch.float32 for t in (xs, ys, zs, ms)):
         raise TypeError(f"{fn} computes in float32, got {xs.dtype}")
-    if any(t.device != xs.device for t in others):
+    if any(t.device != xs.device for t in (ys, zs, ms, *others)):
         raise ValueError(f"{fn}: all tensors must be on one device")
-    blkw = rj * chunk
-    groups = max(1, _THREADS // chunk)
-    smem = 16 * (max(1, _STAGE_ROWS // blkw) * blkw + chunk * groups)
-    if chunk > _THREADS or smem > 48 * 1024 or xs.shape[0] % blkw:
-        raise ValueError(f"{fn}: chunk={chunk}, rj={rj} with {xs.shape[0]} slots is outside "
-                         f"the kernel's shapes (chunk <= {_THREADS}, staged rows <= 48 KB)")
+    if not eps2 > 0:
+        raise ValueError(f"{fn} requires eps2 > 0 (the self pair is summed unmasked)")
+    blkw = int(rj) * int(chunk)
+    if int(chunk) <= 0 or blkw <= 0 or xs.shape[0] % blkw or any(
+            t.shape != xs.shape or t.dim() != 1 for t in (ys, zs, ms)):
+        raise ValueError(f"{fn}: chunk={chunk}, rj={rj} with channels "
+                         f"{[tuple(t.shape) for t in (xs, ys, zs, ms)]} is outside the "
+                         f"kernel's shapes (four [n_slots] channels, n_slots a multiple of "
+                         f"rj * chunk)")
 
 
 def _sweep(xs, ys, zs, ms, blocks, off, stride: int, count, k_ch: int, *,
            r1: float, rc: float, G: float, eps2: float, chunk: int, rj: int):
-    """Launch the kernel: chunk c walks ``blocks[off[c] + q]`` (``c * stride
-    + q`` without ``off``) for q < count[c]. Returns (acc, pe) as the JAX
-    wrappers do."""
-    c = int(chunk)
-    pts = torch.stack([xs, ys, zs, ms], dim=1).contiguous()      # [n_slots, 4]
+    """Launch the kernel: chunk c walks ``blocks[off[c] + q]`` for q <
+    count[c], or without ``off`` and ``count`` the non-sentinel entries of
+    row c of the table ``blocks [k_ch, stride]``. Returns (acc, pe) as the
+    JAX wrappers do: views of one [k_ch * chunk, 4] output."""
+    c, blkw = int(chunk), int(rj) * int(chunk)
+    chans = (xs, ys, zs, ms)
+    if len({t.stride(0) for t in chans}) != 1:
+        chans = tuple(t.contiguous() for t in chans)
     out = torch.empty((k_ch * c, 4), dtype=torch.float32, device=xs.device)
-    inv_d = 1.0 / (rc * rc - r1 * r1)
+    k = near_params(r1, rc, G, eps2)
 
     lib = _load()
     from ..utils.kernels import check
 
     stream = torch.cuda.current_stream(xs.device).cuda_stream
-    err = lib.near_sweep(pts.data_ptr(), blocks.data_ptr(),
-                         None if off is None else off.data_ptr(), int(stride),
-                         count.data_ptr(), int(k_ch), c, int(rj) * c, float(rc * rc),
-                         float(inv_d), float(30.0 * inv_d), float(eps2), float(G),
+    err = lib.near_sweep(*(t.data_ptr() for t in chans), chans[0].stride(0),
+                         blocks.data_ptr(), None if off is None else off.data_ptr(),
+                         int(stride), None if count is None else count.data_ptr(),
+                         xs.shape[0] // blkw - 1, int(k_ch), c, blkw, k["sc"],
+                         k["neg_inv_d"], k["c60"], k["eps2"], k["G"], k["inv_eps"], k["h"],
                          out.data_ptr(), stream, xs.device.index or 0)
     check(lib, err, "near_sweep launch")
     near_acc_slots_cuda.launches += 1
-    pe = out[:, 3] - ms[:k_ch * c] * (float(eps2) ** -0.5)
-    return out[:, :3], pe
+    return out[:, :3], out[:, 3]
 
 
 def near_acc_slots_cuda(xs, ys, zs, ms, jbl, *, r1: float, rc: float, G: float,
@@ -109,13 +143,13 @@ def near_acc_slots_cuda(xs, ys, zs, ms, jbl, *, r1: float, rc: float, G: float,
     if xs.device.type == "cpu":
         return near_acc_slots(xs, ys, zs, ms, jbl, r1=r1, rc=rc, G=G, eps2=eps2,
                               chunk=chunk, rj=rj)
-    _check("near_acc_slots_cuda", xs, chunk, rj, ys, zs, ms, jbl)
+    _check("near_acc_slots_cuda", xs, ys, zs, ms, chunk, rj, eps2, jbl)
     k_ch, w_blk = jbl.shape
-    sentinel = xs.shape[0] // (rj * chunk) - 1
-    jbl = jbl.to(torch.int32).contiguous()
-    count = torch.sum(jbl != sentinel, dim=1, dtype=torch.int32)
-    return _sweep(xs, ys, zs, ms, jbl, None, w_blk, count, k_ch, r1=r1, rc=rc, G=G,
-                  eps2=eps2, chunk=chunk, rj=rj)
+    if k_ch * int(chunk) > xs.shape[0]:
+        raise ValueError(f"near_acc_slots_cuda: jbl has {k_ch} chunks of {chunk} rows for "
+                         f"{xs.shape[0]} slots")
+    return _sweep(xs, ys, zs, ms, jbl.to(torch.int32).contiguous(), None, w_blk, None, k_ch,
+                  r1=r1, rc=rc, G=G, eps2=eps2, chunk=chunk, rj=rj)
 
 
 near_acc_slots_cuda.launches = 0
@@ -157,11 +191,11 @@ def near_acc_slots_cuda_wl(xs, ys, zs, ms, wl_i, wl_jb, *, r1: float, rc: float,
                            G: float, eps2: float, chunk: int = 32, rj: int = 4):
     """``near_acc_slots_pallas_wl``'s counterpart (B9), from the compacted
     worklist ``(wl_i, wl_jb)`` of ``neighbor_geometry(..., wl_entries=)``.
-    Rows of chunks the worklist does not visit are 0."""
+    The acc rows of chunks the worklist does not visit are 0."""
     kw = dict(r1=r1, rc=rc, G=G, eps2=eps2, chunk=chunk, rj=rj)
     if xs.device.type == "cpu":
         return near_acc_slots_wl_plain(xs, ys, zs, ms, wl_i, wl_jb, **kw)
-    _check("near_acc_slots_cuda_wl", xs, chunk, rj, ys, zs, ms, wl_i, wl_jb)
+    _check("near_acc_slots_cuda_wl", xs, ys, zs, ms, chunk, rj, eps2, wl_i, wl_jb)
     k_ch = xs.shape[0] // int(chunk) - int(rj)
     count, off = _wl_lists(wl_i, k_ch)
     return _sweep(xs, ys, zs, ms, wl_jb.to(torch.int32).contiguous(), off, 0, count, k_ch,

@@ -337,14 +337,15 @@ def test_launch_record_of_the_gram_and_bounce_kernels(name, key):
 
 
 def test_parent_and_sweep_cover_the_redesigned_kernels(monkeypatch):
-    """--parent and --sweep reach all six redesigned sources: each has its
+    """--parent and --sweep reach all eight redesigned sources: each has its
     exported functions, sweep shapes (k, q) and shape macro; each call of
-    exact_calls and tree_calls (at small sizes) is held by its tolerances
-    (on the CPU the wrappers take their plain versions, so each holds with
-    0), B13 and B12 only where eps2 > 0, B13's S against the exact S within
-    GRAM_S_RTOL in RMS and GRAM_MAX_RTOL in max and its pe by the Gram gates
-    against the reference, B6 gated and ungated, B7's starved near phase
-    with its overflow > 0."""
+    exact_calls, tree_calls, near_calls and fused_calls (at small sizes) is
+    held by its tolerances (on the CPU the wrappers take their plain
+    versions, so each holds with 0), B13 and B12 only where eps2 > 0, B13's
+    S against the exact S within GRAM_S_RTOL in RMS and GRAM_MAX_RTOL in max
+    and its pe by the Gram gates against the reference, B6 gated and
+    ungated, B7's starved near phase with its overflow > 0, and B4 held to
+    STATE_ATOL on its state."""
     import chip_smoke
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -358,21 +359,32 @@ def test_parent_and_sweep_cover_the_redesigned_kernels(monkeypatch):
     assert all(len(s) == 2 for shapes in chip_smoke.SWEEP.values() for s in shapes)
     scene = smoke.scene(640, 0.05, 7, seed_offset=17, cluster=False)
     sizes = ((2048, 5), (1000, 4), (4096, 5))
-    calls = {**smoke.exact_calls(scene, 1e-4, True), **smoke.tree_calls(sizes=sizes)}
+    near_sizes = (2048, 1000)
+    cases = {k: (256, 200, "ds32") if k in ("B4", "B4L") else (300, 300, "f32")
+             for k in chip_smoke.FUSED_CASES}
+    calls = {**smoke.exact_calls(scene, 1e-4, True), **smoke.tree_calls(sizes=sizes),
+             **smoke.near_calls(sizes=near_sizes), **smoke.fused_calls(cases=cases)}
     refs = {**smoke.exact_calls(scene, 1e-4, True, plain=True),
-            **smoke.tree_calls(plain=True, sizes=sizes)}
+            **smoke.tree_calls(plain=True, sizes=sizes),
+            **smoke.near_calls(plain=True, sizes=near_sizes),
+            **smoke.fused_calls(plain=True, cases=cases)}
     assert set(calls) == set(smoke.SOURCE)
     for key, (mod, call) in calls.items():
         assert mod.__name__.rsplit(".", 1)[1] == {
             "nbody_forces": "cuda_forces", "nbody_jerk": "cuda_jerk",
             "nbody_forces_mxu": "cuda_forces_mxu", "collisions": "cuda_collisions",
-            "nbody_forces_sym": "cuda_forces_sym", "tree_near": "cuda_tree"}[
+            "nbody_forces_sym": "cuda_forces_sym", "tree_near": "cuda_tree",
+            "neighbor": "cuda_neighbor", "fused_rollout": "fused_rollout"}[
                 smoke.SOURCE[key]]
         assert mod is smoke.redesigned()[smoke.SOURCE[key]]
         assert smoke.hold(key, call(), refs[key][1](), call) == (0.0, True)
     assert not {"B12", "B13"} & set(smoke.exact_calls(scene, 0.0, True))
     assert int(calls["B7S"][1]()[2]) > 0
     assert calls["B7"][1].pairs > 0 and calls["B7L"][1].pairs > calls["B7"][1].pairs
+    assert calls["NEAR"][1].pairs > 0 and calls["B4"][1].pairs == 256 * 256 * 11
+    out = calls["B4"][1]()
+    with pytest.raises(AssertionError, match="B4 output 0"):
+        smoke.hold("B4", (out[0] + 2e-6, out[1]), out)
     dv = calls["B6"][1]()[1]
     assert bool(dv.any())  # the scene has contacts
     b13 = calls["B13"][1]

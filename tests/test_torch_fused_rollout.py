@@ -18,7 +18,7 @@ import orbital_tpu as jot
 import orbital_tpu_torch as tot
 from orbital_tpu.ops.fused_rollout import fused_rollout as j_fused
 from orbital_tpu_torch.ops.fused_rollout import (FUSED_MAX_N, fused_rollout,
-                                                 fused_rollout_plain)
+                                                 fused_rollout_plain, launch_plan)
 
 ATOL = 1e-6
 TILES = dict(tile_i=64, tile_j=128)
@@ -160,3 +160,40 @@ def test_fused_eligibility_gate(change, eligible):
                             device=torch.device(change.pop("device", "cuda")))
     cfg = tot.SimConfig(dt=1e-3, eps2=1e-4).replace(**change)
     assert R._fused_eligible(state, cfg) is eligible
+
+
+@pytest.mark.parametrize("n", [1, 127, 4096, 5000, 32768])
+def test_launch_plan_covers_every_pair_once(n):
+    """B4's launch plan, walked as csrc/fused_rollout.cu walks it (block b
+    takes units b, b + grid, ...; unit u is i tile u % tiles against j split
+    u // tiles; warp w sweeps split_len * s + warp_len * w onward, cut at the
+    split's end and n): every (i tile, j) pair once, at most the co-resident
+    blocks, no empty split, and a critical path within 1.5x of an even share
+    of the work (plus a warp's granule), so that the blocks fill the card
+    where n allows: 128 of 132 at 4,096 bodies in tiles of 128."""
+    for rows, warps in ((128, 8), (64, 4), (256, 16)):
+        for resident in (1, 66, 132, 264):
+            p = launch_plan(n, rows, warps, resident)
+            tiles, splits, grid = p["tiles"], p["splits"], p["grid"]
+            assert tiles == -(-n // rows) and p["units"] == tiles * splits
+            assert 1 <= grid <= min(resident, p["units"])
+            assert (splits - 1) * p["split_len"] < n <= splits * p["split_len"]
+            assert p["split_len"] % 32 == 0 and p["warp_len"] % 32 == 0
+            assert warps * p["warp_len"] >= p["split_len"]
+            cover = np.zeros((tiles, n), np.int64)
+            rounds = 0
+            for b in range(grid):
+                units = range(b, p["units"], grid)
+                rounds = max(rounds, len(units))
+                for u in units:
+                    t, s = u % tiles, u // tiles
+                    end = min(n, (s + 1) * p["split_len"])
+                    for w in range(warps):
+                        a = min(n, s * p["split_len"] + w * p["warp_len"])
+                        cover[t, a:min(end, a + p["warp_len"])] += 1
+            np.testing.assert_array_equal(cover, 1)
+            assert rounds == -(-p["units"] // grid)
+            even = tiles * n / (resident * warps)
+            assert rounds * p["warp_len"] <= 1.5 * even + 32, (rows, warps, resident, p)
+    if n == 4096:
+        assert launch_plan(n, 128, 8, 132)["grid"] >= 128

@@ -479,3 +479,97 @@ def test_unported_respa_paths_raise():
     st = tot.make_state(*_cluster(16, 1), device="cpu")
     with pytest.raises(ValueError, match="divide"):
         tmr.respa_rollout(st, cfg, 6)
+
+
+def _near_pairs(s, starved):
+    """Every (chunk row, j row) pair of JAX's geometry for the N = 300 scene
+    (its jbl held equal to the port's first): the rows' f32 positions and
+    slots, whether each i row is live, the kernel's box rule for it (the
+    chunk's live rows' [min - h, max + h] on each axis, rounded outward in
+    f32, h of ``near_params``), and ``used`` for the live jbl entries."""
+    gj, gt = s["gj"], s["gt"]
+    if starved:
+        gj, gt = _geometries(s["pos"], s["alive"], 0.45, (s["budgets"][0], 32, 1, 20))
+    jbl = np.asarray(gj["jbl"])
+    np.testing.assert_array_equal(gt["jbl"].numpy(), jbl)
+    k_ch, n_slots = jbl.shape[0], (jbl.shape[0] + RJ) * CHUNK
+    ch, _ = _channels(s["pos"], s["mass"], s["alive"], gt["slot"], n_slots)
+    pos = np.stack([c.numpy() for c in ch[:3]], 1)                  # [n_slots, 3] f32
+    blkw = RJ * CHUNK
+    used = jbl != n_slots // blkw - 1
+    i_slot = np.arange(k_ch * CHUNK).reshape(k_ch, CHUNK)
+    j_slot = jbl[:, :, None] * blkw + np.arange(blkw)               # [k_ch, W, blkw]
+    live = ~(pos >= 5e14).all(1)
+    h = np.float32(cn.near_params(SWEEP["r1"], SWEEP["rc"], SWEEP["G"], SWEEP["eps2"])["h"])
+    p_i = pos[i_slot]                                               # [k_ch, C, 3]
+    li = live[i_slot][..., None]
+    with np.errstate(invalid="ignore"):
+        lo = np.where(li, p_i, np.inf).min(1).astype(np.float64) - np.float64(h)
+        hi = np.where(li, p_i, -np.inf).max(1).astype(np.float64) + np.float64(h)
+    lo32, hi32 = lo.astype(np.float32), hi.astype(np.float32)
+    lo32 = np.where(lo32 > lo, np.nextafter(lo32, np.float32(-np.inf)), lo32)
+    hi32 = np.where(hi32 < hi, np.nextafter(hi32, np.float32(np.inf)), hi32)
+    p_j = pos[j_slot]                                               # [k_ch, W, blkw, 3]
+    in_box = ((p_j >= lo32[:, None, None]) & (p_j <= hi32[:, None, None])).all(-1)
+    return dict(jbl=jbl, ch=ch, pos=pos, used=used, i_slot=i_slot, j_slot=j_slot,
+                live=live, in_box=in_box & used[..., None], p_i=p_i, p_j=p_j, gt=gt)
+
+
+@pytest.mark.parametrize("starved", [False, True])
+def test_near_box_rule_keeps_every_nonzero_pair(scene300, starved):
+    """The CUDA near sweep visits only each chunk's live rows against the
+    rows of its live entries inside the chunk's box (csrc/neighbor.cu). On
+    JAX's geometry, every pair whose plain-sweep term is nonzero (s > 0 in
+    the plain f32 arithmetic, and in the kernel's, r^2 + eps2 against
+    rc^2 + eps2) lies inside that rule, and so do the pairs within rc."""
+    t = _near_pairs(scene300, starved)
+    d = t["p_j"][:, None] - t["p_i"][:, :, None, None]              # [k_ch, C, W, blkw, 3]
+    r2 = torch.from_numpy(np.sum(d * d, -1, dtype=np.float32))
+    S, spd = tn.switch_terms(r2, SWEEP["r1"], SWEEP["rc"])
+    k = cn.near_params(SWEEP["r1"], SWEEP["rc"], SWEEP["G"], SWEEP["eps2"])
+    r2e = (r2.double() + k["eps2"]).float().double()
+    s_kernel = r2e * k["neg_inv_d"] + k["sc"] > 0
+    nonzero = ((S > 0) | (spd > 0) | s_kernel).numpy() | (r2.numpy() < SWEEP["rc"] ** 2)
+    nonzero &= t["used"][:, None, :, None] & t["live"][t["i_slot"]][:, :, None, None]
+    visits = t["live"][t["i_slot"]][:, :, None, None] & t["in_box"][:, None]
+    assert nonzero.sum() > 0 and not (nonzero & ~visits).any()
+    assert visits.sum() < (t["used"][:, None, :, None] & np.ones_like(visits)).sum()
+
+
+@pytest.mark.parametrize("starved", [False, True])
+def test_near_work_counts_equal_brute_force(scene300, starved):
+    """chip_smoke.near_work's walked, live, visited, issued and needed pairs
+    equal a count pair by pair over the same geometry."""
+    import chip_smoke
+
+    t = _near_pairs(scene300, starved)
+    live_i = t["live"][t["i_slot"]]                                 # [k_ch, C]
+    live_j = t["live"][t["j_slot"]] & t["used"][..., None]          # [k_ch, W, blkw]
+    n_i = live_i.sum(1)
+    in_box = t["in_box"].sum((1, 2))
+    width = np.array([1 << int(np.ceil(np.log2(max(v, 1)))) for v in n_i])
+    d = t["p_j"][:, None] - t["p_i"][:, :, None, None]
+    r2 = np.sum(d.astype(np.float64) ** 2, -1)
+    self_pair = t["i_slot"][:, :, None, None] == t["j_slot"][:, None]
+    near = (r2 < SWEEP["rc"] ** 2) & live_i[:, :, None, None] & live_j[:, None] & ~self_pair
+    want = dict(walked=int(t["used"].sum()) * CHUNK * RJ * CHUNK,
+                live=int((n_i * live_j.sum((1, 2))).sum()),
+                visited=int((n_i * in_box).sum()),
+                issued=int(np.where(n_i > 0, 32 * -(-in_box // (32 // width)), 0).sum()),
+                needed=int(near.sum()))
+    work = chip_smoke.near_work({"jbl": torch.tensor(t["jbl"])}, t["ch"], SWEEP["rc"],
+                                CHUNK, RJ, eps2=SWEEP["eps2"], r1=SWEEP["r1"])
+    assert {k: work[k] for k in want} == want
+    assert work["needed"] < work["visited"] <= work["issued"] and \
+        work["visited"] < work["live"] < work["walked"]
+
+
+def test_near_wrappers_refuse_other_devices():
+    """The near wrappers run their plain versions only for CPU tensors: on
+    any other device they launch the kernel or raise."""
+    z = torch.zeros((4 * RJ * CHUNK,), device="meta")
+    jbl = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    for fn, args in ((cn.near_acc_slots_cuda, (jbl,)), (cn.near_acc_slots_cuda_sb, (jbl,)),
+                     (cn.near_acc_slots_cuda_wl, (jbl[0], jbl[0]))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(z, z, z, z, *args, **SWEEP)
