@@ -6,8 +6,9 @@
 
 With ``--parent DIR`` (a checkout of another commit, e.g. unpacked by
 ``git archive``) it runs phases 1-2 and then only holds B1, B2, B3 (on
-coinciding tables), B5, B5 detect, B13, B6, B12, B7, the near sweep and B4
-of this tree against those built from DIR's ``csrc/nbody_forces.cu``,
+coinciding tables), B5, B5 detect, the B5 row subset, B13, B6, B12, B7, the
+near sweep and B4 of this tree against those built from DIR's
+``csrc/nbody_forces.cu``,
 ``nbody_jerk.cu``, ``nbody_forces_mxu.cu``, ``collisions.cu``,
 ``nbody_forces_sym.cu``, ``tree_near.cu``, ``neighbor.cu`` and
 ``fused_rollout.cu`` (N = 65,536, 7 dead, eps2 1e-4 and 0, PE on and off; B7
@@ -18,8 +19,10 @@ B6 within BOUNCE_RTOL with the gated B6 bit-equal to the ungated, B7 and
 the near sweep within NEAR_RTOL (B7 with equal overflow), B4 within
 STATE_ATOL, says whether each is bit-equal, and times both trees' kernels
 in turns (B7 at 65,536 and 1,048,576 bodies, B4 at 4,096 and 32,768 in
-ds32 and f32). A source whose C signature predates its redesign (the near
-sweep's and B4's first versions) runs through ``FIRST_SIGNATURES``. With
+ds32 and f32), and the block macro step on each tree's row subset (its
+time and the host's time to queue it). A source whose C signature predates
+its redesign (the near sweep's, B4's and the row subset's first versions)
+runs through ``FIRST_SIGNATURES``. With
 ``--sweep`` it runs phases 1-2 and then builds the launch shapes of
 ``SWEEP`` (``-D`` overrides of the eight sources' shape macros), holds each
 against the plain versions and times them in turns, with the registers,
@@ -32,7 +35,9 @@ Phases, one line of output each; any failure exits nonzero:
      source, all at once; the launch shape, registers, spills and SASS
      instructions a pair (``cuobjdump -sass``) of B1, B2, B3, B4, B5, B5
      detect, B13 (with the TF32 HMMA of its inner loop, which must be
-     there), B6, B12, B7 and the near sweep, and the issue floor they imply
+     there), B6, B12, B7 and the near sweep, the shape, registers and spills
+     of the B5 row subset and the P3M short range (no spill anywhere), and
+     the issue floor they imply
      at 528 warp instructions a clock and 1.98 GHz (B7's and the near
      sweep's from their visited pairs, in phases 24 and 20);
   3. the force kernel (B1) against its plain PyTorch version at N = 65536
@@ -144,10 +149,31 @@ Phases, one line of output each; any failure exits nonzero:
      integrator="hermite")`` (B5, not B12);
  29. variant timings: B12, B13 with PE on and off, B3 at 65,536 x 65,536 and
      one "mxu" evaluation beside B1 without and with PE; the KDK step of each
-     path beside B1's.
+     path beside B1's;
+ 30. the particle-mesh solver (``ops.pm``) on the card against the same
+     function in float64 on the CPU (RMS acc and U within PM_RTOL): the JAX
+     package's smooth cluster at N = 65,536 and grid 64 (and its RMS
+     against the exact forces, B1, within 1e-2; a third dead and inert) and
+     the PM drift row (the headline cluster, grid 128, box (0, 0, 0, 8));
+ 31. P3M's short-range kernel (``csrc/p3m_short.cu``) against its plain
+     version and the same sum in float64 (within SHORT_RTOL) at the P3M bench
+     row (65,536 uniform bodies, grid 64, the capacity probed), a ragged
+     N = 5,000 with a third dead and its starved table (overflow equal to the
+     CPU's and > 0); rows without a slot 0; ``p3m_short_work`` printed;
+ 32. the mesh main paths through ``init_forces`` -> 20 recorded -> unrecorded
+     ``rollout`` steps: ``force_impl="pm"`` at the drift row for 10,000
+     steps and ``"p3m"`` at the uniform row for 4,000 (the short-range
+     kernel once an evaluation, overflow 0), each drift within its gate and
+     printed beside JAX's recorded one, the bodies escaped from the box
+     printed; ``simulate(force_impl="p3m"/"pm")`` on the card;
+ 33. mesh timings: a PM evaluation at 65,536 and 1,048,576 (grid 128), a PM
+     KDK step at 1,048,576, a P3M evaluation and KDK step at 65,536, the
+     short-range kernel beside its plain version and its bound (the B5
+     subset and the block macro step are phase 17's, and ``--parent``'s in
+     turns with their host time).
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
-10, 13, 14, 15, 16, 19, 23 and 28) and read just after it: each kernel must
+10, 13, 14, 15, 16, 19, 23, 28 and 32) and read just after it: each kernel must
 have run on its path. B3 has no single-card path (the multi-device ring
 launches it): phase 27 checks it, and its record's launches are its count
 over phase 28's three main paths, which must be 0. The
@@ -166,6 +192,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 
 import numpy as np
 
@@ -354,6 +381,53 @@ N_VAR_RAGGED = 4992
 N_BLOCK = 16384
 MXU_STEPS = 200
 
+# the mesh runs (phases 30-33). PM: the JAX package's smooth cluster
+# (tests/test_pm.py:11-16: normal positions, masses uniform in [0.5, 1.5] / N,
+# eps2 0.09) at N_MAIN and grid 64; the PM drift row (bench.py:928-941: the
+# headline cluster, grid 128, pm_box (0, 0, 0, 8), f32, 10,000 steps); and
+# bench_pm's scene (bench.py:319-340: 1,048,576 normal positions, velocities
+# 0.3 N(0, 1), masses 1/N, eps2 0.01, grid 128, no potential). P3M: the
+# uniform row (bench.py:981-1000: 65,536 bodies uniform in [-4, 4]^3 from
+# seed 11, velocities 0.1 N(0, 1), masses 1/N, eps2 1e-4, grid 64, pm_box
+# (0, 0, 0, 6), capacity from the probe at 1.5x, f32, 4,000 steps), and a
+# ragged 5,000 (uniform in [-1, 1]^3, a third dead, grid 32, the cube fitted)
+# whose starved table (half the probed capacity) overflows
+PM_SMOOTH_EPS2, PM_SMOOTH_GRID, PM_GRID = 0.09, 64, 128
+PM_BOX = (0.0, 0.0, 0.0, 8.0)
+PM_STEPS = 10000
+N_PM_BIG, PM_BIG_EPS2 = 1048576, 0.01
+P3M_SEED, P3M_HALF, P3M_GRID, P3M_BOX, P3M_STEPS = 11, 4.0, 64, (0.0, 0.0, 0.0, 6.0), 4000
+N_P3M_RAGGED, P3M_RAGGED_GRID = 5000, 32
+# the JAX package's recorded drifts of the two rows (BENCH_LAST_GOOD.json),
+# printed beside the port's as a physics cross-check, not a target
+JAX_PM_DRIFT, JAX_P3M_DRIFT = 9.149312456696479e-3, 3.9267120160259206e-05
+# PM on the card against the same function in float64 on the CPU, RMS |d a| /
+# RMS |a| and |dU / U|: the card's f32 deposit (atomics in no fixed order),
+# cuFFT in f32 and the gather's rounding
+PM_RTOL = 1e-5
+# PM against the exact forces (B1) on the smooth cluster, RMS: the JAX
+# package's own contract for the deconvolved solve (tests/test_pm.py:29)
+PM_EXACT_RMS = 1e-2
+# the short-range kernel against its plain version and against the same sum
+# in f64, max |d| / max |ref| of acc and of pe: the card's erff, expf and
+# rsqrtf (~2 ulp each) against torch.special.erf, torch.exp and torch.rsqrt,
+# amplified near rcut where g is the small difference of 1/s^3 and the
+# long-range part (g(rcut) ~ 1.75% of 1/rcut^3), and f32 sums of a few
+# hundred terms in other orders
+SHORT_RTOL = 1e-5
+# the short-range sum per needed pair (csrc/p3m_short.cu): 3 differences,
+# r2 (5), the tests (2), rsqrt's product r (1), a r (1), erf (~20 as a
+# polynomial), (a r)^2 and the Gaussian's scale (3), + eps2 (1), inv_s^3 (2),
+# inv_r^3 (2), g (4), K (2), m g and three multiply-adds (7), pe (2): ~50
+# f32 operations, and 3 MUFU operations (two rsqrt, one ex2)
+OPS_SHORT, MUFU_SHORT = 50, 3
+# the mesh rows' drift gates, set from the port's own run on an H100 80GB
+# HBM3 at 700 W: PM 9.148e-3 over 10,000 steps (fluctuation-dominated: the
+# softening is below the mesh scale, outside PM's contract, DESIGN.md
+# section 10) and P3M 3.931e-5 over 4,000; each gate ~2-2.5x its run, so a
+# solver that breaks (a refitted or wrong cube, a lost short range) fails
+PM_DRIFT_BOUND, P3M_DRIFT_BOUND = 2e-2, 1e-4
+
 # warp instructions the card issues a second: 4 schedulers on each of 132
 # SMs at the 1.98 GHz boost clock (NVIDIA's data sheet, H100 SXM)
 INSTR_RATE = 528 * 1.98e9
@@ -384,7 +458,7 @@ SHAPED = {
 LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_block_forces",
                               "ot_error_string"),
              "nbody_jerk": ("nbody_jerk", "nbody_jerk_detect", "nbody_jerk_subset",
-                            "ot_error_string"),
+                            "nbody_jerk_subset_shape", "ot_error_string"),
              "nbody_forces_mxu": ("nbody_forces_mxu", "ot_error_string"),
              "collisions": ("bounce_deltas", "ot_error_string"),
              "nbody_forces_sym": ("nbody_forces_sym", "ot_error_string"),
@@ -450,6 +524,10 @@ B13 = dict(name="nbody_forces_mxu", route="cuda",
 B3 = dict(name="nbody_block_forces", route="cuda",
           source="orbital_tpu_torch/csrc/nbody_forces.cu",
           replaces="orbital_tpu/ops/pallas_forces.py:221")
+# no TPU kernel: stands in for the plain XLA lax.map over cell blocks of
+# p3m_acc_potential (orbital_tpu/ops/p3m.py:181-231)
+P3M = dict(name="p3m_short", route="cuda", source="orbital_tpu_torch/csrc/p3m_short.cu",
+           replaces="orbital_tpu/ops/p3m.py:181")
 
 
 def bound(flops: float, nbytes: float, rsqrt: float = 0.0,
@@ -659,6 +737,72 @@ def near_work(geom: dict, channels, rc: float, chunk: int, rj: int, eps2: float 
                 needed=needed, nbytes=nbytes)
 
 
+def pm_f64(pos, mass, alive, eps2: float, grid: int, box=None):
+    """``ops.pm.pm_acc_potential`` in float64 on the CPU (its ``_pm_core`` in
+    the inputs' float type): (acc [N, 3], U) of numpy inputs, G = 1."""
+    import torch
+
+    from orbital_tpu_torch.ops.pm import _pm_core
+
+    p = torch.as_tensor(np.asarray(pos, np.float64))
+    alive_f = (torch.ones(p.shape[0], dtype=torch.float64) if alive is None
+               else torch.as_tensor(np.asarray(alive)).double())
+    m = torch.as_tensor(np.asarray(mass, np.float64)) * alive_f
+    if box is not None:
+        box = tuple(torch.tensor(b, dtype=torch.float64) for b in (box[:3], box[3]))
+    acc, phi, _, _, _ = _pm_core(p, m, alive_f, g=grid, G_grav=1.0,
+                                 kern_builder=lambda r2, h: torch.rsqrt(r2 + eps2),
+                                 with_potential=True, deconvolve=True, box=box)
+    U = 0.5 * torch.sum(m * (phi + m * eps2 ** -0.5))
+    return acc, float(U)
+
+
+def p3m_short_work(tab: dict, gc: int, n: int, rcut2: float) -> dict:
+    """The short-range kernel's work on a table of ``ops.p3m.p3m_cell_table``:
+    the slots of the JAX module's tile form (``cell_block`` 32 cells of M
+    rows against 27 M), the pairs the kernel walks (each kept row of a cell
+    against every kept row of its 27 neighbours), the lane slots it issues
+    (a block slice of R rows takes S lanes a row, S the power of two >= R,
+    so 4 warps sweep a neighbourhood of J rows in 32 x 4 x ceil(J / (4 x
+    32 / S)) lane slots), and the pairs the function needs: ordered pairs of
+    kept bodies closer than rcut (r^2 of the f32 positions in f64), self
+    pairs excluded. Also the bytes it must move: each kept slot's (x, y, z,
+    m) and index read once (24 B), the counts (4 B a cell), each body's
+    (ax, ay, az, pe) written once (16 B)."""
+    import torch
+
+    from orbital_tpu_torch.ops.p3m import _neighbour_cells
+
+    table, pos = tab["table"], tab["cell_pos"]
+    count = tab["count"].long()
+    gc3, cap, dev = gc ** 3, table.shape[1], table.device
+    nb = _neighbour_cells(torch.arange(gc3, device=dev), gc)
+    cnt = torch.cat([count, count.new_zeros(1)])
+    J = cnt[nb].sum(1)
+    walked = int((count * J).sum())
+    issued = 0
+    for s0 in range(0, cap, 32):
+        rows = (count - s0).clamp(0, 32)
+        width = 2 ** torch.ceil(torch.log2(rows.clamp(min=1).double())).long()
+        per = 4 * (32 // width)
+        issued += int(torch.where(rows > 0, 128 * -(-J // per), 0).sum())
+    needed = 0
+    block = max(1, (1 << 25) // (27 * cap * cap))
+    rank = torch.arange(cap, device=dev)
+    for c0 in range(0, gc3, block):
+        cells = torch.arange(c0, min(c0 + block, gc3), device=dev)
+        n_c = nb[c0:c0 + cells.shape[0]]
+        pi, pj = pos[cells].double(), pos[n_c].reshape(cells.shape[0], -1, 3).double()
+        live_i = rank[None] < count[cells, None]
+        live_j = (rank[None, None] < cnt[n_c][..., None]).reshape(cells.shape[0], -1)
+        d2 = ((pj[:, None] - pi[:, :, None]) ** 2).sum(-1)
+        other = table[cells][:, :, None] != table[n_c].reshape(cells.shape[0], -1)[:, None]
+        needed += int((live_i[:, :, None] & live_j[:, None] & other & (d2 < rcut2)).sum())
+    kept = int(count.sum())
+    return dict(jax_slots=-(-gc3 // 32) * 32 * cap * 27 * cap, walked=walked, issued=issued,
+                needed=needed, nbytes=24 * kept + 4 * gc3 + 16 * n)
+
+
 def energy_f64(state) -> float:
     """Total energy in f64 from the (ds32) state: kinetic on the host,
     softened potential from the f64 oracle."""
@@ -694,14 +838,33 @@ def time_ms(fn, iters: int, repeats: int = 3):
     return out
 
 
-def alternate_ms(fns: dict, iters: int, repeats: int = 3) -> dict:
-    """``time_ms`` of several functions in turns (a, b, b, a, ...), so that
-    drift of the card's clock hits them alike."""
+def host_ms(fn, iters: int, repeats: int = 3):
+    """Per-call milliseconds the host takes to queue ``fn`` (no synchronise
+    inside the timed span; the card is drained before and after), one figure
+    per repeat of ``iters`` calls after one warm-up call."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        out.append(1e3 * (time.perf_counter() - t0) / iters)
+        torch.cuda.synchronize()
+    return out
+
+
+def alternate_ms(fns: dict, iters: int, repeats: int = 3, timer=None) -> dict:
+    """``time_ms`` (or ``timer``) of several functions in turns (a, b, b, a,
+    ...), so that drift of the card's clock hits them alike."""
+    timer = timer or time_ms
     out = {k: [] for k in fns}
     names = list(fns)
     for r in range(repeats):
         for k in (names if r % 2 == 0 else names[::-1]):
-            out[k] += time_ms(fns[k], iters, repeats=1)
+            out[k] += timer(fns[k], iters, repeats=1)
     return out
 
 
@@ -728,15 +891,16 @@ def device_times(fn) -> dict:
 
 def reset_launches() -> None:
     from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
-                                       cuda_forces_sym, cuda_jerk, cuda_neighbor, cuda_tree,
-                                       fused_rollout)
+                                       cuda_forces_sym, cuda_jerk, cuda_neighbor, cuda_p3m,
+                                       cuda_tree, fused_rollout)
 
     for fn in (cuda_forces.pairwise_acc_cuda, cuda_forces.pairwise_acc_detect_cuda,
                fused_rollout.fused_rollout, cuda_collisions.bounce_deltas_cuda,
                cuda_jerk.accel_jerk_cuda, cuda_jerk.accel_jerk_detect_cuda,
                cuda_jerk.accel_jerk_subset_cuda, cuda_neighbor.near_acc_slots_cuda,
                cuda_tree.tree_near_cuda, cuda_forces_sym.pairwise_acc_sym_cuda,
-               cuda_forces_mxu.gram_sums_cuda, cuda_forces.block_acc_cuda):
+               cuda_forces_mxu.gram_sums_cuda, cuda_forces.block_acc_cuda,
+               cuda_p3m.p3m_short_cuda):
         fn.launches = 0
 
 
@@ -911,20 +1075,59 @@ def _fused_launch_first(lib):
     return {"_launch": launch}
 
 
-# the sources whose C signature changed with their redesign, told by the
-# launch-shape function that their first versions lack
-FIRST_SIGNATURES = {"neighbor": _near_sweep_first, "fused_rollout": _fused_launch_first}
+def _jerk_subset_first(lib):
+    """``cuda_jerk._subset`` against the row subset's first C signature (two
+    packed float4 tables of all N bodies and int64 indices in; per-split
+    partials of 128 sources out, which the wrapper summed with one
+    ``torch.sum``)."""
+    import ctypes
+
+    import torch
+
+    from orbital_tpu_torch.ops.cuda_jerk import _pack
+    from orbital_tpu_torch.utils.kernels import check
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nbody_jerk_subset.restype = ctypes.c_int
+    lib.nbody_jerk_subset.argtypes = [p, p, p, i, i, i, f, f, p, p, i]
+
+    def subset(idx_i, pos, vel, mass, alive, G, eps2):
+        n, f_, dev = pos.shape[0], idx_i.shape[0], pos.device
+        pm, vr, _ = _pack(pos, vel, mass, alive)
+        idx64 = idx_i.to(torch.int64).contiguous()
+        part = torch.empty((-(-n // 128), f_, 6), dtype=torch.float32, device=dev)
+        err = lib.nbody_jerk_subset(pm.data_ptr(), vr.data_ptr(), idx64.data_ptr(), f_, n,
+                                    128, float(G), float(eps2), part.data_ptr(),
+                                    torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+        check(lib, err, "nbody_jerk_subset launch (first signature)")
+        return part.sum(0)
+
+    return {"_subset": subset}
+
+
+# the sources whose C signature changed with a redesign: the function their
+# earlier versions lack, the adapter to the earlier signature and the entry
+# points it binds (the rest keep this tree's argument types)
+FIRST_SIGNATURES = {"neighbor": ("near_sweep_shape", _near_sweep_first, ("near_sweep",)),
+                    "fused_rollout": ("fused_kdk_shape", _fused_launch_first, ("fused_kdk",)),
+                    "nbody_jerk": ("nbody_jerk_subset_shape", _jerk_subset_first,
+                                   ("nbody_jerk_subset",))}
 
 
 def other_build(name: str, path, like):
     """Another commit's build of source ``name`` at ``path``, bound as this
-    tree's library ``like`` is, or as an OldBuild where its entry point is
-    the first version's."""
+    tree's library ``like`` is, or as an OldBuild where an entry point has
+    an earlier signature."""
     import ctypes
 
     lib = ctypes.CDLL(str(path))
-    if name in FIRST_SIGNATURES and not hasattr(lib, SHAPED[name][0]):
-        return OldBuild(lib, FIRST_SIGNATURES[name](lib))
+    first = FIRST_SIGNATURES.get(name)
+    if first is not None and not hasattr(lib, first[0]):
+        same = [fn for fn in LIB_FUNCS[name] if fn not in first[2] and hasattr(lib, fn)]
+        for fn in same:
+            getattr(lib, fn).restype = getattr(like, fn).restype
+            getattr(lib, fn).argtypes = getattr(like, fn).argtypes
+        return OldBuild(lib, first[1](lib))
     return bind_like(path, like, LIB_FUNCS[name])
 
 
@@ -1281,7 +1484,7 @@ class Smoke:
         self.kernels = {"B1": dict(B1), "B2": dict(B2), "B4": dict(B4), "B6": dict(B6),
                         "B5": dict(B5), "B5D": dict(B5D), "B5S": dict(B5S),
                         "NEAR": dict(NEAR), "B7": dict(B7), "B12": dict(B12),
-                        "B13": dict(B13), "B3": dict(B3)}
+                        "B13": dict(B13), "B3": dict(B3), "P3M": dict(P3M)}
         self._cluster = None
         self._respa_budgets = None
         self._plummer = None
@@ -1314,14 +1517,14 @@ class Smoke:
     def build(self) -> str:
         from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
                                            cuda_forces_sym, cuda_jerk, cuda_neighbor,
-                                           cuda_tree, fused_rollout)
+                                           cuda_p3m, cuda_tree, fused_rollout)
         from orbital_tpu_torch.utils import kernels
 
         names = kernels.SOURCES
         t0 = time.perf_counter()
         kernels.build(names)
         for mod in (cuda_forces, fused_rollout, cuda_collisions, cuda_jerk, cuda_neighbor,
-                    cuda_tree, cuda_forces_sym, cuda_forces_mxu):
+                    cuda_tree, cuda_forces_sym, cuda_forces_mxu, cuda_p3m):
             mod._load()
         total = time.perf_counter() - t0
         for name in names:
@@ -1335,7 +1538,7 @@ class Smoke:
         # B7's and the near sweep's blocks at their main paths' chunk budgets
         tiled = self.redesigned()
         at = {"tree_near": self.plummer()[3][0], "neighbor": self.respa_budgets()[1]}
-        logs = {name: kernels.build_log(name) for name in tiled}
+        logs = {name: kernels.build_log(name) for name in (*tiled, "p3m_short")}
         again = {kernels.BUILD_DIR / "usage" / kernels._library_path(name)[1].name: name
                  for name, log in logs.items() if not log}
         for out, (log, _) in compile_libraries(
@@ -1350,8 +1553,45 @@ class Smoke:
             for key, rec in recs.items():
                 self.kernels[key].update(rec)
                 shapes.append(describe_launch(key, rec))
+        # the kernels outside SHAPED: the row subset (in nbody_jerk, whose
+        # spills are checked above) and the short range
+        spills.append(f"p3m_short 0 in {spill_free('p3m_short', logs['p3m_short'])} entry "
+                      f"functions")
+        shapes += [self.subset_record(cuda_jerk._load(), logs["nbody_jerk"]),
+                   self.entry_record("P3M", "p3m_short_kernel", logs["p3m_short"])]
         return (f"built {each} in parallel (load total {total:.2f} s) for sm_90a; at "
                 f"N={N_MAIN}: " + "; ".join(shapes) + "; spill bytes: " + ", ".join(spills))
+
+    def entry_record(self, key: str, stem: str, log: str) -> str:
+        """Registers and spill bytes of the entry functions *stem* in nvcc's
+        -Xptxas -v output, into ``key``'s record; raises if there is none."""
+        usage = [u for f, u in ptxas_usage(log).items() if stem in f]
+        if not usage:
+            raise AssertionError(f"{key}: no entry function *{stem}* in the ptxas output")
+        regs, spill = max(u[0] for u in usage), sum(u[1] + u[2] for u in usage)
+        self.kernels[key].update(registers=regs, spill_bytes=spill)
+        return (f"{key} ({len(usage)} instantiations) {regs} registers at most, {spill} spill "
+                f"bytes")
+
+    def subset_record(self, lib, log: str) -> str:
+        """The row subset's block shape and its j split at the main path's
+        64 rows, with its registers and spills."""
+        import ctypes
+
+        from orbital_tpu_torch.ops.cuda_jerk import subset_plan
+
+        fn = lib.nbody_jerk_subset_shape
+        fn.restype, fn.argtypes = None, [ctypes.c_void_p]
+        arr = (ctypes.c_int * 4)()
+        fn(arr)
+        rows, groups, tile, threads = list(arr)
+        splits, split = subset_plan(N_MAIN, 64)
+        self.kernels["B5S"]["shape"] = {"rows": rows, "groups": groups, "tile": tile,
+                                        "threads": threads, "splits": splits, "split": split}
+        return (f"B5S {rows} rows x {groups} groups over j ({threads} threads), {tile} "
+                f"sources staged a round, at F=64: {splits} splits of {split} x "
+                f"{-(-64 // rows)} row tiles = {splits * -(-64 // rows)} blocks, "
+                + self.entry_record("B5S", "jerk_subset_kernel", log))
 
     # phase 3
     def check_forces(self) -> str:
@@ -2331,6 +2571,11 @@ class Smoke:
                                                              **kw), 200))
         b5sp = summary(time_ms(lambda: accel_jerk_subset_plain(idx, pos, vel, mass, alive,
                                                                **kw), 5))
+        # the subset's device time a call (torch.profiler over 20 calls): its
+        # events time above is the wrapper's host time where that is longer
+        dev_s = device_times(lambda: [accel_jerk_subset_cuda(idx, pos, vel, mass, alive, **kw)
+                                      for _ in range(20)])
+        b5s_dev = next((t / 20 for k, (c, t) in dev_s.items() if "jerk_subset" in k), None)
 
         pos_c, vel_c, mass_c, _ = self.cluster()
         cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, integrator="hermite")
@@ -2356,6 +2601,7 @@ class Smoke:
                                    bound_ms=bounds[k][0], bound_by=bounds[k][1],
                                    library_ms=None)
         perf = {"B5_N65536": (b5, b5p), "B5D_N65536": (b5d, b5dp), "B5S_F64_N65536": (b5s, b5sp),
+                "B5S_device_ms": b5s_dev,
                 "hermite_step_N65536": step, "block_macro_step_N65536": macro,
                 "block_macro_m": m_b, "bounds_ms": bounds}
         print("perf_hermite " + json.dumps(perf), file=sys.stderr)
@@ -2365,7 +2611,9 @@ class Smoke:
 
         return (f"B5 N=65536 {ms(b5)} vs plain {ms(b5p)}; B5 detect {ms(b5d)} vs plain "
                 f"{ms(b5dp)}; B5 subset F=64 {b5s['median'] * 1e3:.1f} us (spread "
-                f"{b5s['spread'] * 1e3:.1f}) vs plain {ms(b5sp)}; Hermite ds32 step N=65536 "
+                f"{b5s['spread'] * 1e3:.1f}; device "
+                f"{fmt(b5s_dev and b5s_dev * 1e3, 1, ' us')}) vs plain {ms(b5sp)}; Hermite ds32 "
+                f"step N=65536 "
                 f"{ms(step)}; block macro step (rungs=1, m={m_b}) {ms(macro)}; bounds "
                 + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()))
 
@@ -3402,6 +3650,7 @@ class Smoke:
     # tree_calls' tables, NEAR, NEARW and NEARR near_calls' geometries
     TOLS = {"B1": (FORCE_RTOL, ENERGY_RTOL), "B2": (FORCE_RTOL, ENERGY_RTOL, 0),
             "B3": (FORCE_RTOL, FORCE_RTOL), "B5": (FORCE_RTOL, JERK_RTOL, ENERGY_RTOL),
+            "B5S": (FORCE_RTOL, JERK_RTOL),
             "B5D": (FORCE_RTOL, JERK_RTOL, ENERGY_RTOL, 0),
             "B13": (GRAM_MAX_RTOL, GRAM_MAX_RTOL), "B6": (BOUNCE_RTOL, BOUNCE_RTOL),
             "B6G": (BOUNCE_RTOL, BOUNCE_RTOL), "B6Z": (0, 0),
@@ -3413,13 +3662,14 @@ class Smoke:
     # the source of each, the calls timed in turns and the pairs that must
     # be bit-equal
     SOURCE = {"B1": "nbody_forces", "B2": "nbody_forces", "B3": "nbody_forces",
-              "B5": "nbody_jerk", "B5D": "nbody_jerk", "B13": "nbody_forces_mxu",
+              "B5": "nbody_jerk", "B5D": "nbody_jerk", "B5S": "nbody_jerk",
+              "B13": "nbody_forces_mxu",
               "B6": "collisions", "B6G": "collisions", "B6Z": "collisions",
               "B12": "nbody_forces_sym", "B7": "tree_near", "B7R": "tree_near",
               "B7L": "tree_near", "B7S": "tree_near", "NEAR": "neighbor",
               "NEARW": "neighbor", "NEARR": "neighbor",
               **{k: "fused_rollout" for k in FUSED_CASES}}
-    TIMED = {"nbody_forces": ("B1", "B2"), "nbody_jerk": ("B5", "B5D"),
+    TIMED = {"nbody_forces": ("B1", "B2"), "nbody_jerk": ("B5", "B5D", "B5S"),
              "nbody_forces_mxu": ("B13",), "collisions": ("B6", "B6Z"),
              "nbody_forces_sym": ("B12",), "tree_near": ("B7", "B7L"),
              "neighbor": ("NEAR",), "fused_rollout": ("B4", "B4L")}
@@ -3458,11 +3708,11 @@ class Smoke:
 
     def exact_calls(self, scene, eps2: float, pe: bool, plain: bool = False) -> dict:
         """{key: (wrapper module, call)} of B1 and B2 (PE as ``pe``), B3 (on
-        coinciding tables; with PE, eps2 > 0 and N % 128 == 0 only), B5 and
-        B5 detect on ``scene``, B13 (its sums S and pe) and B12 (eps2 > 0
-        and N % 128 == 0 only), and B6 ungated and gated on B2's count
-        (restitution 0.8) and on a zero count; with ``plain``, their plain
-        versions."""
+        coinciding tables; with PE, eps2 > 0 and N % 128 == 0 only), B5, B5
+        detect and the B5 row subset (64 rows, the last dead) on ``scene``,
+        B13 (its sums S and pe) and B12 (eps2 > 0 and N % 128 == 0 only), and
+        B6 ungated and gated on B2's count (restitution 0.8) and on a zero
+        count; with ``plain``, their plain versions."""
         from orbital_tpu_torch.ops import cuda_collisions as cc
         from orbital_tpu_torch.ops import cuda_forces as cf
         from orbital_tpu_torch.ops import cuda_forces_mxu as cm
@@ -3472,6 +3722,10 @@ class Smoke:
         pos, vel, mass, rad, alive = scene
         kw = dict(G=1.0, eps2=eps2)
         sfx = "_plain" if plain else "_cuda"
+        # the block steppers' 64 fast rows, the last a dead one
+        idx = self.torch.arange(0, pos.shape[0], max(1, pos.shape[0] // 64),
+                                device=pos.device)[:64]
+        idx[-1] = pos.shape[0] - 1
         count = cf.pairwise_acc_detect_cuda(pos, mass, rad, alive, with_potential=False,
                                             **kw)[2]
 
@@ -3489,6 +3743,7 @@ class Smoke:
                                                               with_potential=pe, **kw)),
             "B5": (cj, lambda: fn(cj, "accel_jerk")(pos, vel, mass, alive, **kw)),
             "B5D": (cj, lambda: fn(cj, "accel_jerk_detect")(pos, vel, mass, rad, alive, **kw)),
+            "B5S": (cj, lambda: fn(cj, "accel_jerk_subset")(idx, pos, vel, mass, alive, **kw)),
             "B6": (cc, b6(None)),
             "B6G": (cc, b6(count)),
             "B6Z": (cc, b6(self.torch.zeros_like(count))),
@@ -3755,7 +4010,7 @@ class Smoke:
                 calls = self.exact_calls(scene, eps2, pe)
                 outs = {}
                 for k, (mod, call) in calls.items():
-                    if k in ("B5", "B5D") and not pe:
+                    if k in ("B5", "B5D", "B5S") and not pe:
                         continue  # no PE switch: once for each eps2
                     if k in ("B6", "B6G", "B6Z", "B12") and not (pe and eps2 > 0):
                         continue  # neither: once
@@ -3787,6 +4042,14 @@ class Smoke:
             fns[f"{k} parent"] = (lambda m_, l_, c_: lambda: on(m_, l_, c_))(mod, old[mod], call)
             fns[k] = call
         times = {k: summary(v) for k, v in alternate_ms(fns, 10, repeats=6).items()}
+        # the block macro step (rungs 1) on each build's row subset, in turns:
+        # its time by CUDA events and the host's time to queue it
+        cj = mods["nbody_jerk"]
+        macro = self.block_macro_call()
+        steps = {"macro parent": lambda: on(cj, old[cj], macro), "macro": macro}
+        macro_t = {k: summary(v) for k, v in alternate_ms(steps, 1, repeats=10).items()}
+        macro_h = {k: summary(v) for k, v in alternate_ms(steps, 1, repeats=10,
+                                                          timer=host_ms).items()}
         # instructions a pair of both builds, and the SM clock under each of
         # this tree's kernels: the issue floor at the clock the card ran
         slots = {"parent": {}, "this": {}}
@@ -3794,8 +4057,9 @@ class Smoke:
             slots["parent"].update(sass_slots(name, sass(jobs[name][1])))
             slots["this"].update(sass_slots(name, sass(kernels._library_path(name)[1])))
         clocks = {k: clock_during(call) for k, (_, call) in calls.items()}
-        print("perf_parent " + json.dumps({"times": times, "slots": slots, "clocks": clocks}),
-              file=sys.stderr)
+        print("perf_parent " + json.dumps({"times": times, "slots": slots, "clocks": clocks,
+                                           "block_macro_ms": macro_t,
+                                           "block_macro_host_ms": macro_h}), file=sys.stderr)
         lines = []
         for k, (_, call) in calls.items():
             this, par = times[k], times[f"{k} parent"]
@@ -3817,7 +4081,12 @@ class Smoke:
                 line += (f", SM clock {mhz:.0f} MHz at {clocks[k]['watts']:.0f} W: issue "
                          f"floor {floor:.3f} ms ({100 * floor / this['median']:.0f}%)")
             lines.append(line)
-        return (f"B1, B2, B3, B5, B5 detect, B13, B6, B12, B7, the near sweep and B4 held "
+        lines.append("block macro step (rungs 1, m = {}) {}".format(macro.m, ", ".join(
+            f"{k} {macro_t[k]['median']:.3f} ms (spread {macro_t[k]['spread']:.3f}), host "
+            f"{macro_h[k]['median']:.3f} ms (spread {macro_h[k]['spread']:.3f})"
+            for k in steps)))
+        return (f"B1, B2, B3, B5, B5 detect, the B5 subset, B13, B6, B12, B7, the near sweep "
+                f"and B4 held "
                 f"against the build of "
                 f"{parent}'s sources in {cases} calls (N={N_MAIN}, 7 dead, R {R_RICH:g}, eps2 "
                 f"{EPS2:g} and 0, PE on and off; within {FORCE_RTOL:g} / {JERK_RTOL:g} / "
@@ -3908,15 +4177,373 @@ class Smoke:
                 + f"; B13 counted all on the CUDA cores {bound_b13_cuda[0]:.4f} ms "
                 f"({100 * bound_b13_cuda[0] / timed['B13']['median']:.0f}%)")
 
+    def block_macro_call(self):
+        """One block macro step (rungs 1) of phase 15's scene from a state
+        made once, as a call; ``.m`` is its substep count."""
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.integrators import block_plan
+
+        cfg = self.block_config(1)
+        st = ot.init_forces(ot.make_state(*self.block_scene(), precision="ds32",
+                                          device=self.dev), cfg)
+
+        def call():
+            return ot.rollout(st, cfg, 1)
+        call.m = block_plan(st, cfg)[2]
+        return call
+
+    # phases 30-33: the mesh solvers
+    def t(self, a, dtype=None):
+        return self.torch.tensor(np.asarray(a), dtype=dtype or self.torch.float32,
+                                 device=self.dev)
+
+    def box_t(self, box):
+        return None if box is None else (self.t(box[:3]), self.t(box[3]))
+
+    def p3m_uniform(self):
+        """The P3M bench row's bodies (bench.py:981-1000): positions uniform in
+        [-4, 4]^3 and velocities 0.1 N(0, 1) from seed 11, masses 1/N."""
+        rng = np.random.default_rng(P3M_SEED)
+        pos = rng.uniform(-P3M_HALF, P3M_HALF, size=(N_MAIN, 3))
+        vel = 0.1 * rng.normal(size=(N_MAIN, 3))
+        return pos, vel, np.full(N_MAIN, 1.0 / N_MAIN)
+
+    def p3m_ragged(self):
+        """N_P3M_RAGGED bodies uniform in [-1, 1]^3, a third dead and parked
+        far as make_state parks them."""
+        from orbital_tpu_torch.engine.state import far_positions
+
+        rng = np.random.default_rng(self.seed + 31)
+        n = N_P3M_RAGGED
+        pos = rng.uniform(-1.0, 1.0, size=(n, 3))
+        mass = rng.uniform(0.5, 1.5, n) / n
+        alive = np.ones(n, bool)
+        alive[::3] = False
+        pos[~alive] = far_positions(int((~alive).sum()), 1.0, np.float64)
+        return pos, mass, alive
+
+    @staticmethod
+    def p3m_capacity(occ: int) -> int:
+        """simulate()'s p3m_capacity="auto" rule: 1.5x headroom, a multiple
+        of 8, at least 32."""
+        return max(32, -(-int(occ * 1.5) // 8) * 8)
+
+    def p3m_table(self, pos, mass, alive, grid: int, box, capacity: int, device=None):
+        """The short-range table of ``p3m_acc_potential`` for numpy inputs on
+        ``device`` (the card by default): (table dict, gc, sigma, rcut2) with
+        sigma and rcut2 rounded in f32 as the solver rounds them."""
+        import torch
+
+        from orbital_tpu_torch.ops.p3m import _cell_grid, p3m_cell_table
+        from orbital_tpu_torch.ops.pm import _bounding_cube
+
+        dev = device or self.dev
+        f32 = torch.float32
+        p = torch.tensor(np.asarray(pos), dtype=f32, device=dev)
+        a = (torch.ones(p.shape[0], dtype=torch.bool, device=dev) if alive is None
+             else torch.tensor(np.asarray(alive), device=dev))
+        m = torch.tensor(np.asarray(mass), dtype=f32, device=dev) * a.to(f32)
+        if box is None:
+            center, half = _bounding_cube(p, a.to(f32), grid)
+        else:
+            center = torch.tensor(box[:3], dtype=f32, device=dev)
+            half = torch.tensor(box[3], dtype=f32, device=dev)
+        gc = _cell_grid(grid, 1.5, 4.5)
+        tab = p3m_cell_table(p, m, a, center, half, gc=gc, capacity=capacity)
+        sigma = 1.5 * (2.0 * half.cpu() / grid)
+        return tab, gc, float(sigma), float((4.5 * sigma) ** 2)
+
+    # phase 30
+    def check_pm(self) -> str:
+        import orbital_tpu_torch.ops.pm as pm
+        from orbital_tpu_torch.engine.state import far_positions
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_cuda
+
+        torch = self.torch
+        rng = np.random.default_rng(self.seed + 30)
+        n = N_MAIN
+        smooth = (rng.normal(size=(n, 3)), rng.uniform(0.5, 1.5, n) / n)
+        cpos, _, cmass, _ = self.cluster()
+        cases = {"smooth": (*smooth, PM_SMOOTH_EPS2, PM_SMOOTH_GRID, None),
+                 "bench": (cpos, cmass, EPS2, PM_GRID, PM_BOX)}
+        lines = []
+        for key, (p, m, eps2, grid, box) in cases.items():
+            pt, mt = self.t(p), self.t(m)
+            a, U = pm.pm_acc_potential(pt, mt, None, G_grav=1.0, eps2=eps2, grid=grid,
+                                       box=self.box_t(box))
+            a64, U64 = pm_f64(p, m, None, eps2, grid, box)
+            if not bool(torch.isfinite(a).all()) or tuple(a.shape) != (n, 3):
+                raise AssertionError(f"PM {key}: non-finite or misshapen acc")
+            r_a, r_u = rms_rel(a.cpu(), a64), abs(float(U) - U64) / abs(U64)
+            if r_a > PM_RTOL or r_u > PM_RTOL:
+                raise AssertionError(f"PM {key} vs f64: RMS acc {r_a:.3e}, U {r_u:.3e} > "
+                                     f"{PM_RTOL:g}")
+            line = (f"{key} (N={n}, grid {grid}, eps2 {eps2:g}, "
+                    f"{'box ' + str(box) if box else 'cube fitted'}): vs f64 on the CPU RMS "
+                    f"acc {r_a:.2e}, U {r_u:.2e}")
+            if key == "smooth":
+                exact, _ = pairwise_acc_cuda(pt, mt, None, G=1.0, eps2=eps2,
+                                             with_potential=False)
+                r_x = rms_rel(a, exact)
+                if r_x > PM_EXACT_RMS:
+                    raise AssertionError(f"PM smooth vs B1: RMS {r_x:.3e} > {PM_EXACT_RMS:g}")
+                line += f"; vs the exact forces (B1) RMS {r_x:.2e} <= {PM_EXACT_RMS:g}"
+                # dead bodies inert: a third dead and parked far
+                alive = np.ones(n, bool)
+                alive[::3] = False
+                pd = smooth[0].copy()
+                pd[~alive] = far_positions(int((~alive).sum()), float(np.abs(pd).max()),
+                                           np.float64)
+                ad, Ud = pm.pm_acc_potential(self.t(pd), mt, self.t(alive, torch.bool),
+                                             G_grav=1.0, eps2=eps2, grid=grid)
+                al, Ul = pm.pm_acc_potential(self.t(smooth[0][alive]), self.t(m[alive]), None,
+                                             G_grav=1.0, eps2=eps2, grid=grid)
+                live = self.t(alive, torch.bool)
+                r_d = rms_rel(ad[live], al)
+                r_du = abs(float(Ud) - float(Ul)) / abs(float(Ul))
+                if bool(ad[~live].any()) or r_d > PM_RTOL or r_du > PM_RTOL:
+                    raise AssertionError(f"PM dead bodies: dead rows nonzero or live rows "
+                                         f"{r_d:.3e}, U {r_du:.3e} from the live-only run")
+                line += (f"; a third dead: dead rows 0, live rows {r_d:.2e} (U {r_du:.2e}) "
+                         f"from the live bodies alone")
+            lines.append(line)
+        return f"PM on the card within RMS {PM_RTOL:g} of f64: " + "; ".join(lines)
+
+    # phase 31
+    def check_p3m_short(self) -> str:
+        from orbital_tpu_torch.ops.cuda_p3m import p3m_short_cuda
+        from orbital_tpu_torch.ops.p3m import p3m_max_occupancy, p3m_short_plain
+
+        torch = self.torch
+        pos, _, mass = self.p3m_uniform()
+        rp, rm, ralive = self.p3m_ragged()
+        occ_b = p3m_max_occupancy(self.t(pos), None, grid=P3M_GRID, box=self.box_t(P3M_BOX))
+        occ_r = p3m_max_occupancy(self.t(rp), self.t(ralive, torch.bool), grid=P3M_RAGGED_GRID)
+        cases = {"bench": (pos, mass, None, P3M_GRID, P3M_BOX, self.p3m_capacity(occ_b)),
+                 "ragged": (rp, rm, ralive, P3M_RAGGED_GRID, None, self.p3m_capacity(occ_r)),
+                 "starved": (rp, rm, ralive, P3M_RAGGED_GRID, None, max(1, occ_r // 2))}
+        lines = []
+        for key, (p, m, alive, grid, box, cap) in cases.items():
+            tab, gc, sigma, rcut2 = self.p3m_table(p, m, alive, grid, box, cap)
+            n = len(m)
+            kw = dict(gc=gc, n=n, G=1.0, sigma=sigma, rcut2=rcut2, eps2=EPS2)
+            a, pe = p3m_short_cuda(tab["table"], tab["cell_pos"], tab["cell_m"],
+                                   count=tab["count"], **kw)
+            a0, pe0 = p3m_short_plain(tab["table"], tab["cell_pos"], tab["cell_m"], **kw)
+            a64, pe64 = p3m_short_plain(tab["table"], tab["cell_pos"].double(),
+                                        tab["cell_m"].double(), **kw)
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(pe).all())):
+                raise AssertionError(f"P3M short {key}: non-finite output")
+
+            def rel(x, ref):
+                return float((x.double() - ref.double()).abs().max()) / float(ref.abs().max())
+            errs = {"plain": (rel(a, a0), rel(pe, pe0)), "f64": (rel(a, a64), rel(pe, pe64)),
+                    "plain vs f64": (rel(a0, a64), rel(pe0, pe64))}
+            if max(errs["plain"] + errs["f64"]) > SHORT_RTOL:
+                raise AssertionError(f"P3M short {key}: {errs} > {SHORT_RTOL:g}")
+            kept = torch.zeros(n, dtype=torch.bool, device=self.dev)
+            kept[tab["order"][tab["keep"]]] = True
+            if bool(a[~kept].any()) or bool(pe[~kept].any()):
+                raise AssertionError(f"P3M short {key}: rows without a slot are not 0")
+            overflow = int(tab["overflow"])
+            line = (f"{key} (N={n}, grid {grid}, gc {gc}, capacity {cap}, overflow {overflow}): "
+                    f"acc/pe vs plain {errs['plain'][0]:.2e}/{errs['plain'][1]:.2e}, vs f64 "
+                    f"{errs['f64'][0]:.2e}/{errs['f64'][1]:.2e} (plain vs f64 "
+                    f"{errs['plain vs f64'][0]:.2e}/{errs['plain vs f64'][1]:.2e})")
+            if key == "starved":
+                cpu = self.p3m_table(p, m, alive, grid, box, cap, device="cpu")[0]
+                if overflow <= 0 or overflow != int(cpu["overflow"]):
+                    raise AssertionError(f"P3M starved overflow {overflow}, CPU "
+                                         f"{int(cpu['overflow'])}")
+                line += f" == the CPU's {int(cpu['overflow'])}"
+            if key == "bench":
+                self.kernels["P3M"]["max_abs_err"] = max(float((a - a0).abs().max()),
+                                                         float((pe - pe0).abs().max()))
+                self.p3m_short_case = (tab, kw)
+                work = p3m_short_work(tab, gc, n, rcut2)
+                self.p3m_short_w = work
+                print("p3m_short_work " + json.dumps(work), file=sys.stderr)
+                line += (f"; p3m_short_work: {work['walked']:,} walked, {work['issued']:,} "
+                         f"lane slots, {work['needed']:,} needed pairs; the JAX tile form "
+                         f"{work['jax_slots']:,} slots")
+            lines.append(line)
+        return (f"P3M short range (csrc/p3m_short.cu) within {SHORT_RTOL:g} of its plain "
+                f"version and the f64 sum: " + "; ".join(lines))
+
+    # phase 32
+    def mesh_main_path(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.models.scene import SceneArrays
+        from orbital_tpu_torch.ops import p3m as p3m_mod
+        from orbital_tpu_torch.ops.cuda_p3m import p3m_short_cuda
+        from orbital_tpu_torch.ops.p3m import p3m_max_occupancy
+
+        torch = self.torch
+        lines = []
+
+        def escaped(state, box):
+            p = state.pos.double()
+            c = torch.tensor(box[:3], dtype=torch.float64, device=p.device)
+            return int(((p - c).abs() > box[3]).any(1).logical_and(state.alive).sum())
+
+        def drive(cfg, state, steps):
+            """init_forces -> 20 recorded -> steps - 20 unrecorded steps."""
+            e0 = energy_f64(state)
+            state = ot.init_forces(state, cfg)
+            rec, traj = ot.rollout(state, cfg, 20, record_every=10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fin, _ = ot.rollout(rec, cfg, steps - 20)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / (steps - 20)
+            if tuple(traj.pos.shape) != (2, state.n_bodies, 3) or int(fin.step) != steps:
+                raise AssertionError("mesh main path: wrong records or step count")
+            if not (bool(torch.isfinite(fin.pos).all())
+                    and bool(torch.isfinite(traj.energy).all())):
+                raise AssertionError("mesh main path: non-finite state or energies")
+            return fin, abs((energy_f64(fin) - e0) / e0), wall
+
+        # PM: the drift row
+        pos, vel, mass, _ = self.cluster()
+        cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, force_impl="pm", pm_grid=PM_GRID,
+                           pm_box=PM_BOX)
+        reset_launches()
+        fin, drift, wall = drive(cfg, ot.make_state(pos, vel, mass, precision="f32",
+                                                    device=self.dev), PM_STEPS)
+        esc = escaped(fin, PM_BOX)
+        if drift > PM_DRIFT_BOUND:
+            raise AssertionError(f"PM drift {drift:.3e} > {PM_DRIFT_BOUND:g}")
+        self.pm_ms_per_step = wall
+        lines.append(f"PM N={N_MAIN} f32 grid {PM_GRID} box {PM_BOX}: init_forces + 20 recorded "
+                     f"+ {PM_STEPS - 20} steps, |dE/E| = {drift:.3e} <= {PM_DRIFT_BOUND:g} "
+                     f"(JAX's recorded {JAX_PM_DRIFT:.3e}); {wall:.3f} ms/step wall; "
+                     f"{esc} escaped the box")
+
+        # P3M: the uniform row, the overflow of every evaluation summed on the card
+        upos, uvel, umass = self.p3m_uniform()
+        occ = p3m_max_occupancy(self.t(upos), None, grid=P3M_GRID, box=self.box_t(P3M_BOX))
+        cap = self.p3m_capacity(occ)
+        cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, force_impl="p3m", pm_grid=P3M_GRID,
+                           p3m_capacity=cap, pm_box=P3M_BOX)
+        inner, total = p3m_mod.p3m_acc_potential, []
+
+        def logged(*args, **kw):
+            acc, U, ovf = inner(*args, **kw)
+            total.append(ovf)
+            return acc, U, ovf
+        reset_launches()
+        p3m_mod.p3m_acc_potential = logged
+        try:
+            fin, drift, wall = drive(cfg, ot.make_state(upos, uvel, umass, precision="f32",
+                                                        device=self.dev), P3M_STEPS)
+        finally:
+            p3m_mod.p3m_acc_potential = inner
+        launches, overflow = p3m_short_cuda.launches, int(torch.stack(total).sum())
+        esc = escaped(fin, P3M_BOX)
+        if launches != len(total) or launches != 1 + P3M_STEPS or overflow:
+            raise AssertionError(f"P3M: {launches} short-range launches for {len(total)} "
+                                 f"evaluations ({1 + P3M_STEPS} expected), overflow {overflow}")
+        if drift > P3M_DRIFT_BOUND:
+            raise AssertionError(f"P3M drift {drift:.3e} > {P3M_DRIFT_BOUND:g}")
+        self.kernels["P3M"]["launches"] = launches
+        self.p3m_ms_per_step = wall
+        lines.append(f"P3M N={N_MAIN} f32 uniform grid {P3M_GRID} box {P3M_BOX} capacity {cap} "
+                     f"(densest cell {occ}): init_forces + 20 recorded + {P3M_STEPS - 20} steps, "
+                     f"|dE/E| = {drift:.3e} <= {P3M_DRIFT_BOUND:g} (JAX's recorded "
+                     f"{JAX_P3M_DRIFT:.3e}); {wall:.3f} ms/step wall; short-range launches "
+                     f"{launches} = evaluations, overflow {overflow}; {esc} escaped the box")
+
+        # simulate() on the card, the cube pinned and the capacity probed
+        names = [f"b{i}" for i in range(N_MAIN)]
+        for impl, (p, v, m) in (("p3m", (upos, uvel, umass)), ("pm", (pos, vel, mass))):
+            scene = SceneArrays(pos=p, vel=v, mass=m, radius=np.zeros(N_MAIN), names=names)
+            reset_launches()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = ot.simulate(scene, steps=20, dt=DT, softening=EPS2 ** 0.5,
+                                  device=self.dev, precision="f32", force_impl=impl,
+                                  pm_grid=P3M_GRID if impl == "p3m" else PM_GRID,
+                                  p3m_capacity="auto", rescale=ot.Rescale.identity(),
+                                  record_every=10)
+            if not np.isfinite(res.pos).all() or res.pos.shape != (2, N_MAIN, 3):
+                raise AssertionError(f"simulate(force_impl={impl!r}): bad records")
+            if impl == "p3m" and p3m_short_cuda.launches != 21:
+                raise AssertionError(f"simulate(p3m): {p3m_short_cuda.launches} launches")
+            said = "; ".join(str(w.message)[:60] for w in caught) or "no warning"
+            lines.append(f"simulate(force_impl={impl!r}) 20 steps on the card: box "
+                         f"{tuple(round(x, 4) for x in res.config.pm_box)}, capacity "
+                         f"{res.config.p3m_capacity}, short-range launches "
+                         f"{p3m_short_cuda.launches}; warnings: {said}")
+        return " | ".join(lines)
+
+    # phase 33
+    def mesh_timings(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops.cuda_p3m import p3m_short_cuda
+        from orbital_tpu_torch.ops.p3m import p3m_acc_potential, p3m_short_plain
+        from orbital_tpu_torch.ops.pm import pm_acc_potential
+
+        torch = self.torch
+        pos, vel, mass, _ = self.cluster()
+        pt, mt, box = self.t(pos), self.t(mass), self.box_t(PM_BOX)
+        kw = dict(G_grav=1.0, with_potential=False)
+        ev = {"pm_eval_65536": summary(time_ms(lambda: pm_acc_potential(
+            pt, mt, None, eps2=EPS2, grid=PM_GRID, box=box, **kw), 10))}
+        rng = np.random.default_rng(0)  # bench_pm's scene (bench.py:330-333)
+        big = (rng.normal(size=(N_PM_BIG, 3)), 0.3 * rng.normal(size=(N_PM_BIG, 3)),
+               np.full(N_PM_BIG, 1.0 / N_PM_BIG))
+        bt, bm = self.t(big[0]), self.t(big[2])
+        ev["pm_eval_1048576"] = summary(time_ms(lambda: pm_acc_potential(
+            bt, bm, None, eps2=PM_BIG_EPS2, grid=PM_GRID, **kw), 5))
+        cfg_b = ot.SimConfig(dt=DT, G=1.0, eps2=PM_BIG_EPS2, force_impl="pm", pm_grid=PM_GRID,
+                             track_potential=False)
+        st_b = ot.init_forces(ot.make_state(*big, precision="f32", device=self.dev), cfg_b)
+        ev["pm_step_1048576"] = summary([t / 5 for t in time_ms(
+            lambda: ot.rollout(st_b, cfg_b, 5), 1)])
+        del st_b, bt, bm
+        upos, uvel, umass = self.p3m_uniform()
+        tab, kw_s = self.p3m_short_case
+        cap = tab["table"].shape[1]
+        ut, um, ubox = self.t(upos), self.t(umass), self.box_t(P3M_BOX)
+        ev["p3m_eval_65536"] = summary(time_ms(lambda: p3m_acc_potential(
+            ut, um, None, eps2=EPS2, grid=P3M_GRID, capacity=cap, box=ubox, **kw), 10))
+        cfg_p = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, force_impl="p3m", pm_grid=P3M_GRID,
+                             p3m_capacity=cap, pm_box=P3M_BOX, track_potential=False)
+        st_p = ot.init_forces(ot.make_state(upos, uvel, umass, precision="f32",
+                                            device=self.dev), cfg_p)
+        ev["p3m_step_65536"] = summary([t / 10 for t in time_ms(
+            lambda: ot.rollout(st_p, cfg_p, 10), 1)])
+        args = (tab["table"], tab["cell_pos"], tab["cell_m"])
+        short = summary(time_ms(lambda: p3m_short_cuda(*args, count=tab["count"], **kw_s), 20))
+        plain = summary(time_ms(lambda: p3m_short_plain(*args, **kw_s), 1))
+        w = self.p3m_short_w
+        b = bound(OPS_SHORT * w["needed"], w["nbytes"], rsqrt=MUFU_SHORT * w["needed"])
+        self.kernels["P3M"].update(ms=short["median"], plain_ms=plain["median"], bound_ms=b[0],
+                                   bound_by=b[1], library_ms=None)
+        perf = {**ev, "p3m_short": short, "p3m_short_plain": plain, "p3m_short_bound": b,
+                "p3m_short_work": w}
+        print("perf_mesh " + json.dumps(perf), file=sys.stderr)
+
+        def ms(x):
+            return f"{x['median']:.3f} ms (spread {x['spread']:.3f})"
+
+        return (", ".join(f"{k} {ms(v)}" for k, v in ev.items())
+                + f"; short-range kernel {ms(short)} vs plain {ms(plain)}, bound {b[0]:.4f} ms "
+                f"({b[1]}, {100 * b[0] / short['median']:.1f}%) over {w['needed']:,} needed "
+                f"pairs ({w['walked']:,} walked); the B5 subset and the block macro step: "
+                f"phase 17, and in turns with another build's by --parent")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--drift-steps", type=int, default=1000,
                         help="unrecorded steps of the 65,536-body drift run")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", metavar="DIR",
-                        help="only hold B1, B2, B3, B5, B5 detect, B13, B6, B12, B7, the "
-                             "near sweep and B4 against DIR's kernel sources (phases 1, 2 "
-                             "and this check)")
+                        help="only hold B1, B2, B3, B5, B5 detect, the B5 subset, B13, B6, "
+                             "B12, B7, the near sweep and B4 against DIR's kernel sources "
+                             "(phases 1, 2 and this check)")
     parser.add_argument("--sweep", action="store_true",
                         help="only build and time the launch shapes of SWEEP (phases 1, 2 "
                              "and the sweep; with --parent, the parent check after it)")
@@ -3965,6 +4592,10 @@ def main(argv=None) -> int:
         ("27 block", smoke.check_block),
         ("28 variants main path", smoke.variants_main_path),
         ("29 variant timings", smoke.variant_timings),
+        ("30 pm", smoke.check_pm),
+        ("31 p3m short", smoke.check_p3m_short),
+        ("32 mesh main paths", smoke.mesh_main_path),
+        ("33 mesh timings", smoke.mesh_timings),
     ]
     if args.sweep or args.parent:
         phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (

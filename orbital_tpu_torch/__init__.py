@@ -17,15 +17,20 @@ plain torch), the CUDA acc + jerk sweep (full, detecting and row-subset),
 the CUDA bounce sweep, the fused whole-rollout kernel, the multirate
 (RESPA) stepper with its CUDA near-field sweep (``engine.multirate``), the
 tree force solver (``force_impl="tree"``) with its CUDA near-field sweep
-and the staged large-N loop, recorded rollouts and ``simulate()`` for scene
-arrays. See ROADMAP.md queue A for the rest.
+and the staged large-N loop, the particle-mesh and P3M solvers
+(``force_impl="pm"``, ``"p3m"``; P3M's short range a CUDA kernel), recorded
+rollouts and ``simulate()`` for scene arrays. See ROADMAP.md queue A for the
+rest.
 """
 from .engine.rollout import (Trajectory, init_forces, init_forces_staged, rollout,
                              rollout_staged)
 from .engine.state import NBodyState, Rescale, make_state
+from .ops.p3m import p3m_acc_potential
+from .ops.pm import pm_acc_potential
+from .ops.tree import tree_acc_potential
 from .simulate import SimResult, simulate
 from .utils.config import SimConfig
 
 __all__ = ["SimConfig", "NBodyState", "Rescale", "make_state", "init_forces",
            "rollout", "init_forces_staged", "rollout_staged", "Trajectory", "simulate",
-           "SimResult"]
+           "SimResult", "pm_acc_potential", "p3m_acc_potential", "tree_acc_potential"]

@@ -73,14 +73,36 @@
 // caller starts the counter at -N. Dead bodies carry radius 0 and sit at
 // spread-out far positions, adding only their self pair.
 //
-// Row subset (jerk_subset_kernel): the i rows are gathered through an index list of F
-// targets (F is at most hermite_fast_cap, a few dozen), which would fill
-// one or two of the 132 SMs. So the j range is split across the grid's y
-// dimension, each block sweeping `split` sources, and each writes its
-// partials to out[split index, row, 0:6]; the caller sums them with one
-// deterministic reduction instead of float atomics. No pe and no count.
-// A self pair adds exactly zero acc and jerk here too, so no index mask is
-// needed and the result equals the index-masked plain version.
+// Row subset (jerk_subset_kernel): acc and jerk of F target rows (F is at
+// most hermite_fast_cap, a few dozen) gathered through an index list, from
+// all N sources; no pe and no count. At F = 64 and N = 65,536 that is 4.2 M
+// pairs, 40 flops and one MUFU.RSQ each: a 0.0025 ms bound, well under the
+// cost of a launch, so the design is about the work around the sweep:
+// - It reads pos [N, 3], vel [N, 3], mass [N] and alive [N] in place through
+//   their pointers and element strides: no packed copy of the N sources for
+//   F rows. A dead source drops out by a select on alive (its mass read as
+//   0), never by a 0/1 product.
+// - A block holds kSubRows = 32 target rows and kSubGroups = 16 groups of
+//   them over j (512 threads; lane = row, warp = group, so the lanes of a
+//   warp read one staged source at a time); the j range is split across
+//   the grid's y dimension so that the grid covers the 132 SMs (the host
+//   works the split out from N and F: 64 splits of 1,024 sources at
+//   F = 64, N = 65,536). Each block stages kSubTile sources a round in
+//   shared memory, each group sweeps its 16 of them into fresh partials
+//   (the two-level sum of sweep_tile), and the 16 groups' sums are added in
+//   group order.
+// - The reduction over the splits happens on the device in the same launch,
+//   in a fixed order and without float atomics: each split writes its raw
+//   sums to a scratch buffer, then counts itself done on a per-row-tile
+//   counter behind a __threadfence; the last block of a row tile to finish
+//   adds the splits' sums in split order (each lane a strided run of
+//   splits, then a fixed xor-shuffle tree) and writes G times them to the
+//   [F, 6] output, then resets the counter to 0 for the next launch. One
+//   split writes the output directly.
+// A self pair adds exactly zero acc and jerk (r_ij = v_ij = 0; with eps2 = 0
+// the r2 > 0 select drops it), so no index mask is needed and the result
+// equals the index-masked plain version. Target indices are clamped into
+// [0, N) as a JAX gather clamps them.
 //
 // Plain C interface for ctypes: pointers and the stream are void*, and each
 // entry point returns cudaGetLastError() of its launch.
@@ -103,7 +125,14 @@ constexpr int kRows = 32 * kK;         // i bodies a block
 // a warp's shared slots: its two tiles during the sweep, its sums after it
 constexpr int kSlot = kTile > kRows ? kTile : kRows;
 static_assert(kK >= 1 && kQ >= 1 && kTile % 32 == 0, "bad launch shape");
-constexpr int kSubsetBlock = 64;  // target rows per block and j bodies per tile, subset
+// the row subset: target rows a block, groups of them over j (one warp
+// each), sources staged a round
+constexpr int kSubRows = 32;
+constexpr int kSubGroups = 16;
+constexpr int kSubThreads = kSubRows * kSubGroups;
+constexpr int kSubTile = 256;
+constexpr int kSubPer = kSubTile / kSubGroups;  // sources a group sweeps a round
+static_assert(kSubRows == 32 && kSubTile % kSubGroups == 0, "bad subset shape");
 
 struct Sums {
   float ax, ay, az, jx, jy, jz, pe;
@@ -312,51 +341,109 @@ jerk_kernel(const float4* __restrict__ pm, const float4* __restrict__ vr, int n,
   }
 }
 
-template <bool kSoft>
-__global__ void __launch_bounds__(kSubsetBlock)
-jerk_subset_kernel(const float4* __restrict__ pm, const float4* __restrict__ vr,
-                   const long long* __restrict__ idx, int f, int n, int split, float G,
-                   float eps2, float* __restrict__ out) {
-  __shared__ float4 tp[kSubsetBlock];
-  __shared__ float4 tv[kSubsetBlock];
-  const int row = blockIdx.x * kSubsetBlock + threadIdx.x;
-  const int j_begin = blockIdx.y * split;
-  const int j_end = min(j_begin + split, n);
+// Reads row j of a strided [N, 3] float array.
+__device__ __forceinline__ float3 row3(const float* __restrict__ a, long long s0,
+                                       long long s1, long long j) {
+  const float* p = a + j * s0;
+  return make_float3(p[0], p[s1], p[2 * s1]);
+}
+
+template <bool kSoft, bool kIdx64>
+__global__ void __launch_bounds__(kSubThreads)
+jerk_subset_kernel(const float* __restrict__ pos, long long ps0, long long ps1,
+                   const float* __restrict__ vel, long long vs0, long long vs1,
+                   const float* __restrict__ mass, long long ms,
+                   const unsigned char* __restrict__ alive, long long as,
+                   const void* __restrict__ idx, int f, int n, int split, float G, float eps2,
+                   float* __restrict__ part, unsigned int* __restrict__ done,
+                   float* __restrict__ out) {
+  __shared__ float4 tp[kSubTile];
+  __shared__ float4 tv[kSubTile];
+  __shared__ float red[kSubGroups][kSubRows][6];
+  __shared__ bool last;
+  const int r = threadIdx.x & 31;  // the lane: a target row of the tile
+  const int g = threadIdx.x >> 5;  // the warp: a group over j
+  const int row = blockIdx.x * kSubRows + r;
   float4 pi[1] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
   float4 vi[1] = {pi[0]};
   if (row < f) {
     // clamp as a JAX gather does; the steppers pass argsort indices
-    const long long g = min(max(idx[row], 0LL), static_cast<long long>(n - 1));
-    pi[0] = pm[g];
-    vi[0] = vr[g];
+    long long i = kIdx64 ? static_cast<const long long*>(idx)[row]
+                         : static_cast<long long>(static_cast<const int*>(idx)[row]);
+    i = min(max(i, 0LL), static_cast<long long>(n - 1));
+    const float3 p = row3(pos, ps0, ps1, i);
+    const float3 v = row3(vel, vs0, vs1, i);
+    pi[0] = make_float4(p.x, p.y, p.z, 0.0f);
+    vi[0] = make_float4(v.x, v.y, v.z, 0.0f);
   }
+  const int j_begin = blockIdx.y * split;
+  const int j_end = min(j_begin + split, n);
   Sums s = zero_sums();
   float unused[1];
-  for (int j0 = j_begin; j0 < j_end; j0 += kSubsetBlock) {
-    const int j = j0 + threadIdx.x;
-    if (j < j_end) {
-      tp[threadIdx.x] = pm[j];
-      tv[threadIdx.x] = vr[j];
+  for (int j0 = j_begin; j0 < j_end; j0 += kSubTile) {
+    const int j = j0 + static_cast<int>(threadIdx.x);
+    if (threadIdx.x < kSubTile && j < j_end) {
+      const float3 p = row3(pos, ps0, ps1, j);
+      const float3 v = row3(vel, vs0, vs1, j);
+      const bool live = alive == nullptr || alive[j * as] != 0;
+      tp[threadIdx.x] = make_float4(p.x, p.y, p.z, live ? mass[j * ms] : 0.0f);
+      tv[threadIdx.x] = make_float4(v.x, v.y, v.z, 0.0f);
     }
     __syncthreads();
+    const int lo = g * kSubPer;
+    const int count = min(kSubPer, j_end - j0 - lo);
     Sums t[1];
-    if (j_end - j0 >= kSubsetBlock) {
-      sweep_tile<1, kSoft, false, false>(tp, tv, kSubsetBlock, pi, vi, eps2, t, unused);
-    } else {
-      sweep_tile<1, kSoft, false, false>(tp, tv, j_end - j0, pi, vi, eps2, t, unused);
+    if (count == kSubPer) {
+      sweep_tile<1, kSoft, false, false>(tp + lo, tv + lo, kSubPer, pi, vi, eps2, t, unused);
+      add_sums(s, t[0]);
+    } else if (count > 0) {
+      sweep_tile<1, kSoft, false, false>(tp + lo, tv + lo, count, pi, vi, eps2, t, unused);
+      add_sums(s, t[0]);
     }
-    add_sums(s, t[0]);
     __syncthreads();
   }
-  if (row < f) {
-    float* o = out + (static_cast<size_t>(blockIdx.y) * f + row) * 6;
-    o[0] = G * s.ax;
-    o[1] = G * s.ay;
-    o[2] = G * s.az;
-    o[3] = G * s.jx;
-    o[4] = G * s.jy;
-    o[5] = G * s.jz;
+  // the groups' sums of each row, added in group order
+  const float mine[6] = {s.ax, s.ay, s.az, s.jx, s.jy, s.jz};
+#pragma unroll
+  for (int c = 0; c < 6; ++c) red[g][r][c] = mine[c];
+  __syncthreads();
+  const int splits = gridDim.y;
+  if (g == 0 && row < f) {
+    float sum[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) sum[c] = red[0][r][c];
+    for (int q = 1; q < kSubGroups; ++q) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) sum[c] += red[q][r][c];
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      if (splits == 1) {
+        out[row * 6 + c] = G * sum[c];
+      } else {
+        // [F * 6, splits]: a row tile's splits of one output lie together
+        part[static_cast<size_t>(row * 6 + c) * splits + blockIdx.y] = sum[c];
+      }
+    }
   }
+  if (splits == 1) return;
+  // the last split of this row tile to finish adds the splits in order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&done[blockIdx.x], 1u) == static_cast<unsigned>(splits - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int rows = min(kSubRows, f - static_cast<int>(blockIdx.x) * kSubRows);
+  for (int o = g; o < rows * 6; o += kSubGroups) {
+    const size_t at = static_cast<size_t>(blockIdx.x * kSubRows * 6 + o) * splits;
+    float sum = 0.0f;
+    for (int q = r; q < splits; q += 32) sum += __ldcg(part + at + q);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (r == 0) out[blockIdx.x * kSubRows * 6 + o] = G * sum;
+  }
+  if (threadIdx.x == 0) done[blockIdx.x] = 0u;
 }
 
 template <bool kDetect>
@@ -398,26 +485,49 @@ int nbody_jerk_detect(const void* pm, const void* vr, int n, float G, float eps2
   return launch_full<true>(pm, vr, n, G, eps2, out, contacts, stream, device);
 }
 
-// idx: [f] int64 target rows; out: [ceil(n / split), f, 6] float partials
-// (G*acc, G*jerk) of each block of `split` sources, to be summed over dim 0.
-int nbody_jerk_subset(const void* pm, const void* vr, const void* idx, int f, int n,
-                      int split, float G, float eps2, void* out, void* stream, int device) {
+// pos, vel: [n, 3] float with element strides (ps0, ps1), (vs0, vs1); mass:
+// [n] float, stride ms; alive: [n] bool (one byte), stride as, or null; idx:
+// [f] int64 (idx64 != 0) or int32 target rows; the j range cut into
+// ceil(n / split) splits of `split` sources (a multiple of kSubTile).
+// part: [f * 6, splits] float scratch (unused at one split); done:
+// [ceil(f / kSubRows)] unsigned int counters, 0 on entry and left 0; out:
+// [f, 6] float (G*acc, G*jerk).
+int nbody_jerk_subset(const void* pos, int ps0, int ps1, const void* vel, int vs0, int vs1,
+                      const void* mass, int ms, const void* alive, int as, const void* idx,
+                      int idx64, int f, int n, int split, float G, float eps2, void* part,
+                      void* done, void* out, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (f <= 0 || n <= 0) return cudaSuccess;
-  if (split <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((f + kSubsetBlock - 1) / kSubsetBlock, (n + split - 1) / split);
-  const auto* p = static_cast<const float4*>(pm);
-  const auto* v = static_cast<const float4*>(vr);
-  const auto* ix = static_cast<const long long*>(idx);
+  if (split <= 0 || split % kSubTile != 0) return cudaErrorInvalidValue;
+  const dim3 grid((f + kSubRows - 1) / kSubRows, (n + split - 1) / split);
+  const auto* p = static_cast<const float*>(pos);
+  const auto* v = static_cast<const float*>(vel);
+  const auto* m = static_cast<const float*>(mass);
+  const auto* a = static_cast<const unsigned char*>(alive);
+  auto* pt = static_cast<float*>(part);
+  auto* d = static_cast<unsigned int*>(done);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
+#define OT_SUBSET(kSoft, kIdx64)                                                      \
+  jerk_subset_kernel<kSoft, kIdx64><<<grid, kSubThreads, 0, s>>>(                     \
+      p, ps0, ps1, v, vs0, vs1, m, ms, a, as, idx, f, n, split, G, eps2, pt, d, o)
   if (eps2 > 0.0f) {
-    jerk_subset_kernel<true><<<grid, kSubsetBlock, 0, s>>>(p, v, ix, f, n, split, G, eps2, o);
+    if (idx64) OT_SUBSET(true, true); else OT_SUBSET(true, false);
   } else {
-    jerk_subset_kernel<false><<<grid, kSubsetBlock, 0, s>>>(p, v, ix, f, n, split, G, eps2, o);
+    if (idx64) OT_SUBSET(false, true); else OT_SUBSET(false, false);
   }
+#undef OT_SUBSET
   return cudaGetLastError();
+}
+
+// The row subset's block shape: shape[0..3] = target rows a block, groups
+// over j (warps), sources staged a round, threads a block.
+void nbody_jerk_subset_shape(int* shape) {
+  shape[0] = kSubRows;
+  shape[1] = kSubGroups;
+  shape[2] = kSubTile;
+  shape[3] = kSubThreads;
 }
 
 // The launch shape of the full sweep at n bodies: shape[0..4] = i bodies a

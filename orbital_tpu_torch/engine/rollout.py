@@ -31,7 +31,7 @@ __all__ = ["Trajectory", "resolve_force_fn", "resolve_force_detect_fn",
 _DENSE_MAX_N = 4096
 
 # ROADMAP.md queue A items that port the force paths this slice leaves out
-_NOT_PORTED = {"pm": "A.12", "p3m": "A.12", "ring": "A.15"}
+_NOT_PORTED = {"ring": "A.15"}
 
 
 # exact-force policies whose Hermite evaluation is the acc + jerk sweep
@@ -90,8 +90,30 @@ def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
     ``"tree"`` is ``ops.tree.tree_acc_potential`` with ``tree_near="kernel"``
     (its near sweep the B7 kernel on CUDA tensors); its overflow counter is
     dropped here, so size the budgets first (``simulate()`` probes them).
+    ``"pm"`` is ``ops.pm.pm_acc_potential`` and ``"p3m"``
+    ``ops.p3m.p3m_acc_potential`` (its short range the CUDA kernel on CUDA
+    tensors) on ``cfg.pm_grid`` and the pinned ``cfg.pm_box``; P3M's overflow
+    counter is dropped here, so size ``cfg.p3m_capacity`` first
+    (``simulate()`` probes it).
     """
     impl = _resolve_impl(cfg, n, torch.device(device), dtype)
+    if impl in ("pm", "p3m"):
+        box = _box_on(cfg)
+        if impl == "pm":
+            from ..ops.pm import pm_acc_potential
+
+            return lambda pos, mass, alive: pm_acc_potential(
+                pos, mass, alive, G_grav=cfg.G, eps2=cfg.eps2, grid=cfg.pm_grid,
+                with_potential=cfg.track_potential, box=box(pos.device))
+        from ..ops.p3m import p3m_acc_potential
+
+        def p3m(pos, mass, alive):
+            acc, U, _ = p3m_acc_potential(pos, mass, alive, G_grav=cfg.G, eps2=cfg.eps2,
+                                          grid=cfg.pm_grid, capacity=cfg.p3m_capacity,
+                                          with_potential=cfg.track_potential,
+                                          box=box(pos.device))
+            return acc, U
+        return p3m
     if impl == "tree":
         from ..ops.tree import tree_acc_potential
 
@@ -133,6 +155,27 @@ def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
     raise ValueError(f"unknown force_impl {impl!r}")
 
 
+def _box_tensors(cfg: SimConfig, device: torch.device):
+    """``cfg.pm_box`` as (center [3], half) float32 tensors on ``device``, or
+    None."""
+    box = cfg.pm_box_arrays()
+    if box is not None:
+        box = tuple(torch.as_tensor(b, dtype=torch.float32, device=device) for b in box)
+    return box
+
+
+def _box_on(cfg: SimConfig):
+    """``device -> _box_tensors(cfg, device)``, made once a device, so that
+    an evaluation copies nothing from the host."""
+    made = {}
+
+    def on(device: torch.device):
+        if device not in made:
+            made[device] = _box_tensors(cfg, device)
+        return made[device]
+    return on
+
+
 def _tree_kwargs(cfg: SimConfig, device: torch.device) -> dict:
     """``tree_acc_potential``'s keyword arguments for a config, the pinned
     box as tensors on ``device``. Near modes other than "kernel" raise
@@ -140,9 +183,7 @@ def _tree_kwargs(cfg: SimConfig, device: torch.device) -> dict:
     from ..ops.tree import _check_near
 
     _check_near(cfg.tree_near)
-    box = cfg.pm_box_arrays()
-    if box is not None:
-        box = tuple(torch.as_tensor(b, dtype=torch.float32, device=device) for b in box)
+    box = _box_tensors(cfg, device)
     return dict(G_grav=cfg.G, eps2=cfg.eps2, levels=cfg.tree_levels, ws=cfg.tree_ws,
                 order=cfg.tree_order, near=cfg.tree_near, max_chunks=cfg.tree_max_chunks,
                 chunk=cfg.tree_chunk, wl_entries=cfg.tree_wl_entries, wl_rj=cfg.tree_wl_rj,
@@ -162,8 +203,8 @@ def resolve_force_detect_fn(cfg: SimConfig, n: int, device: torch.device | str,
     N <= 4096; above it the detecting CUDA kernel for CUDA tensors and the
     chunked forces plus the chunked count for CPU tensors. Returns None for
     a force path without a detecting variant ("pallas_sym", "mxu",
-    "pallas_mxu", "tree"): the stepper then runs the bounce sweep ungated,
-    as the JAX package does.
+    "pallas_mxu", "tree", "pm", "p3m"): the stepper then runs the bounce
+    sweep ungated, as the JAX package does.
     """
     impl = _resolve_impl(cfg, n, torch.device(device), dtype)
     if impl == "pallas":

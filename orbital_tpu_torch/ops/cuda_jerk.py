@@ -16,8 +16,10 @@ MUFU.RSQ a pair; see the note at the top of the source): two i bodies a
 thread, the j range split across the 8 warps of a block, the slices' sums
 added in a fixed order. The bookkeeping stays here, as in the JAX
 wrappers: the alive mask, the analytic self-PE subtraction m_i/eps (the
-kernel masks nothing when eps2 > 0) and U = -1/2 G sum m pe; the subset
-kernel's per-split partials are summed with one ``torch.sum``.
+kernel masks nothing when eps2 > 0) and U = -1/2 G sum m pe. The subset
+kernel reads pos, vel, mass and alive in place and adds its j splits on the
+device, in a fixed order, in the same launch (:func:`subset_plan` cuts the j
+range); its wrapper allocates only the [F, 6] output.
 
 For CPU tensors the wrappers compute the plain versions (``*_plain``): the
 chunked forms of ``ops.forces`` plus ``ops.collisions.
@@ -36,11 +38,12 @@ from .collisions import count_contacts_chunked
 from .forces import accel_jerk_chunked, accel_jerk_subset
 
 __all__ = ["accel_jerk_cuda", "accel_jerk_plain", "accel_jerk_detect_cuda",
-           "accel_jerk_detect_plain", "accel_jerk_subset_cuda", "accel_jerk_subset_plain"]
+           "accel_jerk_detect_plain", "accel_jerk_subset_cuda", "accel_jerk_subset_plain",
+           "subset_plan"]
 
-# sources swept by one block of the subset kernel: 65,536 sources make a
-# grid of 512 blocks per 64 target rows
-SUBSET_SPLIT = 128
+# the subset kernel's block: target rows, sources staged a round (the j
+# split is a multiple of it), and the SMs its grid should cover
+SUBSET_ROWS, SUBSET_TILE, SM_COUNT = 32, 256, 132
 
 _lib = None
 
@@ -54,7 +57,9 @@ def _load():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for name, args in (("nbody_jerk", [p, p, i, f, f, p, p, i]),
                            ("nbody_jerk_detect", [p, p, i, f, f, p, p, p, i]),
-                           ("nbody_jerk_subset", [p, p, p, i, i, i, f, f, p, p, i])):
+                           ("nbody_jerk_subset",
+                            [p, i, i, p, i, i, p, i, p, i, p, i, i, i, i, f, f, p, p, p, p,
+                             i])):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = args
@@ -195,6 +200,52 @@ def accel_jerk_subset_plain(idx_i, pos, vel, mass, alive=None, *, G: float, eps2
                              chunk=min(chunk, max(pos.shape[0], 1)))
 
 
+def subset_plan(n: int, f: int) -> tuple[int, int]:
+    """(splits, split): the subset kernel's j range cut into splits of
+    ``split`` sources (a multiple of SUBSET_TILE), as few as cover SM_COUNT
+    blocks over the ceil(f / SUBSET_ROWS) row tiles."""
+    tiles = -(-f // SUBSET_ROWS)
+    want = min(max(1, -(-SM_COUNT // tiles)), -(-n // SUBSET_TILE))
+    split = -(-(-(-n // want)) // SUBSET_TILE) * SUBSET_TILE
+    return -(-n // split), split
+
+
+# per device: the subset kernel's split scratch and its row tiles' counters
+# (zeros, which each launch leaves zero)
+_subset_scratch: dict = {}
+
+
+def _subset_buffers(dev: torch.device, parts: int, tiles: int):
+    part, done = _subset_scratch.get(dev, (None, None))
+    if part is None or part.numel() < parts:
+        part = torch.empty((max(parts, 1),), dtype=torch.float32, device=dev)
+    if done is None or done.numel() < tiles:
+        done = torch.zeros((tiles,), dtype=torch.int32, device=dev)
+    _subset_scratch[dev] = (part, done)
+    return part, done
+
+
+def _subset(idx_i, pos, vel, mass, alive, G: float, eps2: float) -> torch.Tensor:
+    """Launch the subset kernel: [F, 6] rows of (G acc, G jerk)."""
+    n, f, dev = pos.shape[0], idx_i.shape[0], pos.device
+    out = torch.empty((f, 6), dtype=torch.float32, device=dev)
+    splits, split = subset_plan(n, f)
+    tiles = -(-f // SUBSET_ROWS)
+    part, done = _subset_buffers(dev, f * 6 * splits if splits > 1 else 0, tiles)
+    idx = idx_i if idx_i.dtype in (torch.int64, torch.int32) else idx_i.to(torch.int64)
+    idx = idx.contiguous()
+    live = None if alive is None else (alive if alive.dtype == torch.bool
+                                       else alive != 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launch("nbody_jerk_subset", pos.data_ptr(), pos.stride(0), pos.stride(1),
+            vel.data_ptr(), vel.stride(0), vel.stride(1), mass.data_ptr(), mass.stride(0),
+            None if live is None else live.data_ptr(), 0 if live is None else live.stride(0),
+            idx.data_ptr(), int(idx.dtype == torch.int64), f, n, split, float(G),
+            float(eps2), part.data_ptr(), done.data_ptr(), out.data_ptr(), stream,
+            dev.index or 0)
+    return out
+
+
 def accel_jerk_subset_cuda(
     idx_i: torch.Tensor,
     pos: torch.Tensor,
@@ -213,17 +264,8 @@ def accel_jerk_subset_cuda(
     _check_inputs("accel_jerk_subset_cuda", pos, vel, mass, alive, idx_i)
     if idx_i.ndim != 1:
         raise ValueError("accel_jerk_subset_cuda: idx_i must be [F]")
-    n, f = pos.shape[0], idx_i.shape[0]
-    pm, vr, _ = _pack(pos, vel, mass, alive)
-    idx64 = idx_i.to(torch.int64).contiguous()
-    splits = -(-n // SUBSET_SPLIT)
-    part = torch.empty((splits, f, 6), dtype=torch.float32, device=pos.device)
-    stream = torch.cuda.current_stream(pos.device).cuda_stream
-    _launch("nbody_jerk_subset", pm.data_ptr(), vr.data_ptr(), idx64.data_ptr(), f, n,
-            SUBSET_SPLIT, float(G), float(eps2), part.data_ptr(), stream,
-            pos.device.index or 0)
+    out = _subset(idx_i, pos, vel, mass.to(torch.float32), alive, G, eps2)
     accel_jerk_subset_cuda.launches += 1
-    out = part.sum(0)
     return out[:, 0:3], out[:, 3:6]
 
 

@@ -6,10 +6,11 @@ function. Ported so far: the exact-force kdk, euler, rk4, yoshida4 and
 Hermite steppers (Hermite with fixed or adaptive dt and block timesteps)
 and the multirate (RESPA) stepper on one device, with or without bounce
 collisions, the exact-force variants (``force_impl="pallas_sym"``,
-``"mxu"``, ``"pallas_mxu"``) and the tree force solver
-(``force_impl="tree"``) with its ``"kernel"`` near field; the merge and
-resolve collision modes, the mesh solvers and the tree's other near modes
-raise ``NotImplementedError`` (ROADMAP.md queue A).
+``"mxu"``, ``"pallas_mxu"``), the tree force solver (``force_impl="tree"``)
+with its ``"kernel"`` near field, and the mesh solvers (``force_impl="pm"``
+and ``"p3m"``) on an auto-pinned cube; the merge and resolve collision modes
+and the tree's other near modes raise ``NotImplementedError`` (ROADMAP.md
+queue A).
 """
 from __future__ import annotations
 
@@ -21,11 +22,13 @@ import numpy as np
 import torch
 
 from .engine.multirate import respa_rollout
-from .engine.rollout import init_forces, init_forces_staged, rollout, rollout_staged
+from .engine.rollout import (_box_tensors, init_forces, init_forces_staged, rollout,
+                             rollout_staged)
 from .engine.state import NBodyState, Rescale, make_state
 from .models.constants import STANDARD, UnitProfile
 from .models.scene import SceneArrays
 from .ops.neighbor import neighbor_budgets
+from .ops.p3m import p3m_max_occupancy
 from .ops.tree import _check_near, tree_occupancy_probe
 from .ops.tree_near_wl import tree_wl_budgets, tree_wl_probe
 from .utils.config import SimConfig
@@ -105,6 +108,52 @@ def _tree_outgrown(cfg: SimConfig, final: NBodyState) -> bool:
     return total > cfg.tree_max_chunks or entries > cfg.tree_wl_entries
 
 
+def _auto_pm_box(scene: SceneArrays, rescale: Rescale) -> tuple:
+    """The mesh cube pinned from the initial extent in internal units: the
+    center of the extent and twice its largest half-width (1 for a point)."""
+    p0 = np.asarray(scene.pos, np.float64) / rescale.length
+    c0 = (p0.max(0) + p0.min(0)) / 2.0
+    half0 = float(np.max(np.abs(p0 - c0))) * 2.0 or 1.0
+    return (float(c0[0]), float(c0[1]), float(c0[2]), half0)
+
+
+def _p3m_capacity(state: NBodyState, cfg: SimConfig, grid: int) -> int:
+    """``p3m_capacity="auto"``: the densest short-range cell of the initial
+    state with 1.5x headroom, rounded up to a multiple of 8 (at least 32);
+    more than 4,096 raises."""
+    occ = p3m_max_occupancy(state.pos, state.alive, grid=grid,
+                            box=_box_tensors(cfg, state.device))
+    cap = max(32, -(-int(occ * 1.5) // 8) * 8)
+    if cap > 4096:
+        raise ValueError(
+            f"p3m_capacity='auto': densest cell holds {occ} bodies (needs > 4096 with "
+            "headroom): the scene is too concentrated for P3M; use the exact kernels or PM")
+    return cap
+
+
+def _pm_softening_warning(cfg: SimConfig, grid: int) -> None:
+    """PM's collisionless contract: the mesh smooths pair forces below ~one
+    cell spacing h, so a softening under h / 2 is outside it (the headline
+    65,536-body cluster there drifts ~1e-2 over 10k steps, DESIGN.md §10)."""
+    h_cell = 2.0 * float(cfg.pm_box[3]) / float(grid)
+    eps_i = float(cfg.eps2) ** 0.5
+    if eps_i < 0.5 * h_cell:
+        warnings.warn(
+            f"force_impl='pm': softening ({eps_i:.3g} internal) is below half the mesh cell "
+            f"spacing (h = {h_cell:.3g}): the mesh smooths forces at ~h, so dynamics below "
+            "the grid scale are not resolved and energy drift is fluctuation-dominated "
+            "(measured ~1e-2 over 10k steps in this regime, DESIGN.md §10). Use a finer "
+            "pm_grid, the P3M solver (force_impl='p3m'), or the exact kernels.", stacklevel=3)
+
+
+def _escaped(cfg: SimConfig, final: NBodyState) -> int:
+    """Live bodies of the final state outside the pinned mesh cube."""
+    center, half = cfg.pm_box_arrays()
+    fp = final.pos.detach().double().cpu().numpy()
+    out = np.any(np.abs(fp - np.asarray(center, np.float64)) > float(half), axis=-1)
+    return int(np.sum(out & final.alive.cpu().numpy()))
+
+
 @dataclasses.dataclass
 class SimResult:
     """Physical-unit outputs of :func:`simulate`."""
@@ -150,6 +199,8 @@ def simulate(
     respa_cell: float = 0.0,
     respa_impl: str = "auto",
     respa_refresh: int = 1,
+    pm_grid: int = 64,
+    p3m_capacity: Union[int, str] = 64,
     pm_box: Optional[tuple] = None,
     tree_levels: Union[int, str] = 6,
     tree_ws: int = 1,
@@ -203,6 +254,17 @@ def simulate(
     ``tree_levels >= 8`` and N >= 524,288 the run takes the staged loop
     (``engine.rollout.rollout_staged``), which checks the overflow after
     every step and warns if it was ever nonzero.
+
+    ``force_impl="pm"`` and ``"p3m"`` run the mesh solvers (``ops.pm``,
+    ``ops.p3m``) on a ``pm_grid`` mesh a side over the cube ``pm_box``; when
+    it is None the cube is pinned from the initial extent (its center, twice
+    its half-width), since a refit every step is not a Hamiltonian leapfrog
+    conserves. ``p3m_capacity`` is an int or ``"auto"`` (the densest
+    short-range cell of the initial state with 1.5x headroom, a multiple of
+    8; above 4,096 raises). PM warns when the softening is below half a
+    mesh cell (outside its contract), and both warn at the end if live
+    bodies left the pinned cube (their deposits clip to the edge cells).
+    Neither has a contact-detecting variant; Hermite raises.
     """
     if not isinstance(scene, SceneArrays):
         raise NotImplementedError(
@@ -232,9 +294,15 @@ def simulate(
     if force_impl == "tree" and tree_accuracy is not None:
         raise NotImplementedError("tree_accuracy= is not ported to orbital_tpu_torch yet "
                                   "(ROADMAP.md queue A item A.13)")
+    if isinstance(p3m_capacity, str) and p3m_capacity != "auto":
+        raise ValueError(f"p3m_capacity must be an int or 'auto', got {p3m_capacity!r}")
     if pm_box is not None:
         # pm_box arrives in scene units like softening and dt
         pm_box = tuple(float(v) / rescale.length for v in pm_box)
+    elif force_impl in ("pm", "p3m"):
+        # a pinned cube keeps the mesh force a fixed Hamiltonian; escapers
+        # clip into edge cells, which the end of the run reports
+        pm_box = _auto_pm_box(scene, rescale)
 
     respa_fields = {}
     if integrator == "respa":
@@ -256,6 +324,8 @@ def simulate(
         hermite_fast_cap=hermite_fast_cap,
         hermite_max_substeps=hermite_max_substeps,
         hermite_rungs=hermite_rungs,
+        pm_grid=pm_grid,
+        p3m_capacity=64 if p3m_capacity == "auto" else int(p3m_capacity),
         pm_box=pm_box,
         tree_levels=6 if tree_levels == "auto" else int(tree_levels),
         tree_ws=tree_ws,
@@ -268,6 +338,10 @@ def simulate(
                        precision=precision, rescale=rescale, device=device)
     if force_impl == "tree":
         cfg = _tree_budget_cfg(cfg, state, tree_near=tree_near, tree_levels=tree_levels)
+    if force_impl == "p3m" and p3m_capacity == "auto":
+        cfg = cfg.replace(p3m_capacity=_p3m_capacity(state, cfg, pm_grid))
+    if force_impl == "pm" and cfg.eps2 > 0:
+        _pm_softening_warning(cfg, pm_grid)
     staged = (force_impl == "tree" and integrator == "kdk" and collisions == "none"
               and cfg.tree_levels >= _STAGED_MIN_LEVELS and state.n_bodies >= _STAGED_MIN_N)
     if staged:
@@ -295,6 +369,13 @@ def simulate(
             "near-field budgets sized from the initial one; near-field pairs were dropped "
             "near the end of the rollout. Re-run in shorter segments so the budgets "
             "re-size, or pass explicit budgets or levels.", RuntimeWarning, stacklevel=2)
+    if force_impl in ("pm", "p3m"):
+        esc = _escaped(cfg, final)
+        if esc:
+            warnings.warn(
+                f"{esc} bodies left the pinned pm/p3m mesh cube during the run (deposits "
+                "clipped to edge cells). Pass a larger pm_box, or re-run in segments so the "
+                "auto-pinned cube re-fits.", RuntimeWarning, stacklevel=2)
 
     def host(x: torch.Tensor) -> np.ndarray:
         return x.detach().cpu().numpy().astype(np.float64)

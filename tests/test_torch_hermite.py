@@ -470,3 +470,26 @@ def test_jerk_wrappers_launch_or_raise():
                                                           eps2=1e-4)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 5000, 65536, 1048576])
+def test_subset_plan_covers_every_source_once(n):
+    """The row subset kernel's j split (``cuda_jerk.subset_plan``), walked as
+    the kernel walks it (split q sweeps sources [q split, min((q + 1) split,
+    n))): every source once, no empty split, a whole number of staged rounds
+    a split, and a grid of row tiles x splits that fills at least half of
+    the SMs where the sources allow and overshoots them by at most a column
+    of row tiles."""
+    for f in (1, 16, 37, 64, 200):
+        splits, split = cuda_jerk.subset_plan(n, f)
+        assert splits >= 1 and split % cuda_jerk.SUBSET_TILE == 0
+        seen = np.zeros(n, np.int64)
+        for q in range(splits):
+            lo, hi = q * split, min((q + 1) * split, n)
+            assert lo < hi
+            seen[lo:hi] += 1
+        assert (seen == 1).all()
+        tiles = -(-f // cuda_jerk.SUBSET_ROWS)
+        most = tiles * -(-n // cuda_jerk.SUBSET_TILE)
+        assert tiles * splits <= cuda_jerk.SM_COUNT + tiles
+        assert 2 * tiles * splits >= min(cuda_jerk.SM_COUNT, most)

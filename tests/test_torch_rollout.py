@@ -190,8 +190,7 @@ def test_cpu_tensors_take_the_plain_paths(rng, monkeypatch):
     assert len(calls) == 2  # "pallas" names the kernel at any N
 
 
-@pytest.mark.parametrize("impl,item", [("pm", "A.12"), ("p3m", "A.12"), ("tree", "A.13"),
-                                       ("ring", "A.15")])
+@pytest.mark.parametrize("impl,item", [("tree", "A.13"), ("ring", "A.15")])
 def test_unported_force_paths_raise(impl, item):
     with pytest.raises(NotImplementedError, match=item):
         R.resolve_force_fn(tot.SimConfig(dt=1.0, force_impl=impl), 8192, "cpu")
