@@ -7,11 +7,12 @@
 With ``--parent DIR`` (a checkout of another commit, e.g. unpacked by
 ``git archive``) it runs phases 1-2 and then only holds B1, B2, B3 (on
 coinciding tables), B5, B5 detect, the B5 row subset, B13, B6, B12, B7, the
-near sweep and B4 of this tree against those built from DIR's
-``csrc/nbody_forces.cu``,
+near sweep, B4 and the P3M short range of this tree against those built from
+DIR's ``csrc/nbody_forces.cu``,
 ``nbody_jerk.cu``, ``nbody_forces_mxu.cu``, ``collisions.cu``,
-``nbody_forces_sym.cu``, ``tree_near.cu``, ``neighbor.cu`` and
-``fused_rollout.cu`` (N = 65,536, 7 dead, eps2 1e-4 and 0, PE on and off; B7
+``nbody_forces_sym.cu``, ``tree_near.cu``, ``neighbor.cu``,
+``fused_rollout.cu`` and ``p3m_short.cu`` (the P3M bench row's table within
+SHORT_RTOL; N = 65,536, 7 dead, eps2 1e-4 and 0, PE on and off; B7
 on the tree tables of ``Smoke.tree_calls``, the near sweep on the RESPA
 geometries of ``Smoke.near_calls``, B4 on FUSED_CASES) within FORCE_RTOL,
 JERK_RTOL and ENERGY_RTOL with equal contact counts, B13 by the Gram gates,
@@ -21,8 +22,8 @@ STATE_ATOL, says whether each is bit-equal, and times both trees' kernels
 in turns (B7 at 65,536 and 1,048,576 bodies, B4 at 4,096 and 32,768 in
 ds32 and f32), and the block macro step on each tree's row subset (its
 time and the host's time to queue it). A source whose C signature predates
-its redesign (the near sweep's, B4's and the row subset's first versions)
-runs through ``FIRST_SIGNATURES``. With
+its redesign (the near sweep's, B4's, the row subset's and the P3M short
+range's first versions) runs through ``FIRST_SIGNATURES``. With
 ``--sweep`` it runs phases 1-2 and then builds the launch shapes of
 ``SWEEP`` (``-D`` overrides of the eight sources' shape macros), holds each
 against the plain versions and times them in turns, with the registers,
@@ -36,8 +37,9 @@ Phases, one line of output each; any failure exits nonzero:
      instructions a pair (``cuobjdump -sass``) of B1, B2, B3, B4, B5, B5
      detect, B13 (with the TF32 HMMA of its inner loop, which must be
      there), B6, B12, B7 and the near sweep, the shape, registers and spills
-     of the B5 row subset and the P3M short range (no spill anywhere), and
-     the issue floor they imply
+     of the B5 row subset, the P3M short range (with the SASS instructions a
+     visited pair of its polynomial sweep) and the merge root search (no
+     spill anywhere), and the issue floor they imply
      at 528 warp instructions a clock and 1.98 GHz (B7's and the near
      sweep's from their visited pairs, in phases 24 and 20);
   3. the force kernel (B1) against its plain PyTorch version at N = 65536
@@ -155,26 +157,52 @@ Phases, one line of output each; any failure exits nonzero:
      package's smooth cluster at N = 65,536 and grid 64 (and its RMS
      against the exact forces, B1, within 1e-2; a third dead and inert) and
      the PM drift row (the headline cluster, grid 128, box (0, 0, 0, 8));
- 31. P3M's short-range kernel (``csrc/p3m_short.cu``) against its plain
-     version and the same sum in float64 (within SHORT_RTOL) at the P3M bench
-     row (65,536 uniform bodies, grid 64, the capacity probed), a ragged
-     N = 5,000 with a third dead and its starved table (overflow equal to the
-     CPU's and > 0); rows without a slot 0; ``p3m_short_work`` printed;
+ 31. P3M's short-range kernels (``csrc/p3m_short.cu``): the reorder of each
+     cell's kept prefix equal to its plain version (``p3m_short_order``), and
+     the sum against its plain version and the same sum in float64 (within
+     SHORT_RTOL) at the P3M bench row (65,536 uniform bodies, grid 64, the
+     capacity probed), a ragged N = 5,000 with a third dead, its starved
+     table (overflow equal to the CPU's and > 0) and its table at a cut of
+     P3M_WIDE_CUT sigmas (the kernel's erff / expf arithmetic, taken beyond
+     its polynomials' range); rows without a slot 0; the
+     bench row bit-equal from call to call; ``p3m_short_work`` printed
+     (walked, staged, visited, lane slots, needed);
  32. the mesh main paths through ``init_forces`` -> 20 recorded -> unrecorded
      ``rollout`` steps: ``force_impl="pm"`` at the drift row for 10,000
      steps and ``"p3m"`` at the uniform row for 4,000 (the short-range
-     kernel once an evaluation, overflow 0), each drift within its gate and
+     kernels once an evaluation, overflow 0), each drift within its gate and
      printed beside JAX's recorded one, the bodies escaped from the box
      printed; ``simulate(force_impl="p3m"/"pm")`` on the card;
  33. mesh timings: a PM evaluation at 65,536 and 1,048,576 (grid 128), a PM
      KDK step at 1,048,576, a P3M evaluation and KDK step at 65,536, the
-     short-range kernel beside its plain version and its bound (the B5
-     subset and the block macro step are phase 17's, and ``--parent``'s in
-     turns with their host time).
+     short-range kernels beside their plain versions and their bounds, the
+     sum's issue floor and the wrapper's device time (the B5 subset and the
+     block macro step are phase 17's, and ``--parent``'s in turns with their
+     host time);
+ 34. the merge root search (``csrc/collision_roots.cu``): its parents, gated
+     on the detecting sweep's count and ungated, and its roots integer-equal
+     to the plain column-blocked search on the 65,536-body cluster at the
+     contact-rich radius (count > 0) and the bench row's (count 0: the
+     identity) and at a ragged 5,000 with a third dead; timed at both counts
+     beside its bound;
+ 35. the merge main path, bench row: the cluster with radius 1e-4 and
+     ``collisions="merge"`` through ``init_forces`` -> a recorded and an
+     unrecorded ``rollout``, bit-equal to the collision-free run up to the
+     first contact, ms/step armed against unarmed;
+ 36. ``simulate(collisions="merge")`` on the cluster at the contact-rich
+     radius for MERGE_STEPS steps, twice: the merge count, mass and momentum
+     conserved in host f64 (MERGE_MASS_RTOL, MERGE_P_RTOL), every merged body
+     dead, massless, without radius and parked beyond every live body's
+     reach, the two runs bit-equal, one root search a detecting sweep;
+ 37. Hermite + merge (B5 detect) and RESPA K = 4 + merge (the geometry
+     rebuilt every window) through ``simulate`` at the contact-rich radius,
+     twice each, with phase 36's checks, and RESPA's counters from
+     ``respa_rollout`` (its ``overflow`` counts the bodies dead at a
+     window's start, as the JAX stepper's does, so ``simulate`` warns).
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
-10, 13, 14, 15, 16, 19, 23, 28 and 32) and read just after it: each kernel must
-have run on its path. B3 has no single-card path (the multi-device ring
+10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36 and 37) and read just after it:
+each kernel must have run on its path. B3 has no single-card path (the multi-device ring
 launches it): phase 27 checks it, and its record's launches are its count
 over phase 28's three main paths, which must be 0. The
 line before the last is a JSON summary of the kernels; the
@@ -398,6 +426,9 @@ PM_STEPS = 10000
 N_PM_BIG, PM_BIG_EPS2 = 1048576, 0.01
 P3M_SEED, P3M_HALF, P3M_GRID, P3M_BOX, P3M_STEPS = 11, 4.0, 64, (0.0, 0.0, 0.0, 6.0), 4000
 N_P3M_RAGGED, P3M_RAGGED_GRID = 5000, 32
+# a cut (in sigmas) past the short-range kernel's polynomials (a^2 rcut^2 =
+# cut^2 / 4 > 5.25), so that phase 31 holds its erff / expf arithmetic too
+P3M_WIDE_CUT = 5.0
 # the JAX package's recorded drifts of the two rows (BENCH_LAST_GOOD.json),
 # printed beside the port's as a physics cross-check, not a target
 JAX_PM_DRIFT, JAX_P3M_DRIFT = 9.149312456696479e-3, 3.9267120160259206e-05
@@ -421,6 +452,18 @@ SHORT_RTOL = 1e-5
 # inv_r^3 (2), g (4), K (2), m g and three multiply-adds (7), pe (2): ~50
 # f32 operations, and 3 MUFU operations (two rsqrt, one ex2)
 OPS_SHORT, MUFU_SHORT = 50, 3
+# the merge runs (phases 34-37): the root search per pair it needs (3
+# differences, r2 (5), R_i + R_j (1), the comparison: 10, as B6's rejection);
+# the contact-rich runs' lengths (KDK steps, Hermite steps, RESPA windows of
+# K = 4); and their conservation gates in host f64, set from the port's own
+# runs on an H100 80GB HBM3 at 700 W: the total mass moved by 0 in all three
+# runs and the momentum by 1.55e-11 (KDK), 9.27e-12 (Hermite) and 7.81e-12
+# (RESPA) of sum m |v| (the f32 force sums' asymmetry over the run); each
+# gate leaves ~65x room above the largest reading, so that a merge that
+# mis-weights even a few of the ~800 groups fails
+OPS_ROOTS = 10
+MERGE_STEPS, MERGE_HERMITE_STEPS, MERGE_RESPA_WINDOWS = 200, 40, 5
+MERGE_MASS_RTOL, MERGE_P_RTOL = 1e-9, 1e-9
 # the mesh rows' drift gates, set from the port's own run on an H100 80GB
 # HBM3 at 700 W: PM 9.148e-3 over 10,000 steps (fluctuation-dominated: the
 # softening is below the mesh scale, outside PM's contract, DESIGN.md
@@ -464,7 +507,8 @@ LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_bloc
              "nbody_forces_sym": ("nbody_forces_sym", "ot_error_string"),
              "tree_near": ("tree_near", "ot_error_string"),
              "neighbor": ("near_sweep", "ot_error_string"),
-             "fused_rollout": ("fused_kdk", "fused_kdk_shape", "ot_error_string")}
+             "fused_rollout": ("fused_kdk", "fused_kdk_shape", "ot_error_string"),
+             "p3m_short": ("p3m_short_sorted", "p3m_short_shape", "ot_error_string")}
 # the sources whose inner loop must hold tensor-core products (TF32 HMMA)
 TENSOR_CORE = {"nbody_forces_mxu": r"\bHMMA\.\S*TF32"}
 # --sweep: the launch shapes built with -D (i bodies or m16 tiles a thread
@@ -528,6 +572,15 @@ B3 = dict(name="nbody_block_forces", route="cuda",
 # p3m_acc_potential (orbital_tpu/ops/p3m.py:181-231)
 P3M = dict(name="p3m_short", route="cuda", source="orbital_tpu_torch/csrc/p3m_short.cu",
            replaces="orbital_tpu/ops/p3m.py:181")
+# the short range's reorder of each cell's kept prefix (a second kernel of
+# the same source, the redesign's own; the JAX tile form needs none)
+P3MO = dict(name="p3m_short_order", route="cuda", source="orbital_tpu_torch/csrc/p3m_short.cu",
+            replaces="orbital_tpu/ops/p3m.py:181")
+# no TPU kernel: stands in for the XLA column blocks of collision_roots_chunked
+# (orbital_tpu/ops/collisions.py:165-196), merge mode's root search
+ROOTS = dict(name="collision_roots", route="cuda",
+             source="orbital_tpu_torch/csrc/collision_roots.cu",
+             replaces="orbital_tpu/ops/collisions.py:165")
 
 
 def bound(flops: float, nbytes: float, rsqrt: float = 0.0,
@@ -757,20 +810,68 @@ def pm_f64(pos, mass, alive, eps2: float, grid: int, box=None):
     return acc, float(U)
 
 
-def p3m_short_work(tab: dict, gc: int, n: int, rcut2: float) -> dict:
-    """The short-range kernel's work on a table of ``ops.p3m.p3m_cell_table``:
-    the slots of the JAX module's tile form (``cell_block`` 32 cells of M
-    rows against 27 M), the pairs the kernel walks (each kept row of a cell
-    against every kept row of its 27 neighbours), the lane slots it issues
-    (a block slice of R rows takes S lanes a row, S the power of two >= R,
-    so 4 warps sweep a neighbourhood of J rows in 32 x 4 x ceil(J / (4 x
-    32 / S)) lane slots), and the pairs the function needs: ordered pairs of
-    kept bodies closer than rcut (r^2 of the f32 positions in f64), self
-    pairs excluded. Also the bytes it must move: each kept slot's (x, y, z,
-    m) and index read once (24 B), the counts (4 B a cell), each body's
-    (ax, ay, az, pe) written once (16 B)."""
+def p3m_slices(order: dict, gc: int, rcut2: float) -> dict:
+    """The redesigned short-range kernel's slices over a table reordered by
+    ``ops.cuda_p3m.p3m_short_order``: each non-empty 32-row slice of a cell's
+    kept prefix (``cell``, ``s0``, ``rows``), its box (``lo``, ``hi``: the
+    rows' min and max on each axis, float64 holding float32) and the bound
+    of the reach test (``reach2``, ``cuda_p3m.p3m_short_reach2``)."""
     import torch
 
+    from orbital_tpu_torch.ops.cuda_p3m import p3m_short_reach2
+
+    count = order["run_off"][:, -1].long()
+    dev = count.device
+    n_sl = int(-(-int(count.max()) // 32)) if count.numel() else 0
+    s0 = torch.arange(n_sl, device=dev) * 32
+    cell, sl = torch.nonzero(count[:, None] > s0[None, :], as_tuple=True)
+    start = s0[sl]
+    rows = (count[cell] - start).clamp(max=32)
+    k = start[:, None] + torch.arange(32, device=dev)                  # [S, 32]
+    own = k < count[cell, None]
+    p = order["rows"][cell[:, None], k.clamp(max=order["rows"].shape[1] - 1), :3].double()
+    big = torch.tensor(1e30, dtype=torch.float64, device=dev)
+    lo = torch.where(own[..., None], p, big).amin(1)
+    hi = torch.where(own[..., None], p, -big).amax(1)
+    return dict(cell=cell, s0=start, rows=rows, lo=lo, hi=hi, reach2=p3m_short_reach2(rcut2))
+
+
+def p3m_within_reach(lo, hi, reach2: float, lo_b=None, hi_b=None):
+    """The kernel's reach test: the squared distance between the box [lo, hi]
+    and the points (``lo_b`` = ``hi_b``) or boxes [lo_b, hi_b], each operation
+    rounded down in float32 (``__fsub_rd``, ``__fmul_rd``, ``__fadd_rd``), is
+    below ``reach2``. Arguments are float64 holding float32 and broadcast."""
+    import torch
+
+    def down(v):
+        return _directed_f32(v, up=False)
+
+    gap = torch.clamp(torch.maximum(down(lo_b - hi), down(lo - hi_b)), min=0.0)
+    sq = down(gap * gap)
+    return down(down(sq[..., 0] + sq[..., 1]) + sq[..., 2]) < reach2
+
+
+def p3m_short_work(tab: dict, gc: int, n: int, rcut2: float, warps: int = 8) -> dict:
+    """The short-range kernel's work on a table of ``ops.p3m.p3m_cell_table``:
+    the slots of the JAX module's tile form (``cell_block`` 32 cells of M
+    rows against 27 M), the pairs the first version walked (each kept row of
+    a cell against every kept row of its 27 neighbours), and, over the table
+    as ``ops.cuda_p3m.p3m_short_order`` reorders it (``p3m_slices``): the
+    pairs the kernel stages (each slice's rows against the rows of the
+    neighbour octant runs whose box is within reach of the slice's box,
+    ``p3m_within_reach``), the pairs it visits (against the rows within reach
+    of the slice's box), the lane slots it issues (warp w of ``warps``
+    sweeps the rows within reach of runs w, w + warps, ... in 32 x ceil(V_w /
+    G) lane slots, G = 32 / S groups, S the power of two >= the slice's
+    rows: every sweep but a warp's last takes a multiple of G
+    rows), and the pairs the function needs: ordered pairs of kept bodies
+    closer than rcut (r^2 of the f32 positions in f64), self pairs excluded.
+    Also the bytes it must move: each kept slot's (x, y, z, m) and index read
+    once (24 B), the counts (4 B a cell), each body's (ax, ay, az, pe)
+    written once (16 B)."""
+    import torch
+
+    from orbital_tpu_torch.ops.cuda_p3m import p3m_short_order
     from orbital_tpu_torch.ops.p3m import _neighbour_cells
 
     table, pos = tab["table"], tab["cell_pos"]
@@ -780,12 +881,6 @@ def p3m_short_work(tab: dict, gc: int, n: int, rcut2: float) -> dict:
     cnt = torch.cat([count, count.new_zeros(1)])
     J = cnt[nb].sum(1)
     walked = int((count * J).sum())
-    issued = 0
-    for s0 in range(0, cap, 32):
-        rows = (count - s0).clamp(0, 32)
-        width = 2 ** torch.ceil(torch.log2(rows.clamp(min=1).double())).long()
-        per = 4 * (32 // width)
-        issued += int(torch.where(rows > 0, 128 * -(-J // per), 0).sum())
     needed = 0
     block = max(1, (1 << 25) // (27 * cap * cap))
     rank = torch.arange(cap, device=dev)
@@ -798,9 +893,39 @@ def p3m_short_work(tab: dict, gc: int, n: int, rcut2: float) -> dict:
         d2 = ((pj[:, None] - pi[:, :, None]) ** 2).sum(-1)
         other = table[cells][:, :, None] != table[n_c].reshape(cells.shape[0], -1)[:, None]
         needed += int((live_i[:, :, None] & live_j[:, None] & other & (d2 < rcut2)).sum())
+
+    order = p3m_short_order(table, pos, tab["cell_m"], tab["count"], gc)
+    sl = p3m_slices(order, gc, rcut2)
+    reach2 = sl["reach2"]
+    run_off, run_box = order["run_off"].long(), order["run_box"].double()
+    octant = torch.searchsorted(run_off[:, 1:].contiguous(), rank.expand(gc3, -1).contiguous(),
+                                right=True)                          # [gc3, M]
+    width = 2 ** torch.ceil(torch.log2(sl["rows"].clamp(min=1).double())).long()
+    groups = 32 // width
+    staged = visited = issued = 0
+    for a in range(0, sl["cell"].numel(), 64):
+        c, lo, hi = sl["cell"][a:a + 64], sl["lo"][a:a + 64], sl["hi"][a:a + 64]
+        ids = nb[c]                                                   # [S, 27]
+        ok = ids < gc3
+        ids_c = torch.where(ok, ids, 0)
+        pj = order["rows"][ids_c][..., :3].double()                   # [S, 27, M, 3]
+        live = (rank < cnt[ids][..., None]) & ok[..., None]
+        inside = live & p3m_within_reach(lo[:, None, None], hi[:, None, None], reach2, pj, pj)
+        b = run_box[ids_c]                                            # [S, 27, 8, 6]
+        reach = p3m_within_reach(lo[:, None, None], hi[:, None, None], reach2, b[..., :3],
+                                 b[..., 3:])
+        run = torch.arange(27, device=dev)[None, :, None] * 8 + octant[ids_c]   # [S, 27, M]
+        staged_rows = (live & torch.gather(reach, 2, octant[ids_c].clamp(max=7))).sum((1, 2))
+        warp_of = run % warps
+        v_w = torch.stack([(inside & (warp_of == w)).sum((1, 2)) for w in range(warps)], 1)
+        r = sl["rows"][a:a + 64]
+        staged += int((r * staged_rows).sum())
+        visited += int((r * inside.sum((1, 2))).sum())
+        issued += int((32 * -(-v_w // groups[a:a + 64, None])).sum())
     kept = int(count.sum())
-    return dict(jax_slots=-(-gc3 // 32) * 32 * cap * 27 * cap, walked=walked, issued=issued,
-                needed=needed, nbytes=24 * kept + 4 * gc3 + 16 * n)
+    return dict(jax_slots=-(-gc3 // 32) * 32 * cap * 27 * cap, walked=walked, staged=staged,
+                visited=visited, issued=issued, needed=needed,
+                nbytes=24 * kept + 4 * gc3 + 16 * n)
 
 
 def energy_f64(state) -> float:
@@ -900,7 +1025,8 @@ def reset_launches() -> None:
                cuda_jerk.accel_jerk_subset_cuda, cuda_neighbor.near_acc_slots_cuda,
                cuda_tree.tree_near_cuda, cuda_forces_sym.pairwise_acc_sym_cuda,
                cuda_forces_mxu.gram_sums_cuda, cuda_forces.block_acc_cuda,
-               cuda_p3m.p3m_short_cuda):
+               cuda_p3m.p3m_short_cuda, cuda_p3m.p3m_short_order_cuda,
+               cuda_collisions.collision_roots_cuda):
         fn.launches = 0
 
 
@@ -1105,10 +1231,38 @@ def _jerk_subset_first(lib):
     return {"_subset": subset}
 
 
+def _p3m_short_first(lib):
+    """``cuda_p3m._launch`` against the short-range kernel's first C
+    signature (the cell table as ``p3m_cell_table`` builds it, with the
+    counts: no reorder)."""
+    import ctypes
+
+    import torch
+
+    from orbital_tpu_torch.utils.kernels import check
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.p3m_short.restype = ctypes.c_int
+    lib.p3m_short.argtypes = [p, p, p, p, i, i, p, f, f, p, p, p, i]
+
+    def launch(table, cell_pos, cell_m, count, gc, params, G, eps2, acc, pe):
+        dev = table.device
+        tab, cp, cm = table.contiguous(), cell_pos.contiguous(), cell_m.contiguous()
+        cnt = count.to(torch.int32).contiguous()
+        err = lib.p3m_short(cp.data_ptr(), cm.data_ptr(), tab.data_ptr(), cnt.data_ptr(),
+                            int(gc), int(tab.shape[1]), params.data_ptr(), G, eps2,
+                            acc.data_ptr(), pe.data_ptr(),
+                            torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+        check(lib, err, "p3m_short launch (first signature)")
+
+    return {"_launch": launch}
+
+
 # the sources whose C signature changed with a redesign: the function their
 # earlier versions lack, the adapter to the earlier signature and the entry
 # points it binds (the rest keep this tree's argument types)
 FIRST_SIGNATURES = {"neighbor": ("near_sweep_shape", _near_sweep_first, ("near_sweep",)),
+                    "p3m_short": ("p3m_short_sorted", _p3m_short_first, ("p3m_short",)),
                     "fused_rollout": ("fused_kdk_shape", _fused_launch_first, ("fused_kdk",)),
                     "nbody_jerk": ("nbody_jerk_subset_shape", _jerk_subset_first,
                                    ("nbody_jerk_subset",))}
@@ -1211,12 +1365,13 @@ def sass(library) -> str:
                           check=True).stdout
 
 
-def loop_bodies(text: str, marker: str = r"MUFU\.RSQ") -> dict:
+def loop_bodies(text: str, marker: str = r"MUFU\.RSQ", exclude: str = None) -> dict:
     """``{function: [instruction, ...]}``: the innermost loop of each
     function in SASS ``text`` that holds the most instructions matching
-    ``marker`` (and of those, the fewest instructions a marker). A loop is
-    the span from a backward branch's target to the branch; branch targets
-    are addresses (``cuobjdump``) or ``.L_x_`` labels (``nvdisasm``)."""
+    ``marker`` (and of those, the fewest instructions a marker), skipping
+    loops with an instruction matching ``exclude``. A loop is the span from a
+    backward branch's target to the branch; branch targets are addresses
+    (``cuobjdump``) or ``.L_x_`` labels (``nvdisasm``)."""
     out = {}
     for chunk in re.split(r"\n\s*Function\s*:\s*", text)[1:]:
         name = chunk.split(None, 1)[0]
@@ -1247,6 +1402,8 @@ def loop_bodies(text: str, marker: str = r"MUFU\.RSQ") -> dict:
         best = None
         for start, end in inner:
             body = [op for a, op in insts if start <= a <= end]
+            if exclude and any(re.search(exclude, op) for op in body):
+                continue
             count = sum(bool(re.search(marker, op)) for op in body)
             if count and (best is None or (-count, len(body) / count)
                           < (-best[1], len(best[0]) / best[1])):
@@ -1262,6 +1419,13 @@ def inner_loop(text: str, marker: str = r"MUFU\.RSQ") -> dict:
     / count is the warp instructions a pair."""
     return {f: (len(body), sum(bool(re.search(marker, op)) for op in body))
             for f, body in loop_bodies(text, marker).items()}
+
+
+def inner_loop_excluding(text: str, exclude: str, marker: str = r"MUFU\.RSQ") -> dict:
+    """:func:`inner_loop` over the loops without an instruction matching
+    ``exclude``."""
+    return {f: (len(body), sum(bool(re.search(marker, op)) for op in body))
+            for f, body in loop_bodies(text, marker, exclude).items()}
 
 
 def sass_slots(name: str, sass_text: str) -> dict:
@@ -1484,7 +1648,8 @@ class Smoke:
         self.kernels = {"B1": dict(B1), "B2": dict(B2), "B4": dict(B4), "B6": dict(B6),
                         "B5": dict(B5), "B5D": dict(B5D), "B5S": dict(B5S),
                         "NEAR": dict(NEAR), "B7": dict(B7), "B12": dict(B12),
-                        "B13": dict(B13), "B3": dict(B3), "P3M": dict(P3M)}
+                        "B13": dict(B13), "B3": dict(B3), "P3M": dict(P3M),
+                        "P3MO": dict(P3MO), "ROOTS": dict(ROOTS)}
         self._cluster = None
         self._respa_budgets = None
         self._plummer = None
@@ -1526,6 +1691,7 @@ class Smoke:
         for mod in (cuda_forces, fused_rollout, cuda_collisions, cuda_jerk, cuda_neighbor,
                     cuda_tree, cuda_forces_sym, cuda_forces_mxu, cuda_p3m):
             mod._load()
+        cuda_collisions._load_roots()
         total = time.perf_counter() - t0
         for name in names:
             for line in kernels.build_log(name).splitlines():
@@ -1538,7 +1704,8 @@ class Smoke:
         # B7's and the near sweep's blocks at their main paths' chunk budgets
         tiled = self.redesigned()
         at = {"tree_near": self.plummer()[3][0], "neighbor": self.respa_budgets()[1]}
-        logs = {name: kernels.build_log(name) for name in (*tiled, "p3m_short")}
+        logs = {name: kernels.build_log(name)
+                for name in (*tiled, "p3m_short", "collision_roots")}
         again = {kernels.BUILD_DIR / "usage" / kernels._library_path(name)[1].name: name
                  for name, log in logs.items() if not log}
         for out, (log, _) in compile_libraries(
@@ -1554,11 +1721,13 @@ class Smoke:
                 self.kernels[key].update(rec)
                 shapes.append(describe_launch(key, rec))
         # the kernels outside SHAPED: the row subset (in nbody_jerk, whose
-        # spills are checked above) and the short range
-        spills.append(f"p3m_short 0 in {spill_free('p3m_short', logs['p3m_short'])} entry "
-                      f"functions")
+        # spills are checked above), the short range and the root search
+        for name in ("p3m_short", "collision_roots"):
+            spills.append(f"{name} 0 in {spill_free(name, logs[name])} entry functions")
         shapes += [self.subset_record(cuda_jerk._load(), logs["nbody_jerk"]),
-                   self.entry_record("P3M", "p3m_short_kernel", logs["p3m_short"])]
+                   self.p3m_record(logs["p3m_short"], sass(
+                       kernels._library_path("p3m_short")[1])),
+                   self.roots_record(logs["collision_roots"])]
         return (f"built {each} in parallel (load total {total:.2f} s) for sm_90a; at "
                 f"N={N_MAIN}: " + "; ".join(shapes) + "; spill bytes: " + ", ".join(spills))
 
@@ -1572,6 +1741,44 @@ class Smoke:
         self.kernels[key].update(registers=regs, spill_bytes=spill)
         return (f"{key} ({len(usage)} instantiations) {regs} registers at most, {spill} spill "
                 f"bytes")
+
+    def p3m_record(self, log: str, sass_text: str) -> str:
+        """The short-range kernel's launch shape at the P3M bench row's grid
+        and probed capacity, its registers and spills, and the SASS
+        instructions of its polynomial sweep loop (the innermost loop with
+        MUFU.RSQ and no MUFU.EX2, the erff path's) a visited pair: one
+        MUFU.RSQ a pair."""
+        from orbital_tpu_torch.ops.cuda_p3m import p3m_short_shape
+        from orbital_tpu_torch.ops.p3m import _cell_grid, p3m_max_occupancy
+
+        line = (self.entry_record("P3M", "p3m_short_kernel", log) + "; "
+                + self.entry_record("P3MO", "p3m_order_kernel", log))
+        pos, _, _ = self.p3m_uniform()
+        cap = self.p3m_capacity(p3m_max_occupancy(self.t(pos), None, grid=P3M_GRID,
+                                                  box=self.box_t(P3M_BOX)))
+        shape = p3m_short_shape(_cell_grid(P3M_GRID, 1.5, 4.5), cap)
+        loop = next((v for f, v in inner_loop_excluding(sass_text, r"MUFU\.EX2").items()
+                     if "p3m_short_kernel" in f), None)
+        if sass_text and loop is None:
+            raise AssertionError("P3M: no polynomial sweep loop (MUFU.RSQ without MUFU.EX2)")
+        per_pair = loop[0] / loop[1] if loop else "not measured"
+        self.kernels["P3M"].update(shape=shape, sass_slots_per_pair=per_pair)
+        return f"{line}, shape {shape}, {fmt(per_pair)} SASS instructions a visited pair"
+
+    def roots_record(self, log: str) -> str:
+        """The root search's launch shape at N_MAIN, registers and spills."""
+        import ctypes
+
+        from orbital_tpu_torch.ops import cuda_collisions
+
+        line = self.entry_record("ROOTS", "parents_kernel", log)
+        fn = cuda_collisions._load_roots().collision_parents_shape
+        fn.restype, fn.argtypes = None, [ctypes.c_int, ctypes.c_void_p]
+        arr = (ctypes.c_int * 3)()
+        fn(N_MAIN, arr)
+        shape = dict(zip(("columns", "tile", "blocks"), list(arr)))
+        self.kernels["ROOTS"]["shape"] = shape
+        return f"{line}, shape {shape}"
 
     def subset_record(self, lib, log: str) -> str:
         """The row subset's block shape and its j split at the main path's
@@ -3658,6 +3865,7 @@ class Smoke:
             "B7R": (NEAR_RTOL, NEAR_RTOL), "B7L": (NEAR_RTOL, NEAR_RTOL),
             "B7S": (NEAR_RTOL, NEAR_RTOL, 0), "NEAR": (NEAR_RTOL, NEAR_RTOL),
             "NEARW": (NEAR_RTOL, NEAR_RTOL), "NEARR": (NEAR_RTOL, NEAR_RTOL),
+            "P3M": (SHORT_RTOL, SHORT_RTOL),
             **{k: (STATE_ATOL, STATE_ATOL) for k in FUSED_CASES}}
     # the source of each, the calls timed in turns and the pairs that must
     # be bit-equal
@@ -3987,12 +4195,16 @@ class Smoke:
 
         from orbital_tpu_torch.utils import kernels
 
+        from orbital_tpu_torch.ops import cuda_p3m
+        from orbital_tpu_torch.ops.cuda_p3m import p3m_short_cuda
+
         mods = self.redesigned()
         jobs = {name: (Path(parent) / "orbital_tpu_torch" / "csrc" / f"{name}.cu",
-                       kernels.BUILD_DIR / "parent" / f"lib{name}.so") for name in mods}
+                       kernels.BUILD_DIR / "parent" / f"lib{name}.so")
+                for name in (*mods, "p3m_short")}
         compile_libraries([(src, out, ()) for src, out in jobs.values()])
         old = {mod: other_build(name, jobs[name][1], mod._load())
-               for name, mod in mods.items()}
+               for name, mod in (*mods.items(), ("p3m_short", cuda_p3m))}
         scene = self.scene(N_MAIN, R_RICH, 7, seed_offset=17, cluster=False)
         worst, equal, counts, cases = {}, {}, set(), 0
 
@@ -4031,11 +4243,19 @@ class Smoke:
         near, fused = self.near_calls(), self.fused_calls()
         for k, v in {**near, **fused}.items():
             hold(k, *v)
+        # the P3M short range on the bench row's table
+        tab, kw_p = self.p3m_bench_case()
+        kw_t = dict(kw_p, sigma=self.t(kw_p["sigma"]), rcut2=self.t(kw_p["rcut2"]))
+        p3m_call = (lambda: p3m_short_cuda(tab["table"], tab["cell_pos"], tab["cell_m"],
+                                           count=tab["count"], **kw_t))
+        p3m_call.pairs = p3m_short_work(tab, kw_p["gc"], kw_p["n"], kw_p["rcut2"])["issued"]
+        hold("P3M", cuda_p3m, p3m_call)
         fused_t = self.fused_calls(timing=True)
         calls = {k: v for k, v in self.exact_calls(scene, EPS2, pe=False).items()
                  if k != "B6G"}
         calls["B3"] = self.exact_calls(scene, EPS2, pe=True)["B3"]
-        calls.update(B7=tree["B7"], B7L=tree["B7L"], NEAR=near["NEAR"])
+        calls.update(B7=tree["B7"], B7L=tree["B7L"], NEAR=near["NEAR"],
+                     P3M=(cuda_p3m, p3m_call))
         calls.update({k: fused_t[k] for k in ("B4", "B4F", "B4L", "B4LF")})
         fns = {}
         for k, (mod, call) in calls.items():
@@ -4056,6 +4276,7 @@ class Smoke:
         for name in mods:
             slots["parent"].update(sass_slots(name, sass(jobs[name][1])))
             slots["this"].update(sass_slots(name, sass(kernels._library_path(name)[1])))
+        slots["this"]["P3M"] = self.kernels["P3M"].get("sass_slots_per_pair")
         clocks = {k: clock_during(call) for k, (_, call) in calls.items()}
         print("perf_parent " + json.dumps({"times": times, "slots": slots, "clocks": clocks,
                                            "block_macro_ms": macro_t,
@@ -4085,8 +4306,8 @@ class Smoke:
             f"{k} {macro_t[k]['median']:.3f} ms (spread {macro_t[k]['spread']:.3f}), host "
             f"{macro_h[k]['median']:.3f} ms (spread {macro_h[k]['spread']:.3f})"
             for k in steps)))
-        return (f"B1, B2, B3, B5, B5 detect, the B5 subset, B13, B6, B12, B7, the near sweep "
-                f"and B4 held "
+        return (f"B1, B2, B3, B5, B5 detect, the B5 subset, B13, B6, B12, B7, the near sweep, "
+                f"B4 and the P3M short range held "
                 f"against the build of "
                 f"{parent}'s sources in {cases} calls (N={N_MAIN}, 7 dead, R {R_RICH:g}, eps2 "
                 f"{EPS2:g} and 0, PE on and off; within {FORCE_RTOL:g} / {JERK_RTOL:g} / "
@@ -4097,7 +4318,8 @@ class Smoke:
                 f"{N_TREE_BIG} and the ragged ws 2, and its starved near phase with overflow "
                 f"{overflow} equal; the near sweep within {NEAR_RTOL:g} at N={N_MAIN} (table, "
                 f"worklist) and the ragged starved {N_NEAR_RAGGED}; B4 after 10 steps within "
-                f"{STATE_ATOL:g} on {FUSED_CASES}); in turns, 6 runs each (B1, B2, B13 no PE; "
+                f"{STATE_ATOL:g} on {FUSED_CASES}; the P3M short range within {SHORT_RTOL:g} "
+                f"on the bench row's table); in turns, 6 runs each (B1, B2, B13 no PE; "
                 f"B3 PE; B6 ungated, B6Z at a zero count; B12; B7 at N={N_MAIN} and B7L at "
                 f"{N_TREE_BIG}; NEAR the table sweep at N={N_MAIN}; B4 200 steps at {N_FUSED}, "
                 f"ds32 and B4F f32, B4L and B4LF 20 steps at {N_FUSED_BIG}): "
@@ -4228,10 +4450,13 @@ class Smoke:
         of 8, at least 32."""
         return max(32, -(-int(occ * 1.5) // 8) * 8)
 
-    def p3m_table(self, pos, mass, alive, grid: int, box, capacity: int, device=None):
+    def p3m_table(self, pos, mass, alive, grid: int, box, capacity: int, device=None,
+                  cut_sigma: float = 4.5):
         """The short-range table of ``p3m_acc_potential`` for numpy inputs on
-        ``device`` (the card by default): (table dict, gc, sigma, rcut2) with
-        sigma and rcut2 rounded in f32 as the solver rounds them."""
+        ``device`` (the card by default) at its default sigma of 1.5 mesh
+        cells and a cut of ``cut_sigma`` sigmas: (table dict, gc, sigma,
+        rcut2) with sigma and rcut2 rounded in f32 as the solver rounds
+        them."""
         import torch
 
         from orbital_tpu_torch.ops.p3m import _cell_grid, p3m_cell_table
@@ -4248,10 +4473,46 @@ class Smoke:
         else:
             center = torch.tensor(box[:3], dtype=f32, device=dev)
             half = torch.tensor(box[3], dtype=f32, device=dev)
-        gc = _cell_grid(grid, 1.5, 4.5)
+        gc = _cell_grid(grid, 1.5, cut_sigma)
         tab = p3m_cell_table(p, m, a, center, half, gc=gc, capacity=capacity)
         sigma = 1.5 * (2.0 * half.cpu() / grid)
-        return tab, gc, float(sigma), float((4.5 * sigma) ** 2)
+        return tab, gc, float(sigma), float((cut_sigma * sigma) ** 2)
+
+    def p3m_sum_launch(self, tab, kw):
+        """A call that launches the short-range sum alone, on the table as
+        the reorder kernel leaves it (reordered once), into fixed outputs."""
+        from orbital_tpu_torch.ops import cuda_p3m
+
+        torch = self.torch
+        order = cuda_p3m.p3m_short_order_cuda(tab["table"], tab["cell_pos"], tab["cell_m"],
+                                              tab["count"], kw["gc"])
+        params = self.t([kw["rcut2"], 1.0 / (2.0 * kw["sigma"])])
+        acc = torch.zeros((kw["n"], 3), dtype=torch.float32, device=self.dev)
+        pe = torch.zeros((kw["n"],), dtype=torch.float32, device=self.dev)
+        lib, cap = cuda_p3m._load(), tab["table"].shape[1]
+
+        def launch():
+            stream = torch.cuda.current_stream(self.dev).cuda_stream
+            err = lib.p3m_short_sorted(order["rows"].data_ptr(), order["table"].data_ptr(),
+                                       order["run_off"].data_ptr(),
+                                       order["run_box"].data_ptr(), kw["gc"], cap,
+                                       params.data_ptr(), float(kw["G"]), float(kw["eps2"]),
+                                       acc.data_ptr(), pe.data_ptr(), stream,
+                                       self.dev.index or 0)
+            if err:
+                raise RuntimeError(f"p3m_short_sorted: CUDA error {err}")
+        return launch
+
+    def p3m_bench_case(self):
+        """The P3M bench row's short-range table and the wrapper's keyword
+        arguments (capacity probed as simulate() probes it)."""
+        from orbital_tpu_torch.ops.p3m import p3m_max_occupancy
+
+        pos, _, mass = self.p3m_uniform()
+        occ = p3m_max_occupancy(self.t(pos), None, grid=P3M_GRID, box=self.box_t(P3M_BOX))
+        tab, gc, sigma, rcut2 = self.p3m_table(pos, mass, None, P3M_GRID, P3M_BOX,
+                                               self.p3m_capacity(occ))
+        return tab, dict(gc=gc, n=len(mass), G=1.0, sigma=sigma, rcut2=rcut2, eps2=EPS2)
 
     # phase 30
     def check_pm(self) -> str:
@@ -4311,7 +4572,8 @@ class Smoke:
 
     # phase 31
     def check_p3m_short(self) -> str:
-        from orbital_tpu_torch.ops.cuda_p3m import p3m_short_cuda
+        from orbital_tpu_torch.ops.cuda_p3m import (p3m_short_cuda, p3m_short_order,
+                                                    p3m_short_order_cuda)
         from orbital_tpu_torch.ops.p3m import p3m_max_occupancy, p3m_short_plain
 
         torch = self.torch
@@ -4319,14 +4581,31 @@ class Smoke:
         rp, rm, ralive = self.p3m_ragged()
         occ_b = p3m_max_occupancy(self.t(pos), None, grid=P3M_GRID, box=self.box_t(P3M_BOX))
         occ_r = p3m_max_occupancy(self.t(rp), self.t(ralive, torch.bool), grid=P3M_RAGGED_GRID)
-        cases = {"bench": (pos, mass, None, P3M_GRID, P3M_BOX, self.p3m_capacity(occ_b)),
-                 "ragged": (rp, rm, ralive, P3M_RAGGED_GRID, None, self.p3m_capacity(occ_r)),
-                 "starved": (rp, rm, ralive, P3M_RAGGED_GRID, None, max(1, occ_r // 2))}
+        occ_w = p3m_max_occupancy(self.t(rp), self.t(ralive, torch.bool), grid=P3M_RAGGED_GRID,
+                                  cut_sigma=P3M_WIDE_CUT)
+        cases = {"bench": (pos, mass, None, P3M_GRID, P3M_BOX, self.p3m_capacity(occ_b), 4.5),
+                 "ragged": (rp, rm, ralive, P3M_RAGGED_GRID, None, self.p3m_capacity(occ_r),
+                            4.5),
+                 "starved": (rp, rm, ralive, P3M_RAGGED_GRID, None, max(1, occ_r // 2), 4.5),
+                 # beyond the polynomials' range: the erff / expf arithmetic
+                 "ragged wide cut": (rp, rm, ralive, P3M_RAGGED_GRID, None,
+                                     self.p3m_capacity(occ_w), P3M_WIDE_CUT)}
         lines = []
-        for key, (p, m, alive, grid, box, cap) in cases.items():
-            tab, gc, sigma, rcut2 = self.p3m_table(p, m, alive, grid, box, cap)
+        for key, (p, m, alive, grid, box, cap, cut) in cases.items():
+            tab, gc, sigma, rcut2 = self.p3m_table(p, m, alive, grid, box, cap, cut_sigma=cut)
             n = len(m)
             kw = dict(gc=gc, n=n, G=1.0, sigma=sigma, rcut2=rcut2, eps2=EPS2)
+            # the reorder kernel against its plain version: equal, bit for bit,
+            # on each cell's kept prefix (the kernel writes nothing past it)
+            args = (tab["table"], tab["cell_pos"], tab["cell_m"], tab["count"], gc)
+            got, want = p3m_short_order_cuda(*args), p3m_short_order(*args)
+            kept_slot = (torch.arange(tab["table"].shape[1], device=self.dev)[None, :]
+                         < tab["count"][:, None])
+            for k in got:
+                g_, w_ = (got[k][kept_slot], want[k][kept_slot]) if k in ("rows", "table") \
+                    else (got[k], want[k])
+                if not torch.equal(g_, w_):
+                    raise AssertionError(f"P3M order {key}: {k} differs from the plain version")
             a, pe = p3m_short_cuda(tab["table"], tab["cell_pos"], tab["cell_m"],
                                    count=tab["count"], **kw)
             a0, pe0 = p3m_short_plain(tab["table"], tab["cell_pos"], tab["cell_m"], **kw)
@@ -4347,7 +4626,8 @@ class Smoke:
             if bool(a[~kept].any()) or bool(pe[~kept].any()):
                 raise AssertionError(f"P3M short {key}: rows without a slot are not 0")
             overflow = int(tab["overflow"])
-            line = (f"{key} (N={n}, grid {grid}, gc {gc}, capacity {cap}, overflow {overflow}): "
+            line = (f"{key} (N={n}, grid {grid}, cut {cut:g} sigma, gc {gc}, capacity {cap}, "
+                    f"overflow {overflow}): the reorder bit-equal to its plain version; "
                     f"acc/pe vs plain {errs['plain'][0]:.2e}/{errs['plain'][1]:.2e}, vs f64 "
                     f"{errs['f64'][0]:.2e}/{errs['f64'][1]:.2e} (plain vs f64 "
                     f"{errs['plain vs f64'][0]:.2e}/{errs['plain vs f64'][1]:.2e})")
@@ -4360,23 +4640,38 @@ class Smoke:
             if key == "bench":
                 self.kernels["P3M"]["max_abs_err"] = max(float((a - a0).abs().max()),
                                                          float((pe - pe0).abs().max()))
+                self.kernels["P3MO"]["max_abs_err"] = 0.0
                 self.p3m_short_case = (tab, kw)
-                work = p3m_short_work(tab, gc, n, rcut2)
+                from orbital_tpu_torch.ops.cuda_p3m import p3m_short_shape
+
+                work = p3m_short_work(tab, gc, n, rcut2,
+                                      warps=p3m_short_shape(gc, tab["table"].shape[1])["warps"])
                 self.p3m_short_w = work
                 print("p3m_short_work " + json.dumps(work), file=sys.stderr)
-                line += (f"; p3m_short_work: {work['walked']:,} walked, {work['issued']:,} "
-                         f"lane slots, {work['needed']:,} needed pairs; the JAX tile form "
-                         f"{work['jax_slots']:,} slots")
+                line += (f"; p3m_short_work: {work['walked']:,} pairs walked by the first "
+                         f"version, {work['staged']:,} staged, {work['visited']:,} visited in "
+                         f"{work['issued']:,} lane slots, {work['needed']:,} needed "
+                         f"(visited/needed {work['visited'] / work['needed']:.2f}); the JAX tile "
+                         f"form {work['jax_slots']:,} slots")
             lines.append(line)
-        return (f"P3M short range (csrc/p3m_short.cu) within {SHORT_RTOL:g} of its plain "
-                f"version and the f64 sum: " + "; ".join(lines))
+        # bit-equal from call to call (sums in a fixed order, no atomics)
+        tab, kw = self.p3m_short_case
+        args = (tab["table"], tab["cell_pos"], tab["cell_m"])
+        one = p3m_short_cuda(*args, count=tab["count"], **kw)
+        two = p3m_short_cuda(*args, count=tab["count"], **kw)
+        if not all(torch.equal(x, y) for x, y in zip(one, two)):
+            raise AssertionError("P3M short: two calls on the same table differ")
+        return (f"P3M short range (csrc/p3m_short.cu: the reorder kernel equal to its plain "
+                f"version on the kept prefixes; the sum within {SHORT_RTOL:g} of its plain "
+                f"version and the f64 sum, bench row bit-equal from call to call): "
+                + "; ".join(lines))
 
     # phase 32
     def mesh_main_path(self) -> str:
         import orbital_tpu_torch as ot
         from orbital_tpu_torch.models.scene import SceneArrays
         from orbital_tpu_torch.ops import p3m as p3m_mod
-        from orbital_tpu_torch.ops.cuda_p3m import p3m_short_cuda
+        from orbital_tpu_torch.ops.cuda_p3m import p3m_short_cuda, p3m_short_order_cuda
         from orbital_tpu_torch.ops.p3m import p3m_max_occupancy
 
         torch = self.torch
@@ -4440,10 +4735,14 @@ class Smoke:
         finally:
             p3m_mod.p3m_acc_potential = inner
         launches, overflow = p3m_short_cuda.launches, int(torch.stack(total).sum())
+        order_launches = p3m_short_order_cuda.launches
         esc = escaped(fin, P3M_BOX)
-        if launches != len(total) or launches != 1 + P3M_STEPS or overflow:
-            raise AssertionError(f"P3M: {launches} short-range launches for {len(total)} "
-                                 f"evaluations ({1 + P3M_STEPS} expected), overflow {overflow}")
+        if (launches != len(total) or launches != 1 + P3M_STEPS or overflow
+                or order_launches != launches):
+            raise AssertionError(f"P3M: {launches} short-range and {order_launches} reorder "
+                                 f"launches for {len(total)} evaluations ({1 + P3M_STEPS} "
+                                 f"expected), overflow {overflow}")
+        self.kernels["P3MO"]["launches"] = order_launches
         if drift > P3M_DRIFT_BOUND:
             raise AssertionError(f"P3M drift {drift:.3e} > {P3M_DRIFT_BOUND:g}")
         self.kernels["P3M"]["launches"] = launches
@@ -4451,8 +4750,9 @@ class Smoke:
         lines.append(f"P3M N={N_MAIN} f32 uniform grid {P3M_GRID} box {P3M_BOX} capacity {cap} "
                      f"(densest cell {occ}): init_forces + 20 recorded + {P3M_STEPS - 20} steps, "
                      f"|dE/E| = {drift:.3e} <= {P3M_DRIFT_BOUND:g} (JAX's recorded "
-                     f"{JAX_P3M_DRIFT:.3e}); {wall:.3f} ms/step wall; short-range launches "
-                     f"{launches} = evaluations, overflow {overflow}; {esc} escaped the box")
+                     f"{JAX_P3M_DRIFT:.3e}); {wall:.3f} ms/step wall; short-range and reorder "
+                     f"launches {launches} and {order_launches} = evaluations, overflow "
+                     f"{overflow}; {esc} escaped the box")
 
         # simulate() on the card, the cube pinned and the capacity probed
         names = [f"b{i}" for i in range(N_MAIN)]
@@ -4480,7 +4780,8 @@ class Smoke:
     # phase 33
     def mesh_timings(self) -> str:
         import orbital_tpu_torch as ot
-        from orbital_tpu_torch.ops.cuda_p3m import p3m_short_cuda
+        from orbital_tpu_torch.ops.cuda_p3m import (p3m_short_cuda, p3m_short_order,
+                                                    p3m_short_order_cuda)
         from orbital_tpu_torch.ops.p3m import p3m_acc_potential, p3m_short_plain
         from orbital_tpu_torch.ops.pm import pm_acc_potential
 
@@ -4515,14 +4816,39 @@ class Smoke:
         ev["p3m_step_65536"] = summary([t / 10 for t in time_ms(
             lambda: ot.rollout(st_p, cfg_p, 10), 1)])
         args = (tab["table"], tab["cell_pos"], tab["cell_m"])
-        short = summary(time_ms(lambda: p3m_short_cuda(*args, count=tab["count"], **kw_s), 20))
-        plain = summary(time_ms(lambda: p3m_short_plain(*args, **kw_s), 1))
+        # sigma and rcut^2 on the card, as the solver hands them over: a
+        # number would be copied in each call and wait for the stream
+        kw_t = dict(kw_s, sigma=self.t(kw_s["sigma"]), rcut2=self.t(kw_s["rcut2"]))
+        short = summary(time_ms(lambda: p3m_short_cuda(*args, count=tab["count"], **kw_t), 20))
+        plain = summary(time_ms(lambda: p3m_short_plain(*args, **kw_t), 1))
+        o_args = (*args, tab["count"], kw_s["gc"])
+        order = summary(time_ms(lambda: p3m_short_order_cuda(*o_args), 20))
+        order_plain = summary(time_ms(lambda: p3m_short_order(*o_args), 5))
+        # the reorder reads each kept slot's (x, y, z), m and index once (24 B)
+        # and each cell's count, and writes each kept slot's (x, y, z, m) and
+        # index (24 B) and each cell's run offsets and boxes once
+        kept = int(tab["count"].sum())
+        b_o = bound(0, 48 * kept + (4 + 36 + 192) * kw_s["gc"] ** 3)
+        self.kernels["P3MO"].update(ms=order["median"], plain_ms=order_plain["median"],
+                                    bound_ms=b_o[0], bound_by=b_o[1], library_ms=None)
+        # the sum alone by CUDA events (its launch on a table reordered
+        # once), and the wrapper's device time by the profiler: the reorder,
+        # the sum and their set-up
+        sum_alone = summary(time_ms(self.p3m_sum_launch(tab, kw_s), 20))
+        dev_t = device_times(lambda: p3m_short_cuda(*args, count=tab["count"], **kw_t))
+        dev = {k: sum(v[1] for n_, v in dev_t.items() if k in n_) if dev_t else "not measured"
+               for k in ("p3m_short_kernel", "p3m_order_kernel", "")}
         w = self.p3m_short_w
         b = bound(OPS_SHORT * w["needed"], w["nbytes"], rsqrt=MUFU_SHORT * w["needed"])
+        slots = self.kernels["P3M"].get("sass_slots_per_pair", "not measured")
+        floor = (None if isinstance(slots, str)
+                 else 1e3 * slots * w["issued"] / 32 / INSTR_RATE)
         self.kernels["P3M"].update(ms=short["median"], plain_ms=plain["median"], bound_ms=b[0],
-                                   bound_by=b[1], library_ms=None)
+                                   bound_by=b[1], library_ms=None,
+                                   sum_alone_ms=sum_alone["median"])
         perf = {**ev, "p3m_short": short, "p3m_short_plain": plain, "p3m_short_bound": b,
-                "p3m_short_work": w}
+                "p3m_short_work": w, "p3m_order": order, "p3m_order_plain": order_plain,
+                "p3m_order_bound": b_o, "p3m_sum_alone": sum_alone, "p3m_short_device": dev}
         print("perf_mesh " + json.dumps(perf), file=sys.stderr)
 
         def ms(x):
@@ -4531,9 +4857,296 @@ class Smoke:
         return (", ".join(f"{k} {ms(v)}" for k, v in ev.items())
                 + f"; short-range kernel {ms(short)} vs plain {ms(plain)}, bound {b[0]:.4f} ms "
                 f"({b[1]}, {100 * b[0] / short['median']:.1f}%) over {w['needed']:,} needed "
-                f"pairs ({w['walked']:,} walked); the B5 subset and the block macro step: "
-                f"phase 17, and in turns with another build's by --parent")
+                f"pairs ({w['visited']:,} visited, {w['walked']:,} walked by the first "
+                f"version); its issue floor {fmt(floor, 4)} ms ({fmt(slots)} SASS instructions "
+                f"a visited pair over {w['issued']:,} lane slots); the sum alone "
+                f"{ms(sum_alone)} by events; the wrapper's device time {fmt(dev[''], 4)} ms "
+                f"(the sum {fmt(dev['p3m_short_kernel'], 4)}, the reorder "
+                f"{fmt(dev['p3m_order_kernel'], 4)}); "
+                f"the reorder kernel {ms(order)} vs its plain version {ms(order_plain)}, bound "
+                f"{b_o[0]:.4f} ms ({b_o[1]}); the B5 subset and the block macro step: phase 17, "
+                f"and in turns with another build's by --parent")
 
+    # phase 34
+    def check_roots(self) -> str:
+        from orbital_tpu_torch.ops.collisions import pointer_jump
+        from orbital_tpu_torch.ops.cuda_collisions import (collision_parents_cuda,
+                                                           collision_parents_plain,
+                                                           collision_roots_cuda)
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_detect_cuda
+
+        torch = self.torch
+        pos0, vel0, mass0, _ = self.cluster()
+        cases = {"rich": R_RICH, "bench": R_BENCH, "ragged": None}
+        lines, perf = [], {}
+        for key, radius in cases.items():
+            if radius is None:
+                pos, _, mass, rad, alive = self.scene(N_RAGGED, R_RAGGED, N_RAGGED // 3,
+                                                      seed_offset=34)
+            else:
+                st = self.torch_state(pos0, vel0, mass0, radius)
+                pos, mass, rad, alive = st.pos, st.mass, st.radius, st.alive
+            n = pos.shape[0]
+            _, _, count = pairwise_acc_detect_cuda(pos, mass, rad, alive, G=1.0, eps2=EPS2,
+                                                   with_potential=False)
+            got = {"gated": collision_parents_cuda(pos, rad, alive, contacts=count),
+                   "ungated": collision_parents_cuda(pos, rad, alive)}
+            want = {"gated": collision_parents_plain(pos, rad, alive, contacts=count),
+                    "ungated": collision_parents_plain(pos, rad, alive)}
+            root = collision_roots_cuda(pos, rad, alive, contacts=count)
+            torch.cuda.synchronize()
+            for k in got:
+                if not torch.equal(got[k], want[k]):
+                    bad = int((got[k] != want[k]).sum())
+                    raise AssertionError(f"roots {key} {k}: {bad} parents differ from plain")
+            if not torch.equal(root, pointer_jump(want["gated"])):
+                raise AssertionError(f"roots {key}: roots differ from the plain version's")
+            c = int(count)
+            linked = int((want["ungated"] != torch.arange(n, device=self.dev)).sum())
+            if key == "rich" and not (c > 0 and linked > 0):
+                raise AssertionError(f"roots rich: count {c}, {linked} linked columns")
+            if key == "bench" and (c != 0 or not torch.equal(
+                    got["gated"], torch.arange(n, device=self.dev))):
+                raise AssertionError(f"roots bench: count {c} at t=0 or parents not the "
+                                     f"identity")
+            line = (f"{key} (N={n}, R {radius if radius else R_RAGGED:g}, count {c}): parents "
+                    f"gated and ungated and the roots integer-equal to the plain version, "
+                    f"{linked} columns with a lower touching row")
+            if key in ("rich", "bench"):
+                kern = summary(time_ms(lambda: collision_parents_cuda(pos, rad, alive,
+                                                                      contacts=count), 10))
+                perf[key] = kern
+                line += f"; the kernel {kern['median']:.4f} ms (spread {kern['spread']:.4f})"
+            if key == "rich":
+                plain = summary(time_ms(lambda: collision_parents_plain(pos, rad, alive,
+                                                                        contacts=count), 1))
+                perf["plain"] = plain
+                # the pairs the search needs: each live column's rows up to its
+                # first touching one
+                p, j = want["ungated"], torch.arange(n, device=self.dev)
+                pairs = int(torch.where(alive, torch.where(p < j, p + 1, j), 0).sum())
+                b = bound(OPS_ROOTS * pairs, 25 * n)
+                perf["pairs"], perf["bound"] = pairs, b
+                line += (f", plain {plain['median']:.3f} ms; bound {b[0]:.4f} ms ({b[1]}, "
+                         f"{pairs:,} pairs)")
+            if key == "bench":
+                b0 = bound(0, 8 * n + 4)
+                perf["bound_count0"] = b0
+                line += f"; at count 0 bound {b0[0]:.5f} ms ({b0[1]})"
+            lines.append(line)
+        self.kernels["ROOTS"].update(
+            max_abs_err=0, ms=perf["rich"]["median"], plain_ms=perf["plain"]["median"],
+            bound_ms=perf["bound"][0], bound_by=perf["bound"][1], library_ms=None,
+            ms_count0=perf["bench"]["median"], bound_count0_ms=perf["bound_count0"][0])
+        print("perf_roots " + json.dumps(perf), file=sys.stderr)
+        return "the merge root search (csrc/collision_roots.cu): " + "; ".join(lines)
+
+    def torch_state(self, pos, vel, mass, radius: float, precision: str = "ds32"):
+        import orbital_tpu_torch as ot
+
+        return ot.make_state(pos, vel, mass, np.full(len(mass), radius), precision=precision,
+                             device=self.dev)
+
+    def merged_checks(self, key: str, start, fin) -> str:
+        """A merge run's invariants in host f64: total mass and momentum of
+        ``fin`` against ``start`` within MERGE_MASS_RTOL and MERGE_P_RTOL (of
+        sum m |v|), and every merged body dead, massless, without radius and
+        parked beyond every live body's reach. Returns its merge count."""
+        torch = self.torch
+        m0, m1 = start.mass.double(), fin.mass.double()
+        v0, v1 = start.vel_full().double(), fin.vel_full().double()
+        dm = abs(float(m1.sum() - m0.sum())) / float(m0.sum())
+        scale = float((m0 * v0.norm(dim=1)).sum())
+        dp = float(((m1[:, None] * v1).sum(0) - (m0[:, None] * v0).sum(0)).norm()) / scale
+        gone = start.alive & ~fin.alive
+        merged = int(gone.sum())
+        if not (bool(torch.isfinite(fin.pos).all()) and bool(torch.isfinite(fin.vel).all())):
+            raise AssertionError(f"{key}: non-finite state")
+        if merged == 0:
+            raise AssertionError(f"{key}: no body merged")
+        if dm > MERGE_MASS_RTOL or dp > MERGE_P_RTOL:
+            raise AssertionError(f"{key}: mass {dm:.3e} (> {MERGE_MASS_RTOL:g}?) or momentum "
+                                 f"{dp:.3e} (> {MERGE_P_RTOL:g}?) not conserved")
+        live = fin.alive
+        reach = float(fin.pos.double()[live].abs().max()) + 2.0 * float(fin.radius[live].max())
+        parked = float(fin.pos.double()[gone].abs().amax(1).min())
+        if bool(fin.mass[gone].any()) or bool(fin.radius[gone].any()) or parked < 1e3 * reach:
+            raise AssertionError(f"{key}: merged bodies not massless, without radius and "
+                                 f"parked far (nearest at {parked:.3e}, live reach {reach:.3e})")
+        return (f"{merged} merged; |dM/M| {dm:.2e} <= {MERGE_MASS_RTOL:g}, |dP| / sum m|v| "
+                f"{dp:.2e} <= {MERGE_P_RTOL:g}; merged bodies dead, massless, radius 0, parked "
+                f"at >= {parked:.2e} (live reach {reach:.2e})")
+
+    # phase 35
+    def merge_main_path(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.rollout import resolve_force_detect_fn, resolve_force_fn
+        from orbital_tpu_torch.models.scene import SceneArrays
+        from orbital_tpu_torch.ops.cuda_collisions import collision_roots_cuda
+        from orbital_tpu_torch.ops.cuda_forces import (pairwise_acc_cuda,
+                                                       pairwise_acc_detect_cuda)
+
+        torch = self.torch
+        n = N_MAIN
+        pos, vel, mass, _ = self.cluster()
+        # the bench row: armed against collision-free, step by step
+        runs = {}
+        for mode in ("merge", "none"):
+            cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, collisions=mode)
+            state = self.torch_state(pos, vel, mass, R_BENCH)
+            resolve = resolve_force_detect_fn if mode == "merge" else resolve_force_fn
+            log = StepLog(resolve(cfg, n, self.dev), keep_pos=True, keep_counts=True)
+            hook = dict(force_detect_fn=log) if mode == "merge" else dict(force_fn=log)
+            if mode == "merge":
+                _, _, c0 = pairwise_acc_detect_cuda(state.pos, state.mass, state.radius,
+                                                    state.alive, G=1.0, eps2=EPS2)
+                contacts0 = int(c0)
+                reset_launches()
+            state = ot.init_forces(state, cfg)
+            rec, _ = ot.rollout(state, cfg, 20, record_every=10, fused="never", **hook)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cfg = cfg.replace(track_potential=False)
+            log.fn = resolve(cfg, n, self.dev)
+            fin, _ = ot.rollout(rec, cfg, self.drift_steps, fused="never", **hook)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if mode == "merge":
+                launches = (pairwise_acc_cuda.launches, pairwise_acc_detect_cuda.launches,
+                            collision_roots_cuda.launches)
+            runs[mode] = (state, fin, 1e3 * wall / self.drift_steps, log)
+        (start, fin, ms_merge, log), (_, other, ms_none, log_none) = runs["merge"], runs["none"]
+        b1, b2, roots = launches
+        steps = 20 + self.drift_steps
+        counts = torch.stack(log.counts).cpu().numpy()
+        hit = [int(k) + 1 for k in np.flatnonzero(counts)]
+        if contacts0 != 0 or b1 != 1 or b2 != steps or roots != steps:
+            raise AssertionError(f"merge bench row: {contacts0} contacts at t=0, launches B1 "
+                                 f"{b1}, B2 {b2}, roots {roots}")
+        differ = next((k + 1 for k, (a, b) in enumerate(zip(log.positions, log_none.positions))
+                       if not torch.equal(a, b)), None)
+        if hit:
+            if differ is not None and differ <= hit[0]:
+                raise AssertionError(f"merge bench row: positions differ from the "
+                                     f"collision-free run at step {differ}, before the first "
+                                     f"contact (step {hit[0]})")
+            same = f"bit-equal to collisions='none' through step {hit[0]}"
+            merged = f"{int((start.alive & ~fin.alive).sum())} merged"
+        else:
+            if differ is not None:
+                raise AssertionError(f"merge bench row: positions differ at step {differ}")
+            for f in ("pos", "pos_lo", "vel", "vel_lo", "mass", "alive", "step"):
+                if not torch.equal(getattr(fin, f), getattr(other, f)):
+                    raise AssertionError(f"merge bench row: final {f} differs")
+            same, merged = "final state bit-equal to collisions='none'", "none merged"
+        del log, log_none, runs
+        self.merge_ms = (ms_merge, ms_none)
+        line1 = (f"N={n} ds32 merge R={R_BENCH:g}: init_forces + 20 recorded + "
+                 f"{self.drift_steps} unrecorded steps; contacts 0 at t=0, "
+                 f"{int(counts.sum())} over the run on steps {hit}; {merged}; {same} "
+                 f"(positions first differ at step {differ}); {ms_merge:.3f} ms/step wall armed "
+                 f"vs {ms_none:.3f} without; launches B1 {b1}, B2 {b2}, roots {roots}")
+
+        # contact-rich, through simulate() twice: bit-equal, conserved
+        scene = SceneArrays(pos=pos, vel=vel, mass=mass, radius=np.full(n, R_RICH),
+                            names=[f"b{i}" for i in range(n)])
+        kw = dict(steps=MERGE_STEPS, dt=DT, softening=EPS2 ** 0.5, device=self.dev,
+                  precision="ds32", collisions="merge", rescale=ot.Rescale.identity(),
+                  record_every=MERGE_STEPS // 2)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ot.simulate(scene, **kw)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / MERGE_STEPS
+        b2, roots = pairwise_acc_detect_cuda.launches, collision_roots_cuda.launches
+        self.kernels["ROOTS"]["launches"] = roots
+        again = ot.simulate(scene, **kw)
+        a, b = res.final_state, again.final_state
+        if not all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+                   ("pos", "pos_lo", "vel", "vel_lo", "mass", "radius", "alive")):
+            raise AssertionError("merge contact-rich: two simulate() runs differ")
+        if b2 != MERGE_STEPS or roots != MERGE_STEPS:
+            raise AssertionError(f"merge contact-rich: launches B2 {b2}, roots {roots}")
+        if res.pos.shape != (2, n, 3) or not np.isfinite(res.pos).all():
+            raise AssertionError("merge contact-rich: bad records")
+        start = self.torch_state(pos, vel, mass, R_RICH)
+        line2 = (f"simulate(collisions='merge') N={n} ds32 R={R_RICH:g}, {MERGE_STEPS} steps "
+                 f"at {wall:.3f} ms/step wall (set-up included): "
+                 f"{self.merged_checks('merge contact-rich', start, a)}; two runs bit-equal; "
+                 f"launches B2 {b2}, roots {roots}")
+        return line1, line2
+
+    # phase 37
+    def merge_steppers(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.multirate import respa_rollout
+        from orbital_tpu_torch.models.scene import SceneArrays
+        from orbital_tpu_torch.ops.cuda_collisions import collision_roots_cuda
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_detect_cuda
+        from orbital_tpu_torch.ops.cuda_jerk import accel_jerk_detect_cuda
+
+        torch = self.torch
+        n = N_MAIN
+        pos, vel, mass, _ = self.cluster()
+        start = self.torch_state(pos, vel, mass, R_RICH)
+        lines = []
+        # Hermite through simulate(), twice
+        scene = SceneArrays(pos=pos, vel=vel, mass=mass, radius=np.full(n, R_RICH),
+                            names=[f"b{i}" for i in range(n)])
+        kw = dict(steps=MERGE_HERMITE_STEPS, dt=DT, softening=EPS2 ** 0.5, device=self.dev,
+                  precision="ds32", collisions="merge", rescale=ot.Rescale.identity(),
+                  record_every=MERGE_HERMITE_STEPS, integrator="hermite")
+        reset_launches()
+        finals = [ot.simulate(scene, **kw).final_state for _ in range(2)]
+        detect, roots = accel_jerk_detect_cuda.launches, collision_roots_cuda.launches
+        lines.append(self.merge_twice("hermite", start, finals, detect, roots,
+                                      2 * MERGE_HERMITE_STEPS))
+        # RESPA K = 4 (the geometry rebuilt every window, as collisions
+        # require) through simulate(), twice; a dead body has no slot, so
+        # RESPA counts it with the dropped bodies in `overflow`, as the JAX
+        # stepper does, and simulate() warns once bodies have merged
+        steps = RESPA_K * MERGE_RESPA_WINDOWS
+        kw.update(steps=steps, record_every=steps, integrator="respa", respa_k=RESPA_K,
+                  respa_rc=RC_RESPA, respa_cell=CELL_RESPA)
+        reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            finals = [ot.simulate(scene, **kw).final_state for _ in range(2)]
+        detect, roots = pairwise_acc_detect_cuda.launches, collision_roots_cuda.launches
+        line = self.merge_twice("respa", start, finals, detect, roots, 2 * MERGE_RESPA_WINDOWS)
+        said = [str(w.message) for w in caught]
+        if not all(m.startswith("respa window diagnostics nonzero (overflow=") for m in said):
+            raise AssertionError(f"merge respa: warnings {said}")
+        # its counters, read from respa_rollout on the bench's budgets: the
+        # split budgets and the skin 0, the overflow the dead bodies
+        cfg = self.respa_config(refresh=1, collisions="merge")
+        fin, _, diag = respa_rollout(ot.init_forces(start, cfg), cfg, steps)
+        diag = {k: int(v) for k, v in diag.items()}
+        dead = int((~fin.alive).sum())
+        if (diag["cap_overflow"] or diag["w_overflow"] or diag["q_overflow"]
+                or diag["skin_violation"] or not 0 < diag["overflow"] <= dead):
+            raise AssertionError(f"merge respa: counters {diag} with {dead} dead")
+        lines.append(f"{line}; simulate() warned only of the overflow counter; "
+                     f"respa_rollout's counters {diag} with {dead} dead (overflow: bodies "
+                     f"dead at a window's start)")
+        return " | ".join(lines)
+
+    def merge_twice(self, key: str, start, finals, detect: int, roots: int,
+                    evals: int) -> str:
+        """Two runs' final states bit-equal, each detecting sweep followed by
+        one root search, and the merge invariants (``merged_checks``)."""
+        torch = self.torch
+        a, b = finals
+        if not all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+                   ("pos", "pos_lo", "vel", "vel_lo", "mass", "radius", "alive")):
+            raise AssertionError(f"merge {key}: two runs differ")
+        if detect != evals or roots != evals:
+            raise AssertionError(f"merge {key}: {detect} detecting sweeps, {roots} root "
+                                 f"searches for {evals} evaluations")
+        return (f"{key} + merge N={start.n_bodies} ds32 R={R_RICH:g}, twice: "
+                f"{self.merged_checks('merge ' + key, start, a)}; two runs bit-equal; "
+                f"detecting sweeps {detect}, roots {roots}")
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4542,8 +5155,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", metavar="DIR",
                         help="only hold B1, B2, B3, B5, B5 detect, the B5 subset, B13, B6, "
-                             "B12, B7, the near sweep and B4 against DIR's kernel sources "
-                             "(phases 1, 2 and this check)")
+                             "B12, B7, the near sweep, B4 and the P3M short range against "
+                             "DIR's kernel sources (phases 1, 2 and this check)")
     parser.add_argument("--sweep", action="store_true",
                         help="only build and time the launch shapes of SWEEP (phases 1, 2 "
                              "and the sweep; with --parent, the parent check after it)")
@@ -4596,6 +5209,9 @@ def main(argv=None) -> int:
         ("31 p3m short", smoke.check_p3m_short),
         ("32 mesh main paths", smoke.mesh_main_path),
         ("33 mesh timings", smoke.mesh_timings),
+        ("34 roots", smoke.check_roots),
+        ("35+36 merge main path", smoke.merge_main_path),
+        ("37 merge steppers", smoke.merge_steppers),
     ]
     if args.sweep or args.parent:
         phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (

@@ -15,17 +15,18 @@ Under the ds32 precision policy, position/velocity accumulation uses
 compensated double-single arithmetic (see ``dsfloat``): the *increments*
 (a*dt, v*dt) are plain f32, the *accumulators* carry a correction term.
 
-Collisions: ``"bounce"`` runs after the step's closing force evaluation.
-When the force sweep also counted contacts (``force_detect_fn``), the
-bounce result is kept only where that count is > 0, selected on the device
+Collisions: ``"bounce"`` and ``"merge"`` run after the step's closing force
+evaluation. When the force sweep also counted contacts (``force_detect_fn``),
+their result is kept only where that count is > 0, selected on the device
 with ``torch.where``: a contact-free step leaves the state bit-for-bit as
 it was, as the JAX stepper's ``lax.cond`` does, and the host never reads the
-count. On CUDA the bounce kernel reads the same count and skips its sweep.
-Hermite's force evaluation is at the *predicted* positions, so its gate
-tests predicted separations; the bounce sweep itself runs on the corrected
-state. The merge/resolve collision modes raise ``NotImplementedError``
-naming the ROADMAP item that ports them. RESPA has no single-step function
-(nor has the JAX package): ``engine.multirate.respa_rollout`` runs it.
+count. On CUDA the bounce kernel and the merge root search read the same
+count and skip their pair work. Hermite's force evaluation is at the
+*predicted* positions, so its gate tests predicted separations; the sweep
+itself runs on the corrected state. The resolve mode raises
+``NotImplementedError`` naming the ROADMAP item that ports it. RESPA has
+no single-step function (nor has the JAX package):
+``engine.multirate.respa_rollout`` runs it.
 """
 from __future__ import annotations
 
@@ -40,8 +41,8 @@ from ..utils.config import SimConfig
 from .dsfloat import ds_add
 from .state import NBodyState
 
-__all__ = ["make_step_fn", "resolve_bounce_fn", "block_plan", "ForceFn", "ForceDetectFn",
-           "AccelJerkFn", "AccelJerkDetectFn", "AccelJerkSubsetFn"]
+__all__ = ["make_step_fn", "resolve_bounce_fn", "resolve_roots_fn", "block_plan", "ForceFn",
+           "ForceDetectFn", "AccelJerkFn", "AccelJerkDetectFn", "AccelJerkSubsetFn"]
 
 # (pos, mass, alive) -> (acc, potential)
 ForceFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
@@ -59,11 +60,15 @@ AccelJerkDetectFn = Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor
 AccelJerkSubsetFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
 
 # ROADMAP.md queue A items that port what is left out
-_NOT_PORTED = {"merge": "A.7b", "resolve": "A.7b"}
+_NOT_PORTED = {"resolve": "A.7b"}
 
-# above this body count the dense [N, N] bounce sweep on CPU tensors gives
-# way to the row-blocked one (CUDA tensors take the kernel at every N)
+# above this body count the dense [N, N] bounce sweep and root search on CPU
+# tensors give way to the blocked ones (CUDA tensors take the kernels at
+# every N)
 _DENSE_BOUNCE_MAX_N = 4096
+# the merge root search's column block on CPU tensors above it, the JAX
+# stepper's
+_MERGE_CHUNK = 1024
 
 
 def _accumulate(hi, lo: Optional[torch.Tensor], *increments):
@@ -98,23 +103,61 @@ def resolve_bounce_fn(n: int, device: torch.device | str):
         coll.bounce_deltas_chunked(pos, vel, mass, radius, alive, restitution=restitution)
 
 
+def resolve_roots_fn(n: int, device: torch.device | str):
+    """The merge root search for a body count and device:
+    ``fn(pos, radius, alive, contacts) -> root``, the identity where a given
+    ``contacts`` count is 0. CUDA tensors take the kernel at every N, so
+    that the device-held count can skip it; CPU tensors take the dense
+    search at N <= 4096 and the column-blocked one above, as the JAX stepper
+    does."""
+    if torch.device(device).type == "cuda":
+        from ..ops import cuda_collisions
+
+        return lambda pos, radius, alive, contacts: cuda_collisions.collision_roots_cuda(
+            pos, radius, alive, contacts=contacts)
+
+    def roots(pos, radius, alive, contacts):
+        root = (coll.collision_roots(pos, radius, alive) if n <= _DENSE_BOUNCE_MAX_N else
+                coll.collision_roots_chunked(pos, radius, alive, chunk=min(_MERGE_CHUNK, n)))
+        if contacts is None:
+            return root
+        return torch.where(contacts > 0, root, torch.arange(n, device=pos.device))
+    return roots
+
+
 def _apply_collisions(cfg: SimConfig, state: NBodyState,
                       contacts: Optional[torch.Tensor] = None) -> NBodyState:
     """The bounce sweep on the hi words of the state, its deltas added with
-    :func:`_accumulate`; with a fused ``contacts`` count, gated on the
-    device by ``contacts > 0``."""
+    :func:`_accumulate`, or the merge of every contact chain into its root
+    (pos, vel, mass, radius and alive rewritten from the collapsed hi + lo
+    words, the lo words of every body dropped, as the JAX stepper drops
+    them); with a fused ``contacts`` count, gated on the device by
+    ``contacts > 0``."""
     if cfg.collisions == "none":
         return state
-    bounce = resolve_bounce_fn(state.n_bodies, state.device)
-    dpos, dvel = bounce(state.pos, state.vel, state.mass, state.radius, state.alive,
-                        cfg.restitution, contacts)
-    pos, pos_lo = _accumulate(state.pos, state.pos_lo, dpos)
-    vel, vel_lo = _accumulate(state.vel, state.vel_lo, dvel)
-    new = dict(pos=pos, pos_lo=pos_lo, vel=vel, vel_lo=vel_lo)
+    # at a count of 0 the merge's roots are the identity and its mass,
+    # radius and alive come back unchanged: only these fields need the gate
+    gated = ("pos", "pos_lo", "vel", "vel_lo")
+    if cfg.collisions == "merge":
+        pos = state.pos_full()
+        root = resolve_roots_fn(state.n_bodies, state.device)(pos, state.radius,
+                                                               state.alive, contacts)
+        pos, vel, mass, radius, alive = coll.merge_groups(
+            pos, state.vel_full(), state.mass, state.radius, state.alive, root=root)
+        zeros = None if state.pos_lo is None else torch.zeros_like(state.pos_lo)
+        new = dict(pos=pos, vel=vel, mass=mass, radius=radius, alive=alive,
+                   pos_lo=zeros, vel_lo=zeros)
+    else:
+        bounce = resolve_bounce_fn(state.n_bodies, state.device)
+        dpos, dvel = bounce(state.pos, state.vel, state.mass, state.radius, state.alive,
+                            cfg.restitution, contacts)
+        pos, pos_lo = _accumulate(state.pos, state.pos_lo, dpos)
+        vel, vel_lo = _accumulate(state.vel, state.vel_lo, dvel)
+        new = dict(pos=pos, pos_lo=pos_lo, vel=vel, vel_lo=vel_lo)
     if contacts is not None:
         hit = contacts > 0
-        new = {k: None if v is None else torch.where(hit, v, getattr(state, k))
-               for k, v in new.items()}
+        new.update({k: None if new[k] is None else torch.where(hit, new[k], getattr(state, k))
+                    for k in gated})
     return state.replace(**new)
 
 

@@ -24,15 +24,16 @@ Per macro window (K substeps):
      plain-KDK meaning.
 
 Bodies dropped by the (probed, counted) budgets move ballistically on the
-held total acceleration for that window. Bounce collisions are detected and
-resolved at macro boundaries, riding the closing exact evaluation.
+held total acceleration for that window. Bounce and merge collisions are
+detected and resolved at macro boundaries, riding the closing exact
+evaluation.
 
 This is the port of ``orbital_tpu/engine/multirate.py`` on one device: the
 JAX ``lax.scan`` loops are Python loops of eager steps that read nothing back
 to the host (the diagnostics stay 0-dim int32 tensors on the device), and
 the geometry refresh test is a Python int. Not ported: the mesh variant
 (``shard=``, and the sweep's ``i0`` hook), ROADMAP.md queue A item A.15; the
-merge and resolve collision modes, item A.7b.
+resolve collision mode, item A.7b.
 """
 from __future__ import annotations
 
@@ -118,7 +119,7 @@ def make_respa_macro(
         raise NotImplementedError(
             "make_respa_macro(shard=...): the mesh-sharded multirate stepper is not "
             f"ported to orbital_tpu_torch yet (ROADMAP.md queue A item {_SHARD_ITEM})")
-    if cfg.collisions in ("merge", "resolve"):
+    if cfg.collisions == "resolve":
         raise NotImplementedError(
             f"integrator='respa' with collisions={cfg.collisions!r} is not ported to "
             f"orbital_tpu_torch yet (ROADMAP.md queue A item {_COLLISION_ITEM})")

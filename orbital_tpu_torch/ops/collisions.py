@@ -18,8 +18,18 @@ differ by impulse ordering.
   * :func:`count_contacts_dense` / :func:`count_contacts_chunked` -- the
     directed touching-pair count that gates the sweep.
 
-Merge and resolve (``merge_groups``, ``collision_roots*``,
-``resolve_outcomes*``) are not ported yet: ROADMAP.md queue A item A.7b.
+And merge mode: overlapping bodies are grouped by pointer jumping to the
+lowest-index root of each contact chain and reduced into it.
+
+  * :func:`collision_roots` / :func:`collision_roots_chunked` -- the roots,
+    from the dense [N, N] touching matrix or from column blocks
+    (:func:`collision_parents_chunked`, the plain version of the CUDA root
+    search in ``csrc/collision_roots.cu``), then :func:`pointer_jump`.
+  * :func:`merge_groups` -- each chain's mass, momentum, mass-weighted
+    centre and summed R^3 into its root; the others dead and parked far.
+
+Resolve (``resolve_outcomes*``) is not ported yet: ROADMAP.md queue A item
+A.7b.
 """
 from __future__ import annotations
 
@@ -28,7 +38,9 @@ from typing import Optional
 import torch
 
 __all__ = ["bounce_deltas", "bounce_deltas_chunked", "count_contacts_dense",
-           "count_contacts_chunked", "restitution_clip"]
+           "count_contacts_chunked", "restitution_clip", "collision_roots",
+           "collision_roots_chunked", "collision_parents_chunked", "pointer_jump",
+           "merge_groups"]
 
 
 def restitution_clip(restitution: float) -> float:
@@ -182,3 +194,126 @@ def count_contacts_chunked(pos, radius, alive, *, chunk: int = 1024):
                                         alive[start:stop], ids[start:stop],
                                         pos, radius, alive, ids)
     return total
+
+
+def _touching(pos_i, radius_i, alive_i, pos_j, radius_j, alive_j):
+    """JAX's touching test (``_pair_geometry``) of rows i against columns j:
+    ``sqrt((dx dx + dy dy) + dz dz) <= R_i + R_j``, ``dist > 0``, both
+    alive, with dx = r_i - r_j."""
+    dx = pos_i[:, None, 0] - pos_j[None, :, 0]
+    dy = pos_i[:, None, 1] - pos_j[None, :, 1]
+    dz = pos_i[:, None, 2] - pos_j[None, :, 2]
+    dist = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    return ((dist <= radius_i[:, None] + radius_j[None, :]) & (dist > 0.0)
+            & alive_i[:, None] & alive_j[None, :])
+
+
+def pointer_jump(parent: torch.Tensor) -> torch.Tensor:
+    """Roots of monotone parents (``parent[j] <= j``): ceil(log2 N) rounds
+    of ``root = root[root]``, as the JAX module runs them."""
+    root = parent
+    for _ in range(max(1, int(parent.shape[0] - 1).bit_length())):
+        root = root[root]
+    return root
+
+
+def collision_roots(pos, radius, alive):
+    """Lowest-index root of each overlap chain: parent[j] = min{i < j :
+    touching(i, j)} (else j) over the dense [N, N] matrix, then
+    :func:`pointer_jump`."""
+    n = pos.shape[0]
+    idx = torch.arange(n, device=pos.device)
+    lower = _touching(pos, radius, alive, pos, radius, alive) & (idx[:, None] < idx[None, :])
+    parent = torch.where(lower, idx[:, None], n).amin(0)
+    return pointer_jump(torch.minimum(parent, idx))
+
+
+def _column_chunk(n: int, chunk: int) -> int:
+    """The JAX module's column block: ``min(chunk, n)`` halved until it
+    divides n."""
+    chunk = min(int(chunk), n)
+    while chunk > 1 and n % chunk:
+        chunk //= 2
+    return max(chunk, 1)
+
+
+def collision_parents_chunked(pos, radius, alive, *, chunk: int = 512):
+    """parent[j] = min(j, min{i < j : touching(i, j)}) by column blocks of
+    [N, chunk] (O(N chunk) memory): the plain version of the CUDA root
+    search."""
+    n = pos.shape[0]
+    chunk = _column_chunk(n, chunk)
+    ids = torch.arange(n, device=pos.device)
+    parts = []
+    for start in range(0, n, chunk):
+        cols = ids[start:start + chunk]
+        touching = _touching(pos, radius, alive, pos[start:start + chunk],
+                             radius[start:start + chunk], alive[start:start + chunk])
+        touching &= ids[:, None] < cols[None, :]
+        parts.append(torch.minimum(torch.where(touching, ids[:, None], n).amin(0), cols))
+    return torch.cat(parts) if parts else ids
+
+
+def collision_roots_chunked(pos, radius, alive, *, chunk: int = 512):
+    """Column-blocked :func:`collision_roots` (the JAX module's chunk rule)."""
+    return pointer_jump(collision_parents_chunked(pos, radius, alive, chunk=chunk))
+
+
+def merge_groups(pos, vel, mass, radius, alive, *, chunk=None,
+                 root: Optional[torch.Tensor] = None):
+    """Merge every overlap chain into its lowest-index member.
+
+    Conserves mass and momentum; the merged position is the mass-weighted
+    centre and the merged radius is volume-additive (reference:
+    core/physics.py:519-531). Non-root members become dead: alive False,
+    mass, velocity and radius 0, parked at far (1 + 1e-3 idx, 1, 1) with
+    far = 1e8 (1 + max live |pos|), capped at 1e17 in float32 (out of reach
+    of any live radius, mutually non-coincident). Returns (pos, vel, mass,
+    radius, alive).
+
+    ``root`` is each body's chain root (e.g. the CUDA root search's); when
+    None it is computed dense, or by column blocks with ``chunk``, as the JAX
+    module does. Each group is summed in member-index order (a stable sort
+    on the root, then one sequential sum a segment), never by atomics, so a
+    merge is the same from run to run on every device."""
+    n, dev = pos.shape[0], pos.device
+    if root is None:
+        root = (collision_roots_chunked(pos, radius, alive, chunk=min(int(chunk), n))
+                if chunk else collision_roots(pos, radius, alive))
+    idx = torch.arange(n, device=dev)
+    is_root = root == idx
+
+    # segment sums over the roots 0..n-1 in member order: m, m v, m r, R^3,
+    # live count (exact in the float type for any n below 2^24)
+    vals = torch.cat([mass[:, None], mass[:, None] * vel, mass[:, None] * pos,
+                      (radius ** 3)[:, None], alive.to(pos.dtype)[:, None]], dim=1)
+    order = torch.argsort(root, stable=True)
+    offsets = torch.searchsorted(root[order], torch.arange(n + 1, device=dev))
+    seg = torch.segment_reduce(vals[order], "sum", offsets=offsets, axis=0, initial=0.0)
+    m_seg, p_seg, mr_seg, r3_seg, size_seg = (seg[:, 0], seg[:, 1:4], seg[:, 4:7],
+                                              seg[:, 7], seg[:, 8])
+
+    # only members of a multi-body chain change; the rest (massless tracers
+    # included) pass through untouched
+    changed = size_seg[root] > 1
+    absorbed = changed & ~is_root
+    merged_root = changed & is_root
+    safe_m = torch.where(m_seg > 0.0, m_seg, 1.0)[:, None]
+    zero = torch.zeros((), dtype=pos.dtype, device=dev)
+    new_mass = torch.where(merged_root, m_seg, torch.where(absorbed, zero, mass))
+    new_vel = torch.where(merged_root[:, None], p_seg / safe_m,
+                          torch.where(absorbed[:, None], zero, vel))
+    # absorbed bodies park far off the live scene (index-spaced so that no
+    # two coincide, even in float32)
+    live_mag = torch.max(torch.abs(pos) * alive[:, None].to(pos.dtype))
+    far = 1e8 * (1.0 + live_mag)
+    if pos.dtype == torch.float32:
+        far = torch.clamp(far, max=1e17)  # keep far^2 finite in float32
+    ones = torch.ones((n,), dtype=pos.dtype, device=dev)
+    far_pos = torch.stack([far * (1.0 + 1e-3 * idx.to(pos.dtype)), ones * far, ones * far],
+                          dim=-1)
+    new_pos = torch.where(merged_root[:, None], mr_seg / safe_m,
+                          torch.where(absorbed[:, None], far_pos, pos))
+    new_radius = torch.where(merged_root, torch.pow(r3_seg, 1.0 / 3.0),
+                             torch.where(absorbed, zero, radius))
+    return new_pos, new_vel, new_mass, new_radius, alive & ~absorbed

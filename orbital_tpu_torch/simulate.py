@@ -5,12 +5,11 @@ the rollout and the unit conversion back to physical units behind a single
 function. Ported so far: the exact-force kdk, euler, rk4, yoshida4 and
 Hermite steppers (Hermite with fixed or adaptive dt and block timesteps)
 and the multirate (RESPA) stepper on one device, with or without bounce
-collisions, the exact-force variants (``force_impl="pallas_sym"``,
+or merge collisions, the exact-force variants (``force_impl="pallas_sym"``,
 ``"mxu"``, ``"pallas_mxu"``), the tree force solver (``force_impl="tree"``)
 with its ``"kernel"`` near field, and the mesh solvers (``force_impl="pm"``
-and ``"p3m"``) on an auto-pinned cube; the merge and resolve collision modes
-and the tree's other near modes raise ``NotImplementedError`` (ROADMAP.md
-queue A).
+and ``"p3m"``) on an auto-pinned cube; the resolve collision mode and the
+tree's other near modes raise ``NotImplementedError`` (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -219,7 +218,9 @@ def simulate(
     ``"ds32"`` on CUDA. ``record_every`` defaults to ~100 evenly spaced
     records. ``softening`` and ``dt`` are in scene units.
     ``collisions="bounce"`` bounces touching spheres (``scene.radius``)
-    with coefficient of restitution ``restitution``.
+    with coefficient of restitution ``restitution``; ``collisions="merge"``
+    merges every chain of touching spheres into its lowest-index member
+    (mass and momentum conserved, volumes added), the others recorded dead.
     ``integrator="hermite"`` takes ``adaptive_eta`` (Aarseth steps clipped
     to [dt_min, dt]; ``dt_min`` in scene units) and the block-timestep knobs
     ``hermite_fast_cap``, ``hermite_max_substeps`` and ``hermite_rungs``

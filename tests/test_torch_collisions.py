@@ -20,6 +20,7 @@ N = 256 as tests/test_pallas_forces.py runs them. Tolerances:
     the angular momentum, 4.2e-7 on the velocities).
 """
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -41,6 +42,11 @@ from orbital_tpu_torch.engine import rollout as R
 from orbital_tpu_torch.models.scene import SceneArrays as TScene
 from orbital_tpu_torch.ops import collisions as tcoll
 from orbital_tpu_torch.ops import cuda_collisions, cuda_forces
+
+# pytest-xdist workers share the cores: one full set of torch's spinning
+# OpenMP threads a worker made the suite ~25x slower than a worker's share
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 F32_RTOL = 1e-5
 

@@ -6,6 +6,8 @@ agree bit for bit. Jitted XLA:CPU may contract ``a*b + c`` into a fused
 multiply-add, so parity against jitted JAX code is held to a tolerance in
 the rollout tests instead.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +15,11 @@ import torch
 
 from orbital_tpu.engine import dsfloat as jds
 from orbital_tpu_torch.engine import dsfloat as tds
+
+# pytest-xdist workers share the cores: one full set of torch's spinning
+# OpenMP threads a worker made the suite ~25x slower than a worker's share
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def _pair(rng, n=4096, scale=1e-6):

@@ -7,6 +7,8 @@ reduction order: the two sides sum the same terms in different orders
 wide margin while still catching any wrong term. f64 paths agree to
 rtol 1e-12.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,11 @@ from orbital_tpu_torch.ops import diagnostics as tdiag
 from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_cuda, pairwise_acc_plain
 from orbital_tpu_torch.ops.forces import pairwise_acc_chunked, pairwise_acc_dense
 from orbital_tpu_torch.utils import native as tnative
+
+# pytest-xdist workers share the cores: one full set of torch's spinning
+# OpenMP threads a worker made the suite ~25x slower than a worker's share
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 F32_RTOL = 1e-5
 

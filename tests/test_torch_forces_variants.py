@@ -30,6 +30,7 @@ Inputs come from a numpy seed. Tolerances:
     f32 rounding in ds32 (in either force path) and the runs part by 2%.
 """
 import dataclasses
+import os
 import re
 from pathlib import Path
 
@@ -49,6 +50,11 @@ from orbital_tpu_torch.engine import rollout as R
 from orbital_tpu_torch.models.scene import SceneArrays as TScene
 from orbital_tpu_torch.ops import cuda_forces, cuda_forces_mxu, cuda_forces_sym, cuda_jerk
 from orbital_tpu_torch.ops import mxu_forces
+
+# pytest-xdist workers share the cores: one full set of torch's spinning
+# OpenMP threads a worker made the suite ~25x slower than a worker's share
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 F32_RTOL = 1e-5
 GRAM_RTOL = 5e-4

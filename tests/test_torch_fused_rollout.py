@@ -9,6 +9,7 @@ velocities are held to atol 1e-6 after 10 steps: the tolerance the JAX
 package holds its own fused kernel to against its stepper.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -19,6 +20,11 @@ import orbital_tpu_torch as tot
 from orbital_tpu.ops.fused_rollout import fused_rollout as j_fused
 from orbital_tpu_torch.ops.fused_rollout import (FUSED_MAX_N, fused_rollout,
                                                  fused_rollout_plain, launch_plan)
+
+# pytest-xdist workers share the cores: one full set of torch's spinning
+# OpenMP threads a worker made the suite ~25x slower than a worker's share
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 ATOL = 1e-6
 TILES = dict(tile_i=64, tile_j=128)

@@ -20,6 +20,7 @@ tile_j=128 at N = 256, as tests/test_pallas_forces.py runs it. Tolerances:
     5.0e-7 on the binary's velocities, f32 forces).
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +44,11 @@ from orbital_tpu_torch.models.scene import SceneArrays as TScene
 from orbital_tpu_torch.ops import collisions as tcoll
 from orbital_tpu_torch.ops import cuda_jerk
 from orbital_tpu_torch.ops import forces as tforces
+
+# pytest-xdist workers share the cores: one full set of torch's spinning
+# OpenMP threads a worker made the suite ~25x slower than a worker's share
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 F32_RTOL = 1e-5
 JERK_F32_RTOL = 1e-5

@@ -23,6 +23,7 @@ JAX package's uniform box (tests/test_p3m.py: N = 2,048 in [-1, 1]^3, grid
 """
 import dataclasses
 import math
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +41,11 @@ from orbital_tpu_torch.models.scene import SceneArrays
 from orbital_tpu_torch.ops import cuda_p3m
 from orbital_tpu_torch.ops import p3m as tp3m
 from orbital_tpu_torch.ops import pm as tpm
+
+# pytest-xdist workers share the cores: one full set of torch's spinning
+# OpenMP threads a worker made the suite ~25x slower than a worker's share
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 ACC_RTOL, U_RTOL = 2e-5, 1e-6
 BOX = (np.array([0.1, -0.1, 0.0], np.float32), np.float32(1.5))
@@ -287,3 +293,247 @@ def test_short_range_routing(monkeypatch):
         inner(t, torch.zeros((9, 4, 3), device="meta"), torch.zeros((9, 4), device="meta"),
               count=torch.zeros(8, device="meta"), gc=2, n=5, G=1.0, sigma=0.1, rcut2=0.2,
               eps2=1e-4)
+    # the reorder kernel's wrapper: the plain version on CPU tensors, else
+    # the kernel or a refusal
+    tab = tp3m.p3m_cell_table(*_t(pos, mass), torch.ones(256, dtype=torch.bool),
+                              *_t(*BOX), gc=2, capacity=96)
+    args = (tab["table"], tab["cell_pos"], tab["cell_m"], tab["count"], 2)
+    got, want = cuda_p3m.p3m_short_order_cuda(*args), cuda_p3m.p3m_short_order(*args)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert cuda_p3m.p3m_short_order_cuda.launches == 0
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        cuda_p3m.p3m_short_order_cuda(t, torch.zeros((9, 4, 3), device="meta"),
+                                      torch.zeros((9, 4), device="meta"),
+                                      torch.zeros(8, device="meta"), 2)
+
+
+# --- the redesigned short-range kernel's visiting rule and arithmetic
+# (csrc/p3m_short.cu), mirrored on the CPU ---
+
+def _kernel_constants():
+    """kSMax and the polynomial coefficients kF and kG, read from the
+    kernel's source."""
+    import re
+    from pathlib import Path
+
+    src = (Path(cuda_p3m.__file__).parent.parent / "csrc" / "p3m_short.cu").read_text()
+    smax = float(re.search(r"kSMax = ([0-9.e+-]+)f;", src).group(1))
+    coef = {k: [float(x) for x in re.findall(r"([-0-9.e+]+)f", re.search(
+        rf"__constant__ float {k}\[\d+\] = \{{(.*?)\}};", src, re.S).group(1))]
+        for k in ("kF", "kG")}
+    return smax, coef["kF"], coef["kG"]
+
+
+def _kernel_factors(r2, sigma, eps2):
+    """The kernel's g and K in float32: Fl and Gl as polynomials in
+    u = min(a^2 r^2, kSMax) 2 / kSMax - 1 (Horner), g = 1/s^3 - a^3 Gl,
+    K = 1/s - a Fl."""
+    smax, kf, kg = _kernel_constants()
+    f32 = torch.float32
+    alpha = (1.0 / (2.0 * torch.as_tensor(sigma, dtype=f32))).to(f32)
+    u = torch.clamp(alpha * alpha * r2.to(f32), max=smax) * np.float32(2.0 / smax) - 1.0
+    F = torch.full_like(u, kf[-1])
+    for c in reversed(kf[:-1]):
+        F = F * u + c
+    Gl = torch.full_like(u, kg[-1])
+    for c in reversed(kg[:-1]):
+        Gl = Gl * u + c
+    inv_s = torch.rsqrt(r2.to(f32) + np.float32(eps2))
+    g = inv_s * inv_s * inv_s - (alpha * alpha * alpha) * Gl
+    return g.to(r2.dtype), (inv_s - alpha * F).to(r2.dtype)
+
+
+def _short_tables():
+    """The P3M bench row's geometry at 4,096 bodies (uniform in [-4, 4]^3,
+    grid 64, box (0, 0, 0, 6), chip_smoke.py's capacity rule) and the ragged
+    scene (a third dead, grid 32, cube fitted): (name, table, gc, sigma,
+    rcut2, n) with sigma and rcut2 rounded in float32 as the solver does."""
+    rng = np.random.default_rng(11)
+    bench = (rng.uniform(-4, 4, (4096, 3)).astype(np.float32),
+             np.full(4096, 1.0 / 4096, np.float32), None)
+    out = []
+    for name, (pos, mass, alive), g, box in (
+            ("bench", bench, 64, (np.zeros(3, np.float32), np.float32(6.0))),
+            ("ragged", _uniform(1500, 8, dead=True), 32, None)):
+        p, m = _t(pos, mass)
+        a = torch.ones(len(m), dtype=torch.bool) if alive is None else torch.as_tensor(alive)
+        if box is None:
+            c, half = tpm._bounding_cube(p, a.float(), g)
+        else:
+            c, half = _t(*box)
+        gc = tp3m._cell_grid(g, 1.5, 4.5)
+        occ = tp3m.p3m_max_occupancy(p, a, grid=g, box=None if box is None else (c, half))
+        tab = tp3m.p3m_cell_table(p, m * a, a, c, half, gc=gc,
+                                  capacity=max(32, -(-int(occ * 1.5) // 8) * 8))
+        sigma = 1.5 * (2.0 * half / g)
+        out.append((name, tab, gc, float(sigma), float((4.5 * sigma) ** 2), len(mass)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def short_tables():
+    return _short_tables()
+
+
+def test_short_order_permutes_within_each_prefix(short_tables):
+    """The kernel's reorder permutes each cell's kept prefix only: the
+    table's bodies, counts, positions and masses are unchanged as multisets;
+    run_off cuts the prefix into 8 ascending runs whose boxes hold their
+    rows; the cell table itself is untouched."""
+    for name, tab, gc, *_ in short_tables:
+        before = {k: v.clone() for k, v in tab.items()}
+        o = cuda_p3m.p3m_short_order(tab["table"], tab["cell_pos"], tab["cell_m"],
+                                     tab["count"], gc)
+        gc3, cap = gc ** 3, tab["table"].shape[1]
+        cnt = tab["count"].long()
+        k = torch.arange(cap)
+        inside = k[None] < cnt[:, None]
+        perm = o["perm"]
+        assert torch.equal(torch.sort(torch.where(inside, perm, cap), 1).values,
+                           torch.where(inside, k, cap).expand(gc3, -1))
+        assert torch.equal(perm[~inside], k.expand(gc3, -1)[~inside])
+        assert torch.equal(o["table"], torch.gather(tab["table"][:gc3], 1, perm))
+        rows = torch.cat([tab["cell_pos"][:gc3], tab["cell_m"][:gc3, :, None]], -1)
+        assert torch.equal(o["rows"], torch.gather(rows, 1, perm[..., None].expand(-1, -1, 4)))
+        off = o["run_off"].long()
+        assert off.dtype == torch.long and torch.equal(off[:, -1], cnt)
+        assert bool((off[:, 1:] >= off[:, :-1]).all()) and bool((off[:, 0] == 0).all())
+        for c in torch.nonzero(cnt).flatten().tolist()[:200]:
+            for r in range(8):
+                p = o["rows"][c, off[c, r]:off[c, r + 1], :3]
+                if len(p):
+                    assert bool((p >= o["run_box"][c, r, :3]).all())
+                    assert bool((p <= o["run_box"][c, r, 3:]).all())
+        for key, v in before.items():
+            assert torch.equal(tab[key], v), (name, key)
+
+
+def _slice_pairs(tab, gc, rcut2):
+    """Every (slice row i, neighbour kept row j) pair of the reordered
+    table: f32 r^2 in two summation orders, j within reach of the slice's
+    box (``in_box``), j's run within reach of it, self pairs, and each
+    neighbour's run offsets and which of its runs are within reach."""
+    import chip_smoke
+
+    o = cuda_p3m.p3m_short_order(tab["table"], tab["cell_pos"], tab["cell_m"], tab["count"],
+                                 gc)
+    sl = chip_smoke.p3m_slices(o, gc, rcut2)
+    gc3, cap = gc ** 3, tab["table"].shape[1]
+    nb = tp3m._neighbour_cells(sl["cell"], gc)                         # [S, 27]
+    ok = nb < gc3
+    ids = torch.where(ok, nb, 0)
+    cnt = tab["count"].long()
+    k = torch.arange(cap)
+    live_j = ok[..., None] & (k < cnt[ids][..., None])                 # [S, 27, M]
+    ki = sl["s0"][:, None] + torch.arange(32)
+    live_i = ki < cnt[sl["cell"], None]                                 # [S, 32]
+    pi = o["rows"][sl["cell"][:, None], ki.clamp(max=cap - 1), :3]      # [S, 32, 3]
+    pj = o["rows"][ids][..., :3]                                        # [S, 27, M, 3]
+    d = pj[:, None] - pi[:, :, None, None]                              # [S, 32, 27, M, 3]
+    r2a = (d * d).sum(-1)
+    r2b = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    lo, hi = sl["lo"][:, None, None], sl["hi"][:, None, None]
+    in_box = (chip_smoke.p3m_within_reach(lo, hi, sl["reach2"], pj.double(), pj.double())
+              & live_j)
+    octant = torch.searchsorted(o["run_off"][:, 1:].long().contiguous(),
+                                k.expand(gc3, -1).contiguous(), right=True)[ids]
+    b = o["run_box"][ids].double()
+    meets = chip_smoke.p3m_within_reach(lo, hi, sl["reach2"], b[..., :3], b[..., 3:])
+    staged = live_j & torch.gather(meets, 2, octant.clamp(max=7))
+    self_pair = (ids[:, None, :, None] == sl["cell"][:, None, None, None]) & (
+        k[None, None, None, :] == ki[:, :, None, None])
+    off = torch.where(ok[..., None], o["run_off"][ids].long(), 0)
+    meets &= ok[..., None] & (off[..., 1:] > off[..., :-1])
+    return dict(sl=sl, live_i=live_i, live_j=live_j, r2a=r2a, r2b=r2b, in_box=in_box,
+                staged=staged, self_pair=self_pair, pj=pj, pi=pi, meets=meets, off=off)
+
+
+def test_short_box_rule_keeps_every_pair(short_tables):
+    """The kernel visits a slice's rows against the rows within reach of its
+    box (squared distance to the box, rounded down, below p3m_short_reach2)
+    of the neighbour runs whose box is within reach. Every pair with an f32
+    r^2 < rcut^2, in either summation order, is among them, on the bench
+    geometry and the ragged scene."""
+    for name, tab, gc, sigma, rcut2, n in short_tables:
+        t = _slice_pairs(tab, gc, rcut2)
+        pair = t["live_i"][:, :, None, None] & t["live_j"][:, None] & ~t["self_pair"]
+        need = pair & ((t["r2a"] < rcut2) | (t["r2b"] < rcut2))
+        visit = pair & (t["in_box"] & t["staged"])[:, None]
+        assert int(need.sum()) > 0 and not bool((need & ~visit).any()), name
+        assert bool((t["in_box"] <= t["staged"]).all())
+        assert int(visit.sum()) < int(pair.sum())
+
+
+def test_short_work_counts_equal_brute_force(short_tables):
+    """chip_smoke.p3m_short_work's staged, visited, issued and needed pairs
+    equal a pair-by-pair count; the lane slots by stepping each warp's
+    buffer as the kernel does (8 warps): runs w, w + 8, ... in order, 32
+    rows a round, a sweep of the largest multiple of G rows once it holds
+    64, the rest at the end."""
+    import chip_smoke
+
+    for name, tab, gc, sigma, rcut2, n in short_tables:
+        t = _slice_pairs(tab, gc, rcut2)
+        rows = t["live_i"].sum(1).tolist()
+        in_box, meets, off = t["in_box"].tolist(), t["meets"].tolist(), t["off"].tolist()
+        issued = 0
+        for s in range(len(rows)):
+            G = 32 >> int(math.ceil(math.log2(max(rows[s], 1))))
+            for w in range(8):
+                fill = it = 0
+                for r in range(w, 27 * 8, 8):
+                    nbr, octn = divmod(r, 8)
+                    if not meets[s][nbr][octn]:
+                        continue
+                    flags = in_box[s][nbr][off[s][nbr][octn]:off[s][nbr][octn + 1]]
+                    for f0 in range(0, len(flags), 32):
+                        fill += sum(flags[f0:f0 + 32])
+                        if fill >= 64:
+                            it += fill // G
+                            fill %= G
+                it += -(-fill // G)
+                issued += 32 * it
+        pair = t["live_i"][:, :, None, None] & t["live_j"][:, None] & ~t["self_pair"]
+        d64 = t["pj"].double()[:, None] - t["pi"].double()[:, :, None, None]
+        rows_t = t["live_i"].sum(1)
+        want = dict(staged=int((rows_t * t["staged"].sum((1, 2))).sum()),
+                    visited=int((rows_t * t["in_box"].sum((1, 2))).sum()),
+                    needed=int((pair & ((d64 ** 2).sum(-1) < rcut2)).sum()), issued=issued)
+        work = chip_smoke.p3m_short_work(tab, gc, n, rcut2)
+        assert {k: work[k] for k in want} == want, name
+        assert work["needed"] < work["visited"] <= work["staged"] <= work["walked"]
+        assert work["visited"] <= work["issued"]
+
+
+def test_kernel_factors_hold_the_short_range_gate(short_tables, monkeypatch):
+    """The kernel's polynomial g and K (a mirror in float32, coefficients
+    read from the source) summed over the cell table sit within SHORT_RTOL
+    = 1e-5 (chip_smoke.py's gate for the kernel) of the plain f32 sum and
+    of the f64 sum, on both scenes; pointwise the polynomials hold erf(x)/x
+    and the long-range part within 4 and 6 ulps on [0, kSMax]."""
+    import mpmath
+
+    smax, _, _ = _kernel_constants()
+    s = torch.linspace(0.0, smax, 401, dtype=torch.float64)
+    sigma = 0.5  # a = 1: the factors' long-range parts are Fl and Gl
+    g, K = _kernel_factors(s.float(), sigma, 1e30)
+    x = [mpmath.sqrt(v) for v in s.tolist()]
+    fl = torch.tensor([float(mpmath.erf(v) / v) if v else 2 / math.sqrt(math.pi) for v in x],
+                      dtype=torch.float64)
+    c = 2 / mpmath.sqrt(mpmath.pi)
+    gl = torch.tensor([float((mpmath.erf(v) - c * v * mpmath.exp(-v * v)) / v ** 3)
+                       if v else 4 / (3 * math.sqrt(math.pi)) for v in x], dtype=torch.float64)
+    # eps2 = 1e30 leaves 1/s ~ 1e-15: K = -Fl and g = -Gl to f32 rounding
+    assert float(((-K.double() - fl) / fl).abs().max()) < 4 * 2.0 ** -24
+    assert float(((-g.double() - gl) / gl).abs().max()) < 6 * 2.0 ** -24
+    for name, tab, gc, sigma, rcut2, n in short_tables:
+        kw = dict(gc=gc, n=n, G=1.0, sigma=sigma, rcut2=rcut2, eps2=1e-4)
+        args = (tab["table"], tab["cell_pos"], tab["cell_m"])
+        a0, p0 = tp3m.p3m_short_plain(*args, **kw)
+        a64, p64 = tp3m.p3m_short_plain(tab["table"], tab["cell_pos"].double(),
+                                        tab["cell_m"].double(), **kw)
+        with monkeypatch.context() as mp:
+            mp.setattr(tp3m, "_short_factors", _kernel_factors)
+            a, p = tp3m.p3m_short_plain(*args, **kw)
+        for ref_a, ref_p in ((a0, p0), (a64, p64)):
+            assert _rel(a, ref_a) < 1e-5 and _rel(p, ref_p) < 1e-5, name

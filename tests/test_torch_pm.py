@@ -23,6 +23,7 @@ grid 32 and 64. Tolerances, measured on this comparison and stated with why:
     potential).
 """
 import dataclasses
+import os
 import warnings
 
 import jax.numpy as jnp
@@ -41,6 +42,11 @@ from orbital_tpu_torch.engine import multirate as tmr
 from orbital_tpu_torch.engine import rollout as R
 from orbital_tpu_torch.models.scene import SceneArrays
 from orbital_tpu_torch.ops import pm as tpm
+
+# pytest-xdist workers share the cores: one full set of torch's spinning
+# OpenMP threads a worker made the suite ~25x slower than a worker's share
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 EPS2 = 0.09
 BOX = (np.zeros(3, np.float32), np.float32(4.0))

@@ -21,6 +21,7 @@ mode at N = 96 to keep their grids small. Tolerances:
     state far less than 1e-7.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +44,11 @@ from orbital_tpu_torch.ops import cuda_neighbor as cn
 from orbital_tpu_torch.ops import neighbor as tn
 from orbital_tpu_torch.ops.tree import _pairs_geometry as t_pairs_geometry
 from orbital_tpu_torch.ops.tree_near_wl import _wl_runs as t_wl_runs
+
+# pytest-xdist workers share the cores: one full set of torch's spinning
+# OpenMP threads a worker made the suite ~25x slower than a worker's share
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 CHUNK, RJ = 8, 16
 SWEEP = dict(r1=0.15, rc=0.3, G=2.0, eps2=1e-4, chunk=CHUNK, rj=RJ)
@@ -471,9 +477,9 @@ def test_unported_respa_paths_raise():
     with pytest.raises(NotImplementedError, match="A.15"):
         tn.near_acc_slots(z, z, z, z, torch.zeros((16, 4), dtype=torch.int32),
                           i0=torch.tensor(0), **SWEEP)
-    for mode in ("merge", "resolve"):
-        with pytest.raises(NotImplementedError, match="A.7b"):
-            tmr.make_respa_macro(cfg.replace(collisions=mode), None)
+    with pytest.raises(NotImplementedError, match="A.7b"):
+        tmr.make_respa_macro(cfg.replace(collisions="resolve"), None)
+    assert callable(tmr.make_respa_macro(cfg.replace(collisions="merge"), None).build_geom)
     with pytest.raises(ValueError, match="respa_rollout"):
         I.make_step_fn(cfg)
     st = tot.make_state(*_cluster(16, 1), device="cpu")

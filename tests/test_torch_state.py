@@ -1,5 +1,6 @@
 """State construction of the PyTorch port against the JAX package's."""
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -7,6 +8,11 @@ import torch
 
 from orbital_tpu.engine import state as jst
 from orbital_tpu_torch.engine import state as tst
+
+# pytest-xdist workers share the cores: one full set of torch's spinning
+# OpenMP threads a worker made the suite ~25x slower than a worker's share
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 FIELDS = [f.name for f in dataclasses.fields(jst.NBodyState)]
 

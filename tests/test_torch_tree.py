@@ -27,6 +27,7 @@ three JAX programs serve every evaluation test. Tolerances:
     the recorded energies rel 1e-5 (the f32 tree potential).
 """
 import dataclasses
+import os
 import sys
 
 import jax
@@ -44,6 +45,11 @@ from orbital_tpu_torch.models.scene import SceneArrays
 from orbital_tpu_torch.ops import cuda_tree
 from orbital_tpu_torch.ops import tree as tt
 from orbital_tpu_torch.ops import tree_near_wl as tw
+
+# pytest-xdist workers share the cores: one full set of torch's spinning
+# OpenMP threads a worker made the suite ~25x slower than a worker's share
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 CHUNK, RJ = 32, 4
 F32 = torch.float32

@@ -20,11 +20,13 @@ max |vel| (positions equal, velocities 1.1e-9: an f32 ulp) and energies rel
 1e-6 (8.5e-8).
 """
 import dataclasses
+import os
 import sys
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import orbital_tpu as jot
 import orbital_tpu_torch as tot
@@ -32,6 +34,11 @@ from orbital_tpu.engine import rollout as jroll
 from orbital_tpu.engine.integrators import make_step_fn
 from orbital_tpu.models.scene import SceneArrays as JScene
 from orbital_tpu_torch.models.scene import SceneArrays as TScene
+
+# pytest-xdist workers share the cores: one full set of torch's spinning
+# OpenMP threads a worker made the suite ~25x slower than a worker's share
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def _stepwise_rollout(state, cfg, steps, record_every):
