@@ -7,11 +7,13 @@
 With ``--parent DIR`` (a checkout of another commit, e.g. unpacked by
 ``git archive``) it runs phases 1-2 and then only holds B1, B2, B3 (on
 coinciding tables), B5, B5 detect, the B5 row subset, B13, B6, B12, B7, the
-near sweep, B4 and the P3M short range of this tree against those built from
-DIR's ``csrc/nbody_forces.cu``,
+near sweep, B4, the P3M short range and the merge root search of this tree
+against those built from DIR's ``csrc/nbody_forces.cu``,
 ``nbody_jerk.cu``, ``nbody_forces_mxu.cu``, ``collisions.cu``,
 ``nbody_forces_sym.cu``, ``tree_near.cu``, ``neighbor.cu``,
-``fused_rollout.cu`` and ``p3m_short.cu`` (the P3M bench row's table within
+``fused_rollout.cu``, ``p3m_short.cu`` and ``collision_roots.cu`` (the root
+search's parents integer-equal, gated and ungated, at the contact-rich
+radius; the P3M bench row's table within
 SHORT_RTOL; N = 65,536, 7 dead, eps2 1e-4 and 0, PE on and off; B7
 on the tree tables of ``Smoke.tree_calls``, the near sweep on the RESPA
 geometries of ``Smoke.near_calls``, B4 on FUSED_CASES) within FORCE_RTOL,
@@ -20,10 +22,11 @@ B6 within BOUNCE_RTOL with the gated B6 bit-equal to the ungated, B7 and
 the near sweep within NEAR_RTOL (B7 with equal overflow), B4 within
 STATE_ATOL, says whether each is bit-equal, and times both trees' kernels
 in turns (B7 at 65,536 and 1,048,576 bodies, B4 at 4,096 and 32,768 in
-ds32 and f32), and the block macro step on each tree's row subset (its
-time and the host's time to queue it). A source whose C signature predates
-its redesign (the near sweep's, B4's, the row subset's and the P3M short
-range's first versions) runs through ``FIRST_SIGNATURES``. With
+ds32 and f32, the root search at a count > 0 and at 0), and the block macro
+step on each tree's row subset (its time and the host's time to queue it).
+A source whose C signature predates its redesign (the near sweep's, B4's,
+the row subset's and the P3M short range's first versions) runs through
+``FIRST_SIGNATURES``. With
 ``--sweep`` it runs phases 1-2 and then builds the launch shapes of
 ``SWEEP`` (``-D`` overrides of the eight sources' shape macros), holds each
 against the plain versions and times them in turns, with the registers,
@@ -38,8 +41,11 @@ Phases, one line of output each; any failure exits nonzero:
      detect, B13 (with the TF32 HMMA of its inner loop, which must be
      there), B6, B12, B7 and the near sweep, the shape, registers and spills
      of the B5 row subset, the P3M short range (with the SASS instructions a
-     visited pair of its polynomial sweep) and the merge root search (no
-     spill anywhere), and the issue floor they imply
+     visited pair of its polynomial sweep) and the contact sweep's two modes,
+     the merge root search and resolve's contact mark (with the SASS
+     instructions a pair of their prefilter loop, one FSETP a pair, whose
+     instructions go to standard error; no spill anywhere), and the issue
+     floor they imply
      at 528 warp instructions a clock and 1.98 GHz (B7's and the near
      sweep's from their visited pairs, in phases 24 and 20);
   3. the force kernel (B1) against its plain PyTorch version at N = 65536
@@ -179,12 +185,14 @@ Phases, one line of output each; any failure exits nonzero:
      sum's issue floor and the wrapper's device time (the B5 subset and the
      block macro step are phase 17's, and ``--parent``'s in turns with their
      host time);
- 34. the merge root search (``csrc/collision_roots.cu``): its parents, gated
-     on the detecting sweep's count and ungated, and its roots integer-equal
-     to the plain column-blocked search on the 65,536-body cluster at the
-     contact-rich radius (count > 0) and the bench row's (count 0: the
-     identity) and at a ragged 5,000 with a third dead; timed at both counts
-     beside its bound;
+ 34. the contact sweep (``csrc/collision_roots.cu``): the merge root
+     search's parents, gated on the detecting sweep's count and ungated, and
+     its roots integer-equal to the plain column-blocked search, and
+     resolve's contact mark integer-equal to the plain row blocks, gated and
+     ungated, on the 65,536-body cluster at the contact-rich radius (count >
+     0) and the bench row's (count 0: the identity, no marks) and at a
+     ragged 5,000 with a third dead; both timed at both counts beside their
+     bounds and issue floors;
  35. the merge main path, bench row: the cluster with radius 1e-4 and
      ``collisions="merge"`` through ``init_forces`` -> a recorded and an
      unrecorded ``rollout``, bit-equal to the collision-free run up to the
@@ -198,10 +206,28 @@ Phases, one line of output each; any failure exits nonzero:
      rebuilt every window) through ``simulate`` at the contact-rich radius,
      twice each, with phase 36's checks, and RESPA's counters from
      ``respa_rollout`` (its ``overflow`` counts the bodies dead at a
-     window's start, as the JAX stepper's does, so ``simulate`` warns).
+     window's start, as the JAX stepper's does, so ``simulate`` warns);
+ 38. the resolve main path, bench row (``bench.py:200-206``): the cluster
+     with radius 1e-4, ``collisions="resolve"``, frag_seed 11, debris_k 2,
+     through ``init_forces`` -> a recorded and an unrecorded ``rollout``,
+     bit-equal to the collision-free run up to the first contact, the mark
+     kernel once a step, ms/step armed against unarmed;
+ 39. resolve, contact-rich: the cluster at radius 3e-3 with every
+     RESOLVE_HEAVY_EVERY-th body RESOLVE_HEAVY_MASS times heavier
+     (absorbers) and RESOLVE_PAIRS planted pairs that meet at E_coll =
+     E_thresh (p = 1/2), with spare dead slots for debris, through
+     ``simulate()`` (KDK), Hermite and RESPA K = 4, twice each: the two runs
+     bit-equal; absorptions, fragmentations and debris counted per round
+     (``ResolveLog``), at least one of each; the dead massless, without
+     radius and parked beyond every live body's reach; mass conserved where
+     every fragmentation spawned debris, and otherwise lost by exactly the
+     fragments without debris;
+ 40. the fragmentation frequency on the card: FRAG_PAIRS pairs at E_coll =
+     E_thresh through ``_apply_collisions`` over FRAG_ROUNDS steps (fresh
+     draws each), within 4 binomial sigmas of 1/2.
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
-10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36 and 37) and read just after it:
+10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38 and 39) and read just after it:
 each kernel must have run on its path. B3 has no single-card path (the multi-device ring
 launches it): phase 27 checks it, and its record's launches are its count
 over phase 28's three main paths, which must be 0. The
@@ -464,6 +490,23 @@ OPS_SHORT, MUFU_SHORT = 50, 3
 OPS_ROOTS = 10
 MERGE_STEPS, MERGE_HERMITE_STEPS, MERGE_RESPA_WINDOWS = 200, 40, 5
 MERGE_MASS_RTOL, MERGE_P_RTOL = 1e-9, 1e-9
+# the resolve runs (phases 38-40): the bench row's frag_seed and debris_k
+# (bench.py:200-206); the contact-rich scene's absorbers (every 64th body 20x
+# heavier: a ratio > 10 absorbs) and the pairs planted to meet at E_coll =
+# E_thresh (v_rel^2 = 4e3 for equal masses, p = 1/2), its dead slots for
+# debris and a debris budget that lets every mutually-first pair spawn; the
+# runs' lengths (KDK steps, Hermite steps, RESPA windows of K = 4); the
+# fragmentation-frequency check's pairs and rounds (fresh draws a round)
+RESOLVE_SEED, RESOLVE_DEBRIS_K = 11, 2
+RESOLVE_HEAVY_EVERY, RESOLVE_HEAVY_MASS, RESOLVE_PAIRS = 64, 20.0, 64
+RESOLVE_SPARE, RESOLVE_MAX_PAIRS = 512, 64
+RESOLVE_STEPS, RESOLVE_HERMITE_STEPS, RESOLVE_RESPA_WINDOWS = 100, 40, 5
+FRAG_PAIRS, FRAG_ROUNDS = 256, 8
+# the resolve runs' mass gate (of the total mass, against the mass of the
+# fragments that spawned no debris): an absorption or a spawn rounds each
+# f32 mass once (2^-24 of it); the cluster's masses (2^-16, 20 x 2^-16) and
+# their sums are exact in f32, so the card should read 0
+RESOLVE_MASS_RTOL = 1e-7
 # the mesh rows' drift gates, set from the port's own run on an H100 80GB
 # HBM3 at 700 W: PM 9.148e-3 over 10,000 steps (fluctuation-dominated: the
 # softening is below the mesh scale, outside PM's contract, DESIGN.md
@@ -508,7 +551,8 @@ LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_bloc
              "tree_near": ("tree_near", "ot_error_string"),
              "neighbor": ("near_sweep", "ot_error_string"),
              "fused_rollout": ("fused_kdk", "fused_kdk_shape", "ot_error_string"),
-             "p3m_short": ("p3m_short_sorted", "p3m_short_shape", "ot_error_string")}
+             "p3m_short": ("p3m_short_sorted", "p3m_short_order", "p3m_short_shape",
+                           "ot_error_string")}
 # the sources whose inner loop must hold tensor-core products (TF32 HMMA)
 TENSOR_CORE = {"nbody_forces_mxu": r"\bHMMA\.\S*TF32"}
 # --sweep: the launch shapes built with -D (i bodies or m16 tiles a thread
@@ -581,6 +625,13 @@ P3MO = dict(name="p3m_short_order", route="cuda", source="orbital_tpu_torch/csrc
 ROOTS = dict(name="collision_roots", route="cuda",
              source="orbital_tpu_torch/csrc/collision_roots.cu",
              replaces="orbital_tpu/ops/collisions.py:165")
+# no TPU kernel: the same source's mark mode stands in for the XLA row blocks
+# (i_block) of resolve_outcomes_subset (orbital_tpu/ops/collisions.py:452-464)
+MARK = dict(name="contact_marks", route="cuda",
+            source="orbital_tpu_torch/csrc/collision_roots.cu",
+            replaces="orbital_tpu/ops/collisions.py:452")
+# the contact sweep's two instantiations (mangled-name stems) by record key
+SWEEP_MODES = {"ROOTS": "sweep_kernelILi0E", "MARK": "sweep_kernelILi1E"}
 
 
 def bound(flops: float, nbytes: float, rsqrt: float = 0.0,
@@ -1026,7 +1077,7 @@ def reset_launches() -> None:
                cuda_tree.tree_near_cuda, cuda_forces_sym.pairwise_acc_sym_cuda,
                cuda_forces_mxu.gram_sums_cuda, cuda_forces.block_acc_cuda,
                cuda_p3m.p3m_short_cuda, cuda_p3m.p3m_short_order_cuda,
-               cuda_collisions.collision_roots_cuda):
+               cuda_collisions.collision_roots_cuda, cuda_collisions.contact_marks_cuda):
         fn.launches = 0
 
 
@@ -1112,6 +1163,63 @@ class StepLog:
             self.steps += (c > 0).to(self.steps.dtype)
             if self.counts is not None:
                 self.counts.append(c)
+        return out
+
+
+class ResolveLog:
+    """Counts what each resolve round (``ops.collisions.resolve_outcomes``,
+    on the gathered subset scene) did, on the device, while it is patched
+    in: per round the deaths, of them the absorbed (died touching a live
+    body more than 10x heavier), the absorbers that gained mass and the
+    debris revived in dead slots, and the masses that died, that absorbers
+    gained and that debris carries. An absorbed body's mass goes whole to
+    its absorber, so the fragmented mass is the dead mass less the gained;
+    a round whose fragments all spawned debris carries it all into debris.
+    A gated round at a count of 0 touches nothing and counts 0. ``totals()``
+    reads them back once."""
+
+    KEYS = ("died", "absorbed", "absorbers", "debris", "m_died", "m_gained", "m_debris")
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        from orbital_tpu_torch.ops import collisions
+
+        self.mod, self.fn = collisions, collisions.resolve_outcomes
+
+        def logged(pos, vel, mass, radius, alive, *rest, **kw):
+            import torch
+
+            out = self.fn(pos, vel, mass, radius, alive, *rest, **kw)
+            _, _, touching = collisions._pair_geometry(pos, radius, alive)
+            heavier = touching & (mass[None, :] > 10.0 * mass[:, None]) & out[4][None, :]
+            died = alive & ~out[4]
+            gained = alive & out[4] & (out[2] > mass)
+            debris = ~alive & out[4]
+            m, m_out = mass.double(), out[2].double()
+            self.rows.append(torch.stack([
+                died.sum().double(), (died & heavier.any(1)).sum().double(),
+                gained.sum().double(), debris.sum().double(), (m * died).sum(),
+                ((m_out - m) * gained).sum(), (m_out * debris).sum()]))
+            return out
+
+        collisions.resolve_outcomes = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.resolve_outcomes = self.fn
+
+    def totals(self) -> dict:
+        import torch
+
+        rows = torch.stack(self.rows).cpu().numpy() if self.rows else np.zeros((0, 7))
+        out = dict(zip(self.KEYS, rows.sum(0).tolist()))
+        m_frag = rows[:, 4] - rows[:, 5]
+        short = m_frag - rows[:, 6]   # fragments that spawned no debris
+        out.update(rounds=len(rows), fragmented=out["died"] - out["absorbed"],
+                   m_fragmented=float(m_frag.sum()), m_unspawned=float(short.sum()),
+                   rounds_short=int((short > 1e-3 * np.maximum(m_frag, 1e-300)).sum()))
         return out
 
 
@@ -1283,6 +1391,29 @@ def other_build(name: str, path, like):
             getattr(lib, fn).argtypes = getattr(like, fn).argtypes
         return OldBuild(lib, first[1](lib))
     return bind_like(path, like, LIB_FUNCS[name])
+
+
+class RootsLib:
+    """The root search's library slot (``cuda_collisions._roots_lib``) as a
+    module's ``_lib``, so that ``on`` swaps it for another build."""
+
+    @property
+    def _lib(self):
+        from orbital_tpu_torch.ops import cuda_collisions
+
+        return cuda_collisions._roots_lib
+
+    @_lib.setter
+    def _lib(self, lib):
+        from orbital_tpu_torch.ops import cuda_collisions
+
+        cuda_collisions._roots_lib = lib
+
+    @staticmethod
+    def load():
+        from orbital_tpu_torch.ops import cuda_collisions
+
+        return cuda_collisions._load_roots()
 
 
 def on(mod, lib, fn):
@@ -1649,7 +1780,7 @@ class Smoke:
                         "B5": dict(B5), "B5D": dict(B5D), "B5S": dict(B5S),
                         "NEAR": dict(NEAR), "B7": dict(B7), "B12": dict(B12),
                         "B13": dict(B13), "B3": dict(B3), "P3M": dict(P3M),
-                        "P3MO": dict(P3MO), "ROOTS": dict(ROOTS)}
+                        "P3MO": dict(P3MO), "ROOTS": dict(ROOTS), "MARK": dict(MARK)}
         self._cluster = None
         self._respa_budgets = None
         self._plummer = None
@@ -1721,13 +1852,14 @@ class Smoke:
                 self.kernels[key].update(rec)
                 shapes.append(describe_launch(key, rec))
         # the kernels outside SHAPED: the row subset (in nbody_jerk, whose
-        # spills are checked above), the short range and the root search
+        # spills are checked above), the short range and the contact sweep
         for name in ("p3m_short", "collision_roots"):
             spills.append(f"{name} 0 in {spill_free(name, logs[name])} entry functions")
         shapes += [self.subset_record(cuda_jerk._load(), logs["nbody_jerk"]),
                    self.p3m_record(logs["p3m_short"], sass(
                        kernels._library_path("p3m_short")[1])),
-                   self.roots_record(logs["collision_roots"])]
+                   self.roots_record(logs["collision_roots"], sass(
+                       kernels._library_path("collision_roots")[1]))]
         return (f"built {each} in parallel (load total {total:.2f} s) for sm_90a; at "
                 f"N={N_MAIN}: " + "; ".join(shapes) + "; spill bytes: " + ", ".join(spills))
 
@@ -1765,20 +1897,40 @@ class Smoke:
         self.kernels["P3M"].update(shape=shape, sass_slots_per_pair=per_pair)
         return f"{line}, shape {shape}, {fmt(per_pair)} SASS instructions a visited pair"
 
-    def roots_record(self, log: str) -> str:
-        """The root search's launch shape at N_MAIN, registers and spills."""
+    def roots_record(self, log: str, sass_text: str) -> str:
+        """The contact sweep's launch shape at N_MAIN (tiles and the
+        cooperative grid), the registers and spills of its two modes, and
+        the SASS instructions a pair of each mode's prefilter loop (its
+        innermost loop with the most FSETP, one a pair), whose
+        instructions go to standard error."""
         import ctypes
 
         from orbital_tpu_torch.ops import cuda_collisions
 
-        line = self.entry_record("ROOTS", "parents_kernel", log)
+        line = "; ".join(self.entry_record(k, stem, log) for k, stem in SWEEP_MODES.items())
         fn = cuda_collisions._load_roots().collision_parents_shape
         fn.restype, fn.argtypes = None, [ctypes.c_int, ctypes.c_void_p]
-        arr = (ctypes.c_int * 3)()
+        arr = (ctypes.c_int * 6)()
         fn(N_MAIN, arr)
-        shape = dict(zip(("columns", "tile", "blocks"), list(arr)))
-        self.kernels["ROOTS"]["shape"] = shape
-        return f"{line}, shape {shape}"
+        shape = dict(zip(("columns_a_lane", "tile", "slice", "warps", "blocks", "tiles"),
+                         list(arr)))
+        bodies = loop_bodies(sass_text, r"\bFSETP\b")
+        dump, per = [], {}
+        for key, stem in SWEEP_MODES.items():
+            body = next((v for f, v in bodies.items() if stem in f), None)
+            marks = sum(bool(re.search(r"\bFSETP\b", op)) for op in body or ())
+            per[key] = len(body) / marks if marks else "not measured"
+            self.kernels[key].update(shape=shape, sass_slots_per_pair=per[key])
+            dump.append(f"{key} ({stem}): {len(body or ())} instructions, {marks} FSETP\n"
+                        + "\n".join(body or ()))
+        if sass_text and not all(isinstance(v, float) for v in per.values()):
+            raise AssertionError(f"contact sweep: no prefilter loop with FSETP in {per}")
+        print("collision_roots loops: " + "\n\n".join(dump), file=sys.stderr)
+        floor = issue_floor_ms(per["ROOTS"], shape["tiles"] * shape["tile"] ** 2)
+        return (f"{line}, shape {shape}, SASS instructions a pair: parents "
+                f"{fmt(per['ROOTS'])}, mark {fmt(per['MARK'])} (issue floor over the "
+                f"{shape['tiles'] * shape['tile'] ** 2:,} pairs of the tiles: "
+                f"{fmt(floor, 3, ' ms')})")
 
     def subset_record(self, lib, log: str) -> str:
         """The row subset's block shape and its j split at the main path's
@@ -4190,6 +4342,24 @@ class Smoke:
                 f"20 at {N_FUSED_BIG}), in turns: " + "; ".join(lines))
 
     # --parent
+    def roots_calls(self) -> dict:
+        """The root search's main-path calls for ``--parent``: ``{key:
+        call(gated) -> parents}`` on the cluster at R_RICH (ROOTS, a count >
+        0) and R_BENCH (ROOTS0, a count of 0), with the detecting sweep's
+        count."""
+        from orbital_tpu_torch.ops.cuda_collisions import collision_parents_cuda
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_detect_cuda
+
+        pos0, vel0, mass0, _ = self.cluster()
+        out = {}
+        for key, radius in (("ROOTS", R_RICH), ("ROOTS0", R_BENCH)):
+            st = self.torch_state(pos0, vel0, mass0, radius)
+            _, _, count = pairwise_acc_detect_cuda(st.pos, st.mass, st.radius, st.alive,
+                                                   G=1.0, eps2=EPS2, with_potential=False)
+            out[key] = (lambda st_, c_: lambda gated: collision_parents_cuda(
+                st_.pos, st_.radius, st_.alive, contacts=c_ if gated else None))(st, count)
+        return out
+
     def check_parent(self, parent: str) -> str:
         from pathlib import Path
 
@@ -4201,10 +4371,13 @@ class Smoke:
         mods = self.redesigned()
         jobs = {name: (Path(parent) / "orbital_tpu_torch" / "csrc" / f"{name}.cu",
                        kernels.BUILD_DIR / "parent" / f"lib{name}.so")
-                for name in (*mods, "p3m_short")}
+                for name in (*mods, "p3m_short", "collision_roots")}
         compile_libraries([(src, out, ()) for src, out in jobs.values()])
         old = {mod: other_build(name, jobs[name][1], mod._load())
                for name, mod in (*mods.items(), ("p3m_short", cuda_p3m))}
+        roots = RootsLib()
+        old[roots] = bind_like(jobs["collision_roots"][1], roots.load(),
+                               ("collision_parents", "ot_error_string"))
         scene = self.scene(N_MAIN, R_RICH, 7, seed_offset=17, cluster=False)
         worst, equal, counts, cases = {}, {}, set(), 0
 
@@ -4250,6 +4423,17 @@ class Smoke:
                                            count=tab["count"], **kw_t))
         p3m_call.pairs = p3m_short_work(tab, kw_p["gc"], kw_p["n"], kw_p["rcut2"])["issued"]
         hold("P3M", cuda_p3m, p3m_call)
+        # the merge root search: parents integer-equal, gated and ungated, at
+        # the contact-rich radius; timed at a count > 0 (ROOTS) and 0 (ROOTS0)
+        roots_calls = self.roots_calls()
+        for k, call in roots_calls.items():
+            for gate in (True, False):
+                ref, out = on(roots, old[roots], lambda: call(gate)), call(gate)
+                if not self.torch.equal(ref, out):
+                    raise AssertionError(f"{k}: parents differ from the parent build's "
+                                         f"(gated {gate}): {int((ref != out).sum())} rows")
+                cases += 1
+            worst[k], equal[k] = 0.0, True
         fused_t = self.fused_calls(timing=True)
         calls = {k: v for k, v in self.exact_calls(scene, EPS2, pe=False).items()
                  if k != "B6G"}
@@ -4257,6 +4441,8 @@ class Smoke:
         calls.update(B7=tree["B7"], B7L=tree["B7L"], NEAR=near["NEAR"],
                      P3M=(cuda_p3m, p3m_call))
         calls.update({k: fused_t[k] for k in ("B4", "B4F", "B4L", "B4LF")})
+        calls.update({k: (roots, (lambda c: lambda: c(True))(call))
+                      for k, call in roots_calls.items()})
         fns = {}
         for k, (mod, call) in calls.items():
             fns[f"{k} parent"] = (lambda m_, l_, c_: lambda: on(m_, l_, c_))(mod, old[mod], call)
@@ -4307,7 +4493,7 @@ class Smoke:
             f"{macro_h[k]['median']:.3f} ms (spread {macro_h[k]['spread']:.3f})"
             for k in steps)))
         return (f"B1, B2, B3, B5, B5 detect, the B5 subset, B13, B6, B12, B7, the near sweep, "
-                f"B4 and the P3M short range held "
+                f"B4, the P3M short range and the root search held "
                 f"against the build of "
                 f"{parent}'s sources in {cases} calls (N={N_MAIN}, 7 dead, R {R_RICH:g}, eps2 "
                 f"{EPS2:g} and 0, PE on and off; within {FORCE_RTOL:g} / {JERK_RTOL:g} / "
@@ -4319,7 +4505,9 @@ class Smoke:
                 f"{overflow} equal; the near sweep within {NEAR_RTOL:g} at N={N_MAIN} (table, "
                 f"worklist) and the ragged starved {N_NEAR_RAGGED}; B4 after 10 steps within "
                 f"{STATE_ATOL:g} on {FUSED_CASES}; the P3M short range within {SHORT_RTOL:g} "
-                f"on the bench row's table); in turns, 6 runs each (B1, B2, B13 no PE; "
+                f"on the bench row's table; the root search's parents equal, gated and "
+                f"ungated, at R {R_RICH:g} and {R_BENCH:g}); in turns, 6 runs each (B1, B2, "
+                f"B13 no PE; ROOTS at a count > 0, ROOTS0 at 0; "
                 f"B3 PE; B6 ungated, B6Z at a zero count; B12; B7 at N={N_MAIN} and B7L at "
                 f"{N_TREE_BIG}; NEAR the table sweep at N={N_MAIN}; B4 200 steps at {N_FUSED}, "
                 f"ds32 and B4F f32, B4L and B4LF 20 steps at {N_FUSED_BIG}): "
@@ -4872,7 +5060,9 @@ class Smoke:
         from orbital_tpu_torch.ops.collisions import pointer_jump
         from orbital_tpu_torch.ops.cuda_collisions import (collision_parents_cuda,
                                                            collision_parents_plain,
-                                                           collision_roots_cuda)
+                                                           collision_roots_cuda,
+                                                           contact_marks_cuda,
+                                                           contact_marks_plain)
         from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_detect_cuda
 
         torch = self.torch
@@ -4887,59 +5077,83 @@ class Smoke:
                 st = self.torch_state(pos0, vel0, mass0, radius)
                 pos, mass, rad, alive = st.pos, st.mass, st.radius, st.alive
             n = pos.shape[0]
+            ident = torch.arange(n, device=self.dev)
             _, _, count = pairwise_acc_detect_cuda(pos, mass, rad, alive, G=1.0, eps2=EPS2,
                                                    with_potential=False)
-            got = {"gated": collision_parents_cuda(pos, rad, alive, contacts=count),
-                   "ungated": collision_parents_cuda(pos, rad, alive)}
-            want = {"gated": collision_parents_plain(pos, rad, alive, contacts=count),
-                    "ungated": collision_parents_plain(pos, rad, alive)}
+            kern = {"parents": collision_parents_cuda, "mark": contact_marks_cuda}
+            plain = {"parents": collision_parents_plain, "mark": contact_marks_plain}
+            got = {(m, g): kern[m](pos, rad, alive, contacts=count if g == "gated" else None)
+                   for m in kern for g in ("gated", "ungated")}
+            want = {(m, g): plain[m](pos, rad, alive, contacts=count if g == "gated" else None)
+                    for m in plain for g in ("gated", "ungated")}
             root = collision_roots_cuda(pos, rad, alive, contacts=count)
             torch.cuda.synchronize()
             for k in got:
                 if not torch.equal(got[k], want[k]):
                     bad = int((got[k] != want[k]).sum())
-                    raise AssertionError(f"roots {key} {k}: {bad} parents differ from plain")
-            if not torch.equal(root, pointer_jump(want["gated"])):
+                    raise AssertionError(f"contact sweep {key} {k}: {bad} rows differ from "
+                                         f"plain")
+            if not torch.equal(root, pointer_jump(want["parents", "gated"])):
                 raise AssertionError(f"roots {key}: roots differ from the plain version's")
             c = int(count)
-            linked = int((want["ungated"] != torch.arange(n, device=self.dev)).sum())
-            if key == "rich" and not (c > 0 and linked > 0):
-                raise AssertionError(f"roots rich: count {c}, {linked} linked columns")
-            if key == "bench" and (c != 0 or not torch.equal(
-                    got["gated"], torch.arange(n, device=self.dev))):
-                raise AssertionError(f"roots bench: count {c} at t=0 or parents not the "
-                                     f"identity")
+            linked = int((want["parents", "ungated"] != ident).sum())
+            marked = int(want["mark", "ungated"].sum())
+            if key == "rich" and not (c > 0 and linked > 0 and marked > 0):
+                raise AssertionError(f"contact sweep rich: count {c}, {linked} linked columns, "
+                                     f"{marked} marks")
+            if key == "bench" and (c != 0 or not torch.equal(got["parents", "gated"], ident)
+                                   or bool(got["mark", "gated"].any())):
+                raise AssertionError(f"contact sweep bench: count {c} at t=0, or parents not "
+                                     f"the identity, or marks at a count of 0")
             line = (f"{key} (N={n}, R {radius if radius else R_RAGGED:g}, count {c}): parents "
-                    f"gated and ungated and the roots integer-equal to the plain version, "
-                    f"{linked} columns with a lower touching row")
+                    f"and marks, gated and ungated, and the roots integer-equal to the plain "
+                    f"versions, {linked} columns with a lower touching row, {marked} bodies "
+                    f"marked")
             if key in ("rich", "bench"):
-                kern = summary(time_ms(lambda: collision_parents_cuda(pos, rad, alive,
-                                                                      contacts=count), 10))
-                perf[key] = kern
-                line += f"; the kernel {kern['median']:.4f} ms (spread {kern['spread']:.4f})"
+                for m, fn in kern.items():
+                    t = summary(time_ms(lambda: fn(pos, rad, alive, contacts=count), 10))
+                    perf[f"{m}_{key}"] = t
+                    line += f"; {m} {t['median']:.4f} ms (spread {t['spread']:.4f})"
             if key == "rich":
-                plain = summary(time_ms(lambda: collision_parents_plain(pos, rad, alive,
-                                                                        contacts=count), 1))
-                perf["plain"] = plain
-                # the pairs the search needs: each live column's rows up to its
-                # first touching one
-                p, j = want["ungated"], torch.arange(n, device=self.dev)
+                # the pairs each mode needs: the parents each live column's rows
+                # up to its first touching one, the mark every live pair i < j
+                p, j = want["parents", "ungated"], ident
                 pairs = int(torch.where(alive, torch.where(p < j, p + 1, j), 0).sum())
-                b = bound(OPS_ROOTS * pairs, 25 * n)
-                perf["pairs"], perf["bound"] = pairs, b
-                line += (f", plain {plain['median']:.3f} ms; bound {b[0]:.4f} ms ({b[1]}, "
-                         f"{pairs:,} pairs)")
+                live = int(alive.sum())
+                perf["pairs"], perf["mark_pairs"] = pairs, live * (live - 1) // 2
+                perf["bound"] = bound(OPS_ROOTS * pairs, 25 * n)
+                perf["mark_bound"] = bound(OPS_ROOTS * perf["mark_pairs"], 18 * n)
+                for m in plain:
+                    perf[f"{m}_plain"] = summary(time_ms(
+                        lambda: plain[m](pos, rad, alive, contacts=count), 1))
+                line += (f", plain {perf['parents_plain']['median']:.3f} and "
+                         f"{perf['mark_plain']['median']:.3f} ms; bounds "
+                         f"{perf['bound'][0]:.4f} ms ({perf['bound'][1]}, {pairs:,} pairs) "
+                         f"and {perf['mark_bound'][0]:.4f} ms ({perf['mark_pairs']:,} pairs)")
+                for k, m in (("ROOTS", "parents"), ("MARK", "mark")):
+                    slots = self.kernels[k].get("sass_slots_per_pair")
+                    floor = issue_floor_ms(slots, perf["pairs" if m == "parents" else
+                                                        "mark_pairs"])
+                    if floor is not None:
+                        t = perf[f"{m}_rich"]["median"]
+                        b = perf["bound" if m == "parents" else "mark_bound"][0]
+                        line += (f"; {m} issue floor {floor:.3f} ms ({100 * floor / t:.0f}% of "
+                                 f"its time), {100 * b / t:.1f}% of its bound")
             if key == "bench":
-                b0 = bound(0, 8 * n + 4)
-                perf["bound_count0"] = b0
-                line += f"; at count 0 bound {b0[0]:.5f} ms ({b0[1]})"
+                perf["bound_count0"] = bound(0, 8 * n + 4)
+                perf["mark_bound_count0"] = bound(0, n + 4)
+                line += (f"; at count 0 bounds {perf['bound_count0'][0]:.5f} and "
+                         f"{perf['mark_bound_count0'][0]:.5f} ms (bytes)")
             lines.append(line)
-        self.kernels["ROOTS"].update(
-            max_abs_err=0, ms=perf["rich"]["median"], plain_ms=perf["plain"]["median"],
-            bound_ms=perf["bound"][0], bound_by=perf["bound"][1], library_ms=None,
-            ms_count0=perf["bench"]["median"], bound_count0_ms=perf["bound_count0"][0])
+        for k, m, b in (("ROOTS", "parents", "bound"), ("MARK", "mark", "mark_bound")):
+            self.kernels[k].update(
+                max_abs_err=0, ms=perf[f"{m}_rich"]["median"],
+                plain_ms=perf[f"{m}_plain"]["median"], bound_ms=perf[b][0],
+                bound_by=perf[b][1], library_ms=None, ms_count0=perf[f"{m}_bench"]["median"],
+                bound_count0_ms=perf[f"{b}_count0"][0])
         print("perf_roots " + json.dumps(perf), file=sys.stderr)
-        return "the merge root search (csrc/collision_roots.cu): " + "; ".join(lines)
+        return ("the contact sweep (csrc/collision_roots.cu; the merge root search and "
+                "resolve's contact mark): " + "; ".join(lines))
 
     def torch_state(self, pos, vel, mass, radius: float, precision: str = "ds32"):
         import orbital_tpu_torch as ot
@@ -5148,6 +5362,256 @@ class Smoke:
                 f"{self.merged_checks('merge ' + key, start, a)}; two runs bit-equal; "
                 f"detecting sweeps {detect}, roots {roots}")
 
+    # phase 38
+    def resolve_bench_row(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.rollout import resolve_force_detect_fn, resolve_force_fn
+        from orbital_tpu_torch.ops.cuda_collisions import (collision_roots_cuda,
+                                                           contact_marks_cuda)
+        from orbital_tpu_torch.ops.cuda_forces import (pairwise_acc_cuda,
+                                                       pairwise_acc_detect_cuda)
+
+        torch = self.torch
+        n = N_MAIN
+        pos, vel, mass, _ = self.cluster()
+        runs = {}
+        for mode in ("resolve", "none"):
+            cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, collisions=mode,
+                               frag_seed=RESOLVE_SEED, debris_k=RESOLVE_DEBRIS_K)
+            state = self.torch_state(pos, vel, mass, R_BENCH)
+            resolve = resolve_force_detect_fn if mode == "resolve" else resolve_force_fn
+            log = StepLog(resolve(cfg, n, self.dev), keep_pos=True, keep_counts=True)
+            hook = dict(force_detect_fn=log) if mode == "resolve" else dict(force_fn=log)
+            if mode == "resolve":
+                reset_launches()
+            state = ot.init_forces(state, cfg)
+            rec, _ = ot.rollout(state, cfg, 20, record_every=10, fused="never", **hook)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cfg = cfg.replace(track_potential=False)
+            log.fn = resolve(cfg, n, self.dev)
+            fin, _ = ot.rollout(rec, cfg, self.drift_steps, fused="never", **hook)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if mode == "resolve":
+                launches = (pairwise_acc_cuda.launches, pairwise_acc_detect_cuda.launches,
+                            contact_marks_cuda.launches, collision_roots_cuda.launches)
+            runs[mode] = (state, fin, 1e3 * wall / self.drift_steps, log)
+        (start, fin, ms_on, log), (_, other, ms_off, log_off) = runs["resolve"], runs["none"]
+        b1, b2, marks, roots = launches
+        steps = 20 + self.drift_steps
+        counts = torch.stack(log.counts).cpu().numpy()
+        hit = [int(k) + 1 for k in np.flatnonzero(counts)]
+        if counts[0] != 0 or b1 != 1 or b2 != steps or marks != steps or roots != 0:
+            raise AssertionError(f"resolve bench row: {counts[0]} contacts at step 1, "
+                                 f"launches B1 {b1}, B2 {b2}, marks {marks}, roots {roots}")
+        differ = next((k + 1 for k, (a, b) in enumerate(zip(log.positions, log_off.positions))
+                       if not torch.equal(a, b)), None)
+        if hit:
+            if differ is not None and differ <= hit[0]:
+                raise AssertionError(f"resolve bench row: positions differ from the "
+                                     f"collision-free run at step {differ}, before the first "
+                                     f"contact (step {hit[0]})")
+            same = f"bit-equal to collisions='none' through step {hit[0]}"
+        else:
+            if differ is not None:
+                raise AssertionError(f"resolve bench row: positions differ at step {differ}")
+            for f in ("pos", "pos_lo", "vel", "vel_lo", "mass", "alive", "step"):
+                if not torch.equal(getattr(fin, f), getattr(other, f)):
+                    raise AssertionError(f"resolve bench row: final {f} differs")
+            same = "final state bit-equal to collisions='none'"
+        if not (bool(torch.isfinite(fin.pos).all()) and bool(torch.isfinite(fin.vel).all())):
+            raise AssertionError("resolve bench row: non-finite state")
+        self.kernels["MARK"]["launches"] = marks
+        gone = int((start.alive & ~fin.alive).sum())
+        del log, log_off, runs
+        # ms/step armed and unarmed in turns, without the step logs: 100
+        # unrecorded steps from the recorded state, three times each
+        steps = {}
+        for mode in ("resolve", "none"):
+            cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, collisions=mode,
+                               frag_seed=RESOLVE_SEED, debris_k=RESOLVE_DEBRIS_K,
+                               track_potential=False)
+            steps[mode] = (lambda c: lambda: ot.rollout(start, c, 100, fused="never"))(cfg)
+        turns = {k: summary([t / 100 for t in v]) for k, v in
+                 alternate_ms(steps, 1, repeats=6).items()}
+        self.resolve_ms = (turns["resolve"]["median"], turns["none"]["median"])
+        # kernels and device time a step (torch.profiler over 10 steps): the
+        # eager subset model runs at a count of 0 too, as no host read skips it
+        prof = {}
+        for mode, fn in steps.items():
+            cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, collisions=mode,
+                               frag_seed=RESOLVE_SEED, debris_k=RESOLVE_DEBRIS_K,
+                               track_potential=False)
+            k = device_times(lambda: ot.rollout(start, cfg, 10, fused="never"))
+            prof[mode] = (sum(v[0] for v in k.values()) / 10, sum(v[1] for v in k.values()) / 10)
+        print("perf_resolve_step " + json.dumps({"turns": turns, "profile": prof}),
+              file=sys.stderr)
+        return (f"N={n} ds32 resolve R={R_BENCH:g} frag_seed {RESOLVE_SEED} debris_k "
+                f"{RESOLVE_DEBRIS_K}: init_forces + 20 recorded + {self.drift_steps} unrecorded "
+                f"steps; {int(counts.sum())} contacts over the run on steps {hit}; {gone} "
+                f"bodies gone; {same} (positions first differ at step {differ}); "
+                f"{ms_on:.3f} ms/step wall armed vs {ms_off:.3f} without (logged runs); in "
+                f"turns, 100 unlogged steps x 6: {turns['resolve']['median']:.3f} ms/step "
+                f"(spread {turns['resolve']['spread']:.3f}) armed vs "
+                f"{turns['none']['median']:.3f} ({turns['none']['spread']:.3f}) without; a step "
+                f"by torch.profiler: {prof['resolve'][0]:.1f} kernels and {prof['resolve'][1]:.3f} "
+                f"ms of device time armed, {prof['none'][0]:.1f} and {prof['none'][1]:.3f} "
+                f"without; "
+                f"launches B1 {b1}, B2 {b2}, marks {marks}, roots {roots}")
+
+    def resolve_scene(self, t_touch: float):
+        """The contact-rich resolve scene: the cluster at R_RICH, every
+        RESOLVE_HEAVY_EVERY-th body RESOLVE_HEAVY_MASS times heavier, and
+        RESOLVE_PAIRS pairs of light bodies placed to meet head-on at
+        ``t_touch`` (the first detection: dt for KDK and Hermite, K dt for
+        RESPA) at v_rel^2 = 4e3, E_coll = E_thresh, 0.5 R_RICH apart then."""
+        from orbital_tpu_torch.models.scene import SceneArrays
+
+        pos, vel, mass, _ = self.cluster()
+        pos, vel, mass = pos.copy(), vel.copy(), mass.copy()
+        n = len(mass)
+        heavy = np.arange(0, n, RESOLVE_HEAVY_EVERY)
+        mass[heavy] *= RESOLVE_HEAVY_MASS
+        rng = np.random.default_rng(self.seed + 39)
+        light = np.setdiff1d(np.arange(n), heavy)
+        a, b = rng.choice(light, (2, RESOLVE_PAIRS), replace=False)
+        v = 0.5 * np.sqrt(4e3)
+        pos[b] = pos[a] + [2.0 * v * t_touch + 0.5 * R_RICH, 0.0, 0.0]
+        vel[b] = vel[a] - [v, 0.0, 0.0]
+        vel[a] = vel[a] + [v, 0.0, 0.0]
+        return SceneArrays(pos=pos, vel=vel, mass=mass, radius=np.full(n, R_RICH),
+                           names=[f"b{i}" for i in range(n)])
+
+    def resolved_checks(self, key: str, scene, fin, stats: dict) -> str:
+        """A resolve run's invariants in host f64: at least one absorption,
+        fragmentation and debris body (from ``ResolveLog``); every dead body
+        massless, without radius and parked beyond every live body's reach;
+        the total mass conserved within RESOLVE_MASS_RTOL where every
+        fragmentation spawned debris, and otherwise short by exactly the
+        fragments that spawned none."""
+        m0 = float(np.sum(scene.mass))
+        m1 = float(fin.mass.double().sum())
+        if not (bool(self.torch.isfinite(fin.pos).all())
+                and bool(self.torch.isfinite(fin.vel).all())):
+            raise AssertionError(f"{key}: non-finite state")
+        if not (stats["absorbed"] >= 1 and stats["m_fragmented"] > 0 and stats["debris"] >= 1):
+            raise AssertionError(f"{key}: not every outcome happened: {stats}")
+        loss = (m0 - m1) / m0
+        want = stats["m_unspawned"] / m0
+        if abs(loss - want) > RESOLVE_MASS_RTOL:
+            raise AssertionError(f"{key}: mass lost {loss:.3e} of M, fragments without debris "
+                                 f"{want:.3e} (gate {RESOLVE_MASS_RTOL:g})")
+        dead, live = ~fin.alive, fin.alive
+        reach = float(fin.pos.double()[live].abs().max()) + 2.0 * float(fin.radius[live].max())
+        parked = float(fin.pos.double()[dead].abs().amax(1).min())
+        if bool(fin.mass[dead].any()) or bool(fin.radius[dead].any()) or parked < 1e3 * reach:
+            raise AssertionError(f"{key}: dead bodies not massless, without radius and parked "
+                                 f"far (nearest at {parked:.3e}, live reach {reach:.3e})")
+        conserved = ("conserved" if stats["rounds_short"] == 0 else
+                     f"short by the {stats['rounds_short']} rounds' fragments without debris")
+        return (f"{int(stats['absorbed'])} absorbed into {int(stats['absorbers'])} absorber "
+                f"rounds, {int(stats['fragmented'])} fragmented ({stats['m_fragmented'] / m0:.2e} "
+                f"of M), {int(stats['debris'])} debris "
+                f"in {stats['rounds']} rounds; |dM/M| {abs(loss):.2e} against {want:.2e} "
+                f"unspawned (mass {conserved}, within {RESOLVE_MASS_RTOL:g}); dead massless, "
+                f"radius 0, parked at >= {parked:.2e} (live reach {reach:.2e})")
+
+    # phase 39
+    def resolve_contact_rich(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops.cuda_collisions import contact_marks_cuda
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_detect_cuda
+        from orbital_tpu_torch.ops.cuda_jerk import accel_jerk_detect_cuda
+
+        torch = self.torch
+        base = dict(dt=DT, softening=EPS2 ** 0.5, device=self.dev, precision="ds32",
+                    collisions="resolve", rescale=ot.Rescale.identity(),
+                    frag_seed=RESOLVE_SEED, debris_k=RESOLVE_DEBRIS_K,
+                    debris_max_pairs=RESOLVE_MAX_PAIRS, spare=RESOLVE_SPARE)
+        runs = {
+            "kdk": (DT, dict(steps=RESOLVE_STEPS, record_every=RESOLVE_STEPS // 2),
+                    pairwise_acc_detect_cuda, RESOLVE_STEPS),
+            "hermite": (DT, dict(steps=RESOLVE_HERMITE_STEPS, integrator="hermite",
+                                 record_every=RESOLVE_HERMITE_STEPS),
+                        accel_jerk_detect_cuda, RESOLVE_HERMITE_STEPS),
+            "respa": (RESPA_K * DT, dict(steps=RESPA_K * RESOLVE_RESPA_WINDOWS,
+                                         record_every=RESPA_K * RESOLVE_RESPA_WINDOWS,
+                                         integrator="respa", respa_k=RESPA_K,
+                                         respa_rc=RC_RESPA, respa_cell=CELL_RESPA),
+                      pairwise_acc_detect_cuda, RESOLVE_RESPA_WINDOWS)}
+        lines = []
+        for key, (t_touch, kw, detect_fn, evals) in runs.items():
+            scene = self.resolve_scene(t_touch)
+            finals, said = [], []
+            for k in range(2):
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with ResolveLog() as rlog, warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    res = ot.simulate(scene, **base, **kw)
+                    torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0) / kw["steps"]
+                said += [str(w.message)[:60] for w in caught]
+                finals.append(res.final_state)
+                if k == 0:
+                    stats = rlog.totals()
+                    detect, marks = detect_fn.launches, contact_marks_cuda.launches
+            a, b = finals
+            if not all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+                       ("pos", "pos_lo", "vel", "vel_lo", "mass", "radius", "alive")):
+                raise AssertionError(f"resolve {key}: two runs differ")
+            if detect != evals or marks != evals:
+                raise AssertionError(f"resolve {key}: {detect} detecting sweeps, {marks} marks "
+                                     f"for {evals} evaluations")
+            if key == "kdk":
+                self.kernels["MARK"]["launches_contact_rich"] = marks
+            lines.append(f"{key} + resolve N={N_MAIN} + {RESOLVE_SPARE} spare ds32 "
+                         f"R={R_RICH:g}, {kw['steps']} steps at {wall:.3f} ms/step wall "
+                         f"(set-up included), twice: "
+                         f"{self.resolved_checks('resolve ' + key, scene, a, stats)}; two runs "
+                         f"bit-equal; detecting sweeps {detect}, marks {marks}; warnings "
+                         f"{sorted(set(said))}")
+        return " | ".join(lines)
+
+    # phase 40
+    def fragmentation_frequency(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.integrators import _apply_collisions
+        from orbital_tpu_torch.ops.cuda_collisions import contact_marks_cuda
+
+        torch = self.torch
+        g = np.arange(FRAG_PAIRS)
+        a = np.stack([g % 16, (g // 16) % 16, np.zeros_like(g)], 1).astype(float)
+        v = 0.5 * np.sqrt(4e3)
+        pos = np.concatenate([a, a + [0.015, 0.0, 0.0]])
+        vel = np.concatenate([np.tile([v, 0.0, 0.0], (FRAG_PAIRS, 1)),
+                              np.tile([-v, 0.0, 0.0], (FRAG_PAIRS, 1))])
+        state = ot.make_state(pos, vel, np.ones(2 * FRAG_PAIRS), np.full(2 * FRAG_PAIRS, 0.01),
+                              precision="f32", device=self.dev)
+        cfg = ot.SimConfig(dt=DT, collisions="resolve", frag_seed=RESOLVE_SEED)
+        reset_launches()
+        frag = []
+        for r in range(FRAG_ROUNDS):
+            st = state.replace(step=torch.tensor(r + 1, dtype=torch.int32, device=self.dev))
+            out = _apply_collisions(cfg, st)
+            dead = ~out.alive
+            if not torch.equal(dead[:FRAG_PAIRS], dead[FRAG_PAIRS:]):
+                raise AssertionError("fragmentation: a pair half fragmented")
+            frag.append(int(dead[:FRAG_PAIRS].sum()))
+        trials = FRAG_PAIRS * FRAG_ROUNDS
+        f = sum(frag) / trials
+        tol = 4.0 * np.sqrt(0.25 / trials)
+        if abs(f - 0.5) > tol or contact_marks_cuda.launches != FRAG_ROUNDS:
+            raise AssertionError(f"fragmentation frequency {f:.4f} (tolerance {tol:.4f}), "
+                                 f"{contact_marks_cuda.launches} mark launches")
+        return (f"{FRAG_PAIRS} pairs at E_coll = E_thresh (p = 1/2) over {FRAG_ROUNDS} "
+                f"rounds on the card's draws: {sum(frag)} of {trials} fragmented "
+                f"({f:.4f}; per round {frag}), within 4 binomial sigmas ({tol:.4f}) of 0.5; "
+                f"each pair wholly fragmented or bounced; marks {contact_marks_cuda.launches}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--drift-steps", type=int, default=1000,
@@ -5155,8 +5619,9 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", metavar="DIR",
                         help="only hold B1, B2, B3, B5, B5 detect, the B5 subset, B13, B6, "
-                             "B12, B7, the near sweep, B4 and the P3M short range against "
-                             "DIR's kernel sources (phases 1, 2 and this check)")
+                             "B12, B7, the near sweep, B4, the P3M short range and the root "
+                             "search against DIR's kernel sources (phases 1, 2 and this "
+                             "check)")
     parser.add_argument("--sweep", action="store_true",
                         help="only build and time the launch shapes of SWEEP (phases 1, 2 "
                              "and the sweep; with --parent, the parent check after it)")
@@ -5212,6 +5677,9 @@ def main(argv=None) -> int:
         ("34 roots", smoke.check_roots),
         ("35+36 merge main path", smoke.merge_main_path),
         ("37 merge steppers", smoke.merge_steppers),
+        ("38 resolve bench row", smoke.resolve_bench_row),
+        ("39 resolve contact-rich", smoke.resolve_contact_rich),
+        ("40 fragmentation frequency", smoke.fragmentation_frequency),
     ]
     if args.sweep or args.parent:
         phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (

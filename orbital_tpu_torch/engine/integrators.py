@@ -15,17 +15,16 @@ Under the ds32 precision policy, position/velocity accumulation uses
 compensated double-single arithmetic (see ``dsfloat``): the *increments*
 (a*dt, v*dt) are plain f32, the *accumulators* carry a correction term.
 
-Collisions: ``"bounce"`` and ``"merge"`` run after the step's closing force
-evaluation. When the force sweep also counted contacts (``force_detect_fn``),
-their result is kept only where that count is > 0, selected on the device
-with ``torch.where``: a contact-free step leaves the state bit-for-bit as
-it was, as the JAX stepper's ``lax.cond`` does, and the host never reads the
-count. On CUDA the bounce kernel and the merge root search read the same
-count and skip their pair work. Hermite's force evaluation is at the
-*predicted* positions, so its gate tests predicted separations; the sweep
-itself runs on the corrected state. The resolve mode raises
-``NotImplementedError`` naming the ROADMAP item that ports it. RESPA has
-no single-step function (nor has the JAX package):
+Collisions: ``"bounce"``, ``"merge"`` and ``"resolve"`` run after the
+step's closing force evaluation. When the force sweep also counted contacts
+(``force_detect_fn``), their result is kept only where that count is > 0,
+selected on the device with ``torch.where``: a contact-free step leaves the
+state bit-for-bit as it was, as the JAX stepper's ``lax.cond`` does, and the
+host never reads the count. On CUDA the bounce kernel, the merge root search
+and resolve's contact mark read the same count and skip their pair work.
+Hermite's force evaluation is at the *predicted* positions, so its gate
+tests predicted separations; the sweep itself runs on the corrected state.
+RESPA has no single-step function (nor has the JAX package):
 ``engine.multirate.respa_rollout`` runs it.
 """
 from __future__ import annotations
@@ -41,8 +40,9 @@ from ..utils.config import SimConfig
 from .dsfloat import ds_add
 from .state import NBodyState
 
-__all__ = ["make_step_fn", "resolve_bounce_fn", "resolve_roots_fn", "block_plan", "ForceFn",
-           "ForceDetectFn", "AccelJerkFn", "AccelJerkDetectFn", "AccelJerkSubsetFn"]
+__all__ = ["make_step_fn", "resolve_bounce_fn", "resolve_roots_fn", "resolve_marks_fn",
+           "block_plan", "ForceFn", "ForceDetectFn", "AccelJerkFn", "AccelJerkDetectFn",
+           "AccelJerkSubsetFn"]
 
 # (pos, mass, alive) -> (acc, potential)
 ForceFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
@@ -59,15 +59,12 @@ AccelJerkDetectFn = Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor
 # (idx [F], pos, vel, mass, alive) -> (acc [F, 3], jerk [F, 3])
 AccelJerkSubsetFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
 
-# ROADMAP.md queue A items that port what is left out
-_NOT_PORTED = {"resolve": "A.7b"}
-
-# above this body count the dense [N, N] bounce sweep and root search on CPU
-# tensors give way to the blocked ones (CUDA tensors take the kernels at
-# every N)
+# above this body count the dense [N, N] bounce sweep, root search and
+# resolve round on CPU tensors give way to the blocked ones and the contact
+# subset (CUDA tensors take the kernels and the subset at every N)
 _DENSE_BOUNCE_MAX_N = 4096
 # the merge root search's column block on CPU tensors above it, the JAX
-# stepper's
+# stepper's (and resolve's row block, JAX's default)
 _MERGE_CHUNK = 1024
 
 
@@ -125,20 +122,64 @@ def resolve_roots_fn(n: int, device: torch.device | str):
     return roots
 
 
+def resolve_marks_fn(n: int, device: torch.device | str):
+    """Resolve's contact mark for a body count and device:
+    ``fn(pos, radius, alive, contacts) -> touch_any``. CUDA tensors take the
+    kernel (gated on a given count: no marks at 0); CPU tensors the row
+    blocks of the JAX stepper's subset path."""
+    if torch.device(device).type == "cuda":
+        from ..ops import cuda_collisions
+
+        return lambda pos, radius, alive, contacts: cuda_collisions.contact_marks_cuda(
+            pos, radius, alive, contacts=contacts)
+    return lambda pos, radius, alive, contacts: coll.contact_marks_chunked(
+        pos, radius, alive, chunk=_MERGE_CHUNK)
+
+
+def _resolve(cfg: SimConfig, state: NBodyState, contacts: Optional[torch.Tensor]):
+    """One resolve round on the collapsed hi + lo state: (pos, vel, mass,
+    radius, alive). Dense at N <= 4096 on CPU tensors, as the JAX stepper;
+    the contact subset above it and on CUDA tensors at every N, its mark
+    from :func:`resolve_marks_fn`. The draws come from (frag_seed, the
+    state's step) on the device (``ops.collisions.resolve_draws``)."""
+    n = state.n_bodies
+    kw = dict(restitution=cfg.restitution, debris_k=cfg.debris_k,
+              debris_max_pairs=cfg.debris_max_pairs,
+              debris_energy_frac=cfg.debris_energy_frac, debris_sep=cfg.debris_sep)
+    dense = state.device.type != "cuda" and n <= _DENSE_BOUNCE_MAX_N
+    T, B = coll.resolve_sizes(n, None if dense else cfg.resolve_subset, cfg.debris_k,
+                              cfg.debris_max_pairs)
+    u, d = coll.resolve_draws(cfg.frag_seed, state.step, T, B, cfg.debris_k,
+                              dtype=state.dtype, device=state.device)
+    fields = (state.pos_full(), state.vel_full(), state.mass, state.radius, state.alive)
+    if dense:
+        return coll.resolve_outcomes(*fields, u, d, **kw)
+    touch = resolve_marks_fn(n, state.device)(fields[0], state.radius, state.alive, contacts)
+    return coll.resolve_outcomes_subset(*fields, u, d, subset=cfg.resolve_subset,
+                                        touch_any=touch, **kw)[:5]
+
+
 def _apply_collisions(cfg: SimConfig, state: NBodyState,
                       contacts: Optional[torch.Tensor] = None) -> NBodyState:
     """The bounce sweep on the hi words of the state, its deltas added with
-    :func:`_accumulate`, or the merge of every contact chain into its root
-    (pos, vel, mass, radius and alive rewritten from the collapsed hi + lo
-    words, the lo words of every body dropped, as the JAX stepper drops
-    them); with a fused ``contacts`` count, gated on the device by
-    ``contacts > 0``."""
+    :func:`_accumulate`; or the merge of every contact chain into its root,
+    or a resolve round (pos, vel, mass, radius and alive rewritten from the
+    collapsed hi + lo words, the lo words of every body dropped, as the JAX
+    stepper drops them); with a fused ``contacts`` count, gated on the device
+    by ``contacts > 0``."""
     if cfg.collisions == "none":
         return state
     # at a count of 0 the merge's roots are the identity and its mass,
-    # radius and alive come back unchanged: only these fields need the gate
+    # radius and alive come back unchanged: only these fields need the gate;
+    # resolve's need it all (JAX's lax.cond keeps every field at 0)
     gated = ("pos", "pos_lo", "vel", "vel_lo")
-    if cfg.collisions == "merge":
+    if cfg.collisions == "resolve":
+        pos, vel, mass, radius, alive = _resolve(cfg, state, contacts)
+        zeros = None if state.pos_lo is None else torch.zeros_like(state.pos_lo)
+        new = dict(pos=pos, vel=vel, mass=mass, radius=radius, alive=alive,
+                   pos_lo=zeros, vel_lo=zeros)
+        gated = tuple(new)
+    elif cfg.collisions == "merge":
         pos = state.pos_full()
         root = resolve_roots_fn(state.n_bodies, state.device)(pos, state.radius,
                                                                state.alive, contacts)
@@ -230,11 +271,6 @@ def make_step_fn(cfg: SimConfig, force_fn: Optional[ForceFn] = None,
     ``ops.forces.accel_jerk_subset``); ``rollout.resolve_accel_jerk*_fn``
     route them.
     """
-    for value in (cfg.integrator, cfg.collisions):
-        if value in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{value!r} is not ported to orbital_tpu_torch yet "
-                f"(ROADMAP.md queue A item {_NOT_PORTED[value]})")
     if cfg.integrator == "respa":
         raise ValueError("integrator='respa' advances by macro windows of respa_k "
                          "substeps: use engine.multirate.respa_rollout")

@@ -24,16 +24,20 @@ Per macro window (K substeps):
      plain-KDK meaning.
 
 Bodies dropped by the (probed, counted) budgets move ballistically on the
-held total acceleration for that window. Bounce and merge collisions are
-detected and resolved at macro boundaries, riding the closing exact
-evaluation.
+held total acceleration for that window. Collisions (bounce, merge,
+resolve) are detected and resolved at macro boundaries, riding the closing
+exact evaluation, with the geometry rebuilt every window (the config
+refuses ``respa_refresh`` > 1 with collisions). A dead body has no slot and
+is counted in ``overflow``; a debris fragment that resolve revives into a
+dead slot at a window's close gets its slot at the next window's build, and
+its first far kick takes the acceleration cached for the dead slot, as in
+the JAX stepper.
 
 This is the port of ``orbital_tpu/engine/multirate.py`` on one device: the
 JAX ``lax.scan`` loops are Python loops of eager steps that read nothing back
 to the host (the diagnostics stay 0-dim int32 tensors on the device), and
 the geometry refresh test is a Python int. Not ported: the mesh variant
-(``shard=``, and the sweep's ``i0`` hook), ROADMAP.md queue A item A.15; the
-resolve collision mode, item A.7b.
+(``shard=``, and the sweep's ``i0`` hook), ROADMAP.md queue A item A.15.
 """
 from __future__ import annotations
 
@@ -50,9 +54,8 @@ from .state import NBodyState
 
 __all__ = ["make_respa_macro", "respa_rollout", "respa_rollout_dyn"]
 
-# ROADMAP.md queue A items that port what this module leaves out
+# the ROADMAP.md queue A item that ports what this module leaves out
 _SHARD_ITEM = "A.15"
-_COLLISION_ITEM = "A.7b"
 
 _DIAG_KEYS = ("overflow", "cap_overflow", "w_overflow", "q_overflow", "skin_violation")
 
@@ -113,16 +116,12 @@ def make_respa_macro(
     exact total-force caches.
 
     ``force_detect_fn(pos, mass, radius, alive) -> (acc, U, contacts)``
-    makes the closing evaluation count contacts and gates the bounce sweep
-    on the count, as the exact-force steppers do."""
+    makes the closing evaluation count contacts and gates the collision
+    step on the count, as the exact-force steppers do."""
     if shard is not None:
         raise NotImplementedError(
             "make_respa_macro(shard=...): the mesh-sharded multirate stepper is not "
             f"ported to orbital_tpu_torch yet (ROADMAP.md queue A item {_SHARD_ITEM})")
-    if cfg.collisions == "resolve":
-        raise NotImplementedError(
-            f"integrator='respa' with collisions={cfg.collisions!r} is not ported to "
-            f"orbital_tpu_torch yet (ROADMAP.md queue A item {_COLLISION_ITEM})")
     K = int(cfg.respa_k)
     dt = cfg.dt
     delta = K * dt

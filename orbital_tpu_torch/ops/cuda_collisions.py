@@ -18,13 +18,19 @@ For CPU tensors the wrapper computes the plain version,
 by the same count). For CUDA tensors it launches the kernel or raises; it
 never falls back. ``bounce_deltas_cuda.launches`` counts kernel launches.
 
-The root search of merge mode (:func:`collision_roots_cuda`) stands in for
-the JAX module's XLA column blocks (``orbital_tpu/ops/collisions.py:165-196``):
-the kernel writes each column's parent, the smallest touching row below it,
-gated by the same device-held contact count (parent = j at a count of 0),
-and the wrapper jumps the pointers in eager torch. Its plain version,
-:func:`collision_roots_plain`, is the column-blocked search, gated alike;
-``collision_roots_cuda.launches`` counts kernel launches.
+The contact sweep of merge and resolve (``csrc/collision_roots.cu``, one
+tiled template with two modes) stands in for the JAX module's XLA blocks:
+merge's root search (:func:`collision_roots_cuda`, for
+``orbital_tpu/ops/collisions.py:165-196``) writes each column's parent, the
+smallest touching row below it, and the wrapper jumps the pointers in eager
+torch; resolve's contact mark (:func:`contact_marks_cuda`, for ``i_block``
+at :452-464) marks every body that touches another. Both are gated by the
+same device-held contact count (the identity, or no marks, at a count of 0).
+Their plain versions, :func:`collision_parents_plain` (and
+:func:`collision_roots_plain`) and :func:`contact_marks_plain`, are the
+blocked torch sweeps, gated alike; ``collision_roots_cuda.launches`` and
+``contact_marks_cuda.launches`` count kernel launches. :func:`sweep_plan`
+mirrors the kernel's walk over its tiles.
 """
 from __future__ import annotations
 
@@ -33,11 +39,15 @@ from typing import Optional
 
 import torch
 
-from .collisions import (bounce_deltas_chunked, collision_parents_chunked, pointer_jump,
-                         restitution_clip)
+from .collisions import (bounce_deltas_chunked, collision_parents_chunked, contact_marks_chunked,
+                         pointer_jump, restitution_clip)
 
 __all__ = ["bounce_deltas_cuda", "bounce_deltas_plain", "collision_roots_cuda",
-           "collision_roots_plain", "collision_parents_cuda", "collision_parents_plain"]
+           "collision_roots_plain", "collision_parents_cuda", "collision_parents_plain",
+           "contact_marks_cuda", "contact_marks_plain", "sweep_plan", "SWEEP_TILE"]
+
+# the contact sweep's tile, rows and columns (csrc/collision_roots.cu: kTile)
+SWEEP_TILE = 128
 
 _lib = None
 _roots_lib = None
@@ -133,16 +143,73 @@ def _load_roots():
 
         lib = kernels.load("collision_roots")
         p = ctypes.c_void_p
-        lib.collision_parents.restype = ctypes.c_int
-        lib.collision_parents.argtypes = [p, p, p, p, ctypes.c_int, p, p, ctypes.c_int]
+        for fn in (lib.collision_parents, lib.contact_marks):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [p, p, p, p, ctypes.c_int, p, p, ctypes.c_int]
         _roots_lib = lib
     return _roots_lib
 
 
+def sweep_plan(n: int, warps: int) -> list[list[tuple[int, int]]]:
+    """The tiles (bi, bj), bi <= bj, that each of ``warps`` warps sweeps at
+    n bodies, in its order: the kernel's walk (``advance`` in
+    ``csrc/collision_roots.cu``) over the row-tile-major order, warp w
+    taking tiles w, w + warps, ... A tile holds the pairs i < j with i in
+    rows [128 bi, 128 bi + 128) and j in columns [128 bj, 128 bj + 128)."""
+    nb = -(-n // SWEEP_TILE)
+
+    def advance(bi, bj, step):
+        bj += step
+        while bi < nb and bj >= nb:
+            bj -= nb - bi - 1
+            bi += 1
+        return bi, bj
+
+    plan = []
+    for w in range(warps):
+        tiles, (bi, bj) = [], advance(0, 0, w)
+        while bi < nb:
+            tiles.append((bi, bj))
+            bi, bj = advance(bi, bj, warps)
+        plan.append(tiles)
+    return plan
+
+
+def _sweep_launch(name: str, pos, radius, alive, contacts, out_dtype):
+    """Check the inputs of a contact-sweep wrapper and launch the kernel's
+    mode ``name`` (the C entry point) into a new [N] tensor."""
+    n = pos.shape[0]
+    if pos.ndim != 2 or pos.shape[1] != 3 or radius.shape != pos.shape[:1]:
+        raise ValueError(f"{name}: need pos [N, 3] and radius [N]")
+    tensors = [radius] + [t for t in (alive, contacts) if t is not None]
+    if any(t.device != pos.device for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    if contacts is not None and (contacts.dtype != torch.int32 or contacts.numel() != 1):
+        raise TypeError(f"{name}: contacts must be one int32")
+    if alive is not None and alive.dtype != torch.bool:
+        raise TypeError(f"{name}: alive must be bool")
+    # the sweep reads the f32 positions, as a float32 state holds them
+    f32 = torch.float32
+    pos_, radius_ = pos.to(f32).contiguous(), radius.to(f32).contiguous()
+    alive_ = None if alive is None else alive.contiguous()
+    out = torch.empty((n,), dtype=out_dtype, device=pos.device)
+    lib = _load_roots()
+    from ..utils.kernels import check
+
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    err = getattr(lib, name)(pos_.data_ptr(), radius_.data_ptr(),
+                             None if alive_ is None else alive_.data_ptr(),
+                             None if contacts is None else contacts.data_ptr(), n,
+                             out.data_ptr(), stream, pos.device.index or 0)
+    check(lib, err, f"{name} launch")
+    return out
+
+
 def collision_parents_plain(pos, radius, alive=None, *,
                             contacts: Optional[torch.Tensor] = None, chunk: int = 512):
-    """The plain version of the kernel, on any device: the column-blocked
-    parents, and parent[j] = j where a given ``contacts`` count is 0."""
+    """The plain version of the kernel's parents mode, on any device: the
+    column-blocked parents, and parent[j] = j where a given ``contacts``
+    count is 0."""
     if alive is None:
         alive = torch.ones(pos.shape[:1], dtype=torch.bool, device=pos.device)
     parent = collision_parents_chunked(pos, radius, alive, chunk=chunk)
@@ -163,30 +230,7 @@ def collision_parents_cuda(pos: torch.Tensor, radius: torch.Tensor,
         return collision_parents_plain(pos, radius, alive, contacts=contacts)
     if pos.device.type != "cuda":
         raise ValueError(f"collision_roots_cuda: unsupported device {pos.device}")
-    n = pos.shape[0]
-    if pos.ndim != 2 or pos.shape[1] != 3 or radius.shape != pos.shape[:1]:
-        raise ValueError("collision_roots_cuda: need pos [N, 3] and radius [N]")
-    tensors = [radius] + [t for t in (alive, contacts) if t is not None]
-    if any(t.device != pos.device for t in tensors):
-        raise ValueError("collision_roots_cuda: all tensors must be on one device")
-    if contacts is not None and (contacts.dtype != torch.int32 or contacts.numel() != 1):
-        raise TypeError("collision_roots_cuda: contacts must be one int32")
-    if alive is not None and alive.dtype != torch.bool:
-        raise TypeError("collision_roots_cuda: alive must be bool")
-    # the search reads the f32 positions, as a float32 state holds them
-    f32 = torch.float32
-    pos_, radius_ = pos.to(f32).contiguous(), radius.to(f32).contiguous()
-    alive_ = None if alive is None else alive.contiguous()
-    parent = torch.empty((n,), dtype=torch.int64, device=pos.device)
-    lib = _load_roots()
-    from ..utils.kernels import check
-
-    stream = torch.cuda.current_stream(pos.device).cuda_stream
-    err = lib.collision_parents(pos_.data_ptr(), radius_.data_ptr(),
-                                None if alive_ is None else alive_.data_ptr(),
-                                None if contacts is None else contacts.data_ptr(), n,
-                                parent.data_ptr(), stream, pos.device.index or 0)
-    check(lib, err, "collision_parents launch")
+    parent = _sweep_launch("collision_parents", pos, radius, alive, contacts, torch.int64)
     collision_roots_cuda.launches += 1
     return parent
 
@@ -211,3 +255,36 @@ def collision_roots_cuda(pos: torch.Tensor, radius: torch.Tensor,
 
 
 collision_roots_cuda.launches = 0
+
+
+def contact_marks_plain(pos, radius, alive=None, *,
+                        contacts: Optional[torch.Tensor] = None, chunk: int = 1024):
+    """The plain version of the kernel's mark mode, on any device: the
+    row-blocked marks (``ops.collisions.contact_marks_chunked``, JAX's
+    ``i_block``), and no marks where a given ``contacts`` count is 0."""
+    if alive is None:
+        alive = torch.ones(pos.shape[:1], dtype=torch.bool, device=pos.device)
+    mark = contact_marks_chunked(pos, radius, alive, chunk=chunk)
+    if contacts is not None:
+        mark = mark & (contacts > 0)
+    return mark
+
+
+def contact_marks_cuda(pos: torch.Tensor, radius: torch.Tensor,
+                       alive: Optional[torch.Tensor] = None, *,
+                       contacts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel's marks [N] (bool): True where a body touches another (the
+    sqrt test of ``_pair_geometry``), or none when ``contacts`` (an int32
+    0-dim tensor on the same device) is 0. CPU tensors take
+    :func:`contact_marks_plain`. Each launch adds one to
+    ``contact_marks_cuda.launches``."""
+    if pos.device.type == "cpu":
+        return contact_marks_plain(pos, radius, alive, contacts=contacts)
+    if pos.device.type != "cuda":
+        raise ValueError(f"contact_marks_cuda: unsupported device {pos.device}")
+    mark = _sweep_launch("contact_marks", pos, radius, alive, contacts, torch.bool)
+    contact_marks_cuda.launches += 1
+    return mark
+
+
+contact_marks_cuda.launches = 0

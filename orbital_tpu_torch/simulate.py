@@ -4,12 +4,13 @@ Wraps natural-unit rescaling, the precision policy, force-path selection,
 the rollout and the unit conversion back to physical units behind a single
 function. Ported so far: the exact-force kdk, euler, rk4, yoshida4 and
 Hermite steppers (Hermite with fixed or adaptive dt and block timesteps)
-and the multirate (RESPA) stepper on one device, with or without bounce
-or merge collisions, the exact-force variants (``force_impl="pallas_sym"``,
-``"mxu"``, ``"pallas_mxu"``), the tree force solver (``force_impl="tree"``)
-with its ``"kernel"`` near field, and the mesh solvers (``force_impl="pm"``
-and ``"p3m"``) on an auto-pinned cube; the resolve collision mode and the
-tree's other near modes raise ``NotImplementedError`` (ROADMAP.md queue A).
+and the multirate (RESPA) stepper on one device, with or without bounce,
+merge or resolve collisions (with debris into ``spare`` dead slots), the
+exact-force variants (``force_impl="pallas_sym"``, ``"mxu"``,
+``"pallas_mxu"``), the tree force solver (``force_impl="tree"``) with its
+``"kernel"`` near field, and the mesh solvers (``force_impl="pm"`` and
+``"p3m"``) on an auto-pinned cube; the tree's other near modes raise
+``NotImplementedError`` (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -186,6 +187,12 @@ def simulate(
     integrator: str = "kdk",
     collisions: str = "none",
     restitution: float = 1.0,
+    frag_seed: int = 0,
+    debris_k: int = 0,
+    debris_max_pairs: int = 4,
+    debris_energy_frac: float = 0.3,
+    debris_sep: float = 1.0,
+    spare: int = 0,
     force_impl: str = "auto",
     adaptive_eta: Optional[float] = None,
     dt_min: float = 0.0,
@@ -220,7 +227,14 @@ def simulate(
     ``collisions="bounce"`` bounces touching spheres (``scene.radius``)
     with coefficient of restitution ``restitution``; ``collisions="merge"``
     merges every chain of touching spheres into its lowest-index member
-    (mass and momentum conserved, volumes added), the others recorded dead.
+    (mass and momentum conserved, volumes added), the others recorded dead;
+    ``collisions="resolve"`` runs the outcome model (absorption above a mass
+    ratio of 10, fragmentation rolled from ``frag_seed`` and the step,
+    bounce), and with ``debris_k`` > 0 a fragmenting pair spawns
+    ``debris_k`` conserving fragments (``debris_max_pairs``,
+    ``debris_energy_frac``, ``debris_sep``: see
+    ``ops.collisions.resolve_outcomes``) into dead slots, of which
+    ``spare`` are added to the scene.
     ``integrator="hermite"`` takes ``adaptive_eta`` (Aarseth steps clipped
     to [dt_min, dt]; ``dt_min`` in scene units) and the block-timestep knobs
     ``hermite_fast_cap``, ``hermite_max_substeps`` and ``hermite_rungs``
@@ -319,6 +333,11 @@ def simulate(
         integrator=integrator,
         collisions=collisions,
         restitution=restitution,
+        frag_seed=frag_seed,
+        debris_k=debris_k,
+        debris_max_pairs=debris_max_pairs,
+        debris_energy_frac=debris_energy_frac,
+        debris_sep=debris_sep,
         force_impl=force_impl,
         adaptive_eta=adaptive_eta,
         dt_min=dt_min / rescale.time if dt_min else 0.0,
@@ -336,7 +355,7 @@ def simulate(
         tree_wl_rj=tree_wl_rj,
     )
     state = make_state(scene.pos, scene.vel, scene.mass, scene.radius,
-                       precision=precision, rescale=rescale, device=device)
+                       precision=precision, rescale=rescale, spare=spare, device=device)
     if force_impl == "tree":
         cfg = _tree_budget_cfg(cfg, state, tree_near=tree_near, tree_levels=tree_levels)
     if force_impl == "p3m" and p3m_capacity == "auto":

@@ -302,7 +302,7 @@ def test_simulate_merge_matches_jax():
 def test_merge_routing(monkeypatch):
     """CUDA device names route the root search to the kernel's wrapper with
     the contact count; CPU ones dense at N <= 4096 and column-blocked above;
-    resolve still raises naming A.7b."""
+    resolve, which raised naming A.7b before it was ported, runs."""
     calls = []
     monkeypatch.setattr(cuda_collisions, "collision_roots_cuda",
                         lambda pos, radius, alive, contacts=None: calls.append(contacts))
@@ -315,8 +315,9 @@ def test_merge_routing(monkeypatch):
     st = tot.make_state(*_merge_cluster(n=8)[:3], device="cpu")
     for change in (dict(collisions="resolve"),
                    dict(collisions="resolve", integrator="hermite")):
-        with pytest.raises(NotImplementedError, match="A.7b"):
-            R.rollout(st, tot.SimConfig(dt=1e-3, eps2=1e-4, **change), 1)
+        cfg = tot.SimConfig(dt=1e-3, eps2=1e-4, **change)
+        fin, _ = R.rollout(tot.init_forces(st, cfg), cfg, 1)
+        assert int(fin.step) == 1
 
 
 def test_roots_wrapper_refuses_other_devices():

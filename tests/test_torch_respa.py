@@ -477,8 +477,8 @@ def test_unported_respa_paths_raise():
     with pytest.raises(NotImplementedError, match="A.15"):
         tn.near_acc_slots(z, z, z, z, torch.zeros((16, 4), dtype=torch.int32),
                           i0=torch.tensor(0), **SWEEP)
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        tmr.make_respa_macro(cfg.replace(collisions="resolve"), None)
+    # resolve (ROADMAP A.7b) is ported: its macro step builds
+    assert callable(tmr.make_respa_macro(cfg.replace(collisions="resolve"), None).build_geom)
     assert callable(tmr.make_respa_macro(cfg.replace(collisions="merge"), None).build_geom)
     with pytest.raises(ValueError, match="respa_rollout"):
         I.make_step_fn(cfg)

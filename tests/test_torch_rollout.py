@@ -161,8 +161,9 @@ def test_simulate_defaults_and_unported_inputs(rng):
     assert out.pos.shape == (10, 6, 3)  # ~100 records, capped by the steps
     with pytest.raises(NotImplementedError, match="SceneArrays"):
         tot.simulate([1, 2, 3], steps=1, dt=1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        tot.simulate(ts, steps=1, dt=1.0, device="cpu", collisions="resolve")
+    # resolve collisions (ROADMAP A.7b) are ported: the call runs
+    res = tot.simulate(ts, steps=1, dt=1.0, device="cpu", collisions="resolve")
+    assert res.final_state.alive.all()
 
 
 def test_cpu_tensors_take_the_plain_paths(rng, monkeypatch):
@@ -213,11 +214,22 @@ def test_f64_on_cuda_raises():
     (dict(integrator="euler", collisions="resolve"), "A.7b"),
     (dict(collisions="resolve"), "A.7b")])
 def test_unported_steppers_raise(rng, change, item):
+    """These steppers raised naming ROADMAP item ``item`` until resolve
+    collisions were ported: they run now (RESPA through respa_rollout),
+    and no unported path names the item."""
     pos, vel, mass = _cluster(rng, 16)
     cfg = tot.SimConfig(dt=1e-3, eps2=1e-4, **change)
-    st = tot.make_state(pos, vel, mass, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        tot.rollout(tot.init_forces(st, cfg), cfg, 2)
+    st = tot.init_forces(tot.make_state(pos, vel, mass, device="cpu"), cfg)
+    if cfg.integrator == "respa":
+        from orbital_tpu_torch.engine.multirate import respa_rollout
+
+        cfg = cfg.replace(respa_chunk=8, respa_rj=16, respa_max_chunks=16, respa_w_blk=4,
+                          respa_m=8)
+        fin = respa_rollout(st, cfg, 2 * cfg.respa_k)[0]
+    else:
+        fin, _ = tot.rollout(st, cfg, 2)
+    assert bool(torch.isfinite(fin.pos).all()) and int(fin.step) > 0
+    assert item not in R._NOT_PORTED.values()
 
 
 def test_import_leaves_jax_out():
