@@ -44,8 +44,9 @@ Phases, one line of output each; any failure exits nonzero:
      visited pair of its polynomial sweep) and the contact sweep's two modes,
      the merge root search and resolve's contact mark (with the SASS
      instructions a pair of their prefilter loop, one FSETP a pair, whose
-     instructions go to standard error; no spill anywhere), and the issue
-     floor they imply
+     instructions go to standard error), the ensemble kernel's two launch
+     modes (with the SASS instructions a pair of each; no spill anywhere),
+     and the issue floor they imply
      at 528 warp instructions a clock and 1.98 GHz (B7's and the near
      sweep's from their visited pairs, in phases 24 and 20);
   3. the force kernel (B1) against its plain PyTorch version at N = 65536
@@ -224,10 +225,28 @@ Phases, one line of output each; any failure exits nonzero:
      fragments without debris;
  40. the fragmentation frequency on the card: FRAG_PAIRS pairs at E_coll =
      E_thresh through ``_apply_collisions`` over FRAG_ROUNDS steps (fresh
-     draws each), within 4 binomial sigmas of 1/2.
+     draws each), within 4 binomial sigmas of 1/2;
+ 41. the ensemble kernel (``csrc/fused_ensemble.cu``) against its plain
+     version (``fused_ensemble_plain``) at every (members, N) of ENS_CASES
+     in f32 and ds32, with K = 0 (forces only) and ENS_CHECK_STEPS steps:
+     positions and velocities within DRIFT_BUDGET of max, acc within
+     FORCE_RTOL, potential within ENERGY_RTOL, clocks equal, two launches
+     bit-equal; config 5 at 0 and 1 steps, and at ENS_CHECK_STEPS against
+     the same steps in f64 (ENS_F64_FACTOR);
+ 42. the ensemble main path, BASELINE config 5: ``compile_system`` ->
+     ``Rescale.natural`` -> ``make_state`` -> ``make_ensemble`` ->
+     ``ensemble_rollout`` for ENS_STEPS steps in chunks of ENS_CHUNK, each
+     member's |dE/E| from host-f64 energies (``ensemble_energies_f64``)
+     within ENS_DRIFT_BOUND for the maximum and for member 0 (JAX's
+     recorded drifts beside), one kernel launch a chunk and no member loop;
+     a recorded rollout (one launch a block, records [E, R, ...]); and the
+     member loop on a 4-member bounce ensemble;
+ 43. ensemble timings: the kernel route's ms a step and body-steps a second
+     over ENS_TIMED_STEPS steps at each member count of ENS_SCALE, its
+     bound and share of it, and the plain version's step at config 5.
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
-10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38 and 39) and read just after it:
+10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38, 39 and 42) and read just after it:
 each kernel must have run on its path. B3 has no single-card path (the multi-device ring
 launches it): phase 27 checks it, and its record's launches are its count
 over phase 28's three main paths, which must be 0. The
@@ -513,6 +532,33 @@ RESOLVE_MASS_RTOL = 1e-7
 # section 10) and P3M 3.931e-5 over 4,000; each gate ~2-2.5x its run, so a
 # solver that breaks (a refitted or wrong cube, a lost short range) fails
 PM_DRIFT_BOUND, P3M_DRIFT_BOUND = 2e-2, 1e-4
+# the ensemble runs (phases 41-43): BASELINE config 5 (bench.py:517-593),
+# 1,024 perturbed copies of compile_system(solar_system_v2(moons=True),
+# compose_parents=True) (26 bodies), ds32 in natural units, dt 1,800 s,
+# softening 1e6 m, pos_sigma 1e-8 (internal units) from generator seed 7,
+# 10,000 steps in chunks of 2,000, per-member |dE/E| from host-f64 energies
+# gated at the exact kernels' 1e-6 for the maximum and for member 0; JAX's
+# recorded drifts (BENCH_LAST_GOOD.json) printed beside, not a target
+ENS_MEMBERS, ENS_SEED, ENS_SIGMA, ENS_DT_S, ENS_SOFT_M = 1024, 7, 1e-8, 1800.0, 1e6
+ENS_STEPS, ENS_CHUNK, ENS_DRIFT_BOUND = 10000, 2000, 1e-6
+JAX_ENS_DRIFT, JAX_ENS_DRIFT_MEMBER0 = 7.709708863116476e-07, 1.392445959962589e-07
+# phase 41's (members, bodies): config 5, and Gaussian clusters (every other
+# member with a fifth of its bodies dead) across the kernel's two launch
+# modes (a warp a member at N <= 32, a block a member above) and its largest
+# timed N; their softening, and the steps held against the plain version
+ENS_CASES = ((ENS_MEMBERS, 26), (3, 1), (5, 32), (7, 33), (4, 100), (2, 1024))
+ENS_RAND_EPS2, ENS_CHECK_STEPS = 1e-2, 100
+# Config 5's moons sit ~1.4e-4 (internal) from planets at ~0.26, so one ulp
+# of a hi position moves a moon's acceleration by ~6e-4 of it, and any two
+# f32 sweeps (kernel and plain, or plain f32 and ds32) part there: in a CPU
+# emulation of the kernel (exact sqrt) they read 1.9e-4 of max |v| apart
+# after 100 steps while each sat 1.7e-2 from the f64 run. So config 5 is held
+# to the plain version after 0 and 1 steps, and after ENS_CHECK_STEPS each is
+# held to the same steps in f64 from the same state: the kernel's distance
+# within ENS_F64_FACTOR of the plain version's
+ENS_F64_FACTOR = 2.0
+# phase 43: the timed steps of the kernel route, and the member counts timed
+ENS_TIMED_STEPS, ENS_SCALE = 1000, (128, 1024, 8192)
 
 # warp instructions the card issues a second: 4 schedulers on each of 132
 # SMs at the 1.98 GHz boost clock (NVIDIA's data sheet, H100 SXM)
@@ -632,6 +678,14 @@ MARK = dict(name="contact_marks", route="cuda",
             replaces="orbital_tpu/ops/collisions.py:452")
 # the contact sweep's two instantiations (mangled-name stems) by record key
 SWEEP_MODES = {"ROOTS": "sweep_kernelILi0E", "MARK": "sweep_kernelILi1E"}
+# no TPU kernel: stands in for the XLA code of the JAX package's vmapped
+# ensemble rollout (orbital_tpu/parallel/ensemble.py:53-69, dense, fused="never")
+ENS = dict(name="fused_ensemble", route="cuda",
+           source="orbital_tpu_torch/csrc/fused_ensemble.cu",
+           replaces="orbital_tpu/parallel/ensemble.py:53")
+# its two instantiations (mangled-name stems): a warp a member (N <= 32) and a
+# block a member
+ENS_MODES = {"warp": "ensemble_kernelILb1E", "block": "ensemble_kernelILb0E"}
 
 
 def bound(flops: float, nbytes: float, rsqrt: float = 0.0,
@@ -1068,7 +1122,8 @@ def device_times(fn) -> dict:
 def reset_launches() -> None:
     from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
                                        cuda_forces_sym, cuda_jerk, cuda_neighbor, cuda_p3m,
-                                       cuda_tree, fused_rollout)
+                                       cuda_tree, fused_ensemble, fused_rollout)
+    from orbital_tpu_torch.parallel import ensemble
 
     for fn in (cuda_forces.pairwise_acc_cuda, cuda_forces.pairwise_acc_detect_cuda,
                fused_rollout.fused_rollout, cuda_collisions.bounce_deltas_cuda,
@@ -1077,8 +1132,10 @@ def reset_launches() -> None:
                cuda_tree.tree_near_cuda, cuda_forces_sym.pairwise_acc_sym_cuda,
                cuda_forces_mxu.gram_sums_cuda, cuda_forces.block_acc_cuda,
                cuda_p3m.p3m_short_cuda, cuda_p3m.p3m_short_order_cuda,
-               cuda_collisions.collision_roots_cuda, cuda_collisions.contact_marks_cuda):
+               cuda_collisions.collision_roots_cuda, cuda_collisions.contact_marks_cuda,
+               fused_ensemble.fused_ensemble):
         fn.launches = 0
+    ensemble.member_loop.runs = 0
 
 
 @contextlib.contextmanager
@@ -1758,6 +1815,49 @@ def gram_held(out, ref, s64) -> float:
     return worst
 
 
+def ensemble_energies_f64(states, G: float, eps2: float) -> np.ndarray:
+    """Each member's total energy in host f64 from a (ds32) ensemble state
+    [E, N, ...]: ``bench.py::_member_energies_f64``'s formula (all pairs with
+    the softened self terms subtracted), the f64 oracle of the ensemble drift
+    rung."""
+    def full(hi, lo):
+        x = hi.double()
+        return (x if lo is None else x + lo.double()).cpu().numpy()
+
+    pos, vel = full(states.pos, states.pos_lo), full(states.vel, states.vel_lo)
+    mass = states.mass.double().cpu().numpy() * states.alive.double().cpu().numpy()
+    K = 0.5 * np.sum(mass * np.sum(vel * vel, -1), axis=-1)
+    d = pos[:, :, None, :] - pos[:, None, :, :]
+    r = np.sqrt(np.sum(d * d, -1) + eps2)
+    mm = mass[:, :, None] * mass[:, None, :]
+    self_e = np.sum(mass * mass, axis=-1) / np.sqrt(eps2)
+    U = -0.5 * G * (np.sum(mm / r, axis=(1, 2)) - self_e)
+    return K + U
+
+
+def ensemble_errors(out, ref, clocks: bool = True) -> dict:
+    """Relative differences (max |d| / max |ref| over every member) of two
+    ensemble states: full-precision positions and velocities, acc and
+    potential; with ``clocks``, raises unless their clocks and step counters
+    are equal."""
+    import torch
+
+    if clocks and not (torch.equal(out.time, ref.time) and torch.equal(out.step, ref.step)):
+        raise AssertionError("ensemble clocks or step counters differ")
+    out_f = {"pos": out.pos_full(), "vel": out.vel_full(), "acc": out.acc,
+             "potential": out.potential}
+    ref_f = {"pos": ref.pos_full(), "vel": ref.vel_full(), "acc": ref.acc,
+             "potential": ref.potential}
+    errs = {}
+    for k, x in out_f.items():
+        y = ref_f[k].double()
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"ensemble {k} is not finite")
+        scale = float(y.abs().max())
+        errs[k] = float((x.double() - y).abs().max()) / (scale if scale > 0 else 1.0)
+    return errs
+
+
 def max_state_err(a, b) -> float:
     """Largest |difference| of full-precision positions and velocities."""
     err = 0.0
@@ -1780,7 +1880,8 @@ class Smoke:
                         "B5": dict(B5), "B5D": dict(B5D), "B5S": dict(B5S),
                         "NEAR": dict(NEAR), "B7": dict(B7), "B12": dict(B12),
                         "B13": dict(B13), "B3": dict(B3), "P3M": dict(P3M),
-                        "P3MO": dict(P3MO), "ROOTS": dict(ROOTS), "MARK": dict(MARK)}
+                        "P3MO": dict(P3MO), "ROOTS": dict(ROOTS), "MARK": dict(MARK),
+                        "ENS": dict(ENS)}
         self._cluster = None
         self._respa_budgets = None
         self._plummer = None
@@ -1813,14 +1914,14 @@ class Smoke:
     def build(self) -> str:
         from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
                                            cuda_forces_sym, cuda_jerk, cuda_neighbor,
-                                           cuda_p3m, cuda_tree, fused_rollout)
+                                           cuda_p3m, cuda_tree, fused_ensemble, fused_rollout)
         from orbital_tpu_torch.utils import kernels
 
         names = kernels.SOURCES
         t0 = time.perf_counter()
         kernels.build(names)
         for mod in (cuda_forces, fused_rollout, cuda_collisions, cuda_jerk, cuda_neighbor,
-                    cuda_tree, cuda_forces_sym, cuda_forces_mxu, cuda_p3m):
+                    cuda_tree, cuda_forces_sym, cuda_forces_mxu, cuda_p3m, fused_ensemble):
             mod._load()
         cuda_collisions._load_roots()
         total = time.perf_counter() - t0
@@ -1836,7 +1937,7 @@ class Smoke:
         tiled = self.redesigned()
         at = {"tree_near": self.plummer()[3][0], "neighbor": self.respa_budgets()[1]}
         logs = {name: kernels.build_log(name)
-                for name in (*tiled, "p3m_short", "collision_roots")}
+                for name in (*tiled, "p3m_short", "collision_roots", "fused_ensemble")}
         again = {kernels.BUILD_DIR / "usage" / kernels._library_path(name)[1].name: name
                  for name, log in logs.items() if not log}
         for out, (log, _) in compile_libraries(
@@ -1853,13 +1954,15 @@ class Smoke:
                 shapes.append(describe_launch(key, rec))
         # the kernels outside SHAPED: the row subset (in nbody_jerk, whose
         # spills are checked above), the short range and the contact sweep
-        for name in ("p3m_short", "collision_roots"):
+        for name in ("p3m_short", "collision_roots", "fused_ensemble"):
             spills.append(f"{name} 0 in {spill_free(name, logs[name])} entry functions")
         shapes += [self.subset_record(cuda_jerk._load(), logs["nbody_jerk"]),
                    self.p3m_record(logs["p3m_short"], sass(
                        kernels._library_path("p3m_short")[1])),
                    self.roots_record(logs["collision_roots"], sass(
-                       kernels._library_path("collision_roots")[1]))]
+                       kernels._library_path("collision_roots")[1])),
+                   self.ensemble_record(logs["fused_ensemble"], sass(
+                       kernels._library_path("fused_ensemble")[1]))]
         return (f"built {each} in parallel (load total {total:.2f} s) for sm_90a; at "
                 f"N={N_MAIN}: " + "; ".join(shapes) + "; spill bytes: " + ", ".join(spills))
 
@@ -1931,6 +2034,41 @@ class Smoke:
                 f"{fmt(per['ROOTS'])}, mark {fmt(per['MARK'])} (issue floor over the "
                 f"{shape['tiles'] * shape['tile'] ** 2:,} pairs of the tiles: "
                 f"{fmt(floor, 3, ' ms')})")
+
+    def ensemble_record(self, log: str, sass_text: str) -> str:
+        """The ensemble kernel's launch shapes at config 5's N = 26 (a warp a
+        member) and at N = 1,024 (a block a member), the registers and spills
+        of both instantiations, the SASS instructions of each one's pair loop
+        (its innermost loop with MUFU.RSQ, one a pair, the loop without the
+        potential) and the issue floor of config 5's step they imply: each
+        member's ceil(N / 32) warps walk N pairs a step."""
+        import ctypes
+
+        from orbital_tpu_torch.ops import fused_ensemble
+
+        line = self.entry_record("ENS", "ensemble_kernel", log)
+        fn = fused_ensemble._load().fused_ensemble_shape
+        fn.restype, fn.argtypes = None, [ctypes.c_int, ctypes.c_void_p]
+        shapes = {}
+        for n in (26, 1024):
+            arr = (ctypes.c_int * 4)()
+            fn(n, arr)
+            shapes[n] = dict(zip(("members_a_block", "threads", "shared_bytes", "max_n"),
+                                 list(arr)))
+        loops = inner_loop(sass_text)
+        per = {}
+        for mode, stem in ENS_MODES.items():
+            loop = next((v for f, v in loops.items() if stem in f), None)
+            per[mode] = loop[0] / loop[1] if loop else "not measured"
+        if sass_text and not all(isinstance(v, float) for v in per.values()):
+            raise AssertionError(f"ENS: no pair loop with MUFU.RSQ in {per}")
+        floor = issue_floor_ms(per["warp"], ENS_MEMBERS * 26 * 32)
+        self.kernels["ENS"].update(shape=shapes[26], sass_slots_per_pair=per["warp"],
+                                   sass_slots_per_pair_block_mode=per["block"])
+        return (f"{line}, shape at N=26 {shapes[26]}, at N=1024 {shapes[1024]}, SASS "
+                f"instructions a pair: warp a member {fmt(per['warp'])}, block a member "
+                f"{fmt(per['block'])} (issue floor of config 5's step, {ENS_MEMBERS} warps x "
+                f"26 pairs: {fmt(floor, 5, ' ms')})")
 
     def subset_record(self, lib, log: str) -> str:
         """The row subset's block shape and its j split at the main path's
@@ -5612,6 +5750,210 @@ class Smoke:
                 f"each pair wholly fragmented or bounced; marks {contact_marks_cuda.launches}")
 
 
+    # phases 41-43
+    def solar_ensemble(self, members: int, precision: str = "ds32"):
+        """BASELINE config 5 through the port's entry points
+        (bench.py:517-540): the compiled solar system with moons, natural
+        units, ``make_state`` on the card, ``make_ensemble`` with a card
+        generator seeded ENS_SEED; and its config."""
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.models.scene import compile_system
+        from orbital_tpu_torch.parallel.ensemble import make_ensemble
+
+        scene = compile_system(ot.solar_system_v2(moons=True), compose_parents=True)
+        rs = ot.Rescale.natural(scene.pos, scene.mass, ot.STANDARD.G)
+        base = ot.make_state(scene.pos, scene.vel, scene.mass, scene.radius,
+                             precision=precision, rescale=rs, device=self.dev)
+        cfg = ot.SimConfig(dt=ENS_DT_S / rs.time, G=rs.g_internal(ot.STANDARD.G),
+                           eps2=(ENS_SOFT_M / rs.length) ** 2)
+        gen = self.torch.Generator(device=self.dev).manual_seed(ENS_SEED)
+        return make_ensemble(base, members, gen, pos_sigma=ENS_SIGMA), cfg
+
+    def random_ensemble(self, members: int, n: int, precision: str):
+        """Gaussian clusters, one a member, every other member with a fifth
+        of its bodies dead, at softening ENS_RAND_EPS2."""
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.parallel.ensemble import _stack
+
+        rng = np.random.default_rng(self.seed + 41 + n)
+        states = []
+        for m in range(members):
+            st = ot.make_state(rng.normal(size=(n, 3)), rng.normal(size=(n, 3)) * 0.3,
+                               rng.uniform(0.5, 1.5, n) / n, precision=precision,
+                               device=self.dev)
+            if m % 2:
+                alive = np.ones(n, bool)
+                alive[rng.choice(n, max(1, n // 5), replace=False)] = False
+                st = st.replace(alive=self.torch.from_numpy(alive).to(self.dev))
+            states.append(st)
+        return _stack(states), ot.SimConfig(dt=DT, G=1.0, eps2=ENS_RAND_EPS2)
+
+    @staticmethod
+    def ensemble_f64(states):
+        """An ensemble state carried to f64 (hi + lo collapsed), for the
+        plain version's f64 run from the same state."""
+        return states.replace(pos=states.pos_full().double(), vel=states.vel_full().double(),
+                              pos_lo=None, vel_lo=None, mass=states.mass.double(),
+                              radius=states.radius.double(), acc=states.acc.double(),
+                              potential=states.potential.double(),
+                              time=states.time.double())
+
+    # phase 41
+    def check_ensemble(self) -> str:
+        from orbital_tpu_torch.ops.fused_ensemble import fused_ensemble, fused_ensemble_plain
+
+        torch = self.torch
+        lines, worst = [], {}
+        for members, n in ENS_CASES:
+            solar = (members, n) == (ENS_MEMBERS, 26)
+            for precision in ("f32", "ds32"):
+                st, cfg = (self.solar_ensemble(members, precision) if solar
+                           else self.random_ensemble(members, n, precision))
+                for steps in ((0, 1, ENS_CHECK_STEPS) if solar else (0, ENS_CHECK_STEPS)):
+                    out = fused_ensemble(st, cfg, steps)
+                    again = fused_ensemble(st, cfg, steps)
+                    ref = fused_ensemble_plain(st, cfg, steps)
+                    torch.cuda.synchronize()
+                    for f in ("pos", "vel", "pos_lo", "vel_lo", "acc", "potential", "time"):
+                        a, b = getattr(out, f), getattr(again, f)
+                        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                            raise AssertionError(f"ENS {members}x{n} {precision} K={steps}: two "
+                                                 f"launches differ in {f}")
+                    errs = ensemble_errors(out, ref)
+                    key = f"{members}x{n} {precision} K={steps}"
+                    if solar and steps == ENS_CHECK_STEPS:
+                        exact = fused_ensemble_plain(self.ensemble_f64(st), cfg, steps)
+                        k_f64 = ensemble_errors(out, exact, clocks=False)
+                        p_f64 = ensemble_errors(ref, exact, clocks=False)
+                        dist = {f: (k_f64[f], p_f64[f]) for f in ("pos", "vel")}
+                        for f, (k_err, p_err) in dist.items():
+                            if k_err > ENS_F64_FACTOR * p_err + 1e-12:
+                                raise AssertionError(f"ENS {key}: {f} {k_err:.3e} from f64, the "
+                                                     f"plain version {p_err:.3e}")
+                        lines.append(f"{key}: kernel vs plain " + ", ".join(
+                            f"{k} {v:.1e}" for k, v in errs.items()) + "; from f64 kernel/plain "
+                            + ", ".join(f"{f} {a:.2e}/{b:.2e}" for f, (a, b) in dist.items()))
+                        continue
+                    tols = {"pos": DRIFT_BUDGET, "vel": DRIFT_BUDGET, "acc": FORCE_RTOL,
+                            "potential": ENERGY_RTOL}
+                    bad = {k: v for k, v in errs.items() if v > tols[k]}
+                    if bad:
+                        raise AssertionError(f"ENS {key} vs plain: {bad} over {tols}")
+                    for k, v in errs.items():
+                        worst[k] = max(worst.get(k, 0.0), v)
+                    if solar and precision == "ds32" and steps == 1:
+                        self.kernels["ENS"]["max_abs_err"] = max(
+                            float((getattr(out, f)() - getattr(ref, f)()).abs().max())
+                            for f in ("pos_full", "vel_full"))
+                    lines.append(f"{key} " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+        return (f"ENS == plain (state within {DRIFT_BUDGET:g}, acc {FORCE_RTOL:g}, potential "
+                f"{ENERGY_RTOL:g}; worst " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                + "), two launches bit-equal [" + "; ".join(lines) + "]")
+
+    # phase 42
+    def ensemble_main_path(self) -> str:
+        from orbital_tpu_torch.ops.fused_ensemble import fused_ensemble
+        from orbital_tpu_torch.parallel import ensemble
+
+        torch = self.torch
+        states, cfg = self.solar_ensemble(ENS_MEMBERS)
+        e, n = states.pos.shape[0], states.n_bodies
+        if (e, n) != (ENS_MEMBERS, 26):
+            raise AssertionError(f"config 5 is {e} x {n}, not {ENS_MEMBERS} x 26")
+        E0 = ensemble_energies_f64(states, cfg.G, cfg.eps2)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0, done = time.perf_counter(), 0
+        while done < ENS_STEPS:
+            k = min(ENS_CHUNK, ENS_STEPS - done)
+            states, traj = ensemble.ensemble_rollout(states, cfg, k)
+            torch.cuda.synchronize()  # one chunk at a time, as bench_ensemble_drift
+            done += k
+        wall = time.perf_counter() - t0
+        launches, loops = fused_ensemble.launches, ensemble.member_loop.runs
+        self.kernels["ENS"]["launches"] = launches
+        E1 = ensemble_energies_f64(states, cfg.G, cfg.eps2)
+        drift = np.abs((E1 - E0) / E0)
+        if traj is not None or not bool(torch.isfinite(states.pos).all()):
+            raise AssertionError("config 5: non-finite state or a trajectory without records")
+        if not bool((states.step == ENS_STEPS).all()):
+            raise AssertionError("config 5: step counters wrong")
+        if launches != -(-ENS_STEPS // ENS_CHUNK) or loops:
+            raise AssertionError(f"config 5: {launches} kernel launches, {loops} member loops")
+        if drift.max() > ENS_DRIFT_BOUND or drift[0] > ENS_DRIFT_BOUND:
+            raise AssertionError(f"config 5 |dE/E| max {drift.max():.3e}, member 0 "
+                                 f"{drift[0]:.3e} over {ENS_DRIFT_BOUND:g}")
+
+        # a recorded rollout: one launch a block, records [E, R, ...]
+        reset_launches()
+        rec, tr = ensemble.ensemble_rollout(states, cfg, 20, record_every=10)
+        torch.cuda.synchronize()
+        rec_launches = fused_ensemble.launches
+        if tr is None or tuple(tr.pos.shape) != (e, 2, n, 3) or rec_launches != 2:
+            raise AssertionError(f"config 5 recorded: {rec_launches} launches, records "
+                                 f"{None if tr is None else tuple(tr.pos.shape)}")
+        rec_drift = float(ensemble.energy_drift(tr).max())
+
+        # the member loop on the card: a 4-member bounce ensemble of 20 steps
+        small, _ = self.solar_ensemble(4)
+        reset_launches()
+        fin_b, _ = ensemble.ensemble_rollout(small, cfg.replace(collisions="bounce"), 20)
+        torch.cuda.synchronize()
+        member_loops = ensemble.member_loop.runs
+        if member_loops != 1 or fused_ensemble.launches or not bool(
+                torch.isfinite(fin_b.pos).all()):
+            raise AssertionError(f"member loop: {member_loops} runs, "
+                                 f"{fused_ensemble.launches} kernel launches")
+        self.ens_ms_per_step = 1e3 * wall / ENS_STEPS
+        return (f"config 5 ({e} x {n} solar with moons, ds32): {ENS_STEPS} steps in chunks of "
+                f"{ENS_CHUNK} through ensemble_rollout, per-member |dE/E| (host f64) max "
+                f"{drift.max():.3e}, member 0 {drift[0]:.3e} <= {ENS_DRIFT_BOUND:g} (JAX's "
+                f"recorded: {JAX_ENS_DRIFT:.3e}, {JAX_ENS_DRIFT_MEMBER0:.3e}); "
+                f"{1e3 * wall / ENS_STEPS:.5f} ms/step wall, "
+                f"{e * n * ENS_STEPS / wall:.4g} body-steps/s; kernel launches {launches}, "
+                f"member loops {loops}; recorded 20 steps every 10: {rec_launches} launches, "
+                f"records {tuple(tr.pos.shape)}, max f32 energy drift {rec_drift:.2e}; "
+                f"a 4-member bounce ensemble of 20 steps: member loops {member_loops}, kernel "
+                f"launches {fused_ensemble.launches}")
+
+    # phase 43
+    def ensemble_timings(self) -> str:
+        from orbital_tpu_torch.ops.fused_ensemble import fused_ensemble_plain
+        from orbital_tpu_torch.parallel import ensemble
+
+        out, parts = {}, []
+        for members in ENS_SCALE:
+            st, cfg = self.solar_ensemble(members)
+            ms = summary([t / ENS_TIMED_STEPS for t in time_ms(
+                lambda: ensemble.ensemble_rollout(st, cfg, ENS_TIMED_STEPS), 1)])
+            n = st.n_bodies
+            pairs = members * n * n
+            # a launch reads pos, vel (hi and lo), mass and alive once and
+            # writes pos, vel (hi and lo), acc, potential and the clock once
+            nbytes = members * n * (48 + 8 + 48 + 12) + members * 12
+            bnd = bound(OPS_B1 * pairs, nbytes / ENS_TIMED_STEPS, rsqrt=pairs)
+            out[members] = (ms, bnd, members * n / (ms["median"] * 1e-3))
+            parts.append(f"{members} x {n}: {ms['median']:.6f} ms/step (spread "
+                         f"{ms['spread']:.6f}), {out[members][2]:.4g} body-steps/s, bound "
+                         f"{bnd[0]:.6f} ms ({bnd[1]}), {bnd[0] / ms['median']:.2%} of it")
+        st, cfg = self.solar_ensemble(ENS_MEMBERS)
+        plain = summary([t / 20 for t in time_ms(lambda: fused_ensemble_plain(st, cfg, 20), 1)])
+        ms, bnd, _ = out[ENS_MEMBERS]
+        floor = issue_floor_ms(self.kernels["ENS"].get("sass_slots_per_pair"),
+                               ENS_MEMBERS * 26 * 32)
+        self.kernels["ENS"].update(ms=ms["median"], plain_ms=plain["median"], bound_ms=bnd[0],
+                                   bound_by=bnd[1], library_ms=None)
+        self.perf_ensemble = {f"ENS_{k}x26": {"ms_per_step": v[0], "bound_ms": v[1][0],
+                                              "body_steps_per_s": v[2]}
+                              for k, v in out.items()}
+        self.perf_ensemble["plain_1024x26_ms_per_step"] = plain
+        print("perf " + json.dumps(self.perf_ensemble), file=sys.stderr)
+        return ("kernel route, ds32, " + f"{ENS_TIMED_STEPS} unrecorded steps a launch: "
+                + "; ".join(parts) + f"; the batched plain route's step at {ENS_MEMBERS} x 26 "
+                f"(orientation only) {plain['median']:.4f} ms (spread {plain['spread']:.4f}); "
+                f"config 5's issue floor {fmt(floor, 5, ' ms')} a step")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--drift-steps", type=int, default=1000,
@@ -5680,6 +6022,9 @@ def main(argv=None) -> int:
         ("38 resolve bench row", smoke.resolve_bench_row),
         ("39 resolve contact-rich", smoke.resolve_contact_rich),
         ("40 fragmentation frequency", smoke.fragmentation_frequency),
+        ("41 ensemble kernel", smoke.check_ensemble),
+        ("42 ensemble main path", smoke.ensemble_main_path),
+        ("43 ensemble timings", smoke.ensemble_timings),
     ]
     if args.sweep or args.parent:
         phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (

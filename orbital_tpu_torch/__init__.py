@@ -19,9 +19,22 @@ the CUDA bounce sweep, the fused whole-rollout kernel, the multirate
 tree force solver (``force_impl="tree"``) with its CUDA near-field sweep
 and the staged large-N loop, the particle-mesh and P3M solvers
 (``force_impl="pm"``, ``"p3m"``; P3M's short range a CUDA kernel), recorded
-rollouts and ``simulate()`` for scene arrays. See ROADMAP.md queue A for the
-rest.
+rollouts, the host scene layer (``models/``: units, constants, Keplerian
+``Body``/``System``, the bundled solar system, ``Object``/``ObjectCollection``
+and their compilation into scene arrays; ``ops.kepler`` in torch), and
+``simulate()`` for a ``System``, an ``ObjectCollection``, a list of ``Object``
+or scene arrays, and Monte-Carlo ensembles (``parallel.ensemble``: E
+perturbed systems stepped together, the KDK ones by the CUDA ensemble
+kernel). See ROADMAP.md queue A for the rest.
 """
+from .models.constants import (ASTRO, J2000_JD, STANDARD, IntegratorParams, UnitProfile,
+                               UnitSystem, get_unit_profile)
+from .models.body import Body, System
+from .models.datasets import solar_system, solar_system_v2
+from .models.kepler import solve_kepler, state_to_elements
+from .models.objects import (Coordinates, Object, ObjectCollection, collide_spheres,
+                             pairwise_accelerations, set_circular_orbit)
+from .models.rigid import moment_of_inertia, random_angular_velocity
 from .engine.rollout import (Trajectory, init_forces, init_forces_staged, rollout,
                              rollout_staged)
 from .engine.state import NBodyState, Rescale, make_state
@@ -31,6 +44,13 @@ from .ops.tree import tree_acc_potential
 from .simulate import SimResult, simulate
 from .utils.config import SimConfig
 
-__all__ = ["SimConfig", "NBodyState", "Rescale", "make_state", "init_forces",
+__all__ = ["ASTRO", "J2000_JD", "STANDARD", "IntegratorParams", "UnitProfile",
+           "UnitSystem", "get_unit_profile",
+           "Body", "System", "solar_system", "solar_system_v2", "solve_kepler",
+           "state_to_elements",
+           "Coordinates", "Object", "ObjectCollection", "collide_spheres",
+           "pairwise_accelerations", "set_circular_orbit",
+           "moment_of_inertia", "random_angular_velocity",
+           "SimConfig", "NBodyState", "Rescale", "make_state", "init_forces",
            "rollout", "init_forces_staged", "rollout_staged", "Trajectory", "simulate",
            "SimResult", "pm_acc_potential", "p3m_acc_potential", "tree_acc_potential"]

@@ -4,7 +4,9 @@ One frozen dataclass of tensors on one device: positions, velocities,
 masses, radii, an alive mask (masks replace list removal on merges), the
 cached accelerations of the last force evaluation, and the scalar clock and
 step counter as 0-d tensors, so that a rollout never has to read a value
-back to the host between steps.
+back to the host between steps. An ensemble (``parallel.ensemble``) is the
+same dataclass with a leading member axis E on every field, as the JAX
+package's vmapped state: [E, N, 3], [E, N], and potential, time and step [E].
 
 Precision policy (see ``dsfloat``):
   * ``f32``  -- plain float32 state.
@@ -35,17 +37,18 @@ _VALID_PRECISIONS = ("f32", "ds32", "f64")
 
 @dataclasses.dataclass(frozen=True)
 class NBodyState:
-    """Immutable SoA simulation state; N is the body axis."""
+    """Immutable SoA simulation state; N is the body axis (the second last of
+    pos), and an ensemble adds a leading member axis to every field."""
 
-    pos: torch.Tensor              # [N, 3] positions (internal units)
-    vel: torch.Tensor              # [N, 3] velocities
-    mass: torch.Tensor             # [N] masses; 0 for padding bodies
-    radius: torch.Tensor           # [N] collision radii
-    alive: torch.Tensor            # [N] bool; False for padding
-    acc: torch.Tensor              # [N, 3] accelerations of last force eval
-    potential: torch.Tensor        # [] softened potential of last force eval
-    time: torch.Tensor             # [] elapsed simulation time
-    step: torch.Tensor             # [] int32 step counter
+    pos: torch.Tensor              # [(E,) N, 3] positions (internal units)
+    vel: torch.Tensor              # [(E,) N, 3] velocities
+    mass: torch.Tensor             # [(E,) N] masses; 0 for padding bodies
+    radius: torch.Tensor           # [(E,) N] collision radii
+    alive: torch.Tensor            # [(E,) N] bool; False for padding
+    acc: torch.Tensor              # [(E,) N, 3] accelerations of last force eval
+    potential: torch.Tensor        # [(E,)] softened potential of last force eval
+    time: torch.Tensor             # [(E,)] elapsed simulation time
+    step: torch.Tensor             # [(E,)] int32 step counter
     pos_lo: Optional[torch.Tensor] = None  # ds32 compensation terms, else None
     vel_lo: Optional[torch.Tensor] = None
     jerk: Optional[torch.Tensor] = None    # [N, 3] da/dt cache (Hermite)
@@ -231,7 +234,8 @@ def state_from_arrays(fields: dict, device: torch.device | str) -> NBodyState:
     ``orbital_tpu`` ``NBodyState`` passed through ``np.asarray``) onto
     ``device`` unchanged, so that two implementations can step the
     identical state. Missing optional fields (``pos_lo``, ``vel_lo``,
-    ``jerk``) or ``None`` values stay ``None``."""
+    ``jerk``) or ``None`` values stay ``None``. A vmapped ensemble state
+    (a leading member axis on every field) carries over as it is."""
     device = torch.device(device)
     names = {f.name for f in dataclasses.fields(NBodyState)}
     unknown = set(fields) - names

@@ -1,6 +1,8 @@
-"""One-call convenience API: scene arrays in, trajectory out.
+"""One-call convenience API: scene in, trajectory out.
 
-Wraps natural-unit rescaling, the precision policy, force-path selection,
+A scene is a Keplerian ``System``, an ``ObjectCollection`` or a list of
+``Object`` (compiled by ``models.scene``), or ``SceneArrays``. Wraps
+natural-unit rescaling, the precision policy, force-path selection,
 the rollout and the unit conversion back to physical units behind a single
 function. Ported so far: the exact-force kdk, euler, rk4, yoshida4 and
 Hermite steppers (Hermite with fixed or adaptive dt and block timesteps)
@@ -25,8 +27,10 @@ from .engine.multirate import respa_rollout
 from .engine.rollout import (_box_tensors, init_forces, init_forces_staged, rollout,
                              rollout_staged)
 from .engine.state import NBodyState, Rescale, make_state
+from .models.body import System
 from .models.constants import STANDARD, UnitProfile
-from .models.scene import SceneArrays
+from .models.objects import Object, ObjectCollection
+from .models.scene import SceneArrays, compile_objects, compile_system
 from .ops.neighbor import neighbor_budgets
 from .ops.p3m import p3m_max_occupancy
 from .ops.tree import _check_near, tree_occupancy_probe
@@ -176,7 +180,7 @@ class SimResult:
 
 
 def simulate(
-    scene: SceneArrays,
+    scene: Union[System, ObjectCollection, list[Object], SceneArrays],
     *,
     steps: int,
     dt: float,
@@ -220,6 +224,12 @@ def simulate(
 ) -> SimResult:
     """Simulate a scene on ``device`` and return its recorded trajectory in
     physical units.
+
+    ``scene`` is a Keplerian ``System`` (compiled to SI state vectors by
+    ``models.scene.compile_system``, which standardizes the system's units in
+    place and adds each moon's parent state), an ``ObjectCollection`` or a
+    list of ``Object`` (``compile_objects``, in the objects' own units), or
+    ``SceneArrays`` as they are.
 
     ``precision`` defaults to ``"f64"`` on the CPU (the golden path) and
     ``"ds32"`` on CUDA. ``record_every`` defaults to ~100 evenly spaced
@@ -281,11 +291,14 @@ def simulate(
     bodies left the pinned cube (their deposits clip to the edge cells).
     Neither has a contact-detecting variant; Hermite raises.
     """
-    if not isinstance(scene, SceneArrays):
-        raise NotImplementedError(
-            "simulate() takes SceneArrays in orbital_tpu_torch so far; "
-            "compiling a System or ObjectCollection is ROADMAP.md queue A "
-            "item A.10")
+    if isinstance(scene, System):
+        scene = compile_system(scene)
+    elif isinstance(scene, ObjectCollection) or (
+            isinstance(scene, list) and scene and all(isinstance(o, Object) for o in scene)):
+        scene = compile_objects(scene)
+    elif not isinstance(scene, SceneArrays):
+        raise TypeError("simulate() takes a System, an ObjectCollection, a list of Object "
+                        f"or SceneArrays, got {type(scene).__name__}")
     device = torch.device(device)
     if precision is None:
         precision = "f64" if device.type == "cpu" else "ds32"

@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # every source in csrc/, by library name
 SOURCES = ("nbody_forces", "fused_rollout", "collisions", "nbody_jerk", "neighbor",
            "tree_near", "nbody_forces_sym", "nbody_forces_mxu", "p3m_short",
-           "collision_roots")
+           "collision_roots", "fused_ensemble")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}

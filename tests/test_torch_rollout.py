@@ -159,7 +159,9 @@ def test_simulate_defaults_and_unported_inputs(rng):
     out = tot.simulate(ts, steps=10, dt=60.0, softening=1e3, device="cpu")
     assert out.final_state.dtype == torch.float64  # f64 on the CPU by default
     assert out.pos.shape == (10, 6, 3)  # ~100 records, capped by the steps
-    with pytest.raises(NotImplementedError, match="SceneArrays"):
+    # a System, an ObjectCollection or a list of Object is compiled (A.10);
+    # anything else is refused
+    with pytest.raises(TypeError, match="SceneArrays"):
         tot.simulate([1, 2, 3], steps=1, dt=1.0, device="cpu")
     # resolve collisions (ROADMAP A.7b) are ported: the call runs
     res = tot.simulate(ts, steps=1, dt=1.0, device="cpu", collisions="resolve")
