@@ -7,11 +7,12 @@
 With ``--parent DIR`` (a checkout of another commit, e.g. unpacked by
 ``git archive``) it runs phases 1-2 and then only holds B1, B2, B3 (on
 coinciding tables), B5, B5 detect, the B5 row subset, B13, B6, B12, B7, the
-near sweep, B4, the P3M short range and the merge root search of this tree
-against those built from DIR's ``csrc/nbody_forces.cu``,
-``nbody_jerk.cu``, ``nbody_forces_mxu.cu``, ``collisions.cu``,
-``nbody_forces_sym.cu``, ``tree_near.cu``, ``neighbor.cu``,
-``fused_rollout.cu``, ``p3m_short.cu`` and ``collision_roots.cu`` (the root
+near sweep, B4, the P3M short range, the merge root search and the
+ensemble kernel of this tree against those built from DIR's
+``csrc/nbody_forces.cu``, ``nbody_jerk.cu``, ``nbody_forces_mxu.cu``,
+``collisions.cu``, ``nbody_forces_sym.cu``, ``tree_near.cu``,
+``neighbor.cu``, ``fused_rollout.cu``, ``p3m_short.cu``,
+``collision_roots.cu`` and ``fused_ensemble.cu`` (the root
 search's parents integer-equal, gated and ungated, at the contact-rich
 radius; the P3M bench row's table within
 SHORT_RTOL; N = 65,536, 7 dead, eps2 1e-4 and 0, PE on and off; B7
@@ -22,11 +23,12 @@ B6 within BOUNCE_RTOL with the gated B6 bit-equal to the ungated, B7 and
 the near sweep within NEAR_RTOL (B7 with equal overflow), B4 within
 STATE_ATOL, says whether each is bit-equal, and times both trees' kernels
 in turns (B7 at 65,536 and 1,048,576 bodies, B4 at 4,096 and 32,768 in
-ds32 and f32, the root search at a count > 0 and at 0), and the block macro
-step on each tree's row subset (its time and the host's time to queue it).
-A source whose C signature predates its redesign (the near sweep's, B4's,
-the row subset's and the P3M short range's first versions) runs through
-``FIRST_SIGNATURES``. With
+ds32 and f32, the root search at a count > 0 and at 0, the ensemble kernel
+at 128, 1,024 and 8,192 config-5 members, held to its plain version), and
+the block macro step on each tree's row subset (its time and the host's
+time to queue it). A source whose C signature predates its redesign (the
+near sweep's, B4's, the row subset's, the P3M short range's and the
+ensemble kernel's first versions) runs through ``FIRST_SIGNATURES``. With
 ``--sweep`` it runs phases 1-2 and then builds the launch shapes of
 ``SWEEP`` (``-D`` overrides of the eight sources' shape macros), holds each
 against the plain versions and times them in turns, with the registers,
@@ -44,8 +46,9 @@ Phases, one line of output each; any failure exits nonzero:
      visited pair of its polynomial sweep) and the contact sweep's two modes,
      the merge root search and resolve's contact mark (with the SASS
      instructions a pair of their prefilter loop, one FSETP a pair, whose
-     instructions go to standard error), the ensemble kernel's two launch
-     modes (with the SASS instructions a pair of each; no spill anywhere),
+     instructions go to standard error), the ensemble kernel's team and
+     block kernels (the library's launch shapes against the layout the
+     source states, the SASS instructions a pair of each; no spill anywhere),
      and the issue floor they imply
      at 528 warp instructions a clock and 1.98 GHz (B7's and the near
      sweep's from their visited pairs, in phases 24 and 20);
@@ -232,7 +235,8 @@ Phases, one line of output each; any failure exits nonzero:
      positions and velocities within DRIFT_BUDGET of max, acc within
      FORCE_RTOL, potential within ENERGY_RTOL, clocks equal, two launches
      bit-equal; config 5 at 0 and 1 steps, and at ENS_CHECK_STEPS against
-     the same steps in f64 (ENS_F64_FACTOR);
+     the same steps in f64 (ENS_F64_FACTOR), and its first ENS_SLICE
+     members launched alone bit-equal to the same members in the ensemble;
  42. the ensemble main path, BASELINE config 5: ``compile_system`` ->
      ``Rescale.natural`` -> ``make_state`` -> ``make_ensemble`` ->
      ``ensemble_rollout`` for ENS_STEPS steps in chunks of ENS_CHUNK, each
@@ -243,10 +247,27 @@ Phases, one line of output each; any failure exits nonzero:
      member loop on a 4-member bounce ensemble;
  43. ensemble timings: the kernel route's ms a step and body-steps a second
      over ENS_TIMED_STEPS steps at each member count of ENS_SCALE, its
-     bound and share of it, and the plain version's step at config 5.
+     bound and share of it, and the plain version's step at config 5;
+ 44. the facade: ``SimulationEngine`` on the card over the 65,536-body
+     cluster as Objects (radius R_BENCH, the default bounce mode, ds32, the
+     cluster's own units), FACADE_STEP_CALLS ``step()``s and
+     ``run(FACADE_RUN)`` recording every FACADE_HISTORY_EVERY-th step: B1
+     (the initial evaluation), B2 and the gated B6 launched through it, the
+     history's length and stride, |dE/E| in f64 within DRIFT_BUDGET; a
+     ``.npz`` checkpoint resumed in a fresh engine, FACADE_AFTER more steps
+     in both bit-equal; ``run()`` against ``rollout`` alone on the same
+     state, in turns (the facade's overhead);
+ 45. the viewer backend (``serve.backend``, no web layer on the card's
+     machine): cluster mode at SIM_N = 65,536 with VIEWER_WARMUP warm-up
+     steps, VIEWER_TICKS ticks of SIM_STEPS_PER_TICK steps (B1 each step)
+     and as many snapshots (JSON, the schema's keys, 1,500 view bodies,
+     finite), ms a tick and a snapshot, the checkpoint function; solar mode,
+     SOLAR_TICKS ticks and its checkpoint;
+ 46. the CLI in process: ``simulate --steps 365 --device cuda``, its JSON
+     line parsed and checked.
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
-10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38, 39 and 42) and read just after it:
+10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38, 39, 42, 44 and 45) and read just after it:
 each kernel must have run on its path. B3 has no single-card path (the multi-device ring
 launches it): phase 27 checks it, and its record's launches are its count
 over phase 28's three main paths, which must be 0. The
@@ -559,6 +580,23 @@ ENS_RAND_EPS2, ENS_CHECK_STEPS = 1e-2, 100
 ENS_F64_FACTOR = 2.0
 # phase 43: the timed steps of the kernel route, and the member counts timed
 ENS_TIMED_STEPS, ENS_SCALE = 1000, (128, 1024, 8192)
+# phase 41: a launch of config 5's first ENS_SLICE members alone, bit-equal to
+# the same members in the 1,024-member launch
+ENS_SLICE = 128
+
+# the facade and viewer runs (phases 44-46): the engine on the 65,536-body
+# cluster in its own units (G = 1 through the unit profile, the identity
+# rescale, so its config is the bench cluster's: dt 1e-3, eps2 1e-4) with the
+# bench row's radius and the default bounce mode: FACADE_STEP_CALLS step()s,
+# run(FACADE_RUN) recording every FACADE_HISTORY_EVERY-th step, a checkpoint
+# resumed in a fresh engine and FACADE_AFTER more steps in both (bit-equal);
+# run() against rollout alone with the same recording and host copy over
+# FACADE_TIMED steps, FACADE_TIMED_REPEATS times each in turns. The viewer backend at SIM_N = 65,536 with VIEWER_WARMUP
+# warm-up steps (the default is 5,000) and VIEWER_TICKS ticks and snapshots;
+# solar mode with SOLAR_TICKS ticks
+FACADE_STEP_CALLS, FACADE_RUN, FACADE_HISTORY_EVERY, FACADE_AFTER = 10, 500, 50, 100
+FACADE_TIMED, FACADE_TIMED_REPEATS = 200, 8
+VIEWER_WARMUP, VIEWER_TICKS, VIEWER_VIEW, SOLAR_TICKS = 100, 5, 1500, 3
 
 # warp instructions the card issues a second: 4 schedulers on each of 132
 # SMs at the 1.98 GHz boost clock (NVIDIA's data sheet, H100 SXM)
@@ -598,7 +636,8 @@ LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_bloc
              "neighbor": ("near_sweep", "ot_error_string"),
              "fused_rollout": ("fused_kdk", "fused_kdk_shape", "ot_error_string"),
              "p3m_short": ("p3m_short_sorted", "p3m_short_order", "p3m_short_shape",
-                           "ot_error_string")}
+                           "ot_error_string"),
+             "fused_ensemble": ("fused_ensemble", "fused_ensemble_shape", "ot_error_string")}
 # the sources whose inner loop must hold tensor-core products (TF32 HMMA)
 TENSOR_CORE = {"nbody_forces_mxu": r"\bHMMA\.\S*TF32"}
 # --sweep: the launch shapes built with -D (i bodies or m16 tiles a thread
@@ -683,9 +722,9 @@ SWEEP_MODES = {"ROOTS": "sweep_kernelILi0E", "MARK": "sweep_kernelILi1E"}
 ENS = dict(name="fused_ensemble", route="cuda",
            source="orbital_tpu_torch/csrc/fused_ensemble.cu",
            replaces="orbital_tpu/parallel/ensemble.py:53")
-# its two instantiations (mangled-name stems): a warp a member (N <= 32) and a
-# block a member
-ENS_MODES = {"warp": "ensemble_kernelILb1E", "block": "ensemble_kernelILb0E"}
+# its two kernels (mangled-name stems): the team kernel (N <= 32, a warp a
+# member, a lane a body) and the block kernel (N > 32)
+ENS_MODES = {"team": "ensemble_team_kernel", "block": "ensemble_block_kernel"}
 
 
 def bound(flops: float, nbytes: float, rsqrt: float = 0.0,
@@ -1858,6 +1897,35 @@ def ensemble_errors(out, ref, clocks: bool = True) -> dict:
     return errs
 
 
+ENSEMBLE_FIELDS = ("pos", "vel", "pos_lo", "vel_lo", "acc", "potential", "time", "step")
+
+
+def ensemble_slice(states, k: int):
+    """The first k members of an ensemble state."""
+    return states.replace(**{f: getattr(states, f)[:k]
+                             for f in ENSEMBLE_FIELDS + ("mass", "radius", "alive")
+                             if getattr(states, f) is not None})
+
+
+def ensemble_equal(a, b, what: str) -> None:
+    """Raise unless two ensemble states are bit-equal in every field the
+    kernel writes."""
+    import torch
+
+    for f in ENSEMBLE_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+            raise AssertionError(f"{what} differ in {f}")
+
+
+def ensemble_lane_pairs(members: int, shape: dict) -> int:
+    """The lane pairs the ensemble kernel's pair loop issues a step for
+    ``members`` systems at the launch shape ``shape`` (from
+    ``fused_ensemble_shape``: every thread of a member's block walks its
+    ``j_a_lane`` j, live lane or not): the count its issue floor takes."""
+    return members * shape["threads"] * shape["j_a_lane"]
+
+
 def max_state_err(a, b) -> float:
     """Largest |difference| of full-precision positions and velocities."""
     err = 0.0
@@ -2036,25 +2104,30 @@ class Smoke:
                 f"{fmt(floor, 3, ' ms')})")
 
     def ensemble_record(self, log: str, sass_text: str) -> str:
-        """The ensemble kernel's launch shapes at config 5's N = 26 (a warp a
-        member) and at N = 1,024 (a block a member), the registers and spills
-        of both instantiations, the SASS instructions of each one's pair loop
-        (its innermost loop with MUFU.RSQ, one a pair, the loop without the
-        potential) and the issue floor of config 5's step they imply: each
-        member's ceil(N / 32) warps walk N pairs a step."""
+        """The ensemble kernel's launch shapes (``fused_ensemble_shape``) at
+        config 5's N = 26 (the team kernel: a warp a member, a lane a body,
+        its chains) and at N = 1,024 (the block kernel), checked against
+        the layout the source states and the wrapper's ENSEMBLE_MAX_N, the
+        registers and spills of its kernels, the SASS instructions of each
+        one's pair loop a pair (its innermost loop with the most MUFU.RSQ,
+        one a pair, the loop without the potential) and the issue floor of
+        config 5's pair loop: 32 lanes a member, 26 j a lane, one step."""
         import ctypes
 
-        from orbital_tpu_torch.ops import fused_ensemble
+        from orbital_tpu_torch.ops import fused_ensemble as fe
 
-        line = self.entry_record("ENS", "ensemble_kernel", log)
-        fn = fused_ensemble._load().fused_ensemble_shape
-        fn.restype, fn.argtypes = None, [ctypes.c_int, ctypes.c_void_p]
+        line = self.entry_record("ENS", "ensemble_", log)
+        lib = fe._load()
         shapes = {}
-        for n in (26, 1024):
-            arr = (ctypes.c_int * 4)()
-            fn(n, arr)
-            shapes[n] = dict(zip(("members_a_block", "threads", "shared_bytes", "max_n"),
-                                 list(arr)))
+        for n, threads, chains in ((26, 32, 2), (1024, 256, 1)):
+            arr = (ctypes.c_int * 6)()
+            lib.fused_ensemble_shape(n, arr)
+            shape = dict(zip(("members_a_block", "threads", "shared_bytes", "max_n",
+                              "chains", "j_a_lane"), list(arr)))
+            if (shape["members_a_block"], shape["threads"], shape["max_n"], shape["chains"],
+                    shape["j_a_lane"]) != (1, threads, fe.ENSEMBLE_MAX_N, chains, n):
+                raise AssertionError(f"ENS at N={n}: the library's shape {shape}")
+            shapes[n] = shape
         loops = inner_loop(sass_text)
         per = {}
         for mode, stem in ENS_MODES.items():
@@ -2062,13 +2135,14 @@ class Smoke:
             per[mode] = loop[0] / loop[1] if loop else "not measured"
         if sass_text and not all(isinstance(v, float) for v in per.values()):
             raise AssertionError(f"ENS: no pair loop with MUFU.RSQ in {per}")
-        floor = issue_floor_ms(per["warp"], ENS_MEMBERS * 26 * 32)
-        self.kernels["ENS"].update(shape=shapes[26], sass_slots_per_pair=per["warp"],
-                                   sass_slots_per_pair_block_mode=per["block"])
+        lane_pairs = ensemble_lane_pairs(ENS_MEMBERS, shapes[26])
+        floor = issue_floor_ms(per["team"], lane_pairs)
+        self.kernels["ENS"].update(shape=shapes[26], sass_slots_per_pair=per["team"],
+                                   sass_slots_per_pair_block_kernel=per["block"])
         return (f"{line}, shape at N=26 {shapes[26]}, at N=1024 {shapes[1024]}, SASS "
-                f"instructions a pair: warp a member {fmt(per['warp'])}, block a member "
-                f"{fmt(per['block'])} (issue floor of config 5's step, {ENS_MEMBERS} warps x "
-                f"26 pairs: {fmt(floor, 5, ' ms')})")
+                f"instructions a pair: team kernel {fmt(per['team'])}, block kernel "
+                f"{fmt(per['block'])} (issue floor of config 5's pair loop, "
+                f"{lane_pairs:,} lane pairs a step: {fmt(floor, 5, ' ms')})")
 
     def subset_record(self, lib, log: str) -> str:
         """The row subset's block shape and its j split at the main path's
@@ -4503,16 +4577,17 @@ class Smoke:
 
         from orbital_tpu_torch.utils import kernels
 
-        from orbital_tpu_torch.ops import cuda_p3m
+        from orbital_tpu_torch.ops import cuda_p3m, fused_ensemble
         from orbital_tpu_torch.ops.cuda_p3m import p3m_short_cuda
 
         mods = self.redesigned()
         jobs = {name: (Path(parent) / "orbital_tpu_torch" / "csrc" / f"{name}.cu",
                        kernels.BUILD_DIR / "parent" / f"lib{name}.so")
-                for name in (*mods, "p3m_short", "collision_roots")}
+                for name in (*mods, "p3m_short", "collision_roots", "fused_ensemble")}
         compile_libraries([(src, out, ()) for src, out in jobs.values()])
         old = {mod: other_build(name, jobs[name][1], mod._load())
-               for name, mod in (*mods.items(), ("p3m_short", cuda_p3m))}
+               for name, mod in (*mods.items(), ("p3m_short", cuda_p3m),
+                                 ("fused_ensemble", fused_ensemble))}
         roots = RootsLib()
         old[roots] = bind_like(jobs["collision_roots"][1], roots.load(),
                                ("collision_parents", "ot_error_string"))
@@ -4626,12 +4701,13 @@ class Smoke:
                 line += (f", SM clock {mhz:.0f} MHz at {clocks[k]['watts']:.0f} W: issue "
                          f"floor {floor:.3f} ms ({100 * floor / this['median']:.0f}%)")
             lines.append(line)
+        lines.append(self.ensemble_parent(old[fused_ensemble], sass(jobs["fused_ensemble"][1])))
         lines.append("block macro step (rungs 1, m = {}) {}".format(macro.m, ", ".join(
             f"{k} {macro_t[k]['median']:.3f} ms (spread {macro_t[k]['spread']:.3f}), host "
             f"{macro_h[k]['median']:.3f} ms (spread {macro_h[k]['spread']:.3f})"
             for k in steps)))
         return (f"B1, B2, B3, B5, B5 detect, the B5 subset, B13, B6, B12, B7, the near sweep, "
-                f"B4, the P3M short range and the root search held "
+                f"B4, the P3M short range, the root search and ENS held "
                 f"against the build of "
                 f"{parent}'s sources in {cases} calls (N={N_MAIN}, 7 dead, R {R_RICH:g}, eps2 "
                 f"{EPS2:g} and 0, PE on and off; within {FORCE_RTOL:g} / {JERK_RTOL:g} / "
@@ -4643,13 +4719,72 @@ class Smoke:
                 f"{overflow} equal; the near sweep within {NEAR_RTOL:g} at N={N_MAIN} (table, "
                 f"worklist) and the ragged starved {N_NEAR_RAGGED}; B4 after 10 steps within "
                 f"{STATE_ATOL:g} on {FUSED_CASES}; the P3M short range within {SHORT_RTOL:g} "
-                f"on the bench row's table; the root search's parents equal, gated and "
+                f"on the bench row's table; the ensemble kernel within DRIFT_BUDGET, "
+                f"FORCE_RTOL and ENERGY_RTOL of the plain version at ENS_CASES' config 5 "
+                f"(1 step) and 2 x 1,024 (ENS_CHECK_STEPS), timed at {ENS_SCALE} members; "
+                f"the root search's parents equal, gated and "
                 f"ungated, at R {R_RICH:g} and {R_BENCH:g}); in turns, 6 runs each (B1, B2, "
                 f"B13 no PE; ROOTS at a count > 0, ROOTS0 at 0; "
                 f"B3 PE; B6 ungated, B6Z at a zero count; B12; B7 at N={N_MAIN} and B7L at "
                 f"{N_TREE_BIG}; NEAR the table sweep at N={N_MAIN}; B4 200 steps at {N_FUSED}, "
                 f"ds32 and B4F f32, B4L and B4LF 20 steps at {N_FUSED_BIG}): "
                 + "; ".join(lines))
+
+    def ensemble_parent(self, old_lib, parent_sass: str) -> str:
+        """``--parent``'s ensemble kernel: this tree's and the other build's
+        launches against the plain version (config 5 after 1 step in ds32
+        and f32, the block kernel's 2 x 1,024 after ENS_CHECK_STEPS), whether
+        the two builds agree bit for bit, and both timed in turns over
+        ENS_TIMED_STEPS steps at each member count of ENS_SCALE, with their
+        SASS instructions a pair."""
+        from orbital_tpu_torch.ops import fused_ensemble as fe
+
+        held = []
+        for members, n, steps in ((ENS_MEMBERS, 26, 1), (2, 1024, ENS_CHECK_STEPS)):
+            for precision in ("ds32", "f32"):
+                st, cfg = (self.solar_ensemble(members, precision) if n == 26
+                           else self.random_ensemble(members, n, precision))
+                ref = fe.fused_ensemble_plain(st, cfg, steps)
+                outs = {"this": fe.fused_ensemble(st, cfg, steps),
+                        "parent": on(fe, old_lib, lambda: fe.fused_ensemble(st, cfg, steps))}
+                tols = {"pos": DRIFT_BUDGET, "vel": DRIFT_BUDGET, "acc": FORCE_RTOL,
+                        "potential": ENERGY_RTOL}
+                for k, out in outs.items():
+                    errs = ensemble_errors(out, ref)
+                    bad = {f: v for f, v in errs.items() if v > tols[f]}
+                    if bad:
+                        raise AssertionError(f"ENS {k} {members}x{n} {precision}: {bad}")
+                try:
+                    ensemble_equal(outs["this"], outs["parent"], "")
+                    same = "bit-equal"
+                except AssertionError:
+                    same = "not bit-equal"
+                held.append(f"{members} x {n} {precision} K={steps} {same}")
+        fns = {}
+        for members in ENS_SCALE:
+            st, cfg = self.solar_ensemble(members)
+            call = (lambda st_, cfg_: lambda: fe.fused_ensemble(st_, cfg_, ENS_TIMED_STEPS))(
+                st, cfg)
+            fns[f"ENS{members} parent"] = (lambda c_: lambda: on(fe, old_lib, c_))(call)
+            fns[f"ENS{members}"] = call
+        times = {k: summary([1e3 * v / ENS_TIMED_STEPS for v in runs])
+                 for k, runs in alternate_ms(fns, 3, repeats=6).items()}
+        per = {"this": self.kernels["ENS"].get("sass_slots_per_pair"),
+               "parent": next((v[0] / v[1] for f, v in inner_loop(parent_sass).items()
+                               if "ensemble_kernelILb1E" in f), "not measured")}
+        print("perf_parent_ens " + json.dumps({"times_us_per_step": times, "slots": per}),
+              file=sys.stderr)
+        parts = []
+        for members in ENS_SCALE:
+            this, par = times[f"ENS{members}"], times[f"ENS{members} parent"]
+            faster = max(this["runs"]) < min(par["runs"])
+            parts.append(f"{members} x 26 {this['median']:.4f} us/step (spread "
+                         f"{this['spread']:.4f}) vs parent {par['median']:.4f} "
+                         f"({par['spread']:.4f}), {par['median'] / this['median']:.2f}x, faster "
+                         f"outside both spreads: {'yes' if faster else 'no'}")
+        return (f"ENS against the parent's build ({'; '.join(held)}), in turns, 6 runs each: "
+                + "; ".join(parts) + f"; SASS instructions a pair {fmt(per['this'])} (parent's "
+                f"warp-a-member loop {fmt(per['parent'])})")
 
     # phase 29
     def variant_timings(self) -> str:
@@ -5803,7 +5938,7 @@ class Smoke:
         from orbital_tpu_torch.ops.fused_ensemble import fused_ensemble, fused_ensemble_plain
 
         torch = self.torch
-        lines, worst = [], {}
+        lines, worst, plan_free = [], {}, 0
         for members, n in ENS_CASES:
             solar = (members, n) == (ENS_MEMBERS, 26)
             for precision in ("f32", "ds32"):
@@ -5814,11 +5949,16 @@ class Smoke:
                     again = fused_ensemble(st, cfg, steps)
                     ref = fused_ensemble_plain(st, cfg, steps)
                     torch.cuda.synchronize()
-                    for f in ("pos", "vel", "pos_lo", "vel_lo", "acc", "potential", "time"):
-                        a, b = getattr(out, f), getattr(again, f)
-                        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
-                            raise AssertionError(f"ENS {members}x{n} {precision} K={steps}: two "
-                                                 f"launches differ in {f}")
+                    ensemble_equal(out, again, f"ENS {members}x{n} {precision} K={steps}: two "
+                                               "launches")
+                    if solar:
+                        # the team kernel's layout follows N alone: the
+                        # ensemble's size may not change a bit of a member
+                        part = fused_ensemble(ensemble_slice(st, ENS_SLICE), cfg, steps)
+                        ensemble_equal(ensemble_slice(out, ENS_SLICE), part,
+                                       f"ENS {members}x{n} {precision} K={steps}: the first "
+                                       f"{ENS_SLICE} members alone and in the ensemble")
+                        plan_free += 1
                     errs = ensemble_errors(out, ref)
                     key = f"{members}x{n} {precision} K={steps}"
                     if solar and steps == ENS_CHECK_STEPS:
@@ -5848,7 +5988,9 @@ class Smoke:
                     lines.append(f"{key} " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
         return (f"ENS == plain (state within {DRIFT_BUDGET:g}, acc {FORCE_RTOL:g}, potential "
                 f"{ENERGY_RTOL:g}; worst " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-                + "), two launches bit-equal [" + "; ".join(lines) + "]")
+                + f"), two launches bit-equal; config 5's first {ENS_SLICE} members alone "
+                f"bit-equal to the same members in the ensemble ({plan_free} cases) ["
+                + "; ".join(lines) + "]")
 
     # phase 42
     def ensemble_main_path(self) -> str:
@@ -5939,8 +6081,9 @@ class Smoke:
         st, cfg = self.solar_ensemble(ENS_MEMBERS)
         plain = summary([t / 20 for t in time_ms(lambda: fused_ensemble_plain(st, cfg, 20), 1)])
         ms, bnd, _ = out[ENS_MEMBERS]
+        shape = self.kernels["ENS"].get("shape")
         floor = issue_floor_ms(self.kernels["ENS"].get("sass_slots_per_pair"),
-                               ENS_MEMBERS * 26 * 32)
+                               shape and ensemble_lane_pairs(ENS_MEMBERS, shape))
         self.kernels["ENS"].update(ms=ms["median"], plain_ms=plain["median"], bound_ms=bnd[0],
                                    bound_by=bnd[1], library_ms=None)
         self.perf_ensemble = {f"ENS_{k}x26": {"ms_per_step": v[0], "bound_ms": v[1][0],
@@ -5953,6 +6096,243 @@ class Smoke:
                 f"(orientation only) {plain['median']:.4f} ms (spread {plain['spread']:.4f}); "
                 f"config 5's issue floor {fmt(floor, 5, ' ms')} a step")
 
+    # phases 44-46
+    def facade_engine(self):
+        """A ``SimulationEngine`` on the card over the 65,536-body cluster
+        as Objects (radius R_BENCH, default bounce collisions, ds32, G = 1,
+        the identity rescale, history every FACADE_HISTORY_EVERY-th step of
+        a run)."""
+        import dataclasses as dc
+
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.models.objects import Coordinates, Object, ObjectCollection
+
+        pos, vel, mass, _ = self.cluster()
+        objs = ObjectCollection([
+            Object(float(mass[i]), R_BENCH, velocity=vel[i], coordinates=Coordinates(*pos[i]),
+                   name=f"b{i:06d}") for i in range(len(mass))])
+        return ot.SimulationEngine(objs, dt=DT, softening=EPS2 ** 0.5, cache=False,
+                                   max_hist=None, precision="ds32",
+                                   unit_profile=dc.replace(ot.STANDARD, G=1.0),
+                                   rescale=ot.Rescale.identity(),
+                                   history_every=FACADE_HISTORY_EVERY, device=self.dev)
+
+    # phase 44
+    def facade_main_path(self) -> str:
+        import tempfile
+
+        from orbital_tpu_torch.ops import cuda_collisions, cuda_forces
+        from orbital_tpu_torch.engine.rollout import rollout
+
+        torch = self.torch
+        reset_launches()
+        t0 = time.perf_counter()
+        eng = self.facade_engine()
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        if eng.config.collisions != "bounce" or eng.state.n_bodies != N_MAIN or not eng.state.is_ds:
+            raise AssertionError(f"facade: {eng.config.collisions} collisions, N "
+                                 f"{eng.state.n_bodies}, ds {eng.state.is_ds}")
+        E0 = energy_f64(eng.state)
+        t0 = time.perf_counter()
+        for _ in range(FACADE_STEP_CALLS):
+            eng.step()
+        eng.run(FACADE_RUN)
+        torch.cuda.synchronize()
+        t_drive = time.perf_counter() - t0
+        launches = {"B1": cuda_forces.pairwise_acc_cuda.launches,
+                    "B2": cuda_forces.pairwise_acc_detect_cuda.launches,
+                    "B6": cuda_collisions.bounce_deltas_cuda.launches}
+        steps = FACADE_STEP_CALLS + FACADE_RUN
+        if launches["B1"] < 1 or launches["B2"] != steps or launches["B6"] < 1:
+            raise AssertionError(f"facade: launches {launches} over {steps} steps (B1 the "
+                                 "initial evaluation, B2 every step, the gated B6)")
+        hist = eng.history[eng.objects[0].uuid]
+        want = 1 + FACADE_STEP_CALLS + FACADE_RUN // FACADE_HISTORY_EVERY
+        if len(hist) != want or eng._history_stride(FACADE_RUN) != FACADE_HISTORY_EVERY:
+            raise AssertionError(f"facade history: {len(hist)} records, want {want}")
+        if eng.step_idx != steps or abs(eng.time_elapsed - steps * DT) > 1e-9:
+            raise AssertionError(f"facade clock: step {eng.step_idx}, t {eng.time_elapsed}")
+        E1 = energy_f64(eng.state)
+        drift = abs((E1 - E0) / E0)
+        e_f32 = eng.total_energy()
+        if not drift <= DRIFT_BUDGET or abs(e_f32 - E1) > 1e-5 * abs(E1):
+            raise AssertionError(f"facade |dE/E| {drift:.3e} (budget {DRIFT_BUDGET:g}), "
+                                 f"engine energy {e_f32!r} against f64 {E1!r}")
+        pos_obj = np.array([eng.objects[k].position() for k in (0, N_MAIN - 1)])
+        if not np.isfinite(pos_obj).all():
+            raise AssertionError("facade: objects not finite")
+
+        # checkpoint, resume in a fresh engine, FACADE_AFTER more steps in both
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "facade.npz")
+            eng.checkpoint(ck)
+            fresh = self.facade_engine()
+            fresh.resume(ck)
+        eng.run(FACADE_AFTER)
+        fresh.run(FACADE_AFTER)
+        torch.cuda.synchronize()
+        for f in ("pos", "pos_lo", "vel", "vel_lo", "acc", "potential", "time", "step",
+                  "alive", "mass"):
+            if not torch.equal(getattr(eng.state, f), getattr(fresh.state, f)):
+                raise AssertionError(f"facade: the resumed engine differs in {f}")
+        if fresh.step_idx != eng.step_idx or fresh.time_elapsed != eng.time_elapsed:
+            raise AssertionError("facade: the resumed engine's clock differs")
+
+        # run() against rollout alone with the same recording and the same
+        # host copy of the records, in turns: the gap is the facade's own
+        # host work (the history appends over the bodies, the Objects' sync)
+        def bare():
+            _, traj = rollout(fresh.state, fresh.config, FACADE_TIMED,
+                              record_every=FACADE_HISTORY_EVERY, force_fn=fresh._force_fn,
+                              force_detect_fn=fresh._force_detect_fn)
+            traj.pos.cpu().numpy().astype(np.float64) * fresh.rescale.length
+            traj.alive.cpu().numpy()
+
+        def wall_ms(fn, iters, repeats=1):
+            out = []
+            for _ in range(repeats):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                out.append(1e3 * (time.perf_counter() - t0) / iters / FACADE_TIMED)
+            return out
+
+        if eng._hist_phase % FACADE_HISTORY_EVERY:
+            raise AssertionError(f"facade: history phase {eng._hist_phase} before the timing")
+        walls = alternate_ms({"run": lambda: eng.run(FACADE_TIMED), "rollout": bare}, 1,
+                             repeats=FACADE_TIMED_REPEATS, timer=wall_ms)
+        t = {k: summary(v) for k, v in walls.items()}
+        ratios = summary([a / b for a, b in zip(walls["run"], walls["rollout"])])
+        resolved = min(walls["run"]) > max(walls["rollout"])
+        self.perf_facade = {"run_ms_per_step": t["run"], "rollout_ms_per_step": t["rollout"],
+                            "ratio": ratios, "resolved": resolved,
+                            "build_s": t_build, "drive_s": t_drive, "drift": drift}
+        print("perf_facade " + json.dumps(self.perf_facade), file=sys.stderr)
+        return (f"SimulationEngine on the card at N={N_MAIN} (ds32, bounce at R {R_BENCH:g}; "
+                f"built in {t_build:.1f} s): {FACADE_STEP_CALLS} step() + run({FACADE_RUN}) "
+                f"every {FACADE_HISTORY_EVERY}-th step recorded in {t_drive:.1f} s, launches "
+                f"{launches}; {len(hist)} history records a body; |dE/E| (f64) {drift:.3e} "
+                f"<= {DRIFT_BUDGET:g}; the engine's f32 energy {e_f32:.9g} against f64 "
+                f"{E1:.9g}; checkpoint resumed in a fresh engine and {FACADE_AFTER} more steps "
+                f"in both: bit-equal; run({FACADE_TIMED}) {t['run']['median']:.4f} ms/step "
+                f"(spread {t['run']['spread']:.4f}) against rollout alone with the same "
+                f"recording and host copy {t['rollout']['median']:.4f} (spread "
+                f"{t['rollout']['spread']:.4f}), {FACADE_TIMED_REPEATS} each in turns: ratio "
+                f"{ratios['median']:.3f} (spread {ratios['spread']:.3f}), "
+                f"{'every run() slower than every rollout' if resolved else 'unresolved'}")
+
+    # phase 45
+    def viewer_backend(self) -> str:
+        import tempfile
+
+        from orbital_tpu_torch.engine.checkpoint import load_state
+        from orbital_tpu_torch.ops import cuda_forces
+        from orbital_tpu_torch.serve.backend import create_backend
+
+        torch = self.torch
+        keys = {"bodies", "mass_min", "mass_max", "radius_min", "radius_max", "time_elapsed",
+                "sim_time_jd", "sim_time_iso"}
+        body_keys = {"id", "name", "mass_kg", "radius_km", "T_seconds", "fg_ms2", "position"}
+
+        def check(snap, n_bodies, what):
+            text = json.dumps(snap)
+            pos = np.array([[b["position"][c] for c in "xyz"] for b in snap["bodies"]])
+            if (not keys <= set(snap) or len(snap["bodies"]) != n_bodies
+                    or any(set(b) != body_keys for b in snap["bodies"])
+                    or not np.isfinite(pos).all()):
+                raise AssertionError(f"{what}: snapshot keys {sorted(snap)}, "
+                                     f"{len(snap['bodies'])} bodies, finite "
+                                     f"{np.isfinite(pos).all()}")
+            return len(text)
+
+        env = {"SIM_SCENE": "cluster", "SIM_N": str(N_MAIN), "SIM_INITIAL_STEPS":
+               str(VIEWER_WARMUP), "SIM_DISABLE_THREAD": "true"}
+        t0 = time.perf_counter()
+        backend = create_backend(env, device=self.dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        if backend.cfg.steps_per_tick != 10 or backend.cfg.view_max != VIEWER_VIEW:
+            raise AssertionError(f"viewer defaults: {backend.cfg}")
+        reset_launches()
+        ticks, snaps, sizes = [], [], []
+        n_view = min(VIEWER_VIEW, N_MAIN)
+        t_prev = backend.snapshot["time_elapsed"]
+        for _ in range(VIEWER_TICKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snap = backend.tick()
+            ticks.append(1e3 * (time.perf_counter() - t0))
+            sizes.append(check(snap, n_view, "cluster tick"))
+            if not snap["time_elapsed"] > t_prev:
+                raise AssertionError("cluster: the clock did not advance")
+            t_prev = snap["time_elapsed"]
+        b1 = cuda_forces.pairwise_acc_cuda.launches
+        if b1 != VIEWER_TICKS * backend.cfg.steps_per_tick:
+            raise AssertionError(f"cluster ticks: {b1} B1 launches")
+        for _ in range(VIEWER_TICKS):
+            t0 = time.perf_counter()
+            snap = backend.build_snapshot()
+            snaps.append(1e3 * (time.perf_counter() - t0))
+            check(snap, n_view, "cluster snapshot")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = backend.checkpoint(os.path.join(tmp, "cluster.npz"))
+            state, meta = load_state(path, device=self.dev)
+        if meta != {"scene": "cluster", "n": N_MAIN} or not torch.equal(
+                state.pos, backend.cluster.state.pos):
+            raise AssertionError(f"cluster checkpoint: {meta}")
+        if backend.health() != {"status": "ok"}:
+            raise AssertionError("cluster health")
+        tick_t, snap_t = summary(ticks), summary(snaps)
+
+        # solar mode: the bundled solar system with moons, one engine step a tick
+        solar = create_backend({"SIM_INITIAL_STEPS": "20", "SIM_DISABLE_THREAD": "true"},
+                               device=self.dev)
+        n_solar = len(solar.engine.objects)
+        for _ in range(SOLAR_TICKS):
+            check(solar.tick(), n_solar, "solar tick")
+        if solar.engine.step_idx != 20 + SOLAR_TICKS:
+            raise AssertionError(f"solar: {solar.engine.step_idx} steps")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = solar.checkpoint(os.path.join(tmp, "solar.npz"))
+            state, meta = load_state(path, device=self.dev)
+        if meta.get("step_idx") != solar.engine.step_idx or not torch.equal(
+                state.pos, solar.engine.state.pos):
+            raise AssertionError(f"solar checkpoint: {meta.get('step_idx')}")
+        self.perf_viewer = {"tick_ms": tick_t, "snapshot_ms": snap_t, "build_s": t_build,
+                            "snapshot_bytes": sizes[-1]}
+        print("perf_viewer " + json.dumps(self.perf_viewer), file=sys.stderr)
+        return (f"viewer backend, cluster mode at SIM_N={N_MAIN} (built with "
+                f"{VIEWER_WARMUP} warm-up steps in {t_build:.1f} s): {VIEWER_TICKS} ticks of "
+                f"{backend.cfg.steps_per_tick} steps, {tick_t['median']:.2f} ms a tick (spread "
+                f"{tick_t['spread']:.2f}) with its snapshot, B1 launches {b1}; "
+                f"{VIEWER_TICKS} snapshots of {n_view} bodies, {snap_t['median']:.2f} ms "
+                f"(spread {snap_t['spread']:.2f}), {sizes[-1]:,} bytes of JSON, finite; "
+                f"checkpoint reloads equal; solar mode ({n_solar} bodies): {SOLAR_TICKS} "
+                f"ticks and snapshots, checkpoint at step {solar.engine.step_idx} reloads equal")
+
+    # phase 46
+    def cli_simulate(self) -> str:
+        import io
+
+        from orbital_tpu_torch.__main__ import main as cli
+
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli(["simulate", "--steps", "365", "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        got = json.loads(out.getvalue().splitlines()[0])
+        # the ds32 clock is an f32 sum of 365 steps in internal units: it read
+        # 364.9997 days (8e-7 of the span) on an H100; 1e-5 of it is the gate
+        if (rc != 0 or set(got) != {"bodies", "steps", "sim_days", "energy_drift", "records"}
+                or (got["bodies"], got["steps"], got["records"]) != (15, 365, 365)
+                or abs(got["sim_days"] - 365.0) > 1e-5 * 365.0
+                or not abs(got["energy_drift"]) < 1e-4):
+            raise AssertionError(f"CLI simulate: rc {rc}, {got}")
+        return f"python -m orbital_tpu_torch simulate --steps 365 --device cuda: {got} in {wall:.1f} s"
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5961,9 +6341,9 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", metavar="DIR",
                         help="only hold B1, B2, B3, B5, B5 detect, the B5 subset, B13, B6, "
-                             "B12, B7, the near sweep, B4, the P3M short range and the root "
-                             "search against DIR's kernel sources (phases 1, 2 and this "
-                             "check)")
+                             "B12, B7, the near sweep, B4, the P3M short range, the root "
+                             "search and the ensemble kernel against DIR's kernel sources "
+                             "(phases 1, 2 and this check)")
     parser.add_argument("--sweep", action="store_true",
                         help="only build and time the launch shapes of SWEEP (phases 1, 2 "
                              "and the sweep; with --parent, the parent check after it)")
@@ -6025,6 +6405,9 @@ def main(argv=None) -> int:
         ("41 ensemble kernel", smoke.check_ensemble),
         ("42 ensemble main path", smoke.ensemble_main_path),
         ("43 ensemble timings", smoke.ensemble_timings),
+        ("44 facade main path", smoke.facade_main_path),
+        ("45 viewer backend", smoke.viewer_backend),
+        ("46 cli", smoke.cli_simulate),
     ]
     if args.sweep or args.parent:
         phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (

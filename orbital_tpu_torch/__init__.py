@@ -23,9 +23,13 @@ rollouts, the host scene layer (``models/``: units, constants, Keplerian
 ``Body``/``System``, the bundled solar system, ``Object``/``ObjectCollection``
 and their compilation into scene arrays; ``ops.kepler`` in torch), and
 ``simulate()`` for a ``System``, an ``ObjectCollection``, a list of ``Object``
-or scene arrays, and Monte-Carlo ensembles (``parallel.ensemble``: E
+or scene arrays, Monte-Carlo ensembles (``parallel.ensemble``: E
 perturbed systems stepped together, the KDK ones by the CUDA ensemble
-kernel). See ROADMAP.md queue A for the rest.
+kernel), the object facade (``SimulationEngine``, ``run_simulation``) with
+``.npz`` checkpoints (``save_state``, ``load_state``), run metrics, offline
+plots and video (``viz``), the bundled examples (``models.examples``), the
+live viewer (``serve``) and the CLI (``python -m orbital_tpu_torch``). See
+ROADMAP.md queue A for the rest.
 """
 from .models.constants import (ASTRO, J2000_JD, STANDARD, IntegratorParams, UnitProfile,
                                UnitSystem, get_unit_profile)
@@ -35,6 +39,8 @@ from .models.kepler import solve_kepler, state_to_elements
 from .models.objects import (Coordinates, Object, ObjectCollection, collide_spheres,
                              pairwise_accelerations, set_circular_orbit)
 from .models.rigid import moment_of_inertia, random_angular_velocity
+from .engine.checkpoint import load_state, save_state
+from .engine.engine import SimulationEngine, run_simulation
 from .engine.rollout import (Trajectory, init_forces, init_forces_staged, rollout,
                              rollout_staged)
 from .engine.state import NBodyState, Rescale, make_state
@@ -53,4 +59,5 @@ __all__ = ["ASTRO", "J2000_JD", "STANDARD", "IntegratorParams", "UnitProfile",
            "moment_of_inertia", "random_angular_velocity",
            "SimConfig", "NBodyState", "Rescale", "make_state", "init_forces",
            "rollout", "init_forces_staged", "rollout_staged", "Trajectory", "simulate",
-           "SimResult", "pm_acc_potential", "p3m_acc_potential", "tree_acc_potential"]
+           "SimResult", "pm_acc_potential", "p3m_acc_potential", "tree_acc_potential",
+           "SimulationEngine", "run_simulation", "save_state", "load_state"]

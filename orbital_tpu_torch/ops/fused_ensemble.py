@@ -3,13 +3,14 @@ one CUDA launch.
 
 Replaces no Pallas kernel: it stands in for the XLA code of the JAX
 package's ensemble rollout (``orbital_tpu/parallel/ensemble.py:53-69``,
-``jax.vmap`` over the dense stepper with ``fused="never"``). Each member's
-state stays in one block's shared memory for all K steps
+``jax.vmap`` over the dense stepper with ``fused="never"``). One block a
+member keeps the member's state on chip for all K steps
 (``csrc/fused_ensemble.cu``); members are independent, so the launch needs
-no grid-wide barrier. It seeds a(t) from the positions, as
-``fused_rollout_plain`` does, and closes with each member's acceleration
-and softened potential from the last evaluation; with K = 0 it only
-evaluates them.
+no grid-wide barrier. At N <= 32 a lane owns a body, its state in
+registers, and sweeps a double-buffered table with one barrier a step. It
+seeds a(t) from the positions, as ``fused_rollout_plain`` does, and closes
+with each member's acceleration and softened potential from the last
+evaluation; with K = 0 it only evaluates them.
 
 Semantics are those of ``make_step_fn``'s KDK for a batched state
 ([E, N, 3], [E, N], time and step [E]) with ``collisions='none'`` and
