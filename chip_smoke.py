@@ -264,10 +264,34 @@ Phases, one line of output each; any failure exits nonzero:
      finite), ms a tick and a snapshot, the checkpoint function; solar mode,
      SOLAR_TICKS ticks and its checkpoint;
  46. the CLI in process: ``simulate --steps 365 --device cuda``, its JSON
-     line parsed and checked.
+     line parsed and checked;
+ 47. fitting (``orbital_tpu_torch.fitting``) on the card in f64: the
+     first FIT_CHECK_ITERS iterations of the velocity fit (its loss and
+     backward as CUDA graphs) against the same fit run eagerly on the CPU;
+     the two scenes of tests/test_fitting.py (the Earth-Moon pair in SI,
+     velocity and central mass; two planets' elements) at those tests'
+     iteration counts, with their recovery gates and ms an iteration, no
+     kernel launched (the dense route); ``pairwise_acc_cuda`` and
+     ``fused_rollout`` raising on a grad-requiring ``pos``;
+ 48. the tree's near modes at ``bench_tree``'s Plummer 65,536, levels 7,
+     f32, with simulate()'s probed budgets for each (``"pairs"`` at chunk
+     64): ``"cells"``, ``"columns"`` and ``"pairs"`` against ``"kernel"``
+     (TREE_MODE_RTOL, overflow 0), each mode's evaluation timed by CUDA
+     events with its peak memory, TREE_MODE_STEPS KDK steps of each within
+     TREE_DRIFT_BOUND (B7 once a step on ``"kernel"`` only); one evaluation
+     of ``"pairs"`` against ``"kernel"`` at 1,048,576, levels 8, timed;
+ 49. ``simulate(force_impl="tree", tree_accuracy=TREE_ACCURACY)`` at 65,536
+     (its probe's exact evaluation through B1): the rung and its RMS force
+     error against B1; ``SimulationEngine(force_impl="tree")`` with
+     SimConfig's defaults (near "cells") on a TREE_ENGINE_N-body cluster
+     for TREE_ENGINE_STEPS steps, overflow 0;
+ 50. the reference user code of tests/test_compat_core.py through
+     ``orbital_tpu_torch/compat/core`` on the card, in a fresh process with
+     no JAX imported.
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
-10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38, 39, 42, 44 and 45) and read just after it:
+10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38, 39, 42, 44, 45, 47, 48
+and 49) and read just after it:
 each kernel must have run on its path. B3 has no single-card path (the multi-device ring
 launches it): phase 27 checks it, and its record's launches are its count
 over phase 28's three main paths, which must be 0. The
@@ -598,6 +622,32 @@ FACADE_STEP_CALLS, FACADE_RUN, FACADE_HISTORY_EVERY, FACADE_AFTER = 10, 500, 50,
 FACADE_TIMED, FACADE_TIMED_REPEATS = 200, 8
 VIEWER_WARMUP, VIEWER_TICKS, VIEWER_VIEW, SOLAR_TICKS = 100, 5, 1500, 3
 
+# the fitting runs (phase 47): the two scenes of tests/test_fitting.py on the
+# card in f64 at those tests' iteration counts and learning rates (the
+# Earth-Moon pair in SI, observed every 24 one-hour steps over 240; two
+# planets about a unit mass observed every 40 steps of 2e-3 over 400), their
+# recovery gates as the tests state them
+G_SI = 6.6743e-11
+FIT_VEL_ITERS, FIT_MASS_ITERS, FIT_ELEMENTS_ITERS = 250, 300, 200
+# the first FIT_CHECK_ITERS iterations of the velocity fit on the card against
+# the same fit on the CPU: f64 sums of the same few terms, ~1e-15 apart a step
+# (rsqrt on two devices), grown by the optimizer's ten steps; 1e-9 leaves room
+# and still fails a wrong or stale graph replay
+FIT_CHECK_ITERS, FIT_CPU_RTOL = 10, 1e-9
+# the tree's near modes (phases 48-49): bench_tree's Plummer sphere with each
+# mode's probe-sized budgets ("pairs" at chunk 64, as the JAX package's
+# "auto" takes it); each mode against "kernel" within TREE_MODE_RTOL (max
+# |d a| / max |a| and |d U / U|: f32 sums of the same near pairs in other
+# orders, as FORCE_RTOL), TREE_MODE_STEPS steps each within TREE_DRIFT_BOUND,
+# the modes timed TREE_MODE_ITERS calls a repeat; the 1,048,576-body
+# evaluation of "pairs" against "kernel"; tree_accuracy='s target and the
+# facade's tree run (SimConfig's defaults: near "cells", capacity 48, levels
+# 6) on the cluster of TREE_ENGINE_N bodies for TREE_ENGINE_STEPS steps
+TREE_MODES = ("cells", "columns", "pairs")
+TREE_MODE_RTOL, TREE_MODE_STEPS, TREE_MODE_ITERS, TREE_PAIRS_CHUNK = 1e-5, 100, 3, 64
+TREE_ACCURACY = 1e-2
+TREE_ENGINE_N, TREE_ENGINE_STEPS = 16384, 20
+
 # warp instructions the card issues a second: 4 schedulers on each of 132
 # SMs at the 1.98 GHz boost clock (NVIDIA's data sheet, H100 SXM)
 INSTR_RATE = 528 * 1.98e9
@@ -764,6 +814,48 @@ def make_plummer(n: int, seed: int = 0):
     vel = 0.05 * rng.normal(size=(n, 3))
     mass = np.full(n, 1.0 / n)
     return pos, vel, mass
+
+
+def earth_moon():
+    """The Earth-Moon circular pair in SI (tests/test_fitting.py:11-22):
+    positions, velocities, masses."""
+    R = 3.844e8
+    m1, m2 = 5.972e24, 7.348e22
+    mu = G_SI * (m1 + m2)
+    v2 = np.sqrt(mu / R) * (m1 / (m1 + m2))
+    v1 = -np.sqrt(mu / R) * (m2 / (m1 + m2))
+    return (np.array([[0.0, 0.0, 0.0], [R, 0.0, 0.0]]),
+            np.array([[0.0, v1, 0.0], [0.0, v2, 0.0]]), np.array([m1, m2]))
+
+
+def raises(exc, match: str, fn) -> str:
+    """Call ``fn``, require it to raise ``exc`` whose message holds
+    ``match``, and return the message's start."""
+    try:
+        fn()
+    except exc as err:
+        if match not in str(err):
+            raise AssertionError(f"expected {match!r} in: {err}") from err
+        return f"{exc.__name__}: {str(err)[:60]}..."
+    raise AssertionError(f"expected {exc.__name__} ({match!r}), nothing raised")
+
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def reference_user_code() -> str:
+    """The reference-style user code of tests/test_compat_core.py: its
+    ``SCRIPT`` after the JAX platform preamble, read from the checkout with
+    ``ast`` (the test module is not imported)."""
+    import ast
+
+    path = os.path.join(REPO_ROOT, "tests", "test_compat_core.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    script = next(ast.literal_eval(node.value) for node in tree.body
+                  if isinstance(node, ast.Assign)
+                  and any(getattr(t, "id", None) == "SCRIPT" for t in node.targets))
+    return "import numpy as np\n" + script.split("import numpy as np\n", 1)[1]
 
 
 def rms_rel(a, ref) -> float:
@@ -1072,9 +1164,9 @@ def p3m_short_work(tab: dict, gc: int, n: int, rcut2: float, warps: int = 8) -> 
                 nbytes=24 * kept + 4 * gc3 + 16 * n)
 
 
-def energy_f64(state) -> float:
+def energy_f64(state, eps2: float = EPS2) -> float:
     """Total energy in f64 from the (ds32) state: kinetic on the host,
-    softened potential from the f64 oracle."""
+    softened potential (softening ``eps2``) from the f64 oracle."""
     from orbital_tpu_torch.utils import native
 
     def full(hi, lo):
@@ -1084,7 +1176,7 @@ def energy_f64(state) -> float:
     pos, vel = full(state.pos, state.pos_lo), full(state.vel, state.vel_lo)
     mass = state.mass.double().cpu().numpy()
     K = 0.5 * float(np.sum(mass * np.sum(vel * vel, -1)))
-    return K + native.potential_f64(pos, mass, EPS2)
+    return K + native.potential_f64(pos, mass, eps2)
 
 
 def time_ms(fn, iters: int, repeats: int = 3):
@@ -6334,6 +6426,338 @@ class Smoke:
             raise AssertionError(f"CLI simulate: rc {rc}, {got}")
         return f"python -m orbital_tpu_torch simulate --steps 365 --device cuda: {got} in {wall:.1f} s"
 
+    # phase 47
+    def fitting(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_cuda
+        from orbital_tpu_torch.ops.fused_rollout import fused_rollout
+        from orbital_tpu_torch.ops.kepler import elements_to_state
+
+        torch = self.torch
+        out = []
+        # the Earth-Moon pair in SI, observed by the port's own f64 rollout
+        pos, vel, mass = earth_moon()
+        cfg = ot.SimConfig(dt=3600.0, G=G_SI, eps2=1e6)
+        st = ot.init_forces(ot.make_state(pos, vel, mass, precision="f64", device=self.dev),
+                            cfg)
+        obs = ot.rollout(st, cfg, 240, record_every=24)[1].pos.cpu().numpy()
+        vel_guess = vel * (1.0 + 0.03 * np.random.default_rng(0).standard_normal(vel.shape))
+        mass_guess = mass * np.array([1.10, 1.0])
+        fits = {
+            "velocity": (FIT_VEL_ITERS, lambda n: ot.fit_initial_conditions(
+                obs, 24, cfg, pos0=pos, vel0=vel_guess, mass=mass, free=("vel",),
+                iterations=n, learning_rate=3e-2, device=self.dev)),
+            "central mass": (FIT_MASS_ITERS, lambda n: ot.fit_initial_conditions(
+                obs, 24, cfg, pos0=pos, vel0=vel, mass=mass_guess, free=("mass",),
+                iterations=n, learning_rate=5e-2, device=self.dev)),
+        }
+        # two planets about a unit mass, observed central-relative
+        m_c, m_sat = 1.0, np.array([1e-4, 5e-5])
+        el_true = dict(a=np.array([1.0, 1.8]), e=np.array([0.05, 0.12]),
+                       inc=np.array([0.02, 0.1]), long_node=np.array([0.3, 1.1]),
+                       arg_peri=np.array([0.7, 2.0]), mean_anom=np.array([0.1, 2.5]))
+        cfg_p = ot.SimConfig(dt=2e-3, G=1.0, eps2=1e-12)
+        mu = torch.tensor(m_c + m_sat, dtype=torch.float64, device=self.dev)
+        ps, vs = elements_to_state(*(torch.tensor(el_true[k], device=self.dev) for k in
+                                     ("a", "e", "inc", "long_node", "arg_peri",
+                                      "mean_anom")), mu)
+        ps, vs = ps.cpu().numpy(), vs.cpu().numpy()
+        v_c = -(m_sat[:, None] * vs).sum(0) / m_c
+        st = ot.init_forces(ot.make_state(np.concatenate([np.zeros((1, 3)), ps]),
+                                          np.concatenate([v_c[None], vs]),
+                                          np.concatenate([[m_c], m_sat]), precision="f64",
+                                          device=self.dev), cfg_p)
+        tp = ot.rollout(st, cfg_p, 400, record_every=40)[1].pos
+        obs_p = (tp[:, 1:] - tp[:, :1]).cpu().numpy()
+        guess = {k: v.copy() for k, v in el_true.items()}
+        guess["a"] = el_true["a"] * np.array([1.02, 0.985])
+        guess["mean_anom"] = el_true["mean_anom"] + np.array([0.03, -0.02])
+        fits["elements"] = (FIT_ELEMENTS_ITERS, lambda n: ot.fit_orbital_elements(
+            obs_p, 40, cfg_p, central_mass=m_c, sat_masses=m_sat, elements0=guess,
+            free=("a", "mean_anom"), iterations=n, learning_rate=2e-2, device=self.dev))
+
+        # the card's fit (its loss and backward as CUDA graphs) against the same
+        # fit run eagerly on the CPU, FIT_CHECK_ITERS iterations: the same f64
+        # arithmetic, so the histories agree to roundoff
+        kw = dict(pos0=pos, vel0=vel_guess, mass=mass, free=("vel",),
+                  iterations=FIT_CHECK_ITERS, learning_rate=3e-2)
+        on_card = ot.fit_initial_conditions(obs, 24, cfg, device=self.dev, **kw)
+        on_cpu = ot.fit_initial_conditions(obs, 24, cfg, device="cpu", **kw)
+        hist_err = float(np.max(np.abs(on_card.loss_history / on_cpu.loss_history - 1.0)))
+        vel_err = float(np.abs(on_card.vel - on_cpu.vel).max() / np.abs(on_cpu.vel).max())
+        if not (hist_err <= FIT_CPU_RTOL and vel_err <= FIT_CPU_RTOL):
+            raise AssertionError(f"fit on the card vs the CPU: history {hist_err:.3e}, "
+                                 f"velocities {vel_err:.3e}")
+        out.append(f"{FIT_CHECK_ITERS} iterations on the card (graphed) vs the CPU (eager): "
+                   f"history {hist_err:.2e}, velocities {vel_err:.2e} (<= {FIT_CPU_RTOL:g})")
+
+        reset_launches()
+        done = {}
+        for name, (iters, fit) in fits.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done[name] = fit(iters)
+            torch.cuda.synchronize()
+            done[name] = (done[name], 1e3 * (time.perf_counter() - t0) / iters)
+        if pairwise_acc_cuda.launches or fused_rollout.launches:
+            raise AssertionError("fitting launched a kernel: it must take the dense route")
+        res, ms = done["velocity"]
+        verr0 = np.abs(vel_guess - vel).max() / np.abs(vel).max()
+        verr1 = np.abs(res.vel - vel).max() / np.abs(vel).max()
+        drop = res.loss_history[-1] / res.loss_history[0]
+        if not (verr1 < 1e-3 < verr0 and drop < 1e-4):
+            raise AssertionError(f"velocity fit: error {verr0:.3e} -> {verr1:.3e}, loss x{drop:.2e}")
+        out.append(f"Earth-Moon velocity (SI, f64): {FIT_VEL_ITERS} iterations, relative "
+                   f"error {verr0:.3e} -> {verr1:.3e} (< 1e-3), loss x{drop:.3e} (< 1e-4), "
+                   f"{ms:.1f} ms/iteration")
+        res, ms = done["central mass"]
+        merr = abs(res.mass[0] - mass[0]) / mass[0]
+        drop = res.loss_history[-1] / res.loss_history[0]
+        if not (merr < 1e-3 and drop < 1e-3):
+            raise AssertionError(f"mass fit: error {merr:.3e}, loss x{drop:.2e}")
+        out.append(f"central mass: {FIT_MASS_ITERS} iterations, relative error {merr:.3e} "
+                   f"(< 1e-3), loss x{drop:.3e} (< 1e-3), {ms:.1f} ms/iteration")
+        (el_fit, res), ms = done["elements"]
+        a_err = np.abs(el_fit["a"] - el_true["a"]).max()
+        m_err = np.abs(el_fit["mean_anom"] - el_true["mean_anom"]).max()
+        drop = res.loss_history[-1] / res.loss_history[0]
+        if not (a_err < 2e-3 and m_err < 5e-3 and drop < 1e-3):
+            raise AssertionError(f"elements fit: a {a_err:.3e}, M {m_err:.3e}, loss x{drop:.2e}")
+        out.append(f"two planets' elements: {FIT_ELEMENTS_ITERS} iterations, |da| {a_err:.3e} "
+                   f"(< 2e-3), |dM| {m_err:.3e} (< 5e-3), loss x{drop:.3e} (< 1e-3), "
+                   f"{ms:.1f} ms/iteration")
+        self.fit_ms = {k: v[1] for k, v in done.items()}
+
+        # the kernels have no backward pass: a grad-requiring input raises
+        p = torch.randn(N_RAGGED, 3, device=self.dev, requires_grad=True)
+        m = torch.full((N_RAGGED,), 1.0 / N_RAGGED, device=self.dev)
+        refused = [raises(RuntimeError, "no backward pass",
+                          lambda: pairwise_acc_cuda(p, m, G=1.0, eps2=EPS2))]
+        s32 = ot.make_state(*make_cluster(N_FUSED, self.seed), precision="f32",
+                            device=self.dev)
+        s32 = s32.replace(pos=s32.pos.clone().requires_grad_())
+        refused.append(raises(RuntimeError, "no backward pass",
+                              lambda: fused_rollout(s32, ot.SimConfig(dt=DT, eps2=EPS2), 1)))
+        with torch.no_grad():
+            pairwise_acc_cuda(p, m, G=1.0, eps2=EPS2)
+        out.append("pairwise_acc_cuda and fused_rollout on a grad-requiring pos: "
+                   + "; ".join(refused) + " (and run under no_grad)")
+        return " | ".join(out)
+
+    def tree_mode_cfgs(self, pos, vel, mass, levels: int):
+        """{mode: config} with simulate()'s probe-sized budgets for each near
+        mode at ``levels`` ("pairs" at TREE_PAIRS_CHUNK), and the f32 state
+        they were sized on."""
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.simulate import _tree_budget_cfg
+
+        state = ot.make_state(pos, vel, mass, precision="f32", device=self.dev)
+        base = ot.SimConfig(dt=TREE_DT, G=1.0, eps2=TREE_EPS2, force_impl="tree",
+                            tree_levels=levels, tree_chunk=TREE_CHUNK, tree_wl_rj=TREE_RJ)
+        cfgs = {}
+        for mode in TREE_MODES + ("kernel",):
+            cfg = base.replace(tree_near=mode,
+                               tree_chunk=TREE_PAIRS_CHUNK if mode == "pairs" else TREE_CHUNK)
+            cfgs[mode] = _tree_budget_cfg(cfg, state, tree_near=mode, tree_levels=levels,
+                                          tree_capacity="auto")
+        return cfgs, state
+
+    # phase 48
+    def tree_modes(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.rollout import _tree_kwargs
+        from orbital_tpu_torch.ops.cuda_tree import tree_near_cuda
+        from orbital_tpu_torch.ops.tree import tree_acc_potential
+
+        torch = self.torch
+        pos, vel, mass, _ = self.plummer()
+        cfgs, state = self.tree_mode_cfgs(pos, vel, mass, TREE_LEVELS)
+        args = (state.pos, state.mass, state.alive)
+
+        def evaluate(mode):
+            return tree_acc_potential(*args, **_tree_kwargs(cfgs[mode], self.dev))
+
+        a_k, U_k, ov_k = evaluate("kernel")
+        base = torch.cuda.memory_allocated()
+        rows, perf = [], {}
+        for mode in TREE_MODES + ("kernel",):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            a, U, ov = evaluate(mode)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            err = float((a - a_k).abs().max() / a_k.abs().max())
+            u_err = abs(float(U) / float(U_k) - 1.0)
+            if int(ov) or int(ov_k) or not (err <= TREE_MODE_RTOL and u_err <= TREE_MODE_RTOL):
+                raise AssertionError(f"tree near={mode!r}: max |da|/max|a| {err:.3e}, dU/U "
+                                     f"{u_err:.3e}, overflow {int(ov)} (kernel {int(ov_k)})")
+            t = summary(time_ms(lambda m=mode: evaluate(m), TREE_MODE_ITERS))
+            perf[mode] = dict(eval=t, peak_bytes=peak, err=err, u_err=u_err)
+        # TREE_MODE_STEPS KDK steps of each mode, overflow 0, drift in f64
+        e0 = energy_f64(ot.init_forces(state, cfgs["kernel"]), TREE_EPS2)
+        for mode in TREE_MODES + ("kernel",):
+            cfg = cfgs[mode].replace(track_potential=False)
+            st = ot.init_forces(state, cfg)
+            reset_launches()
+            with overflow_log() as ovf:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fin, _ = ot.rollout(st, cfg, TREE_MODE_STEPS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                overflow = int(ovf[0])
+            b7 = tree_near_cuda.launches
+            drift = abs((energy_f64(fin, TREE_EPS2) - e0) / e0)
+            want_b7 = TREE_MODE_STEPS if mode == "kernel" else 0
+            if overflow or b7 != want_b7 or not drift <= TREE_DRIFT_BOUND:
+                raise AssertionError(f"tree near={mode!r}: {TREE_MODE_STEPS} steps, drift "
+                                     f"{drift:.3e}, overflow {overflow}, B7 {b7}")
+            perf[mode].update(step_ms=1e3 * wall / TREE_MODE_STEPS, drift=drift, b7=b7)
+        for mode in TREE_MODES + ("kernel",):
+            q = perf[mode]
+            rows.append(f"{mode}: evaluation {q['eval']['median']:.3f} ms (spread "
+                        f"{q['eval']['spread']:.3f}), peak {q['peak_bytes'] / 2 ** 20:.0f} MiB "
+                        f"above the inputs, vs kernel {q['err']:.2e} / dU {q['u_err']:.2e}; "
+                        f"{TREE_MODE_STEPS} steps {q['step_ms']:.3f} ms/step, |dE/E| "
+                        f"{q['drift']:.3e}, B7 {q['b7']}")
+
+        # one evaluation at 1,048,576 bodies, levels 8: "pairs" against "kernel"
+        pos_b, vel_b, mass_b = make_plummer(N_TREE_BIG, self.seed)
+        t0 = time.perf_counter()
+        cfg_b, st_b = self.tree_mode_cfgs(pos_b, vel_b, mass_b, TREE_BIG_LEVELS)
+        probe_s = time.perf_counter() - t0
+        big = {}
+        for mode in ("pairs", "kernel"):
+            kw = _tree_kwargs(cfg_b[mode], self.dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_b = torch.cuda.memory_allocated()
+            a, U, ov = tree_acc_potential(st_b.pos, st_b.mass, st_b.alive, **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base_b
+            t = summary(time_ms(lambda kw=kw: tree_acc_potential(st_b.pos, st_b.mass,
+                                                                  st_b.alive, **kw), 1))
+            big[mode] = (a, U, int(ov), t, peak)
+        (a_p, U_p, ov_p, t_p, pk_p), (a_kb, U_kb, ov_kb, t_k, pk_k) = big["pairs"], big["kernel"]
+        err_b = float((a_p - a_kb).abs().max() / a_kb.abs().max())
+        u_b = abs(float(U_p) / float(U_kb) - 1.0)
+        if ov_p or ov_kb or not (err_b <= TREE_MODE_RTOL and u_b <= TREE_MODE_RTOL):
+            raise AssertionError(f"tree N={N_TREE_BIG} pairs vs kernel: {err_b:.3e}, dU "
+                                 f"{u_b:.3e}, overflow {ov_p}/{ov_kb}")
+        perf["N1048576"] = dict(pairs=t_p, kernel=t_k, pairs_peak=pk_p, kernel_peak=pk_k,
+                                err=err_b, u_err=u_b, probe_s=probe_s)
+        self.tree_mode_perf = perf
+        print("perf_tree_modes " + json.dumps(perf), file=sys.stderr)
+        return (f"N={N_MAIN} Plummer l{TREE_LEVELS}, each mode's probed budgets, all overflow "
+                f"0, within {TREE_MODE_RTOL:g} of kernel: " + "; ".join(rows)
+                + f" | N={N_TREE_BIG} l{TREE_BIG_LEVELS} (budgets probed in {probe_s:.1f} s): "
+                f"pairs {t_p['median']:.3f} ms (spread {t_p['spread']:.3f}, peak "
+                f"{pk_p / 2 ** 20:.0f} MiB) vs kernel {t_k['median']:.3f} ms (spread "
+                f"{t_k['spread']:.3f}, peak {pk_k / 2 ** 20:.0f} MiB), max |da|/max|a| "
+                f"{err_b:.2e}, dU/U {u_b:.2e}, overflow 0")
+
+    # phase 49
+    def tree_options(self) -> str:
+        import dataclasses as dc
+
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.rollout import resolve_force_fn
+        from orbital_tpu_torch.models.objects import Coordinates, Object, ObjectCollection
+        from orbital_tpu_torch.models.scene import SceneArrays
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_cuda
+        from orbital_tpu_torch.ops.cuda_tree import tree_near_cuda
+
+        torch = self.torch
+        pos, vel, mass, _ = self.plummer()
+        scene = SceneArrays(pos=pos, vel=vel, mass=mass, radius=np.full(N_MAIN, 1e-3),
+                            names=[f"b{i}" for i in range(N_MAIN)])
+        reset_launches()
+        t0 = time.perf_counter()
+        res = ot.simulate(scene, steps=10, dt=TREE_DT, softening=TREE_EPS2 ** 0.5,
+                          device=self.dev, force_impl="tree", tree_levels=TREE_LEVELS,
+                          tree_accuracy=TREE_ACCURACY, record_every=5)
+        wall = time.perf_counter() - t0
+        b1, b7 = pairwise_acc_cuda.launches, tree_near_cuda.launches
+        c = res.config
+        # the chosen rung's error on the initial state, as the probe measured it
+        st = ot.make_state(scene.pos, scene.vel, scene.mass, precision="ds32",
+                           rescale=res.rescale, device=self.dev)
+        args = (st.pos, st.mass, st.alive)
+        a_x = resolve_force_fn(c.replace(force_impl="auto"), N_MAIN, self.dev)(*args)[0]
+        a_t = resolve_force_fn(c, N_MAIN, self.dev)(*args)[0]
+        err = rms_rel(a_t, a_x)
+        if (b1 < 1 or b7 < 11 or c.tree_near != "kernel" or not err <= TREE_ACCURACY
+                or not np.isfinite(res.pos).all()):
+            raise AssertionError(f"simulate(tree_accuracy={TREE_ACCURACY:g}): rung ("
+                                 f"{c.tree_order}, {c.tree_ws}), error {err:.3e}, B1 {b1}, "
+                                 f"B7 {b7}, near {c.tree_near!r}")
+        out = [f"simulate(force_impl='tree', tree_accuracy={TREE_ACCURACY:g}) at N={N_MAIN}: "
+               f"rung order {c.tree_order} ws {c.tree_ws}, RMS force error {err:.3e} against "
+               f"B1, levels {c.tree_levels}, near {c.tree_near!r}, budgets "
+               f"({c.tree_max_chunks}, {c.tree_wl_entries}); B1 {b1} and B7 {b7} launches; "
+               f"{wall:.1f} s"]
+
+        # the facade on the tree with SimConfig's defaults
+        cpos, cvel, cmass = make_cluster(TREE_ENGINE_N, self.seed + 21)
+        objs = ObjectCollection([
+            Object(float(cmass[i]), R_BENCH, velocity=cvel[i],
+                   coordinates=Coordinates(*cpos[i]), name=f"b{i:06d}")
+            for i in range(TREE_ENGINE_N)])
+        reset_launches()
+        # built inside the log, which wraps the tree force the engine resolves
+        with overflow_log() as ovf:
+            eng = ot.SimulationEngine(objs, dt=DT, softening=EPS2 ** 0.5, cache=False,
+                                      max_hist=None, precision="ds32", force_impl="tree",
+                                      unit_profile=dc.replace(ot.STANDARD, G=1.0),
+                                      rescale=ot.Rescale.identity(), device=self.dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run(TREE_ENGINE_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            overflow = int(ovf[0])
+        cfg = eng.config
+        defaults = ot.SimConfig(dt=cfg.dt)
+        same = all(getattr(cfg, f) == getattr(defaults, f) for f in (
+            "tree_near", "tree_levels", "tree_capacity", "tree_max_cells", "tree_max_big",
+            "tree_max_frontier", "tree_ws", "tree_order"))
+        if (not same or cfg.tree_near != "cells" or overflow or eng.step_idx != TREE_ENGINE_STEPS
+                or tree_near_cuda.launches or not bool(torch.isfinite(eng.state.pos).all())):
+            raise AssertionError(f"SimulationEngine(force_impl='tree'): defaults {same}, near "
+                                 f"{cfg.tree_near!r}, overflow {overflow}, steps "
+                                 f"{eng.step_idx}, B7 {tree_near_cuda.launches}")
+        out.append(f"SimulationEngine(force_impl='tree') with SimConfig's defaults (near "
+                   f"{cfg.tree_near!r}, levels {cfg.tree_levels}, capacity "
+                   f"{cfg.tree_capacity}) on the {TREE_ENGINE_N}-body cluster: run("
+                   f"{TREE_ENGINE_STEPS}) {1e3 * wall / TREE_ENGINE_STEPS:.2f} ms/step, overflow "
+                   f"0, finite")
+        return " | ".join(out)
+
+    # phase 50
+    def compat_core(self) -> str:
+        import tempfile
+
+        code = reference_user_code()
+        script = code + ('\nimport sys\nprint("JAX_LOADED", "jax" in sys.modules)\n'
+                         'print("DEVICE", engine.device)\n')
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([
+            os.path.join(REPO_ROOT, "orbital_tpu_torch", "compat"), REPO_ROOT]))
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", script], cwd=tmp, env=env,
+                                  capture_output=True, text=True, timeout=300)
+            wall = time.perf_counter() - t0
+        said = proc.stdout.splitlines()
+        if (proc.returncode != 0 or "COMPAT_OK" not in said or "JAX_LOADED False" not in said
+                or not any(ln.startswith("DEVICE cuda") for ln in said)):
+            raise AssertionError(f"compat core: rc {proc.returncode}\n{proc.stdout}\n"
+                                 f"{proc.stderr[-4000:]}")
+        return (f"the reference user code of tests/test_compat_core.py through "
+                f"orbital_tpu_torch/compat/core on {said[-1].split()[1]} in a fresh process: "
+                f"COMPAT_OK, no jax imported, {wall:.1f} s")
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--drift-steps", type=int, default=1000,
@@ -6408,6 +6832,10 @@ def main(argv=None) -> int:
         ("44 facade main path", smoke.facade_main_path),
         ("45 viewer backend", smoke.viewer_backend),
         ("46 cli", smoke.cli_simulate),
+        ("47 fitting", smoke.fitting),
+        ("48 tree near modes", smoke.tree_modes),
+        ("49 tree options", smoke.tree_options),
+        ("50 compat core", smoke.compat_core),
     ]
     if args.sweep or args.parent:
         phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (

@@ -28,8 +28,12 @@ perturbed systems stepped together, the KDK ones by the CUDA ensemble
 kernel), the object facade (``SimulationEngine``, ``run_simulation``) with
 ``.npz`` checkpoints (``save_state``, ``load_state``), run metrics, offline
 plots and video (``viz``), the bundled examples (``models.examples``), the
-live viewer (``serve``) and the CLI (``python -m orbital_tpu_torch``). See
-ROADMAP.md queue A for the rest.
+live viewer (``serve``) and the CLI (``python -m orbital_tpu_torch``), the
+tree's four near modes (``"cells"``, ``"columns"``, ``"pairs"`` and the CUDA
+``"kernel"``) with their probes and ``simulate(tree_accuracy=)``, orbit
+determination (``fitting``: ``fit_initial_conditions``,
+``fit_orbital_elements``), and the reference's ``core.*`` import layout
+(``compat/core``). See ROADMAP.md queue A for the rest.
 """
 from .models.constants import (ASTRO, J2000_JD, STANDARD, IntegratorParams, UnitProfile,
                                UnitSystem, get_unit_profile)
@@ -60,4 +64,14 @@ __all__ = ["ASTRO", "J2000_JD", "STANDARD", "IntegratorParams", "UnitProfile",
            "SimConfig", "NBodyState", "Rescale", "make_state", "init_forces",
            "rollout", "init_forces_staged", "rollout_staged", "Trajectory", "simulate",
            "SimResult", "pm_acc_potential", "p3m_acc_potential", "tree_acc_potential",
-           "SimulationEngine", "run_simulation", "save_state", "load_state"]
+           "SimulationEngine", "run_simulation", "save_state", "load_state",
+           "fit_initial_conditions", "fit_orbital_elements", "FitResult"]
+
+
+def __getattr__(name):
+    # lazy, as the JAX package's: fitting is a specialty path
+    if name in ("fit_initial_conditions", "fit_orbital_elements", "FitResult"):
+        from . import fitting
+
+        return getattr(fitting, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -58,11 +58,10 @@ class Trajectory:
 def _resolve_impl(cfg: SimConfig, n: int, device: torch.device,
                   dtype: torch.dtype) -> str:
     """``"auto"``: dense at N <= 4096; above it the CUDA kernel ("pallas")
-    for CUDA tensors and the row-blocked plain path for CPU tensors."""
-    if device.type == "cuda" and dtype == torch.float64:
-        raise NotImplementedError(
-            "precision='f64' on CUDA: the CUDA kernels compute in float32; "
-            "use ds32 on the card and f64 on the CPU")
+    for CUDA tensors and the row-blocked plain path for CPU tensors. f64
+    state on CUDA takes the dense route only: it is plain PyTorch (XLA in
+    the JAX package), while every other route is an f32 kernel or stands in
+    for one."""
     impl = cfg.force_impl
     if impl in _NOT_PORTED:
         raise NotImplementedError(
@@ -70,8 +69,14 @@ def _resolve_impl(cfg: SimConfig, n: int, device: torch.device,
             f"(ROADMAP.md queue A item {_NOT_PORTED[impl]})")
     if impl == "auto":
         if n <= _DENSE_MAX_N:
-            return "dense"
-        return "pallas" if device.type == "cuda" else "chunked"
+            impl = "dense"
+        else:
+            impl = "pallas" if device.type == "cuda" else "chunked"
+    if device.type == "cuda" and dtype == torch.float64 and impl != "dense":
+        raise NotImplementedError(
+            f"precision='f64' on CUDA takes the dense route only (N <= {_DENSE_MAX_N} "
+            f"under 'auto'), not {impl!r}: the CUDA kernels compute in float32; use ds32 "
+            "on the card and f64 on the CPU")
     return impl
 
 
@@ -85,11 +90,13 @@ def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
     ``"pallas_sym"`` (half-pair, U = 0) and ``"pallas_mxu"`` (Gram) map to
     their CUDA kernels the same way, and ``"mxu"`` to the plain-torch Gram
     form on every device. Each takes its plain version on CPU tensors. The
-    kernels are f32, so f64 state on CUDA raises (f64 is the CPU golden
-    path).
-    ``"tree"`` is ``ops.tree.tree_acc_potential`` with ``tree_near="kernel"``
-    (its near sweep the B7 kernel on CUDA tensors); its overflow counter is
-    dropped here, so size the budgets first (``simulate()`` probes them).
+    kernels are f32, so f64 state on CUDA takes the dense route only and
+    raises on any other (f64 is the CPU golden path).
+    ``"tree"`` is ``ops.tree.tree_acc_potential`` in the near mode
+    ``cfg.tree_near`` (``"cells"``, ``"columns"``, ``"pairs"``, or
+    ``"kernel"``, whose near sweep is the B7 kernel on CUDA tensors) with the
+    config's budgets; its overflow counter is dropped here, so size the
+    budgets first (``simulate()`` probes them).
     ``"pm"`` is ``ops.pm.pm_acc_potential`` and ``"p3m"``
     ``ops.p3m.p3m_acc_potential`` (its short range the CUDA kernel on CUDA
     tensors) on ``cfg.pm_grid`` and the pinned ``cfg.pm_box``; P3M's overflow
@@ -177,17 +184,16 @@ def _box_on(cfg: SimConfig):
 
 
 def _tree_kwargs(cfg: SimConfig, device: torch.device) -> dict:
-    """``tree_acc_potential``'s keyword arguments for a config, the pinned
-    box as tensors on ``device``. Near modes other than "kernel" raise
-    naming ROADMAP.md A.13."""
-    from ..ops.tree import _check_near
-
-    _check_near(cfg.tree_near)
-    box = _box_tensors(cfg, device)
+    """``tree_acc_potential``'s keyword arguments for a config: every budget
+    of every near mode (each mode reads its own), the pinned box as tensors
+    on ``device``."""
     return dict(G_grav=cfg.G, eps2=cfg.eps2, levels=cfg.tree_levels, ws=cfg.tree_ws,
-                order=cfg.tree_order, near=cfg.tree_near, max_chunks=cfg.tree_max_chunks,
-                chunk=cfg.tree_chunk, wl_entries=cfg.tree_wl_entries, wl_rj=cfg.tree_wl_rj,
-                with_potential=cfg.track_potential, box=box)
+                order=cfg.tree_order, near=cfg.tree_near, capacity=cfg.tree_capacity,
+                max_cells=cfg.tree_max_cells, max_big=cfg.tree_max_big,
+                max_frontier=cfg.tree_max_frontier, max_chunks=cfg.tree_max_chunks,
+                chunk=cfg.tree_chunk, pair_entries=tuple(cfg.tree_pair_entries),
+                wl_entries=cfg.tree_wl_entries, wl_rj=cfg.tree_wl_rj,
+                with_potential=cfg.track_potential, box=_box_tensors(cfg, device))
 
 
 def resolve_force_detect_fn(cfg: SimConfig, n: int, device: torch.device | str,
@@ -204,8 +210,13 @@ def resolve_force_detect_fn(cfg: SimConfig, n: int, device: torch.device | str,
     chunked forces plus the chunked count for CPU tensors. Returns None for
     a force path without a detecting variant ("pallas_sym", "mxu",
     "pallas_mxu", "tree", "pm", "p3m"): the stepper then runs the bounce
-    sweep ungated, as the JAX package does.
+    sweep ungated, as the JAX package does. f64 state on CUDA raises on
+    every route: the collision sweeps on the card are f32 kernels.
     """
+    if torch.device(device).type == "cuda" and dtype == torch.float64:
+        raise NotImplementedError(
+            "precision='f64' on CUDA with collisions: the CUDA collision kernels compute in "
+            "float32; use ds32 on the card and f64 on the CPU")
     impl = _resolve_impl(cfg, n, torch.device(device), dtype)
     if impl == "pallas":
         from ..ops.cuda_forces import pairwise_acc_detect_cuda

@@ -41,6 +41,7 @@ import torch
 
 from .collisions import (bounce_deltas_chunked, collision_parents_chunked, contact_marks_chunked,
                          pointer_jump, restitution_clip)
+from ..utils.kernels import refuse_grad
 
 __all__ = ["bounce_deltas_cuda", "bounce_deltas_plain", "collision_roots_cuda",
            "collision_roots_plain", "collision_parents_cuda", "collision_parents_plain",
@@ -98,6 +99,7 @@ def bounce_deltas_cuda(
                                    restitution=restitution, contacts=contacts)
     if pos.device.type != "cuda":
         raise ValueError(f"bounce_deltas_cuda: unsupported device {pos.device}")
+    refuse_grad("bounce_deltas_cuda", pos, vel, mass, radius)
     n = pos.shape[0]
     if pos.ndim != 2 or pos.shape[1] != 3 or vel.shape != pos.shape \
             or mass.shape != pos.shape[:1] or radius.shape != pos.shape[:1]:
@@ -178,6 +180,7 @@ def sweep_plan(n: int, warps: int) -> list[list[tuple[int, int]]]:
 def _sweep_launch(name: str, pos, radius, alive, contacts, out_dtype):
     """Check the inputs of a contact-sweep wrapper and launch the kernel's
     mode ``name`` (the C entry point) into a new [N] tensor."""
+    refuse_grad(name, pos, radius)
     n = pos.shape[0]
     if pos.ndim != 2 or pos.shape[1] != 3 or radius.shape != pos.shape[:1]:
         raise ValueError(f"{name}: need pos [N, 3] and radius [N]")

@@ -36,6 +36,7 @@ import torch
 
 from .collisions import count_contacts_chunked
 from .forces import _block_acc_potential, pairwise_acc_chunked
+from ..utils.kernels import refuse_grad
 
 __all__ = ["pairwise_acc_cuda", "pairwise_acc_plain", "pairwise_acc_detect_cuda",
            "pairwise_acc_detect_plain", "block_acc_cuda", "block_acc_plain"]
@@ -113,6 +114,7 @@ def pairwise_acc_cuda(
         return pairwise_acc_plain(pos, mass, alive, G=G, eps2=eps2,
                                   with_potential=with_potential)
     _check_inputs("pairwise_acc_cuda", pos, mass, alive)
+    refuse_grad("pairwise_acc_cuda", pos, mass)
     n = pos.shape[0]
     mass_eff = mass if alive is None else mass * alive.to(mass.dtype)
     mass32 = mass_eff.to(torch.float32)
@@ -170,6 +172,7 @@ def pairwise_acc_detect_cuda(
         return pairwise_acc_detect_plain(pos, mass, radius, alive, G=G, eps2=eps2,
                                          with_potential=with_potential)
     _check_inputs("pairwise_acc_detect_cuda", pos, mass, radius, alive)
+    refuse_grad("pairwise_acc_detect_cuda", pos, mass, radius)
     n = pos.shape[0]
     alive32 = alive.to(torch.float32)
     mass32 = (mass * alive.to(mass.dtype)).to(torch.float32)
@@ -232,6 +235,7 @@ def block_acc_cuda(pos_i: torch.Tensor, pos_j: torch.Tensor, mass_j: torch.Tenso
     if pos_i.device.type == "cpu":
         return block_acc_plain(pos_i, pos_j, mass_j, G=G, eps2=eps2)
     _check_inputs("block_acc_cuda", pos_j, mass_j, pos_i)
+    refuse_grad("block_acc_cuda", pos_i, pos_j, mass_j)
     if pos_i.dtype != torch.float32 or pos_i.ndim != 2 or pos_i.shape[1] != 3:
         raise ValueError(f"block_acc_cuda: need float32 pos_i [Bi, 3], got "
                          f"{pos_i.dtype} {tuple(pos_i.shape)}")

@@ -39,6 +39,7 @@ from typing import Optional
 import torch
 
 from .mxu_forces import full_f32_matmul, gram_rows
+from ..utils.kernels import refuse_grad
 
 __all__ = ["pairwise_acc_mxu_cuda", "pairwise_acc_mxu_plain", "gram_sums_cuda",
            "gram_sums_plain", "check_tiles", "pack_gram"]
@@ -135,6 +136,7 @@ def gram_sums_cuda(iA: torch.Tensor, jB: torch.Tensor, *, eps2: float,
     if iA.device.type == "cpu":
         return gram_sums_plain(iA, jB, eps2=eps2, with_potential=with_potential)
     _check_packed(iA, jB)
+    refuse_grad("gram_sums_cuda", iA, jB)
     n = iA.shape[0]
     iA, jB = iA.contiguous(), jB.contiguous()
     sums = torch.empty((n, 4), dtype=torch.float32, device=iA.device)

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from .forces import pairwise_acc_chunked
+from ..utils.kernels import refuse_grad
 
 __all__ = ["pairwise_acc_sym_cuda", "pairwise_acc_sym_plain", "sym_tile"]
 
@@ -86,6 +87,7 @@ def pairwise_acc_sym_cuda(
     from .cuda_forces import _check_inputs
 
     _check_inputs("pairwise_acc_sym_cuda", pos, mass, alive)
+    refuse_grad("pairwise_acc_sym_cuda", pos, mass)
     n = pos.shape[0]
     tile = sym_tile(n, eps2)
     mass_eff = mass if alive is None else mass * alive.to(mass.dtype)

@@ -36,6 +36,7 @@ import torch
 
 from .collisions import count_contacts_chunked
 from .forces import accel_jerk_chunked, accel_jerk_subset
+from ..utils.kernels import refuse_grad
 
 __all__ = ["accel_jerk_cuda", "accel_jerk_plain", "accel_jerk_detect_cuda",
            "accel_jerk_detect_plain", "accel_jerk_subset_cuda", "accel_jerk_subset_plain",
@@ -134,6 +135,7 @@ def accel_jerk_cuda(
     if pos.device.type == "cpu":
         return accel_jerk_plain(pos, vel, mass, alive, G=G, eps2=eps2)
     _check_inputs("accel_jerk_cuda", pos, vel, mass, alive)
+    refuse_grad("accel_jerk_cuda", pos, vel, mass)
     n = pos.shape[0]
     pm, vr, mass32 = _pack(pos, vel, mass, alive)
     out = torch.empty((n, 8), dtype=torch.float32, device=pos.device)
@@ -177,6 +179,7 @@ def accel_jerk_detect_cuda(
     if pos.device.type == "cpu":
         return accel_jerk_detect_plain(pos, vel, mass, radius, alive, G=G, eps2=eps2)
     _check_inputs("accel_jerk_detect_cuda", pos, vel, mass, radius, alive)
+    refuse_grad("accel_jerk_detect_cuda", pos, vel, mass, radius)
     n = pos.shape[0]
     pm, vr, mass32 = _pack(pos, vel, mass, alive, radius)
     out = torch.empty((n, 8), dtype=torch.float32, device=pos.device)
@@ -262,6 +265,7 @@ def accel_jerk_subset_cuda(
     if pos.device.type == "cpu":
         return accel_jerk_subset_plain(idx_i, pos, vel, mass, alive, G=G, eps2=eps2)
     _check_inputs("accel_jerk_subset_cuda", pos, vel, mass, alive, idx_i)
+    refuse_grad("accel_jerk_subset_cuda", pos, vel, mass)
     if idx_i.ndim != 1:
         raise ValueError("accel_jerk_subset_cuda: idx_i must be [F]")
     out = _subset(idx_i, pos, vel, mass.to(torch.float32), alive, G, eps2)

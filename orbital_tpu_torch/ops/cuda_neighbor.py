@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from .neighbor import near_acc_slots
+from ..utils.kernels import refuse_grad
 
 __all__ = ["near_acc_slots_cuda", "near_acc_slots_cuda_sb", "near_acc_slots_cuda_wl",
            "near_acc_slots_wl_plain", "near_params"]
@@ -113,6 +114,7 @@ def _sweep(xs, ys, zs, ms, blocks, off, stride: int, count, k_ch: int, *,
     count[c], or without ``off`` and ``count`` the non-sentinel entries of
     row c of the table ``blocks [k_ch, stride]``. Returns (acc, pe) as the
     JAX wrappers do: views of one [k_ch * chunk, 4] output."""
+    refuse_grad("near_acc_slots_cuda", xs, ys, zs, ms)
     c, blkw = int(chunk), int(rj) * int(chunk)
     chans = (xs, ys, zs, ms)
     if len({t.stride(0) for t in chans}) != 1:

@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from .p3m import p3m_short_plain
+from ..utils.kernels import refuse_grad
 
 __all__ = ["p3m_short_cuda", "p3m_short_plain", "p3m_short_order", "p3m_short_order_cuda"]
 
@@ -128,6 +129,7 @@ def p3m_short_order_cuda(table: torch.Tensor, cell_pos: torch.Tensor, cell_m: to
         return p3m_short_order(table, cell_pos, cell_m, count, gc)
     if table.device.type != "cuda":
         raise ValueError(f"p3m_short_order_cuda: unsupported device {table.device}")
+    refuse_grad("p3m_short_order_cuda", cell_pos, cell_m)
     from ..utils.kernels import check
 
     gc3, cap, dev = gc ** 3, table.shape[1], table.device
@@ -174,6 +176,7 @@ def p3m_short_cuda(table: torch.Tensor, cell_pos: torch.Tensor, cell_m: torch.Te
                                rcut2=rcut2, eps2=eps2, cell_block=cell_block)
     if table.device.type != "cuda":
         raise ValueError(f"p3m_short_cuda: unsupported device {table.device}")
+    refuse_grad("p3m_short_cuda", cell_pos, cell_m)
     if eps2 <= 0.0:
         raise ValueError("p3m_short_cuda requires eps2 > 0")
     gc3 = gc ** 3

@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from .tree_near_wl import tree_near_plain
+from ..utils.kernels import refuse_grad
 
 __all__ = ["tree_near_cuda"]
 
@@ -57,6 +58,7 @@ def tree_near_cuda(pbods: torch.Tensor, start_blk: torch.Tensor, n_blk: torch.Te
     fn = "tree_near_cuda"
     if pbods.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {pbods.device}")
+    refuse_grad(fn, pbods)
     if pbods.dtype != torch.float32:
         raise TypeError(f"{fn} computes in float32, got {pbods.dtype}")
     if start_blk.device != pbods.device or n_blk.device != pbods.device:

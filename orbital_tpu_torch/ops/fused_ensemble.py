@@ -30,6 +30,7 @@ import torch
 
 from ..engine.state import NBodyState
 from ..utils.config import SimConfig
+from ..utils.kernels import refuse_grad
 from .forces import _masked_inverse_r
 
 __all__ = ["fused_ensemble", "fused_ensemble_plain", "ensemble_acc_potential_plain",
@@ -124,6 +125,8 @@ def fused_ensemble(states: NBodyState, cfg: SimConfig, steps: int) -> NBodyState
         return fused_ensemble_plain(states, cfg, steps)
     if states.device.type != "cuda":
         raise ValueError(f"fused_ensemble: unsupported device {states.device}")
+    refuse_grad("fused_ensemble", states.pos, states.vel, states.mass, states.pos_lo,
+                states.vel_lo)
     _validate(states, cfg, steps)
     if states.dtype != torch.float32:
         raise TypeError(f"fused_ensemble needs an f32 or ds32 state, got {states.dtype}")

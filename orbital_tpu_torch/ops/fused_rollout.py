@@ -29,6 +29,7 @@ import torch
 
 from ..engine.state import NBodyState
 from ..utils.config import SimConfig
+from ..utils.kernels import refuse_grad
 from .cuda_forces import pairwise_acc_plain
 
 __all__ = ["fused_rollout", "fused_rollout_plain", "launch_plan", "FUSED_MAX_N"]
@@ -153,6 +154,7 @@ def fused_rollout(state: NBodyState, cfg: SimConfig, steps: int) -> NBodyState:
         return fused_rollout_plain(state, cfg, steps)
     if state.device.type != "cuda":
         raise ValueError(f"fused_rollout: unsupported device {state.device}")
+    refuse_grad("fused_rollout", state.pos, state.vel, state.mass, state.pos_lo, state.vel_lo)
     _validate(state, cfg, steps)
     if state.dtype != torch.float32:
         raise TypeError(f"fused_rollout needs an f32 or ds32 state, got {state.dtype}")

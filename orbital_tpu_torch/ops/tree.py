@@ -1,5 +1,5 @@
 r"""Multilevel tree gravity: multipole far field by convolution + exact near
-field over chunk pairs (``near="kernel"``).
+field over occupied cells, columns or chunk pairs.
 
 A port of ``orbital_tpu/ops/tree.py``. How the pairs are partitioned across
 levels, and why the far field is a convolution, is that module's docstring.
@@ -24,9 +24,15 @@ What the port carries over, and what it changes:
     TF32 is switched off around it (``_level_conv``), as the JAX module asks
     for ``Precision.HIGHEST``. The layout-study flags ``"lazy"`` and
     ``_FAR_NHWC`` are not ported (ROADMAP.md A.13).
-  * The near field for ``near="kernel"`` only (``ops/tree_near_wl.py`` and
-    its CUDA kernel); ``"cells"``, ``"columns"`` and ``"pairs"`` raise
-    ``NotImplementedError`` (A.13), as do the sharded arguments (A.15).
+  * All four near modes. ``"kernel"`` runs the chunk-pair sweep through the
+    B7 wrapper (``ops/tree_near_wl.py`` and its CUDA kernel). ``"cells"``,
+    ``"columns"`` and ``"pairs"`` are the JAX module's plain XLA gathers and
+    sums (``_near_cells``, ``_near_columns``, ``_near_pairs``), here eager
+    tensor code on the device: the ``lax.map`` over blocks becomes a loop
+    over blocks sized by the same 32 MB rule, every clamped gather an explicit
+    clamp and every dropped scatter a write into a spare row that is never
+    read or is sliced off; packed-row sentinels (positions 1e30, mass 0, idx
+    n) are masked by select. The sharded arguments raise (A.15).
   * The stable multi-payload sort is ``torch.sort(stable=True)`` and
     gathers. The NGP deposit is ``index_add_``, which on CUDA uses float
     atomics: the deposited moments, and so the far field, may differ in
@@ -57,22 +63,16 @@ import torch
 from .pm import _bounding_cube
 
 __all__ = ["tree_acc_potential", "tree_acc_potential_staged", "tree_occupancy_probe",
+           "tree_class_probe", "tree_column_probe", "tree_pairs_probe", "tree_pairs_budgets",
            "tree_stencil", "_compact_sorted", "_segment_bounds", "_pairs_geometry"]
 
 i64 = torch.int64
 f32 = torch.float32
 
-# the near modes of the JAX module; only "kernel" is ported
 _NEAR_MODES = ("cells", "columns", "pairs", "kernel")
-
-
-def _check_near(near: str) -> None:
-    if near not in _NEAR_MODES:
-        raise ValueError("near must be 'cells', 'columns', 'pairs', or 'kernel'")
-    if near != "kernel":
-        raise NotImplementedError(
-            f"tree near={near!r} is not ported to orbital_tpu_torch yet (ROADMAP.md "
-            "queue A item A.13); the port's tree near field is near='kernel'")
+# pair elements a block of the eager near sweeps holds in each temporary (the
+# JAX module's budget, tree.py:1107)
+_BLOCK_ELEMS = 32 * 1024 * 1024
 
 
 def tree_stencil(ws: int) -> list[tuple[int, int, int]]:
@@ -430,12 +430,18 @@ def tree_acc_potential(
     G_grav: float,
     eps2: float,
     levels: int = 6,
+    capacity: int = 48,
     ws: int = 1,
+    max_cells: int = 0,
+    cell_block: int = 0,
     with_potential: bool = True,
     order: int = 1,
+    max_big: int = 0,
+    max_frontier: int = 0,
     max_chunks: int = 0,
     near: str = "cells",
     chunk: int = 32,
+    pair_entries: tuple = (),
     wl_entries: int = 0,
     wl_rj: int = 8,
     box=None,
@@ -446,14 +452,28 @@ def tree_acc_potential(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Tree accelerations, potential, and the near-field overflow count.
 
-    The arguments are the JAX function's for ``near="kernel"``: ``levels``
-    (near field on ``2^levels`` cells per side), ``ws`` (well-separation, 1
-    or 2), ``order`` (1 monopole+dipole, 2 + quadrupole and second-order
-    target Taylor), ``max_chunks`` and ``wl_entries`` (static budgets; size
-    them with ``ops.tree_near_wl.tree_wl_budgets``), ``chunk`` and
-    ``wl_rj`` (chunk rows, and j-block height in chunks), ``box`` (optional
-    (center [3], half) pinning the grid; default refits the live bounding
-    cube every call). ``_phase`` is ``"both"``, ``"far"`` or ``"near"``
+    The arguments are the JAX function's: ``levels`` (near field on
+    ``2^levels`` cells per side), ``ws`` (well-separation, 1 or 2), ``order``
+    (1 monopole+dipole, 2 + quadrupole and second-order target Taylor),
+    ``box`` (optional (center [3], half) pinning the grid; default refits the
+    live bounding cube every call), and the near mode ``near`` with its
+    static budgets:
+
+      * ``"cells"``: each occupied finest cell against its (2ws+1)^3
+        neighbor cells; ``capacity`` bodies a cell, ``max_cells`` occupied
+        cells (0 = min(N, 8^levels)), ``max_big`` / ``max_frontier`` for the
+        occupancy classes (size them with :func:`tree_class_probe`);
+      * ``"columns"``: each occupied (x, y) column against its (2ws+1)^2
+        neighbor columns with a |dz| <= ws band mask; the same budgets per
+        column, plus ``max_chunks`` for the big sweep's i-side chunks (size
+        them with :func:`tree_column_probe`, ``with_chunks=True``);
+      * ``"pairs"``: ``chunk``-body chunk pairs with octave-padded j widths;
+        ``max_chunks`` and ``pair_entries`` (:func:`tree_pairs_budgets`);
+      * ``"kernel"``: the same chunk pairs through B7; ``max_chunks`` and
+        ``wl_entries`` (``ops.tree_near_wl.tree_wl_budgets``) and ``wl_rj``.
+
+    ``cell_block`` is the eager sweeps' block of list entries (0 = the
+    32 MB rule). ``_phase`` is ``"both"``, ``"far"`` or ``"near"``
     (:func:`tree_acc_potential_staged`). ``_dtype`` is the compute type,
     float32 as in the JAX function; float64 (plain versions only) serves as
     the reference of the checks.
@@ -468,11 +488,15 @@ def tree_acc_potential(
         raise ValueError("ws must be 1 or 2")
     if order not in (1, 2):
         raise ValueError("order must be 1 (monopole+dipole) or 2 (+quad)")
-    _check_near(near)
+    if near not in _NEAR_MODES:
+        raise ValueError("near must be 'cells', 'columns', 'pairs', or 'kernel'")
+    if near == "pairs" and not pair_entries:
+        raise ValueError("near='pairs' needs per-octave i-chunk budgets: pass pair_entries "
+                         "sized with tree_pairs_probe")
     if _n_parts > 1 or _psum_axis is not None:
         raise NotImplementedError("the sharded tree is not ported to orbital_tpu_torch yet "
                                   "(ROADMAP.md queue A item A.15)")
-    if wl_entries <= 0:
+    if near == "kernel" and wl_entries <= 0:
         raise ValueError("near='kernel' needs a worklist budget: pass wl_entries sized with "
                          "ops.tree_near_wl.tree_wl_budgets")
     if levels < 2 or levels > 8:
@@ -496,15 +520,38 @@ def tree_acc_potential(
         return ((a_far * alive_f[:, None]).to(pos.dtype), U_far.to(pos.dtype),
                 torch.zeros((), dtype=torch.int32, device=dev))
 
-    from .tree_near_wl import _near_wl
-
     sc, sort_idx = _sort_cells(cc, alive_b, M)
-    idx, acc_s, pe_s, cap_overflow, cell_overflow = _near_wl(
-        sc, pos32[sort_idx], m_eff[sort_idx], sort_idx, n, M, ws, eps2, G, max_chunks,
-        chunk, wl_entries, wl_rj)
-    # every body owns one row: scatter the sorted rows back to body order
-    acc_near = torch.zeros((n, 3), dtype=_dtype, device=dev).index_put_((idx,), acc_s)
-    pe_near = torch.zeros((n,), dtype=_dtype, device=dev).index_put_((idx,), pe_s)
+    pos_s, m_s = pos32[sort_idx], m_eff[sort_idx]
+    if near == "kernel":
+        from .tree_near_wl import _near_wl
+
+        idx, acc_s, pe_s, cap_overflow, cell_overflow = _near_wl(
+            sc, pos_s, m_s, sort_idx, n, M, ws, eps2, G, max_chunks, chunk, wl_entries,
+            wl_rj)
+        # every body owns one row: scatter the sorted rows back to body order
+        acc_near = torch.zeros((n, 3), dtype=_dtype, device=dev).index_put_((idx,), acc_s)
+        pe_near = torch.zeros((n,), dtype=_dtype, device=dev).index_put_((idx,), pe_s)
+    else:
+        pack = _row_packer(pos_s, m_s, sort_idx, n)
+        sweep = _Sweep(M, ws, eps2, G, cell_block, origin[2], h)
+        if near == "cells":
+            K = min(n, M ** 3) if max_cells <= 0 else int(max_cells)
+            cap_overflow, cell_overflow = _near_cells(sc, pack, sweep, n, M, K, capacity,
+                                                      max_big, max_frontier)
+        elif near == "columns":
+            cap_overflow, cell_overflow = _near_columns(sc, pack, sweep, n, M, capacity,
+                                                        max_cells, max_big, max_frontier,
+                                                        max_chunks)
+        else:
+            cap_overflow, cell_overflow = _near_pairs(sc, pack, sweep, n, M, max_chunks,
+                                                      chunk, pair_entries)
+        # each swept row adds into its body's slot; padding rows carry idx n
+        # into the spare row n, sliced off
+        idx = sweep.idx()
+        acc_near = torch.zeros((n + 1, 3), dtype=_dtype, device=dev).index_add_(
+            0, idx, sweep.acc())[:n]
+        pe_near = torch.zeros((n + 1,), dtype=_dtype, device=dev).index_add_(
+            0, idx, sweep.pe())[:n]
 
     acc = (a_far + acc_near) * alive_f[:, None]
     overflow = (cap_overflow + cell_overflow).to(torch.int32)
@@ -513,6 +560,386 @@ def tree_acc_potential(
     else:
         U = torch.zeros((), dtype=_dtype, device=dev)
     return acc.to(pos.dtype), U.to(pos.dtype), overflow
+
+
+# ---------------------------------------------------------------------------
+# the eager near sweeps ("cells", "columns", "pairs")
+# ---------------------------------------------------------------------------
+
+def _dense_slot_map(ids_list: torch.Tensor, K: int, id_max: int) -> torch.Tensor:
+    """Dense ``[id_max + 1]`` map: id -> its slot in ``ids_list`` (a K-long
+    padded id list with sentinel ``id_max``), K for absent ids. The sentinel
+    entries all write K into row ``id_max``."""
+    out = torch.full((id_max + 1,), K, dtype=i64, device=ids_list.device)
+    slots = torch.arange(K, dtype=i64, device=ids_list.device)
+    out[torch.clamp(ids_list, max=id_max)] = torch.where(ids_list < id_max, slots, K)
+    return out
+
+
+def _lookup_slot(sorted_ids: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Row index of ``query`` in the sorted (sentinel-padded) id list, or K
+    (one past the end) when absent."""
+    K = sorted_ids.shape[0]
+    slot = torch.clamp(torch.searchsorted(sorted_ids, query), max=K - 1)
+    return torch.where(sorted_ids[slot] == query, slot, K)
+
+
+def _dense_flags(ids: torch.Tensor, flags: torch.Tensor, id_max: int) -> torch.Tensor:
+    """Dense ``[id_max + 1]`` bool map: True at each flagged id. Unflagged
+    entries write False into the spare row ``id_max``."""
+    out = torch.zeros((id_max + 1,), dtype=torch.bool, device=ids.device)
+    out[torch.where(flags, ids, id_max)] = flags
+    return out
+
+
+def _row_packer(pos_s: torch.Tensor, m_s: torch.Tensor, sort_idx: torch.Tensor, n: int):
+    """``pack(slot_b, rank_b, keep_b, Kcap, Wd) -> [Kcap + 1, 5 Wd]``: packed
+    rows px | py | pz | m | idx (idx as a float, exact for n < 2^24) with body
+    ``b`` (cell-sorted order) at row ``slot_b``, lane ``rank_b``. Dropped
+    bodies write their channel's sentinel (1e30, 0 or n) into the spare row
+    Kcap, which therefore stays all sentinel and serves as the absent row."""
+    dt = pos_s.dtype
+    cols = (pos_s[:, 0], pos_s[:, 1], pos_s[:, 2], m_s, sort_idx.to(dt))
+    sent = (1e30, 1e30, 1e30, 0.0, float(n))
+
+    def pack(slot_b, rank_b, keep_b, Kcap: int, Wd: int) -> torch.Tensor:
+        s = torch.where(keep_b, slot_b, Kcap)
+        r = torch.clamp(rank_b, 0, Wd - 1)
+        P = torch.empty((Kcap + 1, 5, Wd), dtype=dt, device=pos_s.device)
+        for c, (v, sv) in enumerate(zip(cols, sent)):
+            P[:, c] = sv
+            P[s, c, r] = torch.where(keep_b, v, torch.full_like(v, sv))
+        return P.reshape(Kcap + 1, 5 * Wd)
+    return pack
+
+
+def _block_size(blk: int, per_entry: int, floor: int, entries: int) -> int:
+    """Entries a block: ``blk`` if given, else the largest power of two with
+    at most ``_BLOCK_ELEMS`` pair elements (``per_entry`` a list entry),
+    between ``floor`` and 4,096 (the JAX module's rule); never more than the
+    list's ``entries`` (the JAX module pads a short list to a whole block)."""
+    if blk <= 0:
+        budget = _BLOCK_ELEMS // max(1, per_entry)
+        blk = max(floor, min(4096, 1 << (max(floor, budget).bit_length() - 1)))
+    return max(1, min(int(blk), entries))
+
+
+class _Sweep:
+    """The exact pair sums of the eager near modes, block by block: each
+    block's i rows (packed [B, 5 Wi]) against its j rows (packed [B, 5, J]),
+    with an optional |dz| <= ws cell-band mask computed with the deposit's
+    own binning arithmetic (same f32 ops on the same values give the same
+    cell, so the level partition stays exact). The per-row results collect
+    here: ``idx()`` (body index, n on padding rows), ``acc()`` (including G)
+    and ``pe()`` (sum m_j / r)."""
+
+    def __init__(self, M: int, ws: int, eps2: float, G: float, cell_block: int,
+                 oz: torch.Tensor, h: torch.Tensor):
+        self.M, self.ws, self.eps2, self.G = M, ws, eps2, G
+        self.cell_block, self.oz, self.h = cell_block, oz, h
+        self.parts = []
+
+    def zcell(self, z: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(torch.floor((z - self.oz) / self.h), 0, self.M - 1)
+
+    def block(self, my: torch.Tensor, Wi: int, i_cap: int, rows: torch.Tensor,
+              band: bool) -> None:
+        pi = [my[:, k * Wi:k * Wi + i_cap] for k in range(3)]
+        idx_my = my[:, 4 * Wi:4 * Wi + i_cap]
+        pj = [rows[:, k] for k in range(3)]                   # [B, J]
+        mj, idx_nb = rows[:, 3], rows[:, 4]
+        dx = pj[0][:, None, :] - pi[0][:, :, None]             # [B, Ci, J]
+        dy = pj[1][:, None, :] - pi[1][:, :, None]
+        dz = pj[2][:, None, :] - pi[2][:, :, None]
+        inv_r = torch.rsqrt(dx * dx + dy * dy + dz * dz + self.eps2)
+        take = idx_my[:, :, None] != idx_nb[:, None, :]
+        if band:
+            zci, zcj = self.zcell(pi[2]), self.zcell(pj[2])
+            take = take & (torch.abs(zci[:, :, None] - zcj[:, None, :]) <= self.ws)
+        zero = torch.zeros((), dtype=dx.dtype, device=dx.device)
+        w = torch.where(take, mj[:, None, :] * (inv_r * inv_r * inv_r), zero)
+        acc = self.G * torch.stack([torch.sum(w * dx, -1), torch.sum(w * dy, -1),
+                                    torch.sum(w * dz, -1)], dim=-1)
+        pe = torch.sum(torch.where(take, mj[:, None, :] * inv_r, zero), -1)
+        self.parts.append((idx_my.reshape(-1).to(i64), acc.reshape(-1, 3), pe.reshape(-1)))
+
+    def idx(self) -> torch.Tensor:
+        return torch.cat([p[0] for p in self.parts])
+
+    def acc(self) -> torch.Tensor:
+        return torch.cat([p[1] for p in self.parts])
+
+    def pe(self) -> torch.Tensor:
+        return torch.cat([p[2] for p in self.parts])
+
+    def neighbor_sweep(self, ids_list: torch.Tensor, slot_of: torch.Tensor, id_max: int,
+                       offsets, decode, i_cap: int, P: torch.Tensor, width: int,
+                       Pi: Optional[torch.Tensor] = None, band: bool = False) -> None:
+        """Sweep the listed cells or columns (``ids_list``, sentinel
+        ``id_max``): each entry's i rows (its own row of ``P``, or row ``list
+        position`` of ``Pi``, width ``i_cap``) against one row of ``P`` (width
+        ``width``) per neighbor at ``offsets`` of its ``decode``d
+        coordinates."""
+        Ki = ids_list.shape[0]
+        dev = ids_list.device
+        n_nb = len(offsets)
+        blk = _block_size(self.cell_block, i_cap * width * n_nb, 8, Ki)
+        M = self.M
+        for s0 in range(0, Ki, blk):
+            slots_l = s0 + torch.arange(blk, dtype=i64, device=dev)
+            ids = ids_list[torch.clamp(slots_l, max=Ki - 1)]
+            valid = (slots_l < Ki) & (ids < id_max)
+            coords = decode(torch.where(valid, ids, 0))
+            nb = []
+            for off in offsets:
+                moved = [c + d for c, d in zip(coords, off)]
+                ok = valid
+                for c in moved:
+                    ok = ok & (0 <= c) & (c < M)
+                nid = moved[0]
+                for c in moved[1:]:
+                    nid = nid * M + c
+                nb.append(slot_of[torch.where(ok, nid, id_max)])
+            nb = torch.stack(nb, dim=1)                          # [B, n_nb]
+            if Pi is None:
+                my, Wi = P[slot_of[torch.where(valid, ids, id_max)]], width
+            else:
+                my, Wi = Pi[torch.clamp(slots_l, max=Ki - 1)], i_cap
+            rows = P[nb].reshape(blk, n_nb, 5, width).transpose(1, 2).reshape(blk, 5, -1)
+            self.block(my, Wi, i_cap, rows, band)
+
+
+def _class_split(occ: torch.Tensor, occ_valid: torch.Tensor, keys_s: torch.Tensor,
+                 count_b: torch.Tensor, slot_b: torch.Tensor, K: int, id_max: int,
+                 c_small: int, max_big: int, max_frontier: int, nb_offsets, decode,
+                 M: int):
+    """The occupancy classes of the cell and column sweeps. Occupied ids
+    ``occ`` (sorted, sentinel ``id_max``) split into BIG (more than
+    ``c_small`` bodies), FRONTIER (small with a big neighbor at
+    ``nb_offsets``) and clean small ones. Returns the three id lists (big
+    ``K_big`` long, frontier ``K_f`` long, small K long), the per-body big
+    flag and big-list slot (cell-sorted order, ``keys_s`` the bodies' ids),
+    and the bodies whose big or frontier entry fell past its list budget."""
+    occ_counts = torch.where(occ_valid, torch.searchsorted(keys_s, occ, right=True)
+                             - torch.searchsorted(keys_s, occ), 0)
+    big = occ_valid & (occ_counts > c_small)
+    K_big = min(K, max(256, K // 8)) if max_big <= 0 else min(K, int(max_big))
+    K_f = min(K, max(512, K // 4)) if max_frontier <= 0 else min(K, int(max_frontier))
+    ids_big = _compact_sorted(big, occ, K_big, id_max)
+    big_flag = _dense_flags(torch.clamp(ids_big, max=id_max), ids_big < id_max, id_max)
+    coords = decode(torch.where(occ_valid, occ, 0))
+    any_big = torch.zeros_like(occ_valid)
+    for off in nb_offsets:
+        moved = [c + d for c, d in zip(coords, off)]
+        ok = torch.ones_like(occ_valid)
+        for c in moved:
+            ok = ok & (0 <= c) & (c < M)
+        nid = moved[0]
+        for c in moved[1:]:
+            nid = nid * M + c
+        any_big = any_big | big_flag[torch.where(ok, nid, id_max)]
+    small = occ_valid & ~big
+    frontier = small & any_big
+    ids_small = _compact_sorted(small & ~any_big, occ, K, id_max)
+    ids_front = _compact_sorted(frontier, occ, K_f, id_max)
+
+    # bodies whose cell fell past its list budget lose their target sweep
+    # (their source role through the tables is unaffected): counted
+    live = (keys_s < id_max) & (slot_b < K)
+    body_big = count_b > c_small
+    key_c = torch.clamp(keys_s, max=id_max)
+    slot_big = _dense_slot_map(ids_big, K_big, id_max)[key_c]
+    big_drop = torch.sum(body_big & live & (slot_big >= K_big))
+    front_dense = _dense_flags(occ, frontier, id_max)
+    slot_f = _dense_slot_map(ids_front, K_f, id_max)[key_c]
+    front_drop = torch.sum(front_dense[key_c] & live & (slot_f >= K_f))
+    return (ids_big, K_big, ids_front, ids_small, body_big, slot_big,
+            big_drop + front_drop)
+
+
+def _near_cells(sc, pack, sweep: _Sweep, n: int, M: int, K: int, capacity: int,
+                max_big: int, max_frontier: int):
+    """Near field at CELL granularity (the JAX module's
+    ``_near_cells_body``): each occupied finest cell sweeps its (2ws+1)^3
+    neighbor cells, one packed row each, split by occupancy class (big cells
+    at full ``capacity``, frontier cells at i-width 16 against full-width
+    rows, clean small cells at width 16 both sides). Returns the capacity
+    and cell overflows (int64 device scalars)."""
+    M3 = M ** 3
+    ws = sweep.ws
+    dev = sc.device
+    first, last = _segment_bounds(sc)
+    rank = torch.arange(n, dtype=i64, device=dev) - first
+    cell_count = last - first
+    occ_idx = _compact_sorted((rank == 0) & (sc < M3), sc, K, M3)
+    slot_of = _dense_slot_map(occ_idx, K, M3)
+    slot = slot_of[torch.clamp(sc, max=M3)]
+    in_list = (sc < M3) & (slot < K)
+    keep = (rank < capacity) & in_list
+    cap_overflow = torch.sum((rank >= capacity) & in_list)
+    cell_overflow = torch.sum((slot >= K) & (sc < M3))
+
+    def decode(ids):
+        return ids // (M * M), (ids // M) % M, ids % M
+
+    offsets = [(a, b, c) for a in range(-ws, ws + 1) for b in range(-ws, ws + 1)
+               for c in range(-ws, ws + 1)]
+    split = capacity > 16
+    c_small = 16 if split else capacity
+    if split:
+        ids_big, _, ids_front, ids_small, body_big, _, dropped = _class_split(
+            occ_idx, occ_idx < M3, sc, cell_count, slot, K, M3, c_small, max_big,
+            max_frontier, offsets, decode, M)
+        cell_overflow = cell_overflow + dropped
+        # width-16 rows holding only small cells' bodies (their rank is < 16)
+        P_s = pack(slot, rank, keep & ~body_big, K, c_small)
+        P_full = pack(slot, rank, keep, K, capacity)
+    else:
+        ids_small = occ_idx
+        P_s = P_full = pack(slot, rank, keep, K, capacity)
+    sweep.neighbor_sweep(ids_small, slot_of, M3, offsets, decode, c_small, P_s, c_small)
+    if split:
+        sweep.neighbor_sweep(ids_front, slot_of, M3, offsets, decode, c_small, P_full,
+                             capacity)
+        sweep.neighbor_sweep(ids_big, slot_of, M3, offsets, decode, capacity, P_full,
+                             capacity)
+    return cap_overflow, cell_overflow
+
+
+def _near_columns(sc, pack, sweep: _Sweep, n: int, M: int, capacity: int, max_cells: int,
+                  max_big: int, max_frontier: int, max_chunks: int):
+    """Near field at COLUMN granularity (the JAX module's ``_near_columns``):
+    each occupied (x, y) column sweeps its (2ws+1)^2 neighbor columns with
+    the |dz| <= ws cell-band claim as a mask. The budgets are per column
+    (c_small = 32); big columns are swept in 32-row i-chunks (``max_chunks``
+    of them, 0 = min(K_big ceil(capacity / 32), max(512, 4 K_big))). Returns
+    the capacity and cell overflows."""
+    M2 = M * M
+    ws = sweep.ws
+    dev = sc.device
+    col_s = torch.clamp(sc // M, max=M2)
+    first_c, last_c = _segment_bounds(col_s)
+    rank_c = torch.arange(n, dtype=i64, device=dev) - first_c
+    col_count = last_c - first_c
+    Kc = min(n, M2) if max_cells <= 0 else int(max_cells)
+    occ_c = _compact_sorted((rank_c == 0) & (col_s < M2), col_s, Kc, M2)
+    slot_c = _dense_slot_map(occ_c, Kc, M2)
+    slot_b = slot_c[col_s]
+    in_list = (col_s < M2) & (slot_b < Kc)
+    keep = (rank_c < capacity) & in_list
+    cap_overflow = torch.sum((rank_c >= capacity) & in_list)
+    cell_overflow = torch.sum((slot_b >= Kc) & (col_s < M2))
+
+    def decode(ids):
+        return ids // M, ids % M
+
+    offsets = [(a, b) for a in range(-ws, ws + 1) for b in range(-ws, ws + 1)]
+    c_small = 32 if capacity > 32 else capacity
+    split = capacity > c_small
+    if split:
+        ids_big, K_big, ids_front, ids_small, body_big, slot_big, dropped = _class_split(
+            occ_c, occ_c < M2, col_s, col_count, slot_b, Kc, M2, c_small, max_big,
+            max_frontier, offsets, decode, M)
+        cell_overflow = cell_overflow + dropped
+        P_s = pack(slot_b, rank_c, keep & ~body_big, Kc, c_small)
+        P_full = pack(slot_b, rank_c, keep, Kc, capacity)
+        # the big sweep's i side in c_small-row chunks of the kept big-column
+        # bodies (row = chunk ordinal, lane = rank within the chunk)
+        cpc = -(-capacity // c_small)
+        keep_big = keep & body_big & (slot_big < K_big)
+        chunk_start = keep_big & (rank_c % c_small == 0)
+        K_ch = (min(K_big * cpc, max(512, 4 * K_big)) if max_chunks <= 0
+                else min(int(max_chunks), K_big * cpc))
+        chunk_ord = torch.cumsum(chunk_start.to(i64), 0) - 1
+        keep_ch = keep_big & (chunk_ord < K_ch)
+        cell_overflow = cell_overflow + torch.sum(keep_big & ~keep_ch)
+        P_ch = pack(torch.clamp(chunk_ord, 0, K_ch), rank_c % c_small, keep_ch, K_ch,
+                    c_small)
+        ids_chunk = _compact_sorted(chunk_start & (chunk_ord < K_ch), col_s, K_ch, M2)
+    else:
+        ids_small = occ_c
+        P_s = P_full = pack(slot_b, rank_c, keep, Kc, capacity)
+    sweep.neighbor_sweep(ids_small, slot_c, M2, offsets, decode, c_small, P_s, c_small,
+                         band=True)
+    if split:
+        sweep.neighbor_sweep(ids_front, slot_c, M2, offsets, decode, c_small, P_full,
+                             capacity, band=True)
+        sweep.neighbor_sweep(ids_chunk, slot_c, M2, offsets, decode, c_small, P_full,
+                             capacity, Pi=P_ch, band=True)
+    return cap_overflow, cell_overflow
+
+
+def _octave_of(S_ch: torch.Tensor, base_w: int, n_oct: int) -> torch.Tensor:
+    """Octave of each chunk: the smallest o with its trimmed neighborhood
+    j-chunk total ``S_ch`` <= base_w 2^o (n_oct past the last)."""
+    oct_of = torch.zeros_like(S_ch)
+    for k in range(n_oct):
+        oct_of = oct_of + (S_ch > base_w * (1 << k)).to(S_ch.dtype)
+    return oct_of
+
+
+def _near_pairs(sc, pack, sweep: _Sweep, n: int, M: int, max_chunks: int, chunk: int,
+                pair_entries: tuple):
+    """Near field at CHUNK-PAIR granularity (the JAX module's
+    ``_near_pairs``): every column is cut into ``chunk``-body i-chunks, and
+    each sweeps exactly the z-trimmed j-chunk runs of its (2ws+1)^2 neighbor
+    columns, padded to the next octave of its j-chunk total (octave o holds
+    chunks whose total is at most (2ws+1)^2 2^o; ``pair_entries[o]`` of them
+    are swept). Chunks past their octave's budget, or past the last octave,
+    lose their target sweep and are counted. Returns the capacity and cell
+    overflows."""
+    ws = sweep.ws
+    C = int(chunk)
+    K_ch = int(max_chunks) if max_chunks > 0 else (-(-n // C) + min(n, M * M))
+    g = _pairs_geometry(sc, n, M, ws, C, K_ch)
+    dev = sc.device
+    cap_overflow = torch.sum(g["valid_b"] & (g["chunk_ord"] >= K_ch))
+    P = pack(g["chunk_ord"], g["rank_c"] % C, g["keep"], K_ch, C)
+    chunk_valid, j_lo, cnt = g["chunk_valid"], g["j_lo"], g["cnt"]
+    n_nb = (2 * ws + 1) ** 2
+    n_oct = len(pair_entries)
+    oct_of = _octave_of(g["S_ch"], n_nb, n_oct)
+    chunk_rows = torch.arange(K_ch, dtype=i64, device=dev)
+    # chunks past the last compiled octave lose their target sweep too
+    drop_flag = chunk_valid & (oct_of >= n_oct)
+    for o, E_o in enumerate(pair_entries):
+        in_o = chunk_valid & (oct_of == o)
+        if E_o <= 0:
+            drop_flag = drop_flag | in_o
+            continue
+        E_o = int(E_o)
+        W = n_nb * (1 << o)  # j width in chunk rows
+        ord_o = torch.cumsum(in_o.to(i64), 0) - 1
+        drop_flag = drop_flag | (in_o & (ord_o >= E_o))
+        ids_o = _compact_sorted(in_o & (ord_o < E_o), chunk_rows, E_o, K_ch)
+        blk = _block_size(sweep.cell_block, C * W * C, 1, E_o)
+        p = torch.arange(W, dtype=i64, device=dev)[None, :]      # [1, W]
+        for s0 in range(0, E_o, blk):
+            slots_l = s0 + torch.arange(blk, dtype=i64, device=dev)
+            ci = ids_o[torch.clamp(slots_l, max=E_o - 1)]
+            valid = (slots_l < E_o) & (ci < K_ch)
+            cic = torch.where(valid, torch.clamp(ci, max=K_ch - 1), K_ch - 1)
+            # the trimmed (chunk, neighbor) j runs, laid end to end
+            cj = torch.where(valid[:, None], cnt[cic], 0)          # [B, n_nb]
+            j0 = j_lo[cic]
+            ci = torch.where(valid, ci, K_ch)
+            cum = torch.cumsum(cj, 1)                              # inclusive
+            cum0 = cum - cj
+            # segment of slot p: the number of neighbors wholly before it
+            seg = torch.sum(p[:, :, None] >= cum[:, None, :], -1)  # [B, W]
+            segc = torch.clamp(seg, max=n_nb - 1)
+            j_row = torch.gather(j0, 1, segc) + p - torch.gather(cum0, 1, segc)
+            j_row = torch.where(p < cum[:, -1:], torch.clamp(j_row, max=K_ch), K_ch)
+            rows = P[j_row].reshape(blk, W, 5, C).transpose(1, 2).reshape(blk, 5, -1)
+            sweep.block(P[ci], C, C, rows, band=True)
+    # dropped i-chunks lose their TARGET sweep: count their kept bodies
+    dropped_b = torch.cat([drop_flag, drop_flag.new_zeros(1)])[
+        torch.clamp(g["chunk_ord"], max=K_ch)]
+    cell_overflow = torch.sum(g["keep"] & dropped_b)
+    if not sweep.parts:
+        sweep.parts.append((torch.full((1,), n, dtype=i64, device=dev),
+                            P.new_zeros((1, 3)), P.new_zeros((1,))))
+    return cap_overflow, cell_overflow
 
 
 def _far_ids(cc: torch.Tensor, alive_b: torch.Tensor, M: int) -> torch.Tensor:
@@ -610,16 +1037,23 @@ def _host(x, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(np.asarray(x)).to(dtype)
 
 
-def _probe_sorted_cells(pos, alive, levels: int, box) -> tuple[torch.Tensor, int, int]:
-    """Shared preamble of the probes: the finest-level cell ids on the CPU,
-    binned exactly as :func:`tree_acc_potential` bins them (same box fit and
-    clipping), sorted with dead bodies last at M^3. Returns ``(sc, n, M)``."""
+def _probe_cells(pos, alive, levels: int, box) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Per-axis finest cell coordinates [N, 3] and the alive mask on the CPU,
+    binned exactly as :func:`tree_acc_potential` bins them, and M."""
     pos32 = _host(pos, f32)
     n, M = pos32.shape[0], 2 ** levels
     alive_t = None if alive is None else _host(alive, torch.bool)
     box_t = None if box is None else tuple(_host(b, f32) for b in box)
     _, alive_b, *_, cc = _bin(pos32, torch.zeros(n), alive_t, M, box_t, f32)
-    return _sort_cells(cc, alive_b, M)[0], n, M
+    return cc, alive_b, M
+
+
+def _probe_sorted_cells(pos, alive, levels: int, box) -> tuple[torch.Tensor, int, int]:
+    """Shared preamble of the probes: the finest-level cell ids on the CPU,
+    binned exactly as :func:`tree_acc_potential` bins them (same box fit and
+    clipping), sorted with dead bodies last at M^3. Returns ``(sc, n, M)``."""
+    cc, alive_b, M = _probe_cells(pos, alive, levels, box)
+    return _sort_cells(cc, alive_b, M)[0], cc.shape[0], M
 
 
 def tree_occupancy_probe(pos, alive=None, *, levels: int = 6, box=None) -> tuple[int, int]:
@@ -629,6 +1063,82 @@ def tree_occupancy_probe(pos, alive=None, *, levels: int = 6, box=None) -> tuple
     sc, _, M = _probe_sorted_cells(pos, alive, levels, box)
     counts = torch.bincount(sc, minlength=M ** 3 + 1)[:M ** 3]
     return int(counts.max()), int((counts > 0).sum())
+
+
+def _class_census(counts: torch.Tensor, c_small: int, ws: int) -> tuple:
+    """(max count, occupied, big [> c_small], frontier [small with a big
+    neighbor within ws on every axis]) of a dense count grid [M]*d."""
+    big = counts > c_small
+    k, d = 2 * ws + 1, counts.dim()
+    pool = torch.nn.functional.max_pool3d if d == 3 else torch.nn.functional.max_pool2d
+    any_big = pool(big.to(f32)[None, None], k, stride=1, padding=ws)[0, 0] > 0
+    occupied = counts > 0
+    frontier = occupied & ~big & any_big
+    return (int(counts.max()), int(occupied.sum()), int(big.sum()), int(frontier.sum()))
+
+
+def tree_class_probe(pos, alive=None, *, levels: int = 6, ws: int = 1, c_small: int = 16,
+                     box=None) -> tuple[int, int, int, int]:
+    """Occupancy-class census for sizing the ``near="cells"`` budgets:
+    (max bodies per finest cell, occupied cells, BIG cells [> c_small
+    bodies], FRONTIER cells [small with a big (2ws+1)^3 neighbor]), the
+    sizers of ``capacity`` / ``max_cells`` / ``max_big`` / ``max_frontier``,
+    binned exactly like :func:`tree_acc_potential`. Takes host or device
+    arrays, runs torch on the CPU and returns Python ints."""
+    cc, alive_b, M = _probe_cells(pos, alive, levels, box)
+    cell_id = torch.where(alive_b, (cc[:, 0] * M + cc[:, 1]) * M + cc[:, 2], M ** 3)
+    counts = torch.bincount(cell_id, minlength=M ** 3 + 1)[:M ** 3].reshape(M, M, M)
+    return _class_census(counts, c_small, ws)
+
+
+def tree_column_probe(pos, alive=None, *, levels: int = 6, ws: int = 1, c_small: int = 32,
+                      box=None, with_chunks: bool = False) -> tuple:
+    """Column-occupancy census for sizing the ``near="columns"`` budgets:
+    (max bodies per (x, y) column, occupied columns, BIG columns [>
+    c_small bodies], FRONTIER columns [small with a big (2ws+1)^2
+    neighbor]), binned exactly like :func:`tree_acc_potential`. With
+    ``with_chunks=True`` a fifth value: the c_small-row i-chunks over big
+    columns (sum of ceil(count / c_small)), the ``max_chunks`` sizer. Python
+    ints, computed on the CPU."""
+    cc, alive_b, M = _probe_cells(pos, alive, levels, box)
+    col_id = torch.where(alive_b, cc[:, 0] * M + cc[:, 1], M * M)
+    counts = torch.bincount(col_id, minlength=M * M + 1)[:M * M].reshape(M, M)
+    out = _class_census(counts, c_small, ws)
+    if with_chunks:
+        big = counts > c_small
+        out = out + (int(torch.sum(torch.where(big, -(-counts // c_small), 0))),)
+    return out
+
+
+def tree_pairs_probe(pos, alive=None, *, levels: int = 6, ws: int = 1, chunk: int = 32,
+                     n_octaves: int = 16, box=None) -> tuple[int, tuple]:
+    """Chunk census for sizing the ``near="pairs"`` budgets: (total chunk
+    count, per-octave i-chunk counts [n_octaves]), the ``max_chunks`` /
+    ``pair_entries`` sizers. Shares :func:`_pairs_geometry` and the octave
+    rule with the sweep, so the budgets cannot drift from its accounting;
+    chunks past the last octave are dropped from the counts, as the sweep
+    drops them. Python ints, computed on the CPU."""
+    sc, n, M = _probe_sorted_cells(pos, alive, levels, box)
+    C = int(chunk)
+    k_safe = -(-n // C) + min(n, M * M)  # every column adds <= 1 partial chunk
+    g = _pairs_geometry(sc, n, M, ws, C, k_safe)
+    oct_of = _octave_of(g["S_ch"], (2 * ws + 1) ** 2, n_octaves)
+    per_oct = torch.bincount(oct_of[g["chunk_valid"]], minlength=n_octaves + 1)[:n_octaves]
+    return int(g["chunk_valid"].sum()), tuple(int(v) for v in per_oct)
+
+
+def tree_pairs_budgets(pos, alive=None, *, levels: int, ws: int = 1, chunk: int = 32,
+                       box=None, headroom: float = 1.5) -> tuple[int, tuple]:
+    """Host-side ``(max_chunks, pair_entries)`` for ``near="pairs"``: one
+    :func:`tree_pairs_probe` call, trailing zero octaves trimmed,
+    ``headroom``-scaled and alignment-rounded (the JAX module's policy)."""
+    total, per_oct = tree_pairs_probe(pos, alive, levels=levels, ws=ws, chunk=chunk, box=box)
+    per = list(per_oct)
+    while per and per[-1] == 0:
+        per.pop()
+    entries = tuple((max(32, -(-int(v * headroom) // 32) * 32) if v else 0) for v in per)
+    max_chunks = max(256, -(-int(total * headroom) // 256) * 256)
+    return max_chunks, entries
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,9 @@ The same scenes, configuration and payloads as the JAX package's viewer
     ``SIM_STEPS_PER_TICK`` steps of ``rollout`` a tick, and a decimated view
     of ``SIM_VIEW_MAX`` bodies whose trails live in one preallocated float32
     ring. ``SIM_FORCE=tree`` runs the port's tree with ``tree_near="kernel"``
-    (the JAX viewer's ``"pairs"`` near mode is ROADMAP A.13), its budgets
-    probed at the start; past 512k bodies at 8 levels the staged loop.
+    (the JAX viewer's is ``"pairs"``: the same chunk-pair near field, which
+    the port runs fastest through its B7 kernel), its budgets probed at the
+    start; past 512k bodies at 8 levels the staged loop.
 
 Configured from the environment with the JAX viewer's names and defaults
 (:class:`ViewerConfig`); built by :func:`create_backend`, never at import,

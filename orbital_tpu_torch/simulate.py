@@ -9,10 +9,10 @@ Hermite steppers (Hermite with fixed or adaptive dt and block timesteps)
 and the multirate (RESPA) stepper on one device, with or without bounce,
 merge or resolve collisions (with debris into ``spare`` dead slots), the
 exact-force variants (``force_impl="pallas_sym"``, ``"mxu"``,
-``"pallas_mxu"``), the tree force solver (``force_impl="tree"``) with its
-``"kernel"`` near field, and the mesh solvers (``force_impl="pm"`` and
-``"p3m"``) on an auto-pinned cube; the tree's other near modes raise
-``NotImplementedError`` (ROADMAP.md queue A).
+``"pallas_mxu"``), the tree force solver (``force_impl="tree"``) in its
+four near modes with probe-sized budgets and ``tree_accuracy=``, and the
+mesh solvers (``force_impl="pm"`` and ``"p3m"``) on an auto-pinned cube.
+The multi-device arguments are not ported (ROADMAP.md queue A item A.15).
 """
 from __future__ import annotations
 
@@ -33,7 +33,8 @@ from .models.objects import Object, ObjectCollection
 from .models.scene import SceneArrays, compile_objects, compile_system
 from .ops.neighbor import neighbor_budgets
 from .ops.p3m import p3m_max_occupancy
-from .ops.tree import _check_near, tree_occupancy_probe
+from .ops.tree import (tree_class_probe, tree_column_probe, tree_occupancy_probe,
+                       tree_pairs_budgets, tree_pairs_probe)
 from .ops.tree_near_wl import tree_wl_budgets, tree_wl_probe
 from .utils.config import SimConfig
 
@@ -77,16 +78,30 @@ def _respa_fields(scene: SceneArrays, steps: int, dt: float, softening: float,
                 respa_wl_entries=wl_q, respa_refresh=respa_refresh)
 
 
-def _tree_budget_cfg(cfg: SimConfig, state: NBodyState, *, tree_near: str,
-                     tree_levels) -> SimConfig:
-    """Probe-size the tree's static budgets from the initial distribution
-    (1.5x headroom): ``tree_levels="auto"`` takes the smallest of 5-8 levels
-    whose densest finest cell holds at most 64 bodies, and ``"kernel"``'s
-    ``max_chunks`` and ``wl_entries`` come from ``tree_wl_budgets``.
-    ``tree_near="auto"`` resolves to ``"kernel"``, the port's only near mode
-    so far (the JAX package picks "pairs" or "columns" there, the XLA-gather
-    sweeps its TPU ran faster; "kernel" computes the same chunk-pair near
-    field); the other modes raise naming ROADMAP.md A.13."""
+def _tree_budget_cfg(cfg: SimConfig, state: NBodyState, *, tree_near: str, tree_levels,
+                     tree_capacity) -> SimConfig:
+    """Probe-size every static tree budget from the initial distribution in
+    one pass (1.5x headroom; the hot loop drops the overflow counter, so the
+    budgets are sized here). ``tree_levels="auto"`` takes the smallest of 5-8
+    levels whose densest finest cell holds at most 64 bodies. The budgets
+    are per cell under ``"cells"`` (``tree_class_probe``), per column under
+    ``"columns"`` (``tree_column_probe``), per chunk octave under ``"pairs"``
+    (``tree_pairs_budgets``) and per worklist under ``"kernel"``
+    (``tree_wl_budgets``); ``tree_capacity="auto"`` sizes the cell or column
+    capacity (above 4,096 bodies a cell or 16,384 a column it raises).
+
+    ``tree_near="auto"`` resolves to ``"kernel"``, where the JAX package
+    picks ``"pairs"`` at N >= 65,536 with levels >= 7 and ``"columns"``
+    below, a rule its TPU measured (its XLA-gather sweeps against each
+    other). On the card the B7 kernel computes the same chunk-pair near field
+    and the eager sweeps stand behind it: at ``bench_tree``'s 65,536-body
+    Plummer sphere, levels 7, each mode on its probed budgets, one
+    evaluation takes 33.7 ms with ``"kernel"`` against 66.4 ms
+    (``"pairs"``, chunk 64), 153.2 ms (``"columns"``) and 322.9 ms
+    (``"cells"``), and at 1,048,576 bodies, levels 8, 54.8 ms against
+    604.7 ms for ``"pairs"`` (CUDA events, medians of 3, in one call on an
+    H100 80GB HBM3 at 700 W: ``chip_smoke.py`` phase 48; the eager modes
+    are host-bound, and another call read 49.2 ms against 83.4-600.3)."""
     box = cfg.pm_box_arrays()
     if tree_levels == "auto":
         for tree_levels in (5, 6, 7, 8):
@@ -95,21 +110,113 @@ def _tree_budget_cfg(cfg: SimConfig, state: NBodyState, *, tree_near: str,
                 break
     if tree_near == "auto":
         tree_near = "kernel"
-    _check_near(tree_near)
-    cfg = cfg.replace(tree_levels=int(tree_levels), tree_near=tree_near)
-    k_ch, wl_q = tree_wl_budgets(state.pos, state.alive, levels=cfg.tree_levels,
-                                 ws=cfg.tree_ws, chunk=cfg.tree_chunk, rj=cfg.tree_wl_rj,
-                                 box=box)
-    return cfg.replace(tree_max_chunks=k_ch, tree_wl_entries=wl_q)
+    levels, ws = int(tree_levels), cfg.tree_ws
+    cfg = cfg.replace(tree_levels=levels, tree_near=tree_near)
+    if tree_near == "pairs":
+        k_ch, entries = tree_pairs_budgets(state.pos, state.alive, levels=levels, ws=ws,
+                                           chunk=cfg.tree_chunk, box=box)
+        return cfg.replace(tree_max_chunks=k_ch, tree_pair_entries=entries)
+    if tree_near == "kernel":
+        k_ch, wl_q = tree_wl_budgets(state.pos, state.alive, levels=levels, ws=ws,
+                                     chunk=cfg.tree_chunk, rj=cfg.tree_wl_rj, box=box)
+        return cfg.replace(tree_max_chunks=k_ch, tree_wl_entries=wl_q)
+    if tree_near == "columns":
+        occ, ncells, nbig, nfront, nchunks = tree_column_probe(
+            state.pos, state.alive, levels=levels, ws=ws, box=box, with_chunks=True)
+        unit_cap = 4 ** levels
+    else:
+        occ, ncells, nbig, nfront = tree_class_probe(state.pos, state.alive, levels=levels,
+                                                     ws=ws, box=box)
+        unit_cap = 8 ** levels
+    # class-list budgets at 1.5x, /256-aligned: the K // 8 and K // 4
+    # defaults are mostly sentinel padding on concentrated systems
+    kcells = min(state.n_bodies, unit_cap, -(-int(ncells * 1.5) // 1024) * 1024)
+    kbig = min(kcells, max(256, -(-int(nbig * 1.5) // 256) * 256))
+    kfront = min(kcells, max(256, -(-int(nfront * 1.5) // 256) * 256))
+    cfg = cfg.replace(tree_max_cells=kcells, tree_max_big=kbig, tree_max_frontier=kfront)
+    if tree_near == "columns":
+        # the big sweep's i-side chunk list, at the same headroom
+        cfg = cfg.replace(tree_max_chunks=max(256, -(-int(nchunks * 1.5) // 256) * 256))
+    if tree_capacity == "auto":
+        cap = max(16, -(-int(occ * 1.5) // 8) * 8)
+        cap_bound = 16384 if tree_near == "columns" else 4096
+        if cap > cap_bound:
+            unit = "column" if tree_near == "columns" else "cell"
+            raise ValueError(
+                f"tree_capacity='auto': densest {unit} holds {occ} bodies; raise "
+                "tree_levels (finer cells) for this concentration")
+        cfg = cfg.replace(tree_capacity=cap)
+    return cfg
+
+
+# the (order, ws) escalation ladder of tree_accuracy=, cheapest first (the
+# JAX package's cost order at 65,536 bodies: o1 ws1 < o2 ws1 < o1 ws2 <~ o2
+# ws2; each rung buys ~5x force error)
+_TREE_ACCURACY_LADDER = ((1, 1), (2, 1), (1, 2), (2, 2))
+
+
+def _tree_accuracy_probe(cfg: SimConfig, state: NBodyState, *, target: float,
+                         tree_near: str, tree_levels, tree_capacity) -> SimConfig:
+    """Map one accuracy target to the tree's coupled budgets: walk the
+    (order, ws) ladder cheapest first, measure each rung's force error on
+    the initial state (the relative RMS ``rms(|a_tree - a_exact|) /
+    rms(|a_exact|)`` over live bodies, against one exact evaluation through
+    ``force_impl="auto"``: the B1 kernel on the card above 4,096 bodies),
+    and return the first budgeted config at or under ``target``; levels,
+    capacity and the near budgets come from :func:`_tree_budget_cfg` at each
+    rung. Raises ``ValueError`` with every measured error when no rung meets
+    the target."""
+    from .engine.rollout import resolve_force_fn
+
+    n, dev, dtype = state.n_bodies, state.device, state.dtype
+
+    def host_acc(fn):
+        acc = fn(state.pos, state.mass, state.alive)[0]
+        return acc.detach().to("cpu", torch.float64).numpy()
+
+    alive = state.alive.cpu().numpy()
+    ax = host_acc(resolve_force_fn(cfg.replace(force_impl="auto"), n, dev, dtype))[alive]
+    rms_x = float(np.sqrt(np.mean(np.sum(ax * ax, axis=1))))
+    if rms_x == 0.0:
+        return _tree_budget_cfg(cfg, state, tree_near=tree_near, tree_levels=tree_levels,
+                                tree_capacity=tree_capacity)
+    errs = []
+    for order, ws in _TREE_ACCURACY_LADDER:
+        cand = _tree_budget_cfg(cfg.replace(tree_order=order, tree_ws=ws), state,
+                                tree_near=tree_near, tree_levels=tree_levels,
+                                tree_capacity=tree_capacity)
+        d = host_acc(resolve_force_fn(cand, n, dev, dtype))[alive] - ax
+        err = float(np.sqrt(np.mean(np.sum(d * d, axis=1)))) / rms_x
+        errs.append((order, ws, err))
+        if err <= target:
+            return cand
+    detail = ", ".join(f"order={o} ws={w}: {e:.2e}" for o, w, e in errs)
+    raise ValueError(
+        f"tree_accuracy={target:g}: no tree configuration meets the target on this scene "
+        f"(measured relative RMS force errors: {detail}). Use the exact kernels "
+        "(force_impl='auto'): at collisional N they are the 1e-6-grade path.")
 
 
 def _tree_outgrown(cfg: SimConfig, final: NBodyState) -> bool:
-    """The end-of-run probe: did the final distribution outgrow the
-    near-field budgets sized from the initial one?"""
-    total, entries = tree_wl_probe(final.pos, final.alive, levels=cfg.tree_levels,
-                                   ws=cfg.tree_ws, chunk=cfg.tree_chunk, rj=cfg.tree_wl_rj,
-                                   box=cfg.pm_box_arrays())
-    return total > cfg.tree_max_chunks or entries > cfg.tree_wl_entries
+    """The end-of-run probe, by the near mode in use: did the final
+    distribution outgrow the near-field budgets sized from the initial
+    one?"""
+    kw = dict(levels=cfg.tree_levels, ws=cfg.tree_ws, box=cfg.pm_box_arrays())
+    if cfg.tree_near == "pairs":
+        total, per = tree_pairs_probe(final.pos, final.alive, chunk=cfg.tree_chunk, **kw)
+        ent = cfg.tree_pair_entries
+        return total > cfg.tree_max_chunks or any(
+            v and (o >= len(ent) or v > ent[o]) for o, v in enumerate(per))
+    if cfg.tree_near == "kernel":
+        total, entries = tree_wl_probe(final.pos, final.alive, chunk=cfg.tree_chunk,
+                                       rj=cfg.tree_wl_rj, **kw)
+        return total > cfg.tree_max_chunks or entries > cfg.tree_wl_entries
+    if cfg.tree_near == "columns":
+        occ, ncells = tree_column_probe(final.pos, final.alive, **kw)[:2]
+    else:
+        occ, ncells = tree_occupancy_probe(final.pos, final.alive, levels=cfg.tree_levels,
+                                           box=kw["box"])
+    return occ > cfg.tree_capacity or ncells > cfg.tree_max_cells
 
 
 def _auto_pm_box(scene: SceneArrays, rescale: Rescale) -> tuple:
@@ -213,6 +320,7 @@ def simulate(
     p3m_capacity: Union[int, str] = 64,
     pm_box: Optional[tuple] = None,
     tree_levels: Union[int, str] = 6,
+    tree_capacity: Union[int, str] = "auto",
     tree_ws: int = 1,
     tree_order: int = 1,
     tree_accuracy: Optional[float] = None,
@@ -268,14 +376,22 @@ def simulate(
     runs every step ungated. N must meet each kernel's tile rule.
 
     ``force_impl="tree"`` runs the tree solver (``ops.tree``) with
-    ``tree_levels`` (an int or ``"auto"``), ``tree_ws``, ``tree_order``,
-    ``tree_chunk``, ``tree_wl_rj`` and ``pm_box`` (cx, cy, cz, half in scene
-    units; it pins the tree's grid). ``tree_near="auto"`` resolves to
-    ``"kernel"``, the port's only near mode so far, where the JAX package
-    picks ``"pairs"`` or ``"columns"``; ``tree_accuracy=`` is not ported
-    (ROADMAP.md A.13). The budgets are sized from the initial distribution;
-    the hot loop drops the overflow counter, so the final state is re-probed
-    and a ``RuntimeWarning`` says if the budgets were outgrown. At
+    ``tree_levels`` (an int or ``"auto"``), ``tree_capacity`` (an int or
+    ``"auto"``: the densest cell or column at 1.5x), ``tree_ws``,
+    ``tree_order``, ``tree_near`` (``"cells"``, ``"columns"``, ``"pairs"``,
+    ``"kernel"`` or ``"auto"``, which resolves to ``"kernel"`` on the port:
+    see ``_tree_budget_cfg`` for the card's times behind that, where the JAX
+    package picks ``"pairs"`` or ``"columns"``), ``tree_chunk``,
+    ``tree_wl_rj`` and ``pm_box`` (cx, cy, cz, half in scene units; it pins
+    the tree's grid). ``tree_accuracy=`` replaces hand-tuning with one
+    relative RMS force-error target: each (order, ws) rung of the ladder is
+    measured on the initial state against one exact evaluation, and the
+    cheapest rung that meets the target is taken (``ValueError`` with the
+    measured errors if none does; ``tree_order`` and ``tree_ws`` are then
+    ignored). The budgets are sized from the initial distribution; the hot
+    loop drops the overflow counter, so the final state is re-probed (by
+    the near mode in use) and a ``RuntimeWarning`` says if the budgets were
+    outgrown. At
     ``tree_levels >= 8`` and N >= 524,288 the run takes the staged loop
     (``engine.rollout.rollout_staged``), which checks the overflow after
     every step and warns if it was ever nonzero.
@@ -319,9 +435,8 @@ def simulate(
 
     if isinstance(tree_levels, str) and tree_levels != "auto":
         raise ValueError(f"tree_levels must be an int or 'auto', got {tree_levels!r}")
-    if force_impl == "tree" and tree_accuracy is not None:
-        raise NotImplementedError("tree_accuracy= is not ported to orbital_tpu_torch yet "
-                                  "(ROADMAP.md queue A item A.13)")
+    if isinstance(tree_capacity, str) and tree_capacity != "auto":
+        raise ValueError(f"tree_capacity must be an int or 'auto', got {tree_capacity!r}")
     if isinstance(p3m_capacity, str) and p3m_capacity != "auto":
         raise ValueError(f"p3m_capacity must be an int or 'auto', got {p3m_capacity!r}")
     if pm_box is not None:
@@ -361,6 +476,7 @@ def simulate(
         p3m_capacity=64 if p3m_capacity == "auto" else int(p3m_capacity),
         pm_box=pm_box,
         tree_levels=6 if tree_levels == "auto" else int(tree_levels),
+        tree_capacity=48 if tree_capacity == "auto" else int(tree_capacity),
         tree_ws=tree_ws,
         tree_order=tree_order,
         tree_near=tree_near,
@@ -369,8 +485,12 @@ def simulate(
     )
     state = make_state(scene.pos, scene.vel, scene.mass, scene.radius,
                        precision=precision, rescale=rescale, spare=spare, device=device)
-    if force_impl == "tree":
-        cfg = _tree_budget_cfg(cfg, state, tree_near=tree_near, tree_levels=tree_levels)
+    if force_impl == "tree" and tree_accuracy is not None:
+        cfg = _tree_accuracy_probe(cfg, state, target=float(tree_accuracy), tree_near=tree_near,
+                                   tree_levels=tree_levels, tree_capacity=tree_capacity)
+    elif force_impl == "tree":
+        cfg = _tree_budget_cfg(cfg, state, tree_near=tree_near, tree_levels=tree_levels,
+                               tree_capacity=tree_capacity)
     if force_impl == "p3m" and p3m_capacity == "auto":
         cfg = cfg.replace(p3m_capacity=_p3m_capacity(state, cfg, pm_grid))
     if force_impl == "pm" and cfg.eps2 > 0:

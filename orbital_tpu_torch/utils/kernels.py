@@ -28,7 +28,7 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "load", "check",
-           "build_log", "build_seconds"]
+           "build_log", "build_seconds", "refuse_grad"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -108,6 +108,21 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.ot_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise before a launch if autograd would record through it: a kernel
+    reads its inputs through ``data_ptr()`` and has no backward pass, so its
+    output would carry no ``grad_fn`` while the steps around it still carry
+    gradients, and a gradient through it would come out wrong without an
+    error. ``None`` entries are skipped. The CPU plain paths keep autograd."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and the CUDA kernel has no backward pass; "
+            "differentiate through the dense route (force_impl='dense', or 'auto' at "
+            "N <= 4,096), which is plain PyTorch, or call under torch.no_grad()")
 
 
 def build_log(name: str) -> str:

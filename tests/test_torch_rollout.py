@@ -201,8 +201,34 @@ def test_cpu_tensors_take_the_plain_paths(rng, monkeypatch):
 
 @pytest.mark.parametrize("impl,item", [("tree", "A.13"), ("ring", "A.15")])
 def test_unported_force_paths_raise(impl, item):
-    with pytest.raises(NotImplementedError, match=item):
-        R.resolve_force_fn(tot.SimConfig(dt=1.0, force_impl=impl), 8192, "cpu")
+    """The ring (A.15) still raises. The tree with SimConfig's defaults
+    (near="cells", capacity 48; A.13 once raised here) now resolves and
+    evaluates as the JAX package's does (levels 3 to keep JAX's program
+    small; a cluster of 512, a few dead): acc within 2e-6 RMS|a| (+ 1e-6
+    |a|, f32 sums in another order) and U within rel 1e-6, overflows
+    equal."""
+    cfg = tot.SimConfig(dt=1.0, force_impl=impl)
+    if impl == "ring":
+        with pytest.raises(NotImplementedError, match=item):
+            R.resolve_force_fn(cfg, 8192, "cpu")
+        return
+    from orbital_tpu.ops.tree import tree_acc_potential as jax_tree
+
+    pos, _, mass = _cluster(np.random.default_rng(13), 512)
+    alive = np.ones(512, bool)
+    alive[::9] = False
+    cfg = cfg.replace(eps2=1e-4, tree_levels=3)
+    acc, U = R.resolve_force_fn(cfg, 512, "cpu")(*(torch.from_numpy(x) for x in
+                                                   (pos, mass, alive)))
+    ja, jU, jov = jax_tree(pos, mass, alive, G_grav=1.0, eps2=1e-4, levels=3,
+                           near=cfg.tree_near, capacity=cfg.tree_capacity)
+    _, _, ov = tot.tree_acc_potential(*(torch.from_numpy(x) for x in (pos, mass, alive)),
+                                      G_grav=1.0, eps2=1e-4, levels=3)
+    ja = np.asarray(ja)
+    rms = float(np.sqrt(np.mean(np.sum(ja.astype(np.float64) ** 2, -1))))
+    assert acc.dtype == torch.float64 and int(ov) == int(jov)
+    np.testing.assert_allclose(acc.numpy(), ja, rtol=1e-6, atol=2e-6 * rms)
+    assert float(U) == pytest.approx(float(jU), rel=1e-6)
 
 
 def test_f64_on_cuda_raises():

@@ -461,17 +461,59 @@ def test_tree_routes_to_the_b7_wrapper(blob, device, monkeypatch):
 
 @pytest.mark.parametrize("near", ["cells", "columns", "pairs"])
 def test_unported_near_modes_raise(near):
-    cfg = tot.SimConfig(dt=1.0, eps2=EPS2, force_impl="tree", tree_near=near)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        R.resolve_force_fn(cfg, 8192, "cpu")
-    with pytest.raises(NotImplementedError, match="A.13"):
-        _sim(_scene(), tree_near=near)
+    """Once A.13's raise: each of the JAX package's other near modes now runs
+    through resolve_force_fn and matches JAX's evaluation in the same mode
+    with the same budgets (levels 3, a pinned box; acc within 2e-6 RMS|a| +
+    1e-6 |a|, U within rel 1e-6, overflow equal), and simulate() sizes its
+    budgets as the JAX package does. tests/test_torch_tree_modes.py holds
+    the modes in full."""
+    import importlib
+
+    jsim = importlib.import_module("orbital_tpu.simulate")
+    tsim = sys.modules["orbital_tpu_torch.simulate"]
+    pos, mass, alive = _blob(512, 12)
+    levels = 3
+    jcfg = jot.SimConfig(dt=1.0, eps2=EPS2, force_impl="tree", tree_near=near,
+                         tree_levels=levels, pm_box=(0.0, 0.0, 0.0, float(BOX[1])))
+    js = jot.make_state(pos, np.zeros_like(pos), mass, precision="f32").replace(
+        alive=jnp.asarray(alive))
+    ts = _port_state(js)
+    jcfg = jsim._tree_budget_cfg(jcfg, js, tree_near=near, tree_levels=levels,
+                                 tree_capacity="auto")
+    tcfg = tsim._tree_budget_cfg(tot.SimConfig(**dataclasses.asdict(jcfg)).replace(
+        tree_near=near), ts, tree_near=near, tree_levels=levels, tree_capacity="auto")
+    assert tcfg == tot.SimConfig(**dataclasses.asdict(jcfg))
+    acc, U = R.resolve_force_fn(tcfg, len(pos), "cpu")(*_t(pos, mass, alive))
+    ja, jU, jov = jt.tree_acc_potential(
+        jnp.asarray(pos), jnp.asarray(mass), jnp.asarray(alive), **R._tree_kwargs(
+            jcfg, "cpu") | dict(box=_jbox(BOX)))
+    _, _, ov = tt.tree_acc_potential(*_t(pos, mass, alive), **R._tree_kwargs(tcfg, "cpu"))
+    assert int(ov) == int(jov) == 0
+    ja = np.asarray(ja)
+    np.testing.assert_allclose(acc.numpy(), ja, rtol=1e-6, atol=2e-6 * _rms(ja))
+    assert float(U) == pytest.approx(float(jU), rel=1e-6)
+    res = _sim(_scene(), tree_near=near, tree_levels=levels, steps=2, record_every=2)
+    assert res.config.tree_near == near and np.isfinite(res.pos).all()
 
 
 def test_unported_tree_options_raise(blob):
+    """tree_accuracy= (A.13 once raised here) now walks the (order, ws)
+    ladder and takes the JAX package's rung; the sharded tree still raises
+    naming A.15, and Hermite on the tree still raises."""
+    import importlib
+
+    jsim = importlib.import_module("orbital_tpu.simulate")
     pos, mass, alive = blob
-    with pytest.raises(NotImplementedError, match="A.13"):
-        _sim(_scene(), tree_accuracy=1e-2)
+    res = _sim(_scene(), tree_accuracy=1e-1, tree_near="columns", tree_levels=3, steps=2,
+               record_every=2)
+    c = res.config
+    js = jot.make_state(_scene().pos / res.rescale.length, _scene().vel / res.rescale.velocity,
+                        _scene().mass / res.rescale.mass, precision="f32")
+    jc = jsim._tree_accuracy_probe(
+        jot.SimConfig(dt=1.0, G=c.G, eps2=c.eps2, force_impl="tree", tree_near="columns"),
+        js, target=1e-1, tree_near="columns", tree_levels=3, tree_capacity="auto")
+    assert (c.tree_order, c.tree_ws, c.tree_capacity, c.tree_max_cells) == \
+        (jc.tree_order, jc.tree_ws, jc.tree_capacity, jc.tree_max_cells)
     with pytest.raises(NotImplementedError, match="A.15"):
         tt.tree_acc_potential(*_t(pos, mass), G_grav=1.0, eps2=EPS2, near="kernel",
                               wl_entries=64, _n_parts=2)
