@@ -287,14 +287,50 @@ Phases, one line of output each; any failure exits nonzero:
      for TREE_ENGINE_STEPS steps, overflow 0;
  50. the reference user code of tests/test_compat_core.py through
      ``orbital_tpu_torch/compat/core`` on the card, in a fresh process with
-     no JAX imported.
+     no JAX imported;
+ 51. the multi-device ring's kernels at the bench row's shard shape
+     (RING_B x RING_B): B3 with detection (B3D) integer-equal in its count
+     to its plain version and bit-equal to B3 in acc and pe, and the block
+     bounce (BB) within BOUNCE_RTOL of its plain version, zeros at count 0,
+     at the contact-rich radius and the bench row's, on shards with a third
+     dead, and the bounce on a ragged pair of blocks with a third dead;
+ 52. B3 in the ring (``parallel.sharded.ring_force_fn``) over RING_P and
+     RING_P2 one-card ranks against B1 over the whole table (acc within
+     FORCE_RTOL, U within RING_U_RTOL), its detecting form bit-equal with
+     B2's count; P^2 launches each, B1 none;
+ 53. the ring's main path: the 65,536-body ds32 cluster through
+     ``init_forces`` -> ``make_sharded_rollout`` over RING_P ranks,
+     RING_STEPS recorded steps within STATE_ATOL of the single-card B1 path,
+     then ``--drift-steps`` unrecorded, |dE/E| <= 1e-6 in f64, B3 launched
+     RING_P^2 times an evaluation and B1 never;
+ 54. the ring's bounce at the bench row's radius, bit-equal step by step to
+     the collision-free ring up to its first contact (B3D and BB RING_P^2 a
+     step);
+ 55. the ring's bounce at the contact-rich radius against the single-card
+     B2 + B6 path: counts equal each step, the state within STATE_ATOL;
+ 56. merge and resolve across the shards at the bench row, over RING_WINDOW
+     steps from step RING_WINDOW_START: the ring's count equal to the single
+     card's on each step, alive equal, merge's mass and momentum conserved;
+ 57. the sharded PM at 65,536 (grid 128; pinned box and the cube by
+     pmin/pmax) against the single-card PM within PM_RTOL, and RING_STEPS
+     sharded PM steps against the single card's;
+ 58. ``simulate(mesh=..., collisions="bounce")`` on the card against
+     ``simulate()`` on one card;
+ 59. the process-group backend: a ``torch.distributed`` group of one rank
+     over NCCL (a ``file://`` store), RING_NCCL_STEPS recorded merge steps at
+     the contact-rich radius bit-equal to the one-card mesh of one rank;
+ 60. ring timings: B3, B3D and BB at RING_B x RING_B beside their plain
+     versions and bounds (BB also at count 0), the KDK step on one card and
+     on the ring at each of RING_TIMED's rank counts in turns, and for each
+     a step's host time, a rank's wait in the exchange and the device's
+     busy time (torch.profiler).
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
-10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38, 39, 42, 44, 45, 47, 48
-and 49) and read just after it:
-each kernel must have run on its path. B3 has no single-card path (the multi-device ring
-launches it): phase 27 checks it, and its record's launches are its count
-over phase 28's three main paths, which must be 0. The
+10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38, 39, 42, 44, 45, 47, 48,
+49, 53, 54 and 58) and read just after it:
+each kernel must have run on its path. B3 runs on the multi-device ring only:
+phase 27 checks it alone, phase 28 requires 0 launches over its three
+single-card main paths, and its record's launches are phase 53's. The
 line before the last is a JSON summary of the kernels; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -554,6 +590,21 @@ OPS_SHORT, MUFU_SHORT = 50, 3
 OPS_ROOTS = 10
 MERGE_STEPS, MERGE_HERMITE_STEPS, MERGE_RESPA_WINDOWS = 200, 40, 5
 MERGE_MASS_RTOL, MERGE_P_RTOL = 1e-9, 1e-9
+# the multi-device ring (phases 51-57, ROADMAP A.15a): the bench row sharded
+# over RING_P one-card ranks (and RING_P2), shards of RING_B bodies, each ring
+# round a B3 launch at RING_B x RING_B; RING_STEPS recorded steps held
+# against the single-card path; the bench row's bounce ring against the
+# collision-free ring for up to RING_BOUNCE_STEPS steps (its first contact on
+# one card is at step 587, seed 0); the merge and resolve window of
+# RING_WINDOW steps from step RING_WINDOW_START (contacts at 587 and 609);
+# RING_NCCL_STEPS merge steps over the NCCL group of one rank; the ring's U
+# against B1's, relative (f32 sums of 65,536 rows in two orders)
+RING_P, RING_P2 = 4, 2
+RING_TIMED = (RING_P, RING_P2, 8)
+RING_B = N_MAIN // RING_P
+RING_STEPS, RING_BOUNCE_STEPS = 20, 600
+RING_WINDOW_START, RING_WINDOW, RING_NCCL_STEPS = 560, 100, 5
+RING_U_RTOL = 1e-6
 # the resolve runs (phases 38-40): the bench row's frag_seed and debris_k
 # (bench.py:200-206); the contact-rich scene's absorbers (every 64th body 20x
 # heavier: a ratio > 10 absorbs) and the pairs planted to meet at E_coll =
@@ -676,11 +727,11 @@ SHAPED = {
     "fused_rollout": ("fused_kdk_shape", {"B4": "fused_kdk_kernel"}, r"MUFU\.RSQ"),
 }
 LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_block_forces",
-                              "ot_error_string"),
+                              "nbody_block_forces_detect", "ot_error_string"),
              "nbody_jerk": ("nbody_jerk", "nbody_jerk_detect", "nbody_jerk_subset",
                             "nbody_jerk_subset_shape", "ot_error_string"),
              "nbody_forces_mxu": ("nbody_forces_mxu", "ot_error_string"),
-             "collisions": ("bounce_deltas", "ot_error_string"),
+             "collisions": ("bounce_deltas", "bounce_block_deltas", "ot_error_string"),
              "nbody_forces_sym": ("nbody_forces_sym", "ot_error_string"),
              "tree_near": ("tree_near", "ot_error_string"),
              "neighbor": ("near_sweep", "ot_error_string"),
@@ -742,11 +793,23 @@ B12 = dict(name="nbody_forces_sym", route="cuda",
 B13 = dict(name="nbody_forces_mxu", route="cuda",
            source="orbital_tpu_torch/csrc/nbody_forces_mxu.cu",
            replaces="orbital_tpu/ops/pallas_forces_mxu.py:50")
-# no single-card path (the ring of ROADMAP A.15): phase 28 reads its count
-# over the variants' main paths and requires 0
+# the multi-device ring's round (phase 53 counts it; phase 28 requires 0
+# over the single-card variants' main paths)
 B3 = dict(name="nbody_block_forces", route="cuda",
           source="orbital_tpu_torch/csrc/nbody_forces.cu",
           replaces="orbital_tpu/ops/pallas_forces.py:221")
+# no TPU kernel: B3 with detection stands in for the XLA count ring of the
+# sharded step (orbital_tpu/ops/collisions.py:97-113 _contacts_block, ringed
+# by orbital_tpu/parallel/sharded.py:199-231)
+B3D = dict(name="nbody_block_forces_detect", route="cuda",
+           source="orbital_tpu_torch/csrc/nbody_forces.cu",
+           replaces="orbital_tpu/ops/collisions.py:97")
+# no TPU kernel: the block bounce (B6's kernel over separate i and j
+# tables) stands in for the XLA block of the ring's bounce
+# (orbital_tpu/parallel/sharded.py:72-117 _block_bounce)
+BB = dict(name="bounce_block_deltas", route="cuda",
+          source="orbital_tpu_torch/csrc/collisions.cu",
+          replaces="orbital_tpu/parallel/sharded.py:72")
 # no TPU kernel: stands in for the plain XLA lax.map over cell blocks of
 # p3m_acc_potential (orbital_tpu/ops/p3m.py:181-231)
 P3M = dict(name="p3m_short", route="cuda", source="orbital_tpu_torch/csrc/p3m_short.cu",
@@ -1264,7 +1327,8 @@ def reset_launches() -> None:
                cuda_forces_mxu.gram_sums_cuda, cuda_forces.block_acc_cuda,
                cuda_p3m.p3m_short_cuda, cuda_p3m.p3m_short_order_cuda,
                cuda_collisions.collision_roots_cuda, cuda_collisions.contact_marks_cuda,
-               fused_ensemble.fused_ensemble):
+               fused_ensemble.fused_ensemble, cuda_forces.block_acc_detect_cuda,
+               cuda_collisions.bounce_block_cuda):
         fn.launches = 0
     ensemble.member_loop.runs = 0
 
@@ -1354,6 +1418,34 @@ class StepLog:
         return out
 
 
+@contextlib.contextmanager
+def ring_counts(log: list):
+    """While active, the sharded steps built (``make_sharded_step``,
+    ``make_sharded_rollout``) append the psum'd contact count of each
+    closing ring evaluation (rank 0's; every rank holds the same) to
+    ``log``, on the device."""
+    from orbital_tpu_torch.parallel import sharded
+
+    make = sharded.ring_force_fn
+
+    def logged(cfg, comm, detect=False):
+        fn = make(cfg, comm, detect)
+        if not detect or comm.rank != 0:
+            return fn
+
+        def counted(*args):
+            out = fn(*args)
+            log.append(out[2])
+            return out
+        return counted
+
+    sharded.ring_force_fn = logged
+    try:
+        yield
+    finally:
+        sharded.ring_force_fn = make
+
+
 class ResolveLog:
     """Counts what each resolve round (``ops.collisions.resolve_outcomes``,
     on the gathered subset scene) did, on the device, while it is patched
@@ -1418,11 +1510,14 @@ def summary(times):
 
 def bind_like(path, like, names):
     """Load another build of a source and give its entry points the
-    argument types of ``like``, the library this tree built."""
+    argument types of ``like``, the library this tree built (an entry point
+    the other build lacks, added since, stays unbound)."""
     import ctypes
 
     lib = ctypes.CDLL(str(path))
     for fn in names:
+        if not hasattr(lib, fn):
+            continue
         getattr(lib, fn).restype = getattr(like, fn).restype
         getattr(lib, fn).argtypes = getattr(like, fn).argtypes
     return lib
@@ -2041,12 +2136,13 @@ class Smoke:
                         "NEAR": dict(NEAR), "B7": dict(B7), "B12": dict(B12),
                         "B13": dict(B13), "B3": dict(B3), "P3M": dict(P3M),
                         "P3MO": dict(P3MO), "ROOTS": dict(ROOTS), "MARK": dict(MARK),
-                        "ENS": dict(ENS)}
+                        "ENS": dict(ENS), "B3D": dict(B3D), "BB": dict(BB)}
         self._cluster = None
         self._respa_budgets = None
         self._plummer = None
         self.main_ms_per_step = None
         self.hermite_log = None
+        self.ring_perf = {}
 
     def cluster(self):
         """The 65,536-body virialised cluster and its f64 energy after
@@ -2116,6 +2212,14 @@ class Smoke:
         # spills are checked above), the short range and the contact sweep
         for name in ("p3m_short", "collision_roots", "fused_ensemble"):
             spills.append(f"{name} 0 in {spill_free(name, logs[name])} entry functions")
+        # the ring's two block instances: B3 detect, B3's template with
+        # kDetect and kBlock (B3's launch shape), and the block bounce, B6's
+        # kernel over separate tables (B6's record)
+        shapes.append(self.block_detect_record(logs["nbody_forces"], sass(
+            kernels._library_path("nbody_forces")[1])))
+        self.kernels["BB"].update({k: v for k, v in self.kernels["B6"].items()
+                                   if k in ("shape", "registers", "spill_bytes",
+                                            "sass_slots_per_pair")})
         shapes += [self.subset_record(cuda_jerk._load(), logs["nbody_jerk"]),
                    self.p3m_record(logs["p3m_short"], sass(
                        kernels._library_path("p3m_short")[1])),
@@ -2136,6 +2240,20 @@ class Smoke:
         self.kernels[key].update(registers=regs, spill_bytes=spill)
         return (f"{key} ({len(usage)} instantiations) {regs} registers at most, {spill} spill "
                 f"bytes")
+
+    def block_detect_record(self, log: str, sass_text: str) -> str:
+        """B3 detect's record: B3's launch shape, its registers and spills
+        and its SASS instructions a pair (the inner loop over MUFU.RSQ)."""
+        stem = "nbody_forces_kernelILb1ELb1ELb1ELb1E"
+        text = self.entry_record("B3D", stem, log)
+        loop = next((v for f, v in inner_loop(sass_text).items() if stem in f), None)
+        if sass_text and loop is None:
+            raise AssertionError(f"B3D: no loop with MUFU.RSQ in *{stem}* in the SASS")
+        self.kernels["B3D"].update(shape=self.kernels["B3"]["shape"],
+                                   sass_slots_per_pair=loop[0] / loop[1] if loop
+                                   else "not measured")
+        slots = fmt(self.kernels["B3D"]["sass_slots_per_pair"])
+        return f"{text}, {slots} SASS instructions a pair"
 
     def p3m_record(self, log: str, sass_text: str) -> str:
         """The short-range kernel's launch shape at the P3M bench row's grid
@@ -4206,7 +4324,7 @@ class Smoke:
         return (f"B3 == plain within {FORCE_RTOL:g} [{'; '.join(lines)}]; coinciding "
                 f"{N_MAIN}x{N_MAIN}: acc bit-equal to B1's, pe row = B1's + m/eps (U bit-equal "
                 f"through B1's self-term subtraction; rows above m/eps: {self_term}); its "
-                f"path (the multi-device ring) is ROADMAP A.15")
+                f"path is the multi-device ring (phases 51-60)")
 
     # phase 28
     def variants_main_path(self) -> str:
@@ -4269,8 +4387,7 @@ class Smoke:
             lines.append(f"{impl}: init_forces + {rec_steps} recorded + {steps} unrecorded "
                          f"steps, |dE/E| = {drift:.3e}, {self.variant_ms[impl]:.3f} ms/step wall, "
                          f"its kernel {launched} launches, B1 {b1}")
-        # B3 has no single-card path: measured 0 over the three main paths
-        self.kernels["B3"]["launches"] = b3
+        # B3 runs on the ring only (phase 53 counts it there): 0 on these paths
 
         # "pallas_sym" with bounce at the bench row's radius: B6 ungated
         radius = np.full(n, R_BENCH)
@@ -6756,6 +6873,502 @@ class Smoke:
                 f"orbital_tpu_torch/compat/core on {said[-1].split()[1]} in a fresh process: "
                 f"COMPAT_OK, no jax imported, {wall:.1f} s")
 
+    # --- the multi-device ring (ROADMAP A.15a) on one-card ranks ---------
+
+    def ring_mesh(self, p: int):
+        import orbital_tpu_torch as ot
+
+        return ot.make_mesh(shape=(p,), devices=self.dev)
+
+    def ring_shards(self, radius: float, dead: int = 0):
+        """The cluster (its first N_MAIN - dead bodies live, the rest parked
+        far) as f32 tensors on the card, cut in RING_P shards of RING_B:
+        [(pos, vel, mass, radius, alive), ...]."""
+        pos, vel, mass, rad, alive = self.scene(N_MAIN, radius, dead, seed_offset=51)
+        return [tuple(t[r * RING_B:(r + 1) * RING_B] for t in (pos, vel, mass, rad, alive))
+                for r in range(RING_P)]
+
+    # phase 51
+    def check_ring_kernels(self) -> str:
+        from orbital_tpu_torch.ops.cuda_collisions import bounce_block_cuda, bounce_block_plain
+        from orbital_tpu_torch.ops.cuda_forces import (block_acc_cuda, block_acc_detect_cuda,
+                                                       block_acc_detect_plain)
+
+        torch, rel = self.torch, self.rel
+        kw = dict(G=1.0, eps2=EPS2)
+        lines, err_bb, err_b3d, abs_bb, abs_b3d = [], 0.0, 0.0, 0.0, 0.0
+        zero = torch.zeros((), dtype=torch.int32, device=self.dev)
+
+        def bounce_pair(si, sj, contacts):
+            out = bounce_block_cuda(*si, *sj, restitution=0.8, contacts=contacts)
+            ref = bounce_block_plain(*si, *sj, restitution=0.8, contacts=contacts)
+            torch.cuda.synchronize()
+            errs, absd = [], 0.0
+            for o, r in zip(out, ref):
+                absd = max(absd, float((o - r).abs().max()))
+                if float(r.abs().max()) == 0.0:
+                    if bool(o.any()):
+                        raise AssertionError("block bounce: nonzero where the plain is 0")
+                    errs.append(0.0)
+                else:
+                    errs.append(rel(o, r))
+            if max(errs) > BOUNCE_RTOL:
+                raise AssertionError(f"block bounce vs plain: {errs} > {BOUNCE_RTOL:g}")
+            return max(errs), absd, int((out[1].abs().sum(1) > 0).sum())
+
+        cases = (("rich", R_RICH, 0), ("bench", R_BENCH, 0), ("dead", R_RICH, N_MAIN // 3))
+        for key, radius, dead in cases:
+            shards = self.ring_shards(radius, dead)
+            pairs = ((2, 2), (2, 3)) if dead else ((0, 0), (0, 1))
+            counts = []
+            for i, j in pairs:
+                (pi, vi, mi, ri, ai), (pj, vj, mj, rj, aj) = shards[i], shards[j]
+                m_eff = mj * aj.to(mj.dtype)
+                a, pe, c = block_acc_detect_cuda(pi, ri, ai, i * RING_B, pj, m_eff, rj, aj,
+                                                 j * RING_B, **kw)
+                a3, pe3 = block_acc_cuda(pi, pj, m_eff, **kw)
+                _, _, c0 = block_acc_detect_plain(pi, ri, ai, i * RING_B, pj, m_eff, rj, aj,
+                                                  j * RING_B, **kw)
+                torch.cuda.synchronize()
+                if int(c) != int(c0) or not (torch.equal(a, a3) and torch.equal(pe, pe3)):
+                    raise AssertionError(f"B3 detect {key} ({i}, {j}): count {int(c)} vs plain "
+                                         f"{int(c0)}, or acc/pe not bit-equal to B3's")
+                counts.append(int(c))
+                e, d, _ = bounce_pair(shards[i], shards[j], c)
+                err_bb, abs_bb = max(err_bb, e), max(abs_bb, d)
+                if bounce_pair(shards[i], shards[j], zero)[1]:
+                    raise AssertionError("block bounce at count 0 is not 0")
+                if key == "rich":
+                    a0 = block_acc_detect_plain(pi, ri, ai, i * RING_B, pj, m_eff, rj, aj,
+                                                j * RING_B, **kw)[0]
+                    e_acc = rel(a, a0)
+                    err_b3d, abs_b3d = max(err_b3d, e_acc), max(abs_b3d,
+                                                                float((a - a0).abs().max()))
+                    if e_acc > FORCE_RTOL:
+                        raise AssertionError(f"B3 detect acc vs plain {e_acc:.3e}")
+            if key == "rich" and not all(counts):
+                raise AssertionError(f"contact-rich: counts {counts}")
+            lines.append(f"{key} R={radius:g}{' a third dead' if dead else ''} shards "
+                         f"{pairs}: counts {counts} == plain")
+        # a ragged pair of blocks, a third of each dead, for the bounce
+        pos, vel, mass, rad, alive = self.scene(N_RAGGED, R_RAGGED, N_RAGGED // 3,
+                                                seed_offset=52, cluster=False)
+        cut = 2 * N_RAGGED // 5
+        si = tuple(t[:cut] for t in (pos, vel, mass, rad, alive))
+        sj = tuple(t[cut:] for t in (pos, vel, mass, rad, alive))
+        one = torch.ones((), dtype=torch.int32, device=self.dev)
+        e_r, d_r, rows_r = bounce_pair(si, sj, one)
+        if not rows_r:
+            raise AssertionError("ragged block bounce: nothing bounced")
+        self.kernels["BB"]["max_abs_err"] = max(abs_bb, d_r)
+        self.kernels["B3D"]["max_abs_err"] = abs_b3d
+        return (f"B3 detect at {RING_B}x{RING_B} (acc and pe bit-equal to B3's, count "
+                f"integer-equal to the plain one; acc vs plain {err_b3d:.2e} <= "
+                f"{FORCE_RTOL:g}) and the block bounce (vs plain {err_bb:.2e} <= "
+                f"{BOUNCE_RTOL:g}, zeros at count 0): " + "; ".join(lines)
+                + f"; ragged {cut}x{N_RAGGED - cut} with a third dead: bounce vs plain "
+                f"{e_r:.2e}, {rows_r} rows bounced")
+
+    def ring_eval(self, mesh, pos, mass, alive, radius=None):
+        """The ring force over ``mesh`` on full tensors cut in its shards:
+        (acc, U[, contacts])."""
+        from orbital_tpu_torch.parallel import sharded as tsh
+
+        detect = radius is not None
+        fns = [tsh.ring_force_fn(self.ring_cfg(), c, detect=detect) for c in mesh.comms]
+        p = mesh.size
+        args = [list(t.chunk(p)) for t in ((pos, mass, radius, alive) if detect
+                                           else (pos, mass, alive))]
+        out = mesh.run(lambda comm, fn, *a: fn(*a), fns, *args)
+        return (self.torch.cat([o[0] for o in out]),) + tuple(out[0][1:])
+
+    def ring_cfg(self, **kw):
+        import orbital_tpu_torch as ot
+
+        return ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, **kw)
+
+    # phase 52
+    def check_ring_force(self) -> str:
+        from orbital_tpu_torch.ops.cuda_forces import (block_acc_cuda, block_acc_detect_cuda,
+                                                       pairwise_acc_cuda,
+                                                       pairwise_acc_detect_cuda)
+
+        torch, rel = self.torch, self.rel
+        pos, _, mass, rad, alive = self.scene(N_MAIN, R_RICH, 0, seed_offset=53)
+        a1, U1 = pairwise_acc_cuda(pos, mass, alive, G=1.0, eps2=EPS2)
+        _, _, c2 = pairwise_acc_detect_cuda(pos, mass, rad, alive, G=1.0, eps2=EPS2)
+        lines = []
+        for p in (RING_P, RING_P2):
+            mesh = self.ring_mesh(p)
+            reset_launches()
+            a, U = self.ring_eval(mesh, pos, mass, alive)
+            ad, Ud, cd = self.ring_eval(mesh, pos, mass, alive, radius=rad)
+            torch.cuda.synchronize()
+            ra, ru = rel(a, a1), abs(float(U) - float(U1)) / abs(float(U1))
+            if ra > FORCE_RTOL or ru > RING_U_RTOL:
+                raise AssertionError(f"ring P={p} vs B1: acc {ra:.3e}, U {ru:.3e}")
+            if not (torch.equal(ad, a) and torch.equal(Ud, U)) or int(cd) != int(c2):
+                raise AssertionError(f"ring P={p} with detection: acc/U not bit-equal to the "
+                                     f"ring's, or count {int(cd)} != B2's {int(c2)}")
+            if block_acc_cuda.launches != p * p or block_acc_detect_cuda.launches != p * p \
+                    or pairwise_acc_cuda.launches:
+                raise AssertionError(f"ring P={p}: B3 {block_acc_cuda.launches}, B3 detect "
+                                     f"{block_acc_detect_cuda.launches}, B1 "
+                                     f"{pairwise_acc_cuda.launches} launches")
+            lines.append(f"P={p} (shards of {N_MAIN // p}): acc {ra:.2e} <= {FORCE_RTOL:g}, "
+                         f"U {ru:.2e} <= {RING_U_RTOL:g} of B1's; with detection bit-equal, "
+                         f"count {int(cd)} == B2's; B3 {p * p} and B3 detect {p * p} launches, "
+                         f"B1 0")
+        return "B3 in the ring vs B1 over the whole table: " + "; ".join(lines)
+
+    # phase 53
+    def ring_main_path(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops.cuda_forces import block_acc_cuda, pairwise_acc_cuda
+        from orbital_tpu_torch.utils import native
+
+        torch = self.torch
+        pos, vel, mass, E0 = self.cluster()
+        cfg = self.ring_cfg()
+        state = ot.init_forces(ot.make_state(pos, vel, mass, precision="ds32",
+                                             device=self.dev), cfg)
+        ref, _ = ot.rollout(state, cfg, RING_STEPS, fused="never")
+        mesh = self.ring_mesh(RING_P)
+        reset_launches()
+        roll = ot.make_sharded_rollout(cfg, mesh, state, RING_STEPS,
+                                       record_every=RING_STEPS // 2)
+        shards, traj = roll(ot.shard_state(mesh, state))
+        rec = ot.gather_state(mesh, shards)
+        err = max_state_err(rec, ref)
+        x0 = mesh.exchange_seconds()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards, none = ot.make_sharded_rollout(cfg, mesh, rec, self.drift_steps)(shards)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        exch = (mesh.exchange_seconds() - x0) / RING_P / self.drift_steps
+        fin = ot.gather_state(mesh, shards)
+        steps = RING_STEPS + self.drift_steps
+        b3, b1 = block_acc_cuda.launches, pairwise_acc_cuda.launches
+        drift = abs((energy_f64(fin) - E0) / E0)
+        e_rec = traj.energy.double().cpu().numpy()
+        if err > STATE_ATOL:
+            raise AssertionError(f"ring {RING_STEPS} steps vs the single-card path: {err:.3e}")
+        if b3 != RING_P * RING_P * steps or b1 or none is not None:
+            raise AssertionError(f"ring main path: B3 {b3} launches for {steps} evaluations, "
+                                 f"B1 {b1}")
+        if tuple(traj.pos.shape) != (2, N_MAIN, 3) or \
+                np.max(np.abs(e_rec / E0 - 1.0)) > ENERGY_RTOL:
+            raise AssertionError(f"ring records: {tuple(traj.pos.shape)}, energies {e_rec}")
+        if drift > DRIFT_BUDGET or int(fin.step) != steps:
+            raise AssertionError(f"ring |dE/E| = {drift:.3e} over {DRIFT_BUDGET:g}")
+        self.kernels["B3"]["launches"] = b3
+        self.ring_perf = dict(wall_ms_per_step=1e3 * wall / self.drift_steps,
+                              exchange_host_ms_per_step_per_rank=1e3 * exch)
+        return (f"N={N_MAIN} ds32 over {RING_P} one-card ranks: init_forces + {RING_STEPS} "
+                f"recorded steps within {err:.2e} <= {STATE_ATOL:g} of the single-card B1 path, "
+                f"+ {self.drift_steps} unrecorded, |dE/E| = {drift:.3e} <= {DRIFT_BUDGET:g} "
+                f"(f64, {native.backend()}); B3 {b3} launches = {RING_P}^2 x {steps} "
+                f"evaluations, B1 {b1}; {1e3 * wall / self.drift_steps:.3f} ms/step wall, "
+                f"{1e3 * exch:.3f} ms a step a rank in the exchange (host)")
+
+    # phases 54-56
+    def ring_collisions(self) -> tuple[str, str, str]:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.rollout import resolve_force_detect_fn
+        from orbital_tpu_torch.ops.cuda_collisions import bounce_block_cuda
+        from orbital_tpu_torch.ops.cuda_forces import block_acc_cuda, block_acc_detect_cuda
+
+        torch = self.torch
+        pos, vel, mass, _ = self.cluster()
+        mesh = self.ring_mesh(RING_P)
+        # bench row: the bounce ring against the collision-free ring, step by
+        # step, until the first contact
+        st = ot.init_forces(self.torch_state(pos, vel, mass, R_BENCH), self.ring_cfg())
+        log = []
+        with ring_counts(log):
+            step_b = ot.make_sharded_step(self.ring_cfg(collisions="bounce"), mesh, st)
+        step_n = ot.make_sharded_step(self.ring_cfg(), mesh, st)
+        b = f = ot.shard_state(mesh, st)
+        reset_launches()
+        first = None
+        for k in range(1, RING_BOUNCE_STEPS + 1):
+            b, f = step_b(b), step_n(f)
+            if int(log[-1]) > 0:
+                first = k
+                break
+            for sb, sf in zip(b, f):
+                for name in ("pos", "pos_lo", "vel", "vel_lo", "acc", "potential"):
+                    if not torch.equal(getattr(sb, name), getattr(sf, name)):
+                        raise AssertionError(f"ring bounce bench row: {name} differs from the "
+                                             f"collision-free ring at step {k}, no contact")
+        checked = (first or RING_BOUNCE_STEPS + 1) - 1
+        evals = first or RING_BOUNCE_STEPS
+        b3d, bb, b3 = (block_acc_detect_cuda.launches, bounce_block_cuda.launches,
+                       block_acc_cuda.launches)
+        if b3d != RING_P * RING_P * evals or bb != RING_P * RING_P * evals \
+                or b3 != RING_P * RING_P * evals:
+            raise AssertionError(f"ring bounce: B3 detect {b3d}, block bounce {bb}, B3 {b3} "
+                                 f"launches in {evals} steps")
+        self.kernels["B3D"]["launches"] = b3d
+        self.kernels["BB"]["launches"] = bb
+        line1 = (f"bounce R={R_BENCH:g} over {RING_P} ranks: bit-equal to the collision-free "
+                 f"ring through step {checked}, first contact "
+                 f"{'at step ' + str(first) if first else 'not within ' + str(checked)} "
+                 f"(one card: step 587); B3 detect {b3d}, block bounce {bb} (gated) "
+                 f"launches = {RING_P}^2 x {evals} steps")
+
+        # contact-rich: ring against the single-card bounce, counts equal
+        cfg = self.ring_cfg(collisions="bounce", restitution=0.8)
+        st = ot.init_forces(self.torch_state(pos, vel, mass, R_RICH), cfg)
+        log, single_log = [], StepLog(resolve_force_detect_fn(cfg, N_MAIN, self.dev),
+                                      keep_counts=True)
+        with ring_counts(log):
+            roll = ot.make_sharded_rollout(cfg, mesh, st, RICH_CHECK_STEPS)
+        ring_fin = ot.gather_state(mesh, roll(ot.shard_state(mesh, st))[0])
+        one, _ = ot.rollout(st, cfg, RICH_CHECK_STEPS, fused="never",
+                            force_detect_fn=single_log)
+        ring_c = [int(c) for c in log]
+        one_c = [int(c) for c in single_log.counts]
+        err = max_state_err(ring_fin, one)
+        if ring_c != one_c or not all(ring_c) or err > STATE_ATOL:
+            raise AssertionError(f"ring bounce contact-rich: counts {ring_c} vs one card "
+                                 f"{one_c}, state {err:.3e}")
+        line2 = (f"bounce R={R_RICH:g}: {RICH_CHECK_STEPS} steps, ring counts {ring_c} == the "
+                 f"single card's, state within {err:.2e} <= {STATE_ATOL:g} of the single-card "
+                 f"B2 + B6 path")
+
+        # merge and resolve across shards, bench row, in a window around the
+        # first contacts: counts equal to the single card's step by step
+        cfg0 = self.ring_cfg()
+        st0 = ot.init_forces(self.torch_state(pos, vel, mass, R_BENCH), cfg0)
+        w, _ = ot.rollout(st0, cfg0, RING_WINDOW_START, fused="never")
+        parts = []
+        for mode, extra in (("merge", {}), ("resolve", dict(frag_seed=11))):
+            cfg = self.ring_cfg(collisions=mode, **extra)
+            log, single_log = [], StepLog(resolve_force_detect_fn(cfg, N_MAIN, self.dev),
+                                          keep_counts=True)
+            with ring_counts(log):
+                roll = ot.make_sharded_rollout(cfg, mesh, w, RING_WINDOW)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ring_fin = ot.gather_state(mesh, roll(ot.shard_state(mesh, w))[0])
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / RING_WINDOW
+            one, _ = ot.rollout(w, cfg, RING_WINDOW, fused="never", force_detect_fn=single_log)
+            ring_c = [int(c) for c in log]
+            one_c = [int(c) for c in single_log.counts]
+            hits = [RING_WINDOW_START + k + 1 for k, c in enumerate(ring_c) if c]
+            if ring_c != one_c or not hits:
+                raise AssertionError(f"ring {mode}: counts {ring_c} vs one card {one_c}")
+            if not torch.equal(ring_fin.alive, one.alive):
+                raise AssertionError(f"ring {mode}: alive differs from the single card's")
+            done = (self.merged_checks(f"ring {mode}", w, ring_fin) if mode == "merge" else
+                    f"{int((w.alive & ~ring_fin.alive).sum())} dead after, as on one card")
+            parts.append(f"{mode}: counts equal on each of {RING_WINDOW} steps from step "
+                         f"{RING_WINDOW_START} (contacts on steps {hits}); {done}; "
+                         f"{ms:.3f} ms/step wall")
+        line3 = f"bench row R={R_BENCH:g} over {RING_P} ranks, " + " | ".join(parts)
+        return line1, line2, line3
+
+    # phases 57-58
+    def ring_pm_simulate(self) -> tuple[str, str]:
+        import orbital_tpu_torch as ot
+        import orbital_tpu_torch.ops.pm as pm
+        from orbital_tpu_torch.models.scene import SceneArrays
+        from orbital_tpu_torch.ops.cuda_forces import block_acc_detect_cuda, pairwise_acc_cuda
+
+        torch = self.torch
+        pos, vel, mass, _ = self.cluster()
+        pt, mt = self.t(pos), self.t(mass)
+        alive = torch.ones(N_MAIN, dtype=torch.bool, device=self.dev)
+        mesh = self.ring_mesh(RING_P)
+        parts = []
+        for box in (PM_BOX, None):
+            kw = dict(G_grav=1.0, eps2=EPS2, grid=PM_GRID, box=self.box_t(box))
+            a1, U1 = pm.pm_acc_potential(pt, mt, alive, **kw)
+            out = mesh.run(lambda comm, p, m, al: pm.pm_acc_potential(p, m, al, comm=comm,
+                                                                      **kw),
+                           list(pt.chunk(RING_P)), list(mt.chunk(RING_P)),
+                           list(alive.chunk(RING_P)))
+            a = torch.cat([o[0] for o in out])
+            r_a = rms_rel(a, a1)
+            r_u = abs(float(out[0][1]) - float(U1)) / abs(float(U1))
+            if r_a > PM_RTOL or r_u > PM_RTOL:
+                raise AssertionError(f"sharded PM ({box}): RMS acc {r_a:.3e}, U {r_u:.3e}")
+            parts.append(f"{'box ' + str(box) if box else 'cube by pmin/pmax'}: RMS acc "
+                         f"{r_a:.2e}, U {r_u:.2e}")
+        cfg = self.ring_cfg(force_impl="pm", pm_grid=PM_GRID, pm_box=PM_BOX)
+        st = ot.init_forces(ot.make_state(pos, vel, mass, precision="ds32", device=self.dev),
+                            cfg)
+        fin = ot.gather_state(mesh, ot.make_sharded_rollout(cfg, mesh, st, RING_STEPS)(
+            ot.shard_state(mesh, st))[0])
+        one, _ = ot.rollout(st, cfg, RING_STEPS)
+        err = max_state_err(fin, one)
+        if err > STATE_ATOL:
+            raise AssertionError(f"sharded PM {RING_STEPS} steps vs one card: {err:.3e}")
+        line1 = (f"sharded PM over {RING_P} ranks at N={N_MAIN}, grid {PM_GRID}, within "
+                 f"{PM_RTOL:g} of the single-card PM: " + "; ".join(parts)
+                 + f"; {RING_STEPS} KDK steps within {err:.2e} of the single card's")
+
+        scene = SceneArrays(pos=pos, vel=vel, mass=mass, radius=np.full(N_MAIN, R_BENCH),
+                            names=[f"b{i}" for i in range(N_MAIN)])
+        kw = dict(steps=RING_STEPS, dt=DT, softening=EPS2 ** 0.5, device=self.dev,
+                  precision="ds32", rescale=ot.Rescale.identity(), record_every=10)
+        reset_launches()
+        res = ot.simulate(scene, mesh=mesh, collisions="bounce", **kw)
+        b3d, b1 = block_acc_detect_cuda.launches, pairwise_acc_cuda.launches
+        ref = ot.simulate(scene, collisions="bounce", **kw)
+        d = float(np.abs(res.pos - ref.pos).max())
+        if d > STATE_ATOL or b3d != RING_P * RING_P * RING_STEPS or b1 != 1 \
+                or res.final_state.n_bodies != N_MAIN:
+            raise AssertionError(f"simulate(mesh=): {d:.3e} from one card, B3 detect {b3d}, "
+                                 f"B1 {b1} launches")
+        line2 = (f"simulate(mesh=make_mesh(({RING_P},), cuda:0), collisions='bounce') N="
+                 f"{N_MAIN} ds32, {RING_STEPS} steps: records within {d:.2e} of simulate() on "
+                 f"one card, B3 detect {b3d} launches, B1 {b1} (init_forces)")
+        return line1, line2
+
+    # phase 59
+    def ring_nccl(self) -> str:
+        import torch.distributed as dist
+
+        import orbital_tpu_torch as ot
+
+        torch = self.torch
+        store = os.path.join(REPO_ROOT, "build", "ring_store")
+        os.makedirs(os.path.dirname(store), exist_ok=True)
+        if os.path.exists(store):
+            os.remove(store)
+        pos, vel, mass, _ = self.cluster()
+        cfg = self.ring_cfg(collisions="merge")
+        st = ot.init_forces(self.torch_state(pos, vel, mass, R_RICH), cfg)
+        local = self.ring_mesh(1)
+        torch.cuda.set_device(self.dev)
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+        try:
+            mesh = ot.make_mesh()
+            if mesh.local or mesh.shape != {"body": 1} or mesh.device != self.dev:
+                raise AssertionError(f"make_mesh() under NCCL: {mesh.shape}, {mesh.device}")
+            runs = {}
+            for key, m in (("nccl", mesh), ("one-card", local)):
+                shards, traj = ot.make_sharded_rollout(cfg, m, st, RING_NCCL_STEPS,
+                                                       record_every=RING_NCCL_STEPS)(
+                    ot.shard_state(m, st))
+                runs[key] = (ot.gather_state(m, shards), traj)
+            torch.cuda.synchronize()
+            secs = mesh.exchange_seconds()
+        finally:
+            dist.destroy_process_group()
+            if os.path.exists(store):
+                os.remove(store)
+        (a, ta), (b, tb) = runs["nccl"], runs["one-card"]
+        for f in ("pos", "pos_lo", "vel", "vel_lo", "mass", "radius", "alive", "acc",
+                  "potential"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"NCCL world size 1: {f} differs from the one-card mesh")
+        for f in ("pos", "vel", "energy", "alive"):
+            if not torch.equal(getattr(ta, f), getattr(tb, f)):
+                raise AssertionError(f"NCCL world size 1: records {f} differ")
+        merged = int((st.alive & ~a.alive).sum())
+        return (f"process-group mesh over NCCL, world size 1 (file:// store): merge "
+                f"R={R_RICH:g} N={N_MAIN} ds32 {RING_NCCL_STEPS} steps ({merged} merged: the "
+                f"gather, the psums and the records' gather through NCCL, "
+                f"{1e3 * secs:.1f} ms in them) bit-equal to the one-card mesh; "
+                f"{time.perf_counter() - t0:.1f} s with the group's set-up")
+
+    # phase 60
+    def ring_timings(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops.cuda_collisions import bounce_block_cuda, bounce_block_plain
+        from orbital_tpu_torch.ops.cuda_forces import (block_acc_cuda, block_acc_detect_cuda,
+                                                       block_acc_detect_plain, block_acc_plain)
+
+        torch = self.torch
+        B = RING_B
+        kw = dict(G=1.0, eps2=EPS2)
+        rich = self.ring_shards(R_RICH)
+        bench = self.ring_shards(R_BENCH)
+        (pi, vi, mi, ri, ai), (pj, vj, mj, rj, aj) = bench[0], bench[1]
+        _, _, c_rich = block_acc_detect_cuda(rich[0][0], rich[0][3], rich[0][4], 0, rich[1][0],
+                                             rich[1][2], rich[1][3], rich[1][4], B, **kw)
+        touching = int(c_rich)
+        zero = torch.zeros((), dtype=torch.int32, device=self.dev)
+        kern = {k: summary(v) for k, v in alternate_ms({
+            "B3": lambda: block_acc_cuda(pi, pj, mj, **kw),
+            "B3D": lambda: block_acc_detect_cuda(pi, ri, ai, 0, pj, mj, rj, aj, B, **kw),
+            "BB": lambda: bounce_block_cuda(*rich[0], *rich[1], restitution=0.8,
+                                            contacts=c_rich),
+            "BB0": lambda: bounce_block_cuda(*rich[0], *rich[1], restitution=0.8,
+                                             contacts=zero),
+        }, 20).items()}
+        plain = {
+            "B3": summary(time_ms(lambda: block_acc_plain(pi, pj, mj, **kw), 1)),
+            "B3D": summary(time_ms(lambda: block_acc_detect_plain(
+                pi, ri, ai, 0, pj, mj, rj, aj, B, **kw), 1)),
+            "BB": summary(time_ms(lambda: bounce_block_plain(
+                *rich[0], *rich[1], restitution=0.8, contacts=c_rich), 1)),
+        }
+        pairs = B * B
+        bounds = {
+            "B3": bound(OPS_B1_PE * pairs, 16 * 2 * B + 16 * B, rsqrt=pairs),
+            "B3D": bound((OPS_B1_PE + OPS_B2 - OPS_B1) * pairs, 20 * 2 * B + 16 * B + 4,
+                         rsqrt=pairs),
+            "BB": bound(OPS_B6 * pairs + OPS_B6_TOUCH * touching, 33 * 2 * B + 24 * B + 4),
+        }
+        bound_bb0 = bound(0.0, 24 * B + 4)
+        for k in ("B3", "B3D", "BB"):
+            self.kernels[k].update(ms=kern[k]["median"], plain_ms=plain[k]["median"],
+                                   bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                                   library_ms=None)
+
+        # the ring's step against the single card's, in turns
+        pos, vel, mass, _ = self.cluster()
+        cfg = self.ring_cfg(track_potential=False)
+        st = ot.init_forces(ot.make_state(pos, vel, mass, precision="ds32", device=self.dev),
+                            cfg)
+        meshes = {p: self.ring_mesh(p) for p in RING_TIMED}
+        shards = {p: ot.shard_state(m, st) for p, m in meshes.items()}
+        rolls = {p: ot.make_sharded_rollout(cfg, m, st, 10) for p, m in meshes.items()}
+        steps = {k: summary([t / 10 for t in v]) for k, v in alternate_ms({
+            "one card": lambda: ot.rollout(st, cfg, 10, fused="never"),
+            **{f"ring P={p}": (lambda p_: lambda: rolls[p_](shards[p_]))(p)
+               for p in RING_TIMED}}, 1, repeats=3).items()}
+        # one more run of 10 steps each: the host time to queue it, the time
+        # a rank waited in the exchange, and the device's busy time
+        exch, host, busy = {}, {}, {}
+        for p, m in meshes.items():
+            x0 = m.exchange_seconds()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rolls[p](shards[p])
+            host[p] = 1e3 * (time.perf_counter() - t0) / 10
+            torch.cuda.synchronize()
+            exch[p] = 1e3 * (m.exchange_seconds() - x0) / p / 10
+            dev = device_times(lambda: rolls[p](shards[p]))
+            busy[p] = sum(v[1] for v in dev.values()) / 10 if dev else None
+        self.ring_perf.update(kernels_16384=kern, plain=plain, bounds_ms=bounds,
+                              block_bounce_count0_bound_ms=bound_bb0, touching=touching,
+                              step_ms=steps, exchange_host_ms_per_step_per_rank=exch,
+                              host_ms_per_step=host, device_busy_ms_per_step=busy)
+        print("perf_ring " + json.dumps(self.ring_perf), file=sys.stderr)
+
+        def ms(s):
+            return f"{s['median']:.3f} ms (spread {s['spread']:.3f})"
+
+        return (f"at {B}x{B} (one ring round of N={N_MAIN} over {RING_P}): B3 {ms(kern['B3'])} "
+                f"(bound {bounds['B3'][0]:.4f} ms, {bounds['B3'][1]}; plain "
+                f"{ms(plain['B3'])}), B3 detect R={R_BENCH:g} {ms(kern['B3D'])} (bound "
+                f"{bounds['B3D'][0]:.4f}; plain {ms(plain['B3D'])}), block bounce "
+                f"{touching} contacts {ms(kern['BB'])} (bound {bounds['BB'][0]:.4f}; plain "
+                f"{ms(plain['BB'])}), at count 0 {ms(kern['BB0'])} (bound "
+                f"{bound_bb0[0]:.5f}); KDK step ds32 N={N_MAIN} in turns: "
+                + ", ".join(f"{k} {ms(v)}" for k, v in steps.items())
+                + "; a step's host time to queue, a rank's wait in the exchange and the "
+                "device's busy time (profiler): " + ", ".join(
+                    f"P={p} {host[p]:.3f}, {exch[p]:.3f} and {fmt(busy[p], 3)} ms"
+                    for p in RING_TIMED))
 
 
 def main(argv=None) -> int:
@@ -6836,6 +7449,13 @@ def main(argv=None) -> int:
         ("48 tree near modes", smoke.tree_modes),
         ("49 tree options", smoke.tree_options),
         ("50 compat core", smoke.compat_core),
+        ("51 ring kernels", smoke.check_ring_kernels),
+        ("52 ring force", smoke.check_ring_force),
+        ("53 ring main path", smoke.ring_main_path),
+        ("54+55+56 ring collisions", smoke.ring_collisions),
+        ("57+58 ring pm simulate", smoke.ring_pm_simulate),
+        ("59 ring nccl", smoke.ring_nccl),
+        ("60 ring timings", smoke.ring_timings),
     ]
     if args.sweep or args.parent:
         phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (

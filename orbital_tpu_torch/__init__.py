@@ -32,8 +32,11 @@ live viewer (``serve``) and the CLI (``python -m orbital_tpu_torch``), the
 tree's four near modes (``"cells"``, ``"columns"``, ``"pairs"`` and the CUDA
 ``"kernel"``) with their probes and ``simulate(tree_accuracy=)``, orbit
 determination (``fitting``: ``fit_initial_conditions``,
-``fit_orbital_elements``), and the reference's ``core.*`` import layout
-(``compat/core``). See ROADMAP.md queue A for the rest.
+``fit_orbital_elements``), the reference's ``core.*`` import layout
+(``compat/core``), and body-sharded meshes (``parallel.mesh``: one-card
+ranks or a ``torch.distributed`` group; ``parallel.sharded``: the exact-force
+ring on the CUDA block sweep with bounce, merge and resolve across shards,
+the sharded PM, ``simulate(mesh=)``). See ROADMAP.md queue A for the rest.
 """
 from .models.constants import (ASTRO, J2000_JD, STANDARD, IntegratorParams, UnitProfile,
                                UnitSystem, get_unit_profile)
@@ -65,7 +68,12 @@ __all__ = ["ASTRO", "J2000_JD", "STANDARD", "IntegratorParams", "UnitProfile",
            "rollout", "init_forces_staged", "rollout_staged", "Trajectory", "simulate",
            "SimResult", "pm_acc_potential", "p3m_acc_potential", "tree_acc_potential",
            "SimulationEngine", "run_simulation", "save_state", "load_state",
-           "fit_initial_conditions", "fit_orbital_elements", "FitResult"]
+           "fit_initial_conditions", "fit_orbital_elements", "FitResult",
+           "make_mesh", "make_sharded_step", "make_sharded_rollout", "shard_state",
+           "gather_state"]
+
+_PARALLEL = ("make_mesh", "make_sharded_step", "make_sharded_rollout", "shard_state",
+             "gather_state")
 
 
 def __getattr__(name):
@@ -74,4 +82,8 @@ def __getattr__(name):
         from . import fitting
 
         return getattr(fitting, name)
+    if name in _PARALLEL:  # multi-device: a specialty path
+        from . import parallel
+
+        return getattr(parallel, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

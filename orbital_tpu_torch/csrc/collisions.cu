@@ -52,6 +52,15 @@
 // overflow: live-to-parked r2 is ~3e34, finite in f32, and is never squared
 // again.
 //
+// Separate i and j tables (the block bounce; no TPU kernel: it stands in for
+// the XLA code of orbital_tpu/parallel/sharded.py:72-117, _block_bounce,
+// the multi-device ring's impulses of a visiting shard j on the local shard
+// i): the i side reads (pos_i, vel_i, mass_i, radius_i, alive_i), the j side
+// (pos_j, vel_j, mass_j, radius_j, alive_j). B6 passes one set of arrays
+// twice, so its arithmetic is unchanged op for op. A self pair of the ring's
+// diagonal round has r2 = 0 and fails the touching test, so no pair is
+// excluded by index.
+//
 // The gate: the optional `contacts` pointer is the int32 count that the
 // force sweep with detection (B2) left on the device. When it is <= 0 every
 // block writes zeros and returns at entry, so a contact-free step costs one
@@ -139,13 +148,22 @@ __device__ __forceinline__ float4 kin_of(const float* vel, const float* mass,
                      (alive == nullptr || alive[j]) ? mass[j] : 0.0f);
 }
 
+// One side's arrays: positions and velocities [n, 3], mass and radius [n]
+// f32, alive [n] bool or null.
+struct Side {
+  const float* __restrict__ pos;
+  const float* __restrict__ vel;
+  const float* __restrict__ mass;
+  const float* __restrict__ radius;
+  const bool* __restrict__ alive;
+  int n;
+};
+
 __global__ void __launch_bounds__(kThreads, 1)
-bounce_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
-              const float* __restrict__ mass, const float* __restrict__ radius,
-              const bool* __restrict__ alive, int n, float e,
-              const int* __restrict__ contacts, float* __restrict__ dpos,
-              float* __restrict__ dvel) {
+bounce_kernel(Side si, Side sj, float e, const int* __restrict__ contacts,
+              float* __restrict__ dpos, float* __restrict__ dvel) {
   const int base = blockIdx.x * kRows;
+  const int n = si.n;
   if (contacts != nullptr && *contacts <= 0) {  // uniform: one count for all
     for (int r = threadIdx.x; r < kRows && base + r < n; r += kThreads) {
       const int i = base + r;
@@ -163,19 +181,19 @@ bounce_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
 #pragma unroll
   for (int k = 0; k < kK; ++k) {
     const int i = base + lane + 32 * k;
-    gi[k] = i < n ? geo_of(pos, radius, i) : make_float4(0.f, 0.f, 0.f, 0.f);
-    ki[k] = i < n ? kin_of(vel, mass, alive, i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    gi[k] = i < n ? geo_of(si.pos, si.radius, i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    ki[k] = i < n ? kin_of(si.vel, si.mass, si.alive, i) : make_float4(0.f, 0.f, 0.f, 0.f);
     inv_mi[k] = ki[k].w > 0.0f ? __frcp_rn(ki[k].w) : 0.0f;
   }
   float4* gtile = tiles[warp][0];
   float4* ktile = tiles[warp][1];
-  for (int j0 = warp * kTile; j0 < n; j0 += kQ * kTile) {
+  for (int j0 = warp * kTile; j0 < sj.n; j0 += kQ * kTile) {
     float rmax = 0.0f;  // the largest radius this lane staged
 #pragma unroll
     for (int r = lane; r < kTile; r += 32) {
-      if (j0 + r < n) {
-        gtile[r] = geo_of(pos, radius, j0 + r);
-        ktile[r] = kin_of(vel, mass, alive, j0 + r);
+      if (j0 + r < sj.n) {
+        gtile[r] = geo_of(sj.pos, sj.radius, j0 + r);
+        ktile[r] = kin_of(sj.vel, sj.mass, sj.alive, j0 + r);
         rmax = fmaxf(rmax, gtile[r].w);
       }
     }
@@ -183,7 +201,7 @@ bounce_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
     for (int off = 16; off > 0; off >>= 1)
       rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
     __syncwarp();
-    const int count = min(kTile, n - j0);
+    const int count = min(kTile, sj.n - j0);
     float nearest[kK];
     if (count == kTile) nearest_tile(gtile, kTile, gi, nearest);
     else nearest_tile(gtile, count, gi, nearest);
@@ -240,12 +258,39 @@ int bounce_deltas(const void* pos, const void* vel, const void* mass, const void
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;
+  const Side side{static_cast<const float*>(pos), static_cast<const float*>(vel),
+                  static_cast<const float*>(mass), static_cast<const float*>(radius),
+                  static_cast<const bool*>(alive), n};
   const int grid = (n + kRows - 1) / kRows;
   bounce_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pos), static_cast<const float*>(vel),
-      static_cast<const float*>(mass), static_cast<const float*>(radius),
-      static_cast<const bool*>(alive), n, restitution, static_cast<const int*>(contacts),
+      side, side, restitution, static_cast<const int*>(contacts),
       static_cast<float*>(dpos), static_cast<float*>(dvel));
+  return cudaGetLastError();
+}
+
+// The block bounce: bounce_deltas with the i side (pos_i, vel_i: [n_i, 3];
+// mass_i, radius_i: [n_i]; alive_i: [n_i] bool) and the j side (the same
+// over n_j) in separate arrays; dpos, dvel: [n_i, 3] float, the impulses
+// and de-overlap of j on i, gated on contacts as bounce_deltas is.
+int bounce_block_deltas(const void* pos_i, const void* vel_i, const void* mass_i,
+                        const void* radius_i, const void* alive_i, int n_i,
+                        const void* pos_j, const void* vel_j, const void* mass_j,
+                        const void* radius_j, const void* alive_j, int n_j,
+                        float restitution, const void* contacts, void* dpos, void* dvel,
+                        void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n_i <= 0) return cudaSuccess;
+  const Side si{static_cast<const float*>(pos_i), static_cast<const float*>(vel_i),
+                static_cast<const float*>(mass_i), static_cast<const float*>(radius_i),
+                static_cast<const bool*>(alive_i), n_i};
+  const Side sj{static_cast<const float*>(pos_j), static_cast<const float*>(vel_j),
+                static_cast<const float*>(mass_j), static_cast<const float*>(radius_j),
+                static_cast<const bool*>(alive_j), n_j};
+  const int grid = (n_i + kRows - 1) / kRows;
+  bounce_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      si, sj, restitution, static_cast<const int*>(contacts), static_cast<float*>(dpos),
+      static_cast<float*>(dvel));
   return cudaGetLastError();
 }
 

@@ -86,8 +86,20 @@
 // side (x, y, z, m) of pts_j. B1 and B2 pass one table twice, so their
 // arithmetic is unchanged op for op; B3 keeps the PE sum on and subtracts
 // nothing (its pe row includes the i == j term where the tables coincide;
-// the ring strips it once). kDetect reads one radius table for both sides
-// and is launched on coinciding tables only.
+// the ring strips it once). B2's kDetect reads one radius table for both
+// sides and is launched on coinciding tables only.
+//
+// B3's detecting instance (kBlock, with kDetect; no TPU kernel: it stands
+// in for the sqrt-free count ring of orbital_tpu/parallel/sharded.py:199-231,
+// whose block is ops/collisions.py:97-113 _contacts_block): the same sweep
+// over separate i and j tables with a radius table for each side and the
+// blocks' global offsets, so that the ring's closing force evaluation also
+// counts the step's contacts. Its force arithmetic is B3's op for op. The
+// count is exact by construction: a pair is counted when r2 <= ((R_i + R_j)
+// * 1.00001)^2 and the global ids differ (self pairs are excluded by index,
+// not counted and subtracted), and a dead body carries a NaN radius, for
+// which every comparison is false, so alive is tested on both sides
+// without a table of its own. The counter starts at 0.
 //
 // Plain C interface for ctypes: pointers and the stream are void*, and the
 // entry point returns cudaGetLastError() of its launch.
@@ -181,14 +193,38 @@ __device__ __forceinline__ void count_tile(const float4* tile, const float* rtil
   }
 }
 
+// count_tile over separate tables (kBlock): row k of the thread and column
+// jj of the tile have equal global ids when i0 + 32 k == jj, i0 being the
+// thread's first row, minus the tile's first column, minus the blocks'
+// offset difference; such a pair is skipped. Alive is in the radii (NaN
+// when dead).
+__device__ __forceinline__ void count_tile_ids(const float4* tile, const float* rtile,
+                                               int count, const float4 (&pi)[kK],
+                                               const float (&ri)[kK], int i0,
+                                               int (&touch)[kK]) {
+  for (int jj = 0; jj < count; ++jj) {
+    const float4 pj = tile[jj];
+    const float rj = rtile[jj];
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const float r2 = dist2(pj.x - pi[k].x, pj.y - pi[k].y, pj.z - pi[k].z);
+      const float rsum = (ri[k] + rj) * 1.00001f;
+      touch[k] += (r2 <= rsum * rsum) && (i0 + 32 * k != jj);
+    }
+  }
+}
+
 // The second bound (one block an SM) lets ptxas use up to 128 registers a
 // thread. Without it ptxas aims at two blocks an SM and caps the kernel at 64
 // registers. That ran B1 4% and B2 18% slower (chip_smoke.py; PERF.md).
-template <bool kPE, bool kSoft, bool kDetect>
+// kBlock (with kDetect): radius_i and radius_j are separate tables and a
+// pair (i, j) with i == j + diag (equal global ids) is not counted.
+template <bool kPE, bool kSoft, bool kDetect, bool kBlock>
 __global__ void __launch_bounds__(kThreads, 1)
 nbody_forces_kernel(const float4* __restrict__ pts_i, int n_i,
                     const float4* __restrict__ pts_j, int n_j,
-                    const float* __restrict__ radius, float G, float eps2,
+                    const float* __restrict__ radius_i,
+                    const float* __restrict__ radius_j, int diag, float G, float eps2,
                     float4* __restrict__ out, int* __restrict__ contacts) {
   __shared__ float4 slots[kQ][kSlot];
   __shared__ float rtiles[kDetect ? kQ : 1][kDetect ? kTile : 1];
@@ -202,7 +238,7 @@ nbody_forces_kernel(const float4* __restrict__ pts_i, int n_i,
   for (int k = 0; k < kK; ++k) {
     const int i = base + lane + 32 * k;
     pi[k] = i < n_i ? pts_i[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    ri[k] = (kDetect && i < n_i) ? radius[i] : 0.0f;
+    ri[k] = (kDetect && i < n_i) ? radius_i[i] : 0.0f;
     s[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     touch[k] = 0;
   }
@@ -215,7 +251,7 @@ nbody_forces_kernel(const float4* __restrict__ pts_i, int n_i,
       if (j0 + r < n_j) {
         tile[r] = pts_j[j0 + r];
         if (kDetect) {
-          const float rj = radius[j0 + r];
+          const float rj = radius_j[j0 + r];
           rtile[r] = rj;
           rmax = fmaxf(rmax, rj);
         }
@@ -250,7 +286,13 @@ nbody_forces_kernel(const float4* __restrict__ pts_i, int n_i,
         const float rsum = (ri[k] + rmax) * 1.00001f;
         maybe = maybe || nearest[k] <= rsum * rsum;
       }
-      if (__any_sync(0xffffffffu, maybe)) count_tile(tile, rtile, count, pi, ri, touch);
+      if (__any_sync(0xffffffffu, maybe)) {
+        if (kBlock) {
+          count_tile_ids(tile, rtile, count, pi, ri, base + lane - j0 - diag, touch);
+        } else {
+          count_tile(tile, rtile, count, pi, ri, touch);
+        }
+      }
     }
     __syncwarp();
   }
@@ -289,24 +331,25 @@ nbody_forces_kernel(const float4* __restrict__ pts_i, int n_i,
   }
 }
 
-template <bool kPE, bool kSoft, bool kDetect>
+template <bool kPE, bool kSoft, bool kDetect, bool kBlock = false>
 void launch(const float4* pts_i, int n_i, const float4* pts_j, int n_j,
-            const float* radius, float G, float eps2, float4* out, int* contacts,
-            cudaStream_t stream) {
+            const float* radius_i, const float* radius_j, int diag, float G, float eps2,
+            float4* out, int* contacts, cudaStream_t stream) {
   const int grid = (n_i + kRows - 1) / kRows;
-  nbody_forces_kernel<kPE, kSoft, kDetect><<<grid, kThreads, 0, stream>>>(
-      pts_i, n_i, pts_j, n_j, radius, G, eps2, out, contacts);
+  nbody_forces_kernel<kPE, kSoft, kDetect, kBlock><<<grid, kThreads, 0, stream>>>(
+      pts_i, n_i, pts_j, n_j, radius_i, radius_j, diag, G, eps2, out, contacts);
 }
 
 template <bool kDetect>
 void dispatch(const float4* p, const float* radius, int n, float G, float eps2,
               int with_pe, float4* o, int* contacts, cudaStream_t s) {
+  const float* r = radius;
   if (eps2 > 0.0f) {
-    if (with_pe) launch<true, true, kDetect>(p, n, p, n, radius, G, eps2, o, contacts, s);
-    else launch<false, true, kDetect>(p, n, p, n, radius, G, eps2, o, contacts, s);
+    if (with_pe) launch<true, true, kDetect>(p, n, p, n, r, r, 0, G, eps2, o, contacts, s);
+    else launch<false, true, kDetect>(p, n, p, n, r, r, 0, G, eps2, o, contacts, s);
   } else {
-    if (with_pe) launch<true, false, kDetect>(p, n, p, n, radius, G, eps2, o, contacts, s);
-    else launch<false, false, kDetect>(p, n, p, n, radius, G, eps2, o, contacts, s);
+    if (with_pe) launch<true, false, kDetect>(p, n, p, n, r, r, 0, G, eps2, o, contacts, s);
+    else launch<false, false, kDetect>(p, n, p, n, r, r, 0, G, eps2, o, contacts, s);
   }
 }
 
@@ -350,9 +393,32 @@ int nbody_block_forces(const void* pts_i, int n_i, const void* pts_j, int n_j, f
   if (!(eps2 > 0.0f)) return cudaErrorInvalidValue;
   if (n_i <= 0 || n_j <= 0) return cudaSuccess;
   launch<true, true, false>(static_cast<const float4*>(pts_i), n_i,
-                            static_cast<const float4*>(pts_j), n_j, nullptr, G, eps2,
-                            static_cast<float4*>(out), nullptr,
+                            static_cast<const float4*>(pts_j), n_j, nullptr, nullptr, 0, G,
+                            eps2, static_cast<float4*>(out), nullptr,
                             static_cast<cudaStream_t>(stream));
+  return cudaGetLastError();
+}
+
+// B3 with detection (kBlock): nbody_block_forces plus radius_i [n_i] and
+// radius_j [n_j] float (R, or NaN for a dead body), the blocks' global
+// offsets i_off and j_off, and contacts: one int32 on the device, which the
+// caller sets to 0; the kernel adds the directed touching-pair count of
+// live pairs with different global ids. The force output is bit-equal to
+// nbody_block_forces' on the same tables.
+int nbody_block_forces_detect(const void* pts_i, const void* radius_i, int n_i, int i_off,
+                              const void* pts_j, const void* radius_j, int n_j, int j_off,
+                              float G, float eps2, void* out, void* contacts, void* stream,
+                              int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (!(eps2 > 0.0f)) return cudaErrorInvalidValue;
+  if (n_i <= 0 || n_j <= 0) return cudaSuccess;
+  launch<true, true, true, true>(static_cast<const float4*>(pts_i), n_i,
+                                 static_cast<const float4*>(pts_j), n_j,
+                                 static_cast<const float*>(radius_i),
+                                 static_cast<const float*>(radius_j), j_off - i_off, G, eps2,
+                                 static_cast<float4*>(out), static_cast<int*>(contacts),
+                                 static_cast<cudaStream_t>(stream));
   return cudaGetLastError();
 }
 

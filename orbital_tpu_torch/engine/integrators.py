@@ -160,13 +160,15 @@ def _resolve(cfg: SimConfig, state: NBodyState, contacts: Optional[torch.Tensor]
 
 
 def _apply_collisions(cfg: SimConfig, state: NBodyState,
-                      contacts: Optional[torch.Tensor] = None) -> NBodyState:
+                      contacts: Optional[torch.Tensor] = None,
+                      bounce: Optional[Callable] = None) -> NBodyState:
     """The bounce sweep on the hi words of the state, its deltas added with
     :func:`_accumulate`; or the merge of every contact chain into its root,
     or a resolve round (pos, vel, mass, radius and alive rewritten from the
     collapsed hi + lo words, the lo words of every body dropped, as the JAX
     stepper drops them); with a fused ``contacts`` count, gated on the device
-    by ``contacts > 0``."""
+    by ``contacts > 0``. ``bounce`` replaces :func:`resolve_bounce_fn`'s
+    sweep (the mesh's ring passes its own)."""
     if cfg.collisions == "none":
         return state
     # at a count of 0 the merge's roots are the identity and its mass,
@@ -189,7 +191,7 @@ def _apply_collisions(cfg: SimConfig, state: NBodyState,
         new = dict(pos=pos, vel=vel, mass=mass, radius=radius, alive=alive,
                    pos_lo=zeros, vel_lo=zeros)
     else:
-        bounce = resolve_bounce_fn(state.n_bodies, state.device)
+        bounce = bounce or resolve_bounce_fn(state.n_bodies, state.device)
         dpos, dvel = bounce(state.pos, state.vel, state.mass, state.radius, state.alive,
                             cfg.restitution, contacts)
         pos, pos_lo = _accumulate(state.pos, state.pos_lo, dpos)
@@ -248,6 +250,8 @@ def make_step_fn(cfg: SimConfig, force_fn: Optional[ForceFn] = None,
                  accel_jerk_fn: Optional[AccelJerkFn] = None,
                  accel_jerk_detect_fn: Optional[AccelJerkDetectFn] = None,
                  accel_jerk_subset_fn: Optional[AccelJerkSubsetFn] = None,
+                 collide: Optional[Callable[[NBodyState, Optional[torch.Tensor]],
+                                            NBodyState]] = None,
                  ) -> Callable[[NBodyState], NBodyState]:
     """Build the single-step function for a config.
 
@@ -270,12 +274,19 @@ def make_step_fn(cfg: SimConfig, force_fn: Optional[ForceFn] = None,
     alive) -> (acc, jerk)`` for the block steppers' substeps (default:
     ``ops.forces.accel_jerk_subset``); ``rollout.resolve_accel_jerk*_fn``
     route them.
+
+    ``collide(state, contacts) -> state`` replaces the collision step
+    (default: :func:`_apply_collisions`); the sharded steps of
+    ``parallel.sharded`` pass theirs.
     """
     if cfg.integrator == "respa":
         raise ValueError("integrator='respa' advances by macro windows of respa_k "
                          "substeps: use engine.multirate.respa_rollout")
     dt = cfg.dt
     fuse_detect = force_detect_fn is not None and cfg.collisions != "none"
+    if collide is None:
+        def collide(state, contacts):
+            return _apply_collisions(cfg, state, contacts)
 
     def closing_forces(pos, state):
         """(acc, potential, contacts or None) at the step's final positions."""
@@ -298,7 +309,7 @@ def make_step_fn(cfg: SimConfig, force_fn: Optional[ForceFn] = None,
             acc=acc, potential=potential,
             time=state.time + dt, step=state.step + 1,
         )
-        return _apply_collisions(cfg, state, contacts)
+        return collide(state, contacts)
 
     def yoshida4(state: NBodyState) -> NBodyState:
         """4th-order symplectic integrator (Yoshida 1990): the KDK step
@@ -320,7 +331,7 @@ def make_step_fn(cfg: SimConfig, force_fn: Optional[ForceFn] = None,
             s = s.replace(pos=pos, pos_lo=pos_lo, vel=vel, vel_lo=vel_lo,
                           acc=acc, potential=potential)
         s = s.replace(time=state.time + dt, step=state.step + 1)
-        return _apply_collisions(cfg, s, contacts)
+        return collide(s, contacts)
 
     def rk4(state: NBodyState) -> NBodyState:
         """Classical RK4: 4 force evaluations per step (the cached
@@ -354,7 +365,7 @@ def make_step_fn(cfg: SimConfig, force_fn: Optional[ForceFn] = None,
             acc=acc, potential=potential,
             time=state.time + dt, step=state.step + 1,
         )
-        return _apply_collisions(cfg, state, contacts)
+        return collide(state, contacts)
 
     def euler(state: NBodyState) -> NBodyState:
         # v(t+dt) = v(t) + a(t) dt; r(t+dt) = r(t) + v(t+dt) dt (reference
@@ -367,7 +378,7 @@ def make_step_fn(cfg: SimConfig, force_fn: Optional[ForceFn] = None,
             acc=acc, potential=potential,
             time=state.time + dt, step=state.step + 1,
         )
-        return _apply_collisions(cfg, state, contacts)
+        return collide(state, contacts)
 
     if accel_jerk_fn is None:
         from ..ops.forces import accel_jerk_dense
@@ -419,7 +430,7 @@ def make_step_fn(cfg: SimConfig, force_fn: Optional[ForceFn] = None,
             acc=a1, jerk=j1, potential=potential,
             time=state.time + h, step=state.step + 1,
         )
-        return _apply_collisions(cfg, state, contacts)
+        return collide(state, contacts)
 
     def macro_close(state, r0, v0, a0, j0, idx, upd, rf, vf) -> NBodyState:
         """The block steppers' closing full-system Hermite step at t + dt,
@@ -447,7 +458,7 @@ def make_step_fn(cfg: SimConfig, force_fn: Optional[ForceFn] = None,
             acc=a1, jerk=j1, potential=potential,
             time=state.time + dt, step=state.step + 1,
         )
-        return _apply_collisions(cfg, state, contacts)
+        return collide(state, contacts)
 
     def hermite_block(state: NBodyState) -> NBodyState:
         """Block-timestep Hermite (individual timesteps in static shapes):

@@ -37,7 +37,7 @@ This is the port of ``orbital_tpu/engine/multirate.py`` on one device: the
 JAX ``lax.scan`` loops are Python loops of eager steps that read nothing back
 to the host (the diagnostics stay 0-dim int32 tensors on the device), and
 the geometry refresh test is a Python int. Not ported: the mesh variant
-(``shard=``, and the sweep's ``i0`` hook), ROADMAP.md queue A item A.15.
+(``shard=``, and the sweep's ``i0`` hook), ROADMAP.md queue A item A.15b.
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ from .state import NBodyState
 __all__ = ["make_respa_macro", "respa_rollout", "respa_rollout_dyn"]
 
 # the ROADMAP.md queue A item that ports what this module leaves out
-_SHARD_ITEM = "A.15"
+_SHARD_ITEM = "A.15b"
 
 _DIAG_KEYS = ("overflow", "cap_overflow", "w_overflow", "q_overflow", "skin_violation")
 

@@ -30,10 +30,6 @@ __all__ = ["Trajectory", "resolve_force_fn", "resolve_force_detect_fn",
 # (CUDA tensors) or the row-blocked path (CPU tensors) under "auto".
 _DENSE_MAX_N = 4096
 
-# ROADMAP.md queue A items that port the force paths this slice leaves out
-_NOT_PORTED = {"ring": "A.15"}
-
-
 # exact-force policies whose Hermite evaluation is the acc + jerk sweep
 # (orbital_tpu/engine/rollout.py:213-219), whatever their kdk force path
 _EXACT_IMPLS = ("auto", "pallas", "pallas_sym", "mxu", "pallas_mxu", "ring")
@@ -63,10 +59,12 @@ def _resolve_impl(cfg: SimConfig, n: int, device: torch.device,
     the JAX package), while every other route is an f32 kernel or stands in
     for one."""
     impl = cfg.force_impl
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(
-            f"force_impl={impl!r} is not ported to orbital_tpu_torch yet "
-            f"(ROADMAP.md queue A item {_NOT_PORTED[impl]})")
+    if impl == "ring":
+        # the ring force needs the mesh's communicator and runs on each rank;
+        # it cannot be resolved from a config alone
+        raise ValueError(
+            "force_impl='ring' is built via parallel.sharded.make_sharded_step (it needs a "
+            "Mesh), not resolve_force_fn")
     if impl == "auto":
         if n <= _DENSE_MAX_N:
             impl = "dense"

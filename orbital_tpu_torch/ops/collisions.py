@@ -16,7 +16,9 @@ differ by impulse ordering.
     reciprocal. O(chunk * N) memory; the CPU path above 4096 bodies and the
     plain version the CUDA kernel is checked against. Ragged N.
   * :func:`count_contacts_dense` / :func:`count_contacts_chunked` -- the
-    directed touching-pair count that gates the sweep.
+    directed touching-pair count that gates the sweep; :func:`block_contacts`
+    the same count of one body block on another with global ids (a round of
+    the multi-device ring).
 
 And merge mode: overlapping bodies are grouped by pointer jumping to the
 lowest-index root of each contact chain and reduced into it.
@@ -52,7 +54,7 @@ from typing import Optional
 import torch
 
 __all__ = ["bounce_deltas", "bounce_deltas_chunked", "count_contacts_dense",
-           "count_contacts_chunked", "restitution_clip", "collision_roots",
+           "count_contacts_chunked", "block_contacts", "restitution_clip", "collision_roots",
            "collision_roots_chunked", "collision_parents_chunked", "pointer_jump",
            "merge_groups", "contact_marks_chunked", "resolve_draws", "resolve_outcomes",
            "resolve_outcomes_subset"]
@@ -189,6 +191,22 @@ def _contacts_block(pos_i, radius_i, alive_i, ids_i, pos, radius, alive, ids):
     touch = ((r2 <= rsum * rsum) & (ids_i[:, None] != ids[None, :])
              & alive_i[:, None] & alive[None, :])
     return torch.sum(touch, dtype=torch.int32)
+
+
+def block_contacts(pos_i, radius_i, alive_i, i_off: int, pos_j, radius_j, alive_j,
+                   j_off: int, *, rows: int = 2048) -> torch.Tensor:
+    """Directed touching-pair count (int32 0-dim) of body block j on body
+    block i with global ids ``i_off + row`` and ``j_off + column``:
+    :func:`_contacts_block` in row blocks of ``rows``."""
+    dev = pos_i.device
+    ids_j = torch.arange(j_off, j_off + pos_j.shape[0], device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    for s in range(0, pos_i.shape[0], rows):
+        e = min(s + rows, pos_i.shape[0])
+        count = count + _contacts_block(pos_i[s:e], radius_i[s:e], alive_i[s:e],
+                                        torch.arange(i_off + s, i_off + e, device=dev),
+                                        pos_j, radius_j, alive_j, ids_j)
+    return count
 
 
 def count_contacts_dense(pos, radius, alive):

@@ -18,6 +18,15 @@ For CPU tensors the wrapper computes the plain version,
 by the same count). For CUDA tensors it launches the kernel or raises; it
 never falls back. ``bounce_deltas_cuda.launches`` counts kernel launches.
 
+:func:`bounce_block_cuda` is the same kernel over separate i and j arrays
+(no TPU kernel: it stands in for the XLA code of
+``orbital_tpu/parallel/sharded.py:72-117``, ``_block_bounce``): the
+impulses and de-overlap of a visiting shard j on the local shard i, a round
+of the multi-device ring, gated on the ring's count. Its plain version is
+:func:`bounce_block_plain`; ``bounce_block_cuda.launches`` counts its
+launches, under a lock, as the threads of a one-card mesh launch it (and the
+contact sweep's, which runs on every rank of a mesh).
+
 The contact sweep of merge and resolve (``csrc/collision_roots.cu``, one
 tiled template with two modes) stands in for the JAX module's XLA blocks:
 merge's root search (:func:`collision_roots_cuda`, for
@@ -39,11 +48,12 @@ from typing import Optional
 
 import torch
 
-from .collisions import (bounce_deltas_chunked, collision_parents_chunked, contact_marks_chunked,
-                         pointer_jump, restitution_clip)
-from ..utils.kernels import refuse_grad
+from .collisions import (_bounce_block, bounce_deltas_chunked, collision_parents_chunked,
+                         contact_marks_chunked, pointer_jump, restitution_clip)
+from ..utils.kernels import count_launch, refuse_grad
 
-__all__ = ["bounce_deltas_cuda", "bounce_deltas_plain", "collision_roots_cuda",
+__all__ = ["bounce_deltas_cuda", "bounce_deltas_plain", "bounce_block_cuda",
+           "bounce_block_plain", "collision_roots_cuda",
            "collision_roots_plain", "collision_parents_cuda", "collision_parents_plain",
            "contact_marks_cuda", "contact_marks_plain", "sweep_plan", "SWEEP_TILE"]
 
@@ -64,21 +74,29 @@ def _load():
         lib.bounce_deltas.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float]
             + [ctypes.c_void_p] * 4 + [ctypes.c_int])
+        lib.bounce_block_deltas.restype = ctypes.c_int
+        lib.bounce_block_deltas.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+            + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 4 + [ctypes.c_int])
         _lib = lib
     return _lib
+
+
+def _gate(dpos, dvel, contacts):
+    """Exact zeros where a given ``contacts`` count is 0."""
+    if contacts is None:
+        return dpos, dvel
+    hit = contacts > 0
+    return (torch.where(hit, dpos, torch.zeros_like(dpos)),
+            torch.where(hit, dvel, torch.zeros_like(dvel)))
 
 
 def bounce_deltas_plain(pos, vel, mass, radius, alive=None, *, restitution: float = 1.0,
                         contacts: Optional[torch.Tensor] = None, chunk: int = 1024):
     """The plain PyTorch version of the kernel, on any device: the chunked
     sweep, and exact zeros where a given ``contacts`` count is 0."""
-    dpos, dvel = bounce_deltas_chunked(pos, vel, mass, radius, alive,
-                                       restitution=restitution, chunk=chunk)
-    if contacts is not None:
-        hit = contacts > 0
-        dpos = torch.where(hit, dpos, torch.zeros_like(dpos))
-        dvel = torch.where(hit, dvel, torch.zeros_like(dvel))
-    return dpos, dvel
+    return _gate(*bounce_deltas_chunked(pos, vel, mass, radius, alive,
+                                        restitution=restitution, chunk=chunk), contacts)
 
 
 def bounce_deltas_cuda(
@@ -136,6 +154,83 @@ def bounce_deltas_cuda(
 
 
 bounce_deltas_cuda.launches = 0
+
+
+def bounce_block_plain(pos_i, vel_i, mass_i, radius_i, alive_i, pos_j, vel_j, mass_j,
+                       radius_j, alive_j, *, restitution: float = 1.0,
+                       contacts: Optional[torch.Tensor] = None, chunk: int = 1024):
+    """The plain PyTorch version of the block kernel, on any device: row
+    blocks of i against all of j in the kernel's formulation
+    (``ops.collisions._bounce_block``, each side's mass times its alive),
+    and exact zeros where a given ``contacts`` count is 0."""
+    e = restitution_clip(restitution)
+    m_i = mass_i * alive_i.to(mass_i.dtype)
+    m_j = mass_j * alive_j.to(mass_j.dtype)
+    parts = [_bounce_block(pos_i[s:s + chunk], vel_i[s:s + chunk], m_i[s:s + chunk],
+                           radius_i[s:s + chunk], pos_j, vel_j, m_j, radius_j, e)
+             for s in range(0, pos_i.shape[0], chunk)]
+    if not parts:
+        return torch.zeros_like(pos_i), torch.zeros_like(vel_i)
+    return _gate(torch.cat([p for p, _ in parts]), torch.cat([v for _, v in parts]), contacts)
+
+
+def bounce_block_cuda(pos_i: torch.Tensor, vel_i: torch.Tensor, mass_i: torch.Tensor,
+                      radius_i: torch.Tensor, alive_i: torch.Tensor, pos_j: torch.Tensor,
+                      vel_j: torch.Tensor, mass_j: torch.Tensor, radius_j: torch.Tensor,
+                      alive_j: torch.Tensor, *, restitution: float = 1.0,
+                      contacts: Optional[torch.Tensor] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bounce sweep of body block j on body block i: (dpos [Bi, 3], dvel
+    [Bi, 3]), each pair's impulse and de-overlap on i from the
+    pre-collision velocities, a pair touching when 0 < r2 <= (R_i + R_j)^2,
+    both alive, m_j > 0 and approaching. With ``contacts`` (an int32 0-dim
+    tensor on the same device) the kernel writes zeros and skips the sweep
+    when it is 0."""
+    if pos_i.device.type == "cpu":
+        return bounce_block_plain(pos_i, vel_i, mass_i, radius_i, alive_i, pos_j, vel_j,
+                                  mass_j, radius_j, alive_j, restitution=restitution,
+                                  contacts=contacts)
+    if pos_i.device.type != "cuda":
+        raise ValueError(f"bounce_block_cuda: unsupported device {pos_i.device}")
+    refuse_grad("bounce_block_cuda", pos_i, vel_i, mass_i, radius_i, pos_j, vel_j, mass_j,
+                radius_j)
+    n_i, n_j = pos_i.shape[0], pos_j.shape[0]
+    for n, (p, v, m, r, a) in ((n_i, (pos_i, vel_i, mass_i, radius_i, alive_i)),
+                               (n_j, (pos_j, vel_j, mass_j, radius_j, alive_j))):
+        if p.shape != (n, 3) or v.shape != (n, 3) or m.shape != (n,) or r.shape != (n,) \
+                or a.shape != (n,):
+            raise ValueError("bounce_block_cuda: need pos, vel [B, 3] and mass, radius, "
+                             "alive [B] on each side")
+        if a.dtype != torch.bool:
+            raise TypeError("bounce_block_cuda: alive must be bool")
+    tensors = [vel_i, mass_i, radius_i, alive_i, pos_j, vel_j, mass_j, radius_j, alive_j]
+    if any(t.device != pos_i.device for t in tensors + ([contacts] if contacts is not None
+                                                        else [])):
+        raise ValueError("bounce_block_cuda: all tensors must be on one device")
+    if contacts is not None and (contacts.dtype != torch.int32 or contacts.numel() != 1):
+        raise TypeError("bounce_block_cuda: contacts must be one int32")
+    f32 = torch.float32
+    side_i = [t.to(f32).contiguous() for t in (pos_i, vel_i, mass_i, radius_i)]
+    side_j = [t.to(f32).contiguous() for t in (pos_j, vel_j, mass_j, radius_j)]
+    alive_i_, alive_j_ = alive_i.contiguous(), alive_j.contiguous()
+    dpos = torch.empty((n_i, 3), dtype=f32, device=pos_i.device)
+    dvel = torch.empty((n_i, 3), dtype=f32, device=pos_i.device)
+
+    lib = _load()
+    from ..utils.kernels import check
+
+    stream = torch.cuda.current_stream(pos_i.device).cuda_stream
+    err = lib.bounce_block_deltas(
+        *(t.data_ptr() for t in side_i), alive_i_.data_ptr(), n_i,
+        *(t.data_ptr() for t in side_j), alive_j_.data_ptr(), n_j,
+        restitution_clip(restitution), None if contacts is None else contacts.data_ptr(),
+        dpos.data_ptr(), dvel.data_ptr(), stream, pos_i.device.index or 0)
+    check(lib, err, "bounce_block_deltas launch")
+    count_launch(bounce_block_cuda)
+    return dpos, dvel
+
+
+bounce_block_cuda.launches = 0
 
 
 def _load_roots():
@@ -234,7 +329,7 @@ def collision_parents_cuda(pos: torch.Tensor, radius: torch.Tensor,
     if pos.device.type != "cuda":
         raise ValueError(f"collision_roots_cuda: unsupported device {pos.device}")
     parent = _sweep_launch("collision_parents", pos, radius, alive, contacts, torch.int64)
-    collision_roots_cuda.launches += 1
+    count_launch(collision_roots_cuda)
     return parent
 
 
@@ -286,7 +381,7 @@ def contact_marks_cuda(pos: torch.Tensor, radius: torch.Tensor,
     if pos.device.type != "cuda":
         raise ValueError(f"contact_marks_cuda: unsupported device {pos.device}")
     mark = _sweep_launch("contact_marks", pos, radius, alive, contacts, torch.bool)
-    contact_marks_cuda.launches += 1
+    count_launch(contact_marks_cuda)
     return mark
 
 

@@ -9,7 +9,11 @@ sweep also counts directed touching pairs into an int32 that stays on the
 device, the gate of the bounce sweep. :func:`block_acc_cuda` is the same
 kernel over separate i and j tables (``block_acc_pallas``, the per-round
 block of the multi-device ring): acc and the pe row of block j on block i,
-the i == j term kept.
+the i == j term kept. :func:`block_acc_detect_cuda` is B3 with detection
+(no TPU kernel: it stands in for the sqrt-free count ring of
+``orbital_tpu/parallel/sharded.py:199-231``): the same sweep also counts the
+block's directed touching pairs between live bodies of different global ids,
+so that the ring's closing force evaluation counts the step's contacts.
 
 The kernel is bound by instruction issue (~14.5 warp instructions and one
 MUFU.RSQ a pair; see the note at the top of the source): four i bodies a
@@ -22,10 +26,12 @@ eps2 > 0) and U = -1/2 G sum m pe.
 
 For CPU tensors the wrappers compute the plain versions,
 ``ops.forces.pairwise_acc_chunked`` (plus ``ops.collisions.
-count_contacts_chunked`` for the count) and :func:`block_acc_plain`. For
-CUDA tensors they launch the kernel or raise; they never fall back.
-``pairwise_acc_cuda.launches``, ``pairwise_acc_detect_cuda.launches`` and
-``block_acc_cuda.launches`` count kernel launches.
+count_contacts_chunked`` for the count), :func:`block_acc_plain` and
+:func:`block_acc_detect_plain`. For CUDA tensors they launch the kernel or
+raise; they never fall back. ``pairwise_acc_cuda.launches``,
+``pairwise_acc_detect_cuda.launches``, ``block_acc_cuda.launches`` and
+``block_acc_detect_cuda.launches`` count kernel launches (the block sweeps,
+which the threads of a one-card mesh launch, under a lock).
 """
 from __future__ import annotations
 
@@ -34,12 +40,13 @@ from typing import Optional
 
 import torch
 
-from .collisions import count_contacts_chunked
-from .forces import _block_acc_potential, pairwise_acc_chunked
-from ..utils.kernels import refuse_grad
+from .collisions import block_contacts, count_contacts_chunked
+from .forces import block_acc_potential, pairwise_acc_chunked
+from ..utils.kernels import count_launch, refuse_grad
 
 __all__ = ["pairwise_acc_cuda", "pairwise_acc_plain", "pairwise_acc_detect_cuda",
-           "pairwise_acc_detect_plain", "block_acc_cuda", "block_acc_plain"]
+           "pairwise_acc_detect_plain", "block_acc_cuda", "block_acc_plain",
+           "block_acc_detect_cuda", "block_acc_detect_plain"]
 
 _lib = None
 
@@ -63,6 +70,10 @@ def _load():
         lib.nbody_block_forces.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.nbody_block_forces_detect.restype = ctypes.c_int
+        lib.nbody_block_forces_detect.argtypes = [
+            p, p, i, i, p, p, i, i, ctypes.c_float, ctypes.c_float, p, p, p, i]
         _lib = lib
     return _lib
 
@@ -217,13 +228,9 @@ def block_acc_plain(pos_i, pos_j, mass_j, *, G: float, eps2: float):
     """The plain PyTorch version of the block kernel, on any device: row
     blocks of pos_i against all of pos_j in float32, nothing masked."""
     _check_block(pos_i.shape[0], pos_j.shape[0], eps2)
-    p_i, p_j = pos_i.to(torch.float32), pos_j.to(torch.float32)
-    m_j = mass_j.to(torch.float32)
-    keep = torch.ones((), dtype=torch.bool, device=pos_i.device)
-    blocks = [_block_acc_potential(p_i[s:s + _BLOCK_ROWS], p_j, m_j, keep, eps2, G)
-              for s in range(0, p_i.shape[0], _BLOCK_ROWS)]
-    acc = torch.cat([a for a, _ in blocks])
-    pe_row = torch.cat([pe for _, pe in blocks])
+    f32 = torch.float32
+    acc, pe_row = block_acc_potential(pos_i.to(f32), pos_j.to(f32), mass_j.to(f32), G=G,
+                                      eps2=eps2, rows=_BLOCK_ROWS)
     return acc.to(pos_i.dtype), pe_row.to(pos_i.dtype)
 
 
@@ -253,8 +260,69 @@ def block_acc_cuda(pos_i: torch.Tensor, pos_j: torch.Tensor, mass_j: torch.Tenso
                                  float(eps2), out.data_ptr(), stream,
                                  pos_i.device.index or 0)
     check(lib, err, "nbody_block_forces launch")
-    block_acc_cuda.launches += 1
+    count_launch(block_acc_cuda)
     return out[:, 0:3], out[:, 3]
 
 
 block_acc_cuda.launches = 0
+
+
+def block_acc_detect_plain(pos_i, radius_i, alive_i, i_off: int, pos_j, mass_j, radius_j,
+                           alive_j, j_off: int, *, G: float, eps2: float):
+    """The plain PyTorch version of the detecting block kernel, on any
+    device: :func:`block_acc_plain` and the block's contact count
+    (``ops.collisions.block_contacts``) with global ids ``i_off + row`` and
+    ``j_off + column``."""
+    acc, pe_row = block_acc_plain(pos_i, pos_j, mass_j, G=G, eps2=eps2)
+    return acc, pe_row, block_contacts(pos_i, radius_i, alive_i, i_off, pos_j, radius_j,
+                                       alive_j, j_off)
+
+
+def block_acc_detect_cuda(pos_i: torch.Tensor, radius_i: torch.Tensor, alive_i: torch.Tensor,
+                          i_off: int, pos_j: torch.Tensor, mass_j: torch.Tensor,
+                          radius_j: torch.Tensor, alive_j: torch.Tensor, j_off: int, *,
+                          G: float, eps2: float
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`block_acc_cuda` with contact detection: (acc [Bi, 3], pe_row
+    [Bi], contacts), ``contacts`` an int32 0-dim tensor on the device
+    counting the directed pairs (i, j) of live bodies with |r_ij| <= (R_i +
+    R_j) * 1.00001 (unsoftened) and different global ids ``i_off + i`` and
+    ``j_off + j``. acc and pe_row are bit-equal to :func:`block_acc_cuda`'s
+    on the same tables."""
+    if pos_i.device.type == "cpu":
+        return block_acc_detect_plain(pos_i, radius_i, alive_i, i_off, pos_j, mass_j,
+                                      radius_j, alive_j, j_off, G=G, eps2=eps2)
+    _check_inputs("block_acc_detect_cuda", pos_j, mass_j, pos_i, radius_i, alive_i,
+                  radius_j, alive_j)
+    refuse_grad("block_acc_detect_cuda", pos_i, pos_j, mass_j, radius_i, radius_j)
+    if pos_i.dtype != torch.float32 or pos_i.ndim != 2 or pos_i.shape[1] != 3:
+        raise ValueError(f"block_acc_detect_cuda: need float32 pos_i [Bi, 3], got "
+                         f"{pos_i.dtype} {tuple(pos_i.shape)}")
+    n_i, n_j = pos_i.shape[0], pos_j.shape[0]
+    if radius_i.shape != (n_i,) or radius_j.shape != (n_j,) or alive_i.shape != (n_i,) \
+            or alive_j.shape != (n_j,):
+        raise ValueError("block_acc_detect_cuda: need radius and alive [Bi] and [Bj]")
+    _check_block(n_i, n_j, eps2)
+    f32, nan = torch.float32, float("nan")
+    # a dead body's NaN radius fails every comparison in the kernel
+    rad_i = torch.where(alive_i, radius_i.to(f32), nan).contiguous()
+    rad_j = torch.where(alive_j, radius_j.to(f32), nan).contiguous()
+    pts_i = torch.nn.functional.pad(pos_i, (0, 1)).contiguous()  # [Bi, 4]
+    pts_j = torch.cat([pos_j, mass_j.to(f32)[:, None]], dim=1).contiguous()
+    out = torch.empty((n_i, 4), dtype=f32, device=pos_i.device)
+    contacts = torch.zeros((), dtype=torch.int32, device=pos_i.device)
+
+    lib = _load()
+    from ..utils.kernels import check
+
+    stream = torch.cuda.current_stream(pos_i.device).cuda_stream
+    err = lib.nbody_block_forces_detect(
+        pts_i.data_ptr(), rad_i.data_ptr(), n_i, int(i_off), pts_j.data_ptr(),
+        rad_j.data_ptr(), n_j, int(j_off), float(G), float(eps2), out.data_ptr(),
+        contacts.data_ptr(), stream, pos_i.device.index or 0)
+    check(lib, err, "nbody_block_forces_detect launch")
+    count_launch(block_acc_detect_cuda)
+    return out[:, 0:3], out[:, 3], contacts
+
+
+block_acc_detect_cuda.launches = 0

@@ -34,8 +34,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["pairwise_acc_dense", "pairwise_acc_chunked", "accel_jerk_dense",
-           "accel_jerk_chunked", "accel_jerk_subset"]
+__all__ = ["pairwise_acc_dense", "pairwise_acc_chunked", "block_acc_potential",
+           "accel_jerk_dense", "accel_jerk_chunked", "accel_jerk_subset"]
 
 
 def _masked_inverse_r(r2, mask, eps2):
@@ -67,6 +67,17 @@ def _block_acc_potential(pos_i, pos_j, mass_j, mask, eps2, G):
     az = torch.sum(w * dz, dim=1)
     pe_row = torch.sum(mass_j[None, :] * inv_r, dim=1)
     return G * torch.stack([ax, ay, az], dim=-1), pe_row
+
+
+def block_acc_potential(pos_i, pos_j, mass_j, *, G: float, eps2: float, rows: int = 1024):
+    """Partial forces of body block j on body block i in row blocks of
+    ``rows``: (acc [I, 3], pe_row [I]) in the inputs' dtype, nothing masked
+    but r2 + eps2 = 0 (with eps2 > 0 an i == j term adds m/eps to pe_row
+    and nothing to acc; dead bodies carry mass 0)."""
+    keep = torch.ones((), dtype=torch.bool, device=pos_i.device)
+    parts = [_block_acc_potential(pos_i[s:s + rows], pos_j, mass_j, keep, eps2, G)
+             for s in range(0, pos_i.shape[0], rows)]
+    return torch.cat([a for a, _ in parts]), torch.cat([pe for _, pe in parts])
 
 
 def _effective_mass(mass, alive):

@@ -60,7 +60,7 @@ i64 = torch.int64
 SENTINEL_POS = 1.0e15
 
 # the ROADMAP.md queue A item that ports the mesh-sharded near sweep
-_SHARD_ITEM = "A.15"
+_SHARD_ITEM = "A.15b"
 
 
 def switch_terms(r2t: torch.Tensor, r1: float, rc: float):

@@ -21,7 +21,7 @@ exactly over the 27 neighbour cells of an r_cut-sized cell grid:
     [M] x [27 M] masked tiles; on CPU tensors its plain version,
     :func:`p3m_short_plain`, computes those tiles.
 
-``p3m_ring_force`` (the body-sharded ring) is ROADMAP.md queue A item A.15.
+``p3m_ring_force`` (the body-sharded ring) is ROADMAP.md queue A item A.15b.
 """
 from __future__ import annotations
 
@@ -252,7 +252,7 @@ def p3m_acc_potential(
 def p3m_ring_force(*args, **kwargs):
     """The body-sharded P3M ring of the JAX module: not ported yet."""
     raise NotImplementedError("p3m_ring_force is not ported to orbital_tpu_torch yet "
-                              "(ROADMAP.md queue A item A.15)")
+                              "(ROADMAP.md queue A item A.15b)")
 
 
 def p3m_max_occupancy(pos: torch.Tensor, alive: Optional[torch.Tensor] = None, *,

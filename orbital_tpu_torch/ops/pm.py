@@ -1,8 +1,8 @@
 """Particle-mesh (PM) gravity: an FFT Poisson solve for N past the exact path.
 
-Ported from ``orbital_tpu/ops/pm.py`` without its ``axis_name`` collectives
-(the sharded solvers are ROADMAP.md queue A item A.15). The Hockney-Eastwood
-open-boundary scheme in plain torch:
+Ported from ``orbital_tpu/ops/pm.py``; its ``axis_name`` collectives are a
+``comm`` (``parallel.mesh.Comm``) here. The Hockney-Eastwood open-boundary
+scheme in plain torch:
 
   1. cloud-in-cell (CIC) deposit of the masses onto a G^3 grid over the live
      bodies' bounding cube (or a pinned ``box``), by ``index_add_``;
@@ -12,6 +12,12 @@ open-boundary scheme in plain torch:
      (``torch.fft.rfftn``/``irfftn``), with the CIC window deconvolved;
   3. acc = -grad(phi) by centered differences, CIC-gathered back to the
      bodies in one channel-stacked gather.
+
+Body-sharded (``comm`` set, each rank holding its shard of the bodies):
+the bounding cube is agreed by ``pmin``/``pmax`` (skipped under a pinned
+box), each rank deposits its bodies and one ``psum`` of the G^3 grid makes
+the density global; the FFT solve runs on every rank and the gather stays
+local. U is ``psum``'d.
 
 Accuracy contract (the JAX module's): pair forces are right to ~(h/r)^2
 beyond a few cell spacings h and smoothed below ~h, so the effective
@@ -44,14 +50,17 @@ def _cic_weights(uc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _bounding_cube(pos32: torch.Tensor, alive_f: torch.Tensor,
-                   g: int) -> tuple[torch.Tensor, torch.Tensor]:
+                   g: int, comm=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Center [3] and half-width (0-dim) of the live bodies' bounding cube,
     with a 2%-plus-one-cell margin (``g`` cells per side), in ``pos32``'s
-    float type (float32 on every solver path)."""
+    float type (float32 on every solver path); over every rank of ``comm``
+    when given."""
     big = torch.tensor(3.4e38, dtype=pos32.dtype, device=pos32.device)
     live = (alive_f > 0)[:, None]
     lo = torch.where(live, pos32, big).amin(dim=0)
     hi = torch.where(live, pos32, -big).amax(dim=0)
+    if comm is not None:
+        lo, hi = comm.pmin(lo), comm.pmax(hi)
     center = 0.5 * (lo + hi)
     half = torch.clamp((0.5 * (hi - lo)).amax(), min=1e-30) * (1.02 + 2.0 / g)
     return center, half
@@ -82,7 +91,7 @@ def _sinc2(x: torch.Tensor) -> torch.Tensor:
 
 def _pm_core(pos32: torch.Tensor, m_eff: torch.Tensor, alive_f: torch.Tensor, *, g: int,
              G_grav: float, kern_builder: Callable, with_potential: bool, deconvolve: bool,
-             box=None):
+             box=None, comm=None):
     """The mesh pipeline: deposit -> padded FFT convolution with the kernel
     ``kern_builder(r2_grid, h)`` -> gradient -> gather. Returns (acc [N, 3]
     alive-masked, phi_at [N] or None, h, center, half), h, center and half
@@ -92,10 +101,11 @@ def _pm_core(pos32: torch.Tensor, m_eff: torch.Tensor, alive_f: torch.Tensor, *,
     ``box`` (center [3], half) pins the mesh instead of refitting it to the
     live extent every call: the mesh force is then a fixed smooth
     Hamiltonian, which leapfrog conserves. Bodies outside a pinned box clip
-    to the boundary cells."""
+    to the boundary cells. With ``comm`` the bodies are one rank's shard:
+    the cube and the density are global (see the module note)."""
     dev, ft = pos32.device, pos32.dtype
     if box is None:
-        center, half = _bounding_cube(pos32, alive_f, g)
+        center, half = _bounding_cube(pos32, alive_f, g, comm)
     else:
         center = torch.as_tensor(box[0], dtype=ft, device=dev)
         half = torch.as_tensor(box[1], dtype=ft, device=dev)
@@ -105,6 +115,8 @@ def _pm_core(pos32: torch.Tensor, m_eff: torch.Tensor, alive_f: torch.Tensor, *,
     flat8, w8 = _cic_corners(pos32, origin, h, g)
     rho = torch.zeros(g * g * g, dtype=ft, device=dev)
     rho.index_add_(0, flat8.reshape(-1), (w8 * m_eff[None]).reshape(-1))
+    if comm is not None:
+        rho = comm.psum(rho)  # the global density, one collective
 
     # open-boundary Green's function on the zero-padded cube: coordinate k in
     # [0, 2g) maps to the mirrored displacement ((k + g) mod 2g) - g
@@ -155,6 +167,7 @@ def pm_acc_potential(
     with_potential: bool = True,
     deconvolve: bool = True,
     box=None,
+    comm=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """PM accelerations (and approximate potential) for all bodies: (acc
     [N, 3], U), dead bodies inert, in ``pos``'s dtype; computed in float32.
@@ -162,7 +175,9 @@ def pm_acc_potential(
     ``box = (center [3], half)`` pins the mesh (a fixed mesh makes the
     approximate force conservative); by default the live bounding cube is
     refitted every call. ``grid`` is the mesh resolution a side (the FFT
-    runs on the zero-padded (2 grid)^3 cube). Requires eps2 > 0."""
+    runs on the zero-padded (2 grid)^3 cube). Requires eps2 > 0. With
+    ``comm`` (a ``parallel.mesh.Comm``) the arguments are one rank's shard
+    of a body-sharded system and U is the global potential."""
     if eps2 <= 0.0:
         raise ValueError("the PM solver requires eps2 > 0")
     n, g, dev = pos.shape[0], int(grid), pos.device
@@ -175,12 +190,14 @@ def pm_acc_potential(
 
     acc, phi_at, _, _, _ = _pm_core(pos32, m_eff, alive_f, g=g, G_grav=G_grav,
                                     kern_builder=kern, with_potential=with_potential,
-                                    deconvolve=deconvolve, box=box)
+                                    deconvolve=deconvolve, box=box, comm=comm)
     if with_potential:
         # the leading CIC self-interaction (each body sees its own smoothed
         # cloud): -G m K(0) = -G m / eps
         self_phi = -G_grav * m_eff * (1.0 / float(eps2) ** 0.5)
         U = 0.5 * torch.sum(m_eff * (phi_at - self_phi))
+        if comm is not None:
+            U = comm.psum(U)
     else:
         U = torch.zeros((), dtype=f32, device=dev)
     return acc.to(pos.dtype), U.to(pos.dtype)

@@ -32,7 +32,7 @@ What the port carries over, and what it changes:
     over blocks sized by the same 32 MB rule, every clamped gather an explicit
     clamp and every dropped scatter a write into a spare row that is never
     read or is sliced off; packed-row sentinels (positions 1e30, mass 0, idx
-    n) are masked by select. The sharded arguments raise (A.15).
+    n) are masked by select. The sharded arguments raise (A.15b).
   * The stable multi-payload sort is ``torch.sort(stable=True)`` and
     gathers. The NGP deposit is ``index_add_``, which on CUDA uses float
     atomics: the deposited moments, and so the far field, may differ in
@@ -495,7 +495,7 @@ def tree_acc_potential(
                          "sized with tree_pairs_probe")
     if _n_parts > 1 or _psum_axis is not None:
         raise NotImplementedError("the sharded tree is not ported to orbital_tpu_torch yet "
-                                  "(ROADMAP.md queue A item A.15)")
+                                  "(ROADMAP.md queue A item A.15b)")
     if near == "kernel" and wl_entries <= 0:
         raise ValueError("near='kernel' needs a worklist budget: pass wl_entries sized with "
                          "ops.tree_near_wl.tree_wl_budgets")

@@ -1,0 +1,426 @@
+"""Body-sharded exact forces: a ring over the ranks of a mesh.
+
+A port of ``orbital_tpu/parallel/sharded.py``'s exact-force path. The
+O(N^2) sweep is ring attention's: each rank keeps its shard of the bodies
+resident while a copy of another shard's positions and masses travels round
+the ring (``Comm.ppermute``, rank r to r + 1); each round adds that shard's
+partial accelerations and potential. After P rounds every shard has seen
+every body. Each function here is the code of ONE rank, written against its
+communicator (``parallel.mesh``), and a :class:`~.mesh.Mesh` runs it on
+every rank: P threads on one card, or one process a rank under
+``torch.distributed``.
+
+  * :func:`ring_force_fn`: the ring. Each round's block is B3
+    (``ops.cuda_forces.block_acc_cuda``) on CUDA tensors in float32 when
+    the shard tiles by 128 and eps2 > 0 (``ring_block_impl="auto"`` or
+    ``"pallas"``), else the dense ``ops.forces.block_acc_potential`` (an
+    untileable shard, eps2 = 0, float64, CPU tensors under "auto"; JAX's
+    rule, with f64 on CUDA added as every kernel route of the port has it).
+    Nothing falls back from the kernel when a build or launch fails. The
+    self term m/eps comes off the pe row once, after the rounds; U is
+    psum'd. With ``detect=True`` the same rounds also count the step's
+    contacts: B3's detecting instance (``block_acc_detect_cuda``) with the
+    blocks' global offsets, psum'd. The JAX package counts in a separate
+    sqrt-free ring after the step (``ring_contacts_fn``) on the same
+    positions; here the step's closing force evaluation counts them, as B2
+    does on one card.
+  * :func:`ring_bounce_fn`: the bounce impulses over the same ring (the
+    block bounce, ``ops.cuda_collisions.bounce_block_cuda``), gated on the
+    device-held count: a contact-free step writes zeros in every round and
+    the stepper's ``torch.where`` keeps the state bit for bit.
+  * merge and resolve: when the psum'd count is > 0 (read on the host once
+    a step, by every rank, after the step's force evaluation), every rank
+    gathers the whole system, runs the single-card merge or resolve on it
+    (``engine.integrators._apply_collisions``: the contact sweep on CUDA
+    tensors; the draws from ``(frag_seed, step)``, replicated) and slices
+    its shard back out. A contact-free step pays the host read and nothing
+    else.
+  * ``force_impl="pm"``: ``ops.pm.pm_acc_potential`` with the communicator
+    (the cube by pmin/pmax, one psum of the density grid); with collisions,
+    the count comes from :func:`ring_contacts_fn` after the step.
+
+:func:`make_sharded_step` and :func:`make_sharded_rollout` build the whole
+step on every rank. A sharded state is a list of the local shards' states
+(:func:`shard_state`; every shard holds the replicated scalars), and
+:func:`gather_state` assembles the full state. P3M's ring, the sharded
+tree, the sharded RESPA, Hermite under a mesh and the (ensemble x body)
+mesh raise ``NotImplementedError`` naming ROADMAP.md queue A item A.15b.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from ..engine.integrators import _apply_collisions, make_step_fn
+from ..engine.state import NBodyState
+from ..ops.collisions import block_contacts
+from ..ops.forces import block_acc_potential
+from ..utils.config import SimConfig
+from .mesh import Comm, Mesh
+
+__all__ = ["ring_force_fn", "ring_bounce_fn", "ring_contacts_fn", "make_sharded_step",
+           "make_sharded_rollout", "make_sharded_respa_rollout",
+           "make_sharded_ensemble_step", "state_sharding", "shard_state", "gather_state"]
+
+_SHARD_ITEM = "A.15b"
+_BODY_FIELDS = ("pos", "vel", "mass", "radius", "alive", "acc", "pos_lo", "vel_lo", "jerk")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to orbital_tpu_torch yet (ROADMAP.md "
+                               f"queue A item {_SHARD_ITEM})")
+
+
+def _ring_block_impl(cfg: SimConfig, block: int, pos: torch.Tensor) -> str:
+    """``"pallas"`` (B3) or ``"dense"`` for a shard of ``block`` bodies."""
+    tileable = block % 128 == 0 and cfg.eps2 > 0.0
+    impl = cfg.ring_block_impl
+    if impl == "auto":
+        impl = ("pallas" if tileable and pos.device.type == "cuda"
+                and pos.dtype == torch.float32 else "dense")
+    if impl == "pallas" and not tileable:
+        raise ValueError(
+            f"ring_block_impl='pallas' needs eps2 > 0 and a local block divisible by 128, "
+            f"got block={block}, eps2={cfg.eps2}")
+    if impl == "pallas" and pos.device.type == "cuda" and pos.dtype != torch.float32:
+        raise NotImplementedError(
+            "ring_block_impl='pallas' on CUDA computes in float32: f64 state takes the "
+            "dense ring block ('auto' or 'dense'); use ds32 on the card")
+    return impl
+
+
+def ring_force_fn(cfg: SimConfig, comm: Comm, detect: bool = False):
+    """The ring force of one rank: ``fn(pos, mass, alive) -> (acc, U)``, the
+    rank's shard of the accelerations and the global potential; with
+    ``detect``, ``fn(pos, mass, radius, alive) -> (acc, U, contacts)``,
+    ``contacts`` the psum'd directed touching-pair count (int32 0-dim) of
+    the whole system at these positions."""
+    P, rank = comm.size, comm.rank
+    from ..ops.cuda_forces import block_acc_cuda, block_acc_detect_cuda
+
+    def rounds(pos, mass, alive, radius=None):
+        mass_eff = mass * alive.to(mass.dtype)
+        block = pos.shape[0]
+        impl = _ring_block_impl(cfg, block, pos)
+        kw = dict(G=cfg.G, eps2=cfg.eps2)
+        visit = (pos, mass_eff) if radius is None else (pos, mass_eff, radius, alive)
+        acc = pe = count = None
+        for k in range(P):
+            j_off = ((rank - k) % P) * block  # the visiting shard's first global id
+            if radius is None:
+                a, p = (block_acc_cuda(pos, *visit, **kw) if impl == "pallas" else
+                        block_acc_potential(pos, *visit, **kw))
+            elif impl == "pallas":
+                p_j, m_j, r_j, al_j = visit
+                a, p, c = block_acc_detect_cuda(pos, radius, alive, rank * block, p_j, m_j,
+                                                r_j, al_j, j_off, **kw)
+            else:
+                p_j, m_j, r_j, al_j = visit
+                a, p = block_acc_potential(pos, p_j, m_j, **kw)
+                c = block_contacts(pos, radius, alive, rank * block, p_j, r_j, al_j, j_off)
+            acc, pe = (a, p) if k == 0 else (acc + a, pe + p)
+            if radius is not None:
+                count = c if k == 0 else count + c
+            if k < P - 1:
+                visit = comm.ppermute(visit)
+        acc = acc * alive[:, None].to(acc.dtype)
+        if cfg.eps2 > 0.0:
+            # remove the analytic self term that the mask-free sweep includes
+            pe = pe - mass_eff.to(pe.dtype) * (1.0 / float(cfg.eps2) ** 0.5)
+        U = -0.5 * cfg.G * comm.psum(torch.sum(mass_eff.to(pe.dtype) * pe))
+        U = U.to(pos.dtype)
+        if radius is None:
+            return acc.to(pos.dtype), U
+        return acc.to(pos.dtype), U, comm.psum(count)
+
+    if detect:
+        return lambda pos, mass, radius, alive: rounds(pos, mass, alive, radius)
+    return lambda pos, mass, alive: rounds(pos, mass, alive)
+
+
+def ring_bounce_fn(cfg: SimConfig, comm: Comm):
+    """Cross-shard restitution collisions over the same ring as the forces:
+    ``fn(pos, vel, mass, radius, alive, restitution, contacts) -> (dpos,
+    dvel)`` for the rank's shard (the signature of
+    ``integrators.resolve_bounce_fn``'s sweep), every impulse from the
+    pre-collision velocities (consistent with the unsharded sweep). Each
+    round is the block bounce of the visiting shard, gated on ``contacts``
+    (the psum'd count: 0 writes zeros and skips the sweep on the card)."""
+    from ..ops.cuda_collisions import bounce_block_cuda
+
+    P = comm.size
+
+    def fn(pos, vel, mass, radius, alive, restitution, contacts):
+        visit = (pos, vel, mass, radius, alive)
+        dpos = dvel = None
+        for k in range(P):
+            dp, dv = bounce_block_cuda(pos, vel, mass, radius, alive, *visit,
+                                       restitution=restitution, contacts=contacts)
+            dp, dv = dp.to(pos.dtype), dv.to(vel.dtype)
+            dpos, dvel = (dp, dv) if k == 0 else (dpos + dp, dvel + dv)
+            if k < P - 1:
+                visit = comm.ppermute(visit)
+        keep = alive[:, None].to(dpos.dtype)
+        return dpos * keep, dvel * keep
+
+    return fn
+
+
+def ring_contacts_fn(cfg: SimConfig, comm: Comm):
+    """The global directed touching-pair count of the sharded system:
+    ``fn(pos, radius, alive) -> contacts`` (int32 0-dim, psum'd), each round
+    the sqrt-free block count of the visiting shard with global ids. The
+    exact-force steps count inside the ring's force evaluation instead; the
+    PM step with collisions calls this after the step, as the JAX package
+    does on every path."""
+    P, rank = comm.size, comm.rank
+
+    def fn(pos, radius, alive):
+        block = pos.shape[0]
+        visit = (pos, radius, alive)
+        count = None
+        for k in range(P):
+            c = block_contacts(pos, radius, alive, rank * block, *visit,
+                                ((rank - k) % P) * block)
+            count = c if k == 0 else count + c
+            if k < P - 1:
+                visit = comm.ppermute(visit)
+        return comm.psum(count)
+
+    return fn
+
+
+def _mesh_force_fn(cfg: SimConfig, comm: Comm):
+    """The PM force of one rank (P3M and the tree under a mesh: A.15b)."""
+    if cfg.force_impl in ("p3m", "tree"):
+        raise _not_ported(f"force_impl={cfg.force_impl!r} under a mesh")
+    from ..engine.rollout import _box_on
+    from ..ops.pm import pm_acc_potential
+
+    box = _box_on(cfg)
+    return lambda pos, mass, alive: pm_acc_potential(
+        pos, mass, alive, G_grav=cfg.G, eps2=cfg.eps2, grid=cfg.pm_grid,
+        with_potential=cfg.track_potential, box=box(pos.device), comm=comm)
+
+
+def state_sharding(mesh: Mesh, state: NBodyState, axis: str = "body") -> list[slice]:
+    """The body rows each rank of this process holds (``slice`` objects in
+    ``mesh.ranks`` order); the scalars are replicated."""
+    n_shards = mesh.shape[axis]
+    block = state.n_bodies // n_shards
+    return [slice(r * block, (r + 1) * block) for r in mesh.ranks]
+
+
+def _slice_fields(s: NBodyState, rows: slice) -> NBodyState:
+    return s.replace(**{f: None if getattr(s, f) is None else getattr(s, f)[rows]
+                        for f in _BODY_FIELDS})
+
+
+def shard_state(mesh: Mesh, state: NBodyState, axis: str = "body") -> list[NBodyState]:
+    """A full state cut into the shards this process's ranks hold (a list in
+    ``mesh.ranks`` order) on the mesh's device; under a process group every
+    process builds the same full state and keeps its own shard."""
+    if state.n_bodies % mesh.shape[axis]:
+        raise ValueError(f"N={state.n_bodies} must divide across {mesh.shape[axis]} shards "
+                         f"(pad via make_state(pad_to=...))")
+    state = _to(state, mesh.device)
+    return [_slice_fields(state, rows) for rows in state_sharding(mesh, state, axis)]
+
+
+def _to(state: NBodyState, device: torch.device) -> NBodyState:
+    if state.device == device:
+        return state
+    return NBodyState(**{f.name: None if getattr(state, f.name) is None
+                         else getattr(state, f.name).to(device)
+                         for f in dataclasses.fields(NBodyState)})
+
+
+def _gather_state_full(comm: Comm, s: NBodyState) -> NBodyState:
+    """all_gather every body-sharded field of a rank's state to the full N
+    (the scalars are replicated already)."""
+    return s.replace(**{f: None if getattr(s, f) is None else comm.all_gather(getattr(s, f))
+                        for f in _BODY_FIELDS})
+
+
+def _slice_state_local(comm: Comm, s: NBodyState, block: int) -> NBodyState:
+    """Inverse of :func:`_gather_state_full`: this rank's shard of a full
+    state."""
+    return _slice_fields(s, slice(comm.rank * block, (comm.rank + 1) * block))
+
+
+def gather_state(mesh: Mesh, shards: list[NBodyState]) -> NBodyState:
+    """The full state of a sharded one (on every process under a process
+    group: a collective)."""
+    if mesh.local:
+        return shards[0].replace(**{
+            f: None if getattr(shards[0], f) is None
+            else torch.cat([getattr(s, f) for s in shards]) for f in _BODY_FIELDS})
+    return _gather_state_full(mesh.comms[0], shards[0])
+
+
+def _normalize_sharded_cfg(cfg: SimConfig, axis: str) -> tuple[SimConfig, bool]:
+    """Resolve the force routing for a body-sharded axis: mesh solvers
+    (pm/p3m/tree) keep their impl, everything else becomes the ring."""
+    use_mesh_solver = cfg.force_impl in ("pm", "p3m", "tree")
+    cfg = cfg.replace(shard_axis=axis,
+                      force_impl=cfg.force_impl if use_mesh_solver else "ring")
+    return cfg, use_mesh_solver
+
+
+def _resolve_gathered_fn(cfg: SimConfig, comm: Comm) -> Callable:
+    """Merge or resolve for a body-sharded axis: ``fn(state, contacts) ->
+    state``. When the psum'd count is > 0 (read on the host; every rank
+    reads the same value, so all take the same branch), gather the whole
+    system, run the single-card collision step on it replicated (merge's
+    root search or resolve's mark on the card, resolve's draws from the
+    replicated step counter) and slice this rank's shard back out, the lo
+    words reset as on one card. Otherwise the state as it is."""
+
+    def fn(s: NBodyState, contacts: torch.Tensor) -> NBodyState:
+        if int(contacts) <= 0:
+            return s
+        full = _apply_collisions(cfg, _gather_state_full(comm, s), contacts)
+        return _slice_state_local(comm, full, s.n_bodies)
+
+    return fn
+
+
+def _build_local_step(cfg: SimConfig, comm: Comm, use_mesh_solver: bool):
+    """One rank's step: the KDK (or euler, rk4, yoshida4) stepper on the
+    ring or the sharded PM, then its collision mode."""
+    if use_mesh_solver:
+        force, detect = _mesh_force_fn(cfg, comm), None
+    else:
+        force, detect = ring_force_fn(cfg, comm), ring_force_fn(cfg, comm, detect=True)
+    if cfg.collisions == "none":
+        return make_step_fn(cfg, force)
+    contacts_ring = ring_contacts_fn(cfg, comm)
+    if cfg.collisions == "bounce":
+        bounce = ring_bounce_fn(cfg, comm)
+
+        def apply(s, contacts):
+            return _apply_collisions(cfg, s, contacts, bounce=bounce)
+    else:
+        apply = _resolve_gathered_fn(cfg, comm)
+
+    def collide(s: NBodyState, contacts: Optional[torch.Tensor]) -> NBodyState:
+        if contacts is None:  # PM: no force sweep to count in
+            contacts = contacts_ring(s.pos, s.radius, s.alive)
+        return apply(s, contacts)
+
+    return make_step_fn(cfg, force, detect, collide=collide)
+
+
+def _prepare(cfg: SimConfig, mesh: Mesh, state_example: NBodyState,
+             axis: Optional[str]) -> tuple[SimConfig, bool]:
+    """The sharded config and its checks: N divides across the shards; what
+    the port leaves to A.15b raises."""
+    axis = axis or cfg.shard_axis or "body"
+    cfg, use_mesh_solver = _normalize_sharded_cfg(cfg, axis)
+    n_shards, n_bodies = mesh.shape[axis], state_example.n_bodies
+    if n_bodies % n_shards != 0:
+        raise ValueError(f"N={n_bodies} must divide across {n_shards} shards "
+                         f"(pad via make_state(pad_to=...))")
+    if not use_mesh_solver:  # an untileable shard under "pallas" raises here
+        _ring_block_impl(cfg, n_bodies // n_shards, state_example.pos)
+    if cfg.integrator == "respa":
+        raise _not_ported("the sharded RESPA rollout (make_sharded_respa_rollout)")
+    if cfg.integrator == "hermite":
+        raise _not_ported("integrator='hermite' under a mesh (an acc + jerk ring)")
+    if (cfg.collisions != "none" and mesh.device.type == "cuda"
+            and state_example.dtype == torch.float64):
+        raise NotImplementedError(
+            "precision='f64' on CUDA with collisions: the CUDA collision kernels compute in "
+            "float32; use ds32 on the card and f64 on the CPU")
+    return cfg, use_mesh_solver
+
+
+def make_sharded_step(cfg: SimConfig, mesh: Mesh, state_example: NBodyState,
+                      axis: Optional[str] = None):
+    """The full simulation step over a body-sharded mesh: ``step(shards) ->
+    shards``, ``shards`` the list :func:`shard_state` makes. The stepper runs
+    elementwise on each rank's shard; the exact force is the ring (P - 1
+    shifts, one psum of the potential, with collisions one psum of the
+    count); ``force_impl="pm"`` runs no ring: pmin/pmax agree the cube
+    (skipped with a pinned ``cfg.pm_box``) and one psum of the G^3 grid
+    makes the density global. Collision modes add their own: bounce the
+    impulse ring, merge and resolve a gather on contact steps."""
+    cfg, use_mesh_solver = _prepare(cfg, mesh, state_example, axis)
+    steps = [_build_local_step(cfg, comm, use_mesh_solver) for comm in mesh.comms]
+
+    def step(shards: list[NBodyState]) -> list[NBodyState]:
+        return mesh.run(lambda comm, fn, s: fn(s), steps, shards)
+
+    return step
+
+
+def make_sharded_rollout(cfg: SimConfig, mesh: Mesh, state_example: NBodyState, steps: int,
+                         record_every: int = 0, axis: Optional[str] = None):
+    """A multi-step sharded rollout with strided recording: ``roll(shards)
+    -> (shards, Trajectory or None)``. Each rank runs its loop of steps (the
+    single-device ``engine.rollout.rollout``'s, collectives inside); the
+    records are the global [R, N, ...] arrays, assembled after the run (a
+    collective under a process group), and the energy and angular momentum
+    records are global (K and L psum'd, U from the ring). With
+    ``record_every=0`` nothing is recorded and the second return is None."""
+    from ..engine.rollout import Trajectory
+    from ..ops import diagnostics as diag
+
+    cfg, use_mesh_solver = _prepare(cfg, mesh, state_example, axis)
+    if record_every > 0 and steps % record_every != 0:
+        raise ValueError(f"steps={steps} not divisible by record_every={record_every}")
+    step_fns = [_build_local_step(cfg, comm, use_mesh_solver) for comm in mesh.comms]
+
+    def snapshot(comm: Comm, s: NBodyState) -> dict:
+        pos, vel = s.pos_full(), s.vel_full()
+        K = comm.psum(diag.kinetic_energy(vel, s.mass))
+        L = comm.psum(diag.angular_momentum(pos, vel, s.mass))
+        return dict(pos=pos, vel=vel, time=s.time, energy=K + s.potential, ang_mom=L,
+                    alive=s.alive)
+
+    def local_roll(comm: Comm, step_fn, s: NBodyState):
+        if record_every <= 0:
+            for _ in range(steps):
+                s = step_fn(s)
+            return s, None
+        records = None
+        for r in range(steps // record_every):
+            for _ in range(record_every):
+                s = step_fn(s)
+            snap = snapshot(comm, s)
+            if records is None:
+                records = {k: torch.empty((steps // record_every,) + tuple(v.shape),
+                                          dtype=v.dtype, device=v.device)
+                           for k, v in snap.items()}
+            for k, v in snap.items():
+                records[k][r] = v
+        if not mesh.local:  # the body records of every rank, along dim 1
+            for k in ("pos", "vel", "alive"):
+                records[k] = comm.all_gather(records[k].transpose(0, 1)).transpose(0, 1)
+        return s, records
+
+    def roll(shards: list[NBodyState]):
+        out = mesh.run(local_roll, step_fns, shards)
+        finals = [s for s, _ in out]
+        if record_every <= 0:
+            return finals, None
+        recs = [r for _, r in out]
+        traj = dict(recs[0])
+        if mesh.local:
+            for k in ("pos", "vel", "alive"):
+                traj[k] = torch.cat([r[k] for r in recs], dim=1)
+        return finals, Trajectory(**traj)
+
+    return roll
+
+
+def make_sharded_respa_rollout(*args, **kwargs):
+    """The sharded multirate rollout of the JAX package: not ported yet."""
+    raise _not_ported("make_sharded_respa_rollout")
+
+
+def make_sharded_ensemble_step(*args, **kwargs):
+    """The (ensemble x body) mesh step of the JAX package: not ported yet."""
+    raise _not_ported("make_sharded_ensemble_step (the (ensemble x body) mesh)")

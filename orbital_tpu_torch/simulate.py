@@ -11,8 +11,10 @@ merge or resolve collisions (with debris into ``spare`` dead slots), the
 exact-force variants (``force_impl="pallas_sym"``, ``"mxu"``,
 ``"pallas_mxu"``), the tree force solver (``force_impl="tree"``) in its
 four near modes with probe-sized budgets and ``tree_accuracy=``, and the
-mesh solvers (``force_impl="pm"`` and ``"p3m"``) on an auto-pinned cube.
-The multi-device arguments are not ported (ROADMAP.md queue A item A.15).
+mesh solvers (``force_impl="pm"`` and ``"p3m"``) on an auto-pinned cube,
+and the body-sharded rollout over a mesh (``mesh=``, ``shard_axis=``: the
+exact-force ring with every collision mode, and PM; the sharded P3M, tree
+and RESPA are ROADMAP.md queue A item A.15b).
 """
 from __future__ import annotations
 
@@ -329,6 +331,8 @@ def simulate(
     tree_wl_rj: int = 8,
     unit_profile: UnitProfile = STANDARD,
     rescale: Optional[Rescale] = None,
+    mesh=None,
+    shard_axis: str = "body",
 ) -> SimResult:
     """Simulate a scene on ``device`` and return its recorded trajectory in
     physical units.
@@ -406,6 +410,15 @@ def simulate(
     mesh cell (outside its contract), and both warn at the end if live
     bodies left the pinned cube (their deposits clip to the edge cells).
     Neither has a contact-detecting variant; Hermite raises.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) runs the rollout body-sharded over
+    its ``shard_axis`` ranks (N must divide across them): exact forces
+    become the ring (``parallel.sharded.make_sharded_rollout``) with bounce,
+    merge or resolve across shards, and PM keeps its solver with one psum
+    of the density grid. The state is built and its first force evaluation
+    made on ``device``, then cut into the mesh's shards; ``final_state`` is
+    the gathered full state. P3M, the tree and RESPA under a mesh raise
+    (ROADMAP.md queue A item A.15b), as does Hermite.
     """
     if isinstance(scene, System):
         scene = compile_system(scene)
@@ -416,6 +429,12 @@ def simulate(
         raise TypeError("simulate() takes a System, an ObjectCollection, a list of Object "
                         f"or SceneArrays, got {type(scene).__name__}")
     device = torch.device(device)
+    if mesh is not None and (force_impl in ("p3m", "tree") or integrator in ("respa",
+                                                                             "hermite")):
+        what = (f"force_impl={force_impl!r}" if force_impl in ("p3m", "tree")
+                else f"integrator={integrator!r}")
+        raise NotImplementedError(f"simulate(mesh=...) with {what} is not ported to "
+                                  "orbital_tpu_torch yet (ROADMAP.md queue A item A.15b)")
     if precision is None:
         precision = "f64" if device.type == "cpu" else "ds32"
     if rescale is None:
@@ -497,7 +516,18 @@ def simulate(
         _pm_softening_warning(cfg, pm_grid)
     staged = (force_impl == "tree" and integrator == "kdk" and collisions == "none"
               and cfg.tree_levels >= _STAGED_MIN_LEVELS and state.n_bodies >= _STAGED_MIN_N)
-    if staged:
+    if mesh is not None and state.n_bodies % mesh.shape[shard_axis]:
+        raise ValueError(
+            f"N={state.n_bodies} must divide across the mesh's "
+            f"{mesh.shape[shard_axis]} '{shard_axis}' shards")
+    if mesh is not None:
+        from .parallel.sharded import gather_state, make_sharded_rollout, shard_state
+
+        state = init_forces(state, cfg)
+        roll = make_sharded_rollout(cfg, mesh, state, steps, record_every, axis=shard_axis)
+        shards, traj = roll(shard_state(mesh, state, shard_axis))
+        final = gather_state(mesh, shards)
+    elif staged:
         final, traj, overflow = rollout_staged(init_forces_staged(state, cfg), cfg, steps,
                                                record_every)
         if overflow:

@@ -57,7 +57,8 @@ class SimConfig:
             forces at tree_ws=1, ~3e-3 at tree_ws=2; see ops/tree.py) |
             "ring".
         chunk: row-block size for the chunked/pallas force paths.
-        shard_axis: mesh axis name for the ring force path (None = unsharded).
+        shard_axis: mesh axis name for the ring force path (None = unsharded;
+            set by ``parallel.sharded``).
         track_potential: compute the softened potential every force eval
             (reference parity, core/physics.py:158). False skips the PE sum
             in the Pallas stepper path (~13% faster); energy diagnostics
@@ -66,9 +67,12 @@ class SimConfig:
             dt = clip(eta * min_i sqrt(|a_i| / |jerk_i|), dt_min, dt)
             (the Aarseth criterion); ``dt`` becomes the ceiling.
         dt_min: floor for the adaptive step.
-        ring_block_impl: per-round block-force implementation inside the
-            shard_map ppermute ring — "auto" (Pallas on TPU when the local
-            block tiles, dense jnp otherwise), "pallas", or "dense".
+        ring_block_impl: per-round block-force implementation of the
+            multi-device ring (``parallel.sharded``) — "auto" (the CUDA
+            block sweep B3 for float32 shards on CUDA that tile by 128 with
+            eps2 > 0, the dense torch block otherwise), "pallas" (B3 on
+            CUDA, its plain version on the CPU; needs a tileable shard and
+            eps2 > 0), or "dense".
         pm_grid: mesh resolution per axis for force_impl="pm"/"p3m".
         p3m_capacity: max bodies per short-range cell (force_impl="p3m");
             overflowing bodies silently lose short-range pairs — size it

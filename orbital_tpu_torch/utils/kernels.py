@@ -16,6 +16,10 @@ Calling convention of every C entry point: device pointers and the CUDA
 stream are ``ctypes.c_void_p``; the function returns the ``cudaError_t`` of
 its launch (``cudaGetLastError()``), and :func:`check` raises on nonzero.
 Each library also exports ``ot_error_string(int)``.
+
+The one-card mesh (``parallel.mesh``) launches from several threads of one
+process: :func:`load` builds and loads under a lock, and the wrappers it
+runs count their launches with :func:`count_launch`.
 """
 from __future__ import annotations
 
@@ -24,11 +28,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "load", "check",
-           "build_log", "build_seconds", "refuse_grad"]
+           "build_log", "build_seconds", "refuse_grad", "count_launch"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -42,6 +47,9 @@ SOURCES = ("nbody_forces", "fused_rollout", "collisions", "nbody_jerk", "neighbo
 _loaded: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
 _seconds: dict[str, float] = {}
+# one build and one load at a time: the temporary file is named by process
+_lock = threading.RLock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -64,6 +72,11 @@ def build(names) -> None:
     missing or stale, one ``nvcc`` process per source, all running at once.
     Raises if ``nvcc`` is missing or any build fails (with the compiler's
     output)."""
+    with _lock:
+        _build(names)
+
+
+def _build(names) -> None:
     started = []
     for name in names:
         src, out = _library_path(name)
@@ -92,15 +105,23 @@ def build(names) -> None:
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing or stale, load it
     once per process and return it."""
-    lib = _loaded.get(name)
-    if lib is not None:
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        build([name])
+        lib = ctypes.CDLL(str(_library_path(name)[1]))
+        lib.ot_error_string.restype = ctypes.c_char_p
+        lib.ot_error_string.argtypes = [ctypes.c_int]
+        _loaded[name] = lib
         return lib
-    build([name])
-    lib = ctypes.CDLL(str(_library_path(name)[1]))
-    lib.ot_error_string.restype = ctypes.c_char_p
-    lib.ot_error_string.argtypes = [ctypes.c_int]
-    _loaded[name] = lib
-    return lib
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches`` under a lock, so that launches from the
+    threads of a one-card mesh are all counted."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -22,6 +22,7 @@ import torch
 
 import orbital_tpu as jot
 import orbital_tpu_torch as tot
+from orbital_tpu.engine import rollout as jrollout
 from orbital_tpu.models.scene import SceneArrays as JScene
 from orbital_tpu_torch.engine import rollout as R
 from orbital_tpu_torch.models.scene import SceneArrays as TScene
@@ -201,16 +202,22 @@ def test_cpu_tensors_take_the_plain_paths(rng, monkeypatch):
 
 @pytest.mark.parametrize("impl,item", [("tree", "A.13"), ("ring", "A.15")])
 def test_unported_force_paths_raise(impl, item):
-    """The ring (A.15) still raises. The tree with SimConfig's defaults
-    (near="cells", capacity 48; A.13 once raised here) now resolves and
-    evaluates as the JAX package's does (levels 3 to keep JAX's program
+    """The ring (A.15, ported in A.15a) is built by
+    ``parallel.sharded.make_sharded_step`` and cannot be resolved from a
+    config: ``resolve_force_fn`` raises the JAX package's ``ValueError``
+    (orbital_tpu/engine/rollout.py:142-148), where it raised
+    ``NotImplementedError`` naming A.15 before. The tree with SimConfig's
+    defaults (near="cells", capacity 48; A.13 once raised here) now resolves
+    and evaluates as the JAX package's does (levels 3 to keep JAX's program
     small; a cluster of 512, a few dead): acc within 2e-6 RMS|a| (+ 1e-6
     |a|, f32 sums in another order) and U within rel 1e-6, overflows
     equal."""
     cfg = tot.SimConfig(dt=1.0, force_impl=impl)
     if impl == "ring":
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match="make_sharded_step .it needs a Mesh"):
             R.resolve_force_fn(cfg, 8192, "cpu")
+        with pytest.raises(ValueError, match="make_sharded_step"):
+            jrollout.resolve_force_fn(jot.SimConfig(dt=1.0, force_impl=impl), 8192)
         return
     from orbital_tpu.ops.tree import tree_acc_potential as jax_tree
 
@@ -244,7 +251,8 @@ def test_f64_on_cuda_raises():
 def test_unported_steppers_raise(rng, change, item):
     """These steppers raised naming ROADMAP item ``item`` until resolve
     collisions were ported: they run now (RESPA through respa_rollout),
-    and no unported path names the item."""
+    and the routing keeps no table of unported paths (its last entry, the
+    ring, went with A.15a), so none names the item."""
     pos, vel, mass = _cluster(rng, 16)
     cfg = tot.SimConfig(dt=1e-3, eps2=1e-4, **change)
     st = tot.init_forces(tot.make_state(pos, vel, mass, device="cpu"), cfg)
@@ -257,7 +265,7 @@ def test_unported_steppers_raise(rng, change, item):
     else:
         fin, _ = tot.rollout(st, cfg, 2)
     assert bool(torch.isfinite(fin.pos).all()) and int(fin.step) > 0
-    assert item not in R._NOT_PORTED.values()
+    assert "_NOT_PORTED" not in vars(R)
 
 
 def test_import_leaves_jax_out():
