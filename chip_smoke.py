@@ -323,11 +323,43 @@ Phases, one line of output each; any failure exits nonzero:
      versions and bounds (BB also at count 0), the KDK step on one card and
      on the ring at each of RING_TIMED's rank counts in turns, and for each
      a step's host time, a rank's wait in the exchange and the device's
-     busy time (torch.profiler).
+     busy time (torch.profiler);
+ 61. P3M's ring round: the short range's two-table form
+     (``cuda_p3m.p3m_short_pair_cuda``) on the P3M row cut in RING_P
+     shards, a diagonal and three other rounds, against its plain version
+     within SHORT_RTOL, shard 0's rounds summed against the single-table
+     sum, a round timed beside its plain version and its bound (the pairs
+     the round needs);
+ 62. P3M's ring over RING_P one-card ranks: the evaluation against the
+     single-card ``p3m_acc_potential`` (P3M_RING_RTOL, RING_U_RTOL),
+     RING_P^2 two-table and reorder launches an evaluation, the pairs rank
+     0's rounds need against the single card's; the main path, RING_STEPS
+     recorded steps within STATE_ATOL of one card's and P3M_RING_STEPS in
+     all within P3M_DRIFT_BOUND; a step in turns with one card, its host
+     time and the device's busy time;
+ 63. the sharded tree on bench_tree's sphere: B7's RING_P slices of the
+     worklist summed against the whole sweep and each against its plain
+     version (NEAR_RTOL), a slice timed beside its bound; the sharded
+     evaluation against one card's (TREE_MODE_RTOL); TREE_RING_STEPS steps
+     over RING_P ranks within STATE_ATOL of one card's, B7's slice RING_P
+     times a step and B7 never; the staged route at TREE_STAGED_N bodies,
+     levels 8, TREE_STAGED_STEPS steps, overflow 0, against one card's;
+ 64. the sharded RESPA on the RESPA row: the near sweep of each rank's
+     chunks (``near_acc_slots_rows_cuda``) against its plain version, the
+     ranks' rows bit-equal to the whole sweep, rank 0's timed beside its
+     bound; ``make_sharded_respa_rollout`` over RING_P ranks,
+     RESPA_RING_WINDOWS windows within STATE_ATOL of one card's with the
+     counters 0, then RESPA_RING_DRIFT_WINDOWS more within DRIFT_BUDGET; a
+     substep in turns with one card;
+ 65. the (ensemble x body) mesh of ENS_MESH_SHAPE one-card ranks,
+     ``make_sharded_ensemble_step`` on ENS_MESH_E perturbed members, bounce
+     and merge, each member's live bodies after ENS_MESH_STEPS steps within
+     STATE_ATOL of its own single-card run, alive equal, B3 (and the block
+     bounce) E x P_body^2 times a step.
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
 10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38, 39, 42, 44, 45, 47, 48,
-49, 53, 54 and 58) and read just after it:
+49, 53, 54, 58, 62, 63, 64 and 65) and read just after it:
 each kernel must have run on its path. B3 runs on the multi-device ring only:
 phase 27 checks it alone, phase 28 requires 0 launches over its three
 single-card main paths, and its record's launches are phase 53's. The
@@ -605,6 +637,24 @@ RING_B = N_MAIN // RING_P
 RING_STEPS, RING_BOUNCE_STEPS = 20, 600
 RING_WINDOW_START, RING_WINDOW, RING_NCCL_STEPS = 560, 100, 5
 RING_U_RTOL = 1e-6
+# the multi-device paths of part two (phases 61-65, ROADMAP A.15b), each over
+# RING_P one-card ranks: P3M's ring on its uniform row (P3M_RING_STEPS
+# steps, the first RING_STEPS recorded and held against one card); its acc
+# against the single-card solve, max |d a| / max |a|: the rounds' partial
+# sums, the psum'd grid and the deposit's float atomics in other orders
+# (P3M_RING_RTOL); the sharded tree on bench_tree's sphere (TREE_RING_STEPS
+# steps against one card's) and the staged route at TREE_STAGED_N bodies,
+# levels 8 (TREE_STAGED_STEPS steps); the sharded RESPA on the RESPA row
+# (RESPA_RING_WINDOWS windows against one card's, RESPA_RING_DRIFT_WINDOWS
+# for the drift); the (ensemble x body) mesh, ENS_MESH_SHAPE ranks over
+# ENS_MESH_E members of an ENS_MESH_N-body cluster (positions perturbed by
+# ENS_MESH_SIGMA) at radius ENS_MESH_R, ENS_MESH_STEPS steps of bounce and
+# of merge held member by member against one card's
+P3M_RING_STEPS, P3M_RING_RTOL = 400, 1e-5
+TREE_RING_STEPS, TREE_STAGED_N, TREE_STAGED_STEPS = 20, 1048576, 3
+RESPA_RING_WINDOWS, RESPA_RING_DRIFT_WINDOWS = 3, 100
+ENS_MESH_SHAPE, ENS_MESH_E, ENS_MESH_N = (2, 2), 4, 4096
+ENS_MESH_SIGMA, ENS_MESH_R, ENS_MESH_STEPS = 1e-6, 0.03, 10
 # the resolve runs (phases 38-40): the bench row's frag_seed and debris_k
 # (bench.py:200-206); the contact-rich scene's absorbers (every 64th body 20x
 # heavier: a ratio > 10 absorbs) and the pairs planted to meet at E_coll =
@@ -734,10 +784,10 @@ LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_bloc
              "collisions": ("bounce_deltas", "bounce_block_deltas", "ot_error_string"),
              "nbody_forces_sym": ("nbody_forces_sym", "ot_error_string"),
              "tree_near": ("tree_near", "ot_error_string"),
-             "neighbor": ("near_sweep", "ot_error_string"),
+             "neighbor": ("near_sweep", "near_sweep_rows", "ot_error_string"),
              "fused_rollout": ("fused_kdk", "fused_kdk_shape", "ot_error_string"),
-             "p3m_short": ("p3m_short_sorted", "p3m_short_order", "p3m_short_shape",
-                           "ot_error_string"),
+             "p3m_short": ("p3m_short_sorted", "p3m_short_pair", "p3m_short_order",
+                           "p3m_short_shape", "ot_error_string"),
              "fused_ensemble": ("fused_ensemble", "fused_ensemble_shape", "ot_error_string")}
 # the sources whose inner loop must hold tensor-core products (TF32 HMMA)
 TENSOR_CORE = {"nbody_forces_mxu": r"\bHMMA\.\S*TF32"}
@@ -818,6 +868,19 @@ P3M = dict(name="p3m_short", route="cuda", source="orbital_tpu_torch/csrc/p3m_sh
 # the same source, the redesign's own; the JAX tile form needs none)
 P3MO = dict(name="p3m_short_order", route="cuda", source="orbital_tpu_torch/csrc/p3m_short.cu",
             replaces="orbital_tpu/ops/p3m.py:181")
+# the multi-device paths of phases 61-65 (ROADMAP A.15b): the short range's
+# two-table form, a round of P3M's ring (this rank's table against a
+# visitor's; no TPU kernel: the ring's XLA sweep, orbital_tpu/ops/p3m.py:
+# 347-404); B7 over one rank's slice of the worklist (the sharded tree,
+# orbital_tpu/ops/tree_near_wl.py:307-313 slicing the Pallas kernel's
+# worklist); the near sweep of one rank's i chunks (the sharded RESPA,
+# the Pallas B10 kernel's i0 form, orbital_tpu/ops/neighbor_pallas.py:453)
+P3MR = dict(name="p3m_short_pair", route="cuda", source="orbital_tpu_torch/csrc/p3m_short.cu",
+            replaces="orbital_tpu/ops/p3m.py:347")
+B7S = dict(name="tree_near_part", route="cuda", source="orbital_tpu_torch/csrc/tree_near.cu",
+           replaces="orbital_tpu/ops/tree_near_wl.py:171")
+NEARI = dict(name="near_sweep_rows", route="cuda", source="orbital_tpu_torch/csrc/neighbor.cu",
+             replaces="orbital_tpu/ops/neighbor_pallas.py:394")
 # no TPU kernel: stands in for the XLA column blocks of collision_roots_chunked
 # (orbital_tpu/ops/collisions.py:165-196), merge mode's root search
 ROOTS = dict(name="collision_roots", route="cuda",
@@ -1024,7 +1087,7 @@ def _directed_f32(v, up: bool):
 
 
 def near_work(geom: dict, channels, rc: float, chunk: int, rj: int, eps2: float = EPS2,
-              r1: float = None) -> dict:
+              r1: float = None, i0: int = 0) -> dict:
     """The near sweep's work on a geometry of ``ops.neighbor.neighbor_geometry``
     and its slot channels (xs, ys, zs, ms): the pairs a sweep of every row of
     every live jbl entry walks (sentinel rows included: the first version's),
@@ -1041,7 +1104,8 @@ def near_work(geom: dict, channels, rc: float, chunk: int, rj: int, eps2: float 
     the bytes the function must move: the slot channels read once (16 B a
     slot), the table and the counts (4 B an entry, 4 B a chunk) and one
     (ax, ay, az, pe) row a chunk slot written once (16 B). Takes chunks of
-    at most 32 rows (one block slice each)."""
+    at most 32 rows (one block slice each). With ``i0`` the jbl rows are the
+    i chunks from ``i0`` on (the mesh-sharded sweep's share)."""
     import torch
 
     from orbital_tpu_torch.ops.cuda_neighbor import near_params
@@ -1056,13 +1120,14 @@ def near_work(geom: dict, channels, rc: float, chunk: int, rj: int, eps2: float 
     count = used.sum(1)
     walked = int(count.sum()) * chunk * blkw
     live = ~(pos >= 5e14).all(1)
-    live_i = live[:k_ch * chunk].reshape(k_ch, chunk)
+    rows_i = slice(i0 * chunk, (i0 + k_ch) * chunk)
+    live_i = live[rows_i].reshape(k_ch, chunk)
     n_i = live_i.sum(1)
     live_b = live.reshape(-1, blkw).sum(1)
     live_pairs = int((n_i * torch.where(used, live_b[jbl], 0).sum(1)).sum())
     # each chunk's box, rounded outward as the kernel rounds it
     h = near_params(0.5 * rc if r1 is None else r1, rc, 1.0, eps2)["h"]
-    p_i = pos[:k_ch * chunk].reshape(k_ch, chunk, 3).double()
+    p_i = pos[rows_i].reshape(k_ch, chunk, 3).double()
     big = torch.tensor(1e30, dtype=torch.float64, device=dev)
     lo = _directed_f32(torch.where(live_i[..., None], p_i, big).amin(1) - h, up=False)
     hi = _directed_f32(torch.where(live_i[..., None], p_i, -big).amax(1) + h, up=True)
@@ -1077,7 +1142,7 @@ def near_work(geom: dict, channels, rc: float, chunk: int, rj: int, eps2: float 
         pj = pos[rows].double()                                       # [E, blkw, 3]
         inside = ((pj >= lo[c_e, None]) & (pj <= hi[c_e, None])).all(-1)
         in_box.index_add_(0, c_e, inside.sum(1))
-        slots = c_e[:, None] * chunk + ai                              # [E, chunk]
+        slots = (i0 + c_e[:, None]) * chunk + ai                       # [E, chunk]
         d2 = ((pj[:, None] - pos[slots].double()[:, :, None]) ** 2).sum(-1)
         near = (d2 < rc * rc) & live[slots][:, :, None] & live[rows][:, None, :]
         needed += int((near & (slots[:, :, None] != rows[:, None, :])).sum())
@@ -1087,6 +1152,22 @@ def near_work(geom: dict, channels, rc: float, chunk: int, rj: int, eps2: float 
     nbytes = 16 * n_slots + 4 * k_ch * w_blk + 4 * k_ch + 16 * k_ch * chunk
     return dict(walked=walked, live=live_pairs, visited=visited, issued=issued,
                 needed=needed, nbytes=nbytes)
+
+
+def pairs_within(pos_i, pos_j, r2: float, same: bool = False, rows: int = 1024) -> int:
+    """Pairs (i, j) of two position sets with an f32 squared distance below
+    ``r2`` (the short range's test), i != j when the sets are one."""
+    import torch
+
+    n = 0
+    for a in range(0, pos_i.shape[0], rows):
+        d = pos_j[None, :, :] - pos_i[a:a + rows, None, :]
+        near = (d * d).sum(-1) < r2
+        if same:
+            k = torch.arange(a, a + near.shape[0], device=near.device)
+            near[torch.arange(near.shape[0], device=near.device), k] = False
+        n += int(near.sum())
+    return n
 
 
 def pm_f64(pos, mass, alive, eps2: float, grid: int, box=None):
@@ -1328,7 +1409,8 @@ def reset_launches() -> None:
                cuda_p3m.p3m_short_cuda, cuda_p3m.p3m_short_order_cuda,
                cuda_collisions.collision_roots_cuda, cuda_collisions.contact_marks_cuda,
                fused_ensemble.fused_ensemble, cuda_forces.block_acc_detect_cuda,
-               cuda_collisions.bounce_block_cuda):
+               cuda_collisions.bounce_block_cuda, cuda_p3m.p3m_short_pair_cuda,
+               cuda_tree.tree_near_part_cuda, cuda_neighbor.near_acc_slots_rows_cuda):
         fn.launches = 0
     ensemble.member_loop.runs = 0
 
@@ -2136,13 +2218,15 @@ class Smoke:
                         "NEAR": dict(NEAR), "B7": dict(B7), "B12": dict(B12),
                         "B13": dict(B13), "B3": dict(B3), "P3M": dict(P3M),
                         "P3MO": dict(P3MO), "ROOTS": dict(ROOTS), "MARK": dict(MARK),
-                        "ENS": dict(ENS), "B3D": dict(B3D), "BB": dict(BB)}
+                        "ENS": dict(ENS), "B3D": dict(B3D), "BB": dict(BB),
+                        "P3MR": dict(P3MR), "B7S": dict(B7S), "NEARI": dict(NEARI)}
         self._cluster = None
         self._respa_budgets = None
         self._plummer = None
         self.main_ms_per_step = None
         self.hermite_log = None
         self.ring_perf = {}
+        self.p3m_ring_perf = {}
 
     def cluster(self):
         """The 65,536-body virialised cluster and its f64 energy after
@@ -7370,6 +7454,456 @@ class Smoke:
                     f"P={p} {host[p]:.3f}, {exch[p]:.3f} and {fmt(busy[p], 3)} ms"
                     for p in RING_TIMED))
 
+    # --- the multi-device paths, part two (ROADMAP A.15b) -----------------
+
+    def p3m_ring_case(self):
+        """The P3M uniform row cut in RING_P shards: each shard's short-range
+        table on the pinned grid, its global ids, the wrapper's keywords
+        (sigma and rcut^2 on the card, as the solver makes them), the
+        capacity probed on the whole set, and the whole table."""
+        import torch
+
+        from orbital_tpu_torch.ops.p3m import _cell_grid, p3m_cell_table, p3m_max_occupancy
+
+        pos, _, mass = self.p3m_uniform()
+        p, m = self.t(pos), self.t(mass)
+        alive = torch.ones(N_MAIN, dtype=torch.bool, device=self.dev)
+        center, half = self.box_t(P3M_BOX)
+        cap = self.p3m_capacity(p3m_max_occupancy(p, None, grid=P3M_GRID, box=(center, half)))
+        gc = _cell_grid(P3M_GRID, 1.5, 4.5)
+        sigma = 1.5 * (2.0 * half / P3M_GRID)
+        kw = dict(gc=gc, n=RING_B, G=1.0, sigma=sigma, rcut2=(4.5 * sigma) ** 2, eps2=EPS2)
+        shards = [slice(r * RING_B, (r + 1) * RING_B) for r in range(RING_P)]
+        tabs = [p3m_cell_table(p[sl], m[sl], alive[sl], center, half, gc=gc, capacity=cap)
+                for sl in shards]
+        gids = [torch.arange(sl.start, sl.stop, device=self.dev) for sl in shards]
+        whole = p3m_cell_table(p, m, alive, center, half, gc=gc, capacity=cap)
+        return dict(pos=p, tabs=tabs, gids=gids, kw=kw, cap=cap, whole=whole, shards=shards)
+
+    # phase 61
+    def check_p3m_ring_kernel(self) -> str:
+        from orbital_tpu_torch.ops import cuda_p3m
+        from orbital_tpu_torch.ops.p3m import p3m_short_pair_plain
+
+        torch, rel = self.torch, self.rel
+        c = self.p3m_ring_case()
+        tabs, gids, kw = c["tabs"], c["gids"], c["kw"]
+
+        def plain(i, j):
+            return p3m_short_pair_plain(
+                tabs[i]["table"], tabs[i]["cell_pos"],
+                cuda_p3m._gid_table(tabs[i]["table"], gids[i], -2), tabs[j]["cell_pos"],
+                tabs[j]["cell_m"], cuda_p3m._gid_table(tabs[j]["table"], gids[j], -1), **kw)
+
+        def pair(i, j):
+            return cuda_p3m.p3m_short_pair_cuda(tabs[i], tabs[j], gids[i], gids[j], **kw)
+
+        errs, absd = [], 0.0
+        for i, j in ((0, 0), (0, 1), (2, 3), (3, 0)):
+            out, ref = pair(i, j), plain(i, j)
+            torch.cuda.synchronize()
+            e = max(rel(o, r) for o, r in zip(out, ref))
+            if e > SHORT_RTOL:
+                raise AssertionError(f"P3M two-table ({i}, {j}) vs plain: {e:.3e}")
+            errs.append(f"({i}, {j}) {e:.2e}")
+            absd = max(absd, max(float((o - r).abs().max()) for o, r in zip(out, ref)))
+        # shard 0's rounds against every shard add up to the single table's sum
+        w = c["whole"]
+        one = cuda_p3m.p3m_short_cuda(w["table"], w["cell_pos"], w["cell_m"], count=w["count"],
+                                      **dict(kw, n=N_MAIN))
+        rounds = [pair(0, j) for j in range(RING_P)]
+        e_sum = max(rel(sum(r[k] for r in rounds), one[k][:RING_B]) for k in range(2))
+        if e_sum > SHORT_RTOL:
+            raise AssertionError(f"P3M rounds summed vs the single table: {e_sum:.3e}")
+        # a round's time (the diagonal one reuses its order; the others
+        # reorder the visitor's table), the plain version's, and the bound
+        # from the pairs the round needs
+        t_diag = summary(time_ms(lambda: pair(0, 0), 20))
+        t_off = summary(time_ms(lambda: pair(0, 1), 20))
+        t_plain = summary(time_ms(lambda: plain(0, 1), 1))
+        r2 = float(kw["rcut2"])
+        needed = pairs_within(c["pos"][:RING_B], c["pos"][RING_B:2 * RING_B], r2)
+        kept = int(tabs[0]["count"].sum() + tabs[1]["count"].sum())
+        nbytes = 24 * kept + 16 * RING_B + 2 * 232 * kw["gc"] ** 3
+        bnd = bound(OPS_SHORT * needed, nbytes, rsqrt=MUFU_SHORT * needed)
+        self.kernels["P3MR"].update(max_abs_err=absd, ms=t_off["median"],
+                                    plain_ms=t_plain["median"], bound_ms=bnd[0],
+                                    bound_by=bnd[1], library_ms=None)
+        self.p3m_ring_perf = dict(round_diag_ms=t_diag, round_ms=t_off, plain_ms=t_plain,
+                                  round_needed_pairs=needed)
+        return (f"the short range's two-table form at a round of the P3M row over {RING_P} "
+                f"ranks ({RING_B} bodies a shard, capacity {c['cap']}) against its plain "
+                f"version: " + ", ".join(errs) + f" <= {SHORT_RTOL:g}; shard 0's {RING_P} "
+                f"rounds summed vs the single-table sum {e_sum:.2e}; a round "
+                f"{t_off['median']:.3f} ms (spread {t_off['spread']:.3f}; the diagonal one "
+                f"{t_diag['median']:.3f}), plain {t_plain['median']:.3f}; bound "
+                f"{bnd[0]:.4f} ms ({bnd[1]}; {needed:,} needed pairs)")
+
+    # phase 62
+    def p3m_ring_main_path(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops import cuda_p3m
+        from orbital_tpu_torch.ops.p3m import p3m_acc_potential, p3m_ring_force
+
+        torch, rel = self.torch, self.rel
+        c = self.p3m_ring_case()
+        upos, uvel, umass = self.p3m_uniform()
+        cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, force_impl="p3m", pm_grid=P3M_GRID,
+                           p3m_capacity=c["cap"], pm_box=P3M_BOX)
+        mesh = self.ring_mesh(RING_P)
+        p, m = c["pos"], self.t(umass)
+        alive = torch.ones(N_MAIN, dtype=torch.bool, device=self.dev)
+        box = self.box_t(P3M_BOX)
+        kw = dict(G_grav=1.0, eps2=EPS2, grid=P3M_GRID, capacity=c["cap"], box=box)
+        reset_launches()
+        out = mesh.run(lambda comm, x, y, z: p3m_ring_force(x, y, z, comm=comm, **kw),
+                       list(p.chunk(RING_P)), list(m.chunk(RING_P)),
+                       list(alive.chunk(RING_P)))
+        a = torch.cat([o[0] for o in out])
+        pairs, orders = (cuda_p3m.p3m_short_pair_cuda.launches,
+                         cuda_p3m.p3m_short_order_cuda.launches)
+        a1, U1, ov = p3m_acc_potential(p, m, alive, **kw)
+        r_a, r_u = rel(a, a1), abs(float(out[0][1]) - float(U1)) / abs(float(U1))
+        if r_a > P3M_RING_RTOL or r_u > RING_U_RTOL or int(ov):
+            raise AssertionError(f"P3M ring vs one card: acc {r_a:.3e}, U {r_u:.3e}, "
+                                 f"overflow {int(ov)}")
+        if pairs != RING_P * RING_P or orders != RING_P * RING_P:
+            raise AssertionError(f"P3M ring: {pairs} two-table and {orders} reorder launches "
+                                 f"an evaluation")
+        # the pairs each rank's rounds need, against the single card's
+        r2 = float(c["kw"]["rcut2"])
+        mine = sum(pairs_within(p[:RING_B], p[sl], r2, same=r == 0)
+                   for r, sl in enumerate(c["shards"]))
+        total = pairs_within(p, p, r2, same=True)
+
+        # the main path: 20 recorded steps against one card's, then the rest
+        state = ot.init_forces(ot.make_state(upos, uvel, umass, precision="f32",
+                                             device=self.dev), cfg)
+        e0 = energy_f64(state)
+        ref, _ = ot.rollout(state, cfg, RING_STEPS)
+        reset_launches()
+        roll = ot.make_sharded_rollout(cfg, mesh, state, RING_STEPS, record_every=10)
+        shards, traj = roll(ot.shard_state(mesh, state))
+        rec = ot.gather_state(mesh, shards)
+        err = max_state_err(rec, ref)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards, _ = ot.make_sharded_rollout(cfg, mesh, rec, P3M_RING_STEPS - RING_STEPS)(shards)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / (P3M_RING_STEPS - RING_STEPS)
+        fin = ot.gather_state(mesh, shards)
+        launches = cuda_p3m.p3m_short_pair_cuda.launches
+        single = cuda_p3m.p3m_short_cuda.launches
+        drift = abs((energy_f64(fin) - e0) / e0)
+        if err > STATE_ATOL or tuple(traj.pos.shape) != (2, N_MAIN, 3):
+            raise AssertionError(f"P3M ring {RING_STEPS} steps vs one card: {err:.3e}")
+        if launches != RING_P * RING_P * P3M_RING_STEPS or single:
+            raise AssertionError(f"P3M ring main path: {launches} two-table launches in "
+                                 f"{P3M_RING_STEPS} steps, {single} single-table")
+        if drift > P3M_DRIFT_BOUND or int(fin.step) != P3M_RING_STEPS:
+            raise AssertionError(f"P3M ring |dE/E| = {drift:.3e} > {P3M_DRIFT_BOUND:g}")
+        self.kernels["P3MR"]["launches"] = launches
+
+        # a step in turns with one card, its host time and the busy time
+        rolls = {"one card": lambda: ot.rollout(state, cfg, 5),
+                 f"ring P={RING_P}": lambda: ot.make_sharded_rollout(cfg, mesh, state, 5)(
+                     ot.shard_state(mesh, state))}
+        steps = {k: summary([t / 5 for t in v])
+                 for k, v in alternate_ms(rolls, 1, repeats=3).items()}
+        host = {k: summary([t / 5 for t in host_ms(f, 1, repeats=1)]) for k, f in rolls.items()}
+        busy = {}
+        for k, f in rolls.items():
+            dev = device_times(f)
+            busy[k] = sum(v[1] for v in dev.values()) / 5 if dev else None
+        self.p3m_ring_perf.update(step_ms=steps, host_ms=host, busy_ms=busy, wall_ms=wall,
+                                  rank0_needed=mine, needed=total)
+        print("perf_p3m_ring " + json.dumps(self.p3m_ring_perf, default=str), file=sys.stderr)
+        return (f"P3M ring N={N_MAIN} uniform grid {P3M_GRID} capacity {c['cap']} over "
+                f"{RING_P} one-card ranks: acc {r_a:.2e} <= {P3M_RING_RTOL:g}, U {r_u:.2e} of "
+                f"the single card's; {pairs} two-table and {orders} reorder launches an "
+                f"evaluation; rank 0's rounds need {mine:,} of the single card's {total:,} "
+                f"pairs ({100 * mine / total:.1f}%); {RING_STEPS} recorded steps within "
+                f"{err:.2e} of one card's, {P3M_RING_STEPS} in all, |dE/E| = {drift:.3e} <= "
+                f"{P3M_DRIFT_BOUND:g} (one card: 3.931e-5 over 4,000 steps, phase 32); "
+                f"{launches} two-table launches, 0 single-table; {wall:.3f} ms/step wall; "
+                f"a step in turns: " + ", ".join(
+                    f"{k} {v['median']:.3f} ms (host {host[k]['median']:.3f}, busy "
+                    f"{fmt(busy[k], 3)})" for k, v in steps.items()))
+
+    # phase 63
+    def tree_ring(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.rollout import (_tree_kwargs, init_forces_staged,
+                                                      rollout_staged)
+        from orbital_tpu_torch.ops import cuda_tree
+        from orbital_tpu_torch.ops.tree import tree_acc_potential, tree_sharded_force
+        from orbital_tpu_torch.ops.tree_near_wl import clip_runs, tree_wl_budgets, wl_span
+
+        torch, rel = self.torch, self.rel
+        pos, vel, mass, budgets = self.plummer()
+        t = self.tree_table(pos, mass, np.ones(N_MAIN, bool), TREE_LEVELS, 1, budgets)
+        kw_b7 = dict(wl_entries=budgets[1], chunk=TREE_CHUNK, rj=TREE_RJ, ws=1, eps2=TREE_EPS2)
+        spans = [wl_span(budgets[1], RING_P, r) for r in range(RING_P)]
+        whole = cuda_tree.tree_near_cuda(t["pbods"], t["start_blk"], t["n_blk"], **kw_b7)
+        parts = [cuda_tree.tree_near_part_cuda(t["pbods"], t["start_blk"], t["n_blk"],
+                                               span=sp, **kw_b7) for sp in spans]
+        e_sum = rel(sum(parts), whole)
+        # each slice against its plain version, relative to the whole sweep's
+        # scale (the last rank's span may hold only the padded tail)
+        e_plain, absd, scale = 0.0, 0.0, float(whole.abs().max())
+        for sp, out in zip(spans, parts):
+            s, n = clip_runs(t["start_blk"], t["n_blk"], *sp)
+            ref = cuda_tree.tree_near_plain(t["pbods"], s, n, **kw_b7)
+            absd = max(absd, float((out - ref).abs().max()))
+            e_plain = absd / scale
+        if e_sum > NEAR_RTOL or e_plain > NEAR_RTOL:
+            raise AssertionError(f"B7's slices: summed vs the whole sweep {e_sum:.3e}, each "
+                                 f"vs its plain version {e_plain:.3e}")
+        s0, n0 = clip_runs(t["start_blk"], t["n_blk"], *spans[0])
+        w0 = tree_near_work(dict(t, start_blk=s0, n_blk=n0), N_MAIN, TREE_LEVELS, 1,
+                            TREE_CHUNK, TREE_RJ)
+        bnd = bound(OPS_TREE * w0["needed"], w0["nbytes"], rsqrt=w0["needed"])
+        t_part = summary(time_ms(lambda: cuda_tree.tree_near_part_cuda(
+            t["pbods"], t["start_blk"], t["n_blk"], span=spans[0], **kw_b7), 20))
+        t_plain = summary(time_ms(lambda: cuda_tree.tree_near_plain(
+            t["pbods"], s0, n0, **kw_b7), 1))
+        self.kernels["B7S"].update(max_abs_err=absd, ms=t_part["median"],
+                                   plain_ms=t_plain["median"], bound_ms=bnd[0],
+                                   bound_by=bnd[1], library_ms=None)
+
+        # the evaluation against one card's, and the main path
+        cfg = self.tree_config(budgets)
+        mesh = self.ring_mesh(RING_P)
+        pt, mt = self.t(pos), self.t(mass)
+        at = torch.ones(N_MAIN, dtype=torch.bool, device=self.dev)
+        kw = _tree_kwargs(cfg, self.dev)
+        out = mesh.run(lambda comm, x, y, z: tree_sharded_force(
+            x, y, z, comm=comm, with_overflow=True, **kw),
+            list(pt.chunk(RING_P)), list(mt.chunk(RING_P)), list(at.chunk(RING_P)))
+        a = torch.cat([o[0] for o in out])
+        a1, U1, ov1 = tree_acc_potential(pt, mt, at, **kw)
+        r_a, r_u = rel(a, a1), abs(float(out[0][1]) - float(U1)) / abs(float(U1))
+        if r_a > TREE_MODE_RTOL or r_u > TREE_MODE_RTOL or int(out[0][2]) or int(ov1):
+            raise AssertionError(f"sharded tree vs one card: acc {r_a:.3e}, U {r_u:.3e}, "
+                                 f"overflow {int(out[0][2])}")
+        state = ot.init_forces(ot.make_state(pos, vel, mass, precision="f32", device=self.dev),
+                               cfg)
+        ref, _ = ot.rollout(state, cfg, TREE_RING_STEPS)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards, traj = ot.make_sharded_rollout(cfg, mesh, state, TREE_RING_STEPS,
+                                               record_every=TREE_RING_STEPS // 2)(
+            ot.shard_state(mesh, state))
+        fin = ot.gather_state(mesh, shards)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / TREE_RING_STEPS
+        part_l, whole_l = cuda_tree.tree_near_part_cuda.launches, cuda_tree.tree_near_cuda.launches
+        err = max_state_err(fin, ref)
+        if err > STATE_ATOL or part_l != RING_P * TREE_RING_STEPS or whole_l:
+            raise AssertionError(f"sharded tree {TREE_RING_STEPS} steps: {err:.3e} from one "
+                                 f"card, B7 slice {part_l}, B7 {whole_l} launches")
+        self.kernels["B7S"]["launches"] = part_l
+
+        # the staged route at TREE_STAGED_N, levels 8
+        pos_b, vel_b, mass_b = make_plummer(TREE_STAGED_N, self.seed)
+        b_big = tree_wl_budgets(pos_b, levels=TREE_BIG_LEVELS, ws=1, chunk=TREE_CHUNK,
+                                rj=TREE_RJ)
+        cfg_b = self.tree_config(b_big).replace(tree_levels=TREE_BIG_LEVELS)
+        st_b = ot.make_state(pos_b, vel_b, mass_b, precision="f32", device=self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin_s, _, ov_s = rollout_staged(init_forces_staged(st_b, cfg_b, mesh=mesh), cfg_b,
+                                        TREE_STAGED_STEPS, mesh=mesh)
+        torch.cuda.synchronize()
+        staged_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(self.dev) / 2 ** 30
+        t0 = time.perf_counter()
+        one_s, _, ov_1 = rollout_staged(init_forces_staged(st_b, cfg_b), cfg_b,
+                                        TREE_STAGED_STEPS)
+        torch.cuda.synchronize()
+        one_s_t = time.perf_counter() - t0
+        err_s = max_state_err(fin_s, one_s)
+        if ov_s or ov_1 or err_s > STATE_ATOL:
+            raise AssertionError(f"staged tree N={TREE_STAGED_N} over {RING_P} ranks: overflow "
+                                 f"{ov_s} (one card {ov_1}), {err_s:.3e} from one card")
+        return (f"B7's {RING_P} slices of bench_tree's worklist (Plummer {N_MAIN}, levels "
+                f"{TREE_LEVELS}) summed vs the whole sweep {e_sum:.2e}, each vs its plain "
+                f"version {e_plain:.2e} <= {NEAR_RTOL:g}; a slice {t_part['median']:.3f} ms "
+                f"(spread {t_part['spread']:.3f}), plain {t_plain['median']:.3f}, bound "
+                f"{bnd[0]:.4f} ({bnd[1]}; {w0['needed']:,} needed pairs); the sharded "
+                f"evaluation vs one card's: acc {r_a:.2e}, U {r_u:.2e}, overflow 0; "
+                f"{TREE_RING_STEPS} steps over {RING_P} ranks within {err:.2e} of one card's, "
+                f"B7's slice {part_l} launches, B7 0; {wall:.3f} ms/step wall; staged route "
+                f"N={TREE_STAGED_N} levels {TREE_BIG_LEVELS}: init + {TREE_STAGED_STEPS} steps "
+                f"in {staged_s:.2f} s over {RING_P} ranks (one card {one_s_t:.2f} s), within "
+                f"{err_s:.2e} of one card's, overflow 0, peak {peak:.1f} GiB allocated")
+
+    # phase 64
+    def respa_ring(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.multirate import respa_rollout
+        from orbital_tpu_torch.ops import cuda_neighbor as cn
+        from orbital_tpu_torch.ops import neighbor as nb
+        from orbital_tpu_torch.ops.cuda_forces import block_acc_cuda, pairwise_acc_cuda
+
+        torch, rel = self.torch, self.rel
+        pos, vel, mass, E0 = self.cluster()
+        cfg = self.respa_config()
+        state = ot.init_forces(ot.make_state(pos, vel, mass, precision="ds32",
+                                             device=self.dev), cfg)
+        # the near sweep of each rank's chunks against its plain version and
+        # against the unsliced kernel sweep
+        m, k_ch, w_blk, _ = self.respa_budgets()
+        geom = nb.neighbor_geometry(state.pos, state.alive, cell=CELL_RESPA, m_grid=m,
+                                    chunk=32, max_chunks=k_ch, w_blk=w_blk, rj=4)
+        n_slots = (k_ch + 4) * 32
+        ch = [nb.pack_slots(geom["slot"], state.pos[:, k].contiguous(), n_slots,
+                            nb.SENTINEL_POS) for k in range(3)]
+        ch.append(nb.pack_slots(geom["slot"], state.mass, n_slots, 0.0))
+        kw = dict(r1=0.5 * RC_RESPA, rc=RC_RESPA, G=1.0, eps2=EPS2, chunk=32, rj=4)
+        kd = k_ch // RING_P
+        full = cn.near_acc_slots_cuda(*ch, geom["jbl"], **kw)
+        # each rank's rows against the plain version's, relative to the whole
+        # sweep's scale (the budget's headroom leaves the last ranks' chunks
+        # empty or nearly)
+        parts, e_plain, absd = [], 0.0, 0.0
+        scale = [float(f.abs().max()) for f in full]
+        for r in range(RING_P):
+            jbl = geom["jbl"][r * kd:(r + 1) * kd]
+            out = cn.near_acc_slots_rows_cuda(*ch, jbl, i0=r * kd, **kw)
+            ref = nb.near_acc_slots(*ch, jbl, i0=r * kd, **kw)
+            d = [float((o - q).abs().max()) for o, q in zip(out, ref)]
+            e_plain = max(e_plain, max(x / sc for x, sc in zip(d, scale)))
+            absd = max(absd, max(d))
+            parts.append(out)
+        same = all(torch.equal(torch.cat([o[k] for o in parts]), full[k]) for k in range(2))
+        if e_plain > NEAR_RTOL or not same:
+            raise AssertionError(f"the near sweep with i0: vs plain {e_plain:.3e}, the ranks' "
+                                 f"rows {'' if same else 'not '}bit-equal to the whole sweep")
+        jbl0 = geom["jbl"][:kd]
+        w0 = near_work(dict(geom, jbl=jbl0), ch, RC_RESPA, 32, 4)
+        bnd = bound(OPS_NEAR * w0["needed"], w0["nbytes"], rsqrt=w0["needed"])
+        t_rows = summary(time_ms(lambda: cn.near_acc_slots_rows_cuda(*ch, jbl0, i0=0, **kw),
+                                 50))
+        t_plain = summary(time_ms(lambda: nb.near_acc_slots(*ch, jbl0, i0=0, **kw), 1))
+        self.kernels["NEARI"].update(max_abs_err=absd, ms=t_rows["median"],
+                                     plain_ms=t_plain["median"], bound_ms=bnd[0],
+                                     bound_by=bnd[1], library_ms=None)
+
+        # the main path: a few windows against one card's, then the drift
+        mesh = self.ring_mesh(RING_P)
+        steps = RESPA_RING_WINDOWS * RESPA_K
+        one, _, _ = respa_rollout(state, cfg, steps)
+        reset_launches()
+        roll = ot.make_sharded_respa_rollout(cfg, mesh, state, steps, record_every=steps)
+        shards, traj, diag = roll(ot.shard_state(mesh, state))
+        rows_l, b3, b1 = (cn.near_acc_slots_rows_cuda.launches, block_acc_cuda.launches,
+                          pairwise_acc_cuda.launches)
+        rec = ot.gather_state(mesh, shards)
+        err = max_state_err(rec, one)
+        counters = {k: int(v) for k, v in diag.items()}
+        if err > STATE_ATOL or any(counters.values()) or tuple(traj.pos.shape) != (
+                1, N_MAIN, 3):
+            raise AssertionError(f"sharded RESPA {RESPA_RING_WINDOWS} windows: {err:.3e} from "
+                                 f"one card, counters {counters}")
+        if (rows_l != RING_P * (RESPA_K + 1) * RESPA_RING_WINDOWS or b1
+                or b3 != RING_P * RING_P * RESPA_RING_WINDOWS):
+            raise AssertionError(f"sharded RESPA: near sweep rows {rows_l}, B3 {b3}, B1 {b1} "
+                                 f"launches in {RESPA_RING_WINDOWS} windows")
+        self.kernels["NEARI"]["launches"] = rows_l
+        drift_steps = RESPA_RING_DRIFT_WINDOWS * RESPA_K
+        cfg_d = cfg.replace(track_potential=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards, _, diag2 = ot.make_sharded_respa_rollout(cfg_d, mesh, rec, drift_steps)(shards)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / drift_steps
+        drift = abs((energy_f64(ot.gather_state(mesh, shards)) - E0) / E0)
+        if any(int(v) for v in diag2.values()) or drift > DRIFT_BUDGET:
+            raise AssertionError(f"sharded RESPA drift {drift:.3e}, counters "
+                                 f"{ {k: int(v) for k, v in diag2.items()} }")
+        rolls = {"one card": lambda: respa_rollout(state, cfg_d, 2 * RESPA_K),
+                 f"mesh P={RING_P}": lambda: ot.make_sharded_respa_rollout(
+                     cfg_d, mesh, state, 2 * RESPA_K)(ot.shard_state(mesh, state))}
+        sub = {k: summary([t / (2 * RESPA_K) for t in v])
+               for k, v in alternate_ms(rolls, 1, repeats=3).items()}
+        return (f"the near sweep of each of {RING_P} ranks' {kd} chunks (i0) at the RESPA "
+                f"row's geometry vs its plain version {e_plain:.2e} <= {NEAR_RTOL:g}, the "
+                f"ranks' rows bit-equal to the whole sweep; rank 0's {t_rows['median']:.3f} ms "
+                f"(spread {t_rows['spread']:.3f}), plain {t_plain['median']:.3f}, bound "
+                f"{bnd[0]:.4f} ({bnd[1]}; {w0['needed']:,} needed pairs); "
+                f"make_sharded_respa_rollout K={RESPA_K} over {RING_P} ranks: "
+                f"{RESPA_RING_WINDOWS} windows within {err:.2e} of one card's, counters 0, "
+                f"near sweep rows {rows_l} and B3 {b3} launches, B1 0; "
+                f"{RESPA_RING_DRIFT_WINDOWS} windows more, |dE/E| = {drift:.3e} <= "
+                f"{DRIFT_BUDGET:g} (f64), {wall:.3f} ms a substep wall; a substep in turns: "
+                + ", ".join(f"{k} {v['median']:.3f} ms" for k, v in sub.items()))
+
+    # phase 65
+    def ensemble_mesh(self) -> str:
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops.cuda_collisions import bounce_block_cuda
+        from orbital_tpu_torch.ops.cuda_forces import block_acc_cuda
+        from orbital_tpu_torch.parallel.ensemble import _member, _stack
+
+        torch = self.torch
+        E, n = ENS_MESH_E, ENS_MESH_N
+        pos, vel, mass = make_cluster(n, self.seed + 65)
+        rng = np.random.default_rng(self.seed + 66)
+        mesh = ot.make_mesh(shape=ENS_MESH_SHAPE, axis_names=("ensemble", "body"),
+                            devices=self.dev)
+        lines = []
+        for mode in ("bounce", "merge"):
+            cfg = self.ring_cfg(collisions=mode, restitution=0.8)
+            members = [ot.init_forces(ot.make_state(
+                pos + ENS_MESH_SIGMA * rng.normal(size=pos.shape), vel, mass,
+                np.full(n, ENS_MESH_R), precision="ds32", device=self.dev),
+                cfg.replace(force_impl="dense", collisions="none")) for _ in range(E)]
+            batched = _stack(members)
+            reset_launches()
+            step, place = ot.make_sharded_ensemble_step(cfg, mesh, batched)
+            shards = place(batched)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ENS_MESH_STEPS):
+                shards = step(shards)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / ENS_MESH_STEPS
+            b3, bb = block_acc_cuda.launches, bounce_block_cuda.launches
+            out = ot.gather_ensemble(mesh, shards)
+            p_b = ENS_MESH_SHAPE[1]
+            want = E * p_b * p_b * ENS_MESH_STEPS
+            if b3 != want or (mode == "bounce" and bb != want):
+                raise AssertionError(f"ensemble mesh {mode}: B3 {b3}, block bounce {bb} "
+                                     f"launches, {want} expected")
+            errs, dead = [], []
+            for e in range(E):
+                one, _ = ot.rollout(members[e], cfg, ENS_MESH_STEPS, fused="never")
+                got = _member(out, e)
+                if not torch.equal(got.alive, one.alive):
+                    raise AssertionError(f"ensemble mesh {mode}: member {e}'s alive differs "
+                                         f"from its single-card run")
+                # live bodies only: a merged body is parked far, where the
+                # mesh's merge (every step, as under JAX's vmap) and the
+                # single card's (on contact steps) park it apart
+                live = got.alive
+                errs.append(max(float((getattr(got, f)()[live].double()
+                                       - getattr(one, f)()[live].double()).abs().max())
+                                for f in ("pos_full", "vel_full")))
+                dead.append(int((~got.alive).sum()))
+            if max(errs) > STATE_ATOL or (mode == "merge" and not any(dead)):
+                raise AssertionError(f"ensemble mesh {mode}: members {errs} from one card, "
+                                     f"merged {dead}")
+            lines.append(f"{mode}: members within {max(errs):.2e} of their single-card runs"
+                         + (f", merged {dead}" if mode == "merge" else "")
+                         + f"; B3 {b3}" + (f", block bounce {bb}" if mode == "bounce" else "")
+                         + f" launches; {wall:.3f} ms a step wall")
+        return (f"(ensemble x body) mesh {ENS_MESH_SHAPE} of one-card ranks, {E} members of "
+                f"the {n}-body cluster (positions perturbed by {ENS_MESH_SIGMA:g}), ds32, "
+                f"R={ENS_MESH_R:g}, {ENS_MESH_STEPS} steps: " + " | ".join(lines))
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -7456,6 +7990,11 @@ def main(argv=None) -> int:
         ("57+58 ring pm simulate", smoke.ring_pm_simulate),
         ("59 ring nccl", smoke.ring_nccl),
         ("60 ring timings", smoke.ring_timings),
+        ("61 p3m ring kernel", smoke.check_p3m_ring_kernel),
+        ("62 p3m ring", smoke.p3m_ring_main_path),
+        ("63 sharded tree", smoke.tree_ring),
+        ("64 sharded respa", smoke.respa_ring),
+        ("65 ensemble mesh", smoke.ensemble_mesh),
     ]
     if args.sweep or args.parent:
         phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (

@@ -34,9 +34,12 @@ tree's four near modes (``"cells"``, ``"columns"``, ``"pairs"`` and the CUDA
 determination (``fitting``: ``fit_initial_conditions``,
 ``fit_orbital_elements``), the reference's ``core.*`` import layout
 (``compat/core``), and body-sharded meshes (``parallel.mesh``: one-card
-ranks or a ``torch.distributed`` group; ``parallel.sharded``: the exact-force
-ring on the CUDA block sweep with bounce, merge and resolve across shards,
-the sharded PM, ``simulate(mesh=)``). See ROADMAP.md queue A for the rest.
+ranks or a ``torch.distributed`` group, of one axis or the (ensemble x
+body) two; ``parallel.sharded``: the exact-force ring on the CUDA block
+sweep with bounce, merge and resolve across shards, the sharded PM, P3M's
+ring, the sharded tree and its staged route, the sharded RESPA, the
+ensemble mesh step, ``simulate(mesh=)``). See ROADMAP.md queue A for the
+rest.
 """
 from .models.constants import (ASTRO, J2000_JD, STANDARD, IntegratorParams, UnitProfile,
                                UnitSystem, get_unit_profile)
@@ -69,11 +72,13 @@ __all__ = ["ASTRO", "J2000_JD", "STANDARD", "IntegratorParams", "UnitProfile",
            "SimResult", "pm_acc_potential", "p3m_acc_potential", "tree_acc_potential",
            "SimulationEngine", "run_simulation", "save_state", "load_state",
            "fit_initial_conditions", "fit_orbital_elements", "FitResult",
-           "make_mesh", "make_sharded_step", "make_sharded_rollout", "shard_state",
-           "gather_state"]
+           "make_mesh", "make_sharded_step", "make_sharded_rollout",
+           "make_sharded_respa_rollout", "make_sharded_ensemble_step", "shard_state",
+           "gather_state", "shard_ensemble", "gather_ensemble"]
 
-_PARALLEL = ("make_mesh", "make_sharded_step", "make_sharded_rollout", "shard_state",
-             "gather_state")
+_PARALLEL = ("make_mesh", "make_sharded_step", "make_sharded_rollout",
+             "make_sharded_respa_rollout", "make_sharded_ensemble_step", "shard_state",
+             "gather_state", "shard_ensemble", "gather_ensemble")
 
 
 def __getattr__(name):

@@ -190,7 +190,7 @@ near_sweep_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                   const float* __restrict__ zs, const float* __restrict__ ms, long long cs,
                   const int* __restrict__ blocks, const int* __restrict__ off, int stride,
                   const int* __restrict__ count, int sentinel, int chunk, int slices,
-                  int blkw, Switch p, float4* __restrict__ out) {
+                  int blkw, int i0, Switch p, float4* __restrict__ out) {
   __shared__ float4 bufs[kQ][kBuf];  // in-box j rows (x, y, z, m)
   __shared__ float4 red[kQ][32];     // each warp's sums of the live i rows
   __shared__ int order[kQ][32];      // the slice's live rows, in table order
@@ -200,7 +200,9 @@ near_sweep_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   const int c = blockIdx.x / slices;
   const int row0 = blockIdx.x % slices * 32;
   const int nrows = min(32, chunk - row0);
-  const size_t slot = static_cast<size_t>(c) * chunk + row0 + lane;
+  // the i rows are chunk i0 + c's slots; the output row is chunk c's
+  const size_t row = static_cast<size_t>(c) * chunk + row0 + lane;
+  const size_t slot = static_cast<size_t>(i0) * chunk + row;
 
   // the chunk's entries: count[c] from off[c] (worklist), or the
   // non-sentinel entries of row c of the padded table
@@ -231,8 +233,8 @@ near_sweep_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   if (L == 0 || n_q == 0) {
     // nothing to sum: a live row keeps only the self term off its pe
     if (warp == 0 && lane < nrows) {
-      out[slot] = make_float4(0.0f, 0.0f, 0.0f,
-                              live ? __fsub_rn(0.0f, __fmul_rn(mine.w, p.inv_eps)) : 0.0f);
+      out[row] = make_float4(0.0f, 0.0f, 0.0f,
+                             live ? __fsub_rn(0.0f, __fmul_rn(mine.w, p.inv_eps)) : 0.0f);
     }
     return;
   }
@@ -329,7 +331,7 @@ near_sweep_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
       v = make_float4(p.G * t.x, p.G * t.y, p.G * t.z,
                       __fsub_rn(t.w, __fmul_rn(mine.w, p.inv_eps)));
     }
-    out[slot] = v;
+    out[row] = v;
   }
 }
 
@@ -345,22 +347,43 @@ extern "C" {
 // pe without the self pair). sc = (rc^2 + eps2) inv_d, neg_inv_d = -inv_d,
 // c60 = 60 inv_d with inv_d = 1 / (rc^2 - r1^2); inv_eps = eps2^-1/2; h the
 // box's half-width (see the note at the top).
+int near_sweep_rows(const void* xs, const void* ys, const void* zs, const void* ms,
+                    long long cs, const void* blocks, const void* off, int stride,
+                    const void* count, int sentinel, int i0, int k_ch, int chunk, int blkw,
+                    float sc, float neg_inv_d, float c60, float eps2, float G, float inv_eps,
+                    float h, void* out, void* stream, int device);
+
 int near_sweep(const void* xs, const void* ys, const void* zs, const void* ms, long long cs,
                const void* blocks, const void* off, int stride, const void* count,
                int sentinel, int k_ch, int chunk, int blkw, float sc, float neg_inv_d,
                float c60, float eps2, float G, float inv_eps, float h, void* out,
                void* stream, int device) {
+  return near_sweep_rows(xs, ys, zs, ms, cs, blocks, off, stride, count, sentinel, 0, k_ch,
+                         chunk, blkw, sc, neg_inv_d, c60, eps2, G, inv_eps, h, out, stream,
+                         device);
+}
+
+// The sweep of the i chunks [i0, i0 + k_ch) only (the mesh-sharded RESPA:
+// orbital_tpu/ops/neighbor.py:238-314, near_acc_slots(i0=)): `blocks`,
+// `off` and `count` are those chunks' rows, the j side is the whole slot
+// table, and out holds [k_ch * chunk] rows, chunk i0 + c's at c.
+int near_sweep_rows(const void* xs, const void* ys, const void* zs, const void* ms,
+                    long long cs, const void* blocks, const void* off, int stride,
+                    const void* count, int sentinel, int i0, int k_ch, int chunk, int blkw,
+                    float sc, float neg_inv_d, float c60, float eps2, float G, float inv_eps,
+                    float h, void* out, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (k_ch <= 0) return cudaSuccess;
-  if (chunk <= 0 || blkw <= 0 || !(eps2 > 0.0f) || (off == nullptr) != (count == nullptr))
+  if (chunk <= 0 || blkw <= 0 || i0 < 0 || !(eps2 > 0.0f) ||
+      (off == nullptr) != (count == nullptr))
     return cudaErrorInvalidValue;
   const int slices = (chunk + 31) / 32;
   near_sweep_kernel<<<k_ch * slices, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xs), static_cast<const float*>(ys),
       static_cast<const float*>(zs), static_cast<const float*>(ms), cs,
       static_cast<const int*>(blocks), static_cast<const int*>(off), stride,
-      static_cast<const int*>(count), sentinel, chunk, slices, blkw,
+      static_cast<const int*>(count), sentinel, chunk, slices, blkw, i0,
       Switch{sc, neg_inv_d, c60, eps2, G, inv_eps, h}, static_cast<float4*>(out));
   return cudaGetLastError();
 }

@@ -19,6 +19,13 @@
 // K(0) = 1/eps - 2a/sqrt(pi) as _short_factors' branch gives it; the force
 // of a pair at r = 0 is 0 whatever g is).
 //
+// The same kernel takes the body-sharded ring's round (p3m_short_pair): the
+// kept bodies i of this rank's table against the kept bodies j of a visiting
+// rank's table, binned on the same global grid, for
+// orbital_tpu/ops/p3m.py:347-418 (p3m_ring_force), whose pairs are kept when
+// gid_i != gid_j: two ranks' tables share no body, and in the diagonal
+// round (one table) the kernel skips each row's own slot, as here.
+//
 // Each kept body sits in exactly one table slot, so the kernel writes its
 // body's row directly: no segment sum. Overflowed and dead bodies have no
 // slot; the wrapper zeroes the outputs, so their rows read 0.
@@ -225,13 +232,19 @@ struct SliceShared {
   float4 red[kQ][32];
 };
 
+// The i side (the slice's rows, `table` and `run_off`) and the j side (the
+// neighbour runs: `rows4_j`, `run_off_j`, `run_box_j`) may be two tables of
+// one cell grid; `diag` says they are one table, whose own slot each row
+// skips (two tables hold no body in common).
 template <bool kPoly>
 __device__ __forceinline__ void slice_sum(SliceShared& sh, const float4* __restrict__ rows4,
                                           const long long* __restrict__ table,
                                           const int* __restrict__ run_off,
-                                          const float* __restrict__ run_box, int gc, int cap,
-                                          const Consts& c, float G, float* __restrict__ acc,
-                                          float* __restrict__ pe) {
+                                          const float4* __restrict__ rows4_j,
+                                          const int* __restrict__ run_off_j,
+                                          const float* __restrict__ run_box_j, bool diag,
+                                          int gc, int cap, const Consts& c, float G,
+                                          float* __restrict__ acc, float* __restrict__ pe) {
   const int cell = blockIdx.x;
   const int s0 = blockIdx.y * 32;
   const int cnt = run_off[cell * (kOct + 1) + kOct];
@@ -266,9 +279,9 @@ __device__ __forceinline__ void slice_sum(SliceShared& sh, const float4* __restr
     int start = 0, len = 0;
     if (0 <= nx && nx < gc && 0 <= ny && ny < gc && 0 <= nz && nz < gc) {
       const int id = (nx * gc + ny) * gc + nz;
-      const int o0 = run_off[id * (kOct + 1) + oct];
-      const int o1 = run_off[id * (kOct + 1) + oct + 1];
-      const float* b = run_box + static_cast<size_t>(id * kOct + oct) * 6;
+      const int o0 = run_off_j[id * (kOct + 1) + oct];
+      const int o1 = run_off_j[id * (kOct + 1) + oct + 1];
+      const float* b = run_box_j + static_cast<size_t>(id * kOct + oct) * 6;
       const float gx = fmaxf(fmaxf(__fsub_rd(b[0], hi_x), __fsub_rd(lo_x, b[3])), 0.0f);
       const float gy = fmaxf(fmaxf(__fsub_rd(b[1], hi_y), __fsub_rd(lo_y, b[4])), 0.0f);
       const float gz = fmaxf(fmaxf(__fsub_rd(b[2], hi_z), __fsub_rd(lo_z, b[5])), 0.0f);
@@ -292,7 +305,7 @@ __device__ __forceinline__ void slice_sum(SliceShared& sh, const float4* __restr
   const float4 pi = make_float4(__shfl_sync(0xffffffffu, mine.x, src_i),
                                 __shfl_sync(0xffffffffu, mine.y, src_i),
                                 __shfl_sync(0xffffffffu, mine.z, src_i), 0.0f);
-  const int self = base + src_i;
+  const int self = diag ? base + src_i : -1;  // no slot of the j table is -1
   float4* const buf = sh.bufs[warp];
   int* const sbuf = sh.slot_bufs[warp];
 
@@ -304,7 +317,7 @@ __device__ __forceinline__ void slice_sum(SliceShared& sh, const float4* __restr
     for (int f0 = 0; f0 < len; f0 += 32) {
       const int f = f0 + lane;
       float4 q = make_float4(inf, inf, inf, 0.0f);
-      if (f < len) q = rows4[start + f];
+      if (f < len) q = rows4_j[start + f];
       const bool in = f < len && dist2_rd(gap_rd(lo_x, hi_x, q.x), gap_rd(lo_y, hi_y, q.y),
                                           gap_rd(lo_z, hi_z, q.z)) < reach2;
       const unsigned m = __ballot_sync(0xffffffffu, in);
@@ -366,9 +379,10 @@ __device__ __forceinline__ void slice_sum(SliceShared& sh, const float4* __restr
 
 __global__ void __launch_bounds__(kThreads)
 p3m_short_kernel(const float4* __restrict__ rows4, const long long* __restrict__ table,
-                 const int* __restrict__ run_off, const float* __restrict__ run_box, int gc,
-                 int cap, const float* __restrict__ params, float G, float eps2,
-                 float* __restrict__ acc, float* __restrict__ pe) {
+                 const int* __restrict__ run_off, const float4* __restrict__ rows4_j,
+                 const int* __restrict__ run_off_j, const float* __restrict__ run_box_j,
+                 bool diag, int gc, int cap, const float* __restrict__ params, float G,
+                 float eps2, float* __restrict__ acc, float* __restrict__ pe) {
   Consts c;
   c.rcut2 = params[0];
   c.alpha = params[1];
@@ -380,9 +394,11 @@ p3m_short_kernel(const float4* __restrict__ rows4, const long long* __restrict__
   __shared__ SliceShared sh;
   // uniform: one split for the whole table
   if (c.a2 * c.rcut2 <= kSMax) {
-    slice_sum<true>(sh, rows4, table, run_off, run_box, gc, cap, c, G, acc, pe);
+    slice_sum<true>(sh, rows4, table, run_off, rows4_j, run_off_j, run_box_j, diag, gc, cap,
+                    c, G, acc, pe);
   } else {
-    slice_sum<false>(sh, rows4, table, run_off, run_box, gc, cap, c, G, acc, pe);
+    slice_sum<false>(sh, rows4, table, run_off, rows4_j, run_off_j, run_box_j, diag, gc, cap,
+                     c, G, acc, pe);
   }
 }
 
@@ -487,6 +503,32 @@ p3m_order_kernel(const float* __restrict__ cell_pos, const float* __restrict__ c
 
 extern "C" {
 
+// The two-table form (the body-sharded ring's round, ops/p3m.py
+// p3m_ring_force): the rows of table i (rows4, table, run_off, as for
+// p3m_short_sorted) summed against the rows of table j (rows4_j, run_off_j,
+// run_box_j) in the 27 cells around each, both tables binned on one grid
+// with one capacity. With diag = 1 the two are one table (the ring's own
+// shard) and each row skips its own slot; with diag = 0 no pair is skipped
+// (the tables hold different bodies). acc and pe as for p3m_short_sorted,
+// for the bodies of table i.
+int p3m_short_pair(const void* rows4, const void* table, const void* run_off,
+                   const void* rows4_j, const void* run_off_j, const void* run_box_j, int diag,
+                   int gc, int cap, const void* params, float G, float eps2, void* acc,
+                   void* pe, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (gc <= 0 || cap <= 0) return cudaSuccess;
+  if (!(eps2 > 0.0f)) return cudaErrorInvalidValue;
+  const dim3 grid(gc * gc * gc, (cap + 31) / 32);
+  p3m_short_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(rows4), static_cast<const long long*>(table),
+      static_cast<const int*>(run_off), static_cast<const float4*>(rows4_j),
+      static_cast<const int*>(run_off_j), static_cast<const float*>(run_box_j), diag != 0, gc,
+      cap, static_cast<const float*>(params), G, eps2, static_cast<float*>(acc),
+      static_cast<float*>(pe));
+  return cudaGetLastError();
+}
+
 // rows4: [gc^3 * cap] float4 (x, y, z, m) of each cell's kept bodies, a
 // prefix of its row, in the order of ops/cuda_p3m.py::p3m_short_order;
 // table: [gc^3 * cap] int64 body indices in the same order; run_off:
@@ -498,17 +540,8 @@ extern "C" {
 int p3m_short_sorted(const void* rows4, const void* table, const void* run_off,
                      const void* run_box, int gc, int cap, const void* params, float G,
                      float eps2, void* acc, void* pe, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (gc <= 0 || cap <= 0) return cudaSuccess;
-  if (!(eps2 > 0.0f)) return cudaErrorInvalidValue;
-  const dim3 grid(gc * gc * gc, (cap + 31) / 32);
-  p3m_short_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(rows4), static_cast<const long long*>(table),
-      static_cast<const int*>(run_off), static_cast<const float*>(run_box), gc, cap,
-      static_cast<const float*>(params), G, eps2, static_cast<float*>(acc),
-      static_cast<float*>(pe));
-  return cudaGetLastError();
+  return p3m_short_pair(rows4, table, run_off, rows4, run_off, run_box, 1, gc, cap, params, G,
+                        eps2, acc, pe, stream, device);
 }
 
 // cell_pos: [gc^3 * cap, 3] and cell_m: [gc^3 * cap] float, table:

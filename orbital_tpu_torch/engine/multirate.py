@@ -33,11 +33,14 @@ dead slot at a window's close gets its slot at the next window's build, and
 its first far kick takes the acceleration cached for the dead slot, as in
 the JAX stepper.
 
-This is the port of ``orbital_tpu/engine/multirate.py`` on one device: the
-JAX ``lax.scan`` loops are Python loops of eager steps that read nothing back
-to the host (the diagnostics stay 0-dim int32 tensors on the device), and
-the geometry refresh test is a Python int. Not ported: the mesh variant
-(``shard=``, and the sweep's ``i0`` hook), ROADMAP.md queue A item A.15b.
+This is the port of ``orbital_tpu/engine/multirate.py``: the JAX
+``lax.scan`` loops are Python loops of eager steps that read nothing back to
+the host (the diagnostics stay 0-dim int32 tensors on the device), and the
+geometry refresh test is a Python int. The mesh variant (``shard=``, a
+``parallel.mesh.Comm``) runs on each rank of a mesh with the state
+replicated: each rank sweeps its 1/P of the i chunks against the whole j
+side (the sweep's ``i0``) and one all-gather of the slot rows assembles the
+table (``parallel.sharded.make_sharded_respa_rollout``).
 """
 from __future__ import annotations
 
@@ -54,9 +57,6 @@ from .state import NBodyState
 
 __all__ = ["make_respa_macro", "respa_rollout", "respa_rollout_dyn"]
 
-# the ROADMAP.md queue A item that ports what this module leaves out
-_SHARD_ITEM = "A.15b"
-
 _DIAG_KEYS = ("overflow", "cap_overflow", "w_overflow", "q_overflow", "skin_violation")
 
 
@@ -67,7 +67,10 @@ def _fills_pos(dtype, device):
 
 
 def _resolve_sweep(cfg: SimConfig, dtype: torch.dtype, device: torch.device | str):
-    """``sweep(xs, ys, zs, ms, geom) -> (acc, pe)`` over the slot channels.
+    """``sweep(xs, ys, zs, ms, geom, i0=None) -> (acc, pe)`` over the slot
+    channels; with ``i0`` over the i chunks from ``i0`` on, ``geom["jbl"]``
+    holding their rows (the worklist has no offset: a sharded config has
+    ``respa_wl_entries`` = 0).
 
     CUDA tensors take the kernel for every ``respa_impl`` but ``"xla"``,
     which names the plain sweep; ``"auto"`` and ``"pallas"`` use the
@@ -89,21 +92,28 @@ def _resolve_sweep(cfg: SimConfig, dtype: torch.dtype, device: torch.device | st
               rc=cfg.respa_rc, G=cfg.G, eps2=cfg.eps2,
               chunk=cfg.respa_chunk, rj=cfg.respa_rj)
     if impl == "xla":
-        return lambda xs, ys, zs, ms, geom: near_acc_slots(xs, ys, zs, ms, geom["jbl"], **kw)
+        return lambda xs, ys, zs, ms, geom, i0=None: near_acc_slots(
+            xs, ys, zs, ms, geom["jbl"], i0=i0, **kw)
     from ..ops import cuda_neighbor as cn
 
     if impl in ("pallas", "pallas_interpret") and cfg.respa_wl_entries > 0:
         return lambda xs, ys, zs, ms, geom: cn.near_acc_slots_cuda_wl(
             xs, ys, zs, ms, geom["wl_i"], geom["wl_jb"], **kw)
+
     f = cn.near_acc_slots_cuda_sb if impl == "pallas_sb" else cn.near_acc_slots_cuda
-    return lambda xs, ys, zs, ms, geom: f(xs, ys, zs, ms, geom["jbl"], **kw)
+
+    def table(xs, ys, zs, ms, geom, i0=None):
+        if i0 is not None:
+            return cn.near_acc_slots_rows_cuda(xs, ys, zs, ms, geom["jbl"], i0=i0, **kw)
+        return f(xs, ys, zs, ms, geom["jbl"], **kw)
+    return table
 
 
 def make_respa_macro(
     cfg: SimConfig,
     force_fn: Callable,
     force_detect_fn: Optional[Callable] = None,
-    shard: Optional[tuple[str, int]] = None,
+    shard=None,
 ) -> Callable[..., tuple[NBodyState, dict]]:
     """Build the macro step ``macro(state, geom=None) -> (state', diag)``
     advancing ``cfg.respa_k`` substeps of ``cfg.dt``, with
@@ -117,11 +127,15 @@ def make_respa_macro(
 
     ``force_detect_fn(pos, mass, radius, alive) -> (acc, U, contacts)``
     makes the closing evaluation count contacts and gates the collision
-    step on the count, as the exact-force steppers do."""
-    if shard is not None:
-        raise NotImplementedError(
-            "make_respa_macro(shard=...): the mesh-sharded multirate stepper is not "
-            f"ported to orbital_tpu_torch yet (ROADMAP.md queue A item {_SHARD_ITEM})")
+    step on the count, as the exact-force steppers do.
+
+    ``shard`` (a ``parallel.mesh.Comm``) builds the mesh variant, run by
+    each rank with the state replicated (full N on every rank): each rank
+    sweeps its ``respa_max_chunks / P`` i chunks a substep and the acc rows
+    are all-gathered (slot-ordered, so the gather is the assembly);
+    ``force_fn`` shards the closing exact evaluation itself (the ring
+    adapter of ``parallel.sharded``). Pack, the elementwise substeps and
+    unpack run replicated."""
     K = int(cfg.respa_k)
     dt = cfg.dt
     delta = K * dt
@@ -135,6 +149,15 @@ def make_respa_macro(
     if cfg.eps2 <= 0:
         raise ValueError("integrator='respa' requires softening > 0 "
                          "(self-pairs vanish through the softened rsqrt)")
+    if shard is not None:
+        if K_ch % shard.size:
+            raise ValueError(f"respa_max_chunks={K_ch} must divide across {shard.size} "
+                             "shards (neighbor_budgets rounds up when simulate() passes a "
+                             "mesh)")
+        if cfg.respa_wl_entries > 0:
+            raise ValueError("sharded respa requires respa_wl_entries=0 (the worklist sweep "
+                             "compacts entries globally and cannot shard)")
+        kd = K_ch // shard.size
     fuse_detect = force_detect_fn is not None and cfg.collisions != "none"
 
     def build_geom(state: NBodyState) -> dict:
@@ -161,7 +184,16 @@ def make_respa_macro(
             return pack_rows(slot, v, n_slots, fill)
 
         def run_sweep(P):
-            acc, _ = sweep(P[:, 0], P[:, 1], P[:, 2], P[:, 3], geom)
+            if shard is None:
+                acc, _ = sweep(P[:, 0], P[:, 1], P[:, 2], P[:, 3], geom)
+            else:
+                # this rank's i chunks against the whole j side; the
+                # all-gather is the slot-order assembly (acc rows are
+                # chunk-major, the ranks' chunks contiguous runs)
+                i0 = shard.rank * kd
+                acc_l, _ = sweep(P[:, 0], P[:, 1], P[:, 2], P[:, 3],
+                                 {**geom, "jbl": geom["jbl"][i0:i0 + kd]}, i0=i0)
+                acc = shard.all_gather(acc_l)
             # rows (ax, ay, az, 0): the zero column keeps every whole-row
             # kick mass-neutral (column 3 of P is the mass); padded to the
             # slot table's length with zero rows

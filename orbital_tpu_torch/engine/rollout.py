@@ -449,9 +449,23 @@ def rollout(
     return state, Trajectory(**records)
 
 
-def init_forces_staged(state: NBodyState, cfg: SimConfig) -> NBodyState:
+def init_forces_staged(state: NBodyState, cfg: SimConfig, mesh=None,
+                       shard_axis: str = "body") -> NBodyState:
     """:func:`init_forces` through ``ops.tree.tree_acc_potential_staged``,
-    the companion of :func:`rollout_staged`."""
+    the companion of :func:`rollout_staged`. With ``mesh`` (a
+    ``parallel.mesh.Mesh``) the caches come from the body-sharded tree
+    (``ops.tree.tree_sharded_force``) over its ``shard_axis`` ranks, and the
+    full state is returned."""
+    if mesh is not None:
+        from ..ops.tree import tree_sharded_force
+        from ..parallel.sharded import gather_state, shard_state
+
+        def seed(comm, s):
+            acc, U = tree_sharded_force(s.pos, s.mass, s.alive, comm=comm,
+                                        **_tree_kwargs(cfg, s.device))
+            return s.replace(acc=acc, potential=U)
+        shards = mesh.run(seed, shard_state(mesh, state, shard_axis))
+        return gather_state(mesh, shards)
     from ..ops.tree import tree_acc_potential_staged
 
     acc, potential, _ = tree_acc_potential_staged(state.pos, state.mass, state.alive,
@@ -459,7 +473,8 @@ def init_forces_staged(state: NBodyState, cfg: SimConfig) -> NBodyState:
     return state.replace(acc=acc, potential=potential)
 
 
-def rollout_staged(state: NBodyState, cfg: SimConfig, steps: int, record_every: int = 0
+def rollout_staged(state: NBodyState, cfg: SimConfig, steps: int, record_every: int = 0,
+                   mesh=None, shard_axis: str = "body"
                    ) -> tuple[NBodyState, Optional[Trajectory], int]:
     """:func:`rollout` on the tree force that keeps the near-field overflow
     of every step, as the JAX package's staged loop does. The running
@@ -467,10 +482,16 @@ def rollout_staged(state: NBodyState, cfg: SimConfig, steps: int, record_every: 
     Returns ``(final, trajectory or None, max overflow)``: 0 means every
     near pair was summed exactly for the whole run.
 
+    With ``mesh`` the same loop runs body-sharded over its ``shard_axis``
+    ranks (``parallel.sharded.make_sharded_rollout`` on
+    ``ops.tree.tree_sharded_force``: the far field replicated, the near
+    sweep split 1/P a rank and psum'd, the overflow pmax'd); ``state`` and
+    ``final`` are full states (``final`` gathered after the run).
+
     Requires ``integrator='kdk'``, ``collisions='none'`` and
     ``force_impl='tree'``; ``simulate()`` routes here at ``tree_levels >= 8``
     and N >= 524,288, the JAX package's thresholds."""
-    from ..ops.tree import tree_acc_potential_staged
+    from ..ops.tree import tree_acc_potential_staged, tree_sharded_force
 
     if cfg.integrator != "kdk" or cfg.collisions != "none":
         raise ValueError("rollout_staged supports integrator='kdk' with collisions='none'")
@@ -478,6 +499,26 @@ def rollout_staged(state: NBodyState, cfg: SimConfig, steps: int, record_every: 
         raise ValueError("rollout_staged is the force_impl='tree' large-N path; use "
                          "rollout() otherwise")
     kw = _tree_kwargs(cfg, state.device)
+    if mesh is not None:
+        from ..parallel.sharded import gather_state, make_sharded_rollout, shard_state
+
+        kw = _tree_kwargs(cfg, mesh.device)
+        worst = {}
+
+        def keeping_on(comm):
+            worst[comm.rank] = torch.zeros((), dtype=torch.int32, device=mesh.device)
+
+            def force(pos, mass, alive):
+                acc, U, overflow = tree_sharded_force(pos, mass, alive, comm=comm,
+                                                      with_overflow=True, **kw)
+                worst[comm.rank] = torch.maximum(worst[comm.rank], overflow)
+                return acc, U
+            return force
+
+        roll = make_sharded_rollout(cfg, mesh, state, steps, record_every, axis=shard_axis,
+                                    _force_for=keeping_on)
+        shards, traj = roll(shard_state(mesh, state, shard_axis))
+        return gather_state(mesh, shards), traj, max(int(w) for w in worst.values())
     worst = torch.zeros((), dtype=torch.int64, device=state.device)
 
     def keeping(pos, mass, alive):

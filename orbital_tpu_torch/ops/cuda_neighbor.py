@@ -31,6 +31,13 @@ exactly 0; see the note at the top of the source): :func:`near_params`
 gives the box's half-width, which ``chip_smoke.near_work`` counts with. A
 call on the table runs one allocation and the kernel.
 
+The mesh-sharded multirate stepper gives each rank the i chunks from
+``i0`` on against the whole j side (``near_acc_slots_pallas_sb(i0=)`` in the
+JAX package): :func:`near_acc_slots_rows_cuda`, the kernel's entry point
+``near_sweep_rows``, whose launches it counts on its own
+(``near_acc_slots_rows_cuda.launches``); its plain version is
+``near_acc_slots(..., i0=)``.
+
 For CPU tensors the wrappers compute the plain versions: ``ops.neighbor.
 near_acc_slots`` over ``jbl``, and for the worklist
 :func:`near_acc_slots_wl_plain`, which rebuilds each chunk's list as a table
@@ -52,7 +59,7 @@ from .neighbor import near_acc_slots
 from ..utils.kernels import refuse_grad
 
 __all__ = ["near_acc_slots_cuda", "near_acc_slots_cuda_sb", "near_acc_slots_cuda_wl",
-           "near_acc_slots_wl_plain", "near_params"]
+           "near_acc_slots_rows_cuda", "near_acc_slots_wl_plain", "near_params"]
 
 _lib = None
 
@@ -67,6 +74,9 @@ def _load():
         lib.near_sweep.restype = ctypes.c_int
         lib.near_sweep.argtypes = [p, p, p, p, ctypes.c_longlong, p, p, i, p, i, i, i, i,
                                    f, f, f, f, f, f, f, p, p, i]
+        lib.near_sweep_rows.restype = ctypes.c_int
+        lib.near_sweep_rows.argtypes = [p, p, p, p, ctypes.c_longlong, p, p, i, p, i, i, i, i,
+                                        i, f, f, f, f, f, f, f, p, p, i]
         _lib = lib
     return _lib
 
@@ -109,11 +119,14 @@ def _check(fn: str, xs, ys, zs, ms, chunk: int, rj: int, eps2: float, *others) -
 
 
 def _sweep(xs, ys, zs, ms, blocks, off, stride: int, count, k_ch: int, *,
-           r1: float, rc: float, G: float, eps2: float, chunk: int, rj: int):
+           r1: float, rc: float, G: float, eps2: float, chunk: int, rj: int,
+           i0: int = None):
     """Launch the kernel: chunk c walks ``blocks[off[c] + q]`` for q <
     count[c], or without ``off`` and ``count`` the non-sentinel entries of
-    row c of the table ``blocks [k_ch, stride]``. Returns (acc, pe) as the
-    JAX wrappers do: views of one [k_ch * chunk, 4] output."""
+    row c of the table ``blocks [k_ch, stride]``; with ``i0`` (the
+    ``near_sweep_rows`` entry) the i rows of chunk c are chunk i0 + c's.
+    Returns (acc, pe) as the JAX wrappers do: views of one [k_ch * chunk, 4]
+    output."""
     refuse_grad("near_acc_slots_cuda", xs, ys, zs, ms)
     c, blkw = int(chunk), int(rj) * int(chunk)
     chans = (xs, ys, zs, ms)
@@ -126,14 +139,17 @@ def _sweep(xs, ys, zs, ms, blocks, off, stride: int, count, k_ch: int, *,
     from ..utils.kernels import check
 
     stream = torch.cuda.current_stream(xs.device).cuda_stream
-    err = lib.near_sweep(*(t.data_ptr() for t in chans), chans[0].stride(0),
-                         blocks.data_ptr(), None if off is None else off.data_ptr(),
-                         int(stride), None if count is None else count.data_ptr(),
-                         xs.shape[0] // blkw - 1, int(k_ch), c, blkw, k["sc"],
-                         k["neg_inv_d"], k["c60"], k["eps2"], k["G"], k["inv_eps"], k["h"],
-                         out.data_ptr(), stream, xs.device.index or 0)
-    check(lib, err, "near_sweep launch")
-    near_acc_slots_cuda.launches += 1
+    head = (*(t.data_ptr() for t in chans), chans[0].stride(0), blocks.data_ptr(),
+            None if off is None else off.data_ptr(), int(stride),
+            None if count is None else count.data_ptr(), xs.shape[0] // blkw - 1)
+    tail = (int(k_ch), c, blkw, k["sc"], k["neg_inv_d"], k["c60"], k["eps2"], k["G"],
+            k["inv_eps"], k["h"], out.data_ptr(), stream, xs.device.index or 0)
+    if i0 is None:
+        check(lib, lib.near_sweep(*head, *tail), "near_sweep launch")
+        near_acc_slots_cuda.launches += 1
+    else:
+        check(lib, lib.near_sweep_rows(*head, int(i0), *tail), "near_sweep_rows launch")
+        near_acc_slots_rows_cuda.launches += 1
     return out[:, :3], out[:, 3]
 
 
@@ -157,10 +173,35 @@ def near_acc_slots_cuda(xs, ys, zs, ms, jbl, *, r1: float, rc: float, G: float,
 near_acc_slots_cuda.launches = 0
 
 
-def near_acc_slots_cuda_sb(xs, ys, zs, ms, jbl, **kw):
+def near_acc_slots_cuda_sb(xs, ys, zs, ms, jbl, i0=None, **kw):
     """``near_acc_slots_pallas_sb``'s counterpart (B10): the same launch as
-    :func:`near_acc_slots_cuda`."""
+    :func:`near_acc_slots_cuda`, or with ``i0`` as
+    :func:`near_acc_slots_rows_cuda`."""
+    if i0 is not None:
+        return near_acc_slots_rows_cuda(xs, ys, zs, ms, jbl, i0=i0, **kw)
     return near_acc_slots_cuda(xs, ys, zs, ms, jbl, **kw)
+
+
+def near_acc_slots_rows_cuda(xs, ys, zs, ms, jbl, *, i0: int, r1: float, rc: float,
+                             G: float, eps2: float, chunk: int = 32, rj: int = 4):
+    """The near sweep of the i chunks ``[i0, i0 + k_ch)`` only, ``jbl [k_ch,
+    w_blk]`` their rows of the block table, against the whole j side: one
+    mesh rank's share (``ops.neighbor.near_acc_slots(i0=)`` is its plain
+    version). Returns (acc [k_ch * chunk, 3], pe [k_ch * chunk]) for those
+    chunks."""
+    kw = dict(r1=r1, rc=rc, G=G, eps2=eps2, chunk=chunk, rj=rj)
+    if xs.device.type == "cpu":
+        return near_acc_slots(xs, ys, zs, ms, jbl, i0=int(i0), **kw)
+    _check("near_acc_slots_rows_cuda", xs, ys, zs, ms, chunk, rj, eps2, jbl)
+    k_ch, w_blk = jbl.shape
+    if (int(i0) + k_ch) * int(chunk) > xs.shape[0] or int(i0) < 0:
+        raise ValueError(f"near_acc_slots_rows_cuda: chunks [{i0}, {int(i0) + k_ch}) of "
+                         f"{chunk} rows for {xs.shape[0]} slots")
+    return _sweep(xs, ys, zs, ms, jbl.to(torch.int32).contiguous(), None, w_blk, None, k_ch,
+                  i0=int(i0), **kw)
+
+
+near_acc_slots_rows_cuda.launches = 0
 
 
 def _wl_lists(wl_i, k_ch: int):

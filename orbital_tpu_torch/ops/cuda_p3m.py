@@ -19,9 +19,17 @@ kernel visits only the rows within reach of it. The table itself
 (``p3m_cell_table``'s output, which the overflow and the kept bodies come
 from) is not changed.
 
-For CPU tensors the wrapper computes the plain version. For CUDA tensors it
-launches the kernel or raises; it never falls back. ``.launches`` counts its
-kernel launches.
+The body-sharded ring (``ops.p3m.p3m_ring_force``) takes the kernel's
+two-table form, :func:`p3m_short_pair_cuda`: this rank's table (reordered
+once an evaluation) against a visiting rank's table (reordered once a
+round), both binned on the same global grid. Its plain version is
+``ops.p3m.p3m_short_pair_plain``, which skips self pairs by global id as the
+JAX ring does; the kernel skips them by slot in the diagonal round (one
+table for both sides), which leaves out the same pairs.
+
+For CPU tensors the wrappers compute the plain versions. For CUDA tensors
+they launch the kernel or raise; they never fall back. ``.launches`` counts
+each wrapper's launches of the sum kernel.
 """
 from __future__ import annotations
 
@@ -29,10 +37,11 @@ import ctypes
 
 import torch
 
-from .p3m import p3m_short_plain
+from .p3m import p3m_short_pair_plain, p3m_short_plain
 from ..utils.kernels import refuse_grad
 
-__all__ = ["p3m_short_cuda", "p3m_short_plain", "p3m_short_order", "p3m_short_order_cuda"]
+__all__ = ["p3m_short_cuda", "p3m_short_plain", "p3m_short_order", "p3m_short_order_cuda",
+           "p3m_short_pair_cuda", "p3m_short_pair_plain"]
 
 # sub-cells a side of the Morton order (3 bits an axis); the runs are the
 # 8 top-level octants
@@ -51,6 +60,8 @@ def _load():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.p3m_short_sorted.restype = ctypes.c_int
         lib.p3m_short_sorted.argtypes = [p, p, p, p, i, i, p, f, f, p, p, p, i]
+        lib.p3m_short_pair.restype = ctypes.c_int
+        lib.p3m_short_pair.argtypes = [p, p, p, p, p, p, i, i, i, p, f, f, p, p, p, i]
         lib.p3m_short_order.restype = ctypes.c_int
         lib.p3m_short_order.argtypes = [p, p, p, p, i, i, p, p, p, p, p, i]
         lib.p3m_short_shape.restype = None
@@ -174,36 +185,107 @@ def p3m_short_cuda(table: torch.Tensor, cell_pos: torch.Tensor, cell_m: torch.Te
     if table.device.type == "cpu":
         return p3m_short_plain(table, cell_pos, cell_m, gc=gc, n=n, G=G, sigma=sigma,
                                rcut2=rcut2, eps2=eps2, cell_block=cell_block)
-    if table.device.type != "cuda":
-        raise ValueError(f"p3m_short_cuda: unsupported device {table.device}")
-    refuse_grad("p3m_short_cuda", cell_pos, cell_m)
-    if eps2 <= 0.0:
-        raise ValueError("p3m_short_cuda requires eps2 > 0")
-    gc3 = gc ** 3
-    cap = table.shape[1]
-    if (table.shape[0] != gc3 + 1 or cell_pos.shape != (gc3 + 1, cap, 3)
-            or cell_m.shape != (gc3 + 1, cap)):
-        raise ValueError(f"p3m_short_cuda: need table [{gc3 + 1}, M], cell_pos [{gc3 + 1}, M, "
-                         f"3] and cell_m [{gc3 + 1}, M], got {tuple(table.shape)}, "
-                         f"{tuple(cell_pos.shape)} and {tuple(cell_m.shape)}")
-    if cell_pos.dtype != torch.float32 or cell_m.dtype != torch.float32:
-        raise TypeError("p3m_short_cuda computes in float32")
-    if any(t.device != table.device for t in (cell_pos, cell_m)):
-        raise ValueError("p3m_short_cuda: all tensors must be on one device")
+    _check_table("p3m_short_cuda", table, cell_pos, cell_m, count, gc, eps2)
     dev = table.device
-    if count.shape != (gc3,) or count.device != dev:
-        raise ValueError(f"p3m_short_cuda: need count [{gc3}] on {dev}")
-    # the kernel's constants [rcut^2, alpha = 1 / (2 sigma)] on the device, so
-    # that a sigma computed there is not read back
-    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
-    params = torch.stack([torch.as_tensor(rcut2, dtype=torch.float32, device=dev),
-                          1.0 / (2.0 * sigma)])
+    params = _params(sigma, rcut2, dev)
     acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     pe = torch.zeros((n,), dtype=torch.float32, device=dev)
     _launch(table.to(torch.int64), cell_pos, cell_m, count, gc, params, float(G), float(eps2),
             acc, pe)
     p3m_short_cuda.launches += 1
     return acc, pe
+
+
+def _check_table(fn: str, table, cell_pos, cell_m, count, gc: int, eps2: float) -> None:
+    if table.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {table.device}")
+    refuse_grad(fn, cell_pos, cell_m)
+    if eps2 <= 0.0:
+        raise ValueError(f"{fn} requires eps2 > 0")
+    gc3 = gc ** 3
+    cap = table.shape[1]
+    if (table.shape[0] != gc3 + 1 or cell_pos.shape != (gc3 + 1, cap, 3)
+            or cell_m.shape != (gc3 + 1, cap)):
+        raise ValueError(f"{fn}: need table [{gc3 + 1}, M], cell_pos [{gc3 + 1}, M, "
+                         f"3] and cell_m [{gc3 + 1}, M], got {tuple(table.shape)}, "
+                         f"{tuple(cell_pos.shape)} and {tuple(cell_m.shape)}")
+    if cell_pos.dtype != torch.float32 or cell_m.dtype != torch.float32:
+        raise TypeError(f"{fn} computes in float32")
+    if any(t.device != table.device for t in (cell_pos, cell_m)):
+        raise ValueError(f"{fn}: all tensors must be on one device")
+    if count.shape != (gc3,) or count.device != table.device:
+        raise ValueError(f"{fn}: need count [{gc3}] on {table.device}")
+
+
+def _params(sigma, rcut2, dev) -> torch.Tensor:
+    """The kernel's constants [rcut^2, alpha = 1 / (2 sigma)] on the device,
+    so that a sigma computed there is not read back."""
+    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
+    return torch.stack([torch.as_tensor(rcut2, dtype=torch.float32, device=dev),
+                        1.0 / (2.0 * sigma)])
+
+
+def _gid_table(table: torch.Tensor, gid: torch.Tensor, empty: int) -> torch.Tensor:
+    """Global ids of a table's slots (``empty`` where the slot holds n)."""
+    n = gid.shape[0]
+    ext = torch.cat([gid.to(torch.int64), torch.full((1,), empty, dtype=torch.int64,
+                                                     device=gid.device)])
+    return ext[torch.clamp(table, max=n)]
+
+
+def p3m_short_pair_cuda(tab_i: dict, tab_j: dict, gid_i: torch.Tensor, gid_j: torch.Tensor, *,
+                        gc: int, n: int, G: float, sigma, rcut2, eps2: float,
+                        order_i: dict = None, cell_block: int = 32
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One round of the P3M ring: the kept bodies of ``tab_i`` (this rank's
+    ``ops.p3m.p3m_cell_table``, its ``n`` bodies' global ids ``gid_i``)
+    against the kept bodies of ``tab_j`` (a visiting shard's table on the
+    same grid, global ids ``gid_j``) in the 27 cells around each, pairs with
+    r^2 < rcut2 and different global ids. ``tab_j is tab_i`` (with
+    ``gid_j is gid_i``) is the diagonal round. ``order_i``, the kernel's
+    order of ``tab_i`` (``p3m_short_order_cuda``), may be passed in so that
+    the ring reorders its own table once. Returns (acc [n, 3], pe [n]) in
+    float32 as :func:`p3m_short_cuda` does."""
+    diag = tab_j is tab_i
+    if diag != (gid_j is gid_i):
+        raise ValueError("p3m_short_pair_cuda: the diagonal round passes one table and one "
+                         "id vector for both sides")
+    if tab_i["table"].device.type == "cpu":
+        return p3m_short_pair_plain(
+            tab_i["table"], tab_i["cell_pos"], _gid_table(tab_i["table"], gid_i, -2),
+            tab_j["cell_pos"], tab_j["cell_m"],
+            _gid_table(tab_j["table"], gid_j, -1), gc=gc, n=n, G=G, sigma=sigma,
+            rcut2=rcut2, eps2=eps2, cell_block=cell_block)
+    for tab in (tab_i, tab_j):
+        _check_table("p3m_short_pair_cuda", tab["table"], tab["cell_pos"], tab["cell_m"],
+                     tab["count"], gc, eps2)
+    if tab_j["table"].shape != tab_i["table"].shape:
+        raise ValueError("p3m_short_pair_cuda: the two tables need one grid and capacity")
+    dev = tab_i["table"].device
+    if order_i is None:
+        order_i = p3m_short_order_cuda(tab_i["table"], tab_i["cell_pos"], tab_i["cell_m"],
+                                       tab_i["count"], gc)
+    order_j = order_i if diag else p3m_short_order_cuda(
+        tab_j["table"], tab_j["cell_pos"], tab_j["cell_m"], tab_j["count"], gc)
+    params = _params(sigma, rcut2, dev)
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    pe = torch.zeros((n,), dtype=torch.float32, device=dev)
+    from ..utils.kernels import check
+
+    lib = _load()
+    err = lib.p3m_short_pair(order_i["rows"].data_ptr(), order_i["table"].data_ptr(),
+                             order_i["run_off"].data_ptr(), order_j["rows"].data_ptr(),
+                             order_j["run_off"].data_ptr(), order_j["run_box"].data_ptr(),
+                             int(diag), int(gc), int(tab_i["table"].shape[1]),
+                             params.data_ptr(), float(G), float(eps2), acc.data_ptr(),
+                             pe.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                             dev.index or 0)
+    check(lib, err, "p3m_short_pair launch")
+    p3m_short_pair_cuda.launches += 1
+    return acc, pe
+
+
+p3m_short_pair_cuda.launches = 0
 
 
 def _launch(table, cell_pos, cell_m, count, gc: int, params, G: float, eps2: float, acc,

@@ -11,10 +11,17 @@ rows against the staged rows inside the chunk's cell box (a pair outside it
 fails the band and adds exactly 0; see the note at the top of the source).
 It writes one (ax, ay, az, pe) row per slot, acc without G.
 
-For CPU tensors :func:`tree_near_cuda` computes the plain version,
-``ops.tree_near_wl.tree_near_plain``; for CUDA tensors it launches the kernel
-or raises, and never falls back. ``tree_near_cuda.launches`` counts the
-kernel's launches.
+The body-sharded tree (``ops.tree.tree_sharded_force``) splits the worklist
+across the ranks: :func:`tree_near_part_cuda` (B7's slice) clips the runs to
+one rank's span of the flat worklist (``ops.tree_near_wl.clip_runs``, the
+JAX module's ``q_part`` slice) and launches the same kernel over them, so
+that every entry is swept by exactly one rank.
+
+For CPU tensors the wrappers compute the plain version,
+``ops.tree_near_wl.tree_near_plain`` (over the clipped runs for the slice);
+for CUDA tensors they launch the kernel or raise, and never fall back.
+``tree_near_cuda.launches`` and ``tree_near_part_cuda.launches`` count each
+wrapper's launches.
 """
 from __future__ import annotations
 
@@ -22,10 +29,10 @@ import ctypes
 
 import torch
 
-from .tree_near_wl import tree_near_plain
+from .tree_near_wl import clip_runs, tree_near_plain
 from ..utils.kernels import refuse_grad
 
-__all__ = ["tree_near_cuda"]
+__all__ = ["tree_near_cuda", "tree_near_part_cuda"]
 
 _lib = None
 
@@ -55,7 +62,37 @@ def tree_near_cuda(pbods: torch.Tensor, start_blk: torch.Tensor, n_blk: torch.Te
     kw = dict(wl_entries=wl_entries, chunk=chunk, rj=rj, ws=ws, eps2=eps2)
     if pbods.device.type == "cpu":
         return tree_near_plain(pbods, start_blk, n_blk, **kw)
-    fn = "tree_near_cuda"
+    out = _launch("tree_near_cuda", pbods, start_blk, n_blk, chunk=chunk, rj=rj, ws=ws,
+                  eps2=eps2)
+    tree_near_cuda.launches += 1
+    return out
+
+
+tree_near_cuda.launches = 0
+
+
+def tree_near_part_cuda(pbods: torch.Tensor, start_blk: torch.Tensor, n_blk: torch.Tensor,
+                        *, span: tuple[int, int], wl_entries: int, chunk: int, rj: int,
+                        ws: int, eps2: float) -> torch.Tensor:
+    """B7's slice: :func:`tree_near_cuda` over only the worklist entries
+    ``span = (lo, hi)`` of the flat worklist (``ops.tree_near_wl.wl_span``),
+    the runs clipped to it. Returns ``[k_ch * chunk, 4]`` per slot, the sums
+    of the slice's entries alone."""
+    start_blk, n_blk = clip_runs(start_blk, n_blk, *span)
+    if pbods.device.type == "cpu":
+        return tree_near_plain(pbods, start_blk, n_blk, wl_entries=wl_entries, chunk=chunk,
+                               rj=rj, ws=ws, eps2=eps2)
+    out = _launch("tree_near_part_cuda", pbods, start_blk, n_blk, chunk=chunk, rj=rj, ws=ws,
+                  eps2=eps2)
+    tree_near_part_cuda.launches += 1
+    return out
+
+
+tree_near_part_cuda.launches = 0
+
+
+def _launch(fn: str, pbods, start_blk, n_blk, *, chunk: int, rj: int, ws: int,
+            eps2: float) -> torch.Tensor:
     if pbods.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {pbods.device}")
     refuse_grad(fn, pbods)
@@ -83,8 +120,4 @@ def tree_near_cuda(pbods: torch.Tensor, start_blk: torch.Tensor, n_blk: torch.Te
                         int(n_nb), c, blkw, float(ws), float(eps2), out.data_ptr(), stream,
                         pbods.device.index or 0)
     check(lib, err, "tree_near launch")
-    tree_near_cuda.launches += 1
     return out
-
-
-tree_near_cuda.launches = 0

@@ -59,9 +59,6 @@ i64 = torch.int64
 # distance still finite in f32 ((2e15)^2 = 4e30 < 3.4e38)
 SENTINEL_POS = 1.0e15
 
-# the ROADMAP.md queue A item that ports the mesh-sharded near sweep
-_SHARD_ITEM = "A.15b"
-
 
 def switch_terms(r2t: torch.Tensor, r1: float, rc: float):
     """Quintic-smoothstep switch on the true squared distance r2t:
@@ -213,7 +210,7 @@ def near_acc_slots(
     *,
     r1: float, rc: float, G: float, eps2: float,
     chunk: int = 32, rj: int = 4, block: int = 64,
-    i0: Optional[torch.Tensor] = None,
+    i0: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Switched near-field sweep over the frozen j-block table: the plain
     PyTorch version of the CUDA kernel (``ops.cuda_neighbor``), gathering
@@ -224,14 +221,16 @@ def near_acc_slots(
     ``pe[i] = sum_j m_j invr S`` without the self pair: multiply by -G/2 and
     sum for the near potential energy. Chunk c's i rows are the slots
     ``[c * chunk, (c + 1) * chunk)``, which the JAX sweep pads its channels to
-    reach without clamping. ``i0`` (the mesh-sharding hook) is not ported.
+    reach without clamping.
+
+    ``i0`` (an int, the mesh-sharding hook) sweeps only the i chunks
+    ``[i0, i0 + jbl.shape[0])`` of the slot table, ``jbl`` being their rows
+    of the block table, against the whole j side: the rows come back for
+    those chunks alone (``[jbl.shape[0] * chunk]``).
     """
-    if i0 is not None:
-        raise NotImplementedError(
-            "near_acc_slots(i0=...): the mesh-sharded near sweep is not ported to "
-            f"orbital_tpu_torch yet (ROADMAP.md queue A item {_SHARD_ITEM})")
     K_ch, W = jbl.shape
     C, RJ = int(chunk), int(rj)
+    base = 0 if i0 is None else int(i0)
     blkw = RJ * C
     n_blocks = xs.shape[0] // blkw
     P = torch.stack([xs, ys, zs, ms], dim=0).reshape(4, n_blocks, blkw)
@@ -240,7 +239,8 @@ def near_acc_slots(
     for k0 in range(0, K_ch, B):
         k1 = min(k0 + B, K_ch)
         b = k1 - k0
-        xi, yi, zi = (v[k0 * C:k1 * C].reshape(b, C, 1) for v in (xs, ys, zs))
+        xi, yi, zi = (v[(base + k0) * C:(base + k1) * C].reshape(b, C, 1)
+                      for v in (xs, ys, zs))
         jb = jbl[k0:k1]                                     # [b, W]
         xj, yj, zj, mj = (P[k][jb].reshape(b, 1, W * blkw) for k in range(4))
         dx = xj - xi
@@ -256,7 +256,8 @@ def near_acc_slots(
     acc = torch.cat(accs).reshape(K_ch * C, 3)
     # the self pair adds no acceleration (dx = 0) but m_i rsqrt(eps2) S(0)
     # to the PE sum: subtract it (S(0) = 1 since r1 > 0)
-    pe = torch.cat(pes).reshape(K_ch * C) - ms[:K_ch * C] * (float(eps2) ** -0.5)
+    pe = torch.cat(pes).reshape(K_ch * C) - ms[base * C:(base + K_ch) * C] * (
+        float(eps2) ** -0.5)
     return acc, pe
 
 

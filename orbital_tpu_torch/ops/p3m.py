@@ -21,7 +21,13 @@ exactly over the 27 neighbour cells of an r_cut-sized cell grid:
     [M] x [27 M] masked tiles; on CPU tensors its plain version,
     :func:`p3m_short_plain`, computes those tiles.
 
-``p3m_ring_force`` (the body-sharded ring) is ROADMAP.md queue A item A.15b.
+:func:`p3m_ring_force` is the body-sharded form (one rank's code against a
+``parallel.mesh.Comm``): the mesh part is the sharded PM pipeline (a local
+deposit, one psum of the grid, a replicated FFT), and the short range rides
+a ring: every round the visiting shard is binned into the same global cell
+grid and each local cell sums its bodies against the visitor's 27
+neighbour cells (the two-table form of the kernel, whose plain version is
+:func:`p3m_short_pair_plain`).
 """
 from __future__ import annotations
 
@@ -34,7 +40,8 @@ from .pm import _bounding_cube, _pm_core
 from .tree import _segment_bounds
 
 __all__ = ["p3m_acc_potential", "p3m_ring_force", "p3m_overflow_probe",
-           "p3m_max_occupancy", "p3m_cell_table", "p3m_short_plain", "_short_factors"]
+           "p3m_max_occupancy", "p3m_cell_table", "p3m_short_plain", "p3m_short_pair_plain",
+           "_short_factors"]
 
 f32 = torch.float32
 i64 = torch.int64
@@ -148,9 +155,44 @@ def p3m_short_plain(table: torch.Tensor, cell_pos: torch.Tensor, cell_m: torch.T
     (acc [n, 3] = G sum m_j g (r_j - r_i), pe [n] = sum m_j K_short) in the
     table's float type; bodies outside the table (overflowed, dead) get 0.
     The kernel's plain version."""
-    gc3, dev, cap = gc ** 3, table.device, table.shape[1]
-    ft = cell_pos.dtype
-    block = max(1, min(cell_block, _PLAIN_SLOTS // (27 * cap * cap)))
+    return _short_tiles(table, cell_pos, table, cell_pos, cell_m, table, table < n, gc=gc,
+                        n=n, G=G, sigma=sigma, rcut2=rcut2, eps2=eps2, cell_block=cell_block)
+
+
+def p3m_short_pair_plain(table_i: torch.Tensor, cell_pos_i: torch.Tensor,
+                         gid_i: torch.Tensor, cell_pos_j: torch.Tensor,
+                         cell_m_j: torch.Tensor, gid_j: torch.Tensor, *, gc: int, n: int,
+                         G: float, sigma, rcut2, eps2: float,
+                         cell_block: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ring round's short-range sum (the JAX module's ``sweep`` in
+    ``p3m_ring_force``): the bodies of table i (``table_i`` [gc^3 + 1, M]
+    of local indices, n in empty slots, ``cell_pos_i``) against the rows of
+    table j (``cell_pos_j``, ``cell_m_j``) in the 27 cells around each,
+    pairs with gid_i != gid_j and r^2 < rcut2. ``gid_i`` and ``gid_j`` are
+    the tables' global ids ([gc^3 + 1, M], -2 and -1 in empty slots), so
+    self pairs drop out in the diagonal round. Returns (acc [n, 3], pe [n])
+    for the bodies of table i, as :func:`p3m_short_plain` does. The plain
+    version of the kernel's two-table form."""
+    return _short_tiles(table_i, cell_pos_i, gid_i, cell_pos_j, cell_m_j, gid_j, gid_j >= 0,
+                        gc=gc, n=n, G=G, sigma=sigma, rcut2=rcut2, eps2=eps2,
+                        cell_block=cell_block)
+
+
+def _short_tiles(table, pos_i, key_i, pos_j, m_j, key_j, used_j, *, gc: int, n: int,
+                 G: float, sigma, rcut2, eps2: float, cell_block: int):
+    """The tile form over an i table (body indices ``table``, ``pos_i``)
+    and a j table (``pos_j``, ``m_j``, its occupied slots ``used_j``), pairs
+    whose keys differ. Each cell's kept bodies are a prefix of its row, so
+    the tiles stop at the fullest cell of each table: the slots past it are
+    empty on every row and add nothing (a one-time host read of each
+    width)."""
+    gc3, dev = gc ** 3, table.device
+    w_i = max(1, int((table < n).sum(1).max()))
+    w_j = max(1, int(used_j.sum(1).max()))
+    table, pos_i, key_i = table[:, :w_i], pos_i[:, :w_i], key_i[:, :w_i]
+    pos_j, m_j, key_j = pos_j[:, :w_j], m_j[:, :w_j], key_j[:, :w_j]
+    ft = pos_i.dtype
+    block = max(1, min(cell_block, _PLAIN_SLOTS // (27 * w_i * w_j)))
     acc = torch.zeros((n + 1, 3), dtype=ft, device=dev)
     pe = torch.zeros((n + 1,), dtype=ft, device=dev)
     for c0 in range(0, gc3, block):
@@ -158,13 +200,14 @@ def p3m_short_plain(table: torch.Tensor, cell_pos: torch.Tensor, cell_m: torch.T
         b = cells.shape[0]
         nb = _neighbour_cells(cells, gc)                         # [B, 27]
         idx_my = table[cells]                                    # [B, M]
-        idx_nb = table[nb].reshape(b, -1)                        # [B, 27M]
-        pi = cell_pos[cells]                                     # [B, M, 3]
-        pj = cell_pos[nb].reshape(b, -1, 3)                      # [B, 27M, 3]
-        mj = cell_m[nb].reshape(b, -1)                           # [B, 27M]
+        key_my = key_i[cells]                                    # [B, M]
+        key_nb = key_j[nb].reshape(b, -1)                        # [B, 27M]
+        pi = pos_i[cells]                                        # [B, M, 3]
+        pj = pos_j[nb].reshape(b, -1, 3)                         # [B, 27M, 3]
+        mj = m_j[nb].reshape(b, -1)                              # [B, 27M]
         d = pj[:, None, :, :] - pi[:, :, None, :]                # [B, M, 27M, 3]
         r2 = (d * d).sum(-1)
-        ok = (idx_my[:, :, None] != idx_nb[:, None, :]) & (r2 < rcut2)
+        ok = (key_my[:, :, None] != key_nb[:, None, :]) & (r2 < rcut2)
         gsh, ksh = _short_factors(r2, sigma, eps2)
         w = torch.where(ok, mj[:, None, :] * gsh, 0.0)
         acc_b = G * (w[..., None] * d).sum(2)                   # [B, M, 3]
@@ -249,10 +292,90 @@ def p3m_acc_potential(
     return acc.to(pos.dtype), U.to(pos.dtype), tab["overflow"]
 
 
-def p3m_ring_force(*args, **kwargs):
-    """The body-sharded P3M ring of the JAX module: not ported yet."""
-    raise NotImplementedError("p3m_ring_force is not ported to orbital_tpu_torch yet "
-                              "(ROADMAP.md queue A item A.15b)")
+def p3m_ring_force(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    alive: Optional[torch.Tensor] = None,
+    *,
+    G_grav: float,
+    eps2: float,
+    grid: int = 64,
+    sigma_cells: float = 1.5,
+    cut_sigma: float = 4.5,
+    capacity: int = 64,
+    cell_block: int = 32,
+    with_potential: bool = True,
+    deconvolve: bool = True,
+    box=None,
+    comm,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Body-sharded P3M, one rank's code against ``comm`` (a
+    ``parallel.mesh.Comm``): the rank's shard of (pos, mass, alive) in, its
+    shard of the accelerations and the global potential out, as
+    :func:`p3m_acc_potential` would give them for the whole system.
+
+    The mesh part is ``ops.pm._pm_core`` with the communicator (the cube by
+    pmin/pmax unless ``box`` pins it, one psum of the density grid). The
+    short range is a ring: this rank's table is built and reordered once;
+    every round the visiting shard's (positions, masses, alive, global ids)
+    are binned into the same global cell grid and summed against it (the
+    kernel's two-table form, ``ops.cuda_p3m.p3m_short_pair_cuda``), then
+    passed on. Each rank's pair work is its own bodies against the
+    visitors within reach, about 1/P of the single-card sum; the JAX
+    module's tile form repeats every cell block in every round.
+
+    The capacity overflow is not returned (the JAX function's contract):
+    size ``capacity`` with :func:`p3m_max_occupancy` on the whole system.
+    Binned per shard, a cell holds fewer bodies than binned whole, so the
+    ring drops no more than the single-card sum does; the two agree when
+    neither overflows. Requires eps2 > 0."""
+    if eps2 <= 0.0:
+        raise ValueError("the P3M solver requires eps2 > 0")
+    from .cuda_p3m import p3m_short_order_cuda, p3m_short_pair_cuda
+
+    nloc, g, dev = pos.shape[0], int(grid), pos.device
+    pos32 = pos.to(f32)
+    alive_b = (torch.ones((nloc,), dtype=torch.bool, device=dev) if alive is None
+               else alive.to(torch.bool))
+    alive_f = alive_b.to(f32)
+    m_eff = mass.to(f32) * alive_f
+
+    acc_mesh, phi_at, h, center, half = _pm_core(
+        pos32, m_eff, alive_f, g=g, G_grav=G_grav, kern_builder=_erf_kernel(sigma_cells),
+        with_potential=with_potential, deconvolve=deconvolve, box=box, comm=comm)
+    sigma = sigma_cells * h
+    rcut2 = (cut_sigma * sigma) ** 2
+    gc = _cell_grid(g, sigma_cells, cut_sigma)
+    kw = dict(gc=gc, n=nloc, G=G_grav, sigma=sigma, rcut2=rcut2, eps2=eps2,
+              cell_block=cell_block)
+
+    def table(p32, m, a):
+        return p3m_cell_table(p32, m, a, center, half, gc=gc, capacity=capacity)
+
+    gid = comm.rank * nloc + torch.arange(nloc, dtype=i64, device=dev)
+    tab_i = table(pos32, m_eff, alive_b)
+    # the local table's kernel order, made once for every round
+    order_i = (p3m_short_order_cuda(tab_i["table"], tab_i["cell_pos"], tab_i["cell_m"],
+                                    tab_i["count"], gc) if dev.type == "cuda" else None)
+    visit = (pos32, m_eff, alive_b, gid)
+    acc_s = pe_s = None
+    for k in range(comm.size):
+        # round 0 visits this rank's own shard: its table, and its order
+        tab_j = tab_i if k == 0 else table(*visit[:3])
+        a_r, p_r = p3m_short_pair_cuda(tab_i, tab_j, gid, visit[3], order_i=order_i, **kw)
+        acc_s, pe_s = (a_r, p_r) if k == 0 else (acc_s + a_r, pe_s + p_r)
+        if k < comm.size - 1:
+            visit = comm.ppermute(visit)
+
+    acc = (acc_mesh + acc_s) * alive_f[:, None]
+    if with_potential:
+        self_phi = -G_grav * m_eff * (1.0 / (sigma * math.sqrt(math.pi)))
+        u_local = (0.5 * torch.sum(m_eff * (phi_at - self_phi))
+                   + (-0.5 * G_grav) * torch.sum(m_eff * pe_s))
+        U = comm.psum(u_local)
+    else:
+        U = torch.zeros((), dtype=f32, device=dev)
+    return acc.to(pos.dtype), U.to(pos.dtype)
 
 
 def p3m_max_occupancy(pos: torch.Tensor, alive: Optional[torch.Tensor] = None, *,

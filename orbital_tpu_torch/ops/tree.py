@@ -32,7 +32,13 @@ What the port carries over, and what it changes:
     over blocks sized by the same 32 MB rule, every clamped gather an explicit
     clamp and every dropped scatter a write into a spare row that is never
     read or is sliced off; packed-row sentinels (positions 1e30, mass 0, idx
-    n) are masked by select. The sharded arguments raise (A.15b).
+    n) are masked by select.
+  * The body-sharded force, :func:`tree_sharded_force` (one rank's code
+    against a ``parallel.mesh.Comm``): the bodies gathered, the far field
+    replicated, and each rank sweeping a contiguous 1/P slice of every near
+    list (``_n_parts``, ``_part_index``; for ``"kernel"`` a slice of the
+    worklist, which B7 takes as the runs clipped to it), the per-body near
+    sums psum'd.
   * The stable multi-payload sort is ``torch.sort(stable=True)`` and
     gathers. The NGP deposit is ``index_add_``, which on CUDA uses float
     atomics: the deposited moments, and so the far field, may differ in
@@ -62,7 +68,8 @@ import torch
 
 from .pm import _bounding_cube
 
-__all__ = ["tree_acc_potential", "tree_acc_potential_staged", "tree_occupancy_probe",
+__all__ = ["tree_acc_potential", "tree_acc_potential_staged", "tree_sharded_force",
+           "tree_occupancy_probe",
            "tree_class_probe", "tree_column_probe", "tree_pairs_probe", "tree_pairs_budgets",
            "tree_stencil", "_compact_sorted", "_segment_bounds", "_pairs_geometry"]
 
@@ -447,7 +454,8 @@ def tree_acc_potential(
     box=None,
     _phase: str = "both",
     _n_parts: int = 1,
-    _psum_axis: Optional[str] = None,
+    _part_index: int = 0,
+    _comm=None,
     _dtype: torch.dtype = f32,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Tree accelerations, potential, and the near-field overflow count.
@@ -474,7 +482,11 @@ def tree_acc_potential(
 
     ``cell_block`` is the eager sweeps' block of list entries (0 = the
     32 MB rule). ``_phase`` is ``"both"``, ``"far"`` or ``"near"``
-    (:func:`tree_acc_potential_staged`). ``_dtype`` is the compute type,
+    (:func:`tree_acc_potential_staged`). With ``_n_parts`` > 1 the near
+    sweep covers only part ``_part_index`` of every list (the JAX module's
+    contiguous 1/``_n_parts`` slices), and ``_comm`` (a
+    ``parallel.mesh.Comm``), when given, psums the per-body near sums
+    (:func:`tree_sharded_force`). ``_dtype`` is the compute type,
     float32 as in the JAX function; float64 (plain versions only) serves as
     the reference of the checks.
 
@@ -493,9 +505,8 @@ def tree_acc_potential(
     if near == "pairs" and not pair_entries:
         raise ValueError("near='pairs' needs per-octave i-chunk budgets: pass pair_entries "
                          "sized with tree_pairs_probe")
-    if _n_parts > 1 or _psum_axis is not None:
-        raise NotImplementedError("the sharded tree is not ported to orbital_tpu_torch yet "
-                                  "(ROADMAP.md queue A item A.15b)")
+    if not 0 <= _part_index < max(1, _n_parts):
+        raise ValueError(f"_part_index {_part_index} outside {_n_parts} parts")
     if near == "kernel" and wl_entries <= 0:
         raise ValueError("near='kernel' needs a worklist budget: pass wl_entries sized with "
                          "ops.tree_near_wl.tree_wl_budgets")
@@ -527,13 +538,13 @@ def tree_acc_potential(
 
         idx, acc_s, pe_s, cap_overflow, cell_overflow = _near_wl(
             sc, pos_s, m_s, sort_idx, n, M, ws, eps2, G, max_chunks, chunk, wl_entries,
-            wl_rj)
+            wl_rj, _n_parts, _part_index)
         # every body owns one row: scatter the sorted rows back to body order
         acc_near = torch.zeros((n, 3), dtype=_dtype, device=dev).index_put_((idx,), acc_s)
         pe_near = torch.zeros((n,), dtype=_dtype, device=dev).index_put_((idx,), pe_s)
     else:
         pack = _row_packer(pos_s, m_s, sort_idx, n)
-        sweep = _Sweep(M, ws, eps2, G, cell_block, origin[2], h)
+        sweep = _Sweep(M, ws, eps2, G, cell_block, origin[2], h, _n_parts, _part_index)
         if near == "cells":
             K = min(n, M ** 3) if max_cells <= 0 else int(max_cells)
             cap_overflow, cell_overflow = _near_cells(sc, pack, sweep, n, M, K, capacity,
@@ -545,6 +556,10 @@ def tree_acc_potential(
         else:
             cap_overflow, cell_overflow = _near_pairs(sc, pack, sweep, n, M, max_chunks,
                                                       chunk, pair_entries)
+        if not sweep.parts:  # a part with no entries of any list
+            sweep.parts.append((torch.full((1,), n, dtype=i64, device=dev),
+                                torch.zeros((1, 3), dtype=_dtype, device=dev),
+                                torch.zeros((1,), dtype=_dtype, device=dev)))
         # each swept row adds into its body's slot; padding rows carry idx n
         # into the spare row n, sliced off
         idx = sweep.idx()
@@ -553,6 +568,10 @@ def tree_acc_potential(
         pe_near = torch.zeros((n + 1,), dtype=_dtype, device=dev).index_add_(
             0, idx, sweep.pe())[:n]
 
+    if _comm is not None:
+        # each rank swept a disjoint slice of the lists: the per-body sums
+        # of every rank, one psum each
+        acc_near, pe_near = _comm.psum(acc_near), _comm.psum(pe_near)
     acc = (a_far + acc_near) * alive_f[:, None]
     overflow = (cap_overflow + cell_overflow).to(torch.int32)
     if with_potential:
@@ -634,10 +653,19 @@ class _Sweep:
     and ``pe()`` (sum m_j / r)."""
 
     def __init__(self, M: int, ws: int, eps2: float, G: float, cell_block: int,
-                 oz: torch.Tensor, h: torch.Tensor):
+                 oz: torch.Tensor, h: torch.Tensor, n_parts: int = 1, part: int = 0):
         self.M, self.ws, self.eps2, self.G = M, ws, eps2, G
         self.cell_block, self.oz, self.h = cell_block, oz, h
+        self.n_parts, self.part = max(1, int(n_parts)), int(part)
         self.parts = []
+
+    def span(self, K: int) -> tuple[int, int]:
+        """The entries [base, end) of a K-long list that this part sweeps:
+        the JAX module's contiguous slices of ceil(K / parts) entries (a
+        block never runs past ``end`` into the next part's)."""
+        k_part = -(-K // self.n_parts)
+        base = self.part * k_part
+        return base, min(K, base + k_part)
 
     def zcell(self, z: torch.Tensor) -> torch.Tensor:
         return torch.clamp(torch.floor((z - self.oz) / self.h), 0, self.M - 1)
@@ -683,12 +711,13 @@ class _Sweep:
         Ki = ids_list.shape[0]
         dev = ids_list.device
         n_nb = len(offsets)
-        blk = _block_size(self.cell_block, i_cap * width * n_nb, 8, Ki)
+        base, end = self.span(Ki)
+        blk = _block_size(self.cell_block, i_cap * width * n_nb, 8, max(1, end - base))
         M = self.M
-        for s0 in range(0, Ki, blk):
+        for s0 in range(base, end, blk):
             slots_l = s0 + torch.arange(blk, dtype=i64, device=dev)
             ids = ids_list[torch.clamp(slots_l, max=Ki - 1)]
-            valid = (slots_l < Ki) & (ids < id_max)
+            valid = (slots_l < end) & (ids < id_max)
             coords = decode(torch.where(valid, ids, 0))
             nb = []
             for off in offsets:
@@ -912,12 +941,13 @@ def _near_pairs(sc, pack, sweep: _Sweep, n: int, M: int, max_chunks: int, chunk:
         ord_o = torch.cumsum(in_o.to(i64), 0) - 1
         drop_flag = drop_flag | (in_o & (ord_o >= E_o))
         ids_o = _compact_sorted(in_o & (ord_o < E_o), chunk_rows, E_o, K_ch)
-        blk = _block_size(sweep.cell_block, C * W * C, 1, E_o)
+        base, end = sweep.span(E_o)
+        blk = _block_size(sweep.cell_block, C * W * C, 1, max(1, end - base))
         p = torch.arange(W, dtype=i64, device=dev)[None, :]      # [1, W]
-        for s0 in range(0, E_o, blk):
+        for s0 in range(base, end, blk):
             slots_l = s0 + torch.arange(blk, dtype=i64, device=dev)
             ci = ids_o[torch.clamp(slots_l, max=E_o - 1)]
-            valid = (slots_l < E_o) & (ci < K_ch)
+            valid = (slots_l < end) & (ci < K_ch)
             cic = torch.where(valid, torch.clamp(ci, max=K_ch - 1), K_ch - 1)
             # the trimmed (chunk, neighbor) j runs, laid end to end
             cj = torch.where(valid[:, None], cnt[cic], 0)          # [B, n_nb]
@@ -936,9 +966,6 @@ def _near_pairs(sc, pack, sweep: _Sweep, n: int, M: int, max_chunks: int, chunk:
     dropped_b = torch.cat([drop_flag, drop_flag.new_zeros(1)])[
         torch.clamp(g["chunk_ord"], max=K_ch)]
     cell_overflow = torch.sum(g["keep"] & dropped_b)
-    if not sweep.parts:
-        sweep.parts.append((torch.full((1,), n, dtype=i64, device=dev),
-                            P.new_zeros((1, 3)), P.new_zeros((1,))))
     return cap_overflow, cell_overflow
 
 
@@ -1014,6 +1041,34 @@ def _far_phase(pos32, m_eff, alive_b, cc, h, half, origin, levels: int, ws: int,
                   - ccell[j] * chans[levels][1 + i] + mflat * ccell[i] * ccell[j])
             tot = tot - 0.5 * _C6[q] * F_ch[3 + q] * Qq
     return a_far, 0.5 * torch.sum(tot)
+
+
+def tree_sharded_force(pos, mass, alive=None, *, comm, _phase: str = "both",
+                       with_overflow: bool = False, **kwargs) -> tuple:
+    """The tree force of one rank of a body-sharded mesh (the JAX module's
+    ``tree_sharded_force``): the rank's shard of (pos, mass, alive) in, its
+    shard of the accelerations and the global potential out, with
+    ``with_overflow`` also the near-field overflow (int32 0-dim, pmax'd).
+    ``kwargs`` are :func:`tree_acc_potential`'s.
+
+    The body arrays are all-gathered, so the deposit, the pyramid and the
+    far field run replicated on every rank; the near sweep is split: each
+    rank sweeps a contiguous 1/P slice of every near list (for ``"kernel"``
+    of the worklist, through B7's slice), and one psum each adds the
+    per-body sums. U is the same on every rank up to the far field's
+    rounding (the NGP deposit's float atomics on CUDA) and comes out as
+    psum(U) / P, as in the JAX module; the overflow counts come from the
+    replicated lists and are pmax'd."""
+    block = pos.shape[0]
+    g = comm.all_gather
+    acc, U, ovf = tree_acc_potential(
+        g(pos), g(mass), None if alive is None else g(alive), _phase=_phase,
+        _n_parts=comm.size, _part_index=comm.rank, _comm=comm, **kwargs)
+    U = comm.psum(U) / float(comm.size)
+    acc_local = acc[comm.rank * block:(comm.rank + 1) * block]
+    if not with_overflow:
+        return acc_local, U
+    return acc_local, U, comm.pmax(ovf)
 
 
 def tree_acc_potential_staged(pos, mass, alive=None, **kwargs):

@@ -35,7 +35,7 @@ import torch
 
 from .tree import _pairs_geometry, _probe_sorted_cells
 
-__all__ = ["tree_wl_probe", "tree_wl_budgets", "tree_near_plain"]
+__all__ = ["tree_wl_probe", "tree_wl_budgets", "tree_near_plain", "wl_span", "clip_runs"]
 
 i64 = torch.int64
 
@@ -43,6 +43,9 @@ i64 = torch.int64
 _SENTINEL = (1e30, 1e30, 1e30, 0.0, None, 1e9, 1e9, 1e9)
 # worklist entries per batch of the plain sweep (each is C x RJ*C pairs)
 _PLAIN_BATCH = 512
+# the JAX module's worklist entries a grid step (its ``wl_group``), which
+# rounds the parts of a sharded sweep
+WL_GROUP = 8
 
 
 def _wl_runs(g: dict, rj: int, k_ch: int, kpad: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -226,21 +229,56 @@ def _wl_table(sc, pos_srt, m_srt, sort_idx, n: int, M: int, ws: int, max_chunks:
                 k_ch=k_ch, cap_overflow=cap_overflow, cell_overflow=cell_overflow)
 
 
+def wl_span(wl_entries: int, n_parts: int, part: int) -> tuple[int, int]:
+    """The worklist entries [lo, hi) that part ``part`` of ``n_parts``
+    sweeps: the JAX module's ``q_part``, the budget rounded up to whole
+    groups of WL_GROUP entries, split in ``n_parts`` and rounded up to a
+    group again, so that the padded tail lands on the last part."""
+    q, g, parts = int(wl_entries), WL_GROUP, max(1, int(n_parts))
+    q_part = -(-(-(-q // g) * g) // parts)
+    q_part = -(-q_part // g) * g
+    return part * q_part, (part + 1) * q_part
+
+
+def clip_runs(start_blk: torch.Tensor, n_blk: torch.Tensor, lo: int, hi: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The runs ``(start_blk, n_blk)`` cut to the worklist entries [lo, hi):
+    the flat worklist lays the runs end to end in chunk-major order (the
+    exclusive cumsum of ``n_blk``), and each run keeps the part of it that
+    falls inside the span. B7 over the clipped runs sums exactly the
+    entries of the JAX module's slice of the worklist."""
+    cnt = n_blk.reshape(-1).to(i64)
+    off = torch.cumsum(cnt, 0) - cnt
+    before = torch.clamp(lo - off, min=0)
+    after = torch.clamp(off + cnt - hi, min=0)
+    kept = torch.clamp(cnt - before - after, min=0)
+    start = torch.where(kept > 0, start_blk.reshape(-1).to(i64) + before, 0)
+    return start.reshape(n_blk.shape), kept.reshape(n_blk.shape)
+
+
 def _near_wl(sc, pos_srt, m_srt, sort_idx, n: int, M: int, ws: int, eps2: float,
-             G: float, max_chunks: int, chunk: int, wl_entries: int, wl_rj: int):
+             G: float, max_chunks: int, chunk: int, wl_entries: int, wl_rj: int,
+             n_parts: int = 1, part: int = 0):
     """Near field at chunk-pair granularity through the B7 wrapper
     (``ops/cuda_tree.py``: the kernel for CUDA tensors, the plain version for
     CPU ones). Returns ``(idx, acc, pe, cap_overflow, cell_overflow)``: one
     row per sorted body, ``idx`` its body index (each body once), ``acc``
     including G and ``pe`` = sum_j m_j / r, 0 for bodies outside the kept
-    chunks; the overflows are int64 device scalars."""
+    chunks; the overflows are int64 device scalars. With ``n_parts`` > 1
+    only the entries of :func:`wl_span`'s slice are summed (B7's slice,
+    ``cuda_tree.tree_near_part_cuda``); the overflows are the whole
+    worklist's."""
     from . import cuda_tree
 
     t = _wl_table(sc, pos_srt, m_srt, sort_idx, n, M, ws, max_chunks, chunk, wl_entries,
                   wl_rj)
     c = int(chunk)
-    out = cuda_tree.tree_near_cuda(t["pbods"], t["start_blk"], t["n_blk"],
-                                   wl_entries=wl_entries, chunk=c, rj=wl_rj, ws=ws, eps2=eps2)
+    kw = dict(wl_entries=wl_entries, chunk=c, rj=wl_rj, ws=ws, eps2=eps2)
+    if n_parts > 1:
+        out = cuda_tree.tree_near_part_cuda(t["pbods"], t["start_blk"], t["n_blk"],
+                                            span=wl_span(wl_entries, n_parts, part), **kw)
+    else:
+        out = cuda_tree.tree_near_cuda(t["pbods"], t["start_blk"], t["n_blk"], **kw)
     rows = out[torch.clamp(t["slot"], max=t["k_ch"] * c - 1)]
     rows = torch.where(t["keep"][:, None], rows, 0.0)
     return sort_idx, G * rows[:, 0:3], rows[:, 3], t["cap_overflow"], t["cell_overflow"]

@@ -34,12 +34,22 @@ A :class:`Mesh` runs such per-rank code on one of two backends:
 
 The same per-rank code runs on both, so a ring on the card's one-card mesh
 and the same ring over gloo processes do the same arithmetic in the same
-order. Only 1-D meshes over the ``body`` axis are ported; the 2-D
-(ensemble x body) mesh is ROADMAP.md queue A item A.15b.
+order.
+
+A mesh of several axes (``make_mesh(shape=(E, B), axis_names=("ensemble",
+"body"))``, the JAX package's (ensemble x body) mesh) lays its ranks out
+row-major, as the JAX package reshapes its devices, and gives each rank a
+communicator a line of each axis: rank (e, b)'s ``body`` communicator spans
+the ranks (e, 0 .. B-1). On one-card ranks each line has its own slots and
+barrier and every rank of the mesh shares one baton, so a rank waiting at
+its line's barrier has always handed the baton on; under a process group
+each line is a ``dist.new_group``, which every process creates for every
+line in the same order.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import threading
 import time
@@ -88,21 +98,21 @@ class Comm:
 
 
 class _Slots:
-    """The shared state of a one-card mesh's ranks: a barrier, two sets of
-    slots, used in turns, so that one barrier an exchange suffices (a rank
-    writes set t only after every rank has passed the barrier of the
-    exchange that read set t last), and the baton: one rank runs at a time,
-    holding it, and hands it on only at a barrier. Without the baton every
+    """The shared state of the one-card ranks of a mesh line: a barrier, two
+    sets of slots, used in turns, so that one barrier an exchange suffices (a
+    rank writes set t only after every rank has passed the barrier of the
+    exchange that read set t last), and the baton (one for the whole mesh):
+    one rank runs at a time, holding it, and hands it on only at a barrier. Without the baton every
     kernel launch (a ctypes call, which releases the interpreter lock)
     passed the lock to another rank's thread and back: a ring step of the
     65,536-body cluster over 4 ranks took 24.1 ms on the card against 2.5 on
     one card (``chip_smoke.py`` phase 60, an H100 at 700 W), whatever the
     interpreter's switch interval."""
 
-    def __init__(self, size: int):
+    def __init__(self, size: int, baton: Optional[threading.Lock] = None):
         self.size = size
         self.barrier = threading.Barrier(size, timeout=_BARRIER_SECONDS)
-        self.baton = threading.Lock()
+        self.baton = baton or threading.Lock()
         self.sets = ([None] * size, [None] * size)
 
 
@@ -229,24 +239,37 @@ class _GroupComm(Comm):
 
 
 class Mesh:
-    """A 1-D mesh of ranks on one axis: ``axis_names`` (one name), ``shape``
-    ({axis: ranks}), ``device`` (this process's ranks' device), ``comms``
-    (the communicators of the ranks this process runs, in rank order: all P
-    on one-card ranks, one under a process group) and ``ranks`` (their
-    indices). :meth:`run` runs per-rank code on them."""
+    """A mesh of ranks: ``axis_names``, ``shape`` ({axis: ranks}), ``device``
+    (this process's ranks' device), ``ranks`` (the ranks this process runs,
+    in rank order: all of them on one-card ranks, one under a process group;
+    an int on a 1-D mesh, the coordinates' tuple otherwise) and each rank's
+    communicator along each axis (:meth:`axis_comms`; ``comms`` on a 1-D
+    mesh). :meth:`run` runs per-rank code on them."""
 
-    def __init__(self, axis_name: str, size: int, device: torch.device, comms: list,
-                 slots: Optional[_Slots] = None):
-        self.axis_names = (axis_name,)
-        self.shape = {axis_name: size}
+    def __init__(self, axis_names: Sequence[str], sizes: Sequence[int], device: torch.device,
+                 comms: list[dict], coords: list[tuple],
+                 slots: Optional[list[_Slots]] = None):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, sizes))
         self.device = device
-        self.comms = comms
-        self.ranks = [c.rank for c in comms]
+        self._comms = comms
+        self.ranks = [c[0] for c in coords] if len(self.axis_names) == 1 else list(coords)
         self._slots = slots
 
     @property
     def size(self) -> int:
-        return self.shape[self.axis_names[0]]
+        return math.prod(self.shape.values())
+
+    @property
+    def comms(self) -> list:
+        """The communicators of this process's ranks on a 1-D mesh."""
+        if len(self.axis_names) != 1:
+            raise ValueError(f"a mesh of axes {self.axis_names}: name one, axis_comms(axis)")
+        return self.axis_comms(self.axis_names[0])
+
+    def axis_comms(self, axis: str) -> list:
+        """Each of this process's ranks' communicator along ``axis``."""
+        return [c[axis] for c in self._comms]
 
     @property
     def local(self) -> bool:
@@ -255,46 +278,63 @@ class Mesh:
 
     def exchange_seconds(self) -> float:
         """Host seconds this process's ranks spent in collectives, summed."""
-        return sum(c.seconds for c in self.comms)
+        return sum(c.seconds for cs in self._comms for c in cs.values())
 
-    def run(self, fn: Callable, *per_rank) -> list:
-        """``fn(comm, *args)`` for each rank this process runs, ``args`` the
-        rank's entries of the ``per_rank`` sequences (each in ``ranks``
+    def run(self, fn: Callable, *per_rank, axis: Optional[str] = None) -> list:
+        """``fn(comm, *args)`` for each rank this process runs, ``comm`` its
+        communicator along ``axis`` (the only axis of a 1-D mesh), ``args``
+        the rank's entries of the ``per_rank`` sequences (each in ``ranks``
         order); the results in the same order. One-card ranks run a thread
         each, on the caller's current stream and grad mode, one at a time
         between barriers (the baton, ``_Slots``); if one raises, the others
-        are released from their barrier and the first error is raised."""
-        args = list(zip(*per_rank)) if per_rank else [()] * len(self.comms)
-        if len(self.comms) == 1:
-            return [fn(self.comms[0], *args[0])]
+        are released from their barriers and the first error is raised."""
+        comms = self.comms if axis is None else self.axis_comms(axis)
+        args = list(zip(*per_rank)) if per_rank else [()] * len(comms)
+        if len(comms) == 1:
+            return [fn(comms[0], *args[0])]
         stream = (torch.cuda.current_stream(self.device) if self.device.type == "cuda"
                   else None)
         grad = torch.is_grad_enabled()
-        results, errors = [None] * len(self.comms), [None] * len(self.comms)
+        results, errors = [None] * len(comms), [None] * len(comms)
+        baton = self._slots[0].baton
 
         def work(r):
             try:
                 ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
-                with self._slots.baton, ctx, torch.set_grad_enabled(grad):
-                    results[r] = fn(self.comms[r], *args[r])
+                with baton, ctx, torch.set_grad_enabled(grad):
+                    results[r] = fn(comms[r], *args[r])
             except BaseException as exc:  # noqa: BLE001 - re-raised below
                 errors[r] = exc
-                self._slots.barrier.abort()
+                for sl in self._slots:
+                    sl.barrier.abort()
 
         threads = [threading.Thread(target=work, args=(r,), name=f"mesh-rank-{r}")
-                   for r in range(len(self.comms))]
+                   for r in range(len(comms))]
         for t in threads:
             t.start()
         for t in threads:
             t.join()
         if any(e is not None for e in errors):
-            self._slots.barrier.reset()
-            for c in self.comms:
-                c._turn = 0
+            for sl in self._slots:
+                sl.barrier.reset()
+            for cs in self._comms:
+                for c in cs.values():
+                    c._turn = 0
             first = [e for e in errors if e is not None]
             raise next((e for e in first if not isinstance(e, threading.BrokenBarrierError)),
                        first[0])
         return results
+
+
+def _lines(sizes: Sequence[int], k: int) -> list[list[int]]:
+    """The lines of axis ``k`` of a row-major grid of ``sizes``: the flat
+    ranks that differ only in coordinate k, in order, for every setting of
+    the other coordinates (row-major)."""
+    coords = [tuple(int(c) for c in cs) for cs in itertools.product(*map(range, sizes))]
+    lines: dict = {}
+    for r, c in enumerate(coords):
+        lines.setdefault(c[:k] + c[k + 1:], []).append(r)
+    return list(lines.values())
 
 
 def make_mesh(shape: Optional[Sequence[int]] = None,
@@ -307,22 +347,34 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     Otherwise one-card ranks: ``devices`` is one device, or a sequence of
     one device repeated, default ``cuda:0``; ``shape`` defaults to
     ``(len(devices),)``, as the JAX package's all devices on one ``body``
-    axis. Multi-axis meshes are ROADMAP.md queue A item A.15b."""
+    axis. A mesh of several axes needs ``shape`` (one size an axis); its
+    ranks are laid out row-major."""
     axis_names = tuple(axis_names)
-    if len(axis_names) != 1:
-        if shape is None:
-            raise ValueError("shape required for multi-axis meshes")
-        raise NotImplementedError(
-            "multi-axis meshes (the (ensemble x body) mesh) are not ported to "
-            "orbital_tpu_torch yet (ROADMAP.md queue A item A.15b)")
+    if len(axis_names) != 1 and shape is None:
+        raise ValueError("shape required for multi-axis meshes")
+    if shape is not None and len(tuple(shape)) != len(axis_names):
+        raise ValueError(f"shape {tuple(shape)} for axes {axis_names}")
     import torch.distributed as dist
 
     distributed = dist.is_available() and dist.is_initialized()
     if group is not None or (devices is None and distributed):
-        comm = _GroupComm(group)
-        if shape is not None and math.prod(shape) != comm.size:
-            raise ValueError(f"shape {tuple(shape)} does not match the process group's "
-                             f"{comm.size} ranks")
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
+        sizes = (world,) if shape is None else tuple(int(x) for x in shape)
+        if math.prod(sizes) != world:
+            raise ValueError(f"shape {sizes} does not match the process group's "
+                             f"{world} ranks")
+        comms = {}
+        for k, axis in enumerate(axis_names):
+            if len(axis_names) == 1:
+                comms[axis] = _GroupComm(group)
+                continue
+            # every process creates every line's group, in the same order
+            for line in _lines(sizes, k):
+                members = (line if group is None
+                           else [dist.get_global_rank(group, r) for r in line])
+                g = dist.new_group(members)
+                if rank in line:
+                    comms[axis] = _GroupComm(g)
         if devices is not None:
             device = torch.device(devices if isinstance(devices, (str, torch.device))
                                   else devices[0])
@@ -330,13 +382,15 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
             device = torch.device("cuda", torch.cuda.current_device())
         else:
             device = torch.device("cpu")
-        return Mesh(axis_names[0], comm.size, device, [comm])
+        coords = tuple(int(c) for c in _unravel(rank, sizes))
+        return Mesh(axis_names, sizes, device, [comms], [coords])
     if devices is None:
         devices = ["cuda:0"]
     if isinstance(devices, (str, torch.device)):
         devices = [devices]
     devices = [torch.device(d) for d in devices]
-    size = len(devices) if shape is None else math.prod(shape)
+    sizes = (len(devices),) if shape is None else tuple(int(x) for x in shape)
+    size = math.prod(sizes)
     if len(devices) == 1:
         devices = devices * size
     if len(devices) < size:
@@ -345,6 +399,23 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
         raise ValueError(
             "one-card ranks share one device; for one rank a card run one process a card "
             "under torch.distributed (NCCL) and build the mesh there")
-    slots = _Slots(size)
-    return Mesh(axis_names[0], size, devices[0],
-                [_LocalComm(slots, r) for r in range(size)], slots)
+    baton = threading.Lock()
+    comms = [{} for _ in range(size)]
+    slots = []
+    for k, axis in enumerate(axis_names):
+        for line in _lines(sizes, k):
+            sl = _Slots(len(line), baton)
+            slots.append(sl)
+            for pos, r in enumerate(line):
+                comms[r][axis] = _LocalComm(sl, pos)
+    coords = [tuple(int(c) for c in _unravel(r, sizes)) for r in range(size)]
+    return Mesh(axis_names, sizes, devices[0], comms, coords, slots)
+
+
+def _unravel(r: int, sizes: Sequence[int]) -> tuple:
+    """Row-major coordinates of flat rank ``r``."""
+    out = []
+    for s in reversed(sizes):
+        out.append(r % s)
+        r //= s
+    return tuple(reversed(out))

@@ -35,16 +35,22 @@ every rank: P threads on one card, or one process a rank under
     tensors; the draws from ``(frag_seed, step)``, replicated) and slices
     its shard back out. A contact-free step pays the host read and nothing
     else.
-  * ``force_impl="pm"``: ``ops.pm.pm_acc_potential`` with the communicator
-    (the cube by pmin/pmax, one psum of the density grid); with collisions,
-    the count comes from :func:`ring_contacts_fn` after the step.
+  * the mesh solvers: ``force_impl="pm"``, ``ops.pm.pm_acc_potential`` with
+    the communicator (the cube by pmin/pmax, one psum of the density grid);
+    ``"p3m"``, ``ops.p3m.p3m_ring_force`` (PM's pipeline plus the short
+    range's ring on the kernel's two-table form); ``"tree"``,
+    ``ops.tree.tree_sharded_force`` (the far field replicated, the near
+    lists split across the ranks, B7's slice for ``"kernel"``). With
+    collisions, the count comes from :func:`ring_contacts_fn` after the step.
 
 :func:`make_sharded_step` and :func:`make_sharded_rollout` build the whole
 step on every rank. A sharded state is a list of the local shards' states
 (:func:`shard_state`; every shard holds the replicated scalars), and
-:func:`gather_state` assembles the full state. P3M's ring, the sharded
-tree, the sharded RESPA, Hermite under a mesh and the (ensemble x body)
-mesh raise ``NotImplementedError`` naming ROADMAP.md queue A item A.15b.
+:func:`gather_state` assembles the full state.
+:func:`make_sharded_respa_rollout` runs the multirate stepper with the
+closing exact evaluation on the ring and the near sweep split by i chunk;
+:func:`make_sharded_ensemble_step` steps an ensemble over an (ensemble x
+body) mesh. Hermite under a mesh raises (``HERMITE_REFUSAL``).
 """
 from __future__ import annotations
 
@@ -62,15 +68,20 @@ from .mesh import Comm, Mesh
 
 __all__ = ["ring_force_fn", "ring_bounce_fn", "ring_contacts_fn", "make_sharded_step",
            "make_sharded_rollout", "make_sharded_respa_rollout",
-           "make_sharded_ensemble_step", "state_sharding", "shard_state", "gather_state"]
+           "make_sharded_ensemble_step", "state_sharding", "shard_state", "gather_state",
+           "shard_ensemble", "gather_ensemble", "HERMITE_REFUSAL"]
 
-_SHARD_ITEM = "A.15b"
 _BODY_FIELDS = ("pos", "vel", "mass", "radius", "alive", "acc", "pos_lo", "vel_lo", "jerk")
+_SCALAR_FIELDS = ("potential", "time", "step")
 
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to orbital_tpu_torch yet (ROADMAP.md "
-                               f"queue A item {_SHARD_ITEM})")
+# why Hermite under a mesh is refused: the JAX package has no sharded
+# Hermite to hold one against
+HERMITE_REFUSAL = (
+    "integrator='hermite' under a mesh: the JAX package's sharded step "
+    "(orbital_tpu/parallel/sharded.py:393) builds make_step_fn(cfg, force) with no "
+    "accel_jerk_fn, so its Hermite branch (orbital_tpu/engine/integrators.py:272-277) "
+    "evaluates accel_jerk_dense on each shard alone, as if the shard were the whole "
+    "system; there is no reference for an acc + jerk ring, and it is not ported")
 
 
 def _ring_block_impl(cfg: SimConfig, block: int, pos: torch.Tensor) -> str:
@@ -193,13 +204,30 @@ def ring_contacts_fn(cfg: SimConfig, comm: Comm):
 
 
 def _mesh_force_fn(cfg: SimConfig, comm: Comm):
-    """The PM force of one rank (P3M and the tree under a mesh: A.15b)."""
-    if cfg.force_impl in ("p3m", "tree"):
-        raise _not_ported(f"force_impl={cfg.force_impl!r} under a mesh")
-    from ..engine.rollout import _box_on
-    from ..ops.pm import pm_acc_potential
+    """The mesh solver's force of one rank: PM (a local deposit and one psum
+    of the grid), P3M (PM's pipeline plus the short range's ring,
+    ``ops.p3m.p3m_ring_force``) or the tree (the bodies gathered, the far
+    field replicated, the near sweep split across the ranks,
+    ``ops.tree.tree_sharded_force``)."""
+    from ..engine.rollout import _box_on, _tree_kwargs
 
     box = _box_on(cfg)
+    if cfg.force_impl == "tree":
+        from ..ops.tree import tree_sharded_force
+
+        def tree(pos, mass, alive):
+            return tree_sharded_force(pos, mass, alive, comm=comm,
+                                      **_tree_kwargs(cfg, pos.device))
+        return tree
+    if cfg.force_impl == "p3m":
+        from ..ops.p3m import p3m_ring_force
+
+        return lambda pos, mass, alive: p3m_ring_force(
+            pos, mass, alive, G_grav=cfg.G, eps2=cfg.eps2, grid=cfg.pm_grid,
+            capacity=cfg.p3m_capacity, with_potential=cfg.track_potential,
+            box=box(pos.device), comm=comm)
+    from ..ops.pm import pm_acc_potential
+
     return lambda pos, mass, alive: pm_acc_potential(
         pos, mass, alive, G_grav=cfg.G, eps2=cfg.eps2, grid=cfg.pm_grid,
         with_potential=cfg.track_potential, box=box(pos.device), comm=comm)
@@ -287,10 +315,14 @@ def _resolve_gathered_fn(cfg: SimConfig, comm: Comm) -> Callable:
     return fn
 
 
-def _build_local_step(cfg: SimConfig, comm: Comm, use_mesh_solver: bool):
+def _build_local_step(cfg: SimConfig, comm: Comm, use_mesh_solver: bool,
+                      force: Optional[Callable] = None):
     """One rank's step: the KDK (or euler, rk4, yoshida4) stepper on the
-    ring or the sharded PM, then its collision mode."""
-    if use_mesh_solver:
+    ring or a mesh solver (``force``, when given, in its place), then its
+    collision mode."""
+    if force is not None:
+        detect = None
+    elif use_mesh_solver:
         force, detect = _mesh_force_fn(cfg, comm), None
     else:
         force, detect = ring_force_fn(cfg, comm), ring_force_fn(cfg, comm, detect=True)
@@ -315,8 +347,9 @@ def _build_local_step(cfg: SimConfig, comm: Comm, use_mesh_solver: bool):
 
 def _prepare(cfg: SimConfig, mesh: Mesh, state_example: NBodyState,
              axis: Optional[str]) -> tuple[SimConfig, bool]:
-    """The sharded config and its checks: N divides across the shards; what
-    the port leaves to A.15b raises."""
+    """The sharded config and its checks: N divides across the shards, an
+    untileable shard under ``ring_block_impl="pallas"`` and Hermite raise,
+    and RESPA is sent to :func:`make_sharded_respa_rollout`."""
     axis = axis or cfg.shard_axis or "body"
     cfg, use_mesh_solver = _normalize_sharded_cfg(cfg, axis)
     n_shards, n_bodies = mesh.shape[axis], state_example.n_bodies
@@ -326,9 +359,10 @@ def _prepare(cfg: SimConfig, mesh: Mesh, state_example: NBodyState,
     if not use_mesh_solver:  # an untileable shard under "pallas" raises here
         _ring_block_impl(cfg, n_bodies // n_shards, state_example.pos)
     if cfg.integrator == "respa":
-        raise _not_ported("the sharded RESPA rollout (make_sharded_respa_rollout)")
+        raise ValueError("integrator='respa' under a mesh runs through "
+                         "make_sharded_respa_rollout")
     if cfg.integrator == "hermite":
-        raise _not_ported("integrator='hermite' under a mesh (an acc + jerk ring)")
+        raise NotImplementedError(HERMITE_REFUSAL)
     if (cfg.collisions != "none" and mesh.device.type == "cuda"
             and state_example.dtype == torch.float64):
         raise NotImplementedError(
@@ -345,8 +379,11 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh, state_example: NBodyState,
     shifts, one psum of the potential, with collisions one psum of the
     count); ``force_impl="pm"`` runs no ring: pmin/pmax agree the cube
     (skipped with a pinned ``cfg.pm_box``) and one psum of the G^3 grid
-    makes the density global. Collision modes add their own: bounce the
-    impulse ring, merge and resolve a gather on contact steps."""
+    makes the density global; ``"p3m"`` adds its short range's ring (P - 1
+    shifts of the visiting shard's bodies); ``"tree"`` gathers the bodies,
+    psums its near sums and takes psum(U) / P. Collision modes add their
+    own: bounce the impulse ring, merge and resolve a gather on contact
+    steps."""
     cfg, use_mesh_solver = _prepare(cfg, mesh, state_example, axis)
     steps = [_build_local_step(cfg, comm, use_mesh_solver) for comm in mesh.comms]
 
@@ -357,21 +394,31 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh, state_example: NBodyState,
 
 
 def make_sharded_rollout(cfg: SimConfig, mesh: Mesh, state_example: NBodyState, steps: int,
-                         record_every: int = 0, axis: Optional[str] = None):
+                         record_every: int = 0, axis: Optional[str] = None,
+                         _force_for: Optional[Callable] = None):
     """A multi-step sharded rollout with strided recording: ``roll(shards)
     -> (shards, Trajectory or None)``. Each rank runs its loop of steps (the
     single-device ``engine.rollout.rollout``'s, collectives inside); the
     records are the global [R, N, ...] arrays, assembled after the run (a
     collective under a process group), and the energy and angular momentum
     records are global (K and L psum'd, U from the ring). With
-    ``record_every=0`` nothing is recorded and the second return is None."""
-    from ..engine.rollout import Trajectory
-    from ..ops import diagnostics as diag
-
+    ``record_every=0`` nothing is recorded and the second return is None.
+    ``_force_for(comm)``, when given, makes each rank's force in place of
+    the config's (the staged tree keeps its overflow this way)."""
     cfg, use_mesh_solver = _prepare(cfg, mesh, state_example, axis)
     if record_every > 0 and steps % record_every != 0:
         raise ValueError(f"steps={steps} not divisible by record_every={record_every}")
-    step_fns = [_build_local_step(cfg, comm, use_mesh_solver) for comm in mesh.comms]
+    step_fns = [_build_local_step(cfg, comm, use_mesh_solver,
+                                  None if _force_for is None else _force_for(comm))
+                for comm in mesh.comms]
+    return _sharded_roll(mesh, steps, record_every, step_fns)
+
+
+def _sharded_roll(mesh: Mesh, steps: int, record_every: int, step_fns: list):
+    """``roll(shards) -> (shards, Trajectory or None)`` over each rank's
+    ``step_fns`` entry (see :func:`make_sharded_rollout`)."""
+    from ..engine.rollout import Trajectory
+    from ..ops import diagnostics as diag
 
     def snapshot(comm: Comm, s: NBodyState) -> dict:
         pos, vel = s.pos_full(), s.vel_full()
@@ -416,11 +463,203 @@ def make_sharded_rollout(cfg: SimConfig, mesh: Mesh, state_example: NBodyState, 
     return roll
 
 
-def make_sharded_respa_rollout(*args, **kwargs):
-    """The sharded multirate rollout of the JAX package: not ported yet."""
-    raise _not_ported("make_sharded_respa_rollout")
+def make_sharded_respa_rollout(cfg: SimConfig, mesh: Mesh, state_example: NBodyState,
+                               steps: int, record_every: int = 0,
+                               axis: Optional[str] = None):
+    """The multirate (RESPA) rollout over a body-sharded mesh: ``roll(shards)
+    -> (shards, Trajectory or None, diag)``, ``diag`` the window-max
+    counters as ``engine.multirate.respa_rollout`` returns them.
+
+    Each rank gathers the whole state once and runs the macro windows on
+    it replicated (``make_respa_macro(shard=comm)``): the neighbour
+    geometry, pack and unpack and the elementwise substeps on every rank;
+    each substep's near sweep on the rank's 1/P of the i chunks (the
+    sweep's ``i0``: ``near_acc_slots_rows_cuda`` on CUDA tensors) and one
+    all-gather of the slot rows; the closing exact evaluation on the rank's
+    shard over the ring (:func:`ring_force_fn`, B3 rounds) and one
+    all-gather of the acc rows. The records are the replicated state's
+    snapshots. With collisions, the detecting closing evaluation and the
+    collision step run replicated on the whole state, as in the JAX
+    package. ``respa_max_chunks`` must divide across the ranks and the
+    worklist be off (``respa_wl_entries`` = 0): ``simulate(mesh=)`` sizes
+    them so."""
+    from ..engine.multirate import _DIAG_KEYS, make_respa_macro
+    from ..engine.rollout import Trajectory, _snapshot, resolve_force_detect_fn
+
+    axis = axis or cfg.shard_axis or "body"
+    cfg = cfg.replace(shard_axis=axis)
+    P, n, K = mesh.shape[axis], state_example.n_bodies, int(cfg.respa_k)
+    if n % P:
+        raise ValueError(f"N={n} must divide across {P} shards (pad via "
+                         f"make_state(pad_to=...))")
+    if steps % K:
+        raise ValueError(f"steps={steps} must divide by respa_k={K}")
+    if record_every > 0 and (record_every % K or steps % record_every):
+        raise ValueError(f"record_every={record_every} must be a multiple of respa_k={K} "
+                         f"and divide steps={steps}")
+    block = n // P
+    ring_cfg = cfg.replace(force_impl="ring")
+    _ring_block_impl(ring_cfg, block, state_example.pos)
+
+    def build(comm: Comm):
+        ring = ring_force_fn(ring_cfg, comm)
+        rows = slice(comm.rank * block, (comm.rank + 1) * block)
+
+        def force_full(pos, mass, alive):
+            acc_l, U = ring(pos[rows], mass[rows], alive[rows])
+            return comm.all_gather(acc_l), U
+        fd = (resolve_force_detect_fn(cfg, n, mesh.device, state_example.dtype)
+              if cfg.collisions != "none" else None)
+        return make_respa_macro(cfg, force_full, force_detect_fn=fd, shard=comm)
+
+    macros = [build(comm) for comm in mesh.comms]
+    M, n_macros = int(cfg.respa_refresh), steps // K
+    per_record = record_every // K if record_every > 0 else 0
+
+    def local_roll(comm: Comm, macro, s_local: NBodyState):
+        s = _gather_state_full(comm, s_local)
+        diag = {k: torch.zeros((), dtype=torch.int32, device=s.device) for k in _DIAG_KEYS}
+        geom = macro.build_geom(s)
+        records = None
+        for i in range(n_macros):
+            if i % M == 0 and i > 0:
+                geom = macro.build_geom(s)
+            s, d = macro(s, geom)
+            diag = {k: torch.maximum(diag[k], d[k]) for k in diag}
+            if per_record and (i + 1) % per_record == 0:
+                snap = _snapshot(s)
+                if records is None:
+                    records = {k: torch.empty((steps // record_every,) + tuple(v.shape),
+                                              dtype=v.dtype, device=v.device)
+                               for k, v in snap.items()}
+                for k, v in snap.items():
+                    records[k][(i + 1) // per_record - 1] = v
+        return _slice_state_local(comm, s, block), records, diag
+
+    def roll(shards: list[NBodyState]):
+        out = mesh.run(local_roll, macros, shards)
+        traj = Trajectory(**out[0][1]) if per_record else None
+        return [o[0] for o in out], traj, out[0][2]
+
+    return roll
 
 
-def make_sharded_ensemble_step(*args, **kwargs):
-    """The (ensemble x body) mesh step of the JAX package: not ported yet."""
-    raise _not_ported("make_sharded_ensemble_step (the (ensemble x body) mesh)")
+def shard_ensemble(mesh: Mesh, states: NBodyState, ensemble_axis: str = "ensemble",
+                   body_axis: str = "body") -> list[NBodyState]:
+    """A batched state (every field with a leading member axis, as
+    ``parallel.ensemble`` makes them) cut for an (ensemble x body) mesh: each
+    of this process's ranks, in ``mesh.ranks`` order, gets its block of
+    members and, of those, its block of bodies (the per-member scalars by
+    member block only)."""
+    E, n = states.pos.shape[0], states.pos.shape[1]
+    n_e, n_b = mesh.shape[ensemble_axis], mesh.shape[body_axis]
+    if E % n_e or n % n_b:
+        raise ValueError(f"{E} members x {n} bodies must divide across the mesh's "
+                         f"{n_e} x {n_b} ranks")
+    ke, kb = mesh.axis_names.index(ensemble_axis), mesh.axis_names.index(body_axis)
+    states = _to(states, mesh.device)
+    out = []
+    for coords in mesh.ranks:
+        m = slice(coords[ke] * (E // n_e), (coords[ke] + 1) * (E // n_e))
+        b = slice(coords[kb] * (n // n_b), (coords[kb] + 1) * (n // n_b))
+        out.append(NBodyState(**{
+            f.name: None if getattr(states, f.name) is None
+            else getattr(states, f.name)[m, b] if f.name in _BODY_FIELDS
+            else getattr(states, f.name)[m] for f in dataclasses.fields(NBodyState)}))
+    return out
+
+
+def gather_ensemble(mesh: Mesh, shards: list[NBodyState], ensemble_axis: str = "ensemble",
+                    body_axis: str = "body") -> NBodyState:
+    """The batched state of an (ensemble x body) mesh's shards: on one-card
+    ranks from the list; under a process group a collective (each member
+    block gathered over its body line, then the blocks over the ensemble
+    line)."""
+    ke, kb = mesh.axis_names.index(ensemble_axis), mesh.axis_names.index(body_axis)
+
+    def field(f: str, parts) -> torch.Tensor:
+        return torch.cat(parts, dim=1 if f in _BODY_FIELDS else 0)
+
+    names = [f.name for f in dataclasses.fields(NBodyState)]
+    if not mesh.local:
+        s = shards[0]
+        b_comm, e_comm = mesh.axis_comms(body_axis)[0], mesh.axis_comms(ensemble_axis)[0]
+        out = {}
+        for f in names:
+            v = getattr(s, f)
+            if v is None:
+                out[f] = None
+                continue
+            if f in _BODY_FIELDS:  # bodies along dim 1: gather them on dim 0
+                v = b_comm.all_gather(v.transpose(0, 1).contiguous()).transpose(0, 1)
+            out[f] = e_comm.all_gather(v.contiguous())
+        return NBodyState(**out)
+    n_e, n_b = mesh.shape[ensemble_axis], mesh.shape[body_axis]
+    grid = {(c[ke], c[kb]): sh for c, sh in zip(mesh.ranks, shards)}
+    rows = [NBodyState(**{f: None if getattr(grid[(e, 0)], f) is None else
+                          (field(f, [getattr(grid[(e, b)], f) for b in range(n_b)])
+                           if f in _BODY_FIELDS else getattr(grid[(e, 0)], f))
+                          for f in names}) for e in range(n_e)]
+    return NBodyState(**{f: None if getattr(rows[0], f) is None else
+                         torch.cat([getattr(r, f) for r in rows], dim=0) for f in names})
+
+
+def make_sharded_ensemble_step(cfg: SimConfig, mesh: Mesh, state_example: NBodyState,
+                               ensemble_axis: str = "ensemble", body_axis: str = "body"):
+    """The step of an ensemble over an (ensemble x body) mesh: returns
+    ``(step, place)``, ``place(states)`` cutting a batched state (leading
+    member axis on every field) into the ranks' shards
+    (:func:`shard_ensemble`) and ``step(shards) -> shards``;
+    :func:`gather_ensemble` assembles the batched state.
+
+    Each rank holds a block of members x a block of bodies and steps its
+    members one after another (the JAX package ``vmap``s them): each
+    member's step is the body-sharded step over the rank's ``body_axis``
+    line (the ring, or a mesh solver), so the members stay independent.
+    As under the JAX package's ``vmap``, which turns the contact gate into
+    a select, collisions run every step without a gate: bounce's impulse
+    ring, and merge or resolve on the member's gathered bodies (their lo
+    words reset every step); each member's resolve draws follow its own
+    step counter."""
+    cfg, use_mesh_solver = _normalize_sharded_cfg(cfg, body_axis)
+    n_b = mesh.shape[body_axis]
+    n = state_example.pos.shape[-2]
+    if n % n_b:
+        raise ValueError(f"N={n} must divide across {n_b} shards")
+    if cfg.integrator == "hermite":
+        raise NotImplementedError(HERMITE_REFUSAL)
+    if cfg.integrator == "respa":
+        raise ValueError("integrator='respa' has no (ensemble x body) mesh step")
+    block = n // n_b
+    if not use_mesh_solver:
+        _ring_block_impl(cfg, block, state_example.pos)
+
+    def build(comm: Comm):
+        force = _mesh_force_fn(cfg, comm) if use_mesh_solver else ring_force_fn(cfg, comm)
+        kdk = make_step_fn(cfg.replace(collisions="none"), force)
+        if cfg.collisions == "none":
+            return kdk
+        if cfg.collisions == "bounce":
+            bounce = ring_bounce_fn(cfg, comm)
+            return lambda s: _apply_collisions(cfg, kdk(s), None, bounce=bounce)
+
+        def gathered(s: NBodyState) -> NBodyState:
+            s = kdk(s)
+            full = _apply_collisions(cfg, _gather_state_full(comm, s), None)
+            return _slice_state_local(comm, full, block)
+        return gathered
+
+    steps = [build(comm) for comm in mesh.axis_comms(body_axis)]
+
+    def local(comm: Comm, one, batch: NBodyState) -> NBodyState:
+        from .ensemble import _member, _stack
+
+        return _stack([one(_member(batch, e)) for e in range(batch.pos.shape[0])])
+
+    def step(shards: list[NBodyState]) -> list[NBodyState]:
+        return mesh.run(local, steps, shards, axis=body_axis)
+
+    def place(states: NBodyState) -> list[NBodyState]:
+        return shard_ensemble(mesh, states, ensemble_axis, body_axis)
+
+    return step, place

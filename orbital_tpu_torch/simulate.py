@@ -13,8 +13,8 @@ exact-force variants (``force_impl="pallas_sym"``, ``"mxu"``,
 four near modes with probe-sized budgets and ``tree_accuracy=``, and the
 mesh solvers (``force_impl="pm"`` and ``"p3m"``) on an auto-pinned cube,
 and the body-sharded rollout over a mesh (``mesh=``, ``shard_axis=``: the
-exact-force ring with every collision mode, and PM; the sharded P3M, tree
-and RESPA are ROADMAP.md queue A item A.15b).
+exact-force ring with every collision mode, PM, P3M's ring, the sharded
+tree with its staged route, and the sharded RESPA).
 """
 from __future__ import annotations
 
@@ -50,12 +50,16 @@ _STAGED_MIN_N = 524288
 
 def _respa_fields(scene: SceneArrays, steps: int, dt: float, softening: float,
                   rescale: Rescale, *, respa_k: int, respa_rc: float, respa_r1: float,
-                  respa_cell: float, respa_impl: str, respa_refresh: int) -> dict:
+                  respa_cell: float, respa_impl: str, respa_refresh: int,
+                  shards: int = 0) -> dict:
     """The ``respa_*`` fields of the config in internal units: rc defaults
     to 5 softening lengths, the cell to the larger of 2 rc and rc plus twice
     the distance the 99th-percentile speed covers in one frozen-geometry
     window (each body may move half the skin), and the budgets come from the
-    probe with a chunk of 32 and blocks of 4 chunks."""
+    probe with a chunk of 32 and blocks of 4 chunks. Over ``shards`` mesh
+    ranks the chunk budget is rounded up to a multiple of lcm(8, shards), so
+    that each rank sweeps as many chunks, and the worklist is off (it
+    compacts its entries globally and does not split)."""
     if steps % respa_k:
         raise ValueError(f"steps={steps} must divide by respa_k={respa_k}")
     eps2_i = (softening / rescale.length) ** 2
@@ -73,6 +77,9 @@ def _respa_fields(scene: SceneArrays, steps: int, dt: float, softening: float,
                      rc_i + 4.0 * respa_refresh * respa_k * (dt / rescale.time) * v99)
     m_grid, k_ch, w_blk, wl_q = neighbor_budgets(pos_i, cell=cell_i, chunk=32, rj=4,
                                                   with_wl=True)
+    if shards:
+        mult = int(np.lcm(8, shards))
+        k_ch, wl_q = -(-k_ch // mult) * mult, 0
     return dict(respa_k=respa_k, respa_rc=rc_i,
                 respa_r1=respa_r1 / rescale.length if respa_r1 else 0.0,
                 respa_cell=cell_i, respa_m=m_grid, respa_max_chunks=k_ch,
@@ -319,7 +326,7 @@ def simulate(
     respa_impl: str = "auto",
     respa_refresh: int = 1,
     pm_grid: int = 64,
-    p3m_capacity: Union[int, str] = 64,
+    p3m_capacity: Union[int, str] = "auto",
     pm_box: Optional[tuple] = None,
     tree_levels: Union[int, str] = 6,
     tree_capacity: Union[int, str] = "auto",
@@ -417,8 +424,12 @@ def simulate(
     merge or resolve across shards, and PM keeps its solver with one psum
     of the density grid. The state is built and its first force evaluation
     made on ``device``, then cut into the mesh's shards; ``final_state`` is
-    the gathered full state. P3M, the tree and RESPA under a mesh raise
-    (ROADMAP.md queue A item A.15b), as does Hermite.
+    the gathered full state. P3M rings its short range, the tree splits its
+    near sweep (and takes its staged route past the thresholds above), and
+    RESPA runs ``parallel.sharded.make_sharded_respa_rollout`` with its
+    chunk budget rounded to divide across the ranks and no worklist.
+    Hermite under a mesh raises: the JAX package has no sharded Hermite to
+    hold it against (``parallel.sharded.HERMITE_REFUSAL``).
     """
     if isinstance(scene, System):
         scene = compile_system(scene)
@@ -429,12 +440,10 @@ def simulate(
         raise TypeError("simulate() takes a System, an ObjectCollection, a list of Object "
                         f"or SceneArrays, got {type(scene).__name__}")
     device = torch.device(device)
-    if mesh is not None and (force_impl in ("p3m", "tree") or integrator in ("respa",
-                                                                             "hermite")):
-        what = (f"force_impl={force_impl!r}" if force_impl in ("p3m", "tree")
-                else f"integrator={integrator!r}")
-        raise NotImplementedError(f"simulate(mesh=...) with {what} is not ported to "
-                                  "orbital_tpu_torch yet (ROADMAP.md queue A item A.15b)")
+    if mesh is not None and integrator == "hermite":
+        from .parallel.sharded import HERMITE_REFUSAL
+
+        raise NotImplementedError(HERMITE_REFUSAL)
     if precision is None:
         precision = "f64" if device.type == "cpu" else "ds32"
     if rescale is None:
@@ -471,7 +480,8 @@ def simulate(
         respa_fields = _respa_fields(scene, steps, dt, softening, rescale, respa_k=respa_k,
                                      respa_rc=respa_rc, respa_r1=respa_r1,
                                      respa_cell=respa_cell, respa_impl=respa_impl,
-                                     respa_refresh=respa_refresh)
+                                     respa_refresh=respa_refresh,
+                                     shards=0 if mesh is None else mesh.shape[shard_axis])
     cfg = SimConfig(
         **respa_fields,
         dt=dt / rescale.time,
@@ -520,23 +530,28 @@ def simulate(
         raise ValueError(
             f"N={state.n_bodies} must divide across the mesh's "
             f"{mesh.shape[shard_axis]} '{shard_axis}' shards")
-    if mesh is not None:
-        from .parallel.sharded import gather_state, make_sharded_rollout, shard_state
-
-        state = init_forces(state, cfg)
-        roll = make_sharded_rollout(cfg, mesh, state, steps, record_every, axis=shard_axis)
-        shards, traj = roll(shard_state(mesh, state, shard_axis))
-        final = gather_state(mesh, shards)
-    elif staged:
-        final, traj, overflow = rollout_staged(init_forces_staged(state, cfg), cfg, steps,
-                                               record_every)
+    sharded = dict(mesh=mesh, shard_axis=shard_axis)
+    if staged:
+        final, traj, overflow = rollout_staged(init_forces_staged(state, cfg, **sharded), cfg,
+                                               steps, record_every, **sharded)
         if overflow:
             warnings.warn(
                 f"tree near-field overflow {overflow} during the staged rollout: budgets "
                 "sized from the initial distribution were outgrown mid-run; re-run in "
                 "shorter segments.", RuntimeWarning, stacklevel=2)
     elif integrator == "respa":
-        final, traj, rdiag = respa_rollout(init_forces(state, cfg), cfg, steps, record_every)
+        if mesh is not None:
+            from .parallel.sharded import (gather_state, make_sharded_respa_rollout,
+                                           shard_state)
+
+            state = init_forces(state, cfg)
+            roll = make_sharded_respa_rollout(cfg, mesh, state, steps, record_every,
+                                              axis=shard_axis)
+            shards, traj, rdiag = roll(shard_state(mesh, state, shard_axis))
+            final = gather_state(mesh, shards)
+        else:
+            final, traj, rdiag = respa_rollout(init_forces(state, cfg), cfg, steps,
+                                               record_every)
         overflow, skin = int(rdiag["overflow"]), int(rdiag["skin_violation"])
         if overflow or skin:
             warnings.warn(
@@ -544,6 +559,13 @@ def simulate(
                 f"skin_violation={skin}): near pairs may have been missed; enlarge "
                 "respa_cell (skin) or re-run in segments so budgets re-size.",
                 RuntimeWarning, stacklevel=2)
+    elif mesh is not None:
+        from .parallel.sharded import gather_state, make_sharded_rollout, shard_state
+
+        state = init_forces(state, cfg)
+        roll = make_sharded_rollout(cfg, mesh, state, steps, record_every, axis=shard_axis)
+        shards, traj = roll(shard_state(mesh, state, shard_axis))
+        final = gather_state(mesh, shards)
     else:
         final, traj = rollout(init_forces(state, cfg), cfg, steps, record_every)
     if force_impl == "tree" and _tree_outgrown(cfg, final):

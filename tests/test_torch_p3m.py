@@ -211,8 +211,14 @@ def test_probes_match_jax():
         ts = tot.make_state(pos, np.zeros_like(pos), mass, precision="f32", device="cpu")
         tcfg = tot.SimConfig(**dataclasses.asdict(jcfg))
         assert tp3m.p3m_overflow_probe(ts, tcfg) == jp3m.p3m_overflow_probe(js, jcfg)
-    with pytest.raises(NotImplementedError, match="A.15"):
-        tp3m.p3m_ring_force()
+    # the body-sharded ring runs (ported): over one rank it is the single-card
+    # solve, bit for bit
+    tp, tm, ta = _t(pos, mass, alive)
+    kw = dict(G_grav=1.0, eps2=1e-4, grid=64, capacity=64)
+    a_r, U_r = tot.make_mesh(shape=(1,), devices="cpu").run(
+        lambda c: tp3m.p3m_ring_force(tp, tm, ta, comm=c, **kw))[0]
+    a_1, U_1, _ = tp3m.p3m_acc_potential(tp, tm, ta, **kw)
+    assert torch.equal(a_r, a_1) and torch.equal(U_r, U_1)
     with pytest.raises(ValueError, match="the P3M solver requires eps2 > 0"):
         tp3m.p3m_acc_potential(*_t(pos, mass), G_grav=1.0, eps2=0.0)
 

@@ -471,12 +471,15 @@ def test_unported_respa_paths_raise():
     cfg = tot.SimConfig(dt=1e-3, eps2=1e-4, integrator="respa", respa_rc=0.1,
                         respa_cell=0.2, respa_chunk=CHUNK, respa_rj=RJ, respa_max_chunks=16,
                         respa_w_blk=4, respa_m=8)
-    with pytest.raises(NotImplementedError, match="A.15"):
-        tmr.make_respa_macro(cfg, None, shard=("body", 2))
+    # the mesh variant and the sweep's row offset are ported (A.15b): the
+    # sharded macro builds on a rank's communicator, and the offset sweep
+    # returns its chunks' rows
+    comm = tot.make_mesh(shape=(2,), devices="cpu").comms[1]
+    assert callable(tmr.make_respa_macro(cfg, None, shard=comm).build_geom)
     z = torch.zeros((32 * CHUNK,))
-    with pytest.raises(NotImplementedError, match="A.15"):
-        tn.near_acc_slots(z, z, z, z, torch.zeros((16, 4), dtype=torch.int32),
-                          i0=torch.tensor(0), **SWEEP)
+    acc, pe = tn.near_acc_slots(z, z, z, z, torch.zeros((8, 4), dtype=torch.int32),
+                                i0=8, **SWEEP)
+    assert acc.shape == (8 * CHUNK, 3) and pe.shape == (8 * CHUNK,)
     # resolve (ROADMAP A.7b) is ported: its macro step builds
     assert callable(tmr.make_respa_macro(cfg.replace(collisions="resolve"), None).build_geom)
     assert callable(tmr.make_respa_macro(cfg.replace(collisions="merge"), None).build_geom)

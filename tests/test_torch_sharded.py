@@ -51,6 +51,7 @@ from orbital_tpu_torch.ops import collisions as tcoll
 from orbital_tpu_torch.ops import cuda_collisions, cuda_forces
 from orbital_tpu_torch.parallel import mesh as tmesh
 from orbital_tpu_torch.parallel import sharded as tsh
+from orbital_tpu_torch.parallel.ensemble import _stack
 from orbital_tpu_torch.utils import kernels
 
 # pytest-xdist workers share the cores: one full set of torch's spinning
@@ -133,8 +134,9 @@ def test_make_mesh_and_errors():
     assert tmesh.BODY_AXIS == "body" and tmesh.ENSEMBLE_AXIS == "ensemble"
     with pytest.raises(ValueError, match="shape required"):
         tot.make_mesh(axis_names=("ensemble", "body"), devices="cpu")
-    with pytest.raises(NotImplementedError, match="A.15b"):
-        tot.make_mesh(shape=(2, 4), axis_names=("ensemble", "body"), devices="cpu")
+    # the (ensemble x body) mesh is ported (A.15b): it builds
+    assert tot.make_mesh(shape=(2, 4), axis_names=("ensemble", "body"),
+                         devices="cpu").shape == {"ensemble": 2, "body": 4}
     with pytest.raises(ValueError, match="one device"):
         tot.make_mesh(devices=["cpu", "meta"])
     with pytest.raises(ValueError, match="over 2 devices"):
@@ -638,20 +640,33 @@ def test_sharded_refusals():
     with pytest.raises(ValueError, match="ring_block_impl='pallas' needs eps2 > 0"):
         tot.make_sharded_step(cfg.replace(ring_block_impl="pallas", eps2=0.0), _mesh(1),
                               tot.make_state(*_cluster(128), precision="f32", device="cpu"))
-    for kw in (dict(force_impl="p3m"), dict(force_impl="tree"), dict(integrator="hermite")):
-        with pytest.raises(NotImplementedError, match="A.15b"):
-            tot.make_sharded_step(cfg.replace(**kw), _mesh(2), st)
-    for fn in (tsh.make_sharded_respa_rollout, tsh.make_sharded_ensemble_step):
-        with pytest.raises(NotImplementedError, match="A.15b"):
-            fn(cfg, _mesh(2), st)
+    # P3M's ring, the sharded tree, the sharded RESPA and the (ensemble x
+    # body) step are ported (A.15b): they build; Hermite under a mesh still
+    # raises, for want of a JAX reference
+    for kw in (dict(force_impl="p3m"), dict(force_impl="tree")):
+        assert callable(tot.make_sharded_step(cfg.replace(**kw), _mesh(2), st))
+    with pytest.raises(NotImplementedError, match="accel_jerk_fn"):
+        tot.make_sharded_step(cfg.replace(integrator="hermite"), _mesh(2), st)
+    rcfg = cfg.replace(integrator="respa", respa_rc=0.1, respa_cell=0.2, respa_chunk=8,
+                       respa_rj=16, respa_max_chunks=16, respa_w_blk=4, respa_m=8)
+    assert callable(tsh.make_sharded_respa_rollout(rcfg, _mesh(2), st, 8))
+    batched = _stack([st, st])
+    step, place = tsh.make_sharded_ensemble_step(
+        cfg, tot.make_mesh(shape=(2, 2), axis_names=("ensemble", "body"), devices="cpu"),
+        batched)
+    assert callable(step) and len(place(batched)) == 4
     scene = tot.models.scene.SceneArrays(pos=pos[:60], vel=vel[:60], mass=mass[:60],
                                          radius=np.zeros(60), names=["b"] * 60)
     with pytest.raises(ValueError, match="must divide across the mesh's 8 'body' shards"):
         tot.simulate(scene, steps=2, dt=1e-3, softening=1e-2, device="cpu", mesh=_mesh(8))
-    for kw in (dict(force_impl="p3m"), dict(force_impl="tree"), dict(integrator="respa")):
-        with pytest.raises(NotImplementedError, match="A.15b"):
-            tot.simulate(scene, steps=8, dt=1e-3, softening=1e-2, device="cpu",
-                         mesh=_mesh(2), **kw)
+    for kw in (dict(force_impl="p3m", pm_grid=16), dict(force_impl="tree", tree_levels=3),
+               dict(integrator="respa")):
+        res = tot.simulate(scene, steps=8, dt=1e-3, softening=1e-2, device="cpu",
+                           mesh=_mesh(2), **kw)
+        assert res.final_state.n_bodies == 60 and np.isfinite(res.pos).all()
+    with pytest.raises(NotImplementedError, match="accel_jerk_fn"):
+        tot.simulate(scene, steps=8, dt=1e-3, softening=1e-2, device="cpu", mesh=_mesh(2),
+                     integrator="hermite")
 
 
 def test_gloo_processes_match_the_one_card_mesh(tmp_path):

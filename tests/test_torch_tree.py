@@ -498,8 +498,9 @@ def test_unported_near_modes_raise(near):
 
 def test_unported_tree_options_raise(blob):
     """tree_accuracy= (A.13 once raised here) now walks the (order, ws)
-    ladder and takes the JAX package's rung; the sharded tree still raises
-    naming A.15, and Hermite on the tree still raises."""
+    ladder and takes the JAX package's rung; the sharded tree (A.15 once
+    raised here) now sums its near sweep in parts, and Hermite on the tree
+    still raises."""
     import importlib
 
     jsim = importlib.import_module("orbital_tpu.simulate")
@@ -514,9 +515,15 @@ def test_unported_tree_options_raise(blob):
         js, target=1e-1, tree_near="columns", tree_levels=3, tree_capacity="auto")
     assert (c.tree_order, c.tree_ws, c.tree_capacity, c.tree_max_cells) == \
         (jc.tree_order, jc.tree_ws, jc.tree_capacity, jc.tree_max_cells)
-    with pytest.raises(NotImplementedError, match="A.15"):
-        tt.tree_acc_potential(*_t(pos, mass), G_grav=1.0, eps2=EPS2, near="kernel",
-                              wl_entries=64, _n_parts=2)
+    # the sharded tree is ported (A.15b): the near sweep of two parts adds up
+    # to the whole sweep
+    kw = dict(G_grav=1.0, eps2=EPS2, near="kernel", levels=4, box=_t(*BOX), _phase="near",
+              **dict(zip(("max_chunks", "wl_entries"), tw.tree_wl_budgets(
+                  pos, None, levels=4, chunk=CHUNK, rj=RJ, box=BOX))), chunk=CHUNK, wl_rj=RJ)
+    whole = tt.tree_acc_potential(*_t(pos, mass), **kw)[0]
+    parts = sum(tt.tree_acc_potential(*_t(pos, mass), _n_parts=2, _part_index=r, **kw)[0]
+                for r in range(2))
+    assert float((parts - whole).abs().max()) <= 1e-6 * float(whole.abs().max())
     cfg = tot.SimConfig(dt=1.0, eps2=EPS2, force_impl="tree", tree_near="kernel",
                         integrator="hermite")
     with pytest.raises(ValueError, match="hermite"):
