@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--drift-steps 1000] [--seed 0]
     python3 chip_smoke.py [--sweep] [--parent DIR]
+    python3 chip_smoke.py --ring-variants
 
 With ``--parent DIR`` (a checkout of another commit, e.g. unpacked by
 ``git archive``) it runs phases 1-2 and then only holds B1, B2, B3 (on
@@ -26,10 +27,17 @@ in turns (B7 at 65,536 and 1,048,576 bodies, B4 at 4,096 and 32,768 in
 ds32 and f32, the root search at a count > 0 and at 0, the ensemble kernel
 at 128, 1,024 and 8,192 config-5 members, held to its plain version), and
 the block macro step on each tree's row subset (its time and the host's
-time to queue it). A source whose C signature predates its redesign (the
-near sweep's, B4's, the row subset's, the P3M short range's and the
-ensemble kernel's first versions) runs through ``FIRST_SIGNATURES``. With
-``--sweep`` it runs phases 1-2 and then builds the launch shapes of
+time to queue it); and the ring's kernels at its shard shapes (B3 and B3
+detect at RING_B^2 and RING_B8^2, P3M's two-table round at RING_P ranks
+from its tables, and that round alone with its views, or the table form's
+orders, built before). A source whose C signature predates its redesign
+(the near sweep's, B4's, the row subset's, the P3M short range's first and
+table forms, B3's first block form and the ensemble kernel's first
+version) runs through ``FIRST_SIGNATURES``. With
+``--ring-variants`` it runs phases 1-2 and then builds B3's block kernel and
+P3M's sum at the launch shapes of RING_VARIANTS (``-D`` overrides), holds
+each against this build and times them in turns at the ring's shard shapes.
+With ``--sweep`` it runs phases 1-2 and then builds the launch shapes of
 ``SWEEP`` (``-D`` overrides of the eight sources' shape macros), holds each
 against the plain versions and times them in turns, with the registers,
 spills and SASS instructions a pair of each.
@@ -39,8 +47,9 @@ Phases, one line of output each; any failure exits nonzero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``orbital_tpu_torch/csrc``, one nvcc per
      source, all at once; the launch shape, registers, spills and SASS
-     instructions a pair (``cuobjdump -sass``) of B1, B2, B3, B4, B5, B5
-     detect, B13 (with the TF32 HMMA of its inner loop, which must be
+     instructions a pair (``cuobjdump -sass``) of B1, B2, B3 and B3 detect
+     (their block kernel's shape and plans at the ring's shard shapes), B4,
+     B5, B5 detect, B13 (with the TF32 HMMA of its inner loop, which must be
      there), B6, B12, B7 and the near sweep, the shape, registers and spills
      of the B5 row subset, the P3M short range (with the SASS instructions a
      visited pair of its polynomial sweep) and the contact sweep's two modes,
@@ -289,8 +298,9 @@ Phases, one line of output each; any failure exits nonzero:
      ``orbital_tpu_torch/compat/core`` on the card, in a fresh process with
      no JAX imported;
  51. the multi-device ring's kernels at the bench row's shard shape
-     (RING_B x RING_B): B3 with detection (B3D) integer-equal in its count
-     to its plain version and bit-equal to B3 in acc and pe, and the block
+     (RING_B x RING_B, and RING_B8 x RING_B8 for B3D): B3 with detection
+     (B3D) integer-equal in its count to its plain version and bit-equal to
+     B3 in acc and pe, its acc within FORCE_RTOL of the plain one, and the block
      bounce (BB) within BOUNCE_RTOL of its plain version, zeros at count 0,
      at the contact-rich radius and the bench row's, on shards with a third
      dead, and the bounce on a ragged pair of blocks with a third dead;
@@ -320,19 +330,27 @@ Phases, one line of output each; any failure exits nonzero:
      over NCCL (a ``file://`` store), RING_NCCL_STEPS recorded merge steps at
      the contact-rich radius bit-equal to the one-card mesh of one rank;
  60. ring timings: B3, B3D and BB at RING_B x RING_B beside their plain
-     versions and bounds (BB also at count 0), the KDK step on one card and
+     versions and bounds (BB also at count 0; B3 and B3D also at RING_B8 x
+     RING_B8), the bounce step at the bench row on one card and on the
+     ring at RING_P ranks in turns (host and busy time), the KDK step on one card and
      on the ring at each of RING_TIMED's rank counts in turns, and for each
      a step's host time, a rank's wait in the exchange and the device's
      busy time (torch.profiler);
- 61. P3M's ring round: the short range's two-table form
-     (``cuda_p3m.p3m_short_pair_cuda``) on the P3M row cut in RING_P
-     shards, a diagonal and three other rounds, against its plain version
-     within SHORT_RTOL, shard 0's rounds summed against the single-table
-     sum, a round timed beside its plain version and its bound (the pairs
-     the round needs);
+ 61. P3M's ring round at RING_P and RING_P8 ranks: each shard's view
+     (``cuda_p3m.p3m_short_view_cuda``) equal to its plain version, the
+     two-table form (``cuda_p3m.p3m_short_round_cuda``) on the P3M row's
+     shards, a diagonal and three other rounds with the visitor's view as
+     the ring ships it, against the plain version within SHORT_RTOL and
+     bit-equal to the same round with the visitor's view built again
+     (``p3m_short_pair_cuda``), shard 0's rounds summed in place against the
+     single-table sum, a round timed (events, device time, host time)
+     beside the diagonal one, the round building both views, its plain
+     version and its bound (the pairs the round needs), and the bytes a
+     shift of the ring carries;
  62. P3M's ring over RING_P one-card ranks: the evaluation against the
      single-card ``p3m_acc_potential`` (P3M_RING_RTOL, RING_U_RTOL),
-     RING_P^2 two-table and reorder launches an evaluation, the pairs rank
+     RING_P^2 two-table and RING_P view launches an evaluation (each rank
+     builds its own view once), the pairs rank
      0's rounds need against the single card's; the main path, RING_STEPS
      recorded steps within STATE_ATOL of one card's and P3M_RING_STEPS in
      all within P3M_DRIFT_BOUND; a step in turns with one card, its host
@@ -634,6 +652,10 @@ MERGE_MASS_RTOL, MERGE_P_RTOL = 1e-9, 1e-9
 RING_P, RING_P2 = 4, 2
 RING_TIMED = (RING_P, RING_P2, 8)
 RING_B = N_MAIN // RING_P
+# the ring's kernels are also held and timed at 8 ranks' shards (B3, B3
+# detect and P3M's two-table round)
+RING_P8 = 8
+RING_B8 = N_MAIN // RING_P8
 RING_STEPS, RING_BOUNCE_STEPS = 20, 600
 RING_WINDOW_START, RING_WINDOW, RING_NCCL_STEPS = 560, 100, 5
 RING_U_RTOL = 1e-6
@@ -764,7 +786,7 @@ INSTR_RATE = 528 * 1.98e9
 SHAPED = {
     "nbody_forces": ("nbody_forces_shape", {
         "B1": "nbody_forces_kernelILb0ELb1ELb0E", "B2": "nbody_forces_kernelILb0ELb1ELb1E",
-        "B3": "nbody_forces_kernelILb1ELb1ELb0E"}, r"MUFU\.RSQ"),
+        "B3": "block_forces_kernelILb0E"}, r"MUFU\.RSQ"),
     "nbody_jerk": ("nbody_jerk_shape", {
         "B5": "jerk_kernelILb1ELb0E", "B5D": "jerk_kernelILb1ELb1E"}, r"MUFU\.RSQ"),
     "nbody_forces_mxu": ("nbody_forces_mxu_shape", {"B13": "gram_kernelILb0E"},
@@ -777,7 +799,8 @@ SHAPED = {
     "fused_rollout": ("fused_kdk_shape", {"B4": "fused_kdk_kernel"}, r"MUFU\.RSQ"),
 }
 LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_block_forces",
-                              "nbody_block_forces_detect", "ot_error_string"),
+                              "nbody_block_forces_detect", "nbody_block_shape",
+                              "ot_error_string"),
              "nbody_jerk": ("nbody_jerk", "nbody_jerk_detect", "nbody_jerk_subset",
                             "nbody_jerk_subset_shape", "ot_error_string"),
              "nbody_forces_mxu": ("nbody_forces_mxu", "ot_error_string"),
@@ -786,9 +809,20 @@ LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_bloc
              "tree_near": ("tree_near", "ot_error_string"),
              "neighbor": ("near_sweep", "near_sweep_rows", "ot_error_string"),
              "fused_rollout": ("fused_kdk", "fused_kdk_shape", "ot_error_string"),
-             "p3m_short": ("p3m_short_sorted", "p3m_short_pair", "p3m_short_order",
+             "p3m_short": ("p3m_short_view", "p3m_short_sorted", "p3m_short_pair",
                            "p3m_short_shape", "ot_error_string"),
              "fused_ensemble": ("fused_ensemble", "fused_ensemble_shape", "ot_error_string")}
+# --ring-variants: B3's block kernel (i bodies a thread, warps, blocks an SM
+# its registers are capped for; the first is the source's) and P3M's sum
+# (warps a block; the first is the source's), built with -D
+RING_VARIANTS = {"nbody_forces": (("k2q16m2", ()),
+                                  ("k4q8m2", ("-DOT_BLOCK_K=4", "-DOT_BLOCK_Q=8")),
+                                  ("k4q16m1", ("-DOT_BLOCK_K=4", "-DOT_BLOCK_Q=16",
+                                               "-DOT_BLOCK_MIN=1")),
+                                  ("k2q8m4", ("-DOT_BLOCK_K=2", "-DOT_BLOCK_Q=8",
+                                              "-DOT_BLOCK_MIN=4"))),
+                 "p3m_short": (("q8", ()), ("q4", ("-DOT_P3M_Q=4",)),
+                               ("q16", ("-DOT_P3M_Q=16",)))}
 # the sources whose inner loop must hold tensor-core products (TF32 HMMA)
 TENSOR_CORE = {"nbody_forces_mxu": r"\bHMMA\.\S*TF32"}
 # --sweep: the launch shapes built with -D (i bodies or m16 tiles a thread
@@ -864,9 +898,10 @@ BB = dict(name="bounce_block_deltas", route="cuda",
 # p3m_acc_potential (orbital_tpu/ops/p3m.py:181-231)
 P3M = dict(name="p3m_short", route="cuda", source="orbital_tpu_torch/csrc/p3m_short.cu",
            replaces="orbital_tpu/ops/p3m.py:181")
-# the short range's reorder of each cell's kept prefix (a second kernel of
+# the short range's view of a cell table: each cell's kept prefix reordered
+# into a compact array, with its runs and the slice list (a second kernel of
 # the same source, the redesign's own; the JAX tile form needs none)
-P3MO = dict(name="p3m_short_order", route="cuda", source="orbital_tpu_torch/csrc/p3m_short.cu",
+P3MO = dict(name="p3m_short_view", route="cuda", source="orbital_tpu_torch/csrc/p3m_short.cu",
             replaces="orbital_tpu/ops/p3m.py:181")
 # the multi-device paths of phases 61-65 (ROADMAP A.15b): the short range's
 # two-table form, a round of P3M's ring (this rank's table against a
@@ -1240,10 +1275,11 @@ def p3m_short_work(tab: dict, gc: int, n: int, rcut2: float, warps: int = 8) -> 
     pairs the kernel stages (each slice's rows against the rows of the
     neighbour octant runs whose box is within reach of the slice's box,
     ``p3m_within_reach``), the pairs it visits (against the rows within reach
-    of the slice's box), the lane slots it issues (warp w of ``warps``
-    sweeps the rows within reach of runs w, w + warps, ... in 32 x ceil(V_w /
-    G) lane slots, G = 32 / S groups, S the power of two >= the slice's
-    rows: every sweep but a warp's last takes a multiple of G
+    of the slice's box), the lane slots it issues (the staged rows in run
+    order as one flat sequence, warp w of ``warps`` taking its 32-row rounds
+    w, w + warps, ..., and sweeping the rows within reach among them in 32 x
+    ceil(V_w / G) lane slots, G = 32 / S groups, S the power of two >= the
+    slice's rows: every sweep but a warp's last takes a multiple of G
     rows), and the pairs the function needs: ordered pairs of kept bodies
     closer than rcut (r^2 of the f32 positions in f64), self pairs excluded.
     Also the bytes it must move: each kept slot's (x, y, z, m) and index read
@@ -1294,9 +1330,12 @@ def p3m_short_work(tab: dict, gc: int, n: int, rcut2: float, warps: int = 8) -> 
         b = run_box[ids_c]                                            # [S, 27, 8, 6]
         reach = p3m_within_reach(lo[:, None, None], hi[:, None, None], reach2, b[..., :3],
                                  b[..., 3:])
-        run = torch.arange(27, device=dev)[None, :, None] * 8 + octant[ids_c]   # [S, 27, M]
-        staged_rows = (live & torch.gather(reach, 2, octant[ids_c].clamp(max=7))).sum((1, 2))
-        warp_of = run % warps
+        on = live & torch.gather(reach, 2, octant[ids_c].clamp(max=7))   # [S, 27, M]
+        staged_rows = on.sum((1, 2))
+        # each staged row's place in the flat sequence (cells, then rows in
+        # run order) and the warp whose round holds it
+        flat = torch.cumsum(on.flatten(1).long(), 1).reshape(on.shape) - 1
+        warp_of = (flat // 32) % warps
         v_w = torch.stack([(inside & (warp_of == w)).sum((1, 2)) for w in range(warps)], 1)
         r = sl["rows"][a:a + 64]
         staged += int((r * staged_rows).sum())
@@ -1410,6 +1449,7 @@ def reset_launches() -> None:
                cuda_collisions.collision_roots_cuda, cuda_collisions.contact_marks_cuda,
                fused_ensemble.fused_ensemble, cuda_forces.block_acc_detect_cuda,
                cuda_collisions.bounce_block_cuda, cuda_p3m.p3m_short_pair_cuda,
+               cuda_p3m.p3m_short_view_cuda, cuda_p3m.p3m_short_round_cuda,
                cuda_tree.tree_near_part_cuda, cuda_neighbor.near_acc_slots_rows_cuda):
         fn.launches = 0
     ensemble.member_loop.runs = 0
@@ -1731,14 +1771,149 @@ def _p3m_short_first(lib):
     return {"_launch": launch}
 
 
-# the sources whose C signature changed with a redesign: the function their
-# earlier versions lack, the adapter to the earlier signature and the entry
-# points it binds (the rest keep this tree's argument types)
-FIRST_SIGNATURES = {"neighbor": ("near_sweep_shape", _near_sweep_first, ("near_sweep",)),
-                    "p3m_short": ("p3m_short_sorted", _p3m_short_first, ("p3m_short",)),
-                    "fused_rollout": ("fused_kdk_shape", _fused_launch_first, ("fused_kdk",)),
-                    "nbody_jerk": ("nbody_jerk_subset_shape", _jerk_subset_first,
-                                   ("nbody_jerk_subset",))}
+def _p3m_tables_lib(lib):
+    """The C signatures of the short range's table form (PRs 12-18: the
+    reorder into the padded table, ``p3m_short_order``, the single-table sum
+    ``p3m_short_sorted`` and the two-table form ``p3m_short_pair``, over
+    grids of cells x slices), bound on ``lib``."""
+    import ctypes
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.p3m_short_order.restype = ctypes.c_int
+    lib.p3m_short_order.argtypes = [p, p, p, p, i, i, p, p, p, p, p, i]
+    lib.p3m_short_sorted.restype = ctypes.c_int
+    lib.p3m_short_sorted.argtypes = [p, p, p, p, i, i, p, f, f, p, p, p, i]
+    lib.p3m_short_pair.restype = ctypes.c_int
+    lib.p3m_short_pair.argtypes = [p, p, p, p, p, p, i, i, i, p, f, f, p, p, p, i]
+    return lib
+
+
+def _p3m_tables_order(lib, tab, gc: int) -> dict:
+    """The table form's reorder of ``tab`` (the padded layout)."""
+    import torch
+
+    from orbital_tpu_torch.utils.kernels import check
+
+    gc3, cap, dev = gc ** 3, tab["table"].shape[1], tab["table"].device
+    out = dict(rows=torch.empty((gc3, cap, 4), dtype=torch.float32, device=dev),
+               table=torch.empty((gc3, cap), dtype=torch.int64, device=dev),
+               run_off=torch.empty((gc3, 9), dtype=torch.int32, device=dev),
+               run_box=torch.empty((gc3, 8, 6), dtype=torch.float32, device=dev))
+    ins = (tab["cell_pos"][:gc3].contiguous(), tab["cell_m"][:gc3].contiguous(),
+           tab["table"][:gc3].to(torch.int64).contiguous(),
+           tab["count"].to(torch.int32).contiguous())
+    err = lib.p3m_short_order(*(t.data_ptr() for t in ins), int(gc), int(cap),
+                              *(out[k].data_ptr() for k in ("rows", "table", "run_off",
+                                                            "run_box")),
+                              torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+    check(lib, err, "p3m_short_order launch (table form)")
+    return out
+
+
+def _p3m_tables_pair(lib, order_i, order_j, diag: bool, gc: int, params, G: float,
+                     eps2: float, acc, pe) -> None:
+    """The table form's two-table sum over two reordered tables, into the
+    zeroed ``acc`` and ``pe``."""
+    import torch
+
+    from orbital_tpu_torch.utils.kernels import check
+
+    dev = acc.device
+    err = lib.p3m_short_pair(order_i["rows"].data_ptr(), order_i["table"].data_ptr(),
+                             order_i["run_off"].data_ptr(), order_j["rows"].data_ptr(),
+                             order_j["run_off"].data_ptr(), order_j["run_box"].data_ptr(),
+                             int(diag), int(gc), int(order_i["table"].shape[1]),
+                             params.data_ptr(), float(G), float(eps2), acc.data_ptr(),
+                             pe.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                             dev.index or 0)
+    check(lib, err, "p3m_short_pair launch (table form)")
+
+
+def _p3m_short_tables(lib):
+    """``cuda_p3m._launch`` and ``cuda_p3m._launch_pair`` against the table
+    form (PRs 12-18: each side reordered into the padded table, the sums
+    launched over cells x ceil(capacity / 32) slices)."""
+    _p3m_tables_lib(lib)
+
+    def launch(table, cell_pos, cell_m, count, gc, params, G, eps2, acc, pe):
+        from orbital_tpu_torch.utils.kernels import check
+
+        import torch
+
+        o = _p3m_tables_order(lib, dict(table=table, cell_pos=cell_pos, cell_m=cell_m,
+                                        count=count), gc)
+        dev = table.device
+        err = lib.p3m_short_sorted(o["rows"].data_ptr(), o["table"].data_ptr(),
+                                   o["run_off"].data_ptr(), o["run_box"].data_ptr(), int(gc),
+                                   int(table.shape[1]), params.data_ptr(), G, eps2,
+                                   acc.data_ptr(), pe.data_ptr(),
+                                   torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+        check(lib, err, "p3m_short_sorted launch (table form)")
+
+    def launch_pair(tab_i, tab_j, gid_i, gid_j, gc, n, params, G, eps2, acc, pe):
+        o_i = _p3m_tables_order(lib, tab_i, gc)
+        o_j = o_i if tab_j is tab_i else _p3m_tables_order(lib, tab_j, gc)
+        _p3m_tables_pair(lib, o_i, o_j, tab_j is tab_i, gc, params, G, eps2, acc, pe)
+
+    return {"_launch": launch, "_launch_pair": launch_pair}
+
+
+def _block_forces_first(lib):
+    """``cuda_forces._block_launch`` against B3's first C signatures (PRs
+    6-18: B1's launch over float4 tables the wrapper packed, the NaN radius
+    tables built by the wrapper, the counter zeroed by the wrapper)."""
+    import ctypes
+
+    import torch
+
+    from orbital_tpu_torch.utils.kernels import check
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nbody_block_forces.restype = ctypes.c_int
+    lib.nbody_block_forces.argtypes = [p, i, p, i, f, f, p, p, i]
+    lib.nbody_block_forces_detect.restype = ctypes.c_int
+    lib.nbody_block_forces_detect.argtypes = [p, p, i, i, p, p, i, i, f, f, p, p, p, i]
+
+    def launch(pos_i, pos_j, mass_j, detect, out, G, eps2):
+        f32, dev = torch.float32, pos_i.device
+        n_i, n_j = pos_i.shape[0], pos_j.shape[0]
+        pts_i = torch.nn.functional.pad(pos_i, (0, 1)).contiguous()
+        pts_j = torch.cat([pos_j, mass_j.to(f32)[:, None]], dim=1).contiguous()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if detect is None:
+            err = lib.nbody_block_forces(pts_i.data_ptr(), n_i, pts_j.data_ptr(), n_j,
+                                         float(G), float(eps2), out.data_ptr(), stream,
+                                         dev.index or 0)
+            check(lib, err, "nbody_block_forces launch (first signature)")
+            return
+        radius_i, alive_i, i_off, radius_j, alive_j, j_off, contacts = detect
+        rad_i = torch.where(alive_i, radius_i.to(f32), float("nan")).contiguous()
+        rad_j = torch.where(alive_j, radius_j.to(f32), float("nan")).contiguous()
+        contacts.zero_()
+        err = lib.nbody_block_forces_detect(
+            pts_i.data_ptr(), rad_i.data_ptr(), n_i, int(i_off), pts_j.data_ptr(),
+            rad_j.data_ptr(), n_j, int(j_off), float(G), float(eps2), out.data_ptr(),
+            contacts.data_ptr(), stream, dev.index or 0)
+        check(lib, err, "nbody_block_forces_detect launch (first signature)")
+
+    return {"_block_launch": launch}
+
+
+# the sources whose C signature changed with a redesign: for each earlier
+# signature, in the order they came, the function its versions lack, the
+# adapter to it and the entry points it binds (the rest keep this tree's
+# argument types)
+FIRST_SIGNATURES = {"neighbor": [("near_sweep_shape", _near_sweep_first, ("near_sweep",))],
+                    "p3m_short": [("p3m_short_sorted", _p3m_short_first, ("p3m_short",)),
+                                  ("p3m_short_view", _p3m_short_tables,
+                                   ("p3m_short_order", "p3m_short_sorted", "p3m_short_pair",
+                                    "p3m_short_shape"))],
+                    "fused_rollout": [("fused_kdk_shape", _fused_launch_first,
+                                       ("fused_kdk",))],
+                    "nbody_jerk": [("nbody_jerk_subset_shape", _jerk_subset_first,
+                                    ("nbody_jerk_subset",))],
+                    "nbody_forces": [("nbody_block_shape", _block_forces_first,
+                                      ("nbody_block_forces", "nbody_block_forces_detect"))]}
 
 
 def other_build(name: str, path, like):
@@ -1748,8 +1923,8 @@ def other_build(name: str, path, like):
     import ctypes
 
     lib = ctypes.CDLL(str(path))
-    first = FIRST_SIGNATURES.get(name)
-    if first is not None and not hasattr(lib, first[0]):
+    first = next((f for f in FIRST_SIGNATURES.get(name, ()) if not hasattr(lib, f[0])), None)
+    if first is not None:
         same = [fn for fn in LIB_FUNCS[name] if fn not in first[2] and hasattr(lib, fn)]
         for fn in same:
             getattr(lib, fn).restype = getattr(like, fn).restype
@@ -2291,15 +2466,15 @@ class Smoke:
                                  sass(kernels._library_path(name)[1]), n=at.get(name, N_MAIN))
             for key, rec in recs.items():
                 self.kernels[key].update(rec)
-                shapes.append(describe_launch(key, rec))
+                if key != "B3":  # the block's own launch: block_record
+                    shapes.append(describe_launch(key, rec))
         # the kernels outside SHAPED: the row subset (in nbody_jerk, whose
         # spills are checked above), the short range and the contact sweep
         for name in ("p3m_short", "collision_roots", "fused_ensemble"):
             spills.append(f"{name} 0 in {spill_free(name, logs[name])} entry functions")
-        # the ring's two block instances: B3 detect, B3's template with
-        # kDetect and kBlock (B3's launch shape), and the block bounce, B6's
-        # kernel over separate tables (B6's record)
-        shapes.append(self.block_detect_record(logs["nbody_forces"], sass(
+        # the ring's block instances: B3 and B3 detect on their own launch,
+        # and the block bounce, B6's kernel over separate tables (B6's record)
+        shapes.append(self.block_record(logs["nbody_forces"], sass(
             kernels._library_path("nbody_forces")[1])))
         self.kernels["BB"].update({k: v for k, v in self.kernels["B6"].items()
                                    if k in ("shape", "registers", "spill_bytes",
@@ -2325,41 +2500,64 @@ class Smoke:
         return (f"{key} ({len(usage)} instantiations) {regs} registers at most, {spill} spill "
                 f"bytes")
 
-    def block_detect_record(self, log: str, sass_text: str) -> str:
-        """B3 detect's record: B3's launch shape, its registers and spills
-        and its SASS instructions a pair (the inner loop over MUFU.RSQ)."""
-        stem = "nbody_forces_kernelILb1ELb1ELb1ELb1E"
-        text = self.entry_record("B3D", stem, log)
+    def block_record(self, log: str, sass_text: str) -> str:
+        """B3's and B3 detect's launch shape (the block kernel's i bodies a
+        thread, warps, co-resident blocks and the plan's grid at the ring's
+        shard shapes, RING_B^2 and RING_B8^2) into their records, with the
+        registers, spills and SASS instructions a pair (launch_record's for
+        B3; B3 detect's read here, its inner loop over MUFU.RSQ), and the
+        issue floor at RING_B^2."""
+        from orbital_tpu_torch.ops.cuda_forces import block_plan, block_shape
+
+        stem = "block_forces_kernelILb1E"
+        self.entry_record("B3D", stem, log)
         loop = next((v for f, v in inner_loop(sass_text).items() if stem in f), None)
         if sass_text and loop is None:
             raise AssertionError(f"B3D: no loop with MUFU.RSQ in *{stem}* in the SASS")
-        self.kernels["B3D"].update(shape=self.kernels["B3"]["shape"],
-                                   sass_slots_per_pair=loop[0] / loop[1] if loop
-                                   else "not measured")
-        slots = fmt(self.kernels["B3D"]["sass_slots_per_pair"])
-        return f"{text}, {slots} SASS instructions a pair"
+        self.kernels["B3D"]["sass_slots_per_pair"] = (loop[0] / loop[1] if loop
+                                                      else "not measured")
+        sh = block_shape(self.dev)
+        plans = {b: block_plan(b, b, 32 * sh["k"], sh["q"], sh["tile"], sh["resident"],
+                               sh["sms"]) for b in (RING_B, RING_B8)}
+        out = []
+        for key in ("B3", "B3D"):
+            rec = self.kernels[key]
+            rec["shape"] = dict(k=sh["k"], q=sh["q"], tile=sh["tile"], threads=sh["threads"],
+                                blocks=plans[RING_B]["grid"], splits=plans[RING_B]["splits"],
+                                resident=sh["resident"])
+            floor = issue_floor_ms(rec["sass_slots_per_pair"], RING_B * RING_B)
+            out.append(f"{key} k={sh['k']} q={sh['q']} tile={sh['tile']} ({sh['threads']} "
+                       f"threads, {sh['resident']} co-resident blocks on {sh['sms']} SMs), "
+                       + ", ".join(f"{b}^2 {p['grid']} blocks ({p['tiles']} i tiles x "
+                                   f"{p['splits']} splits of {p['split_len']})"
+                                   for b, p in plans.items())
+                       + f", {rec['registers']} registers, {rec['spill_bytes']} spill bytes, "
+                       f"{fmt(rec['sass_slots_per_pair'])} SASS instructions a pair (issue "
+                       f"floor {fmt(floor, 3, ' ms')} at {RING_B}^2)")
+        self.block_plans = plans
+        return "; ".join(out)
 
     def p3m_record(self, log: str, sass_text: str) -> str:
-        """The short-range kernel's launch shape at the P3M bench row's grid
-        and probed capacity, its registers and spills, and the SASS
-        instructions of its polynomial sweep loop (the innermost loop with
-        MUFU.RSQ and no MUFU.EX2, the erff path's) a visited pair: one
+        """The short range's launch shape (the persistent grid of the sum,
+        which the single-table sum and the ring's two-table form share), the
+        registers and spills of the sum and of the view kernel, and the SASS
+        instructions of the sum's polynomial sweep loop (the innermost loop
+        with MUFU.RSQ and no MUFU.EX2, the erff path's) a visited pair: one
         MUFU.RSQ a pair."""
         from orbital_tpu_torch.ops.cuda_p3m import p3m_short_shape
-        from orbital_tpu_torch.ops.p3m import _cell_grid, p3m_max_occupancy
 
         line = (self.entry_record("P3M", "p3m_short_kernel", log) + "; "
-                + self.entry_record("P3MO", "p3m_order_kernel", log))
-        pos, _, _ = self.p3m_uniform()
-        cap = self.p3m_capacity(p3m_max_occupancy(self.t(pos), None, grid=P3M_GRID,
-                                                  box=self.box_t(P3M_BOX)))
-        shape = p3m_short_shape(_cell_grid(P3M_GRID, 1.5, 4.5), cap)
+                + self.entry_record("P3MO", "p3m_view_kernel", log))
+        shape = p3m_short_shape(self.dev)
         loop = next((v for f, v in inner_loop_excluding(sass_text, r"MUFU\.EX2").items()
                      if "p3m_short_kernel" in f), None)
         if sass_text and loop is None:
             raise AssertionError("P3M: no polynomial sweep loop (MUFU.RSQ without MUFU.EX2)")
         per_pair = loop[0] / loop[1] if loop else "not measured"
-        self.kernels["P3M"].update(shape=shape, sass_slots_per_pair=per_pair)
+        for key in ("P3M", "P3MR"):
+            self.kernels[key].update(shape=shape, sass_slots_per_pair=per_pair)
+        self.kernels["P3MR"].update({k: self.kernels["P3M"][k]
+                                     for k in ("registers", "spill_bytes")})
         return f"{line}, shape {shape}, {fmt(per_pair)} SASS instructions a visited pair"
 
     def roots_record(self, log: str, sass_text: str) -> str:
@@ -3817,7 +4015,7 @@ class Smoke:
             return f"{s['median']:.3f} ms (spread {s['spread']:.3f})"
 
         profiled = ("device time not measured (the profiler recorded none)" if busy is None
-                    else f"near kernel device time {near_dev:.3f} ms a call; a K=4 substep "
+                    else f"near kernel device time {fmt(near_dev, 3)} ms a call; a K=4 substep "
                     f"keeps the device busy {busy:.3f} ms of {sub['K4']['median']:.3f} "
                     f"(idle {100 * (1 - busy / sub['K4']['median']):.0f}%) with "
                     f"{launched:.1f} kernels; a geometry build {build_dev[0]} kernels, "
@@ -4522,7 +4720,9 @@ class Smoke:
             "B7R": (NEAR_RTOL, NEAR_RTOL), "B7L": (NEAR_RTOL, NEAR_RTOL),
             "B7S": (NEAR_RTOL, NEAR_RTOL, 0), "NEAR": (NEAR_RTOL, NEAR_RTOL),
             "NEARW": (NEAR_RTOL, NEAR_RTOL), "NEARR": (NEAR_RTOL, NEAR_RTOL),
-            "P3M": (SHORT_RTOL, SHORT_RTOL),
+            "P3M": (SHORT_RTOL, SHORT_RTOL), "P3MR": (SHORT_RTOL, SHORT_RTOL),
+            "B3R": (FORCE_RTOL, FORCE_RTOL), "B3R8": (FORCE_RTOL, FORCE_RTOL),
+            "B3D": (FORCE_RTOL, FORCE_RTOL, 0), "B3D8": (FORCE_RTOL, FORCE_RTOL, 0),
             **{k: (STATE_ATOL, STATE_ATOL) for k in FUSED_CASES}}
     # the source of each, the calls timed in turns and the pairs that must
     # be bit-equal
@@ -4846,6 +5046,83 @@ class Smoke:
                 f"within {STATE_ATOL:g}); N={N_MAIN} no PE (B4: 200 steps at {N_FUSED} ds32, "
                 f"20 at {N_FUSED_BIG}), in turns: " + "; ".join(lines))
 
+    # --ring-variants
+    def ring_variants(self) -> str:
+        from orbital_tpu_torch.ops import cuda_forces as cf
+        from orbital_tpu_torch.ops import cuda_p3m
+        from orbital_tpu_torch.utils import kernels
+
+        torch = self.torch
+        mods = {"nbody_forces": cf, "p3m_short": cuda_p3m}
+        jobs = {(name, tag): (kernels.CSRC_DIR / f"{name}.cu",
+                              kernels.BUILD_DIR / "variants" / f"lib{name}-{tag}.so", flags)
+                for name, shapes in RING_VARIANTS.items() for tag, flags in shapes}
+        built = compile_libraries(jobs.values())
+        libs, usage = {}, {}
+        for (name, tag), (_, out, _) in jobs.items():
+            libs[name, tag] = bind_like(out, mods[name]._load(), LIB_FUNCS[name])
+            stem = "block_forces_kernel" if name == "nbody_forces" else "p3m_short_kernel"
+            regs = [u for f, u in ptxas_usage(built[out][0]).items() if stem in f]
+            usage[f"{name} {tag}"] = (f"{max(u[0] for u in regs)} registers, "
+                                      f"{sum(u[1] + u[2] for u in regs)} spill bytes")
+        kw = dict(G=1.0, eps2=EPS2)
+        fns = {}
+        for ranks in (RING_P, RING_P8):
+            b = N_MAIN // ranks
+            (pi, _, _, ri, ai), (pj, _, mj, rj, aj) = self.ring_shards(R_BENCH, ranks=ranks)[:2]
+            ref = cf.block_acc_detect_cuda(pi, ri, ai, 0, pj, mj, rj, aj, b, **kw)
+            for tag, _ in RING_VARIANTS["nbody_forces"]:
+                lib = libs["nbody_forces", tag]
+
+                def b3d(lib=lib, pi=pi, ri=ri, ai=ai, pj=pj, mj=mj, rj=rj, aj=aj, b=b):
+                    return on(cf, lib, lambda: cf.block_acc_detect_cuda(
+                        pi, ri, ai, 0, pj, mj, rj, aj, b, **kw))
+
+                def b3(lib=lib, pi=pi, pj=pj, mj=mj):
+                    return on(cf, lib, lambda: cf.block_acc_cuda(pi, pj, mj, **kw))
+
+                out = b3d()
+                torch.cuda.synchronize()
+                if int(out[2]) != int(ref[2]) or self.rel(out[0], ref[0]) > FORCE_RTOL \
+                        or not torch.equal(out[0], b3()[0]):
+                    raise AssertionError(f"B3 detect {tag} at {b}: not held to this build")
+                fns[f"B3D {b} {tag}"], fns[f"B3 {b} {tag}"] = b3d, b3
+            c = self.p3m_ring_case(ranks)
+            tabs, gids, kwp = c["tabs"], c["gids"], c["kw"]
+            views = [cuda_p3m.p3m_short_view_cuda(tabs[r], kwp["gc"], b, gids[r])
+                     for r in (0, 1)]
+            visitor = {k: views[1][k] for k in cuda_p3m.SHIPPED}
+            params = cuda_p3m.short_params(kwp["sigma"], kwp["rcut2"], self.dev)
+            ref = cuda_p3m.p3m_short_round_cuda(views[0], visitor, params=params, **kwp)
+            for tag, _ in RING_VARIANTS["p3m_short"]:
+                lib = libs["p3m_short", tag]
+                outs = (torch.zeros((b, 3), device=self.dev), torch.zeros((b,), device=self.dev))
+
+                def round_(lib=lib, views=views, visitor=visitor, params=params, kwp=kwp,
+                           out=None):
+                    return on(cuda_p3m, lib, lambda: cuda_p3m.p3m_short_round_cuda(
+                        views[0], visitor, out=out, params=params, **kwp))
+
+                got = round_()
+                torch.cuda.synchronize()
+                if max(self.rel(x, y) for x, y in zip(got, ref)) > SHORT_RTOL:
+                    raise AssertionError(f"P3M round {tag} at {b}: not held to this build")
+                fns[f"P3MR {b} {tag}"] = (lambda f=round_, o=outs: f(out=o))
+        tab, kw_b = self.p3m_bench_case()
+        for tag, _ in RING_VARIANTS["p3m_short"]:
+            fns[f"P3M {tag}"] = on(cuda_p3m, libs["p3m_short", tag],
+                                   lambda: self.p3m_sum_launch(tab, kw_b))
+        times = {k: summary(v) for k, v in alternate_ms(fns, 20, repeats=5).items()}
+        print("perf_ring_variants " + json.dumps({"times": times, "registers": usage}),
+              file=sys.stderr)
+        return (f"B3 and B3 detect (R {R_BENCH:g}, within {FORCE_RTOL:g} of this build, "
+                f"counts equal, B3 bit-equal to B3 detect) and P3M's two-table round (within "
+                f"{SHORT_RTOL:g}) at {RING_B} and {RING_B8} bodies a shard, the single-table "
+                f"sum alone at the bench row, each shape in turns: " + "; ".join(
+                    f"{k} {v['median']:.4f} ms (spread {v['spread']:.4f})"
+                    for k, v in times.items())
+                + "; registers: " + ", ".join(f"{k} {v}" for k, v in usage.items()))
+
     # --parent
     def roots_calls(self) -> dict:
         """The root search's main-path calls for ``--parent``: ``{key:
@@ -4864,6 +5141,78 @@ class Smoke:
             out[key] = (lambda st_, c_: lambda gated: collision_parents_cuda(
                 st_.pos, st_.radius, st_.alive, contacts=c_ if gated else None))(st, count)
         return out
+
+    def ring_calls(self) -> dict:
+        """{key: (wrapper module, call)} of the ring's kernels at its shard
+        shapes, for --parent: B3 (B3R) and B3 detect (B3D) on shards 0 and 1
+        of the bench row at RING_P ranks, B3R8 and B3D8 at RING_P8, each with
+        ``pairs``; P3MR, P3M's two-table round of shard 0 against shard 1 at
+        RING_P ranks from their tables (each build makes their views or
+        orders)."""
+        from orbital_tpu_torch.ops import cuda_forces as cf
+        from orbital_tpu_torch.ops import cuda_p3m
+
+        kw = dict(G=1.0, eps2=EPS2)
+        out = {}
+        for ranks, sfx in ((RING_P, ""), (RING_P8, "8")):
+            b = N_MAIN // ranks
+            (pi, _, _, ri, ai), (pj, _, mj, rj, aj) = self.ring_shards(R_BENCH, ranks=ranks)[:2]
+
+            def b3(pi=pi, pj=pj, mj=mj):
+                return cf.block_acc_cuda(pi, pj, mj, **kw)
+
+            def b3d(pi=pi, ri=ri, ai=ai, pj=pj, mj=mj, rj=rj, aj=aj, b=b):
+                return cf.block_acc_detect_cuda(pi, ri, ai, 0, pj, mj, rj, aj, b, **kw)
+
+            b3.pairs = b3d.pairs = b * b
+            out[f"B3R{sfx}"], out[f"B3D{sfx}"] = (cf, b3), (cf, b3d)
+        c = self.p3m_ring_case()
+        self.p3m_ring_parent_case = c
+        kw_p = dict(c["kw"], sigma=self.t(float(c["kw"]["sigma"])),
+                    rcut2=self.t(float(c["kw"]["rcut2"])))
+        tabs, gids = c["tabs"], c["gids"]
+        out["P3MR"] = (cuda_p3m, lambda: cuda_p3m.p3m_short_pair_cuda(
+            tabs[0], tabs[1], gids[0], gids[1], **kw_p))
+        return out
+
+    def p3m_round_alone(self, old) -> dict:
+        """P3M's two-table round of ``ring_calls``' case alone, timed in
+        turns: this tree's over shard 0's view and shard 1's shipped view,
+        built before, and the other build's (``old``, an OldBuild of the
+        table form) over the two tables' orders, made before, each into
+        fixed outputs."""
+        from orbital_tpu_torch.ops import cuda_p3m
+
+        torch = self.torch
+        c = self.p3m_ring_parent_case
+        tabs, gids, kw = c["tabs"], c["gids"], c["kw"]
+        gc, b = kw["gc"], kw["n"]
+        params = cuda_p3m.short_params(kw["sigma"], kw["rcut2"], self.dev)
+        views = [cuda_p3m.p3m_short_view_cuda(tabs[r], gc, b, gids[r]) for r in (0, 1)]
+        visitor = {k: views[1][k] for k in cuda_p3m.SHIPPED}
+        outs = [(torch.zeros((b, 3), dtype=torch.float32, device=self.dev),
+                 torch.zeros((b,), dtype=torch.float32, device=self.dev)) for _ in range(2)]
+        lib = getattr(old, "lib", old)
+
+        def this():
+            cuda_p3m.p3m_short_round_cuda(views[0], visitor, out=outs[0], params=params, **kw)
+
+        if hasattr(lib, "p3m_short_view"):  # a build of the view form
+            old_views = [on(cuda_p3m, old, lambda r=r: cuda_p3m.p3m_short_view_cuda(
+                tabs[r], gc, b, gids[r])) for r in (0, 1)]
+            old_visitor = {k: old_views[1][k] for k in cuda_p3m.SHIPPED}
+
+            def parent():
+                on(cuda_p3m, old, lambda: cuda_p3m.p3m_short_round_cuda(
+                    old_views[0], old_visitor, out=outs[1], params=params, **kw))
+        else:
+            orders = [_p3m_tables_order(lib, tabs[r], gc) for r in (0, 1)]
+
+            def parent():
+                _p3m_tables_pair(lib, orders[0], orders[1], False, gc, params, 1.0, EPS2,
+                                 *outs[1])
+
+        return {"P3MR round": this, "P3MR round parent": parent}
 
     def check_parent(self, parent: str) -> str:
         from pathlib import Path
@@ -4929,6 +5278,12 @@ class Smoke:
                                            count=tab["count"], **kw_t))
         p3m_call.pairs = p3m_short_work(tab, kw_p["gc"], kw_p["n"], kw_p["rcut2"])["issued"]
         hold("P3M", cuda_p3m, p3m_call)
+        # the ring's kernels at its shard shapes: B3 and B3 detect at RING_B^2
+        # and RING_B8^2 (the bench row's radius), P3M's two-table round at 4
+        # ranks' shards (building its tables' views or orders)
+        ring = self.ring_calls()
+        for k, (mod, call) in ring.items():
+            hold(k, mod, call)
         # the merge root search: parents integer-equal, gated and ungated, at
         # the contact-rich radius; timed at a count > 0 (ROOTS) and 0 (ROOTS0)
         roots_calls = self.roots_calls()
@@ -4945,7 +5300,7 @@ class Smoke:
                  if k != "B6G"}
         calls["B3"] = self.exact_calls(scene, EPS2, pe=True)["B3"]
         calls.update(B7=tree["B7"], B7L=tree["B7L"], NEAR=near["NEAR"],
-                     P3M=(cuda_p3m, p3m_call))
+                     P3M=(cuda_p3m, p3m_call), **ring)
         calls.update({k: fused_t[k] for k in ("B4", "B4F", "B4L", "B4LF")})
         calls.update({k: (roots, (lambda c: lambda: c(True))(call))
                       for k, call in roots_calls.items()})
@@ -4953,6 +5308,9 @@ class Smoke:
         for k, (mod, call) in calls.items():
             fns[f"{k} parent"] = (lambda m_, l_, c_: lambda: on(m_, l_, c_))(mod, old[mod], call)
             fns[k] = call
+        # P3M's round alone, its visitor's view (this tree) or order (the
+        # table form) built before
+        fns.update(self.p3m_round_alone(old[cuda_p3m]))
         times = {k: summary(v) for k, v in alternate_ms(fns, 10, repeats=6).items()}
         # the block macro step (rungs 1) on each build's row subset, in turns:
         # its time by CUDA events and the host's time to queue it
@@ -4969,6 +5327,7 @@ class Smoke:
             slots["parent"].update(sass_slots(name, sass(jobs[name][1])))
             slots["this"].update(sass_slots(name, sass(kernels._library_path(name)[1])))
         slots["this"]["P3M"] = self.kernels["P3M"].get("sass_slots_per_pair")
+        slots["this"]["B3D"] = self.kernels["B3D"].get("sass_slots_per_pair")
         clocks = {k: clock_during(call) for k, (_, call) in calls.items()}
         print("perf_parent " + json.dumps({"times": times, "slots": slots, "clocks": clocks,
                                            "block_macro_ms": macro_t,
@@ -4977,7 +5336,8 @@ class Smoke:
         for k, (_, call) in calls.items():
             this, par = times[k], times[f"{k} parent"]
             faster = max(this["runs"]) < min(par["runs"])
-            base = {"B7L": "B7", "B4F": "B4", "B4L": "B4", "B4LF": "B4"}.get(k, k)
+            base = {"B7L": "B7", "B4F": "B4", "B4L": "B4", "B4LF": "B4", "B3R": "B3",
+                    "B3R8": "B3", "B3D8": "B3D"}.get(k, k)
             line = (f"{k} {'bit-equal' if equal[k] else 'not bit-equal'} (max rel diff "
                     f"{worst[k]:.2e}), {this['median']:.3f} ms (spread {this['spread']:.3f}) "
                     f"vs parent {par['median']:.3f} ({par['spread']:.3f}), "
@@ -4994,6 +5354,11 @@ class Smoke:
                 line += (f", SM clock {mhz:.0f} MHz at {clocks[k]['watts']:.0f} W: issue "
                          f"floor {floor:.3f} ms ({100 * floor / this['median']:.0f}%)")
             lines.append(line)
+        this, par = times["P3MR round"], times["P3MR round parent"]
+        lines.append(f"P3MR round alone {this['median']:.4f} ms (spread {this['spread']:.4f}) vs "
+                     f"parent {par['median']:.4f} ({par['spread']:.4f}), "
+                     f"{par['median'] / this['median']:.2f}x, faster outside both spreads: "
+                     f"{'yes' if max(this['runs']) < min(par['runs']) else 'no'}")
         lines.append(self.ensemble_parent(old[fused_ensemble], sass(jobs["fused_ensemble"][1])))
         lines.append("block macro step (rungs 1, m = {}) {}".format(macro.m, ", ".join(
             f"{k} {macro_t[k]['median']:.3f} ms (spread {macro_t[k]['spread']:.3f}), host "
@@ -5233,26 +5598,23 @@ class Smoke:
         return tab, gc, float(sigma), float((cut_sigma * sigma) ** 2)
 
     def p3m_sum_launch(self, tab, kw):
-        """A call that launches the short-range sum alone, on the table as
-        the reorder kernel leaves it (reordered once), into fixed outputs."""
+        """A call that launches the short-range sum alone, on the table's view
+        as the view kernel leaves it (built once), into fixed outputs."""
         from orbital_tpu_torch.ops import cuda_p3m
 
         torch = self.torch
-        order = cuda_p3m.p3m_short_order_cuda(tab["table"], tab["cell_pos"], tab["cell_m"],
-                                              tab["count"], kw["gc"])
+        view = cuda_p3m.p3m_short_view_cuda(tab, kw["gc"], kw["n"])
         params = self.t([kw["rcut2"], 1.0 / (2.0 * kw["sigma"])])
         acc = torch.zeros((kw["n"], 3), dtype=torch.float32, device=self.dev)
         pe = torch.zeros((kw["n"],), dtype=torch.float32, device=self.dev)
-        lib, cap = cuda_p3m._load(), tab["table"].shape[1]
+        lib = cuda_p3m._load()
 
         def launch():
             stream = torch.cuda.current_stream(self.dev).cuda_stream
-            err = lib.p3m_short_sorted(order["rows"].data_ptr(), order["table"].data_ptr(),
-                                       order["run_off"].data_ptr(),
-                                       order["run_box"].data_ptr(), kw["gc"], cap,
-                                       params.data_ptr(), float(kw["G"]), float(kw["eps2"]),
-                                       acc.data_ptr(), pe.data_ptr(), stream,
-                                       self.dev.index or 0)
+            err = lib.p3m_short_sorted(*(view[k].data_ptr() for k in (
+                "rows", "body", "run_off", "run_box", "slices", "nslices")),
+                int(view["slices"].shape[0]), kw["gc"], params.data_ptr(), float(kw["G"]),
+                float(kw["eps2"]), acc.data_ptr(), pe.data_ptr(), stream, self.dev.index or 0)
             if err:
                 raise RuntimeError(f"p3m_short_sorted: CUDA error {err}")
         return launch
@@ -5325,6 +5687,26 @@ class Smoke:
         return f"PM on the card within RMS {PM_RTOL:g} of f64: " + "; ".join(lines)
 
     # phase 31
+    def view_equal(self, what: str, tab, gc: int, n: int, gid=None) -> dict:
+        """The view kernel's view of ``tab`` (``cuda_p3m.p3m_short_view_cuda``)
+        against its plain version in the kernel's order: the kept rows, body
+        indices and global ids, the runs, their boxes and the slice list
+        equal, bit for bit. Returns the kernel's view."""
+        from orbital_tpu_torch.ops.cuda_p3m import p3m_short_view, p3m_short_view_cuda
+
+        torch = self.torch
+        got, want = p3m_short_view_cuda(tab, gc, n, gid), p3m_short_view(tab, gc, n, gid)
+        kept, length = int(tab["count"].sum()), int(want["nslices"][0])
+        for k in want:
+            g_, w_ = got[k], want[k]
+            if k in ("rows", "body", "gid"):
+                g_, w_ = g_[:kept], w_[:kept]
+            elif k == "slices":
+                g_, w_ = g_[:length], w_[:length]
+            if not torch.equal(g_, w_):
+                raise AssertionError(f"{what}: {k} differs from the plain version")
+        return got
+
     def check_p3m_short(self) -> str:
         from orbital_tpu_torch.ops.cuda_p3m import (p3m_short_cuda, p3m_short_order,
                                                     p3m_short_order_cuda)
@@ -5360,6 +5742,7 @@ class Smoke:
                     else (got[k], want[k])
                 if not torch.equal(g_, w_):
                     raise AssertionError(f"P3M order {key}: {k} differs from the plain version")
+            self.view_equal(f"P3M view {key}", tab, gc, n)
             a, pe = p3m_short_cuda(tab["table"], tab["cell_pos"], tab["cell_m"],
                                    count=tab["count"], **kw)
             a0, pe0 = p3m_short_plain(tab["table"], tab["cell_pos"], tab["cell_m"], **kw)
@@ -5381,7 +5764,8 @@ class Smoke:
                 raise AssertionError(f"P3M short {key}: rows without a slot are not 0")
             overflow = int(tab["overflow"])
             line = (f"{key} (N={n}, grid {grid}, cut {cut:g} sigma, gc {gc}, capacity {cap}, "
-                    f"overflow {overflow}): the reorder bit-equal to its plain version; "
+                    f"overflow {overflow}): the reorder and the view bit-equal to their plain "
+                    f"versions; "
                     f"acc/pe vs plain {errs['plain'][0]:.2e}/{errs['plain'][1]:.2e}, vs f64 "
                     f"{errs['f64'][0]:.2e}/{errs['f64'][1]:.2e} (plain vs f64 "
                     f"{errs['plain vs f64'][0]:.2e}/{errs['plain vs f64'][1]:.2e})")
@@ -5398,8 +5782,7 @@ class Smoke:
                 self.p3m_short_case = (tab, kw)
                 from orbital_tpu_torch.ops.cuda_p3m import p3m_short_shape
 
-                work = p3m_short_work(tab, gc, n, rcut2,
-                                      warps=p3m_short_shape(gc, tab["table"].shape[1])["warps"])
+                work = p3m_short_work(tab, gc, n, rcut2, warps=p3m_short_shape(self.dev)["warps"])
                 self.p3m_short_w = work
                 print("p3m_short_work " + json.dumps(work), file=sys.stderr)
                 line += (f"; p3m_short_work: {work['walked']:,} pairs walked by the first "
@@ -5415,8 +5798,8 @@ class Smoke:
         two = p3m_short_cuda(*args, count=tab["count"], **kw)
         if not all(torch.equal(x, y) for x, y in zip(one, two)):
             raise AssertionError("P3M short: two calls on the same table differ")
-        return (f"P3M short range (csrc/p3m_short.cu: the reorder kernel equal to its plain "
-                f"version on the kept prefixes; the sum within {SHORT_RTOL:g} of its plain "
+        return (f"P3M short range (csrc/p3m_short.cu: the view kernel equal to its plain "
+                f"version on the kept rows, its reorder on the kept prefixes; the sum within {SHORT_RTOL:g} of its plain "
                 f"version and the f64 sum, bench row bit-equal from call to call): "
                 + "; ".join(lines))
 
@@ -5425,7 +5808,7 @@ class Smoke:
         import orbital_tpu_torch as ot
         from orbital_tpu_torch.models.scene import SceneArrays
         from orbital_tpu_torch.ops import p3m as p3m_mod
-        from orbital_tpu_torch.ops.cuda_p3m import p3m_short_cuda, p3m_short_order_cuda
+        from orbital_tpu_torch.ops.cuda_p3m import p3m_short_cuda, p3m_short_view_cuda
         from orbital_tpu_torch.ops.p3m import p3m_max_occupancy
 
         torch = self.torch
@@ -5489,11 +5872,11 @@ class Smoke:
         finally:
             p3m_mod.p3m_acc_potential = inner
         launches, overflow = p3m_short_cuda.launches, int(torch.stack(total).sum())
-        order_launches = p3m_short_order_cuda.launches
+        order_launches = p3m_short_view_cuda.launches
         esc = escaped(fin, P3M_BOX)
         if (launches != len(total) or launches != 1 + P3M_STEPS or overflow
                 or order_launches != launches):
-            raise AssertionError(f"P3M: {launches} short-range and {order_launches} reorder "
+            raise AssertionError(f"P3M: {launches} short-range and {order_launches} view "
                                  f"launches for {len(total)} evaluations ({1 + P3M_STEPS} "
                                  f"expected), overflow {overflow}")
         self.kernels["P3MO"]["launches"] = order_launches
@@ -5504,7 +5887,7 @@ class Smoke:
         lines.append(f"P3M N={N_MAIN} f32 uniform grid {P3M_GRID} box {P3M_BOX} capacity {cap} "
                      f"(densest cell {occ}): init_forces + 20 recorded + {P3M_STEPS - 20} steps, "
                      f"|dE/E| = {drift:.3e} <= {P3M_DRIFT_BOUND:g} (JAX's recorded "
-                     f"{JAX_P3M_DRIFT:.3e}); {wall:.3f} ms/step wall; short-range and reorder "
+                     f"{JAX_P3M_DRIFT:.3e}); {wall:.3f} ms/step wall; short-range and view "
                      f"launches {launches} and {order_launches} = evaluations, overflow "
                      f"{overflow}; {esc} escaped the box")
 
@@ -5534,8 +5917,8 @@ class Smoke:
     # phase 33
     def mesh_timings(self) -> str:
         import orbital_tpu_torch as ot
-        from orbital_tpu_torch.ops.cuda_p3m import (p3m_short_cuda, p3m_short_order,
-                                                    p3m_short_order_cuda)
+        from orbital_tpu_torch.ops.cuda_p3m import (p3m_short_cuda, p3m_short_view,
+                                                    p3m_short_view_cuda)
         from orbital_tpu_torch.ops.p3m import p3m_acc_potential, p3m_short_plain
         from orbital_tpu_torch.ops.pm import pm_acc_potential
 
@@ -5575,23 +5958,24 @@ class Smoke:
         kw_t = dict(kw_s, sigma=self.t(kw_s["sigma"]), rcut2=self.t(kw_s["rcut2"]))
         short = summary(time_ms(lambda: p3m_short_cuda(*args, count=tab["count"], **kw_t), 20))
         plain = summary(time_ms(lambda: p3m_short_plain(*args, **kw_t), 1))
-        o_args = (*args, tab["count"], kw_s["gc"])
-        order = summary(time_ms(lambda: p3m_short_order_cuda(*o_args), 20))
-        order_plain = summary(time_ms(lambda: p3m_short_order(*o_args), 5))
-        # the reorder reads each kept slot's (x, y, z), m and index once (24 B)
+        n_s, gc_s = kw_s["n"], kw_s["gc"]
+        order = summary(time_ms(lambda: p3m_short_view_cuda(tab, gc_s, n_s), 20))
+        order_plain = summary(time_ms(lambda: p3m_short_view(tab, gc_s, n_s), 5))
+        # the view reads each kept slot's (x, y, z), m and index once (24 B)
         # and each cell's count, and writes each kept slot's (x, y, z, m) and
-        # index (24 B) and each cell's run offsets and boxes once
+        # index (24 B), each cell's run offsets and boxes and its slices once
         kept = int(tab["count"].sum())
-        b_o = bound(0, 48 * kept + (4 + 36 + 192) * kw_s["gc"] ** 3)
+        n_sl = int(p3m_short_view(tab, gc_s, n_s)["nslices"][0])
+        b_o = bound(0, 48 * kept + (4 + 36 + 192) * gc_s ** 3 + 4 * n_sl)
         self.kernels["P3MO"].update(ms=order["median"], plain_ms=order_plain["median"],
                                     bound_ms=b_o[0], bound_by=b_o[1], library_ms=None)
-        # the sum alone by CUDA events (its launch on a table reordered
-        # once), and the wrapper's device time by the profiler: the reorder,
-        # the sum and their set-up
+        # the sum alone by CUDA events (its launch on a view built once), and
+        # the wrapper's device time by the profiler: the view, the sum and
+        # their set-up
         sum_alone = summary(time_ms(self.p3m_sum_launch(tab, kw_s), 20))
         dev_t = device_times(lambda: p3m_short_cuda(*args, count=tab["count"], **kw_t))
-        dev = {k: sum(v[1] for n_, v in dev_t.items() if k in n_) if dev_t else "not measured"
-               for k in ("p3m_short_kernel", "p3m_order_kernel", "")}
+        dev = {k: sum(v[1] for n_, v in dev_t.items() if k in n_) or "not measured"
+               for k in ("p3m_short_kernel", "p3m_view_kernel", "")}
         w = self.p3m_short_w
         b = bound(OPS_SHORT * w["needed"], w["nbytes"], rsqrt=MUFU_SHORT * w["needed"])
         slots = self.kernels["P3M"].get("sass_slots_per_pair", "not measured")
@@ -5615,9 +5999,9 @@ class Smoke:
                 f"version); its issue floor {fmt(floor, 4)} ms ({fmt(slots)} SASS instructions "
                 f"a visited pair over {w['issued']:,} lane slots); the sum alone "
                 f"{ms(sum_alone)} by events; the wrapper's device time {fmt(dev[''], 4)} ms "
-                f"(the sum {fmt(dev['p3m_short_kernel'], 4)}, the reorder "
-                f"{fmt(dev['p3m_order_kernel'], 4)}); "
-                f"the reorder kernel {ms(order)} vs its plain version {ms(order_plain)}, bound "
+                f"(the sum {fmt(dev['p3m_short_kernel'], 4)}, the view "
+                f"{fmt(dev['p3m_view_kernel'], 4)}); "
+                f"the view kernel {ms(order)} vs its plain version {ms(order_plain)}, bound "
                 f"{b_o[0]:.4f} ms ({b_o[1]}); the B5 subset and the block macro step: phase 17, "
                 f"and in turns with another build's by --parent")
 
@@ -6964,13 +7348,14 @@ class Smoke:
 
         return ot.make_mesh(shape=(p,), devices=self.dev)
 
-    def ring_shards(self, radius: float, dead: int = 0):
+    def ring_shards(self, radius: float, dead: int = 0, ranks: int = RING_P):
         """The cluster (its first N_MAIN - dead bodies live, the rest parked
-        far) as f32 tensors on the card, cut in RING_P shards of RING_B:
-        [(pos, vel, mass, radius, alive), ...]."""
+        far) as f32 tensors on the card, cut in ``ranks`` shards (RING_B
+        bodies at RING_P): [(pos, vel, mass, radius, alive), ...]."""
         pos, vel, mass, rad, alive = self.scene(N_MAIN, radius, dead, seed_offset=51)
-        return [tuple(t[r * RING_B:(r + 1) * RING_B] for t in (pos, vel, mass, rad, alive))
-                for r in range(RING_P)]
+        b = N_MAIN // ranks
+        return [tuple(t[r * b:(r + 1) * b] for t in (pos, vel, mass, rad, alive))
+                for r in range(ranks)]
 
     # phase 51
     def check_ring_kernels(self) -> str:
@@ -7010,6 +7395,8 @@ class Smoke:
                 m_eff = mj * aj.to(mj.dtype)
                 a, pe, c = block_acc_detect_cuda(pi, ri, ai, i * RING_B, pj, m_eff, rj, aj,
                                                  j * RING_B, **kw)
+                again = block_acc_detect_cuda(pi, ri, ai, i * RING_B, pj, m_eff, rj, aj,
+                                              j * RING_B, **kw)
                 a3, pe3 = block_acc_cuda(pi, pj, m_eff, **kw)
                 _, _, c0 = block_acc_detect_plain(pi, ri, ai, i * RING_B, pj, m_eff, rj, aj,
                                                   j * RING_B, **kw)
@@ -7017,6 +7404,8 @@ class Smoke:
                 if int(c) != int(c0) or not (torch.equal(a, a3) and torch.equal(pe, pe3)):
                     raise AssertionError(f"B3 detect {key} ({i}, {j}): count {int(c)} vs plain "
                                          f"{int(c0)}, or acc/pe not bit-equal to B3's")
+                if not all(torch.equal(x, y) for x, y in zip((a, pe, c), again)):
+                    raise AssertionError(f"B3 detect {key} ({i}, {j}): a rerun differs")
                 counts.append(int(c))
                 e, d, _ = bounce_pair(shards[i], shards[j], c)
                 err_bb, abs_bb = max(err_bb, e), max(abs_bb, d)
@@ -7034,6 +7423,35 @@ class Smoke:
                 raise AssertionError(f"contact-rich: counts {counts}")
             lines.append(f"{key} R={radius:g}{' a third dead' if dead else ''} shards "
                          f"{pairs}: counts {counts} == plain")
+        # B3 detect at 8 ranks' shards (RING_B8^2; in the dead case shard 5
+        # partly and shard 6 wholly dead): the same gates
+        for key, radius, dead in cases:
+            shards = self.ring_shards(radius, dead, RING_P8)
+            pairs = ((5, 5), (5, 6)) if dead else ((0, 0), (0, 1))
+            counts = []
+            for i, j in pairs:
+                (pi, _, _, ri, ai), (pj, _, mj, rj, aj) = shards[i], shards[j]
+                m_eff = mj * aj.to(mj.dtype)
+                args = (pi, ri, ai, i * RING_B8, pj, m_eff, rj, aj, j * RING_B8)
+                a, pe, c = block_acc_detect_cuda(*args, **kw)
+                again = block_acc_detect_cuda(*args, **kw)
+                a3, pe3 = block_acc_cuda(pi, pj, m_eff, **kw)
+                a0, _, c0 = block_acc_detect_plain(*args, **kw)
+                torch.cuda.synchronize()
+                e_acc = rel(a, a0) if key == "rich" else 0.0
+                if not all(torch.equal(x, y) for x, y in zip((a, pe, c), again)):
+                    raise AssertionError(f"B3 detect {key} ({i}, {j}) at {RING_B8}: a rerun "
+                                         f"differs")
+                if int(c) != int(c0) or not (torch.equal(a, a3) and torch.equal(pe, pe3)) \
+                        or e_acc > FORCE_RTOL:
+                    raise AssertionError(f"B3 detect {key} ({i}, {j}) at {RING_B8}: count "
+                                         f"{int(c)} vs plain {int(c0)}, acc vs plain "
+                                         f"{e_acc:.3e}, or acc/pe not bit-equal to B3's")
+                err_b3d = max(err_b3d, e_acc)
+                counts.append(int(c))
+            if key == "rich" and not all(counts):
+                raise AssertionError(f"contact-rich at {RING_B8}: counts {counts}")
+            lines.append(f"{RING_B8}x{RING_B8} {key} shards {pairs}: counts {counts} == plain")
         # a ragged pair of blocks, a third of each dead, for the bounce
         pos, vel, mass, rad, alive = self.scene(N_RAGGED, R_RAGGED, N_RAGGED // 3,
                                                 seed_offset=52, cluster=False)
@@ -7046,8 +7464,10 @@ class Smoke:
             raise AssertionError("ragged block bounce: nothing bounced")
         self.kernels["BB"]["max_abs_err"] = max(abs_bb, d_r)
         self.kernels["B3D"]["max_abs_err"] = abs_b3d
-        return (f"B3 detect at {RING_B}x{RING_B} (acc and pe bit-equal to B3's, count "
-                f"integer-equal to the plain one; acc vs plain {err_b3d:.2e} <= "
+        return (f"B3 detect at {RING_B}x{RING_B} and {RING_B8}x{RING_B8} (acc and pe "
+                f"bit-equal to B3's and reruns bit-equal, count integer-equal to the plain "
+                f"one; acc vs plain "
+                f"{err_b3d:.2e} <= "
                 f"{FORCE_RTOL:g}) and the block bounce (vs plain {err_bb:.2e} <= "
                 f"{BOUNCE_RTOL:g}, zeros at count 0): " + "; ".join(lines)
                 + f"; ragged {cut}x{N_RAGGED - cut} with a third dead: bounce vs plain "
@@ -7379,9 +7799,13 @@ class Smoke:
                                              rich[1][2], rich[1][3], rich[1][4], B, **kw)
         touching = int(c_rich)
         zero = torch.zeros((), dtype=torch.int32, device=self.dev)
+        B8 = RING_B8
+        (qi, _, _, si, bi), (qj, _, nj, sj, bj) = self.ring_shards(R_BENCH, ranks=RING_P8)[:2]
         kern = {k: summary(v) for k, v in alternate_ms({
             "B3": lambda: block_acc_cuda(pi, pj, mj, **kw),
             "B3D": lambda: block_acc_detect_cuda(pi, ri, ai, 0, pj, mj, rj, aj, B, **kw),
+            "B3 8": lambda: block_acc_cuda(qi, qj, nj, **kw),
+            "B3D 8": lambda: block_acc_detect_cuda(qi, si, bi, 0, qj, nj, sj, bj, B8, **kw),
             "BB": lambda: bounce_block_cuda(*rich[0], *rich[1], restitution=0.8,
                                             contacts=c_rich),
             "BB0": lambda: bounce_block_cuda(*rich[0], *rich[1], restitution=0.8,
@@ -7399,6 +7823,9 @@ class Smoke:
             "B3": bound(OPS_B1_PE * pairs, 16 * 2 * B + 16 * B, rsqrt=pairs),
             "B3D": bound((OPS_B1_PE + OPS_B2 - OPS_B1) * pairs, 20 * 2 * B + 16 * B + 4,
                          rsqrt=pairs),
+            "B3 8": bound(OPS_B1_PE * B8 * B8, 16 * 2 * B8 + 16 * B8, rsqrt=B8 * B8),
+            "B3D 8": bound((OPS_B1_PE + OPS_B2 - OPS_B1) * B8 * B8, 20 * 2 * B8 + 16 * B8 + 4,
+                           rsqrt=B8 * B8),
             "BB": bound(OPS_B6 * pairs + OPS_B6_TOUCH * touching, 33 * 2 * B + 24 * B + 4),
         }
         bound_bb0 = bound(0.0, 24 * B + 4)
@@ -7432,10 +7859,29 @@ class Smoke:
             exch[p] = 1e3 * (m.exchange_seconds() - x0) / p / 10
             dev = device_times(lambda: rolls[p](shards[p]))
             busy[p] = sum(v[1] for v in dev.values()) / 10 if dev else None
+        # the bounce ring's step at the bench row (B3 detect and the gated
+        # block bounce a round) in turns with one card's (B2 and the gated
+        # B6), each one's host time and busy time
+        cfg_b = self.ring_cfg(track_potential=False, collisions="bounce")
+        st_b = ot.init_forces(self.torch_state(pos, vel, mass, R_BENCH), cfg_b)
+        roll_b = ot.make_sharded_rollout(cfg_b, meshes[RING_P], st_b, 10)
+        shard_b = ot.shard_state(meshes[RING_P], st_b)
+        bounce_calls = {"one card": lambda: ot.rollout(st_b, cfg_b, 10, fused="never"),
+                        f"ring P={RING_P}": lambda: roll_b(shard_b)}
+        bounce = {k: summary([t / 10 for t in v])
+                  for k, v in alternate_ms(bounce_calls, 1, repeats=3).items()}
+        bounce_host = {k: summary([t / 10 for t in host_ms(f, 1, repeats=1)])
+                       for k, f in bounce_calls.items()}
+        bounce_busy = {}
+        for k, f in bounce_calls.items():
+            dev = device_times(f)
+            bounce_busy[k] = sum(v[1] for v in dev.values()) / 10 if dev else None
         self.ring_perf.update(kernels_16384=kern, plain=plain, bounds_ms=bounds,
                               block_bounce_count0_bound_ms=bound_bb0, touching=touching,
                               step_ms=steps, exchange_host_ms_per_step_per_rank=exch,
-                              host_ms_per_step=host, device_busy_ms_per_step=busy)
+                              host_ms_per_step=host, device_busy_ms_per_step=busy,
+                              bounce_step_ms=bounce, bounce_host_ms=bounce_host,
+                              bounce_busy_ms=bounce_busy)
         print("perf_ring " + json.dumps(self.ring_perf), file=sys.stderr)
 
         def ms(s):
@@ -7444,7 +7890,9 @@ class Smoke:
         return (f"at {B}x{B} (one ring round of N={N_MAIN} over {RING_P}): B3 {ms(kern['B3'])} "
                 f"(bound {bounds['B3'][0]:.4f} ms, {bounds['B3'][1]}; plain "
                 f"{ms(plain['B3'])}), B3 detect R={R_BENCH:g} {ms(kern['B3D'])} (bound "
-                f"{bounds['B3D'][0]:.4f}; plain {ms(plain['B3D'])}), block bounce "
+                f"{bounds['B3D'][0]:.4f}; plain {ms(plain['B3D'])}); at {B8}x{B8} (8 ranks) B3 "
+                f"{ms(kern['B3 8'])} (bound {bounds['B3 8'][0]:.4f}), B3 detect "
+                f"{ms(kern['B3D 8'])} (bound {bounds['B3D 8'][0]:.4f}); block bounce "
                 f"{touching} contacts {ms(kern['BB'])} (bound {bounds['BB'][0]:.4f}; plain "
                 f"{ms(plain['BB'])}), at count 0 {ms(kern['BB0'])} (bound "
                 f"{bound_bb0[0]:.5f}); KDK step ds32 N={N_MAIN} in turns: "
@@ -7452,15 +7900,18 @@ class Smoke:
                 + "; a step's host time to queue, a rank's wait in the exchange and the "
                 "device's busy time (profiler): " + ", ".join(
                     f"P={p} {host[p]:.3f}, {exch[p]:.3f} and {fmt(busy[p], 3)} ms"
-                    for p in RING_TIMED))
+                    for p in RING_TIMED)
+                + f"; the bounce step at R={R_BENCH:g} in turns (host, busy): " + ", ".join(
+                    f"{k} {ms(v)} ({bounce_host[k]['median']:.3f}, {fmt(bounce_busy[k], 3)})"
+                    for k, v in bounce.items()))
 
     # --- the multi-device paths, part two (ROADMAP A.15b) -----------------
 
-    def p3m_ring_case(self):
-        """The P3M uniform row cut in RING_P shards: each shard's short-range
-        table on the pinned grid, its global ids, the wrapper's keywords
-        (sigma and rcut^2 on the card, as the solver makes them), the
-        capacity probed on the whole set, and the whole table."""
+    def p3m_ring_case(self, ranks: int = RING_P):
+        """The P3M uniform row cut in ``ranks`` shards: each shard's
+        short-range table on the pinned grid, its global ids, the wrapper's
+        keywords (sigma and rcut^2 on the card, as the solver makes them),
+        the capacity probed on the whole set, and the whole table."""
         import torch
 
         from orbital_tpu_torch.ops.p3m import _cell_grid, p3m_cell_table, p3m_max_occupancy
@@ -7472,8 +7923,9 @@ class Smoke:
         cap = self.p3m_capacity(p3m_max_occupancy(p, None, grid=P3M_GRID, box=(center, half)))
         gc = _cell_grid(P3M_GRID, 1.5, 4.5)
         sigma = 1.5 * (2.0 * half / P3M_GRID)
-        kw = dict(gc=gc, n=RING_B, G=1.0, sigma=sigma, rcut2=(4.5 * sigma) ** 2, eps2=EPS2)
-        shards = [slice(r * RING_B, (r + 1) * RING_B) for r in range(RING_P)]
+        b = N_MAIN // ranks
+        kw = dict(gc=gc, n=b, G=1.0, sigma=sigma, rcut2=(4.5 * sigma) ** 2, eps2=EPS2)
+        shards = [slice(r * b, (r + 1) * b) for r in range(ranks)]
         tabs = [p3m_cell_table(p[sl], m[sl], alive[sl], center, half, gc=gc, capacity=cap)
                 for sl in shards]
         gids = [torch.arange(sl.start, sl.stop, device=self.dev) for sl in shards]
@@ -7486,58 +7938,105 @@ class Smoke:
         from orbital_tpu_torch.ops.p3m import p3m_short_pair_plain
 
         torch, rel = self.torch, self.rel
-        c = self.p3m_ring_case()
-        tabs, gids, kw = c["tabs"], c["gids"], c["kw"]
+        self.p3m_ring_perf = {}
+        lines, absd = [], 0.0
+        for ranks in (RING_P, RING_P8):
+            c = self.p3m_ring_case(ranks)
+            tabs, gids, kw = c["tabs"], c["gids"], c["kw"]
+            b = kw["n"]
 
-        def plain(i, j):
-            return p3m_short_pair_plain(
-                tabs[i]["table"], tabs[i]["cell_pos"],
-                cuda_p3m._gid_table(tabs[i]["table"], gids[i], -2), tabs[j]["cell_pos"],
-                tabs[j]["cell_m"], cuda_p3m._gid_table(tabs[j]["table"], gids[j], -1), **kw)
+            def plain(i, j):
+                return p3m_short_pair_plain(
+                    tabs[i]["table"], tabs[i]["cell_pos"],
+                    cuda_p3m._gid_table(tabs[i]["table"], gids[i], -2), tabs[j]["cell_pos"],
+                    tabs[j]["cell_m"], cuda_p3m._gid_table(tabs[j]["table"], gids[j], -1), **kw)
 
-        def pair(i, j):
-            return cuda_p3m.p3m_short_pair_cuda(tabs[i], tabs[j], gids[i], gids[j], **kw)
+            def pair(i, j):
+                return cuda_p3m.p3m_short_pair_cuda(tabs[i], tabs[j], gids[i], gids[j], **kw)
 
-        errs, absd = [], 0.0
-        for i, j in ((0, 0), (0, 1), (2, 3), (3, 0)):
-            out, ref = pair(i, j), plain(i, j)
-            torch.cuda.synchronize()
-            e = max(rel(o, r) for o, r in zip(out, ref))
-            if e > SHORT_RTOL:
-                raise AssertionError(f"P3M two-table ({i}, {j}) vs plain: {e:.3e}")
-            errs.append(f"({i}, {j}) {e:.2e}")
-            absd = max(absd, max(float((o - r).abs().max()) for o, r in zip(out, ref)))
-        # shard 0's rounds against every shard add up to the single table's sum
-        w = c["whole"]
-        one = cuda_p3m.p3m_short_cuda(w["table"], w["cell_pos"], w["cell_m"], count=w["count"],
-                                      **dict(kw, n=N_MAIN))
-        rounds = [pair(0, j) for j in range(RING_P)]
-        e_sum = max(rel(sum(r[k] for r in rounds), one[k][:RING_B]) for k in range(2))
-        if e_sum > SHORT_RTOL:
-            raise AssertionError(f"P3M rounds summed vs the single table: {e_sum:.3e}")
-        # a round's time (the diagonal one reuses its order; the others
-        # reorder the visitor's table), the plain version's, and the bound
-        # from the pairs the round needs
-        t_diag = summary(time_ms(lambda: pair(0, 0), 20))
-        t_off = summary(time_ms(lambda: pair(0, 1), 20))
-        t_plain = summary(time_ms(lambda: plain(0, 1), 1))
-        r2 = float(kw["rcut2"])
-        needed = pairs_within(c["pos"][:RING_B], c["pos"][RING_B:2 * RING_B], r2)
-        kept = int(tabs[0]["count"].sum() + tabs[1]["count"].sum())
-        nbytes = 24 * kept + 16 * RING_B + 2 * 232 * kw["gc"] ** 3
-        bnd = bound(OPS_SHORT * needed, nbytes, rsqrt=MUFU_SHORT * needed)
-        self.kernels["P3MR"].update(max_abs_err=absd, ms=t_off["median"],
-                                    plain_ms=t_plain["median"], bound_ms=bnd[0],
-                                    bound_by=bnd[1], library_ms=None)
-        self.p3m_ring_perf = dict(round_diag_ms=t_diag, round_ms=t_off, plain_ms=t_plain,
-                                  round_needed_pairs=needed)
-        return (f"the short range's two-table form at a round of the P3M row over {RING_P} "
-                f"ranks ({RING_B} bodies a shard, capacity {c['cap']}) against its plain "
-                f"version: " + ", ".join(errs) + f" <= {SHORT_RTOL:g}; shard 0's {RING_P} "
-                f"rounds summed vs the single-table sum {e_sum:.2e}; a round "
-                f"{t_off['median']:.3f} ms (spread {t_off['spread']:.3f}; the diagonal one "
-                f"{t_diag['median']:.3f}), plain {t_plain['median']:.3f}; bound "
-                f"{bnd[0]:.4f} ms ({bnd[1]}; {needed:,} needed pairs)")
+            # each shard's view, built by its owner and held to the plain view;
+            # a visitor's round reads what the ring ships of it
+            views = [self.view_equal(f"P3M ring view {ranks} ranks, shard {r}", tabs[r],
+                                     kw["gc"], b, gids[r]) for r in range(ranks)]
+            shipped = [{k: v[k] for k in cuda_p3m.SHIPPED} for v in views]
+            params = cuda_p3m.short_params(kw["sigma"], kw["rcut2"], self.dev)
+
+            def round_(i, j, out=None):
+                return cuda_p3m.p3m_short_round_cuda(
+                    views[i], views[i] if i == j else shipped[j], out=out, params=params, **kw)
+
+            errs = []
+            for i, j in ((0, 0), (0, 1), (2, 3), (3, 0)):
+                out, ref, rebuilt = round_(i, j), plain(i, j), pair(i, j)
+                torch.cuda.synchronize()
+                e = max(rel(o, r) for o, r in zip(out, ref))
+                if e > SHORT_RTOL:
+                    raise AssertionError(f"P3M two-table ({i}, {j}) at {b} a shard vs plain: "
+                                         f"{e:.3e}")
+                # the visitor's view shipped or built again by this rank: the
+                # same bits (its order does not depend on who builds it)
+                if not all(torch.equal(x, y) for x, y in zip(out, rebuilt)):
+                    raise AssertionError(f"P3M round ({i}, {j}) at {b}: the shipped view's "
+                                         f"sum differs from the rebuilt one's")
+                errs.append(f"({i}, {j}) {e:.2e}")
+                absd = max(absd, max(float((o - r).abs().max()) for o, r in zip(out, ref)))
+            # shard 0's rounds against every shard add up to the single table's
+            # sum; the rounds accumulate in place in round order
+            w = c["whole"]
+            one = cuda_p3m.p3m_short_cuda(w["table"], w["cell_pos"], w["cell_m"],
+                                          count=w["count"], **dict(kw, n=N_MAIN))
+            acc = None
+            for j in range(ranks):
+                acc = round_(0, j, acc)
+            e_sum = max(rel(acc[k], one[k][:b]) for k in range(2))
+            if e_sum > SHORT_RTOL:
+                raise AssertionError(f"P3M rounds summed at {b} vs the single table: "
+                                     f"{e_sum:.3e}")
+            # a round's time with its views passed in (the ring's), the
+            # diagonal one, the round building both views (the table form's
+            # call), the plain version's, and the bound from the pairs the
+            # round needs
+            outs = (torch.zeros((b, 3), dtype=torch.float32, device=self.dev),
+                    torch.zeros((b,), dtype=torch.float32, device=self.dev))
+            t = {k: summary(v) for k, v in alternate_ms({
+                "round": lambda: round_(0, 1, outs), "diagonal": lambda: round_(0, 0, outs),
+                "views built": lambda: pair(0, 1)}, 20).items()}
+            t_plain = summary(time_ms(lambda: plain(0, 1), 1))
+            # the round's device time (profiler) and its host time a call
+            dev_t = [v[1] for k_, v in device_times(lambda: round_(0, 1, outs)).items()
+                     if "p3m_short_kernel" in k_]
+            dev_round = sum(dev_t) if dev_t else "not measured"
+            host_round = summary(host_ms(lambda: round_(0, 1, outs), 20))
+            r2 = float(kw["rcut2"])
+            needed = pairs_within(c["pos"][:b], c["pos"][b:2 * b], r2)
+            kept = int(tabs[0]["count"].sum() + tabs[1]["count"].sum())
+            nbytes = 24 * kept + 16 * b + 2 * 232 * kw["gc"] ** 3
+            bnd = bound(OPS_SHORT * needed, nbytes, rsqrt=MUFU_SHORT * needed)
+            shift = {"before": 25 * b, "after": sum(
+                v.numel() * v.element_size() for v in shipped[1].values())}
+            if ranks == RING_P:
+                self.kernels["P3MR"].update(max_abs_err=absd, ms=t["round"]["median"],
+                                            plain_ms=t_plain["median"], bound_ms=bnd[0],
+                                            bound_by=bnd[1], library_ms=None)
+            self.p3m_ring_perf[f"{ranks} ranks"] = dict(
+                times=t, plain_ms=t_plain, device_ms=dev_round, host_ms=host_round,
+                round_needed_pairs=needed, bound=bnd,
+                shift_bytes=shift, slices=int(views[0]["nslices"][0]))
+            lines.append(
+                f"{ranks} ranks ({b} bodies a shard, capacity {c['cap']}, "
+                f"{int(views[0]['nslices'][0])} slices in shard 0's view): vs plain "
+                + ", ".join(errs) + f" <= {SHORT_RTOL:g}, shipped views' sums bit-equal to "
+                f"rebuilt ones'; shard 0's {ranks} rounds summed vs the single-table sum "
+                f"{e_sum:.2e}; a round {t['round']['median']:.4f} ms (spread "
+                f"{t['round']['spread']:.4f}; device time {fmt(dev_round, 4)}, the wrapper's "
+                f"host time {host_round['median']:.4f} a call), the diagonal one "
+                f"{t['diagonal']['median']:.4f}, "
+                f"building both views {t['views built']['median']:.4f}, plain "
+                f"{t_plain['median']:.3f}; bound {bnd[0]:.4f} ms ({bnd[1]}; {needed:,} needed "
+                f"pairs); a shift {shift['after']:,} bytes (the bodies it replaces "
+                f"{shift['before']:,})")
+        return ("the short range's two-table form at a round of the P3M row: "
+                + "; ".join(lines))
 
     # phase 62
     def p3m_ring_main_path(self) -> str:
@@ -7560,15 +8059,16 @@ class Smoke:
                        list(p.chunk(RING_P)), list(m.chunk(RING_P)),
                        list(alive.chunk(RING_P)))
         a = torch.cat([o[0] for o in out])
-        pairs, orders = (cuda_p3m.p3m_short_pair_cuda.launches,
-                         cuda_p3m.p3m_short_order_cuda.launches)
+        pairs, orders = (cuda_p3m.p3m_short_round_cuda.launches,
+                         cuda_p3m.p3m_short_view_cuda.launches)
         a1, U1, ov = p3m_acc_potential(p, m, alive, **kw)
         r_a, r_u = rel(a, a1), abs(float(out[0][1]) - float(U1)) / abs(float(U1))
         if r_a > P3M_RING_RTOL or r_u > RING_U_RTOL or int(ov):
             raise AssertionError(f"P3M ring vs one card: acc {r_a:.3e}, U {r_u:.3e}, "
                                  f"overflow {int(ov)}")
-        if pairs != RING_P * RING_P or orders != RING_P * RING_P:
-            raise AssertionError(f"P3M ring: {pairs} two-table and {orders} reorder launches "
+        # each rank builds its own view once: P view launches an evaluation
+        if pairs != RING_P * RING_P or orders != RING_P:
+            raise AssertionError(f"P3M ring: {pairs} two-table and {orders} view launches "
                                  f"an evaluation")
         # the pairs each rank's rounds need, against the single card's
         r2 = float(c["kw"]["rcut2"])
@@ -7592,7 +8092,7 @@ class Smoke:
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0) / (P3M_RING_STEPS - RING_STEPS)
         fin = ot.gather_state(mesh, shards)
-        launches = cuda_p3m.p3m_short_pair_cuda.launches
+        launches = cuda_p3m.p3m_short_round_cuda.launches
         single = cuda_p3m.p3m_short_cuda.launches
         drift = abs((energy_f64(fin) - e0) / e0)
         if err > STATE_ATOL or tuple(traj.pos.shape) != (2, N_MAIN, 3):
@@ -7620,7 +8120,7 @@ class Smoke:
         print("perf_p3m_ring " + json.dumps(self.p3m_ring_perf, default=str), file=sys.stderr)
         return (f"P3M ring N={N_MAIN} uniform grid {P3M_GRID} capacity {c['cap']} over "
                 f"{RING_P} one-card ranks: acc {r_a:.2e} <= {P3M_RING_RTOL:g}, U {r_u:.2e} of "
-                f"the single card's; {pairs} two-table and {orders} reorder launches an "
+                f"the single card's; {pairs} two-table and {orders} view launches an "
                 f"evaluation; rank 0's rounds need {mine:,} of the single card's {total:,} "
                 f"pairs ({100 * mine / total:.1f}%); {RING_STEPS} recorded steps within "
                 f"{err:.2e} of one card's, {P3M_RING_STEPS} in all, |dE/E| = {drift:.3e} <= "
@@ -7918,6 +8418,9 @@ def main(argv=None) -> int:
     parser.add_argument("--sweep", action="store_true",
                         help="only build and time the launch shapes of SWEEP (phases 1, 2 "
                              "and the sweep; with --parent, the parent check after it)")
+    parser.add_argument("--ring-variants", action="store_true",
+                        help="only build and time the ring kernels' launch shapes of "
+                             "RING_VARIANTS (phases 1, 2 and this check)")
     args = parser.parse_args(argv)
 
     import torch
@@ -7996,9 +8499,10 @@ def main(argv=None) -> int:
         ("64 sharded respa", smoke.respa_ring),
         ("65 ensemble mesh", smoke.ensemble_mesh),
     ]
-    if args.sweep or args.parent:
+    if args.sweep or args.parent or args.ring_variants:
         phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (
-            [("parent", lambda: smoke.check_parent(args.parent))] if args.parent else [])
+            [("parent", lambda: smoke.check_parent(args.parent))] if args.parent else []) + (
+            [("ring variants", smoke.ring_variants)] if args.ring_variants else [])
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -8012,7 +8516,7 @@ def main(argv=None) -> int:
             label = name if len(results) == 1 else name.split()[0].split("+")[i]
             print(f"phase {label}: {line} [{time.perf_counter() - t0:.1f} s]", flush=True)
 
-    if not (args.sweep or args.parent):
+    if not (args.sweep or args.parent or args.ring_variants):
         print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,13 +20,13 @@
 // of a pair at r = 0 is 0 whatever g is).
 //
 // The same kernel takes the body-sharded ring's round (p3m_short_pair): the
-// kept bodies i of this rank's table against the kept bodies j of a visiting
-// rank's table, binned on the same global grid, for
+// kept bodies i of this rank's view against the kept bodies j of a visiting
+// rank's view, binned on the same global grid, for
 // orbital_tpu/ops/p3m.py:347-418 (p3m_ring_force), whose pairs are kept when
 // gid_i != gid_j: two ranks' tables share no body, and in the diagonal
 // round (one table) the kernel skips each row's own slot, as here.
 //
-// Each kept body sits in exactly one table slot, so the kernel writes its
+// Each kept body sits in exactly one table slot, so the kernel adds to its
 // body's row directly: no segment sum. Overflowed and dead bodies have no
 // slot; the wrapper zeroes the outputs, so their rows read 0.
 //
@@ -38,8 +38,8 @@
 // (344.3 M) with the pair math under a branch some lane almost always took:
 // 1.169 ms, issue-bound on the walked pairs. This one cuts both:
 //
-// - Which pairs it visits. p3m_order_kernel (below; its plain version is
-//   ops/cuda_p3m.py::p3m_short_order) reorders each cell's kept prefix by
+// - Which pairs it visits. p3m_view_kernel (below; its plain version is
+//   ops/cuda_p3m.py::p3m_short_view) reorders each cell's kept prefix by
 //   the Morton code of an 8^3 split of the prefix's bounding box, so a
 //   32-row slice spans a small box, and cuts the prefix into the 8 runs of
 //   its top-level octants, each with its bounding box. A slice visits a
@@ -60,37 +60,71 @@
 //   first version's erff/expf arithmetic instead (kPoly = false; chip_smoke.py
 //   phase 31 holds it at a cut of 5 sigmas).
 // - The self pair is told by its slot (an int32), not by the body's int64
-//   index, and the runs give each staged row's slot without a search.
-// It takes 0.452 ms a call by events at the bench row (0.493 with its
-// reorder), 56 SASS instructions a visited pair, 1.6x its issue floor
-// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 33; PERF.md).
+//   index; the runs' offsets give each staged row's slot.
+// The single-table sum takes ~0.42 ms alone at the bench row, 55 SASS
+// instructions a visited pair (chip_smoke.py phase 33; PERF.md).
+//
+// At the ring's round (16,384 bodies a shard at 4 ranks) the function
+// needs 3.7 M pairs, 0.0028 ms of operations. The table form (a grid of
+// cells x ceil(capacity / 32), runs staged one a round, the visitor binned
+// and reordered by every rank in every round) took 0.0714 ms a round alone
+// and this one 0.0567 (chip_smoke.py --parent, in turns; NVIDIA H100 80GB
+// HBM3, 700 W): latency sets it, each block summing ~1.3 slices of ~22 rows,
+// a chain of run tests, staging rounds, sweeps and the reduction each.
 //
 // Design, on the template of B7 and the near sweep (tree_near.cu,
 // neighbor.cu); no float atomics, every sum in a fixed order:
-// - One block of kQ warps per 32-row slice of a cell's reordered prefix
-//   (grid: cells x ceil(capacity / 32); blocks past the prefix exit).
+// - The sum reads a view of the table (p3m_view_kernel, below): each
+//   cell's kept rows reordered and held as one segment of a compact array
+//   (run_off[c][0] to run_off[c][8], absolute slots), the body index and
+//   global id of each slot, the octant runs' boxes, and the list of the
+//   (cell, 32-row slice) pairs that hold rows. The body-sharded ring builds
+//   each shard's view once an evaluation, on its owner, and passes the
+//   view round the ring: the rows of a visitor, not its bodies, so no rank
+//   bins or reorders a visitor again.
+// - A persistent grid of the co-resident blocks walks the slice list (an
+//   integer atomic hands out the entries), so no block is launched for a
+//   slice past a cell's prefix: a ring round at 4 ranks holds ~729 slices
+//   of ~22 rows, where a grid of cells x ceil(capacity / 32) launched
+//   12,393 blocks, ~11,700 of which exited at once.
 // - Lanes as (row, group over j): a slice of R rows takes S lanes a row (S
 //   the power of two >= R) and G = 32 / S groups a warp, so a cell of one
 //   body still fills its warps.
 // - The block's threads test the 27 x 8 neighbour runs against the slice's
-//   box once; warp w stages runs w, w + kQ, ... in order, 32 rows a round,
-//   and compacts the rows within reach (x, y, z, m and the slot) into its shared
-//   buffer by a ballot and a prefix count. Once the buffer holds kSweep
-//   rows, the warp sweeps the largest multiple of G of them (each group a
-//   fixed share, into fresh partials before the running sums) and carries
-//   the rest (< G) to the front.
+//   box once and take a prefix sum of the lengths of those within reach;
+//   warp w then stages flat rows 32 w, 32 (w + kQ), ... of that sequence,
+//   32 a round drawn across as many runs as they span (each lane finds its
+//   run by a binary search), and compacts the rows within reach (x, y, z,
+//   m and the slot) into its shared buffer by a ballot and a prefix count.
+//   Staging one run a round left the rounds nearly empty where a shard's
+//   cell holds ~3 rows a run. Once the buffer holds kSweep rows, the warp
+//   sweeps the largest multiple of G of them (each group a fixed share,
+//   into fresh partials before the running sums) and carries the rest
+//   (< G) to the front.
 // - The groups of a warp are added by a fixed xor-shuffle tree and the warps
-//   in warp order in shared memory: the same result from run to run.
+//   in warp order in shared memory: the same result from run to run. Each
+//   body's sum is added to its output row (a product and a sum, each
+//   rounded), so the ring's rounds accumulate in place in round order.
+// - 8 warps a block (OT_P3M_Q), registers capped at 64 so that four blocks
+//   fit an SM. With 4 warps (eight blocks an SM) the ring's round at 4
+//   ranks, whose slices are ~1/4 as full, ran slower: each slice's chain of
+//   staging and sweeping is then twice as long (chip_smoke.py
+//   --ring-variants; PERF.md).
 //
 // Plain C interface for ctypes: pointers and the stream are void*, and each
 // entry point returns cudaGetLastError() of its launch.
 #include <cuda_runtime.h>
 
+#ifndef OT_P3M_Q
+#define OT_P3M_Q 8
+#endif
+
 namespace {
 
-constexpr int kQ = 8;                 // warps a block, one share of the runs each
-constexpr int kOrderThreads = 256;    // the reorder's threads a cell
+constexpr int kQ = OT_P3M_Q;            // warps a block
 constexpr int kThreads = 32 * kQ;
+constexpr int kMinBlocks = 32 / kQ;     // blocks an SM at 64 registers
+constexpr int kOrderThreads = 256;    // the view kernel's threads a cell
 constexpr int kOct = 8;               // runs a cell: its top-level octants
 constexpr int kRuns = 27 * kOct;      // runs a slice may stage
 constexpr int kSweep = 64;            // buffered rows that start a sweep
@@ -229,31 +263,36 @@ struct SliceShared {
   int slot_bufs[kQ][kBuf];
   int run_start[kRuns];   // the first slot of each neighbour run
   int run_len[kRuns];     // its rows, 0 where its box is out of reach
+  int run_end[kRuns];     // the inclusive prefix sum of run_len
   float4 red[kQ][32];
+  int unit;               // the list entry the block sums next
 };
 
-// The i side (the slice's rows, `table` and `run_off`) and the j side (the
-// neighbour runs: `rows4_j`, `run_off_j`, `run_box_j`) may be two tables of
-// one cell grid; `diag` says they are one table, whose own slot each row
-// skips (two tables hold no body in common).
+// One slice of the i view (list entry `entry`: cell entry >> 9, rows
+// 32 (entry & 511) onward of the cell's kept rows) against the rows of the
+// j view in the 27 cells around it. Both views hold each cell's kept rows
+// in one segment, run_off[c][0] to run_off[c][8], as absolute slots; `diag`
+// says they are one view, whose own slot each row skips (two views hold no
+// body in common). Adds G acc and pe of each row to its body's outputs.
 template <bool kPoly>
-__device__ __forceinline__ void slice_sum(SliceShared& sh, const float4* __restrict__ rows4,
-                                          const long long* __restrict__ table,
+__device__ __forceinline__ void slice_sum(SliceShared& sh, int entry,
+                                          const float4* __restrict__ rows4,
+                                          const long long* __restrict__ body,
                                           const int* __restrict__ run_off,
                                           const float4* __restrict__ rows4_j,
                                           const int* __restrict__ run_off_j,
                                           const float* __restrict__ run_box_j, bool diag,
-                                          int gc, int cap, const Consts& c, float G,
+                                          int gc, const Consts& c, float G,
                                           float* __restrict__ acc, float* __restrict__ pe) {
-  const int cell = blockIdx.x;
-  const int s0 = blockIdx.y * 32;
-  const int cnt = run_off[cell * (kOct + 1) + kOct];
-  if (s0 >= cnt) return;
+  const int cell = entry >> 9;
+  const int first = run_off[cell * (kOct + 1)];
+  const int cnt = run_off[cell * (kOct + 1) + kOct] - first;
+  const int s0 = (entry & 511) * 32;
   const int rows = min(32, cnt - s0);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
-  const int base = cell * cap + s0;
+  const int base = first + s0;
 
   // the slice's rows, their box and the reach test's bound
   float4 mine = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -272,6 +311,7 @@ __device__ __forceinline__ void slice_sum(SliceShared& sh, const float4* __restr
   // (_OFFSETS order, z fastest)
   int* const run_start = sh.run_start;
   int* const run_len = sh.run_len;
+  int* const run_end = sh.run_end;
   for (int t = threadIdx.x; t < kRuns; t += kThreads) {
     const int nbr = t / kOct, oct = t % kOct;
     const int cz = cell % gc, cy = (cell / gc) % gc, cx = cell / (gc * gc);
@@ -286,13 +326,31 @@ __device__ __forceinline__ void slice_sum(SliceShared& sh, const float4* __restr
       const float gy = fmaxf(fmaxf(__fsub_rd(b[1], hi_y), __fsub_rd(lo_y, b[4])), 0.0f);
       const float gz = fmaxf(fmaxf(__fsub_rd(b[2], hi_z), __fsub_rd(lo_z, b[5])), 0.0f);
       const bool reach = o1 > o0 && dist2_rd(gx, gy, gz) < reach2;
-      start = id * cap + o0;
+      start = o0;
       len = reach ? o1 - o0 : 0;
     }
     run_start[t] = start;
     run_len[t] = len;
   }
   __syncthreads();
+  // the runs' rows in reach as one flat sequence: a prefix sum of the
+  // lengths, in run order
+  if (warp == 0) {
+    int carry = 0;
+    for (int p = 0; p < kRuns; p += 32) {
+      const int t = p + lane;
+      int v = t < kRuns ? run_len[t] : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v += y;
+      }
+      if (t < kRuns) run_end[t] = carry + v;
+      carry += __shfl_sync(0xffffffffu, v, 31);
+    }
+  }
+  __syncthreads();
+  const int total = run_end[kRuns - 1];
 
   // lane (i, g): row i of the slice, group g of G = 32 / S over the j rows
   int sshift = 0;
@@ -305,47 +363,55 @@ __device__ __forceinline__ void slice_sum(SliceShared& sh, const float4* __restr
   const float4 pi = make_float4(__shfl_sync(0xffffffffu, mine.x, src_i),
                                 __shfl_sync(0xffffffffu, mine.y, src_i),
                                 __shfl_sync(0xffffffffu, mine.z, src_i), 0.0f);
-  const int self = diag ? base + src_i : -1;  // no slot of the j table is -1
+  const int self = diag ? base + src_i : -1;  // no slot of the j view is -1
   float4* const buf = sh.bufs[warp];
   int* const sbuf = sh.slot_bufs[warp];
 
+  // warp w stages flat rows 32 w, 32 (w + kQ), ... onward, 32 a round, each
+  // lane finding its row's run by a binary search of run_end
   float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // the row's running sums
   int fill = 0;                                    // rows in the warp's buffer
-  for (int r = warp; r < kRuns; r += kQ) {
-    const int len = run_len[r];
-    const int start = run_start[r];
-    for (int f0 = 0; f0 < len; f0 += 32) {
-      const int f = f0 + lane;
-      float4 q = make_float4(inf, inf, inf, 0.0f);
-      if (f < len) q = rows4_j[start + f];
-      const bool in = f < len && dist2_rd(gap_rd(lo_x, hi_x, q.x), gap_rd(lo_y, hi_y, q.y),
+  for (int f0 = 32 * warp; f0 < total; f0 += kThreads) {
+    const int f = f0 + lane;
+    float4 q = make_float4(inf, inf, inf, 0.0f);
+    int slot = 0;
+    if (f < total) {
+      int lo = 0, hi = kRuns - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (run_end[mid] > f) hi = mid;
+        else lo = mid + 1;
+      }
+      slot = run_start[lo] + f - (run_end[lo] - run_len[lo]);
+      q = rows4_j[slot];
+    }
+    const bool in = f < total && dist2_rd(gap_rd(lo_x, hi_x, q.x), gap_rd(lo_y, hi_y, q.y),
                                           gap_rd(lo_z, hi_z, q.z)) < reach2;
-      const unsigned m = __ballot_sync(0xffffffffu, in);
-      if (in) {
-        buf[fill + __popc(m & below)] = q;
-        sbuf[fill + __popc(m & below)] = start + f;
+    const unsigned m = __ballot_sync(0xffffffffu, in);
+    if (in) {
+      buf[fill + __popc(m & below)] = q;
+      sbuf[fill + __popc(m & below)] = slot;
+    }
+    fill += __popc(m);
+    if (fill >= kSweep) {
+      __syncwarp();
+      const int nb = fill & ~(G_ - 1);
+      sweep_rows<kPoly>(buf, sbuf, nb, g, gshift, pi, self, c, s);
+      // carry the rows past nb (fewer than G <= 32) to the front
+      const int rest = fill - nb;
+      float4 cq;
+      int cs = 0;
+      if (lane < rest) {
+        cq = buf[nb + lane];
+        cs = sbuf[nb + lane];
       }
-      fill += __popc(m);
-      if (fill >= kSweep) {
-        __syncwarp();
-        const int nb = fill & ~(G_ - 1);
-        sweep_rows<kPoly>(buf, sbuf, nb, g, gshift, pi, self, c, s);
-        // carry the rows past nb (fewer than G <= 32) to the front
-        const int rest = fill - nb;
-        float4 cq;
-        int cs = 0;
-        if (lane < rest) {
-          cq = buf[nb + lane];
-          cs = sbuf[nb + lane];
-        }
-        __syncwarp();
-        if (lane < rest) {
-          buf[lane] = cq;
-          sbuf[lane] = cs;
-        }
-        __syncwarp();
-        fill = rest;
+      __syncwarp();
+      if (lane < rest) {
+        buf[lane] = cq;
+        sbuf[lane] = cs;
       }
+      __syncwarp();
+      fill = rest;
     }
   }
   __syncwarp();
@@ -369,20 +435,27 @@ __device__ __forceinline__ void slice_sum(SliceShared& sh, const float4* __restr
       t.z += u.z;
       t.w += u.w;
     }
-    const long long b = table[base + lane];
-    acc[3 * b] = G * t.x;
-    acc[3 * b + 1] = G * t.y;
-    acc[3 * b + 2] = G * t.z;
-    pe[b] = t.w;
+    // out += this sum, rounded as a separate product and sum
+    const long long b = body[base + lane];
+    acc[3 * b] = __fadd_rn(acc[3 * b], __fmul_rn(G, t.x));
+    acc[3 * b + 1] = __fadd_rn(acc[3 * b + 1], __fmul_rn(G, t.y));
+    acc[3 * b + 2] = __fadd_rn(acc[3 * b + 2], __fmul_rn(G, t.z));
+    pe[b] = __fadd_rn(pe[b], t.w);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-p3m_short_kernel(const float4* __restrict__ rows4, const long long* __restrict__ table,
-                 const int* __restrict__ run_off, const float4* __restrict__ rows4_j,
+// A persistent grid of co-resident blocks: each block takes the next entry
+// of the i view's slice list (one integer atomic on nslices[1]) until the
+// list's nslices[0] entries are taken; the last block out (nslices[2]
+// counts them) sets both counters back to 0 for the next launch. Registers
+// are capped at 64, so that 2,048 threads fit an SM.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+p3m_short_kernel(const float4* __restrict__ rows4, const long long* __restrict__ body,
+                 const int* __restrict__ run_off, const int* __restrict__ slices,
+                 int* __restrict__ nslices, const float4* __restrict__ rows4_j,
                  const int* __restrict__ run_off_j, const float* __restrict__ run_box_j,
-                 bool diag, int gc, int cap, const float* __restrict__ params, float G,
-                 float eps2, float* __restrict__ acc, float* __restrict__ pe) {
+                 bool diag, int gc, const float* __restrict__ params, float G, float eps2,
+                 float* __restrict__ acc, float* __restrict__ pe) {
   Consts c;
   c.rcut2 = params[0];
   c.alpha = params[1];
@@ -392,32 +465,66 @@ p3m_short_kernel(const float4* __restrict__ rows4, const long long* __restrict__
   c.k0 = 1.0f / sqrtf(eps2) - c.cg;
   c.eps2 = eps2;
   __shared__ SliceShared sh;
-  // uniform: one split for the whole table
-  if (c.a2 * c.rcut2 <= kSMax) {
-    slice_sum<true>(sh, rows4, table, run_off, rows4_j, run_off_j, run_box_j, diag, gc, cap,
-                    c, G, acc, pe);
-  } else {
-    slice_sum<false>(sh, rows4, table, run_off, rows4_j, run_off_j, run_box_j, diag, gc, cap,
-                     c, G, acc, pe);
+  const int total = nslices[0];
+  // uniform: one split for the whole view
+  const bool poly = c.a2 * c.rcut2 <= kSMax;
+  for (;;) {
+    if (threadIdx.x == 0) sh.unit = atomicAdd(nslices + 1, 1);
+    __syncthreads();
+    const int u = sh.unit;
+    if (u >= total) break;
+    if (poly) {
+      slice_sum<true>(sh, slices[u], rows4, body, run_off, rows4_j, run_off_j, run_box_j,
+                          diag, gc, c, G, acc, pe);
+    } else {
+      slice_sum<false>(sh, slices[u], rows4, body, run_off, rows4_j, run_off_j,
+                           run_box_j, diag, gc, c, G, acc, pe);
+    }
+    __syncthreads();
+  }
+  // every block has taken its last entry once all have counted themselves
+  // out, so the last one can reset the list's counters
+  if (threadIdx.x == 0 && atomicAdd(nslices + 2, 1) == static_cast<int>(gridDim.x) - 1) {
+    nslices[1] = 0;
+    nslices[2] = 0;
   }
 }
 
-// One block a cell: the reorder of ops/cuda_p3m.py::p3m_short_order, equal
-// to it integer for integer and bit for bit on each cell's kept prefix. The
-// prefix (count rows) gets its bounding box, each row the Morton code of its
-// place in an 8^3 split of that box (the same float operations as the torch
-// version), and its new place is its rank by (key, old place): a stable sort
-// without atomics. Only the prefix is written: the sum reads no slot past
-// it. The octant runs' row counts and boxes are integer atomics (counts, and
+// The sum over a block's threads of v (every thread gets it); `part` holds
+// kOrderThreads / 32 ints.
+__device__ __forceinline__ int block_sum(int v, int* part) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int t = 0;
+  for (int w = 0; w < kOrderThreads / 32; ++w) t += part[w];
+  return t;
+}
+
+// One block a cell: the view of ops/cuda_p3m.py::p3m_short_view. The
+// cell's kept prefix (count rows) gets its bounding box, each row the
+// Morton code of its place in an 8^3 split of that box (the same float
+// operations as the torch version), and its new place is its rank by (key,
+// old place): a stable sort without atomics. The rows go to one segment
+// of the compact view, after the kept rows of the cells before it (a sum
+// each block takes over count[0 .. cell)), with their body indices and,
+// where `gid` is given, global ids; the cell's slices go to the slice
+// list the same way, and the last cell's block writes the list's length.
+// The octant runs' row counts and boxes are integer atomics (counts, and
 // min / max of the coordinates as order-preserving ints): exact, whatever
 // the order.
 __global__ void __launch_bounds__(kOrderThreads)
-p3m_order_kernel(const float* __restrict__ cell_pos, const float* __restrict__ cell_m,
-                 const long long* __restrict__ table, const int* __restrict__ count, int cap,
-                 float4* __restrict__ rows4, long long* __restrict__ table_s,
-                 int* __restrict__ run_off, float* __restrict__ run_box) {
+p3m_view_kernel(const float* __restrict__ cell_pos, const float* __restrict__ cell_m,
+                const long long* __restrict__ table, const int* __restrict__ count,
+                const long long* __restrict__ gid, int cap, float4* __restrict__ rows4,
+                long long* __restrict__ body, long long* __restrict__ gid_s,
+                int* __restrict__ run_off, float* __restrict__ run_box,
+                int* __restrict__ slices, int* __restrict__ nslices) {
   extern __shared__ unsigned short keys[];  // [cap]
   __shared__ float part[6][kOrderThreads / 32];
+  __shared__ int ipart[kOrderThreads / 32];
   __shared__ float box[6];
   __shared__ int oct_n[kOct];
   __shared__ int oct_box[kOct][6];
@@ -426,6 +533,14 @@ p3m_order_kernel(const float* __restrict__ cell_pos, const float* __restrict__ c
   const size_t base = static_cast<size_t>(cell) * cap;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float inf = __int_as_float(0x7f800000);
+  int rows_before = 0, slices_before = 0;
+  for (int k = threadIdx.x; k < cell; k += kOrderThreads) {
+    const int n_k = count[k];
+    rows_before += n_k;
+    slices_before += (n_k + 31) >> 5;
+  }
+  const int start = block_sum(rows_before, ipart);
+  const int sl0 = block_sum(slices_before, ipart);
   float v[6] = {inf, inf, inf, -inf, -inf, -inf};
   for (int k = threadIdx.x; k < cnt; k += kOrderThreads) {
     for (int a = 0; a < 3; ++a) {
@@ -480,18 +595,27 @@ p3m_order_kernel(const float* __restrict__ cell_pos, const float* __restrict__ c
       const unsigned short kt = keys[t];
       rank += kt < key || (kt == key && t < k);
     }
-    const size_t src = base + k, dst = base + rank;
+    const size_t src = base + k, dst = static_cast<size_t>(start) + rank;
     rows4[dst] = make_float4(cell_pos[3 * src], cell_pos[3 * src + 1], cell_pos[3 * src + 2],
                              cell_m[src]);
-    table_s[dst] = table[src];
+    const long long b = table[src];
+    body[dst] = b;
+    if (gid != nullptr) gid_s[dst] = gid[b];
   }
+  const int own = (cnt + 31) >> 5;
+  for (int k = threadIdx.x; k < own; k += kOrderThreads) slices[sl0 + k] = (cell << 9) | k;
   if (threadIdx.x == 0) {
-    int off = 0;
+    int off = start;
     for (int o = 0; o < kOct; ++o) {
       run_off[cell * (kOct + 1) + o] = off;
       off += oct_n[o];
     }
     run_off[cell * (kOct + 1) + kOct] = off;
+    if (cell == static_cast<int>(gridDim.x) - 1) {
+      nslices[0] = sl0 + own;
+      nslices[1] = 0;
+      nslices[2] = 0;
+    }
   }
   if (threadIdx.x < kOct * 6) {
     const int o = threadIdx.x / 6, a = threadIdx.x % 6;
@@ -499,82 +623,112 @@ p3m_order_kernel(const float* __restrict__ cell_pos, const float* __restrict__ c
   }
 }
 
-}  // namespace
+// The co-resident blocks of p3m_short_kernel on the current device, asked
+// once a device.
+int resident_blocks(int device) {
+  static int cache[64] = {0};
+  const int d = device >= 0 && device < 64 ? device : 0;
+  if (cache[d] == 0) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p3m_short_kernel, kThreads, 0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cache[d] = per_sm * sms > 0 ? per_sm * sms : 1;
+  }
+  return cache[d];
+}
 
-extern "C" {
-
-// The two-table form (the body-sharded ring's round, ops/p3m.py
-// p3m_ring_force): the rows of table i (rows4, table, run_off, as for
-// p3m_short_sorted) summed against the rows of table j (rows4_j, run_off_j,
-// run_box_j) in the 27 cells around each, both tables binned on one grid
-// with one capacity. With diag = 1 the two are one table (the ring's own
-// shard) and each row skips its own slot; with diag = 0 no pair is skipped
-// (the tables hold different bodies). acc and pe as for p3m_short_sorted,
-// for the bodies of table i.
-int p3m_short_pair(const void* rows4, const void* table, const void* run_off,
-                   const void* rows4_j, const void* run_off_j, const void* run_box_j, int diag,
-                   int gc, int cap, const void* params, float G, float eps2, void* acc,
-                   void* pe, void* stream, int device) {
+int launch_sum(const void* rows4, const void* body, const void* run_off, const void* slices,
+               void* nslices, int max_slices, const void* rows4_j, const void* run_off_j,
+               const void* run_box_j, int diag, int gc, const void* params, float G,
+               float eps2, void* acc, void* pe, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (gc <= 0 || cap <= 0) return cudaSuccess;
+  if (gc <= 0 || max_slices <= 0) return cudaSuccess;
   if (!(eps2 > 0.0f)) return cudaErrorInvalidValue;
-  const dim3 grid(gc * gc * gc, (cap + 31) / 32);
-  p3m_short_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(rows4), static_cast<const long long*>(table),
-      static_cast<const int*>(run_off), static_cast<const float4*>(rows4_j),
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int grid = min(resident_blocks(device), max_slices);
+  p3m_short_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const float4*>(rows4), static_cast<const long long*>(body),
+      static_cast<const int*>(run_off), static_cast<const int*>(slices),
+      static_cast<int*>(nslices), static_cast<const float4*>(rows4_j),
       static_cast<const int*>(run_off_j), static_cast<const float*>(run_box_j), diag != 0, gc,
-      cap, static_cast<const float*>(params), G, eps2, static_cast<float*>(acc),
+      static_cast<const float*>(params), G, eps2, static_cast<float*>(acc),
       static_cast<float*>(pe));
   return cudaGetLastError();
 }
 
-// rows4: [gc^3 * cap] float4 (x, y, z, m) of each cell's kept bodies, a
-// prefix of its row, in the order of ops/cuda_p3m.py::p3m_short_order;
-// table: [gc^3 * cap] int64 body indices in the same order; run_off:
-// [gc^3, 9] int32 first row of each octant run in its cell, run_off[c][8]
-// the cell's count; run_box: [gc^3, 8, 6] float (min x, y, z, max x, y, z)
-// of each run, +inf / -inf when empty; params: [2] float on the device
-// (rcut^2, alpha = 1 / (2 sigma)); acc: [n, 3] and pe: [n] float, zeroed by
-// the caller (rows of bodies without a slot stay 0).
-int p3m_short_sorted(const void* rows4, const void* table, const void* run_off,
-                     const void* run_box, int gc, int cap, const void* params, float G,
-                     float eps2, void* acc, void* pe, void* stream, int device) {
-  return p3m_short_pair(rows4, table, run_off, rows4, run_off, run_box, 1, gc, cap, params, G,
-                        eps2, acc, pe, stream, device);
-}
+}  // namespace
 
-// cell_pos: [gc^3 * cap, 3] and cell_m: [gc^3 * cap] float, table:
-// [gc^3 * cap] int64 (p3m_cell_table's, the pad row dropped); count: [gc^3]
-// int32. Writes each cell's kept prefix of rows4 [gc^3 * cap] float4 and
-// table_s [gc^3 * cap] int64 (slots past it are left as they were), run_off
-// [gc^3, 9] int32 and run_box [gc^3, 8, 6] float, as p3m_short_order
-// returns them.
-int p3m_short_order(const void* cell_pos, const void* cell_m, const void* table,
-                    const void* count, int gc, int cap, void* rows4, void* table_s,
-                    void* run_off, void* run_box, void* stream, int device) {
+extern "C" {
+
+// The view of a cell table (p3m_short_view's outputs, its plain version
+// ops/cuda_p3m.py::p3m_short_view): cell_pos: [gc^3 * cap, 3] and cell_m:
+// [gc^3 * cap] float, table: [gc^3 * cap] int64 (p3m_cell_table's, the pad
+// row dropped), count: [gc^3] int32, gid: [n] int64 global ids or null.
+// Writes the kept rows of rows4 [n] float4, body [n] int64 and (with gid)
+// gid_s [n] int64 (slots past the kept rows are left as they were), run_off
+// [gc^3, 9] int32 (absolute slots), run_box [gc^3, 8, 6] float, slices
+// [at most gc^3 ceil(cap / 32)] int32 and nslices [3] int32 (the list's
+// length, and the sum's two counters, 0).
+int p3m_short_view(const void* cell_pos, const void* cell_m, const void* table,
+                   const void* count, const void* gid, int gc, int cap, void* rows4,
+                   void* body, void* gid_s, void* run_off, void* run_box, void* slices,
+                   void* nslices, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (gc <= 0 || cap <= 0) return cudaSuccess;
-  if (cap > 16384) return cudaErrorInvalidValue;  // the keys' shared memory
-  p3m_order_kernel<<<gc * gc * gc, kOrderThreads, cap * sizeof(unsigned short),
-                     static_cast<cudaStream_t>(stream)>>>(
+  if (cap > 16384) return cudaErrorInvalidValue;  // the keys' shared memory, 9-bit slices
+  p3m_view_kernel<<<gc * gc * gc, kOrderThreads, cap * sizeof(unsigned short),
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cell_pos), static_cast<const float*>(cell_m),
-      static_cast<const long long*>(table), static_cast<const int*>(count), cap,
-      static_cast<float4*>(rows4), static_cast<long long*>(table_s),
-      static_cast<int*>(run_off), static_cast<float*>(run_box));
+      static_cast<const long long*>(table), static_cast<const int*>(count),
+      static_cast<const long long*>(gid), cap, static_cast<float4*>(rows4),
+      static_cast<long long*>(body), static_cast<long long*>(gid_s),
+      static_cast<int*>(run_off), static_cast<float*>(run_box), static_cast<int*>(slices),
+      static_cast<int*>(nslices));
   return cudaGetLastError();
 }
 
-// The launch shape: shape[0..4] = rows a block slice, warps, buffered rows
-// that start a sweep, threads a block, blocks (cells x slices) at gc cells a
-// side and capacity cap.
-void p3m_short_shape(int gc, int cap, int* shape) {
+// The two-table form (the body-sharded ring's round, ops/p3m.py
+// p3m_ring_force): the rows of view i (rows4, body, run_off, its slice
+// list slices / nslices, max_slices the list's room) summed against the
+// rows of view j (rows4_j, run_off_j, run_box_j) in the 27 cells around
+// each, both binned on one grid. With diag = 1 the two are one view (the
+// ring's own shard) and each row skips its own slot; with diag = 0 no pair
+// is skipped (the views hold different bodies). params: [2] float on the
+// device (rcut^2, alpha = 1 / (2 sigma)); acc: [n, 3] and pe: [n] float,
+// to which the sums of the bodies of view i are added (rows of bodies
+// without a slot are left as they were).
+int p3m_short_pair(const void* rows4, const void* body, const void* run_off,
+                   const void* slices, void* nslices, int max_slices, const void* rows4_j,
+                   const void* run_off_j, const void* run_box_j, int diag, int gc,
+                   const void* params, float G, float eps2, void* acc, void* pe, void* stream,
+                   int device) {
+  return launch_sum(rows4, body, run_off, slices, nslices, max_slices, rows4_j,
+                            run_off_j, run_box_j, diag, gc, params, G, eps2, acc, pe, stream,
+                            device);
+}
+
+// The single-table sum: view i against itself (diag).
+int p3m_short_sorted(const void* rows4, const void* body, const void* run_off,
+                     const void* run_box, const void* slices, void* nslices, int max_slices,
+                     int gc, const void* params, float G, float eps2, void* acc, void* pe,
+                     void* stream, int device) {
+  return launch_sum(rows4, body, run_off, slices, nslices, max_slices, rows4,
+                              run_off, run_box, 1, gc, params, G, eps2, acc, pe, stream,
+                              device);
+}
+
+// The launch shape: shape[0..4] = rows a slice, warps a block, buffered rows
+// that start a sweep, threads a block, and the co-resident blocks (the
+// persistent grid, at most).
+void p3m_short_shape(int device, int* shape) {
+  cudaSetDevice(device);
   shape[0] = 32;
   shape[1] = kQ;
   shape[2] = kSweep;
   shape[3] = kThreads;
-  shape[4] = gc * gc * gc * ((cap + 31) / 32);
+  shape[4] = resident_blocks(device);
 }
 
 const char* ot_error_string(int err) {

@@ -22,7 +22,11 @@ streaming its slice through its own shared float4 tiles, the slices' sums
 added in a fixed order, the ragged last tile cut in the kernel. The
 bookkeeping stays here, as in the JAX wrapper: the alive mask, the
 analytic self-PE subtraction m_i/eps (the kernel masks nothing when
-eps2 > 0) and U = -1/2 G sum m pe.
+eps2 > 0) and U = -1/2 G sum m pe. B3 and B3 detect take the same tile
+sweep on a launch of their own, sized for the ring's blocks (16,384^2 at 4
+ranks): :func:`block_plan` splits the j range across blocks as well as
+across the warps of a block, the kernel adds the splits' partials on the
+device in split order, and it reads the tables in place (no packing).
 
 For CPU tensors the wrappers compute the plain versions,
 ``ops.forces.pairwise_acc_chunked`` (plus ``ops.collisions.
@@ -36,6 +40,7 @@ which the threads of a one-card mesh launch, under a lock).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -46,7 +51,7 @@ from ..utils.kernels import count_launch, refuse_grad
 
 __all__ = ["pairwise_acc_cuda", "pairwise_acc_plain", "pairwise_acc_detect_cuda",
            "pairwise_acc_detect_plain", "block_acc_cuda", "block_acc_plain",
-           "block_acc_detect_cuda", "block_acc_detect_plain"]
+           "block_acc_detect_cuda", "block_acc_detect_plain", "block_plan"]
 
 _lib = None
 
@@ -66,14 +71,14 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.nbody_block_forces.restype = ctypes.c_int
-        lib.nbody_block_forces.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.nbody_block_forces.argtypes = [p, i, p, p, i, f, f, i, i, p, p, p, p, i]
         lib.nbody_block_forces_detect.restype = ctypes.c_int
-        lib.nbody_block_forces_detect.argtypes = [
-            p, p, i, i, p, p, i, i, ctypes.c_float, ctypes.c_float, p, p, p, i]
+        lib.nbody_block_forces_detect.argtypes = [p, p, p, i, i, p, p, p, p, i, i, f, f, i, i,
+                                                  p, p, p, p, p, i]
+        lib.nbody_block_shape.restype = None
+        lib.nbody_block_shape.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
         _lib = lib
     return _lib
 
@@ -234,6 +239,108 @@ def block_acc_plain(pos_i, pos_j, mass_j, *, G: float, eps2: float):
     return acc.to(pos_i.dtype), pe_row.to(pos_i.dtype)
 
 
+# B3's launch plan: a unit's fixed cost (its i rows, sums and partials) as
+# this many j bodies a warp
+_UNIT_ROWS = 64
+
+
+@functools.lru_cache(maxsize=None)
+def block_plan(n_i: int, n_j: int, rows: int, warps: int, tile: int, resident: int,
+               sms: int) -> dict:
+    """B3's cut of an n_i x n_j block: ``tiles`` i tiles of ``rows`` bodies,
+    ``splits`` j splits of ``split_len`` bodies (whole j tiles of ``tile``),
+    ``grid`` = ``units`` = tiles x splits blocks (unit u is i tile u % tiles
+    against split u // tiles, whose j tiles warp w of ``warps`` sweeps w, w +
+    warps, ...). Of the split counts that cut [0, n_j) without an empty
+    split, it takes one with at least 2 x ``sms`` units where there is one
+    (so that every SM gets two blocks or more), then the least critical
+    path, rounds x (a warp's j tiles x tile + a unit's fixed cost of 64
+    bodies) with ``resident`` blocks a round, then the fewest splits: at
+    16,384^2 in i tiles of 64 on 132 SMs with 264 co-resident blocks, 2
+    splits (512 blocks), where one split left 4 SMs idle on B1's shape; at
+    65,536^2 one split, B1's order."""
+    n_i, n_j, rows, warps, tile = int(n_i), int(n_j), int(rows), int(warps), int(tile)
+    resident, sms = int(resident), int(sms)
+    if min(n_i, n_j, rows, warps, tile, resident, sms) < 1:
+        raise ValueError(f"block_plan: n_i={n_i}, n_j={n_j}, rows={rows}, warps={warps}, "
+                         f"tile={tile}, resident={resident}, sms={sms} must be >= 1")
+    tiles, j_tiles = -(-n_i // rows), -(-n_j // tile)
+    best = None
+    for splits in range(1, j_tiles + 1):
+        split_tiles = -(-j_tiles // splits)
+        if -(-j_tiles // split_tiles) != splits:
+            continue  # a smaller count cuts the same way
+        units = tiles * splits
+        path = -(-units // resident) * (-(-split_tiles // warps) * tile + _UNIT_ROWS)
+        key = (units < 2 * sms, path, splits)
+        if best is None or key < best[0]:
+            best = (key, dict(tiles=tiles, splits=splits, split_len=split_tiles * tile,
+                              units=units, grid=units))
+    return best[1]
+
+
+# per device: the block kernel's shape and its scratch (the splits'
+# partials; each tile's counter and the count's tally and counter: zeros,
+# which each launch leaves zero)
+_block_shapes: dict = {}
+_block_scratch: dict = {}
+
+
+def block_shape(device: torch.device) -> dict:
+    """B3's block shape on ``device``: i bodies a thread (``k``), warps a
+    block (``q``), j bodies a tile, threads a block, co-resident blocks and
+    SMs, asked of the library once per library and device."""
+    lib = _load()
+    key = (id(lib), device.index or 0)
+    if key not in _block_shapes:
+        arr = (ctypes.c_int * 6)()
+        lib.nbody_block_shape(key[1], arr)
+        _block_shapes[key] = dict(zip(("k", "q", "tile", "threads", "resident", "sms"), arr))
+    return _block_shapes[key]
+
+
+def _block_scratch_for(dev: torch.device, parts: int, tiles: int):
+    part, done = _block_scratch.get(dev, (None, None))
+    if part is None or part.shape[0] < parts:
+        part = torch.empty((max(parts, 1), 4), dtype=torch.float32, device=dev)
+    if done is None or done.numel() < tiles:
+        done = torch.zeros((tiles,), dtype=torch.int32, device=dev)
+    _block_scratch[dev] = (part, done)
+    return part, done
+
+
+def _block_launch(pos_i, pos_j, mass_j, detect, out, G: float, eps2: float) -> None:
+    """Launch B3 (``detect`` None) or B3 detect (``detect`` = (radius_i,
+    alive_i, i_off, radius_j, alive_j, j_off, contacts)) on its launch plan,
+    into ``out`` [n_i, 4]."""
+    from ..utils.kernels import check
+
+    lib, dev = _load(), pos_i.device
+    n_i, n_j = pos_i.shape[0], pos_j.shape[0]
+    sh = block_shape(dev)
+    plan = block_plan(n_i, n_j, 32 * sh["k"], sh["q"], sh["tile"], sh["resident"], sh["sms"])
+    part, done = _block_scratch_for(dev, n_i * plan["splits"] if plan["splits"] > 1 else 0,
+                                    plan["tiles"] + 2)
+    cut = (plan["splits"], plan["split_len"], part.data_ptr(), done.data_ptr(),
+           out.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pi, pj, mj = (t.to(torch.float32).contiguous() for t in (pos_i, pos_j, mass_j))
+    if detect is None:
+        err = lib.nbody_block_forces(pi.data_ptr(), n_i, pj.data_ptr(), mj.data_ptr(), n_j,
+                                     float(G), float(eps2), *cut, stream, dev.index or 0)
+        check(lib, err, "nbody_block_forces launch")
+        return
+    radius_i, alive_i, i_off, radius_j, alive_j, j_off, contacts = detect
+    ri, rj = (t.to(torch.float32).contiguous() for t in (radius_i, radius_j))
+    ai, aj = (t.to(torch.bool).contiguous() for t in (alive_i, alive_j))
+    err = lib.nbody_block_forces_detect(pi.data_ptr(), ri.data_ptr(), ai.data_ptr(), n_i,
+                                        int(i_off), pj.data_ptr(), mj.data_ptr(),
+                                        rj.data_ptr(), aj.data_ptr(), n_j, int(j_off),
+                                        float(G), float(eps2), *cut, contacts.data_ptr(),
+                                        stream, dev.index or 0)
+    check(lib, err, "nbody_block_forces_detect launch")
+
+
 def block_acc_cuda(pos_i: torch.Tensor, pos_j: torch.Tensor, mass_j: torch.Tensor, *,
                    G: float, eps2: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Partial forces of body block j on body block i: (acc [Bi, 3], pe_row
@@ -248,18 +355,8 @@ def block_acc_cuda(pos_i: torch.Tensor, pos_j: torch.Tensor, mass_j: torch.Tenso
                          f"{pos_i.dtype} {tuple(pos_i.shape)}")
     n_i, n_j = pos_i.shape[0], pos_j.shape[0]
     _check_block(n_i, n_j, eps2)
-    pts_i = torch.nn.functional.pad(pos_i, (0, 1)).contiguous()  # [Bi, 4]
-    pts_j = torch.cat([pos_j, mass_j.to(torch.float32)[:, None]], dim=1).contiguous()
     out = torch.empty((n_i, 4), dtype=torch.float32, device=pos_i.device)
-
-    lib = _load()
-    from ..utils.kernels import check
-
-    stream = torch.cuda.current_stream(pos_i.device).cuda_stream
-    err = lib.nbody_block_forces(pts_i.data_ptr(), n_i, pts_j.data_ptr(), n_j, float(G),
-                                 float(eps2), out.data_ptr(), stream,
-                                 pos_i.device.index or 0)
-    check(lib, err, "nbody_block_forces launch")
+    _block_launch(pos_i, pos_j, mass_j, None, out, G, eps2)
     count_launch(block_acc_cuda)
     return out[:, 0:3], out[:, 3]
 
@@ -303,24 +400,10 @@ def block_acc_detect_cuda(pos_i: torch.Tensor, radius_i: torch.Tensor, alive_i: 
             or alive_j.shape != (n_j,):
         raise ValueError("block_acc_detect_cuda: need radius and alive [Bi] and [Bj]")
     _check_block(n_i, n_j, eps2)
-    f32, nan = torch.float32, float("nan")
-    # a dead body's NaN radius fails every comparison in the kernel
-    rad_i = torch.where(alive_i, radius_i.to(f32), nan).contiguous()
-    rad_j = torch.where(alive_j, radius_j.to(f32), nan).contiguous()
-    pts_i = torch.nn.functional.pad(pos_i, (0, 1)).contiguous()  # [Bi, 4]
-    pts_j = torch.cat([pos_j, mass_j.to(f32)[:, None]], dim=1).contiguous()
-    out = torch.empty((n_i, 4), dtype=f32, device=pos_i.device)
-    contacts = torch.zeros((), dtype=torch.int32, device=pos_i.device)
-
-    lib = _load()
-    from ..utils.kernels import check
-
-    stream = torch.cuda.current_stream(pos_i.device).cuda_stream
-    err = lib.nbody_block_forces_detect(
-        pts_i.data_ptr(), rad_i.data_ptr(), n_i, int(i_off), pts_j.data_ptr(),
-        rad_j.data_ptr(), n_j, int(j_off), float(G), float(eps2), out.data_ptr(),
-        contacts.data_ptr(), stream, pos_i.device.index or 0)
-    check(lib, err, "nbody_block_forces_detect launch")
+    out = torch.empty((n_i, 4), dtype=torch.float32, device=pos_i.device)
+    contacts = torch.empty((), dtype=torch.int32, device=pos_i.device)
+    _block_launch(pos_i, pos_j, mass_j, (radius_i, alive_i, i_off, radius_j, alive_j, j_off,
+                                         contacts), out, G, eps2)
     count_launch(block_acc_detect_cuda)
     return out[:, 0:3], out[:, 3], contacts
 

@@ -24,9 +24,10 @@ exactly over the 27 neighbour cells of an r_cut-sized cell grid:
 :func:`p3m_ring_force` is the body-sharded form (one rank's code against a
 ``parallel.mesh.Comm``): the mesh part is the sharded PM pipeline (a local
 deposit, one psum of the grid, a replicated FFT), and the short range rides
-a ring: every round the visiting shard is binned into the same global cell
-grid and each local cell sums its bodies against the visitor's 27
-neighbour cells (the two-table form of the kernel, whose plain version is
+a ring: each shard is binned into the global cell grid once, on its owner,
+and its view (the kept rows in the kernel's order) visits every rank, where
+each local cell sums its bodies against the visitor's 27 neighbour cells
+(the two-table form of the kernel, whose plain version is
 :func:`p3m_short_pair_plain`).
 """
 from __future__ import annotations
@@ -316,13 +317,16 @@ def p3m_ring_force(
 
     The mesh part is ``ops.pm._pm_core`` with the communicator (the cube by
     pmin/pmax unless ``box`` pins it, one psum of the density grid). The
-    short range is a ring: this rank's table is built and reordered once;
-    every round the visiting shard's (positions, masses, alive, global ids)
-    are binned into the same global cell grid and summed against it (the
-    kernel's two-table form, ``ops.cuda_p3m.p3m_short_pair_cuda``), then
-    passed on. Each rank's pair work is its own bodies against the
-    visitors within reach, about 1/P of the single-card sum; the JAX
-    module's tile form repeats every cell block in every round.
+    short range is a ring: this rank bins its shard into the global cell
+    grid once and builds its view (``ops.cuda_p3m.p3m_short_view_cuda``:
+    the kept rows in the kernel's order, their global ids, each cell's runs
+    and run boxes); every round sums this rank's view against a visiting
+    one (the kernel's two-table form, ``ops.cuda_p3m.p3m_short_round_cuda``,
+    adding into the rank's outputs), then passes the visitor's rows on
+    (``ops.cuda_p3m.SHIPPED``), so no rank bins or reorders another's
+    shard. Each rank's pair work is its own bodies against the visitors
+    within reach, about 1/P of the single-card sum; the JAX module's tile
+    form repeats every cell block in every round.
 
     The capacity overflow is not returned (the JAX function's contract):
     size ``capacity`` with :func:`p3m_max_occupancy` on the whole system.
@@ -331,7 +335,7 @@ def p3m_ring_force(
     neither overflows. Requires eps2 > 0."""
     if eps2 <= 0.0:
         raise ValueError("the P3M solver requires eps2 > 0")
-    from .cuda_p3m import p3m_short_order_cuda, p3m_short_pair_cuda
+    from .cuda_p3m import SHIPPED, p3m_short_round_cuda, p3m_short_view_cuda, short_params
 
     nloc, g, dev = pos.shape[0], int(grid), pos.device
     pos32 = pos.to(f32)
@@ -348,24 +352,23 @@ def p3m_ring_force(
     gc = _cell_grid(g, sigma_cells, cut_sigma)
     kw = dict(gc=gc, n=nloc, G=G_grav, sigma=sigma, rcut2=rcut2, eps2=eps2,
               cell_block=cell_block)
-
-    def table(p32, m, a):
-        return p3m_cell_table(p32, m, a, center, half, gc=gc, capacity=capacity)
+    if dev.type == "cuda":
+        kw["params"] = short_params(sigma, rcut2, dev)
 
     gid = comm.rank * nloc + torch.arange(nloc, dtype=i64, device=dev)
-    tab_i = table(pos32, m_eff, alive_b)
-    # the local table's kernel order, made once for every round
-    order_i = (p3m_short_order_cuda(tab_i["table"], tab_i["cell_pos"], tab_i["cell_m"],
-                                    tab_i["count"], gc) if dev.type == "cuda" else None)
-    visit = (pos32, m_eff, alive_b, gid)
-    acc_s = pe_s = None
+    tab = p3m_cell_table(pos32, m_eff, alive_b, center, half, gc=gc, capacity=capacity)
+    # this shard's view, built once: every round reads it, and the ring
+    # carries it to the other ranks
+    view_i = p3m_short_view_cuda(tab, gc, nloc, gid)
+    visit = tuple(view_i[k] for k in SHIPPED)
+    out = None
     for k in range(comm.size):
-        # round 0 visits this rank's own shard: its table, and its order
-        tab_j = tab_i if k == 0 else table(*visit[:3])
-        a_r, p_r = p3m_short_pair_cuda(tab_i, tab_j, gid, visit[3], order_i=order_i, **kw)
-        acc_s, pe_s = (a_r, p_r) if k == 0 else (acc_s + a_r, pe_s + p_r)
+        # round 0 visits this rank's own shard
+        view_j = view_i if k == 0 else dict(zip(SHIPPED, visit))
+        out = p3m_short_round_cuda(view_i, view_j, out=out, **kw)
         if k < comm.size - 1:
             visit = comm.ppermute(visit)
+    acc_s, pe_s = out
 
     acc = (acc_mesh + acc_s) * alive_f[:, None]
     if with_potential:

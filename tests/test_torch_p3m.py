@@ -473,9 +473,10 @@ def test_short_box_rule_keeps_every_pair(short_tables):
 def test_short_work_counts_equal_brute_force(short_tables):
     """chip_smoke.p3m_short_work's staged, visited, issued and needed pairs
     equal a pair-by-pair count; the lane slots by stepping each warp's
-    buffer as the kernel does (8 warps): runs w, w + 8, ... in order, 32
-    rows a round, a sweep of the largest multiple of G rows once it holds
-    64, the rest at the end."""
+    buffer as the kernel does (8 warps): the rows of the runs within reach,
+    in run order, as one flat sequence, warp w taking its rounds of 32 rows
+    w, w + 8, ..., a sweep of the largest multiple of G rows once its buffer
+    holds 64, the rest at the end."""
     import chip_smoke
 
     for name, tab, gc, sigma, rcut2, n in short_tables:
@@ -485,18 +486,15 @@ def test_short_work_counts_equal_brute_force(short_tables):
         issued = 0
         for s in range(len(rows)):
             G = 32 >> int(math.ceil(math.log2(max(rows[s], 1))))
+            flags = [f for r in range(27 * 8) if meets[s][r // 8][r % 8]
+                     for f in in_box[s][r // 8][off[s][r // 8][r % 8]:off[s][r // 8][r % 8 + 1]]]
             for w in range(8):
                 fill = it = 0
-                for r in range(w, 27 * 8, 8):
-                    nbr, octn = divmod(r, 8)
-                    if not meets[s][nbr][octn]:
-                        continue
-                    flags = in_box[s][nbr][off[s][nbr][octn]:off[s][nbr][octn + 1]]
-                    for f0 in range(0, len(flags), 32):
-                        fill += sum(flags[f0:f0 + 32])
-                        if fill >= 64:
-                            it += fill // G
-                            fill %= G
+                for f0 in range(32 * w, len(flags), 32 * 8):
+                    fill += sum(flags[f0:f0 + 32])
+                    if fill >= 64:
+                        it += fill // G
+                        fill %= G
                 it += -(-fill // G)
                 issued += 32 * it
         pair = t["live_i"][:, :, None, None] & t["live_j"][:, None] & ~t["self_pair"]

@@ -256,6 +256,50 @@ def test_block_bounce_plain_matches_jax():
     assert torch.equal(g[0], dp) and torch.equal(g[1], dv)
 
 
+@pytest.mark.parametrize("n_i", [8192, 16384, 65536])
+def test_block_plan_covers_every_pair_once(n_i):
+    """B3's launch plan (``cuda_forces.block_plan``), walked as
+    csrc/nbody_forces.cu's block_forces_kernel walks it (block u takes i tile
+    u % tiles against j split u // tiles; warp w of a block sweeps the
+    split's j tiles w, w + warps, ..., cut at the split's end): every (i
+    tile, j) pair once, no empty split, whole j tiles a split, and at least
+    2 x 132 blocks where n_i <= 16,384, the ring's shards at 8 and 4 ranks
+    of the 65,536-body row (n_j the shards the ring meets there and one
+    other size), at three block shapes and three co-resident counts on 132
+    SMs; at 65,536^2 one split, so that B3 keeps B1's summation order."""
+    sms = 132
+    for n_j in (n_i, 2 * n_i, 4992):
+        for rows, warps in ((64, 16), (128, 8), (128, 16)):
+            for resident in (132, 264, 528):
+                p = cuda_forces.block_plan(n_i, n_j, rows, warps, 128, resident, sms)
+                tiles, splits, split_len = p["tiles"], p["splits"], p["split_len"]
+                assert tiles == -(-n_i // rows) and p["units"] == p["grid"] == tiles * splits
+                assert split_len % 128 == 0 and (splits - 1) * split_len < n_j
+                assert n_j <= splits * split_len
+                if n_i <= 16384:
+                    assert p["grid"] >= 2 * sms, (n_i, n_j, rows, warps, resident, p)
+                if n_i == n_j == 65536:
+                    assert splits == 1
+                seen = set()
+                cover = np.zeros(n_j, np.int64)  # every i tile meets the same splits
+                for u in range(p["grid"]):
+                    t, s_ = u % tiles, u // tiles
+                    assert (t, s_) not in seen
+                    seen.add((t, s_))
+                    if t:
+                        continue
+                    end = min((s_ + 1) * split_len, n_j)
+                    swept = 0
+                    for w in range(warps):
+                        for j0 in range(s_ * split_len + 128 * w, end, 128 * warps):
+                            cover[j0:min(j0 + 128, end)] += 1
+                            swept += min(j0 + 128, end) - j0
+                    assert swept == end - s_ * split_len > 0
+                assert len(seen) == tiles * splits and bool((cover == 1).all())
+    with pytest.raises(ValueError, match="must be >= 1"):
+        cuda_forces.block_plan(n_i, 0, 64, 16, 128, 264, sms)
+
+
 @pytest.mark.parametrize("offsets", [(0, 0), (96, 0), (0, 96), (192, 288)])
 def test_block_count_plain_matches_jax(offsets):
     """The plain detecting block (B3's plain forces and the count with

@@ -175,6 +175,86 @@ def test_pair_sum_plain_and_wrapper():
         cuda_p3m.p3m_short_pair_cuda(meta, dict(meta), gids[0], gids[1], n=512, **kw)
 
 
+def test_view_slice_list_matches_a_count():
+    """The plain view (``cuda_p3m.p3m_short_view``, in the kernel's order and
+    in the table's): each cell's kept rows one segment of the compact rows
+    after the cells before it, the table's rows and body indices there, and
+    the slice list equal to a numpy count of each cell's non-empty 32-row
+    slices (a dense core puts cells past 32 rows)."""
+    pos, mass, alive = _uniform(2048, seed=6)
+    pos[:600] *= 0.25
+    center, half = _t(*BOX)
+    gc = tp3m._cell_grid(64, 1.5, 4.5)
+    p32, al = torch.from_numpy(pos), torch.from_numpy(alive)
+    cap = _capacity(pos, alive, 64, BOX)
+    tab = tp3m.p3m_cell_table(p32, torch.from_numpy(mass) * al, al, center, half, gc=gc,
+                              capacity=cap)
+    count = tab["count"].numpy().astype(np.int64)
+    assert count.max() > 64
+    want = [(c << 9) | k for c in range(gc ** 3) for k in range(-(-int(count[c]) // 32))]
+    start = np.concatenate([[0], np.cumsum(count)[:-1]])
+    for reorder in (True, False):
+        v = cuda_p3m.p3m_short_view(tab, gc, 2048, torch.arange(2048) + 7, reorder=reorder)
+        assert v["slices"].tolist() == want and v["nslices"].tolist() == [len(want), 0, 0]
+        off = v["run_off"].numpy()
+        assert np.array_equal(off[:, 0], start) and np.array_equal(off[:, -1] - off[:, 0], count)
+        assert bool((np.diff(off, axis=1) >= 0).all())
+        kept = int(count.sum())
+        for c in np.flatnonzero(count)[::7]:
+            seg = slice(start[c], start[c] + count[c])
+            body = v["body"][seg]
+            if not reorder:
+                assert torch.equal(body, tab["table"][c, :count[c]])
+            assert sorted(body.tolist()) == sorted(tab["table"][c, :count[c]].tolist())
+            assert torch.equal(v["rows"][seg, :3], p32[body])
+            assert torch.equal(v["gid"][seg], body + 7)
+        assert bool((v["body"][kept:] == 2048).all()) and bool((v["gid"][kept:] == -1).all())
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_ring_ships_views_equal_to_rebuilding_them(p, monkeypatch):
+    """The ring with each shard's view built by its owner and passed round
+    (``p3m_ring_force``) against the same ring whose rounds build the
+    visitor's table and view again from its bodies, as the ring did before
+    views were shipped: equal bit for bit on the plain route; and within
+    the ring's tolerances of JAX's ``p3m_ring_force``."""
+    pos, mass, alive = _uniform(2048)
+    kw = dict(G_grav=1.0, eps2=1e-4, grid=64, capacity=_capacity(pos, alive, 64, BOX),
+              with_potential=True)
+    ta, tU = _t_ring(p, pos, mass, alive, BOX, **kw)
+    ja, jU = _j_ring(p, BOX, **kw)(jnp.asarray(pos), jnp.asarray(mass), jnp.asarray(alive))
+    assert _rel(ta, ja) <= ACC_RTOL
+    assert abs(tU - float(jU)) <= U_RTOL * abs(float(jU))
+    # the route that rebuilds: each rank's table arguments kept by its first
+    # global id, and every visitor's table and view made anew from them
+    nloc = 2048 // p
+    made, table, view, round_ = {}, tp3m.p3m_cell_table, cuda_p3m.p3m_short_view_cuda, \
+        cuda_p3m.p3m_short_round_cuda
+
+    def kept_table(*args, **k):
+        tab = table(*args, **k)
+        tab["_args"] = (args, k)
+        return tab
+
+    def kept_view(tab, gc, n, gid=None):
+        made[int(gid[0])] = (tab.pop("_args"), gc, n, gid)
+        return view(tab, gc, n, gid)
+
+    def rebuilt(view_i, view_j, **k):
+        if view_j is not view_i:
+            ids = view_j["gid"]
+            (args, tk), gc, n, gid = made[int(ids[ids >= 0].min()) // nloc * nloc]
+            view_j = view(table(*args, **tk), gc, n, gid)
+        return round_(view_i, view_j, **k)
+
+    monkeypatch.setattr(tp3m, "p3m_cell_table", kept_table)
+    monkeypatch.setattr(cuda_p3m, "p3m_short_view_cuda", kept_view)
+    monkeypatch.setattr(cuda_p3m, "p3m_short_round_cuda", rebuilt)
+    ra, rU = _t_ring(p, pos, mass, alive, BOX, **kw)
+    assert len(made) == p
+    assert np.array_equal(ra, ta) and rU == tU
+
+
 def _port_state(js):
     fields = {f.name: getattr(js, f.name) for f in dataclasses.fields(js)}
     return state_from_arrays({k: None if v is None else np.asarray(v)
