@@ -30,13 +30,22 @@ the block macro step on each tree's row subset (its time and the host's
 time to queue it); and the ring's kernels at its shard shapes (B3 and B3
 detect at RING_B^2 and RING_B8^2, P3M's two-table round at RING_P ranks
 from its tables, and that round alone with its views, or the table form's
-orders, built before). A source whose C signature predates its redesign
+orders, built before; the block bounce at RING_B^2 written on its plan,
+within BOUNCE_RTOL, and pinned to one split, bit-equal, and its rounds as
+the ring makes them, added in place at a count > 0 and at 0, timed; B7's
+slice of each rank's span of bench_tree's worklist, bit-equal, rank 0's
+timed; the bounce ring's step at the bench row in turns with the other
+build's block bounce in the same ring), and requires B6, B7 and the
+one-split block bounce bit-equal to the other build. A source whose C signature predates its redesign
 (the near sweep's, B4's, the row subset's, the P3M short range's first and
-table forms, B3's first block form and the ensemble kernel's first
-version) runs through ``FIRST_SIGNATURES``. With
-``--ring-variants`` it runs phases 1-2 and then builds B3's block kernel and
-P3M's sum at the launch shapes of RING_VARIANTS (``-D`` overrides), holds
-each against this build and times them in turns at the ring's shard shapes.
+table forms, B3's first block form, the ensemble kernel's first
+version, the block bounce's and B7's first forms) runs through
+``FIRST_SIGNATURES``. With
+``--ring-variants`` it runs phases 1-2 and then builds B3's block kernel,
+P3M's sum and the block bounce at the launch shapes of RING_VARIANTS
+(``-D`` overrides), holds each against this build and times them in turns
+at the ring's shard shapes, the block bounce also at RING_BOUNCE_SPLITS
+splits.
 With ``--sweep`` it runs phases 1-2 and then builds the launch shapes of
 ``SWEEP`` (``-D`` overrides of the eight sources' shape macros), holds each
 against the plain versions and times them in turns, with the registers,
@@ -304,6 +313,11 @@ Phases, one line of output each; any failure exits nonzero:
      bounce (BB) within BOUNCE_RTOL of its plain version, zeros at count 0,
      at the contact-rich radius and the bench row's, on shards with a third
      dead, and the bounce on a ragged pair of blocks with a third dead;
+     the block bounce's forms: on its plan (several splits) and pinned to
+     one split at RING_B^2 and RING_B8^2 against the plain version, rank
+     0's rounds in accumulate form bit-equal to the same rounds written
+     apart and summed, a rerun bit-equal, gated rounds leaving the sums,
+     and one split on coinciding tables at N_MAIN bit-equal to B6;
  52. B3 in the ring (``parallel.sharded.ring_force_fn``) over RING_P and
      RING_P2 one-card ranks against B1 over the whole table (acc within
      FORCE_RTOL, U within RING_U_RTOL), its detecting form bit-equal with
@@ -330,8 +344,11 @@ Phases, one line of output each; any failure exits nonzero:
      over NCCL (a ``file://`` store), RING_NCCL_STEPS recorded merge steps at
      the contact-rich radius bit-equal to the one-card mesh of one rank;
  60. ring timings: B3, B3D and BB at RING_B x RING_B beside their plain
-     versions and bounds (BB also at count 0; B3 and B3D also at RING_B8 x
-     RING_B8), the bounce step at the bench row on one card and on the
+     versions and bounds (B3 and B3D also at RING_B8 x RING_B8; BB as the
+     ring calls it, a checked round added in place, at a count > 0, at 0,
+     the first round's write at 0 and at RING_B8 x RING_B8, each with the
+     wrapper's host time a call, its device time, the plan and its share
+     of the bound), the bounce step at the bench row on one card and on the
      ring at RING_P ranks in turns (host and busy time), the KDK step on one card and
      on the ring at each of RING_TIMED's rank counts in turns, and for each
      a step's host time, a rank's wait in the exchange and the device's
@@ -356,8 +373,11 @@ Phases, one line of output each; any failure exits nonzero:
      all within P3M_DRIFT_BOUND; a step in turns with one card, its host
      time and the device's busy time;
  63. the sharded tree on bench_tree's sphere: B7's RING_P slices of the
-     worklist summed against the whole sweep and each against its plain
-     version (NEAR_RTOL), a slice timed beside its bound; the sharded
+     worklist (cut in the kernel from ``_wl_table``'s offsets) summed
+     against the whole sweep and each against its plain version
+     (NEAR_RTOL), reruns and the whole worklist's span bit-equal, rank 0's
+     slice timed in turns with the whole sweep (events, the wrapper's host
+     time a call, device time) beside its bound; the sharded
      evaluation against one card's (TREE_MODE_RTOL); TREE_RING_STEPS steps
      over RING_P ranks within STATE_ATOL of one card's, B7's slice RING_P
      times a step and B7 never; the staged route at TREE_STAGED_N bodies,
@@ -804,17 +824,19 @@ LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_bloc
              "nbody_jerk": ("nbody_jerk", "nbody_jerk_detect", "nbody_jerk_subset",
                             "nbody_jerk_subset_shape", "ot_error_string"),
              "nbody_forces_mxu": ("nbody_forces_mxu", "ot_error_string"),
-             "collisions": ("bounce_deltas", "bounce_block_deltas", "ot_error_string"),
+             "collisions": ("bounce_deltas", "bounce_block_round", "bounce_block_shape",
+                            "ot_error_string"),
              "nbody_forces_sym": ("nbody_forces_sym", "ot_error_string"),
-             "tree_near": ("tree_near", "ot_error_string"),
+             "tree_near": ("tree_near_span", "ot_error_string"),
              "neighbor": ("near_sweep", "near_sweep_rows", "ot_error_string"),
              "fused_rollout": ("fused_kdk", "fused_kdk_shape", "ot_error_string"),
              "p3m_short": ("p3m_short_view", "p3m_short_sorted", "p3m_short_pair",
                            "p3m_short_shape", "ot_error_string"),
              "fused_ensemble": ("fused_ensemble", "fused_ensemble_shape", "ot_error_string")}
-# --ring-variants: B3's block kernel (i bodies a thread, warps, blocks an SM
-# its registers are capped for; the first is the source's) and P3M's sum
-# (warps a block; the first is the source's), built with -D
+# --ring-variants: B3's block kernel and the block bounce's (i bodies a
+# thread, warps, blocks an SM their registers are capped for; the first is
+# the source's) and P3M's sum (warps a block; the first is the source's),
+# built with -D; the block bounce also at RING_BOUNCE_SPLITS splits pinned
 RING_VARIANTS = {"nbody_forces": (("k2q16m2", ()),
                                   ("k4q8m2", ("-DOT_BLOCK_K=4", "-DOT_BLOCK_Q=8")),
                                   ("k4q16m1", ("-DOT_BLOCK_K=4", "-DOT_BLOCK_Q=16",
@@ -822,7 +844,13 @@ RING_VARIANTS = {"nbody_forces": (("k2q16m2", ()),
                                   ("k2q8m4", ("-DOT_BLOCK_K=2", "-DOT_BLOCK_Q=8",
                                               "-DOT_BLOCK_MIN=4"))),
                  "p3m_short": (("q8", ()), ("q4", ("-DOT_P3M_Q=4",)),
-                               ("q16", ("-DOT_P3M_Q=16",)))}
+                               ("q16", ("-DOT_P3M_Q=16",))),
+                 "collisions": (("k4q8m2", ()),
+                                ("k4q8m1", ("-DOT_BBOUNCE_MIN=1",)),
+                                ("k4q4m4", ("-DOT_BBOUNCE_Q=4", "-DOT_BBOUNCE_MIN=4")),
+                                ("k3q8m3", ("-DOT_BBOUNCE_K=3", "-DOT_BBOUNCE_MIN=3")),
+                                ("k2q8m3", ("-DOT_BBOUNCE_K=2", "-DOT_BBOUNCE_MIN=3")))}
+RING_BOUNCE_SPLITS = (1, 2, 4, 8, 16)
 # the sources whose inner loop must hold tensor-core products (TF32 HMMA)
 TENSOR_CORE = {"nbody_forces_mxu": r"\bHMMA\.\S*TF32"}
 # --sweep: the launch shapes built with -D (i bodies or m16 tiles a thread
@@ -888,10 +916,10 @@ B3 = dict(name="nbody_block_forces", route="cuda",
 B3D = dict(name="nbody_block_forces_detect", route="cuda",
            source="orbital_tpu_torch/csrc/nbody_forces.cu",
            replaces="orbital_tpu/ops/collisions.py:97")
-# no TPU kernel: the block bounce (B6's kernel over separate i and j
-# tables) stands in for the XLA block of the ring's bounce
+# no TPU kernel: the block bounce (B6's sweep over separate i and j tables
+# on a launch of its own) stands in for the XLA block of the ring's bounce
 # (orbital_tpu/parallel/sharded.py:72-117 _block_bounce)
-BB = dict(name="bounce_block_deltas", route="cuda",
+BB = dict(name="bounce_block_round", route="cuda",
           source="orbital_tpu_torch/csrc/collisions.cu",
           replaces="orbital_tpu/parallel/sharded.py:72")
 # no TPU kernel: stands in for the plain XLA lax.map over cell blocks of
@@ -1899,6 +1927,76 @@ def _block_forces_first(lib):
     return {"_block_launch": launch}
 
 
+def _bounce_block_first(lib):
+    """``cuda_collisions._bounce_block_launch`` against the block bounce's
+    first C signature (B6's kernel and launch over separate tables; the
+    wrapper cast and copied each table, and the ring added each round's
+    sums eagerly): the round written into fresh tensors, then added
+    to ``dpos``, ``dvel`` with accumulate, as the ring did."""
+    import ctypes
+
+    import torch
+
+    from orbital_tpu_torch.utils.kernels import check
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bounce_block_deltas.restype = ctypes.c_int
+    lib.bounce_block_deltas.argtypes = ([p] * 5 + [i] + [p] * 5 + [i, ctypes.c_float]
+                                        + [p] * 4 + [i])
+
+    def launch(side_i, side_j, e, contacts, dpos, dvel, accumulate, splits=None):
+        f32, dev = torch.float32, dpos.device
+        si = [t.to(f32).contiguous() for t in side_i[:4]] + [side_i[4].contiguous()]
+        sj = [t.to(f32).contiguous() for t in side_j[:4]] + [side_j[4].contiguous()]
+        dp, dv = (torch.empty_like(dpos), torch.empty_like(dvel)) if accumulate else (dpos,
+                                                                                     dvel)
+        err = lib.bounce_block_deltas(
+            *(t.data_ptr() for t in si), si[0].shape[0], *(t.data_ptr() for t in sj),
+            sj[0].shape[0], e, None if contacts is None else contacts.data_ptr(),
+            dp.data_ptr(), dv.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            dev.index or 0)
+        check(lib, err, "bounce_block_deltas launch (first signature)")
+        if accumulate:
+            dpos.add_(dp)
+            dvel.add_(dv)
+
+    return {"_bounce_block_launch": launch}
+
+
+def _tree_near_first(lib):
+    """``cuda_tree._launch`` against B7's first C signature (the whole
+    worklist's runs; B7's slice clipped them eagerly by
+    ``tree_near_wl.clip_runs`` and the wrapper cast them to int32 a call)."""
+    import ctypes
+
+    import torch
+
+    from orbital_tpu_torch.ops.tree_near_wl import clip_runs
+    from orbital_tpu_torch.utils.kernels import check
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tree_near.restype = ctypes.c_int
+    lib.tree_near.argtypes = [p, p, p, i, i, i, i, f, f, p, p, i]
+
+    def launch(fn, pbods, start_blk, n_blk, off, span, *, chunk, rj, ws, eps2):
+        if off is not None:
+            start_blk, n_blk = clip_runs(start_blk, n_blk, *span)
+        c, blkw = int(chunk), int(rj) * int(chunk)
+        k_ch, n_nb = n_blk.shape
+        count = n_blk.to(torch.int32).contiguous()
+        start = start_blk.to(torch.int32).contiguous()
+        rows = pbods.contiguous()
+        out = torch.empty((k_ch * c, 4), dtype=torch.float32, device=pbods.device)
+        err = lib.tree_near(rows.data_ptr(), start.data_ptr(), count.data_ptr(), int(k_ch),
+                            int(n_nb), c, blkw, float(ws), float(eps2), out.data_ptr(),
+                            torch.cuda.current_stream(pbods.device).cuda_stream,
+                            pbods.device.index or 0)
+        check(lib, err, "tree_near launch (first signature)")
+        return out
+
+    return {"_launch": launch}
+
+
 # the sources whose C signature changed with a redesign: for each earlier
 # signature, in the order they came, the function its versions lack, the
 # adapter to it and the entry points it binds (the rest keep this tree's
@@ -1913,7 +2011,10 @@ FIRST_SIGNATURES = {"neighbor": [("near_sweep_shape", _near_sweep_first, ("near_
                     "nbody_jerk": [("nbody_jerk_subset_shape", _jerk_subset_first,
                                     ("nbody_jerk_subset",))],
                     "nbody_forces": [("nbody_block_shape", _block_forces_first,
-                                      ("nbody_block_forces", "nbody_block_forces_detect"))]}
+                                      ("nbody_block_forces", "nbody_block_forces_detect"))],
+                    "collisions": [("bounce_block_round", _bounce_block_first,
+                                    ("bounce_block_deltas",))],
+                    "tree_near": [("tree_near_span", _tree_near_first, ("tree_near",))]}
 
 
 def other_build(name: str, path, like):
@@ -2213,7 +2314,7 @@ def loop_pairs(key: str, rec: dict, n: int = N_MAIN):
     N_FUSED); for B12 the unordered pairs of its tile pairs (a diagonal
     tile's twice); for B7 and the near sweep None, since they follow the
     data (``tree_near_work`` and ``near_work`` count them)."""
-    if key in ("B7", "NEAR"):
+    if key.startswith("B7") or key == "NEAR" or key == "BB0 add":
         return None
     if key == "B4":
         return N_FUSED * N_FUSED
@@ -2472,13 +2573,12 @@ class Smoke:
         # spills are checked above), the short range and the contact sweep
         for name in ("p3m_short", "collision_roots", "fused_ensemble"):
             spills.append(f"{name} 0 in {spill_free(name, logs[name])} entry functions")
-        # the ring's block instances: B3 and B3 detect on their own launch,
-        # and the block bounce, B6's kernel over separate tables (B6's record)
+        # the ring's block instances: B3 and B3 detect, and the block bounce
+        # (B6's sweep), each on its own launch
         shapes.append(self.block_record(logs["nbody_forces"], sass(
             kernels._library_path("nbody_forces")[1])))
-        self.kernels["BB"].update({k: v for k, v in self.kernels["B6"].items()
-                                   if k in ("shape", "registers", "spill_bytes",
-                                            "sass_slots_per_pair")})
+        shapes.append(self.bounce_block_record(logs["collisions"], sass(
+            kernels._library_path("collisions")[1])))
         shapes += [self.subset_record(cuda_jerk._load(), logs["nbody_jerk"]),
                    self.p3m_record(logs["p3m_short"], sass(
                        kernels._library_path("p3m_short")[1])),
@@ -2536,6 +2636,40 @@ class Smoke:
                        f"floor {fmt(floor, 3, ' ms')} at {RING_B}^2)")
         self.block_plans = plans
         return "; ".join(out)
+
+    def bounce_block_record(self, log: str, sass_text: str) -> str:
+        """The block bounce's launch shape (its kernel's i bodies a thread,
+        warps, co-resident blocks and the plan's grid at the ring's shard
+        shapes, RING_B^2 and RING_B8^2, and at N_MAIN^2) into its record,
+        with its registers, spills and SASS instructions a pair (its inner
+        loop over B6's pair marker, one FMNMX) and the issue floor at
+        RING_B^2."""
+        from orbital_tpu_torch.ops.cuda_collisions import bounce_block_shape, bounce_plan
+
+        stem = "bounce_block_kernel"
+        self.entry_record("BB", stem, log)
+        loop = next((v for f, v in inner_loop(sass_text, SHAPED["collisions"][2]).items()
+                     if stem in f), None)
+        if sass_text and loop is None:
+            raise AssertionError(f"BB: no loop with FMNMX in *{stem}* in the SASS")
+        self.kernels["BB"]["sass_slots_per_pair"] = (loop[0] / loop[1] if loop
+                                                     else "not measured")
+        sh = bounce_block_shape(self.dev)
+        plans = {b: bounce_plan(b, b, sh["k"], sh["q"], sh["tile"], sh["resident"], sh["sms"])
+                 for b in (RING_B, RING_B8, N_MAIN)}
+        rec = self.kernels["BB"]
+        rec["shape"] = dict(k=sh["k"], q=sh["q"], tile=sh["tile"], threads=sh["threads"],
+                            blocks=plans[RING_B]["grid"], splits=plans[RING_B]["splits"],
+                            resident=sh["resident"])
+        self.bounce_plans = plans
+        floor = issue_floor_ms(rec["sass_slots_per_pair"], RING_B * RING_B)
+        return (f"BB k={sh['k']} q={sh['q']} tile={sh['tile']} ({sh['threads']} threads, "
+                f"{sh['resident']} co-resident blocks on {sh['sms']} SMs), " + ", ".join(
+                    f"{b}^2 {p['grid']} blocks ({p['tiles']} i tiles x {p['splits']} splits "
+                    f"of {p['split_len']})" for b, p in plans.items())
+                + f", {rec['registers']} registers, {rec['spill_bytes']} spill bytes, "
+                f"{fmt(rec['sass_slots_per_pair'])} SASS instructions a pair (issue floor "
+                f"{fmt(floor, 3, ' ms')} at {RING_B}^2)")
 
     def p3m_record(self, log: str, sass_text: str) -> str:
         """The short range's launch shape (the persistent grid of the sum,
@@ -4723,6 +4857,9 @@ class Smoke:
             "P3M": (SHORT_RTOL, SHORT_RTOL), "P3MR": (SHORT_RTOL, SHORT_RTOL),
             "B3R": (FORCE_RTOL, FORCE_RTOL), "B3R8": (FORCE_RTOL, FORCE_RTOL),
             "B3D": (FORCE_RTOL, FORCE_RTOL, 0), "B3D8": (FORCE_RTOL, FORCE_RTOL, 0),
+            "BB": (BOUNCE_RTOL, BOUNCE_RTOL), "BB1": (0, 0),
+            "BB ring": (BOUNCE_RTOL, BOUNCE_RTOL), "BB ring1": (0, 0),
+            **{f"B7 part {r}": (0, 0) for r in range(RING_P)},
             **{k: (STATE_ATOL, STATE_ATOL) for k in FUSED_CASES}}
     # the source of each, the calls timed in turns and the pairs that must
     # be bit-equal
@@ -5048,12 +5185,15 @@ class Smoke:
 
     # --ring-variants
     def ring_variants(self) -> str:
+        from orbital_tpu_torch.ops import cuda_collisions as cc
         from orbital_tpu_torch.ops import cuda_forces as cf
         from orbital_tpu_torch.ops import cuda_p3m
         from orbital_tpu_torch.utils import kernels
 
         torch = self.torch
-        mods = {"nbody_forces": cf, "p3m_short": cuda_p3m}
+        mods = {"nbody_forces": cf, "p3m_short": cuda_p3m, "collisions": cc}
+        stems = {"nbody_forces": "block_forces_kernel", "p3m_short": "p3m_short_kernel",
+                 "collisions": "bounce_block_kernel"}
         jobs = {(name, tag): (kernels.CSRC_DIR / f"{name}.cu",
                               kernels.BUILD_DIR / "variants" / f"lib{name}-{tag}.so", flags)
                 for name, shapes in RING_VARIANTS.items() for tag, flags in shapes}
@@ -5061,8 +5201,7 @@ class Smoke:
         libs, usage = {}, {}
         for (name, tag), (_, out, _) in jobs.items():
             libs[name, tag] = bind_like(out, mods[name]._load(), LIB_FUNCS[name])
-            stem = "block_forces_kernel" if name == "nbody_forces" else "p3m_short_kernel"
-            regs = [u for f, u in ptxas_usage(built[out][0]).items() if stem in f]
+            regs = [u for f, u in ptxas_usage(built[out][0]).items() if stems[name] in f]
             usage[f"{name} {tag}"] = (f"{max(u[0] for u in regs)} registers, "
                                       f"{sum(u[1] + u[2] for u in regs)} spill bytes")
         kw = dict(G=1.0, eps2=EPS2)
@@ -5108,6 +5247,33 @@ class Smoke:
                 if max(self.rel(x, y) for x, y in zip(got, ref)) > SHORT_RTOL:
                     raise AssertionError(f"P3M round {tag} at {b}: not held to this build")
                 fns[f"P3MR {b} {tag}"] = (lambda f=round_, o=outs: f(out=o))
+            # the block bounce: each shape held to this build on its plan, then
+            # a round added into fixed sums as the ring calls it; this build's
+            # kernel also pinned to RING_BOUNCE_SPLITS splits
+            rich = self.ring_shards(R_RICH, ranks=ranks)
+            count = cf.block_acc_detect_cuda(rich[0][0], rich[0][3], rich[0][4], 0,
+                                             rich[1][0], rich[1][2], rich[1][3], rich[1][4],
+                                             b, **kw)[2]
+            ref = cc.bounce_block_cuda(*rich[0], *rich[1], restitution=0.8, contacts=count)
+            sums = tuple(torch.zeros((b, 3), device=self.dev) for _ in range(2))
+            for tag, _ in RING_VARIANTS["collisions"]:
+                lib = libs["collisions", tag]
+                got = on(cc, lib, lambda: cc.bounce_block_cuda(*rich[0], *rich[1],
+                                                               restitution=0.8, contacts=count))
+                torch.cuda.synchronize()
+                held(got, ref, (BOUNCE_RTOL, BOUNCE_RTOL))
+                fns[f"BB {b} {tag}"] = (lambda lib=lib, rich=rich, count=count, sums=sums: on(
+                    cc, lib, lambda: cc.bounce_block_cuda(*rich[0], *rich[1], restitution=0.8,
+                                                          contacts=count, out=sums,
+                                                          checked=True)))
+            for splits in RING_BOUNCE_SPLITS:
+                got = (torch.empty_like(ref[0]), torch.empty_like(ref[1]))
+                cc._bounce_block_launch(rich[0], rich[1], 0.8, count, *got, False, splits)
+                torch.cuda.synchronize()
+                held(got, ref, (BOUNCE_RTOL, BOUNCE_RTOL))
+                fns[f"BB {b} {splits} splits"] = (
+                    lambda rich=rich, count=count, sums=sums, splits=splits:
+                    cc._bounce_block_launch(rich[0], rich[1], 0.8, count, *sums, True, splits))
         tab, kw_b = self.p3m_bench_case()
         for tag, _ in RING_VARIANTS["p3m_short"]:
             fns[f"P3M {tag}"] = on(cuda_p3m, libs["p3m_short", tag],
@@ -5116,9 +5282,11 @@ class Smoke:
         print("perf_ring_variants " + json.dumps({"times": times, "registers": usage}),
               file=sys.stderr)
         return (f"B3 and B3 detect (R {R_BENCH:g}, within {FORCE_RTOL:g} of this build, "
-                f"counts equal, B3 bit-equal to B3 detect) and P3M's two-table round (within "
-                f"{SHORT_RTOL:g}) at {RING_B} and {RING_B8} bodies a shard, the single-table "
-                f"sum alone at the bench row, each shape in turns: " + "; ".join(
+                f"counts equal, B3 bit-equal to B3 detect), P3M's two-table round (within "
+                f"{SHORT_RTOL:g}) and the block bounce (R {R_RICH:g}, within {BOUNCE_RTOL:g}; "
+                f"a round added in place, checked; this build also at "
+                f"{RING_BOUNCE_SPLITS} splits) at {RING_B} and {RING_B8} bodies a shard, the "
+                f"single-table sum alone at the bench row, each shape in turns: " + "; ".join(
                     f"{k} {v['median']:.4f} ms (spread {v['spread']:.4f})"
                     for k, v in times.items())
                 + "; registers: " + ", ".join(f"{k} {v}" for k, v in usage.items()))
@@ -5148,9 +5316,18 @@ class Smoke:
         of the bench row at RING_P ranks, B3R8 and B3D8 at RING_P8, each with
         ``pairs``; P3MR, P3M's two-table round of shard 0 against shard 1 at
         RING_P ranks from their tables (each build makes their views or
-        orders)."""
+        orders); the block bounce of the contact-rich shards 0 and 1 at
+        RING_P ranks, a round written on its plan (BB) and pinned to one
+        split (BB1, which a build of B6's launch matches bit for bit), and
+        rank 0's RING_P rounds in accumulate form on its plan (BB ring) and
+        at one split (BB ring1, bit-equal to an older build's rounds written
+        apart and added as its ring added them); and
+        B7's slice of each rank's span of bench_tree's worklist (``B7 part
+        r``; an older build clips the runs eagerly)."""
+        from orbital_tpu_torch.ops import cuda_collisions as cc
         from orbital_tpu_torch.ops import cuda_forces as cf
-        from orbital_tpu_torch.ops import cuda_p3m
+        from orbital_tpu_torch.ops import cuda_p3m, cuda_tree
+        from orbital_tpu_torch.ops.tree_near_wl import wl_span
 
         kw = dict(G=1.0, eps2=EPS2)
         out = {}
@@ -5173,7 +5350,66 @@ class Smoke:
         tabs, gids = c["tabs"], c["gids"]
         out["P3MR"] = (cuda_p3m, lambda: cuda_p3m.p3m_short_pair_cuda(
             tabs[0], tabs[1], gids[0], gids[1], **kw_p))
+        torch = self.torch
+        rich = self.ring_shards(R_RICH)
+        count = cf.block_acc_detect_cuda(rich[0][0], rich[0][3], rich[0][4], 0, rich[1][0],
+                                         rich[1][2], rich[1][3], rich[1][4], RING_B, **kw)[2]
+
+        def bb(splits=None):
+            def call():
+                dpos, dvel = (torch.empty((RING_B, 3), device=self.dev) for _ in range(2))
+                cc._bounce_block_launch(rich[0], rich[1], 0.8, count, dpos, dvel, False, splits)
+                return dpos, dvel
+            call.pairs = RING_B * RING_B
+            return cc, call
+
+        out["BB"], out["BB1"] = bb(), bb(1)
+        ring4 = self.ring_shards(R_RICH)
+
+        def bb_ring(splits=None):
+            def call():  # rank 0's rounds, the first written, the others added
+                sums = tuple(torch.empty((RING_B, 3), device=self.dev) for _ in range(2))
+                for j in range(RING_P):
+                    cc._bounce_block_launch(ring4[0], ring4[j], 0.8, count, *sums, j > 0,
+                                            splits)
+                return sums
+            return cc, call
+
+        out["BB ring"], out["BB ring1"] = bb_ring(), bb_ring(1)
+        pos, _, mass, budgets = self.plummer()
+        t = self.tree_table(pos, mass, np.ones(N_MAIN, bool), TREE_LEVELS, 1, budgets)
+        kw_b7 = dict(wl_entries=budgets[1], chunk=TREE_CHUNK, rj=TREE_RJ, ws=1, eps2=TREE_EPS2)
+        for r in range(RING_P):
+            span = wl_span(budgets[1], RING_P, r)
+            out[f"B7 part {r}"] = (cuda_tree, (lambda sp: lambda: (
+                cuda_tree.tree_near_part_cuda(t["pbods"], t["start_blk"], t["n_blk"],
+                                              t["off"], span=sp, **kw_b7),))(span))
         return out
+
+    def ring_round_calls(self) -> dict:
+        """{key: (wrapper module, call)} of the block bounce's rounds as the
+        ring makes them after its first, for --parent's times: a round added
+        into fixed sums (checked) at a count > 0 (BB add) and at 0 (BB0
+        add), on the contact-rich shards 0 and 1 at RING_P ranks; an older
+        build writes each round apart and adds it eagerly, as its ring did."""
+        from orbital_tpu_torch.ops import cuda_collisions as cc
+        from orbital_tpu_torch.ops import cuda_forces as cf
+
+        torch = self.torch
+        rich = self.ring_shards(R_RICH)
+        count = cf.block_acc_detect_cuda(rich[0][0], rich[0][3], rich[0][4], 0, rich[1][0],
+                                         rich[1][2], rich[1][3], rich[1][4], RING_B, G=1.0,
+                                         eps2=EPS2)[2]
+        sums = tuple(torch.zeros((RING_B, 3), device=self.dev) for _ in range(2))
+
+        def add(c):
+            def call():
+                return cc.bounce_block_cuda(*rich[0], *rich[1], restitution=0.8, contacts=c,
+                                            out=sums, checked=True)
+            call.pairs = RING_B * RING_B if c is count else None
+            return cc, call
+
+        return {"BB add": add(count), "BB0 add": add(torch.zeros_like(count))}
 
     def p3m_round_alone(self, old) -> dict:
         """P3M's two-table round of ``ring_calls``' case alone, timed in
@@ -5284,6 +5520,12 @@ class Smoke:
         ring = self.ring_calls()
         for k, (mod, call) in ring.items():
             hold(k, mod, call)
+        # B6, B7 (whole worklists) and the one-split block bounce keep the
+        # parent's bits; B7's slices (TOLS 0) too
+        for k in ("B6", "B6G", "B6Z", "B7", "B7R", "B7L", "B7S", "BB1", "BB ring1"):
+            if not equal[k]:
+                raise AssertionError(f"{k} is not bit-equal to the parent build's "
+                                     f"({worst[k]:.3e})")
         # the merge root search: parents integer-equal, gated and ungated, at
         # the contact-rich radius; timed at a count > 0 (ROOTS) and 0 (ROOTS0)
         roots_calls = self.roots_calls()
@@ -5300,7 +5542,11 @@ class Smoke:
                  if k != "B6G"}
         calls["B3"] = self.exact_calls(scene, EPS2, pe=True)["B3"]
         calls.update(B7=tree["B7"], B7L=tree["B7L"], NEAR=near["NEAR"],
-                     P3M=(cuda_p3m, p3m_call), **ring)
+                     P3M=(cuda_p3m, p3m_call),
+                     **{k: v for k, v in ring.items()
+                        if k not in ("BB1", "BB ring", "BB ring1", "B7 part 1", "B7 part 2",
+                                     "B7 part 3")},
+                     **self.ring_round_calls())
         calls.update({k: fused_t[k] for k in ("B4", "B4F", "B4L", "B4LF")})
         calls.update({k: (roots, (lambda c: lambda: c(True))(call))
                       for k, call in roots_calls.items()})
@@ -5320,6 +5566,19 @@ class Smoke:
         macro_t = {k: summary(v) for k, v in alternate_ms(steps, 1, repeats=10).items()}
         macro_h = {k: summary(v) for k, v in alternate_ms(steps, 1, repeats=10,
                                                           timer=host_ms).items()}
+        # the bounce ring's step at the bench row over RING_P ranks (the
+        # gated block bounce a round), this tree's against the other build's
+        # block bounce through the same ring (each round written apart and
+        # added eagerly, as its ring did): CUDA events and host time, 10
+        # steps a call
+        ring_b = self.ring_bounce_roll()
+        cc = mods["collisions"]
+        ring_steps = {"ring bounce step": ring_b,
+                      "ring bounce step parent": lambda: on(cc, old[cc], ring_b)}
+        ring_t = {k: summary([t / 10 for t in v])
+                  for k, v in alternate_ms(ring_steps, 1, repeats=6).items()}
+        ring_h = {k: summary([t / 10 for t in v])
+                  for k, v in alternate_ms(ring_steps, 1, repeats=6, timer=host_ms).items()}
         # instructions a pair of both builds, and the SM clock under each of
         # this tree's kernels: the issue floor at the clock the card ran
         slots = {"parent": {}, "this": {}}
@@ -5328,18 +5587,25 @@ class Smoke:
             slots["this"].update(sass_slots(name, sass(kernels._library_path(name)[1])))
         slots["this"]["P3M"] = self.kernels["P3M"].get("sass_slots_per_pair")
         slots["this"]["B3D"] = self.kernels["B3D"].get("sass_slots_per_pair")
+        slots["this"]["BB"] = self.kernels["BB"].get("sass_slots_per_pair")
         clocks = {k: clock_during(call) for k, (_, call) in calls.items()}
         print("perf_parent " + json.dumps({"times": times, "slots": slots, "clocks": clocks,
                                            "block_macro_ms": macro_t,
-                                           "block_macro_host_ms": macro_h}), file=sys.stderr)
+                                           "block_macro_host_ms": macro_h,
+                                           "ring_bounce_step_ms": ring_t,
+                                           "ring_bounce_step_host_ms": ring_h}),
+              file=sys.stderr)
         lines = []
         for k, (_, call) in calls.items():
             this, par = times[k], times[f"{k} parent"]
             faster = max(this["runs"]) < min(par["runs"])
             base = {"B7L": "B7", "B4F": "B4", "B4L": "B4", "B4LF": "B4", "B3R": "B3",
-                    "B3R8": "B3", "B3D8": "B3D"}.get(k, k)
-            line = (f"{k} {'bit-equal' if equal[k] else 'not bit-equal'} (max rel diff "
-                    f"{worst[k]:.2e}), {this['median']:.3f} ms (spread {this['spread']:.3f}) "
+                    "B3R8": "B3", "B3D8": "B3D", "BB add": "BB", "BB0 add": "BB",
+                    "B7 part 0": "B7"}.get(k, k)
+            held_k = ("not held (a round added into fixed sums)" if k not in equal else
+                      f"{'bit-equal' if equal[k] else 'not bit-equal'} (max rel diff "
+                      f"{worst[k]:.2e})")
+            line = (f"{k} {held_k}, {this['median']:.3f} ms (spread {this['spread']:.3f}) "
                     f"vs parent {par['median']:.3f} ({par['spread']:.3f}), "
                     f"{par['median'] / this['median']:.2f}x, faster outside both spreads: "
                     f"{'yes' if faster else 'no'}; instructions a pair "
@@ -5360,6 +5626,10 @@ class Smoke:
                      f"{par['median'] / this['median']:.2f}x, faster outside both spreads: "
                      f"{'yes' if max(this['runs']) < min(par['runs']) else 'no'}")
         lines.append(self.ensemble_parent(old[fused_ensemble], sass(jobs["fused_ensemble"][1])))
+        lines.append(f"the bounce ring's step at R={R_BENCH:g} over {RING_P} ranks in turns "
+                     f"(events; host): " + ", ".join(
+                         f"{k} {ring_t[k]['median']:.3f} ms (spread {ring_t[k]['spread']:.3f}; "
+                         f"{ring_h[k]['median']:.3f})" for k in ring_steps))
         lines.append("block macro step (rungs 1, m = {}) {}".format(macro.m, ", ".join(
             f"{k} {macro_t[k]['median']:.3f} ms (spread {macro_t[k]['spread']:.3f}), host "
             f"{macro_h[k]['median']:.3f} ms (spread {macro_h[k]['spread']:.3f})"
@@ -7462,16 +7732,99 @@ class Smoke:
         e_r, d_r, rows_r = bounce_pair(si, sj, one)
         if not rows_r:
             raise AssertionError("ragged block bounce: nothing bounced")
-        self.kernels["BB"]["max_abs_err"] = max(abs_bb, d_r)
+        forms, d_f = self.check_bounce_forms()
+        self.kernels["BB"]["max_abs_err"] = max(abs_bb, d_r, d_f)
         self.kernels["B3D"]["max_abs_err"] = abs_b3d
         return (f"B3 detect at {RING_B}x{RING_B} and {RING_B8}x{RING_B8} (acc and pe "
                 f"bit-equal to B3's and reruns bit-equal, count integer-equal to the plain "
                 f"one; acc vs plain "
                 f"{err_b3d:.2e} <= "
-                f"{FORCE_RTOL:g}) and the block bounce (vs plain {err_bb:.2e} <= "
+                f"{FORCE_RTOL:g}) and the block bounce on its plan (vs plain {err_bb:.2e} <= "
                 f"{BOUNCE_RTOL:g}, zeros at count 0): " + "; ".join(lines)
                 + f"; ragged {cut}x{N_RAGGED - cut} with a third dead: bounce vs plain "
-                f"{e_r:.2e}, {rows_r} rows bounced")
+                f"{e_r:.2e}, {rows_r} rows bounced; " + forms)
+
+    def check_bounce_forms(self) -> tuple[str, float]:
+        """The block bounce's forms on the contact-rich shards: at RING_B^2
+        and RING_B8^2 on its plan (several splits) and pinned to one split,
+        each against the plain version; rank 0's ring of RING_P rounds in
+        accumulate form (round 0 written, the others added in place) bit-
+        equal to the same kernel's rounds written apart and summed as the
+        ring summed them (``dpos + dp``), a rerun bit-equal, and within
+        BOUNCE_RTOL of the plain version's accumulate form; at a count of 0
+        the accumulating rounds leave the sums as they were; and one split
+        on coinciding tables at N_MAIN bit-equal to B6. Returns its line and
+        the largest |difference| from the plain version."""
+        from orbital_tpu_torch.ops import cuda_collisions as cc
+
+        torch, rel = self.torch, self.rel
+        e, zero = 0.8, torch.zeros((), dtype=torch.int32, device=self.dev)
+        worst, absd, out = 0.0, 0.0, []
+
+        def against_plain(got, ref, what):
+            nonlocal worst, absd
+            for o, r in zip(got, ref):
+                absd = max(absd, float((o - r).abs().max()))
+                err = rel(o, r) if float(r.abs().max()) > 0 else float(o.abs().max())
+                worst = max(worst, err)
+                if err > BOUNCE_RTOL:
+                    raise AssertionError(f"block bounce {what} vs plain: {err:.3e}")
+
+        def launch(si, sj, contacts, splits=None, into=None):
+            dpos, dvel = into or (torch.empty_like(si[0]), torch.empty_like(si[1]))
+            cc._bounce_block_launch(si, sj, e, contacts, dpos, dvel, into is not None, splits)
+            return dpos, dvel
+
+        for ranks in (RING_P, RING_P8):
+            shards = self.ring_shards(R_RICH, ranks=ranks)
+            b = N_MAIN // ranks
+            sh = cc.bounce_block_shape(self.dev)
+            plan = cc.bounce_plan(b, b, sh["k"], sh["q"], sh["tile"], sh["resident"], sh["sms"])
+            count = self.torch.ones((), dtype=torch.int32, device=self.dev)
+            ref = cc.bounce_block_plain(*shards[0], *shards[1], restitution=e)
+            for splits in (None, 1):
+                against_plain(launch(shards[0], shards[1], count, splits), ref,
+                              f"{b}^2 {plan['splits'] if splits is None else 1} splits")
+            # rank 0's ring in accumulate form against its rounds summed apart
+            acc = launch(shards[0], shards[0], count)
+            for j in range(1, ranks):
+                launch(shards[0], shards[j], count, into=acc)
+            apart = [launch(shards[0], shards[j], count) for j in range(ranks)]
+            summed = apart[0]
+            for dp in apart[1:]:
+                summed = (summed[0] + dp[0], summed[1] + dp[1])
+            again = launch(shards[0], shards[0], count)
+            for j in range(1, ranks):
+                launch(shards[0], shards[j], count, into=again)
+            plain = cc.bounce_block_plain(*shards[0], *shards[0], restitution=e)
+            for j in range(1, ranks):
+                cc.bounce_block_plain(*shards[0], *shards[j], restitution=e, out=plain)
+            before = tuple(t.clone() for t in acc)
+            for j in range(1, ranks):
+                launch(shards[0], shards[j], zero, into=acc)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(again, summed)) or not all(
+                    torch.equal(x, y) for x, y in zip(before, summed)):
+                raise AssertionError(f"block bounce at {b}^2: the accumulate form is not "
+                                     f"bit-equal to its rounds summed, or a rerun differs")
+            if not all(torch.equal(x, y) for x, y in zip(acc, before)):
+                raise AssertionError(f"block bounce at {b}^2: a gated round moved the sums")
+            against_plain(acc, plain, f"{b}^2 accumulated over {ranks} rounds")
+            out.append(f"{b}^2: {plan['splits']} splits and one, rank 0's {ranks} rounds "
+                       f"accumulated bit-equal to them summed apart and to a rerun, gated "
+                       f"rounds leave them")
+        # one split on coinciding tables at N_MAIN: B6's sums bit for bit
+        pos, vel, mass, rad, alive = self.scene(N_MAIN, R_RICH, 0, seed_offset=51)
+        full = (pos, vel, mass, rad, alive)
+        b6 = cc.bounce_deltas_cuda(*full, restitution=e)
+        one = launch(full, full, None, splits=1)
+        torch.cuda.synchronize()
+        moved = int((b6[1].abs().sum(1) > 0).sum())
+        if not moved or not all(torch.equal(x, y) for x, y in zip(one, b6)):
+            raise AssertionError(f"block bounce, one split at {N_MAIN}^2: not bit-equal to B6 "
+                                 f"({moved} rows bounced)")
+        return ("the block bounce's forms (vs plain " + f"{worst:.2e}): " + "; ".join(out)
+                + f"; one split at {N_MAIN}^2 bit-equal to B6 ({moved} rows bounced)"), absd
 
     def ring_eval(self, mesh, pos, mass, alive, radius=None):
         """The ring force over ``mesh`` on full tensors cut in its shards:
@@ -7783,6 +8136,22 @@ class Smoke:
                 f"{time.perf_counter() - t0:.1f} s with the group's set-up")
 
     # phase 60
+    def ring_bounce_roll(self):
+        """A call of 10 steps of the bounce ring at the bench row's radius
+        over RING_P one-card ranks (B3 detect and the gated block bounce a
+        round), made once."""
+        if getattr(self, "_ring_bounce_roll", None) is None:
+            import orbital_tpu_torch as ot
+
+            pos, vel, mass, _ = self.cluster()
+            cfg_b = self.ring_cfg(track_potential=False, collisions="bounce")
+            st_b = ot.init_forces(self.torch_state(pos, vel, mass, R_BENCH), cfg_b)
+            mesh = self.ring_mesh(RING_P)
+            roll_b = ot.make_sharded_rollout(cfg_b, mesh, st_b, 10)
+            shard_b = ot.shard_state(mesh, st_b)
+            self._ring_bounce_roll = (lambda: roll_b(shard_b), (cfg_b, st_b))
+        return self._ring_bounce_roll[0]
+
     def ring_timings(self) -> str:
         import orbital_tpu_torch as ot
         from orbital_tpu_torch.ops.cuda_collisions import bounce_block_cuda, bounce_block_plain
@@ -7800,17 +8169,36 @@ class Smoke:
         touching = int(c_rich)
         zero = torch.zeros((), dtype=torch.int32, device=self.dev)
         B8 = RING_B8
+        rich8 = self.ring_shards(R_RICH, ranks=RING_P8)
+        _, _, c_rich8 = block_acc_detect_cuda(rich8[0][0], rich8[0][3], rich8[0][4], 0,
+                                              rich8[1][0], rich8[1][2], rich8[1][3],
+                                              rich8[1][4], B8, **kw)
         (qi, _, _, si, bi), (qj, _, nj, sj, bj) = self.ring_shards(R_BENCH, ranks=RING_P8)[:2]
+        # the block bounce as the ring calls it: checked once, then a round
+        # adding into the rank's sums (BB, BB0 at a count of 0, BB 8 at
+        # RING_B8^2) or, the first round, writing new ones (BB0 write)
+        sums = {b: (torch.zeros((b, 3), device=self.dev), torch.zeros((b, 3), device=self.dev))
+                for b in (B, B8)}
+        bounce_block_cuda(*rich[0], *rich[1], restitution=0.8, contacts=c_rich, out=sums[B])
+
+        def bb(shards, count, b, write=False):
+            return lambda: bounce_block_cuda(*shards[0], *shards[1], restitution=0.8,
+                                             contacts=count, checked=True,
+                                             out=None if write else sums[b])
+
+        bb_calls = {"BB": bb(rich, c_rich, B), "BB0": bb(rich, zero, B),
+                    "BB0 write": bb(rich, zero, B, write=True), "BB 8": bb(rich8, c_rich8, B8)}
         kern = {k: summary(v) for k, v in alternate_ms({
             "B3": lambda: block_acc_cuda(pi, pj, mj, **kw),
             "B3D": lambda: block_acc_detect_cuda(pi, ri, ai, 0, pj, mj, rj, aj, B, **kw),
             "B3 8": lambda: block_acc_cuda(qi, qj, nj, **kw),
             "B3D 8": lambda: block_acc_detect_cuda(qi, si, bi, 0, qj, nj, sj, bj, B8, **kw),
-            "BB": lambda: bounce_block_cuda(*rich[0], *rich[1], restitution=0.8,
-                                            contacts=c_rich),
-            "BB0": lambda: bounce_block_cuda(*rich[0], *rich[1], restitution=0.8,
-                                             contacts=zero),
-        }, 20).items()}
+            **bb_calls}, 20).items()}
+        bb_host = {k: summary(host_ms(f, 20)) for k, f in bb_calls.items()}
+        bb_dev = {}
+        for k, f in bb_calls.items():
+            dev = device_times(f)
+            bb_dev[k] = sum(v[1] for v in dev.values()) if dev else None
         plain = {
             "B3": summary(time_ms(lambda: block_acc_plain(pi, pj, mj, **kw), 1)),
             "B3D": summary(time_ms(lambda: block_acc_detect_plain(
@@ -7827,8 +8215,13 @@ class Smoke:
             "B3D 8": bound((OPS_B1_PE + OPS_B2 - OPS_B1) * B8 * B8, 20 * 2 * B8 + 16 * B8 + 4,
                            rsqrt=B8 * B8),
             "BB": bound(OPS_B6 * pairs + OPS_B6_TOUCH * touching, 33 * 2 * B + 24 * B + 4),
+            "BB 8": bound(OPS_B6 * B8 * B8 + OPS_B6_TOUCH * int(c_rich8),
+                          33 * 2 * B8 + 24 * B8 + 4),
         }
+        # at a count of 0 the first round writes the zeros, the others read
+        # the count alone
         bound_bb0 = bound(0.0, 24 * B + 4)
+        bound_bb0_add = bound(0.0, 4)
         for k in ("B3", "B3D", "BB"):
             self.kernels[k].update(ms=kern[k]["median"], plain_ms=plain[k]["median"],
                                    bound_ms=bounds[k][0], bound_by=bounds[k][1],
@@ -7862,12 +8255,10 @@ class Smoke:
         # the bounce ring's step at the bench row (B3 detect and the gated
         # block bounce a round) in turns with one card's (B2 and the gated
         # B6), each one's host time and busy time
-        cfg_b = self.ring_cfg(track_potential=False, collisions="bounce")
-        st_b = ot.init_forces(self.torch_state(pos, vel, mass, R_BENCH), cfg_b)
-        roll_b = ot.make_sharded_rollout(cfg_b, meshes[RING_P], st_b, 10)
-        shard_b = ot.shard_state(meshes[RING_P], st_b)
+        ring_b = self.ring_bounce_roll()
+        cfg_b, st_b = self._ring_bounce_roll[1]
         bounce_calls = {"one card": lambda: ot.rollout(st_b, cfg_b, 10, fused="never"),
-                        f"ring P={RING_P}": lambda: roll_b(shard_b)}
+                        f"ring P={RING_P}": ring_b}
         bounce = {k: summary([t / 10 for t in v])
                   for k, v in alternate_ms(bounce_calls, 1, repeats=3).items()}
         bounce_host = {k: summary([t / 10 for t in host_ms(f, 1, repeats=1)])
@@ -7878,6 +8269,8 @@ class Smoke:
             bounce_busy[k] = sum(v[1] for v in dev.values()) / 10 if dev else None
         self.ring_perf.update(kernels_16384=kern, plain=plain, bounds_ms=bounds,
                               block_bounce_count0_bound_ms=bound_bb0, touching=touching,
+                              block_bounce_host_ms=bb_host, block_bounce_device_ms=bb_dev,
+                              block_bounce_plans=getattr(self, "bounce_plans", None),
                               step_ms=steps, exchange_host_ms_per_step_per_rank=exch,
                               host_ms_per_step=host, device_busy_ms_per_step=busy,
                               bounce_step_ms=bounce, bounce_host_ms=bounce_host,
@@ -7887,15 +8280,26 @@ class Smoke:
         def ms(s):
             return f"{s['median']:.3f} ms (spread {s['spread']:.3f})"
 
+        def bb_line(k, bnd):
+            t = kern[k]["median"]
+            return (f"{t:.4f} ms (spread {kern[k]['spread']:.4f}; host "
+                    f"{bb_host[k]['median']:.4f}; device {fmt(bb_dev[k], 4)}; bound "
+                    f"{bnd[0]:.5f}, {bnd[1]}, {100 * bnd[0] / t:.1f}%)")
+
+        plans_line = ", ".join(f"{b}^2 {p['splits']} splits x {p['tiles']} i tiles"
+                               for b, p in (getattr(self, "bounce_plans", None) or {}).items())
         return (f"at {B}x{B} (one ring round of N={N_MAIN} over {RING_P}): B3 {ms(kern['B3'])} "
                 f"(bound {bounds['B3'][0]:.4f} ms, {bounds['B3'][1]}; plain "
                 f"{ms(plain['B3'])}), B3 detect R={R_BENCH:g} {ms(kern['B3D'])} (bound "
                 f"{bounds['B3D'][0]:.4f}; plain {ms(plain['B3D'])}); at {B8}x{B8} (8 ranks) B3 "
                 f"{ms(kern['B3 8'])} (bound {bounds['B3 8'][0]:.4f}), B3 detect "
-                f"{ms(kern['B3D 8'])} (bound {bounds['B3D 8'][0]:.4f}); block bounce "
-                f"{touching} contacts {ms(kern['BB'])} (bound {bounds['BB'][0]:.4f}; plain "
-                f"{ms(plain['BB'])}), at count 0 {ms(kern['BB0'])} (bound "
-                f"{bound_bb0[0]:.5f}); KDK step ds32 N={N_MAIN} in turns: "
+                f"{ms(kern['B3D 8'])} (bound {bounds['B3D 8'][0]:.4f}); block bounce as "
+                f"the ring calls it (events; the wrapper's host time a call; device time; "
+                f"share of the bound by events) {touching} contacts {bb_line('BB', bounds['BB'])}"
+                f" (plain {ms(plain['BB'])}), at count 0 adding "
+                f"{bb_line('BB0', bound_bb0_add)}, writing {bb_line('BB0 write', bound_bb0)}, "
+                f"at {B8}x{B8} {int(c_rich8)} contacts {bb_line('BB 8', bounds['BB 8'])}; "
+                f"plans {plans_line}; KDK step ds32 N={N_MAIN} in turns: "
                 + ", ".join(f"{k} {ms(v)}" for k, v in steps.items())
                 + "; a step's host time to queue, a rank's wait in the exchange and the "
                 "device's busy time (profiler): " + ", ".join(
@@ -8143,17 +8547,31 @@ class Smoke:
         pos, vel, mass, budgets = self.plummer()
         t = self.tree_table(pos, mass, np.ones(N_MAIN, bool), TREE_LEVELS, 1, budgets)
         kw_b7 = dict(wl_entries=budgets[1], chunk=TREE_CHUNK, rj=TREE_RJ, ws=1, eps2=TREE_EPS2)
+        runs = (t["pbods"], t["start_blk"], t["n_blk"])
         spans = [wl_span(budgets[1], RING_P, r) for r in range(RING_P)]
-        whole = cuda_tree.tree_near_cuda(t["pbods"], t["start_blk"], t["n_blk"], **kw_b7)
-        parts = [cuda_tree.tree_near_part_cuda(t["pbods"], t["start_blk"], t["n_blk"],
-                                               span=sp, **kw_b7) for sp in spans]
+        whole = cuda_tree.tree_near_cuda(*runs, **kw_b7)
+        parts = [cuda_tree.tree_near_part_cuda(*runs, t["off"], span=sp, **kw_b7)
+                 for sp in spans]
+        again = [cuda_tree.tree_near_part_cuda(*runs, t["off"], span=sp, **kw_b7)
+                 for sp in spans]
+        whole_span = cuda_tree.tree_near_part_cuda(*runs, t["off"], span=(0, budgets[1]),
+                                                   **kw_b7)
         e_sum = rel(sum(parts), whole)
-        # each slice against its plain version, relative to the whole sweep's
+        if not all(torch.equal(x, y) for x, y in zip(parts, again)) or not torch.equal(
+                whole_span, whole):
+            raise AssertionError("B7's slices: a rerun differs, or the whole worklist's span "
+                                 "is not bit-equal to the whole sweep")
+        # each slice against its plain version (its runs cut by the offsets
+        # equal to those cut by their cumsum), relative to the whole sweep's
         # scale (the last rank's span may hold only the padded tail)
         e_plain, absd, scale = 0.0, 0.0, float(whole.abs().max())
         for sp, out in zip(spans, parts):
-            s, n = clip_runs(t["start_blk"], t["n_blk"], *sp)
-            ref = cuda_tree.tree_near_plain(t["pbods"], s, n, **kw_b7)
+            cut = clip_runs(t["start_blk"], t["n_blk"], *sp, off=t["off"])
+            if not all(torch.equal(x, y) for x, y in zip(
+                    cut, clip_runs(t["start_blk"], t["n_blk"], *sp))):
+                raise AssertionError(f"B7's slice {sp}: the runs cut by the offsets differ "
+                                     f"from those cut by their cumsum")
+            ref = cuda_tree.tree_near_part_plain(*runs, t["off"], span=sp, **kw_b7)
             absd = max(absd, float((out - ref).abs().max()))
             e_plain = absd / scale
         if e_sum > NEAR_RTOL or e_plain > NEAR_RTOL:
@@ -8163,13 +8581,24 @@ class Smoke:
         w0 = tree_near_work(dict(t, start_blk=s0, n_blk=n0), N_MAIN, TREE_LEVELS, 1,
                             TREE_CHUNK, TREE_RJ)
         bnd = bound(OPS_TREE * w0["needed"], w0["nbytes"], rsqrt=w0["needed"])
-        t_part = summary(time_ms(lambda: cuda_tree.tree_near_part_cuda(
-            t["pbods"], t["start_blk"], t["n_blk"], span=spans[0], **kw_b7), 20))
+        slice_calls = {"slice": lambda: cuda_tree.tree_near_part_cuda(
+            *runs, t["off"], span=spans[0], **kw_b7),
+            "whole": lambda: cuda_tree.tree_near_cuda(*runs, **kw_b7)}
+        turns = {k: summary(v) for k, v in alternate_ms(slice_calls, 20, repeats=5).items()}
+        host = {k: summary(host_ms(f, 20)) for k, f in slice_calls.items()}
+        dev_t = {}
+        for k, f in slice_calls.items():
+            dt = device_times(f)
+            dev_t[k] = sum(v[1] for v in dt.values()) if dt else None
+        t_part = turns["slice"]
         t_plain = summary(time_ms(lambda: cuda_tree.tree_near_plain(
             t["pbods"], s0, n0, **kw_b7), 1))
         self.kernels["B7S"].update(max_abs_err=absd, ms=t_part["median"],
                                    plain_ms=t_plain["median"], bound_ms=bnd[0],
                                    bound_by=bnd[1], library_ms=None)
+        self.tree_ring_perf = dict(times=turns, host_ms=host, device_ms=dev_t,
+                                   bound_ms=bnd[0], work=w0)
+        print("perf_tree_ring " + json.dumps(self.tree_ring_perf), file=sys.stderr)
 
         # the evaluation against one card's, and the main path
         cfg = self.tree_config(budgets)
@@ -8229,10 +8658,16 @@ class Smoke:
             raise AssertionError(f"staged tree N={TREE_STAGED_N} over {RING_P} ranks: overflow "
                                  f"{ov_s} (one card {ov_1}), {err_s:.3e} from one card")
         return (f"B7's {RING_P} slices of bench_tree's worklist (Plummer {N_MAIN}, levels "
-                f"{TREE_LEVELS}) summed vs the whole sweep {e_sum:.2e}, each vs its plain "
-                f"version {e_plain:.2e} <= {NEAR_RTOL:g}; a slice {t_part['median']:.3f} ms "
-                f"(spread {t_part['spread']:.3f}), plain {t_plain['median']:.3f}, bound "
-                f"{bnd[0]:.4f} ({bnd[1]}; {w0['needed']:,} needed pairs); the sharded "
+                f"{TREE_LEVELS}), cut in the kernel, summed vs the whole sweep {e_sum:.2e}, "
+                f"each vs its plain version {e_plain:.2e} <= {NEAR_RTOL:g}, reruns and the "
+                f"whole worklist's span bit-equal; rank 0's slice in turns with the whole "
+                f"sweep (events; the wrapper's host time a call; device time): "
+                f"{t_part['median']:.4f} ms (spread {t_part['spread']:.4f}; host "
+                f"{host['slice']['median']:.4f}; device {fmt(dev_t['slice'], 4)}) against "
+                f"{turns['whole']['median']:.4f} ({turns['whole']['spread']:.4f}; "
+                f"{host['whole']['median']:.4f}; {fmt(dev_t['whole'], 4)}), plain "
+                f"{t_plain['median']:.3f}, bound {bnd[0]:.4f} ({bnd[1]}; {w0['needed']:,} "
+                f"needed pairs), {100 * bnd[0] / t_part['median']:.1f}% of it; the sharded "
                 f"evaluation vs one card's: acc {r_a:.2e}, U {r_u:.2e}, overflow 0; "
                 f"{TREE_RING_STEPS} steps over {RING_P} ranks within {err:.2e} of one card's, "
                 f"B7's slice {part_l} launches, B7 0; {wall:.3f} ms/step wall; staged route "

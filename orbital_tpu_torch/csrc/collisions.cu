@@ -52,20 +52,61 @@
 // overflow: live-to-parked r2 is ~3e34, finite in f32, and is never squared
 // again.
 //
-// Separate i and j tables (the block bounce; no TPU kernel: it stands in for
-// the XLA code of orbital_tpu/parallel/sharded.py:72-117, _block_bounce,
-// the multi-device ring's impulses of a visiting shard j on the local shard
-// i): the i side reads (pos_i, vel_i, mass_i, radius_i, alive_i), the j side
-// (pos_j, vel_j, mass_j, radius_j, alive_j). B6 passes one set of arrays
-// twice, so its arithmetic is unchanged op for op. A self pair of the ring's
-// diagonal round has r2 = 0 and fails the touching test, so no pair is
-// excluded by index.
-//
 // The gate: the optional `contacts` pointer is the int32 count that the
 // force sweep with detection (B2) left on the device. When it is <= 0 every
 // block writes zeros and returns at entry, so a contact-free step costs one
 // launch instead of an O(N^2) sweep, the on-card form of the TPU stepper's
 // lax.cond skip. With a null pointer the sweep always runs.
+//
+// The block bounce (bounce_block_kernel; no TPU kernel: it stands in for the
+// XLA code of orbital_tpu/parallel/sharded.py:72-117, _block_bounce, the
+// multi-device ring's impulses of a visiting shard j on the local shard i):
+// the i side reads (pos_i, vel_i, mass_i, radius_i, alive_i), the j side
+// (pos_j, vel_j, mass_j, radius_j, alive_j), in place. A self pair of the
+// ring's diagonal round has r2 = 0 and fails the touching test, so no pair
+// is excluded by index. Its sweep is B6's (sweep_rows: the same tiles, the
+// prefilter, bounce_pair and the j order within a tile), on a launch of its
+// own for the ring's shapes:
+// - What bounded the first version (B6's kernel and launch over separate
+//   tables) at the ring's 16,384^2 (4 ranks) and 8,192^2 (8): its
+//   launch, n_i / 128 blocks of 8 warps under one block an SM, so 128 and
+//   64 blocks on 132 SMs with a quarter or an eighth of the j work each, at
+//   ~52% of the issue rate (0.116 ms with 2 contacts, 34% of its bound); and
+//   at a count of 0, the step's usual case on the ring, the wrapper's host
+//   time (0.072 ms by CUDA events for a launch that writes zeros).
+// - The j range is split across blocks as well as across warps
+//   (ops/cuda_collisions.py::bounce_plan, B3's cuda_forces.block_plan at
+//   this kernel's shape, by the least critical path): block u takes i tile
+//   u % tiles (kBRows rows) against j split u / tiles, 2 splits at 16,384^2
+//   and 4 at 8,192^2, 256 blocks in one wave over the 132 SMs (4 and 8
+//   splits, two blocks on every SM in two waves, ran 3% and 10% slower:
+//   chip_smoke.py --ring-variants, an H100 at 700 W). The kBQ warps'
+//   deltas of a row are added in warp order in shared memory; with one
+//   split that is the round's sum, else the split's partial, and the last
+//   block of the i tile to finish (an integer counter a tile behind a
+//   __threadfence, which it resets) adds the tile's partials in split
+//   order: no float atomics, so reruns are bit-equal. With one split and
+//   kBQ = kQ a row's sum is B6's, bit for bit, on coinciding tables.
+// - Accumulate mode (the ring's rounds after the first): the round's sum is
+//   added to dpos and dvel in place, out = out + sum, the single rounding of
+//   the caller's dpos + dp, so the ring needs no eager add a round.
+// - The gate at a count of 0: in write mode the blocks of split 0 write
+//   their tile's zeros and every other block returns at entry; in
+//   accumulate mode every block returns at entry. No block touches the
+//   partials or the counters then, so they stay reset.
+// - kBK = 4, kBQ = 8 and two blocks an SM (__launch_bounds__(256, 2): 128
+//   registers at most; it takes 106, no spills) are the OT_BBOUNCE_K, _Q
+//   and _MIN macros, which chip_smoke.py --ring-variants sets with -D: 4 x 4
+//   with four blocks an SM ran within 1% (but parts from B6's order), 3 and
+//   2 i bodies a thread with three blocks an SM 15% and 12% slower.
+// - What bounds it now: instruction issue at ~64% of the issue rate (0.093
+//   ms at 16,384^2 with 2 contacts, 7.5 SASS instructions a pair, an issue
+//   floor of 0.060 ms; 0.034 ms at 8,192^2), each warp sweeping 8 and 2
+//   tiles between its staging and the splits' sum; and at a count of 0 the
+//   wrapper's host time (0.016 ms a round added in place by CUDA events, in
+//   turns against 0.049 for the first version's round and eager add;
+//   chip_smoke.py phase 60, --parent and --ring-variants, an H100 80GB HBM3
+//   at 700 W).
 //
 // Plain C interface for ctypes: pointers and the stream are void*, and the
 // entry point returns cudaGetLastError() of its launch.
@@ -77,6 +118,15 @@
 #ifndef OT_BOUNCE_Q
 #define OT_BOUNCE_Q 8
 #endif
+#ifndef OT_BBOUNCE_K
+#define OT_BBOUNCE_K 4
+#endif
+#ifndef OT_BBOUNCE_Q
+#define OT_BBOUNCE_Q 8
+#endif
+#ifndef OT_BBOUNCE_MIN
+#define OT_BBOUNCE_MIN 2
+#endif
 
 namespace {
 
@@ -85,8 +135,17 @@ constexpr int kQ = OT_BOUNCE_Q;  // warps a block, one j slice each
 constexpr int kTile = 128;       // j bodies a warp's tile
 constexpr int kThreads = 32 * kQ;
 constexpr int kRows = 32 * kK;   // i bodies a block
+// the block bounce: i bodies a thread, warps a block and the blocks an SM
+// its registers are capped for
+constexpr int kBK = OT_BBOUNCE_K;
+constexpr int kBQ = OT_BBOUNCE_Q;
+constexpr int kBMin = OT_BBOUNCE_MIN;
+constexpr int kBThreads = 32 * kBQ;
+constexpr int kBRows = 32 * kBK;
 static_assert(kK >= 1 && kQ >= 1 && kTile % 32 == 0, "bad launch shape");
-static_assert(kQ * kTile * 32 <= 48 * 1024 && 6 * kRows <= 8 * kTile,
+static_assert(kBK >= 1 && kBQ >= 1 && kBMin >= 1, "bad block launch shape");
+static_assert(kQ * kTile * 32 <= 48 * 1024 && 6 * kRows <= 8 * kTile &&
+                  kBQ * kTile * 32 <= 48 * 1024 && 6 * kBRows <= 8 * kTile,
               "the warps' tiles must fit in static shared memory and hold the deltas");
 
 struct Deltas {
@@ -125,15 +184,16 @@ __device__ __forceinline__ void bounce_pair(float4 gi, float4 ki, float inv_mi, 
 }
 
 // each row's nearest r2 over the tile's first `count` bodies
+template <int K>
 __device__ __forceinline__ void nearest_tile(const float4* gtile, int count,
-                                             const float4 (&gi)[kK], float (&nearest)[kK]) {
+                                             const float4 (&gi)[K], float (&nearest)[K]) {
 #pragma unroll
-  for (int k = 0; k < kK; ++k) nearest[k] = __int_as_float(0x7f800000);  // +inf
+  for (int k = 0; k < K; ++k) nearest[k] = __int_as_float(0x7f800000);  // +inf
 #pragma unroll 4
   for (int jj = 0; jj < count; ++jj) {
     const float4 gj = gtile[jj];
 #pragma unroll
-    for (int k = 0; k < kK; ++k)
+    for (int k = 0; k < K; ++k)
       nearest[k] = fminf(nearest[k], dist2(gj.x - gi[k].x, gj.y - gi[k].y, gj.z - gi[k].z));
   }
 }
@@ -159,6 +219,90 @@ struct Side {
   int n;
 };
 
+// The deltas of rows base + lane + 32 k (k < K) of si from the j bodies
+// [j_lo, j_hi) of sj: warp w of the Q sweeps tiles j_lo + w kTile, + Q kTile,
+// ..., each staged by the warp into its own (x, y, z, R) and (v, m) tiles,
+// prefiltered on the tile's nearest r2, then the exact pass in j order. Each
+// warp's own deltas of its rows come out in d.
+template <int K, int Q>
+__device__ __forceinline__ void sweep_rows(const Side& si, const Side& sj, int base, int j_lo,
+                                           int j_hi, float e, float4 (*tiles)[2][kTile],
+                                           Deltas (&d)[K]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n = si.n;
+  float4 gi[K], ki[K];
+  float inv_mi[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = base + lane + 32 * k;
+    gi[k] = i < n ? geo_of(si.pos, si.radius, i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    ki[k] = i < n ? kin_of(si.vel, si.mass, si.alive, i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    inv_mi[k] = ki[k].w > 0.0f ? __frcp_rn(ki[k].w) : 0.0f;
+  }
+  float4* gtile = tiles[warp][0];
+  float4* ktile = tiles[warp][1];
+  for (int j0 = j_lo + warp * kTile; j0 < j_hi; j0 += Q * kTile) {
+    float rmax = 0.0f;  // the largest radius this lane staged
+#pragma unroll
+    for (int r = lane; r < kTile; r += 32) {
+      if (j0 + r < j_hi) {
+        gtile[r] = geo_of(sj.pos, sj.radius, j0 + r);
+        ktile[r] = kin_of(sj.vel, sj.mass, sj.alive, j0 + r);
+        rmax = fmaxf(rmax, gtile[r].w);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+    __syncwarp();
+    const int count = min(kTile, j_hi - j0);
+    float nearest[K];
+    if (count == kTile) nearest_tile<K>(gtile, kTile, gi, nearest);
+    else nearest_tile<K>(gtile, count, gi, nearest);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float rsum = (gi[k].w + rmax) * 1.0001f;
+      if (ki[k].w > 0.0f && nearest[k] <= rsum * rsum) {
+        for (int jj = 0; jj < count; ++jj)
+          bounce_pair(gi[k], ki[k], inv_mi[k], e, gtile[jj], &ktile[jj], d[k]);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Each warp's deltas of its rows into its own tiles (after the sweep's
+// last warp barrier), 6 floats a row: v, then p.
+template <int K>
+__device__ __forceinline__ void stash_deltas(float4 (*tiles)[2][kTile], const Deltas (&d)[K]) {
+  const int lane = threadIdx.x & 31;
+  float* mine = reinterpret_cast<float*>(tiles[threadIdx.x >> 5][0]);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float* row = mine + 6 * (lane + 32 * k);
+    row[0] = d[k].vx;
+    row[1] = d[k].vy;
+    row[2] = d[k].vz;
+    row[3] = d[k].px;
+    row[4] = d[k].py;
+    row[5] = d[k].pz;
+  }
+}
+
+// The Q warps' stashed deltas of block row r, added in warp order.
+template <int Q>
+__device__ __forceinline__ void warp_sum(float4 (*tiles)[2][kTile], int r, float (&a)[6]) {
+  const float* w0 = reinterpret_cast<const float*>(tiles[0]) + 6 * r;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) a[c] = w0[c];
+  for (int q = 1; q < Q; ++q) {
+    const float* wq = reinterpret_cast<const float*>(tiles[q]) + 6 * r;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) a[c] += wq[c];
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 bounce_kernel(Side si, Side sj, float e, const int* __restrict__ contacts,
               float* __restrict__ dpos, float* __restrict__ dvel) {
@@ -173,69 +317,13 @@ bounce_kernel(Side si, Side sj, float e, const int* __restrict__ contacts,
     return;
   }
   __shared__ float4 tiles[kQ][2][kTile];  // a warp's (x, y, z, R) and (v, m) tiles
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float4 gi[kK], ki[kK];
-  float inv_mi[kK];
   Deltas d[kK];
-#pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    const int i = base + lane + 32 * k;
-    gi[k] = i < n ? geo_of(si.pos, si.radius, i) : make_float4(0.f, 0.f, 0.f, 0.f);
-    ki[k] = i < n ? kin_of(si.vel, si.mass, si.alive, i) : make_float4(0.f, 0.f, 0.f, 0.f);
-    inv_mi[k] = ki[k].w > 0.0f ? __frcp_rn(ki[k].w) : 0.0f;
-  }
-  float4* gtile = tiles[warp][0];
-  float4* ktile = tiles[warp][1];
-  for (int j0 = warp * kTile; j0 < sj.n; j0 += kQ * kTile) {
-    float rmax = 0.0f;  // the largest radius this lane staged
-#pragma unroll
-    for (int r = lane; r < kTile; r += 32) {
-      if (j0 + r < sj.n) {
-        gtile[r] = geo_of(sj.pos, sj.radius, j0 + r);
-        ktile[r] = kin_of(sj.vel, sj.mass, sj.alive, j0 + r);
-        rmax = fmaxf(rmax, gtile[r].w);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-    __syncwarp();
-    const int count = min(kTile, sj.n - j0);
-    float nearest[kK];
-    if (count == kTile) nearest_tile(gtile, kTile, gi, nearest);
-    else nearest_tile(gtile, count, gi, nearest);
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      const float rsum = (gi[k].w + rmax) * 1.0001f;
-      if (ki[k].w > 0.0f && nearest[k] <= rsum * rsum) {
-        for (int jj = 0; jj < count; ++jj)
-          bounce_pair(gi[k], ki[k], inv_mi[k], e, gtile[jj], &ktile[jj], d[k]);
-      }
-    }
-    __syncwarp();
-  }
-  // the kQ slices' deltas of each row, added in warp order
-  float* mine = reinterpret_cast<float*>(gtile);
-#pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    float* row = mine + 6 * (lane + 32 * k);
-    row[0] = d[k].vx;
-    row[1] = d[k].vy;
-    row[2] = d[k].vz;
-    row[3] = d[k].px;
-    row[4] = d[k].py;
-    row[5] = d[k].pz;
-  }
+  sweep_rows<kK, kQ>(si, sj, base, 0, sj.n, e, tiles, d);
+  stash_deltas<kK>(tiles, d);
   __syncthreads();
   for (int r = threadIdx.x; r < kRows && base + r < n; r += kThreads) {
-    const float* w0 = reinterpret_cast<const float*>(tiles[0]) + 6 * r;
-    float a[6] = {w0[0], w0[1], w0[2], w0[3], w0[4], w0[5]};
-    for (int q = 1; q < kQ; ++q) {
-      const float* wq = reinterpret_cast<const float*>(tiles[q]) + 6 * r;
-#pragma unroll
-      for (int c = 0; c < 6; ++c) a[c] += wq[c];
-    }
+    float a[6];
+    warp_sum<kQ>(tiles, r, a);
     const int i = base + r;
     dvel[3 * i + 0] = a[0];
     dvel[3 * i + 1] = a[1];
@@ -244,6 +332,87 @@ bounce_kernel(Side si, Side sj, float e, const int* __restrict__ contacts,
     dpos[3 * i + 1] = a[4];
     dpos[3 * i + 2] = a[5];
   }
+}
+
+// Row i's round sum a into dvel and dpos: written, or added to them.
+__device__ __forceinline__ void emit(const float (&a)[6], int i, bool accumulate,
+                                     float* __restrict__ dpos, float* __restrict__ dvel) {
+  if (accumulate) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      dvel[3 * i + c] = dvel[3 * i + c] + a[c];
+      dpos[3 * i + c] = dpos[3 * i + c] + a[3 + c];
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      dvel[3 * i + c] = a[c];
+      dpos[3 * i + c] = a[3 + c];
+    }
+  }
+}
+
+// The block bounce on its launch plan: block u sweeps i tile u % tiles
+// against j split u / tiles (split_len bodies, whole tiles). part: [splits *
+// n_i * 6] float scratch (unused with one split), done: [tiles] counters, 0
+// on entry and left 0.
+__global__ void __launch_bounds__(kBThreads, kBMin)
+bounce_block_kernel(Side si, Side sj, float e, const int* __restrict__ contacts, int tiles,
+                    int splits, int split_len, int accumulate, float* __restrict__ part,
+                    unsigned int* __restrict__ done, float* __restrict__ dpos,
+                    float* __restrict__ dvel) {
+  const int tile_i = blockIdx.x % tiles, split = blockIdx.x / tiles;
+  const int base = tile_i * kBRows;
+  const int n = si.n;
+  if (contacts != nullptr && *contacts <= 0) {  // uniform: one count for all
+    if (accumulate || split > 0) return;
+    for (int r = threadIdx.x; r < kBRows && base + r < n; r += kBThreads) {
+      const int i = base + r;
+      dvel[3 * i + 0] = dvel[3 * i + 1] = dvel[3 * i + 2] = 0.0f;
+      dpos[3 * i + 0] = dpos[3 * i + 1] = dpos[3 * i + 2] = 0.0f;
+    }
+    return;
+  }
+  __shared__ float4 tiles_s[kBQ][2][kTile];
+  __shared__ bool last;
+  Deltas d[kBK];
+  const int j_lo = split * split_len;
+  sweep_rows<kBK, kBQ>(si, sj, base, j_lo, min(j_lo + split_len, sj.n), e, tiles_s, d);
+  stash_deltas<kBK>(tiles_s, d);
+  __syncthreads();
+  for (int r = threadIdx.x; r < kBRows && base + r < n; r += kBThreads) {
+    float a[6];
+    warp_sum<kBQ>(tiles_s, r, a);
+    if (splits == 1) {
+      emit(a, base + r, accumulate, dpos, dvel);
+    } else {
+      float* p = part + (static_cast<size_t>(split) * n + base + r) * 6;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) p[c] = a[c];
+    }
+  }
+  if (splits == 1) return;
+  // the last split of this i tile to finish adds the splits in order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&done[tile_i], 1u) == static_cast<unsigned>(splits - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int r = threadIdx.x; r < kBRows && base + r < n; r += kBThreads) {
+    float a[6];
+    const float* p0 = part + (static_cast<size_t>(base) + r) * 6;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) a[c] = __ldcg(p0 + c);
+    for (int q = 1; q < splits; ++q) {
+      const float* pq = part + (static_cast<size_t>(q) * n + base + r) * 6;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) a[c] += __ldcg(pq + c);
+    }
+    emit(a, base + r, accumulate, dpos, dvel);
+  }
+  if (threadIdx.x == 0) done[tile_i] = 0u;
 }
 
 }  // namespace
@@ -268,29 +437,39 @@ int bounce_deltas(const void* pos, const void* vel, const void* mass, const void
   return cudaGetLastError();
 }
 
-// The block bounce: bounce_deltas with the i side (pos_i, vel_i: [n_i, 3];
-// mass_i, radius_i: [n_i]; alive_i: [n_i] bool) and the j side (the same
-// over n_j) in separate arrays; dpos, dvel: [n_i, 3] float, the impulses
-// and de-overlap of j on i, gated on contacts as bounce_deltas is.
-int bounce_block_deltas(const void* pos_i, const void* vel_i, const void* mass_i,
-                        const void* radius_i, const void* alive_i, int n_i,
-                        const void* pos_j, const void* vel_j, const void* mass_j,
-                        const void* radius_j, const void* alive_j, int n_j,
-                        float restitution, const void* contacts, void* dpos, void* dvel,
-                        void* stream, int device) {
+// The block bounce: the i side (pos_i, vel_i: [n_i, 3]; mass_i, radius_i:
+// [n_i]; alive_i: [n_i] bool) and the j side (the same over n_j), read in
+// place; dpos, dvel: [n_i, 3] float, the impulses and de-overlap of j on i,
+// written (accumulate 0) or added to them (accumulate 1), gated on contacts
+// as bounce_deltas is. The launch plan (splits, split_len: ops/
+// cuda_collisions.py::bounce_plan) cuts [0, n_j) into splits of whole
+// tiles; part: [splits * n_i * 6] float scratch (unused with one split) and
+// done: [ceil(n_i / rows)] unsigned int counters, 0 on entry and left 0.
+int bounce_block_round(const void* pos_i, const void* vel_i, const void* mass_i,
+                       const void* radius_i, const void* alive_i, int n_i,
+                       const void* pos_j, const void* vel_j, const void* mass_j,
+                       const void* radius_j, const void* alive_j, int n_j,
+                       float restitution, const void* contacts, int splits, int split_len,
+                       int accumulate, void* part, void* done, void* dpos, void* dvel,
+                       void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n_i <= 0) return cudaSuccess;
+  if (splits < 1 || split_len < 1 || split_len % kTile != 0 ||
+      static_cast<long long>(splits) * split_len < n_j ||
+      (n_j > 0 && static_cast<long long>(splits - 1) * split_len >= n_j))
+    return cudaErrorInvalidValue;
   const Side si{static_cast<const float*>(pos_i), static_cast<const float*>(vel_i),
                 static_cast<const float*>(mass_i), static_cast<const float*>(radius_i),
                 static_cast<const bool*>(alive_i), n_i};
   const Side sj{static_cast<const float*>(pos_j), static_cast<const float*>(vel_j),
                 static_cast<const float*>(mass_j), static_cast<const float*>(radius_j),
                 static_cast<const bool*>(alive_j), n_j};
-  const int grid = (n_i + kRows - 1) / kRows;
-  bounce_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      si, sj, restitution, static_cast<const int*>(contacts), static_cast<float*>(dpos),
-      static_cast<float*>(dvel));
+  const int tiles = (n_i + kBRows - 1) / kBRows;
+  bounce_block_kernel<<<tiles * splits, kBThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      si, sj, restitution, static_cast<const int*>(contacts), tiles, splits, split_len,
+      accumulate, static_cast<float*>(part), static_cast<unsigned int*>(done),
+      static_cast<float*>(dpos), static_cast<float*>(dvel));
   return cudaGetLastError();
 }
 
@@ -302,6 +481,27 @@ void bounce_deltas_shape(int n, int* shape) {
   shape[2] = kTile;
   shape[3] = kThreads;
   shape[4] = (n + kRows - 1) / kRows;
+}
+
+// The block bounce's shape on a device: shape[0..5] = i bodies a thread,
+// warps a block, j bodies a tile, threads a block, co-resident blocks (the
+// occupancy times the SMs) and SMs, asked once a device.
+void bounce_block_shape(int device, int* shape) {
+  static int cache[64][2] = {{0, 0}};
+  const int d = device >= 0 && device < 64 ? device : 0;
+  if (cache[d][0] == 0) {
+    int per_sm = 0, count = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bounce_block_kernel, kBThreads, 0);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
+    cache[d][1] = count > 0 ? count : 1;
+    cache[d][0] = per_sm * count > 0 ? per_sm * count : 1;
+  }
+  shape[0] = kBK;
+  shape[1] = kBQ;
+  shape[2] = kTile;
+  shape[3] = kBThreads;
+  shape[4] = cache[d][0];
+  shape[5] = cache[d][1];
 }
 
 const char* ot_error_string(int err) {

@@ -89,6 +89,27 @@
 // fastest shape at 65,536 bodies of chip_smoke.py --sweep, which sets them
 // with -D (kQ = 2 ran faster at 1,048,576 and slower at 65,536).
 //
+// B7's slice (the body-sharded tree; the JAX module's q_part slice of the
+// worklist, orbital_tpu/ops/tree_near_wl.py:307-313): with `off`, the runs'
+// exclusive offsets in the flat chunk-major worklist (which _wl_table keeps
+// from _wl_drop), and a span [lo, hi) of it, each block cuts its chunk's
+// runs to the span in its prologue, as ops/tree_near_wl.py::clip_runs does
+// (a run keeps the entries of [off, off + count) inside the span, its start
+// moved past the ones before lo), and walks the cut runs exactly as the
+// whole sweep walks its runs: so a rank's slice visits the slice's entries
+// in the order that the same kernel visits them over runs clipped on the
+// host. A chunk with no entry in the span (or none at all: a dropped or
+// empty one) writes its zero rows and returns before it loads a row. The
+// whole sweep is the span of the whole worklist, or a null `off`. The
+// first slice clipped the runs in about ten eager ops a call and cast them
+// again in the wrapper: 0.388 ms by CUDA events for rank 0's quarter of
+// bench_tree's worklist against 0.114 for the whole sweep, most of it host
+// time. Cut here, that slice takes 0.0725 ms by events against the whole
+// sweep's 0.1071 in turns (chip_smoke.py phase 63, an H100 80GB HBM3 at
+// 700 W), for 30% of the whole worklist's needed pairs
+// (chip_smoke.tree_near_work). Which of its chunks set that time is not
+// measured.
+//
 // Plain C interface for ctypes: pointers and the stream are void*, and the
 // entry point returns cudaGetLastError() of its launch.
 #include <cuda_runtime.h>
@@ -186,13 +207,30 @@ __device__ __forceinline__ void sweep_rows(const float4* buf, int nb, int g, int
   acc.w += tp;
 }
 
+// Run r of a chunk (count n, first block b), cut to the worklist entries
+// [lo, hi) when `off` (the runs' exclusive offsets) is given; 0 past n_nb.
+__device__ __forceinline__ void load_run(const int* count_c, const int* start_c,
+                                         const int* off_c, int r, int n_nb, int lo, int hi,
+                                         int& n, int& b) {
+  n = r < n_nb ? count_c[r] : 0;
+  b = r < n_nb ? start_c[r] : 0;
+  if (off_c != nullptr && n > 0) {
+    const int o = off_c[r];
+    const int before = max(lo - o, 0);
+    const int kept = max(n - before - max(o + n - hi, 0), 0);
+    b = kept > 0 ? b + before : 0;
+    n = kept;
+  }
+}
+
 // The second bound (one block an SM) lets ptxas use the registers the
 // staging needs (~105 at kK = 8). Without it ptxas aimed at more blocks an
 // SM, held the kernel at 72 registers and spilled (chip_smoke.py phase 2).
 __global__ void __launch_bounds__(kThreads, 1)
 tree_near_kernel(const float4* __restrict__ rows, const int* __restrict__ start,
-                 const int* __restrict__ count, int n_nb, int chunk, int slices, int blkw,
-                 float wsf, float eps2, float4* __restrict__ out) {
+                 const int* __restrict__ count, const int* __restrict__ off, int lo, int hi,
+                 int n_nb, int chunk, int slices, int blkw, float wsf, float eps2,
+                 float4* __restrict__ out) {
   __shared__ float4 bufs[kQ][kBuf][2];  // in-box j rows: (x, y, z, m), (idx, cx, cy, cz)
   __shared__ float4 red[kQ][32];        // each warp's sums of the live i rows
   __shared__ int order[kQ][32];         // the slice's live rows, in table order
@@ -203,11 +241,23 @@ tree_near_kernel(const float4* __restrict__ rows, const int* __restrict__ start,
   const int row0 = blockIdx.x % slices * 32;
   const int nrows = min(32, chunk - row0);
   const size_t slot = static_cast<size_t>(c) * chunk + row0 + lane;
-  // lane r holds run r of each 32 (start, count), loaded before anything waits
+  // lane r holds run r of each 32 (start, count), cut to the span, loaded
+  // before anything waits; a chunk without an entry in it writes zeros
   const int* const count_c = count + static_cast<size_t>(c) * n_nb;
   const int* const start_c = start + static_cast<size_t>(c) * n_nb;
-  int run_n = lane < n_nb ? count_c[lane] : 0;
-  int run_b = lane < n_nb ? start_c[lane] : 0;
+  const int* const off_c = off == nullptr ? nullptr : off + static_cast<size_t>(c) * n_nb;
+  int run_n, run_b;
+  load_run(count_c, start_c, off_c, lane, n_nb, lo, hi, run_n, run_b);
+  bool any = __ballot_sync(0xffffffffu, run_n > 0) != 0u;
+  for (int r0 = 32; !any && r0 < n_nb; r0 += 32) {
+    int n_r, b_r;
+    load_run(count_c, start_c, off_c, r0 + lane, n_nb, lo, hi, n_r, b_r);
+    any = __ballot_sync(0xffffffffu, n_r > 0) != 0u;
+  }
+  if (!any) {
+    if (warp == 0 && lane < nrows) out[slot] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return;
+  }
 
   // the slice's live rows and their box
   const float4 mine = lane < nrows ? rows[2 * slot + 1]
@@ -252,10 +302,7 @@ tree_near_kernel(const float4* __restrict__ rows, const int* __restrict__ start,
   int fill = 0;    // rows in the warp's buffer
   int before = 0;  // rounds of the runs walked so far
   for (int r0 = 0; r0 < n_nb; r0 += 32) {
-    if (r0 > 0) {
-      run_n = r0 + lane < n_nb ? count_c[r0 + lane] : 0;
-      run_b = r0 + lane < n_nb ? start_c[r0 + lane] : 0;
-    }
+    if (r0 > 0) load_run(count_c, start_c, off_c, r0 + lane, n_nb, lo, hi, run_n, run_b);
     for (unsigned runs = __ballot_sync(0xffffffffu, run_n > 0); runs; runs &= runs - 1) {
       const int src = __ffs(runs) - 1;
       const int a = __shfl_sync(0xffffffffu, run_b, src) * blkw;
@@ -346,10 +393,12 @@ extern "C" {
 
 // rows: [n_rows * 2] float4, the slot-major table (x, y, z, m), (idx, cx, cy,
 // cz) per row; start, count: [k_ch * n_nb] int32 block runs of each chunk
-// (count 0 for a dropped chunk); out: [k_ch * chunk] float4 (ax, ay, az, pe).
-int tree_near(const void* rows, const void* start, const void* count, int k_ch, int n_nb,
-              int chunk, int blkw, float ws, float eps2, void* out, void* stream,
-              int device) {
+// (count 0 for a dropped chunk); off: [k_ch * n_nb] int32, the runs'
+// exclusive offsets in the flat worklist, with [lo, hi) the entries to sweep,
+// or null for all of them; out: [k_ch * chunk] float4 (ax, ay, az, pe).
+int tree_near_span(const void* rows, const void* start, const void* count, const void* off,
+                   int lo, int hi, int k_ch, int n_nb, int chunk, int blkw, float ws,
+                   float eps2, void* out, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (k_ch <= 0) return cudaSuccess;
@@ -357,8 +406,8 @@ int tree_near(const void* rows, const void* start, const void* count, int k_ch, 
   const int slices = (chunk + 31) / 32;
   tree_near_kernel<<<k_ch * slices, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(rows), static_cast<const int*>(start),
-      static_cast<const int*>(count), n_nb, chunk, slices, blkw, ws, eps2,
-      static_cast<float4*>(out));
+      static_cast<const int*>(count), static_cast<const int*>(off), lo, hi, n_nb, chunk,
+      slices, blkw, ws, eps2, static_cast<float4*>(out));
   return cudaGetLastError();
 }
 

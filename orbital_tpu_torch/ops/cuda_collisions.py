@@ -18,14 +18,23 @@ For CPU tensors the wrapper computes the plain version,
 by the same count). For CUDA tensors it launches the kernel or raises; it
 never falls back. ``bounce_deltas_cuda.launches`` counts kernel launches.
 
-:func:`bounce_block_cuda` is the same kernel over separate i and j arrays
-(no TPU kernel: it stands in for the XLA code of
-``orbital_tpu/parallel/sharded.py:72-117``, ``_block_bounce``): the
-impulses and de-overlap of a visiting shard j on the local shard i, a round
-of the multi-device ring, gated on the ring's count. Its plain version is
-:func:`bounce_block_plain`; ``bounce_block_cuda.launches`` counts its
-launches, under a lock, as the threads of a one-card mesh launch it (and the
-contact sweep's, which runs on every rank of a mesh).
+:func:`bounce_block_cuda` is the block bounce (no TPU kernel: it stands in
+for the XLA code of ``orbital_tpu/parallel/sharded.py:72-117``,
+``_block_bounce``): the impulses and de-overlap of a visiting shard j on the
+local shard i, a round of the multi-device ring, gated on the ring's count.
+Its kernel (``bounce_block_kernel``) runs B6's sweep on a launch of its own,
+:func:`bounce_plan`'s: the j range split across blocks as well as warps, so
+that the ring's 16,384^2 and 8,192^2 run one wave of 256 blocks over every
+SM, the splits' partials added in split order on the device. With ``out`` it
+adds the round's sum to the given (dpos, dvel) in place (the ring's rounds
+after the first: out + sum, the rounding of an eager add); at a count of 0
+that launch returns at entry. The wrapper passes the tables' own pointers
+(f32 and contiguous, as a ds32 state's hi words are) and, with
+``checked=True``, skips its checks: the ring checks each shard shape once.
+Its plain version is :func:`bounce_block_plain`; ``bounce_block_cuda.
+launches`` counts its launches, under a lock, as the threads of a one-card
+mesh launch it (and the contact sweep's, which runs on every rank of a
+mesh).
 
 The contact sweep of merge and resolve (``csrc/collision_roots.cu``, one
 tiled template with two modes) stands in for the JAX module's XLA blocks:
@@ -44,16 +53,18 @@ mirrors the kernel's walk over its tiles.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from .collisions import (_bounce_block, bounce_deltas_chunked, collision_parents_chunked,
                          contact_marks_chunked, pointer_jump, restitution_clip)
+from .cuda_forces import block_plan
 from ..utils.kernels import count_launch, refuse_grad
 
 __all__ = ["bounce_deltas_cuda", "bounce_deltas_plain", "bounce_block_cuda",
-           "bounce_block_plain", "collision_roots_cuda",
+           "bounce_block_plain", "bounce_plan", "bounce_block_shape", "collision_roots_cuda",
            "collision_roots_plain", "collision_parents_cuda", "collision_parents_plain",
            "contact_marks_cuda", "contact_marks_plain", "sweep_plan", "SWEEP_TILE"]
 
@@ -74,10 +85,12 @@ def _load():
         lib.bounce_deltas.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float]
             + [ctypes.c_void_p] * 4 + [ctypes.c_int])
-        lib.bounce_block_deltas.restype = ctypes.c_int
-        lib.bounce_block_deltas.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 5
-            + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 4 + [ctypes.c_int])
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.bounce_block_round.restype = ctypes.c_int
+        lib.bounce_block_round.argtypes = ([p] * 5 + [i] + [p] * 5 + [i, ctypes.c_float, p]
+                                           + [i] * 3 + [p] * 5 + [i])
+        lib.bounce_block_shape.restype = None
+        lib.bounce_block_shape.argtypes = [i, p]
         _lib = lib
     return _lib
 
@@ -158,11 +171,14 @@ bounce_deltas_cuda.launches = 0
 
 def bounce_block_plain(pos_i, vel_i, mass_i, radius_i, alive_i, pos_j, vel_j, mass_j,
                        radius_j, alive_j, *, restitution: float = 1.0,
-                       contacts: Optional[torch.Tensor] = None, chunk: int = 1024):
+                       contacts: Optional[torch.Tensor] = None,
+                       out: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+                       chunk: int = 1024):
     """The plain PyTorch version of the block kernel, on any device: row
     blocks of i against all of j in the kernel's formulation
     (``ops.collisions._bounce_block``, each side's mass times its alive),
-    and exact zeros where a given ``contacts`` count is 0."""
+    and exact zeros where a given ``contacts`` count is 0; with ``out`` the
+    round's sum added to it in place and ``out`` returned."""
     e = restitution_clip(restitution)
     m_i = mass_i * alive_i.to(mass_i.dtype)
     m_j = mass_j * alive_j.to(mass_j.dtype)
@@ -170,62 +186,161 @@ def bounce_block_plain(pos_i, vel_i, mass_i, radius_i, alive_i, pos_j, vel_j, ma
                            radius_i[s:s + chunk], pos_j, vel_j, m_j, radius_j, e)
              for s in range(0, pos_i.shape[0], chunk)]
     if not parts:
-        return torch.zeros_like(pos_i), torch.zeros_like(vel_i)
-    return _gate(torch.cat([p for p, _ in parts]), torch.cat([v for _, v in parts]), contacts)
+        dp, dv = torch.zeros_like(pos_i), torch.zeros_like(vel_i)
+    else:
+        dp, dv = _gate(torch.cat([p for p, _ in parts]), torch.cat([v for _, v in parts]),
+                       contacts)
+    if out is None:
+        return dp, dv
+    out[0].add_(dp)
+    out[1].add_(dv)
+    return out
 
 
-def bounce_block_cuda(pos_i: torch.Tensor, vel_i: torch.Tensor, mass_i: torch.Tensor,
-                      radius_i: torch.Tensor, alive_i: torch.Tensor, pos_j: torch.Tensor,
-                      vel_j: torch.Tensor, mass_j: torch.Tensor, radius_j: torch.Tensor,
-                      alive_j: torch.Tensor, *, restitution: float = 1.0,
-                      contacts: Optional[torch.Tensor] = None
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The bounce sweep of body block j on body block i: (dpos [Bi, 3], dvel
-    [Bi, 3]), each pair's impulse and de-overlap on i from the
-    pre-collision velocities, a pair touching when 0 < r2 <= (R_i + R_j)^2,
-    both alive, m_j > 0 and approaching. With ``contacts`` (an int32 0-dim
-    tensor on the same device) the kernel writes zeros and skips the sweep
-    when it is 0."""
-    if pos_i.device.type == "cpu":
-        return bounce_block_plain(pos_i, vel_i, mass_i, radius_i, alive_i, pos_j, vel_j,
-                                  mass_j, radius_j, alive_j, restitution=restitution,
-                                  contacts=contacts)
-    if pos_i.device.type != "cuda":
-        raise ValueError(f"bounce_block_cuda: unsupported device {pos_i.device}")
-    refuse_grad("bounce_block_cuda", pos_i, vel_i, mass_i, radius_i, pos_j, vel_j, mass_j,
-                radius_j)
-    n_i, n_j = pos_i.shape[0], pos_j.shape[0]
-    for n, (p, v, m, r, a) in ((n_i, (pos_i, vel_i, mass_i, radius_i, alive_i)),
-                               (n_j, (pos_j, vel_j, mass_j, radius_j, alive_j))):
+@functools.lru_cache(maxsize=None)
+def bounce_plan(n_i: int, n_j: int, k: int, q: int, tile: int, resident: int, sms: int,
+                splits: Optional[int] = None) -> dict:
+    """The block bounce's cut of an n_i x n_j block at its kernel's shape (k
+    i bodies a thread, q warps, j tiles of ``tile``; ``resident`` co-resident
+    blocks on ``sms`` SMs): B3's :func:`~.cuda_forces.block_plan` over i
+    tiles of 32 k rows with the least critical path (``fill=False``), its
+    ``grid`` = ``tiles`` x ``splits`` blocks (block u sweeps i tile u %
+    tiles against the j split u // tiles of ``split_len`` bodies, warp w its
+    j tiles w, w + q, ...). At 4 x 8 with two blocks an SM on 132 SMs: 2
+    splits at 16,384^2 and 4 at 8,192^2, 256 blocks in one wave, which ran
+    3% and 10% faster than the 4 and 8 splits (512 blocks, two waves) that
+    put two blocks on every SM (chip_smoke.py --ring-variants; PERF.md); one
+    split at 65,536^2, B6's order. ``splits`` pins the count (whole j tiles
+    a split, the last one ragged), as a check of one split does; a block
+    with no i or no j body gets one split."""
+    n_i, n_j, k, tile = int(n_i), int(n_j), int(k), int(tile)
+    if splits is None and min(n_i, n_j) >= 1:
+        return block_plan(n_i, n_j, 32 * k, q, tile, resident, sms, False)
+    tiles, j_tiles = -(-n_i // (32 * k)), max(1, -(-n_j // tile))
+    split_len = -(-j_tiles // max(1, int(splits or 1))) * tile
+    splits = max(1, -(-n_j // split_len))
+    return dict(tiles=tiles, splits=splits, split_len=split_len, units=tiles * splits,
+                grid=tiles * splits)
+
+
+# per (library, device): the block kernel's shape; per (n_i, n_j, library,
+# device, pinned splits): its plan's cut and scratch (the splits' partials
+# and each i tile's counter, zeros that each launch leaves zero), so that a
+# round's launch looks up one entry
+_bounce_shapes: dict = {}
+_bounce_launches: dict = {}
+
+
+def bounce_block_shape(device: torch.device) -> dict:
+    """The block kernel's shape on ``device``: i bodies a thread (``k``),
+    warps a block (``q``), j bodies a tile, threads a block, co-resident
+    blocks and SMs, asked of the library once per library and device."""
+    lib = _load()
+    key = (id(lib), device.index or 0)
+    if key not in _bounce_shapes:
+        arr = (ctypes.c_int * 6)()
+        lib.bounce_block_shape(key[1], arr)
+        _bounce_shapes[key] = dict(zip(("k", "q", "tile", "threads", "resident", "sms"), arr))
+    return _bounce_shapes[key]
+
+
+def _bounce_round(lib, dev: torch.device, n_i: int, n_j: int, splits: Optional[int]):
+    """((splits, split_len), (part, done) pointers) of a round at n_i x n_j,
+    made once a shape."""
+    key = (n_i, n_j, id(lib), dev.index or 0, splits)
+    hit = _bounce_launches.get(key)
+    if hit is None:
+        sh = bounce_block_shape(dev)
+        plan = bounce_plan(n_i, n_j, sh["k"], sh["q"], sh["tile"], sh["resident"], sh["sms"],
+                           splits)
+        part = torch.empty((n_i * 6 * plan["splits"] if plan["splits"] > 1 else 1,),
+                           dtype=torch.float32, device=dev)
+        done = torch.zeros((max(1, plan["tiles"]),), dtype=torch.int32, device=dev)
+        hit = _bounce_launches[key] = ((plan["splits"], plan["split_len"]),
+                                       (part.data_ptr(), done.data_ptr()), (part, done))
+    return hit
+
+
+def _bounce_block_launch(side_i, side_j, e: float, contacts, dpos, dvel, accumulate: bool,
+                         splits: Optional[int] = None) -> None:
+    """Launch the block kernel on its plan (or ``splits`` pinned) over the
+    sides' own arrays (f32 and contiguous; alive bool) into ``dpos``,
+    ``dvel`` [n_i, 3] f32: written, or with ``accumulate`` added to."""
+    from ..utils.kernels import check, stream_handle
+
+    lib, dev = _load(), dpos.device
+    n_i, n_j = side_i[0].shape[0], side_j[0].shape[0]
+    cut, scratch, _ = _bounce_round(lib, dev, n_i, n_j, splits)
+    err = lib.bounce_block_round(
+        *(t.data_ptr() for t in side_i), n_i, *(t.data_ptr() for t in side_j), n_j, e,
+        None if contacts is None else contacts.data_ptr(), *cut, int(accumulate), *scratch,
+        dpos.data_ptr(), dvel.data_ptr(), stream_handle(dev), dev.index)
+    check(lib, err, "bounce_block_round launch")
+
+
+def _check_bounce_block(side_i, side_j, contacts, out) -> tuple:
+    """The block bounce's contract; returns the sides as the kernel reads
+    them (f32 and contiguous, alive bool: the tensors themselves where they
+    are so already)."""
+    pos_i = side_i[0]
+    refuse_grad("bounce_block_cuda", *side_i[:4], *side_j[:4])
+    for side in (side_i, side_j):
+        p, v, m, r, a = side
+        n = p.shape[0]
         if p.shape != (n, 3) or v.shape != (n, 3) or m.shape != (n,) or r.shape != (n,) \
                 or a.shape != (n,):
             raise ValueError("bounce_block_cuda: need pos, vel [B, 3] and mass, radius, "
                              "alive [B] on each side")
         if a.dtype != torch.bool:
             raise TypeError("bounce_block_cuda: alive must be bool")
-    tensors = [vel_i, mass_i, radius_i, alive_i, pos_j, vel_j, mass_j, radius_j, alive_j]
-    if any(t.device != pos_i.device for t in tensors + ([contacts] if contacts is not None
-                                                        else [])):
+    tensors = [*side_i, *side_j] + [t for t in (contacts,) + tuple(out or ()) if t is not None]
+    if any(t.device != pos_i.device for t in tensors):
         raise ValueError("bounce_block_cuda: all tensors must be on one device")
     if contacts is not None and (contacts.dtype != torch.int32 or contacts.numel() != 1):
         raise TypeError("bounce_block_cuda: contacts must be one int32")
+    if out is not None and any(o.shape != (pos_i.shape[0], 3) or o.dtype != torch.float32
+                               or not o.is_contiguous() for o in out):
+        raise ValueError("bounce_block_cuda: out must be two contiguous f32 [Bi, 3] tensors")
     f32 = torch.float32
-    side_i = [t.to(f32).contiguous() for t in (pos_i, vel_i, mass_i, radius_i)]
-    side_j = [t.to(f32).contiguous() for t in (pos_j, vel_j, mass_j, radius_j)]
-    alive_i_, alive_j_ = alive_i.contiguous(), alive_j.contiguous()
-    dpos = torch.empty((n_i, 3), dtype=f32, device=pos_i.device)
-    dvel = torch.empty((n_i, 3), dtype=f32, device=pos_i.device)
+    return tuple(tuple(t.to(f32).contiguous() for t in side[:4]) + (side[4].contiguous(),)
+                 for side in (side_i, side_j))
 
-    lib = _load()
-    from ..utils.kernels import check
 
-    stream = torch.cuda.current_stream(pos_i.device).cuda_stream
-    err = lib.bounce_block_deltas(
-        *(t.data_ptr() for t in side_i), alive_i_.data_ptr(), n_i,
-        *(t.data_ptr() for t in side_j), alive_j_.data_ptr(), n_j,
-        restitution_clip(restitution), None if contacts is None else contacts.data_ptr(),
-        dpos.data_ptr(), dvel.data_ptr(), stream, pos_i.device.index or 0)
-    check(lib, err, "bounce_block_deltas launch")
+def bounce_block_cuda(pos_i: torch.Tensor, vel_i: torch.Tensor, mass_i: torch.Tensor,
+                      radius_i: torch.Tensor, alive_i: torch.Tensor, pos_j: torch.Tensor,
+                      vel_j: torch.Tensor, mass_j: torch.Tensor, radius_j: torch.Tensor,
+                      alive_j: torch.Tensor, *, restitution: float = 1.0,
+                      contacts: Optional[torch.Tensor] = None,
+                      out: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+                      checked: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bounce sweep of body block j on body block i: (dpos [Bi, 3], dvel
+    [Bi, 3]) in f32, each pair's impulse and de-overlap on i from the
+    pre-collision velocities, a pair touching when 0 < r2 <= (R_i + R_j)^2,
+    both alive, m_j > 0 and approaching. With ``contacts`` (an int32 0-dim
+    tensor on the same device) the kernel writes zeros and skips the sweep
+    when it is 0. With ``out`` (two contiguous f32 [Bi, 3] tensors) the sum
+    is added to them in place and ``out`` returned (at a count of 0 the
+    launch leaves them as they are). ``checked=True`` skips the checks: the
+    caller vouches that the tensors are as an earlier checked call of the
+    same shapes found them, f32 (alive bool) and contiguous on one CUDA
+    device."""
+    side_i = (pos_i, vel_i, mass_i, radius_i, alive_i)
+    side_j = (pos_j, vel_j, mass_j, radius_j, alive_j)
+    if pos_i.device.type == "cpu":
+        return bounce_block_plain(*side_i, *side_j, restitution=restitution, contacts=contacts,
+                                  out=out)
+    if not checked:
+        if pos_i.device.type != "cuda":
+            raise ValueError(f"bounce_block_cuda: unsupported device {pos_i.device}")
+        side_i, side_j = _check_bounce_block(side_i, side_j, contacts, out)
+    if out is None:
+        n_i = pos_i.shape[0]
+        dpos = torch.empty((n_i, 3), dtype=torch.float32, device=pos_i.device)
+        dvel = torch.empty((n_i, 3), dtype=torch.float32, device=pos_i.device)
+    else:
+        dpos, dvel = out
+    _bounce_block_launch(side_i, side_j, restitution_clip(restitution), contacts, dpos, dvel,
+                         out is not None)
     count_launch(bounce_block_cuda)
     return dpos, dvel
 

@@ -246,7 +246,7 @@ _UNIT_ROWS = 64
 
 @functools.lru_cache(maxsize=None)
 def block_plan(n_i: int, n_j: int, rows: int, warps: int, tile: int, resident: int,
-               sms: int) -> dict:
+               sms: int, fill: bool = True) -> dict:
     """B3's cut of an n_i x n_j block: ``tiles`` i tiles of ``rows`` bodies,
     ``splits`` j splits of ``split_len`` bodies (whole j tiles of ``tile``),
     ``grid`` = ``units`` = tiles x splits blocks (unit u is i tile u % tiles
@@ -258,7 +258,9 @@ def block_plan(n_i: int, n_j: int, rows: int, warps: int, tile: int, resident: i
     bodies) with ``resident`` blocks a round, then the fewest splits: at
     16,384^2 in i tiles of 64 on 132 SMs with 264 co-resident blocks, 2
     splits (512 blocks), where one split left 4 SMs idle on B1's shape; at
-    65,536^2 one split, B1's order."""
+    65,536^2 one split, B1's order. With ``fill=False`` the least critical
+    path alone decides (the block bounce's plan, whose short blocks ran
+    faster in one wave than in two)."""
     n_i, n_j, rows, warps, tile = int(n_i), int(n_j), int(rows), int(warps), int(tile)
     resident, sms = int(resident), int(sms)
     if min(n_i, n_j, rows, warps, tile, resident, sms) < 1:
@@ -272,7 +274,7 @@ def block_plan(n_i: int, n_j: int, rows: int, warps: int, tile: int, resident: i
             continue  # a smaller count cuts the same way
         units = tiles * splits
         path = -(-units // resident) * (-(-split_tiles // warps) * tile + _UNIT_ROWS)
-        key = (units < 2 * sms, path, splits)
+        key = (fill and units < 2 * sms, path, splits)
         if best is None or key < best[0]:
             best = (key, dict(tiles=tiles, splits=splits, split_len=split_tiles * tile,
                               units=units, grid=units))

@@ -31,6 +31,8 @@ so padded rows are inert by value and by select, never by a 0/1 product.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .tree import _pairs_geometry, _probe_sorted_cells
@@ -180,10 +182,12 @@ def _wl_table(sc, pos_srt, m_srt, sort_idx, n: int, M: int, ws: int, max_chunks:
     """Everything the B7 sweep takes, from the cell-sorted bodies: the
     slot-major body table ``pbods``, the block runs ``start_blk`` and
     ``n_blk`` [k_ch, (2ws+1)^2] (the counts of the chunks that the worklist
-    budget drops set to 0), and per sorted body its ``slot`` and
-    ``keep`` flag; with the overflows (int64 device scalars): bodies past the
-    chunk budget (``cap_overflow``) and kept bodies of chunks the worklist
-    budget drops (``cell_overflow``)."""
+    budget drops set to 0) and ``off``, their exclusive offsets in the flat
+    chunk-major worklist (B7's slice cuts the runs to a span by them), all
+    three int32 and contiguous, as the kernel reads them; per sorted body
+    its ``slot`` and ``keep`` flag; with the overflows (int64 device
+    scalars): bodies past the chunk budget (``cap_overflow``) and kept
+    bodies of chunks the worklist budget drops (``cell_overflow``)."""
     c, rj = int(chunk), int(wl_rj)
     if (rj * c) % 128 != 0:
         raise ValueError(f"near='kernel' needs wl_rj*chunk % 128 == 0 for lane alignment "
@@ -201,7 +205,7 @@ def _wl_table(sc, pos_srt, m_srt, sort_idx, n: int, M: int, ws: int, max_chunks:
     g = _pairs_geometry(sc, n, M, ws, c, k_ch)
     cap_overflow = torch.sum(g["valid_b"] & (g["chunk_ord"] >= k_ch))
     start_blk, n_blk = _wl_runs(g, rj, k_ch, kpad)
-    _, drop_chunk = _wl_drop(n_blk, q)
+    off, drop_chunk = _wl_drop(n_blk, q)
     # dropped i-chunks lose their target sweep: count their kept bodies
     dropped_b = torch.cat([drop_chunk, torch.zeros((1,), dtype=torch.bool, device=dev)])[
         torch.clamp(g["chunk_ord"], max=k_ch)]
@@ -210,6 +214,9 @@ def _wl_table(sc, pos_srt, m_srt, sort_idx, n: int, M: int, ws: int, max_chunks:
     # the dropped chunks are a suffix of the non-empty ones in worklist
     # order, so zeroing their runs leaves every kept entry's offset as it was
     n_blk = torch.where(drop_chunk[:, None], 0, n_blk)
+    i32 = torch.int32
+    runs = dict(start_blk=start_blk.to(i32).contiguous(), n_blk=n_blk.to(i32).contiguous(),
+                off=off.reshape(n_blk.shape).to(i32).contiguous())
 
     # slot-major body table (dead and unkept bodies write sentinel rows)
     slot = torch.where(keep, g["chunk_ord"] * c + g["rank_c"] % c, k_ch * c)
@@ -225,8 +232,8 @@ def _wl_table(sc, pos_srt, m_srt, sort_idx, n: int, M: int, ws: int, max_chunks:
     vals = torch.where(keep[:, None], vals, sent)
     pbods = sent.expand(kpad * c, 8).clone()
     pbods[slot] = vals
-    return dict(pbods=pbods, start_blk=start_blk, n_blk=n_blk, slot=slot, keep=keep,
-                k_ch=k_ch, cap_overflow=cap_overflow, cell_overflow=cell_overflow)
+    return dict(pbods=pbods, slot=slot, keep=keep, k_ch=k_ch, cap_overflow=cap_overflow,
+                cell_overflow=cell_overflow, **runs)
 
 
 def wl_span(wl_entries: int, n_parts: int, part: int) -> tuple[int, int]:
@@ -240,15 +247,18 @@ def wl_span(wl_entries: int, n_parts: int, part: int) -> tuple[int, int]:
     return part * q_part, (part + 1) * q_part
 
 
-def clip_runs(start_blk: torch.Tensor, n_blk: torch.Tensor, lo: int, hi: int
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+def clip_runs(start_blk: torch.Tensor, n_blk: torch.Tensor, lo: int, hi: int,
+              off: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The runs ``(start_blk, n_blk)`` cut to the worklist entries [lo, hi):
-    the flat worklist lays the runs end to end in chunk-major order (the
-    exclusive cumsum of ``n_blk``), and each run keeps the part of it that
-    falls inside the span. B7 over the clipped runs sums exactly the
-    entries of the JAX module's slice of the worklist."""
+    the flat worklist lays the runs end to end in chunk-major order (their
+    exclusive offsets ``off``, or the exclusive cumsum of ``n_blk``), and
+    each run keeps the part of it that falls inside the span, its start
+    moved past the entries before ``lo``. B7 over the clipped runs sums
+    exactly the entries of the JAX module's slice of the worklist; B7's
+    slice cuts them so inside the kernel (``csrc/tree_near.cu``,
+    ``load_run``). Returns int64 runs."""
     cnt = n_blk.reshape(-1).to(i64)
-    off = torch.cumsum(cnt, 0) - cnt
+    off = torch.cumsum(cnt, 0) - cnt if off is None else off.reshape(-1).to(i64)
     before = torch.clamp(lo - off, min=0)
     after = torch.clamp(off + cnt - hi, min=0)
     kept = torch.clamp(cnt - before - after, min=0)
@@ -275,7 +285,7 @@ def _near_wl(sc, pos_srt, m_srt, sort_idx, n: int, M: int, ws: int, eps2: float,
     c = int(chunk)
     kw = dict(wl_entries=wl_entries, chunk=c, rj=wl_rj, ws=ws, eps2=eps2)
     if n_parts > 1:
-        out = cuda_tree.tree_near_part_cuda(t["pbods"], t["start_blk"], t["n_blk"],
+        out = cuda_tree.tree_near_part_cuda(t["pbods"], t["start_blk"], t["n_blk"], t["off"],
                                             span=wl_span(wl_entries, n_parts, part), **kw)
     else:
         out = cuda_tree.tree_near_cuda(t["pbods"], t["start_blk"], t["n_blk"], **kw)

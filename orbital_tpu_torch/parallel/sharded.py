@@ -25,9 +25,10 @@ every rank: P threads on one card, or one process a rank under
     positions; here the step's closing force evaluation counts them, as B2
     does on one card.
   * :func:`ring_bounce_fn`: the bounce impulses over the same ring (the
-    block bounce, ``ops.cuda_collisions.bounce_block_cuda``), gated on the
-    device-held count: a contact-free step writes zeros in every round and
-    the stepper's ``torch.where`` keeps the state bit for bit.
+    block bounce, ``ops.cuda_collisions.bounce_block_cuda``, each round
+    adding into the rank's sums in place), gated on the device-held count: a
+    contact-free step writes zeros in its first round and skips the others,
+    and the stepper's ``torch.where`` keeps the state bit for bit.
   * merge and resolve: when the psum'd count is > 0 (read on the host once
     a step, by every rank, after the step's force evaluation), every rank
     gathers the whole system, runs the single-card merge or resolve on it
@@ -158,21 +159,40 @@ def ring_bounce_fn(cfg: SimConfig, comm: Comm):
     ``integrators.resolve_bounce_fn``'s sweep), every impulse from the
     pre-collision velocities (consistent with the unsharded sweep). Each
     round is the block bounce of the visiting shard, gated on ``contacts``
-    (the psum'd count: 0 writes zeros and skips the sweep on the card)."""
+    (the psum'd count: 0 writes zeros in the first round and skips the rest
+    on the card). On a float32 shard round 0 writes the rank's (dpos, dvel)
+    and each later round adds its sum to them in place (``out=``), the
+    rounding of ``dpos + dp``; the wrapper's checks run on the first step of
+    each shard shape only, when the shard is f32 and contiguous. A float64
+    shard adds the f32 rounds in f64."""
     from ..ops.cuda_collisions import bounce_block_cuda
 
     P = comm.size
+    checked = set()  # shard shapes whose tensors the wrapper has checked
 
     def fn(pos, vel, mass, radius, alive, restitution, contacts):
-        visit = (pos, vel, mass, radius, alive)
-        dpos = dvel = None
-        for k in range(P):
-            dp, dv = bounce_block_cuda(pos, vel, mass, radius, alive, *visit,
-                                       restitution=restitution, contacts=contacts)
-            dp, dv = dp.to(pos.dtype), dv.to(vel.dtype)
-            dpos, dvel = (dp, dv) if k == 0 else (dpos + dp, dvel + dv)
-            if k < P - 1:
-                visit = comm.ppermute(visit)
+        local = (pos, vel, mass, radius, alive)
+        visit, out = local, None
+        kw = dict(restitution=restitution, contacts=contacts)
+        if pos.dtype == torch.float32:
+            key = (pos.shape[0], pos.device)
+            for k in range(P):
+                out = bounce_block_cuda(*local, *visit, out=out, checked=key in checked,
+                                        **kw)
+                if k < P - 1:
+                    visit = comm.ppermute(visit)
+            if pos.device.type == "cuda" and alive.dtype == torch.bool and all(
+                    t.dtype == torch.float32 for t in local[:4]) and all(
+                    t.is_contiguous() for t in local):
+                checked.add(key)
+            dpos, dvel = out
+        else:
+            for k in range(P):
+                dp, dv = bounce_block_cuda(*local, *visit, **kw)
+                dp, dv = dp.to(pos.dtype), dv.to(vel.dtype)
+                dpos, dvel = (dp, dv) if k == 0 else (dpos + dp, dvel + dv)
+                if k < P - 1:
+                    visit = comm.ppermute(visit)
         keep = alive[:, None].to(dpos.dtype)
         return dpos * keep, dvel * keep
 

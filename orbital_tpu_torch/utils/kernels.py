@@ -33,7 +33,7 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "load", "check",
-           "build_log", "build_seconds", "refuse_grad", "count_launch"]
+           "build_log", "build_seconds", "refuse_grad", "count_launch", "stream_handle"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -122,6 +122,20 @@ def count_launch(fn) -> None:
     threads of a one-card mesh are all counted."""
     with _count_lock:
         fn.launches += 1
+
+
+def stream_handle(device) -> int:
+    """PyTorch's current CUDA stream on ``device`` (a CUDA ``torch.device``
+    with its index) as the integer a C entry point takes, from the raw
+    getter where PyTorch has it: ``torch.cuda.current_stream(device)``
+    builds a Stream object a call, host time that a launch whose kernel
+    returns at entry (the ring's gated rounds) consists of."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return raw(device.index)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -256,11 +256,38 @@ def test_block_bounce_plain_matches_jax():
     assert torch.equal(g[0], dp) and torch.equal(g[1], dv)
 
 
+def _covers_every_pair_once(p, n_i, n_j, rows, warps):
+    """Walk a launch plan of B3's form as its kernels walk it (block u takes
+    i tile u % tiles against j split u // tiles; warp w of a block sweeps
+    the split's j tiles w, w + warps, ..., cut at the split's end): every (i
+    tile, j) pair once, no empty split, whole j tiles a split."""
+    tiles, splits, split_len = p["tiles"], p["splits"], p["split_len"]
+    assert tiles == -(-n_i // rows) and p["units"] == p["grid"] == tiles * splits
+    assert split_len % 128 == 0 and (splits - 1) * split_len < n_j
+    assert n_j <= splits * split_len
+    seen = set()
+    cover = np.zeros(n_j, np.int64)  # every i tile meets the same splits
+    for u in range(p["grid"]):
+        t, s_ = u % tiles, u // tiles
+        assert (t, s_) not in seen
+        seen.add((t, s_))
+        if t:
+            continue
+        end = min((s_ + 1) * split_len, n_j)
+        swept = 0
+        for w in range(warps):
+            for j0 in range(s_ * split_len + 128 * w, end, 128 * warps):
+                cover[j0:min(j0 + 128, end)] += 1
+                swept += min(j0 + 128, end) - j0
+        assert swept == end - s_ * split_len > 0
+    assert len(seen) == tiles * splits and bool((cover == 1).all())
+
+
 @pytest.mark.parametrize("n_i", [8192, 16384, 65536])
 def test_block_plan_covers_every_pair_once(n_i):
     """B3's launch plan (``cuda_forces.block_plan``), walked as
-    csrc/nbody_forces.cu's block_forces_kernel walks it (block u takes i tile
-    u % tiles against j split u // tiles; warp w of a block sweeps the
+    csrc/nbody_forces.cu's block_forces_kernel walks it (block u takes i
+    tile u % tiles against j split u // tiles; warp w of a block sweeps the
     split's j tiles w, w + warps, ..., cut at the split's end): every (i
     tile, j) pair once, no empty split, whole j tiles a split, and at least
     2 x 132 blocks where n_i <= 16,384, the ring's shards at 8 and 4 ranks
@@ -272,32 +299,101 @@ def test_block_plan_covers_every_pair_once(n_i):
         for rows, warps in ((64, 16), (128, 8), (128, 16)):
             for resident in (132, 264, 528):
                 p = cuda_forces.block_plan(n_i, n_j, rows, warps, 128, resident, sms)
-                tiles, splits, split_len = p["tiles"], p["splits"], p["split_len"]
-                assert tiles == -(-n_i // rows) and p["units"] == p["grid"] == tiles * splits
-                assert split_len % 128 == 0 and (splits - 1) * split_len < n_j
-                assert n_j <= splits * split_len
                 if n_i <= 16384:
                     assert p["grid"] >= 2 * sms, (n_i, n_j, rows, warps, resident, p)
                 if n_i == n_j == 65536:
-                    assert splits == 1
-                seen = set()
-                cover = np.zeros(n_j, np.int64)  # every i tile meets the same splits
-                for u in range(p["grid"]):
-                    t, s_ = u % tiles, u // tiles
-                    assert (t, s_) not in seen
-                    seen.add((t, s_))
-                    if t:
-                        continue
-                    end = min((s_ + 1) * split_len, n_j)
-                    swept = 0
-                    for w in range(warps):
-                        for j0 in range(s_ * split_len + 128 * w, end, 128 * warps):
-                            cover[j0:min(j0 + 128, end)] += 1
-                            swept += min(j0 + 128, end) - j0
-                    assert swept == end - s_ * split_len > 0
-                assert len(seen) == tiles * splits and bool((cover == 1).all())
+                    assert p["splits"] == 1
+                _covers_every_pair_once(p, n_i, n_j, rows, warps)
     with pytest.raises(ValueError, match="must be >= 1"):
         cuda_forces.block_plan(n_i, 0, 64, 16, 128, 264, sms)
+
+
+@pytest.mark.parametrize("n_i, n_j", [(16384, 16384), (8192, 8192), (65536, 65536),
+                                      (2000, 3000)])
+def test_bounce_plan_covers_every_pair_once(n_i, n_j):
+    """The block bounce's launch plan (``cuda_collisions.bounce_plan``),
+    walked as csrc/collisions.cu's bounce_block_kernel walks it: every (i
+    tile, j) pair once at the ring's 16,384^2 and 8,192^2 (4 and 8 ranks of
+    the 65,536-body row), at 65,536^2 and on the ragged pair of phase 51
+    (2,000 x 3,000), at the kernel's shape (4 i bodies a thread, 8 warps)
+    and two others, two and four blocks an SM of 132 SMs: at 16,384^2 and
+    8,192^2 one wave with a block on every SM, at 65,536^2 one split (B6's
+    order); the plan pinned to one split (the check against B6) too."""
+    sms = 132
+    for k, q in ((4, 8), (4, 4), (2, 8)):
+        for per_sm in (2, 4):
+            p = cuda_collisions.bounce_plan(n_i, n_j, k, q, 128, per_sm * sms, sms)
+            if n_i in (8192, 16384):
+                assert sms <= p["grid"] <= per_sm * sms, (k, q, per_sm, p)
+            if n_i == 65536:
+                assert p["splits"] == 1
+            _covers_every_pair_once(p, n_i, n_j, 32 * k, q)
+            one = cuda_collisions.bounce_plan(n_i, n_j, k, q, 128, per_sm * sms, sms, 1)
+            assert one["splits"] == 1 and one["grid"] == -(-n_i // (32 * k))
+            _covers_every_pair_once(one, n_i, n_j, 32 * k, q)
+    p = cuda_collisions.bounce_plan(n_i, n_j, 4, 8, 128, 264, sms)
+    assert p["splits"] == {16384: 2, 8192: 4, 65536: 1}.get(n_i, p["splits"])
+
+
+def _ring_bounce_today(comm, pos, vel, mass, radius, alive, restitution, contacts):
+    """The ring bounce as it summed its rounds before the accumulate form:
+    each round a fresh block (the plain version), cast and added."""
+    visit, dpos, dvel = (pos, vel, mass, radius, alive), None, None
+    for k in range(comm.size):
+        dp, dv = cuda_collisions.bounce_block_plain(pos, vel, mass, radius, alive, *visit,
+                                                    restitution=restitution,
+                                                    contacts=contacts)
+        dp, dv = dp.to(pos.dtype), dv.to(vel.dtype)
+        dpos, dvel = (dp, dv) if k == 0 else (dpos + dp, dvel + dv)
+        if k < comm.size - 1:
+            visit = comm.ppermute(visit)
+    keep = alive[:, None].to(dpos.dtype)
+    return dpos * keep, dvel * keep
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_ring_bounce_accumulates_bit_equal_and_matches_jax(p):
+    """The f32 ring bounce (``ring_bounce_fn``: round 0 writes, each later
+    round adds its block into the rank's sums in place, ``out=``; here the
+    plain version's form), round by round on the one-card mesh's threads:
+    bit-equal to the rounds summed as before (a fresh block a round, then
+    ``dpos + dp``), zeros at a count of 0 and the ungated sums at a count >
+    0, and within 2e-6 of max |d| of JAX's ``ring_bounce_fn`` under
+    ``shard_map`` (f32 sums of the same impulses in another form)."""
+    rng = np.random.default_rng(11)
+    n = 96 * 4
+    pos, vel = rng.uniform(0, 1, (n, 3)), rng.normal(size=(n, 3))
+    mass, radius = rng.uniform(0.5, 1.5, n), rng.uniform(0.02, 0.06, n)
+    alive = np.ones(n, bool)
+    alive[::13] = False
+    f32 = [np.asarray(x, np.float32) for x in (pos, vel, mass, radius)] + [alive]
+    cfg = tot.SimConfig(dt=1e-3, restitution=0.7, collisions="bounce")
+    mesh = _mesh(p)
+    shards = [list(torch.from_numpy(x).chunk(p)) for x in f32]
+    fns = [tsh.ring_bounce_fn(cfg, c) for c in mesh.comms]
+    for count in (None, 3, 0):
+        contacts = None if count is None else torch.tensor(count, dtype=torch.int32)
+        new = mesh.run(lambda comm, fn, *a: fn(*a, 0.7, contacts), fns, *shards)
+        old = mesh.run(lambda comm, *a: _ring_bounce_today(comm, *a, 0.7, contacts),
+                       *shards)
+        for (dp, dv), (rp, rv) in zip(new, old):
+            assert dp.dtype == torch.float32 and torch.equal(dp, rp) and torch.equal(dv, rv)
+        got = [torch.cat([o[i] for o in new]).numpy() for i in (0, 1)]
+        if count is None:
+            ungated = got
+        elif count:
+            assert all(np.array_equal(g, u) for g, u in zip(got, ungated))
+        else:
+            assert not any(g.any() for g in got)
+    jcfg = jot.SimConfig(dt=1e-3, restitution=0.7, collisions="bounce", shard_axis="body")
+    jmesh = j_make_mesh(shape=(p,), devices=jax.devices()[:p])
+    body = (JP("body", None), JP("body", None), JP("body"), JP("body"), JP("body"))
+    jfn = jax.jit(jax.shard_map(jsh.ring_bounce_fn(jcfg, p), mesh=jmesh, in_specs=body,
+                                out_specs=(JP("body", None), JP("body", None))))
+    ref = [np.asarray(x) for x in jfn(*f32)]
+    assert np.abs(ref[1]).max() > 0.1 and (np.abs(ref[1]).sum(1) > 0).sum() >= 20
+    for g, r in zip(ungated, ref):
+        assert np.abs(g - r).max() <= 2e-6 * np.abs(r).max()
 
 
 @pytest.mark.parametrize("offsets", [(0, 0), (96, 0), (0, 96), (192, 288)])
@@ -635,8 +731,10 @@ def test_ring_rounds_launch_the_block_kernels(monkeypatch):
     """On the B3 route each rank's ring calls B3 (collision-free
     evaluations) or B3 detect (the closing evaluation with collisions) once
     a round and the block bounce once a round: P^2 calls an evaluation over
-    the mesh, with the visiting shard's global offset, and nothing else."""
-    calls = {"B3": 0, "B3D": [], "BB": 0}
+    the mesh, with the visiting shard's global offset, and nothing else; the
+    bounce's first round of each rank writes its sums and the P - 1 others
+    add into them (``out=``)."""
+    calls = {"B3": 0, "B3D": [], "BB": []}
 
     def b3(*a, **k):
         calls["B3"] += 1
@@ -647,9 +745,9 @@ def test_ring_rounds_launch_the_block_kernels(monkeypatch):
         return cuda_forces.block_acc_detect_plain(pos_i, r_i, a_i, i_off, pos_j, m_j, r_j, a_j,
                                                   j_off, **k)
 
-    def bb(*a, **k):
-        calls["BB"] += 1
-        return cuda_collisions.bounce_block_plain(*a, **k)
+    def bb(*a, out=None, checked=False, **k):
+        calls["BB"].append(out is not None)
+        return cuda_collisions.bounce_block_plain(*a, out=out, **k)
 
     for name, fn in (("block_acc_cuda", b3), ("block_acc_detect_cuda", b3d)):
         monkeypatch.setattr(cuda_forces, name, fn)
@@ -661,11 +759,12 @@ def test_ring_rounds_launch_the_block_kernels(monkeypatch):
     st = tot.init_forces(st, cfg)
     mesh = _mesh(4)
     out = tot.make_sharded_step(cfg, mesh, st)(tot.shard_state(mesh, st))
-    assert calls["B3"] == 0 and calls["BB"] == 16 and len(calls["B3D"]) == 16
+    assert calls["B3"] == 0 and len(calls["BB"]) == 16 and len(calls["B3D"]) == 16
+    assert calls["BB"].count(False) == 4  # one write a rank, in the baton's order
     assert sorted(calls["B3D"]) == sorted((128 * i, 128 * j) for i in range(4)
                                           for j in range(4))
     tot.make_sharded_step(cfg.replace(collisions="none"), mesh, st)(out)
-    assert calls["B3"] == 16 and calls["BB"] == 16
+    assert calls["B3"] == 16 and len(calls["BB"]) == 16
 
 
 # --- refusals ----------------------------------------------------------------

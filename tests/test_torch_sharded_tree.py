@@ -38,6 +38,7 @@ import orbital_tpu as jot
 import orbital_tpu_torch as tot
 from orbital_tpu.engine import rollout as jro
 from orbital_tpu.ops import tree as jt
+from orbital_tpu.ops import tree_near_wl as jw
 from orbital_tpu.parallel.mesh import make_mesh as j_make_mesh
 from orbital_tpu_torch.engine import rollout as tro
 from orbital_tpu_torch.engine.state import state_from_arrays
@@ -195,7 +196,7 @@ def test_b7_slices_cover_the_worklist():
                          for sp in spans)
             assert torch.equal(counts, tab["n_blk"].to(torch.int64))
             rows = sum(cuda_tree.tree_near_part_cuda(tab["pbods"], tab["start_blk"],
-                                                     tab["n_blk"], span=sp, **kw)
+                                                     tab["n_blk"], tab["off"], span=sp, **kw)
                        for sp in spans)
             scale = float(whole.abs().max())
             assert float((rows - whole).abs().max()) <= 1e-6 * scale
@@ -203,8 +204,69 @@ def test_b7_slices_cover_the_worklist():
     t = torch.zeros((4 * CHUNK * RJ, 8), device="meta")
     runs = torch.zeros((1, 9), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        cuda_tree.tree_near_part_cuda(t, runs, runs, span=(0, 8), wl_entries=8, chunk=CHUNK,
-                                      rj=RJ, ws=1, eps2=EPS2)
+        cuda_tree.tree_near_part_cuda(t, runs, runs, runs, span=(0, 8), wl_entries=8,
+                                      chunk=CHUNK, rj=RJ, ws=1, eps2=EPS2)
+
+
+@pytest.mark.parametrize("parts", [2, 4, 8])
+def test_b7_slice_from_offsets_matches_clip_and_jax(parts):
+    """B7's slice cut from the runs' offsets (``_wl_table``'s ``off``, the
+    kernel's in-kernel clip; its plain version ``tree_near_part_plain``)
+    for every rank's span of ``wl_span``: the runs equal ``clip_runs``'
+    from the cumsum, the rows equal ``clip_runs`` plus ``tree_near_plain``
+    bit for bit, and they hold to JAX's ``q_part`` slice of its worklist
+    (``_wl_expand`` cut to the span, ``_entry_math`` an entry, summed by slot
+    in f64) within 1e-6 of max |row|; at 8 ranks the last rank's span lies
+    in the padded tail and its slice is empty and 0. The offsets are int32
+    and kept entries keep the offsets the whole worklist gives them."""
+    pos, mass, alive = _blob()
+    args = [torch.from_numpy(x) for x in (pos, mass, alive)]
+    M = 2 ** LEVELS
+    box = tuple(torch.as_tensor(b) for b in BOX)
+    k_ch, q = tw.tree_wl_budgets(pos, alive, levels=LEVELS, chunk=CHUNK, rj=RJ, box=BOX)
+    pos32, _, _, m_eff, _, _, _, cc = tt._bin(*args, M, box, torch.float32)
+    sc, sort_idx = tt._sort_cells(cc, args[2], M)
+    tab = tw._wl_table(sc, pos32[sort_idx], m_eff[sort_idx], sort_idx, len(pos), M, 1, k_ch,
+                       CHUNK, q, RJ)
+    start, n_blk, off = tab["start_blk"], tab["n_blk"], tab["off"]
+    assert all(t.dtype == torch.int32 and t.is_contiguous() for t in (start, n_blk, off))
+    cnt = n_blk.reshape(-1).long()
+    assert torch.equal(off.reshape(-1).long()[cnt > 0], (torch.cumsum(cnt, 0) - cnt)[cnt > 0])
+    kw = dict(wl_entries=q, chunk=CHUNK, rj=RJ, ws=1, eps2=EPS2)
+    spans = [tw.wl_span(q, parts, r) for r in range(parts)]
+    qp = spans[-1][1]
+    wl_i, wl_jb, _ = jax.jit(jw._wl_expand, static_argnums=(2, 3, 4))(
+        jnp.asarray(start.numpy()), jnp.asarray(n_blk.numpy()), k_ch, q, qp)
+    wl_i, wl_jb = np.asarray(wl_i), np.asarray(wl_jb)
+    rows_np, W = tab["pbods"].numpy(), RJ * CHUNK
+    entry = jax.jit(jax.vmap(lambda i, j: jw._entry_math(i, j, 1, EPS2)))
+    empty = []
+    for lo, hi in spans:
+        s_off, n_off = tw.clip_runs(start, n_blk, lo, hi, off=off)
+        s_ref, n_ref = tw.clip_runs(start, n_blk, lo, hi)
+        assert torch.equal(s_off, s_ref) and torch.equal(n_off, n_ref)
+        got = cuda_tree.tree_near_part_cuda(tab["pbods"], start, n_blk, off, span=(lo, hi),
+                                            **kw)
+        assert torch.equal(got, cuda_tree.tree_near_plain(tab["pbods"], s_ref, n_ref, **kw))
+        # JAX's slice of its worklist
+        ii, jj = wl_i[lo:hi], wl_jb[lo:hi]
+        live = ii < k_ch
+        ref = np.zeros(((k_ch + 1) * CHUNK, 4))
+        if live.any():
+            ib = rows_np[ii[live, None] * CHUNK + np.arange(CHUNK)]
+            jb = rows_np[jj[live, None] * W + np.arange(W)].transpose(0, 2, 1)
+            res = np.asarray(entry(jnp.asarray(ib), jnp.asarray(jb)))[..., :4]
+            np.add.at(ref, (ii[live, None] * CHUNK + np.arange(CHUNK)).reshape(-1),
+                      res.reshape(-1, 4).astype(np.float64))
+        assert int(n_off.sum()) == int(live.sum())
+        ref = ref[:k_ch * CHUNK]
+        scale = max(float(np.abs(ref).max()), 1e-30)
+        assert float(np.abs(got.numpy() - ref).max()) <= 1e-6 * scale
+        empty.append(int(n_off.sum()) == 0)
+    if parts == 8:  # the budgets' headroom lands on the last ranks
+        assert empty[-1] and not any(empty[:2])
+        assert not cuda_tree.tree_near_part_cuda(tab["pbods"], start, n_blk, off,
+                                                 span=spans[-1], **kw).any()
 
 
 def _plummer(n=128, seed=3):
