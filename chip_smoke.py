@@ -36,7 +36,14 @@ the ring makes them, added in place at a count > 0 and at 0, timed; B7's
 slice of each rank's span of bench_tree's worklist, bit-equal, rank 0's
 timed; the bounce ring's step at the bench row in turns with the other
 build's block bounce in the same ring), and requires B6, B7 and the
-one-split block bounce bit-equal to the other build. A source whose C signature predates its redesign
+one-split block bounce bit-equal to the other build. Where DIR holds the
+whole port package (``git archive <commit> orbital_tpu_torch``), P3M's view
+(at the uniform row and at shard 0 of RING_P and RING_P8 ranks) and the
+near sweep's rows of each of RING_P ranks run through DIR's wrappers and
+kernels, loaded beside this tree's (``parent_package``), held equal (the
+rows bit-equal) and timed in turns with this tree's: events, host time a
+call, device time by graph replay; else through this tree's wrappers on
+DIR's kernels. A source whose C signature predates its redesign
 (the near sweep's, B4's, the row subset's, the P3M short range's first and
 table forms, B3's first block form, the ensemble kernel's first
 version, the block bounce's and B7's first forms) runs through
@@ -362,8 +369,9 @@ Phases, one line of output each; any failure exits nonzero:
      (``p3m_short_pair_cuda``), shard 0's rounds summed in place against the
      single-table sum, a round timed (events, device time, host time)
      beside the diagonal one, the round building both views, its plain
-     version and its bound (the pairs the round needs), and the bytes a
-     shift of the ring carries;
+     version and its bound (the pairs the round needs), the bytes a shift
+     of the ring carries, and shard 0's view (events, host time a call,
+     device time by graph replay);
  62. P3M's ring over RING_P one-card ranks: the evaluation against the
      single-card ``p3m_acc_potential`` (P3M_RING_RTOL, RING_U_RTOL),
      RING_P^2 two-table and RING_P view launches an evaluation (each rank
@@ -384,8 +392,10 @@ Phases, one line of output each; any failure exits nonzero:
      levels 8, TREE_STAGED_STEPS steps, overflow 0, against one card's;
  64. the sharded RESPA on the RESPA row: the near sweep of each rank's
      chunks (``near_acc_slots_rows_cuda``) against its plain version, the
-     ranks' rows bit-equal to the whole sweep, rank 0's timed beside its
-     bound; ``make_sharded_respa_rollout`` over RING_P ranks,
+     ranks' rows bit-equal to the whole sweep, rank 0's timed in turns with
+     the whole sweep (events; host time a call and device time by graph
+     replay of each, and of the last rank's, which holds no live chunk)
+     beside its bound; ``make_sharded_respa_rollout`` over RING_P ranks,
      RESPA_RING_WINDOWS windows within STATE_ATOL of one card's with the
      counters 0, then RESPA_RING_DRIFT_WINDOWS more within DRIFT_BUDGET; a
      substep in turns with one card;
@@ -416,6 +426,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 import warnings
 
 import numpy as np
@@ -1461,6 +1472,49 @@ def device_times(fn) -> dict:
     return out
 
 
+def graph_ms(fn, iters: int = 20, repeats: int = 3):
+    """Per-call device milliseconds of ``fn``: ``iters`` calls captured once
+    as a CUDA graph and replayed between CUDA events, so that no host work
+    is timed (the graph's launch gaps are). One figure per repeat."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / iters)
+    return out
+
+
+def launch_floor_ms() -> float:
+    """The device time of the least kernel a graph launches (a fill of one
+    float) on this card: the floor of any launch, beside a kernel's bound."""
+    import torch
+
+    x = torch.empty((1,), device="cuda")
+    return summary(graph_ms(lambda: x.fill_(0.0), 50))["median"]
+
+
+def call_times(fn, iters: int = 20) -> dict:
+    """A wrapper call's milliseconds by CUDA events around it (the longer of
+    its host and device time), its host time to queue it, and its device
+    time by graph replay: each the median and spread of 3."""
+    return {"events": summary(time_ms(fn, iters)), "host": summary(host_ms(fn, iters)),
+            "device": summary(graph_ms(fn, iters))}
+
+
 def reset_launches() -> None:
     from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
                                        cuda_forces_sym, cuda_jerk, cuda_neighbor, cuda_p3m,
@@ -2071,6 +2125,30 @@ def on(mod, lib, fn):
         mod._lib = saved[0]
         for k, v in saved[1].items():
             setattr(mod, k, v)
+
+
+def parent_package(parent: str):
+    """Another commit's whole port package under ``parent``
+    (``parent/orbital_tpu_torch``), loaded under the name ``parent_ot`` beside
+    this tree's, with its wrappers and its own build directory
+    (``parent/build/kernels``); None when ``parent`` holds its kernel sources
+    only."""
+    import importlib
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(parent) / "orbital_tpu_torch"
+    if not (root / "__init__.py").exists():
+        return None
+    if "parent_ot" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "parent_ot", root / "__init__.py", submodule_search_locations=[str(root)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["parent_ot"] = mod
+        spec.loader.exec_module(mod)
+    return types.SimpleNamespace(ot=sys.modules["parent_ot"], **{
+        k: importlib.import_module(f"parent_ot.ops.{k}") for k in ("cuda_p3m", "cuda_neighbor",
+                                                                  "p3m", "tree")})
 
 
 def compile_libraries(jobs) -> dict:
@@ -4184,10 +4262,12 @@ class Smoke:
             self._plummer = (pos, vel, mass, budgets)
         return self._plummer
 
-    def tree_config(self, budgets, **kw):
+    def tree_config(self, budgets, pkg=None, **kw):
+        """Phase 23's tree config, as ``pkg`` (this tree's package by
+        default) makes it."""
         import orbital_tpu_torch as ot
 
-        return ot.SimConfig(dt=TREE_DT, G=1.0, eps2=TREE_EPS2, force_impl="tree",
+        return (pkg or ot).SimConfig(dt=TREE_DT, G=1.0, eps2=TREE_EPS2, force_impl="tree",
                             tree_levels=TREE_LEVELS, tree_near="kernel", tree_chunk=TREE_CHUNK,
                             tree_wl_rj=TREE_RJ, tree_max_chunks=budgets[0],
                             tree_wl_entries=budgets[1], **kw)
@@ -5537,6 +5617,7 @@ class Smoke:
                                          f"(gated {gate}): {int((ref != out).sum())} rows")
                 cases += 1
             worst[k], equal[k] = 0.0, True
+        wrappers = self.parent_wrappers(parent)
         fused_t = self.fused_calls(timing=True)
         calls = {k: v for k, v in self.exact_calls(scene, EPS2, pe=False).items()
                  if k != "B6G"}
@@ -5626,6 +5707,7 @@ class Smoke:
                      f"{par['median'] / this['median']:.2f}x, faster outside both spreads: "
                      f"{'yes' if max(this['runs']) < min(par['runs']) else 'no'}")
         lines.append(self.ensemble_parent(old[fused_ensemble], sass(jobs["fused_ensemble"][1])))
+        lines.append(wrappers)
         lines.append(f"the bounce ring's step at R={R_BENCH:g} over {RING_P} ranks in turns "
                      f"(events; host): " + ", ".join(
                          f"{k} {ring_t[k]['median']:.3f} ms (spread {ring_t[k]['spread']:.3f}; "
@@ -5657,6 +5739,178 @@ class Smoke:
                 f"{N_TREE_BIG}; NEAR the table sweep at N={N_MAIN}; B4 200 steps at {N_FUSED}, "
                 f"ds32 and B4F f32, B4L and B4LF 20 steps at {N_FUSED_BIG}): "
                 + "; ".join(lines))
+
+    def parent_wrappers(self, parent: str) -> str:
+        """P3M's view and the near sweep's rows, this tree's wrappers and
+        kernels against the other commit's whole package (``parent_package``):
+        the view at the uniform row and at shard 0 of RING_P and RING_P8
+        ranks equal to the other build's, and every rank's rows of the RESPA
+        row's geometry bit-equal to it; each timed in turns (CUDA events,
+        6 runs) with its host time a call and device time by graph replay.
+        Without the other package, the view and the rows through this tree's
+        wrappers on the other build's library."""
+        from orbital_tpu_torch.ops import cuda_neighbor as cn
+        from orbital_tpu_torch.ops import cuda_p3m
+
+        torch = self.torch
+        other = parent_package(parent)
+        tab, kw_p = self.p3m_bench_case()
+        views = {"uniform": (tab, kw_p["gc"], kw_p["n"], None)}
+        for ranks in (RING_P, RING_P8):
+            c = self.p3m_ring_case(ranks)
+            views[f"shard {c['kw']['n']}"] = (c["tabs"][0], c["kw"]["gc"], c["kw"]["n"],
+                                              c["gids"][0])
+        geom, ch = self.respa_rows_case()
+        kw_n = dict(r1=0.5 * RC_RESPA, rc=RC_RESPA, G=1.0, eps2=EPS2, chunk=32, rj=4)
+        kd = geom["jbl"].shape[0] // RING_P
+        if other is not None:
+            old_view, old_rows = (other.cuda_p3m.p3m_short_view_cuda,
+                                  other.cuda_neighbor.near_acc_slots_rows_cuda)
+            how = "the other commit's package (its wrappers and kernels)"
+        else:
+            from orbital_tpu_torch.utils import kernels
+
+            # check_parent has built both there
+            jobs = {name: kernels.BUILD_DIR / "parent" / f"lib{name}.so"
+                    for name in ("p3m_short", "neighbor")}
+            libs = {cuda_p3m: bind_like(jobs["p3m_short"], cuda_p3m._load(),
+                                        LIB_FUNCS["p3m_short"]),
+                    cn: bind_like(jobs["neighbor"], cn._load(), LIB_FUNCS["neighbor"])}
+
+            def old_view(*a):
+                return on(cuda_p3m, libs[cuda_p3m], lambda: cuda_p3m.p3m_short_view_cuda(*a))
+
+            def old_rows(*a, **k):
+                return on(cn, libs[cn], lambda: cn.near_acc_slots_rows_cuda(*a, **k))
+            how = "the other build's kernels through this tree's wrappers"
+        fns, lines = {}, []
+        for key, (t_, gc, n, gid) in views.items():
+            got, ref = cuda_p3m.p3m_short_view_cuda(t_, gc, n, gid), old_view(t_, gc, n, gid)
+            kept, length = int(t_["count"].sum()), int(ref["nslices"][0])
+            for k in ref:
+                x, y = got[k], ref[k]
+                if k in ("rows", "body", "gid"):
+                    x, y = x[:kept], y[:kept]
+                elif k == "slices":
+                    x, y = x[:length], y[:length]
+                if not torch.equal(x, y):
+                    raise AssertionError(f"P3M view {key}: {k} differs from the other build's")
+            fns[f"view {key}"] = (lambda a: lambda: cuda_p3m.p3m_short_view_cuda(*a))(
+                (t_, gc, n, gid))
+            fns[f"view {key} parent"] = (lambda a: lambda: old_view(*a))((t_, gc, n, gid))
+        # each build as the sharded stepper calls it: the rank's rows of the
+        # table
+        jbl = geom["jbl"]
+        for r in range(RING_P):
+            got = cn.near_acc_slots_rows_cuda(*ch, jbl[r * kd:(r + 1) * kd], i0=r * kd, **kw_n)
+            ref = old_rows(*ch, jbl[r * kd:(r + 1) * kd], i0=r * kd, **kw_n)
+            if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+                raise AssertionError(f"near sweep rows of rank {r}: not bit-equal to the other "
+                                     f"build's")
+            fns[f"rows {r}"] = (lambda i: lambda: cn.near_acc_slots_rows_cuda(
+                *ch, jbl[i:i + kd], i0=i, **kw_n))(r * kd)
+            fns[f"rows {r} parent"] = (lambda i: lambda: old_rows(
+                *ch, jbl[i:i + kd], i0=i, **kw_n))(r * kd)
+        ev = {k: summary(v) for k, v in alternate_ms(fns, 20, repeats=6).items()}
+        host = {k: summary(host_ms(f, 20)) for k, f in fns.items()}
+        dev = {k: summary(graph_ms(f, 20)) for k, f in fns.items()}
+        # the P3M evaluation at the uniform row, each package's whole (its
+        # view once inside), in turns: host-bound, it moves by the host's
+        # saving
+        evals = {}
+        if other is not None:
+            from orbital_tpu_torch.ops.p3m import p3m_acc_potential
+
+            upos, _, umass = self.p3m_uniform()
+            kw_e = dict(G_grav=1.0, eps2=EPS2, grid=P3M_GRID, capacity=tab["table"].shape[1],
+                        box=self.box_t(P3M_BOX), with_potential=False)
+            ut, um = self.t(upos), self.t(umass)
+            evals = {k: summary(v) for k, v in alternate_ms({
+                "p3m eval": lambda: p3m_acc_potential(ut, um, None, **kw_e),
+                "p3m eval parent": lambda: other.p3m.p3m_acc_potential(ut, um, None, **kw_e)},
+                10, repeats=6).items()}
+            evals.update(self.tree_parent(other))
+        print("perf_parent_wrappers " + json.dumps({"events": ev, "host": host,
+                                                    "device": dev, "p3m_eval": evals}),
+              file=sys.stderr)
+        for k in fns:
+            if k.endswith("parent"):
+                continue
+            this, par = ev[k], ev[f"{k} parent"]
+            lines.append(
+                f"{k} {this['median']:.4f} ms (spread {this['spread']:.4f}) vs parent "
+                f"{par['median']:.4f} ({par['spread']:.4f}), {par['median'] / this['median']:.2f}x"
+                f"; host {host[k]['median']:.4f} vs {host[f'{k} parent']['median']:.4f}, device "
+                f"{dev[k]['median']:.4f} vs {dev[f'{k} parent']['median']:.4f}")
+        for k, what in (("p3m eval", "the P3M evaluation at the uniform row"),
+                        ("tree step", f"the tree's KDK step at N={N_MAIN} (phase 24's)"),
+                        ("tree eval big", f"the tree's evaluation at N={N_TREE_BIG}")):
+            if k in evals:
+                this, par = evals[k], evals[f"{k} parent"]
+                lines.append(f"{what} {this['median']:.3f} ms (spread {this['spread']:.3f}) vs "
+                             f"parent {par['median']:.3f} ({par['spread']:.3f})")
+        return (f"P3M's view (equal) and the near sweep's rows (bit-equal) against {how}, in "
+                f"turns: " + "; ".join(lines))
+
+    def tree_parent(self, other) -> dict:
+        """Phase 24's tree step at N_MAIN (f32, 5 steps a run) and its
+        evaluation at N_TREE_BIG, each package's whole, in turns (6 runs
+        each): the far phase's change of units is the f64 route's alone, so
+        these run the same far phase in both."""
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops.tree import tree_acc_potential
+        from orbital_tpu_torch.ops.tree_near_wl import tree_wl_budgets
+
+        torch = self.torch
+        pos, vel, mass, budgets = self.plummer()
+        states = {}
+        for name, pkg in (("tree step", ot), ("tree step parent", other.ot)):
+            cfg = self.tree_config(budgets, pkg=pkg, track_potential=False)
+            st = pkg.init_forces(pkg.make_state(pos, vel, mass, precision="f32",
+                                                device=self.dev), cfg)
+            states[name] = (lambda p, s, c: lambda: p.rollout(s, c, 5))(pkg, st, cfg)
+        out = {k: summary([x / 5 for x in v])
+               for k, v in alternate_ms(states, 1, repeats=6).items()}
+        pos_b, _, mass_b = make_plummer(N_TREE_BIG, self.seed)
+        b_big = tree_wl_budgets(pos_b, levels=TREE_BIG_LEVELS, ws=1, chunk=TREE_CHUNK,
+                                rj=TREE_RJ)
+        pb = torch.tensor(pos_b, dtype=torch.float32, device=self.dev)
+        mb = torch.tensor(mass_b, dtype=torch.float32, device=self.dev)
+        ab = torch.ones(N_TREE_BIG, dtype=torch.bool, device=self.dev)
+        kw = dict(G_grav=1.0, eps2=TREE_EPS2, levels=TREE_BIG_LEVELS, ws=1, near="kernel",
+                  max_chunks=b_big[0], wl_entries=b_big[1], chunk=TREE_CHUNK, wl_rj=TREE_RJ,
+                  with_potential=False)
+        a, _, ov = tree_acc_potential(pb, mb, ab, **kw)
+        a_o, _, ov_o = other.tree.tree_acc_potential(pb, mb, ab, **kw)
+        # the far phase's deposit adds by atomics: equal up to their order
+        err = float((a - a_o).abs().max() / a_o.abs().max())
+        if int(ov) or int(ov_o) or not err <= FORCE_RTOL:
+            raise AssertionError(f"tree N={N_TREE_BIG}: {err:.3e} of max |a| from the other "
+                                 f"package's (overflow {int(ov)}, {int(ov_o)})")
+        out.update({k: summary(v) for k, v in alternate_ms({
+            "tree eval big": lambda: tree_acc_potential(pb, mb, ab, **kw),
+            "tree eval big parent": lambda: other.tree.tree_acc_potential(pb, mb, ab, **kw)},
+            1, repeats=6).items()})
+        return out
+
+    def respa_rows_case(self):
+        """The RESPA row's near geometry on the cluster after init_forces, as
+        phase 64 sweeps it: (geom, the four slot channels)."""
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops import neighbor as nb
+
+        pos, vel, mass, _ = self.cluster()
+        cfg = self.respa_config()
+        state = ot.init_forces(ot.make_state(pos, vel, mass, precision="ds32",
+                                             device=self.dev), cfg)
+        m, k_ch, w_blk, _ = self.respa_budgets()
+        geom = nb.neighbor_geometry(state.pos, state.alive, cell=CELL_RESPA, m_grid=m,
+                                    chunk=32, max_chunks=k_ch, w_blk=w_blk, rj=4)
+        n_slots = (k_ch + 4) * 32
+        ch = [nb.pack_slots(geom["slot"], state.pos[:, k].contiguous(), n_slots,
+                            nb.SENTINEL_POS) for k in range(3)]
+        ch.append(nb.pack_slots(geom["slot"], state.mass, n_slots, 0.0))
+        return geom, ch
 
     def ensemble_parent(self, old_lib, parent_sass: str) -> str:
         """``--parent``'s ensemble kernel: this tree's and the other build's
@@ -6229,8 +6483,12 @@ class Smoke:
         short = summary(time_ms(lambda: p3m_short_cuda(*args, count=tab["count"], **kw_t), 20))
         plain = summary(time_ms(lambda: p3m_short_plain(*args, **kw_t), 1))
         n_s, gc_s = kw_s["n"], kw_s["gc"]
-        order = summary(time_ms(lambda: p3m_short_view_cuda(tab, gc_s, n_s), 20))
+        # the view by events, its host time a call and its device time by
+        # graph replay, beside the least launch's device time
+        view_t = call_times(lambda: p3m_short_view_cuda(tab, gc_s, n_s))
+        order = view_t["events"]
         order_plain = summary(time_ms(lambda: p3m_short_view(tab, gc_s, n_s), 5))
+        floor_ms = launch_floor_ms()
         # the view reads each kept slot's (x, y, z), m and index once (24 B)
         # and each cell's count, and writes each kept slot's (x, y, z, m) and
         # index (24 B), each cell's run offsets and boxes and its slices once
@@ -6238,7 +6496,10 @@ class Smoke:
         n_sl = int(p3m_short_view(tab, gc_s, n_s)["nslices"][0])
         b_o = bound(0, 48 * kept + (4 + 36 + 192) * gc_s ** 3 + 4 * n_sl)
         self.kernels["P3MO"].update(ms=order["median"], plain_ms=order_plain["median"],
-                                    bound_ms=b_o[0], bound_by=b_o[1], library_ms=None)
+                                    bound_ms=b_o[0], bound_by=b_o[1], library_ms=None,
+                                    device_ms=view_t["device"]["median"],
+                                    host_ms=view_t["host"]["median"],
+                                    launch_floor_ms=floor_ms)
         # the sum alone by CUDA events (its launch on a view built once), and
         # the wrapper's device time by the profiler: the view, the sum and
         # their set-up
@@ -6256,7 +6517,8 @@ class Smoke:
                                    sum_alone_ms=sum_alone["median"])
         perf = {**ev, "p3m_short": short, "p3m_short_plain": plain, "p3m_short_bound": b,
                 "p3m_short_work": w, "p3m_order": order, "p3m_order_plain": order_plain,
-                "p3m_order_bound": b_o, "p3m_sum_alone": sum_alone, "p3m_short_device": dev}
+                "p3m_order_bound": b_o, "p3m_view_times": view_t, "launch_floor_ms": floor_ms,
+                "p3m_sum_alone": sum_alone, "p3m_short_device": dev}
         print("perf_mesh " + json.dumps(perf), file=sys.stderr)
 
         def ms(x):
@@ -6271,8 +6533,11 @@ class Smoke:
                 f"{ms(sum_alone)} by events; the wrapper's device time {fmt(dev[''], 4)} ms "
                 f"(the sum {fmt(dev['p3m_short_kernel'], 4)}, the view "
                 f"{fmt(dev['p3m_view_kernel'], 4)}); "
-                f"the view kernel {ms(order)} vs its plain version {ms(order_plain)}, bound "
-                f"{b_o[0]:.4f} ms ({b_o[1]}); the B5 subset and the block macro step: phase 17, "
+                f"the view kernel {ms(order)} by events, {ms(view_t['host'])} of host time a call, "
+                f"{ms(view_t['device'])} of device time by graph replay, vs its plain version "
+                f"{ms(order_plain)}, bound {b_o[0]:.4f} ms ({b_o[1]}; "
+                f"{100 * b_o[0] / view_t['device']['median']:.1f}% of the device time), the "
+                f"least launch {floor_ms:.4f} ms; the B5 subset and the block macro step: phase 17, "
                 f"and in turns with another build's by --parent")
 
     # phase 34
@@ -8418,13 +8683,17 @@ class Smoke:
             bnd = bound(OPS_SHORT * needed, nbytes, rsqrt=MUFU_SHORT * needed)
             shift = {"before": 25 * b, "after": sum(
                 v.numel() * v.element_size() for v in shipped[1].values())}
+            # shard 0's view as its owner builds it (with its global ids): by
+            # events, host time a call, device time by graph replay
+            t_view = call_times(lambda: cuda_p3m.p3m_short_view_cuda(tabs[0], kw["gc"], b,
+                                                                      gids[0]))
             if ranks == RING_P:
                 self.kernels["P3MR"].update(max_abs_err=absd, ms=t["round"]["median"],
                                             plain_ms=t_plain["median"], bound_ms=bnd[0],
                                             bound_by=bnd[1], library_ms=None)
             self.p3m_ring_perf[f"{ranks} ranks"] = dict(
                 times=t, plain_ms=t_plain, device_ms=dev_round, host_ms=host_round,
-                round_needed_pairs=needed, bound=bnd,
+                round_needed_pairs=needed, bound=bnd, view=t_view,
                 shift_bytes=shift, slices=int(views[0]["nslices"][0]))
             lines.append(
                 f"{ranks} ranks ({b} bodies a shard, capacity {c['cap']}, "
@@ -8438,7 +8707,10 @@ class Smoke:
                 f"building both views {t['views built']['median']:.4f}, plain "
                 f"{t_plain['median']:.3f}; bound {bnd[0]:.4f} ms ({bnd[1]}; {needed:,} needed "
                 f"pairs); a shift {shift['after']:,} bytes (the bodies it replaces "
-                f"{shift['before']:,})")
+                f"{shift['before']:,}); shard 0's view {t_view['events']['median']:.4f} ms by "
+                f"events (spread {t_view['events']['spread']:.4f}), host "
+                f"{t_view['host']['median']:.4f} a call, device "
+                f"{t_view['device']['median']:.4f} by graph replay")
         return ("the short range's two-table form at a round of the P3M row: "
                 + "; ".join(lines))
 
@@ -8706,9 +8978,10 @@ class Smoke:
         parts, e_plain, absd = [], 0.0, 0.0
         scale = [float(f.abs().max()) for f in full]
         for r in range(RING_P):
-            jbl = geom["jbl"][r * kd:(r + 1) * kd]
-            out = cn.near_acc_slots_rows_cuda(*ch, jbl, i0=r * kd, **kw)
-            ref = nb.near_acc_slots(*ch, jbl, i0=r * kd, **kw)
+            # the stepper's form: the rank's rows of the table
+            out = cn.near_acc_slots_rows_cuda(*ch, geom["jbl"][r * kd:(r + 1) * kd], i0=r * kd,
+                                              **kw)
+            ref = nb.near_acc_slots(*ch, geom["jbl"][r * kd:(r + 1) * kd], i0=r * kd, **kw)
             d = [float((o - q).abs().max()) for o, q in zip(out, ref)]
             e_plain = max(e_plain, max(x / sc for x, sc in zip(d, scale)))
             absd = max(absd, max(d))
@@ -8720,12 +8993,25 @@ class Smoke:
         jbl0 = geom["jbl"][:kd]
         w0 = near_work(dict(geom, jbl=jbl0), ch, RC_RESPA, 32, 4)
         bnd = bound(OPS_NEAR * w0["needed"], w0["nbytes"], rsqrt=w0["needed"])
-        t_rows = summary(time_ms(lambda: cn.near_acc_slots_rows_cuda(*ch, jbl0, i0=0, **kw),
-                                 50))
+        # rank 0's rows (the stepper's slice of the table) in turns with the
+        # whole sweep, by events; each one's host time a call and device
+        # time by graph replay
+        sweeps = {"rows": lambda: cn.near_acc_slots_rows_cuda(*ch, jbl0, i0=0, **kw),
+                  "whole": lambda: cn.near_acc_slots_cuda(*ch, geom["jbl"], **kw)}
+        turns = {k: summary(v) for k, v in alternate_ms(sweeps, 50, repeats=6).items()}
+        rows_t = {k: {"host": summary(host_ms(f, 50)), "device": summary(graph_ms(f, 50))}
+                  for k, f in sweeps.items()}
+        rows_t["rank 3 device"] = summary(graph_ms(lambda: cn.near_acc_slots_rows_cuda(
+            *ch, geom["jbl"][(RING_P - 1) * kd:RING_P * kd], i0=(RING_P - 1) * kd, **kw), 50))
+        t_rows = turns["rows"]
         t_plain = summary(time_ms(lambda: nb.near_acc_slots(*ch, jbl0, i0=0, **kw), 1))
         self.kernels["NEARI"].update(max_abs_err=absd, ms=t_rows["median"],
                                      plain_ms=t_plain["median"], bound_ms=bnd[0],
-                                     bound_by=bnd[1], library_ms=None)
+                                     bound_by=bnd[1], library_ms=None,
+                                     device_ms=rows_t["rows"]["device"]["median"],
+                                     host_ms=rows_t["rows"]["host"]["median"])
+        print("perf_respa_ring " + json.dumps({"turns": turns, "times": rows_t,
+                                               "rank0_work": w0}), file=sys.stderr)
 
         # the main path: a few windows against one card's, then the drift
         mesh = self.ring_mesh(RING_P)
@@ -8766,8 +9052,15 @@ class Smoke:
                for k, v in alternate_ms(rolls, 1, repeats=3).items()}
         return (f"the near sweep of each of {RING_P} ranks' {kd} chunks (i0) at the RESPA "
                 f"row's geometry vs its plain version {e_plain:.2e} <= {NEAR_RTOL:g}, the "
-                f"ranks' rows bit-equal to the whole sweep; rank 0's {t_rows['median']:.3f} ms "
-                f"(spread {t_rows['spread']:.3f}), plain {t_plain['median']:.3f}, bound "
+                f"ranks' rows bit-equal to the whole sweep; rank 0's {t_rows['median']:.4f} ms "
+                f"by events (spread {t_rows['spread']:.4f}) in turns with the whole sweep's "
+                f"{turns['whole']['median']:.4f} ({turns['whole']['spread']:.4f}), host "
+                f"{rows_t['rows']['host']['median']:.4f} and "
+                f"{rows_t['whole']['host']['median']:.4f} a call, device "
+                f"{rows_t['rows']['device']['median']:.4f} and "
+                f"{rows_t['whole']['device']['median']:.4f} by graph replay (rank "
+                f"{RING_P - 1}'s, no live chunk, {rows_t['rank 3 device']['median']:.4f}), "
+                f"plain {t_plain['median']:.3f}, bound "
                 f"{bnd[0]:.4f} ({bnd[1]}; {w0['needed']:,} needed pairs); "
                 f"make_sharded_respa_rollout K={RESPA_K} over {RING_P} ranks: "
                 f"{RESPA_RING_WINDOWS} windows within {err:.2e} of one card's, counters 0, "

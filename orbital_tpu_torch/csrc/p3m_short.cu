@@ -72,6 +72,23 @@
 // HBM3, 700 W): latency sets it, each block summing ~1.3 slices of ~22 rows,
 // a chain of run tests, staging rounds, sweeps and the reduction each.
 //
+// The view (p3m_view_kernel) moves ~48 B a kept row: 0.001 ms at the
+// bench row, under one launch's own device time in a graph (0.001 ms).
+// Its first form, a block of 256 threads a cell, took 0.019 ms of device
+// time there: each thread ranked its row against every row of its cell
+// (O(count^2), 356 rows in the fullest cell), and every block summed the
+// counts of all cells before it. A warp a cell now places its rows by
+// comparing keys across the warp (up to 32 rows) or by counting (the 512
+// keys' histogram and its prefix, O(count + 512)), takes its first 32 rows
+// from global memory once, and the block sums the counts before its first
+// cell once: 0.012 ms at the bench row; at a ring shard's ~22 rows a cell
+// 0.008 ms against the first form's 0.006, a warp's chain of steps being
+// longer there. A call is host-bound either way: its wrapper makes one
+// buffer for the whole view, whose entries are tensors only when read
+// (0.02-0.04 ms of host time a call, 0.05-0.12 before, as the host's load
+// goes). NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phases 33 and 61 and
+// --parent; PERF.md.
+//
 // Design, on the template of B7 and the near sweep (tree_near.cu,
 // neighbor.cu); no float atomics, every sum in a fixed order:
 // - The sum reads a view of the table (p3m_view_kernel, below): each
@@ -124,7 +141,9 @@ namespace {
 constexpr int kQ = OT_P3M_Q;            // warps a block
 constexpr int kThreads = 32 * kQ;
 constexpr int kMinBlocks = 32 / kQ;     // blocks an SM at 64 registers
-constexpr int kOrderThreads = 256;    // the view kernel's threads a cell
+constexpr int kViewWarps = 4;         // the view kernel's cells a block, a warp each
+constexpr int kKeys = 512;           // the view's Morton keys: an 8^3 split of a cell
+constexpr int kHist = kKeys + kKeys / 16;  // the keys' histogram, a pad int every 16
 constexpr int kOct = 8;               // runs a cell: its top-level octants
 constexpr int kRuns = 27 * kOct;      // runs a slice may stage
 constexpr int kSweep = 64;            // buffered rows that start a sweep
@@ -490,136 +509,253 @@ p3m_short_kernel(const float4* __restrict__ rows4, const long long* __restrict__
   }
 }
 
-// The sum over a block's threads of v (every thread gets it); `part` holds
-// kOrderThreads / 32 ints.
-__device__ __forceinline__ int block_sum(int v, int* part) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int t = 0;
-  for (int w = 0; w < kOrderThreads / 32; ++w) t += part[w];
-  return t;
+// Where key k's count lies in a warp's histogram: one pad int after every
+// 16 keys, so that lane l reading key 16 l + j (j fixed) hits bank
+// (17 l + j) mod 32, a different bank for each lane.
+__device__ __forceinline__ int hist_at(int k) { return k + (k >> 4); }
+
+// A kept row's Morton key in its cell's 8^3 split (lo = v[0..2], scale =
+// 8 / extent: the float operations of the torch version), its top-level
+// octant's box widened to the row by integer atomics on `obox` [8][6].
+__device__ __forceinline__ int morton(float4 x, const float* v, const float* scale,
+                                      int* obox) {
+  const float xs[3] = {x.x, x.y, x.z};
+  int key = 0, oct = 0;
+  for (int a = 0; a < 3; ++a) {
+    const int q =
+        static_cast<int>(fminf(fmaxf(floorf((xs[a] - v[a]) * scale[a]), 0.0f), 7.0f));
+    key |= ((q & 1) | ((q & 2) << 2) | ((q & 4) << 4)) << (2 - a);
+    oct = (oct << 1) | (q >> 2);
+  }
+  for (int a = 0; a < 3; ++a) {
+    const int xi = ordered(xs[a]);
+    atomicMin(&obox[oct * 6 + a], xi);
+    atomicMax(&obox[oct * 6 + 3 + a], xi);
+  }
+  return key;
 }
 
-// One block a cell: the view of ops/cuda_p3m.py::p3m_short_view. The
-// cell's kept prefix (count rows) gets its bounding box, each row the
-// Morton code of its place in an 8^3 split of that box (the same float
-// operations as the torch version), and its new place is its rank by (key,
-// old place): a stable sort without atomics. The rows go to one segment
-// of the compact view, after the kept rows of the cells before it (a sum
-// each block takes over count[0 .. cell)), with their body indices and,
-// where `gid` is given, global ids; the cell's slices go to the slice
-// list the same way, and the last cell's block writes the list's length.
-// The octant runs' row counts and boxes are integer atomics (counts, and
-// min / max of the coordinates as order-preserving ints): exact, whatever
-// the order.
-__global__ void __launch_bounds__(kOrderThreads)
+// The sum of v over a warp (every lane gets it).
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The view of ops/cuda_p3m.py::p3m_short_view: a warp a cell, kViewWarps
+// cells a block. Each warp's part of the dynamic shared memory holds
+// `cap` ints (each kept row's Morton key and its rank among the earlier
+// rows of that key), kHist ints (the keys' histogram, then its exclusive
+// prefix: the first new place of each key) and the octant runs' boxes.
+//
+// - The rows and slices before the cell: the block's threads sum
+//   count[0 .. first cell of the block) once (each at most gc^3 / threads
+//   loads), and each warp adds the counts of the block's cells before its
+//   own.
+// - The cell's box: one pass over its kept rows (x, y, z of a row are 12
+//   contiguous bytes, 32 rows a pass), reduced by shuffles.
+// - Keys and the stable order: each row's key (the same float operations
+//   as the torch version) and its new place, the count of smaller keys
+//   plus the count of equal keys in earlier rows: the place of a stable
+//   sort by (key, old place). A cell of up to 32 rows (a ring shard's
+//   ~22) compares the keys across the warp by shuffles. A larger one
+//   takes its rows 32 at a time in row order, each row's rank among the
+//   rows of its key so far from __match_any_sync within the 32 and a
+//   histogram for the earlier ones, and the smaller keys from the
+//   histogram's prefix (each lane scanning 16 of the 512 keys, held 17
+//   ints apart so that the scan has no bank conflict): O(count + 512).
+// - The runs: octant o's rows are keys 64 o .. 64 o + 63, so its first
+//   row is the count of keys below 64 o; its box is a min and max over
+//   the integer images of the coordinates (order-preserving ints) by
+//   shared atomics: exact, whatever the order.
+// - The third pass writes each row (x, y, z, m), its body index and, with
+//   `gid`, its global id to its new place; the cell's slices go to the
+//   slice list after the earlier cells' slices, and the last cell's warp
+//   writes the list's length.
+__global__ void __launch_bounds__(kViewWarps * 32)
 p3m_view_kernel(const float* __restrict__ cell_pos, const float* __restrict__ cell_m,
                 const long long* __restrict__ table, const int* __restrict__ count,
-                const long long* __restrict__ gid, int cap, float4* __restrict__ rows4,
-                long long* __restrict__ body, long long* __restrict__ gid_s,
-                int* __restrict__ run_off, float* __restrict__ run_box,
-                int* __restrict__ slices, int* __restrict__ nslices) {
-  extern __shared__ unsigned short keys[];  // [cap]
-  __shared__ float part[6][kOrderThreads / 32];
-  __shared__ int ipart[kOrderThreads / 32];
-  __shared__ float box[6];
-  __shared__ int oct_n[kOct];
-  __shared__ int oct_box[kOct][6];
-  const int cell = blockIdx.x;
-  const int cnt = count[cell];
-  const size_t base = static_cast<size_t>(cell) * cap;
+                const long long* __restrict__ gid, int cap, int cells,
+                float4* __restrict__ rows4, long long* __restrict__ body,
+                long long* __restrict__ gid_s, int* __restrict__ run_off,
+                float* __restrict__ run_box, int* __restrict__ slices,
+                int* __restrict__ nslices) {
+  extern __shared__ int smem[];
+  __shared__ int part[2][kViewWarps];
+  __shared__ int own_n[kViewWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int first = blockIdx.x * warps;
+  const int cell = first + warp;
   const float inf = __int_as_float(0x7f800000);
+  const size_t base = static_cast<size_t>(cell) * cap;
+  const float* const pos = cell_pos + 3 * base;
+
+  // the warp's first 32 rows (each lane's row `lane`: x, y, z, m, body
+  // index and global id), loaded once, while the block sums the counts
+  // before it: a cell of up to 32 rows reads global memory here only
+  const int cnt = cell < cells ? count[cell] : 0;
+  const bool row0 = lane < cnt;
+  float4 r0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  long long b0 = 0;
+  if (row0) {
+    r0 = make_float4(pos[3 * lane], pos[3 * lane + 1], pos[3 * lane + 2], cell_m[base + lane]);
+    b0 = table[base + lane];
+  }
   int rows_before = 0, slices_before = 0;
-  for (int k = threadIdx.x; k < cell; k += kOrderThreads) {
+#pragma unroll 4
+  for (int k = threadIdx.x; k < first; k += blockDim.x) {
     const int n_k = count[k];
     rows_before += n_k;
     slices_before += (n_k + 31) >> 5;
   }
-  const int start = block_sum(rows_before, ipart);
-  const int sl0 = block_sum(slices_before, ipart);
+  const long long g0 = gid != nullptr && row0 ? gid[b0] : 0;
+  rows_before = warp_sum(rows_before);
+  slices_before = warp_sum(slices_before);
+  if (lane == 0) {
+    part[0][warp] = rows_before;
+    part[1][warp] = slices_before;
+    own_n[warp] = cnt;
+  }
+  __syncthreads();
+  if (cell >= cells) return;
+  int start = 0, sl0 = 0;
+  for (int w = 0; w < warps; ++w) {
+    start += part[0][w] + (w < warp ? own_n[w] : 0);
+    sl0 += part[1][w] + (w < warp ? (own_n[w] + 31) >> 5 : 0);
+  }
+  int* const key_rank = smem + warp * (cap + kHist + kOct * 6);
+  int* const first_of = key_rank + cap;  // the histogram, then its prefix
+  int* const obox = first_of + kHist;    // [kOct][6]
+
+  // the cell's box
   float v[6] = {inf, inf, inf, -inf, -inf, -inf};
-  for (int k = threadIdx.x; k < cnt; k += kOrderThreads) {
+  if (row0) {
+    v[0] = v[3] = r0.x;
+    v[1] = v[4] = r0.y;
+    v[2] = v[5] = r0.z;
+  }
+#pragma unroll 4
+  for (int k = lane + 32; k < cnt; k += 32) {
     for (int a = 0; a < 3; ++a) {
-      const float x = cell_pos[3 * (base + k) + a];
+      const float x = pos[3 * k + a];
       v[a] = fminf(v[a], x);
       v[3 + a] = fmaxf(v[3 + a], x);
     }
   }
-  for (int a = 0; a < 6; ++a) {
-    v[a] = a < 3 ? warp_min(v[a]) : warp_max(v[a]);
-    if (lane == 0) part[a][warp] = v[a];
-  }
-  if (threadIdx.x < kOct) {
-    oct_n[threadIdx.x] = 0;
-    for (int a = 0; a < 6; ++a) oct_box[threadIdx.x][a] = ordered(a < 3 ? inf : -inf);
-  }
-  __syncthreads();
-  if (threadIdx.x < 6) {
-    const int a = threadIdx.x;
-    float x = part[a][0];
-    for (int w = 1; w < kOrderThreads / 32; ++w)
-      x = a < 3 ? fminf(x, part[a][w]) : fmaxf(x, part[a][w]);
-    box[a] = x;
-  }
-  __syncthreads();
-  float lo[3], scale[3];
   for (int a = 0; a < 3; ++a) {
-    lo[a] = box[a];
-    scale[a] = 8.0f / fmaxf(box[3 + a] - box[a], 1e-30f);
+    v[a] = warp_min(v[a]);
+    v[3 + a] = warp_max(v[3 + a]);
   }
-  for (int k = threadIdx.x; k < cnt; k += kOrderThreads) {
-    int key = 0, oct = 0;
-    for (int a = 0; a < 3; ++a) {
-      const float x = cell_pos[3 * (base + k) + a];
-      const int q = static_cast<int>(fminf(fmaxf(floorf((x - lo[a]) * scale[a]), 0.0f), 7.0f));
-      key |= ((q & 1) | ((q & 2) << 2) | ((q & 4) << 4)) << (2 - a);
-      oct = (oct << 1) | (q >> 2);
-    }
-    keys[k] = static_cast<unsigned short>(key);
-    atomicAdd(&oct_n[oct], 1);
-    for (int a = 0; a < 3; ++a) {
-      const int x = ordered(cell_pos[3 * (base + k) + a]);
-      atomicMin(&oct_box[oct][a], x);
-      atomicMax(&oct_box[oct][3 + a], x);
-    }
+  float scale[3];
+  for (int a = 0; a < 3; ++a) scale[a] = 8.0f / fmaxf(v[3 + a] - v[a], 1e-30f);
+  for (int k = lane; k < kOct * 6; k += 32) obox[k] = ordered(k % 6 < 3 ? inf : -inf);
+  const bool one = cnt <= 32;  // the cell's rows are the lanes' first rows
+  if (!one) {
+    for (int k = lane; k < kHist; k += 32) first_of[k] = 0;
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < cnt; k += kOrderThreads) {
-    const unsigned short key = keys[k];
+  __syncwarp();
+
+  if (one) {
+    // each row's place is its count of smaller keys and of equal keys
+    // before it, compared across the warp; the runs' first rows by ballots
+    const int key = row0 ? morton(r0, v, scale, obox) : kKeys + lane;
     int rank = 0;
-    for (int t = 0; t < cnt; ++t) {
-      const unsigned short kt = keys[t];
-      rank += kt < key || (kt == key && t < k);
+    for (int j = 0; j < 32; ++j) {
+      const int kj = __shfl_sync(0xffffffffu, key, j);
+      rank += kj < key || (kj == key && j < lane);
     }
-    const size_t src = base + k, dst = static_cast<size_t>(start) + rank;
-    rows4[dst] = make_float4(cell_pos[3 * src], cell_pos[3 * src + 1], cell_pos[3 * src + 2],
-                             cell_m[src]);
-    const long long b = table[src];
-    body[dst] = b;
-    if (gid != nullptr) gid_s[dst] = gid[b];
+    int first_row = 0;
+    for (int o = 1; o <= kOct; ++o) {
+      const int below_o = __popc(__ballot_sync(0xffffffffu, key < o * (kKeys / kOct)));
+      if (lane == o) first_row = below_o;
+    }
+    if (row0) {
+      const size_t dst = static_cast<size_t>(start) + rank;
+      rows4[dst] = r0;
+      body[dst] = b0;
+      if (gid != nullptr) gid_s[dst] = g0;
+    }
+    if (lane <= kOct) run_off[cell * (kOct + 1) + lane] = start + first_row;
+  } else {
+    // keys, their histogram, each row's rank within its key (32 rows at a
+    // time, in row order), the run boxes
+    for (int k0 = 0; k0 < cnt; k0 += 32) {
+      const int k = k0 + lane;
+      const bool row = k < cnt;
+      int key = kKeys + lane;  // unique past the keys: no peers
+      if (row) {
+        const float4 x = k0 == 0 ? r0 : make_float4(pos[3 * k], pos[3 * k + 1],
+                                                     pos[3 * k + 2], 0.0f);
+        key = morton(x, v, scale, obox);
+      }
+      const unsigned peers = __match_any_sync(0xffffffffu, key);
+      const int earlier = row ? first_of[hist_at(key)] : 0;
+      __syncwarp();
+      if (row) {
+        const int within = __popc(peers & below);
+        key_rank[k] = (key << 16) | (earlier + within);
+        if (within == 0) first_of[hist_at(key)] = earlier + __popc(peers);
+      }
+      __syncwarp();
+    }
+
+    // the histogram's exclusive prefix: lane l scans keys 16 l .. 16 l + 15
+    // (held 17 ints apart, so that the 32 lanes hit 32 banks)
+    int h[kKeys / 32];
+    int tot = 0;
+#pragma unroll
+    for (int j = 0; j < kKeys / 32; ++j) {
+      h[j] = first_of[hist_at(lane * (kKeys / 32) + j)];
+      tot += h[j];
+    }
+    int ex = tot;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, ex, off);
+      if (lane >= off) ex += t;
+    }
+    ex -= tot;
+#pragma unroll
+    for (int j = 0; j < kKeys / 32; ++j) {
+      first_of[hist_at(lane * (kKeys / 32) + j)] = ex;
+      ex += h[j];
+    }
+    __syncwarp();
+
+    // each row to its new place (unrolled: the loads of several rows, and
+    // their global ids after them, in flight at once)
+#pragma unroll 4
+    for (int k = lane; k < cnt; k += 32) {
+      const int kr = key_rank[k];
+      const size_t dst =
+          static_cast<size_t>(start) + first_of[hist_at(kr >> 16)] + (kr & 0xffff);
+      if (k < 32) {
+        rows4[dst] = r0;
+        body[dst] = b0;
+        if (gid != nullptr) gid_s[dst] = g0;
+      } else {
+        rows4[dst] = make_float4(pos[3 * k], pos[3 * k + 1], pos[3 * k + 2], cell_m[base + k]);
+        const long long b = table[base + k];
+        body[dst] = b;
+        if (gid != nullptr) gid_s[dst] = gid[b];
+      }
+    }
+    if (lane <= kOct) {
+      run_off[cell * (kOct + 1) + lane] =
+          start + (lane < kOct ? first_of[hist_at(lane * (kKeys / kOct))] : cnt);
+    }
   }
   const int own = (cnt + 31) >> 5;
-  for (int k = threadIdx.x; k < own; k += kOrderThreads) slices[sl0 + k] = (cell << 9) | k;
-  if (threadIdx.x == 0) {
-    int off = start;
-    for (int o = 0; o < kOct; ++o) {
-      run_off[cell * (kOct + 1) + o] = off;
-      off += oct_n[o];
-    }
-    run_off[cell * (kOct + 1) + kOct] = off;
-    if (cell == static_cast<int>(gridDim.x) - 1) {
-      nslices[0] = sl0 + own;
-      nslices[1] = 0;
-      nslices[2] = 0;
-    }
-  }
-  if (threadIdx.x < kOct * 6) {
-    const int o = threadIdx.x / 6, a = threadIdx.x % 6;
-    run_box[(static_cast<size_t>(cell) * kOct + o) * 6 + a] = unordered(oct_box[o][a]);
+  for (int k = lane; k < own; k += 32) slices[sl0 + k] = (cell << 9) | k;
+  __syncwarp();  // every lane's atomics on obox before any lane reads it
+  for (int k = lane; k < kOct * 6; k += 32)
+    run_box[static_cast<size_t>(cell) * kOct * 6 + k] = unordered(obox[k]);
+  if (cell == cells - 1 && lane == 0) {
+    nslices[0] = sl0 + own;
+    nslices[1] = 0;
+    nslices[2] = 0;
   }
 }
 
@@ -677,12 +813,25 @@ int p3m_short_view(const void* cell_pos, const void* cell_m, const void* table,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (gc <= 0 || cap <= 0) return cudaSuccess;
-  if (cap > 16384) return cudaErrorInvalidValue;  // the keys' shared memory, 9-bit slices
-  p3m_view_kernel<<<gc * gc * gc, kOrderThreads, cap * sizeof(unsigned short),
+  if (cap > 16384) return cudaErrorInvalidValue;  // the ranks' 16 bits, 9-bit slices
+  // a warp's shared memory: a key and rank a row, the keys' histogram, the
+  // run boxes; as many warps a block as fit the default 48 KiB (one at
+  // the largest capacities, past it by the opt-in)
+  const int cells = gc * gc * gc;
+  const size_t per_warp = (static_cast<size_t>(cap) + kHist + kOct * 6) * sizeof(int);
+  const int warps = static_cast<int>(max(1, min(kViewWarps, static_cast<int>(
+      (48 * 1024) / per_warp))));
+  const size_t shared = per_warp * warps;
+  if (shared > 48 * 1024) {
+    err = cudaFuncSetAttribute(p3m_view_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(shared));
+    if (err != cudaSuccess) return err;
+  }
+  p3m_view_kernel<<<(cells + warps - 1) / warps, warps * 32, shared,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cell_pos), static_cast<const float*>(cell_m),
       static_cast<const long long*>(table), static_cast<const int*>(count),
-      static_cast<const long long*>(gid), cap, static_cast<float4*>(rows4),
+      static_cast<const long long*>(gid), cap, cells, static_cast<float4*>(rows4),
       static_cast<long long*>(body), static_cast<long long*>(gid_s),
       static_cast<int*>(run_off), static_cast<float*>(run_box), static_cast<int*>(slices),
       static_cast<int*>(nslices));

@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from .neighbor import near_acc_slots
-from ..utils.kernels import refuse_grad
+from ..utils.kernels import check, refuse_grad, stream_handle
 
 __all__ = ["near_acc_slots_cuda", "near_acc_slots_cuda_sb", "near_acc_slots_cuda_wl",
            "near_acc_slots_rows_cuda", "near_acc_slots_wl_plain", "near_params"]
@@ -101,21 +101,31 @@ def near_params(r1: float, rc: float, G: float, eps2: float) -> types.MappingPro
 
 
 def _check(fn: str, xs, ys, zs, ms, chunk: int, rj: int, eps2: float, *others) -> None:
-    if xs.device.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {xs.device}")
-    if any(t.dtype != torch.float32 for t in (xs, ys, zs, ms)):
+    dev = xs.device
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {dev}")
+    f32 = torch.float32
+    if xs.dtype != f32 or ys.dtype != f32 or zs.dtype != f32 or ms.dtype != f32:
         raise TypeError(f"{fn} computes in float32, got {xs.dtype}")
-    if any(t.device != xs.device for t in (ys, zs, ms, *others)):
+    if any(t.device != dev for t in (ys, zs, ms, *others)):
         raise ValueError(f"{fn}: all tensors must be on one device")
     if not eps2 > 0:
         raise ValueError(f"{fn} requires eps2 > 0 (the self pair is summed unmasked)")
     blkw = int(rj) * int(chunk)
-    if int(chunk) <= 0 or blkw <= 0 or xs.shape[0] % blkw or any(
-            t.shape != xs.shape or t.dim() != 1 for t in (ys, zs, ms)):
+    shape = xs.shape
+    if int(chunk) <= 0 or blkw <= 0 or len(shape) != 1 or shape[0] % blkw or not (
+            ys.shape == zs.shape == ms.shape == shape):
         raise ValueError(f"{fn}: chunk={chunk}, rj={rj} with channels "
                          f"{[tuple(t.shape) for t in (xs, ys, zs, ms)]} is outside the "
                          f"kernel's shapes (four [n_slots] channels, n_slots a multiple of "
                          f"rj * chunk)")
+
+
+@functools.lru_cache(maxsize=16)
+def _consts(r1: float, rc: float, G: float, eps2: float) -> tuple:
+    """:func:`near_params` in the entry points' argument order."""
+    k = near_params(r1, rc, G, eps2)
+    return tuple(k[n] for n in ("sc", "neg_inv_d", "c60", "eps2", "G", "inv_eps", "h"))
 
 
 def _sweep(xs, ys, zs, ms, blocks, off, stride: int, count, k_ch: int, *,
@@ -126,24 +136,25 @@ def _sweep(xs, ys, zs, ms, blocks, off, stride: int, count, k_ch: int, *,
     row c of the table ``blocks [k_ch, stride]``; with ``i0`` (the
     ``near_sweep_rows`` entry) the i rows of chunk c are chunk i0 + c's.
     Returns (acc, pe) as the JAX wrappers do: views of one [k_ch * chunk, 4]
-    output."""
+    output. The host's work a call is this function's: no tensor operation
+    but the output's allocation and its two views where the inputs are
+    already float32 channels of one stride and int32 blocks."""
     refuse_grad("near_acc_slots_cuda", xs, ys, zs, ms)
     c, blkw = int(chunk), int(rj) * int(chunk)
-    chans = (xs, ys, zs, ms)
-    if len({t.stride(0) for t in chans}) != 1:
-        chans = tuple(t.contiguous() for t in chans)
-    out = torch.empty((k_ch * c, 4), dtype=torch.float32, device=xs.device)
-    k = near_params(r1, rc, G, eps2)
-
-    lib = _load()
-    from ..utils.kernels import check
-
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
-    head = (*(t.data_ptr() for t in chans), chans[0].stride(0), blocks.data_ptr(),
+    cs = xs.stride(0)
+    if ys.stride(0) != cs or zs.stride(0) != cs or ms.stride(0) != cs:
+        xs, ys, zs, ms = (t.contiguous() for t in (xs, ys, zs, ms))
+        cs = 1
+    if blocks.dtype != torch.int32 or not blocks.is_contiguous():
+        blocks = blocks.to(torch.int32).contiguous()
+    dev = xs.device
+    out = torch.empty((k_ch * c, 4), dtype=torch.float32, device=dev)
+    lib = _lib or _load()
+    head = (xs.data_ptr(), ys.data_ptr(), zs.data_ptr(), ms.data_ptr(), cs, blocks.data_ptr(),
             None if off is None else off.data_ptr(), int(stride),
             None if count is None else count.data_ptr(), xs.shape[0] // blkw - 1)
-    tail = (int(k_ch), c, blkw, k["sc"], k["neg_inv_d"], k["c60"], k["eps2"], k["G"],
-            k["inv_eps"], k["h"], out.data_ptr(), stream, xs.device.index or 0)
+    tail = (int(k_ch), c, blkw, *_consts(r1, rc, G, eps2), out.data_ptr(), stream_handle(dev),
+            dev.index or 0)
     if i0 is None:
         check(lib, lib.near_sweep(*head, *tail), "near_sweep launch")
         near_acc_slots_cuda.launches += 1
@@ -166,8 +177,8 @@ def near_acc_slots_cuda(xs, ys, zs, ms, jbl, *, r1: float, rc: float, G: float,
     if k_ch * int(chunk) > xs.shape[0]:
         raise ValueError(f"near_acc_slots_cuda: jbl has {k_ch} chunks of {chunk} rows for "
                          f"{xs.shape[0]} slots")
-    return _sweep(xs, ys, zs, ms, jbl.to(torch.int32).contiguous(), None, w_blk, None, k_ch,
-                  r1=r1, rc=rc, G=G, eps2=eps2, chunk=chunk, rj=rj)
+    return _sweep(xs, ys, zs, ms, jbl, None, w_blk, None, k_ch, r1=r1, rc=rc, G=G, eps2=eps2,
+                  chunk=chunk, rj=rj)
 
 
 near_acc_slots_cuda.launches = 0
@@ -187,8 +198,9 @@ def near_acc_slots_rows_cuda(xs, ys, zs, ms, jbl, *, i0: int, r1: float, rc: flo
     """The near sweep of the i chunks ``[i0, i0 + k_ch)`` only, ``jbl [k_ch,
     w_blk]`` their rows of the block table, against the whole j side: one
     mesh rank's share (``ops.neighbor.near_acc_slots(i0=)`` is its plain
-    version). Returns (acc [k_ch * chunk, 3], pe [k_ch * chunk]) for those
-    chunks."""
+    version). A rank's rows of an int32 table are a contiguous view of it,
+    which the kernel reads in place. Returns (acc [k_ch * chunk, 3], pe
+    [k_ch * chunk]) for those chunks."""
     kw = dict(r1=r1, rc=rc, G=G, eps2=eps2, chunk=chunk, rj=rj)
     if xs.device.type == "cpu":
         return near_acc_slots(xs, ys, zs, ms, jbl, i0=int(i0), **kw)
@@ -197,8 +209,7 @@ def near_acc_slots_rows_cuda(xs, ys, zs, ms, jbl, *, i0: int, r1: float, rc: flo
     if (int(i0) + k_ch) * int(chunk) > xs.shape[0] or int(i0) < 0:
         raise ValueError(f"near_acc_slots_rows_cuda: chunks [{i0}, {int(i0) + k_ch}) of "
                          f"{chunk} rows for {xs.shape[0]} slots")
-    return _sweep(xs, ys, zs, ms, jbl.to(torch.int32).contiguous(), None, w_blk, None, k_ch,
-                  i0=int(i0), **kw)
+    return _sweep(xs, ys, zs, ms, jbl, None, w_blk, None, k_ch, i0=int(i0), **kw)
 
 
 near_acc_slots_rows_cuda.launches = 0
@@ -241,5 +252,4 @@ def near_acc_slots_cuda_wl(xs, ys, zs, ms, wl_i, wl_jb, *, r1: float, rc: float,
     _check("near_acc_slots_cuda_wl", xs, ys, zs, ms, chunk, rj, eps2, wl_i, wl_jb)
     k_ch = xs.shape[0] // int(chunk) - int(rj)
     count, off = _wl_lists(wl_i, k_ch)
-    return _sweep(xs, ys, zs, ms, wl_jb.to(torch.int32).contiguous(), off, 0, count, k_ch,
-                  **kw)
+    return _sweep(xs, ys, zs, ms, wl_jb, off, 0, count, k_ch, **kw)

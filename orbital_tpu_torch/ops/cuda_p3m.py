@@ -39,11 +39,15 @@ kernel (:func:`p3m_short_view_cuda`).
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+import types
+from collections.abc import Mapping
 
 import torch
 
 from .p3m import SENTINEL, p3m_short_pair_plain, p3m_short_plain, _short_tiles
-from ..utils.kernels import count_launch, refuse_grad
+from ..utils.kernels import count_launch, refuse_grad, stream_handle
 
 __all__ = ["p3m_short_cuda", "p3m_short_plain", "p3m_short_order", "p3m_short_order_cuda",
            "p3m_short_view", "p3m_short_view_cuda", "p3m_short_round_cuda",
@@ -199,13 +203,15 @@ def p3m_short_view(tab: dict, gc: int, n: int, gid: torch.Tensor = None,
     return view
 
 
-def p3m_short_view_cuda(tab: dict, gc: int, n: int, gid: torch.Tensor = None) -> dict:
-    """:func:`p3m_short_view` as the kernel ``p3m_view_kernel`` builds it
-    (one block a cell): equal to the plain version's, bit for bit, on the
-    kept rows and the first ``nslices[0]`` entries of ``slices``, and not
-    written past them (the sum reads neither). CPU tensors take the plain
-    route's view, :func:`p3m_short_view` in the table's order;
-    ``.launches`` counts the kernel's launches."""
+def p3m_short_view_cuda(tab: dict, gc: int, n: int, gid: torch.Tensor = None):
+    """:func:`p3m_short_view` as the kernel ``p3m_view_kernel`` builds it (a
+    warp a cell): equal to the plain version's, bit for bit, on the kept
+    rows and the first ``nslices[0]`` entries of ``slices``, and not written
+    past them (the sum reads neither). On the card the view is a mapping
+    over one buffer whose entries are made on first use, so that the sum's
+    wrappers, which read only their addresses, cost no tensor operation.
+    CPU tensors take the plain route's view, :func:`p3m_short_view` in the
+    table's order; ``.launches`` counts the kernel's launches."""
     table = tab["table"]
     if table.device.type == "cpu":
         return p3m_short_view(tab, gc, n, gid, reorder=False)
@@ -217,32 +223,96 @@ def p3m_short_view_cuda(tab: dict, gc: int, n: int, gid: torch.Tensor = None) ->
     return view
 
 
-def _view(tab: dict, gc: int, n: int, gid) -> dict:
-    """Launch the view kernel on a cell table."""
+class _View(Mapping):
+    """The kernel's view: its entries (those of :func:`p3m_short_view`) laid
+    out in one device buffer, each made as a tensor on first use; ``ptr``
+    gives an entry's address without making it, ``room`` the slice list's
+    length. Lazy because the sum reads addresses only: making the seven
+    entries at once (a slice and two views each) took 0.065 ms of host time
+    a call on an H100's host, three times the whole call's 0.030
+    (``chip_smoke.py --parent``, in turns)."""
+
+    __slots__ = ("_buf", "_base", "_fields", "_made", "room")
+
+    def __init__(self, n: int, gc3: int, room: int, with_gid: bool, dev):
+        self._fields, nbytes = _layout(n, gc3, room, with_gid)
+        self._buf = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+        self._base = self._buf.data_ptr()
+        self._made = {}
+        self.room = room
+
+    @property
+    def device(self) -> torch.device:
+        return self._buf.device
+
+    def ptr(self, key: str):
+        return None if key not in self._fields else self._base + self._fields[key][0]
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        t = self._made.get(key)
+        if t is None:
+            off, nbytes, dtype, shape = self._fields[key]
+            t = self._made[key] = self._buf[off:off + nbytes].view(dtype).view(shape)
+        return t
+
+    def __iter__(self):
+        return iter(self._fields)
+
+    def __len__(self) -> int:
+        return len(self._fields)
+
+
+@functools.lru_cache(maxsize=32)
+def _layout(n: int, gc3: int, room: int, with_gid: bool) -> tuple:
+    """Where each entry of a view lies in its buffer: ({entry: (byte offset,
+    bytes, dtype, shape)}, the buffer's bytes), each entry 16-byte aligned."""
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    spec = [("rows", f32, (n, 4)), ("body", i64, (n,))]
+    if with_gid:
+        spec.append(("gid", i64, (n,)))
+    spec += [("run_off", i32, (gc3, _OCT + 1)), ("run_box", f32, (gc3, _OCT, 6)),
+             ("slices", i32, (room,)), ("nslices", i32, (3,))]
+    fields, off = {}, 0
+    for name, dtype, shape in spec:
+        nbytes = math.prod(shape) * dtype.itemsize
+        fields[name] = (off, nbytes, dtype, shape)
+        off += -(-nbytes // 16) * 16
+    return types.MappingProxyType(fields), off
+
+
+def _ptr(view, key: str) -> int:
+    """The address of a view's entry, made or not."""
+    return view.ptr(key) if isinstance(view, _View) else view[key].data_ptr()
+
+
+def _room(view) -> int:
+    """The length of a view's slice list."""
+    return view.room if isinstance(view, _View) else int(view["slices"].shape[0])
+
+
+def _in(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous ``dtype`` tensor, itself when it is one."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
+
+
+def _view(tab: dict, gc: int, n: int, gid) -> _View:
+    """Launch the view kernel on a cell table. The table's first gc^3 cells
+    are read in place: their rows open each input."""
     from ..utils.kernels import check
 
     table = tab["table"]
     gc3, cap, dev = gc ** 3, table.shape[1], table.device
-    f32, i32, i64 = torch.float32, torch.int32, torch.int64
-    view = dict(rows=torch.empty((n, 4), dtype=f32, device=dev),
-                body=torch.empty((n,), dtype=i64, device=dev),
-                run_off=torch.empty((gc3, _OCT + 1), dtype=i32, device=dev),
-                run_box=torch.empty((gc3, _OCT, 6), dtype=f32, device=dev),
-                slices=torch.empty((max_slices(gc, cap, n),), dtype=i32, device=dev),
-                nslices=torch.empty((3,), dtype=i32, device=dev))
-    ins = (tab["cell_pos"][:gc3].to(f32).contiguous(), tab["cell_m"][:gc3].to(f32).contiguous(),
-           table[:gc3].to(i64).contiguous(), tab["count"].to(i32).contiguous())
+    ins = (_in(tab["cell_pos"], torch.float32), _in(tab["cell_m"], torch.float32),
+           _in(table, torch.int64), _in(tab["count"], torch.int32))
     if gid is not None:
-        gid = gid.to(i64).contiguous()
-        view["gid"] = torch.empty((n,), dtype=i64, device=dev)
+        gid = _in(gid, torch.int64)
+    view = _View(n, gc3, max_slices(gc, cap, n), gid is not None, dev)
     lib = _load()
     err = lib.p3m_short_view(*(t.data_ptr() for t in ins),
                              None if gid is None else gid.data_ptr(), int(gc), int(cap),
-                             *(view[k].data_ptr() for k in ("rows", "body")),
-                             None if gid is None else view["gid"].data_ptr(),
-                             *(view[k].data_ptr() for k in ("run_off", "run_box", "slices",
-                                                            "nslices")),
-                             torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+                             view.ptr("rows"), view.ptr("body"), view.ptr("gid"),
+                             view.ptr("run_off"), view.ptr("run_box"), view.ptr("slices"),
+                             view.ptr("nslices"), stream_handle(dev), dev.index or 0)
     check(lib, err, "p3m_short_view launch")
     return view
 
@@ -396,8 +466,8 @@ def p3m_short_round_cuda(view_i: dict, view_j: dict, *, gc: int, n: int, G: floa
     and returns it; else returns them. ``params`` may carry
     :func:`short_params` of (sigma, rcut2), made once for every round."""
     diag = view_j is view_i
-    rows = view_i["rows"]
-    if rows.device.type == "cpu":
+    dev = view_i.device if isinstance(view_i, _View) else view_i["rows"].device
+    if dev.type == "cpu":
         a, p = _round_plain(view_i, view_j, gc=gc, n=n, G=G, sigma=sigma, rcut2=rcut2,
                             eps2=eps2, cell_block=cell_block)
         if out is None:
@@ -405,11 +475,10 @@ def p3m_short_round_cuda(view_i: dict, view_j: dict, *, gc: int, n: int, G: floa
         out[0].add_(a)
         out[1].add_(p)
         return out
-    if rows.device.type != "cuda":
-        raise ValueError(f"p3m_short_round_cuda: unsupported device {rows.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"p3m_short_round_cuda: unsupported device {dev}")
     if eps2 <= 0.0:
         raise ValueError("p3m_short_round_cuda requires eps2 > 0")
-    dev = rows.device
     if params is None:
         params = short_params(sigma, rcut2, dev)
     if out is None:
@@ -431,12 +500,12 @@ def _round(view_i, view_j, diag: bool, gc: int, params, G: float, eps2: float, a
 
     lib = _load()
     dev = acc.device
-    err = lib.p3m_short_pair(*(view_i[k].data_ptr() for k in ("rows", "body", "run_off",
-                                                              "slices", "nslices")),
-                             int(view_i["slices"].shape[0]),
-                             *(view_j[k].data_ptr() for k in ("rows", "run_off", "run_box")),
+    err = lib.p3m_short_pair(*(_ptr(view_i, k) for k in ("rows", "body", "run_off", "slices",
+                                                         "nslices")),
+                             _room(view_i),
+                             *(_ptr(view_j, k) for k in ("rows", "run_off", "run_box")),
                              int(diag), int(gc), params.data_ptr(), G, eps2, acc.data_ptr(),
-                             pe.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                             pe.data_ptr(), stream_handle(dev),
                              dev.index or 0)
     check(lib, err, "p3m_short_pair launch")
 
@@ -500,12 +569,11 @@ def _launch(table, cell_pos, cell_m, count, gc: int, params, G: float, eps2: flo
                                     count=count), gc, acc.shape[0])
     lib = _load()
     dev = table.device
-    err = lib.p3m_short_sorted(*(view[k].data_ptr() for k in ("rows", "body", "run_off",
-                                                              "run_box", "slices",
-                                                              "nslices")),
-                               int(view["slices"].shape[0]), int(gc), params.data_ptr(), G,
+    err = lib.p3m_short_sorted(*(_ptr(view, k) for k in ("rows", "body", "run_off", "run_box",
+                                                         "slices", "nslices")),
+                               _room(view), int(gc), params.data_ptr(), G,
                                eps2, acc.data_ptr(), pe.data_ptr(),
-                               torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+                               stream_handle(dev), dev.index or 0)
     check(lib, err, "p3m_short_sorted launch")
 
 

@@ -525,8 +525,12 @@ def tree_acc_potential(
         a_far = torch.zeros((n, 3), dtype=_dtype, device=dev)
         U_far = torch.zeros((), dtype=_dtype, device=dev)
     else:
-        a_far, U_far = _far_phase(pos32, m_eff, alive_b, cc, h, half, origin, levels, ws,
-                                  G, eps2, order, with_potential)
+        # the f64 route is the one that keeps SI units (the float32 and
+        # ds32 routes take natural units): its far phase runs in units of
+        # powers of two, the others' as given, with no added launch
+        far = _far_phase_pow2 if pos.dtype == torch.float64 else _far_phase
+        a_far, U_far = far(pos32, m_eff, alive_b, cc, h, half, origin, levels, ws, G, eps2,
+                           order, with_potential)
     if _phase == "far":
         return ((a_far * alive_f[:, None]).to(pos.dtype), U_far.to(pos.dtype),
                 torch.zeros((), dtype=torch.int32, device=dev))
@@ -978,6 +982,34 @@ def _far_ids(cc: torch.Tensor, alive_b: torch.Tensor, M: int) -> torch.Tensor:
     oct_b = ((cc[:, 0] & 1) * 2 + (cc[:, 1] & 1)) * 2 + (cc[:, 2] & 1)
     par_b = ((cc[:, 0] >> 1) * s_fin + (cc[:, 1] >> 1)) * s_fin + (cc[:, 2] >> 1)
     return torch.where(alive_b, oct_b * (s_fin ** 3) + par_b, M ** 3)
+
+
+def _pow2_inverse(x: torch.Tensor) -> torch.Tensor:
+    """2^-e for x = f 2^e with f in [0.5, 1) (1 for x = 0), computed
+    exactly: f / x is a power of two."""
+    f, _ = torch.frexp(x)
+    return torch.where(f > 0, f / torch.where(f > 0, x, 1.0), 1.0)
+
+
+def _far_phase_pow2(pos32, m_eff, alive_b, cc, h, half, origin, levels: int, ws: int,
+                    G: float, eps2: float, order: int, with_potential: bool):
+    """:func:`_far_phase` in units of powers of two: lengths over ``lam``,
+    the power of two next to the grid's half-width, masses over ``mu``, the
+    one next to the largest mass. The far phase is homogeneous in both, and
+    scaling by a power of two is exact, so the result is the same bits as
+    in the given units wherever those keep every float32 intermediate
+    normal. On a scene in SI units they do not: at cell widths of ~1e9 m
+    the taps' R^-5 and R^-7 are 1e-40 to 1e-45 (subnormal or 0) and the
+    order-2 moments m x_i x_j pass float32's range; in these units every
+    one of them is of order G. Returns (a_far [N, 3], U_far [])."""
+    lam, mu = _pow2_inverse(half), _pow2_inverse(torch.amax(m_eff))
+    # eps2 rounded to the compute type, then scaled (no copy to the device)
+    a_far, U_far = _far_phase(
+        pos32 * lam, m_eff * mu, alive_b, cc, h * lam, half * lam, origin * lam, levels, ws,
+        G, lam * lam * eps2, order, with_potential)
+    # a = G m / r^2 and U = G m^2 / r back in the given units, one factor
+    # at a time (mu^-2 alone may pass float32's range where U does not)
+    return a_far / mu * (lam * lam), U_far / mu * lam / mu
 
 
 def _far_phase(pos32, m_eff, alive_b, cc, h, half, origin, levels: int, ws: int, G: float,
