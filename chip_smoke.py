@@ -403,11 +403,31 @@ Phases, one line of output each; any failure exits nonzero:
      ``make_sharded_ensemble_step`` on ENS_MESH_E perturbed members, bounce
      and merge, each member's live bodies after ENS_MESH_STEPS steps within
      STATE_ATOL of its own single-card run, alive equal, B3 (and the block
-     bounce) E x P_body^2 times a step.
+     bounce) E x P_body^2 times a step;
+ 66. f64 state on every single-device CUDA route (ROADMAP G.1) at 65,536:
+     KDK "auto" (B1, f32 inside; --drift-steps more within DRIFT_BUDGET),
+     "chunked" (all f64, F64_CHUNKED_STEPS), bounce at the bench row,
+     merge and resolve at R_RICH (the contact sweep's f64 instance), Hermite
+     (B5), the block stepper at rungs 1 (the B5 subset's f64 instance),
+     RESPA at K = 4 (the plain f64 near sweep), the tree, P3M's uniform row
+     and the collision-free ring over RING_P ranks (B3), F64_STEPS steps
+     each against the ds32 run of the same scene (F64_DS32_ATOL; the block
+     stepper F64_BLOCK_ATOL, resolve F64_RICH_ATOL), each kernel's launches
+     counted, the collision paths bit-equal to the collision-free f64 run
+     up to their first contact, ms a step beside ds32's;
+ 67. the two f64 instances against their plain f64 versions at the main
+     path's shapes: the contact sweep's parents, roots and marks
+     integer-equal at R_RICH and R_BENCH, the subset at F = 64 within
+     F64_SUBSET_RTOL; events, the plain versions' times, the bounds at the
+     FP64 rate (PEAK_F64);
+ 68. the tree's layout-study flags on bench_tree's sphere (``_FAR_NHWC``,
+     ``_FAR_COMBINE = "lazy"``, ``_PAIRS_CF = "scan"``) against the default
+     evaluation with each one's ms, and TREE_SKIP in a child process
+     (``tree_skip_child``): its warning, and each part zeroed.
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
 10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38, 39, 42, 44, 45, 47, 48,
-49, 53, 54, 58, 62, 63, 64 and 65) and read just after it:
+49, 53, 54, 58, 62, 63, 64, 65 and each path of 66) and read just after it:
 each kernel must have run on its path. B3 runs on the multi-device ring only:
 phase 27 checks it alone, phase 28 requires 0 launches over its three
 single-card main paths, and its record's launches are phase 53's. The
@@ -500,6 +520,9 @@ PEAK_BYTES = 3.35e12
 PEAK_RSQRT = 16 * 132 * 1.98e9
 # dense TF32 on the tensor cores (NVIDIA's data sheet, H100 SXM)
 PEAK_TF32 = 495e12
+# f64 outside the tensor cores (NVIDIA's data sheet, H100 SXM): the rate of
+# the f64 instances of the contact sweep and the B5 row subset
+PEAK_F64 = 33.5e12
 # f32 operations per pair, counted from the sources: B1 no-PE 3 differences,
 # r2 (5), + eps2, inv_r^3 (2), m_j * (1), three multiply-adds (6); B2 adds
 # (R_i + R_j) * 1.00001 and its square (3); B6 rejects a pair after the 3
@@ -833,7 +856,8 @@ LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_bloc
                               "nbody_block_forces_detect", "nbody_block_shape",
                               "ot_error_string"),
              "nbody_jerk": ("nbody_jerk", "nbody_jerk_detect", "nbody_jerk_subset",
-                            "nbody_jerk_subset_shape", "ot_error_string"),
+                            "nbody_jerk_subset_f64", "nbody_jerk_subset_shape",
+                            "ot_error_string"),
              "nbody_forces_mxu": ("nbody_forces_mxu", "ot_error_string"),
              "collisions": ("bounce_deltas", "bounce_block_round", "bounce_block_shape",
                             "ot_error_string"),
@@ -965,8 +989,49 @@ ROOTS = dict(name="collision_roots", route="cuda",
 MARK = dict(name="contact_marks", route="cuda",
             source="orbital_tpu_torch/csrc/collision_roots.cu",
             replaces="orbital_tpu/ops/collisions.py:452")
-# the contact sweep's two instantiations (mangled-name stems) by record key
-SWEEP_MODES = {"ROOTS": "sweep_kernelILi0E", "MARK": "sweep_kernelILi1E"}
+# the f64 instances (ROADMAP G.1) of the contact sweep's two modes and of the
+# B5 row subset: no TPU kernel; they stand in for the same XLA code in the
+# state's dtype (the subset for accel_jerk_subset, orbital_tpu/ops/
+# forces.py:237, called at orbital_tpu/engine/integrators.py:402, 560)
+ROOTS64 = dict(name="collision_roots_f64", route="cuda",
+               source="orbital_tpu_torch/csrc/collision_roots.cu",
+               replaces="orbital_tpu/ops/collisions.py:165")
+MARK64 = dict(name="contact_marks_f64", route="cuda",
+              source="orbital_tpu_torch/csrc/collision_roots.cu",
+              replaces="orbital_tpu/ops/collisions.py:452")
+B5S64 = dict(name="nbody_jerk_subset_f64", route="cuda",
+             source="orbital_tpu_torch/csrc/nbody_jerk.cu",
+             replaces="orbital_tpu/ops/forces.py:237")
+# f64 state on the card (phases 66-68, ROADMAP G.1): F64_STEPS steps a path
+# (F64_CHUNKED_STEPS on the all-f64 "chunked" route, 4.3 G pairs a step in
+# eager torch), each held against the ds32 run of the same scene and steps:
+# max |d pos| and |d vel| over the bodies alive in both with equal masses
+# within F64_DS32_ATOL (the f32-inside kernels read the f64 state rounded to
+# f32 where ds32 reads its hi words, ~6e-8 apart, which moves a pair's force
+# by ~6e-6 relative at the softening length: ~1e-6 of the velocities over
+# 20 steps), at most F64_ALIVE_SLACK bodies alive in one run only (a grazing
+# pair that merges in one precision only); F64_BLOCK_ATOL for the block
+# stepper, whose planted binary (separation 1.26e-3) ds32 sums in f32 from
+# hi-word differences (~5e-5 relative in its acceleration of ~630: ~2e-4 in
+# its velocities over 3 macro steps) and the f64 instance in f64; the f64
+# subset against its plain f64 version within F64_SUBSET_RTOL of max |.|
+# (the same f64 sums in another order); F64_RICH_ATOL for resolve at R_RICH,
+# whose bounce outcomes ds32 computes in f32 from hi-word differences at
+# separations of ~3e-3 (a contact normal ~6e-5 relative off at |x| ~ 3, so
+# ~6e-5 in a velocity of ~1; a first run read 3.5e-5 on one of the contact
+# paths against the 1e-5 gate)
+F64_STEPS, F64_CHUNKED_STEPS = 20, 5
+F64_DS32_ATOL, F64_BLOCK_ATOL, F64_RICH_ATOL, F64_ALIVE_SLACK = 1e-5, 1e-3, 5e-4, 8
+F64_SUBSET_RTOL = 1e-12
+# the contact sweep's instantiations (mangled-name stems, sweep_kernel<T,
+# kMode>) by record key, and the compare that marks a pair in each one's
+# prefilter loop
+SWEEP_MODES = {"ROOTS": "sweep_kernelIfLi0E", "MARK": "sweep_kernelIfLi1E"}
+SWEEP_MODES_F64 = {"ROOTS64": "sweep_kernelIdLi0E", "MARK64": "sweep_kernelIdLi1E"}
+SWEEP_MARKER = {"ROOTS": r"\bFSETP\b", "MARK": r"\bFSETP\b", "ROOTS64": r"\bDSETP\b",
+                "MARK64": r"\bDSETP\b"}
+# the B5 row subset's instances (jerk_subset_kernel<T, kSoft, kIdx64>)
+SUBSET_STEMS = {"B5S": "jerk_subset_kernelIf", "B5S64": "jerk_subset_kernelId"}
 # no TPU kernel: stands in for the XLA code of the JAX package's vmapped
 # ensemble rollout (orbital_tpu/parallel/ensemble.py:53-69, dense, fused="never")
 ENS = dict(name="fused_ensemble", route="cuda",
@@ -978,11 +1043,12 @@ ENS_MODES = {"team": "ensemble_team_kernel", "block": "ensemble_block_kernel"}
 
 
 def bound(flops: float, nbytes: float, rsqrt: float = 0.0,
-          tensor: float = 0.0) -> tuple[float, str]:
+          tensor: float = 0.0, f64: float = 0.0) -> tuple[float, str]:
     """Least milliseconds the card could take: the larger of the operations
     over their peak rate (f32 on the CUDA cores, rsqrt, TF32 flops on the
-    tensor cores) and the bytes over the memory rate."""
-    t_ops = max(flops / PEAK_F32, rsqrt / PEAK_RSQRT, tensor / PEAK_TF32)
+    tensor cores, f64 on the CUDA cores) and the bytes over the memory
+    rate."""
+    t_ops = max(flops / PEAK_F32, rsqrt / PEAK_RSQRT, tensor / PEAK_TF32, f64 / PEAK_F64)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -1515,6 +1581,36 @@ def call_times(fn, iters: int = 20) -> dict:
             "device": summary(graph_ms(fn, iters))}
 
 
+def tree_skip_child(seed: int, budgets) -> None:
+    """Phase 68's child process, started with TREE_SKIP=near: bench_tree's
+    sphere with the near part skipped against the far phase alone, then
+    ``_SKIP`` = "far" against the near phase alone, on the card; prints the
+    two gaps, relative to max |a| (the far phase's NGP deposit adds by float
+    atomics, so two evaluations may differ in the last bits)."""
+    import torch
+
+    from orbital_tpu_torch.ops import tree as T
+
+    if T._SKIP != "near":
+        raise AssertionError(f"TREE_SKIP=near not read: _SKIP = {T._SKIP!r}")
+    dev = torch.device("cuda", 0)
+    pos, _, mass = make_plummer(N_MAIN, seed)
+    pos_t = torch.tensor(pos, dtype=torch.float32, device=dev)
+    mass_t = torch.tensor(mass, dtype=torch.float32, device=dev)
+    kw = Smoke.tree_flag_kwargs(budgets)
+    gaps = {}
+    for part, other in (("near", "far"), ("far", "near")):
+        T._SKIP = part
+        a, _, _ = T.tree_acc_potential(pos_t, mass_t, None, **kw)
+        T._SKIP = ""
+        left, _, _ = T.tree_acc_potential(pos_t, mass_t, None, _phase=other, **kw)
+        gaps[part] = float((a - left).abs().max()) / float(left.abs().max())
+        if gaps[part] > 1e-6:
+            raise AssertionError(f"TREE_SKIP={part}: {gaps[part]:.3e} from the {other} phase")
+    print(f"near skipped: the far phase's acc within {gaps['near']:.2e} of max |a|; far "
+          f"skipped: the near phase's within {gaps['far']:.2e}", flush=True)
+
+
 def reset_launches() -> None:
     from orbital_tpu_torch.ops import (cuda_collisions, cuda_forces, cuda_forces_mxu,
                                        cuda_forces_sym, cuda_jerk, cuda_neighbor, cuda_p3m,
@@ -1534,6 +1630,9 @@ def reset_launches() -> None:
                cuda_p3m.p3m_short_view_cuda, cuda_p3m.p3m_short_round_cuda,
                cuda_tree.tree_near_part_cuda, cuda_neighbor.near_acc_slots_rows_cuda):
         fn.launches = 0
+    for fn in (cuda_collisions.collision_roots_cuda, cuda_collisions.contact_marks_cuda,
+               cuda_jerk.accel_jerk_subset_cuda):
+        fn.f64_launches = 0
     ensemble.member_loop.runs = 0
 
 
@@ -2573,7 +2672,9 @@ class Smoke:
                         "B13": dict(B13), "B3": dict(B3), "P3M": dict(P3M),
                         "P3MO": dict(P3MO), "ROOTS": dict(ROOTS), "MARK": dict(MARK),
                         "ENS": dict(ENS), "B3D": dict(B3D), "BB": dict(BB),
-                        "P3MR": dict(P3MR), "B7S": dict(B7S), "NEARI": dict(NEARI)}
+                        "P3MR": dict(P3MR), "B7S": dict(B7S), "NEARI": dict(NEARI),
+                        "ROOTS64": dict(ROOTS64), "MARK64": dict(MARK64),
+                        "B5S64": dict(B5S64)}
         self._cluster = None
         self._respa_budgets = None
         self._plummer = None
@@ -2782,28 +2883,31 @@ class Smoke:
 
         from orbital_tpu_torch.ops import cuda_collisions
 
-        line = "; ".join(self.entry_record(k, stem, log) for k, stem in SWEEP_MODES.items())
+        stems = {**SWEEP_MODES, **SWEEP_MODES_F64}
+        line = "; ".join(self.entry_record(k, stem, log) for k, stem in stems.items())
         fn = cuda_collisions._load_roots().collision_parents_shape
         fn.restype, fn.argtypes = None, [ctypes.c_int, ctypes.c_void_p]
         arr = (ctypes.c_int * 6)()
         fn(N_MAIN, arr)
         shape = dict(zip(("columns_a_lane", "tile", "slice", "warps", "blocks", "tiles"),
                          list(arr)))
-        bodies = loop_bodies(sass_text, r"\bFSETP\b")
         dump, per = [], {}
-        for key, stem in SWEEP_MODES.items():
-            body = next((v for f, v in bodies.items() if stem in f), None)
-            marks = sum(bool(re.search(r"\bFSETP\b", op)) for op in body or ())
+        for key, stem in stems.items():
+            marker = SWEEP_MARKER[key]
+            body = next((v for f, v in loop_bodies(sass_text, marker).items() if stem in f),
+                        None)
+            marks = sum(bool(re.search(marker, op)) for op in body or ())
             per[key] = len(body) / marks if marks else "not measured"
             self.kernels[key].update(shape=shape, sass_slots_per_pair=per[key])
-            dump.append(f"{key} ({stem}): {len(body or ())} instructions, {marks} FSETP\n"
-                        + "\n".join(body or ()))
+            dump.append(f"{key} ({stem}): {len(body or ())} instructions, {marks} pair "
+                        f"compares\n" + "\n".join(body or ()))
         if sass_text and not all(isinstance(v, float) for v in per.values()):
-            raise AssertionError(f"contact sweep: no prefilter loop with FSETP in {per}")
+            raise AssertionError(f"contact sweep: no prefilter loop with FSETP/DSETP in {per}")
         print("collision_roots loops: " + "\n\n".join(dump), file=sys.stderr)
         floor = issue_floor_ms(per["ROOTS"], shape["tiles"] * shape["tile"] ** 2)
         return (f"{line}, shape {shape}, SASS instructions a pair: parents "
-                f"{fmt(per['ROOTS'])}, mark {fmt(per['MARK'])} (issue floor over the "
+                f"{fmt(per['ROOTS'])}, mark {fmt(per['MARK'])}, f64 parents "
+                f"{fmt(per['ROOTS64'])}, f64 mark {fmt(per['MARK64'])} (issue floor over the "
                 f"{shape['tiles'] * shape['tile'] ** 2:,} pairs of the tiles: "
                 f"{fmt(floor, 3, ' ms')})")
 
@@ -2861,12 +2965,14 @@ class Smoke:
         fn(arr)
         rows, groups, tile, threads = list(arr)
         splits, split = subset_plan(N_MAIN, 64)
-        self.kernels["B5S"]["shape"] = {"rows": rows, "groups": groups, "tile": tile,
-                                        "threads": threads, "splits": splits, "split": split}
-        return (f"B5S {rows} rows x {groups} groups over j ({threads} threads), {tile} "
-                f"sources staged a round, at F=64: {splits} splits of {split} x "
-                f"{-(-64 // rows)} row tiles = {splits * -(-64 // rows)} blocks, "
-                + self.entry_record("B5S", "jerk_subset_kernel", log))
+        for key in SUBSET_STEMS:
+            self.kernels[key]["shape"] = {"rows": rows, "groups": groups, "tile": tile,
+                                          "threads": threads, "splits": splits, "split": split}
+        return (f"B5S and its f64 instance B5S64 {rows} rows x {groups} groups over j "
+                f"({threads} threads), {tile} sources staged a round, at F=64: {splits} "
+                f"splits of {split} x {-(-64 // rows)} row tiles = "
+                f"{splits * -(-64 // rows)} blocks, "
+                + "; ".join(self.entry_record(k, stem, log) for k, stem in SUBSET_STEMS.items()))
 
     # phase 3
     def check_forces(self) -> str:
@@ -9132,6 +9238,427 @@ class Smoke:
                 f"the {n}-body cluster (positions perturbed by {ENS_MESH_SIGMA:g}), ds32, "
                 f"R={ENS_MESH_R:g}, {ENS_MESH_STEPS} steps: " + " | ".join(lines))
 
+    # phase 66
+    def f64_main_paths(self) -> str:
+        """f64 state on every single-device CUDA route (ROADMAP G.1) at
+        N_MAIN, each run held against the ds32 run of the same scene, config
+        and steps (max |d pos|, |d vel| over the bodies alive in both with
+        equal mass, F64_DS32_ATOL; F64_BLOCK_ATOL for the block stepper's hard
+        binary) with its kernels' launches counted, the collision paths
+        bit-equal to the collision-free f64 run up to their first contact,
+        and the KDK path's drift over ``drift_steps`` steps within
+        DRIFT_BUDGET; ms a step of each beside ds32's, by the host clock
+        around a synchronised run."""
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.multirate import respa_rollout
+        from orbital_tpu_torch.engine.rollout import resolve_force_detect_fn, resolve_force_fn
+        from orbital_tpu_torch.ops import cuda_collisions as cc
+        from orbital_tpu_torch.ops import cuda_forces as cf
+        from orbital_tpu_torch.ops import cuda_jerk as cj
+        from orbital_tpu_torch.ops import cuda_neighbor, cuda_p3m, cuda_tree
+        from orbital_tpu_torch.ops.p3m import p3m_max_occupancy
+        from orbital_tpu_torch.utils import native
+
+        torch = self.torch
+        pos, vel, mass, _ = self.cluster()
+        lines, perf = [], {}
+
+        def state_of(precision, p=pos, v=vel, m=mass, radius=None):
+            rad = None if radius is None else np.full(len(m), radius)
+            return ot.make_state(p, v, m, rad, precision=precision, device=self.dev)
+
+        def drive(cfg, st, steps, roll=None, **hook):
+            """init_forces, then ``steps`` steps: (start, final, ms a step)."""
+            st = ot.init_forces(st, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = (roll or (lambda s, c, k: ot.rollout(s, c, k, fused="never", **hook)))(
+                st, cfg, steps)
+            torch.cuda.synchronize()
+            return st, out[0], 1e3 * (time.perf_counter() - t0) / steps
+
+        def against(a, b, what, atol=F64_DS32_ATOL):
+            """max |d| of positions and velocities over the bodies alive in
+            both runs with equal masses (rel 1e-6), and the bodies whose
+            alive differs."""
+            ma, mb = a.mass.double(), b.mass.double()
+            keep = a.alive & b.alive & ((ma - mb).abs() <= 1e-6 * mb.abs())
+            err = max(float((getattr(a, f)().double()[keep]
+                             - getattr(b, f)().double()[keep]).abs().max())
+                      for f in ("pos_full", "vel_full"))
+            differ = int((a.alive != b.alive).sum())
+            if not (err <= atol and differ <= F64_ALIVE_SLACK):
+                raise AssertionError(f"f64 {what} vs ds32: {err:.3e} > {atol:g} or {differ} "
+                                     f"bodies alive in one run only (> {F64_ALIVE_SLACK})")
+            if not all(bool(torch.isfinite(getattr(a, f)()).all())
+                       for f in ("pos_full", "vel_full")) or a.pos.dtype != torch.float64:
+                raise AssertionError(f"f64 {what}: non-finite or not float64")
+            return err, differ
+
+        steps = F64_STEPS
+        # KDK "auto" (B1, f32 inside), its positions logged for the collision
+        # paths' bit-equality, and its drift
+        cfg = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2)
+        free = StepLog(resolve_force_fn(cfg, N_MAIN, self.dev, torch.float64), keep_pos=True)
+        reset_launches()
+        start, fin64, ms64 = drive(cfg, state_of("f64"), steps, force_fn=free)
+        b1 = cf.pairwise_acc_cuda.launches
+        _, ref, ms32 = drive(cfg, state_of("ds32"), steps)
+        err, _ = against(fin64, ref, "KDK")
+        if b1 != 1 + steps:
+            raise AssertionError(f"f64 KDK: B1 launched {b1} times in {steps} steps + init")
+        E0 = energy_f64(start)
+        quiet = cfg.replace(track_potential=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        far, _ = ot.rollout(start, quiet, self.drift_steps)
+        torch.cuda.synchronize()
+        ms_drift = 1e3 * (time.perf_counter() - t0) / self.drift_steps
+        drift = abs((energy_f64(far) - E0) / E0)
+        if drift > DRIFT_BUDGET:
+            raise AssertionError(f"f64 KDK drift {drift:.3e} > {DRIFT_BUDGET:g}")
+        perf["kdk"] = dict(ms=ms_drift, ds32_ms=self.main_ms_per_step, drift=drift)
+        lines.append(f"KDK auto (B1, f32 inside): {steps} steps within {err:.2e} of ds32's "
+                     f"({ms64:.3f} vs {ms32:.3f} ms/step), B1 {b1} launches; "
+                     f"{self.drift_steps} steps |dE/E| = {drift:.3e} <= {DRIFT_BUDGET:g} (f64, "
+                     f"{native.backend()}), {ms_drift:.3f} ms/step wall (ds32 phase 5: "
+                     f"{fmt(self.main_ms_per_step, 3)})")
+
+        # "chunked": the all-f64 route, plain torch on the card
+        c = cfg.replace(force_impl="chunked")
+        _, fin_c, ms_c = drive(c, state_of("f64"), F64_CHUNKED_STEPS)
+        _, ref_c, ms_c32 = drive(c, state_of("ds32"), F64_CHUNKED_STEPS)
+        err_c, _ = against(fin_c, ref_c, "chunked")
+        perf["chunked"] = dict(ms=ms_c, ds32_ms=ms_c32)
+        lines.append(f"chunked (all f64, no kernel): {F64_CHUNKED_STEPS} steps within "
+                     f"{err_c:.2e} of ds32's, {ms_c:.1f} vs {ms_c32:.1f} ms/step")
+
+        # the collision paths: the bench row's bounce, merge and resolve at R_RICH
+        for mode, radius, atol, extra in (
+                ("bounce", R_BENCH, F64_DS32_ATOL, {}), ("merge", R_RICH, F64_DS32_ATOL, {}),
+                ("resolve", R_RICH, F64_RICH_ATOL, dict(frag_seed=RESOLVE_SEED,
+                                                        debris_k=RESOLVE_DEBRIS_K))):
+            cfg_m = cfg.replace(collisions=mode, **extra)
+            log = StepLog(resolve_force_detect_fn(cfg_m, N_MAIN, self.dev, torch.float64),
+                          keep_pos=True, keep_counts=True)
+            reset_launches()
+            _, fin_m, ms_m = drive(cfg_m, state_of("f64", radius=radius), steps,
+                                   force_detect_fn=log)
+            launches = dict(B2=cf.pairwise_acc_detect_cuda.launches,
+                            B6=cc.bounce_deltas_cuda.launches,
+                            ROOTS64=cc.collision_roots_cuda.f64_launches,
+                            MARK64=cc.contact_marks_cuda.f64_launches,
+                            f32_sweep=cc.collision_roots_cuda.launches
+                            + cc.contact_marks_cuda.launches)
+            _, ref_m, ms_m32 = drive(cfg_m, state_of("ds32", radius=radius), steps)
+            err_m, differ = against(fin_m, ref_m, mode, atol)
+            counts = torch.stack(log.counts).cpu().numpy()
+            hit = np.flatnonzero(counts)
+            upto = int(hit[0]) + 1 if len(hit) else steps
+            same = all(torch.equal(a, b) for a, b in zip(log.positions[:upto],
+                                                         free.positions[:upto]))
+            want = {"bounce": "B6", "merge": "ROOTS64", "resolve": "MARK64"}[mode]
+            if launches["B2"] != steps or launches[want] != steps or launches["f32_sweep"] \
+                    or not same:
+                raise AssertionError(f"f64 {mode}: launches {launches} over {steps} steps, "
+                                     f"or not bit-equal to the collision-free f64 run up to "
+                                     f"the first contact (step {upto})")
+            if mode != "bounce":
+                self.kernels[want]["launches"] = launches[want]
+            perf[mode] = dict(ms=ms_m, ds32_ms=ms_m32, first_contact=upto)
+            lines.append(f"{mode} R={radius:g}: {steps} steps, contacts on {len(hit)} steps "
+                         f"(first at {upto if len(hit) else 'none'}), bit-equal to the "
+                         f"collision-free f64 run up to it, within {err_m:.2e} <= {atol:g} of "
+                         f"ds32's "
+                         f"({differ} bodies alive in one run only); {ms_m:.3f} vs "
+                         f"{ms_m32:.3f} ms/step; launches {launches}")
+
+        # Hermite, fixed dt (B5, f32 inside)
+        cfg_h = cfg.replace(integrator="hermite")
+        reset_launches()
+        _, fin_h, ms_h = drive(cfg_h, state_of("f64"), steps)
+        b5 = cj.accel_jerk_cuda.launches
+        _, ref_h, ms_h32 = drive(cfg_h, state_of("ds32"), steps)
+        err_h, _ = against(fin_h, ref_h, "Hermite")
+        if b5 != 1 + steps:
+            raise AssertionError(f"f64 Hermite: B5 launched {b5} times")
+        perf["hermite"] = dict(ms=ms_h, ds32_ms=ms_h32)
+        lines.append(f"Hermite: within {err_h:.2e} of ds32's, {ms_h:.3f} vs {ms_h32:.3f} "
+                     f"ms/step, B5 {b5} launches")
+
+        # the block stepper at rungs 1: its subset on the f64 instance
+        bpos, bvel, bmass = self.block_scene()
+        cfg_b = self.block_config(1)
+        reset_launches()
+        _, fin_b, ms_b = drive(cfg_b, state_of("f64", bpos, bvel, bmass), BLOCK_MACRO_STEPS)
+        subset = (cj.accel_jerk_subset_cuda.f64_launches, cj.accel_jerk_subset_cuda.launches)
+        _, ref_b, ms_b32 = drive(cfg_b, state_of("ds32", bpos, bvel, bmass), BLOCK_MACRO_STEPS)
+        err_b, _ = against(fin_b, ref_b, "block step", F64_BLOCK_ATOL)
+        if subset[0] < 1 or subset[1]:
+            raise AssertionError(f"f64 block step: subset launches (f64, f32) {subset}")
+        self.kernels["B5S64"]["launches"] = subset[0]
+        perf["block"] = dict(ms=ms_b, ds32_ms=ms_b32)
+        lines.append(f"block step rungs 1: {BLOCK_MACRO_STEPS} macro steps within {err_b:.2e} "
+                     f"<= {F64_BLOCK_ATOL:g} of ds32's, {ms_b:.2f} vs {ms_b32:.2f} ms/macro "
+                     f"step, B5S64 {subset[0]} launches, B5S 0")
+
+        # RESPA K = 4: the plain near sweep in f64 (JAX forces "xla" off f32)
+        cfg_r = self.respa_config()
+
+        def respa(s, c, k):
+            return respa_rollout(s, c, k)
+        reset_launches()
+        _, fin_r, ms_r = drive(cfg_r, state_of("f64"), steps, roll=respa)
+        near = (cuda_neighbor.near_acc_slots_cuda.launches
+                + cuda_neighbor.near_acc_slots_rows_cuda.launches)
+        b1_r = cf.pairwise_acc_cuda.launches
+        _, ref_r, ms_r32 = drive(cfg_r, state_of("ds32"), steps, roll=respa)
+        err_r, _ = against(fin_r, ref_r, "RESPA")
+        if near or b1_r < steps // RESPA_K:
+            raise AssertionError(f"f64 RESPA: near kernel {near} launches (want the plain "
+                                 f"sweep), B1 {b1_r}")
+        perf["respa"] = dict(ms=ms_r, ds32_ms=ms_r32)
+        lines.append(f"RESPA K={RESPA_K}: {steps} substeps on the plain f64 near sweep within "
+                     f"{err_r:.2e} of ds32's, {ms_r:.2f} vs {ms_r32:.2f} ms/substep, B1 {b1_r} "
+                     f"launches, near kernel 0")
+
+        # the tree on bench_tree's sphere (_far_phase_pow2 and B7 on f32 inputs)
+        tpos, tvel, tmass, budgets = self.plummer()
+        cfg_t = self.tree_config(budgets, track_potential=False)
+        reset_launches()
+        _, fin_t, ms_t = drive(cfg_t, state_of("f64", tpos, tvel, tmass), steps)
+        b7 = cuda_tree.tree_near_cuda.launches
+        _, ref_t, ms_t32 = drive(cfg_t, state_of("ds32", tpos, tvel, tmass), steps)
+        err_t, _ = against(fin_t, ref_t, "tree")
+        if b7 != 1 + steps:
+            raise AssertionError(f"f64 tree: B7 launched {b7} times")
+        perf["tree"] = dict(ms=ms_t, ds32_ms=ms_t32)
+        lines.append(f"tree: within {err_t:.2e} of ds32's, {ms_t:.2f} vs {ms_t32:.2f} ms/step, "
+                     f"B7 {b7} launches")
+
+        # P3M's uniform row
+        upos, uvel, umass = self.p3m_uniform()
+        cap = self.p3m_capacity(p3m_max_occupancy(self.t(upos), None, grid=P3M_GRID,
+                                                  box=self.box_t(P3M_BOX)))
+        cfg_p = ot.SimConfig(dt=DT, G=1.0, eps2=EPS2, force_impl="p3m", pm_grid=P3M_GRID,
+                             p3m_capacity=cap, pm_box=P3M_BOX)
+        reset_launches()
+        _, fin_p, ms_p = drive(cfg_p, state_of("f64", upos, uvel, umass), steps)
+        p3m = cuda_p3m.p3m_short_cuda.launches
+        _, ref_p, ms_p32 = drive(cfg_p, state_of("ds32", upos, uvel, umass), steps)
+        err_p, _ = against(fin_p, ref_p, "P3M")
+        if p3m != 1 + steps:
+            raise AssertionError(f"f64 P3M: the short range launched {p3m} times")
+        perf["p3m"] = dict(ms=ms_p, ds32_ms=ms_p32)
+        lines.append(f"P3M uniform row: within {err_p:.2e} of ds32's, {ms_p:.3f} vs "
+                     f"{ms_p32:.3f} ms/step, short range {p3m} launches")
+
+        # the collision-free ring over RING_P one-card ranks: B3, f32 inside
+        mesh = self.ring_mesh(RING_P)
+
+        def ring(s, c, k):
+            return ot.make_sharded_rollout(c, mesh, s, k)(ot.shard_state(mesh, s))
+
+        reset_launches()
+        _, shards, ms_g = drive(cfg, state_of("f64"), steps, roll=ring)
+        fin_g = ot.gather_state(mesh, shards)
+        b3, b1_g = cf.block_acc_cuda.launches, cf.pairwise_acc_cuda.launches
+        err_g, _ = against(fin_g, fin64, "ring")
+        if b3 != RING_P * RING_P * steps or b1_g != 1:
+            raise AssertionError(f"f64 ring: B3 {b3} launches for {steps} steps, B1 {b1_g}")
+        perf["ring"] = dict(ms=ms_g, ds32_ms=self.ring_perf.get("wall_ms_per_step"))
+        lines.append(f"ring P={RING_P} (B3, f32 inside, rounds added in f64): within "
+                     f"{err_g:.2e} of the single-card f64 run, {ms_g:.2f} ms/step, B3 {b3} "
+                     f"launches")
+        print("perf_f64 " + json.dumps(perf), file=sys.stderr)
+        return (f"f64 state at N={N_MAIN}, {steps} steps a path ({F64_CHUNKED_STEPS} chunked), "
+                f"against ds32 within {F64_DS32_ATOL:g}: " + " | ".join(lines))
+
+    # phase 67
+    def check_f64_instances(self) -> str:
+        """The contact sweep's f64 instance (both modes) and the B5 row
+        subset's, at the f64 main path's shapes, against their plain f64
+        versions on the card: the parents, roots and marks integer-equal
+        (at R_RICH's count > 0 and R_BENCH's 0), the subset's acc and jerk
+        within F64_SUBSET_RTOL of max |.|; CUDA-event times, the plain
+        versions', the bounds at the FP64 rate and the share."""
+        from orbital_tpu_torch.ops import cuda_collisions as cc
+        from orbital_tpu_torch.ops import cuda_jerk as cj
+        from orbital_tpu_torch.ops.collisions import pointer_jump
+        from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_detect_cuda
+
+        torch = self.torch
+        pos_np, vel_np, mass_np, _ = self.cluster()
+        n = N_MAIN
+        pos = torch.tensor(pos_np, dtype=torch.float64, device=self.dev)
+        vel = torch.tensor(vel_np, dtype=torch.float64, device=self.dev)
+        mass = torch.tensor(mass_np, dtype=torch.float64, device=self.dev)
+        alive = torch.ones(n, dtype=torch.bool, device=self.dev)
+        ident = torch.arange(n, device=self.dev)
+        lines, perf = [], {}
+        for key, radius in (("rich", R_RICH), ("bench", R_BENCH)):
+            rad = torch.full((n,), radius, dtype=torch.float64, device=self.dev)
+            count = pairwise_acc_detect_cuda(pos, mass, rad, alive, G=1.0, eps2=EPS2)[2]
+            par = cc.collision_parents_cuda(pos, rad, alive, contacts=count)
+            par0 = cc.collision_parents_plain(pos, rad, alive, contacts=count)
+            mark = cc.contact_marks_cuda(pos, rad, alive, contacts=count)
+            mark0 = cc.contact_marks_plain(pos, rad, alive, contacts=count)
+            roots = cc.collision_roots_cuda(pos, rad, alive, contacts=count)
+            torch.cuda.synchronize()
+            if not (torch.equal(par, par0) and torch.equal(mark, mark0)
+                    and torch.equal(roots, pointer_jump(par0))):
+                raise AssertionError(f"f64 contact sweep {key}: parents, roots or marks differ "
+                                     f"from the plain f64 versions")
+            linked, marked = int((par0 != ident).sum()), int(mark0.sum())
+            if (key == "rich") != (int(count) > 0 and linked > 0 and marked > 0):
+                raise AssertionError(f"f64 contact sweep {key}: count {int(count)}, {linked} "
+                                     f"linked, {marked} marked")
+            if key == "rich":
+                for m, fn, plain in (("parents", cc.collision_parents_cuda,
+                                      cc.collision_parents_plain),
+                                     ("mark", cc.contact_marks_cuda, cc.contact_marks_plain)):
+                    perf[m] = summary(time_ms(lambda: fn(pos, rad, alive, contacts=count), 10))
+                    perf[m + "_f32"] = summary(time_ms(
+                        lambda: fn(pos.float(), rad.float(), alive, contacts=count), 10))
+                    perf[m + "_plain"] = summary(time_ms(
+                        lambda: plain(pos, rad, alive, contacts=count), 1))
+                needed = int(torch.where(par0 < ident, par0 + 1, ident).sum())
+                perf["bound"] = bound(0, 41 * n, f64=OPS_ROOTS * needed)
+                perf["mark_bound"] = bound(0, 34 * n, f64=OPS_ROOTS * n * (n - 1) // 2)
+            lines.append(f"{key} R={radius:g} (count {int(count)}): parents, roots and marks "
+                         f"integer-equal to the plain f64 versions, {linked} linked, {marked} "
+                         f"marked")
+        for k, m, b in (("ROOTS64", "parents", "bound"), ("MARK64", "mark", "mark_bound")):
+            t = perf[m]["median"]
+            self.kernels[k].update(max_abs_err=0, ms=t, plain_ms=perf[m + "_plain"]["median"],
+                                   bound_ms=perf[b][0], bound_by=perf[b][1], library_ms=None)
+            lines.append(f"{k} {t:.4f} ms (spread {perf[m]['spread']:.4f}; the f32 instance "
+                         f"on the cast state {perf[m + '_f32']['median']:.4f}), plain "
+                         f"{perf[m + '_plain']['median']:.3f} ms, bound {perf[b][0]:.4f} ms "
+                         f"({perf[b][1]}), {100 * perf[b][0] / t:.1f}% of it")
+
+        rng = np.random.default_rng(self.seed + 67)
+        f = 64  # the block stepper's hermite_fast_cap
+        idx = torch.tensor(np.sort(rng.choice(n, f, replace=False)), device=self.dev)
+        errs = []
+        for eps2 in (EPS2, 0.0):
+            a, j = cj.accel_jerk_subset_cuda(idx, pos, vel, mass, alive, G=1.0, eps2=eps2)
+            a0, j0 = cj.accel_jerk_subset_plain(idx, pos, vel, mass, alive, G=1.0, eps2=eps2)
+            ea = float((a - a0).abs().max()) / float(a0.abs().max())
+            ej = float((j - j0).abs().max()) / float(j0.abs().max())
+            if a.dtype != torch.float64 or max(ea, ej) > F64_SUBSET_RTOL:
+                raise AssertionError(f"B5S64 eps2={eps2:g}: acc {ea:.3e}, jerk {ej:.3e} > "
+                                     f"{F64_SUBSET_RTOL:g} or not float64")
+            errs.append((ea, ej, float((a - a0).abs().max())))
+        kw = dict(G=1.0, eps2=EPS2)
+        t = summary(time_ms(lambda: cj.accel_jerk_subset_cuda(idx, pos, vel, mass, alive, **kw),
+                            20))
+        t32 = summary(time_ms(lambda: cj.accel_jerk_subset_cuda(
+            idx, pos.float(), vel.float(), mass.float(), alive, **kw), 20))
+        tp = summary(time_ms(lambda: cj.accel_jerk_subset_plain(idx, pos, vel, mass, alive,
+                                                               **kw), 3))
+        b = bound(0, 57 * n + 56 * f, f64=OPS_B5_SUBSET * f * n)
+        self.kernels["B5S64"].update(max_abs_err=errs[0][2], ms=t["median"],
+                                     plain_ms=tp["median"], bound_ms=b[0], bound_by=b[1],
+                                     library_ms=None)
+        lines.append(f"B5S64 F={f} x N={n}: acc and jerk within {max(e[0] for e in errs):.2e} "
+                     f"and {max(e[1] for e in errs):.2e} <= {F64_SUBSET_RTOL:g} of max |.| "
+                     f"(eps2 {EPS2:g} and 0); {t['median']:.4f} ms (spread {t['spread']:.4f}; "
+                     f"the f32 instance on the cast state {t32['median']:.4f}), plain "
+                     f"{tp['median']:.3f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+                     f"{100 * b[0] / t['median']:.1f}% of it")
+        print("perf_f64_instances " + json.dumps(perf), file=sys.stderr)
+        return "the f64 instances vs their plain f64 versions: " + "; ".join(lines)
+
+    # phase 68
+    def tree_flags(self) -> str:
+        """The tree's layout-study flags (``ops/tree.py``: ``_FAR_NHWC``,
+        ``_FAR_COMBINE = "lazy"``, ``_PAIRS_CF = "scan"``) on bench_tree's
+        sphere against the default evaluation, to the CPU tests' tolerances
+        (acc within 2e-6 RMS|a|, U rel 1e-6, lazy's U 1e-3; scan's geometry
+        integer-equal wherever it is read), each flag's evaluation ms by CUDA
+        events; and TREE_SKIP in a subprocess: the warning, and each part
+        zeroed (the near one: the far phase alone is left; the far one: the
+        near phase alone)."""
+        from orbital_tpu_torch.ops import tree as T
+
+        torch = self.torch
+        pos, _, mass, budgets = self.plummer()
+        pos_t = torch.tensor(pos, dtype=torch.float32, device=self.dev)
+        mass_t = torch.tensor(mass, dtype=torch.float32, device=self.dev)
+        kw = self.tree_flag_kwargs(budgets)
+
+        def evaluate():
+            return T.tree_acc_potential(pos_t, mass_t, None, **kw)
+
+        a0, U0, o0 = evaluate()
+        rms = float(a0.double().pow(2).sum(1).mean().sqrt())
+        times = {"default": summary(time_ms(evaluate, 5))}
+        lines = []
+        for name, flag, value, u_rtol in (("NHWC", "_FAR_NHWC", True, 1e-6),
+                                          ("lazy", "_FAR_COMBINE", "lazy", 1e-3),
+                                          ("scan", "_PAIRS_CF", "scan", 1e-6)):
+            old = getattr(T, flag)
+            setattr(T, flag, value)
+            try:
+                a, U, o = evaluate()
+                times[name] = summary(time_ms(evaluate, 5))
+            finally:
+                setattr(T, flag, old)
+            da = float((a.double() - a0.double()).abs().max())
+            du = abs(float(U) / float(U0) - 1.0)
+            if int(o) or int(o0) or da > 2e-6 * rms or du > u_rtol:
+                raise AssertionError(f"tree flag {name}: acc {da / rms:.3e} RMS, U {du:.3e} "
+                                     f"(> {u_rtol:g}?), overflow {int(o)}")
+            lines.append(f"{name}: acc within {da / rms:.2e} RMS|a|, U {du:.2e} <= {u_rtol:g}; "
+                         f"{times[name]['median']:.2f} ms an evaluation")
+        # the scan's geometry on the sphere's sorted cells
+        M = 2 ** TREE_LEVELS
+        *_, cc = T._bin(pos_t, mass_t, None, M, None, torch.float32)
+        sc, _ = T._sort_cells(cc, torch.ones(N_MAIN, dtype=torch.bool, device=self.dev), M)
+        geo = {}
+        for mode in ("table", "scan"):
+            old, T._PAIRS_CF = T._PAIRS_CF, mode
+            try:
+                geo[mode] = T._pairs_geometry(sc, N_MAIN, M, 1, TREE_CHUNK, budgets[0])
+            finally:
+                T._PAIRS_CF = old
+        read = geo["table"]["cnt"] > 0
+        for k, v in geo["table"].items():
+            w = geo["scan"][k]
+            if not (torch.equal(v[read], w[read]) if k == "j_lo" else torch.equal(v, w)):
+                raise AssertionError(f"_PAIRS_CF scan: {k} differs from the table's")
+        lines.append(f"scan's pairs geometry integer-equal to the table's ({int(read.sum()):,} "
+                     f"runs read)")
+        skip = self.tree_skip_subprocess(budgets)
+        print("perf_tree_flags " + json.dumps(times), file=sys.stderr)
+        return (f"tree flags on bench_tree's sphere (N={N_MAIN}, levels {TREE_LEVELS}, near "
+                f"kernel, f32), default {times['default']['median']:.2f} ms an evaluation: "
+                + "; ".join(lines) + f"; TREE_SKIP in a subprocess: {skip}")
+
+    @staticmethod
+    def tree_flag_kwargs(budgets) -> dict:
+        """``tree_acc_potential``'s arguments on bench_tree's sphere."""
+        return dict(G_grav=1.0, eps2=TREE_EPS2, levels=TREE_LEVELS, ws=1, near="kernel",
+                    chunk=TREE_CHUNK, wl_rj=TREE_RJ, max_chunks=budgets[0],
+                    wl_entries=budgets[1], with_potential=True)
+
+    def tree_skip_subprocess(self, budgets) -> str:
+        """Run :func:`tree_skip_child` in a new process with TREE_SKIP=near:
+        its warning on import, and each part zeroed."""
+        env = dict(os.environ, TREE_SKIP="near")
+        out = subprocess.run([sys.executable, "-c", "import chip_smoke as cs; "
+                              f"cs.tree_skip_child({self.seed}, {list(budgets)})"],
+                             cwd=REPO_ROOT, env=env, capture_output=True, text=True,
+                             timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"TREE_SKIP subprocess failed:\n{out.stderr[-4000:]}")
+        want = ("TREE_SKIP='near' is set: the tree force will OMIT its 'near'-field "
+                "contribution")
+        if want not in out.stderr:
+            raise AssertionError(f"TREE_SKIP: no warning in the subprocess's stderr "
+                                 f"{out.stderr[-2000:]!r}")
+        return f"warned; {out.stdout.strip().splitlines()[-1]}"
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -9226,6 +9753,9 @@ def main(argv=None) -> int:
         ("63 sharded tree", smoke.tree_ring),
         ("64 sharded respa", smoke.respa_ring),
         ("65 ensemble mesh", smoke.ensemble_mesh),
+        ("66 f64 main paths", smoke.f64_main_paths),
+        ("67 f64 instances", smoke.check_f64_instances),
+        ("68 tree flags", smoke.tree_flags),
     ]
     if args.sweep or args.parent or args.ring_variants:
         phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (

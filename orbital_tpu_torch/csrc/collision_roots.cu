@@ -74,6 +74,18 @@
 //   0, grid-stride), then a grid barrier, then the sweep: one launch a
 //   call, as the first version had, where an init kernel would add one.
 //
+// The f64 instance (sweep_kernel<double, kMode>) is the same walk on
+// double positions and radii, for f64 state: the JAX module runs both XLA
+// sweeps in the state's dtype, so an f32 test parts from its roots and
+// marks on grazing pairs. Its exact test is the same sequence of
+// correctly rounded double operations (__dsub_rn, __dmul_rn, __dadd_rn,
+// __dsqrt_rn), so it is integer-equal to the plain versions in f64. Its
+// prefilter bound follows the same argument with u = 2^-53: T_i = (R_i +
+// Rmax)^2 (1 + 2^-49) rounded up, plus 2^-1022 for subnormal squares. A pair
+// costs the same instructions in the FP64 pipes, which run at half the f32
+// FMA rate on an H100 SXM (33.5 against 67 TFLOP/s): its bound above a
+// count of 0 is the pair tests at the FP64 rate.
+//
 // The gate: `contacts` is the int32 contact count that the detecting force
 // sweep (B2, or B5's detecting variant) left on the device. When it is <= 0
 // the launch writes the identity (parents) or zeros (mark) and returns: no
@@ -98,9 +110,10 @@ constexpr int kMaxDevices = 64;
 
 enum Mode { kParents = 0, kMark = 1 };
 
+template <typename T>
 struct Sweep {
-  const float* pos;              // [n, 3]
-  const float* radius;           // [n]
+  const T* pos;                  // [n, 3]
+  const T* radius;               // [n]
   const unsigned char* alive;    // [n] or null (all alive)
   const int* contacts;           // one int32 or null (no gate)
   int n;
@@ -118,27 +131,83 @@ __device__ __forceinline__ void advance(int& bi, int& bj, int step, int nb) {
   }
 }
 
-__device__ __forceinline__ bool live(const Sweep& s, int i) {
+template <typename T>
+__device__ __forceinline__ bool live(const Sweep<T>& s, int i) {
   return i < s.n && (s.alive == nullptr || s.alive[i] != 0);
 }
 
+// The scalar type's correctly rounded operations, its row of four, its
+// quiet NaN, and the prefilter's bound T_i from a = R_i + Rmax: a^2 (1 +
+// 16 u) rounded up, plus the smallest normal (u the unit roundoff).
+template <typename T>
+struct Ops;
+
+template <>
+struct Ops<float> {
+  using Row = float4;
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float fma(float a, float b, float c) {
+    return __fmaf_rn(a, b, c);
+  }
+  static __device__ __forceinline__ float sqrt(float a) { return __fsqrt_rn(a); }
+  static __device__ __forceinline__ float max(float a, float b) { return fmaxf(a, b); }
+  static __device__ __forceinline__ float nan() { return __int_as_float(0x7fffffff); }
+  static __device__ __forceinline__ float bound(float a) {
+    return __fadd_ru(__fmul_ru(__fmul_ru(a, a), 1.0f + 0x1p-20f), 0x1p-126f);
+  }
+  static __device__ __forceinline__ float4 row(float x, float y, float z, float t) {
+    return make_float4(x, y, z, t);
+  }
+};
+
+// four doubles in one 32-byte shared load (CUDA 13 deprecates double4)
+struct alignas(32) Row64 {
+  double x, y, z, w;
+};
+
+template <>
+struct Ops<double> {
+  using Row = Row64;
+  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ __forceinline__ double fma(double a, double b, double c) {
+    return __fma_rn(a, b, c);
+  }
+  static __device__ __forceinline__ double sqrt(double a) { return __dsqrt_rn(a); }
+  static __device__ __forceinline__ double max(double a, double b) { return fmax(a, b); }
+  static __device__ __forceinline__ double nan() {
+    return __longlong_as_double(0x7fffffffffffffffLL);
+  }
+  static __device__ __forceinline__ double bound(double a) {
+    return __dadd_ru(__dmul_ru(__dmul_ru(a, a), 1.0 + 0x1p-49), 0x1p-1022);
+  }
+  static __device__ __forceinline__ Row64 row(double x, double y, double z, double t) {
+    return Row64{x, y, z, t};
+  }
+};
+
 // JAX's touching test of row (x, y, z) radius ri against column c.
-__device__ __forceinline__ bool touching(float4 p, float ri, float cx, float cy, float cz,
-                                         float cr) {
-  const float dx = __fsub_rn(p.x, cx);
-  const float dy = __fsub_rn(p.y, cy);
-  const float dz = __fsub_rn(p.z, cz);
-  const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                             __fmul_rn(dz, dz));
-  const float dist = __fsqrt_rn(r2);
-  return dist <= __fadd_rn(ri, cr) && dist > 0.0f;
+template <typename T, typename Row>
+__device__ __forceinline__ bool touching(Row p, T ri, T cx, T cy, T cz, T cr) {
+  using O = Ops<T>;
+  const T dx = O::sub(p.x, cx);
+  const T dy = O::sub(p.y, cy);
+  const T dz = O::sub(p.z, cz);
+  const T r2 = O::add(O::add(O::mul(dx, dx), O::mul(dy, dy)), O::mul(dz, dz));
+  const T dist = O::sqrt(r2);
+  return dist <= O::add(ri, cr) && dist > T(0);
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) sweep_kernel(Sweep s) {
-  __shared__ float4 rows[kWarps][kSlice];  // x (NaN when dead), y, z, T_i
-  __shared__ float rads[kWarps][kSlice];   // R_i
-  const float nan = __int_as_float(0x7fffffff);
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads) sweep_kernel(Sweep<T> s) {
+  using O = Ops<T>;
+  using Row = typename O::Row;
+  __shared__ Row rows[kWarps][kSlice];  // x (NaN when dead), y, z, T_i
+  __shared__ T rads[kWarps][kSlice];    // R_i
+  const T nan = O::nan();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int j = blockIdx.x * kThreads + threadIdx.x; j < s.n; j += gridDim.x * kThreads) {
@@ -154,24 +223,24 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(Sweep s) {
   int bi = 0, bj = 0;
   advance(bi, bj, blockIdx.x * kWarps + warp, nb);
   for (; bi < nb; advance(bi, bj, gridDim.x * kWarps, nb)) {
-    float cx[kK], cy[kK], cz[kK], cr[kK];
+    T cx[kK], cy[kK], cz[kK], cr[kK];
     long long best[kK];  // parents: the lowest touching row known
-    float rmax = 0.0f;
+    T rmax = T(0);
 #pragma unroll
     for (int c = 0; c < kK; ++c) {
       const int j = bj * kTile + 32 * c + lane;
       const bool on = live(s, j);
       cx[c] = on ? s.pos[3 * j] : nan;
-      cy[c] = on ? s.pos[3 * j + 1] : 0.0f;
-      cz[c] = on ? s.pos[3 * j + 2] : 0.0f;
-      cr[c] = on ? s.radius[j] : 0.0f;
-      rmax = fmaxf(rmax, cr[c]);
+      cy[c] = on ? s.pos[3 * j + 1] : T(0);
+      cz[c] = on ? s.pos[3 * j + 2] : T(0);
+      cr[c] = on ? s.radius[j] : T(0);
+      rmax = O::max(rmax, cr[c]);
       // the parent so far, from L2 (other SMs' atomics; a stale value only
       // exits later)
       if (kMode == kParents) best[c] = on ? __ldcg(&s.parent[j]) : 0;
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
+    for (int o = 16; o > 0; o >>= 1) rmax = O::max(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
 
     for (int r0 = bi * kTile; r0 < bi * kTile + kTile; r0 += kSlice) {
       if (kMode == kParents) {
@@ -182,12 +251,11 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(Sweep s) {
       }
       const int i = r0 + lane;
       const bool on = live(s, i);
-      const float ri = on ? s.radius[i] : 0.0f;
-      const float a = __fadd_rn(ri, rmax);
-      const float t = __fadd_ru(__fmul_ru(__fmul_ru(a, a), 1.0f + 0x1p-20f), 0x1p-126f);
+      const T ri = on ? s.radius[i] : T(0);
+      const T t = O::bound(O::add(ri, rmax));
       __syncwarp();
-      rows[warp][lane] = make_float4(on ? s.pos[3 * i] : nan, on ? s.pos[3 * i + 1] : 0.0f,
-                                     on ? s.pos[3 * i + 2] : 0.0f, t);
+      rows[warp][lane] = O::row(on ? s.pos[3 * i] : nan, on ? s.pos[3 * i + 1] : T(0),
+                                on ? s.pos[3 * i + 2] : T(0), t);
       rads[warp][lane] = ri;
       __syncwarp();
 
@@ -196,13 +264,13 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(Sweep s) {
       for (int c = 0; c < kK; ++c) hit[c] = false;
 #pragma unroll 8
       for (int r = 0; r < kSlice; ++r) {
-        const float4 p = rows[warp][r];
+        const Row p = rows[warp][r];
 #pragma unroll
         for (int c = 0; c < kK; ++c) {
-          const float dx = __fsub_rn(p.x, cx[c]);
-          const float dy = __fsub_rn(p.y, cy[c]);
-          const float dz = __fsub_rn(p.z, cz[c]);
-          const float r2 = __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
+          const T dx = O::sub(p.x, cx[c]);
+          const T dy = O::sub(p.y, cy[c]);
+          const T dz = O::sub(p.z, cz[c]);
+          const T r2 = O::fma(dz, dz, O::fma(dy, dy, O::mul(dx, dx)));
           hit[c] |= r2 <= p.w;
         }
       }
@@ -227,13 +295,19 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(Sweep s) {
   }
 }
 
-// The co-resident blocks of the mode's kernel on `device` (the cooperative
-// grid), cached a device.
-cudaError_t resident_blocks(int device, int mode, int* blocks) {
-  static int cache[kMaxDevices][2];
+template <typename T>
+const void* kernel_of(int mode) {
+  return mode == kParents ? reinterpret_cast<const void*>(sweep_kernel<T, kParents>)
+                          : reinterpret_cast<const void*>(sweep_kernel<T, kMark>);
+}
+
+// The co-resident blocks of the instance's kernel on `device` (the
+// cooperative grid), cached a device; `wide` picks the f64 instance.
+cudaError_t resident_blocks(int device, int mode, int wide, int* blocks) {
+  static int cache[kMaxDevices][2][2];
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (cache[device][mode] > 0) {
-    *blocks = cache[device][mode];
+  if (cache[device][wide][mode] > 0) {
+    *blocks = cache[device][wide][mode];
     return cudaSuccess;
   }
   int coop = 0, sms = 0, per_sm = 0;
@@ -243,30 +317,29 @@ cudaError_t resident_blocks(int device, int mode, int* blocks) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mode == kParents ? sweep_kernel<kParents> : sweep_kernel<kMark>, kThreads, 0);
+      &per_sm, wide ? kernel_of<double>(mode) : kernel_of<float>(mode), kThreads, 0);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  cache[device][mode] = *blocks = per_sm * sms;
+  cache[device][wide][mode] = *blocks = per_sm * sms;
   return cudaSuccess;
 }
 
+template <typename T>
 int launch(int mode, const void* pos, const void* radius, const void* alive,
            const void* contacts, int n, void* out, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;
   int grid = 0;
-  err = resident_blocks(device, mode, &grid);
+  err = resident_blocks(device, mode, sizeof(T) == 8, &grid);
   if (err != cudaSuccess) return err;
-  Sweep s{static_cast<const float*>(pos), static_cast<const float*>(radius),
-          static_cast<const unsigned char*>(alive), static_cast<const int*>(contacts), n,
-          mode == kParents ? static_cast<long long*>(out) : nullptr,
-          mode == kMark ? static_cast<unsigned char*>(out) : nullptr};
+  Sweep<T> s{static_cast<const T*>(pos), static_cast<const T*>(radius),
+             static_cast<const unsigned char*>(alive), static_cast<const int*>(contacts), n,
+             mode == kParents ? static_cast<long long*>(out) : nullptr,
+             mode == kMark ? static_cast<unsigned char*>(out) : nullptr};
   void* args[] = {&s};
-  err = cudaLaunchCooperativeKernel(
-      mode == kParents ? reinterpret_cast<const void*>(sweep_kernel<kParents>)
-                       : reinterpret_cast<const void*>(sweep_kernel<kMark>),
-      dim3(grid), dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel(kernel_of<T>(mode), dim3(grid), dim3(kThreads), args, 0,
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -280,13 +353,25 @@ extern "C" {
 // int64, written for every body.
 int collision_parents(const void* pos, const void* radius, const void* alive,
                       const void* contacts, int n, void* parent, void* stream, int device) {
-  return launch(kParents, pos, radius, alive, contacts, n, parent, stream, device);
+  return launch<float>(kParents, pos, radius, alive, contacts, n, parent, stream, device);
 }
 
 // As collision_parents; mark: [n] bool, written for every body.
 int contact_marks(const void* pos, const void* radius, const void* alive,
                   const void* contacts, int n, void* mark, void* stream, int device) {
-  return launch(kMark, pos, radius, alive, contacts, n, mark, stream, device);
+  return launch<float>(kMark, pos, radius, alive, contacts, n, mark, stream, device);
+}
+
+// The f64 instances: pos [n, 3] and radius [n] double, the rest as above.
+int collision_parents_f64(const void* pos, const void* radius, const void* alive,
+                          const void* contacts, int n, void* parent, void* stream,
+                          int device) {
+  return launch<double>(kParents, pos, radius, alive, contacts, n, parent, stream, device);
+}
+
+int contact_marks_f64(const void* pos, const void* radius, const void* alive,
+                      const void* contacts, int n, void* mark, void* stream, int device) {
+  return launch<double>(kMark, pos, radius, alive, contacts, n, mark, stream, device);
 }
 
 // The launch shape on the current device: shape[0..5] = columns a lane,
@@ -294,8 +379,8 @@ int contact_marks(const void* pos, const void* radius, const void* alive,
 // blocks of the parents mode (0 if the device cannot tell), tiles at n.
 void collision_parents_shape(int n, int* shape) {
   int device = 0, blocks = 0;
-  if (cudaGetDevice(&device) != cudaSuccess || resident_blocks(device, kParents, &blocks) !=
-                                                   cudaSuccess)
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      resident_blocks(device, kParents, 0, &blocks) != cudaSuccess)
     blocks = 0;
   const long long nb = (static_cast<long long>(n) + kTile - 1) / kTile;
   shape[0] = kK;

@@ -99,6 +99,12 @@
 //   splits, then a fixed xor-shuffle tree) and writes G times them to the
 //   [F, 6] output, then resets the counter to 0 for the next launch. One
 //   split writes the output directly.
+// The f64 instance (jerk_subset_kernel<double, ...>, entry
+// nbody_jerk_subset_f64) takes the place of the JAX stepper's XLA subset in
+// f64 state: the same launch and the same order of sums in double, 1 /
+// sqrt for the FTZ rsqrt, G and eps2 in double. Its 4.2 M pairs at F = 64
+// and N = 65,536 are ~40 FP64 operations each: a 0.005 ms bound at the
+// H100 SXM's 33.5 TFLOP/s, still under a launch.
 // A self pair adds exactly zero acc and jerk (r_ij = v_ij = 0; with eps2 = 0
 // the r2 > 0 select drops it), so no index mask is needed and the result
 // equals the index-masked plain version. Target indices are clamped into
@@ -341,75 +347,180 @@ jerk_kernel(const float4* __restrict__ pm, const float4* __restrict__ vr, int n,
   }
 }
 
-// Reads row j of a strided [N, 3] float array.
-__device__ __forceinline__ float3 row3(const float* __restrict__ a, long long s0,
-                                       long long s1, long long j) {
-  const float* p = a + j * s0;
-  return make_float3(p[0], p[s1], p[2 * s1]);
+// The subset's f64 instance: its pair sums in double, each in the f32
+// instance's order (the same two-level sum), with 1 / sqrt in place of the
+// FTZ rsqrt; no pe and no count.
+struct Sums64 {
+  double ax, ay, az, jx, jy, jz;
+};
+
+struct alignas(32) Vec64 {
+  double x, y, z, w;
+};
+
+template <int NI, bool kSoft>
+__device__ __forceinline__ void sweep_tile64(const Vec64* tp, const Vec64* tv, int count,
+                                             const Vec64 (&pi)[NI], const Vec64 (&vi)[NI],
+                                             double eps2, Sums64 (&t)[NI]) {
+#pragma unroll
+  for (int k = 0; k < NI; ++k) t[k] = Sums64{0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+#pragma unroll 4
+  for (int jj = 0; jj < count; ++jj) {
+    const Vec64 pj = tp[jj];
+    const Vec64 vj = tv[jj];
+#pragma unroll
+    for (int k = 0; k < NI; ++k) {
+      const double dx = pj.x - pi[k].x;
+      const double dy = pj.y - pi[k].y;
+      const double dz = pj.z - pi[k].z;
+      const double dvx = vj.x - vi[k].x;
+      const double dvy = vj.y - vi[k].y;
+      const double dvz = vj.z - vi[k].z;
+      const double r2 = fma(dz, dz, fma(dx, dx, dy * dy));
+      double inv;
+      if (kSoft) {
+        inv = 1.0 / sqrt(r2 + eps2);
+      } else {
+        inv = r2 > 0.0 ? 1.0 / sqrt(r2) : 0.0;
+      }
+      const double inv2 = inv * inv;
+      const double w = pj.w * (inv2 * inv);
+      const double rv = dx * dvx + dy * dvy + dz * dvz;
+      const double c = 3.0 * rv * inv2;
+      t[k].ax += w * dx;
+      t[k].ay += w * dy;
+      t[k].az += w * dz;
+      t[k].jx += w * (dvx - c * dx);
+      t[k].jy += w * (dvy - c * dy);
+      t[k].jz += w * (dvz - c * dz);
+    }
+  }
 }
 
-template <bool kSoft, bool kIdx64>
+// The row subset's scalar type: its row of four, its sums and its sweep of
+// a staged run (f32: the full sweep's sweep_tile, bit for bit as before).
+template <typename T>
+struct Subset;
+
+template <>
+struct Subset<float> {
+  using V4 = float4;
+  using S = Sums;
+  static __device__ __forceinline__ float4 vec(float x, float y, float z, float w) {
+    return make_float4(x, y, z, w);
+  }
+  static __device__ __forceinline__ Sums zero() { return zero_sums(); }
+  static __device__ __forceinline__ void add(Sums& s, const Sums& t) { add_sums(s, t); }
+  template <bool kSoft>
+  static __device__ __forceinline__ void sweep(const float4* tp, const float4* tv, int count,
+                                               const float4 (&pi)[1], const float4 (&vi)[1],
+                                               float eps2, Sums (&t)[1]) {
+    float unused[1];
+    sweep_tile<1, kSoft, false, false>(tp, tv, count, pi, vi, eps2, t, unused);
+  }
+};
+
+template <>
+struct Subset<double> {
+  using V4 = Vec64;
+  using S = Sums64;
+  static __device__ __forceinline__ Vec64 vec(double x, double y, double z, double w) {
+    return Vec64{x, y, z, w};
+  }
+  static __device__ __forceinline__ Sums64 zero() {
+    return Sums64{0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  }
+  static __device__ __forceinline__ void add(Sums64& s, const Sums64& t) {
+    s.ax += t.ax;
+    s.ay += t.ay;
+    s.az += t.az;
+    s.jx += t.jx;
+    s.jy += t.jy;
+    s.jz += t.jz;
+  }
+  template <bool kSoft>
+  static __device__ __forceinline__ void sweep(const Vec64* tp, const Vec64* tv, int count,
+                                               const Vec64 (&pi)[1], const Vec64 (&vi)[1],
+                                               double eps2, Sums64 (&t)[1]) {
+    sweep_tile64<1, kSoft>(tp, tv, count, pi, vi, eps2, t);
+  }
+};
+
+// Reads row j of a strided [N, 3] array.
+template <typename T>
+__device__ __forceinline__ void row3(const T* __restrict__ a, long long s0, long long s1,
+                                     long long j, T& x, T& y, T& z) {
+  const T* p = a + j * s0;
+  x = p[0];
+  y = p[s1];
+  z = p[2 * s1];
+}
+
+template <typename T, bool kSoft, bool kIdx64>
 __global__ void __launch_bounds__(kSubThreads)
-jerk_subset_kernel(const float* __restrict__ pos, long long ps0, long long ps1,
-                   const float* __restrict__ vel, long long vs0, long long vs1,
-                   const float* __restrict__ mass, long long ms,
+jerk_subset_kernel(const T* __restrict__ pos, long long ps0, long long ps1,
+                   const T* __restrict__ vel, long long vs0, long long vs1,
+                   const T* __restrict__ mass, long long ms,
                    const unsigned char* __restrict__ alive, long long as,
-                   const void* __restrict__ idx, int f, int n, int split, float G, float eps2,
-                   float* __restrict__ part, unsigned int* __restrict__ done,
-                   float* __restrict__ out) {
-  __shared__ float4 tp[kSubTile];
-  __shared__ float4 tv[kSubTile];
-  __shared__ float red[kSubGroups][kSubRows][6];
+                   const void* __restrict__ idx, int f, int n, int split, T G, T eps2,
+                   T* __restrict__ part, unsigned int* __restrict__ done,
+                   T* __restrict__ out) {
+  using U = Subset<T>;
+  using V4 = typename U::V4;
+  __shared__ V4 tp[kSubTile];
+  __shared__ V4 tv[kSubTile];
+  __shared__ T red[kSubGroups][kSubRows][6];
   __shared__ bool last;
   const int r = threadIdx.x & 31;  // the lane: a target row of the tile
   const int g = threadIdx.x >> 5;  // the warp: a group over j
   const int row = blockIdx.x * kSubRows + r;
-  float4 pi[1] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
-  float4 vi[1] = {pi[0]};
+  V4 pi[1] = {U::vec(T(0), T(0), T(0), T(0))};
+  V4 vi[1] = {pi[0]};
   if (row < f) {
     // clamp as a JAX gather does; the steppers pass argsort indices
     long long i = kIdx64 ? static_cast<const long long*>(idx)[row]
                          : static_cast<long long>(static_cast<const int*>(idx)[row]);
     i = min(max(i, 0LL), static_cast<long long>(n - 1));
-    const float3 p = row3(pos, ps0, ps1, i);
-    const float3 v = row3(vel, vs0, vs1, i);
-    pi[0] = make_float4(p.x, p.y, p.z, 0.0f);
-    vi[0] = make_float4(v.x, v.y, v.z, 0.0f);
+    T x, y, z, vx, vy, vz;
+    row3(pos, ps0, ps1, i, x, y, z);
+    row3(vel, vs0, vs1, i, vx, vy, vz);
+    pi[0] = U::vec(x, y, z, T(0));
+    vi[0] = U::vec(vx, vy, vz, T(0));
   }
   const int j_begin = blockIdx.y * split;
   const int j_end = min(j_begin + split, n);
-  Sums s = zero_sums();
-  float unused[1];
+  typename U::S s = U::zero();
   for (int j0 = j_begin; j0 < j_end; j0 += kSubTile) {
     const int j = j0 + static_cast<int>(threadIdx.x);
     if (threadIdx.x < kSubTile && j < j_end) {
-      const float3 p = row3(pos, ps0, ps1, j);
-      const float3 v = row3(vel, vs0, vs1, j);
+      T x, y, z, vx, vy, vz;
+      row3(pos, ps0, ps1, j, x, y, z);
+      row3(vel, vs0, vs1, j, vx, vy, vz);
       const bool live = alive == nullptr || alive[j * as] != 0;
-      tp[threadIdx.x] = make_float4(p.x, p.y, p.z, live ? mass[j * ms] : 0.0f);
-      tv[threadIdx.x] = make_float4(v.x, v.y, v.z, 0.0f);
+      tp[threadIdx.x] = U::vec(x, y, z, live ? mass[j * ms] : T(0));
+      tv[threadIdx.x] = U::vec(vx, vy, vz, T(0));
     }
     __syncthreads();
     const int lo = g * kSubPer;
     const int count = min(kSubPer, j_end - j0 - lo);
-    Sums t[1];
+    typename U::S t[1];
     if (count == kSubPer) {
-      sweep_tile<1, kSoft, false, false>(tp + lo, tv + lo, kSubPer, pi, vi, eps2, t, unused);
-      add_sums(s, t[0]);
+      U::template sweep<kSoft>(tp + lo, tv + lo, kSubPer, pi, vi, eps2, t);
+      U::add(s, t[0]);
     } else if (count > 0) {
-      sweep_tile<1, kSoft, false, false>(tp + lo, tv + lo, count, pi, vi, eps2, t, unused);
-      add_sums(s, t[0]);
+      U::template sweep<kSoft>(tp + lo, tv + lo, count, pi, vi, eps2, t);
+      U::add(s, t[0]);
     }
     __syncthreads();
   }
   // the groups' sums of each row, added in group order
-  const float mine[6] = {s.ax, s.ay, s.az, s.jx, s.jy, s.jz};
+  const T mine[6] = {s.ax, s.ay, s.az, s.jx, s.jy, s.jz};
 #pragma unroll
   for (int c = 0; c < 6; ++c) red[g][r][c] = mine[c];
   __syncthreads();
   const int splits = gridDim.y;
   if (g == 0 && row < f) {
-    float sum[6];
+    T sum[6];
 #pragma unroll
     for (int c = 0; c < 6; ++c) sum[c] = red[0][r][c];
     for (int q = 1; q < kSubGroups; ++q) {
@@ -437,7 +548,7 @@ jerk_subset_kernel(const float* __restrict__ pos, long long ps0, long long ps1,
   const int rows = min(kSubRows, f - static_cast<int>(blockIdx.x) * kSubRows);
   for (int o = g; o < rows * 6; o += kSubGroups) {
     const size_t at = static_cast<size_t>(blockIdx.x * kSubRows * 6 + o) * splits;
-    float sum = 0.0f;
+    T sum = T(0);
     for (int q = r; q < splits; q += 32) sum += __ldcg(part + at + q);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -463,6 +574,36 @@ int launch_full(const void* pm, const void* vr, int n, float G, float eps2, void
   } else {
     jerk_kernel<false, kDetect><<<grid, kThreads, 0, s>>>(p, v, n, G, eps2, o, c);
   }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_subset(const void* pos, int ps0, int ps1, const void* vel, int vs0, int vs1,
+                  const void* mass, int ms, const void* alive, int as, const void* idx,
+                  int idx64, int f, int n, int split, T G, T eps2, void* part, void* done,
+                  void* out, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (f <= 0 || n <= 0) return cudaSuccess;
+  if (split <= 0 || split % kSubTile != 0) return cudaErrorInvalidValue;
+  const dim3 grid((f + kSubRows - 1) / kSubRows, (n + split - 1) / split);
+  const auto* p = static_cast<const T*>(pos);
+  const auto* v = static_cast<const T*>(vel);
+  const auto* m = static_cast<const T*>(mass);
+  const auto* a = static_cast<const unsigned char*>(alive);
+  auto* pt = static_cast<T*>(part);
+  auto* d = static_cast<unsigned int*>(done);
+  auto* o = static_cast<T*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+#define OT_SUBSET(kSoft, kIdx64)                                                      \
+  jerk_subset_kernel<T, kSoft, kIdx64><<<grid, kSubThreads, 0, s>>>(                  \
+      p, ps0, ps1, v, vs0, vs1, m, ms, a, as, idx, f, n, split, G, eps2, pt, d, o)
+  if (eps2 > T(0)) {
+    if (idx64) OT_SUBSET(true, true); else OT_SUBSET(true, false);
+  } else {
+    if (idx64) OT_SUBSET(false, true); else OT_SUBSET(false, false);
+  }
+#undef OT_SUBSET
   return cudaGetLastError();
 }
 
@@ -496,29 +637,19 @@ int nbody_jerk_subset(const void* pos, int ps0, int ps1, const void* vel, int vs
                       const void* mass, int ms, const void* alive, int as, const void* idx,
                       int idx64, int f, int n, int split, float G, float eps2, void* part,
                       void* done, void* out, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (f <= 0 || n <= 0) return cudaSuccess;
-  if (split <= 0 || split % kSubTile != 0) return cudaErrorInvalidValue;
-  const dim3 grid((f + kSubRows - 1) / kSubRows, (n + split - 1) / split);
-  const auto* p = static_cast<const float*>(pos);
-  const auto* v = static_cast<const float*>(vel);
-  const auto* m = static_cast<const float*>(mass);
-  const auto* a = static_cast<const unsigned char*>(alive);
-  auto* pt = static_cast<float*>(part);
-  auto* d = static_cast<unsigned int*>(done);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-#define OT_SUBSET(kSoft, kIdx64)                                                      \
-  jerk_subset_kernel<kSoft, kIdx64><<<grid, kSubThreads, 0, s>>>(                     \
-      p, ps0, ps1, v, vs0, vs1, m, ms, a, as, idx, f, n, split, G, eps2, pt, d, o)
-  if (eps2 > 0.0f) {
-    if (idx64) OT_SUBSET(true, true); else OT_SUBSET(true, false);
-  } else {
-    if (idx64) OT_SUBSET(false, true); else OT_SUBSET(false, false);
-  }
-#undef OT_SUBSET
-  return cudaGetLastError();
+  return launch_subset<float>(pos, ps0, ps1, vel, vs0, vs1, mass, ms, alive, as, idx, idx64, f,
+                              n, split, G, eps2, part, done, out, stream, device);
+}
+
+// The f64 instance: pos, vel, mass, part and out double, G and eps2 double,
+// the rest as nbody_jerk_subset.
+int nbody_jerk_subset_f64(const void* pos, int ps0, int ps1, const void* vel, int vs0,
+                          int vs1, const void* mass, int ms, const void* alive, int as,
+                          const void* idx, int idx64, int f, int n, int split, double G,
+                          double eps2, void* part, void* done, void* out, void* stream,
+                          int device) {
+  return launch_subset<double>(pos, ps0, ps1, vel, vs0, vs1, mass, ms, alive, as, idx, idx64,
+                               f, n, split, G, eps2, part, done, out, stream, device);
 }
 
 // The row subset's block shape: shape[0..3] = target rows a block, groups

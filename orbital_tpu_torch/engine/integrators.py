@@ -22,6 +22,9 @@ selected on the device with ``torch.where``: a contact-free step leaves the
 state bit-for-bit as it was, as the JAX stepper's ``lax.cond`` does, and the
 host never reads the count. On CUDA the bounce kernel, the merge root search
 and resolve's contact mark read the same count and skip their pair work.
+On f64 state the merge root search and the contact mark run the contact
+sweep's f64 instance, the bounce kernel computes in f32 inside (the dense
+f64 sweep at N <= 4096), as the JAX package routes them.
 Hermite's force evaluation is at the *predicted* positions, so its gate
 tests predicted separations; the sweep itself runs on the corrected state.
 RESPA has no single-step function (nor has the JAX package):
@@ -79,13 +82,18 @@ def _accumulate(hi, lo: Optional[torch.Tensor], *increments):
     return hi, lo
 
 
-def resolve_bounce_fn(n: int, device: torch.device | str):
-    """The bounce sweep for a body count and device:
+def resolve_bounce_fn(n: int, device: torch.device | str,
+                      dtype: torch.dtype = torch.float32):
+    """The bounce sweep for a body count, device and dtype:
     ``fn(pos, vel, mass, radius, alive, restitution, contacts) -> (dpos, dvel)``.
     CUDA tensors take the kernel at every N, so that the device-held count
-    can skip it; CPU tensors take the dense sweep at N <= 4096 and the
-    row-blocked one above."""
-    if torch.device(device).type == "cuda":
+    can skip it, except f64 state at N <= 4096, which takes the dense f64
+    sweep as the JAX stepper does (``orbital_tpu/engine/integrators.py:
+    96-107``; above 4,096 the kernel computes in f32 inside, as JAX's B6).
+    CPU tensors take the dense sweep at N <= 4096 and the row-blocked one
+    above."""
+    if torch.device(device).type == "cuda" and (dtype != torch.float64
+                                                or n > _DENSE_BOUNCE_MAX_N):
         from ..ops import cuda_collisions
 
         def kernel(pos, vel, mass, radius, alive, restitution, contacts):
@@ -106,7 +114,8 @@ def resolve_roots_fn(n: int, device: torch.device | str):
     ``contacts`` count is 0. CUDA tensors take the kernel at every N, so
     that the device-held count can skip it; CPU tensors take the dense
     search at N <= 4096 and the column-blocked one above, as the JAX stepper
-    does."""
+    does. On f64 state the kernel's f64 instance runs, as JAX's XLA search
+    runs in the state's dtype."""
     if torch.device(device).type == "cuda":
         from ..ops import cuda_collisions
 
@@ -125,8 +134,8 @@ def resolve_roots_fn(n: int, device: torch.device | str):
 def resolve_marks_fn(n: int, device: torch.device | str):
     """Resolve's contact mark for a body count and device:
     ``fn(pos, radius, alive, contacts) -> touch_any``. CUDA tensors take the
-    kernel (gated on a given count: no marks at 0); CPU tensors the row
-    blocks of the JAX stepper's subset path."""
+    kernel (gated on a given count: no marks at 0; its f64 instance on f64
+    state); CPU tensors the row blocks of the JAX stepper's subset path."""
     if torch.device(device).type == "cuda":
         from ..ops import cuda_collisions
 
@@ -191,7 +200,7 @@ def _apply_collisions(cfg: SimConfig, state: NBodyState,
         new = dict(pos=pos, vel=vel, mass=mass, radius=radius, alive=alive,
                    pos_lo=zeros, vel_lo=zeros)
     else:
-        bounce = bounce or resolve_bounce_fn(state.n_bodies, state.device)
+        bounce = bounce or resolve_bounce_fn(state.n_bodies, state.device, state.dtype)
         dpos, dvel = bounce(state.pos, state.vel, state.mass, state.radius, state.alive,
                             cfg.restitution, contacts)
         pos, pos_lo = _accumulate(state.pos, state.pos_lo, dpos)

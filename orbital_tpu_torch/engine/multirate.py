@@ -76,14 +76,12 @@ def _resolve_sweep(cfg: SimConfig, dtype: torch.dtype, device: torch.device | st
     which names the plain sweep; ``"auto"`` and ``"pallas"`` use the
     worklist when ``cfg.respa_wl_entries > 0``, as the JAX package does. CPU
     tensors take the plain sweep under ``"auto"`` and ``"xla"`` and the
-    wrappers' plain versions otherwise. The kernel is float32: f64 state on
-    CUDA raises, and on the CPU f64 always takes the plain sweep."""
+    wrappers' plain versions otherwise. The kernel is float32: non-f32
+    state takes the plain sweep in its own dtype on every device, as the
+    JAX package forces ``"xla"`` for it (``orbital_tpu/engine/multirate.py:
+    88-89``)."""
     device = torch.device(device)
     impl = cfg.respa_impl
-    if device.type == "cuda" and dtype == torch.float64:
-        raise NotImplementedError(
-            "precision='f64' on CUDA: the CUDA kernels compute in float32; "
-            "use ds32 on the card and f64 on the CPU")
     if impl == "auto":
         impl = "pallas" if device.type == "cuda" else "xla"
     if dtype != torch.float32:

@@ -51,13 +51,11 @@ class Trajectory:
         return self.pos.shape[0]
 
 
-def _resolve_impl(cfg: SimConfig, n: int, device: torch.device,
-                  dtype: torch.dtype) -> str:
+def _resolve_impl(cfg: SimConfig, n: int, device: torch.device) -> str:
     """``"auto"``: dense at N <= 4096; above it the CUDA kernel ("pallas")
-    for CUDA tensors and the row-blocked plain path for CPU tensors. f64
-    state on CUDA takes the dense route only: it is plain PyTorch (XLA in
-    the JAX package), while every other route is an f32 kernel or stands in
-    for one."""
+    for CUDA tensors and the row-blocked plain path for CPU tensors. Every
+    dtype resolves alike, as in the JAX package: f64 state on CUDA reaches
+    the same routes, the kernels computing in f32 inside."""
     impl = cfg.force_impl
     if impl == "ring":
         # the ring force needs the mesh's communicator and runs on each rank;
@@ -70,11 +68,6 @@ def _resolve_impl(cfg: SimConfig, n: int, device: torch.device,
             impl = "dense"
         else:
             impl = "pallas" if device.type == "cuda" else "chunked"
-    if device.type == "cuda" and dtype == torch.float64 and impl != "dense":
-        raise NotImplementedError(
-            f"precision='f64' on CUDA takes the dense route only (N <= {_DENSE_MAX_N} "
-            f"under 'auto'), not {impl!r}: the CUDA kernels compute in float32; use ds32 "
-            "on the card and f64 on the CPU")
     return impl
 
 
@@ -87,9 +80,13 @@ def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
     names the exact-force kernel and maps to the CUDA kernel at any N;
     ``"pallas_sym"`` (half-pair, U = 0) and ``"pallas_mxu"`` (Gram) map to
     their CUDA kernels the same way, and ``"mxu"`` to the plain-torch Gram
-    form on every device. Each takes its plain version on CPU tensors. The
-    kernels are f32, so f64 state on CUDA takes the dense route only and
-    raises on any other (f64 is the CPU golden path).
+    form on every device. Each takes its plain version on CPU tensors.
+    f64 state on CUDA takes the same routes as the JAX package: the kernels
+    ("pallas", "pallas_sym", "pallas_mxu") cast it to f32 at entry and
+    return f64 (``utils.kernels.in_f32``), "mxu", "tree", "pm" and "p3m"
+    compute in f32 inside as on the CPU, and "dense" and "chunked" are plain
+    PyTorch in f64 on the card ("chunked" is the all-f64 route above 4,096
+    bodies).
     ``"tree"`` is ``ops.tree.tree_acc_potential`` in the near mode
     ``cfg.tree_near`` (``"cells"``, ``"columns"``, ``"pairs"``, or
     ``"kernel"``, whose near sweep is the B7 kernel on CUDA tensors) with the
@@ -101,7 +98,7 @@ def resolve_force_fn(cfg: SimConfig, n: int, device: torch.device | str,
     counter is dropped here, so size ``cfg.p3m_capacity`` first
     (``simulate()`` probes it).
     """
-    impl = _resolve_impl(cfg, n, torch.device(device), dtype)
+    impl = _resolve_impl(cfg, n, torch.device(device))
     if impl in ("pm", "p3m"):
         box = _box_on(cfg)
         if impl == "pm":
@@ -208,14 +205,13 @@ def resolve_force_detect_fn(cfg: SimConfig, n: int, device: torch.device | str,
     chunked forces plus the chunked count for CPU tensors. Returns None for
     a force path without a detecting variant ("pallas_sym", "mxu",
     "pallas_mxu", "tree", "pm", "p3m"): the stepper then runs the bounce
-    sweep ungated, as the JAX package does. f64 state on CUDA raises on
-    every route: the collision sweeps on the card are f32 kernels.
+    sweep ungated, as the JAX package does. f64 state on CUDA takes the
+    same routes: B2 counts on the f32-cast positions, as JAX's route does
+    (its 1e-5 radius inflation covers the cast where the positions' f32
+    rounding is below 1e-5 of a pair's contact distance: ROADMAP.md C,
+    "Grazing contacts"), and the dense and chunked routes count in f64.
     """
-    if torch.device(device).type == "cuda" and dtype == torch.float64:
-        raise NotImplementedError(
-            "precision='f64' on CUDA with collisions: the CUDA collision kernels compute in "
-            "float32; use ds32 on the card and f64 on the CPU")
-    impl = _resolve_impl(cfg, n, torch.device(device), dtype)
+    impl = _resolve_impl(cfg, n, torch.device(device))
     if impl == "pallas":
         from ..ops.cuda_forces import pairwise_acc_detect_cuda
 
@@ -238,16 +234,14 @@ def resolve_force_detect_fn(cfg: SimConfig, n: int, device: torch.device | str,
     return None
 
 
-def _resolve_jerk_impl(cfg: SimConfig, n: int, device: torch.device,
-                       dtype: torch.dtype) -> str:
+def _resolve_jerk_impl(cfg: SimConfig, n: int, device: torch.device) -> str:
     """The Hermite evaluation's path: "dense", "chunked" or "kernel".
     Every exact-force policy maps to dense at N <= 4096 and above it to the
     CUDA kernel for CUDA tensors, the row-blocked plain path for CPU ones;
-    the mesh and tree solvers have no per-pair jerk."""
-    if device.type == "cuda" and dtype == torch.float64:
-        raise NotImplementedError(
-            "precision='f64' on CUDA: the CUDA kernels compute in float32; "
-            "use ds32 on the card and f64 on the CPU")
+    the mesh and tree solvers have no per-pair jerk. f64 state routes
+    alike: B5 and B5 detect compute in f32 inside, as JAX's wrappers do
+    (``pallas_jerk.py:149-172, 201-223``), the dense and chunked paths in
+    f64."""
     impl = cfg.force_impl
     if impl in ("pm", "p3m", "tree"):
         raise ValueError(
@@ -267,7 +261,7 @@ def resolve_accel_jerk_fn(cfg: SimConfig, n: int, device: torch.device | str,
     jerk, U)`` for a body count and device: dense at N <= 4096; above it the
     CUDA acc + jerk kernel for CUDA tensors and the row-blocked plain path
     for CPU tensors (``force_impl="dense"``/``"chunked"`` pick those)."""
-    impl = _resolve_jerk_impl(cfg, n, torch.device(device), dtype)
+    impl = _resolve_jerk_impl(cfg, n, torch.device(device))
     if impl == "dense":
         return lambda pos, vel, mass, alive: accel_jerk_dense(
             pos, vel, mass, alive, G=cfg.G, eps2=cfg.eps2)
@@ -288,7 +282,7 @@ def resolve_accel_jerk_detect_fn(cfg: SimConfig, n: int, device: torch.device | 
     :func:`resolve_accel_jerk_fn`: the detecting kernel for CUDA tensors
     above 4,096 bodies, else the plain sweep plus the plain count at the
     same (predicted) positions."""
-    impl = _resolve_jerk_impl(cfg, n, torch.device(device), dtype)
+    impl = _resolve_jerk_impl(cfg, n, torch.device(device))
     if impl == "kernel":
         from ..ops.cuda_jerk import accel_jerk_detect_cuda
 
@@ -310,9 +304,10 @@ def resolve_accel_jerk_subset_fn(cfg: SimConfig, n: int, device: torch.device | 
     """The block steppers' inner evaluation ``fn(idx, pos, vel, mass, alive)
     -> (acc [F, 3], jerk [F, 3])``, which the JAX package calls as plain XLA:
     the CUDA subset kernel where :func:`resolve_accel_jerk_fn` takes the
-    kernel, else ``ops.forces.accel_jerk_subset`` (streamed in column blocks
-    above 4,096 bodies, as the JAX stepper does)."""
-    impl = _resolve_jerk_impl(cfg, n, torch.device(device), dtype)
+    kernel (its f64 instance on f64 state: JAX's XLA subset runs in the
+    state's dtype), else ``ops.forces.accel_jerk_subset`` (streamed in
+    column blocks above 4,096 bodies, as the JAX stepper does)."""
+    impl = _resolve_jerk_impl(cfg, n, torch.device(device))
     if impl == "kernel":
         from ..ops.cuda_jerk import accel_jerk_subset_cuda
 

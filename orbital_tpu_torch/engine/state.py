@@ -12,7 +12,9 @@ Precision policy (see ``dsfloat``):
   * ``f32``  -- plain float32 state.
   * ``ds32`` -- float32 state with compensation tensors ``pos_lo/vel_lo``
                (double-single); all force math stays in f32.
-  * ``f64``  -- float64 state; the CPU golden path.
+  * ``f64``  -- float64 state: the CPU golden path, and on the card the JAX
+               package's routes (the kernels cast it to f32 at entry, the
+               XLA-equivalent code and ``force_impl="chunked"`` stay f64).
 
 Scenes are defined in physical units but the state is kept in *internal
 units* chosen so positions/velocities are O(1) and G = 1 (``Rescale``).

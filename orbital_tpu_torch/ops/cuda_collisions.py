@@ -44,10 +44,14 @@ smallest touching row below it, and the wrapper jumps the pointers in eager
 torch; resolve's contact mark (:func:`contact_marks_cuda`, for ``i_block``
 at :452-464) marks every body that touches another. Both are gated by the
 same device-held contact count (the identity, or no marks, at a count of 0).
-Their plain versions, :func:`collision_parents_plain` (and
+Each mode has an f32 and an f64 instance, picked by the positions'
+dtype, so that f64 state gets JAX's roots and marks exactly (an f32 test
+parts from them on grazing pairs). Their plain versions,
+:func:`collision_parents_plain` (and
 :func:`collision_roots_plain`) and :func:`contact_marks_plain`, are the
 blocked torch sweeps, gated alike; ``collision_roots_cuda.launches`` and
-``contact_marks_cuda.launches`` count kernel launches. :func:`sweep_plan`
+``contact_marks_cuda.launches`` count the f32 instance's launches and their
+``f64_launches`` the f64 instance's. :func:`sweep_plan`
 mirrors the kernel's walk over its tiles.
 """
 from __future__ import annotations
@@ -61,7 +65,7 @@ import torch
 from .collisions import (_bounce_block, bounce_deltas_chunked, collision_parents_chunked,
                          contact_marks_chunked, pointer_jump, restitution_clip)
 from .cuda_forces import block_plan
-from ..utils.kernels import count_launch, refuse_grad
+from ..utils.kernels import count_launch, in_f32, refuse_grad
 
 __all__ = ["bounce_deltas_cuda", "bounce_deltas_plain", "bounce_block_cuda",
            "bounce_block_plain", "bounce_plan", "bounce_block_shape", "collision_roots_cuda",
@@ -130,6 +134,9 @@ def bounce_deltas_cuda(
                                    restitution=restitution, contacts=contacts)
     if pos.device.type != "cuda":
         raise ValueError(f"bounce_deltas_cuda: unsupported device {pos.device}")
+    if pos.dtype == torch.float64:
+        return in_f32(bounce_deltas_cuda, pos, vel, mass, radius, alive,
+                      restitution=restitution, contacts=contacts)
     refuse_grad("bounce_deltas_cuda", pos, vel, mass, radius)
     n = pos.shape[0]
     if pos.ndim != 2 or pos.shape[1] != 3 or vel.shape != pos.shape \
@@ -355,7 +362,8 @@ def _load_roots():
 
         lib = kernels.load("collision_roots")
         p = ctypes.c_void_p
-        for fn in (lib.collision_parents, lib.contact_marks):
+        for fn in (lib.collision_parents, lib.contact_marks, lib.collision_parents_f64,
+                   lib.contact_marks_f64):
             fn.restype = ctypes.c_int
             fn.argtypes = [p, p, p, p, ctypes.c_int, p, p, ctypes.c_int]
         _roots_lib = lib
@@ -387,9 +395,16 @@ def sweep_plan(n: int, warps: int) -> list[list[tuple[int, int]]]:
     return plan
 
 
+def _counter(pos) -> str:
+    """The launch counter of the contact-sweep instance that ``pos`` takes."""
+    return "f64_launches" if pos.dtype == torch.float64 else "launches"
+
+
 def _sweep_launch(name: str, pos, radius, alive, contacts, out_dtype):
     """Check the inputs of a contact-sweep wrapper and launch the kernel's
-    mode ``name`` (the C entry point) into a new [N] tensor."""
+    mode ``name`` (the C entry point) into a new [N] tensor: its f64
+    instance (``name``_f64) on float64 positions, which reads the radii in
+    float64 too, else the f32 one."""
     refuse_grad(name, pos, radius)
     n = pos.shape[0]
     if pos.ndim != 2 or pos.shape[1] != 3 or radius.shape != pos.shape[:1]:
@@ -401,16 +416,19 @@ def _sweep_launch(name: str, pos, radius, alive, contacts, out_dtype):
         raise TypeError(f"{name}: contacts must be one int32")
     if alive is not None and alive.dtype != torch.bool:
         raise TypeError(f"{name}: alive must be bool")
-    # the sweep reads the f32 positions, as a float32 state holds them
-    f32 = torch.float32
-    pos_, radius_ = pos.to(f32).contiguous(), radius.to(f32).contiguous()
+    # the sweep reads the positions in the state's own type: f64 state takes
+    # the f64 instance (JAX's XLA sweeps run in the state's dtype), f32 and
+    # ds32 (hi words) the f32 one
+    wide = pos.dtype == torch.float64
+    dt = torch.float64 if wide else torch.float32
+    pos_, radius_ = pos.to(dt).contiguous(), radius.to(dt).contiguous()
     alive_ = None if alive is None else alive.contiguous()
     out = torch.empty((n,), dtype=out_dtype, device=pos.device)
     lib = _load_roots()
     from ..utils.kernels import check
 
     stream = torch.cuda.current_stream(pos.device).cuda_stream
-    err = getattr(lib, name)(pos_.data_ptr(), radius_.data_ptr(),
+    err = getattr(lib, name + "_f64" if wide else name)(pos_.data_ptr(), radius_.data_ptr(),
                              None if alive_ is None else alive_.data_ptr(),
                              None if contacts is None else contacts.data_ptr(), n,
                              out.data_ptr(), stream, pos.device.index or 0)
@@ -438,13 +456,14 @@ def collision_parents_cuda(pos: torch.Tensor, radius: torch.Tensor,
     """The kernel's parents [N] (int64): parent[j] = min(j, min{i < j :
     touching(i, j)}), or j everywhere when ``contacts`` (an int32 0-dim
     tensor on the same device) is 0. CPU tensors take the plain version.
-    Each launch adds one to ``collision_roots_cuda.launches``."""
+    Each launch adds one to ``collision_roots_cuda.launches`` (the f64
+    instance's to its ``f64_launches``)."""
     if pos.device.type == "cpu":
         return collision_parents_plain(pos, radius, alive, contacts=contacts)
     if pos.device.type != "cuda":
         raise ValueError(f"collision_roots_cuda: unsupported device {pos.device}")
     parent = _sweep_launch("collision_parents", pos, radius, alive, contacts, torch.int64)
-    count_launch(collision_roots_cuda)
+    count_launch(collision_roots_cuda, _counter(pos))
     return parent
 
 
@@ -468,6 +487,7 @@ def collision_roots_cuda(pos: torch.Tensor, radius: torch.Tensor,
 
 
 collision_roots_cuda.launches = 0
+collision_roots_cuda.f64_launches = 0
 
 
 def contact_marks_plain(pos, radius, alive=None, *,
@@ -496,8 +516,9 @@ def contact_marks_cuda(pos: torch.Tensor, radius: torch.Tensor,
     if pos.device.type != "cuda":
         raise ValueError(f"contact_marks_cuda: unsupported device {pos.device}")
     mark = _sweep_launch("contact_marks", pos, radius, alive, contacts, torch.bool)
-    count_launch(contact_marks_cuda)
+    count_launch(contact_marks_cuda, _counter(pos))
     return mark
 
 
 contact_marks_cuda.launches = 0
+contact_marks_cuda.f64_launches = 0

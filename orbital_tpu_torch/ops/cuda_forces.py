@@ -28,6 +28,14 @@ ranks): :func:`block_plan` splits the j range across blocks as well as
 across the warps of a block, the kernel adds the splits' partials on the
 device in split order, and it reads the tables in place (no packing).
 
+On float64 CUDA tensors B1, B2 and B3 compute in float32 inside, as the
+JAX wrappers do (``pallas_forces.py:191-217, 285-295, 333-356``): the
+state cast once at entry (``utils.kernels.in_f32``), the results returned
+in float64. B2's 1e-5 radius inflation (``pallas_forces.py:102-106``) keeps
+its f32 count a conservative gate of the f64 sweeps it gates where the
+positions' f32 rounding is below 1e-5 of a pair's contact distance, as on
+JAX's route.
+
 For CPU tensors the wrappers compute the plain versions,
 ``ops.forces.pairwise_acc_chunked`` (plus ``ops.collisions.
 count_contacts_chunked`` for the count), :func:`block_acc_plain` and
@@ -47,7 +55,7 @@ import torch
 
 from .collisions import block_contacts, count_contacts_chunked
 from .forces import block_acc_potential, pairwise_acc_chunked
-from ..utils.kernels import count_launch, refuse_grad
+from ..utils.kernels import count_launch, in_f32, refuse_grad
 
 __all__ = ["pairwise_acc_cuda", "pairwise_acc_plain", "pairwise_acc_detect_cuda",
            "pairwise_acc_detect_plain", "block_acc_cuda", "block_acc_plain",
@@ -129,6 +137,9 @@ def pairwise_acc_cuda(
     if pos.device.type == "cpu":
         return pairwise_acc_plain(pos, mass, alive, G=G, eps2=eps2,
                                   with_potential=with_potential)
+    if pos.dtype == torch.float64:
+        return in_f32(pairwise_acc_cuda, pos, mass, alive, G=G, eps2=eps2,
+                      with_potential=with_potential)
     _check_inputs("pairwise_acc_cuda", pos, mass, alive)
     refuse_grad("pairwise_acc_cuda", pos, mass)
     n = pos.shape[0]
@@ -187,6 +198,9 @@ def pairwise_acc_detect_cuda(
     if pos.device.type == "cpu":
         return pairwise_acc_detect_plain(pos, mass, radius, alive, G=G, eps2=eps2,
                                          with_potential=with_potential)
+    if pos.dtype == torch.float64:
+        return in_f32(pairwise_acc_detect_cuda, pos, mass, radius, alive, G=G, eps2=eps2,
+                      with_potential=with_potential)
     _check_inputs("pairwise_acc_detect_cuda", pos, mass, radius, alive)
     refuse_grad("pairwise_acc_detect_cuda", pos, mass, radius)
     n = pos.shape[0]
@@ -350,6 +364,8 @@ def block_acc_cuda(pos_i: torch.Tensor, pos_j: torch.Tensor, mass_j: torch.Tenso
     included where the blocks coincide. Dead bodies carry mass 0."""
     if pos_i.device.type == "cpu":
         return block_acc_plain(pos_i, pos_j, mass_j, G=G, eps2=eps2)
+    if pos_i.dtype == torch.float64:
+        return in_f32(block_acc_cuda, pos_i, pos_j, mass_j, G=G, eps2=eps2)
     _check_inputs("block_acc_cuda", pos_j, mass_j, pos_i)
     refuse_grad("block_acc_cuda", pos_i, pos_j, mass_j)
     if pos_i.dtype != torch.float32 or pos_i.ndim != 2 or pos_i.shape[1] != 3:

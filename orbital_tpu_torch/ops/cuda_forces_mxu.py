@@ -39,7 +39,7 @@ from typing import Optional
 import torch
 
 from .mxu_forces import full_f32_matmul, gram_rows
-from ..utils.kernels import refuse_grad
+from ..utils.kernels import in_f32, refuse_grad
 
 __all__ = ["pairwise_acc_mxu_cuda", "pairwise_acc_mxu_plain", "gram_sums_cuda",
            "gram_sums_plain", "check_tiles", "pack_gram"]
@@ -186,6 +186,9 @@ def pairwise_acc_mxu_cuda(
     if pos.device.type == "cpu":
         return pairwise_acc_mxu_plain(pos, mass, alive, G=G, eps2=eps2,
                                       with_potential=with_potential)
+    if pos.dtype == torch.float64:  # f32 inside, as pallas_forces_mxu.py:162-164
+        return in_f32(pairwise_acc_mxu_cuda, pos, mass, alive, G=G, eps2=eps2,
+                      with_potential=with_potential)
     from .cuda_forces import _check_inputs
 
     _check_inputs("pairwise_acc_mxu_cuda", pos, mass, alive)

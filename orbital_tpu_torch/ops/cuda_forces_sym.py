@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from .forces import pairwise_acc_chunked
-from ..utils.kernels import refuse_grad
+from ..utils.kernels import in_f32, refuse_grad
 
 __all__ = ["pairwise_acc_sym_cuda", "pairwise_acc_sym_plain", "sym_tile"]
 
@@ -84,6 +84,8 @@ def pairwise_acc_sym_cuda(
     """Half-pair softened accelerations [N, 3] and U = 0."""
     if pos.device.type == "cpu":
         return pairwise_acc_sym_plain(pos, mass, alive, G=G, eps2=eps2)
+    if pos.dtype == torch.float64:  # f32 inside, as pallas_forces_sym.py:142-156
+        return in_f32(pairwise_acc_sym_cuda, pos, mass, alive, G=G, eps2=eps2)
     from .cuda_forces import _check_inputs
 
     _check_inputs("pairwise_acc_sym_cuda", pos, mass, alive)

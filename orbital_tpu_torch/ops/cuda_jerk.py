@@ -9,7 +9,9 @@ the bounce sweep after a Hermite step; its acc, jerk and U are bit-equal to
 :func:`accel_jerk_cuda`'s on the same inputs. :func:`accel_jerk_subset_cuda`
 is the row-subset sweep of the block-timestep steppers (``ops.forces.
 accel_jerk_subset``'s contract: acc and jerk on F target rows from all N
-sources).
+sources), with an f64 instance for f64 state. On float64 CUDA tensors the
+full sweeps compute in float32 inside, as JAX's wrappers do
+(``utils.kernels.in_f32``).
 
 The kernel is bound by instruction issue (~30.6 warp instructions and one
 MUFU.RSQ a pair; see the note at the top of the source): two i bodies a
@@ -25,7 +27,8 @@ For CPU tensors the wrappers compute the plain versions (``*_plain``): the
 chunked forms of ``ops.forces`` plus ``ops.collisions.
 count_contacts_chunked`` for the count. For CUDA tensors they launch the
 kernel or raise; they never fall back. Each wrapper's ``.launches`` counts
-its kernel launches.
+its kernel launches (the subset's f32 instance; ``.f64_launches`` its f64
+one).
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import torch
 
 from .collisions import count_contacts_chunked
 from .forces import accel_jerk_chunked, accel_jerk_subset
-from ..utils.kernels import refuse_grad
+from ..utils.kernels import in_f32, refuse_grad
 
 __all__ = ["accel_jerk_cuda", "accel_jerk_plain", "accel_jerk_detect_cuda",
            "accel_jerk_detect_plain", "accel_jerk_subset_cuda", "accel_jerk_subset_plain",
@@ -55,11 +58,14 @@ def _load():
         from ..utils import kernels
 
         lib = kernels.load("nbody_jerk")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
         for name, args in (("nbody_jerk", [p, p, i, f, f, p, p, i]),
                            ("nbody_jerk_detect", [p, p, i, f, f, p, p, p, i]),
                            ("nbody_jerk_subset",
                             [p, i, i, p, i, i, p, i, p, i, p, i, i, i, i, f, f, p, p, p, p,
+                             i]),
+                           ("nbody_jerk_subset_f64",
+                            [p, i, i, p, i, i, p, i, p, i, p, i, i, i, i, d, d, p, p, p, p,
                              i])):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
@@ -75,11 +81,11 @@ def _launch(name: str, *args) -> None:
     check(lib, getattr(lib, name)(*args), f"{name} launch")
 
 
-def _check_inputs(fn: str, pos, vel, mass, *others) -> None:
+def _check_inputs(fn: str, pos, vel, mass, *others, dtype=torch.float32) -> None:
     if pos.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {pos.device}")
-    if pos.dtype != torch.float32 or vel.dtype != torch.float32:
-        raise TypeError(f"{fn} computes in float32, got {pos.dtype} / {vel.dtype}")
+    if pos.dtype != dtype or vel.dtype != dtype:
+        raise TypeError(f"{fn} computes in {dtype}, got {pos.dtype} / {vel.dtype}")
     if pos.ndim != 2 or pos.shape[1] != 3 or vel.shape != pos.shape \
             or mass.shape != pos.shape[:1]:
         raise ValueError(f"{fn}: need pos, vel [N, 3] and mass [N], got "
@@ -134,6 +140,8 @@ def accel_jerk_cuda(
     """Softened accelerations [N, 3], jerks [N, 3] and total potential U."""
     if pos.device.type == "cpu":
         return accel_jerk_plain(pos, vel, mass, alive, G=G, eps2=eps2)
+    if pos.dtype == torch.float64:
+        return in_f32(accel_jerk_cuda, pos, vel, mass, alive, G=G, eps2=eps2)
     _check_inputs("accel_jerk_cuda", pos, vel, mass, alive)
     refuse_grad("accel_jerk_cuda", pos, vel, mass)
     n = pos.shape[0]
@@ -178,6 +186,8 @@ def accel_jerk_detect_cuda(
     :func:`accel_jerk_cuda`'s on the same inputs."""
     if pos.device.type == "cpu":
         return accel_jerk_detect_plain(pos, vel, mass, radius, alive, G=G, eps2=eps2)
+    if pos.dtype == torch.float64:
+        return in_f32(accel_jerk_detect_cuda, pos, vel, mass, radius, alive, G=G, eps2=eps2)
     _check_inputs("accel_jerk_detect_cuda", pos, vel, mass, radius, alive)
     refuse_grad("accel_jerk_detect_cuda", pos, vel, mass, radius)
     n = pos.shape[0]
@@ -218,29 +228,31 @@ def subset_plan(n: int, f: int) -> tuple[int, int]:
 _subset_scratch: dict = {}
 
 
-def _subset_buffers(dev: torch.device, parts: int, tiles: int):
-    part, done = _subset_scratch.get(dev, (None, None))
+def _subset_buffers(dev: torch.device, dtype: torch.dtype, parts: int, tiles: int):
+    part, done = _subset_scratch.get((dev, dtype), (None, None))
     if part is None or part.numel() < parts:
-        part = torch.empty((max(parts, 1),), dtype=torch.float32, device=dev)
+        part = torch.empty((max(parts, 1),), dtype=dtype, device=dev)
     if done is None or done.numel() < tiles:
         done = torch.zeros((tiles,), dtype=torch.int32, device=dev)
-    _subset_scratch[dev] = (part, done)
+    _subset_scratch[(dev, dtype)] = (part, done)
     return part, done
 
 
 def _subset(idx_i, pos, vel, mass, alive, G: float, eps2: float) -> torch.Tensor:
-    """Launch the subset kernel: [F, 6] rows of (G acc, G jerk)."""
-    n, f, dev = pos.shape[0], idx_i.shape[0], pos.device
-    out = torch.empty((f, 6), dtype=torch.float32, device=dev)
+    """Launch the subset kernel's instance of ``pos``'s dtype (float32 or
+    float64): [F, 6] rows of (G acc, G jerk) in that dtype."""
+    n, f, dev, dt = pos.shape[0], idx_i.shape[0], pos.device, pos.dtype
+    out = torch.empty((f, 6), dtype=dt, device=dev)
     splits, split = subset_plan(n, f)
     tiles = -(-f // SUBSET_ROWS)
-    part, done = _subset_buffers(dev, f * 6 * splits if splits > 1 else 0, tiles)
+    part, done = _subset_buffers(dev, dt, f * 6 * splits if splits > 1 else 0, tiles)
     idx = idx_i if idx_i.dtype in (torch.int64, torch.int32) else idx_i.to(torch.int64)
     idx = idx.contiguous()
     live = None if alive is None else (alive if alive.dtype == torch.bool
                                        else alive != 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _launch("nbody_jerk_subset", pos.data_ptr(), pos.stride(0), pos.stride(1),
+    name = "nbody_jerk_subset_f64" if dt == torch.float64 else "nbody_jerk_subset"
+    _launch(name, pos.data_ptr(), pos.stride(0), pos.stride(1),
             vel.data_ptr(), vel.stride(0), vel.stride(1), mass.data_ptr(), mass.stride(0),
             None if live is None else live.data_ptr(), 0 if live is None else live.stride(0),
             idx.data_ptr(), int(idx.dtype == torch.int64), f, n, split, float(G),
@@ -261,16 +273,23 @@ def accel_jerk_subset_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Acc + jerk [F, 3] on the ``idx_i`` rows from all N bodies (the target
     rows are not alive-masked, as in ``accel_jerk_subset``). Indices out of
-    [0, N) are clamped, as a JAX gather clamps them."""
+    [0, N) are clamped, as a JAX gather clamps them. float64 pos take the
+    kernel's f64 instance and return float64, as JAX's XLA subset runs in
+    the state's dtype; float32 the f32 one."""
     if pos.device.type == "cpu":
         return accel_jerk_subset_plain(idx_i, pos, vel, mass, alive, G=G, eps2=eps2)
-    _check_inputs("accel_jerk_subset_cuda", pos, vel, mass, alive, idx_i)
+    dt = torch.float64 if pos.dtype == torch.float64 else torch.float32
+    _check_inputs("accel_jerk_subset_cuda", pos, vel, mass, alive, idx_i, dtype=dt)
     refuse_grad("accel_jerk_subset_cuda", pos, vel, mass)
     if idx_i.ndim != 1:
         raise ValueError("accel_jerk_subset_cuda: idx_i must be [F]")
-    out = _subset(idx_i, pos, vel, mass.to(torch.float32), alive, G, eps2)
-    accel_jerk_subset_cuda.launches += 1
+    out = _subset(idx_i, pos, vel, mass.to(dt), alive, G, eps2)
+    if dt == torch.float64:
+        accel_jerk_subset_cuda.f64_launches += 1
+    else:
+        accel_jerk_subset_cuda.launches += 1
     return out[:, 0:3], out[:, 3:6]
 
 
 accel_jerk_subset_cuda.launches = 0
+accel_jerk_subset_cuda.f64_launches = 0

@@ -34,8 +34,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["pairwise_acc_dense", "pairwise_acc_chunked", "block_acc_potential",
-           "accel_jerk_dense", "accel_jerk_chunked", "accel_jerk_subset"]
+__all__ = ["pairwise_acc_dense", "pairwise_acc_chunked", "soften_potential_pairs",
+           "block_acc_potential", "accel_jerk_dense", "accel_jerk_chunked",
+           "accel_jerk_subset"]
 
 
 def _masked_inverse_r(r2, mask, eps2):
@@ -136,6 +137,14 @@ def pairwise_acc_chunked(
         acc = acc * alive[:, None].to(acc.dtype)
     U = -0.5 * G * torch.sum(mass_eff * pe_row)
     return acc, U
+
+
+def soften_potential_pairs(pos: torch.Tensor, mass: torch.Tensor, *, G: float,
+                           eps2: float) -> torch.Tensor:
+    """Total softened potential only (diagnostics helper): the dense
+    sweep's U, every body alive."""
+    _, U = pairwise_acc_dense(pos, mass, G=G, eps2=eps2)
+    return U
 
 
 def _block_accel_jerk(pos_i, vel_i, pos_j, vel_j, mass_j, mask, eps2, G):

@@ -15,15 +15,24 @@ next level's centers and a final per-body Taylor step.
 
 What the port carries over, and what it changes:
 
-  * The far field with the default ``"push"`` combine and the octant-major
-    finest layout (``far_id``), with the same channel arithmetic. Each
-    level runs as ONE ``conv3d`` over [8 Mo, s, s, s] (channels first, x y
-    z); the JAX module runs 2ws+1 batched 2-D convolutions with x-plane
-    shifts because 3-D convolutions compiled badly on its TPU. The conv
-    is a library call outside any kernel and runs in full float32: cuDNN's
-    TF32 is switched off around it (``_level_conv``), as the JAX module asks
-    for ``Precision.HIGHEST``. The layout-study flags ``"lazy"`` and
-    ``_FAR_NHWC`` are not ported (ROADMAP.md A.13).
+  * The far field with the same channel arithmetic. Each level runs as ONE
+    ``conv3d`` over [8 Mo, s, s, s] (channels first, x y z); the JAX module
+    runs 2ws+1 batched 2-D convolutions with x-plane shifts because 3-D
+    convolutions compiled badly on its TPU. The conv is a library call
+    outside any kernel and runs in full float32: cuDNN's TF32 is switched
+    off around it (``_level_conv``), as the JAX module asks for
+    ``Precision.HIGHEST``.
+  * The JAX module's four layout-study flags, module attributes read at
+    every call (the port is eager: there is no program cache to clear),
+    each defaulting to JAX's default: ``_SKIP`` (from ``TREE_SKIP`` at
+    import, with JAX's warning: ``"near"`` / ``"far"`` drop that part of
+    the acceleration, a debug mode whose results are not physical);
+    ``_FAR_NHWC`` (the conv's input and weights in ``channels_last_3d``,
+    the same sums); ``_FAR_COMBINE`` (``"push"``, level by level onto the
+    octant-major finest layout ``far_id``, or ``"lazy"``, each level
+    shifted straight to the x-major finest cell centres); and
+    ``_PAIRS_CF`` (``"table"`` or the legacy ``"scan"`` locator of
+    ``_pairs_geometry``, the same integers).
   * All four near modes. ``"kernel"`` runs the chunk-pair sweep through the
     B7 wrapper (``ops/tree_near_wl.py`` and its CUDA kernel). ``"cells"``,
     ``"columns"`` and ``"pairs"`` are the JAX module's plain XLA gathers and
@@ -51,8 +60,7 @@ What the port carries over, and what it changes:
 Also here, shared with the multirate stepper's neighbor search
 (``ops/neighbor.py``): ``_compact_sorted``, ``_segment_bounds`` and
 ``_pairs_geometry`` in its per-column rank-table form (``_PAIRS_CF ==
-"table"``); the JAX module's suffix-scan locator exists only to get a TPU
-compile through (tree.py:1393-1400) and is left out. That code is eager
+"table"``) or the global cell-id suffix scan (``"scan"``). That code is eager
 integer tensor code: ``jnp.nonzero(size=K)`` becomes a cumsum-and-scatter
 compaction, ``.at[].set(mode="drop")`` a scatter into one spare row that is
 sliced off, ``.at[].min`` a ``scatter_reduce``, the associative min/max
@@ -61,12 +69,40 @@ inside; the integer results equal the JAX module's.
 """
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .pm import _bounding_cube
+
+# debug-only phase isolation for performance attribution (the JAX module's
+# TREE_SKIP, orbital_tpu/ops/tree.py:93-104): zeroing a field phase gives
+# WRONG PHYSICS, so importing this module with TREE_SKIP set warns
+_SKIP = os.environ.get("TREE_SKIP", "")
+if _SKIP:
+    warnings.warn(
+        f"TREE_SKIP={_SKIP!r} is set: the tree force will OMIT its "
+        f"'{_SKIP}'-field contribution. This is a perf-attribution debug "
+        "mode; results are not physical.",
+        RuntimeWarning, stacklevel=2)
+
+# the conv's memory layout: False for channels first, True for
+# torch.channels_last_3d input and weights (the JAX module's NHWC study flag,
+# tree.py:262-270; the same sums either way)
+_FAR_NHWC = False
+# how the levels' conv outputs combine into finest-grid expansions (the JAX
+# module's tree.py:358-375): "push" shifts the running expansion one level
+# at a time onto the octant-major finest layout; "lazy" shifts each level's
+# term straight to the x-major finest cell centres and adds it there
+_FAR_COMBINE = "push"
+# how _pairs_geometry locates a neighbor column's z-trimmed run (the JAX
+# module's tree.py:1393-1400): "table", a (column, z-cell) rank table with a
+# length-(M + 1) suffix min, or "scan", the legacy suffix min over the whole
+# M^3 cell-id grid; the same integers
+_PAIRS_CF = "table"
 
 __all__ = ["tree_acc_potential", "tree_acc_potential_staged", "tree_sharded_force",
            "tree_occupancy_probe",
@@ -228,9 +264,14 @@ def _level_conv(moments: torch.Tensor, w: torch.Tensor, ws: int) -> torch.Tensor
     s, s] -> per-target-octant fields [8 F, s, s, s]. Zero padding at the
     grid edge is exact (cells outside the grid are empty). cuDNN runs it in
     full float32 (its TF32 default would keep ~3 decimal digits of the far
-    field)."""
+    field). Under ``_FAR_NHWC`` the input and weights are laid out
+    ``channels_last_3d``."""
+    x = moments[None]
+    if _FAR_NHWC:
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+        w = w.contiguous(memory_format=torch.channels_last_3d)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        return torch.nn.functional.conv3d(moments[None], w, padding=ws)[0]
+        return torch.nn.functional.conv3d(x, w, padding=ws)[0]
 
 
 def _coarsen2(c: torch.Tensor, mm: int) -> torch.Tensor:
@@ -317,22 +358,26 @@ def _octant_centers(levels: int, dev, dtype: torch.dtype) -> list[torch.Tensor]:
 
 def _far_field(chans: dict, levels: int, ws: int, half: torch.Tensor, origin: torch.Tensor,
                G: float, eps2: float, order: int) -> tuple:
-    """Conv far field over all levels, push combine. ``chans[levels]`` is
-    octant-major (``far_id``), the coarser levels x-major. Returns F flat
-    finest-grid field channels [M^3] about the finest cell centers, in
-    octant-major order (order 1: Ax..Az, Jxx..Jyz, phi; order 2 inserts the
-    18 Hessian channels before phi)."""
+    """Conv far field over all levels, combined as ``_FAR_COMBINE`` says.
+    Under "push" ``chans[levels]`` is octant-major (``far_id``) and so are
+    the returned channels; under "lazy" every level is x-major. The coarser
+    levels are x-major. Returns F flat finest-grid field channels [M^3]
+    about the finest cell centers (order 1: Ax..Az, Jxx..Jyz, phi; order 2
+    inserts the 18 Hessian channels before phi)."""
     dev = origin.device
     nf = _N_FLD[order]
+    M = 2 ** levels
+    push = _FAR_COMBINE == "push"
     levs = list(range(2, levels + 1))
     h_all = torch.stack([2.0 * half / (2 ** lev) for lev in levs])
     w_all = _conv_weights(ws, h_all, G, eps2, order)
-    acc = None          # running expansion about the previous level's centers
+    h_fin = 2.0 * half / M
+    acc = None          # push: expansion about the previous level's centers; lazy: finest
     for li, lev in enumerate(levs):
         m = 2 ** lev
         h_lev = h_all[li]
         mflat = chans[lev][0]
-        if lev == levels:
+        if lev == levels and push:
             ctr = _octant_centers(levels, dev, origin.dtype)
         else:
             ar = torch.arange(m, device=dev, dtype=origin.dtype)
@@ -347,7 +392,7 @@ def _far_field(chans: dict, levels: int, ws: int, half: torch.Tensor, origin: to
             for q, (i, j) in enumerate(_Q6):
                 moms.append(chans[lev][4 + q] - cc[i] * chans[lev][1 + j]
                             - cc[j] * chans[lev][1 + i] + mflat * cc[i] * cc[j])
-        if lev == levels:
+        if lev == levels and push:
             # octant-major flats: channel (mo, o) is block o of moment mo
             s = m // 2
             packed = torch.cat([c.reshape(8, s, s, s) for c in moms], dim=0)
@@ -370,6 +415,29 @@ def _far_field(chans: dict, levels: int, ws: int, half: torch.Tensor, origin: to
             return tuple(torch.cat([F_parts[o][f] for o in range(8)]) for f in range(nf))
         out = _level_conv(_octant_pack(moms, m), w_all[li], ws)
         dF = _unpack_fields(out, nf)
+        if not push:
+            # lazy: shift this level's term straight to the finest centers;
+            # the 6-d view (m, r, m, r, m, r) of the flat x-major [M^3] grid
+            # is a free reshape, and delta is constant within each r-block
+            if acc is None:
+                acc = [torch.zeros((M ** 3,), dtype=origin.dtype, device=dev)
+                       for _ in range(nf)]
+            if lev == levels:
+                acc = [a + c for a, c in zip(acc, dF)]
+                continue
+            r = M // m
+
+            def dl(axis: int, _r=r):
+                dv = (torch.arange(_r, dtype=origin.dtype, device=dev) + 0.5 - 0.5 * _r) * h_fin
+                shape = [1, 1, 1, 1, 1, 1]
+                shape[2 * axis + 1] = _r
+                return dv.reshape(shape)
+
+            shifted = _taylor_shift(lambda c, _m=m: c.reshape(_m, 1, _m, 1, _m, 1), dF,
+                                    dl(0), dl(1), dl(2), order)
+            tgt = (m, r, m, r, m, r)
+            acc = [a + sh.expand(tgt).reshape(-1) for a, sh in zip(acc, shifted)]
+            continue
         if acc is None:
             acc = dF
             continue
@@ -383,7 +451,9 @@ def _far_field(chans: dict, levels: int, ws: int, half: torch.Tensor, origin: to
                                 sides.reshape(1, 1, 1, 1, 1, 2), order)
         tgt = (s, 2, s, 2, s, 2)
         acc = tuple(p.expand(tgt).reshape(-1) + c for p, c in zip(shifted, dF))
-    raise AssertionError("unreachable: the finest level returns")
+    if push:
+        raise AssertionError("unreachable: the finest level returns")
+    return tuple(acc)
 
 
 def _box_tensors(box, dev, dtype: torch.dtype = f32) -> tuple[torch.Tensor, torch.Tensor]:
@@ -576,6 +646,12 @@ def tree_acc_potential(
         # each rank swept a disjoint slice of the lists: the per-body sums
         # of every rank, one psum each
         acc_near, pe_near = _comm.psum(acc_near), _comm.psum(pe_near)
+    if "near" in _SKIP:
+        acc_near, pe_near = torch.zeros_like(acc_near), torch.zeros_like(pe_near)
+    if "far" in _SKIP:
+        # as the JAX module: the far acceleration goes; its cell-wise far
+        # potential stays (JAX zeroes the per-body phi, which U does not read)
+        a_far = torch.zeros_like(a_far)
     acc = (a_far + acc_near) * alive_f[:, None]
     overflow = (cap_overflow + cell_overflow).to(torch.int32)
     if with_potential:
@@ -1020,7 +1096,11 @@ def _far_phase(pos32, m_eff, alive_b, cc, h, half, origin, levels: int, ws: int,
     dev, dt = pos32.device, pos32.dtype
     M = 2 ** levels
     M3 = M * M * M
-    far_id = _far_ids(cc, alive_b, M)
+    # the finest layout: octant-major under the push combine, x-major cell
+    # ids under "lazy" (the JAX module's oct_layout, tree.py:777)
+    push = _FAR_COMBINE == "push"
+    far_id = (_far_ids(cc, alive_b, M) if push else
+              torch.where(alive_b, (cc[:, 0] * M + cc[:, 1]) * M + cc[:, 2], M3))
 
     raw = [m_eff, m_eff * pos32[:, 0], m_eff * pos32[:, 1], m_eff * pos32[:, 2]]
     if order == 2:
@@ -1029,7 +1109,7 @@ def _far_phase(pos32, m_eff, alive_b, cc, h, half, origin, levels: int, ws: int,
         torch.zeros((M3 + 1,), dtype=dt, device=dev).index_add_(0, far_id, c)[:M3]
         for c in raw)}
     for lev in range(levels - 1, 1, -1):
-        if lev == levels - 1:
+        if lev == levels - 1 and push:
             # the 8 children of parent p are the octant blocks at minor index p
             chans[lev] = tuple(c.reshape(8, -1).sum(dim=0) for c in chans[lev + 1])
             continue
@@ -1059,8 +1139,15 @@ def _far_phase(pos32, m_eff, alive_b, cc, h, half, origin, levels: int, ws: int,
         return a_far, torch.zeros((), dtype=dt, device=dev)
 
     # sum_b m_b phi(x_b) aggregated per finest cell from the deposited
-    # moments: sum_cells [m phi_c - A.p (- J:Q/2 at order 2)], octant-major
-    ctr = _octant_centers(levels, dev, dt)
+    # moments: sum_cells [m phi_c - A.p (- J:Q/2 at order 2)], in far_id's
+    # layout
+    if push:
+        ctr = _octant_centers(levels, dev, dt)
+    else:
+        ar = torch.arange(M, device=dev, dtype=dt)
+        ctr = [ar.view(M, 1, 1).expand(M, M, M).reshape(-1),
+               ar.view(1, M, 1).expand(M, M, M).reshape(-1),
+               ar.view(1, 1, M).expand(M, M, M).reshape(-1)]
     ccell = [origin[k] + (ctr[k] + 0.5) * h for k in range(3)]
     mflat = chans[levels][0]
     p = [chans[levels][1 + k] - mflat * ccell[k] for k in range(3)]
@@ -1264,7 +1351,9 @@ def _pairs_geometry(sc: torch.Tensor, n: int, M: int, ws: int, C: int,
     dead bodies sorted last at id M^3) into consecutive C-body chunks, and
     locate for every (chunk, neighbor column) the z-trimmed run of j-chunks
     whose z-cells can meet the chunk's |dz| <= ws band, through a
-    (column, z-cell) -> first-sorted-position table.
+    (column, z-cell) -> first-sorted-position table, or under ``_PAIRS_CF
+    = "scan"`` a cell id -> first-sorted-position suffix min over the M^3
+    grid (the same integers).
 
     Returns, as ``orbital_tpu.ops.tree._pairs_geometry``: per-body ``col_s /
     rank_c / valid_b / chunk_ord / keep``; per-chunk ``ids_chunk_col /
@@ -1295,15 +1384,25 @@ def _pairs_geometry(sc: torch.Tensor, n: int, M: int, ws: int, C: int,
 
     first_chunk_map = column_map(K_ch, chunk_ord)
     colfirst = column_map(n, first_c)
-    colend = column_map(n, last_c)
-
-    # (column, z-cell) -> first sorted position with that column and z-cell
-    # >= z: a scatter-min of positions and a suffix min along z
-    zrow = torch.where(valid_b, sc % M, M)
-    rt = torch.full(((M2 + 1) * (M + 1),), n, dtype=i64, device=dev)
-    rt.scatter_reduce_(0, torch.where(valid_b, col_s, M2) * (M + 1) + zrow, pos_i,
-                       "amin", include_self=True)
-    rt_flat = rt.view(M2 + 1, M + 1).flip(1).cummin(1).values.flip(1).reshape(-1)
+    table = _PAIRS_CF == "table"
+    if table:
+        # (column, z-cell) -> first sorted position with that column and
+        # z-cell >= z: a scatter-min of positions and a suffix min along z,
+        # queries clamped to the column's end
+        colend = column_map(n, last_c)
+        zrow = torch.where(valid_b, sc % M, M)
+        rt = torch.full(((M2 + 1) * (M + 1),), n, dtype=i64, device=dev)
+        rt.scatter_reduce_(0, torch.where(valid_b, col_s, M2) * (M + 1) + zrow, pos_i,
+                           "amin", include_self=True)
+        rt_flat = rt.view(M2 + 1, M + 1).flip(1).cummin(1).values.flip(1).reshape(-1)
+    else:
+        # cell id -> first sorted position with cell >= id, a suffix min
+        # over the whole grid (dead bodies sort last at M^3, so
+        # cellfirst[M^3] is the live count)
+        M3 = M2 * M
+        cf = torch.full((M3 + 2,), n, dtype=i64, device=dev)
+        cf.scatter_reduce_(0, torch.clamp(sc, max=M3), pos_i, "amin", include_self=True)
+        cellfirst = cf.flip(0).cummin(0).values.flip(0)
 
     # per-chunk z-cell bounds (z-cells are monotone within a column); an
     # empty chunk's bounds are never read (its runs are masked below)
@@ -1325,9 +1424,13 @@ def _pairs_geometry(sc: torch.Tensor, n: int, M: int, ws: int, C: int,
         nx, ny = cx + a, cy + b
         ok = (0 <= nx) & (nx < M) & (0 <= ny) & (ny < M) & chunk_valid
         nc = torch.where(ok, nx * M + ny, M2)
-        ce = colend[nc]
-        p_lo = torch.minimum(rt_flat[nc * (M + 1) + zb_lo], ce)
-        p_hi = torch.minimum(rt_flat[nc * (M + 1) + zb_hi], ce)
+        if table:
+            ce = colend[nc]
+            p_lo = torch.minimum(rt_flat[nc * (M + 1) + zb_lo], ce)
+            p_hi = torch.minimum(rt_flat[nc * (M + 1) + zb_hi], ce)
+        else:
+            p_lo = cellfirst[torch.clamp(nc * M + zb_lo, max=M3 + 1)]
+            p_hi = cellfirst[torch.clamp(nc * M + zb_hi, max=M3 + 1)]
         base_p = colfirst[nc]
         lo_q = torch.where(ok, (p_lo - base_p) // C, 0)
         hi_q = torch.where(ok, -(-(p_hi - base_p) // C), 0)

@@ -14,8 +14,9 @@ every rank: P threads on one card, or one process a rank under
     (``ops.cuda_forces.block_acc_cuda``) on CUDA tensors in float32 when
     the shard tiles by 128 and eps2 > 0 (``ring_block_impl="auto"`` or
     ``"pallas"``), else the dense ``ops.forces.block_acc_potential`` (an
-    untileable shard, eps2 = 0, float64, CPU tensors under "auto"; JAX's
-    rule, with f64 on CUDA added as every kernel route of the port has it).
+    untileable shard, eps2 = 0, CPU tensors under "auto"; JAX's rule,
+    ``sharded.py:254-257``). A float64 shard takes B3 too, f32 inside and
+    its rounds added in f64, as JAX's ``block_acc_pallas`` returns them.
     Nothing falls back from the kernel when a build or launch fails. The
     self term m/eps comes off the pe row once, after the rounds; U is
     psum'd. With ``detect=True`` the same rounds also count the step's
@@ -90,16 +91,11 @@ def _ring_block_impl(cfg: SimConfig, block: int, pos: torch.Tensor) -> str:
     tileable = block % 128 == 0 and cfg.eps2 > 0.0
     impl = cfg.ring_block_impl
     if impl == "auto":
-        impl = ("pallas" if tileable and pos.device.type == "cuda"
-                and pos.dtype == torch.float32 else "dense")
+        impl = "pallas" if tileable and pos.device.type == "cuda" else "dense"
     if impl == "pallas" and not tileable:
         raise ValueError(
             f"ring_block_impl='pallas' needs eps2 > 0 and a local block divisible by 128, "
             f"got block={block}, eps2={cfg.eps2}")
-    if impl == "pallas" and pos.device.type == "cuda" and pos.dtype != torch.float32:
-        raise NotImplementedError(
-            "ring_block_impl='pallas' on CUDA computes in float32: f64 state takes the "
-            "dense ring block ('auto' or 'dense'); use ds32 on the card")
     return impl
 
 
@@ -386,8 +382,10 @@ def _prepare(cfg: SimConfig, mesh: Mesh, state_example: NBodyState,
     if (cfg.collisions != "none" and mesh.device.type == "cuda"
             and state_example.dtype == torch.float64):
         raise NotImplementedError(
-            "precision='f64' on CUDA with collisions: the CUDA collision kernels compute in "
-            "float32; use ds32 on the card and f64 on the CPU")
+            "precision='f64' on CUDA with collisions under a mesh (ROADMAP.md G.1b): the "
+            "JAX package runs the block bounce and the count ring as XLA in f64, and their "
+            "f64 kernel instances are not ported yet; use ds32 on the card, or f64 on the "
+            "CPU or on one card")
     return cfg, use_mesh_solver
 
 

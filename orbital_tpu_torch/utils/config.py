@@ -3,8 +3,10 @@
 A copy of ``orbital_tpu.utils.config`` (same fields, defaults and
 validation) so that the PyTorch package never imports the JAX one:
 ``SimConfig(**dataclasses.asdict(jax_cfg))`` converts between the two.
-Many fields select solvers this package has not ported yet; the stepper
-and force resolution raise ``NotImplementedError`` for those values.
+Every solver a field selects is ported. Two combinations still raise
+``NotImplementedError``: ``integrator="hermite"`` under a mesh (the JAX
+package has no sharded Hermite to hold one against) and f64 state with
+collisions under a CUDA mesh (ROADMAP G.1b).
 
 All physical quantities here are in *internal* (device) units; the engine
 facade converts from scene units via ``engine.state.Rescale``.

@@ -20,6 +20,11 @@ Each library also exports ``ot_error_string(int)``.
 The one-card mesh (``parallel.mesh``) launches from several threads of one
 process: :func:`load` builds and loads under a lock, and the wrappers it
 runs count their launches with :func:`count_launch`.
+
+Float64 state: where the JAX package's route is a Pallas kernel, its
+wrapper casts f64 state to f32 once at entry and returns the state's dtype;
+the CUDA branch of each such wrapper here does the same through
+:func:`in_f32`.
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "load", "check",
-           "build_log", "build_seconds", "refuse_grad", "count_launch", "stream_handle"]
+           "build_log", "build_seconds", "refuse_grad", "count_launch", "stream_handle",
+           "in_f32"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -117,11 +123,12 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def count_launch(fn) -> None:
-    """Add one to ``fn.launches`` under a lock, so that launches from the
+def count_launch(fn, counter: str = "launches") -> None:
+    """Add one to ``fn.launches`` (or the ``counter`` attribute, such as an
+    f64 instance's ``f64_launches``) under a lock, so that launches from the
     threads of a one-card mesh are all counted."""
     with _count_lock:
-        fn.launches += 1
+        setattr(fn, counter, getattr(fn, counter) + 1)
 
 
 def stream_handle(device) -> int:
@@ -136,6 +143,34 @@ def stream_handle(device) -> int:
     if raw is None:
         return torch.cuda.current_stream(device).cuda_stream
     return raw(device.index)
+
+
+def in_f32(fn, *args, **kwargs):
+    """Call the CUDA wrapper ``fn`` on float64 state as the JAX package's
+    Pallas wrappers take it (``orbital_tpu/ops/pallas_forces.py:191-217``):
+    each float64 tensor of ``args`` cast to float32 once, the kernel run in
+    float32, and each floating tensor that ``fn`` returns (one, or a tuple)
+    in float64. Integer and bool tensors pass as they are. A float64 value
+    beyond +-2^100 becomes +-2^100 (the package's largest parked or sentinel
+    coordinate, 1e30, passes as it is): a difference of two such values is
+    finite, so a far row still gives r^2 = inf and 1/r = 0 in the kernel and
+    adds exactly 0, never the NaN of inf - inf or 0 x inf."""
+    import torch
+
+    big = 2.0 ** 100
+
+    def down(a):
+        if isinstance(a, torch.Tensor) and a.dtype == torch.float64:
+            return a.clamp(-big, big).to(torch.float32)
+        return a
+
+    def up(t):
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            return t.to(torch.float64)
+        return t
+
+    out = fn(*(down(a) for a in args), **kwargs)
+    return tuple(up(t) for t in out) if isinstance(out, tuple) else up(out)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -375,32 +375,44 @@ def test_cpu_plain_paths_keep_autograd():
 
 
 @pytest.mark.parametrize("n,impl,route", [(64, "auto", "dense"), (4096, "auto", "dense"),
-                                          (4097, "auto", None), (64, "dense", "dense"),
-                                          (64, "chunked", None), (64, "mxu", None),
-                                          (64, "pallas", None), (64, "tree", None)])
+                                          (4097, "auto", "pallas"), (64, "dense", "dense"),
+                                          (64, "chunked", "chunked"), (64, "mxu", "mxu"),
+                                          (64, "pallas", "pallas"), (64, "tree", "tree")])
 def test_f64_on_cuda_takes_the_dense_route_only(n, impl, route):
+    """f64 state on CUDA resolves as f32 does, as the JAX package routes it
+    (this test asserted the refusal of every route but "dense" before f64
+    opened on the card): each policy's route, the kernels computing in f32
+    inside and "dense" / "chunked" in f64."""
     cfg = tot.SimConfig(dt=1.0, force_impl=impl)
     dev = torch.device("cuda")
-    if route is None:
-        with pytest.raises(NotImplementedError, match="f64.*dense route"):
-            R._resolve_impl(cfg, n, dev, torch.float64)
-    else:
-        assert R._resolve_impl(cfg, n, dev, torch.float64) == route
-    assert R._resolve_impl(cfg, n, dev, torch.float32) == (
+    assert R._resolve_impl(cfg, n, dev) == route
+    assert callable(R.resolve_force_fn(cfg, n, dev, torch.float64))
+    assert R._resolve_impl(cfg, n, dev) == (
         impl if impl != "auto" else ("dense" if n <= 4096 else "pallas"))
 
 
-def test_f64_on_cuda_keeps_the_other_resolvers_raising():
-    """Only the force route opened to f64 on CUDA: the detecting (collision)
-    resolver, Hermite's and RESPA's still raise, since their sweeps on the
-    card are f32 kernels."""
+def test_f64_on_cuda_keeps_the_other_resolvers_raising(monkeypatch):
+    """The detecting (collision) resolver, Hermite's and RESPA's resolve f64
+    state on CUDA (they raised before f64 opened on the card): the dense
+    detecting evaluation at N <= 4,096, the acc + jerk evaluation, and
+    RESPA's plain near sweep in f64, which the JAX package forces for
+    non-f32 state."""
     from orbital_tpu_torch.engine import multirate
 
     cfg = tot.SimConfig(dt=1.0, eps2=1e-4)
-    assert R._resolve_impl(cfg, 64, torch.device("cuda"), torch.float64) == "dense"
-    with pytest.raises(NotImplementedError, match="f64"):
-        R.resolve_force_detect_fn(cfg.replace(collisions="bounce"), 64, "cuda", torch.float64)
-    with pytest.raises(NotImplementedError, match="f64"):
-        R.resolve_accel_jerk_fn(cfg.replace(integrator="hermite"), 64, "cuda", torch.float64)
-    with pytest.raises(NotImplementedError, match="f64"):
-        multirate._resolve_sweep(cfg, torch.float64, "cuda")
+    assert R._resolve_impl(cfg, 64, torch.device("cuda")) == "dense"
+    rng = np.random.default_rng(3)
+    pos = torch.tensor(rng.normal(size=(64, 3)))
+    mass = torch.full((64,), 1.0 / 64, dtype=torch.float64)
+    rad = torch.full((64,), 1e-3, dtype=torch.float64)
+    alive = torch.ones(64, dtype=torch.bool)
+    acc, U, c = R.resolve_force_detect_fn(cfg.replace(collisions="bounce"), 64, "cuda",
+                                          torch.float64)(pos, mass, rad, alive)
+    assert acc.dtype == torch.float64 and c.dtype == torch.int32
+    aj = R.resolve_accel_jerk_fn(cfg.replace(integrator="hermite"), 64, "cuda", torch.float64)
+    a, j, _ = aj(pos, torch.zeros_like(pos), mass, alive)
+    assert a.dtype == torch.float64 and torch.equal(a, acc)
+    calls = []
+    monkeypatch.setattr(multirate, "near_acc_slots", lambda *a, **k: calls.append(k["i0"]))
+    multirate._resolve_sweep(cfg, torch.float64, "cuda")(None, None, None, None, {"jbl": None})
+    assert calls == [None]

@@ -427,8 +427,11 @@ def test_routing_cuda_takes_the_kernel(impl, monkeypatch):
     R.resolve_accel_jerk_fn(cfg.replace(integrator="hermite"), n, "cuda")(pos, vel, mass,
                                                                           alive)
     assert calls == ["accel_jerk_cuda"]
-    with pytest.raises(NotImplementedError, match="f64"):
-        R.resolve_force_fn(cfg, 256, "cuda", torch.float64)
+    # f64 state takes the same kernel route (f32 inside), as the JAX package
+    calls.clear()
+    pos, mass, alive = _t(*_bodies(256, 4))
+    R.resolve_force_fn(cfg, 256, "cuda", torch.float64)(pos.double(), mass.double(), alive)
+    assert calls == [want]
 
 
 @pytest.mark.parametrize("wrapper", ["sym", "gram", "block"])

@@ -446,8 +446,13 @@ def test_jerk_routing(rng, monkeypatch):
     R.resolve_accel_jerk_subset_fn(cfg, n, "cuda")(idx, pos, vel, mass, alive)
     assert calls == ["accel_jerk_cuda"] * 6 + ["accel_jerk_detect_cuda",
                                                "accel_jerk_subset_cuda"]
-    with pytest.raises(NotImplementedError, match="f64"):
-        R.resolve_accel_jerk_fn(cfg, n, "cuda", torch.float64)
+    # f64 state takes the same kernel routes (B5 f32 inside, the subset's
+    # f64 instance), as the JAX package
+    calls.clear()
+    p64, v64, m64 = pos.double(), vel.double(), mass.double()
+    R.resolve_accel_jerk_fn(cfg, n, "cuda", torch.float64)(p64, v64, m64, alive)
+    R.resolve_accel_jerk_subset_fn(cfg, n, "cuda", torch.float64)(idx, p64, v64, m64, alive)
+    assert calls == ["accel_jerk_cuda", "accel_jerk_subset_cuda"]
 
 
 @pytest.mark.parametrize("impl", ["pm", "p3m", "tree"])

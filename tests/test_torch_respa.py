@@ -463,8 +463,10 @@ def test_sweep_routing(monkeypatch):
     tmr._resolve_sweep(cfg.replace(respa_impl="pallas"), torch.float64, "cpu")(
         None, None, None, None, geom)
     assert calls.pop() == "plain"
-    with pytest.raises(NotImplementedError, match="f64"):
-        tmr._resolve_sweep(cfg, torch.float64, "cuda")
+    # f64 state on CUDA takes the plain sweep in f64: the JAX package forces
+    # "xla" for non-f32 state (orbital_tpu/engine/multirate.py:88-89)
+    tmr._resolve_sweep(cfg, torch.float64, "cuda")(None, None, None, None, geom)
+    assert calls.pop() == "plain"
 
 
 def test_unported_respa_paths_raise():

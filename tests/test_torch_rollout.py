@@ -238,9 +238,18 @@ def test_unported_force_paths_raise(impl, item):
     assert float(U) == pytest.approx(float(jU), rel=1e-6)
 
 
-def test_f64_on_cuda_raises():
-    with pytest.raises(NotImplementedError, match="f64"):
-        R.resolve_force_fn(tot.SimConfig(dt=1.0), 8192, "cuda", torch.float64)
+def test_f64_on_cuda_raises(monkeypatch):
+    """f64 state on CUDA above 4,096 bodies takes B1 under "auto", as the
+    JAX package routes it (this raised before f64 opened on the card); the
+    wrapper, spied here, gets the f64 tensors and casts them itself."""
+    from orbital_tpu_torch.ops import cuda_forces
+
+    seen = []
+    monkeypatch.setattr(cuda_forces, "pairwise_acc_cuda",
+                        lambda pos, *a, **k: seen.append(pos.dtype))
+    R.resolve_force_fn(tot.SimConfig(dt=1.0), 8192, "cuda", torch.float64)(
+        torch.zeros((8192, 3), dtype=torch.float64), None, None)
+    assert seen == [torch.float64]
 
 
 @pytest.mark.parametrize("change,item", [

@@ -703,10 +703,12 @@ def test_simulate_mesh_matches_jax():
 # --- routing -----------------------------------------------------------------
 
 def test_ring_block_routing():
-    """``ring_block_impl="auto"`` takes B3 for float32 shards on CUDA that
-    tile by 128 with eps2 > 0, and the dense block otherwise (CPU tensors,
-    an untileable shard, eps2 = 0, float64); "pallas" with float64 on CUDA
-    raises rather than compute in float32."""
+    """``ring_block_impl="auto"`` takes B3 for shards on CUDA that tile by
+    128 with eps2 > 0, float64 ones too (f32 inside, as JAX's rule takes the
+    kernel whatever the dtype), and the dense block otherwise (CPU tensors,
+    an untileable shard, eps2 = 0); "pallas" with float64 on CUDA takes B3
+    (it raised before f64 opened on the card). f64 collisions under a CUDA
+    mesh still raise, naming ROADMAP G.1b."""
     from types import SimpleNamespace
 
     def pos(device, dtype=torch.float32):
@@ -717,14 +719,18 @@ def test_ring_block_routing():
     assert tsh._ring_block_impl(cfg, 16384, pos("cpu")) == "dense"
     assert tsh._ring_block_impl(cfg, 16380, pos("cuda")) == "dense"
     assert tsh._ring_block_impl(cfg.replace(eps2=0.0), 16384, pos("cuda")) == "dense"
-    assert tsh._ring_block_impl(cfg, 16384, pos("cuda", torch.float64)) == "dense"
+    assert tsh._ring_block_impl(cfg, 16384, pos("cuda", torch.float64)) == "pallas"
     assert tsh._ring_block_impl(cfg.replace(ring_block_impl="dense"), 16384,
                                 pos("cuda")) == "dense"
     assert tsh._ring_block_impl(cfg.replace(ring_block_impl="pallas"), 128,
                                 pos("cpu")) == "pallas"
-    with pytest.raises(NotImplementedError, match="f64 state takes the dense ring block"):
-        tsh._ring_block_impl(cfg.replace(ring_block_impl="pallas"), 16384,
-                             pos("cuda", torch.float64))
+    assert tsh._ring_block_impl(cfg.replace(ring_block_impl="pallas"), 16384,
+                                pos("cuda", torch.float64)) == "pallas"
+    mesh = SimpleNamespace(shape={"body": 4}, device=torch.device("cuda"))
+    state = SimpleNamespace(n_bodies=4 * 16384, dtype=torch.float64,
+                            pos=pos("cuda", torch.float64))
+    with pytest.raises(NotImplementedError, match="G.1b"):
+        tsh._prepare(cfg.replace(collisions="bounce"), mesh, state, None)
 
 
 def test_ring_rounds_launch_the_block_kernels(monkeypatch):
