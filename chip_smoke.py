@@ -149,9 +149,10 @@ Phases, one line of output each; any failure exits nonzero:
      forces (B1) at orders 1 and 2;
  23. the tree main path: ``bench_tree``'s configuration (Plummer 65,536,
      levels 7, dt 1e-4, eps2 1e-6, f32, budgets probed at 1.5x) through
-     ``init_forces`` -> 20 recorded -> 1,000 unrecorded ``rollout`` steps with
-     B7 once an evaluation and overflow 0; the tree drift run of the headline
-     cluster (pm_box (0, 0, 0, 8), dt 1e-3) with |dE/E| <= 1e-3 in f64; and
+     ``init_forces`` -> 20 recorded -> TREE_MAIN_STEPS unrecorded ``rollout``
+     steps with B7 once an evaluation and overflow 0; the tree drift run of
+     the headline cluster (pm_box (0, 0, 0, 8), dt 1e-3, TREE_MAIN_STEPS
+     steps) with |dE/E| <= 1e-3 in f64; and
      ``simulate(force_impl="tree")`` on the card;
  24. tree timings: B7, its plain version, the far field, the evaluation and
      the KDK step at 65,536, with the device's busy share; one evaluation at
@@ -423,11 +424,28 @@ Phases, one line of output each; any failure exits nonzero:
  68. the tree's layout-study flags on bench_tree's sphere (``_FAR_NHWC``,
      ``_FAR_COMBINE = "lazy"``, ``_PAIRS_CF = "scan"``) against the default
      evaluation with each one's ms, and TREE_SKIP in a child process
-     (``tree_skip_child``): its warning, and each part zeroed.
+     (``tree_skip_child``): its warning, and each part zeroed;
+ 69. f64 collisions under a mesh (ROADMAP G.1b): B3 detect's f64 instance
+     (B3D64) at RING_B^2 and RING_B8^2 (R_RICH, R_BENCH, dead rows, dead
+     columns, coinciding tables at equal offsets), acc and pe bit-equal to
+     B3 detect on the tables cast as in_f32 casts them and the count
+     integer-equal to the plain f64 count; the block bounce's f64 instance
+     (BB64) within F64_BOUNCE_RTOL of its plain f64 version, bit-equal
+     pinned to one split, its rounds added in place bit-equal to them
+     summed; the f64 ring at N_MAIN over RING_P ranks with bounce, merge and
+     resolve at R_RICH (F64_RING_STEPS) and the (ensemble x body) bounce
+     step, each within F64_PLAIN_RTOL of the same steps on the plain f64
+     versions and within F64_RING_ATOL of the single-card f64 run, alive
+     masks and counts equal; the bench row's f64 bounce ring over
+     RING_BOUNCE_STEPS bit-equal to the collision-free f64 ring up to its
+     first contact and within DRIFT_BUDGET; both instances timed in turns
+     with their f32 instances, and the f64 bounce ring's step with the ds32
+     one's.
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
 10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38, 39, 42, 44, 45, 47, 48,
-49, 53, 54, 58, 62, 63, 64, 65 and each path of 66) and read just after it:
+49, 53, 54, 58, 62, 63, 64, 65 and each path of 66 and 69) and read just
+after it:
 each kernel must have run on its path. B3 runs on the multi-device ring only:
 phase 27 checks it alone, phase 28 requires 0 launches over its three
 single-card main paths, and its record's launches are phase 53's. The
@@ -566,6 +584,9 @@ NEAR_RAGGED_SCALE = 0.3
 TREE_LEVELS, TREE_DT, TREE_EPS2 = 7, 1e-4, 1e-6
 TREE_CHUNK, TREE_RJ = 32, 8
 TREE_DRIFT_BOX = (0.0, 0.0, 0.0, 8.0)
+# phase 23's unrecorded steps of bench_tree's run and of the drift run
+# (--drift-steps until the script's time limit cut them: ~50 ms a step)
+TREE_MAIN_STEPS = 300
 N_TREE_RAGGED, TREE_RAGGED_LEVELS = 5000, 5
 N_TREE_BIG, TREE_BIG_LEVELS, TREE_SAMPLE = 1048576, 8, 1024
 # the tree's bounds: the RMS force error against the exact sum (the JAX
@@ -634,15 +655,18 @@ GRAM_MAX_RTOL = 5e-3
 # is 4x the first and below the second.
 GRAM_S_RTOL = 1e-3
 # the ragged size of phases 25-26: 39 tiles of 128, a third dead; the block
-# sizes of phase 27; the "mxu" route's timed steps
+# sizes of phase 27; the "mxu" route's timed steps (cut from 200 to 50 for
+# the script's time limit: ~160 ms a step)
 N_VAR_RAGGED = 4992
 N_BLOCK = 16384
-MXU_STEPS = 200
+MXU_STEPS = 50
 
 # the mesh runs (phases 30-33). PM: the JAX package's smooth cluster
 # (tests/test_pm.py:11-16: normal positions, masses uniform in [0.5, 1.5] / N,
 # eps2 0.09) at N_MAIN and grid 64; the PM drift row (bench.py:928-941: the
-# headline cluster, grid 128, pm_box (0, 0, 0, 8), f32, 10,000 steps); and
+# headline cluster, grid 128, pm_box (0, 0, 0, 8), f32, 10,000 steps: not cut,
+# since its drift is fluctuation-dominated and read 2.120e-2 after 4,000 steps,
+# above its gate, in a run cut for time); and
 # bench_pm's scene (bench.py:319-340: 1,048,576 normal positions, velocities
 # 0.3 N(0, 1), masses 1/N, eps2 0.01, grid 128, no potential). P3M: the
 # uniform row (bench.py:981-1000: 65,536 bodies uniform in [-4, 4]^3 from
@@ -795,8 +819,10 @@ ENS_SLICE = 128
 # FACADE_TIMED steps, FACADE_TIMED_REPEATS times each in turns. The viewer backend at SIM_N = 65,536 with VIEWER_WARMUP
 # warm-up steps (the default is 5,000) and VIEWER_TICKS ticks and snapshots;
 # solar mode with SOLAR_TICKS ticks
-FACADE_STEP_CALLS, FACADE_RUN, FACADE_HISTORY_EVERY, FACADE_AFTER = 10, 500, 50, 100
-FACADE_TIMED, FACADE_TIMED_REPEATS = 200, 8
+# (run(500), and 200 steps 8 times each in turns, until the script's time
+# limit cut them to 200 and 100 steps 4 times)
+FACADE_STEP_CALLS, FACADE_RUN, FACADE_HISTORY_EVERY, FACADE_AFTER = 10, 200, 50, 100
+FACADE_TIMED, FACADE_TIMED_REPEATS = 100, 4
 VIEWER_WARMUP, VIEWER_TICKS, VIEWER_VIEW, SOLAR_TICKS = 100, 5, 1500, 3
 
 # the fitting runs (phase 47): the two scenes of tests/test_fitting.py on the
@@ -805,7 +831,10 @@ VIEWER_WARMUP, VIEWER_TICKS, VIEWER_VIEW, SOLAR_TICKS = 100, 5, 1500, 3
 # planets about a unit mass observed every 40 steps of 2e-3 over 400), their
 # recovery gates as the tests state them
 G_SI = 6.6743e-11
-FIT_VEL_ITERS, FIT_MASS_ITERS, FIT_ELEMENTS_ITERS = 250, 300, 200
+# (cut from the tests' 250, 300 and 200 for the script's time limit: on the
+# CPU the same fits met every gate at 100, 100 and 80 iterations, the
+# tightest 3.5x inside it, the mass fit's error 2.9e-4 < 1e-3)
+FIT_VEL_ITERS, FIT_MASS_ITERS, FIT_ELEMENTS_ITERS = 150, 150, 100
 # the first FIT_CHECK_ITERS iterations of the velocity fit on the card against
 # the same fit on the CPU: f64 sums of the same few terms, ~1e-15 apart a step
 # (rsqrt on two devices), grown by the optimizer's ten steps; 1e-9 leaves room
@@ -821,7 +850,9 @@ FIT_CHECK_ITERS, FIT_CPU_RTOL = 10, 1e-9
 # facade's tree run (SimConfig's defaults: near "cells", capacity 48, levels
 # 6) on the cluster of TREE_ENGINE_N bodies for TREE_ENGINE_STEPS steps
 TREE_MODES = ("cells", "columns", "pairs")
-TREE_MODE_RTOL, TREE_MODE_STEPS, TREE_MODE_ITERS, TREE_PAIRS_CHUNK = 1e-5, 100, 3, 64
+# (TREE_MODE_STEPS was 100 until the script's time limit cut it: "cells"
+# takes ~0.7 s a step)
+TREE_MODE_RTOL, TREE_MODE_STEPS, TREE_MODE_ITERS, TREE_PAIRS_CHUNK = 1e-5, 20, 3, 64
 TREE_ACCURACY = 1e-2
 TREE_ENGINE_N, TREE_ENGINE_STEPS = 16384, 20
 
@@ -853,14 +884,14 @@ SHAPED = {
     "fused_rollout": ("fused_kdk_shape", {"B4": "fused_kdk_kernel"}, r"MUFU\.RSQ"),
 }
 LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_block_forces",
-                              "nbody_block_forces_detect", "nbody_block_shape",
-                              "ot_error_string"),
+                              "nbody_block_forces_detect", "nbody_block_forces_detect_f64",
+                              "nbody_block_shape", "ot_error_string"),
              "nbody_jerk": ("nbody_jerk", "nbody_jerk_detect", "nbody_jerk_subset",
                             "nbody_jerk_subset_f64", "nbody_jerk_subset_shape",
                             "ot_error_string"),
              "nbody_forces_mxu": ("nbody_forces_mxu", "ot_error_string"),
-             "collisions": ("bounce_deltas", "bounce_block_round", "bounce_block_shape",
-                            "ot_error_string"),
+             "collisions": ("bounce_deltas", "bounce_block_round", "bounce_block_round_f64",
+                            "bounce_block_shape", "ot_error_string"),
              "nbody_forces_sym": ("nbody_forces_sym", "ot_error_string"),
              "tree_near": ("tree_near_span", "ot_error_string"),
              "neighbor": ("near_sweep", "near_sweep_rows", "ot_error_string"),
@@ -1023,6 +1054,37 @@ B5S64 = dict(name="nbody_jerk_subset_f64", route="cuda",
 F64_STEPS, F64_CHUNKED_STEPS = 20, 5
 F64_DS32_ATOL, F64_BLOCK_ATOL, F64_RICH_ATOL, F64_ALIVE_SLACK = 1e-5, 1e-3, 5e-4, 8
 F64_SUBSET_RTOL = 1e-12
+# f64 collisions under a mesh (phase 69, ROADMAP G.1b): the instances of B3
+# detect and the block bounce over f64 tables; no TPU kernel: they stand in
+# for JAX's XLA code in the state's dtype (_contacts_block ringed by
+# orbital_tpu/parallel/sharded.py:199-231, and _block_bounce, :72-117)
+B3D64 = dict(name="nbody_block_forces_detect_f64", route="cuda",
+             source="orbital_tpu_torch/csrc/nbody_forces.cu",
+             replaces="orbital_tpu/ops/collisions.py:97")
+BB64 = dict(name="bounce_block_round_f64", route="cuda",
+            source="orbital_tpu_torch/csrc/collisions.cu",
+            replaces="orbital_tpu/parallel/sharded.py:72")
+F64_RING_STEMS = {"B3D64": "block_detect_f64_kernel", "BB64": "bounce_block_f64_kernel"}
+# phase 69's runs: the f64 ring's bounce, merge and resolve at R_RICH over
+# RING_P ranks for F64_RING_STEPS steps, the first F64_PLAIN_STEPS of each
+# held to the same run on the instances' plain f64 versions within
+# F64_PLAIN_RTOL of max |.| (f64 sums of the same terms in other orders:
+# ~1e-16 a step), and the whole run to the single card's f64 run within
+# F64_RING_ATOL, whose B2 and B6 compute in f32: F64_RICH_ATOL's reason (a
+# contact normal from f32 differences at separations of ~3e-3 is ~6e-5
+# relative off, in a velocity change of ~1; the bounce ring read 1.013e-5
+# over 20 steps in its first card run, against a first gate of 1e-5); the
+# block bounce's f64 instance against its plain f64 version within
+# F64_BOUNCE_RTOL of max |.| (the same double terms; rsqrt to an ulp)
+F64_RING_STEPS, F64_PLAIN_STEPS = 20, 3
+F64_PLAIN_RTOL, F64_RING_ATOL, F64_BOUNCE_RTOL = 1e-10, F64_RICH_ATOL, 1e-12
+# the f64 instances' work a pair beyond their f32 instances': B3 detect's
+# double count (3 differences, r2 (5), R_i + R_j, * 1.00001 and the square
+# (3): 11, of which the test's 9 on a pair it keeps) on the pairs its f32
+# prefilter flags; the block bounce's double pass (the count's 9, s (5),
+# 1/m_j, base, rsqrt, the impulse and the de-overlap (~25)) on its flagged
+# pairs
+OPS_B3D64_PAIR, OPS_BB64_PAIR = 11, 39
 # the contact sweep's instantiations (mangled-name stems, sweep_kernel<T,
 # kMode>) by record key, and the compare that marks a pair in each one's
 # prefilter loop
@@ -1631,7 +1693,8 @@ def reset_launches() -> None:
                cuda_tree.tree_near_part_cuda, cuda_neighbor.near_acc_slots_rows_cuda):
         fn.launches = 0
     for fn in (cuda_collisions.collision_roots_cuda, cuda_collisions.contact_marks_cuda,
-               cuda_jerk.accel_jerk_subset_cuda):
+               cuda_jerk.accel_jerk_subset_cuda, cuda_forces.block_acc_detect_cuda,
+               cuda_collisions.bounce_block_cuda):
         fn.f64_launches = 0
     ensemble.member_loop.runs = 0
 
@@ -1687,6 +1750,27 @@ def plain_bounce():
         yield
     finally:
         cuda_collisions.bounce_deltas_cuda = kernel
+
+
+@contextlib.contextmanager
+def plain_f64_ring():
+    """While active, the sharded steps built take the plain versions of B3
+    detect and the block bounce (``block_acc_detect_plain``,
+    ``bounce_block_plain``) in place of their wrappers: a run held against
+    the f64 instances'."""
+    from orbital_tpu_torch.ops import cuda_collisions, cuda_forces
+
+    saved = cuda_forces.block_acc_detect_cuda, cuda_collisions.bounce_block_cuda
+
+    def bounce(*args, checked=False, **kw):
+        return cuda_collisions.bounce_block_plain(*args, **kw)
+
+    cuda_forces.block_acc_detect_cuda = cuda_forces.block_acc_detect_plain
+    cuda_collisions.bounce_block_cuda = bounce
+    try:
+        yield
+    finally:
+        cuda_forces.block_acc_detect_cuda, cuda_collisions.bounce_block_cuda = saved
 
 
 class StepLog:
@@ -2674,7 +2758,7 @@ class Smoke:
                         "ENS": dict(ENS), "B3D": dict(B3D), "BB": dict(BB),
                         "P3MR": dict(P3MR), "B7S": dict(B7S), "NEARI": dict(NEARI),
                         "ROOTS64": dict(ROOTS64), "MARK64": dict(MARK64),
-                        "B5S64": dict(B5S64)}
+                        "B5S64": dict(B5S64), "B3D64": dict(B3D64), "BB64": dict(BB64)}
         self._cluster = None
         self._respa_budgets = None
         self._plummer = None
@@ -2758,6 +2842,12 @@ class Smoke:
             kernels._library_path("nbody_forces")[1])))
         shapes.append(self.bounce_block_record(logs["collisions"], sass(
             kernels._library_path("collisions")[1])))
+        # their f64 instances (phase 69), on the f32 instances' plans
+        shapes += [self.entry_record(k, stem, logs["nbody_forces" if k == "B3D64"
+                                                   else "collisions"])
+                   for k, stem in F64_RING_STEMS.items()]
+        for k, base in (("B3D64", "B3D"), ("BB64", "BB")):
+            self.kernels[k]["shape"] = dict(self.kernels[base]["shape"])
         shapes += [self.subset_record(cuda_jerk._load(), logs["nbody_jerk"]),
                    self.p3m_record(logs["p3m_short"], sass(
                        kernels._library_path("p3m_short")[1])),
@@ -3140,11 +3230,11 @@ class Smoke:
         return line5, line6
 
     def scene(self, n: int, radius: float, dead: int, seed_offset: int,
-              cluster: bool = True):
+              cluster: bool = True, dtype=None):
         """Cluster positions and velocities (Gaussian ones below N_MAIN or
         without ``cluster``) with radii in [R/2, 3R/2] and ``dead`` bodies at
-        the end, parked far as make_state parks padding: f32 tensors (pos,
-        vel, mass, radius, alive) on the card."""
+        the end, parked far as make_state parks padding: f32 tensors (or
+        ``dtype``'s) (pos, vel, mass, radius, alive) on the card."""
         from orbital_tpu_torch.engine.state import far_positions
 
         torch = self.torch
@@ -3162,7 +3252,7 @@ class Smoke:
             pos[-dead:] = far_positions(dead, float(np.abs(pos).max()), np.float32,
                                         start=n - dead)
 
-        def t(a, dtype=torch.float32):
+        def t(a, dtype=dtype or torch.float32):
             return torch.tensor(a, dtype=dtype, device=self.dev)
 
         return t(pos), t(vel), t(mass), t(rad), t(alive, torch.bool)
@@ -4561,12 +4651,12 @@ class Smoke:
             rec, traj = ot.rollout(state, cfg, rec_steps, record_every=rec_steps // 2)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fin, none = ot.rollout(rec, cfg, self.drift_steps)
+            fin, none = ot.rollout(rec, cfg, TREE_MAIN_STEPS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             b7 = tree_near_cuda.launches
             overflow = int(ovf[0])
-        evals = 1 + rec_steps + self.drift_steps
+        evals = 1 + rec_steps + TREE_MAIN_STEPS
         if b7 != evals:
             raise AssertionError(f"tree main path: B7 launched {b7} times in {evals} evals")
         if overflow:
@@ -4574,7 +4664,7 @@ class Smoke:
         if tuple(traj.pos.shape) != (2, N_MAIN, 3) or none is not None:
             raise AssertionError("tree main path: the recorded rollout returned wrong records")
         if not bool(torch.isfinite(fin.pos).all()) or int(fin.step) != rec_steps + \
-                self.drift_steps:
+                TREE_MAIN_STEPS:
             raise AssertionError("tree main path: non-finite state or wrong step count")
         total, entries = tree_wl_probe(fin.pos, fin.alive, levels=TREE_LEVELS, ws=1,
                                        chunk=TREE_CHUNK, rj=TREE_RJ)
@@ -4582,7 +4672,7 @@ class Smoke:
             raise AssertionError(f"tree main path: final probe ({total}, {entries}) outgrew "
                                  f"the budgets {budgets}")
         self.kernels["B7"]["launches"] = b7
-        self.tree_ms_per_step = 1e3 * wall / self.drift_steps
+        self.tree_ms_per_step = 1e3 * wall / TREE_MAIN_STEPS
 
         # the tree drift rung: the headline cluster in a pinned box
         cpos, cvel, cmass, _ = self.cluster()
@@ -4595,7 +4685,7 @@ class Smoke:
                                           device=self.dev), cfg_d)
         E0 = energy_f64(st)
         with overflow_log() as ovf_d:
-            fin_d, _ = ot.rollout(st, cfg_d, self.drift_steps)
+            fin_d, _ = ot.rollout(st, cfg_d, TREE_MAIN_STEPS)
             torch.cuda.synchronize()
             overflow_d = int(ovf_d[0])
         drift = abs((energy_f64(fin_d) - E0) / E0)
@@ -4617,11 +4707,11 @@ class Smoke:
                                  f"B7 {sim_b7}")
         return (f"bench_tree config (N={N_MAIN} Plummer, l{TREE_LEVELS}, dt {TREE_DT:g}, eps2 "
                 f"{TREE_EPS2:g}, f32, budgets {budgets}): init_forces + {rec_steps} recorded + "
-                f"{self.drift_steps} unrecorded steps, B7 launched {b7} times in {evals} evals, "
+                f"{TREE_MAIN_STEPS} unrecorded steps, B7 launched {b7} times in {evals} evals, "
                 f"overflow 0, final probe ({total}, {entries}) within the budgets; "
                 f"{self.tree_ms_per_step:.3f} ms/step wall | drift run (headline cluster, "
                 f"pm_box {TREE_DRIFT_BOX}, dt {DT:g}, eps2 {EPS2:g}, budgets {b_d}): |dE/E| = "
-                f"{drift:.3e} over {self.drift_steps} steps (f64, {native.backend()}) <= "
+                f"{drift:.3e} over {TREE_MAIN_STEPS} steps (f64, {native.backend()}) <= "
                 f"{TREE_DRIFT_BOUND:g}, overflow 0 | simulate: tree_near={c.tree_near!r}, "
                 f"levels {c.tree_levels}, max_chunks {c.tree_max_chunks}, wl_entries "
                 f"{c.tree_wl_entries}, ds32 state {res.final_state.pos_lo is not None}, B7 "
@@ -5708,7 +5798,8 @@ class Smoke:
             hold(k, mod, call)
         # B6, B7 (whole worklists) and the one-split block bounce keep the
         # parent's bits; B7's slices (TOLS 0) too
-        for k in ("B6", "B6G", "B6Z", "B7", "B7R", "B7L", "B7S", "BB1", "BB ring1"):
+        for k in ("B6", "B6G", "B6Z", "B7", "B7R", "B7L", "B7S", "BB1", "BB ring1", "B3R",
+                  "B3R8", "B3D", "B3D8", "BB", "BB ring"):
             if not equal[k]:
                 raise AssertionError(f"{k} is not bit-equal to the parent build's "
                                      f"({worst[k]:.3e})")
@@ -9570,6 +9661,423 @@ class Smoke:
         print("perf_f64_instances " + json.dumps(perf), file=sys.stderr)
         return "the f64 instances vs their plain f64 versions: " + "; ".join(lines)
 
+    # phase 69
+    def f64_ring_collisions(self) -> str:
+        """f64 collisions under a mesh (ROADMAP G.1b): B3 detect's and the
+        block bounce's f64 instances against their plain f64 versions at the
+        ring's shard shapes (``check_f64_ring_instances``); the f64 ring's
+        bounce, merge and resolve at N_MAIN over RING_P ranks and the
+        (ensemble x body) bounce step, each held to the same run on the
+        plain f64 versions and to the single card's f64 run
+        (``f64_ring_paths``); the bench row's f64 bounce ring over
+        RING_BOUNCE_STEPS steps (``f64_ring_bench_row``); the instances'
+        times in turns with their f32 instances' and the f64 ring's step in
+        turns with the ds32 ring's (``f64_ring_timings``)."""
+        return "f64 collisions under a mesh: " + " | ".join(
+            (self.check_f64_ring_instances(), self.f64_ring_paths(),
+             self.f64_ring_bench_row(), self.f64_ring_timings()))
+
+    def f64_shards(self, radius: float, ranks: int = RING_P, dead: int = 0):
+        """``ring_shards``' scene in f64 (the cluster's own f64 values, of
+        which the f32 shards are the cast): [(pos, vel, mass, radius, alive),
+        ...]."""
+        rows = self.scene(N_MAIN, radius, dead, seed_offset=51, dtype=self.torch.float64)
+        b = N_MAIN // ranks
+        return [tuple(t[r * b:(r + 1) * b] for t in rows) for r in range(ranks)]
+
+    def check_f64_ring_instances(self) -> str:
+        """B3 detect's f64 instance at RING_B^2 and RING_B8^2 on the
+        contact-rich radius, the bench row's, with dead rows and with dead
+        columns (a third of the last shard, parked far) and on coinciding
+        tables at equal offsets (the ring's diagonal round): acc and pe
+        bit-equal to B3 detect's f32 instance on the tables cast as in_f32
+        casts them, the count integer-equal to the plain f64 count
+        (``block_contacts``). The block bounce's f64 instance on the
+        contact-rich shards at both sizes: on its plan within F64_BOUNCE_RTOL
+        of the plain f64 version, bit-equal pinned to one split, rank 0's
+        rounds in accumulate form bit-equal to them written apart and summed
+        and to a rerun, gated rounds leaving the sums, and its dead rows'
+        deltas 0."""
+        from orbital_tpu_torch.ops import cuda_collisions as cc
+        from orbital_tpu_torch.ops import cuda_forces as cf
+        from orbital_tpu_torch.ops.collisions import block_contacts
+
+        torch = self.torch
+        kw, e = dict(G=1.0, eps2=EPS2), 0.8
+        big = 2.0 ** 100
+        one = torch.ones((), dtype=torch.int32, device=self.dev)
+        zero = torch.zeros((), dtype=torch.int32, device=self.dev)
+
+        def cast(x):
+            return x.clamp(-big, big).float() if x.dtype == torch.float64 else x
+
+        def launch(si, sj, contacts, splits=None, into=None):
+            dpos, dvel = into or (torch.empty_like(si[0]), torch.empty_like(si[1]))
+            cc._bounce_block_launch(si, sj, e, contacts, dpos, dvel, into is not None, splits)
+            return dpos, dvel
+
+        def rel(got, ref):
+            scale = max(float(r.abs().max()) for r in ref)
+            d = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            return (d / scale if scale else d), d
+
+        b3d, bb, worst, absd = [], [], 0.0, 0.0
+        for ranks in (RING_P, RING_P8):
+            b = N_MAIN // ranks
+            rich, bench = self.f64_shards(R_RICH, ranks), self.f64_shards(R_BENCH, ranks)
+            dead = self.f64_shards(R_RICH, ranks, dead=b // 3)
+            counts = {}
+            for key, (shards, i, j) in {"rich": (rich, 0, 1), "bench": (bench, 0, 1),
+                                        "dead rows": (dead, ranks - 1, 0),
+                                        "dead columns": (dead, 0, ranks - 1),
+                                        "diagonal": (rich, 0, 0)}.items():
+                (pi, _, _, ri, ai), (pj, _, mj, rj, aj) = shards[i], shards[j]
+                args = (pi, ri, ai, i * b, pj, mj * aj.to(mj.dtype), rj, aj, j * b)
+                a, pe, c = cf.block_acc_detect_cuda(*args, **kw)
+                a32, pe32, _ = cf.block_acc_detect_cuda(
+                    *(cast(x) if isinstance(x, torch.Tensor) else x for x in args), **kw)
+                ref = int(block_contacts(pi, ri, ai, i * b, pj, rj, aj, j * b))
+                if a.dtype != torch.float64 or not (torch.equal(a, a32.double())
+                                                    and torch.equal(pe, pe32.double())):
+                    raise AssertionError(f"B3D64 {key} at {b}^2: acc or pe not bit-equal to "
+                                         f"B3 detect's on the cast tables")
+                if int(c) != ref:
+                    raise AssertionError(f"B3D64 {key} at {b}^2: count {int(c)}, plain f64 "
+                                         f"{ref}")
+                counts[key] = ref
+            if not counts["diagonal"] and not counts["rich"]:
+                raise AssertionError(f"B3D64 at {b}^2: no contacts in the rich cases")
+            b3d.append(f"{b}^2 counts " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+            # the block bounce's forms on the contact-rich shards
+            sh = cc.bounce_block_shape(self.dev)
+            plan = cc.bounce_plan(b, b, sh["k"], sh["q"], sh["tile"], sh["resident"], sh["sms"])
+            ref = cc.bounce_block_plain(*rich[0], *rich[0], restitution=e)
+            got = cc.bounce_block_cuda(*rich[0], *rich[0], restitution=e, contacts=one)
+            pinned = launch(rich[0], rich[0], one, splits=1)
+            acc = launch(rich[0], rich[0], one)
+            for j in range(1, ranks):
+                launch(rich[0], rich[j], one, into=acc)
+            apart = [launch(rich[0], rich[j], one) for j in range(ranks)]
+            summed = apart[0]
+            for dp in apart[1:]:
+                summed = (summed[0] + dp[0], summed[1] + dp[1])
+            again = launch(rich[0], rich[0], one)
+            for j in range(1, ranks):
+                launch(rich[0], rich[j], one, into=again)
+            plain = cc.bounce_block_plain(*rich[0], *rich[0], restitution=e)
+            for j in range(1, ranks):
+                cc.bounce_block_plain(*rich[0], *rich[j], restitution=e, out=plain)
+            before = tuple(t.clone() for t in acc)
+            for j in range(1, ranks):
+                launch(rich[0], rich[j], zero, into=acc)
+            dead_got = cc.bounce_block_cuda(*dead[-1], *dead[0], restitution=e, contacts=one)
+            dead_ref = cc.bounce_block_plain(*dead[-1], *dead[0], restitution=e)
+            torch.cuda.synchronize()
+            moved = int((plain[1].abs().sum(1) > 0).sum())
+            if got[0].dtype != torch.float64 or not moved:
+                raise AssertionError(f"BB64 at {b}^2: {got[0].dtype}, {moved} rows bounced")
+            for what, g, r in (("diagonal", got, ref), ("accumulated", acc, plain),
+                               ("dead rows", dead_got, dead_ref)):
+                err, d = rel(g, r)
+                worst, absd = max(worst, err), max(absd, d)
+                if err > F64_BOUNCE_RTOL:
+                    raise AssertionError(f"BB64 {what} at {b}^2 vs plain f64: {err:.3e}")
+            if not all(torch.equal(x, y) for x, y in zip(pinned, got)):
+                raise AssertionError(f"BB64 at {b}^2: one split not bit-equal to its plan's "
+                                     f"{plan['splits']}")
+            if not all(torch.equal(x, y) for x, y in zip(again, summed)) or not all(
+                    torch.equal(x, y) for x, y in zip(before, summed)):
+                raise AssertionError(f"BB64 at {b}^2: the accumulate form is not bit-equal "
+                                     f"to its rounds summed, or a rerun differs")
+            if not all(torch.equal(x, y) for x, y in zip(acc, before)):
+                raise AssertionError(f"BB64 at {b}^2: a gated round moved the sums")
+            live = dead[-1][4]
+            if bool(dead_got[1][~live].any()) or bool(dead_got[0][~live].any()):
+                raise AssertionError(f"BB64 at {b}^2: a dead row's deltas are not 0")
+            bb.append(f"{b}^2 ({plan['splits']} splits) rank 0's {ranks} rounds, {moved} rows "
+                      f"bounced")
+        self.kernels["BB64"]["max_abs_err"] = absd
+        self.kernels["B3D64"]["max_abs_err"] = 0.0
+        return ("B3D64 acc and pe bit-equal to B3 detect on the cast tables, counts "
+                "integer-equal to the plain f64 count (" + "; ".join(b3d) + "); BB64 within "
+                f"{worst:.2e} <= {F64_BOUNCE_RTOL:g} of the plain f64 version, one split "
+                "bit-equal to its plan, the accumulate form bit-equal to its rounds summed and "
+                "to a rerun, gated rounds leave the sums, dead rows 0 (" + "; ".join(bb) + ")")
+
+    def f64_ring_paths(self) -> str:
+        """The f64 ring at N_MAIN over RING_P one-card ranks, R_RICH:
+        ``make_sharded_rollout`` with bounce, merge and resolve for
+        F64_RING_STEPS steps (contacts on their steps; B3D64 RING_P^2 a step,
+        BB64 RING_P^2 a bounce step, their f32 instances never), and
+        ``make_sharded_ensemble_step`` with bounce on ENS_MESH_E members of
+        the ENS_MESH_N-body cluster over ENS_MESH_SHAPE ranks (BB64 E x
+        P_body^2 a step). Each run's first F64_PLAIN_STEPS steps within
+        F64_PLAIN_RTOL of max |.| of the same steps on the plain f64
+        versions, alive masks (and counts) equal; and the whole run against
+        the single card's f64 run within F64_RING_ATOL over the bodies alive
+        in both, alive masks, masses and counts equal."""
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.engine.rollout import resolve_force_detect_fn
+        from orbital_tpu_torch.ops import cuda_collisions as cc
+        from orbital_tpu_torch.ops import cuda_forces as cf
+        from orbital_tpu_torch.parallel.ensemble import _member, _stack
+
+        torch = self.torch
+        pos, vel, mass, _ = self.cluster()
+        mesh = self.ring_mesh(RING_P)
+
+        def live_err(a, b, what, tol):
+            """max |d| of positions and velocities over the bodies alive in
+            both (relative to max |.| with ``tol`` < 1e-9), alive and masses
+            equal."""
+            if not torch.equal(a.alive, b.alive):
+                raise AssertionError(f"f64 ring {what}: alive masks differ")
+            if not torch.allclose(a.mass, b.mass, rtol=1e-12, atol=0.0):
+                raise AssertionError(f"f64 ring {what}: masses differ")
+            keep, err = a.alive & b.alive, 0.0
+            for f in ("pos_full", "vel_full"):
+                x, y = getattr(a, f)()[keep], getattr(b, f)()[keep]
+                d = float((x - y).abs().max())
+                err = max(err, d / float(y.abs().max()) if tol < 1e-9 else d)
+            if not err <= tol or a.pos.dtype != torch.float64:
+                raise AssertionError(f"f64 ring {what}: {err:.3e} > {tol:g}")
+            return err
+
+        def ring_run(cfg, st, steps):
+            log = []
+            with ring_counts(log):
+                roll = ot.make_sharded_rollout(cfg, mesh, st, steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fin = ot.gather_state(mesh, roll(ot.shard_state(mesh, st))[0])
+            torch.cuda.synchronize()
+            return fin, [int(c) for c in log], 1e3 * (time.perf_counter() - t0) / steps
+
+        lines = []
+        for mode, extra in (("bounce", dict(restitution=0.8)), ("merge", {}),
+                            ("resolve", dict(frag_seed=RESOLVE_SEED,
+                                             debris_k=RESOLVE_DEBRIS_K))):
+            cfg = self.ring_cfg(collisions=mode, **extra)
+            st = ot.init_forces(self.torch_state(pos, vel, mass, R_RICH, precision="f64"), cfg)
+            reset_launches()
+            fin, counts, ms = ring_run(cfg, st, F64_RING_STEPS)
+            launches = dict(B3D64=cf.block_acc_detect_cuda.f64_launches,
+                            BB64=cc.bounce_block_cuda.f64_launches,
+                            f32=cf.block_acc_detect_cuda.launches
+                            + cc.bounce_block_cuda.launches)
+            rounds = RING_P * RING_P * F64_RING_STEPS
+            if launches != dict(B3D64=rounds, BB64=rounds if mode == "bounce" else 0, f32=0) \
+                    or not any(counts):
+                raise AssertionError(f"f64 ring {mode}: launches {launches}, counts {counts}")
+            if mode == "bounce":
+                self.kernels["B3D64"]["launches"] = launches["B3D64"]
+                self.kernels["BB64"]["launches"] = launches["BB64"]
+            k_fin, k_counts, _ = ring_run(cfg, st, F64_PLAIN_STEPS)
+            with plain_f64_ring():
+                p_fin, p_counts, _ = ring_run(cfg, st, F64_PLAIN_STEPS)
+            if k_counts != p_counts:
+                raise AssertionError(f"f64 ring {mode}: counts {k_counts} on the kernels, "
+                                     f"{p_counts} on the plain versions")
+            e_plain = live_err(k_fin, p_fin, f"{mode} vs plain", F64_PLAIN_RTOL)
+            one_log = StepLog(resolve_force_detect_fn(cfg, N_MAIN, self.dev, torch.float64),
+                              keep_counts=True)
+            one, _ = ot.rollout(st, cfg, F64_RING_STEPS, fused="never", force_detect_fn=one_log)
+            one_c = [int(c) for c in one_log.counts]
+            if counts != one_c:
+                raise AssertionError(f"f64 ring {mode}: counts {counts}, one card {one_c}")
+            e_one = live_err(fin, one, f"{mode} vs one card", F64_RING_ATOL)
+            lines.append(f"{mode}: {F64_RING_STEPS} steps, contacts on {sum(map(bool, counts))} "
+                         f"(counts {counts[:3]}...) equal to the single card's; first "
+                         f"{F64_PLAIN_STEPS} within {e_plain:.2e} of the plain f64 versions' "
+                         f"(max |.|); within {e_one:.2e} of the single-card f64 run; "
+                         f"{ms:.2f} ms/step wall; launches {launches}")
+
+        # the (ensemble x body) bounce step
+        E, n = ENS_MESH_E, ENS_MESH_N
+        epos, evel, emass = make_cluster(n, self.seed + 65)
+        rng = np.random.default_rng(self.seed + 66)
+        emesh = ot.make_mesh(shape=ENS_MESH_SHAPE, axis_names=("ensemble", "body"),
+                             devices=self.dev)
+        cfg = self.ring_cfg(collisions="bounce", restitution=0.8)
+        members = [ot.init_forces(ot.make_state(
+            epos + ENS_MESH_SIGMA * rng.normal(size=epos.shape), evel, emass,
+            np.full(n, ENS_MESH_R), precision="f64", device=self.dev),
+            cfg.replace(force_impl="dense", collisions="none")) for _ in range(E)]
+        batched = _stack(members)
+
+        def ens_run(steps):
+            step, place = ot.make_sharded_ensemble_step(cfg, emesh, batched)
+            shards = place(batched)
+            for _ in range(steps):
+                shards = step(shards)
+            return ot.gather_ensemble(emesh, shards)
+
+        reset_launches()
+        out = ens_run(ENS_MESH_STEPS)
+        bb64, p_b = cc.bounce_block_cuda.f64_launches, ENS_MESH_SHAPE[1]
+        if bb64 != E * p_b * p_b * ENS_MESH_STEPS or cc.bounce_block_cuda.launches:
+            raise AssertionError(f"f64 ensemble mesh: BB64 {bb64} launches, f32 "
+                                 f"{cc.bounce_block_cuda.launches}")
+        k_out = ens_run(F64_PLAIN_STEPS)
+        with plain_f64_ring():
+            p_out = ens_run(F64_PLAIN_STEPS)
+        e_plain = max(live_err(_member(k_out, k), _member(p_out, k), "ensemble vs plain",
+                               F64_PLAIN_RTOL) for k in range(E))
+        e_one, bounced = 0.0, 0
+        for k in range(E):
+            one, _ = ot.rollout(members[k], cfg, ENS_MESH_STEPS, fused="never")
+            free, _ = ot.rollout(members[k], cfg.replace(collisions="none"), ENS_MESH_STEPS,
+                                 fused="never")
+            e_one = max(e_one, live_err(_member(out, k), one, "ensemble vs one card",
+                                        F64_RING_ATOL))
+            bounced += int(((_member(out, k).vel - free.vel).abs().max(1).values
+                            > 1e-6).sum())
+        if not bounced:
+            raise AssertionError("f64 ensemble mesh: no body bounced")
+        lines.append(f"ensemble mesh {ENS_MESH_SHAPE}, {E} members x {n}, R={ENS_MESH_R:g}, "
+                     f"{ENS_MESH_STEPS} steps ({bounced} bodies bounced): first "
+                     f"{F64_PLAIN_STEPS} within {e_plain:.2e} of the plain f64 versions', "
+                     f"members within {e_one:.2e} of their single-card f64 runs; BB64 {bb64} "
+                     f"launches")
+        return (f"f64 ring N={N_MAIN} over {RING_P} ranks, R={R_RICH:g}: " + " | ".join(lines))
+
+    def f64_ring_bench_row(self) -> str:
+        """The bench row's f64 bounce ring over RING_P ranks for
+        RING_BOUNCE_STEPS steps: bit-equal, step by step, to the
+        collision-free f64 ring up to its first contact (both rings' forces
+        are B3's on the cast tables), B3D64 and BB64 RING_P^2 a step, and
+        |dE/E| over the run within DRIFT_BUDGET in f64."""
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops import cuda_collisions as cc
+        from orbital_tpu_torch.ops import cuda_forces as cf
+
+        torch = self.torch
+        pos, vel, mass, _ = self.cluster()
+        mesh = self.ring_mesh(RING_P)
+        st = ot.init_forces(self.torch_state(pos, vel, mass, R_BENCH, precision="f64"),
+                            self.ring_cfg())
+        log = []
+        with ring_counts(log):
+            step_b = ot.make_sharded_step(self.ring_cfg(collisions="bounce"), mesh, st)
+        step_n = ot.make_sharded_step(self.ring_cfg(), mesh, st)
+        b = f = ot.shard_state(mesh, st)
+        reset_launches()
+        first = None
+        for k in range(1, RING_BOUNCE_STEPS + 1):
+            b = step_b(b)
+            if first is not None:
+                continue
+            f = step_n(f)
+            if int(log[-1]) > 0:
+                first = k
+                continue
+            for sb, sf in zip(b, f):
+                for name in ("pos", "vel", "acc", "potential"):
+                    if not torch.equal(getattr(sb, name), getattr(sf, name)):
+                        raise AssertionError(f"f64 ring bounce bench row: {name} differs from "
+                                             f"the collision-free ring at step {k}")
+        fin = ot.gather_state(mesh, b)
+        e0 = energy_f64(st)
+        drift = abs((energy_f64(fin) - e0) / e0)
+        rounds = RING_P * RING_P * RING_BOUNCE_STEPS
+        launches = (cf.block_acc_detect_cuda.f64_launches, cc.bounce_block_cuda.f64_launches)
+        if launches != (rounds, rounds) or drift > DRIFT_BUDGET or fin.pos.dtype != torch.float64:
+            raise AssertionError(f"f64 ring bounce bench row: launches {launches}, |dE/E| "
+                                 f"{drift:.3e}")
+        return (f"bench row R={R_BENCH:g} f64 bounce ring over {RING_P} ranks, "
+                f"{RING_BOUNCE_STEPS} steps: bit-equal to the collision-free f64 ring through "
+                f"step {(first or RING_BOUNCE_STEPS + 1) - 1}, first contact "
+                f"{'at step ' + str(first) if first else 'none'} (ds32 ring: step 587); "
+                f"|dE/E| = {drift:.3e} <= {DRIFT_BUDGET:g}; B3D64, BB64 {launches} launches")
+
+    def f64_ring_timings(self) -> str:
+        """The f64 instances timed by CUDA events in turns with their f32
+        instances at RING_B^2: B3D64 at the bench row's radius, BB64 as the
+        ring calls it (a checked round added in place) at the contact-rich
+        radius and at a count of 0; their plain f64 versions; their bounds
+        (the f32 prefilter's work at the f32 rate and the double pass's on
+        the pairs within its reach at the FP64 rate, the f64 tables read
+        once); and the bench row's f64 bounce ring step in turns with the
+        ds32 one's."""
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops import cuda_collisions as cc
+        from orbital_tpu_torch.ops import cuda_forces as cf
+
+        torch = self.torch
+        B, kw, e = RING_B, dict(G=1.0, eps2=EPS2), 0.8
+        zero = torch.zeros((), dtype=torch.int32, device=self.dev)
+        s64, s32 = self.f64_shards(R_BENCH), self.ring_shards(R_BENCH)
+        r64, r32 = self.f64_shards(R_RICH), self.ring_shards(R_RICH)
+
+        def b3d(sh):
+            (pi, _, _, ri, ai), (pj, _, mj, rj, aj) = sh[0], sh[1]
+            return lambda: cf.block_acc_detect_cuda(pi, ri, ai, 0, pj, mj, rj, aj, B, **kw)
+
+        c64, c32 = b3d(r64)()[2], b3d(r32)()[2]
+        sums = {k: (torch.zeros((B, 3), dtype=dt, device=self.dev),
+                    torch.zeros((B, 3), dtype=dt, device=self.dev))
+                for k, dt in (("BB", torch.float32), ("BB64", torch.float64))}
+        cc.bounce_block_cuda(*r32[0], *r32[1], restitution=e, contacts=c32, out=sums["BB"])
+        cc.bounce_block_cuda(*r64[0], *r64[1], restitution=e, contacts=c64, out=sums["BB64"])
+
+        def bb(sh, count, key):
+            return lambda: cc.bounce_block_cuda(*sh[0], *sh[1], restitution=e, contacts=count,
+                                                checked=True, out=sums[key])
+
+        kern = {k: summary(v) for k, v in alternate_ms({
+            "B3D": b3d(s32), "B3D64": b3d(s64), "BB": bb(r32, c32, "BB"),
+            "BB64": bb(r64, c64, "BB64"), "BB0": bb(r32, zero, "BB"),
+            "BB64 0": bb(r64, zero, "BB64")}, 20).items()}
+        (pi, vi, mi, ri, ai), (pj, vj, mj, rj, aj) = s64[0], s64[1]
+        plain = {"B3D64": summary(time_ms(lambda: cf.block_acc_detect_plain(
+                     pi, ri, ai, 0, pj, mj, rj, aj, B, **kw), 1)),
+                 "BB64": summary(time_ms(lambda: cc.bounce_block_plain(
+                     *r64[0], *r64[1], restitution=e, contacts=c64), 1))}
+        # the pairs within each prefilter's reach (the cast's error at these
+        # scales is ~1e-7 of the largest radius sum: the reach is 3 R)
+        reach = {k: pairs_within(sh[0][0].float(), sh[1][0].float(), (3.0 * r * c) ** 2)
+                 for k, sh, r, c in (("B3D64", s64, R_BENCH, 1.00002),
+                                     ("BB64", r64, R_RICH, 1.000001))}
+        pairs, touching = B * B, int(c64)
+        bounds = {
+            "B3D64": bound((OPS_B1_PE + OPS_B2 - OPS_B1) * pairs, 33 * B + 41 * B + 16 * B + 4,
+                           rsqrt=pairs, f64=OPS_B3D64_PAIR * reach["B3D64"]),
+            "BB64": bound(OPS_B6 * pairs, 65 * 2 * B + 48 * B + 4,
+                          f64=OPS_BB64_PAIR * reach["BB64"]),
+        }
+        for k in ("B3D64", "BB64"):
+            self.kernels[k].update(ms=kern[k]["median"], plain_ms=plain[k]["median"],
+                                   bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                                   library_ms=None)
+        # the bench row's bounce ring, f64 against ds32, in turns
+        pos, vel, mass, _ = self.cluster()
+        cfg_b = self.ring_cfg(track_potential=False, collisions="bounce")
+        st64 = ot.init_forces(self.torch_state(pos, vel, mass, R_BENCH, precision="f64"), cfg_b)
+        mesh = self.ring_mesh(RING_P)
+        roll64 = ot.make_sharded_rollout(cfg_b, mesh, st64, 10)
+        shard64 = ot.shard_state(mesh, st64)
+        steps = {k: summary([t / 10 for t in v]) for k, v in alternate_ms({
+            "ds32 ring": self.ring_bounce_roll(), "f64 ring": lambda: roll64(shard64)},
+            1, repeats=3).items()}
+        perf = dict(kernels=kern, plain=plain, bounds=bounds, reach_pairs=reach,
+                    touching=touching, ring_step_ms=steps)
+        print("perf_f64_ring " + json.dumps(perf), file=sys.stderr)
+
+        def share(k):
+            return 100 * bounds[k][0] / kern[k]["median"]
+
+        return (f"times at {B}^2 in turns (CUDA events): B3D64 R={R_BENCH:g} "
+                f"{kern['B3D64']['median']:.4f} ms (B3D {kern['B3D']['median']:.4f}; plain "
+                f"{plain['B3D64']['median']:.2f}; bound {bounds['B3D64'][0]:.4f} ms, "
+                f"{bounds['B3D64'][1]}, {share('B3D64'):.1f}%), BB64 {touching} contacts "
+                f"{kern['BB64']['median']:.4f} ms (BB {kern['BB']['median']:.4f}; plain "
+                f"{plain['BB64']['median']:.2f}; bound {bounds['BB64'][0]:.4f}, "
+                f"{bounds['BB64'][1]}, {share('BB64'):.1f}%), at a count of 0 BB64 "
+                f"{kern['BB64 0']['median']:.4f} (BB {kern['BB0']['median']:.4f}); bounce ring "
+                f"step at R={R_BENCH:g}, {RING_P} ranks: " + ", ".join(
+                    f"{k} {v['median']:.3f} ms (spread {v['spread']:.3f})"
+                    for k, v in steps.items()))
+
     # phase 68
     def tree_flags(self) -> str:
         """The tree's layout-study flags (``ops/tree.py``: ``_FAR_NHWC``,
@@ -9756,6 +10264,7 @@ def main(argv=None) -> int:
         ("66 f64 main paths", smoke.f64_main_paths),
         ("67 f64 instances", smoke.check_f64_instances),
         ("68 tree flags", smoke.tree_flags),
+        ("69 f64 ring collisions", smoke.f64_ring_collisions),
     ]
     if args.sweep or args.parent or args.ring_variants:
         phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (

@@ -108,6 +108,25 @@
 //   chip_smoke.py phase 60, --parent and --ring-variants, an H100 80GB HBM3
 //   at 700 W).
 //
+// The block bounce's f64 instance (bounce_block_f64_kernel, for f64 state
+// under a mesh: JAX's _block_bounce runs in the state's dtype): the port's
+// plain block bounce (ops/cuda_collisions.py::bounce_block_plain) in
+// double, on the f32 instance's launch plan, with its gate, its split sums
+// in split order and its accumulate mode, all in double. Each pair's tests
+// are the plain version's correctly rounded double operations (dd = r_j -
+// r_i, r2 = (ddx ddx + ddy ddy) + ddz ddz <= (R_i + R_j)^2, r2 > 0, m_j > 0, s
+// < 0; no FMA), and a touching pair's impulse and de-overlap take one
+// reciprocal square root, as the plain version's. The rejection is B6's
+// prefilter on the f32 cast of the tables (a row's nearest f32 r2 in the
+// tile) against a bound rounded outward (reach2, the argument of
+// nbody_forces.cu's B3 detect f64 instance with c0 = 1: the cast's error
+// at the row's and the tile's largest |coordinate| of a live body, and the
+// tile's largest radius of a live body); only a flagged row of a flagged
+// tile runs the double pass, reading its own and the tile's f64 rows in
+// place. Each warp's deltas of its rows meet in shared memory in warp
+// order, three doubles a row at a time (the velocities', then the
+// positions').
+//
 // Plain C interface for ctypes: pointers and the stream are void*, and the
 // entry point returns cudaGetLastError() of its launch.
 #include <cuda_runtime.h>
@@ -147,6 +166,8 @@ static_assert(kBK >= 1 && kBQ >= 1 && kBMin >= 1, "bad block launch shape");
 static_assert(kQ * kTile * 32 <= 48 * 1024 && 6 * kRows <= 8 * kTile &&
                   kBQ * kTile * 32 <= 48 * 1024 && 6 * kBRows <= 8 * kTile,
               "the warps' tiles must fit in static shared memory and hold the deltas");
+static_assert(3 * kBRows <= 4 * kTile && kBRows <= kBThreads,
+              "the f64 instance stashes three doubles a row and sums a row a thread");
 
 struct Deltas {
   float vx = 0.0f, vy = 0.0f, vz = 0.0f, px = 0.0f, py = 0.0f, pz = 0.0f;
@@ -156,6 +177,26 @@ struct Deltas {
 // exact test
 __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
   return fmaf(dz, dz, fmaf(dy, dy, dx * dx));
+}
+
+struct Deltas64 {
+  double vx = 0.0, vy = 0.0, vz = 0.0, px = 0.0, py = 0.0, pz = 0.0;
+};
+
+// The largest |coordinate| of a cast row (x, y, z).
+__device__ __forceinline__ float coord_scale(float4 p) {
+  return fmaxf(fabsf(p.x), fmaxf(fabsf(p.y), fabsf(p.z)));
+}
+
+// The f32 prefilter's bound on the f32 r2 (dist2 of the cast rows) of any
+// pair that an exact f64 test r2 <= (s c0)^2 keeps (nbody_forces.cu, B3
+// detect's f64 instance, states the argument): rsum >= R^_i + R^_j of the
+// cast radii, scale >= a_i + a_j, c >= c0 (1 + 2^-50) / (1 - 2^-24); rounded
+// upward, +inf where it overflows, NaN where a radius is.
+__device__ __forceinline__ float reach2(float rsum, float scale, float c) {
+  const float e = __fmaf_ru(scale, 0x1.000002p-24f, 0x1p-149f);
+  const float lin = __fmaf_ru(e, 1.7320510f, __fmul_ru(__fadd_ru(rsum, 0x1p-149f), c));
+  return __fadd_ru(__fmul_ru(__fmul_ru(lin, lin), 1.0f + 0x1p-20f), 0x1p-146f);
 }
 
 // One pair, i's view: add the impulse and de-overlap of an approaching
@@ -335,8 +376,9 @@ bounce_kernel(Side si, Side sj, float e, const int* __restrict__ contacts,
 }
 
 // Row i's round sum a into dvel and dpos: written, or added to them.
-__device__ __forceinline__ void emit(const float (&a)[6], int i, bool accumulate,
-                                     float* __restrict__ dpos, float* __restrict__ dvel) {
+template <typename T>
+__device__ __forceinline__ void emit(const T (&a)[6], int i, bool accumulate,
+                                     T* __restrict__ dpos, T* __restrict__ dvel) {
   if (accumulate) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -415,6 +457,212 @@ bounce_block_kernel(Side si, Side sj, float e, const int* __restrict__ contacts,
   if (threadIdx.x == 0) done[tile_i] = 0u;
 }
 
+// ---- the block bounce's f64 instance ----
+
+// One side's f64 arrays: positions and velocities [n, 3], mass and radius
+// [n] double, alive [n] bool or null.
+struct Side64 {
+  const double* __restrict__ pos;
+  const double* __restrict__ vel;
+  const double* __restrict__ mass;
+  const double* __restrict__ radius;
+  const bool* __restrict__ alive;
+  int n;
+};
+
+__device__ __forceinline__ bool live64(const Side64& s, int i) {
+  return (s.alive == nullptr || s.alive[i]) && s.mass[i] > 0.0;
+}
+
+// The cast (x, y, z, R) of body j, R NaN where it cannot touch: as
+// utils.kernels.in_f32 casts a value (clamped to +-2^100, then rounded).
+__device__ __forceinline__ float cast32(double x) {
+  const double big = 0x1p100;
+  return __double2float_rn(x < -big ? -big : (x > big ? big : x));
+}
+
+__device__ __forceinline__ float4 geo_of64(const Side64& s, int j) {
+  return make_float4(cast32(s.pos[3 * j]), cast32(s.pos[3 * j + 1]), cast32(s.pos[3 * j + 2]),
+                     live64(s, j) ? cast32(s.radius[j]) : __int_as_float(0x7fc00000));
+}
+
+// Row i of si (live) against the bodies j0, ..., j0 + count - 1 of sj: the
+// plain version's pair in double, its tests correctly rounded, added to d.
+// Not inlined: a thread's rows' deltas (24 doubles) then live in its local
+// memory (L1), where only this cold pass touches them, and not in
+// registers through the sweep, which spilled at the 128-register cap.
+__device__ __noinline__ void bounce_row_f64(const Side64& si, const Side64& sj, int i,
+                                               int j0, int count, double e, Deltas64& d) {
+  const double xi = si.pos[3 * i], yi = si.pos[3 * i + 1], zi = si.pos[3 * i + 2];
+  const double ux = si.vel[3 * i], uy = si.vel[3 * i + 1], uz = si.vel[3 * i + 2];
+  const double ri = si.radius[i];
+  const double inv_mi = __drcp_rn(si.mass[i]);
+  for (int j = j0; j < j0 + count; ++j) {
+    const double ddx = __dsub_rn(sj.pos[3 * j], xi);
+    const double ddy = __dsub_rn(sj.pos[3 * j + 1], yi);
+    const double ddz = __dsub_rn(sj.pos[3 * j + 2], zi);
+    const double r2 = __dadd_rn(__dadd_rn(__dmul_rn(ddx, ddx), __dmul_rn(ddy, ddy)),
+                                __dmul_rn(ddz, ddz));
+    const double rsum = __dadd_rn(ri, sj.radius[j]);
+    if (!(r2 <= __dmul_rn(rsum, rsum)) || !(r2 > 0.0) || !live64(sj, j)) continue;
+    const double s = __dadd_rn(
+        __dadd_rn(__dmul_rn(ddx, __dsub_rn(sj.vel[3 * j], ux)),
+                  __dmul_rn(ddy, __dsub_rn(sj.vel[3 * j + 1], uy))),
+        __dmul_rn(ddz, __dsub_rn(sj.vel[3 * j + 2], uz)));
+    if (!(s < 0.0)) continue;
+    const double inv_d = rsqrt(r2);
+    const double base = __dmul_rn(__drcp_rn(__dadd_rn(inv_mi, __drcp_rn(sj.mass[j]))), inv_mi);
+    const double fv = __dmul_rn(__dmul_rn(__dmul_rn(1.0 + e, s), __dmul_rn(inv_d, inv_d)), base);
+    const double h = __dmul_rn(__dsub_rn(__dmul_rn(rsum, inv_d), 1.0), base);
+    // each term rounded once before it joins the sum, as the plain
+    // version's products are (no FMA): a row's sum of two terms is then the
+    // same in any order, on any plan
+    d.vx = __dadd_rn(d.vx, __dmul_rn(fv, ddx));
+    d.vy = __dadd_rn(d.vy, __dmul_rn(fv, ddy));
+    d.vz = __dadd_rn(d.vz, __dmul_rn(fv, ddz));
+    d.px = __dsub_rn(d.px, __dmul_rn(h, ddx));
+    d.py = __dsub_rn(d.py, __dmul_rn(h, ddy));
+    d.pz = __dsub_rn(d.pz, __dmul_rn(h, ddz));
+  }
+}
+
+// The deltas of rows base + lane + 32 k (k < K) of si from the j bodies
+// [j_lo, j_hi) of sj, in double: warp w of the Q sweeps tiles j_lo + w kTile,
+// + Q kTile, ..., each staged by the warp as its cast (x, y, z, R) into its
+// own tile, prefiltered on each row's nearest f32 r2 (B6's loop), then the
+// double pass of each flagged row. Each warp's own deltas of its rows come
+// out in d.
+template <int K, int Q>
+__device__ __forceinline__ void sweep_rows_f64(const Side64& si, const Side64& sj, int base,
+                                               int j_lo, int j_hi, double e,
+                                               float4 (*tiles)[2][kTile], Deltas64 (&d)[K]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float nan = __int_as_float(0x7fc00000);
+  float4 gi[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = base + lane + 32 * k;
+    gi[k] = i < si.n ? geo_of64(si, i) : make_float4(0.f, 0.f, 0.f, nan);
+  }
+  float4* gtile = tiles[warp][0];
+  for (int j0 = j_lo + warp * kTile; j0 < j_hi; j0 += Q * kTile) {
+    float rmax = 0.0f, amax = 0.0f;  // over the live bodies this lane staged
+#pragma unroll
+    for (int r = lane; r < kTile; r += 32) {
+      if (j0 + r < j_hi) {
+        const float4 g = geo_of64(sj, j0 + r);
+        gtile[r] = g;
+        if (g.w == g.w) {  // live
+          rmax = fmaxf(rmax, g.w);
+          amax = fmaxf(amax, coord_scale(g));
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    }
+    __syncwarp();
+    const int count = min(kTile, j_hi - j0);
+    float nearest[K];
+    if (count == kTile) nearest_tile<K>(gtile, kTile, gi, nearest);
+    else nearest_tile<K>(gtile, count, gi, nearest);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (nearest[k] <= reach2(__fadd_ru(gi[k].w, rmax), __fadd_ru(coord_scale(gi[k]), amax),
+                               1.000001f))
+        bounce_row_f64(si, sj, base + lane + 32 * k, j0, count, e, d[k]);
+    }
+    __syncwarp();
+  }
+}
+
+// The f64 instance of bounce_block_kernel: the same plan, gate and split
+// sums; part: [splits * n_i * 6] double scratch (unused with one split).
+__global__ void __launch_bounds__(kBThreads, kBMin)
+bounce_block_f64_kernel(Side64 si, Side64 sj, double e, const int* __restrict__ contacts,
+                        int tiles, int splits, int split_len, int accumulate,
+                        double* __restrict__ part, unsigned int* __restrict__ done,
+                        double* __restrict__ dpos, double* __restrict__ dvel) {
+  const int tile_i = blockIdx.x % tiles, split = blockIdx.x / tiles;
+  const int base = tile_i * kBRows;
+  const int n = si.n;
+  if (contacts != nullptr && *contacts <= 0) {  // uniform: one count for all
+    if (accumulate || split > 0) return;
+    for (int r = threadIdx.x; r < kBRows && base + r < n; r += kBThreads) {
+      const int i = base + r;
+      dvel[3 * i + 0] = dvel[3 * i + 1] = dvel[3 * i + 2] = 0.0;
+      dpos[3 * i + 0] = dpos[3 * i + 1] = dpos[3 * i + 2] = 0.0;
+    }
+    return;
+  }
+  __shared__ float4 tiles_s[kBQ][2][kTile];
+  __shared__ bool last;
+  Deltas64 d[kBK];
+  const int j_lo = split * split_len;
+  sweep_rows_f64<kBK, kBQ>(si, sj, base, j_lo, min(j_lo + split_len, sj.n), e, tiles_s, d);
+  // the kBQ warps' deltas of each row, added in warp order: the velocities'
+  // three doubles a row, then the positions'
+  const int lane = threadIdx.x & 31;
+  const int r = threadIdx.x;
+  double a[6];
+  for (int half = 0; half < 2; ++half) {
+    double* mine = reinterpret_cast<double*>(tiles_s[threadIdx.x >> 5]);
+#pragma unroll
+    for (int k = 0; k < kBK; ++k) {
+      double* row = mine + 3 * (lane + 32 * k);
+      row[0] = half ? d[k].px : d[k].vx;
+      row[1] = half ? d[k].py : d[k].vy;
+      row[2] = half ? d[k].pz : d[k].vz;
+    }
+    __syncthreads();
+    if (r < kBRows) {
+      const double* w0 = reinterpret_cast<const double*>(tiles_s[0]) + 3 * r;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) a[3 * half + c] = w0[c];
+      for (int q = 1; q < kBQ; ++q) {
+        const double* wq = reinterpret_cast<const double*>(tiles_s[q]) + 3 * r;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) a[3 * half + c] += wq[c];
+      }
+    }
+    __syncthreads();
+  }
+  const bool owns = r < kBRows && base + r < n;
+  if (owns) {
+    if (splits == 1) {
+      emit(a, base + r, accumulate, dpos, dvel);
+    } else {
+      double* p = part + (static_cast<size_t>(split) * n + base + r) * 6;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) p[c] = a[c];
+    }
+  }
+  if (splits == 1) return;
+  // the last split of this i tile to finish adds the splits in order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&done[tile_i], 1u) == static_cast<unsigned>(splits - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (owns) {
+    const double* p0 = part + (static_cast<size_t>(base) + r) * 6;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) a[c] = __ldcg(p0 + c);
+    for (int q = 1; q < splits; ++q) {
+      const double* pq = part + (static_cast<size_t>(q) * n + base + r) * 6;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) a[c] += __ldcg(pq + c);
+    }
+    emit(a, base + r, accumulate, dpos, dvel);
+  }
+  if (threadIdx.x == 0) done[tile_i] = 0u;
+}
+
 }  // namespace
 
 extern "C" {
@@ -470,6 +718,38 @@ int bounce_block_round(const void* pos_i, const void* vel_i, const void* mass_i,
       si, sj, restitution, static_cast<const int*>(contacts), tiles, splits, split_len,
       accumulate, static_cast<float*>(part), static_cast<unsigned int*>(done),
       static_cast<float*>(dpos), static_cast<float*>(dvel));
+  return cudaGetLastError();
+}
+
+// The block bounce's f64 instance: bounce_block_round's arguments with the
+// sides' pos, vel, mass and radius double, restitution double, and part
+// [splits * n_i * 6], dpos, dvel [n_i, 3] double; the f32 instance's plan.
+int bounce_block_round_f64(const void* pos_i, const void* vel_i, const void* mass_i,
+                           const void* radius_i, const void* alive_i, int n_i,
+                           const void* pos_j, const void* vel_j, const void* mass_j,
+                           const void* radius_j, const void* alive_j, int n_j,
+                           double restitution, const void* contacts, int splits,
+                           int split_len, int accumulate, void* part, void* done, void* dpos,
+                           void* dvel, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n_i <= 0) return cudaSuccess;
+  if (splits < 1 || split_len < 1 || split_len % kTile != 0 ||
+      static_cast<long long>(splits) * split_len < n_j ||
+      (n_j > 0 && static_cast<long long>(splits - 1) * split_len >= n_j))
+    return cudaErrorInvalidValue;
+  const Side64 si{static_cast<const double*>(pos_i), static_cast<const double*>(vel_i),
+                  static_cast<const double*>(mass_i), static_cast<const double*>(radius_i),
+                  static_cast<const bool*>(alive_i), n_i};
+  const Side64 sj{static_cast<const double*>(pos_j), static_cast<const double*>(vel_j),
+                  static_cast<const double*>(mass_j), static_cast<const double*>(radius_j),
+                  static_cast<const bool*>(alive_j), n_j};
+  const int tiles = (n_i + kBRows - 1) / kBRows;
+  bounce_block_f64_kernel<<<tiles * splits, kBThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      si, sj, restitution, static_cast<const int*>(contacts), tiles, splits, split_len,
+      accumulate, static_cast<double*>(part), static_cast<unsigned int*>(done),
+      static_cast<double*>(dpos), static_cast<double*>(dvel));
   return cudaGetLastError();
 }
 

@@ -121,6 +121,28 @@
 // B3 detect ~12% behind B3 where its FMNMX adds 6%: both loops sit at the
 // 64-register cap, the detecting one with more live values.
 //
+// B3 detect's f64 instance (block_detect_f64_kernel, for f64 state under a
+// mesh; no TPU kernel: JAX runs _contacts_block in the state's dtype and
+// B3 on the state cast to f32 at entry): the same sweep on the f64 tables,
+// each value read as utils.kernels.in_f32 casts it (clamped to +-2^100,
+// then rounded to nearest), so that acc and pe are bit-equal to B3 detect's
+// on the cast tables, on the same launch plan. The count is the f64 one,
+// JAX's test in correctly rounded double operations (__dsub_rn, __dmul_rn,
+// __dadd_rn; no FMA): d = r_i - r_j, r2 = (dx dx + dy dy) + dz dz,
+// counted when r2 <= ((R_i + R_j) 1.00001)^2, so it is integer-equal to
+// ops.collisions.block_contacts in f64. It keeps the f32 prefilter: a row's
+// nearest f32 r2 in the tile (the force sweep's own) against reach2(), a
+// bound on the f32 r2 of any pair that the double test counts, rounded
+// upward: with u = 2^-24, a cast coordinate is off by at most u |x| +
+// 2^-150, so each f32 difference is at most (|dx| + e)(1 + u) with e = u (a_i
+// + a_j) / (1 - u) + 2^-149 (a the largest |coordinate| of a live body, the
+// row's and the tile's), the f32 r2 is at most (|d| + sqrt(3) e)^2 (1 +
+// u)^5 + 2^-148, and |d| <= (R^_i + R^_j + 2^-149) 1.00001 (1 + 2^-50) / (1 -
+// u) for the cast radii R^. Dead bodies take a NaN radius and stay out of the
+// tile's largest radius and coordinate. Only a flagged row of a flagged
+// tile runs the double test, reading its own and the tile's f64 rows in
+// place (the tile's on the diagonal round, and rarely elsewhere).
+//
 // Plain C interface for ctypes: pointers and the stream are void*, and the
 // entry point returns cudaGetLastError() of its launch.
 #include <cuda_runtime.h>
@@ -176,6 +198,30 @@ __device__ __forceinline__ float rsqrt_ftz(float x) {
 // count, so that the count's prefilter and its test read the same value
 __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
   return fmaf(dz, dz, fmaf(dx, dx, dy * dy));
+}
+
+// A table's value as the sweep reads it: an f32 table's as it is, an f64
+// table's as utils.kernels.in_f32 casts it (clamped to +-2^100, NaN kept)
+__device__ __forceinline__ float as_f32(float x) { return x; }
+__device__ __forceinline__ float as_f32(double x) {
+  const double big = 0x1p100;
+  return __double2float_rn(x < -big ? -big : (x > big ? big : x));
+}
+
+// The largest |coordinate| of a cast row.
+__device__ __forceinline__ float coord_scale(float4 p) {
+  return fmaxf(fabsf(p.x), fmaxf(fabsf(p.y), fabsf(p.z)));
+}
+
+// The f32 prefilter's bound on the f32 r2 (dist2 of the cast rows) of any
+// pair that an exact f64 test r2 <= (s c0)^2 keeps, s = R_i + R_j of the f64
+// radii, from rsum >= R^_i + R^_j of the cast radii, scale >= a_i + a_j and
+// c >= c0 (1 + 2^-50) / (1 - 2^-24); rounded upward, +inf where it
+// overflows, NaN where a radius is (a dead body's).
+__device__ __forceinline__ float reach2(float rsum, float scale, float c) {
+  const float e = __fmaf_ru(scale, 0x1.000002p-24f, 0x1p-149f);
+  const float lin = __fmaf_ru(e, 1.7320510f, __fmul_ru(__fadd_ru(rsum, 0x1p-149f), c));
+  return __fadd_ru(__fmul_ru(__fmul_ru(lin, lin), 1.0f + 0x1p-20f), 0x1p-146f);
 }
 
 // Sums one tile into fresh partials t (x, y, z, pe) of each of the kK rows,
@@ -251,6 +297,32 @@ __device__ __forceinline__ void count_tile_ids(const float4* tile, const float* 
       touch[k] += (r2 <= rsum * rsum) && (i0 + 32 * k != jj);
     }
   }
+}
+
+// The f64 count of row i (global id i + i_off) against the tile's columns j0,
+// ..., j0 + count - 1 (global ids j + j_off; j_self = i + i_off - j_off is
+// the row's own column, skipped), read from the f64 tables in place: JAX's
+// _contacts_block test in correctly rounded double operations.
+__device__ __forceinline__ int count_row_f64(const double* __restrict__ pos_i,
+                                          const double* __restrict__ radius_i, int i,
+                                          const double* __restrict__ pos_j,
+                                          const double* __restrict__ radius_j,
+                                          const unsigned char* __restrict__ alive_j, int j0,
+                                          int count, int j_self) {
+  const double xi = pos_i[3 * i], yi = pos_i[3 * i + 1], zi = pos_i[3 * i + 2];
+  const double ri = radius_i[i];
+  int touch = 0;
+  for (int j = j0; j < j0 + count; ++j) {
+    if (j == j_self || !alive_j[j]) continue;
+    const double dx = __dsub_rn(xi, pos_j[3 * j]);
+    const double dy = __dsub_rn(yi, pos_j[3 * j + 1]);
+    const double dz = __dsub_rn(zi, pos_j[3 * j + 2]);
+    const double r2 = __dadd_rn(__dadd_rn(__dmul_rn(dx, dx), __dmul_rn(dy, dy)),
+                                __dmul_rn(dz, dz));
+    const double rsum = __dmul_rn(__dadd_rn(ri, radius_j[j]), 1.00001);
+    touch += r2 <= __dmul_rn(rsum, rsum);
+  }
+  return touch;
 }
 
 // The second bound (one block an SM) lets ptxas use up to 128 registers a
@@ -387,17 +459,18 @@ void launch(const float4* p, int n, const float* radius, float G, float eps2, fl
 // into a tally behind the tiles' counters (done[tiles]); the last block of
 // the grid to finish (done[tiles + 1] counts them) moves it to `contacts`
 // and sets both back to 0.
-// B3 and B3 detect are one template, so their forces are bit-equal.
-template <bool kDetect>
-__global__ void __launch_bounds__(kBThreads, kBMin)
-block_forces_kernel(const float* __restrict__ pos_i, int n_i, const float* __restrict__ pos_j,
-                    const float* __restrict__ mass_j, int n_j,
-                    const float* __restrict__ radius_i,
-                    const unsigned char* __restrict__ alive_i,
-                    const float* __restrict__ radius_j,
-                    const unsigned char* __restrict__ alive_j, int diag, float G, float eps2,
-                    int tiles, int splits, int split_len, float4* __restrict__ part, unsigned int* __restrict__ done,
-                    float4* __restrict__ out, int* __restrict__ contacts) {
+// B3 and B3 detect are one template, so their forces are bit-equal; B3
+// detect's f64 instance (T = double) reads its tables through as_f32, so
+// its forces are B3 detect's on the cast tables.
+template <typename T, bool kDetect>
+__device__ __forceinline__ void block_sweep(
+    const T* __restrict__ pos_i, int n_i, const T* __restrict__ pos_j,
+    const T* __restrict__ mass_j, int n_j, const T* __restrict__ radius_i,
+    const unsigned char* __restrict__ alive_i, const T* __restrict__ radius_j,
+    const unsigned char* __restrict__ alive_j, int diag, float G, float eps2, int tiles,
+    int splits, int split_len, float4* __restrict__ part, unsigned int* __restrict__ done,
+    float4* __restrict__ out, int* __restrict__ contacts) {
+  constexpr bool kWide = sizeof(T) == sizeof(double);
   __shared__ float4 slots[kBQ][kBSlot];
   __shared__ float rtiles[kDetect ? kBQ : 1][kDetect ? kTile : 1];
   __shared__ int warp_sums[kBQ];
@@ -413,10 +486,11 @@ block_forces_kernel(const float* __restrict__ pos_i, int n_i, const float* __res
 #pragma unroll
   for (int k = 0; k < kBK; ++k) {
     const int i = base + lane + 32 * k;
-    pi[k] = i < n_i ? make_float4(pos_i[3 * i], pos_i[3 * i + 1], pos_i[3 * i + 2], 0.0f)
+    pi[k] = i < n_i ? make_float4(as_f32(pos_i[3 * i]), as_f32(pos_i[3 * i + 1]),
+                                  as_f32(pos_i[3 * i + 2]), 0.0f)
                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     // a dead body's NaN radius fails every comparison
-    ri[k] = (kDetect && i < n_i) ? (alive_i[i] ? radius_i[i] : nan) : 0.0f;
+    ri[k] = (kDetect && i < n_i) ? (alive_i[i] ? as_f32(radius_i[i]) : nan) : 0.0f;
     s[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     touch[k] = 0;
   }
@@ -426,15 +500,18 @@ block_forces_kernel(const float* __restrict__ pos_i, int n_i, const float* __res
   for (int j0 = split * split_len + warp * kTile; j0 < j_end; j0 += kBQ * kTile) {
     const int count = min(kTile, j_end - j0);
     float rmax = 0.0f;  // the largest radius this lane staged
+    float amax = 0.0f;  // the largest |coordinate| of a live body it staged (f64)
 #pragma unroll
     for (int r = lane; r < kTile; r += 32) {
       if (r < count) {
         const int j = j0 + r;
-        tile[r] = make_float4(pos_j[3 * j], pos_j[3 * j + 1], pos_j[3 * j + 2], mass_j[j]);
+        tile[r] = make_float4(as_f32(pos_j[3 * j]), as_f32(pos_j[3 * j + 1]),
+                              as_f32(pos_j[3 * j + 2]), as_f32(mass_j[j]));
         if (kDetect) {
-          const float rj = alive_j[j] ? radius_j[j] : nan;
+          const float rj = alive_j[j] ? as_f32(radius_j[j]) : nan;
           rtile[r] = rj;
           rmax = fmaxf(rmax, rj);
+          if (kWide && alive_j[j]) amax = fmaxf(amax, coord_scale(tile[r]));
         }
       }
     }
@@ -453,7 +530,7 @@ block_forces_kernel(const float* __restrict__ pos_i, int n_i, const float* __res
       s[k].z += t[k].z;
       s[k].w += t[k].w;
     }
-    if (kDetect) {
+    if (kDetect && !kWide) {
       // the prefilter of B2: a row's nearest r2 in the tile against the
       // tile's largest radius, then the exact count of the tile
 #pragma unroll
@@ -467,6 +544,28 @@ block_forces_kernel(const float* __restrict__ pos_i, int n_i, const float* __res
       }
       if (__any_sync(0xffffffffu, maybe))
         count_tile_ids<kBK>(tile, rtile, count, pi, ri, base + lane - j0 - diag, touch);
+    }
+    if (kDetect && kWide) {
+      // the f32 prefilter with its outward bound (reach2), then the double
+      // test of each flagged row against the tile's f64 rows, in place
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      }
+#pragma unroll
+      for (int k = 0; k < kBK; ++k) {
+        const int i = base + lane + 32 * k;
+        // the row's scale is recomputed here, a tile at a time, rather
+        // than held in a register through the sweep
+        if (i < n_i && nearest[k] <= reach2(__fadd_ru(ri[k], rmax),
+                                            __fadd_ru(coord_scale(pi[k]), amax), 1.00002f))
+          touch[k] += count_row_f64(reinterpret_cast<const double*>(pos_i),
+                                    reinterpret_cast<const double*>(radius_i), i,
+                                    reinterpret_cast<const double*>(pos_j),
+                                    reinterpret_cast<const double*>(radius_j), alive_j, j0,
+                                    count, i - diag);
+      }
     }
     __syncwarp();
   }
@@ -533,6 +632,28 @@ block_forces_kernel(const float* __restrict__ pos_i, int n_i, const float* __res
   if (threadIdx.x == 0) done[tile_i] = 0u;
 }
 
+#define OT_BLOCK_ARGS(T)                                                                    \
+  const T *__restrict__ pos_i, int n_i, const T *__restrict__ pos_j,                       \
+      const T *__restrict__ mass_j, int n_j, const T *__restrict__ radius_i,               \
+      const unsigned char *__restrict__ alive_i, const T *__restrict__ radius_j,           \
+      const unsigned char *__restrict__ alive_j, int diag, float G, float eps2, int tiles, \
+      int splits, int split_len, float4 *__restrict__ part, unsigned int *__restrict__ done, \
+      float4 *__restrict__ out, int *__restrict__ contacts
+#define OT_BLOCK_PASS                                                                   \
+  pos_i, n_i, pos_j, mass_j, n_j, radius_i, alive_i, radius_j, alive_j, diag, G, eps2, \
+      tiles, splits, split_len, part, done, out, contacts
+
+template <bool kDetect>
+__global__ void __launch_bounds__(kBThreads, kBMin) block_forces_kernel(OT_BLOCK_ARGS(float)) {
+  block_sweep<float, kDetect>(OT_BLOCK_PASS);
+}
+
+// B3 detect's f64 instance
+__global__ void __launch_bounds__(kBThreads, kBMin)
+block_detect_f64_kernel(OT_BLOCK_ARGS(double)) {
+  block_sweep<double, true>(OT_BLOCK_PASS);
+}
+
 // The co-resident blocks of block_forces_kernel<kDetect> on a device and its
 // SM count, asked once a device.
 template <bool kDetect>
@@ -551,7 +672,9 @@ void block_residency(int device, int* resident, int* sms) {
   *sms = cache[d][1];
 }
 
-template <bool kDetect>
+// B3 (T float, kDetect false), B3 detect (T float) or its f64 instance (T
+// double, kDetect true) on the launch plan (splits, split_len).
+template <typename T, bool kDetect>
 int launch_block(const void* pos_i, const void* radius_i, const void* alive_i, int n_i,
                  int i_off, const void* pos_j, const void* mass_j, const void* radius_j,
                  const void* alive_j, int n_j, int j_off, float G, float eps2, int splits,
@@ -569,13 +692,26 @@ int launch_block(const void* pos_i, const void* radius_i, const void* alive_i, i
       static_cast<long long>(splits - 1) * split_len >= n_j)
     return cudaErrorInvalidValue;
   const int tiles = (n_i + kBRows - 1) / kBRows;
-  block_forces_kernel<kDetect><<<tiles * splits, kBThreads, 0, s>>>(
-      static_cast<const float*>(pos_i), n_i, static_cast<const float*>(pos_j),
-      static_cast<const float*>(mass_j), n_j, static_cast<const float*>(radius_i),
-      static_cast<const unsigned char*>(alive_i), static_cast<const float*>(radius_j),
-      static_cast<const unsigned char*>(alive_j), j_off - i_off, G, eps2, tiles, splits,
-      split_len, static_cast<float4*>(part), static_cast<unsigned int*>(done),
-      static_cast<float4*>(out), static_cast<int*>(contacts));
+  const T* pi = static_cast<const T*>(pos_i);
+  const T* pj = static_cast<const T*>(pos_j);
+  const T* mj = static_cast<const T*>(mass_j);
+  const T* ri = static_cast<const T*>(radius_i);
+  const T* rj = static_cast<const T*>(radius_j);
+  const auto* ai = static_cast<const unsigned char*>(alive_i);
+  const auto* aj = static_cast<const unsigned char*>(alive_j);
+  auto* pa = static_cast<float4*>(part);
+  auto* dn = static_cast<unsigned int*>(done);
+  auto* o = static_cast<float4*>(out);
+  auto* c = static_cast<int*>(contacts);
+  if constexpr (sizeof(T) == sizeof(double)) {
+    block_detect_f64_kernel<<<tiles * splits, kBThreads, 0, s>>>(
+        pi, n_i, pj, mj, n_j, ri, ai, rj, aj, j_off - i_off, G, eps2, tiles, splits,
+        split_len, pa, dn, o, c);
+  } else {
+    block_forces_kernel<kDetect><<<tiles * splits, kBThreads, 0, s>>>(
+        pi, n_i, pj, mj, n_j, ri, ai, rj, aj, j_off - i_off, G, eps2, tiles, splits,
+        split_len, pa, dn, o, c);
+  }
   return cudaGetLastError();
 }
 
@@ -632,7 +768,7 @@ int nbody_forces_detect(const void* pts, const void* radius, int n, float G,
 int nbody_block_forces(const void* pos_i, int n_i, const void* pos_j, const void* mass_j,
                        int n_j, float G, float eps2, int splits, int split_len, void* part,
                        void* done, void* out, void* stream, int device) {
-  return launch_block<false>(pos_i, nullptr, nullptr, n_i, 0, pos_j, mass_j, nullptr,
+  return launch_block<float, false>(pos_i, nullptr, nullptr, n_i, 0, pos_j, mass_j, nullptr,
                              nullptr, n_j, 0, G, eps2, splits, split_len, part, done, out,
                              nullptr, stream, device);
 }
@@ -649,9 +785,27 @@ int nbody_block_forces_detect(const void* pos_i, const void* radius_i, const voi
                               float G, float eps2, int splits, int split_len, void* part,
                               void* done, void* out, void* contacts, void* stream,
                               int device) {
-  return launch_block<true>(pos_i, radius_i, alive_i, n_i, i_off, pos_j, mass_j, radius_j,
-                            alive_j, n_j, j_off, G, eps2, splits, split_len, part, done, out,
-                            contacts, stream, device);
+  return launch_block<float, true>(pos_i, radius_i, alive_i, n_i, i_off, pos_j, mass_j,
+                                   radius_j, alive_j, n_j, j_off, G, eps2, splits, split_len,
+                                   part, done, out, contacts, stream, device);
+}
+
+// B3 detect's f64 instance: nbody_block_forces_detect's arguments with
+// pos_i, pos_j, mass_j, radius_i and radius_j double (each value read as
+// utils.kernels.in_f32 casts it for the forces, and in double for the
+// count), on B3 detect's launch plan. acc and pe are bit-equal to
+// nbody_block_forces_detect's on the cast tables; the count is the f64 one
+// (JAX's _contacts_block in the state's dtype).
+int nbody_block_forces_detect_f64(const void* pos_i, const void* radius_i,
+                                  const void* alive_i, int n_i, int i_off, const void* pos_j,
+                                  const void* mass_j, const void* radius_j,
+                                  const void* alive_j, int n_j, int j_off, float G,
+                                  float eps2, int splits, int split_len, void* part,
+                                  void* done, void* out, void* contacts, void* stream,
+                                  int device) {
+  return launch_block<double, true>(pos_i, radius_i, alive_i, n_i, i_off, pos_j, mass_j,
+                                    radius_j, alive_j, n_j, j_off, G, eps2, splits, split_len,
+                                    part, done, out, contacts, stream, device);
 }
 
 // The block kernel's shape on a device: shape[0..5] = i bodies a thread,

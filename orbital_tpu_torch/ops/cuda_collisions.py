@@ -34,7 +34,10 @@ that launch returns at entry. The wrapper passes the tables' own pointers
 Its plain version is :func:`bounce_block_plain`; ``bounce_block_cuda.
 launches`` counts its launches, under a lock, as the threads of a one-card
 mesh launch it (and the contact sweep's, which runs on every rank of a
-mesh).
+mesh). Float64 sides take its f64 instance (``bounce_block_f64_kernel``):
+the plain version's pair in double on the same plan, gate and split sums,
+deltas and ``out`` in float64, counted in ``bounce_block_cuda.
+f64_launches``; nothing is cast.
 
 The contact sweep of merge and resolve (``csrc/collision_roots.cu``, one
 tiled template with two modes) stands in for the JAX module's XLA blocks:
@@ -93,6 +96,9 @@ def _load():
         lib.bounce_block_round.restype = ctypes.c_int
         lib.bounce_block_round.argtypes = ([p] * 5 + [i] + [p] * 5 + [i, ctypes.c_float, p]
                                            + [i] * 3 + [p] * 5 + [i])
+        lib.bounce_block_round_f64.restype = ctypes.c_int
+        lib.bounce_block_round_f64.argtypes = ([p] * 5 + [i] + [p] * 5 + [i, ctypes.c_double, p]
+                                               + [i] * 3 + [p] * 5 + [i])
         lib.bounce_block_shape.restype = None
         lib.bounce_block_shape.argtypes = [i, p]
         _lib = lib
@@ -231,9 +237,9 @@ def bounce_plan(n_i: int, n_j: int, k: int, q: int, tile: int, resident: int, sm
 
 
 # per (library, device): the block kernel's shape; per (n_i, n_j, library,
-# device, pinned splits): its plan's cut and scratch (the splits' partials
-# and each i tile's counter, zeros that each launch leaves zero), so that a
-# round's launch looks up one entry
+# device, pinned splits, dtype): its plan's cut and scratch (the splits'
+# partials and each i tile's counter, zeros that each launch leaves zero),
+# so that a round's launch looks up one entry
 _bounce_shapes: dict = {}
 _bounce_launches: dict = {}
 
@@ -251,17 +257,18 @@ def bounce_block_shape(device: torch.device) -> dict:
     return _bounce_shapes[key]
 
 
-def _bounce_round(lib, dev: torch.device, n_i: int, n_j: int, splits: Optional[int]):
+def _bounce_round(lib, dev: torch.device, n_i: int, n_j: int, splits: Optional[int],
+                  dtype=torch.float32):
     """((splits, split_len), (part, done) pointers) of a round at n_i x n_j,
-    made once a shape."""
-    key = (n_i, n_j, id(lib), dev.index or 0, splits)
+    made once a shape and dtype (the partials in the deltas' dtype)."""
+    key = (n_i, n_j, id(lib), dev.index or 0, splits, dtype)
     hit = _bounce_launches.get(key)
     if hit is None:
         sh = bounce_block_shape(dev)
         plan = bounce_plan(n_i, n_j, sh["k"], sh["q"], sh["tile"], sh["resident"], sh["sms"],
                            splits)
         part = torch.empty((n_i * 6 * plan["splits"] if plan["splits"] > 1 else 1,),
-                           dtype=torch.float32, device=dev)
+                           dtype=dtype, device=dev)
         done = torch.zeros((max(1, plan["tiles"]),), dtype=torch.int32, device=dev)
         hit = _bounce_launches[key] = ((plan["splits"], plan["split_len"]),
                                        (part.data_ptr(), done.data_ptr()), (part, done))
@@ -271,26 +278,32 @@ def _bounce_round(lib, dev: torch.device, n_i: int, n_j: int, splits: Optional[i
 def _bounce_block_launch(side_i, side_j, e: float, contacts, dpos, dvel, accumulate: bool,
                          splits: Optional[int] = None) -> None:
     """Launch the block kernel on its plan (or ``splits`` pinned) over the
-    sides' own arrays (f32 and contiguous; alive bool) into ``dpos``,
-    ``dvel`` [n_i, 3] f32: written, or with ``accumulate`` added to."""
+    sides' own arrays (contiguous, in the deltas' dtype; alive bool) into
+    ``dpos``, ``dvel`` [n_i, 3]: written, or with ``accumulate`` added to;
+    its f64 instance where they are float64."""
     from ..utils.kernels import check, stream_handle
 
     lib, dev = _load(), dpos.device
     n_i, n_j = side_i[0].shape[0], side_j[0].shape[0]
-    cut, scratch, _ = _bounce_round(lib, dev, n_i, n_j, splits)
-    err = lib.bounce_block_round(
+    cut, scratch, _ = _bounce_round(lib, dev, n_i, n_j, splits, dpos.dtype)
+    name = "bounce_block_round" + ("_f64" if dpos.dtype == torch.float64 else "")
+    err = getattr(lib, name)(
         *(t.data_ptr() for t in side_i), n_i, *(t.data_ptr() for t in side_j), n_j, e,
         None if contacts is None else contacts.data_ptr(), *cut, int(accumulate), *scratch,
         dpos.data_ptr(), dvel.data_ptr(), stream_handle(dev), dev.index)
-    check(lib, err, "bounce_block_round launch")
+    check(lib, err, f"{name} launch")
 
 
 def _check_bounce_block(side_i, side_j, contacts, out) -> tuple:
     """The block bounce's contract; returns the sides as the kernel reads
-    them (f32 and contiguous, alive bool: the tensors themselves where they
-    are so already)."""
+    them (contiguous: the tensors themselves where they are so already).
+    pos, vel, mass and radius of both sides, and ``out``, must share pos_i's
+    dtype, float32 or float64; alive is bool."""
     pos_i = side_i[0]
     refuse_grad("bounce_block_cuda", *side_i[:4], *side_j[:4])
+    if pos_i.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"bounce_block_cuda: the f32 and f64 instances take float32 or "
+                        f"float64 sides, got {pos_i.dtype}")
     for side in (side_i, side_j):
         p, v, m, r, a = side
         n = p.shape[0]
@@ -300,17 +313,19 @@ def _check_bounce_block(side_i, side_j, contacts, out) -> tuple:
                              "alive [B] on each side")
         if a.dtype != torch.bool:
             raise TypeError("bounce_block_cuda: alive must be bool")
+        if any(t.dtype != pos_i.dtype for t in side[:4]):
+            raise TypeError(f"bounce_block_cuda: pos, vel, mass and radius of both sides "
+                            f"must be {pos_i.dtype}, as pos_i is; nothing is cast")
     tensors = [*side_i, *side_j] + [t for t in (contacts,) + tuple(out or ()) if t is not None]
     if any(t.device != pos_i.device for t in tensors):
         raise ValueError("bounce_block_cuda: all tensors must be on one device")
     if contacts is not None and (contacts.dtype != torch.int32 or contacts.numel() != 1):
         raise TypeError("bounce_block_cuda: contacts must be one int32")
-    if out is not None and any(o.shape != (pos_i.shape[0], 3) or o.dtype != torch.float32
+    if out is not None and any(o.shape != (pos_i.shape[0], 3) or o.dtype != pos_i.dtype
                                or not o.is_contiguous() for o in out):
-        raise ValueError("bounce_block_cuda: out must be two contiguous f32 [Bi, 3] tensors")
-    f32 = torch.float32
-    return tuple(tuple(t.to(f32).contiguous() for t in side[:4]) + (side[4].contiguous(),)
-                 for side in (side_i, side_j))
+        raise ValueError(f"bounce_block_cuda: out must be two contiguous {pos_i.dtype} "
+                         f"[Bi, 3] tensors")
+    return tuple(tuple(t.contiguous() for t in side) for side in (side_i, side_j))
 
 
 def bounce_block_cuda(pos_i: torch.Tensor, vel_i: torch.Tensor, mass_i: torch.Tensor,
@@ -321,16 +336,17 @@ def bounce_block_cuda(pos_i: torch.Tensor, vel_i: torch.Tensor, mass_i: torch.Te
                       out: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
                       checked: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The bounce sweep of body block j on body block i: (dpos [Bi, 3], dvel
-    [Bi, 3]) in f32, each pair's impulse and de-overlap on i from the
+    [Bi, 3]) in the sides' dtype (float32, or float64 on the f64
+    instance), each pair's impulse and de-overlap on i from the
     pre-collision velocities, a pair touching when 0 < r2 <= (R_i + R_j)^2,
     both alive, m_j > 0 and approaching. With ``contacts`` (an int32 0-dim
     tensor on the same device) the kernel writes zeros and skips the sweep
-    when it is 0. With ``out`` (two contiguous f32 [Bi, 3] tensors) the sum
-    is added to them in place and ``out`` returned (at a count of 0 the
-    launch leaves them as they are). ``checked=True`` skips the checks: the
-    caller vouches that the tensors are as an earlier checked call of the
-    same shapes found them, f32 (alive bool) and contiguous on one CUDA
-    device."""
+    when it is 0. With ``out`` (two contiguous [Bi, 3] tensors of the sides'
+    dtype) the sum is added to them in place and ``out`` returned (at a
+    count of 0 the launch leaves them as they are). ``checked=True`` skips
+    the checks: the caller vouches that the tensors are as an earlier
+    checked call of the same shapes found them, of one dtype (alive bool)
+    and contiguous on one CUDA device."""
     side_i = (pos_i, vel_i, mass_i, radius_i, alive_i)
     side_j = (pos_j, vel_j, mass_j, radius_j, alive_j)
     if pos_i.device.type == "cpu":
@@ -342,17 +358,18 @@ def bounce_block_cuda(pos_i: torch.Tensor, vel_i: torch.Tensor, mass_i: torch.Te
         side_i, side_j = _check_bounce_block(side_i, side_j, contacts, out)
     if out is None:
         n_i = pos_i.shape[0]
-        dpos = torch.empty((n_i, 3), dtype=torch.float32, device=pos_i.device)
-        dvel = torch.empty((n_i, 3), dtype=torch.float32, device=pos_i.device)
+        dpos = torch.empty((n_i, 3), dtype=pos_i.dtype, device=pos_i.device)
+        dvel = torch.empty((n_i, 3), dtype=pos_i.dtype, device=pos_i.device)
     else:
         dpos, dvel = out
     _bounce_block_launch(side_i, side_j, restitution_clip(restitution), contacts, dpos, dvel,
                          out is not None)
-    count_launch(bounce_block_cuda)
+    count_launch(bounce_block_cuda, _counter(pos_i))
     return dpos, dvel
 
 
 bounce_block_cuda.launches = 0
+bounce_block_cuda.f64_launches = 0
 
 
 def _load_roots():

@@ -14,6 +14,9 @@ the i == j term kept. :func:`block_acc_detect_cuda` is B3 with detection
 ``orbital_tpu/parallel/sharded.py:199-231``): the same sweep also counts the
 block's directed touching pairs between live bodies of different global ids,
 so that the ring's closing force evaluation counts the step's contacts.
+On float64 tables it launches its f64 instance: the forces as B3 detect's
+on the tables cast as :func:`~..utils.kernels.in_f32` casts them (bit-equal),
+the count in double, JAX's ``_contacts_block`` in the state's dtype.
 
 The kernel is bound by instruction issue (~14.5 warp instructions and one
 MUFU.RSQ a pair; see the note at the top of the source): four i bodies a
@@ -43,7 +46,8 @@ count_contacts_chunked`` for the count), :func:`block_acc_plain` and
 raise; they never fall back. ``pairwise_acc_cuda.launches``,
 ``pairwise_acc_detect_cuda.launches``, ``block_acc_cuda.launches`` and
 ``block_acc_detect_cuda.launches`` count kernel launches (the block sweeps,
-which the threads of a one-card mesh launch, under a lock).
+which the threads of a one-card mesh launch, under a lock), and
+``block_acc_detect_cuda.f64_launches`` its f64 instance's.
 """
 from __future__ import annotations
 
@@ -85,6 +89,8 @@ def _load():
         lib.nbody_block_forces_detect.restype = ctypes.c_int
         lib.nbody_block_forces_detect.argtypes = [p, p, p, i, i, p, p, p, p, i, i, f, f, i, i,
                                                   p, p, p, p, p, i]
+        lib.nbody_block_forces_detect_f64.restype = ctypes.c_int
+        lib.nbody_block_forces_detect_f64.argtypes = lib.nbody_block_forces_detect.argtypes
         lib.nbody_block_shape.restype = None
         lib.nbody_block_shape.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
         _lib = lib
@@ -101,10 +107,12 @@ def pairwise_acc_plain(pos, mass, alive=None, *, G: float, eps2: float,
     return acc, U
 
 
-def _check_inputs(fn: str, pos, mass, *others) -> None:
+def _check_inputs(fn: str, pos, mass, *others, wide: bool = False) -> None:
+    """A wrapper's device, dtype (float32, or with ``wide`` float64 too) and
+    shape checks."""
     if pos.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {pos.device}")
-    if pos.dtype != torch.float32:
+    if pos.dtype != torch.float32 and not (wide and pos.dtype == torch.float64):
         raise TypeError(f"{fn} computes in float32, got {pos.dtype}")
     if pos.ndim != 2 or pos.shape[1] != 3 or mass.shape != pos.shape[:1]:
         raise ValueError(f"{fn}: need pos [N, 3] and mass [N], got "
@@ -328,8 +336,9 @@ def _block_scratch_for(dev: torch.device, parts: int, tiles: int):
 def _block_launch(pos_i, pos_j, mass_j, detect, out, G: float, eps2: float) -> None:
     """Launch B3 (``detect`` None) or B3 detect (``detect`` = (radius_i,
     alive_i, i_off, radius_j, alive_j, j_off, contacts)) on its launch plan,
-    into ``out`` [n_i, 4]."""
-    from ..utils.kernels import check
+    into ``out`` [n_i, 4]: B3 detect's f64 instance where the positions are
+    float64 (the tables read in place, in their own dtype)."""
+    from ..utils.kernels import check, stream_handle
 
     lib, dev = _load(), pos_i.device
     n_i, n_j = pos_i.shape[0], pos_j.shape[0]
@@ -339,22 +348,23 @@ def _block_launch(pos_i, pos_j, mass_j, detect, out, G: float, eps2: float) -> N
                                     plan["tiles"] + 2)
     cut = (plan["splits"], plan["split_len"], part.data_ptr(), done.data_ptr(),
            out.data_ptr())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    pi, pj, mj = (t.to(torch.float32).contiguous() for t in (pos_i, pos_j, mass_j))
+    stream = stream_handle(dev)
+    dt = torch.float64 if pos_i.dtype == torch.float64 else torch.float32
+    pi, pj, mj = (t.to(dt).contiguous() for t in (pos_i, pos_j, mass_j))
     if detect is None:
         err = lib.nbody_block_forces(pi.data_ptr(), n_i, pj.data_ptr(), mj.data_ptr(), n_j,
                                      float(G), float(eps2), *cut, stream, dev.index or 0)
         check(lib, err, "nbody_block_forces launch")
         return
     radius_i, alive_i, i_off, radius_j, alive_j, j_off, contacts = detect
-    ri, rj = (t.to(torch.float32).contiguous() for t in (radius_i, radius_j))
+    ri, rj = (t.to(dt).contiguous() for t in (radius_i, radius_j))
     ai, aj = (t.to(torch.bool).contiguous() for t in (alive_i, alive_j))
-    err = lib.nbody_block_forces_detect(pi.data_ptr(), ri.data_ptr(), ai.data_ptr(), n_i,
-                                        int(i_off), pj.data_ptr(), mj.data_ptr(),
-                                        rj.data_ptr(), aj.data_ptr(), n_j, int(j_off),
-                                        float(G), float(eps2), *cut, contacts.data_ptr(),
-                                        stream, dev.index or 0)
-    check(lib, err, "nbody_block_forces_detect launch")
+    name = "nbody_block_forces_detect" + ("_f64" if dt == torch.float64 else "")
+    err = getattr(lib, name)(pi.data_ptr(), ri.data_ptr(), ai.data_ptr(), n_i, int(i_off),
+                             pj.data_ptr(), mj.data_ptr(), rj.data_ptr(), aj.data_ptr(), n_j,
+                             int(j_off), float(G), float(eps2), *cut, contacts.data_ptr(),
+                             stream, dev.index or 0)
+    check(lib, err, f"{name} launch")
 
 
 def block_acc_cuda(pos_i: torch.Tensor, pos_j: torch.Tensor, mass_j: torch.Tensor, *,
@@ -387,8 +397,14 @@ def block_acc_detect_plain(pos_i, radius_i, alive_i, i_off: int, pos_j, mass_j, 
     """The plain PyTorch version of the detecting block kernel, on any
     device: :func:`block_acc_plain` and the block's contact count
     (``ops.collisions.block_contacts``) with global ids ``i_off + row`` and
-    ``j_off + column``."""
-    acc, pe_row = block_acc_plain(pos_i, pos_j, mass_j, G=G, eps2=eps2)
+    ``j_off + column``. On float64 tables (the f64 instance's plain
+    version) the forces are :func:`block_acc_plain`'s on the tables cast as
+    :func:`~..utils.kernels.in_f32` casts them, returned in float64, and the
+    count is ``block_contacts``' on the float64 tables."""
+    if pos_i.dtype == torch.float64:
+        acc, pe_row = in_f32(block_acc_plain, pos_i, pos_j, mass_j, G=G, eps2=eps2)
+    else:
+        acc, pe_row = block_acc_plain(pos_i, pos_j, mass_j, G=G, eps2=eps2)
     return acc, pe_row, block_contacts(pos_i, radius_i, alive_i, i_off, pos_j, radius_j,
                                        alive_j, j_off)
 
@@ -403,16 +419,21 @@ def block_acc_detect_cuda(pos_i: torch.Tensor, radius_i: torch.Tensor, alive_i: 
     counting the directed pairs (i, j) of live bodies with |r_ij| <= (R_i +
     R_j) * 1.00001 (unsoftened) and different global ids ``i_off + i`` and
     ``j_off + j``. acc and pe_row are bit-equal to :func:`block_acc_cuda`'s
-    on the same tables."""
+    on the same tables. Float64 tables (positions, masses and radii alike)
+    take the f64 instance, which counts in double and returns acc and
+    pe_row in float64; it adds to ``f64_launches``."""
     if pos_i.device.type == "cpu":
         return block_acc_detect_plain(pos_i, radius_i, alive_i, i_off, pos_j, mass_j,
                                       radius_j, alive_j, j_off, G=G, eps2=eps2)
     _check_inputs("block_acc_detect_cuda", pos_j, mass_j, pos_i, radius_i, alive_i,
-                  radius_j, alive_j)
+                  radius_j, alive_j, wide=True)
     refuse_grad("block_acc_detect_cuda", pos_i, pos_j, mass_j, radius_i, radius_j)
-    if pos_i.dtype != torch.float32 or pos_i.ndim != 2 or pos_i.shape[1] != 3:
-        raise ValueError(f"block_acc_detect_cuda: need float32 pos_i [Bi, 3], got "
-                         f"{pos_i.dtype} {tuple(pos_i.shape)}")
+    wide = pos_j.dtype == torch.float64
+    if pos_i.ndim != 2 or pos_i.shape[1] != 3 or any(
+            t.dtype != pos_j.dtype for t in (pos_i, mass_j, radius_i, radius_j)):
+        raise ValueError(f"block_acc_detect_cuda: need pos_i [Bi, 3] and its tables in "
+                         f"pos_j's dtype ({pos_j.dtype}), got {pos_i.dtype} "
+                         f"{tuple(pos_i.shape)}")
     n_i, n_j = pos_i.shape[0], pos_j.shape[0]
     if radius_i.shape != (n_i,) or radius_j.shape != (n_j,) or alive_i.shape != (n_i,) \
             or alive_j.shape != (n_j,):
@@ -422,8 +443,11 @@ def block_acc_detect_cuda(pos_i: torch.Tensor, radius_i: torch.Tensor, alive_i: 
     contacts = torch.empty((), dtype=torch.int32, device=pos_i.device)
     _block_launch(pos_i, pos_j, mass_j, (radius_i, alive_i, i_off, radius_j, alive_j, j_off,
                                          contacts), out, G, eps2)
-    count_launch(block_acc_detect_cuda)
+    count_launch(block_acc_detect_cuda, "f64_launches" if wide else "launches")
+    if wide:
+        out = out.to(torch.float64)
     return out[:, 0:3], out[:, 3], contacts
 
 
 block_acc_detect_cuda.launches = 0
+block_acc_detect_cuda.f64_launches = 0

@@ -21,15 +21,19 @@ every rank: P threads on one card, or one process a rank under
     self term m/eps comes off the pe row once, after the rounds; U is
     psum'd. With ``detect=True`` the same rounds also count the step's
     contacts: B3's detecting instance (``block_acc_detect_cuda``) with the
-    blocks' global offsets, psum'd. The JAX package counts in a separate
+    blocks' global offsets, psum'd; a float64 shard takes its f64 instance
+    (the forces f32 inside and bit-equal to B3's, the count in double, the
+    tables read as they are). The JAX package counts in a separate
     sqrt-free ring after the step (``ring_contacts_fn``) on the same
-    positions; here the step's closing force evaluation counts them, as B2
-    does on one card.
+    positions, in the state's dtype; here the step's closing force
+    evaluation counts them, as B2 does on one card.
   * :func:`ring_bounce_fn`: the bounce impulses over the same ring (the
     block bounce, ``ops.cuda_collisions.bounce_block_cuda``, each round
-    adding into the rank's sums in place), gated on the device-held count: a
-    contact-free step writes zeros in its first round and skips the others,
-    and the stepper's ``torch.where`` keeps the state bit for bit.
+    adding into the rank's sums in place; a float64 shard on its f64
+    instance, in double as JAX's ``_block_bounce``), gated on the
+    device-held count: a contact-free step writes zeros in its first round
+    and skips the others, and the stepper's ``torch.where`` keeps the state
+    bit for bit.
   * merge and resolve: when the psum'd count is > 0 (read on the host once
     a step, by every rank, after the step's force evaluation), every rank
     gathers the whole system, runs the single-card merge or resolve on it
@@ -156,39 +160,31 @@ def ring_bounce_fn(cfg: SimConfig, comm: Comm):
     pre-collision velocities (consistent with the unsharded sweep). Each
     round is the block bounce of the visiting shard, gated on ``contacts``
     (the psum'd count: 0 writes zeros in the first round and skips the rest
-    on the card). On a float32 shard round 0 writes the rank's (dpos, dvel)
-    and each later round adds its sum to them in place (``out=``), the
-    rounding of ``dpos + dp``; the wrapper's checks run on the first step of
-    each shard shape only, when the shard is f32 and contiguous. A float64
-    shard adds the f32 rounds in f64."""
+    on the card), in the shard's dtype (float32, or float64 on the f64
+    instance, as JAX's ``_block_bounce`` runs in the state's dtype). Round
+    0 writes the rank's (dpos, dvel) and each later round adds its sum to
+    them in place (``out=``), the rounding of ``dpos + dp``; the wrapper's
+    checks run on the first step of each shard shape and dtype only, when
+    the shard's tables share one dtype and are contiguous."""
     from ..ops.cuda_collisions import bounce_block_cuda
 
     P = comm.size
-    checked = set()  # shard shapes whose tensors the wrapper has checked
+    checked = set()  # shard shapes and dtypes whose tensors the wrapper has checked
 
     def fn(pos, vel, mass, radius, alive, restitution, contacts):
         local = (pos, vel, mass, radius, alive)
         visit, out = local, None
-        kw = dict(restitution=restitution, contacts=contacts)
-        if pos.dtype == torch.float32:
-            key = (pos.shape[0], pos.device)
-            for k in range(P):
-                out = bounce_block_cuda(*local, *visit, out=out, checked=key in checked,
-                                        **kw)
-                if k < P - 1:
-                    visit = comm.ppermute(visit)
-            if pos.device.type == "cuda" and alive.dtype == torch.bool and all(
-                    t.dtype == torch.float32 for t in local[:4]) and all(
-                    t.is_contiguous() for t in local):
-                checked.add(key)
-            dpos, dvel = out
-        else:
-            for k in range(P):
-                dp, dv = bounce_block_cuda(*local, *visit, **kw)
-                dp, dv = dp.to(pos.dtype), dv.to(vel.dtype)
-                dpos, dvel = (dp, dv) if k == 0 else (dpos + dp, dvel + dv)
-                if k < P - 1:
-                    visit = comm.ppermute(visit)
+        key = (pos.shape[0], pos.device, pos.dtype)
+        for k in range(P):
+            out = bounce_block_cuda(*local, *visit, restitution=restitution,
+                                    contacts=contacts, out=out, checked=key in checked)
+            if k < P - 1:
+                visit = comm.ppermute(visit)
+        if pos.device.type == "cuda" and alive.dtype == torch.bool and all(
+                t.dtype == pos.dtype for t in local[:4]) and all(
+                t.is_contiguous() for t in local):
+            checked.add(key)
+        dpos, dvel = out
         keep = alive[:, None].to(dpos.dtype)
         return dpos * keep, dvel * keep
 
@@ -379,13 +375,6 @@ def _prepare(cfg: SimConfig, mesh: Mesh, state_example: NBodyState,
                          "make_sharded_respa_rollout")
     if cfg.integrator == "hermite":
         raise NotImplementedError(HERMITE_REFUSAL)
-    if (cfg.collisions != "none" and mesh.device.type == "cuda"
-            and state_example.dtype == torch.float64):
-        raise NotImplementedError(
-            "precision='f64' on CUDA with collisions under a mesh (ROADMAP.md G.1b): the "
-            "JAX package runs the block bounce and the count ring as XLA in f64, and their "
-            "f64 kernel instances are not ported yet; use ds32 on the card, or f64 on the "
-            "CPU or on one card")
     return cfg, use_mesh_solver
 
 

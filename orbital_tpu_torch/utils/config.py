@@ -3,10 +3,9 @@
 A copy of ``orbital_tpu.utils.config`` (same fields, defaults and
 validation) so that the PyTorch package never imports the JAX one:
 ``SimConfig(**dataclasses.asdict(jax_cfg))`` converts between the two.
-Every solver a field selects is ported. Two combinations still raise
+Every solver a field selects is ported. One combination still raises
 ``NotImplementedError``: ``integrator="hermite"`` under a mesh (the JAX
-package has no sharded Hermite to hold one against) and f64 state with
-collisions under a CUDA mesh (ROADMAP G.1b).
+package has no sharded Hermite to hold one against).
 
 All physical quantities here are in *internal* (device) units; the engine
 facade converts from scene units via ``engine.state.Rescale``.

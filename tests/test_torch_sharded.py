@@ -707,8 +707,9 @@ def test_ring_block_routing():
     128 with eps2 > 0, float64 ones too (f32 inside, as JAX's rule takes the
     kernel whatever the dtype), and the dense block otherwise (CPU tensors,
     an untileable shard, eps2 = 0); "pallas" with float64 on CUDA takes B3
-    (it raised before f64 opened on the card). f64 collisions under a CUDA
-    mesh still raise, naming ROADMAP G.1b."""
+    (it raised before f64 opened on the card). ``_prepare`` accepts f64
+    state with collisions under a CUDA mesh (B3 detect's and the block
+    bounce's f64 instances)."""
     from types import SimpleNamespace
 
     def pos(device, dtype=torch.float32):
@@ -729,8 +730,9 @@ def test_ring_block_routing():
     mesh = SimpleNamespace(shape={"body": 4}, device=torch.device("cuda"))
     state = SimpleNamespace(n_bodies=4 * 16384, dtype=torch.float64,
                             pos=pos("cuda", torch.float64))
-    with pytest.raises(NotImplementedError, match="G.1b"):
-        tsh._prepare(cfg.replace(collisions="bounce"), mesh, state, None)
+    for mode in ("bounce", "merge", "resolve"):
+        got, mesh_solver = tsh._prepare(cfg.replace(collisions=mode), mesh, state, None)
+        assert got.collisions == mode and got.force_impl == "ring" and not mesh_solver
 
 
 def test_ring_rounds_launch_the_block_kernels(monkeypatch):
