@@ -14,8 +14,9 @@ ensemble kernel of this tree against those built from DIR's
 ``collisions.cu``, ``nbody_forces_sym.cu``, ``tree_near.cu``,
 ``neighbor.cu``, ``fused_rollout.cu``, ``p3m_short.cu``,
 ``collision_roots.cu`` and ``fused_ensemble.cu`` (the root
-search's parents integer-equal, gated and ungated, at the contact-rich
-radius; the P3M bench row's table within
+search's parents at the contact-rich radius and the bench row's, the
+contact mark, and both modes' f64 instances, bit-equal, gated and ungated;
+the P3M bench row's table within
 SHORT_RTOL; N = 65,536, 7 dead, eps2 1e-4 and 0, PE on and off; B7
 on the tree tables of ``Smoke.tree_calls``, the near sweep on the RESPA
 geometries of ``Smoke.near_calls``, B4 on FUSED_CASES) within FORCE_RTOL,
@@ -68,10 +69,11 @@ Phases, one line of output each; any failure exits nonzero:
      B5, B5 detect, B13 (with the TF32 HMMA of its inner loop, which must be
      there), B6, B12, B7 and the near sweep, the shape, registers and spills
      of the B5 row subset, the P3M short range (with the SASS instructions a
-     visited pair of its polynomial sweep) and the contact sweep's two modes,
-     the merge root search and resolve's contact mark (with the SASS
-     instructions a pair of their prefilter loop, one FSETP a pair, whose
-     instructions go to standard error), the ensemble kernel's team and
+     visited pair of its polynomial sweep) and the contact sweep's three
+     modes, the merge root search, resolve's contact mark and the mesh
+     solvers' count (with the SASS instructions a pair of their prefilter
+     loop, one FSETP or DSETP a pair, whose instructions go to standard
+     error; the count's launch at RING_B^2), the ensemble kernel's team and
      block kernels (the library's launch shapes against the layout the
      source states, the SASS instructions a pair of each; no spill anywhere),
      and the issue floor they imply
@@ -440,12 +442,29 @@ Phases, one line of output each; any failure exits nonzero:
      RING_BOUNCE_STEPS bit-equal to the collision-free f64 ring up to its
      first contact and within DRIFT_BUDGET; both instances timed in turns
      with their f32 instances, and the f64 bounce ring's step with the ds32
-     one's.
+     one's;
+ 70. the mesh solvers' collisions (ROADMAP P.22): the contact sweep's count
+     mode (CNT, its f64 instance CNT64) integer-equal to the plain count
+     (``block_contacts``) at RING_B^2 and RING_B8^2 (R_RICH and R_BENCH, off
+     the diagonal and on it), with parked rows and columns, live sentinel
+     rows, the ragged N_COUNT_RAGGED blocks with a third dead, COUNT_PLANTED
+     pairs one ulp either side of the inflated threshold and a zero count,
+     written and added into a given count; ``make_sharded_rollout`` over
+     RING_P ranks for RING_STEPS steps of "pm" + bounce (ds32 and f64),
+     "p3m" + bounce (the uniform row at R_P3M_BOUNCE) and "tree" + merge and
+     + resolve (f32), each within its ring phase's gate of the single card's
+     run, the ring's count on COUNT_CHECK_STEPS contact steps equal to the
+     plain count of the gathered state, CNT (CNT64 on the f64 path)
+     RING_P^2 times a step and the plain count never; simulate(mesh=) with
+     PM and bounce against one card; a count round at RING_B^2 in turns
+     with the plain eager round, its bound and issue floor, and the PM +
+     bounce and tree + merge ring steps in turns with the same rings'
+     collision-free steps.
 
 The launch counters are set to 0 just before each main path (phases 5+6, 9,
 10, 13, 14, 15, 16, 19, 23, 28, 32, 35, 36, 37, 38, 39, 42, 44, 45, 47, 48,
-49, 53, 54, 58, 62, 63, 64, 65 and each path of 66 and 69) and read just
-after it:
+49, 53, 54, 58, 62, 63, 64, 65 and each path of 66, 69 and 70) and read
+just after it:
 each kernel must have run on its path. B3 runs on the multi-device ring only:
 phase 27 checks it alone, phase 28 requires 0 launches over its three
 single-card main paths, and its record's launches are phase 53's. The
@@ -898,7 +917,10 @@ LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_bloc
              "fused_rollout": ("fused_kdk", "fused_kdk_shape", "ot_error_string"),
              "p3m_short": ("p3m_short_view", "p3m_short_sorted", "p3m_short_pair",
                            "p3m_short_shape", "ot_error_string"),
-             "fused_ensemble": ("fused_ensemble", "fused_ensemble_shape", "ot_error_string")}
+             "fused_ensemble": ("fused_ensemble", "fused_ensemble_shape", "ot_error_string"),
+             "collision_roots": ("collision_parents", "contact_marks", "collision_parents_f64",
+                                 "contact_marks_f64", "contact_count", "contact_count_f64",
+                                 "contact_count_shape", "ot_error_string")}
 # --ring-variants: B3's block kernel and the block bounce's (i bodies a
 # thread, warps, blocks an SM their registers are capped for; the first is
 # the source's) and P3M's sum (warps a block; the first is the source's),
@@ -1091,7 +1113,31 @@ OPS_B3D64_PAIR, OPS_BB64_PAIR = 11, 39
 SWEEP_MODES = {"ROOTS": "sweep_kernelIfLi0E", "MARK": "sweep_kernelIfLi1E"}
 SWEEP_MODES_F64 = {"ROOTS64": "sweep_kernelIdLi0E", "MARK64": "sweep_kernelIdLi1E"}
 SWEEP_MARKER = {"ROOTS": r"\bFSETP\b", "MARK": r"\bFSETP\b", "ROOTS64": r"\bDSETP\b",
-                "MARK64": r"\bDSETP\b"}
+                "MARK64": r"\bDSETP\b", "CNT": r"\bFSETP\b", "CNT64": r"\bDSETP\b"}
+# the mesh solvers' collisions (phase 70, ROADMAP P.22): the contact sweep's
+# count mode (count_kernel<T>), f32 and f64 instances; no TPU kernel: it
+# stands in for the XLA block count of orbital_tpu/ops/collisions.py:97-113
+# (_contacts_block), ringed by orbital_tpu/parallel/sharded.py:199-231 after
+# the steps of force_impl "pm", "p3m" and "tree" with collisions
+CNT = dict(name="contact_count", route="cuda",
+           source="orbital_tpu_torch/csrc/collision_roots.cu",
+           replaces="orbital_tpu/ops/collisions.py:97")
+CNT64 = dict(name="contact_count_f64", route="cuda",
+             source="orbital_tpu_torch/csrc/collision_roots.cu",
+             replaces="orbital_tpu/ops/collisions.py:97")
+COUNT_MODES = {"CNT": "count_kernelIfE", "CNT64": "count_kernelIdE"}
+# phase 70: the count a pair, as B2's (3 differences, r2 (5), (R_i + R_j)
+# * 1.00001 and its square (3)); the P3M uniform row's bounce radius (64
+# directed contacts at t = 0 from seed 11; 6 at R_RICH); the planted pairs
+# of the threshold scene (half one ulp inside, half one ulp outside the
+# inflated threshold); the ragged blocks (a third of each dead); the
+# contact steps of each path whose ring count is held to the plain count of
+# the gathered state
+OPS_COUNT = 11
+R_P3M_BOUNCE = 6e-3
+COUNT_PLANTED = 64
+N_COUNT_RAGGED = (5000, 3000)
+COUNT_CHECK_STEPS = 3
 # the B5 row subset's instances (jerk_subset_kernel<T, kSoft, kIdx64>)
 SUBSET_STEMS = {"B5S": "jerk_subset_kernelIf", "B5S64": "jerk_subset_kernelId"}
 # no TPU kernel: stands in for the XLA code of the JAX package's vmapped
@@ -1690,11 +1736,12 @@ def reset_launches() -> None:
                fused_ensemble.fused_ensemble, cuda_forces.block_acc_detect_cuda,
                cuda_collisions.bounce_block_cuda, cuda_p3m.p3m_short_pair_cuda,
                cuda_p3m.p3m_short_view_cuda, cuda_p3m.p3m_short_round_cuda,
-               cuda_tree.tree_near_part_cuda, cuda_neighbor.near_acc_slots_rows_cuda):
+               cuda_tree.tree_near_part_cuda, cuda_neighbor.near_acc_slots_rows_cuda,
+               cuda_collisions.block_contacts_cuda):
         fn.launches = 0
     for fn in (cuda_collisions.collision_roots_cuda, cuda_collisions.contact_marks_cuda,
                cuda_jerk.accel_jerk_subset_cuda, cuda_forces.block_acc_detect_cuda,
-               cuda_collisions.bounce_block_cuda):
+               cuda_collisions.bounce_block_cuda, cuda_collisions.block_contacts_cuda):
         fn.f64_launches = 0
     ensemble.member_loop.runs = 0
 
@@ -1831,6 +1878,57 @@ def ring_counts(log: list):
         yield
     finally:
         sharded.ring_force_fn = make
+
+
+@contextlib.contextmanager
+def mesh_count_log(log: dict):
+    """While active, the sharded steps built log every call of each rank's
+    count ring (``sharded.ring_contacts_fn``, the mesh solvers' count after
+    the step): ``log[rank]`` gets (pos, radius, alive, the psum'd count) of
+    each call, copies on the device."""
+    from orbital_tpu_torch.parallel import sharded
+
+    make = sharded.ring_contacts_fn
+
+    def logged(cfg, comm):
+        fn = make(cfg, comm)
+
+        def counted(pos, radius, alive):
+            count = fn(pos, radius, alive)
+            log.setdefault(comm.rank, []).append(
+                (pos.clone(), radius.clone(), alive.clone(), count))
+            return count
+        return counted
+
+    sharded.ring_contacts_fn = logged
+    try:
+        yield
+    finally:
+        sharded.ring_contacts_fn = make
+
+
+@contextlib.contextmanager
+def plain_count_calls(calls: list):
+    """While active, every call of the plain block count
+    (``ops.collisions.block_contacts``, by any module's name for it)
+    appends 1 to ``calls``."""
+    from orbital_tpu_torch.ops import collisions, cuda_collisions, cuda_forces
+    from orbital_tpu_torch.parallel import sharded
+
+    mods = (collisions, cuda_collisions, cuda_forces, sharded)
+    saved = [m.block_contacts for m in mods]
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return saved[0](*args, **kw)
+
+    for m in mods:
+        m.block_contacts = counted
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.block_contacts = fn
 
 
 class ResolveLog:
@@ -2758,7 +2856,8 @@ class Smoke:
                         "ENS": dict(ENS), "B3D": dict(B3D), "BB": dict(BB),
                         "P3MR": dict(P3MR), "B7S": dict(B7S), "NEARI": dict(NEARI),
                         "ROOTS64": dict(ROOTS64), "MARK64": dict(MARK64),
-                        "B5S64": dict(B5S64), "B3D64": dict(B3D64), "BB64": dict(BB64)}
+                        "B5S64": dict(B5S64), "B3D64": dict(B3D64), "BB64": dict(BB64),
+                        "CNT": dict(CNT), "CNT64": dict(CNT64)}
         self._cluster = None
         self._respa_budgets = None
         self._plummer = None
@@ -2965,15 +3064,16 @@ class Smoke:
 
     def roots_record(self, log: str, sass_text: str) -> str:
         """The contact sweep's launch shape at N_MAIN (tiles and the
-        cooperative grid), the registers and spills of its two modes, and
-        the SASS instructions a pair of each mode's prefilter loop (its
-        innermost loop with the most FSETP, one a pair), whose
-        instructions go to standard error."""
+        cooperative grid) and its count mode's at RING_B^2, the registers
+        and spills of its three modes' instances, and the SASS instructions
+        a pair of each one's prefilter loop (its innermost loop with the
+        most FSETP or DSETP, one a pair), whose instructions go to standard
+        error."""
         import ctypes
 
         from orbital_tpu_torch.ops import cuda_collisions
 
-        stems = {**SWEEP_MODES, **SWEEP_MODES_F64}
+        stems = {**SWEEP_MODES, **SWEEP_MODES_F64, **COUNT_MODES}
         line = "; ".join(self.entry_record(k, stem, log) for k, stem in stems.items())
         fn = cuda_collisions._load_roots().collision_parents_shape
         fn.restype, fn.argtypes = None, [ctypes.c_int, ctypes.c_void_p]
@@ -2981,6 +3081,7 @@ class Smoke:
         fn(N_MAIN, arr)
         shape = dict(zip(("columns_a_lane", "tile", "slice", "warps", "blocks", "tiles"),
                          list(arr)))
+        count_shape = cuda_collisions.contact_count_shape(RING_B, RING_B)
         dump, per = [], {}
         for key, stem in stems.items():
             marker = SWEEP_MARKER[key]
@@ -2988,18 +3089,22 @@ class Smoke:
                         None)
             marks = sum(bool(re.search(marker, op)) for op in body or ())
             per[key] = len(body) / marks if marks else "not measured"
-            self.kernels[key].update(shape=shape, sass_slots_per_pair=per[key])
+            self.kernels[key].update(shape=count_shape if key in COUNT_MODES else shape,
+                                     sass_slots_per_pair=per[key])
             dump.append(f"{key} ({stem}): {len(body or ())} instructions, {marks} pair "
                         f"compares\n" + "\n".join(body or ()))
         if sass_text and not all(isinstance(v, float) for v in per.values()):
             raise AssertionError(f"contact sweep: no prefilter loop with FSETP/DSETP in {per}")
         print("collision_roots loops: " + "\n\n".join(dump), file=sys.stderr)
         floor = issue_floor_ms(per["ROOTS"], shape["tiles"] * shape["tile"] ** 2)
+        floor_c = {k: issue_floor_ms(per[k], RING_B * RING_B) for k in COUNT_MODES}
         return (f"{line}, shape {shape}, SASS instructions a pair: parents "
                 f"{fmt(per['ROOTS'])}, mark {fmt(per['MARK'])}, f64 parents "
                 f"{fmt(per['ROOTS64'])}, f64 mark {fmt(per['MARK64'])} (issue floor over the "
                 f"{shape['tiles'] * shape['tile'] ** 2:,} pairs of the tiles: "
-                f"{fmt(floor, 3, ' ms')})")
+                f"{fmt(floor, 3, ' ms')}); the count at {RING_B}^2: shape {count_shape}, SASS "
+                f"instructions a pair {fmt(per['CNT'])}, f64 {fmt(per['CNT64'])} (issue "
+                f"floors {fmt(floor_c['CNT'], 4, ' ms')}, {fmt(floor_c['CNT64'], 4, ' ms')})")
 
     def ensemble_record(self, log: str, sass_text: str) -> str:
         """The ensemble kernel's launch shapes (``fused_ensemble_shape``) at
@@ -5569,21 +5674,29 @@ class Smoke:
 
     # --parent
     def roots_calls(self) -> dict:
-        """The root search's main-path calls for ``--parent``: ``{key:
-        call(gated) -> parents}`` on the cluster at R_RICH (ROOTS, a count >
-        0) and R_BENCH (ROOTS0, a count of 0), with the detecting sweep's
-        count."""
-        from orbital_tpu_torch.ops.cuda_collisions import collision_parents_cuda
+        """The contact sweep's main-path calls for ``--parent``: ``{key:
+        call(gated) -> parents or marks}`` on the cluster, with the
+        detecting sweep's count: the root search at R_RICH (ROOTS, a count
+        > 0) and R_BENCH (ROOTS0, a count of 0), the mark at R_RICH (MARK),
+        and both modes' f64 instances on the f64 state at R_RICH (ROOTS64,
+        MARK64)."""
+        from orbital_tpu_torch.ops.cuda_collisions import (collision_parents_cuda,
+                                                           contact_marks_cuda)
         from orbital_tpu_torch.ops.cuda_forces import pairwise_acc_detect_cuda
 
         pos0, vel0, mass0, _ = self.cluster()
         out = {}
-        for key, radius in (("ROOTS", R_RICH), ("ROOTS0", R_BENCH)):
-            st = self.torch_state(pos0, vel0, mass0, radius)
+        for key, radius, precision, fn in (
+                ("ROOTS", R_RICH, "ds32", collision_parents_cuda),
+                ("ROOTS0", R_BENCH, "ds32", collision_parents_cuda),
+                ("MARK", R_RICH, "ds32", contact_marks_cuda),
+                ("ROOTS64", R_RICH, "f64", collision_parents_cuda),
+                ("MARK64", R_RICH, "f64", contact_marks_cuda)):
+            st = self.torch_state(pos0, vel0, mass0, radius, precision)
             _, _, count = pairwise_acc_detect_cuda(st.pos, st.mass, st.radius, st.alive,
                                                    G=1.0, eps2=EPS2, with_potential=False)
-            out[key] = (lambda st_, c_: lambda gated: collision_parents_cuda(
-                st_.pos, st_.radius, st_.alive, contacts=c_ if gated else None))(st, count)
+            out[key] = (lambda st_, c_, fn_: lambda gated: fn_(
+                st_.pos, st_.radius, st_.alive, contacts=c_ if gated else None))(st, count, fn)
         return out
 
     def ring_calls(self) -> dict:
@@ -5744,7 +5857,7 @@ class Smoke:
                                  ("fused_ensemble", fused_ensemble))}
         roots = RootsLib()
         old[roots] = bind_like(jobs["collision_roots"][1], roots.load(),
-                               ("collision_parents", "ot_error_string"))
+                               LIB_FUNCS["collision_roots"])
         scene = self.scene(N_MAIN, R_RICH, 7, seed_offset=17, cluster=False)
         worst, equal, counts, cases = {}, {}, set(), 0
 
@@ -5803,15 +5916,16 @@ class Smoke:
             if not equal[k]:
                 raise AssertionError(f"{k} is not bit-equal to the parent build's "
                                      f"({worst[k]:.3e})")
-        # the merge root search: parents integer-equal, gated and ungated, at
-        # the contact-rich radius; timed at a count > 0 (ROOTS) and 0 (ROOTS0)
+        # the contact sweep's parents and marks, f32 and f64, bit-equal to the
+        # parent build's, gated and ungated (the count mode shares the source);
+        # the root search timed at a count > 0 (ROOTS) and 0 (ROOTS0)
         roots_calls = self.roots_calls()
         for k, call in roots_calls.items():
             for gate in (True, False):
                 ref, out = on(roots, old[roots], lambda: call(gate)), call(gate)
                 if not self.torch.equal(ref, out):
-                    raise AssertionError(f"{k}: parents differ from the parent build's "
-                                         f"(gated {gate}): {int((ref != out).sum())} rows")
+                    raise AssertionError(f"{k}: differs from the parent build's (gated "
+                                         f"{gate}): {int((ref != out).sum())} rows")
                 cases += 1
             worst[k], equal[k] = 0.0, True
         wrappers = self.parent_wrappers(parent)
@@ -5827,7 +5941,7 @@ class Smoke:
                      **self.ring_round_calls())
         calls.update({k: fused_t[k] for k in ("B4", "B4F", "B4L", "B4LF")})
         calls.update({k: (roots, (lambda c: lambda: c(True))(call))
-                      for k, call in roots_calls.items()})
+                      for k, call in roots_calls.items() if k in ("ROOTS", "ROOTS0")})
         fns = {}
         for k, (mod, call) in calls.items():
             fns[f"{k} parent"] = (lambda m_, l_, c_: lambda: on(m_, l_, c_))(mod, old[mod], call)
@@ -5929,8 +6043,8 @@ class Smoke:
                 f"on the bench row's table; the ensemble kernel within DRIFT_BUDGET, "
                 f"FORCE_RTOL and ENERGY_RTOL of the plain version at ENS_CASES' config 5 "
                 f"(1 step) and 2 x 1,024 (ENS_CHECK_STEPS), timed at {ENS_SCALE} members; "
-                f"the root search's parents equal, gated and "
-                f"ungated, at R {R_RICH:g} and {R_BENCH:g}); in turns, 6 runs each (B1, B2, "
+                f"the contact sweep's parents (at R {R_RICH:g} and {R_BENCH:g}) and marks, "
+                f"and both modes' f64 instances, bit-equal, gated and ungated); in turns, 6 runs each (B1, B2, "
                 f"B13 no PE; ROOTS at a count > 0, ROOTS0 at 0; "
                 f"B3 PE; B6 ungated, B6Z at a zero count; B12; B7 at N={N_MAIN} and B7L at "
                 f"{N_TREE_BIG}; NEAR the table sweep at N={N_MAIN}; B4 200 steps at {N_FUSED}, "
@@ -10168,6 +10282,318 @@ class Smoke:
                                  f"{out.stderr[-2000:]!r}")
         return f"warned; {out.stdout.strip().splitlines()[-1]}"
 
+    # phase 70
+    def mesh_collisions(self) -> str:
+        """The mesh solvers' collisions (ROADMAP P.22): the contact sweep's
+        count mode against its plain version (``check_count_kernel``); PM,
+        P3M and the tree with collisions under a RING_P-rank mesh, each held
+        to the single-card run of the same configuration
+        (``mesh_collision_paths``); the count round and the ring steps timed
+        (``mesh_collision_timings``)."""
+        return "the mesh solvers' collisions: " + " | ".join(
+            (self.check_count_kernel(), self.mesh_collision_paths(),
+             self.mesh_collision_timings()))
+
+    def planted_pairs(self, dtype):
+        """COUNT_PLANTED pairs along x in ``dtype`` (a numpy type), pair k's
+        two bodies at y = 10 k, so that no others meet: pos_i at x = 0, pos_j
+        at x = d with fl(d d) one ulp of d inside (even k) or outside (odd k)
+        the count's threshold q = fl(rho rho), rho = fl(fl(R_i + R_j) c), c
+        = 1.00001 in ``dtype``. d = 0 - (-d) and dy = dz = 0 exactly, so the
+        pair's r2 is fl(d d). Returns (pos_i, radius_i, pos_j, radius_j,
+        inside) as numpy arrays."""
+        rng = np.random.default_rng(self.seed + 70)
+        n = COUNT_PLANTED
+        ri = (R_RICH * rng.uniform(0.5, 1.5, n)).astype(dtype)
+        rj = (R_RICH * rng.uniform(0.5, 1.5, n)).astype(dtype)
+        rho = (ri + rj) * dtype(1.00001)
+        q = rho * rho
+        pos_i, pos_j = np.zeros((n, 3), dtype), np.zeros((n, 3), dtype)
+        pos_i[:, 1] = pos_j[:, 1] = 10 * np.arange(n)
+        inside = np.arange(n) % 2 == 0
+        for k in range(n):
+            d = np.sqrt(q[k])
+            while d * d > q[k]:
+                d = np.nextafter(d, dtype(0))
+            while np.nextafter(d, dtype(np.inf)) ** 2 <= q[k]:
+                d = np.nextafter(d, dtype(np.inf))
+            pos_j[k, 0] = d if inside[k] else np.nextafter(d, dtype(np.inf))
+        r2 = pos_j[:, 0] * pos_j[:, 0]
+        if not np.array_equal(r2 <= q, inside):
+            raise AssertionError("planted pairs: not split at the threshold")
+        return pos_i, ri, pos_j, rj, inside
+
+    def count_scenes(self, dtype) -> dict:
+        """Phase 70's count cases in ``dtype`` (torch): ``{name: (pos_i,
+        radius_i, alive_i, i_off, pos_j, radius_j, alive_j, j_off)}`` on the
+        card: the ring's shards at RING_B^2 and RING_B8^2 at R_RICH and
+        R_BENCH, off the diagonal and on it (coinciding tables at equal
+        offsets); a third of a shard dead and parked far, as rows and as
+        columns; live sentinel rows at +-1e30 (coinciding ones touch; r2
+        overflows in f32 against the rest); the ragged N_COUNT_RAGGED blocks
+        with a third of each dead; the planted pairs; and a zero count."""
+        torch = self.torch
+        f64 = dtype == torch.float64
+
+        def shards(radius, ranks, dead=0):
+            sh = (self.f64_shards(radius, ranks, dead) if f64
+                  else self.ring_shards(radius, dead, ranks))
+            return [(p, r, a) for p, _, _, r, a in sh]
+
+        out = {}
+        for ranks in (RING_P, RING_P8):
+            b = N_MAIN // ranks
+            for key, radius in (("rich", R_RICH), ("bench", R_BENCH)):
+                sh = shards(radius, ranks)
+                out[f"{b}^2 {key}"] = (*sh[0], 0, *sh[1], b)
+                out[f"{b}^2 {key} diagonal"] = (*sh[0], 0, *sh[0], 0)
+            dead = shards(R_RICH, ranks, dead=b // 3)
+            out[f"{b}^2 parked rows"] = (*dead[-1], (ranks - 1) * b, *dead[0], 0)
+            out[f"{b}^2 parked columns"] = (*dead[0], 0, *dead[-1], (ranks - 1) * b)
+        p, r, a = shards(R_RICH, RING_P)[0]
+        p = p.clone()
+        p[:4], p[4:6] = 1e30, -1e30
+        out["sentinel"] = (p, r, a, 0, p, r, a, 0)
+        (n_i, n_j), rows = N_COUNT_RAGGED, []
+        for n, off in ((n_i, 71), (n_j, 72)):
+            pos, _, _, rad, alive = self.scene(n, R_RAGGED, n // 3, seed_offset=off,
+                                               dtype=dtype)
+            rows.append((pos, rad, alive))
+        out["ragged"] = (*rows[0], 0, *rows[1], n_i)
+        pi, ri, pj, rj, _ = self.planted_pairs(np.float64 if f64 else np.float32)
+        live = torch.ones(COUNT_PLANTED, dtype=torch.bool, device=self.dev)
+        t = [torch.from_numpy(x).to(self.dev) for x in (pi, ri, pj, rj)]
+        out["planted"] = (t[0], t[1], live, 0, t[2], t[3], live, COUNT_PLANTED)
+        (p0, r0, a0), (p1, r1, a1) = shards(R_BENCH, RING_P)[:2]
+        out["zero"] = (p0, r0 * 1e-3, a0, 0, p1, r1 * 1e-3, a1, RING_B)
+        return out
+
+    def check_count_kernel(self) -> str:
+        """The count mode's f32 (CNT) and f64 (CNT64) instances against the
+        plain count (``ops.collisions.block_contacts`` on the card) on every
+        case of ``count_scenes``: integer-equal, written into a new count
+        and added into a given one; the planted pairs split as planted, the
+        zero case 0."""
+        from orbital_tpu_torch.ops.collisions import block_contacts
+        from orbital_tpu_torch.ops.cuda_collisions import block_contacts_cuda
+
+        torch = self.torch
+        lines = []
+        for dtype, key in ((torch.float32, "CNT"), (torch.float64, "CNT64")):
+            counts = {}
+            for name, args in self.count_scenes(dtype).items():
+                got = int(block_contacts_cuda(*args))
+                base = torch.full((), 7, dtype=torch.int32, device=self.dev)
+                added = int(block_contacts_cuda(*args, out=base)) - 7
+                ref = int(block_contacts(*args))
+                if got != ref or added != ref:
+                    raise AssertionError(f"{key} {name}: count {got} (added {added}), plain "
+                                         f"{ref}")
+                counts[name] = ref
+            if counts["planted"] != COUNT_PLANTED // 2 or counts["zero"] or not all(
+                    counts[k] for k in (f"{RING_B}^2 rich", f"{RING_B}^2 rich diagonal",
+                                        "ragged", "sentinel")):
+                raise AssertionError(f"{key}: counts {counts}")
+            self.kernels[key]["max_abs_err"] = 0.0
+            lines.append(f"{key} integer-equal to the plain count on {len(counts)} cases ("
+                         + ", ".join(f"{k} {v}" for k, v in counts.items()) + ")")
+        return "; ".join(lines)
+
+    def mesh_collision_paths(self) -> str:
+        """``make_sharded_rollout`` over RING_P one-card ranks for RING_STEPS
+        steps of force_impl "pm" + bounce (ds32 and f64, the cluster at
+        R_RICH), "p3m" + bounce (ds32, the uniform row at R_P3M_BOUNCE) and
+        "tree" + merge and + resolve (f32, bench_tree's sphere at R_RICH),
+        each against the single card's run of the same configuration within
+        its ring phase's gate (STATE_ATOL; F64_RING_ATOL in f64, the single
+        card's bounce being f32 inside) over the bodies alive in both, alive
+        masks and masses equal; the ring's count on the first
+        COUNT_CHECK_STEPS contact steps equal to the plain count of the
+        gathered state; the count kernel RING_P^2 times a step (its f64
+        instance on the f64 path), the plain count never; and
+        ``simulate(mesh=, force_impl="pm", collisions="bounce")`` against
+        ``simulate()`` on one card."""
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.models.scene import SceneArrays
+        from orbital_tpu_torch.ops.collisions import count_contacts_chunked
+        from orbital_tpu_torch.ops.cuda_collisions import block_contacts_cuda
+
+        torch = self.torch
+        pos, vel, mass, _ = self.cluster()
+        upos, uvel, umass = self.p3m_uniform()
+        ppos, pvel, pmass, budgets = self.plummer()
+        cap = self.p3m_ring_case()["cap"]
+        mesh = self.ring_mesh(RING_P)
+        pm = self.ring_cfg(force_impl="pm", pm_grid=PM_GRID, pm_box=PM_BOX,
+                           collisions="bounce", restitution=0.8)
+        p3m = self.ring_cfg(force_impl="p3m", pm_grid=P3M_GRID, p3m_capacity=cap,
+                            pm_box=P3M_BOX, collisions="bounce", restitution=0.8)
+        paths = {
+            "pm + bounce ds32": (pm, (pos, vel, mass, R_RICH, "ds32"), STATE_ATOL),
+            "pm + bounce f64": (pm, (pos, vel, mass, R_RICH, "f64"), F64_RING_ATOL),
+            "p3m + bounce ds32": (p3m, (upos, uvel, umass, R_P3M_BOUNCE, "ds32"), STATE_ATOL),
+            "tree + merge f32": (self.tree_config(budgets, collisions="merge"),
+                                 (ppos, pvel, pmass, R_RICH, "f32"), STATE_ATOL),
+            "tree + resolve f32": (self.tree_config(budgets, collisions="resolve",
+                                                    frag_seed=RESOLVE_SEED,
+                                                    debris_k=RESOLVE_DEBRIS_K),
+                                   (ppos, pvel, pmass, R_RICH, "f32"), STATE_ATOL),
+        }
+        rounds = RING_P * RING_P * RING_STEPS
+        lines = []
+        for name, (cfg, scene, tol) in paths.items():
+            st = ot.init_forces(self.torch_state(*scene), cfg)
+            one, _ = ot.rollout(st, cfg, RING_STEPS)
+            log, plain = {}, []
+            reset_launches()
+            with mesh_count_log(log), plain_count_calls(plain):
+                roll = ot.make_sharded_rollout(cfg, mesh, st, RING_STEPS)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fin = ot.gather_state(mesh, roll(ot.shard_state(mesh, st))[0])
+                torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / RING_STEPS
+            f64 = st.pos.dtype == torch.float64
+            launches = (block_contacts_cuda.launches, block_contacts_cuda.f64_launches)
+            if launches != ((0, rounds) if f64 else (rounds, 0)) or plain:
+                raise AssertionError(f"{name}: count launches (f32, f64) {launches}, plain "
+                                     f"count calls {len(plain)}")
+            self.kernels["CNT64" if f64 else "CNT"].setdefault("launches", rounds)
+            counts = [int(c) for *_, c in log[0]]
+            hits = [k for k, c in enumerate(counts) if c]
+            if len(counts) != RING_STEPS or not hits:
+                raise AssertionError(f"{name}: ring counts {counts}")
+            for k in hits[:COUNT_CHECK_STEPS]:
+                full = [torch.cat([log[r][k][f] for r in range(RING_P)]) for f in range(3)]
+                ref = int(count_contacts_chunked(*full))
+                if ref != counts[k]:
+                    raise AssertionError(f"{name} step {k + 1}: ring count {counts[k]}, plain "
+                                         f"count of the gathered state {ref}")
+            if not torch.equal(fin.alive, one.alive) or not torch.allclose(
+                    fin.mass, one.mass, rtol=1e-6, atol=0.0):
+                raise AssertionError(f"{name}: alive or masses differ from the single card's")
+            keep, err = fin.alive & one.alive, 0.0
+            for f in ("pos_full", "vel_full"):
+                d = (getattr(fin, f)()[keep].double() - getattr(one, f)()[keep].double())
+                err = max(err, float(d.abs().max()))
+            if err > tol or fin.pos.dtype != st.pos.dtype:
+                raise AssertionError(f"{name}: {err:.3e} > {tol:g} from the single card's run")
+            lines.append(f"{name}: within {err:.2e} <= {tol:g} of one card's, contacts on "
+                         f"{len(hits)} of {RING_STEPS} steps (counts {counts[:3]}...; "
+                         f"{min(len(hits), COUNT_CHECK_STEPS)} held to the plain count of the "
+                         f"gathered state), {int((st.alive & ~fin.alive).sum())} died, count "
+                         f"launches (f32, f64) {launches}, plain 0; {wall:.2f} ms/step wall")
+
+        # simulate(mesh=) with PM and bounce, against one card
+        sc = SceneArrays(pos=pos, vel=vel, mass=mass, radius=np.full(N_MAIN, R_RICH),
+                         names=[f"b{i}" for i in range(N_MAIN)])
+        kw = dict(steps=RING_STEPS, dt=DT, softening=EPS2 ** 0.5, device=self.dev,
+                  precision="ds32", rescale=ot.Rescale.identity(),
+                  record_every=RING_STEPS // 2, force_impl="pm", pm_grid=PM_GRID, pm_box=PM_BOX, collisions="bounce",
+                  restitution=0.8)
+        reset_launches()
+        res = ot.simulate(sc, mesh=mesh, **kw)
+        n_cnt = block_contacts_cuda.launches
+        ref = ot.simulate(sc, **kw)
+        d = float(np.abs(res.pos - ref.pos).max())
+        if d > STATE_ATOL or n_cnt != rounds:
+            raise AssertionError(f"simulate(mesh=, pm, bounce): {d:.3e} from one card, count "
+                                 f"launches {n_cnt}")
+        lines.append(f"simulate(mesh=, force_impl='pm', collisions='bounce') at R={R_RICH:g}: "
+                     f"records within {d:.2e} of simulate() on one card, count launches "
+                     f"{n_cnt}")
+        return (f"N={N_MAIN} over {RING_P} ranks, {RING_STEPS} steps a path: "
+                + " | ".join(lines))
+
+    def mesh_collision_timings(self) -> str:
+        """A count round at RING_B^2 by CUDA events, f32 and f64 at the bench
+        row's radius (and at R_RICH), in turns with the plain eager count of
+        the same round; the bound (OPS_COUNT operations a pair at the f32 or
+        FP64 rate, the tables read once) and the issue floor from phase 2's
+        SASS instructions a pair; and the PM + bounce and tree + merge ring
+        steps at the bench row's radius over RING_P ranks, each in turns with
+        the same ring's step without collisions, and the count ring alone
+        (events and host time)."""
+        import orbital_tpu_torch as ot
+        from orbital_tpu_torch.ops.collisions import block_contacts
+        from orbital_tpu_torch.ops.cuda_collisions import block_contacts_cuda
+
+        torch = self.torch
+        B = RING_B
+
+        def tables(sh):
+            (pi, _, _, ri, ai), (pj, _, _, rj, aj) = sh[0], sh[1]
+            return pi, ri, ai, 0, pj, rj, aj, B
+
+        def kernel(args):
+            out = torch.zeros((), dtype=torch.int32, device=self.dev)
+            return lambda: block_contacts_cuda(*args, out=out)
+
+        a32, a64 = tables(self.ring_shards(R_BENCH)), tables(self.f64_shards(R_BENCH))
+        r32, r64 = tables(self.ring_shards(R_RICH)), tables(self.f64_shards(R_RICH))
+        t = {k: summary(v) for k, v in alternate_ms({
+            "CNT": kernel(a32), "CNT plain": lambda: block_contacts(*a32),
+            "CNT64": kernel(a64), "CNT64 plain": lambda: block_contacts(*a64),
+            "CNT rich": kernel(r32), "CNT64 rich": kernel(r64)}, 10).items()}
+        pairs = B * B
+        bounds = {"CNT": bound(OPS_COUNT * pairs, 2 * B * (12 + 4 + 1) + 8),
+                  "CNT64": bound(0.0, 2 * B * (24 + 8 + 1) + 8, f64=OPS_COUNT * pairs)}
+        floors = {k: issue_floor_ms(self.kernels[k].get("sass_slots_per_pair"), pairs)
+                  for k in bounds}
+        for k in bounds:
+            self.kernels[k].update(ms=t[k]["median"], plain_ms=t[f"{k} plain"]["median"],
+                                   bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                                   library_ms=None)
+
+        # the ring steps, with and without collisions, in turns
+        pos, vel, mass, _ = self.cluster()
+        ppos, pvel, pmass, budgets = self.plummer()
+        mesh = self.ring_mesh(RING_P)
+        steps = {}
+        for key, cfg, scene in (
+                ("pm", self.ring_cfg(force_impl="pm", pm_grid=PM_GRID, pm_box=PM_BOX),
+                 (pos, vel, mass, R_BENCH, "ds32")),
+                ("tree", self.tree_config(budgets), (ppos, pvel, pmass, R_BENCH, "f32"))):
+            coll = cfg.replace(collisions="bounce" if key == "pm" else "merge")
+            st = ot.init_forces(self.torch_state(*scene), cfg)
+            shards = ot.shard_state(mesh, st)
+            rolls = {f"{key} {coll.collisions}": ot.make_sharded_rollout(coll, mesh, st, 5),
+                     f"{key} none": ot.make_sharded_rollout(cfg, mesh, st, 5)}
+            steps.update({k: summary([x / 5 for x in v]) for k, v in alternate_ms(
+                {k: (lambda r: lambda: r(shards))(r) for k, r in rolls.items()}, 1).items()})
+        # the count ring alone over RING_P ranks (P rounds a rank, P - 1 shifts
+        # and the psum): CUDA events and the host's time to queue it
+        from orbital_tpu_torch.parallel import sharded
+
+        fns = [sharded.ring_contacts_fn(self.ring_cfg(), c) for c in mesh.comms]
+        shards32 = self.ring_shards(R_BENCH)
+        per_rank = [[sh[k] for sh in shards32] for k in (0, 3, 4)]
+
+        def count_ring():
+            return mesh.run(lambda comm, fn, p, r, a: fn(p, r, a), fns, *per_rank)
+
+        ring_t = {"events": summary(time_ms(count_ring, 10)),
+                  "host": summary(host_ms(count_ring, 10))}
+        perf = dict(times=t, bounds=bounds, issue_floor_ms=floors, ring_step_ms=steps,
+                    count_ring_ms=ring_t)
+        print("perf_mesh_collisions " + json.dumps(perf), file=sys.stderr)
+
+        def share(k):
+            return 100 * bounds[k][0] / t[k]["median"]
+
+        return (f"a count round at {B}^2 in turns (CUDA events, R={R_BENCH:g}): " + ", ".join(
+            f"{k} {t[k]['median']:.4f} ms (spread {t[k]['spread']:.4f}; at R={R_RICH:g} "
+            f"{t[k + ' rich']['median']:.4f}; plain eager {t[k + ' plain']['median']:.3f}; "
+            f"bound {bounds[k][0]:.4f}, {bounds[k][1]}, {share(k):.1f}%; issue floor "
+            f"{fmt(floors[k], 4)})" for k in bounds)
+            + f"; the count ring alone over {RING_P} ranks {ring_t['events']['median']:.3f} "
+            f"ms (spread {ring_t['events']['spread']:.3f}; host "
+            f"{ring_t['host']['median']:.3f}); ring steps at R={R_BENCH:g} over {RING_P} "
+            f"ranks in turns: " + ", ".join(
+                f"{k} {v['median']:.3f} ms (spread {v['spread']:.3f})"
+                for k, v in steps.items()))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--drift-steps", type=int, default=1000,
@@ -10175,8 +10601,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", metavar="DIR",
                         help="only hold B1, B2, B3, B5, B5 detect, the B5 subset, B13, B6, "
-                             "B12, B7, the near sweep, B4, the P3M short range, the root "
-                             "search and the ensemble kernel against DIR's kernel sources "
+                             "B12, B7, the near sweep, B4, the P3M short range, the contact "
+                             "sweep and the ensemble kernel against DIR's kernel sources "
                              "(phases 1, 2 and this check)")
     parser.add_argument("--sweep", action="store_true",
                         help="only build and time the launch shapes of SWEEP (phases 1, 2 "
@@ -10265,6 +10691,7 @@ def main(argv=None) -> int:
         ("67 f64 instances", smoke.check_f64_instances),
         ("68 tree flags", smoke.tree_flags),
         ("69 f64 ring collisions", smoke.f64_ring_collisions),
+        ("70 mesh collisions", smoke.mesh_collisions),
     ]
     if args.sweep or args.parent or args.ring_variants:
         phases = phases[:2] + ([("sweep", smoke.sweep)] if args.sweep else []) + (

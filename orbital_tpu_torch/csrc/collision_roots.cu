@@ -92,6 +92,56 @@
 // pair work and no host read, as the bounce kernel (collisions.cu) skips its
 // sweep. With a null pointer the sweep always runs.
 //
+// Mode "count" (count_kernel<T>) is the directed contact count of a ring
+// round: body block j on body block i, with global ids i_off + i and j_off +
+// j. It stands in for the XLA block count of orbital_tpu/ops/collisions.py:
+// 97-113 (_contacts_block), ringed by orbital_tpu/parallel/sharded.py:199-231
+// after each step of the mesh solvers (force_impl "pm", "p3m" and "tree")
+// with collisions:
+//
+//   count = #{(i, j) : alive_i, alive_j, i_off + i != j_off + j, r2 <= q},
+//   r2 = (dx dx + dy dy) + dz dz, d = r_i - r_j,
+//   q = rho rho, rho = (R_i + R_j) 1.00001,
+//
+// each product and sum rounded once (__fmul_rn / __fadd_rn, or their double
+// forms) and 1.00001 in the tables' type (1.00001f in f32), as torch and JAX
+// apply it, so the count is integer-equal to its plain version
+// (ops/collisions.py::block_contacts) by construction. The f32 instance
+// serves f32 and ds32 state (the hi words, as the plain version counts), the
+// f64 instance f64 state (JAX counts in double under x64).
+//
+// What bounds it on this card: the n_i n_j pair tests (10 operations each,
+// at the f32 rate, or the FP64 rate for the f64 instance); the count is
+// directed, so the whole rectangle is swept. Design, from the sweep above:
+// - a warp takes one tile of kTile rows x kTile columns of the rectangle
+//   (tile w of row-major order, w = blockIdx.x kWarps + warp): every tile
+//   costs the same, so a plain launch of ceil(tiles / kWarps) blocks spreads
+//   the work evenly (4,096 blocks at 16,384^2);
+// - a lane holds kK columns in registers, and the warp stages the tile's
+//   rows 32 at a time into its shared slice (x, y, z, T_i) under a warp
+//   barrier;
+// - the prefilter is per row: T_i = (fl(R_i + Rmax) c rounded up)^2 (1 + 16
+//   u) rounded up, plus the smallest normal (Ops::bound), with Rmax the
+//   tile's largest live column radius and c = 1.00001 in the tables' type.
+//   It is a superset of the exact test. For a counted pair, s <= q with s
+//   the exact test's r2. s and the prefilter's FMA r2, s', each round every
+//   term of S = dx^2 + dy^2 + dz^2 (all >= 0) at most three times, so s'
+//   <= S (1 + u)^3 <= s (1 + u)^6. q <= rho^2 (1 + u), and rho <= fl(R_i +
+//   R_j) c (1 + u) <= a c (1 + u) with a = fl(R_i + Rmax), by monotone
+//   rounding; a' = a c rounded up >= a c. So s' <= a'^2 (1 + u)^9 < a'^2 (1 +
+//   16 u) <= T_i (u = 2^-24 in f32, 2^-53 in f64; the smallest normal covers
+//   the absolute error of subnormal squares). Dead rows and columns, and
+//   those past the tables, hold a NaN x and fail both tests by select;
+//   parked and sentinel rows (1e30, whose r2 overflows to inf in f32) fail
+//   the exact test as the plain version's do.
+// - after each 32-row slice a lane whose column was flagged runs the exact
+//   test on the slice's rows (self pairs, equal global ids, excluded), adding
+//   to its own int count. At the tile's end the warp sums its lanes with
+//   __reduce_add_sync and lane 0 makes one integer atomicAdd into the
+//   caller's int32, when the sum is not 0: an integer sum does not depend
+//   on order, so reruns are bit-equal, and the P rounds of a ring add into
+//   one count in place. No memset and no host read: a round is one launch.
+//
 // Plain C interface for ctypes: pointers and the stream are void*, and each
 // entry point returns cudaGetLastError() of its launch.
 #include <cooperative_groups.h>
@@ -137,17 +187,20 @@ __device__ __forceinline__ bool live(const Sweep<T>& s, int i) {
 }
 
 // The scalar type's correctly rounded operations, its row of four, its
-// quiet NaN, and the prefilter's bound T_i from a = R_i + Rmax: a^2 (1 +
-// 16 u) rounded up, plus the smallest normal (u the unit roundoff).
+// quiet NaN, the prefilter's bound T_i from a = R_i + Rmax: a^2 (1 + 16 u)
+// rounded up, plus the smallest normal (u the unit roundoff), and the
+// count's radius inflation 1.00001 in the type with a product rounded up.
 template <typename T>
 struct Ops;
 
 template <>
 struct Ops<float> {
   using Row = float4;
+  static __device__ __forceinline__ float inflate() { return 1.00001f; }
   static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
   static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float mul_up(float a, float b) { return __fmul_ru(a, b); }
   static __device__ __forceinline__ float fma(float a, float b, float c) {
     return __fmaf_rn(a, b, c);
   }
@@ -170,9 +223,11 @@ struct alignas(32) Row64 {
 template <>
 struct Ops<double> {
   using Row = Row64;
+  static __device__ __forceinline__ double inflate() { return 1.00001; }
   static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
   static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
   static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ __forceinline__ double mul_up(double a, double b) { return __dmul_ru(a, b); }
   static __device__ __forceinline__ double fma(double a, double b, double c) {
     return __fma_rn(a, b, c);
   }
@@ -344,6 +399,135 @@ int launch(int mode, const void* pos, const void* radius, const void* alive,
   return cudaGetLastError();
 }
 
+// Mode "count": one table of each side of a ring round.
+template <typename T>
+struct Side {
+  const T* pos;                  // [n, 3]
+  const T* radius;               // [n]
+  const unsigned char* alive;    // [n] or null (all alive)
+  int n;
+  long long off;                 // the global id of row 0
+};
+
+template <typename T>
+__device__ __forceinline__ bool live(const Side<T>& s, int i) {
+  return i < s.n && (s.alive == nullptr || s.alive[i] != 0);
+}
+
+// The plain version's test of row (x, y, z) radius ri against column c:
+// r2 <= rho rho, rho = (R_i + R_j) 1.00001, each operation rounded once.
+template <typename T, typename Row>
+__device__ __forceinline__ bool counted(Row p, T ri, T cx, T cy, T cz, T cr) {
+  using O = Ops<T>;
+  const T dx = O::sub(p.x, cx);
+  const T dy = O::sub(p.y, cy);
+  const T dz = O::sub(p.z, cz);
+  const T r2 = O::add(O::add(O::mul(dx, dx), O::mul(dy, dy)), O::mul(dz, dz));
+  const T rho = O::mul(O::add(ri, cr), O::inflate());
+  return r2 <= O::mul(rho, rho);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) count_kernel(Side<T> si, Side<T> sj, int nbj,
+                                                         long long tiles, int* count) {
+  using O = Ops<T>;
+  using Row = typename O::Row;
+  __shared__ Row rows[kWarps][kSlice];  // x (NaN when dead), y, z, T_i
+  __shared__ T rads[kWarps][kSlice];    // R_i
+  const T nan = O::nan();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long tile = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (tile >= tiles) return;  // the warp's own: no block barrier below
+  const int bi = static_cast<int>(tile / nbj), bj = static_cast<int>(tile % nbj);
+
+  T cx[kK], cy[kK], cz[kK], cr[kK];
+  long long id[kK];  // the column's global id, less the rows' offset
+  T rmax = T(0);
+#pragma unroll
+  for (int c = 0; c < kK; ++c) {
+    const int j = bj * kTile + 32 * c + lane;
+    const bool on = live(sj, j);
+    cx[c] = on ? sj.pos[3 * j] : nan;
+    cy[c] = on ? sj.pos[3 * j + 1] : T(0);
+    cz[c] = on ? sj.pos[3 * j + 2] : T(0);
+    cr[c] = on ? sj.radius[j] : T(0);
+    id[c] = sj.off + j - si.off;
+    rmax = O::max(rmax, cr[c]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) rmax = O::max(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
+
+  int hits = 0;
+  for (int r0 = bi * kTile; r0 < bi * kTile + kTile; r0 += kSlice) {
+    const int i = r0 + lane;
+    const bool on = live(si, i);
+    const T ri = on ? si.radius[i] : T(0);
+    const T t = O::bound(O::mul_up(O::add(ri, rmax), O::inflate()));
+    __syncwarp();
+    rows[warp][lane] = O::row(on ? si.pos[3 * i] : nan, on ? si.pos[3 * i + 1] : T(0),
+                              on ? si.pos[3 * i + 2] : T(0), t);
+    rads[warp][lane] = ri;
+    __syncwarp();
+
+    bool hit[kK];
+#pragma unroll
+    for (int c = 0; c < kK; ++c) hit[c] = false;
+#pragma unroll 8
+    for (int r = 0; r < kSlice; ++r) {
+      const Row p = rows[warp][r];
+#pragma unroll
+      for (int c = 0; c < kK; ++c) {
+        const T dx = O::sub(p.x, cx[c]);
+        const T dy = O::sub(p.y, cy[c]);
+        const T dz = O::sub(p.z, cz[c]);
+        const T r2 = O::fma(dz, dz, O::fma(dy, dy, O::mul(dx, dx)));
+        hit[c] |= r2 <= p.w;
+      }
+    }
+    // the exact pass, on the flagged columns only
+#pragma unroll
+    for (int c = 0; c < kK; ++c) {
+      if (!hit[c]) continue;
+      for (int r = 0; r < kSlice; ++r)
+        hits += (r0 + r != id[c] &&
+                 counted(rows[warp][r], rads[warp][r], cx[c], cy[c], cz[c], cr[c]));
+    }
+  }
+  const int total = __reduce_add_sync(0xffffffffu, hits);
+  if (lane == 0 && total != 0) atomicAdd(count, total);
+}
+
+constexpr int kCountShape = 6;
+
+// The count's tiles and blocks over an n_i x n_j rectangle.
+void count_plan(int n_i, int n_j, long long* tiles, int* nbj, long long* grid) {
+  const long long nbi = (static_cast<long long>(n_i) + kTile - 1) / kTile;
+  *nbj = (n_j + kTile - 1) / kTile;
+  *tiles = nbi * *nbj;
+  *grid = (*tiles + kWarps - 1) / kWarps;
+}
+
+template <typename T>
+int launch_count(const void* pos_i, const void* radius_i, const void* alive_i, long long i_off,
+                 int n_i, const void* pos_j, const void* radius_j, const void* alive_j,
+                 long long j_off, int n_j, void* count, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n_i <= 0 || n_j <= 0) return cudaSuccess;
+  long long tiles = 0, grid = 0;
+  int nbj = 0;
+  count_plan(n_i, n_j, &tiles, &nbj, &grid);
+  Side<T> si{static_cast<const T*>(pos_i), static_cast<const T*>(radius_i),
+             static_cast<const unsigned char*>(alive_i), n_i, i_off};
+  Side<T> sj{static_cast<const T*>(pos_j), static_cast<const T*>(radius_j),
+             static_cast<const unsigned char*>(alive_j), n_j, j_off};
+  count_kernel<T><<<static_cast<unsigned>(grid), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(si, sj, nbj, tiles,
+                                                         static_cast<int*>(count));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -389,6 +573,36 @@ void collision_parents_shape(int n, int* shape) {
   shape[3] = kWarps;
   shape[4] = blocks;
   shape[5] = static_cast<int>(nb * (nb + 1) / 2);
+}
+
+// Mode "count": adds the directed contact count of block j (pos_j [n_j, 3],
+// radius_j [n_j], alive_j [n_j] bool or null, global ids j_off + j) on block
+// i (likewise) to *count, one int32 on the device; float tables.
+int contact_count(const void* pos_i, const void* radius_i, const void* alive_i,
+                  long long i_off, int n_i, const void* pos_j, const void* radius_j,
+                  const void* alive_j, long long j_off, int n_j, void* count, void* stream,
+                  int device) {
+  return launch_count<float>(pos_i, radius_i, alive_i, i_off, n_i, pos_j, radius_j, alive_j,
+                             j_off, n_j, count, stream, device);
+}
+
+// The f64 instance: double tables, the rest as above.
+int contact_count_f64(const void* pos_i, const void* radius_i, const void* alive_i,
+                      long long i_off, int n_i, const void* pos_j, const void* radius_j,
+                      const void* alive_j, long long j_off, int n_j, void* count, void* stream,
+                      int device) {
+  return launch_count<double>(pos_i, radius_i, alive_i, i_off, n_i, pos_j, radius_j, alive_j,
+                              j_off, n_j, count, stream, device);
+}
+
+// The count's launch shape at n_i x n_j: shape[0..5] = columns a lane, rows
+// and columns a tile, rows staged a round, warps a block, blocks, tiles.
+void contact_count_shape(int n_i, int n_j, long long* shape) {
+  long long tiles = 0, grid = 0;
+  int nbj = 0;
+  count_plan(n_i, n_j, &tiles, &nbj, &grid);
+  const long long out[kCountShape] = {kK, kTile, kSlice, kWarps, grid, tiles};
+  for (int k = 0; k < kCountShape; ++k) shape[k] = out[k];
 }
 
 const char* ot_error_string(int err) {

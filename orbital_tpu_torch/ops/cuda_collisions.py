@@ -56,6 +56,15 @@ blocked torch sweeps, gated alike; ``collision_roots_cuda.launches`` and
 ``contact_marks_cuda.launches`` count the f32 instance's launches and their
 ``f64_launches`` the f64 instance's. :func:`sweep_plan`
 mirrors the kernel's walk over its tiles.
+
+The same source's third mode, the count (:func:`block_contacts_cuda`; no
+TPU kernel: it stands in for the XLA block count of
+``orbital_tpu/ops/collisions.py:97-113``, ``_contacts_block``, ringed by
+``orbital_tpu/parallel/sharded.py:199-231``), is the mesh solvers' contact
+count under a mesh: the directed count of a visiting shard on the local one,
+a ring round, added in place into the rank's int32, f32 or f64 by the
+tables' dtype. Its plain version is ``ops.collisions.block_contacts``;
+``block_contacts_cuda.launches`` and ``.f64_launches`` count its launches.
 """
 from __future__ import annotations
 
@@ -65,15 +74,17 @@ from typing import Optional
 
 import torch
 
-from .collisions import (_bounce_block, bounce_deltas_chunked, collision_parents_chunked,
-                         contact_marks_chunked, pointer_jump, restitution_clip)
+from .collisions import (_bounce_block, block_contacts, bounce_deltas_chunked,
+                         collision_parents_chunked, contact_marks_chunked, pointer_jump,
+                         restitution_clip)
 from .cuda_forces import block_plan
 from ..utils.kernels import count_launch, in_f32, refuse_grad
 
 __all__ = ["bounce_deltas_cuda", "bounce_deltas_plain", "bounce_block_cuda",
            "bounce_block_plain", "bounce_plan", "bounce_block_shape", "collision_roots_cuda",
            "collision_roots_plain", "collision_parents_cuda", "collision_parents_plain",
-           "contact_marks_cuda", "contact_marks_plain", "sweep_plan", "SWEEP_TILE"]
+           "contact_marks_cuda", "contact_marks_plain", "block_contacts_cuda",
+           "contact_count_shape", "sweep_plan", "SWEEP_TILE"]
 
 # the contact sweep's tile, rows and columns (csrc/collision_roots.cu: kTile)
 SWEEP_TILE = 128
@@ -383,6 +394,12 @@ def _load_roots():
                    lib.contact_marks_f64):
             fn.restype = ctypes.c_int
             fn.argtypes = [p, p, p, p, ctypes.c_int, p, p, ctypes.c_int]
+        i, ll = ctypes.c_int, ctypes.c_longlong
+        for fn in (lib.contact_count, lib.contact_count_f64):
+            fn.restype = i
+            fn.argtypes = [p, p, p, ll, i, p, p, p, ll, i, p, p, i]
+        lib.contact_count_shape.restype = None
+        lib.contact_count_shape.argtypes = [i, i, p]
         _roots_lib = lib
     return _roots_lib
 
@@ -539,3 +556,69 @@ def contact_marks_cuda(pos: torch.Tensor, radius: torch.Tensor,
 
 contact_marks_cuda.launches = 0
 contact_marks_cuda.f64_launches = 0
+
+
+def block_contacts_cuda(pos_i: torch.Tensor, radius_i: torch.Tensor, alive_i: torch.Tensor,
+                        i_off: int, pos_j: torch.Tensor, radius_j: torch.Tensor,
+                        alive_j: torch.Tensor, j_off: int, *,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The directed contact count (int32 0-dim) of body block j on body
+    block i with global ids ``i_off + row`` and ``j_off + column``: the
+    contact sweep's count mode, integer-equal to its plain version
+    :func:`~.collisions.block_contacts`, which CPU tensors take. With
+    ``out`` (one int32 on the same device) the count is added to it in place
+    and ``out`` returned, so that a ring's rounds add into one count, a
+    launch each; without, a new count. pos and radius of both blocks share
+    one dtype, float32 (the f32 instance; a ds32 state's hi words) or
+    float64 (the f64 instance, counted in ``f64_launches``); alive is bool;
+    nothing is cast."""
+    if pos_i.device.type == "cpu":
+        count = block_contacts(pos_i, radius_i, alive_i, i_off, pos_j, radius_j, alive_j, j_off)
+        return count if out is None else out.add_(count)
+    if pos_i.device.type != "cuda":
+        raise ValueError(f"block_contacts_cuda: unsupported device {pos_i.device}")
+    tables = (pos_i, radius_i, pos_j, radius_j)
+    if pos_i.dtype not in (torch.float32, torch.float64) or any(
+            t.dtype != pos_i.dtype for t in tables):
+        raise TypeError(f"block_contacts_cuda: pos and radius of both blocks must share one "
+                        f"dtype, float32 or float64; got {[t.dtype for t in tables]}")
+    n_i, n_j = pos_i.shape[0], pos_j.shape[0]
+    if pos_i.shape != (n_i, 3) or pos_j.shape != (n_j, 3) or radius_i.shape != (n_i,) \
+            or radius_j.shape != (n_j,) or alive_i.shape != (n_i,) or alive_j.shape != (n_j,):
+        raise ValueError("block_contacts_cuda: need pos [B, 3] and radius, alive [B] on each "
+                         "side")
+    if alive_i.dtype != torch.bool or alive_j.dtype != torch.bool:
+        raise TypeError("block_contacts_cuda: alive must be bool")
+    if out is not None and (out.dtype != torch.int32 or out.numel() != 1):
+        raise TypeError("block_contacts_cuda: out must be one int32")
+    sides = (pos_i, radius_i, alive_i, pos_j, radius_j, alive_j)
+    if any(t.device != pos_i.device for t in sides[1:] + ((out,) if out is not None else ())):
+        raise ValueError("block_contacts_cuda: all tensors must be on one device")
+    count = torch.zeros((), dtype=torch.int32, device=pos_i.device) if out is None else out
+    if not (n_i and n_j):
+        return count
+    from ..utils.kernels import check, stream_handle
+
+    lib, dev = _load_roots(), pos_i.device
+    pi, ri, ai, pj, rj, aj = (t.contiguous() for t in sides)
+    name = "contact_count" + ("_f64" if pos_i.dtype == torch.float64 else "")
+    err = getattr(lib, name)(pi.data_ptr(), ri.data_ptr(), ai.data_ptr(), int(i_off), n_i,
+                             pj.data_ptr(), rj.data_ptr(), aj.data_ptr(), int(j_off), n_j,
+                             count.data_ptr(), stream_handle(dev), dev.index or 0)
+    check(lib, err, f"{name} launch")
+    count_launch(block_contacts_cuda, _counter(pos_i))
+    return count
+
+
+block_contacts_cuda.launches = 0
+block_contacts_cuda.f64_launches = 0
+
+
+def contact_count_shape(n_i: int, n_j: int) -> dict:
+    """The count mode's launch at n_i x n_j, from the library: columns a
+    lane, rows and columns a tile, rows staged a round, warps a block,
+    blocks and tiles."""
+    arr = (ctypes.c_longlong * 6)()
+    _load_roots().contact_count_shape(int(n_i), int(n_j), arr)
+    return dict(zip(("columns_a_lane", "tile", "slice", "warps", "blocks", "tiles"),
+                    list(arr)))

@@ -47,7 +47,8 @@ every rank: P threads on one card, or one process a rank under
     range's ring on the kernel's two-table form); ``"tree"``,
     ``ops.tree.tree_sharded_force`` (the far field replicated, the near
     lists split across the ranks, B7's slice for ``"kernel"``). With
-    collisions, the count comes from :func:`ring_contacts_fn` after the step.
+    collisions, the count comes from :func:`ring_contacts_fn` after the step:
+    P rounds of the contact sweep's count mode on CUDA shards.
 
 :func:`make_sharded_step` and :func:`make_sharded_rollout` build the whole
 step on every rank. A sharded state is a list of the local shards' states
@@ -194,20 +195,24 @@ def ring_bounce_fn(cfg: SimConfig, comm: Comm):
 def ring_contacts_fn(cfg: SimConfig, comm: Comm):
     """The global directed touching-pair count of the sharded system:
     ``fn(pos, radius, alive) -> contacts`` (int32 0-dim, psum'd), each round
-    the sqrt-free block count of the visiting shard with global ids. The
-    exact-force steps count inside the ring's force evaluation instead; the
-    PM step with collisions calls this after the step, as the JAX package
-    does on every path."""
+    the sqrt-free block count of the visiting shard with global ids
+    (``ops.cuda_collisions.block_contacts_cuda``: on CUDA shards the contact
+    sweep's count mode, f32 or f64 by the shard's dtype, each round adding
+    into the rank's count in place; on CPU shards its plain version,
+    ``ops.collisions.block_contacts``). The exact-force steps count inside
+    the ring's force evaluation instead; the mesh solvers' steps with
+    collisions call this after the step, as the JAX package does on every
+    path."""
     P, rank = comm.size, comm.rank
+    from ..ops.cuda_collisions import block_contacts_cuda
 
     def fn(pos, radius, alive):
         block = pos.shape[0]
         visit = (pos, radius, alive)
-        count = None
+        count = torch.zeros((), dtype=torch.int32, device=pos.device)
         for k in range(P):
-            c = block_contacts(pos, radius, alive, rank * block, *visit,
-                                ((rank - k) % P) * block)
-            count = c if k == 0 else count + c
+            block_contacts_cuda(pos, radius, alive, rank * block, *visit,
+                                ((rank - k) % P) * block, out=count)
             if k < P - 1:
                 visit = comm.ppermute(visit)
         return comm.psum(count)

@@ -2,15 +2,20 @@
 
 The oracle evaluates the exact softened potential / accelerations in f64,
 for drift measurement and kernel verification at sizes where numpy's
-chunked path would allocate multi-GB temporaries. The shared library is
-built at first use with ``make -C native`` (the same build the JAX
-package's binding runs); where it cannot be built or loaded the functions
-compute with numpy instead. :func:`backend` reports which path is active:
-``"oracle"`` or ``"numpy"``.
+chunked path would allocate multi-GB temporaries. The port builds its own
+copy of the shared library at first use, from ``native/nbody_ref.cpp`` with
+``native/Makefile``'s flags, into ``build/native/`` at the repository root
+(listed in ``.gitignore``): compiled to a name of this process's own, then
+moved into place with ``os.replace``, so that another process never loads a
+library that is still being written, and nothing is written under
+``native/``. Where it cannot be built or loaded the functions compute with
+numpy instead. :func:`backend` reports which path is active: ``"oracle"`` or
+``"numpy"``.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 from pathlib import Path
 from typing import Optional
@@ -19,9 +24,30 @@ import numpy as np
 
 __all__ = ["backend", "potential_f64", "accelerations_f64"]
 
-_LIB_PATH = Path(__file__).resolve().parent.parent.parent / "native" / "libnbody_ref.so"
+_ROOT = Path(__file__).resolve().parent.parent.parent
+_SOURCE = _ROOT / "native" / "nbody_ref.cpp"
+_LIB_PATH = _ROOT / "build" / "native" / "libnbody_ref.so"
+# native/Makefile's CXXFLAGS
+_CXXFLAGS = ("-O3", "-march=native", "-ffast-math", "-fno-finite-math-only", "-fPIC",
+             "-shared")
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+
+
+def _build() -> None:
+    """Compile the oracle into ``_LIB_PATH`` where it is missing or older
+    than its source; a failed build leaves nothing behind."""
+    if not _SOURCE.exists() or (_LIB_PATH.exists()
+                                and _LIB_PATH.stat().st_mtime >= _SOURCE.stat().st_mtime):
+        return
+    _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+    tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([os.environ.get("CXX", "g++"), *_CXXFLAGS, "-o", str(tmp),
+                           str(_SOURCE)], capture_output=True, check=False)
+    if proc.returncode == 0:
+        os.replace(tmp, _LIB_PATH)
+    else:
+        tmp.unlink(missing_ok=True)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -30,9 +56,10 @@ def _load() -> Optional[ctypes.CDLL]:
     if _tried:
         return _lib
     _tried = True
-    if not _LIB_PATH.exists() and _LIB_PATH.parent.exists():
-        subprocess.run(["make", "-C", str(_LIB_PATH.parent)],
-                       capture_output=True, check=False)
+    try:
+        _build()
+    except OSError:  # no compiler
+        return None
     if not _LIB_PATH.exists():
         return None
     try:
