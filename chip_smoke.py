@@ -36,8 +36,14 @@ within BOUNCE_RTOL, and pinned to one split, bit-equal, and its rounds as
 the ring makes them, added in place at a count > 0 and at 0, timed; B7's
 slice of each rank's span of bench_tree's worklist, bit-equal, rank 0's
 timed; the bounce ring's step at the bench row in turns with the other
-build's block bounce in the same ring), and requires B6, B7 and the
-one-split block bounce bit-equal to the other build. Where DIR holds the
+build's block bounce in the same ring; the f64 ring's instances on the
+shards' cast views, B3D64 reading them, its diagonal round writing one and
+rank 0's RING_P rounds of BB64 (an older build, without the view entry
+points, casting every row it stages: ``_views_dropped``), bit-equal and
+timed, and the f64 bounce ring's step in turns with the other build's two
+f64 instances in the same ring), and requires B6, B7, the one-split block
+bounce, B3, B3 detect, the f32 block bounce and the f64 instances on the
+views bit-equal to the other build. Where DIR holds the
 whole port package (``git archive <commit> orbital_tpu_torch``), P3M's view
 (at the uniform row and at shard 0 of RING_P and RING_P8 ranks) and the
 near sweep's rows of each of RING_P ranks run through DIR's wrappers and
@@ -442,7 +448,15 @@ Phases, one line of output each; any failure exits nonzero:
      RING_BOUNCE_STEPS bit-equal to the collision-free f64 ring up to its
      first contact and within DRIFT_BUDGET; both instances timed in turns
      with their f32 instances, and the f64 bounce ring's step with the ds32
-     one's;
+     one's. The shards' cast views (the ring's first round writes
+     each, the later rounds stage from them): each view bit-equal to its
+     plain version (``view_equal``; dead rows, a live mass below 2^-150,
+     sentinels at +-1e30 and past 2^100, an alive row of mass 0, the
+     bounce's ragged RING_B - 37 rows), and each instance's forms on the
+     views (writing, reading; B3D64's five cases, BB64 on its plan, pinned
+     to one split, rank 0's rounds added in place, dead rows) bit-equal to
+     the bare launches; the instances timed reading the views and, on the
+     diagonal, writing one, beside the bare diagonal;
  70. the mesh solvers' collisions (ROADMAP P.22): the contact sweep's count
      mode (CNT, its f64 instance CNT64) integer-equal to the plain count
      (``block_contacts``) at RING_B^2 and RING_B8^2 (R_RICH and R_BENCH, off
@@ -904,13 +918,15 @@ SHAPED = {
 }
 LIB_FUNCS = {"nbody_forces": ("nbody_forces", "nbody_forces_detect", "nbody_block_forces",
                               "nbody_block_forces_detect", "nbody_block_forces_detect_f64",
-                              "nbody_block_shape", "ot_error_string"),
+                              "nbody_block_forces_detect_f64_view", "nbody_block_shape",
+                              "ot_error_string"),
              "nbody_jerk": ("nbody_jerk", "nbody_jerk_detect", "nbody_jerk_subset",
                             "nbody_jerk_subset_f64", "nbody_jerk_subset_shape",
                             "ot_error_string"),
              "nbody_forces_mxu": ("nbody_forces_mxu", "ot_error_string"),
              "collisions": ("bounce_deltas", "bounce_block_round", "bounce_block_round_f64",
-                            "bounce_block_shape", "ot_error_string"),
+                            "bounce_block_round_f64_view", "bounce_block_shape",
+                            "ot_error_string"),
              "nbody_forces_sym": ("nbody_forces_sym", "ot_error_string"),
              "tree_near": ("tree_near_span", "ot_error_string"),
              "neighbor": ("near_sweep", "near_sweep_rows", "ot_error_string"),
@@ -1809,10 +1825,14 @@ def plain_f64_ring():
 
     saved = cuda_forces.block_acc_detect_cuda, cuda_collisions.bounce_block_cuda
 
-    def bounce(*args, checked=False, **kw):
+    # the plain versions read no cast view: the ring's are dropped
+    def detect(*args, view_out=None, views=None, **kw):
+        return cuda_forces.block_acc_detect_plain(*args, **kw)
+
+    def bounce(*args, checked=False, view_out=None, views=None, **kw):
         return cuda_collisions.bounce_block_plain(*args, **kw)
 
-    cuda_forces.block_acc_detect_cuda = cuda_forces.block_acc_detect_plain
+    cuda_forces.block_acc_detect_cuda = detect
     cuda_collisions.bounce_block_cuda = bounce
     try:
         yield
@@ -2298,6 +2318,22 @@ def _bounce_block_first(lib):
     return {"_bounce_block_launch": launch}
 
 
+def _views_dropped(module: str, name: str):
+    """For a build without the f64 ring's view entry points (an older
+    commit's): ``ops.<module>.<name>``, this tree's launch function, called
+    with its ``views`` dropped, so that the build's f64 instance casts every
+    row it stages, as it did; the outputs are the same by design."""
+    def patch(lib):
+        import importlib
+
+        launch = getattr(importlib.import_module(f"orbital_tpu_torch.ops.{module}"), name)
+
+        def without_views(*args, views=None, **kw):
+            return launch(*args, **kw)
+        return {name: without_views}
+    return patch
+
+
 def _tree_near_first(lib):
     """``cuda_tree._launch`` against B7's first C signature (the whole
     worklist's runs; B7's slice clipped them eagerly by
@@ -2346,9 +2382,14 @@ FIRST_SIGNATURES = {"neighbor": [("near_sweep_shape", _near_sweep_first, ("near_
                     "nbody_jerk": [("nbody_jerk_subset_shape", _jerk_subset_first,
                                     ("nbody_jerk_subset",))],
                     "nbody_forces": [("nbody_block_shape", _block_forces_first,
-                                      ("nbody_block_forces", "nbody_block_forces_detect"))],
+                                      ("nbody_block_forces", "nbody_block_forces_detect")),
+                                     ("nbody_block_forces_detect_f64_view",
+                                      _views_dropped("cuda_forces", "_block_launch"), ())],
                     "collisions": [("bounce_block_round", _bounce_block_first,
-                                    ("bounce_block_deltas",))],
+                                    ("bounce_block_deltas",)),
+                                   ("bounce_block_round_f64_view",
+                                    _views_dropped("cuda_collisions", "_bounce_block_launch"),
+                                    ())],
                     "tree_near": [("tree_near_span", _tree_near_first, ("tree_near",))]}
 
 
@@ -2729,6 +2770,37 @@ def held(out, ref, tols) -> tuple[float, bool]:
     return worst, equal
 
 
+def view_equal(got, ref) -> bool:
+    """A cast view against its plain version: NaN exactly where the plain
+    version has NaN (its payload aside), every other element bit-equal."""
+    import torch
+
+    nan = torch.isnan(ref)
+    bits = got.view(torch.int32) == ref.view(torch.int32)
+    return bool((torch.isnan(got) == nan).all()) and bool((bits | nan).all())
+
+
+def f64_ring_slots(texts: dict) -> dict:
+    """SASS instructions a pair of the f64 ring instances' inner loops
+    (B3D64's over MUFU.RSQ, BB64's over its FMNMX), from ``cuobjdump -sass``
+    of the libraries ``texts`` ({"nbody_forces": ..., "collisions": ...}):
+    ``{"B3D64 write": x, "B3D64 read": y, "BB64 write": ..., "BB64 read":
+    ...}``, the forms staging from the f64 tables and from the cast views; a
+    build with one form (an older commit's) gives its loop under both keys."""
+    out = {}
+    for key, lib, marker in (("B3D64", "nbody_forces", r"MUFU\.RSQ"),
+                             ("BB64", "collisions", SHAPED["collisions"][2])):
+        stem = F64_RING_STEMS[key]
+        for f, (n, m) in inner_loop(texts.get(lib, ""), marker).items():
+            if stem not in f or not m:
+                continue
+            modes = (("read",) if f"{stem}ILb1E" in f else ("write",) if f"{stem}ILb0E" in f
+                     else ("write", "read"))
+            for mode in modes:
+                out[f"{key} {mode}"] = n / m
+    return out
+
+
 def gram_held(out, ref, s64) -> float:
     """B13's outputs (S, and pe with PE) against a reference build's or its
     plain version's ``ref``: S within GRAM_S_RTOL in RMS and GRAM_MAX_RTOL
@@ -2942,11 +3014,9 @@ class Smoke:
         shapes.append(self.bounce_block_record(logs["collisions"], sass(
             kernels._library_path("collisions")[1])))
         # their f64 instances (phase 69), on the f32 instances' plans
-        shapes += [self.entry_record(k, stem, logs["nbody_forces" if k == "B3D64"
-                                                   else "collisions"])
-                   for k, stem in F64_RING_STEMS.items()]
-        for k, base in (("B3D64", "B3D"), ("BB64", "BB")):
-            self.kernels[k]["shape"] = dict(self.kernels[base]["shape"])
+        shapes.append(self.f64_ring_record(logs, {
+            name: sass(kernels._library_path(name)[1]) for name in ("nbody_forces",
+                                                                   "collisions")}))
         shapes += [self.subset_record(cuda_jerk._load(), logs["nbody_jerk"]),
                    self.p3m_record(logs["p3m_short"], sass(
                        kernels._library_path("p3m_short")[1])),
@@ -2967,6 +3037,30 @@ class Smoke:
         self.kernels[key].update(registers=regs, spill_bytes=spill)
         return (f"{key} ({len(usage)} instantiations) {regs} registers at most, {spill} spill "
                 f"bytes")
+
+    def f64_ring_record(self, logs: dict, texts: dict) -> str:
+        """The f64 ring instances' records (phase 69): each form's registers,
+        spill bytes and SASS instructions a pair (the form that stages from
+        the f64 tables, the diagonal round's, and the form that stages from
+        the cast views, the later rounds'), the read form's into B3D64's and
+        BB64's records, with the f32 instances' launch shapes (their
+        plans). The BB64 forms also take 64 KB of dynamic shared memory a
+        block (``kF64Smem``), which ptxas does not print."""
+        slots = f64_ring_slots(texts)
+        out = []
+        for key, base in (("B3D64", "B3D"), ("BB64", "BB")):
+            stem, log = F64_RING_STEMS[key], logs["nbody_forces" if key == "B3D64"
+                                                  else "collisions"]
+            line = self.entry_record(key, stem, log)
+            forms = {("read" if f"{stem}ILb1E" in f else "write"): u
+                     for f, u in ptxas_usage(log).items() if stem in f}
+            self.kernels[key]["shape"] = dict(self.kernels[base]["shape"])
+            self.kernels[key]["sass_slots_per_pair"] = slots.get(f"{key} read", "not measured")
+            out.append(line + " (" + ", ".join(
+                f"{mode}: {u[0]} registers, {u[1] + u[2]} spill bytes, "
+                f"{fmt(slots.get(f'{key} {mode}'))} SASS instructions a pair"
+                for mode, u in sorted(forms.items())) + ")")
+        return "; ".join(out)
 
     def block_record(self, log: str, sass_text: str) -> str:
         """B3's and B3 detect's launch shape (the block kernel's i bodies a
@@ -5240,6 +5334,7 @@ class Smoke:
             "B3D": (FORCE_RTOL, FORCE_RTOL, 0), "B3D8": (FORCE_RTOL, FORCE_RTOL, 0),
             "BB": (BOUNCE_RTOL, BOUNCE_RTOL), "BB1": (0, 0),
             "BB ring": (BOUNCE_RTOL, BOUNCE_RTOL), "BB ring1": (0, 0),
+            "B3D64": (0, 0, 0), "B3D64 w": (0, 0, 0), "BB64": (0, 0), "BB64 ring": (0, 0),
             **{f"B7 part {r}": (0, 0) for r in range(RING_P)},
             **{k: (STATE_ATOL, STATE_ATOL) for k in FUSED_CASES}}
     # the source of each, the calls timed in turns and the pairs that must
@@ -5765,6 +5860,7 @@ class Smoke:
             return cc, call
 
         out["BB ring"], out["BB ring1"] = bb_ring(), bb_ring(1)
+        out.update(self.f64_ring_calls())
         pos, _, mass, budgets = self.plummer()
         t = self.tree_table(pos, mass, np.ones(N_MAIN, bool), TREE_LEVELS, 1, budgets)
         kw_b7 = dict(wl_entries=budgets[1], chunk=TREE_CHUNK, rj=TREE_RJ, ws=1, eps2=TREE_EPS2)
@@ -5774,6 +5870,51 @@ class Smoke:
                 cuda_tree.tree_near_part_cuda(t["pbods"], t["start_blk"], t["n_blk"],
                                               t["off"], span=sp, **kw_b7),))(span))
         return out
+
+    def f64_ring_calls(self) -> dict:
+        """{key: (wrapper module, call)} of the f64 ring's instances on the
+        shards' cast views, for --parent, whose build without the
+        view entry points (``_views_dropped``) casts every staged row: B3D64
+        on shards 0 and 1 of the bench row at RING_P ranks reading their
+        views, B3D64 w on shard 0's diagonal writing its view, and BB64 ring,
+        rank 0's RING_P rounds of the contact-rich shards in accumulate form
+        (the first writing rank 0's view, the others reading it and the
+        visitor's, made before), each with ``pairs``."""
+        from orbital_tpu_torch.ops import cuda_collisions as cc
+        from orbital_tpu_torch.ops import cuda_forces as cf
+
+        torch = self.torch
+        kw, b = dict(G=1.0, eps2=EPS2), RING_B
+        bench, rich = self.f64_shards(R_BENCH), self.f64_shards(R_RICH)
+        (pi, _, mi, ri, ai), (pj, _, mj, rj, aj) = bench[0], bench[1]
+        dviews = [torch.empty(cf.detect_view_size(b), device=self.dev) for _ in range(2)]
+        for (p, _, m, r, a), v in zip(bench[:2], dviews):
+            cf.block_acc_detect_cuda(p, r, a, 0, p, m, r, a, 0, **kw, view_out=v)
+        one = torch.ones((), dtype=torch.int32, device=self.dev)
+        bviews = [torch.empty(cc.bounce_view_size(b), device=self.dev) for _ in range(RING_P)]
+        for sh, v in zip(rich, bviews):
+            cc.bounce_block_cuda(*sh, *sh, restitution=0.8, contacts=one, view_out=v)
+
+        def b3d():
+            return cf.block_acc_detect_cuda(pi, ri, ai, 0, pj, mj, rj, aj, b, **kw,
+                                            views=tuple(dviews))
+
+        def b3d_w():
+            return cf.block_acc_detect_cuda(pi, ri, ai, 0, pi, mi, ri, ai, 0, **kw,
+                                            view_out=torch.empty_like(dviews[0]))
+
+        def bb_ring():  # rank 0's rounds, the first written, the others added
+            own = torch.empty_like(bviews[0])
+            sums = cc.bounce_block_cuda(*rich[0], *rich[0], restitution=0.8, contacts=one,
+                                        view_out=own)
+            for j in range(1, RING_P):
+                cc.bounce_block_cuda(*rich[0], *rich[j], restitution=0.8, contacts=one,
+                                     out=sums, views=(own, bviews[j]))
+            return sums
+
+        b3d.pairs = b3d_w.pairs = b * b
+        bb_ring.pairs = RING_P * b * b
+        return {"B3D64": (cf, b3d), "B3D64 w": (cf, b3d_w), "BB64 ring": (cc, bb_ring)}
 
     def ring_round_calls(self) -> dict:
         """{key: (wrapper module, call)} of the block bounce's rounds as the
@@ -5912,7 +6053,7 @@ class Smoke:
         # B6, B7 (whole worklists) and the one-split block bounce keep the
         # parent's bits; B7's slices (TOLS 0) too
         for k in ("B6", "B6G", "B6Z", "B7", "B7R", "B7L", "B7S", "BB1", "BB ring1", "B3R",
-                  "B3R8", "B3D", "B3D8", "BB", "BB ring"):
+                  "B3R8", "B3D", "B3D8", "BB", "BB ring", "B3D64", "B3D64 w", "BB64 ring"):
             if not equal[k]:
                 raise AssertionError(f"{k} is not bit-equal to the parent build's "
                                      f"({worst[k]:.3e})")
@@ -5964,9 +6105,13 @@ class Smoke:
         # added eagerly, as its ring did): CUDA events and host time, 10
         # steps a call
         ring_b = self.ring_bounce_roll()
-        cc = mods["collisions"]
+        cc, cf = mods["collisions"], mods["nbody_forces"]
+        ring_f64 = self.f64_ring_bounce_roll()
         ring_steps = {"ring bounce step": ring_b,
-                      "ring bounce step parent": lambda: on(cc, old[cc], ring_b)}
+                      "ring bounce step parent": lambda: on(cc, old[cc], ring_b),
+                      "f64 ring bounce step": ring_f64,
+                      "f64 ring bounce step parent": lambda: on(
+                          cc, old[cc], lambda: on(cf, old[cf], ring_f64))}
         ring_t = {k: summary([t / 10 for t in v])
                   for k, v in alternate_ms(ring_steps, 1, repeats=6).items()}
         ring_h = {k: summary([t / 10 for t in v])
@@ -5977,6 +6122,10 @@ class Smoke:
         for name in mods:
             slots["parent"].update(sass_slots(name, sass(jobs[name][1])))
             slots["this"].update(sass_slots(name, sass(kernels._library_path(name)[1])))
+        for who, path in (("parent", lambda n: jobs[n][1]),
+                          ("this", lambda n: kernels._library_path(n)[1])):
+            slots[who].update(f64_ring_slots({n: sass(path(n)) for n in ("nbody_forces",
+                                                                         "collisions")}))
         slots["this"]["P3M"] = self.kernels["P3M"].get("sass_slots_per_pair")
         slots["this"]["B3D"] = self.kernels["B3D"].get("sass_slots_per_pair")
         slots["this"]["BB"] = self.kernels["BB"].get("sass_slots_per_pair")
@@ -5993,7 +6142,8 @@ class Smoke:
             faster = max(this["runs"]) < min(par["runs"])
             base = {"B7L": "B7", "B4F": "B4", "B4L": "B4", "B4LF": "B4", "B3R": "B3",
                     "B3R8": "B3", "B3D8": "B3D", "BB add": "BB", "BB0 add": "BB",
-                    "B7 part 0": "B7"}.get(k, k)
+                    "B7 part 0": "B7", "B3D64": "B3D64 read", "B3D64 w": "B3D64 write",
+                    "BB64 ring": "BB64 read"}.get(k, k)
             held_k = ("not held (a round added into fixed sums)" if k not in equal else
                       f"{'bit-equal' if equal[k] else 'not bit-equal'} (max rel diff "
                       f"{worst[k]:.2e})")
@@ -6019,7 +6169,8 @@ class Smoke:
                      f"{'yes' if max(this['runs']) < min(par['runs']) else 'no'}")
         lines.append(self.ensemble_parent(old[fused_ensemble], sass(jobs["fused_ensemble"][1])))
         lines.append(wrappers)
-        lines.append(f"the bounce ring's step at R={R_BENCH:g} over {RING_P} ranks in turns "
+        lines.append(f"the bounce rings' steps (ds32, f64) at R={R_BENCH:g} over {RING_P} "
+                     f"ranks in turns "
                      f"(events; host): " + ", ".join(
                          f"{k} {ring_t[k]['median']:.3f} ms (spread {ring_t[k]['spread']:.3f}; "
                          f"{ring_h[k]['median']:.3f})" for k in ring_steps))
@@ -9777,9 +9928,11 @@ class Smoke:
 
     # phase 69
     def f64_ring_collisions(self) -> str:
-        """f64 collisions under a mesh (ROADMAP G.1b): B3 detect's and the
-        block bounce's f64 instances against their plain f64 versions at the
-        ring's shard shapes (``check_f64_ring_instances``); the f64 ring's
+        """f64 collisions under a mesh (ROADMAP G.1b): the cast views the
+        f64 ring ships against their plain versions (``check_f64_views``);
+        B3 detect's and the block bounce's f64 instances against their plain
+        f64 versions at the ring's shard shapes, on the views as without
+        them (``check_f64_ring_instances``); the f64 ring's
         bounce, merge and resolve at N_MAIN over RING_P ranks and the
         (ensemble x body) bounce step, each held to the same run on the
         plain f64 versions and to the single card's f64 run
@@ -9788,7 +9941,7 @@ class Smoke:
         times in turns with their f32 instances' and the f64 ring's step in
         turns with the ds32 ring's (``f64_ring_timings``)."""
         return "f64 collisions under a mesh: " + " | ".join(
-            (self.check_f64_ring_instances(), self.f64_ring_paths(),
+            (self.check_f64_views(), self.check_f64_ring_instances(), self.f64_ring_paths(),
              self.f64_ring_bench_row(), self.f64_ring_timings()))
 
     def f64_shards(self, radius: float, ranks: int = RING_P, dead: int = 0):
@@ -9799,6 +9952,63 @@ class Smoke:
         b = N_MAIN // ranks
         return [tuple(t[r * b:(r + 1) * b] for t in rows) for r in range(ranks)]
 
+    def check_f64_views(self) -> str:
+        """The cast views that the f64 ring's first round writes,
+        against their plain versions (``view_equal``: NaN where the plain
+        version has NaN, every other element bit-equal), on the last shard
+        of ``f64_shards`` with a third dead at RING_P and RING_P8 ranks, with
+        a live row of positive mass below 2^-150 (0 in f32; live for the
+        bounce), live sentinel rows at +-1e30 and +-3e30 (past 2^100, so
+        clamped) and an alive row of mass 0 (dead for the bounce alone): B3
+        detect's view (``detect_view_plain``; alive decides) from its
+        diagonal round, and the block bounce's (``bounce_view_plain``; alive
+        and mass > 0 in double decide) from its diagonal round at a count >
+        0, also on a ragged shard of RING_B - 37 rows; each launch's outputs
+        bit-equal to the same launch without a view."""
+        from orbital_tpu_torch.ops import cuda_collisions as cc
+        from orbital_tpu_torch.ops import cuda_forces as cf
+
+        torch = self.torch
+        kw, e = dict(G=1.0, eps2=EPS2), 0.8
+        one = torch.ones((), dtype=torch.int32, device=self.dev)
+        lines = []
+        for ranks in (RING_P, RING_P8):
+            b = N_MAIN // ranks
+            pos, vel, mass, radius, alive = (t.clone() for t in
+                                             self.f64_shards(R_RICH, ranks, dead=b // 3)[-1])
+            live = torch.nonzero(alive).flatten()[:6].tolist()
+            mass[live[0]] = 5e-46  # below 2^-150: 0 in f32
+            for r, x in zip(live[1:5], (1e30, -1e30, 3e30, -3e30)):
+                pos[r] = x
+            mass[live[5]] = 0.0
+            off = (ranks - 1) * b
+            m_eff = mass * alive.to(mass.dtype)
+            args = (pos, radius, alive, off, pos, m_eff, radius, alive, off)
+            view = torch.empty(cf.detect_view_size(b), device=self.dev)
+            bare = cf.block_acc_detect_cuda(*args, **kw)
+            got = cf.block_acc_detect_cuda(*args, **kw, view_out=view)
+            if not view_equal(view, cf.detect_view_plain(pos, m_eff, radius, alive)):
+                raise AssertionError(f"B3D64's view at {b} rows differs from its plain version")
+            if not all(torch.equal(x, y) for x, y in zip(got, bare)):
+                raise AssertionError(f"B3D64 writing its view at {b} rows: outputs differ")
+            forms = []
+            for n in (b, b - 37):
+                side = tuple(t[:n] for t in (pos, vel, mass, radius, alive))
+                view = torch.empty(cc.bounce_view_size(n), device=self.dev)
+                bare = cc.bounce_block_cuda(*side, *side, restitution=e, contacts=one)
+                got = cc.bounce_block_cuda(*side, *side, restitution=e, contacts=one,
+                                           view_out=view)
+                if not view_equal(view, cc.bounce_view_plain(*side[:1], *side[2:])):
+                    raise AssertionError(f"BB64's view at {n} rows differs from its plain "
+                                         f"version")
+                if not all(torch.equal(x, y) for x, y in zip(got, bare)):
+                    raise AssertionError(f"BB64 writing its view at {n} rows: deltas differ")
+                forms.append(str(n))
+            lines.append(f"{b} rows (BB64 also {forms[1]})")
+        return ("views bit-equal to their plain versions (" + "; ".join(lines) + ": a third "
+                "dead, a live mass below 2^-150, sentinels at +-1e30 and +-3e30, an alive row "
+                "of mass 0), the writing launches' outputs bit-equal to the bare ones")
+
     def check_f64_ring_instances(self) -> str:
         """B3 detect's f64 instance at RING_B^2 and RING_B8^2 on the
         contact-rich radius, the bench row's, with dead rows and with dead
@@ -9806,12 +10016,17 @@ class Smoke:
         tables at equal offsets (the ring's diagonal round): acc and pe
         bit-equal to B3 detect's f32 instance on the tables cast as in_f32
         casts them, the count integer-equal to the plain f64 count
-        (``block_contacts``). The block bounce's f64 instance on the
+        (``block_contacts``); and the same calls on the shards' cast
+        views (each written by its shard's diagonal round; a later round
+        reading the i and j shards' views, and the diagonal round writing
+        its own) bit-equal to them. The block bounce's f64 instance on the
         contact-rich shards at both sizes: on its plan within F64_BOUNCE_RTOL
         of the plain f64 version, bit-equal pinned to one split, rank 0's
         rounds in accumulate form bit-equal to them written apart and summed
         and to a rerun, gated rounds leaving the sums, and its dead rows'
-        deltas 0."""
+        deltas 0; and each of these forms on the views (the first round
+        writing rank 0's, the later ones reading it and the visitor's)
+        bit-equal to it without them."""
         from orbital_tpu_torch.ops import cuda_collisions as cc
         from orbital_tpu_torch.ops import cuda_forces as cf
         from orbital_tpu_torch.ops.collisions import block_contacts
@@ -9825,15 +10040,32 @@ class Smoke:
         def cast(x):
             return x.clamp(-big, big).float() if x.dtype == torch.float64 else x
 
-        def launch(si, sj, contacts, splits=None, into=None):
+        def launch(si, sj, contacts, splits=None, into=None, views=None):
             dpos, dvel = into or (torch.empty_like(si[0]), torch.empty_like(si[1]))
-            cc._bounce_block_launch(si, sj, e, contacts, dpos, dvel, into is not None, splits)
+            cc._bounce_block_launch(si, sj, e, contacts, dpos, dvel, into is not None, splits,
+                                    views=views)
             return dpos, dvel
 
         def rel(got, ref):
             scale = max(float(r.abs().max()) for r in ref)
             d = max(float((g - r).abs().max()) for g, r in zip(got, ref))
             return (d / scale if scale else d), d
+
+        def same(x, y):
+            return all(torch.equal(a, b) for a, b in zip(x, y))
+
+        def detect_view(shard, k, b):
+            pos, _, mass, radius, alive = shard
+            m_eff = mass * alive.to(mass.dtype)
+            view = torch.empty(cf.detect_view_size(b), device=self.dev)
+            cf.block_acc_detect_cuda(pos, radius, alive, k * b, pos, m_eff, radius, alive,
+                                     k * b, **kw, view_out=view)
+            return view
+
+        def bounce_view(shard):
+            view = torch.empty(cc.bounce_view_size(shard[0].shape[0]), device=self.dev)
+            launch(shard, shard, one, views=(view, None, None))
+            return view
 
         b3d, bb, worst, absd = [], [], 0.0, 0.0
         for ranks in (RING_P, RING_P8):
@@ -9858,6 +10090,14 @@ class Smoke:
                 if int(c) != ref:
                     raise AssertionError(f"B3D64 {key} at {b}^2: count {int(c)}, plain f64 "
                                          f"{ref}")
+                views = (detect_view(shards[i], i, b), detect_view(shards[j], j, b))
+                read = cf.block_acc_detect_cuda(*args, **kw, views=views)
+                if not same(read, (a, pe, c)):
+                    raise AssertionError(f"B3D64 {key} at {b}^2: the form on the views "
+                                         f"differs from the bare one")
+                if i == j and not same(cf.block_acc_detect_cuda(
+                        *args, **kw, view_out=torch.empty_like(views[0])), (a, pe, c)):
+                    raise AssertionError(f"B3D64 {key} at {b}^2: the writing form differs")
                 counts[key] = ref
             if not counts["diagonal"] and not counts["rich"]:
                 raise AssertionError(f"B3D64 at {b}^2: no contacts in the rich cases")
@@ -9878,6 +10118,18 @@ class Smoke:
             again = launch(rich[0], rich[0], one)
             for j in range(1, ranks):
                 launch(rich[0], rich[j], one, into=again)
+            # the same forms on the views: rank 0's written by its first round
+            bviews = [None] + [bounce_view(rich[j]) for j in range(1, ranks)]
+            own = torch.empty_like(bviews[1])
+            acc_v = launch(rich[0], rich[0], one, views=(own, None, None))
+            for j in range(1, ranks):
+                launch(rich[0], rich[j], one, into=acc_v, views=(None, own, bviews[j]))
+            pinned_v = launch(rich[0], rich[1], one, splits=1, views=(None, own, bviews[1]))
+            if not (same(acc_v, acc) and same(pinned_v, launch(rich[0], rich[1], one, splits=1))
+                    and same(launch(rich[0], rich[1], one, views=(None, own, bviews[1])),
+                             apart[1])):
+                raise AssertionError(f"BB64 at {b}^2: a form on the views differs from the "
+                                     f"bare one")
             plain = cc.bounce_block_plain(*rich[0], *rich[0], restitution=e)
             for j in range(1, ranks):
                 cc.bounce_block_plain(*rich[0], *rich[j], restitution=e, out=plain)
@@ -9886,6 +10138,8 @@ class Smoke:
                 launch(rich[0], rich[j], zero, into=acc)
             dead_got = cc.bounce_block_cuda(*dead[-1], *dead[0], restitution=e, contacts=one)
             dead_ref = cc.bounce_block_plain(*dead[-1], *dead[0], restitution=e)
+            dead_v = cc.bounce_block_cuda(*dead[-1], *dead[0], restitution=e, contacts=one,
+                                          views=(bounce_view(dead[-1]), bounce_view(dead[0])))
             torch.cuda.synchronize()
             moved = int((plain[1].abs().sum(1) > 0).sum())
             if got[0].dtype != torch.float64 or not moved:
@@ -9896,15 +10150,16 @@ class Smoke:
                 worst, absd = max(worst, err), max(absd, d)
                 if err > F64_BOUNCE_RTOL:
                     raise AssertionError(f"BB64 {what} at {b}^2 vs plain f64: {err:.3e}")
-            if not all(torch.equal(x, y) for x, y in zip(pinned, got)):
+            if not same(pinned, got):
                 raise AssertionError(f"BB64 at {b}^2: one split not bit-equal to its plan's "
                                      f"{plan['splits']}")
-            if not all(torch.equal(x, y) for x, y in zip(again, summed)) or not all(
-                    torch.equal(x, y) for x, y in zip(before, summed)):
+            if not same(again, summed) or not same(before, summed):
                 raise AssertionError(f"BB64 at {b}^2: the accumulate form is not bit-equal "
                                      f"to its rounds summed, or a rerun differs")
-            if not all(torch.equal(x, y) for x, y in zip(acc, before)):
+            if not same(acc, before):
                 raise AssertionError(f"BB64 at {b}^2: a gated round moved the sums")
+            if not same(dead_v, dead_got):
+                raise AssertionError(f"BB64 at {b}^2: dead rows on the views differ")
             live = dead[-1][4]
             if bool(dead_got[1][~live].any()) or bool(dead_got[0][~live].any()):
                 raise AssertionError(f"BB64 at {b}^2: a dead row's deltas are not 0")
@@ -9913,10 +10168,12 @@ class Smoke:
         self.kernels["BB64"]["max_abs_err"] = absd
         self.kernels["B3D64"]["max_abs_err"] = 0.0
         return ("B3D64 acc and pe bit-equal to B3 detect on the cast tables, counts "
-                "integer-equal to the plain f64 count (" + "; ".join(b3d) + "); BB64 within "
+                "integer-equal to the plain f64 count, on the views as without them ("
+                + "; ".join(b3d) + "); BB64 within "
                 f"{worst:.2e} <= {F64_BOUNCE_RTOL:g} of the plain f64 version, one split "
                 "bit-equal to its plan, the accumulate form bit-equal to its rounds summed and "
-                "to a rerun, gated rounds leave the sums, dead rows 0 (" + "; ".join(bb) + ")")
+                "to a rerun, gated rounds leave the sums, dead rows 0, each form on the views "
+                "bit-equal to it without them (" + "; ".join(bb) + ")")
 
     def f64_ring_paths(self) -> str:
         """The f64 ring at N_MAIN over RING_P one-card ranks, R_RICH:
@@ -10104,16 +10361,34 @@ class Smoke:
                 f"{'at step ' + str(first) if first else 'none'} (ds32 ring: step 587); "
                 f"|dE/E| = {drift:.3e} <= {DRIFT_BUDGET:g}; B3D64, BB64 {launches} launches")
 
+    def f64_ring_bounce_roll(self):
+        """A call of 10 steps of the f64 bounce ring at the bench row's
+        radius over RING_P one-card ranks (B3D64 and the gated BB64 a round,
+        on the shards' cast views after the first), made once."""
+        if getattr(self, "_f64_ring_bounce_roll", None) is None:
+            import orbital_tpu_torch as ot
+
+            pos, vel, mass, _ = self.cluster()
+            cfg_b = self.ring_cfg(track_potential=False, collisions="bounce")
+            st64 = ot.init_forces(self.torch_state(pos, vel, mass, R_BENCH, precision="f64"),
+                                  cfg_b)
+            mesh = self.ring_mesh(RING_P)
+            roll64 = ot.make_sharded_rollout(cfg_b, mesh, st64, 10)
+            shard64 = ot.shard_state(mesh, st64)
+            self._f64_ring_bounce_roll = lambda: roll64(shard64)
+        return self._f64_ring_bounce_roll
+
     def f64_ring_timings(self) -> str:
         """The f64 instances timed by CUDA events in turns with their f32
-        instances at RING_B^2: B3D64 at the bench row's radius, BB64 as the
-        ring calls it (a checked round added in place) at the contact-rich
-        radius and at a count of 0; their plain f64 versions; their bounds
-        (the f32 prefilter's work at the f32 rate and the double pass's on
-        the pairs within its reach at the FP64 rate, the f64 tables read
-        once); and the bench row's f64 bounce ring step in turns with the
-        ds32 one's."""
-        import orbital_tpu_torch as ot
+        instances at RING_B^2, as the ring calls them: B3D64 at the bench
+        row's radius on shards 0 and 1 reading their cast views (the later
+        rounds) and on shard 0's diagonal writing its view (round 0, "B3D64
+        w"); BB64 at the contact-rich radius, a checked round added in place
+        on the views, at a count > 0 and 0, and its writing round 0 ("BB64
+        w"); their plain f64 versions; their bounds (the f32 prefilter's work
+        at the f32 rate and the double pass's on the pairs within its reach
+        at the FP64 rate, the f64 tables read once); and the bench row's f64
+        bounce ring step in turns with the ds32 one's."""
         from orbital_tpu_torch.ops import cuda_collisions as cc
         from orbital_tpu_torch.ops import cuda_forces as cf
 
@@ -10123,25 +10398,49 @@ class Smoke:
         s64, s32 = self.f64_shards(R_BENCH), self.ring_shards(R_BENCH)
         r64, r32 = self.f64_shards(R_RICH), self.ring_shards(R_RICH)
 
-        def b3d(sh):
+        def b3d(sh, **views):
             (pi, _, _, ri, ai), (pj, _, mj, rj, aj) = sh[0], sh[1]
-            return lambda: cf.block_acc_detect_cuda(pi, ri, ai, 0, pj, mj, rj, aj, B, **kw)
+            return lambda: cf.block_acc_detect_cuda(pi, ri, ai, 0, pj, mj, rj, aj, B, **kw,
+                                                    **views)
 
+        def b3d_diag(sh, view=None):
+            pi, _, mi, ri, ai = sh[0]
+            views = {} if view is None else dict(view_out=view)
+            return lambda: cf.block_acc_detect_cuda(pi, ri, ai, 0, pi, mi, ri, ai, 0, **kw,
+                                                    **views)
+
+        dviews = [torch.empty(cf.detect_view_size(B), device=self.dev) for _ in range(2)]
+        b3d_diag(s64, dviews[0])()
+        b3d_diag(s64[1:], dviews[1])()
         c64, c32 = b3d(r64)()[2], b3d(r32)()[2]
+        bviews = [torch.empty(cc.bounce_view_size(B), device=self.dev) for _ in range(2)]
+        for k in (0, 1):
+            cc.bounce_block_cuda(*r64[k], *r64[k], restitution=e, contacts=c64,
+                                 view_out=bviews[k])
         sums = {k: (torch.zeros((B, 3), dtype=dt, device=self.dev),
                     torch.zeros((B, 3), dtype=dt, device=self.dev))
                 for k, dt in (("BB", torch.float32), ("BB64", torch.float64))}
         cc.bounce_block_cuda(*r32[0], *r32[1], restitution=e, contacts=c32, out=sums["BB"])
-        cc.bounce_block_cuda(*r64[0], *r64[1], restitution=e, contacts=c64, out=sums["BB64"])
+        cc.bounce_block_cuda(*r64[0], *r64[1], restitution=e, contacts=c64, out=sums["BB64"],
+                             views=tuple(bviews))
 
-        def bb(sh, count, key):
+        def bb(sh, count, key, **views):
             return lambda: cc.bounce_block_cuda(*sh[0], *sh[1], restitution=e, contacts=count,
-                                                checked=True, out=sums[key])
+                                                checked=True, out=sums[key], **views)
 
+        def bb_first(**views):  # round 0 as the ring makes it: written, its view too
+            return lambda: cc.bounce_block_cuda(*r64[0], *r64[0], restitution=e, contacts=c64,
+                                                checked=True, **views)
+
+        # the diagonal rounds ("w") in turns with the same rounds bare ("d"):
+        # the cost of writing the view
         kern = {k: summary(v) for k, v in alternate_ms({
-            "B3D": b3d(s32), "B3D64": b3d(s64), "BB": bb(r32, c32, "BB"),
-            "BB64": bb(r64, c64, "BB64"), "BB0": bb(r32, zero, "BB"),
-            "BB64 0": bb(r64, zero, "BB64")}, 20).items()}
+            "B3D": b3d(s32), "B3D64": b3d(s64, views=tuple(dviews)),
+            "B3D64 w": b3d_diag(s64, dviews[0]), "B3D64 d": b3d_diag(s64),
+            "BB": bb(r32, c32, "BB"), "BB64": bb(r64, c64, "BB64", views=tuple(bviews)),
+            "BB64 w": bb_first(view_out=bviews[0]), "BB64 d": bb_first(),
+            "BB0": bb(r32, zero, "BB"),
+            "BB64 0": bb(r64, zero, "BB64", views=tuple(bviews))}, 20).items()}
         (pi, vi, mi, ri, ai), (pj, vj, mj, rj, aj) = s64[0], s64[1]
         plain = {"B3D64": summary(time_ms(lambda: cf.block_acc_detect_plain(
                      pi, ri, ai, 0, pj, mj, rj, aj, B, **kw), 1)),
@@ -10164,14 +10463,8 @@ class Smoke:
                                    bound_ms=bounds[k][0], bound_by=bounds[k][1],
                                    library_ms=None)
         # the bench row's bounce ring, f64 against ds32, in turns
-        pos, vel, mass, _ = self.cluster()
-        cfg_b = self.ring_cfg(track_potential=False, collisions="bounce")
-        st64 = ot.init_forces(self.torch_state(pos, vel, mass, R_BENCH, precision="f64"), cfg_b)
-        mesh = self.ring_mesh(RING_P)
-        roll64 = ot.make_sharded_rollout(cfg_b, mesh, st64, 10)
-        shard64 = ot.shard_state(mesh, st64)
         steps = {k: summary([t / 10 for t in v]) for k, v in alternate_ms({
-            "ds32 ring": self.ring_bounce_roll(), "f64 ring": lambda: roll64(shard64)},
+            "ds32 ring": self.ring_bounce_roll(), "f64 ring": self.f64_ring_bounce_roll()},
             1, repeats=3).items()}
         perf = dict(kernels=kern, plain=plain, bounds=bounds, reach_pairs=reach,
                     touching=touching, ring_step_ms=steps)
@@ -10180,15 +10473,20 @@ class Smoke:
         def share(k):
             return 100 * bounds[k][0] / kern[k]["median"]
 
-        return (f"times at {B}^2 in turns (CUDA events): B3D64 R={R_BENCH:g} "
-                f"{kern['B3D64']['median']:.4f} ms (B3D {kern['B3D']['median']:.4f}; plain "
-                f"{plain['B3D64']['median']:.2f}; bound {bounds['B3D64'][0]:.4f} ms, "
-                f"{bounds['B3D64'][1]}, {share('B3D64'):.1f}%), BB64 {touching} contacts "
-                f"{kern['BB64']['median']:.4f} ms (BB {kern['BB']['median']:.4f}; plain "
+        def med(k):
+            return f"{kern[k]['median']:.4f}"
+
+        return (f"times at {B}^2 in turns (CUDA events): B3D64 R={R_BENCH:g} on the views "
+                f"{med('B3D64')} ms, its diagonal writing its view {med('B3D64 w')} (bare "
+                f"{med('B3D64 d')}) (B3D {med('B3D')}; "
+                f"plain {plain['B3D64']['median']:.2f}; bound {bounds['B3D64'][0]:.4f} ms, "
+                f"{bounds['B3D64'][1]}, {share('B3D64'):.1f}%), BB64 {touching} contacts on the "
+                f"views {med('BB64')} ms, its diagonal writing {med('BB64 w')} (bare "
+                f"{med('BB64 d')}) (BB {med('BB')}; plain "
                 f"{plain['BB64']['median']:.2f}; bound {bounds['BB64'][0]:.4f}, "
                 f"{bounds['BB64'][1]}, {share('BB64'):.1f}%), at a count of 0 BB64 "
-                f"{kern['BB64 0']['median']:.4f} (BB {kern['BB0']['median']:.4f}); bounce ring "
-                f"step at R={R_BENCH:g}, {RING_P} ranks: " + ", ".join(
+                f"{med('BB64 0')} (BB {med('BB0')}); bounce ring step at R={R_BENCH:g}, "
+                f"{RING_P} ranks: " + ", ".join(
                     f"{k} {v['median']:.3f} ms (spread {v['spread']:.3f})"
                     for k, v in steps.items()))
 

@@ -124,8 +124,39 @@
 // tile's largest radius of a live body); only a flagged row of a flagged
 // tile runs the double pass, reading its own and the tile's f64 rows in
 // place. Each warp's deltas of its rows meet in shared memory in warp
-// order, three doubles a row at a time (the velocities', then the
-// positions').
+// order.
+//
+// Its redesign: the first version ran at 0.1246 ms with 2
+// contacts at 16,384^2, 1.32x its f32 sibling's 0.0942 (an H100 80GB HBM3
+// at 700 W), on the same sweep. The difference was the staging (each j row
+// cast from its f64 values, its liveness read from alive and the f64 mass,
+// a second butterfly a tile for the tile's largest |coordinate|, in every
+// block that staged it), which depends on the j shard alone, and its
+// deltas: 24 doubles a thread in local memory, behind a serial double pass
+// a flagged row. Now:
+// - The cast view of a shard, one float buffer of n rows: (x, y, z, R)
+//   [n] float4 as in_f32 casts them, R NaN unless alive and mass > 0 (in
+//   double: a positive mass below 2^-150 is 0 in f32 and still live),
+//   then for each 128-row tile the largest R and |coordinate| of its live
+//   rows (0 where none). The ring's diagonal round writes the rank's view
+//   as it stages (the blocks of i tile 0; no launch is added, and at a
+//   count of 0 nothing is written or read), and the view travels round the
+//   ring with the f64 tables; the later rounds stage one float4 a row from
+//   the visitor's view, their i rows from the rank's own, and take each
+//   tile's maxima from it. reach2's argument holds: the tile's maxima bound
+//   every live row's.
+// - The double pass of a flagged row is the warp's: lane L takes columns
+//   L, L + 32, L + 64 and L + 96 of the tile, and the touching columns'
+//   terms join the row's deltas one at a time in column order (a ballot,
+//   lowest lane first), each rounded once, so a row's sum is the serial
+//   pass's, term for term. The deltas sit in shared memory (6 doubles a
+//   row a warp beside the warp's tile: 64 KB a block, dynamic), not in
+//   local memory or registers.
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 69 and --parent
+// against the first version's build): 0.0895 ms with 2 contacts at
+// 16,384^2 reading the views, in turns with the f32 instance's 0.0943;
+// rank 0's four rounds 0.455 ms against the first version's 0.564; 7.56
+// SASS instructions a pair, 88 registers, no spills; the same bits.
 //
 // Plain C interface for ctypes: pointers and the stream are void*, and the
 // entry point returns cudaGetLastError() of its launch.
@@ -166,8 +197,10 @@ static_assert(kBK >= 1 && kBQ >= 1 && kBMin >= 1, "bad block launch shape");
 static_assert(kQ * kTile * 32 <= 48 * 1024 && 6 * kRows <= 8 * kTile &&
                   kBQ * kTile * 32 <= 48 * 1024 && 6 * kBRows <= 8 * kTile,
               "the warps' tiles must fit in static shared memory and hold the deltas");
-static_assert(3 * kBRows <= 4 * kTile && kBRows <= kBThreads,
-              "the f64 instance stashes three doubles a row and sums a row a thread");
+static_assert(kBRows <= kBThreads, "the f64 instance sums a row a thread");
+// the f64 instance's dynamic shared memory: each warp's (x, y, z, R) tile,
+// then each warp's deltas of the block's rows, [warp][6][kBRows] doubles
+constexpr int kF64Smem = kBQ * kTile * 16 + kBQ * 6 * kBRows * 8;
 
 struct Deltas {
   float vx = 0.0f, vy = 0.0f, vz = 0.0f, px = 0.0f, py = 0.0f, pz = 0.0f;
@@ -178,10 +211,6 @@ struct Deltas {
 __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
   return fmaf(dz, dz, fmaf(dy, dy, dx * dx));
 }
-
-struct Deltas64 {
-  double vx = 0.0, vy = 0.0, vz = 0.0, px = 0.0, py = 0.0, pz = 0.0;
-};
 
 // The largest |coordinate| of a cast row (x, y, z).
 __device__ __forceinline__ float coord_scale(float4 p) {
@@ -486,94 +515,157 @@ __device__ __forceinline__ float4 geo_of64(const Side64& s, int j) {
                      live64(s, j) ? cast32(s.radius[j]) : __int_as_float(0x7fc00000));
 }
 
-// Row i of si (live) against the bodies j0, ..., j0 + count - 1 of sj: the
-// plain version's pair in double, its tests correctly rounded, added to d.
-// Not inlined: a thread's rows' deltas (24 doubles) then live in its local
-// memory (L1), where only this cold pass touches them, and not in
-// registers through the sweep, which spilled at the 128-register cap.
-__device__ __noinline__ void bounce_row_f64(const Side64& si, const Side64& sj, int i,
-                                               int j0, int count, double e, Deltas64& d) {
+// Row i of si (live) against the bodies j0, ..., j0 + count - 1 of sj, the
+// warp's: the plain version's pair in double, its tests correctly rounded;
+// lane L takes columns L + 32 c, and the touching columns' terms join the
+// row's deltas d[c kBRows] (c = 0..5: v, then p; shared memory) one at a
+// time in column order, each rounded once before it joins the sum, as the
+// plain version's products are (no FMA): a row's sum of two terms is then
+// the same in any order, on any plan.
+__device__ __forceinline__ void bounce_row_f64(const Side64& si, const Side64& sj, int i,
+                                               int j0, int count, double e,
+                                               double* __restrict__ d) {
+  const int lane = threadIdx.x & 31;
   const double xi = si.pos[3 * i], yi = si.pos[3 * i + 1], zi = si.pos[3 * i + 2];
   const double ux = si.vel[3 * i], uy = si.vel[3 * i + 1], uz = si.vel[3 * i + 2];
   const double ri = si.radius[i];
   const double inv_mi = __drcp_rn(si.mass[i]);
-  for (int j = j0; j < j0 + count; ++j) {
-    const double ddx = __dsub_rn(sj.pos[3 * j], xi);
-    const double ddy = __dsub_rn(sj.pos[3 * j + 1], yi);
-    const double ddz = __dsub_rn(sj.pos[3 * j + 2], zi);
-    const double r2 = __dadd_rn(__dadd_rn(__dmul_rn(ddx, ddx), __dmul_rn(ddy, ddy)),
-                                __dmul_rn(ddz, ddz));
-    const double rsum = __dadd_rn(ri, sj.radius[j]);
-    if (!(r2 <= __dmul_rn(rsum, rsum)) || !(r2 > 0.0) || !live64(sj, j)) continue;
-    const double s = __dadd_rn(
-        __dadd_rn(__dmul_rn(ddx, __dsub_rn(sj.vel[3 * j], ux)),
-                  __dmul_rn(ddy, __dsub_rn(sj.vel[3 * j + 1], uy))),
-        __dmul_rn(ddz, __dsub_rn(sj.vel[3 * j + 2], uz)));
-    if (!(s < 0.0)) continue;
-    const double inv_d = rsqrt(r2);
-    const double base = __dmul_rn(__drcp_rn(__dadd_rn(inv_mi, __drcp_rn(sj.mass[j]))), inv_mi);
-    const double fv = __dmul_rn(__dmul_rn(__dmul_rn(1.0 + e, s), __dmul_rn(inv_d, inv_d)), base);
-    const double h = __dmul_rn(__dsub_rn(__dmul_rn(rsum, inv_d), 1.0), base);
-    // each term rounded once before it joins the sum, as the plain
-    // version's products are (no FMA): a row's sum of two terms is then the
-    // same in any order, on any plan
-    d.vx = __dadd_rn(d.vx, __dmul_rn(fv, ddx));
-    d.vy = __dadd_rn(d.vy, __dmul_rn(fv, ddy));
-    d.vz = __dadd_rn(d.vz, __dmul_rn(fv, ddz));
-    d.px = __dsub_rn(d.px, __dmul_rn(h, ddx));
-    d.py = __dsub_rn(d.py, __dmul_rn(h, ddy));
-    d.pz = __dsub_rn(d.pz, __dmul_rn(h, ddz));
+#pragma unroll 1
+  for (int c0 = 0; c0 < kTile; c0 += 32) {
+    const int j = j0 + c0 + lane;
+    double t[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+    bool hit = false;
+    if (c0 + lane < count) {
+      const double ddx = __dsub_rn(sj.pos[3 * j], xi);
+      const double ddy = __dsub_rn(sj.pos[3 * j + 1], yi);
+      const double ddz = __dsub_rn(sj.pos[3 * j + 2], zi);
+      const double r2 = __dadd_rn(__dadd_rn(__dmul_rn(ddx, ddx), __dmul_rn(ddy, ddy)),
+                                  __dmul_rn(ddz, ddz));
+      const double rsum = __dadd_rn(ri, sj.radius[j]);
+      if (r2 <= __dmul_rn(rsum, rsum) && r2 > 0.0 && live64(sj, j)) {
+        const double s = __dadd_rn(
+            __dadd_rn(__dmul_rn(ddx, __dsub_rn(sj.vel[3 * j], ux)),
+                      __dmul_rn(ddy, __dsub_rn(sj.vel[3 * j + 1], uy))),
+            __dmul_rn(ddz, __dsub_rn(sj.vel[3 * j + 2], uz)));
+        if (s < 0.0) {
+          const double inv_d = rsqrt(r2);
+          const double base =
+              __dmul_rn(__drcp_rn(__dadd_rn(inv_mi, __drcp_rn(sj.mass[j]))), inv_mi);
+          const double fv =
+              __dmul_rn(__dmul_rn(__dmul_rn(1.0 + e, s), __dmul_rn(inv_d, inv_d)), base);
+          const double h = __dmul_rn(__dsub_rn(__dmul_rn(rsum, inv_d), 1.0), base);
+          t[0] = __dmul_rn(fv, ddx);
+          t[1] = __dmul_rn(fv, ddy);
+          t[2] = __dmul_rn(fv, ddz);
+          t[3] = __dmul_rn(h, ddx);
+          t[4] = __dmul_rn(h, ddy);
+          t[5] = __dmul_rn(h, ddz);
+          hit = true;
+        }
+      }
+    }
+    // the touching columns in column order: lowest lane first
+    for (unsigned hits = __ballot_sync(0xffffffffu, hit); hits; hits &= hits - 1) {
+      if (lane == __ffs(hits) - 1) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          d[c * kBRows] = __dadd_rn(d[c * kBRows], t[c]);
+          d[(3 + c) * kBRows] = __dsub_rn(d[(3 + c) * kBRows], t[3 + c]);
+        }
+      }
+      __syncwarp();
+    }
   }
+}
+
+// A bounce view of n rows: (x, y, z, R) [n] float4, then (rmax, amax) a
+// 128-row tile.
+__device__ __forceinline__ const float2* bounce_view_tiles(const float* v, int n) {
+  return reinterpret_cast<const float2*>(v + 4 * static_cast<size_t>(n));
 }
 
 // The deltas of rows base + lane + 32 k (k < K) of si from the j bodies
 // [j_lo, j_hi) of sj, in double: warp w of the Q sweeps tiles j_lo + w kTile,
 // + Q kTile, ..., each staged by the warp as its cast (x, y, z, R) into its
-// own tile, prefiltered on each row's nearest f32 r2 (B6's loop), then the
+// own tile (from the f64 tables, and by a writer block into view_out too;
+// with kRead from the views view_i and view_j, with the tile's maxima),
+// prefiltered on each row's nearest f32 r2 (B6's loop), then the warp's
 // double pass of each flagged row. Each warp's own deltas of its rows come
-// out in d.
-template <int K, int Q>
+// out in dw ([6][kBRows] doubles of shared memory, zeroed here).
+template <int K, int Q, bool kRead>
 __device__ __forceinline__ void sweep_rows_f64(const Side64& si, const Side64& sj, int base,
                                                int j_lo, int j_hi, double e,
-                                               float4 (*tiles)[2][kTile], Deltas64 (&d)[K]) {
+                                               float4* __restrict__ gtile,
+                                               double* __restrict__ dw,
+                                               float* __restrict__ view_out,
+                                               const float* __restrict__ view_i,
+                                               const float* __restrict__ view_j) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const float nan = __int_as_float(0x7fc00000);
   float4 gi[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int i = base + lane + 32 * k;
-    gi[k] = i < si.n ? geo_of64(si, i) : make_float4(0.f, 0.f, 0.f, nan);
+    if constexpr (kRead) {
+      gi[k] = i < si.n ? reinterpret_cast<const float4*>(view_i)[i]
+                       : make_float4(0.f, 0.f, 0.f, nan);
+    } else {
+      gi[k] = i < si.n ? geo_of64(si, i) : make_float4(0.f, 0.f, 0.f, nan);
+    }
   }
-  float4* gtile = tiles[warp][0];
-  for (int j0 = j_lo + warp * kTile; j0 < j_hi; j0 += Q * kTile) {
+  for (int c = lane; c < 6 * kBRows; c += 32) dw[c] = 0.0;
+  __syncwarp();
+  for (int j0 = j_lo + (threadIdx.x >> 5) * kTile; j0 < j_hi; j0 += Q * kTile) {
     float rmax = 0.0f, amax = 0.0f;  // over the live bodies this lane staged
 #pragma unroll
     for (int r = lane; r < kTile; r += 32) {
       if (j0 + r < j_hi) {
-        const float4 g = geo_of64(sj, j0 + r);
-        gtile[r] = g;
-        if (g.w == g.w) {  // live
-          rmax = fmaxf(rmax, g.w);
-          amax = fmaxf(amax, coord_scale(g));
+        if constexpr (kRead) {
+          gtile[r] = reinterpret_cast<const float4*>(view_j)[j0 + r];
+        } else {
+          const float4 g = geo_of64(sj, j0 + r);
+          gtile[r] = g;
+          if (view_out != nullptr) reinterpret_cast<float4*>(view_out)[j0 + r] = g;
+          if (g.w == g.w) {  // live
+            rmax = fmaxf(rmax, g.w);
+            amax = fmaxf(amax, coord_scale(g));
+          }
         }
       }
     }
+    if constexpr (kRead) {
+      const float2 m = bounce_view_tiles(view_j, sj.n)[j0 / kTile];
+      rmax = m.x;
+      amax = m.y;
+    } else {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      for (int off = 16; off > 0; off >>= 1) {
+        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      }
+      if (view_out != nullptr && lane == 0)
+        reinterpret_cast<float2*>(view_out + 4 * static_cast<size_t>(sj.n))[j0 / kTile] =
+            make_float2(rmax, amax);
     }
     __syncwarp();
     const int count = min(kTile, j_hi - j0);
     float nearest[K];
     if (count == kTile) nearest_tile<K>(gtile, kTile, gi, nearest);
     else nearest_tile<K>(gtile, count, gi, nearest);
+    unsigned flagged = 0u;  // bit k: row k of this lane passes the prefilter
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       if (nearest[k] <= reach2(__fadd_ru(gi[k].w, rmax), __fadd_ru(coord_scale(gi[k]), amax),
                                1.000001f))
-        bounce_row_f64(si, sj, base + lane + 32 * k, j0, count, e, d[k]);
+        flagged |= 1u << k;
+    }
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+      for (unsigned rows = __ballot_sync(0xffffffffu, (flagged >> k) & 1u); rows;
+           rows &= rows - 1) {
+        const int r = __ffs(rows) - 1 + 32 * k;
+        bounce_row_f64(si, sj, base + r, j0, count, e, dw + r);
+      }
     }
     __syncwarp();
   }
@@ -581,11 +673,17 @@ __device__ __forceinline__ void sweep_rows_f64(const Side64& si, const Side64& s
 
 // The f64 instance of bounce_block_kernel: the same plan, gate and split
 // sums; part: [splits * n_i * 6] double scratch (unused with one split).
+// kF64Smem bytes of dynamic shared memory. Without kRead the blocks of i
+// tile 0 write sj's view to view_out (where given); with kRead the rows are
+// staged from view_i and view_j.
+template <bool kRead>
 __global__ void __launch_bounds__(kBThreads, kBMin)
 bounce_block_f64_kernel(Side64 si, Side64 sj, double e, const int* __restrict__ contacts,
                         int tiles, int splits, int split_len, int accumulate,
                         double* __restrict__ part, unsigned int* __restrict__ done,
-                        double* __restrict__ dpos, double* __restrict__ dvel) {
+                        double* __restrict__ dpos, double* __restrict__ dvel,
+                        float* __restrict__ view_out, const float* __restrict__ view_i,
+                        const float* __restrict__ view_j) {
   const int tile_i = blockIdx.x % tiles, split = blockIdx.x / tiles;
   const int base = tile_i * kBRows;
   const int n = si.n;
@@ -598,37 +696,26 @@ bounce_block_f64_kernel(Side64 si, Side64 sj, double e, const int* __restrict__ 
     }
     return;
   }
-  __shared__ float4 tiles_s[kBQ][2][kTile];
+  extern __shared__ __align__(16) unsigned char f64_smem[];
+  float4* gtiles = reinterpret_cast<float4*>(f64_smem);
+  double* deltas = reinterpret_cast<double*>(f64_smem + kBQ * kTile * 16);
   __shared__ bool last;
-  Deltas64 d[kBK];
+  const int warp = threadIdx.x >> 5;
   const int j_lo = split * split_len;
-  sweep_rows_f64<kBK, kBQ>(si, sj, base, j_lo, min(j_lo + split_len, sj.n), e, tiles_s, d);
-  // the kBQ warps' deltas of each row, added in warp order: the velocities'
-  // three doubles a row, then the positions'
-  const int lane = threadIdx.x & 31;
+  sweep_rows_f64<kBK, kBQ, kRead>(si, sj, base, j_lo, min(j_lo + split_len, sj.n), e,
+                                  gtiles + warp * kTile, deltas + warp * 6 * kBRows,
+                                  tile_i == 0 ? view_out : nullptr, view_i, view_j);
+  // the kBQ warps' deltas of each row, added in warp order
+  __syncthreads();
   const int r = threadIdx.x;
   double a[6];
-  for (int half = 0; half < 2; ++half) {
-    double* mine = reinterpret_cast<double*>(tiles_s[threadIdx.x >> 5]);
+  if (r < kBRows) {
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      double* row = mine + 3 * (lane + 32 * k);
-      row[0] = half ? d[k].px : d[k].vx;
-      row[1] = half ? d[k].py : d[k].vy;
-      row[2] = half ? d[k].pz : d[k].vz;
+    for (int c = 0; c < 6; ++c) a[c] = deltas[c * kBRows + r];
+    for (int q = 1; q < kBQ; ++q) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) a[c] += deltas[(q * 6 + c) * kBRows + r];
     }
-    __syncthreads();
-    if (r < kBRows) {
-      const double* w0 = reinterpret_cast<const double*>(tiles_s[0]) + 3 * r;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) a[3 * half + c] = w0[c];
-      for (int q = 1; q < kBQ; ++q) {
-        const double* wq = reinterpret_cast<const double*>(tiles_s[q]) + 3 * r;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) a[3 * half + c] += wq[c];
-      }
-    }
-    __syncthreads();
   }
   const bool owns = r < kBRows && base + r < n;
   if (owns) {
@@ -661,6 +748,61 @@ bounce_block_f64_kernel(Side64 si, Side64 sj, double e, const int* __restrict__ 
     emit(a, base + r, accumulate, dpos, dvel);
   }
   if (threadIdx.x == 0) done[tile_i] = 0u;
+}
+
+// bounce_block_round_f64 with or without views (see its note).
+int launch_bounce_f64(const void* pos_i, const void* vel_i, const void* mass_i,
+                      const void* radius_i, const void* alive_i, int n_i, const void* pos_j,
+                      const void* vel_j, const void* mass_j, const void* radius_j,
+                      const void* alive_j, int n_j, double restitution, const void* contacts,
+                      int splits, int split_len, int accumulate, void* part, void* done,
+                      void* dpos, void* dvel, void* stream, int device, void* view_out,
+                      const void* view_i, const void* view_j) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const bool read = view_i != nullptr || view_j != nullptr;
+  if (read && (view_i == nullptr || view_j == nullptr || view_out != nullptr))
+    return cudaErrorInvalidValue;
+  if (n_i <= 0) return cudaSuccess;
+  if (splits < 1 || split_len < 1 || split_len % kTile != 0 ||
+      static_cast<long long>(splits) * split_len < n_j ||
+      (n_j > 0 && static_cast<long long>(splits - 1) * split_len >= n_j))
+    return cudaErrorInvalidValue;
+  // the kernel's 64 KB of dynamic shared memory, allowed once a device
+  static bool allowed[64] = {false};
+  const int d = device >= 0 && device < 64 ? device : 0;
+  if (!allowed[d]) {
+    err = cudaFuncSetAttribute(bounce_block_f64_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kF64Smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(bounce_block_f64_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kF64Smem);
+    if (err != cudaSuccess) return err;
+    allowed[d] = true;
+  }
+  const Side64 si{static_cast<const double*>(pos_i), static_cast<const double*>(vel_i),
+                  static_cast<const double*>(mass_i), static_cast<const double*>(radius_i),
+                  static_cast<const bool*>(alive_i), n_i};
+  const Side64 sj{static_cast<const double*>(pos_j), static_cast<const double*>(vel_j),
+                  static_cast<const double*>(mass_j), static_cast<const double*>(radius_j),
+                  static_cast<const bool*>(alive_j), n_j};
+  const int tiles = (n_i + kBRows - 1) / kBRows;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const int*>(contacts);
+  auto* pa = static_cast<double*>(part);
+  auto* dn = static_cast<unsigned int*>(done);
+  auto* dp = static_cast<double*>(dpos);
+  auto* dv = static_cast<double*>(dvel);
+  if (read) {
+    bounce_block_f64_kernel<true><<<tiles * splits, kBThreads, kF64Smem, s>>>(
+        si, sj, restitution, c, tiles, splits, split_len, accumulate, pa, dn, dp, dv, nullptr,
+        static_cast<const float*>(view_i), static_cast<const float*>(view_j));
+  } else {
+    bounce_block_f64_kernel<false><<<tiles * splits, kBThreads, kF64Smem, s>>>(
+        si, sj, restitution, c, tiles, splits, split_len, accumulate, pa, dn, dp, dv,
+        static_cast<float*>(view_out), nullptr, nullptr);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -731,26 +873,32 @@ int bounce_block_round_f64(const void* pos_i, const void* vel_i, const void* mas
                            double restitution, const void* contacts, int splits,
                            int split_len, int accumulate, void* part, void* done, void* dpos,
                            void* dvel, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (n_i <= 0) return cudaSuccess;
-  if (splits < 1 || split_len < 1 || split_len % kTile != 0 ||
-      static_cast<long long>(splits) * split_len < n_j ||
-      (n_j > 0 && static_cast<long long>(splits - 1) * split_len >= n_j))
+  return launch_bounce_f64(pos_i, vel_i, mass_i, radius_i, alive_i, n_i, pos_j, vel_j,
+                           mass_j, radius_j, alive_j, n_j, restitution, contacts, splits,
+                           split_len, accumulate, part, done, dpos, dvel, stream, device,
+                           nullptr, nullptr, nullptr);
+}
+
+// bounce_block_round_f64 with the shards' cast views (float buffers of 4 n
+// + 2 ceil(n / 128) floats, the header's layout): view_out non-null (the
+// diagonal round; view_i and view_j null) writes the j side's view as the
+// launch stages it, when the count lets the sweep run; view_i and view_j
+// non-null (the later rounds; view_out null) stage the i and j rows from
+// them. The deltas are bounce_block_round_f64's, bit for bit.
+int bounce_block_round_f64_view(const void* pos_i, const void* vel_i, const void* mass_i,
+                                const void* radius_i, const void* alive_i, int n_i,
+                                const void* pos_j, const void* vel_j, const void* mass_j,
+                                const void* radius_j, const void* alive_j, int n_j,
+                                double restitution, const void* contacts, int splits,
+                                int split_len, int accumulate, void* part, void* done,
+                                void* dpos, void* dvel, void* stream, int device,
+                                void* view_out, const void* view_i, const void* view_j) {
+  if (view_out == nullptr && (view_i == nullptr || view_j == nullptr))
     return cudaErrorInvalidValue;
-  const Side64 si{static_cast<const double*>(pos_i), static_cast<const double*>(vel_i),
-                  static_cast<const double*>(mass_i), static_cast<const double*>(radius_i),
-                  static_cast<const bool*>(alive_i), n_i};
-  const Side64 sj{static_cast<const double*>(pos_j), static_cast<const double*>(vel_j),
-                  static_cast<const double*>(mass_j), static_cast<const double*>(radius_j),
-                  static_cast<const bool*>(alive_j), n_j};
-  const int tiles = (n_i + kBRows - 1) / kBRows;
-  bounce_block_f64_kernel<<<tiles * splits, kBThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      si, sj, restitution, static_cast<const int*>(contacts), tiles, splits, split_len,
-      accumulate, static_cast<double*>(part), static_cast<unsigned int*>(done),
-      static_cast<double*>(dpos), static_cast<double*>(dvel));
-  return cudaGetLastError();
+  return launch_bounce_f64(pos_i, vel_i, mass_i, radius_i, alive_i, n_i, pos_j, vel_j,
+                           mass_j, radius_j, alive_j, n_j, restitution, contacts, splits,
+                           split_len, accumulate, part, done, dpos, dvel, stream, device,
+                           view_out, view_i, view_j);
 }
 
 // The launch shape at n bodies: shape[0..4] = i bodies a thread, warps (j

@@ -143,6 +143,33 @@
 // tile runs the double test, reading its own and the tile's f64 rows in
 // place (the tile's on the diagonal round, and rarely elsewhere).
 //
+// Its cast view: what the first version spent beyond B3 detect's
+// loop (0.1921 against 0.1813 ms at 16,384^2, an H100 80GB HBM3 at 700 W) was
+// staging, every j row cast from its f64 values in every block that staged
+// it (256 i tiles a round at 16,384^2), each live row's |coordinate| taken,
+// and a second butterfly a tile for the tile's largest one. That work
+// depends on the j shard alone, so it is done once a shard: the ring's
+// diagonal round (j = the rank's own shard) writes the shard's view as it
+// stages (the blocks of i tile 0 store the rows and each tile's maxima that
+// they stage anyway; no launch is added), and the view travels round the
+// ring with the f64 tables. A view (one float buffer, n rows) holds geo [n]
+// float4 (x, y, z, m) as in_f32 casts them, rad [n] (the cast radius, NaN
+// where dead) and, for each 128-row tile (the kernel's j tiles: split_len is
+// a multiple of 128), the largest rad and the largest |cast coordinate| of a
+// live row (0 where none). The rounds after the first read the rank's own
+// view for their i rows and the visitor's for their j rows, as B3 detect
+// stages its f32 tables, and take each tile's rmax and amax from it. reach2
+// keeps its argument: the tile's largest |coordinate| and radius bound every
+// live row's of the tile whichever code took them, so the bound still
+// covers every pair the double test counts. The forces and the count are
+// the first version's, bit for bit. On an H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 69 and --parent against the first version's build):
+// a round reading the views 0.1867 ms at 16,384^2, in turns with B3
+// detect's 0.1822 (0.188 against the first version's 0.195 in turns), 17.0
+// SASS instructions a pair as B3 detect, 64 registers, no spills; the
+// diagonal round writing its view 0.254 against the first version's 0.251
+// (there every row counts its own tile in double).
+//
 // Plain C interface for ctypes: pointers and the stream are void*, and the
 // entry point returns cudaGetLastError() of its launch.
 #include <cuda_runtime.h>
@@ -461,16 +488,33 @@ void launch(const float4* p, int n, const float* radius, float G, float eps2, fl
 // and sets both back to 0.
 // B3 and B3 detect are one template, so their forces are bit-equal; B3
 // detect's f64 instance (T = double) reads its tables through as_f32, so
-// its forces are B3 detect's on the cast tables.
-template <typename T, bool kDetect>
+// its forces are B3 detect's on the cast tables; with kRead it stages its
+// i and j rows from the shards' views (view.i, view.j) instead, and with
+// view.out (and not kRead) the blocks of i tile 0 write the j side's view.
+struct Views {
+  float* out;       // the j side's view, written (or null)
+  const float* i;   // the i side's view, read (kRead)
+  const float* j;   // the j side's view, read (kRead)
+};
+
+// A view of n rows: geo [n] float4, rad [n], then (rmax, amax) a 128-row tile.
+__device__ __forceinline__ const float4* view_geo(const float* v) {
+  return reinterpret_cast<const float4*>(v);
+}
+__device__ __forceinline__ const float2* view_tiles(const float* v, int n) {
+  return reinterpret_cast<const float2*>(v + 5 * static_cast<size_t>(n));
+}
+
+template <typename T, bool kDetect, bool kRead = false>
 __device__ __forceinline__ void block_sweep(
     const T* __restrict__ pos_i, int n_i, const T* __restrict__ pos_j,
     const T* __restrict__ mass_j, int n_j, const T* __restrict__ radius_i,
     const unsigned char* __restrict__ alive_i, const T* __restrict__ radius_j,
     const unsigned char* __restrict__ alive_j, int diag, float G, float eps2, int tiles,
     int splits, int split_len, float4* __restrict__ part, unsigned int* __restrict__ done,
-    float4* __restrict__ out, int* __restrict__ contacts) {
+    float4* __restrict__ out, int* __restrict__ contacts, Views view) {
   constexpr bool kWide = sizeof(T) == sizeof(double);
+  static_assert(kWide || !kRead, "only the f64 instance reads views");
   __shared__ float4 slots[kBQ][kBSlot];
   __shared__ float rtiles[kDetect ? kBQ : 1][kDetect ? kTile : 1];
   __shared__ int warp_sums[kBQ];
@@ -480,17 +524,26 @@ __device__ __forceinline__ void block_sweep(
   const int tile_i = blockIdx.x % tiles, split = blockIdx.x / tiles;
   const int base = tile_i * kBRows;
   const float nan = __int_as_float(0x7fc00000);
+  // the f64 instance's view writer: the blocks of i tile 0, whose warps
+  // stage every j tile once between them (one split each)
+  const bool writer = kWide && !kRead && view.out != nullptr && tile_i == 0;
   float4 pi[kBK], s[kBK];
   float ri[kBK];
   int touch[kBK];
 #pragma unroll
   for (int k = 0; k < kBK; ++k) {
     const int i = base + lane + 32 * k;
-    pi[k] = i < n_i ? make_float4(as_f32(pos_i[3 * i]), as_f32(pos_i[3 * i + 1]),
-                                  as_f32(pos_i[3 * i + 2]), 0.0f)
-                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    // a dead body's NaN radius fails every comparison
-    ri[k] = (kDetect && i < n_i) ? (alive_i[i] ? as_f32(radius_i[i]) : nan) : 0.0f;
+    if constexpr (kRead) {
+      const float4 g = i < n_i ? view_geo(view.i)[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      pi[k] = make_float4(g.x, g.y, g.z, 0.0f);
+      ri[k] = i < n_i ? view.i[4 * n_i + i] : 0.0f;
+    } else {
+      pi[k] = i < n_i ? make_float4(as_f32(pos_i[3 * i]), as_f32(pos_i[3 * i + 1]),
+                                    as_f32(pos_i[3 * i + 2]), 0.0f)
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      // a dead body's NaN radius fails every comparison
+      ri[k] = (kDetect && i < n_i) ? (alive_i[i] ? as_f32(radius_i[i]) : nan) : 0.0f;
+    }
     s[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     touch[k] = 0;
   }
@@ -505,13 +558,23 @@ __device__ __forceinline__ void block_sweep(
     for (int r = lane; r < kTile; r += 32) {
       if (r < count) {
         const int j = j0 + r;
-        tile[r] = make_float4(as_f32(pos_j[3 * j]), as_f32(pos_j[3 * j + 1]),
-                              as_f32(pos_j[3 * j + 2]), as_f32(mass_j[j]));
-        if (kDetect) {
-          const float rj = alive_j[j] ? as_f32(radius_j[j]) : nan;
-          rtile[r] = rj;
-          rmax = fmaxf(rmax, rj);
-          if (kWide && alive_j[j]) amax = fmaxf(amax, coord_scale(tile[r]));
+        if constexpr (kRead) {
+          tile[r] = view_geo(view.j)[j];
+          rtile[r] = view.j[4 * n_j + j];
+        } else {
+          const float4 g = make_float4(as_f32(pos_j[3 * j]), as_f32(pos_j[3 * j + 1]),
+                                       as_f32(pos_j[3 * j + 2]), as_f32(mass_j[j]));
+          tile[r] = g;
+          if (kDetect) {
+            const float rj = alive_j[j] ? as_f32(radius_j[j]) : nan;
+            rtile[r] = rj;
+            rmax = fmaxf(rmax, rj);
+            if (kWide && alive_j[j]) amax = fmaxf(amax, coord_scale(g));
+            if (writer) {
+              reinterpret_cast<float4*>(view.out)[j] = g;
+              view.out[4 * n_j + j] = rj;
+            }
+          }
         }
       }
     }
@@ -547,11 +610,22 @@ __device__ __forceinline__ void block_sweep(
     }
     if (kDetect && kWide) {
       // the f32 prefilter with its outward bound (reach2), then the double
-      // test of each flagged row against the tile's f64 rows, in place
+      // test of each flagged row against the tile's f64 rows, in place; the
+      // tile's largest radius and |coordinate| from the view, or taken here
+      // (and written to the view)
+      if constexpr (kRead) {
+        const float2 m = view_tiles(view.j, n_j)[j0 / kTile];
+        rmax = m.x;
+        amax = m.y;
+      } else {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+        for (int off = 16; off > 0; off >>= 1) {
+          rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+        }
+        if (writer && lane == 0)
+          reinterpret_cast<float2*>(view.out + 5 * static_cast<size_t>(n_j))[j0 / kTile] =
+              make_float2(rmax, amax);
       }
 #pragma unroll
       for (int k = 0; k < kBK; ++k) {
@@ -645,13 +719,16 @@ __device__ __forceinline__ void block_sweep(
 
 template <bool kDetect>
 __global__ void __launch_bounds__(kBThreads, kBMin) block_forces_kernel(OT_BLOCK_ARGS(float)) {
-  block_sweep<float, kDetect>(OT_BLOCK_PASS);
+  block_sweep<float, kDetect>(OT_BLOCK_PASS, Views{nullptr, nullptr, nullptr});
 }
 
-// B3 detect's f64 instance
+// B3 detect's f64 instance: staging from the f64 tables (and writing the j
+// side's view where view_out is given), or with kRead from the two views
+template <bool kRead>
 __global__ void __launch_bounds__(kBThreads, kBMin)
-block_detect_f64_kernel(OT_BLOCK_ARGS(double)) {
-  block_sweep<double, true>(OT_BLOCK_PASS);
+block_detect_f64_kernel(OT_BLOCK_ARGS(double), float* __restrict__ view_out,
+                        const float* __restrict__ view_i, const float* __restrict__ view_j) {
+  block_sweep<double, true, kRead>(OT_BLOCK_PASS, Views{view_out, view_i, view_j});
 }
 
 // The co-resident blocks of block_forces_kernel<kDetect> on a device and its
@@ -673,16 +750,23 @@ void block_residency(int device, int* resident, int* sms) {
 }
 
 // B3 (T float, kDetect false), B3 detect (T float) or its f64 instance (T
-// double, kDetect true) on the launch plan (splits, split_len).
+// double, kDetect true) on the launch plan (splits, split_len); the f64
+// instance writes the j side's view to view_out, or reads view_i and view_j.
 template <typename T, bool kDetect>
 int launch_block(const void* pos_i, const void* radius_i, const void* alive_i, int n_i,
                  int i_off, const void* pos_j, const void* mass_j, const void* radius_j,
                  const void* alive_j, int n_j, int j_off, float G, float eps2, int splits,
                  int split_len, void* part, void* done, void* out, void* contacts,
-                 void* stream, int device) {
+                 void* stream, int device, void* view_out = nullptr,
+                 const void* view_i = nullptr, const void* view_j = nullptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (!(eps2 > 0.0f)) return cudaErrorInvalidValue;
+  // a view is written, or both are read; the f64 instance's alone
+  const bool read = view_i != nullptr || view_j != nullptr;
+  if ((read && (view_i == nullptr || view_j == nullptr || view_out != nullptr)) ||
+      ((read || view_out != nullptr) && sizeof(T) != sizeof(double)))
+    return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (n_i <= 0 || n_j <= 0)  // no pairs: a count of 0
     return kDetect ? cudaMemsetAsync(contacts, 0, sizeof(int), s) : cudaSuccess;
@@ -704,9 +788,16 @@ int launch_block(const void* pos_i, const void* radius_i, const void* alive_i, i
   auto* o = static_cast<float4*>(out);
   auto* c = static_cast<int*>(contacts);
   if constexpr (sizeof(T) == sizeof(double)) {
-    block_detect_f64_kernel<<<tiles * splits, kBThreads, 0, s>>>(
-        pi, n_i, pj, mj, n_j, ri, ai, rj, aj, j_off - i_off, G, eps2, tiles, splits,
-        split_len, pa, dn, o, c);
+    if (read) {
+      block_detect_f64_kernel<true><<<tiles * splits, kBThreads, 0, s>>>(
+          pi, n_i, pj, mj, n_j, ri, ai, rj, aj, j_off - i_off, G, eps2, tiles, splits,
+          split_len, pa, dn, o, c, nullptr, static_cast<const float*>(view_i),
+          static_cast<const float*>(view_j));
+    } else {
+      block_detect_f64_kernel<false><<<tiles * splits, kBThreads, 0, s>>>(
+          pi, n_i, pj, mj, n_j, ri, ai, rj, aj, j_off - i_off, G, eps2, tiles, splits,
+          split_len, pa, dn, o, c, static_cast<float*>(view_out), nullptr, nullptr);
+    }
   } else {
     block_forces_kernel<kDetect><<<tiles * splits, kBThreads, 0, s>>>(
         pi, n_i, pj, mj, n_j, ri, ai, rj, aj, j_off - i_off, G, eps2, tiles, splits,
@@ -806,6 +897,29 @@ int nbody_block_forces_detect_f64(const void* pos_i, const void* radius_i,
   return launch_block<double, true>(pos_i, radius_i, alive_i, n_i, i_off, pos_j, mass_j,
                                     radius_j, alive_j, n_j, j_off, G, eps2, splits, split_len,
                                     part, done, out, contacts, stream, device);
+}
+
+// nbody_block_forces_detect_f64 with the shards' cast views (float buffers
+// of 5 n + 2 ceil(n / 128) floats, the header's layout): view_out non-null
+// (the diagonal round; view_i and view_j null) writes the j side's view as
+// the launch stages it; view_i and view_j non-null (the later rounds;
+// view_out null) stage the i and j rows from them. acc, pe and the count are
+// nbody_block_forces_detect_f64's, bit for bit.
+int nbody_block_forces_detect_f64_view(const void* pos_i, const void* radius_i,
+                                       const void* alive_i, int n_i, int i_off,
+                                       const void* pos_j, const void* mass_j,
+                                       const void* radius_j, const void* alive_j, int n_j,
+                                       int j_off, float G, float eps2, int splits,
+                                       int split_len, void* part, void* done, void* out,
+                                       void* contacts, void* stream, int device,
+                                       void* view_out, const void* view_i,
+                                       const void* view_j) {
+  if (view_out == nullptr && (view_i == nullptr || view_j == nullptr))
+    return cudaErrorInvalidValue;
+  return launch_block<double, true>(pos_i, radius_i, alive_i, n_i, i_off, pos_j, mass_j,
+                                    radius_j, alive_j, n_j, j_off, G, eps2, splits, split_len,
+                                    part, done, out, contacts, stream, device, view_out,
+                                    view_i, view_j);
 }
 
 // The block kernel's shape on a device: shape[0..5] = i bodies a thread,

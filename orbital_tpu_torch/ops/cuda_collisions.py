@@ -37,7 +37,10 @@ mesh launch it (and the contact sweep's, which runs on every rank of a
 mesh). Float64 sides take its f64 instance (``bounce_block_f64_kernel``):
 the plain version's pair in double on the same plan, gate and split sums,
 deltas and ``out`` in float64, counted in ``bounce_block_cuda.
-f64_launches``; nothing is cast.
+f64_launches``; nothing is cast. The f64 ring hands it each shard's cast
+view (:func:`bounce_view_plain` is its plain version): the first round
+writes the rank's (``view_out``) and each later round stages its rows from
+the rank's and the visitor's (``views``).
 
 The contact sweep of merge and resolve (``csrc/collision_roots.cu``, one
 tiled template with two modes) stands in for the JAX module's XLA blocks:
@@ -78,10 +81,12 @@ from .collisions import (_bounce_block, block_contacts, bounce_deltas_chunked,
                          collision_parents_chunked, contact_marks_chunked, pointer_jump,
                          restitution_clip)
 from .cuda_forces import block_plan
-from ..utils.kernels import count_launch, in_f32, refuse_grad
+from ..utils.kernels import (VIEW_TILE, cast_f32, check_views, count_launch, in_f32,
+                             refuse_grad, tile_maxima, view_args)
 
 __all__ = ["bounce_deltas_cuda", "bounce_deltas_plain", "bounce_block_cuda",
-           "bounce_block_plain", "bounce_plan", "bounce_block_shape", "collision_roots_cuda",
+           "bounce_block_plain", "bounce_view_plain", "bounce_view_size", "bounce_plan",
+           "bounce_block_shape", "collision_roots_cuda",
            "collision_roots_plain", "collision_parents_cuda", "collision_parents_plain",
            "contact_marks_cuda", "contact_marks_plain", "block_contacts_cuda",
            "contact_count_shape", "sweep_plan", "SWEEP_TILE"]
@@ -110,6 +115,8 @@ def _load():
         lib.bounce_block_round_f64.restype = ctypes.c_int
         lib.bounce_block_round_f64.argtypes = ([p] * 5 + [i] + [p] * 5 + [i, ctypes.c_double, p]
                                                + [i] * 3 + [p] * 5 + [i])
+        lib.bounce_block_round_f64_view.restype = ctypes.c_int
+        lib.bounce_block_round_f64_view.argtypes = lib.bounce_block_round_f64.argtypes + [p] * 3
         lib.bounce_block_shape.restype = None
         lib.bounce_block_shape.argtypes = [i, p]
         _lib = lib
@@ -221,6 +228,31 @@ def bounce_block_plain(pos_i, vel_i, mass_i, radius_i, alive_i, pos_j, vel_j, ma
     return out
 
 
+def bounce_view_size(n: int) -> int:
+    """The float32 elements of a shard's cast view for the block bounce's
+    f64 instance at ``n`` rows (:func:`bounce_view_plain`'s layout)."""
+    return 4 * n + 2 * -(-n // VIEW_TILE)
+
+
+def bounce_view_plain(pos, mass, radius, alive):
+    """The plain version of a float64 shard's cast view for the block
+    bounce's f64 instance, on any device: one float32 tensor of
+    ``bounce_view_size(n)`` elements, (x, y, z, R) [n, 4] each as
+    ``utils.kernels.in_f32`` casts it, R NaN unless the body can touch
+    (alive and mass > 0, decided in float64: a positive mass below 2^-150
+    casts to 0 and its body is still live), then for each 128-row tile
+    (rmax, amax): the largest R and the largest |cast coordinate| of a row
+    whose R is not NaN (0 where none), as the kernel's staging takes them."""
+    live = alive & (mass > 0.0)
+    nan = torch.full(radius.shape, float("nan"), dtype=torch.float32, device=radius.device)
+    geo = torch.cat([cast_f32(pos), torch.where(live, cast_f32(radius), nan)[:, None]], dim=1)
+    keep = ~torch.isnan(geo[:, 3])
+    coord = geo[:, :3].abs()
+    scale = torch.where(torch.isnan(coord), torch.zeros_like(coord), coord).amax(1)
+    tiles = torch.stack([tile_maxima(geo[:, 3], keep), tile_maxima(scale, keep)], dim=1)
+    return torch.cat([geo.reshape(-1), tiles.reshape(-1)])
+
+
 @functools.lru_cache(maxsize=None)
 def bounce_plan(n_i: int, n_j: int, k: int, q: int, tile: int, resident: int, sms: int,
                 splits: Optional[int] = None) -> dict:
@@ -287,21 +319,26 @@ def _bounce_round(lib, dev: torch.device, n_i: int, n_j: int, splits: Optional[i
 
 
 def _bounce_block_launch(side_i, side_j, e: float, contacts, dpos, dvel, accumulate: bool,
-                         splits: Optional[int] = None) -> None:
+                         splits: Optional[int] = None, views=None) -> None:
     """Launch the block kernel on its plan (or ``splits`` pinned) over the
     sides' own arrays (contiguous, in the deltas' dtype; alive bool) into
     ``dpos``, ``dvel`` [n_i, 3]: written, or with ``accumulate`` added to;
-    its f64 instance where they are float64."""
+    its f64 instance where they are float64, with ``views`` = (view_out,
+    view_i, view_j) on its view entry (None where not given)."""
     from ..utils.kernels import check, stream_handle
 
     lib, dev = _load(), dpos.device
     n_i, n_j = side_i[0].shape[0], side_j[0].shape[0]
     cut, scratch, _ = _bounce_round(lib, dev, n_i, n_j, splits, dpos.dtype)
     name = "bounce_block_round" + ("_f64" if dpos.dtype == torch.float64 else "")
+    extra = ()
+    if views is not None:
+        name += "_view"
+        extra = tuple(None if v is None else v.data_ptr() for v in views)
     err = getattr(lib, name)(
         *(t.data_ptr() for t in side_i), n_i, *(t.data_ptr() for t in side_j), n_j, e,
         None if contacts is None else contacts.data_ptr(), *cut, int(accumulate), *scratch,
-        dpos.data_ptr(), dvel.data_ptr(), stream_handle(dev), dev.index)
+        dpos.data_ptr(), dvel.data_ptr(), stream_handle(dev), dev.index, *extra)
     check(lib, err, f"{name} launch")
 
 
@@ -345,7 +382,9 @@ def bounce_block_cuda(pos_i: torch.Tensor, vel_i: torch.Tensor, mass_i: torch.Te
                       alive_j: torch.Tensor, *, restitution: float = 1.0,
                       contacts: Optional[torch.Tensor] = None,
                       out: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
-                      checked: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                      checked: bool = False, view_out: Optional[torch.Tensor] = None,
+                      views: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The bounce sweep of body block j on body block i: (dpos [Bi, 3], dvel
     [Bi, 3]) in the sides' dtype (float32, or float64 on the f64
     instance), each pair's impulse and de-overlap on i from the
@@ -357,10 +396,24 @@ def bounce_block_cuda(pos_i: torch.Tensor, vel_i: torch.Tensor, mass_i: torch.Te
     count of 0 the launch leaves them as they are). ``checked=True`` skips
     the checks: the caller vouches that the tensors are as an earlier
     checked call of the same shapes found them, of one dtype (alive bool)
-    and contiguous on one CUDA device."""
+    and contiguous on one CUDA device, and its views as that call's.
+
+    On float64 sides ``view_out`` (a float32 tensor of
+    ``bounce_view_size(Bj)``) receives the j side's cast view
+    (:func:`bounce_view_plain`), which the launch writes as it stages when
+    the count lets it sweep; ``views`` (the i and j sides' views) stages the
+    rows from them instead of casting. Either leaves the deltas as they are
+    without it, bit for bit. On CPU tensors ``view_out`` is filled by the
+    plain version."""
     side_i = (pos_i, vel_i, mass_i, radius_i, alive_i)
     side_j = (pos_j, vel_j, mass_j, radius_j, alive_j)
+    if not checked:
+        check_views("bounce_block_cuda", view_out, views,
+                    (bounce_view_size(pos_i.shape[0]), bounce_view_size(pos_j.shape[0])),
+                    pos_i.device, pos_i.dtype == torch.float64)
     if pos_i.device.type == "cpu":
+        if view_out is not None:
+            view_out.copy_(bounce_view_plain(pos_j, mass_j, radius_j, alive_j))
         return bounce_block_plain(*side_i, *side_j, restitution=restitution, contacts=contacts,
                                   out=out)
     if not checked:
@@ -374,7 +427,7 @@ def bounce_block_cuda(pos_i: torch.Tensor, vel_i: torch.Tensor, mass_i: torch.Te
     else:
         dpos, dvel = out
     _bounce_block_launch(side_i, side_j, restitution_clip(restitution), contacts, dpos, dvel,
-                         out is not None)
+                         out is not None, views=view_args(view_out, views))
     count_launch(bounce_block_cuda, _counter(pos_i))
     return dpos, dvel
 

@@ -16,7 +16,10 @@ block's directed touching pairs between live bodies of different global ids,
 so that the ring's closing force evaluation counts the step's contacts.
 On float64 tables it launches its f64 instance: the forces as B3 detect's
 on the tables cast as :func:`~..utils.kernels.in_f32` casts them (bit-equal),
-the count in double, JAX's ``_contacts_block`` in the state's dtype.
+the count in double, JAX's ``_contacts_block`` in the state's dtype. The f64
+ring hands it each shard's cast view (:func:`detect_view_plain` is its
+plain version): the first round writes the rank's (``view_out``), and each
+later round stages its rows from the rank's and the visitor's (``views``).
 
 The kernel is bound by instruction issue (~14.5 warp instructions and one
 MUFU.RSQ a pair; see the note at the top of the source): four i bodies a
@@ -59,11 +62,13 @@ import torch
 
 from .collisions import block_contacts, count_contacts_chunked
 from .forces import block_acc_potential, pairwise_acc_chunked
-from ..utils.kernels import count_launch, in_f32, refuse_grad
+from ..utils.kernels import (VIEW_TILE, cast_f32, check_views, count_launch, in_f32,
+                             refuse_grad, tile_maxima, view_args)
 
 __all__ = ["pairwise_acc_cuda", "pairwise_acc_plain", "pairwise_acc_detect_cuda",
            "pairwise_acc_detect_plain", "block_acc_cuda", "block_acc_plain",
-           "block_acc_detect_cuda", "block_acc_detect_plain", "block_plan"]
+           "block_acc_detect_cuda", "block_acc_detect_plain", "block_plan",
+           "detect_view_plain", "detect_view_size"]
 
 _lib = None
 
@@ -91,6 +96,9 @@ def _load():
                                                   p, p, p, p, p, i]
         lib.nbody_block_forces_detect_f64.restype = ctypes.c_int
         lib.nbody_block_forces_detect_f64.argtypes = lib.nbody_block_forces_detect.argtypes
+        lib.nbody_block_forces_detect_f64_view.restype = ctypes.c_int
+        lib.nbody_block_forces_detect_f64_view.argtypes = (
+            lib.nbody_block_forces_detect.argtypes + [p, p, p])
         lib.nbody_block_shape.restype = None
         lib.nbody_block_shape.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
         _lib = lib
@@ -333,11 +341,13 @@ def _block_scratch_for(dev: torch.device, parts: int, tiles: int):
     return part, done
 
 
-def _block_launch(pos_i, pos_j, mass_j, detect, out, G: float, eps2: float) -> None:
+def _block_launch(pos_i, pos_j, mass_j, detect, out, G: float, eps2: float,
+                  views=None) -> None:
     """Launch B3 (``detect`` None) or B3 detect (``detect`` = (radius_i,
     alive_i, i_off, radius_j, alive_j, j_off, contacts)) on its launch plan,
     into ``out`` [n_i, 4]: B3 detect's f64 instance where the positions are
-    float64 (the tables read in place, in their own dtype)."""
+    float64 (the tables read in place, in their own dtype), with ``views`` =
+    (view_out, view_i, view_j) on its view entry (None where not given)."""
     from ..utils.kernels import check, stream_handle
 
     lib, dev = _load(), pos_i.device
@@ -360,10 +370,14 @@ def _block_launch(pos_i, pos_j, mass_j, detect, out, G: float, eps2: float) -> N
     ri, rj = (t.to(dt).contiguous() for t in (radius_i, radius_j))
     ai, aj = (t.to(torch.bool).contiguous() for t in (alive_i, alive_j))
     name = "nbody_block_forces_detect" + ("_f64" if dt == torch.float64 else "")
+    extra = ()
+    if views is not None:
+        name += "_view"
+        extra = tuple(None if v is None else v.data_ptr() for v in views)
     err = getattr(lib, name)(pi.data_ptr(), ri.data_ptr(), ai.data_ptr(), n_i, int(i_off),
                              pj.data_ptr(), mj.data_ptr(), rj.data_ptr(), aj.data_ptr(), n_j,
                              int(j_off), float(G), float(eps2), *cut, contacts.data_ptr(),
-                             stream, dev.index or 0)
+                             stream, dev.index or 0, *extra)
     check(lib, err, f"{name} launch")
 
 
@@ -392,6 +406,30 @@ def block_acc_cuda(pos_i: torch.Tensor, pos_j: torch.Tensor, mass_j: torch.Tenso
 block_acc_cuda.launches = 0
 
 
+def detect_view_size(n: int) -> int:
+    """The float32 elements of a shard's cast view for B3 detect's f64
+    instance at ``n`` rows (:func:`detect_view_plain`'s layout)."""
+    return 5 * n + 2 * -(-n // VIEW_TILE)
+
+
+def detect_view_plain(pos, mass, radius, alive):
+    """The plain version of a float64 shard's cast view for B3 detect's f64
+    instance, on any device: one float32 tensor of ``detect_view_size(n)``
+    elements, geo [n, 4] (x, y, z, m) each as ``utils.kernels.in_f32`` casts
+    it (``mass`` as the ring ships it, times alive), then rad [n] (the cast
+    radius, NaN where not alive), then for each 128-row tile (rmax, amax):
+    the largest rad and the largest |cast coordinate| of an alive row (NaN
+    skipped; 0 where none), as the kernel's staging takes them."""
+    geo = torch.cat([cast_f32(pos), cast_f32(mass)[:, None]], dim=1)
+    nan = torch.full_like(geo[:, 0], float("nan"))
+    rad = torch.where(alive, cast_f32(radius), nan)
+    coord = geo[:, :3].abs()
+    scale = torch.where(torch.isnan(coord), torch.zeros_like(coord), coord).amax(1)
+    tiles = torch.stack([tile_maxima(rad, torch.ones_like(alive)),
+                         tile_maxima(scale, alive)], dim=1)
+    return torch.cat([geo.reshape(-1), rad, tiles.reshape(-1)])
+
+
 def block_acc_detect_plain(pos_i, radius_i, alive_i, i_off: int, pos_j, mass_j, radius_j,
                            alive_j, j_off: int, *, G: float, eps2: float):
     """The plain PyTorch version of the detecting block kernel, on any
@@ -412,7 +450,8 @@ def block_acc_detect_plain(pos_i, radius_i, alive_i, i_off: int, pos_j, mass_j, 
 def block_acc_detect_cuda(pos_i: torch.Tensor, radius_i: torch.Tensor, alive_i: torch.Tensor,
                           i_off: int, pos_j: torch.Tensor, mass_j: torch.Tensor,
                           radius_j: torch.Tensor, alive_j: torch.Tensor, j_off: int, *,
-                          G: float, eps2: float
+                          G: float, eps2: float, view_out: Optional[torch.Tensor] = None,
+                          views: Optional[tuple[torch.Tensor, torch.Tensor]] = None
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`block_acc_cuda` with contact detection: (acc [Bi, 3], pe_row
     [Bi], contacts), ``contacts`` an int32 0-dim tensor on the device
@@ -421,14 +460,25 @@ def block_acc_detect_cuda(pos_i: torch.Tensor, radius_i: torch.Tensor, alive_i: 
     ``j_off + j``. acc and pe_row are bit-equal to :func:`block_acc_cuda`'s
     on the same tables. Float64 tables (positions, masses and radii alike)
     take the f64 instance, which counts in double and returns acc and
-    pe_row in float64; it adds to ``f64_launches``."""
+    pe_row in float64; it adds to ``f64_launches``. On float64 tables
+    ``view_out`` (a float32 tensor of ``detect_view_size(Bj)``) receives the
+    j side's cast view (:func:`detect_view_plain`), which the launch writes
+    as it stages; ``views`` (the i and j sides' views) stages the rows from
+    them instead of casting. Either leaves the outputs as they are without
+    it, bit for bit. On CPU tensors ``view_out`` is filled by the plain
+    version."""
+    wide = pos_j.dtype == torch.float64
+    check_views("block_acc_detect_cuda", view_out, views,
+                (detect_view_size(pos_i.shape[0]), detect_view_size(pos_j.shape[0])),
+                pos_j.device, wide)
     if pos_i.device.type == "cpu":
+        if view_out is not None:
+            view_out.copy_(detect_view_plain(pos_j, mass_j, radius_j, alive_j))
         return block_acc_detect_plain(pos_i, radius_i, alive_i, i_off, pos_j, mass_j,
                                       radius_j, alive_j, j_off, G=G, eps2=eps2)
     _check_inputs("block_acc_detect_cuda", pos_j, mass_j, pos_i, radius_i, alive_i,
                   radius_j, alive_j, wide=True)
     refuse_grad("block_acc_detect_cuda", pos_i, pos_j, mass_j, radius_i, radius_j)
-    wide = pos_j.dtype == torch.float64
     if pos_i.ndim != 2 or pos_i.shape[1] != 3 or any(
             t.dtype != pos_j.dtype for t in (pos_i, mass_j, radius_i, radius_j)):
         raise ValueError(f"block_acc_detect_cuda: need pos_i [Bi, 3] and its tables in "
@@ -442,7 +492,8 @@ def block_acc_detect_cuda(pos_i: torch.Tensor, radius_i: torch.Tensor, alive_i: 
     out = torch.empty((n_i, 4), dtype=torch.float32, device=pos_i.device)
     contacts = torch.empty((), dtype=torch.int32, device=pos_i.device)
     _block_launch(pos_i, pos_j, mass_j, (radius_i, alive_i, i_off, radius_j, alive_j, j_off,
-                                         contacts), out, G, eps2)
+                                         contacts), out, G, eps2,
+                  views=view_args(view_out, views))
     count_launch(block_acc_detect_cuda, "f64_launches" if wide else "launches")
     if wide:
         out = out.to(torch.float64)

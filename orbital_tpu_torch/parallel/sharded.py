@@ -26,14 +26,19 @@ every rank: P threads on one card, or one process a rank under
     tables read as they are). The JAX package counts in a separate
     sqrt-free ring after the step (``ring_contacts_fn``) on the same
     positions, in the state's dtype; here the step's closing force
-    evaluation counts them, as B2 does on one card.
+    evaluation counts them, as B2 does on one card. On float64 CUDA shards
+    the ring also ships each shard's cast view (:func:`_ships_views`):
+    round 0, whose visitor is the rank's own shard, writes it as it stages,
+    and every later round stages its rows from the rank's view and the
+    visitor's.
   * :func:`ring_bounce_fn`: the bounce impulses over the same ring (the
     block bounce, ``ops.cuda_collisions.bounce_block_cuda``, each round
     adding into the rank's sums in place; a float64 shard on its f64
     instance, in double as JAX's ``_block_bounce``), gated on the
     device-held count: a contact-free step writes zeros in its first round
     and skips the others, and the stepper's ``torch.where`` keeps the state
-    bit for bit.
+    bit for bit; its float64 CUDA shards ship their cast views as the
+    forces' do.
   * merge and resolve: when the psum'd count is > 0 (read on the host once
     a step, by every rank, after the step's force evaluation), every rank
     gathers the whole system, runs the single-card merge or resolve on it
@@ -104,6 +109,24 @@ def _ring_block_impl(cfg: SimConfig, block: int, pos: torch.Tensor) -> str:
     return impl
 
 
+def _ships_views(pos: torch.Tensor) -> bool:
+    """Whether a ring ships the cast views of its shards with their tables:
+    on float64 CUDA shards, whose f64 kernels (B3 detect's and the block
+    bounce's) stage a shard's rows from its view (``ops.cuda_forces.
+    detect_view_plain``, ``ops.cuda_collisions.bounce_view_plain``) in the
+    rounds after the first.
+
+    Each rank's round 0 (its visitor its own shard) writes its view; a
+    later round reads the visitor's, which the shift hands over after that
+    round 0. On one-card ranks every rank queues its work on one stream and
+    a rank's round 0 is queued before the shift's barrier, so stream order
+    finishes it before any later round reads it (``parallel.mesh``, the
+    baton); under ``torch.distributed`` the shift's ``batch_isend_irecv``
+    starts after the work queued on the sender's current stream and the
+    receiver's stream waits for it (``req.wait()``)."""
+    return pos.dtype == torch.float64 and pos.device.type == "cuda"
+
+
 def ring_force_fn(cfg: SimConfig, comm: Comm, detect: bool = False):
     """The ring force of one rank: ``fn(pos, mass, alive) -> (acc, U)``, the
     rank's shard of the accelerations and the global potential; with
@@ -111,7 +134,7 @@ def ring_force_fn(cfg: SimConfig, comm: Comm, detect: bool = False):
     ``contacts`` the psum'd directed touching-pair count (int32 0-dim) of
     the whole system at these positions."""
     P, rank = comm.size, comm.rank
-    from ..ops.cuda_forces import block_acc_cuda, block_acc_detect_cuda
+    from ..ops.cuda_forces import block_acc_cuda, block_acc_detect_cuda, detect_view_size
 
     def rounds(pos, mass, alive, radius=None):
         mass_eff = mass * alive.to(mass.dtype)
@@ -119,6 +142,9 @@ def ring_force_fn(cfg: SimConfig, comm: Comm, detect: bool = False):
         impl = _ring_block_impl(cfg, block, pos)
         kw = dict(G=cfg.G, eps2=cfg.eps2)
         visit = (pos, mass_eff) if radius is None else (pos, mass_eff, radius, alive)
+        # the rank's cast view, written by round 0 and shipped with the tables
+        own = (torch.empty(detect_view_size(block), dtype=torch.float32, device=pos.device)
+               if radius is not None and impl == "pallas" and _ships_views(pos) else None)
         acc = pe = count = None
         for k in range(P):
             j_off = ((rank - k) % P) * block  # the visiting shard's first global id
@@ -126,9 +152,11 @@ def ring_force_fn(cfg: SimConfig, comm: Comm, detect: bool = False):
                 a, p = (block_acc_cuda(pos, *visit, **kw) if impl == "pallas" else
                         block_acc_potential(pos, *visit, **kw))
             elif impl == "pallas":
-                p_j, m_j, r_j, al_j = visit
+                p_j, m_j, r_j, al_j = visit[:4]
+                vkw = ({} if own is None else dict(view_out=own) if k == 0
+                       else dict(views=(own, visit[4])))
                 a, p, c = block_acc_detect_cuda(pos, radius, alive, rank * block, p_j, m_j,
-                                                r_j, al_j, j_off, **kw)
+                                                r_j, al_j, j_off, **kw, **vkw)
             else:
                 p_j, m_j, r_j, al_j = visit
                 a, p = block_acc_potential(pos, p_j, m_j, **kw)
@@ -137,7 +165,7 @@ def ring_force_fn(cfg: SimConfig, comm: Comm, detect: bool = False):
             if radius is not None:
                 count = c if k == 0 else count + c
             if k < P - 1:
-                visit = comm.ppermute(visit)
+                visit = comm.ppermute(visit if k or own is None else visit + (own,))
         acc = acc * alive[:, None].to(acc.dtype)
         if cfg.eps2 > 0.0:
             # remove the analytic self term that the mask-free sweep includes
@@ -167,7 +195,7 @@ def ring_bounce_fn(cfg: SimConfig, comm: Comm):
     them in place (``out=``), the rounding of ``dpos + dp``; the wrapper's
     checks run on the first step of each shard shape and dtype only, when
     the shard's tables share one dtype and are contiguous."""
-    from ..ops.cuda_collisions import bounce_block_cuda
+    from ..ops.cuda_collisions import bounce_block_cuda, bounce_view_size
 
     P = comm.size
     checked = set()  # shard shapes and dtypes whose tensors the wrapper has checked
@@ -176,11 +204,16 @@ def ring_bounce_fn(cfg: SimConfig, comm: Comm):
         local = (pos, vel, mass, radius, alive)
         visit, out = local, None
         key = (pos.shape[0], pos.device, pos.dtype)
+        # the rank's cast view: round 0 writes it when the count lets it sweep
+        own = (torch.empty(bounce_view_size(pos.shape[0]), dtype=torch.float32,
+                           device=pos.device) if _ships_views(pos) else None)
         for k in range(P):
-            out = bounce_block_cuda(*local, *visit, restitution=restitution,
-                                    contacts=contacts, out=out, checked=key in checked)
+            vkw = ({} if own is None else dict(view_out=own) if k == 0
+                   else dict(views=(own, visit[5])))
+            out = bounce_block_cuda(*local, *visit[:5], restitution=restitution,
+                                    contacts=contacts, out=out, checked=key in checked, **vkw)
             if k < P - 1:
-                visit = comm.ppermute(visit)
+                visit = comm.ppermute(visit if k or own is None else visit + (own,))
         if pos.device.type == "cuda" and alive.dtype == torch.bool and all(
                 t.dtype == pos.dtype for t in local[:4]) and all(
                 t.is_contiguous() for t in local):

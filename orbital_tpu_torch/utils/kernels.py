@@ -24,7 +24,10 @@ runs count their launches with :func:`count_launch`.
 Float64 state: where the JAX package's route is a Pallas kernel, its
 wrapper casts f64 state to f32 once at entry and returns the state's dtype;
 the CUDA branch of each such wrapper here does the same through
-:func:`in_f32`.
+:func:`in_f32`. The f64 ring's kernels (B3 detect's and the block bounce's
+f64 instances) stage a shard's rows from its cast view, a float32 buffer
+that the ring's first round writes; :func:`cast_f32`, :func:`tile_maxima`
+and :func:`check_views` serve their plain versions and wrappers.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "load", "check",
            "build_log", "build_seconds", "refuse_grad", "count_launch", "stream_handle",
-           "in_f32"]
+           "in_f32", "cast_f32", "tile_maxima", "check_views", "view_args", "VIEW_TILE"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -157,11 +160,9 @@ def in_f32(fn, *args, **kwargs):
     adds exactly 0, never the NaN of inf - inf or 0 x inf."""
     import torch
 
-    big = 2.0 ** 100
-
     def down(a):
         if isinstance(a, torch.Tensor) and a.dtype == torch.float64:
-            return a.clamp(-big, big).to(torch.float32)
+            return cast_f32(a)
         return a
 
     def up(t):
@@ -171,6 +172,63 @@ def in_f32(fn, *args, **kwargs):
 
     out = fn(*(down(a) for a in args), **kwargs)
     return tuple(up(t) for t in out) if isinstance(out, tuple) else up(out)
+
+
+def cast_f32(x):
+    """A float64 tensor as :func:`in_f32` casts it: clamped to +-2^100, then
+    rounded to float32 (NaN stays NaN)."""
+    import torch
+
+    big = 2.0 ** 100
+    return x.clamp(-big, big).to(torch.float32)
+
+
+# the rows of a cast view's tile (the f64 ring kernels' j tiles)
+VIEW_TILE = 128
+
+
+def tile_maxima(values, keep):
+    """[ceil(n / VIEW_TILE)] float32: each tile's largest of the float32
+    ``values`` [n] over the rows where ``keep`` [n] holds, NaN rows skipped
+    and 0 where no row is left, as the kernels take it (``fmaxf`` from 0)."""
+    import torch
+
+    n = values.shape[0]
+    tiles = -(-n // VIEW_TILE)
+    v = torch.where(keep & ~torch.isnan(values), values, torch.zeros_like(values))
+    v = torch.nn.functional.pad(v, (0, tiles * VIEW_TILE - n))
+    return torch.clamp_min(v.reshape(tiles, VIEW_TILE).amax(1), 0.0)
+
+
+def check_views(what: str, view_out, views, sizes: tuple, device, wide: bool) -> None:
+    """A wrapper's cast-view arguments: ``view_out`` (the j side's view, to
+    write) or ``views`` (the i and j sides', to read), not both, each a
+    contiguous float32 tensor of ``sizes`` (i's, j's) elements on
+    ``device``, and only on float64 tables (``wide``)."""
+    import torch
+
+    if view_out is None and views is None:
+        return
+    if not wide:
+        raise TypeError(f"{what}: a cast view is for float64 tables")
+    if view_out is not None and views is not None:
+        raise ValueError(f"{what}: view_out (the first round's) or views (a later "
+                         f"round's), not both")
+    if views is not None and len(views) != 2:
+        raise ValueError(f"{what}: views must be the i and j sides' two views")
+    for v, size in [(view_out, sizes[1])] if views is None else zip(views, sizes):
+        if v is None or v.dtype != torch.float32 or v.device != device or \
+                v.numel() != size or not v.is_contiguous():
+            raise ValueError(f"{what}: a view must be a contiguous float32 tensor of {size} "
+                             f"elements on {device}")
+
+
+def view_args(view_out, views):
+    """The view entry points' (view_out, view_i, view_j), None where not
+    given; None without a view (the bare entry point)."""
+    if view_out is None and views is None:
+        return None
+    return (view_out, None, None) if views is None else (None, *views)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
